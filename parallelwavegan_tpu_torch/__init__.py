@@ -1,0 +1,13 @@
+"""PyTorch/CUDA port of parallelwavegan_tpu for one NVIDIA H100.
+
+The JAX package ``parallelwavegan_tpu`` is the reference: every module
+here mirrors its counterpart's path and class name, and the tests hold the
+two to each other on the CPU. Modules use the (B, C, T) layout and
+upstream's state-dict keys; the one hand-written CUDA kernel of this slice
+(``ops/kernels/hifigan_tail.py``) replaces the Pallas decode-tail kernel.
+
+This package imports torch, numpy, scipy and the standard library only; it
+never imports jax, flax or ``parallelwavegan_tpu``.
+"""
+
+__version__ = "0.1.0"

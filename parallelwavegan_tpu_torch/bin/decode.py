@@ -1,0 +1,112 @@
+"""Decoding CLI of the port (counterpart of parallelwavegan_tpu/bin/decode.py:34-223).
+
+Reads mel features from a dump directory, decodes each utterance with
+``load_model(...).inference`` on ``--device`` and writes 16-bit WAVs.
+``--use-pallas-tail`` routes the HiFi-GAN decode tail through the
+hand-written CUDA kernel (the JAX flag name, kept so configs and scripts
+are shared). RTF is measured per utterance with the device synchronised
+before each clock read. float32 convolutions run without TF32, as the JAX
+package computes in full float32.
+
+    python -m parallelwavegan_tpu_torch.bin.decode --dumpdir DUMP \
+        --outdir OUT --checkpoint CKPT.pkl [--config CONFIG] \
+        [--normalize-before] [--use-pallas-tail] [--device cuda]
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import time
+
+import numpy as np
+import torch
+
+from parallelwavegan_tpu_torch.data.datasets import MelDataset
+from parallelwavegan_tpu_torch.utils.config import load_config
+from parallelwavegan_tpu_torch.utils.io import read_hdf5, write_wav
+from parallelwavegan_tpu_torch.utils.model import load_model
+
+
+def _synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv=None) -> dict:
+    """Run the decode; returns {"rtf": mean RTF, "rtfs": per utterance}."""
+    parser = argparse.ArgumentParser(description="Decode with a trained vocoder.")
+    parser.add_argument("--dumpdir", type=str, required=True)
+    parser.add_argument("--outdir", type=str, required=True)
+    parser.add_argument("--checkpoint", type=str, required=True)
+    parser.add_argument("--config", default=None, type=str)
+    parser.add_argument("--normalize-before", default=False, action="store_true")
+    parser.add_argument(
+        "--use-pallas-tail", default=False, action="store_true",
+        help="run the HiFi-GAN decode tail through the hand-written CUDA "
+             "kernel (its plain PyTorch version on the CPU)",
+    )
+    parser.add_argument("--device", default="cuda", type=str)
+    parser.add_argument("--verbose", type=int, default=1)
+    args = parser.parse_args(argv)
+
+    logging.basicConfig(
+        level=logging.INFO if args.verbose > 0 else logging.WARN,
+        format="%(asctime)s (%(module)s:%(lineno)d) %(levelname)s: %(message)s",
+    )
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda was given but no CUDA device is available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    logging.info("TF32 off for matmuls and cuDNN convolutions (float32 decode).")
+
+    if args.config is not None:
+        config = load_config(args.config)
+    else:
+        config = load_config(os.path.join(os.path.dirname(args.checkpoint),
+                                          "config.yml"))
+
+    fmt = config.get("format", "hdf5")
+    if fmt == "hdf5":
+        dataset = MelDataset(args.dumpdir, mel_query="*.h5",
+                             mel_load_fn=lambda x: read_hdf5(x, "feats"))
+    elif fmt == "npy":
+        dataset = MelDataset(args.dumpdir, mel_query="*-feats.npy",
+                             mel_load_fn=np.load)
+    else:
+        raise ValueError("Support only hdf5 or npy format.")
+    logging.info("The number of features to be decoded = %d.", len(dataset))
+
+    if args.use_pallas_tail and config.get("generator_type") == "HiFiGANGenerator":
+        config = dict(config)
+        config["generator_params"] = dict(config["generator_params"],
+                                          use_pallas_tail=True)
+    model = load_model(args.checkpoint, config, device=device)
+    logging.info("Loaded model parameters from %s.", args.checkpoint)
+
+    os.makedirs(args.outdir, exist_ok=True)
+    fs = config["sampling_rate"]
+    rtfs = []
+    for i in range(len(dataset)):
+        utt_id, c = dataset[i]
+        _synchronize(device)
+        start = time.perf_counter()
+        y = model.inference(c, normalize_before=args.normalize_before)[:, 0]
+        _synchronize(device)
+        rtf = (time.perf_counter() - start) / (len(y) / fs)
+        if not np.all(np.isfinite(y)):
+            raise FloatingPointError(f"non-finite samples decoded for {utt_id}")
+        rtfs.append(rtf)
+        logging.info("%s: %d samples, RTF = %.06f", utt_id, len(y), rtf)
+        write_wav(os.path.join(args.outdir, f"{utt_id}_gen.wav"), fs, y)
+
+    mean_rtf = float(np.mean(rtfs))
+    logging.info("Finished generation of %d utterances (RTF = %.06f).",
+                 len(dataset), mean_rtf)
+    return {"rtf": mean_rtf, "rtfs": rtfs}
+
+
+if __name__ == "__main__":
+    main()

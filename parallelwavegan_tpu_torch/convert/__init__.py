@@ -1,0 +1,1 @@
+"""Parameter conversion between the JAX package and the port."""

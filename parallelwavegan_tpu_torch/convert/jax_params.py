@@ -1,0 +1,90 @@
+"""JAX parameter tree -> the port's (upstream-keyed) state dict.
+
+The inverse of parallelwavegan_tpu/convert/torch_checkpoint.py:510
+``_convert_tree`` for the models the port has: module paths go through
+the same name map as ``_t_hifigan_g`` (:131) in reverse, conv kernels
+(K, Cin, Cout) are transposed to torch's (Cout, Cin, K) (``_CONV_PERM``),
+transposed-conv kernels are flipped along K and laid out as torch's
+(Cin, Cout, K) (``_DECONV_PERM``, :466-467, :558-562), and weight norm's
+``g``/``v`` become ``weight_g``/``weight_v``.
+"""
+
+from __future__ import annotations
+
+from collections import OrderedDict
+
+import numpy as np
+import torch
+
+
+def _idx(seg: str) -> int:
+    return int(seg.rsplit("_", 1)[1])
+
+
+def _hifigan_prefix(path) -> str:
+    """Flax module path -> upstream state-dict prefix (``_t_hifigan_g``)."""
+    out = []
+    for p in path:
+        if p == "input_conv":
+            out.append("input_conv")
+        elif p.startswith("upsamples_"):
+            out.append(f"upsamples.{_idx(p)}.1")
+        elif p.startswith("blocks_"):
+            out.append(f"blocks.{_idx(p)}")
+        elif p.startswith("convs1_"):
+            out.append(f"convs1.{_idx(p)}.1")
+        elif p.startswith("convs2_"):
+            out.append(f"convs2.{_idx(p)}.1")
+        elif p == "output_conv":
+            out.append("output_conv.1")
+        else:
+            raise KeyError(f"hifigan path segment {p!r}")
+    return ".".join(out)
+
+
+def _flatten(tree, prefix=()):
+    for k, v in tree.items():
+        if hasattr(v, "items"):  # dict or flax FrozenDict
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def jax_params_to_state_dict(model_type: str, model_params: dict,
+                             params) -> "OrderedDict[str, torch.Tensor]":
+    """JAX params (``G.init(...)`` output or its ``"params"`` entry, with
+    numpy or jax arrays as leaves) -> port state dict of float32 tensors."""
+    if model_type != "HiFiGANGenerator":
+        raise NotImplementedError(
+            f"{model_type} is not ported yet; see ROADMAP.md"
+        )
+    if "params" in params:
+        params = params["params"]
+    n_up = len(model_params.get("upsample_scales", (8, 8, 2, 2)))
+    found = sum(1 for k in params if str(k).startswith("upsamples_"))
+    if found != n_up:
+        raise ValueError(f"params hold {found} upsample stages, "
+                         f"model_params {n_up}")
+    sd = OrderedDict()
+    for path, leaf in _flatten(params):
+        *mods, name = path
+        prefix = _hifigan_prefix(mods)
+        w = np.asarray(leaf, dtype=np.float32)
+        transpose = mods[-1].startswith("upsamples_")
+        if name == "bias":
+            sd[f"{prefix}.bias"] = w
+        elif name in ("v", "kernel"):
+            if transpose:
+                w = np.transpose(w[::-1], (1, 2, 0))
+            else:
+                w = np.transpose(w, (2, 1, 0))
+            sd[f"{prefix}.{'weight_v' if name == 'v' else 'weight'}"] = w
+        elif name == "g":
+            # JAX keeps the norm axis in place ((1, 1, Cout) for a conv,
+            # (1, Cin, 1) for a transpose); torch's weight_g is (n, 1, 1)
+            sd[f"{prefix}.weight_g"] = w.reshape(-1, 1, 1)
+        else:
+            raise KeyError(f"unknown leaf {name!r} at {'/'.join(mods)}")
+    return OrderedDict(
+        (k, torch.tensor(np.ascontiguousarray(v))) for k, v in sd.items()
+    )

@@ -1,0 +1,96 @@
+"""Weight-normalised 1-D convolutions (PyTorch, (B, C, T) layout).
+
+Counterpart of parallelwavegan_tpu/layers/convs.py:78-250. Weight norm is
+the legacy ``torch.nn.utils.weight_norm`` at dim 0, which keeps upstream's
+``weight_g``/``weight_v`` state-dict keys. On torch's native layouts dim 0
+is the output channel of a conv and the input channel of a transposed
+conv, the same norm groups as the JAX package. For decode the norm is
+folded into a plain weight (``remove_weight_norm``), as upstream does.
+
+Initialisation follows the JAX package: torch's default
+U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weights and biases, or N(0, std)
+weights where the caller asks for it; every draw comes from the explicit
+``torch.Generator`` passed in.
+"""
+
+from __future__ import annotations
+
+import math
+import warnings
+
+import torch
+from torch import nn
+
+
+def _init_(conv: nn.Module, fan_in: int, generator, normal_std) -> None:
+    bound = 1.0 / math.sqrt(fan_in)
+    with torch.no_grad():
+        if normal_std is None:
+            conv.weight.uniform_(-bound, bound, generator=generator)
+        else:
+            conv.weight.normal_(0.0, normal_std, generator=generator)
+        if conv.bias is not None:
+            conv.bias.uniform_(-bound, bound, generator=generator)
+
+
+def apply_weight_norm(module: nn.Module) -> nn.Module:
+    """Legacy weight norm at dim 0 (upstream's ``weight_g``/``weight_v``)."""
+    with warnings.catch_warnings():
+        # the parametrizations API would rename the keys upstream uses
+        warnings.simplefilter("ignore", FutureWarning)
+        return torch.nn.utils.weight_norm(module, dim=0)
+
+
+def remove_weight_norm(module: nn.Module) -> None:
+    """Fold weight norm into plain weights in every submodule."""
+    for m in module.modules():
+        if hasattr(m, "weight_g"):
+            torch.nn.utils.remove_weight_norm(m)
+
+
+def effective_weight(conv: nn.Module) -> torch.Tensor:
+    """The weight a forward pass would use, recomputed from (g, v)."""
+    if hasattr(conv, "weight_g"):
+        return torch._weight_norm(conv.weight_v, conv.weight_g, 0)
+    return conv.weight
+
+
+class Conv1d(nn.Conv1d):
+    """Conv1d with 'same' zero padding (odd kernel) and optional weight norm."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 *, dilation: int = 1, bias: bool = True,
+                 use_weight_norm: bool = True, normal_std: float | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__(in_channels, out_channels, kernel_size,
+                         dilation=dilation,
+                         padding=(kernel_size - 1) // 2 * dilation, bias=bias)
+        _init_(self, in_channels * kernel_size, generator, normal_std)
+        if use_weight_norm:
+            apply_weight_norm(self)
+
+    def gather_weight(self) -> torch.Tensor:
+        """Effective weight in the JAX gather form (K, Cin, Cout)."""
+        return effective_weight(self).permute(2, 1, 0)
+
+
+class ConvTranspose1d(nn.ConvTranspose1d):
+    """ConvTranspose1d with torch length math and optional weight norm."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int, *, padding: int = 0, output_padding: int = 0,
+                 bias: bool = True, use_weight_norm: bool = True,
+                 normal_std: float | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__(in_channels, out_channels, kernel_size, stride,
+                         padding=padding, output_padding=output_padding,
+                         bias=bias)
+        _init_(self, in_channels * kernel_size, generator, normal_std)
+        if use_weight_norm:
+            apply_weight_norm(self)
+
+    def gather_weight(self) -> torch.Tensor:
+        """Effective weight in the JAX gather form (K, Cin, Cout): torch's
+        (Cin, Cout, K) scatter weight flipped along K
+        (parallelwavegan_tpu/ops/conv.py:104-141)."""
+        return effective_weight(self).permute(2, 0, 1).flip(0)

@@ -1,0 +1,20 @@
+"""Model registry of the port: the YAML-facing class names.
+
+Only ``HiFiGANGenerator`` is ported so far; ROADMAP.md lists the rest in
+the order they are to come.
+"""
+
+from parallelwavegan_tpu_torch.models.hifigan import HiFiGANGenerator
+
+MODEL_REGISTRY = {
+    "HiFiGANGenerator": HiFiGANGenerator,
+}
+
+
+def get_model_class(name: str):
+    if name not in MODEL_REGISTRY:
+        raise NotImplementedError(
+            f"{name} is not ported to parallelwavegan_tpu_torch yet; "
+            "see ROADMAP.md for the modules still to port"
+        )
+    return MODEL_REGISTRY[name]

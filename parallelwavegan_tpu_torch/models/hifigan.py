@@ -1,0 +1,204 @@
+"""HiFi-GAN generator (PyTorch, (B, C, T) layout).
+
+Counterpart of parallelwavegan_tpu/models/hifigan.py:137-353. Submodule
+names and ``nn.Sequential`` nesting reproduce upstream's state-dict keys
+(``input_conv.*``, ``upsamples.{i}.1.*``, ``blocks.{j}.convs{1,2}.{m}.1.*``,
+``output_conv.1.*``), so a state dict of this module is an upstream
+checkpoint and ``parallelwavegan_tpu``'s ``load_model`` reads it.
+
+With ``use_pallas_tail`` (the JAX flag name, kept so configs are shared)
+and the same gate as the JAX generator (:203-221), the last two stride-2
+stages and the output conv run through ``fused_hifigan_tail``: the
+hand-written CUDA kernel on a GPU, its plain PyTorch version on the CPU.
+The causal variant and the discriminators are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from parallelwavegan_tpu_torch.layers.convs import (
+    Conv1d,
+    ConvTranspose1d,
+    remove_weight_norm,
+)
+from parallelwavegan_tpu_torch.layers.residual_block import (
+    HiFiGANResidualBlock,
+    get_activation,
+)
+from parallelwavegan_tpu_torch.ops.kernels.hifigan_tail import (
+    fused_hifigan_tail,
+)
+
+
+class HiFiGANGenerator(nn.Module):
+    """mel (B, in_channels, T) -> wave (B, out_channels, T * prod(scales))."""
+
+    def __init__(
+        self,
+        in_channels: int = 80,
+        out_channels: int = 1,
+        channels: int = 512,
+        kernel_size: int = 7,
+        upsample_scales: Sequence[int] = (8, 8, 2, 2),
+        upsample_kernel_sizes: Sequence[int] = (16, 16, 4, 4),
+        resblock_kernel_sizes: Sequence[int] = (3, 7, 11),
+        resblock_dilations: Sequence[Sequence[int]] = ((1, 3, 5),) * 3,
+        use_additional_convs: bool = True,
+        bias: bool = True,
+        nonlinear_activation: str = "LeakyReLU",
+        nonlinear_activation_params: dict | None = None,
+        use_causal_conv: bool = False,
+        use_weight_norm: bool = True,
+        use_pallas_tail: bool = False,
+        device: torch.device | str | None = None,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        if use_causal_conv:
+            raise NotImplementedError(
+                "the causal HiFi-GAN generator is not ported yet; see ROADMAP.md"
+            )
+        assert kernel_size % 2 == 1, "Kernel size must be odd number."
+        assert len(upsample_scales) == len(upsample_kernel_sizes)
+        assert len(resblock_dilations) == len(resblock_kernel_sizes)
+        act_params = nonlinear_activation_params or {"negative_slope": 0.1}
+        self.upsample_scales = tuple(int(s) for s in upsample_scales)
+        self.num_blocks = len(resblock_kernel_sizes)
+        # without weight norm the reference's N(0, 0.01) reset is effective
+        normal_std = None if use_weight_norm else 0.01
+        conv_kw = dict(bias=bias, use_weight_norm=use_weight_norm,
+                       normal_std=normal_std, generator=generator)
+
+        self.input_conv = Conv1d(in_channels, channels, kernel_size, **conv_kw)
+        self.upsamples = nn.ModuleList()
+        self.blocks = nn.ModuleList()
+        for i, (s, k) in enumerate(zip(upsample_scales, upsample_kernel_sizes)):
+            assert k == 2 * s
+            ch = channels // (2 ** (i + 1))
+            self.upsamples.append(nn.Sequential(
+                get_activation(nonlinear_activation, act_params),
+                ConvTranspose1d(channels // (2 ** i), ch, k, s,
+                                padding=s // 2 + s % 2, output_padding=s % 2,
+                                **conv_kw),
+            ))
+            for rk, rd in zip(resblock_kernel_sizes, resblock_dilations):
+                self.blocks.append(HiFiGANResidualBlock(
+                    kernel_size=rk, channels=ch, dilations=rd, bias=bias,
+                    use_additional_convs=use_additional_convs,
+                    nonlinear_activation=nonlinear_activation,
+                    nonlinear_activation_params=act_params,
+                    use_weight_norm=use_weight_norm, generator=generator,
+                ))
+        # official impl uses the default LeakyReLU slope (0.01) here
+        self.output_conv = nn.Sequential(
+            nn.LeakyReLU(),
+            Conv1d(channels // (2 ** len(upsample_scales)), out_channels,
+                   kernel_size, **conv_kw),
+            nn.Tanh(),
+        )
+
+        n_up = len(self.upsample_scales)
+        self.tail_from = None
+        if (
+            use_pallas_tail
+            and use_additional_convs
+            and bias
+            and out_channels == 1
+            and nonlinear_activation == "LeakyReLU"
+            and n_up >= 2
+            and all(s == 2 for s in self.upsample_scales[-2:])
+        ):
+            c_tail = channels // (2 ** (n_up - 2))
+            # the same gate as the JAX generator: tail entry width a
+            # power of two <= 128
+            if c_tail <= 128 and (c_tail & (c_tail - 1)) == 0:
+                self.tail_from = n_up - 2
+        self.slope = act_params.get("negative_slope", 0.1)
+        self._tail_cache = None
+        if device is not None:
+            self.to(device)
+
+    @property
+    def upsample_factor(self) -> int:
+        f = 1
+        for s in self.upsample_scales:
+            f *= s
+        return f
+
+    def forward(self, c: torch.Tensor) -> torch.Tensor:
+        c = self.input_conv(c)
+        nb = self.num_blocks
+        if self.tail_from == 0:
+            return self._fused_tail(c)
+        for i in range(len(self.upsample_scales)):
+            c = self.upsamples[i](c)
+            if self.tail_from is not None and i == self.tail_from - 1:
+                # this stage's MRF folds into the tail at the entry rate
+                return self._fused_tail(c)
+            cs = self.blocks[i * nb](c)
+            for j in range(1, nb):
+                cs = cs + self.blocks[i * nb + j](c)
+            c = cs / nb
+        return self.output_conv(c)
+
+    def _fused_tail(self, c: torch.Tensor) -> torch.Tensor:
+        if torch.is_grad_enabled():
+            # the kernel has no backward and the bundle is detached: a
+            # training forward would silently drop the tail's gradients
+            raise RuntimeError("use_pallas_tail is inference-only: run the "
+                               "forward under torch.inference_mode()")
+        w = self._tail_cache or self.tail_weights()
+        y = fused_hifigan_tail(
+            c.transpose(1, 2).contiguous(), w["stages"], w["final_w"],
+            w["final_b"], slope=self.slope, pre_blocks=w["pre_blocks"],
+        )
+        return y.transpose(1, 2)
+
+    def tail_weights(self) -> dict:
+        """The weight bundle of ``fused_hifigan_tail`` in the JAX gather
+        form (hifigan_tail.py:86-90), from the current effective weights."""
+        nb = self.num_blocks
+        tf = self.tail_from
+
+        def blocks(i):
+            return [self.blocks[i * nb + j].gather_weights() for j in range(nb)]
+
+        stages = []
+        for i in range(tf, len(self.upsample_scales)):
+            deconv = self.upsamples[i][1]
+            stages.append({
+                "deconv_w": deconv.gather_weight().detach().contiguous(),
+                "deconv_b": deconv.bias.detach().contiguous(),
+                "stride": deconv.stride[0],
+                "padding": deconv.padding[0],
+                "blocks": blocks(i),
+            })
+        out_conv = self.output_conv[1]
+        return {
+            "pre_blocks": blocks(tf - 1) if tf > 0 else None,
+            "stages": stages,
+            "final_w": out_conv.gather_weight().detach().contiguous(),
+            "final_b": out_conv.bias.detach().contiguous(),
+        }
+
+    def prepare_tail(self) -> None:
+        """Build the tail weight bundle once, for decode. Call it after the
+        weights are loaded, folded and on their device; loading weights or
+        moving the module afterwards drops the bundle again."""
+        self._tail_cache = self.tail_weights() if self.tail_from is not None else None
+
+    def remove_weight_norm(self) -> None:
+        remove_weight_norm(self)
+        self._tail_cache = None
+
+    def _apply(self, fn, *args, **kwargs):
+        self._tail_cache = None
+        return super()._apply(fn, *args, **kwargs)
+
+    def load_state_dict(self, *args, **kwargs):
+        self._tail_cache = None
+        return super().load_state_dict(*args, **kwargs)

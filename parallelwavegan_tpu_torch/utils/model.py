@@ -1,0 +1,93 @@
+"""Model loading + inference wrapper (the port's ``load_model``).
+
+Counterpart of parallelwavegan_tpu/utils/model.py:42-164 and :613-670:
+config discovery from the checkpoint directory, the ``upsample_kernal_sizes``
+typo remap, generator-only weight load from an upstream ``.pkl``, stats
+registered for ``normalize_before``, and ``inference`` padding the mel to a
+bucket of 32 frames with edge values before trimming the output, so that
+the waveform equals the JAX package's. Batched, streaming, sharded and
+PQMF decode are not ported yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+
+import numpy as np
+import torch
+
+from parallelwavegan_tpu_torch.utils.checkpoint import load_generator_state_dict
+from parallelwavegan_tpu_torch.utils.config import load_config
+from parallelwavegan_tpu_torch.utils.io import read_hdf5
+
+
+def _load_stats(stats_path: str):
+    if stats_path.endswith(".h5"):
+        mean = read_hdf5(stats_path, "mean").reshape(-1)
+        scale = read_hdf5(stats_path, "scale").reshape(-1)
+    else:
+        arr = np.load(stats_path)
+        mean = arr[0].reshape(-1)
+        scale = arr[1].reshape(-1)
+    return mean.astype(np.float32), scale.astype(np.float32)
+
+
+class InferenceModel:
+    """A generator on its device with a reference-compatible ``inference``."""
+
+    BUCKET = 32  # mel frames; the JAX package pads to the same multiple
+
+    def __init__(self, generator, device, mean=None, scale=None):
+        self.generator = generator
+        self.device = torch.device(device)
+        self.mean = mean
+        self.scale = scale
+
+    @torch.inference_mode()
+    def inference(self, c, normalize_before: bool = False) -> np.ndarray:
+        """mel (T', num_mels) -> waveform (T' * upsample_factor, out)."""
+        c = np.asarray(c, dtype=np.float32)
+        if normalize_before:
+            if self.mean is None:
+                raise ValueError("normalize_before needs registered stats")
+            c = (c - self.mean) / self.scale
+        t = c.shape[0]
+        pad_t = -(-t // self.BUCKET) * self.BUCKET
+        c_p = np.pad(c, ((0, pad_t - t), (0, 0)), mode="edge")
+        x = torch.from_numpy(np.ascontiguousarray(c_p.T[None])).to(self.device)
+        y = self.generator(x)[0].transpose(0, 1)
+        return y.cpu().numpy()[: t * self.generator.upsample_factor]
+
+
+def load_model(checkpoint: str, config: dict | None = None,
+               stats: str | None = None, *, device="cpu") -> InferenceModel:
+    """Load a generator from an upstream ``.pkl`` for inference on ``device``:
+    weight norm folded, eval mode, tail weights prepared."""
+    from parallelwavegan_tpu_torch.models import get_model_class
+
+    dirname = os.path.dirname(checkpoint)
+    if config is None:
+        config = load_config(os.path.join(dirname, "config.yml"))
+    generator_type = config.get("generator_type", "ParallelWaveGANGenerator")
+    # workaround for the reference's config typo (#295)
+    generator_params = {
+        k.replace("upsample_kernal_sizes", "upsample_kernel_sizes"): v
+        for k, v in config["generator_params"].items()
+    }
+    generator = get_model_class(generator_type)(**generator_params)
+    generator.load_state_dict(load_generator_state_dict(checkpoint))
+    generator.remove_weight_norm()
+    generator.eval().to(device)
+    generator.prepare_tail()
+
+    if stats is None:
+        ext = "h5" if config.get("format", "hdf5") == "hdf5" else "npy"
+        cand = os.path.join(dirname, f"stats.{ext}")
+        if os.path.exists(cand):
+            stats = cand
+    mean = scale = None
+    if stats is not None:
+        mean, scale = _load_stats(stats)
+        logging.info("Successfully registered stats as buffer.")
+    return InferenceModel(generator, device, mean=mean, scale=scale)
