@@ -4,26 +4,47 @@
 
 Phases (any failure exits non-zero; nothing is caught):
 
-1. Preconditions and build: a CUDA device must be present; the fused
-   HiFi-GAN tail kernel is compiled from this checkout's sources.
-2. Kernel against its plain PyTorch version at the HiFi-GAN v1 tail shapes
-   (B=1, T0=32768, C0=128: the tail of a 512-frame decode) and on one
-   ragged case (B=2, T0=1000), max |diff| <= 2e-4, with CUDA-event times.
-3. The main path through the decode entry point: a random-init, full-width
-   HiFi-GAN v1 checkpoint, stats and a 3-utterance npy dump directory are
-   written to a scratch directory in the checkout;
-   ``parallelwavegan_tpu_torch.bin.decode.main`` decodes it with
-   ``--use-pallas-tail`` (the kernel must launch once per utterance) and
-   again with the tail off; the two must agree to 2e-4.
+1. Preconditions and build: a CUDA device must be present; every kernel
+   source (``ops/kernels/csrc/*.cu``) is compiled from this checkout, one
+   nvcc process per source, all started together, into one library.
+2. HiFi-GAN tail kernel against its plain PyTorch version at the HiFi-GAN
+   v1 tail shapes (B=1, T0=32768, C0=128: the tail of a 512-frame decode)
+   and on one ragged case (B=2, T0=1000), max |diff| <= 2e-4, with
+   CUDA-event times.
+3. HiFi-GAN v1 decode through ``parallelwavegan_tpu_torch.bin.decode.main``:
+   a random-init, full-width checkpoint, stats and a 3-utterance npy dump
+   directory are written to a scratch directory in the checkout and
+   decoded with ``--use-pallas-tail`` (the kernel must launch once per
+   utterance) and again with the tail off; the two must agree to 2e-4.
+4. The WaveNet layer kernel against its plain version at Parallel WaveGAN
+   v1 widths (residual 64, gate 128, skip 64, aux 80): one dilation cycle
+   (1..512) at B=1, T=131072 (512 frames) with CUDA-event times, a ragged
+   cycle (B=2, T=1000, the d=512 halo past both ends), and single layers
+   (K5) at the main path's shapes, non-causal d=1 and d=512 at T=131072
+   (timed at d=1), and non-causal d=1 and causal d=4 at T=777.
+5. The split of the Parallel WaveGAN v1 forward at 512 frames: upsample
+   net, the 30 layers with and without the kernel, the last convs, and the
+   whole forward with and without it.
+6. Parallel WaveGAN v1 decode through ``bin/decode.main``: a random-init,
+   full-width checkpoint with ``generator_params`` verbatim from
+   egs/ljspeech/voc1/conf/parallel_wavegan.v1.yaml (its
+   ``use_pallas_stack_train: true`` alone routes the 30 layers through the
+   kernel: 30 launches per utterance), then with ``use_pallas_kernels``
+   instead (the one-layer call: 30 launches per utterance), then with
+   every kernel flag off, each with the same noise; the WAVs agree to 2e-4.
 
 The last three lines are the kernel record (JSON), the card's name and
-power limit from nvidia-smi, and {"ok": true, "device": {...}}.
+power limit from nvidia-smi, and {"ok": true, "device": {...}}. Every
+bound in the record is the larger of the bytes each call must move (each
+input read once, each output written once) over 3.35 TB/s and its float32
+operations over 67 TFLOP/s, the H100 SXM data-sheet peaks at 700 W.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -47,7 +68,18 @@ V1_GENERATOR = dict(
     use_additional_convs=True, bias=True, nonlinear_activation="LeakyReLU",
     nonlinear_activation_params={"negative_slope": 0.1}, use_weight_norm=True,
 )
+# egs/ljspeech/voc1/conf/parallel_wavegan.v1.yaml (a test holds these equal to it)
+V1_PWG_GENERATOR = dict(
+    in_channels=1, out_channels=1, kernel_size=3, layers=30, stacks=3,
+    residual_channels=64, gate_channels=128, skip_channels=64,
+    aux_channels=80, aux_context_window=2, dropout=0.0, use_weight_norm=True,
+    upsample_net="ConvInUpsampleNetwork",
+    upsample_params={"upsample_scales": [4, 4, 4, 4]},
+    use_pallas_stack_train=True,
+)
 UTT_FRAMES = (512, 300, 77)
+PEAK_FLOPS = 67e12  # float32 on the CUDA cores
+PEAK_BYTES = 3.35e12
 
 
 def _fail(msg: str) -> None:
@@ -77,6 +109,61 @@ def _median_ms(fn, reps: int = 10) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _reset_launch_counts() -> None:
+    """Every kernel wrapper's launch count to 0, just before a main path."""
+    from parallelwavegan_tpu_torch.ops.kernels.hifigan_tail import (
+        fused_hifigan_tail,
+    )
+    from parallelwavegan_tpu_torch.ops.kernels.wavenet import (
+        fused_gated_resblock,
+        fused_wavenet_stack,
+    )
+
+    for fn in (fused_hifigan_tail, fused_wavenet_stack, fused_gated_resblock):
+        fn.launches = 0
+
+
+def _bound(flops: float, nbytes: float) -> dict:
+    ops_ms, bytes_ms = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+def _tail_work(x, w) -> dict:
+    """Operations and bytes of one tail call on x with the bundle w."""
+    b, t, c = x.shape
+
+    def mrf(blocks, t, c):  # two K-tap C x C convs per unit and dilation
+        return sum(2 * blk["w1"].shape[1] * len(blk["dilations"]) * t * c * c
+                   for blk in blocks)
+
+    mac = mrf(w["pre_blocks"], t, c) if w["pre_blocks"] else 0
+    for st in w["stages"]:
+        mac += t * c * (c // 2) * st["deconv_w"].shape[0]
+        t, c = t * st["stride"], c // 2
+        mac += mrf(st["blocks"], t, c)
+    kf, cin, out = w["final_w"].shape
+    mac += t * cin * out * kf
+    weights = [w["final_w"], w["final_b"]]
+    for blocks in [w["pre_blocks"] or []] + [st["blocks"] for st in w["stages"]]:
+        weights += [blk[k] for blk in blocks for k in ("w1", "b1", "w2", "b2")]
+    weights += [st[k] for st in w["stages"] for k in ("deconv_w", "deconv_b")]
+    nbytes = 4 * (x.numel() + b * t * out + sum(v.numel() for v in weights))
+    return _bound(2.0 * b * mac, nbytes)
+
+
+def _wavenet_work(x, c, w) -> dict:
+    """Operations and bytes of the gated layers with stacked weights w."""
+    b, t, cr = x.shape
+    n, k, _, cg = w["wconv"].shape
+    mac_per_row = (k * cr * cg + c.shape[2] * cg + w["wskip"].shape[1] * w["wskip"].shape[2]
+                   + w["wres"].shape[1] * w["wres"].shape[2])
+    nbytes = 4 * (x.numel() + c.numel() + 2 * x.numel()
+                  + sum(v.numel() for v in w.values()))
+    return _bound(2.0 * b * t * n * mac_per_row, nbytes)
 
 
 def phase_kernel(card: str) -> dict:
@@ -124,14 +211,18 @@ def phase_kernel(card: str) -> dict:
                 record["ms"] = _median_ms(lambda: fused_hifigan_tail(x, *args, **kw))
                 record["plain_ms"] = _median_ms(
                     lambda: hifigan_tail_reference(x, *args, **kw))
+            record.update(_tail_work(x, w))
             print(f"time [v1, median of 10, CUDA events]: kernel "
-                  f"{record['ms']:.3f} ms, plain {record['plain_ms']:.3f} ms "
-                  f"on {card}")
+                  f"{record['ms']:.3f} ms, plain {record['plain_ms']:.3f} ms, "
+                  f"bound {record['bound_ms']:.3f} ms ({record['flops'] / 1e9:.1f} "
+                  f"GFLOP, {record['bytes'] / 1e6:.1f} MB) on {card}")
     return record
 
 
-def _write_inputs(config_tail: dict) -> dict:
-    """Checkpoint, stats, configs and an npy dump directory under WORK."""
+def _write_inputs(gen_type: str, generator_params: dict, variants: dict) -> dict:
+    """Under WORK/<gen_type>: a random-init checkpoint, stats, an npy dump
+    directory of the utterances, and one config per variant (overrides of
+    ``generator_params``)."""
     import numpy as np
     import torch
 
@@ -139,12 +230,13 @@ def _write_inputs(config_tail: dict) -> dict:
     from parallelwavegan_tpu_torch.ops.mel import logmelfilterbank
     from parallelwavegan_tpu_torch.utils.checkpoint import save_checkpoint
 
-    shutil.rmtree(WORK, ignore_errors=True)
-    exp, dump = os.path.join(WORK, "exp"), os.path.join(WORK, "dump")
+    root = os.path.join(WORK, gen_type)
+    shutil.rmtree(root, ignore_errors=True)
+    exp, dump = os.path.join(root, "exp"), os.path.join(root, "dump")
     os.makedirs(exp)
     os.makedirs(dump)
-    gen = get_model_class("HiFiGANGenerator")(
-        **V1_GENERATOR, generator=torch.Generator().manual_seed(SEED))
+    gen = get_model_class(gen_type)(
+        **generator_params, generator=torch.Generator().manual_seed(SEED))
     ckpt = os.path.join(exp, "checkpoint-0steps.pkl")
     save_checkpoint(ckpt, gen.state_dict(), steps=0)
 
@@ -164,11 +256,10 @@ def _write_inputs(config_tail: dict) -> dict:
     np.save(os.path.join(exp, "stats.npy"),
             np.stack([allm.mean(0), allm.std(0)]).astype(np.float32))
 
-    paths = {"ckpt": ckpt, "dump": dump}
-    for name, tail in (("tail", True), ("plain", False)):
-        cfg = dict(config_tail)
-        cfg["generator_params"] = dict(cfg["generator_params"],
-                                       use_pallas_tail=tail)
+    paths = {"ckpt": ckpt, "dump": dump, "root": root}
+    for name, overrides in variants.items():
+        cfg = dict(V1_FEATURES, format="npy", generator_type=gen_type,
+                   generator_params=dict(generator_params, **overrides))
         paths[name] = os.path.join(exp, f"config_{name}.json")
         with open(paths[name], "w") as f:
             json.dump(cfg, f)
@@ -186,24 +277,49 @@ def _read_wavs(outdir: str) -> dict:
     return out
 
 
-def phase_decode(card: str) -> dict:
-    """The main path: decode entry point with the tail kernel, then without."""
+def _compare_wavs(dir_a: str, dir_b: str) -> float:
+    """max |a - b| over the utterances; fails on a wrong set, length,
+    non-finite or silent output."""
     import numpy as np
 
+    wav_a, wav_b = _read_wavs(dir_a), _read_wavs(dir_b)
+    expected = {f"utt{i}-feats_gen.wav": f * V1_FEATURES["hop_size"]
+                for i, f in enumerate(UTT_FRAMES)}
+    if set(wav_a) != set(expected) or set(wav_b) != set(expected):
+        _fail(f"wav files {sorted(wav_a)} / {sorted(wav_b)}")
+    err = 0.0
+    for name, n in expected.items():
+        a, b = wav_a[name], wav_b[name]
+        if a.shape != (n,) or b.shape != (n,):
+            _fail(f"{name}: lengths {a.shape} / {b.shape}, expected {n}")
+        if not (np.isfinite(a).all() and np.isfinite(b).all()):
+            _fail(f"{name}: non-finite samples")
+        if float(np.abs(a).max()) == 0.0:
+            _fail(f"{name}: silent output")
+        err = max(err, float(np.abs(a - b).max()))
+    return err
+
+
+def _rtfs(res: dict) -> str:
+    return f"{res['rtf']:.6f} {['%.6f' % r for r in res['rtfs']]}"
+
+
+def phase_decode(card: str) -> dict:
+    """HiFi-GAN v1 decode entry point with the tail kernel, then without."""
     from parallelwavegan_tpu_torch.bin import decode
     from parallelwavegan_tpu_torch.ops.kernels.hifigan_tail import (
         fused_hifigan_tail,
     )
 
-    config = dict(V1_FEATURES, format="npy", generator_type="HiFiGANGenerator",
-                  generator_params=dict(V1_GENERATOR))
-    p = _write_inputs(config)
+    p = _write_inputs("HiFiGANGenerator", V1_GENERATOR,
+                      {"tail": {"use_pallas_tail": True},
+                       "plain": {"use_pallas_tail": False}})
     common = ["--dumpdir", p["dump"], "--checkpoint", p["ckpt"],
               "--normalize-before", "--device", "cuda"]
-    out_tail = os.path.join(WORK, "wav_tail")
-    out_plain = os.path.join(WORK, "wav_plain")
+    out_tail = os.path.join(p["root"], "wav_tail")
+    out_plain = os.path.join(p["root"], "wav_plain")
 
-    fused_hifigan_tail.launches = 0
+    _reset_launch_counts()
     res_tail = decode.main(common + ["--outdir", out_tail, "--config", p["tail"],
                                      "--use-pallas-tail"])
     launches = fused_hifigan_tail.launches
@@ -216,31 +332,207 @@ def phase_decode(card: str) -> dict:
     if fused_hifigan_tail.launches != launches:
         _fail("the plain decode launched the tail kernel")
 
-    wav_tail, wav_plain = _read_wavs(out_tail), _read_wavs(out_plain)
-    expected = {f"utt{i}-feats_gen.wav": f * V1_FEATURES["hop_size"]
-                for i, f in enumerate(UTT_FRAMES)}
-    if set(wav_tail) != set(expected) or set(wav_plain) != set(expected):
-        _fail(f"wav files {sorted(wav_tail)} / {sorted(wav_plain)}")
-    err = 0.0
-    for name, n in expected.items():
-        a, b = wav_tail[name], wav_plain[name]
-        if a.shape != (n,) or b.shape != (n,):
-            _fail(f"{name}: lengths {a.shape} / {b.shape}, expected {n}")
-        if not (np.isfinite(a).all() and np.isfinite(b).all()):
-            _fail(f"{name}: non-finite samples")
-        if float(np.abs(a).max()) == 0.0:
-            _fail(f"{name}: silent output")
-        err = max(err, float(np.abs(a - b).max()))
+    err = _compare_wavs(out_tail, out_plain)
     print(f"decode with tail kernel vs without: max|diff| = {err:.3e} "
           f"(tol {TOL}, 16-bit WAVs)")
     if not err <= TOL:
         _fail("decode with the tail kernel disagrees with the plain decode")
     print(f"decode RTF (mean of {len(UTT_FRAMES)} utterances, first one "
-          f"includes warm-up) on {card}: tail kernel {res_tail['rtf']:.6f} "
-          f"{['%.6f' % r for r in res_tail['rtfs']]}, plain "
-          f"{res_plain['rtf']:.6f} {['%.6f' % r for r in res_plain['rtfs']]}")
-    shutil.rmtree(WORK)
+          f"includes warm-up) on {card}: tail kernel {_rtfs(res_tail)}, "
+          f"plain {_rtfs(res_plain)}")
+    shutil.rmtree(p["root"])
     return {"launches": launches, "err": err}
+
+
+def _pwg_v1(flags: dict):
+    """The full-width PWG v1 generator from SEED on the card, weight norm
+    folded, eval mode, kernel weights prepared."""
+    import torch
+
+    from parallelwavegan_tpu_torch.models import get_model_class
+
+    gen = get_model_class("ParallelWaveGANGenerator")(
+        **dict(V1_PWG_GENERATOR, **flags), device="cuda",
+        generator=torch.Generator().manual_seed(SEED))
+    gen.remove_weight_norm()
+    gen.eval()
+    gen.prepare_kernels()
+    return gen
+
+
+def phase_wavenet(card: str) -> dict:
+    """The WaveNet layer kernel (K3 stack, K5 block) vs its plain version."""
+    import numpy as np
+    import torch
+
+    from parallelwavegan_tpu_torch.ops.kernels.wavenet import (
+        WEIGHT_KEYS,
+        fused_gated_resblock,
+        fused_wavenet_stack,
+        gated_resblock_reference,
+        wavenet_stack_reference,
+    )
+
+    gen = _pwg_v1({})
+    n = V1_PWG_GENERATOR["layers"] // V1_PWG_GENERATOR["stacks"]
+    all_weights, all_dilations = gen.stack_weights()
+    weights = {k: v[:n] for k, v in all_weights.items()}  # the first cycle
+    dilations = all_dilations[:n]
+    rs = np.random.RandomState(SEED)
+
+    def inputs(b, t):
+        x = torch.from_numpy(rs.randn(b, t, 64).astype(np.float32)).to("cuda")
+        c = torch.from_numpy(rs.randn(b, t, 80).astype(np.float32)).to("cuda")
+        return x, c
+
+    def check(name, got, want):
+        for g, r in zip(got, want):
+            if g.shape != r.shape or not torch.isfinite(g).all():
+                _fail(f"{name}: shapes {tuple(g.shape)} vs {tuple(r.shape)} "
+                      "or non-finite kernel output")
+        err = max(float((g - r).abs().max()) for g, r in zip(got, want))
+        print(f"kernel vs plain [{name}]: max|diff| (x_out, skip) = {err:.3e} "
+              f"(tol {TOL})")
+        if not err <= TOL:
+            _fail(f"{name}: kernel disagrees with its plain version")
+        return err
+
+    stack, block = {"errs": []}, {"errs": []}
+    with torch.inference_mode():
+        for name, (b, t) in (("v1 cycle", (1, 131072)), ("ragged", (2, 1000))):
+            x, c = inputs(b, t)
+            got = fused_wavenet_stack(x, c, weights, dilations)
+            torch.cuda.synchronize()
+            want = wavenet_stack_reference(x, c, weights, dilations)
+            stack["errs"].append(check(f"stack {name} B={b} T={t}", got, want))
+            if name == "v1 cycle":
+                stack["ms"] = _median_ms(
+                    lambda: fused_wavenet_stack(x, c, weights, dilations))
+                stack["plain_ms"] = _median_ms(
+                    lambda: wavenet_stack_reference(x, c, weights, dilations))
+                stack.update(_wavenet_work(x, c, weights))
+                print(f"time [stack, one v1 cycle of 10 layers, B=1 T=131072, "
+                      f"median of 10, CUDA events]: kernel {stack['ms']:.3f} ms, "
+                      f"plain {stack['plain_ms']:.3f} ms, bound "
+                      f"{stack['bound_ms']:.3f} ms ({stack['flops'] / 1e9:.1f} "
+                      f"GFLOP, {stack['bytes'] / 1e6:.1f} MB) on {card}")
+
+        # K5 on the main path (use_pallas_kernels decode) runs non-causal
+        # layers d=1..512 at T up to 131072; the causal case is extra
+        for li, t, causal in ((0, 131072, False), (n - 1, 131072, False),
+                              (0, 777, False), (2, 777, True)):
+            d = dilations[li]
+            args = [weights[k][li] for k in WEIGHT_KEYS]
+            x, c = inputs(1, t)
+            got = fused_gated_resblock(x, c, *args, dilation=d, causal=causal)
+            torch.cuda.synchronize()
+            want = gated_resblock_reference(x, c, *args, dilation=d, causal=causal)
+            block["errs"].append(check(f"block d={d} causal={causal} B=1 T={t}",
+                                       got, want))
+            if (t, d) == (131072, 1):
+                block["ms"] = _median_ms(
+                    lambda: fused_gated_resblock(x, c, *args, dilation=d))
+                block["plain_ms"] = _median_ms(lambda: gated_resblock_reference(
+                    x, c, *args, dilation=d, causal=False))
+                block.update(_wavenet_work(
+                    x, c, {k: weights[k][li:li + 1] for k in WEIGHT_KEYS}))
+        print(f"time [block, one v1 layer d=1, B=1 T=131072, median of 10, CUDA "
+              f"events]: kernel {block['ms']:.3f} ms, plain "
+              f"{block['plain_ms']:.3f} ms, bound {block['bound_ms']:.3f} ms on "
+              f"{card}")
+    return {"stack": stack, "block": block}
+
+
+def phase_pwg_split(card: str) -> None:
+    """Where the PWG v1 forward spends its time at 512 frames, B=1."""
+    import torch
+
+    gen = _pwg_v1({})
+    plain = _pwg_v1({"use_pallas_stack_train": False})
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    frames = 512
+    z = torch.randn(1, 1, frames * 256, generator=g, device="cuda")
+    c = torch.randn(1, 80, frames + 4, generator=g, device="cuda")
+
+    def plain_stack(x, cu):
+        skips = 0.0
+        for f in plain.conv_layers:
+            x, h = f(x, cu)
+            skips = skips + h
+        return skips
+
+    def last_convs(skips):
+        y = skips * (1.0 / len(gen.conv_layers)) ** 0.5
+        for f in gen.last_conv_layers:
+            y = f(y)
+        return y
+
+    with torch.inference_mode():
+        cu = gen.upsample_net(c)
+        x = gen.first_conv(z)
+        skips = plain_stack(x, cu)
+        t = {
+            "upsample net + first conv": _median_ms(
+                lambda: (gen.upsample_net(c), gen.first_conv(z))),
+            "30 layers, kernel": _median_ms(
+                lambda: gen._fused_stack(x, cu, gen._kernel_cache["stack"])),
+            "30 layers, plain": _median_ms(lambda: plain_stack(x, cu)),
+            "skip scale + last convs": _median_ms(lambda: last_convs(skips)),
+            "forward, kernel": _median_ms(lambda: gen(z, c)),
+            "forward, plain": _median_ms(lambda: plain(z, c)),
+        }
+    print(f"PWG v1 forward split, 512 frames, B=1, median of 10, CUDA events, "
+          f"on {card}: " + "; ".join(f"{k} {v:.3f} ms" for k, v in t.items()))
+
+
+def phase_pwg_decode(card: str) -> dict:
+    """PWG v1 decode entry point through the stack kernel, the block kernel
+    and the plain path, with the same noise."""
+    import numpy as np
+
+    from parallelwavegan_tpu_torch.bin import decode
+    from parallelwavegan_tpu_torch.ops.kernels.wavenet import (
+        fused_gated_resblock,
+        fused_wavenet_stack,
+    )
+
+    off = {"use_pallas_stack_train": False}
+    p = _write_inputs("ParallelWaveGANGenerator", V1_PWG_GENERATOR,
+                      {"stack": {}, "block": dict(off, use_pallas_kernels=True),
+                       "plain": off})
+    per_run = V1_PWG_GENERATOR["layers"] * len(UTT_FRAMES)
+    expect = {"stack": (per_run, 0), "block": (0, per_run), "plain": (0, 0)}
+    res, launches = {}, {}
+    for name in ("stack", "block", "plain"):
+        _reset_launch_counts()
+        np.random.seed(SEED)  # the same noise in every run
+        res[name] = decode.main(
+            ["--dumpdir", p["dump"], "--checkpoint", p["ckpt"],
+             "--normalize-before", "--device", "cuda", "--config", p[name],
+             "--outdir", os.path.join(p["root"], f"wav_{name}")])
+        launches[name] = (fused_wavenet_stack.launches,
+                          fused_gated_resblock.launches)
+        print(f"main path [PWG v1, {name}]: stack kernel launches = "
+              f"{launches[name][0]}, block kernel launches = "
+              f"{launches[name][1]} for {len(UTT_FRAMES)} utterances")
+        if launches[name] != expect[name]:
+            _fail(f"PWG {name} decode: launches {launches[name]}, "
+                  f"expected {expect[name]} (every layer of every utterance)")
+    errs = {}
+    for name in ("stack", "block"):
+        errs[name] = _compare_wavs(os.path.join(p["root"], f"wav_{name}"),
+                                   os.path.join(p["root"], "wav_plain"))
+        print(f"PWG decode [{name} kernel] vs plain: max|diff| = "
+              f"{errs[name]:.3e} (tol {TOL}, 16-bit WAVs)")
+        if not errs[name] <= TOL:
+            _fail(f"PWG decode through the {name} kernel disagrees with the "
+                  "plain decode")
+    print(f"PWG decode RTF (mean of {len(UTT_FRAMES)} utterances, first one "
+          f"includes warm-up) on {card}: "
+          + ", ".join(f"{k} {_rtfs(v)}" for k, v in res.items()))
+    shutil.rmtree(p["root"])
+    return {"stack_launches": launches["stack"][0],
+            "block_launches": launches["block"][1], "errs": errs}
 
 
 def main() -> None:
@@ -268,25 +560,49 @@ def main() -> None:
     print(f"kernel build: {time.perf_counter() - start:.1f} s wall, nvcc "
           f"{lib.build_seconds:.1f} s -> {os.path.relpath(lib.path, ROOT)} "
           f"on {card}")
-    for line in lib.log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"  ptxas: {line.strip()}")
+    entry = "?"
+    for line in lib.log.splitlines():  # one line per kernel from ptxas -v
+        m = re.search(r"entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            print(f"  ptxas: {entry}: {m.group(1)} registers")
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and m.group(1) != "0":
+            print(f"  ptxas: {entry}: {line.strip()}")
 
     kern = phase_kernel(card)
     torch.cuda.synchronize()
     dec = phase_decode(card)
     torch.cuda.synchronize()
+    wn = phase_wavenet(card)
+    torch.cuda.synchronize()
+    phase_pwg_split(card)
+    torch.cuda.synchronize()
+    pwg = phase_pwg_decode(card)
+    torch.cuda.synchronize()
+    shutil.rmtree(WORK, ignore_errors=True)
 
-    record = {"kernels": [{
-        "name": "fused_hifigan_tail",
-        "route": "cuda",
-        "source": "parallelwavegan_tpu_torch/ops/kernels/csrc/hifigan_tail.cu",
-        "replaces": "parallelwavegan_tpu/ops/pallas_kernels/hifigan_tail.py:256",
-        "launches": dec["launches"],
-        "max_abs_err": max(kern["v1_err"], kern["ragged_err"]),
-        "ms": kern["ms"],
-        "plain_ms": kern["plain_ms"],
-    }]}
+    def entry(name, source, replaces, launches, rec):
+        return {"name": name, "route": "cuda",
+                "source": f"parallelwavegan_tpu_torch/ops/kernels/csrc/{source}",
+                "replaces": f"parallelwavegan_tpu/ops/pallas_kernels/{replaces}",
+                "launches": launches, "max_abs_err": max(rec["errs"]),
+                "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+                # no single PyTorch call computes any of these functions
+                "library_ms": None}
+
+    kern["errs"] = [kern["v1_err"], kern["ragged_err"]]
+    record = {"kernels": [
+        entry("fused_hifigan_tail", "hifigan_tail.cu", "hifigan_tail.py:256",
+              dec["launches"], kern),
+        entry("fused_wavenet_stack", "wavenet.cu", "wavenet_stack.py:199",
+              pwg["stack_launches"], wn["stack"]),
+        entry("fused_gated_resblock", "wavenet.cu", "wavenet.py:280",
+              pwg["block_launches"], wn["block"]),
+    ]}
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,10 @@
 The JAX package ``parallelwavegan_tpu`` is the reference: every module
 here mirrors its counterpart's path and class name, and the tests hold the
 two to each other on the CPU. Modules use the (B, C, T) layout and
-upstream's state-dict keys; the one hand-written CUDA kernel of this slice
-(``ops/kernels/hifigan_tail.py``) replaces the Pallas decode-tail kernel.
+upstream's state-dict keys. Hand-written CUDA kernels replace the Pallas
+kernels on the ported paths: ``ops/kernels/hifigan_tail.py`` the HiFi-GAN
+decode tail, ``ops/kernels/wavenet.py`` the WaveNet stack and gated block
+of Parallel WaveGAN.
 
 This package imports torch, numpy, scipy and the standard library only; it
 never imports jax, flax or ``parallelwavegan_tpu``.

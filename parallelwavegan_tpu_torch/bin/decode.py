@@ -1,16 +1,19 @@
 """Decoding CLI of the port (counterpart of parallelwavegan_tpu/bin/decode.py:34-223).
 
-Reads mel features from a dump directory, decodes each utterance with
-``load_model(...).inference`` on ``--device`` and writes 16-bit WAVs.
-``--use-pallas-tail`` routes the HiFi-GAN decode tail through the
-hand-written CUDA kernel (the JAX flag name, kept so configs and scripts
-are shared). RTF is measured per utterance with the device synchronised
+Reads mel features from a dump directory, decodes each utterance of any
+ported generator with ``load_model(...).inference`` on ``--device`` and
+writes 16-bit WAVs. ``--use-pallas-tail`` routes the HiFi-GAN decode tail
+and ``--use-pallas-stack`` the Parallel WaveGAN dilation cycles through
+their hand-written CUDA kernels (the JAX flag names, kept so configs and
+scripts are shared); a config that sets ``use_pallas_stack_train``, as
+the shipped ``parallel_wavegan.v1.yaml`` does, routes them there too. RTF is measured per utterance with the device synchronised
 before each clock read. float32 convolutions run without TF32, as the JAX
 package computes in full float32.
 
     python -m parallelwavegan_tpu_torch.bin.decode --dumpdir DUMP \
         --outdir OUT --checkpoint CKPT.pkl [--config CONFIG] \
-        [--normalize-before] [--use-pallas-tail] [--device cuda]
+        [--normalize-before] [--use-pallas-tail] [--use-pallas-stack] \
+        [--device cuda]
 """
 
 from __future__ import annotations
@@ -47,6 +50,11 @@ def main(argv=None) -> dict:
         help="run the HiFi-GAN decode tail through the hand-written CUDA "
              "kernel (its plain PyTorch version on the CPU)",
     )
+    parser.add_argument(
+        "--use-pallas-stack", default=False, action="store_true",
+        help="run the Parallel WaveGAN dilation cycles through the "
+             "hand-written CUDA kernel (its plain PyTorch version on the CPU)",
+    )
     parser.add_argument("--device", default="cuda", type=str)
     parser.add_argument("--verbose", type=int, default=1)
     args = parser.parse_args(argv)
@@ -79,10 +87,14 @@ def main(argv=None) -> dict:
         raise ValueError("Support only hdf5 or npy format.")
     logging.info("The number of features to be decoded = %d.", len(dataset))
 
-    if args.use_pallas_tail and config.get("generator_type") == "HiFiGANGenerator":
-        config = dict(config)
-        config["generator_params"] = dict(config["generator_params"],
-                                          use_pallas_tail=True)
+    generator_type = config.get("generator_type", "ParallelWaveGANGenerator")
+    for flag, key, gtype in (
+            (args.use_pallas_tail, "use_pallas_tail", "HiFiGANGenerator"),
+            (args.use_pallas_stack, "use_pallas_stack", "ParallelWaveGANGenerator")):
+        if flag and generator_type == gtype:
+            config = dict(config)
+            config["generator_params"] = dict(config["generator_params"],
+                                              **{key: True})
     model = load_model(args.checkpoint, config, device=device)
     logging.info("Loaded model parameters from %s.", args.checkpoint)
 

@@ -2,15 +2,19 @@
 
 The inverse of parallelwavegan_tpu/convert/torch_checkpoint.py:510
 ``_convert_tree`` for the models the port has: module paths go through
-the same name map as ``_t_hifigan_g`` (:131) in reverse, conv kernels
-(K, Cin, Cout) are transposed to torch's (Cout, Cin, K) (``_CONV_PERM``),
-transposed-conv kernels are flipped along K and laid out as torch's
-(Cin, Cout, K) (``_DECONV_PERM``, :466-467, :558-562), and weight norm's
-``g``/``v`` become ``weight_g``/``weight_v``.
+the same name maps as ``_t_hifigan_g`` (:131) and ``_make_t_pwg_g``
+(:210-264) in reverse, conv kernels (K, Cin, Cout) are transposed to
+torch's (Cout, Cin, K) (``_CONV_PERM``), transposed-conv kernels are
+flipped along K and laid out as torch's (Cin, Cout, K) (``_DECONV_PERM``,
+:466-467, :558-562), the UpsampleNetwork's (T, F, 1, 1) leaves
+``conv_{i}[_v|_g]`` become ``up_layers.{step*i+1}`` Conv2d weights
+(1, 1, F, T) (``_UPCONV2D_PERM``, :469), and weight norm's ``g``/``v``
+become ``weight_g``/``weight_v``.
 """
 
 from __future__ import annotations
 
+import re
 from collections import OrderedDict
 
 import numpy as np
@@ -42,6 +46,28 @@ def _hifigan_prefix(path) -> str:
     return ".".join(out)
 
 
+_PWG_NAMES = {
+    "first_conv": "first_conv", "last_conv_1": "last_conv_layers.1",
+    "last_conv_2": "last_conv_layers.3", "upsample_net": "upsample_net",
+    "conv_in": "conv_in", "upsample": "upsample", "conv": "conv",
+    "conv1x1_aux": "conv1x1_aux", "conv1x1_skip": "conv1x1_skip",
+    "conv1x1_out": "conv1x1_out",
+}
+
+
+def _pwg_prefix(path) -> str:
+    """Flax module path -> upstream state-dict prefix (``_make_t_pwg_g``)."""
+    out = []
+    for p in path:
+        if p.startswith("conv_layers_"):
+            out.append(f"conv_layers.{_idx(p)}")
+        elif p in _PWG_NAMES:
+            out.append(_PWG_NAMES[p])
+        else:
+            raise KeyError(f"pwg path segment {p!r}")
+    return ".".join(out)
+
+
 def _flatten(tree, prefix=()):
     for k, v in tree.items():
         if hasattr(v, "items"):  # dict or flax FrozenDict
@@ -54,22 +80,35 @@ def jax_params_to_state_dict(model_type: str, model_params: dict,
                              params) -> "OrderedDict[str, torch.Tensor]":
     """JAX params (``G.init(...)`` output or its ``"params"`` entry, with
     numpy or jax arrays as leaves) -> port state dict of float32 tensors."""
-    if model_type != "HiFiGANGenerator":
+    if "params" in params:
+        params = params["params"]
+    if model_type == "HiFiGANGenerator":
+        n_up = len(model_params.get("upsample_scales", (8, 8, 2, 2)))
+        found = sum(1 for k in params if str(k).startswith("upsamples_"))
+        if found != n_up:
+            raise ValueError(f"params hold {found} upsample stages, "
+                             f"model_params {n_up}")
+        prefix_of = _hifigan_prefix
+    elif model_type == "ParallelWaveGANGenerator":
+        prefix_of = _pwg_prefix
+        up = model_params.get("upsample_params") or {}
+        step = 3 if up.get("nonlinear_activation") is not None else 2
+    else:
         raise NotImplementedError(
             f"{model_type} is not ported yet; see ROADMAP.md"
         )
-    if "params" in params:
-        params = params["params"]
-    n_up = len(model_params.get("upsample_scales", (8, 8, 2, 2)))
-    found = sum(1 for k in params if str(k).startswith("upsamples_"))
-    if found != n_up:
-        raise ValueError(f"params hold {found} upsample stages, "
-                         f"model_params {n_up}")
     sd = OrderedDict()
     for path, leaf in _flatten(params):
         *mods, name = path
-        prefix = _hifigan_prefix(mods)
+        prefix = prefix_of(mods)
         w = np.asarray(leaf, dtype=np.float32)
+        m = re.match(r"conv_(\d+)(?:_(v|g))?$", name)
+        if m and mods and mods[-1] == "upsample":
+            # UpsampleNetwork smoothing conv: (T, F, 1, 1) <-> (1, 1, F, T)
+            suffix = {"v": "weight_v", "g": "weight_g", None: "weight"}[m.group(2)]
+            sd[f"{prefix}.up_layers.{step * int(m.group(1)) + 1}.{suffix}"] = (
+                np.transpose(w, (3, 2, 1, 0)))
+            continue
         transpose = mods[-1].startswith("upsamples_")
         if name == "bias":
             sd[f"{prefix}.bias"] = w

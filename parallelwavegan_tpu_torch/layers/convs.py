@@ -9,8 +9,10 @@ folded into a plain weight (``remove_weight_norm``), as upstream does.
 
 Initialisation follows the JAX package: torch's default
 U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weights and biases, or N(0, std)
-weights where the caller asks for it; every draw comes from the explicit
-``torch.Generator`` passed in.
+weights where the caller asks for it (the Parallel WaveGAN modules take
+``kaiming_normal_relu_std`` and zero biases,
+parallelwavegan_tpu/layers/residual_block.py:26-40); every draw comes
+from the explicit ``torch.Generator`` passed in.
 """
 
 from __future__ import annotations
@@ -19,10 +21,17 @@ import math
 import warnings
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
-def _init_(conv: nn.Module, fan_in: int, generator, normal_std) -> None:
+def kaiming_normal_relu_std(fan_in: int) -> float:
+    """Std of torch's ``kaiming_normal_(nonlinearity='relu')``: sqrt(2/fan_in)."""
+    return math.sqrt(2.0 / fan_in)
+
+
+def _init_(conv: nn.Module, fan_in: int, generator, normal_std,
+           zero_bias: bool = False) -> None:
     bound = 1.0 / math.sqrt(fan_in)
     with torch.no_grad():
         if normal_std is None:
@@ -30,7 +39,10 @@ def _init_(conv: nn.Module, fan_in: int, generator, normal_std) -> None:
         else:
             conv.weight.normal_(0.0, normal_std, generator=generator)
         if conv.bias is not None:
-            conv.bias.uniform_(-bound, bound, generator=generator)
+            if zero_bias:
+                conv.bias.zero_()
+            else:
+                conv.bias.uniform_(-bound, bound, generator=generator)
 
 
 def apply_weight_norm(module: nn.Module) -> nn.Module:
@@ -56,22 +68,48 @@ def effective_weight(conv: nn.Module) -> torch.Tensor:
 
 
 class Conv1d(nn.Conv1d):
-    """Conv1d with 'same' zero padding (odd kernel) and optional weight norm."""
+    """Conv1d with optional weight norm. ``padding`` is 'same' (zero
+    padding, odd kernel), an int (0: valid), or 'causal' ((K-1)*dilation
+    zeros on the left only)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 *, dilation: int = 1, bias: bool = True,
-                 use_weight_norm: bool = True, normal_std: float | None = None,
+                 *, dilation: int = 1, padding: int | str = "same",
+                 bias: bool = True, use_weight_norm: bool = True,
+                 normal_std: float | None = None, zero_bias: bool = False,
                  generator: torch.Generator | None = None):
+        if padding == "same":
+            pad = (kernel_size - 1) // 2 * dilation
+        elif padding == "causal":
+            pad = 0
+        else:
+            pad = int(padding)
         super().__init__(in_channels, out_channels, kernel_size,
-                         dilation=dilation,
-                         padding=(kernel_size - 1) // 2 * dilation, bias=bias)
-        _init_(self, in_channels * kernel_size, generator, normal_std)
+                         dilation=dilation, padding=pad, bias=bias)
+        self.causal_pad = (kernel_size - 1) * dilation if padding == "causal" else 0
+        _init_(self, in_channels * kernel_size, generator, normal_std, zero_bias)
         if use_weight_norm:
             apply_weight_norm(self)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.causal_pad:
+            x = F.pad(x, (self.causal_pad, 0))
+        return super().forward(x)
 
     def gather_weight(self) -> torch.Tensor:
         """Effective weight in the JAX gather form (K, Cin, Cout)."""
         return effective_weight(self).permute(2, 1, 0)
+
+
+class Conv1d1x1(Conv1d):
+    """1x1 Conv1d (upstream's ``Conv1d1x1``)."""
+
+    def __init__(self, in_channels: int, out_channels: int, *, bias: bool = True,
+                 use_weight_norm: bool = True, normal_std: float | None = None,
+                 zero_bias: bool = False,
+                 generator: torch.Generator | None = None):
+        super().__init__(in_channels, out_channels, 1, padding=0, bias=bias,
+                         use_weight_norm=use_weight_norm, normal_std=normal_std,
+                         zero_bias=zero_bias, generator=generator)
 
 
 class ConvTranspose1d(nn.ConvTranspose1d):

@@ -1,24 +1,120 @@
-"""HiFi-GAN MRF residual block (PyTorch, (B, C, T) layout).
+"""Residual blocks (PyTorch, (B, C, T) layout).
 
-Counterpart of parallelwavegan_tpu/layers/residual_block.py:241-320: per
-dilation, act -> dilated conv [-> act -> conv] with an additive residual.
-Submodules are ``nn.Sequential(act, conv)`` so the state-dict keys are
-upstream's ``convs1.{m}.1.*`` / ``convs2.{m}.1.*``.
+* ``WaveNetResidualBlock``: counterpart of
+  parallelwavegan_tpu/layers/residual_block.py:43-238, the gated block of
+  Parallel WaveGAN with local conditioning. Keys are upstream's ``conv``,
+  ``conv1x1_aux``, ``conv1x1_skip`` and ``conv1x1_out``. With
+  ``use_pallas`` and the JAX gate (:69-71: c given, bias on) the block
+  runs through ``fused_gated_resblock``.
+* ``HiFiGANResidualBlock``: counterpart of :241-320, per dilation, act ->
+  dilated conv [-> act -> conv] with an additive residual. Submodules are
+  ``nn.Sequential(act, conv)`` so the state-dict keys are upstream's
+  ``convs1.{m}.1.*`` / ``convs2.{m}.1.*``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from parallelwavegan_tpu_torch.layers.convs import Conv1d
+from parallelwavegan_tpu_torch.layers.convs import (
+    Conv1d,
+    Conv1d1x1,
+    effective_weight,
+    kaiming_normal_relu_std,
+)
+from parallelwavegan_tpu_torch.ops.kernels.wavenet import (
+    WEIGHT_KEYS,
+    fused_gated_resblock,
+)
 
 
 def get_activation(name: str, params: dict | None) -> nn.Module:
     """Upstream builds activations as ``getattr(torch.nn, name)(**params)``."""
     return getattr(nn, name)(**(params or {}))
+
+
+class WaveNetResidualBlock(nn.Module):
+    """x (B, C_r, T), c (B, C_a, T) or None -> (residual (B, C_r, T), skip
+    (B, C_s, T)); the residual output is scaled by sqrt(1/2)."""
+
+    def __init__(self, kernel_size: int = 3, residual_channels: int = 64,
+                 gate_channels: int = 128, skip_channels: int = 64,
+                 aux_channels: int = 80, dropout: float = 0.0,
+                 dilation: int = 1, bias: bool = True,
+                 use_causal_conv: bool = False, use_weight_norm: bool = True,
+                 use_pallas: bool = False,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.dropout = dropout
+        self.dilation = dilation
+        self.use_causal_conv = use_causal_conv
+        self.use_fused = use_pallas and bias
+        kw = dict(use_weight_norm=use_weight_norm, generator=generator)
+        half = gate_channels // 2
+        self.conv = Conv1d(
+            residual_channels, gate_channels, kernel_size, dilation=dilation,
+            padding="causal" if use_causal_conv else "same", bias=bias,
+            normal_std=kaiming_normal_relu_std(kernel_size * residual_channels),
+            zero_bias=True, **kw)
+        self.conv1x1_aux = None
+        if aux_channels > 0:
+            self.conv1x1_aux = Conv1d1x1(
+                aux_channels, gate_channels, bias=False,
+                normal_std=kaiming_normal_relu_std(aux_channels), **kw)
+        self.conv1x1_skip = Conv1d1x1(
+            half, skip_channels, bias=bias,
+            normal_std=kaiming_normal_relu_std(half), zero_bias=True, **kw)
+        self.conv1x1_out = Conv1d1x1(
+            half, residual_channels, bias=bias,
+            normal_std=kaiming_normal_relu_std(half), zero_bias=True, **kw)
+
+    def forward(self, x: torch.Tensor, c: torch.Tensor | None,
+                weights: dict | None = None):
+        """``weights``: this block's ``gather_weights()``, prepared once
+        for decode; the fused path gathers them itself when not given."""
+        if self.use_fused and c is not None:
+            x = F.dropout(x, p=self.dropout, training=self.training)
+            w = weights or self.gather_weights()
+            r, s = fused_gated_resblock(
+                x.transpose(1, 2).contiguous(), c.transpose(1, 2).contiguous(),
+                *(w[k] for k in WEIGHT_KEYS), dilation=self.dilation,
+                causal=self.use_causal_conv)
+            return r.transpose(1, 2), s.transpose(1, 2)
+        residual = x
+        x = F.dropout(x, p=self.dropout, training=self.training)
+        x = self.conv(x)
+        if c is not None:
+            x = x + self.conv1x1_aux(c)
+        xa, xb = x.chunk(2, dim=1)
+        x = torch.tanh(xa) * torch.sigmoid(xb)
+        s = self.conv1x1_skip(x)
+        x = (self.conv1x1_out(x) + residual) * math.sqrt(0.5)
+        return x, s
+
+    def gather_weights(self) -> dict:
+        """Effective weights in the JAX gather form of ``collect_weights``
+        (residual_block.py:126-176): wconv (K, C_r, C_g), bconv (C_g), waux
+        (C_a, C_g), wskip (C_g/2, C_s), bskip, wres (C_g/2, C_r), bres.
+        Without biases (``bias=False``) the biases are zeros, which the
+        stack kernel adds to the same result."""
+
+        def w1x1(conv):
+            return effective_weight(conv)[:, :, 0].t()
+
+        def bias(conv, w):
+            return torch.zeros_like(w[0]) if conv.bias is None else conv.bias
+
+        w = {"wconv": self.conv.gather_weight(), "waux": w1x1(self.conv1x1_aux),
+             "wskip": w1x1(self.conv1x1_skip), "wres": w1x1(self.conv1x1_out)}
+        w["bconv"] = bias(self.conv, w["wconv"][0])
+        w["bskip"] = bias(self.conv1x1_skip, w["wskip"])
+        w["bres"] = bias(self.conv1x1_out, w["wres"])
+        return {k: w[k].detach().contiguous() for k in WEIGHT_KEYS}
 
 
 class HiFiGANResidualBlock(nn.Module):

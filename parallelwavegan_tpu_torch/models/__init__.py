@@ -1,13 +1,17 @@
 """Model registry of the port: the YAML-facing class names.
 
-Only ``HiFiGANGenerator`` is ported so far; ROADMAP.md lists the rest in
-the order they are to come.
+``HiFiGANGenerator`` and ``ParallelWaveGANGenerator`` are ported so far;
+ROADMAP.md lists the rest in the order they are to come.
 """
 
 from parallelwavegan_tpu_torch.models.hifigan import HiFiGANGenerator
+from parallelwavegan_tpu_torch.models.parallel_wavegan import (
+    ParallelWaveGANGenerator,
+)
 
 MODEL_REGISTRY = {
     "HiFiGANGenerator": HiFiGANGenerator,
+    "ParallelWaveGANGenerator": ParallelWaveGANGenerator,
 }
 
 

@@ -185,7 +185,7 @@ class HiFiGANGenerator(nn.Module):
             "final_b": out_conv.bias.detach().contiguous(),
         }
 
-    def prepare_tail(self) -> None:
+    def prepare_kernels(self) -> None:
         """Build the tail weight bundle once, for decode. Call it after the
         weights are loaded, folded and on their device; loading weights or
         moving the module afterwards drops the bundle again."""

@@ -1,0 +1,217 @@
+"""Parallel WaveGAN generator (PyTorch, (B, C, T) layout).
+
+Counterpart of parallelwavegan_tpu/models/parallel_wavegan.py:64-235:
+noise and the upsampled mel through ``layers`` gated WaveNet blocks in
+``stacks`` dilation cycles, the skip sum scaled by sqrt(1/layers), then
+ReLU -> 1x1 -> ReLU -> 1x1. Keys are upstream's: ``first_conv``,
+``upsample_net.*``, ``conv_layers.{i}.*``, ``last_conv_layers.{1,3}``.
+
+Kernel flags keep the JAX names so that configs are shared:
+
+* ``use_pallas_stack`` or ``use_pallas_stack_train``, under the JAX gate
+  (:142-148: c given, not causal, no dropout) runs the gated layers of
+  every cycle through ``fused_wavenet_stack``, the hand-written CUDA
+  kernel on a GPU: one launch per layer into one skip buffer (JAX sums the
+  skips of each cycle's calls, :161-189; the result is the same). Without
+  biases (``bias: false``) the kernel gets zero biases. The shipped
+  ``parallel_wavegan.v1*.yaml`` set ``use_pallas_stack_train``; its
+  backward is not ported, so a forward that needs gradients raises.
+* otherwise each block runs on its own, through ``fused_gated_resblock``
+  when ``use_pallas_kernels`` is set.
+
+``pallas_stack_tile``, ``pallas_stack_train_tile`` and
+``pallas_stack_train_layers_per_call`` are the TPU kernels' tiling and
+checkpoint chunking: they are accepted for config compatibility and have
+no effect here.
+Not ported yet, and refused with ``NotImplementedError`` (ROADMAP.md): the
+causal generator, ``pallas_stack_bf16`` and the MelGAN upsample net.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+from torch import nn
+
+from parallelwavegan_tpu_torch.layers.convs import (
+    Conv1d1x1,
+    kaiming_normal_relu_std,
+    remove_weight_norm,
+)
+from parallelwavegan_tpu_torch.layers.residual_block import WaveNetResidualBlock
+from parallelwavegan_tpu_torch.layers.upsample import (
+    ConvInUpsampleNetwork,
+    UpsampleNetwork,
+)
+from parallelwavegan_tpu_torch.ops.kernels.wavenet import (
+    WEIGHT_KEYS,
+    fused_wavenet_stack,
+)
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to parallelwavegan_tpu_torch yet; see ROADMAP.md")
+
+
+class ParallelWaveGANGenerator(nn.Module):
+    """(z (B, in_channels, T), c (B, aux_channels, T' + 2w)) -> (B, out, T)."""
+
+    requires_noise_input = True
+
+    def __init__(
+        self,
+        in_channels: int = 1,
+        out_channels: int = 1,
+        kernel_size: int = 3,
+        layers: int = 30,
+        stacks: int = 3,
+        residual_channels: int = 64,
+        gate_channels: int = 128,
+        skip_channels: int = 64,
+        aux_channels: int = 80,
+        aux_context_window: int = 2,
+        dropout: float = 0.0,
+        bias: bool = True,
+        use_weight_norm: bool = True,
+        use_causal_conv: bool = False,
+        upsample_conditional_features: bool = True,
+        upsample_net: str = "ConvInUpsampleNetwork",
+        upsample_params: Any = None,
+        use_pallas_kernels: bool = False,
+        use_pallas_stack: bool = False,
+        pallas_stack_tile: int = 8192,
+        pallas_stack_bf16: bool = False,
+        use_pallas_stack_train: bool = False,
+        pallas_stack_train_tile: int = 2048,
+        pallas_stack_train_layers_per_call: int = 5,
+        device: torch.device | str | None = None,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        if use_causal_conv:
+            raise _not_ported("the causal Parallel WaveGAN generator")
+        if pallas_stack_bf16:
+            raise _not_ported("pallas_stack_bf16 (the bf16 WaveNet stack)")
+        if upsample_net == "MelGANGenerator":
+            raise _not_ported("upsample_net MelGANGenerator")
+        assert layers % stacks == 0
+        self.layers = layers
+        self.stacks = stacks
+        self.aux_context_window = aux_context_window
+        upsample_params = dict(upsample_params or {"upsample_scales": [4, 4, 4, 4]})
+        self.upsample_scales = tuple(int(s) for s in upsample_params["upsample_scales"])
+        kw = dict(use_weight_norm=use_weight_norm, generator=generator)
+
+        self.first_conv = Conv1d1x1(
+            in_channels, residual_channels, bias=True,
+            normal_std=kaiming_normal_relu_std(in_channels), **kw)
+        self.upsample_net = None
+        if upsample_conditional_features:
+            params = dict(upsample_params, use_causal_conv=use_causal_conv,
+                          use_weight_norm=use_weight_norm)
+            if upsample_net == "ConvInUpsampleNetwork":
+                self.upsample_net = ConvInUpsampleNetwork(
+                    **params, aux_channels=aux_channels,
+                    aux_context_window=aux_context_window, generator=generator)
+            elif upsample_net == "UpsampleNetwork":
+                self.upsample_net = UpsampleNetwork(**params)
+            else:
+                raise ValueError(f"upsample_net {upsample_net!r} is not supported")
+        per_cycle = layers // stacks
+        self.conv_layers = nn.ModuleList([
+            WaveNetResidualBlock(
+                kernel_size=kernel_size, residual_channels=residual_channels,
+                gate_channels=gate_channels, skip_channels=skip_channels,
+                aux_channels=aux_channels, dilation=2 ** (layer % per_cycle),
+                dropout=dropout, bias=bias, use_causal_conv=use_causal_conv,
+                use_pallas=use_pallas_kernels, **kw)
+            for layer in range(layers)
+        ])
+        self.last_conv_layers = nn.ModuleList([
+            nn.ReLU(),
+            Conv1d1x1(skip_channels, skip_channels, bias=True,
+                      normal_std=kaiming_normal_relu_std(skip_channels), **kw),
+            nn.ReLU(),
+            Conv1d1x1(skip_channels, out_channels, bias=True,
+                      normal_std=kaiming_normal_relu_std(skip_channels), **kw),
+        ])
+        self.use_stack = ((use_pallas_stack or use_pallas_stack_train)
+                          and dropout == 0.0)
+        self._kernel_cache = None
+        if device is not None:
+            self.to(device)
+
+    @property
+    def upsample_factor(self) -> int:
+        if self.upsample_net is None:
+            return 1
+        return math.prod(self.upsample_scales)
+
+    @property
+    def receptive_field_size(self) -> int:
+        per_cycle = self.layers // self.stacks
+        k = self.conv_layers[0].conv.kernel_size[0]
+        return (k - 1) * sum(2 ** (i % per_cycle) for i in range(self.layers)) + 1
+
+    def forward(self, z: torch.Tensor, c: torch.Tensor | None) -> torch.Tensor:
+        if c is not None and self.upsample_net is not None:
+            c = self.upsample_net(c)
+            assert c.size(-1) == z.size(-1), (c.shape, z.shape)
+        x = self.first_conv(z)
+        cache = self._kernel_cache or {"stack": None, "blocks": None}
+        if self.use_stack and c is not None:
+            skips = self._fused_stack(x, c, cache["stack"])
+        else:
+            skips = 0.0
+            for i, f in enumerate(self.conv_layers):
+                x, h = f(x, c, cache["blocks"] and cache["blocks"][i])
+                skips = skips + h
+        x = skips * math.sqrt(1.0 / self.layers)
+        for f in self.last_conv_layers:
+            x = f(x)
+        return x
+
+    def _fused_stack(self, x, c, stack):
+        """The skip sum (B, C_s, T) of every layer through the stack kernel,
+        channel-last inside."""
+        weights, dilations = stack or self.stack_weights()
+        _, skips = fused_wavenet_stack(x.transpose(1, 2).contiguous(),
+                                       c.transpose(1, 2).contiguous(),
+                                       weights, dilations)
+        return skips.transpose(1, 2)
+
+    def stack_weights(self) -> tuple:
+        """(every block's gather-form weights stacked along a leading layer
+        axis, as the JAX generator stacks a cycle's (:161-173), the blocks'
+        dilations), from the current effective weights."""
+        per = [blk.gather_weights() for blk in self.conv_layers]
+        return ({k: torch.stack([w[k] for w in per]) for k in WEIGHT_KEYS},
+                tuple(blk.dilation for blk in self.conv_layers))
+
+    def prepare_kernels(self) -> None:
+        """Gather the kernel weights once, for decode. Call it after the
+        weights are loaded, folded and on their device; loading weights or
+        moving the module afterwards drops them again."""
+        self._kernel_cache = None
+        if self.use_stack:
+            self._kernel_cache = {"stack": self.stack_weights(), "blocks": None}
+        elif self.conv_layers[0].use_fused:
+            self._kernel_cache = {
+                "stack": None,
+                "blocks": [blk.gather_weights() for blk in self.conv_layers],
+            }
+
+    def remove_weight_norm(self) -> None:
+        remove_weight_norm(self)
+        self._kernel_cache = None
+
+    def _apply(self, fn, *args, **kwargs):
+        self._kernel_cache = None
+        return super()._apply(fn, *args, **kwargs)
+
+    def load_state_dict(self, *args, **kwargs):
+        self._kernel_cache = None
+        return super().load_state_dict(*args, **kwargs)

@@ -1,28 +1,36 @@
 """Build and bind the port's CUDA kernels (nvcc -> shared library -> ctypes).
 
-The sources under ``csrc/`` are compiled on first use with
-``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
-into ``_build/`` beside this file (listed in .gitignore), named by a hash
-of the source and flags so that an edit rebuilds. Nothing is compiled
-when a module is imported: the CPU tests import every module.
+Every ``csrc/*.cu`` is compiled on first use by its own
+``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -c -Xcompiler -fPIC``
+process, all started together, and the objects are linked by one
+``nvcc -shared`` into one shared library in ``_build/`` beside this file
+(listed in .gitignore), named by a hash of every source and the flags, so
+that an edit or a new source rebuilds. Each exported entry point has its
+ctypes signature in ``_SIGNATURES``; a test holds that table to the
+sources. Nothing is compiled when a module is imported: the CPU tests
+import every module.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import time
 
+import torch
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_HERE, "csrc", "hifigan_tail.cu")
+CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +45,9 @@ _SIGNATURES = {
     "hifigan_deconv": [_P] * 4 + [_I] * 8 + [_F, _I, _P],
     # x, y, w, b, B, T, Cin, Cout, K, slope, device, stream
     "hifigan_outconv": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
+    # x, c, x_out, skip, wconv, bconv, waux, wskip, bskip, wres, bres, B, T,
+    # C, Ca, K, dil, causal, accumulate, device, stream
+    "wavenet_layer": [_P] * 11 + [_I] * 9 + [_P],
 }
 
 
@@ -64,6 +75,23 @@ class KernelLibrary:
             raise RuntimeError(f"{name} failed: CUDA error {err} ({msg})")
 
 
+def check_tensor(name: str, t, device, shape, align: int = 0) -> None:
+    """Raise unless ``t`` is a contiguous float32 tensor of ``shape`` on
+    ``device`` (and its data ``align``-byte aligned, where asked)."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, x is on {device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if align and t.data_ptr() % align:
+        raise ValueError(f"{name} must be {align}-byte aligned")
+
+
 def _nvcc() -> str:
     for cand in (
         shutil.which("nvcc"),
@@ -74,25 +102,58 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def sources(csrc: str = CSRC) -> list[str]:
+    """Every kernel source, in a fixed order."""
+    return sorted(glob.glob(os.path.join(csrc, "*.cu")))
+
+
+def source_digest(paths: list[str]) -> str:
+    """Hash of the flags and of every source's name and content."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    for path in paths:
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read() + b"\0")
+    return digest.hexdigest()[:16]
+
+
+def _run(procs: dict) -> str:
+    """Wait for every nvcc process; raise if any failed. Returns the logs."""
+    logs, failed = [], []
+    for name, proc in procs.items():
+        out, _ = proc.communicate()
+        logs.append(f"== {name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{name} ({proc.returncode})")
+    log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{log}")
+    return log
+
+
 def build() -> KernelLibrary:
-    """Compile the kernel source unless a build of the same source and
-    flags exists, then load it."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    path = os.path.join(BUILD_DIR, f"libhifigan_tail_{digest.hexdigest()[:16]}.so")
+    """Compile every kernel source into one library unless a build of the
+    same sources and flags exists, then load it."""
+    srcs = sources()
+    path = os.path.join(BUILD_DIR, f"libport_kernels_{source_digest(srcs)}.so")
     if os.path.exists(path):
         return KernelLibrary(path, 0.0, "")
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
+    nvcc, tag = _nvcc(), f"{path}.{os.getpid()}"
+    objs = {src: f"{tag}.{os.path.basename(src)}.o" for src in srcs}
+    popen = dict(stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - start
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, path)
-    return KernelLibrary(path, seconds, log)
+    try:
+        log = _run({os.path.basename(src): subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src], **popen)
+            for src, obj in objs.items()})
+        log += _run({"link": subprocess.Popen(
+            [nvcc, *LINK_FLAGS, "-o", f"{tag}.tmp", *objs.values()], **popen)})
+        os.replace(f"{tag}.tmp", path)
+    finally:
+        for obj in objs.values():
+            if os.path.exists(obj):
+                os.remove(obj)
+    return KernelLibrary(path, time.perf_counter() - start, log)
 
 
 _LIBRARY: KernelLibrary | None = None

@@ -22,6 +22,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from parallelwavegan_tpu_torch.ops.kernels import build
+
 # ---------------------------------------------------------------------------
 # plain version (port of hifigan_tail_xla / hifigan_mrf_xla)
 # ---------------------------------------------------------------------------
@@ -71,19 +73,6 @@ _WIDTHS = (1, 2, 4, 8, 16, 32, 64, 128)
 _MAX_CHAINS = 8  # resblocks per MRF that one launch takes (kMaxChains)
 
 
-def _check_tensor(name, t, device, shape):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, x is on {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check_blocks(name, blocks, device, c):
     if not 1 <= len(blocks) <= _MAX_CHAINS:
         raise ValueError(f"{name}: 1 to {_MAX_CHAINS} resblocks per MRF, "
@@ -98,39 +87,36 @@ def _check_blocks(name, blocks, device, c):
                              "dilations required")
         for key, shape in (("w1", (n, k, c, c)), ("b1", (n, c)),
                            ("w2", (n, k, c, c)), ("b2", (n, c))):
-            _check_tensor(f"{name}[{bi}].{key}", blk[key], device, shape)
-        for key in ("w1", "w2"):  # copied in 16-byte pieces (cp.async)
-            if blk[key].data_ptr() % 16:
-                raise ValueError(f"{name}[{bi}].{key} must be 16-byte aligned")
+            # w1/w2 are copied in 16-byte pieces (cp.async)
+            build.check_tensor(f"{name}[{bi}].{key}", blk[key], device, shape,
+                               align=16 if key in ("w1", "w2") else 0)
 
 
 def _check_cuda_inputs(x, stages, final_w, final_b, pre_blocks):
     if x.dim() != 3:
         raise ValueError(f"x must be (B, T, C), got shape {tuple(x.shape)}")
     b, t, c = x.shape
-    _check_tensor("x", x, x.device, (b, t, c))
+    build.check_tensor("x", x, x.device, (b, t, c))
     if c not in _WIDTHS:
         raise ValueError(f"x width {c} is not a power of two <= 128")
     if pre_blocks is not None:
         _check_blocks("pre_blocks", pre_blocks, x.device, c)
     for si, st in enumerate(stages):
         k = st["deconv_w"].shape[0]
-        _check_tensor(f"stages[{si}].deconv_w", st["deconv_w"], x.device,
-                      (k, c, c // 2))
-        _check_tensor(f"stages[{si}].deconv_b", st["deconv_b"], x.device,
-                      (c // 2,))
+        build.check_tensor(f"stages[{si}].deconv_w", st["deconv_w"], x.device,
+                           (k, c, c // 2))
+        build.check_tensor(f"stages[{si}].deconv_b", st["deconv_b"], x.device,
+                           (c // 2,))
         c //= 2
         _check_blocks(f"stages[{si}].blocks", st["blocks"], x.device, c)
     kf, _, out_ch = final_w.shape
     if kf % 2 == 0:
         raise ValueError("final_w needs an odd kernel size")
-    _check_tensor("final_w", final_w, x.device, (kf, c, out_ch))
-    _check_tensor("final_b", final_b, x.device, (out_ch,))
+    build.check_tensor("final_w", final_w, x.device, (kf, c, out_ch))
+    build.check_tensor("final_b", final_b, x.device, (out_ch,))
 
 
 def _run_cuda(x, stages, final_w, final_b, slope, pre_blocks):
-    from parallelwavegan_tpu_torch.ops.kernels import build
-
     _check_cuda_inputs(x, stages, final_w, final_b, pre_blocks)
     lib = build.load()
     dev = x.device.index if x.device.index is not None else torch.cuda.current_device()

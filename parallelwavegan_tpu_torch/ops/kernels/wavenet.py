@@ -1,0 +1,202 @@
+"""Fused WaveNet gated layers: a dilation cycle (K3) and one block (K5).
+
+Counterparts of parallelwavegan_tpu/ops/pallas_kernels/wavenet_stack.py
+(``wavenet_stack_xla`` :35, ``fused_wavenet_cycle`` :175,
+``fused_wavenet_stack`` :199) and wavenet.py (``gated_resblock_xla`` :40,
+``fused_gated_resblock`` :280). The public functions keep the JAX layout
+and weight form, so a test can feed the same arrays to both packages: x
+is (B, T, C_r), c is (B, T, C_a), and a stack's weights are the dict of
+stacked per-layer arrays of ``wavenet_stack_xla``: wconv (L, K, C_r, C_g),
+bconv (L, C_g), waux (L, C_a, C_g), wskip (L, C_g/2, C_s), bskip (L, C_s),
+wres (L, C_g/2, C_r), bres (L, C_r).
+
+For a CUDA tensor the wrappers run the hand-written kernel
+(csrc/wavenet.cu), one launch per layer; K5 is its one-layer call with
+the causal flag. For a CPU tensor they run the plain PyTorch versions
+below. A CUDA tensor never takes the plain path. The TPU tiling knobs
+(``t_tile``) and the whole-cycle VMEM residency do not carry over. The
+kernels have no backward yet (ROADMAP.md K4), so a forward that would
+need gradients raises.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from parallelwavegan_tpu_torch.ops.kernels import build
+
+SQRT_HALF = math.sqrt(0.5)
+WEIGHT_KEYS = ("wconv", "bconv", "waux", "wskip", "bskip", "wres", "bres")
+
+# ---------------------------------------------------------------------------
+# plain versions (ports of gated_resblock_xla / wavenet_stack_xla)
+# ---------------------------------------------------------------------------
+
+
+def gated_resblock_reference(x, c, conv_kernel, conv_bias, aux_kernel,
+                             skip_kernel, skip_bias, res_kernel, res_bias, *,
+                             dilation: int, causal: bool):
+    """Plain gated block: (residual_out (B, T, C_r), skip_out (B, T, C_s))."""
+    k = conv_kernel.shape[0]
+    pad = (k - 1) * dilation
+    left = pad if causal else pad // 2
+    xp = F.pad(x.transpose(1, 2), (left, pad - left))
+    z = F.conv1d(xp, conv_kernel.permute(2, 1, 0), conv_bias,
+                 dilation=dilation).transpose(1, 2)
+    if c is not None and aux_kernel is not None:
+        z = z + c @ aux_kernel
+    half = z.shape[-1] // 2
+    g = torch.tanh(z[..., :half]) * torch.sigmoid(z[..., half:])
+    s = g @ skip_kernel
+    if skip_bias is not None:
+        s = s + skip_bias
+    r = g @ res_kernel
+    if res_bias is not None:
+        r = r + res_bias
+    return (r + x) * SQRT_HALF, s
+
+
+def wavenet_stack_reference(x, c, weights, dilations):
+    """Plain sequence of gated blocks -> (x_out, skip_sum)."""
+    skips = 0.0
+    for layer, d in enumerate(dilations):
+        x, s = gated_resblock_reference(
+            x, c, *(weights[k][layer] for k in WEIGHT_KEYS),
+            dilation=int(d), causal=False)
+        skips = skips + s
+    return x, skips
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel
+# ---------------------------------------------------------------------------
+
+_WIDTHS = (16, 64)  # residual = skip = gate / 2, instantiated in wavenet.cu
+
+
+def _refuse_training(tensors) -> None:
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            "the fused WaveNet kernels are inference-only (their backward, "
+            "ROADMAP.md K4, is not ported): run the forward under "
+            "torch.inference_mode() or torch.no_grad()")
+
+
+def _check_cuda_inputs(x, c, weights, n_layers) -> None:
+    if x.dim() != 3 or c is None or c.dim() != 3:
+        raise ValueError("x and c must be (B, T, C) tensors")
+    b, t, ch = x.shape
+    ca = c.shape[2]
+    if ch not in _WIDTHS:
+        raise ValueError(f"residual width {ch} is not one of {_WIDTHS}")
+    if weights["wconv"].dim() != 4:
+        raise ValueError("wconv must be (L, K, C_r, C_g)")
+    k = weights["wconv"].shape[1]
+    shapes = {
+        "wconv": (n_layers, k, ch, 2 * ch), "bconv": (n_layers, 2 * ch),
+        "waux": (n_layers, ca, 2 * ch), "wskip": (n_layers, ch, ch),
+        "bskip": (n_layers, ch), "wres": (n_layers, ch, ch),
+        "bres": (n_layers, ch),
+    }
+    # x is copied in 16-byte pieces, the weights in 8-byte pieces
+    build.check_tensor("x", x, x.device, (b, t, ch), align=16)
+    build.check_tensor("c", c, x.device, (b, t, ca), align=4)
+    for key in WEIGHT_KEYS:
+        if weights.get(key) is None:
+            raise ValueError(f"the kernel needs {key} (bias=True, aux input)")
+        build.check_tensor(key, weights[key], x.device, shapes[key], align=8)
+
+
+def _run_layers(x, c, weights, dilations, causal: bool, counter):
+    """One kernel launch per layer on the current stream; x ping-pongs
+    between two buffers, skip is written by the first layer and added to
+    by the others. ``counter.launches`` counts the launches."""
+    lib = build.load()
+    dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    b, t, ch = x.shape
+    ca, k = c.shape[2], weights["wconv"].shape[1]
+    skip = torch.empty_like(x)
+    bufs = [torch.empty_like(x) for _ in range(min(2, len(dilations)))]
+    src = x
+    for layer, d in enumerate(dilations):
+        dst = bufs[layer % 2]
+        lib.call("wavenet_layer", src.data_ptr(), c.data_ptr(), dst.data_ptr(),
+                 skip.data_ptr(),
+                 *(weights[key][layer].data_ptr() for key in WEIGHT_KEYS),
+                 b, t, ch, ca, k, int(d), int(causal), int(layer > 0), dev,
+                 stream)
+        counter.launches += 1
+        src = dst
+    return src, skip
+
+
+def _device_of(x, name: str) -> str:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    return x.device.type
+
+
+def fused_wavenet_stack(x, c, weights, dilations):
+    """Gated layers of one dilation cycle -> (x_out (B, T, C_r), skip_sum
+    (B, T, C_s)).
+
+    A CUDA tensor goes through the hand-written kernel, one launch per
+    layer (C_r = C_s = C_g / 2 in {16, 64}, any C_a and kernel size;
+    float32, contiguous) and raises on anything it does not take; a CPU
+    tensor goes through ``wavenet_stack_reference``.
+    ``fused_wavenet_stack.launches`` counts the kernel launches.
+    """
+    _refuse_training([x, c, *weights.values()])
+    if _device_of(x, "fused_wavenet_stack") == "cpu":
+        return wavenet_stack_reference(x, c, weights, dilations)
+    _check_cuda_inputs(x, c, weights, len(dilations))
+    return _run_layers(x, c, weights, dilations, False, fused_wavenet_stack)
+
+
+fused_wavenet_stack.launches = 0
+
+
+def fused_wavenet_cycle(x, c, weights, dilations, *,
+                        max_layers_per_call: int = 10):
+    """A dilation cycle as calls of at most ``max_layers_per_call`` layers
+    of ``fused_wavenet_stack``, skips summed between calls as the JAX
+    package does (wavenet_stack.py:175-196). The generator does not chunk:
+    it runs all its layers through one ``fused_wavenet_stack`` call."""
+    skips = None
+    for s in range(0, len(dilations), max_layers_per_call):
+        e = min(s + max_layers_per_call, len(dilations))
+        chunk = {k: v[s:e] for k, v in weights.items()}
+        x, sk = fused_wavenet_stack(x, c, chunk, dilations[s:e])
+        skips = sk if skips is None else skips + sk
+    return x, skips
+
+
+def fused_gated_resblock(x, c, conv_kernel, conv_bias, aux_kernel,
+                         skip_kernel, skip_bias, res_kernel, res_bias,
+                         dilation: int = 1, causal: bool = False):
+    """One gated block -> (residual_out, skip_out), causal or not.
+
+    A CUDA tensor goes through the kernel's one-layer call (the widths of
+    ``fused_wavenet_stack``; biases and c required); a CPU tensor goes
+    through ``gated_resblock_reference``. ``fused_gated_resblock.launches``
+    counts the kernel launches.
+    """
+    args = (conv_kernel, conv_bias, aux_kernel, skip_kernel, skip_bias,
+            res_kernel, res_bias)
+    _refuse_training([x, c, *args])
+    if _device_of(x, "fused_gated_resblock") == "cpu":
+        return gated_resblock_reference(x, c, *args, dilation=dilation,
+                                        causal=causal)
+    weights = {k: None if v is None else v[None]
+               for k, v in zip(WEIGHT_KEYS, args)}
+    _check_cuda_inputs(x, c, weights, 1)
+    return _run_layers(x, c, weights, (dilation,), causal,
+                       fused_gated_resblock)
+
+
+fused_gated_resblock.launches = 0

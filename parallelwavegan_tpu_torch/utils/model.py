@@ -5,7 +5,10 @@ config discovery from the checkpoint directory, the ``upsample_kernal_sizes``
 typo remap, generator-only weight load from an upstream ``.pkl``, stats
 registered for ``normalize_before``, and ``inference`` padding the mel to a
 bucket of 32 frames with edge values before trimming the output, so that
-the waveform equals the JAX package's. Batched, streaming, sharded and
+the waveform equals the JAX package's. For Parallel WaveGAN the padded
+forward also edge-pads the mel by ``aux_context_window`` frames and takes
+noise of the padded length (:67-75, :155-164). ``load_model`` runs on the
+GPU unless the caller asks for the CPU. Batched, streaming, sharded and
 PQMF decode are not ported yet (ROADMAP.md).
 """
 
@@ -16,6 +19,7 @@ import os
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from parallelwavegan_tpu_torch.utils.checkpoint import load_generator_state_dict
 from parallelwavegan_tpu_torch.utils.config import load_config
@@ -44,28 +48,57 @@ class InferenceModel:
         self.mean = mean
         self.scale = scale
 
+    def forward_padded(self, c: torch.Tensor,
+                       z: torch.Tensor | None = None) -> torch.Tensor:
+        """The padded forward, counterpart of the JAX ``_forward_fn()``: mel
+        (pad_t, num_mels) and, for a generator that takes noise, z
+        (pad_t * upsample_factor,) -> (pad_t * upsample_factor, out)."""
+        x = c.t()[None]
+        if not getattr(self.generator, "requires_noise_input", False):
+            return self.generator(x)[0].t()
+        win = self.generator.aux_context_window
+        x = F.pad(x, (win, win), mode="replicate")
+        return self.generator(z.reshape(1, 1, -1), x)[0].t()
+
     @torch.inference_mode()
-    def inference(self, c, normalize_before: bool = False) -> np.ndarray:
-        """mel (T', num_mels) -> waveform (T' * upsample_factor, out)."""
+    def inference(self, c, normalize_before: bool = False,
+                  rng: torch.Generator | None = None) -> np.ndarray:
+        """mel (T', num_mels) -> waveform (T' * upsample_factor, out).
+
+        A generator that takes noise gets it from ``rng``, a generator on
+        the model's device, or else from one seeded by
+        ``np.random.randint(2**31)`` as the JAX package seeds its key."""
         c = np.asarray(c, dtype=np.float32)
         if normalize_before:
             if self.mean is None:
                 raise ValueError("normalize_before needs registered stats")
             c = (c - self.mean) / self.scale
         t = c.shape[0]
+        up = self.generator.upsample_factor
         pad_t = -(-t // self.BUCKET) * self.BUCKET
         c_p = np.pad(c, ((0, pad_t - t), (0, 0)), mode="edge")
-        x = torch.from_numpy(np.ascontiguousarray(c_p.T[None])).to(self.device)
-        y = self.generator(x)[0].transpose(0, 1)
-        return y.cpu().numpy()[: t * self.generator.upsample_factor]
+        c_p = torch.from_numpy(np.ascontiguousarray(c_p)).to(self.device)
+        z = None
+        if getattr(self.generator, "requires_noise_input", False):
+            if rng is None:
+                rng = torch.Generator(device=self.device)
+                rng.manual_seed(int(np.random.randint(2**31)))
+            z = torch.randn(pad_t * up, generator=rng, device=self.device)
+        y = self.forward_padded(c_p, z)
+        return y.cpu().numpy()[: t * up]
 
 
 def load_model(checkpoint: str, config: dict | None = None,
-               stats: str | None = None, *, device="cpu") -> InferenceModel:
-    """Load a generator from an upstream ``.pkl`` for inference on ``device``:
-    weight norm folded, eval mode, tail weights prepared."""
+               stats: str | None = None, *, device="cuda") -> InferenceModel:
+    """Load a generator from an upstream ``.pkl`` for inference on ``device``
+    (the GPU unless ``device="cpu"`` is asked for): weight norm folded, eval
+    mode, kernel weights prepared."""
     from parallelwavegan_tpu_torch.models import get_model_class
 
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "load_model runs on the GPU by default and no CUDA device is "
+            "available: pass device='cpu' to run on the CPU")
     dirname = os.path.dirname(checkpoint)
     if config is None:
         config = load_config(os.path.join(dirname, "config.yml"))
@@ -79,7 +112,7 @@ def load_model(checkpoint: str, config: dict | None = None,
     generator.load_state_dict(load_generator_state_dict(checkpoint))
     generator.remove_weight_norm()
     generator.eval().to(device)
-    generator.prepare_tail()
+    generator.prepare_kernels()
 
     if stats is None:
         ext = "h5" if config.get("format", "hdf5") == "hdf5" else "npy"

@@ -1,4 +1,5 @@
-"""The fused HiFi-GAN tail kernel on a CUDA device, against its plain version.
+"""The port's CUDA kernels on a CUDA device, against their plain versions:
+the fused HiFi-GAN tail, and the fused WaveNet layer (stack and block).
 
 These tests need an NVIDIA GPU with sm_90a (Hopper) and nvcc; elsewhere
 they skip. They import no JAX, so they run on a machine that has only
@@ -17,6 +18,14 @@ from parallelwavegan_tpu_torch.models import get_model_class  # noqa: E402
 from parallelwavegan_tpu_torch.ops.kernels.hifigan_tail import (  # noqa: E402
     fused_hifigan_tail,
     hifigan_tail_reference,
+)
+from parallelwavegan_tpu_torch.ops.kernels.wavenet import (  # noqa: E402
+    WEIGHT_KEYS,
+    fused_gated_resblock,
+    fused_wavenet_cycle,
+    fused_wavenet_stack,
+    gated_resblock_reference,
+    wavenet_stack_reference,
 )
 
 pytestmark = pytest.mark.gpu
@@ -70,7 +79,7 @@ def test_generator_decode_through_kernel(cuda):
     plain.remove_weight_norm()
     plain.load_state_dict(gen.state_dict())
     plain.eval().to(cuda)
-    gen.prepare_tail()
+    gen.prepare_kernels()
     c = torch.randn(2, 8, 45, generator=torch.Generator().manual_seed(3)).to(cuda)
     with torch.inference_mode():
         got, want = gen(c), plain(c)
@@ -85,3 +94,116 @@ def test_kernel_rejects_unsupported_input(cuda):
     with pytest.raises(ValueError, match="float32"):
         fused_hifigan_tail(x, w["stages"], w["final_w"], w["final_b"],
                            pre_blocks=w["pre_blocks"])
+
+
+def _wavenet_weights(n_layers, ch, ca, k=3, seed=0):
+    rs = np.random.RandomState(seed)
+    shapes = {"wconv": (n_layers, k, ch, 2 * ch), "bconv": (n_layers, 2 * ch),
+              "waux": (n_layers, ca, 2 * ch), "wskip": (n_layers, ch, ch),
+              "bskip": (n_layers, ch), "wres": (n_layers, ch, ch),
+              "bres": (n_layers, ch)}
+    fan = {"wconv": k * ch, "waux": ca, "wskip": ch, "wres": ch}
+    return {key: torch.from_numpy((rs.randn(*shape) * (2.0 / fan.get(key, 4)) ** 0.5)
+                                  .astype(np.float32))
+            for key, shape in shapes.items()}
+
+
+# v1 widths (64, aux 80), an odd aux width (10), and the narrow width 16
+@pytest.mark.parametrize("ch,ca,b,t", [(64, 80, 1, 4099), (64, 10, 2, 1000),
+                                       (16, 80, 3, 777), (64, 80, 2, 1)])
+def test_wavenet_stack_matches_plain_version(cuda, ch, ca, b, t):
+    dil = tuple(2 ** i for i in range(10))
+    w = {k: v.to(cuda) for k, v in _wavenet_weights(len(dil), ch, ca).items()}
+    rs = np.random.RandomState(1)
+    x = torch.from_numpy(rs.randn(b, t, ch).astype(np.float32)).to(cuda)
+    c = torch.from_numpy(rs.randn(b, t, ca).astype(np.float32)).to(cuda)
+    before = fused_wavenet_stack.launches
+    with torch.inference_mode():
+        got = fused_wavenet_cycle(x, c, w, dil, max_layers_per_call=5)
+        torch.cuda.synchronize()
+        want = wavenet_stack_reference(x, c, w, dil)
+    assert fused_wavenet_stack.launches == before + len(dil)
+    for g, r in zip(got, want):
+        assert g.shape == r.shape == (b, t, ch)
+        assert float((g - r).abs().max()) <= 2e-4
+
+
+@pytest.mark.parametrize("dilation,causal,k", [(1, False, 3), (4, True, 3),
+                                               (2, False, 5), (8, True, 2)])
+def test_gated_resblock_matches_plain_version(cuda, dilation, causal, k):
+    w = _wavenet_weights(1, 64, 80, k=k, seed=2)
+    args = [w[key][0].to(cuda) for key in WEIGHT_KEYS]
+    rs = np.random.RandomState(3)
+    x = torch.from_numpy(rs.randn(2, 777, 64).astype(np.float32)).to(cuda)
+    c = torch.from_numpy(rs.randn(2, 777, 80).astype(np.float32)).to(cuda)
+    before = fused_gated_resblock.launches
+    with torch.inference_mode():
+        got = fused_gated_resblock(x, c, *args, dilation=dilation, causal=causal)
+        torch.cuda.synchronize()
+        want = gated_resblock_reference(x, c, *args, dilation=dilation,
+                                        causal=causal)
+    assert fused_gated_resblock.launches == before + 1
+    for g, r in zip(got, want):
+        assert float((g - r).abs().max()) <= 2e-4
+
+
+def test_pwg_generator_through_the_kernels(cuda):
+    cls = get_model_class("ParallelWaveGANGenerator")
+    small = dict(layers=6, stacks=2, aux_channels=80,
+                 upsample_params={"upsample_scales": [4, 4]})
+    plain = cls(**small, generator=torch.Generator().manual_seed(4))
+    plain.remove_weight_norm()
+    z = torch.randn(2, 1, 40 * 16, generator=torch.Generator().manual_seed(5))
+    c = torch.randn(2, 80, 44, generator=torch.Generator().manual_seed(6))
+    plain.eval().to(cuda)
+    with torch.inference_mode():
+        want = plain(z.to(cuda), c.to(cuda))
+    for flag in ("use_pallas_stack_train", "use_pallas_kernels"):
+        gen = cls(**small, **{flag: True})
+        gen.remove_weight_norm()
+        gen.load_state_dict(plain.state_dict())
+        gen.eval().to(cuda)
+        gen.prepare_kernels()
+        before = fused_wavenet_stack.launches + fused_gated_resblock.launches
+        with torch.inference_mode():
+            got = gen(z.to(cuda), c.to(cuda))
+        torch.cuda.synchronize()
+        assert fused_wavenet_stack.launches + fused_gated_resblock.launches == before + 6
+        assert float((got - want).abs().max()) <= 2e-4
+
+
+def test_pwg_stack_without_biases_through_the_kernel(cuda):
+    cls = get_model_class("ParallelWaveGANGenerator")
+    small = dict(layers=6, stacks=2, aux_channels=80, bias=False,
+                 upsample_params={"upsample_scales": [4, 4]})
+    plain = cls(**small, generator=torch.Generator().manual_seed(4))
+    gen = cls(**small, use_pallas_stack_train=True)
+    gen.load_state_dict(plain.state_dict())
+    for m in (plain, gen):
+        m.remove_weight_norm()
+        m.eval().to(cuda)
+    gen.prepare_kernels()
+    z = torch.randn(1, 1, 40 * 16, generator=torch.Generator().manual_seed(5))
+    c = torch.randn(1, 80, 44, generator=torch.Generator().manual_seed(6))
+    before = fused_wavenet_stack.launches
+    with torch.inference_mode():
+        want = plain(z.to(cuda), c.to(cuda))
+        got = gen(z.to(cuda), c.to(cuda))
+    torch.cuda.synchronize()
+    assert fused_wavenet_stack.launches == before + 6
+    assert float((got - want).abs().max()) <= 2e-4
+
+
+def test_wavenet_kernel_rejects_unsupported_input(cuda):
+    w = {k: v.to(cuda) for k, v in _wavenet_weights(1, 32, 80).items()}
+    x = torch.zeros(1, 16, 32, device=cuda)
+    c = torch.zeros(1, 16, 80, device=cuda)
+    with pytest.raises(ValueError, match="residual width 32"):
+        fused_wavenet_stack(x, c, w, (1,))
+    w = {k: v.to(cuda) for k, v in _wavenet_weights(1, 64, 80).items()}
+    with pytest.raises(ValueError, match="float32"):
+        fused_wavenet_stack(torch.zeros(1, 16, 64, device=cuda, dtype=torch.float64),
+                            c, w, (1,))
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_wavenet_stack(torch.zeros(1, 64, 16, device=cuda).transpose(1, 2),
+                            c, w, (1,))

@@ -90,7 +90,7 @@ def test_generator_matches_jax(use_pallas_tail):
     with torch.no_grad():
         got = port(torch.from_numpy(c.transpose(0, 2, 1))).numpy()
         port.remove_weight_norm()
-        port.prepare_tail()
+        port.prepare_kernels()
         folded = port(torch.from_numpy(c.transpose(0, 2, 1))).numpy()
     assert got.shape == (2, 1, 37 * 64)
     np.testing.assert_allclose(got.transpose(0, 2, 1), want, atol=1e-4)
