@@ -32,6 +32,28 @@ Phases (any failure exits non-zero; nothing is caught):
    kernel: 30 launches per utterance), then with ``use_pallas_kernels``
    instead (the one-layer call: 30 launches per utterance), then with
    every kernel flag off, each with the same noise; the WAVs agree to 2e-4.
+7. The MelGAN stack kernel (K6) against its plain version, max |diff| <=
+   2e-4, with CUDA-event times: Multi-band MelGAN v2's stage 1 (B=1,
+   T=16384, C=96, 4 stacks, reflect) and stage 2 with the final conv
+   (B=1, T=32768, C=48 -> 4, tanh) at 512 frames, and ragged B=2, T=1000,
+   C=64 cases in replicate and zero padding.
+8. The MRF kernel (K2) against its plain version: HiFi-GAN v1's stage 2
+   and 3 shapes (1, 65536, 64) and (1, 131072, 32), stage 1's (1, 32768,
+   128) (the width ``pallas_mrf_max_channels: 128`` sends), and a ragged
+   B=2, T=1000 case.
+9. The split of the MB-MelGAN v2 forward at 512 frames: input conv and
+   stage 0, stage 1, stage 2 with the final conv (each with and without
+   K6), and PQMF synthesis.
+10. MB-MelGAN v2 decode through ``bin/decode.main``: a random-init,
+   full-width checkpoint with ``generator_params`` verbatim from
+   egs/ljspeech/voc1/conf/multi_band_melgan.v2.yaml, decoded with
+   ``--use-pallas-stacks`` (K6 called twice per utterance, 9 launches)
+   and without; the WAVs agree to 2e-4.
+
+Phase 3 also decodes HiFi-GAN v1 with ``use_pallas_mrf: true`` in the
+config (K2 called twice per utterance, stages 2 and 3, 8 launches) and
+holds it to the plain decode. Launch counts are reset just before each
+decode and read just after it.
 
 The last three lines are the kernel record (JSON), the card's name and
 power limit from nvidia-smi, and {"ok": true, "device": {...}}. Every
@@ -77,6 +99,12 @@ V1_PWG_GENERATOR = dict(
     upsample_params={"upsample_scales": [4, 4, 4, 4]},
     use_pallas_stack_train=True,
 )
+# egs/ljspeech/voc1/conf/multi_band_melgan.v2.yaml (a test holds these equal to it)
+V2_MB_GENERATOR = dict(
+    in_channels=80, out_channels=4, kernel_size=7, channels=384,
+    upsample_scales=[8, 4, 2], stack_kernel_size=3, stacks=4,
+    use_weight_norm=True, use_causal_conv=False,
+)
 UTT_FRAMES = (512, 300, 77)
 PEAK_FLOPS = 67e12  # float32 on the CUDA cores
 PEAK_BYTES = 3.35e12
@@ -112,9 +140,16 @@ def _median_ms(fn, reps: int = 10) -> float:
 
 
 def _reset_launch_counts() -> None:
-    """Every kernel wrapper's launch count to 0, just before a main path."""
+    """Every kernel wrapper's launch (and call) count to 0, just before a
+    main path."""
+    from parallelwavegan_tpu_torch.ops.kernels.hifigan_mrf import (
+        fused_hifigan_mrf,
+    )
     from parallelwavegan_tpu_torch.ops.kernels.hifigan_tail import (
         fused_hifigan_tail,
+    )
+    from parallelwavegan_tpu_torch.ops.kernels.melgan_stack import (
+        fused_melgan_stacks,
     )
     from parallelwavegan_tpu_torch.ops.kernels.wavenet import (
         fused_gated_resblock,
@@ -123,6 +158,8 @@ def _reset_launch_counts() -> None:
 
     for fn in (fused_hifigan_tail, fused_wavenet_stack, fused_gated_resblock):
         fn.launches = 0
+    for fn in (fused_melgan_stacks, fused_hifigan_mrf):
+        fn.launches = fn.calls = 0
 
 
 def _bound(flops: float, nbytes: float) -> dict:
@@ -305,43 +342,54 @@ def _rtfs(res: dict) -> str:
 
 
 def phase_decode(card: str) -> dict:
-    """HiFi-GAN v1 decode entry point with the tail kernel, then without."""
+    """HiFi-GAN v1 decode entry point with the tail kernel, with the MRF
+    kernel (``use_pallas_mrf`` in the config), then with neither."""
     from parallelwavegan_tpu_torch.bin import decode
+    from parallelwavegan_tpu_torch.ops.kernels.hifigan_mrf import (
+        fused_hifigan_mrf,
+    )
     from parallelwavegan_tpu_torch.ops.kernels.hifigan_tail import (
         fused_hifigan_tail,
     )
 
     p = _write_inputs("HiFiGANGenerator", V1_GENERATOR,
                       {"tail": {"use_pallas_tail": True},
+                       "mrf": {"use_pallas_mrf": True},
                        "plain": {"use_pallas_tail": False}})
     common = ["--dumpdir", p["dump"], "--checkpoint", p["ckpt"],
               "--normalize-before", "--device", "cuda"]
-    out_tail = os.path.join(p["root"], "wav_tail")
-    out_plain = os.path.join(p["root"], "wav_plain")
-
-    _reset_launch_counts()
-    res_tail = decode.main(common + ["--outdir", out_tail, "--config", p["tail"],
-                                     "--use-pallas-tail"])
-    launches = fused_hifigan_tail.launches
-    print(f"main path: tail kernel launches = {launches} for "
-          f"{len(UTT_FRAMES)} utterances")
-    if launches != len(UTT_FRAMES):
-        _fail("the decode did not go through the tail kernel once per utterance")
-
-    res_plain = decode.main(common + ["--outdir", out_plain, "--config", p["plain"]])
-    if fused_hifigan_tail.launches != launches:
-        _fail("the plain decode launched the tail kernel")
-
-    err = _compare_wavs(out_tail, out_plain)
-    print(f"decode with tail kernel vs without: max|diff| = {err:.3e} "
-          f"(tol {TOL}, 16-bit WAVs)")
-    if not err <= TOL:
-        _fail("decode with the tail kernel disagrees with the plain decode")
-    print(f"decode RTF (mean of {len(UTT_FRAMES)} utterances, first one "
-          f"includes warm-up) on {card}: tail kernel {_rtfs(res_tail)}, "
-          f"plain {_rtfs(res_plain)}")
+    n = len(UTT_FRAMES)
+    # tail: one call per utterance; mrf: stages 2 and 3 (C = 64, 32), each
+    # 3 resunit launches (one per dilation depth) and a mean
+    expect = {"tail": (n, 0, 0), "mrf": (0, 2 * n, 8 * n), "plain": (0, 0, 0)}
+    res, counts = {}, {}
+    for name in ("tail", "mrf", "plain"):
+        _reset_launch_counts()
+        res[name] = decode.main(
+            common + ["--outdir", os.path.join(p["root"], f"wav_{name}"),
+                      "--config", p[name]]
+            + (["--use-pallas-tail"] if name == "tail" else []))
+        counts[name] = (fused_hifigan_tail.launches, fused_hifigan_mrf.calls,
+                        fused_hifigan_mrf.launches)
+        print(f"main path [HiFi-GAN v1, {name}]: tail kernel calls = "
+              f"{counts[name][0]}, MRF kernel calls = {counts[name][1]} "
+              f"(launches {counts[name][2]}) for {n} utterances")
+        if counts[name] != expect[name]:
+            _fail(f"HiFi-GAN {name} decode: counts {counts[name]}, expected "
+                  f"{expect[name]}")
+    errs = {}
+    for name in ("tail", "mrf"):
+        errs[name] = _compare_wavs(os.path.join(p["root"], f"wav_{name}"),
+                                   os.path.join(p["root"], "wav_plain"))
+        print(f"decode with {name} kernel vs without: max|diff| = "
+              f"{errs[name]:.3e} (tol {TOL}, 16-bit WAVs)")
+        if not errs[name] <= TOL:
+            _fail(f"decode with the {name} kernel disagrees with the plain decode")
+    print(f"decode RTF (mean of {n} utterances, first one includes warm-up) on "
+          f"{card}: " + ", ".join(f"{k} {_rtfs(v)}" for k, v in res.items()))
     shutil.rmtree(p["root"])
-    return {"launches": launches, "err": err}
+    return {"launches": counts["tail"][0], "err": errs["tail"],
+            "mrf_launches": counts["mrf"][2], "mrf_err": errs["mrf"]}
 
 
 def _pwg_v1(flags: dict):
@@ -535,6 +583,280 @@ def phase_pwg_decode(card: str) -> dict:
             "block_launches": launches["block"][1], "errs": errs}
 
 
+def _mb_v2(flags: dict):
+    """The full-width MB-MelGAN v2 generator from SEED on the card, weight
+    norm folded, eval mode, kernel weights prepared."""
+    import torch
+
+    from parallelwavegan_tpu_torch.models import get_model_class
+
+    gen = get_model_class("MelGANGenerator")(
+        **dict(V2_MB_GENERATOR, **flags), device="cuda",
+        generator=torch.Generator().manual_seed(SEED))
+    gen.remove_weight_norm()
+    gen.eval()
+    gen.prepare_kernels()
+    return gen
+
+
+def _stacks_work(x, stacks, final) -> dict:
+    """Operations and bytes of one fused_melgan_stacks call."""
+    b, t, c = x.shape
+    mac = sum(st["wd"].shape[0] * c * c + 2 * c * c for st in stacks)
+    out_ch = c
+    weights = [st[k] for st in stacks for k in ("wd", "bd", "w1", "b1", "ws", "bs")]
+    if final is not None:
+        mac += final[0].shape[0] * c * final[0].shape[-1]
+        out_ch = final[0].shape[-1]
+        weights += list(final)
+    nbytes = 4 * (x.numel() + b * t * out_ch + sum(w.numel() for w in weights))
+    return _bound(2.0 * b * t * mac, nbytes)
+
+
+def _mrf_work(x, blocks) -> dict:
+    """Operations and bytes of one fused_hifigan_mrf call."""
+    b, t, c = x.shape
+    mac = sum(2 * blk["w1"].shape[1] * len(blk["dilations"]) * c * c
+              for blk in blocks)
+    weights = [blk[k] for blk in blocks for k in ("w1", "b1", "w2", "b2")]
+    nbytes = 4 * (2 * x.numel() + sum(w.numel() for w in weights))
+    return _bound(2.0 * b * t * mac, nbytes)
+
+
+def _check_close(name: str, got, want) -> float:
+    import torch
+
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        _fail(f"{name}: shapes {tuple(got.shape)} vs {tuple(want.shape)} or "
+              "non-finite kernel output")
+    err = float((got - want).abs().max())
+    print(f"kernel vs plain [{name}]: max|diff| = {err:.3e} (tol {TOL})")
+    if not err <= TOL:
+        _fail(f"{name}: kernel disagrees with its plain version")
+    return err
+
+
+def _timed(rec: dict, name: str, card: str, fn, plain, work: dict) -> None:
+    """Median CUDA-event times of kernel and plain, summed into rec."""
+    ms, plain_ms = _median_ms(fn), _median_ms(plain)
+    print(f"time [{name}, median of 10, CUDA events]: kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {work['bound_ms']:.3f} ms "
+          f"({work['flops'] / 1e9:.2f} GFLOP, {work['bytes'] / 1e6:.1f} MB, "
+          f"{work['bound_by']}) on {card}")
+    for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", work["bound_ms"]),
+                 ("flops", work["flops"]), ("bytes", work["bytes"])):
+        rec[k] = rec.get(k, 0.0) + v
+    ops_ms = rec["flops"] / PEAK_FLOPS * 1e3
+    rec["bound_by"] = "operations" if ops_ms >= rec["bytes"] / PEAK_BYTES * 1e3 else "bytes"
+
+
+def phase_melgan_kernel(card: str) -> dict:
+    """K6 vs its plain version at the MB-MelGAN v2 stage shapes (512
+    frames) and on ragged replicate / zero-padded cases. ms, plain_ms and
+    the bound are those of both v2 stages, one decode's K6 work."""
+    import numpy as np
+    import torch
+
+    from parallelwavegan_tpu_torch.ops.kernels.melgan_stack import (
+        fused_melgan_stacks,
+        melgan_stacks_reference,
+    )
+
+    gen = _mb_v2({"use_pallas_stacks": True})
+    rs = np.random.RandomState(SEED)
+
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy((rs.randn(*shape) * scale).astype(np.float32)).to("cuda")
+
+    def random_stacks(c):
+        return [{"wd": randn(3, c, c, scale=0.5 / (3 * c) ** 0.5), "bd": randn(c, scale=0.1),
+                 "w1": randn(1, c, c, scale=0.5 / c ** 0.5), "b1": randn(c, scale=0.1),
+                 "ws": randn(1, c, c, scale=0.5 / c ** 0.5), "bs": randn(c, scale=0.1),
+                 "dilation": 3 ** j} for j in range(4)]
+
+    w1, w2 = gen.stage_weights(1), gen.stage_weights(2)
+    ragged = random_stacks(64)
+    cases = [
+        ("v2 stage 1", randn(1, 16384, 96, scale=0.5), w1["stacks"], None, "reflect"),
+        ("v2 stage 2 + final", randn(1, 32768, 48, scale=0.5), w2["stacks"],
+         w2["final"], "reflect"),
+        ("ragged replicate B=2 T=1000 C=64", randn(2, 1000, 64), ragged, None, "edge"),
+        ("ragged zeros B=2 T=1000 C=64 + final", randn(2, 1000, 64), ragged,
+         (randn(7, 64, 4, scale=0.5 / (7 * 64) ** 0.5), randn(4, scale=0.1)),
+         "constant"),
+    ]
+    rec = {"errs": []}
+    with torch.inference_mode():
+        for name, x, stacks, final, mode in cases:
+            kw = dict(final=final, slope=gen.slope, pad_mode=mode)
+            got = fused_melgan_stacks(x, stacks, **kw)
+            torch.cuda.synchronize()
+            want = melgan_stacks_reference(x, stacks, **kw)
+            torch.cuda.synchronize()
+            rec["errs"].append(_check_close(f"K6 {name}", got, want))
+            if name.startswith("v2"):
+                _timed(rec, f"K6 {name}", card,
+                       lambda: fused_melgan_stacks(x, stacks, **kw),
+                       lambda: melgan_stacks_reference(x, stacks, **kw),
+                       _stacks_work(x, stacks, final))
+    print(f"K6 per 512-frame decode (both stages): kernel {rec['ms']:.3f} ms, "
+          f"plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms on {card}")
+    return rec
+
+
+def phase_mrf_kernel(card: str) -> dict:
+    """K2 vs its plain version at HiFi-GAN v1's MRF shapes (512 frames)
+    and one ragged case. ms, plain_ms and the bound are those of stages 2
+    and 3, one decode's K2 work with the default gate."""
+    import numpy as np
+    import torch
+
+    from parallelwavegan_tpu_torch.models import get_model_class
+    from parallelwavegan_tpu_torch.ops.kernels.hifigan_mrf import (
+        fused_hifigan_mrf,
+        hifigan_mrf_reference,
+    )
+
+    gen = get_model_class("HiFiGANGenerator")(
+        **V1_GENERATOR, use_pallas_mrf=True, pallas_mrf_max_channels=128,
+        device="cuda", generator=torch.Generator().manual_seed(SEED))
+    gen.remove_weight_norm()
+    gen.eval()
+    rs = np.random.RandomState(SEED)
+    slope = gen.slope
+    cases = [("v1 stage 2", (1, 65536), 2), ("v1 stage 3", (1, 131072), 3),
+             ("v1 stage 1 (K2a width)", (1, 32768), 1), ("ragged B=2 T=1000", (2, 1000), 2)]
+    rec = {"errs": []}
+    with torch.inference_mode():
+        for name, (b, t), stage in cases:
+            blocks = gen.mrf_weights(stage)
+            c = blocks[0]["w1"].shape[-1]
+            x = torch.from_numpy((rs.randn(b, t, c) * 0.5).astype(np.float32)).to("cuda")
+            got = fused_hifigan_mrf(x, blocks, slope=slope)
+            torch.cuda.synchronize()
+            want = hifigan_mrf_reference(x, blocks, slope=slope)
+            torch.cuda.synchronize()
+            rec["errs"].append(_check_close(f"K2 {name} C={c}", got, want))
+            if name.startswith("v1"):
+                work = _mrf_work(x, blocks)
+                target = rec if stage in (2, 3) else {}
+                _timed(target, f"K2 {name} B={b} T={t} C={c}", card,
+                       lambda: fused_hifigan_mrf(x, blocks, slope=slope),
+                       lambda: hifigan_mrf_reference(x, blocks, slope=slope), work)
+    print(f"K2 per 512-frame decode (stages 2 and 3): kernel {rec['ms']:.3f} ms, "
+          f"plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms on {card}")
+    return rec
+
+
+def phase_mbmelgan_split(card: str) -> None:
+    """Where the MB-MelGAN v2 forward spends its time at 512 frames, B=1."""
+    import torch
+
+    from parallelwavegan_tpu_torch.ops.kernels.melgan_stack import (
+        fused_melgan_stacks,
+    )
+    from parallelwavegan_tpu_torch.ops.pqmf import PQMF
+
+    gen = _mb_v2({"use_pallas_stacks": True})
+    plain = _mb_v2({})
+    m = gen.melgan
+    pqmf = PQMF(4, taps=62, cutoff_ratio=0.15, beta=9.0)
+    c = torch.randn(1, 80, 512, generator=torch.Generator(device="cuda").manual_seed(SEED),
+                    device="cuda")
+
+    def head(x):  # input conv and stage 0 (192 channels: cuDNN in both)
+        x = m[1](m[0](x))
+        a, d, stacks = gen._stages[0]
+        x = m[d](m[a](x))
+        for j in stacks:
+            x = m[j](x)
+        return x
+
+    def up(x, i):
+        a, d, _ = gen._stages[i]
+        return m[d](m[a](x))
+
+    def plain_stacks(x, i):
+        for j in gen._stages[i][2]:
+            x = m[j](x)
+        return x
+
+    def fused(x, i):
+        w = gen._kernel_cache[i]
+        return fused_melgan_stacks(x.transpose(1, 2).contiguous(), w["stacks"],
+                                   final=w["final"], slope=gen.slope,
+                                   pad_mode=gen.pad_mode)
+
+    def plain_tail(x):
+        for j in range(gen._tail, len(m)):
+            x = m[j](x)
+        return x
+
+    with torch.inference_mode():
+        h0 = head(c)
+        u1 = up(h0, 1)
+        h1 = plain_stacks(u1, 1)
+        u2 = up(h1, 2)
+        bands = plain_tail(plain_stacks(u2, 2)).transpose(1, 2)
+        t = {
+            "input conv + stage 0": _median_ms(lambda: head(c)),
+            "stage 1 act + deconv": _median_ms(lambda: up(h0, 1)),
+            "stage 1 stacks, kernel": _median_ms(lambda: fused(u1, 1)),
+            "stage 1 stacks, plain": _median_ms(lambda: plain_stacks(u1, 1)),
+            "stage 2 act + deconv": _median_ms(lambda: up(h1, 2)),
+            "stage 2 stacks + final, kernel": _median_ms(lambda: fused(u2, 2)),
+            "stage 2 stacks + final, plain": _median_ms(
+                lambda: plain_tail(plain_stacks(u2, 2))),
+            "PQMF synthesis": _median_ms(lambda: pqmf.synthesis(bands)),
+            "forward + PQMF, kernel": _median_ms(
+                lambda: pqmf.synthesis(gen(c).transpose(1, 2))),
+            "forward + PQMF, plain": _median_ms(
+                lambda: pqmf.synthesis(plain(c).transpose(1, 2))),
+        }
+    print(f"MB-MelGAN v2 forward split, 512 frames, B=1, median of 10, CUDA "
+          f"events, on {card}: " + "; ".join(f"{k} {v:.3f} ms" for k, v in t.items()))
+
+
+def phase_mbmelgan_decode(card: str) -> dict:
+    """MB-MelGAN v2 decode entry point with --use-pallas-stacks, then
+    without."""
+    from parallelwavegan_tpu_torch.bin import decode
+    from parallelwavegan_tpu_torch.ops.kernels.melgan_stack import (
+        fused_melgan_stacks,
+    )
+
+    p = _write_inputs("MelGANGenerator", V2_MB_GENERATOR, {"config": {}})
+    n = len(UTT_FRAMES)
+    # stages 1 and 2 (96, 48 channels): 4 stack launches each, and the
+    # final conv on stage 2
+    expect = {"stacks": (2 * n, 9 * n), "plain": (0, 0)}
+    res, counts = {}, {}
+    for name in ("stacks", "plain"):
+        _reset_launch_counts()
+        res[name] = decode.main(
+            ["--dumpdir", p["dump"], "--checkpoint", p["ckpt"],
+             "--normalize-before", "--device", "cuda", "--config", p["config"],
+             "--outdir", os.path.join(p["root"], f"wav_{name}")]
+            + (["--use-pallas-stacks"] if name == "stacks" else []))
+        counts[name] = (fused_melgan_stacks.calls, fused_melgan_stacks.launches)
+        print(f"main path [MB-MelGAN v2, {name}]: stack kernel calls = "
+              f"{counts[name][0]}, launches = {counts[name][1]} for {n} utterances")
+        if counts[name] != expect[name]:
+            _fail(f"MB-MelGAN {name} decode: (calls, launches) {counts[name]}, "
+                  f"expected {expect[name]}")
+    err = _compare_wavs(os.path.join(p["root"], "wav_stacks"),
+                        os.path.join(p["root"], "wav_plain"))
+    print(f"MB-MelGAN decode with stack kernel vs without: max|diff| = {err:.3e} "
+          f"(tol {TOL}, 16-bit WAVs)")
+    if not err <= TOL:
+        _fail("MB-MelGAN decode through the stack kernel disagrees with the "
+              "plain decode")
+    print(f"MB-MelGAN decode RTF (mean of {n} utterances, first one includes "
+          f"warm-up) on {card}: " + ", ".join(f"{k} {_rtfs(v)}" for k, v in res.items()))
+    shutil.rmtree(p["root"])
+    return {"launches": counts["stacks"][1], "err": err}
+
+
 def main() -> None:
     pkg = os.path.join(ROOT, "parallelwavegan_tpu_torch")
     if not os.path.isdir(pkg):
@@ -552,6 +874,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = _card()
+    t_main = time.perf_counter()
     print(f"torch {torch.__version__} CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}; card: {card}")
 
@@ -582,6 +905,14 @@ def main() -> None:
     torch.cuda.synchronize()
     pwg = phase_pwg_decode(card)
     torch.cuda.synchronize()
+    k6 = phase_melgan_kernel(card)
+    torch.cuda.synchronize()
+    k2 = phase_mrf_kernel(card)
+    torch.cuda.synchronize()
+    phase_mbmelgan_split(card)
+    torch.cuda.synchronize()
+    mb = phase_mbmelgan_decode(card)
+    torch.cuda.synchronize()
     shutil.rmtree(WORK, ignore_errors=True)
 
     def entry(name, source, replaces, launches, rec):
@@ -602,7 +933,13 @@ def main() -> None:
               pwg["stack_launches"], wn["stack"]),
         entry("fused_gated_resblock", "wavenet.cu", "wavenet.py:280",
               pwg["block_launches"], wn["block"]),
+        entry("fused_melgan_stacks", "melgan_stack.cu", "melgan_stack.py:285",
+              mb["launches"], k6),
+        entry("fused_hifigan_mrf", "hifigan_tail.cu",
+              "hifigan_mrf.py:178 and :399", dec["mrf_launches"], k2),
     ]}
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_main:.1f} s "
+          f"(build included) on {card}")
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

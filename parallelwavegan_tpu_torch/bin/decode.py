@@ -2,18 +2,23 @@
 
 Reads mel features from a dump directory, decodes each utterance of any
 ported generator with ``load_model(...).inference`` on ``--device`` and
-writes 16-bit WAVs. ``--use-pallas-tail`` routes the HiFi-GAN decode tail
-and ``--use-pallas-stack`` the Parallel WaveGAN dilation cycles through
+writes 16-bit WAVs (Multi-band MelGAN after PQMF synthesis).
+``--use-pallas-tail`` routes the HiFi-GAN decode tail,
+``--use-pallas-stack`` the Parallel WaveGAN dilation cycles and
+``--use-pallas-stacks`` the (Multi-band) MelGAN residual stacks through
 their hand-written CUDA kernels (the JAX flag names, kept so configs and
 scripts are shared); a config that sets ``use_pallas_stack_train``, as
-the shipped ``parallel_wavegan.v1.yaml`` does, routes them there too. RTF is measured per utterance with the device synchronised
+the shipped ``parallel_wavegan.v1.yaml`` does, routes the PWG cycles
+there too, and HiFi-GAN's MRF kernel is reached through
+``use_pallas_mrf`` in the config, as in the JAX package, which has no
+flag for it. RTF is measured per utterance with the device synchronised
 before each clock read. float32 convolutions run without TF32, as the JAX
 package computes in full float32.
 
     python -m parallelwavegan_tpu_torch.bin.decode --dumpdir DUMP \
         --outdir OUT --checkpoint CKPT.pkl [--config CONFIG] \
         [--normalize-before] [--use-pallas-tail] [--use-pallas-stack] \
-        [--device cuda]
+        [--use-pallas-stacks] [--device cuda]
 """
 
 from __future__ import annotations
@@ -55,6 +60,11 @@ def main(argv=None) -> dict:
         help="run the Parallel WaveGAN dilation cycles through the "
              "hand-written CUDA kernel (its plain PyTorch version on the CPU)",
     )
+    parser.add_argument(
+        "--use-pallas-stacks", default=False, action="store_true",
+        help="run the MelGAN / Multi-band MelGAN residual stacks through the "
+             "hand-written CUDA kernel (its plain PyTorch version on the CPU)",
+    )
     parser.add_argument("--device", default="cuda", type=str)
     parser.add_argument("--verbose", type=int, default=1)
     args = parser.parse_args(argv)
@@ -90,7 +100,8 @@ def main(argv=None) -> dict:
     generator_type = config.get("generator_type", "ParallelWaveGANGenerator")
     for flag, key, gtype in (
             (args.use_pallas_tail, "use_pallas_tail", "HiFiGANGenerator"),
-            (args.use_pallas_stack, "use_pallas_stack", "ParallelWaveGANGenerator")):
+            (args.use_pallas_stack, "use_pallas_stack", "ParallelWaveGANGenerator"),
+            (args.use_pallas_stacks, "use_pallas_stacks", "MelGANGenerator")):
         if flag and generator_type == gtype:
             config = dict(config)
             config["generator_params"] = dict(config["generator_params"],

@@ -2,11 +2,13 @@
 
 The inverse of parallelwavegan_tpu/convert/torch_checkpoint.py:510
 ``_convert_tree`` for the models the port has: module paths go through
-the same name maps as ``_t_hifigan_g`` (:131) and ``_make_t_pwg_g``
-(:210-264) in reverse, conv kernels (K, Cin, Cout) are transposed to
-torch's (Cout, Cin, K) (``_CONV_PERM``), transposed-conv kernels are
-flipped along K and laid out as torch's (Cin, Cout, K) (``_DECONV_PERM``,
-:466-467, :558-562), the UpsampleNetwork's (T, F, 1, 1) leaves
+the same name maps as ``_t_hifigan_g`` (:131), ``_make_t_melgan_g``
+(:153-207, non-causal) and ``_make_t_pwg_g`` (:210-264) in reverse, conv
+kernels (K, Cin, Cout) are transposed to torch's (Cout, Cin, K)
+(``_CONV_PERM``), transposed-conv kernels (HiFi-GAN's ``upsamples_*``,
+MelGAN's deconv layers: the ``is_transpose`` set) are flipped along K and
+laid out as torch's (Cin, Cout, K) (``_DECONV_PERM``, :466-467,
+:558-562), the UpsampleNetwork's (T, F, 1, 1) leaves
 ``conv_{i}[_v|_g]`` become ``up_layers.{step*i+1}`` Conv2d weights
 (1, 1, F, T) (``_UPCONV2D_PERM``, :469), and weight norm's ``g``/``v``
 become ``weight_g``/``weight_v``.
@@ -68,6 +70,39 @@ def _pwg_prefix(path) -> str:
     return ".".join(out)
 
 
+# ResidualStack's flax names -> upstream's (non-causal)
+_STACK_NAMES = {"conv_dilated": "stack.2", "conv_1x1": "stack.4",
+                "skip_conv": "skip_layer"}
+
+
+def _stack_prefix(path) -> str:
+    return ".".join(_STACK_NAMES[p] for p in path)
+
+
+def _melgan_map(model_params: dict):
+    """(prefix function, deconv layer indices) for MelGANGenerator: flax
+    ``layers_{li}`` -> upstream ``melgan.{idx}`` of the flat Sequential
+    (pad, conv, then per scale act, deconv, stacks, then act, pad, conv)."""
+    if model_params.get("use_causal_conv", False):
+        raise NotImplementedError("the causal MelGAN generator is not ported yet")
+    layer_map, deconvs = {0: 1}, set()
+    idx, li = 2, 1
+    for _ in model_params.get("upsample_scales", (8, 8, 2, 2)):
+        layer_map[li] = idx + 1  # after the activation
+        deconvs.add(li)
+        idx, li = idx + 2, li + 1
+        for _ in range(model_params.get("stacks", 3)):
+            layer_map[li] = idx
+            idx, li = idx + 1, li + 1
+    layer_map[li] = idx + 2  # after the activation and the pad
+
+    def prefix(path) -> str:
+        out = f"melgan.{layer_map[_idx(path[0])]}"
+        return f"{out}.{_stack_prefix(path[1:])}" if len(path) > 1 else out
+
+    return prefix, deconvs
+
+
 def _flatten(tree, prefix=()):
     for k, v in tree.items():
         if hasattr(v, "items"):  # dict or flax FrozenDict
@@ -79,9 +114,11 @@ def _flatten(tree, prefix=()):
 def jax_params_to_state_dict(model_type: str, model_params: dict,
                              params) -> "OrderedDict[str, torch.Tensor]":
     """JAX params (``G.init(...)`` output or its ``"params"`` entry, with
-    numpy or jax arrays as leaves) -> port state dict of float32 tensors."""
+    numpy or jax arrays as leaves) -> port state dict of float32 tensors.
+    ``model_type`` is a registered generator or ``"ResidualStack"``."""
     if "params" in params:
         params = params["params"]
+    deconvs = None  # MelGAN's deconv layer indices
     if model_type == "HiFiGANGenerator":
         n_up = len(model_params.get("upsample_scales", (8, 8, 2, 2)))
         found = sum(1 for k in params if str(k).startswith("upsamples_"))
@@ -89,6 +126,10 @@ def jax_params_to_state_dict(model_type: str, model_params: dict,
             raise ValueError(f"params hold {found} upsample stages, "
                              f"model_params {n_up}")
         prefix_of = _hifigan_prefix
+    elif model_type == "MelGANGenerator":
+        prefix_of, deconvs = _melgan_map(model_params)
+    elif model_type == "ResidualStack":
+        prefix_of = _stack_prefix
     elif model_type == "ParallelWaveGANGenerator":
         prefix_of = _pwg_prefix
         up = model_params.get("upsample_params") or {}
@@ -109,7 +150,10 @@ def jax_params_to_state_dict(model_type: str, model_params: dict,
             sd[f"{prefix}.up_layers.{step * int(m.group(1)) + 1}.{suffix}"] = (
                 np.transpose(w, (3, 2, 1, 0)))
             continue
-        transpose = mods[-1].startswith("upsamples_")
+        if deconvs is not None:
+            transpose = len(mods) == 1 and _idx(mods[0]) in deconvs
+        else:
+            transpose = bool(mods) and mods[-1].startswith("upsamples_")
         if name == "bias":
             sd[f"{prefix}.bias"] = w
         elif name in ("v", "kernel"):

@@ -11,8 +11,14 @@ Initialisation follows the JAX package: torch's default
 U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weights and biases, or N(0, std)
 weights where the caller asks for it (the Parallel WaveGAN modules take
 ``kaiming_normal_relu_std`` and zero biases,
-parallelwavegan_tpu/layers/residual_block.py:26-40); every draw comes
-from the explicit ``torch.Generator`` passed in.
+parallelwavegan_tpu/layers/residual_block.py:26-40; MelGAN takes N(0,
+0.02) for every conv and deconv with the default uniform biases, the JAX
+``normal_init(0.02)`` kernel and ``torch_conv_init`` bias); every draw
+comes from the explicit ``torch.Generator`` passed in.
+
+``get_pad`` builds the three pad layers MelGAN reaches by name, as
+upstream's ``getattr(torch.nn, pad)(amount, **pad_params)`` does, so that
+a flat ``nn.Sequential`` keeps upstream's indices.
 """
 
 from __future__ import annotations
@@ -23,6 +29,25 @@ import warnings
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+PAD_MODES = {  # upstream pad layer -> the JAX package's jnp.pad mode
+    "ReflectionPad1d": "reflect",
+    "ReplicationPad1d": "edge",
+    "ConstantPad1d": "constant",
+}
+
+
+def get_pad(name: str, amount: int, params: dict | None = None) -> nn.Module:
+    """Upstream's pad layer ``name`` of ``amount`` samples per side.
+    ``ConstantPad1d`` pads with ``params["value"]``, 0 when not given, as
+    the JAX package does (residual_stack.py:58-60)."""
+    if name not in PAD_MODES:
+        raise ValueError(f"pad {name!r} is not supported")
+    params = dict(params or {})
+    if name == "ConstantPad1d":
+        return nn.ConstantPad1d(amount, params.get("value", 0.0))
+    return getattr(nn, name)(amount, **params)
 
 
 def kaiming_normal_relu_std(fan_in: int) -> float:

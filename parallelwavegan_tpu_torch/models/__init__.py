@@ -1,16 +1,19 @@
 """Model registry of the port: the YAML-facing class names.
 
-``HiFiGANGenerator`` and ``ParallelWaveGANGenerator`` are ported so far;
-ROADMAP.md lists the rest in the order they are to come.
+``HiFiGANGenerator``, ``ParallelWaveGANGenerator`` and ``MelGANGenerator``
+(MelGAN and Multi-band MelGAN, non-causal) are ported so far; ROADMAP.md
+lists the rest in the order they are to come.
 """
 
 from parallelwavegan_tpu_torch.models.hifigan import HiFiGANGenerator
+from parallelwavegan_tpu_torch.models.melgan import MelGANGenerator
 from parallelwavegan_tpu_torch.models.parallel_wavegan import (
     ParallelWaveGANGenerator,
 )
 
 MODEL_REGISTRY = {
     "HiFiGANGenerator": HiFiGANGenerator,
+    "MelGANGenerator": MelGANGenerator,
     "ParallelWaveGANGenerator": ParallelWaveGANGenerator,
 }
 

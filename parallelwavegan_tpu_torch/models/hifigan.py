@@ -6,11 +6,22 @@ names and ``nn.Sequential`` nesting reproduce upstream's state-dict keys
 ``output_conv.1.*``), so a state dict of this module is an upstream
 checkpoint and ``parallelwavegan_tpu``'s ``load_model`` reads it.
 
-With ``use_pallas_tail`` (the JAX flag name, kept so configs are shared)
-and the same gate as the JAX generator (:203-221), the last two stride-2
-stages and the output conv run through ``fused_hifigan_tail``: the
-hand-written CUDA kernel on a GPU, its plain PyTorch version on the CPU.
-The causal variant and the discriminators are not ported yet.
+Kernel flags keep the JAX names so that configs are shared:
+
+* ``use_pallas_tail``, under the JAX gate (:203-221): the last two
+  stride-2 stages and the output conv run through ``fused_hifigan_tail``.
+* ``use_pallas_mrf``, under the JAX gate (:290-313: not causal,
+  ``use_additional_convs``, ``bias``, stage width at most
+  ``pallas_mrf_max_channels``) and a LeakyReLU activation (the kernel
+  computes LeakyReLU): each such stage's MRF runs through
+  ``fused_hifigan_mrf``. On v1 with the default maximum of 64 that is
+  stages 2 and 3. The tail takes precedence over it, as in JAX.
+
+Either runs the hand-written CUDA kernel on a GPU and its plain PyTorch
+version on the CPU. ``pallas_mrf_tile`` and ``pallas_tail_tile`` are the
+TPU kernels' tile sizes: they are accepted for config compatibility and
+have no effect here. The causal variant and the discriminators are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -28,6 +39,9 @@ from parallelwavegan_tpu_torch.layers.convs import (
 from parallelwavegan_tpu_torch.layers.residual_block import (
     HiFiGANResidualBlock,
     get_activation,
+)
+from parallelwavegan_tpu_torch.ops.kernels.hifigan_mrf import (
+    fused_hifigan_mrf,
 )
 from parallelwavegan_tpu_torch.ops.kernels.hifigan_tail import (
     fused_hifigan_tail,
@@ -53,7 +67,11 @@ class HiFiGANGenerator(nn.Module):
         nonlinear_activation_params: dict | None = None,
         use_causal_conv: bool = False,
         use_weight_norm: bool = True,
+        use_pallas_mrf: bool = False,
+        pallas_mrf_tile: int = 1536,
+        pallas_mrf_max_channels: int = 64,
         use_pallas_tail: bool = False,
+        pallas_tail_tile: int = 1024,
         device: torch.device | str | None = None,
         generator: torch.Generator | None = None,
     ):
@@ -118,7 +136,14 @@ class HiFiGANGenerator(nn.Module):
             if c_tail <= 128 and (c_tail & (c_tail - 1)) == 0:
                 self.tail_from = n_up - 2
         self.slope = act_params.get("negative_slope", 0.1)
+        # stages whose MRF runs through fused_hifigan_mrf
+        self.mrf_stages = tuple(
+            i for i in range(n_up)
+            if use_pallas_mrf and use_additional_convs and bias
+            and nonlinear_activation == "LeakyReLU"
+            and channels // (2 ** (i + 1)) <= pallas_mrf_max_channels)
         self._tail_cache = None
+        self._mrf_cache = None
         if device is not None:
             self.to(device)
 
@@ -139,11 +164,26 @@ class HiFiGANGenerator(nn.Module):
             if self.tail_from is not None and i == self.tail_from - 1:
                 # this stage's MRF folds into the tail at the entry rate
                 return self._fused_tail(c)
+            if i in self.mrf_stages:
+                c = self._fused_mrf(c, i)
+                continue
             cs = self.blocks[i * nb](c)
             for j in range(1, nb):
                 cs = cs + self.blocks[i * nb + j](c)
             c = cs / nb
         return self.output_conv(c)
+
+    def _fused_mrf(self, c: torch.Tensor, i: int) -> torch.Tensor:
+        blocks = (self._mrf_cache or {}).get(i) or self.mrf_weights(i)
+        y = fused_hifigan_mrf(c.transpose(1, 2).contiguous(), blocks,
+                              slope=self.slope)
+        return y.transpose(1, 2)
+
+    def mrf_weights(self, i: int) -> list:
+        """Stage ``i``'s resblocks in the block form of
+        ``fused_hifigan_mrf``, from the current effective weights."""
+        nb = self.num_blocks
+        return [self.blocks[i * nb + j].gather_weights() for j in range(nb)]
 
     def _fused_tail(self, c: torch.Tensor) -> torch.Tensor:
         if torch.is_grad_enabled():
@@ -186,19 +226,20 @@ class HiFiGANGenerator(nn.Module):
         }
 
     def prepare_kernels(self) -> None:
-        """Build the tail weight bundle once, for decode. Call it after the
-        weights are loaded, folded and on their device; loading weights or
-        moving the module afterwards drops the bundle again."""
+        """Build the tail and MRF weight bundles once, for decode. Call it
+        after the weights are loaded, folded and on their device; loading
+        weights or moving the module afterwards drops the bundles again."""
         self._tail_cache = self.tail_weights() if self.tail_from is not None else None
+        self._mrf_cache = {i: self.mrf_weights(i) for i in self.mrf_stages}
 
     def remove_weight_norm(self) -> None:
         remove_weight_norm(self)
-        self._tail_cache = None
+        self._tail_cache = self._mrf_cache = None
 
     def _apply(self, fn, *args, **kwargs):
-        self._tail_cache = None
+        self._tail_cache = self._mrf_cache = None
         return super()._apply(fn, *args, **kwargs)
 
     def load_state_dict(self, *args, **kwargs):
-        self._tail_cache = None
+        self._tail_cache = self._mrf_cache = None
         return super().load_state_dict(*args, **kwargs)

@@ -1,0 +1,194 @@
+"""MelGAN generator (PyTorch, (B, C, T) layout), also Multi-band MelGAN's.
+
+Counterpart of parallelwavegan_tpu/models/melgan.py:39-230, non-causal:
+a k-tap input conv, per upsample scale act -> ConvTranspose1d ->
+``stacks`` ResidualStacks at dilations ``stack_kernel_size ** j``, then
+act -> k-tap output conv [-> tanh]. Multi-band MelGAN is this generator
+with ``out_channels`` sub-bands, synthesised outside the model by PQMF
+(``utils/model.py``). The layers are upstream's one flat
+``self.melgan = nn.Sequential(...)`` (pad, conv, then per scale act,
+deconv, stacks, then act, pad, conv, tanh), so a state dict of this
+module is an upstream checkpoint (index map in
+parallelwavegan_tpu/convert/torch_checkpoint.py:153-207). Every conv and
+deconv is initialised N(0, 0.02), the JAX ``normal_init(0.02)``.
+
+``use_pallas_stacks`` or ``use_pallas_stacks_train`` (the JAX flag names)
+under the JAX gate (:81-87, :145: not causal, LeakyReLU, pad not constant
+or constant 0), per upsample stage of at most 128 channels, runs the
+stage's ResidualStacks through ``fused_melgan_stacks``: the hand-written
+CUDA kernel on a GPU, its plain PyTorch version on the CPU. On the last
+stage, with ``use_final_nonlinear_activation``, the trailing act -> out
+conv -> tanh folds into the same call (:182-200). Wider stages, the input
+conv and the deconvs stay on cuDNN, as JAX leaves them to XLA. The
+kernel's backward (K7) is not ported, so ``use_pallas_stacks_train`` runs
+the same forward and a forward that needs gradients raises;
+``pallas_stacks_train_tile`` is a TPU tile size, accepted for config
+compatibility and without effect. The causal generator and the
+discriminators are not ported yet (ROADMAP.md M16).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from parallelwavegan_tpu_torch.layers.convs import (
+    PAD_MODES,
+    Conv1d,
+    ConvTranspose1d,
+    get_pad,
+    remove_weight_norm,
+)
+from parallelwavegan_tpu_torch.layers.residual_block import get_activation
+from parallelwavegan_tpu_torch.layers.residual_stack import (
+    INIT_STD,
+    ResidualStack,
+)
+from parallelwavegan_tpu_torch.ops.kernels.melgan_stack import (
+    fused_melgan_stacks,
+)
+
+
+class MelGANGenerator(nn.Module):
+    """mel (B, in_channels, T) -> wave (B, out_channels, T * prod(scales))."""
+
+    def __init__(
+        self,
+        in_channels: int = 80,
+        out_channels: int = 1,
+        kernel_size: int = 7,
+        channels: int = 512,
+        bias: bool = True,
+        upsample_scales: Sequence[int] = (8, 8, 2, 2),
+        stack_kernel_size: int = 3,
+        stacks: int = 3,
+        nonlinear_activation: str = "LeakyReLU",
+        nonlinear_activation_params: dict | None = None,
+        pad: str = "ReflectionPad1d",
+        pad_params: dict | None = None,
+        use_final_nonlinear_activation: bool = True,
+        use_weight_norm: bool = True,
+        use_causal_conv: bool = False,
+        use_pallas_stacks: bool = False,
+        use_pallas_stacks_train: bool = False,
+        pallas_stacks_train_tile: int = 512,
+        device: torch.device | str | None = None,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        if use_causal_conv:
+            raise NotImplementedError(
+                "the causal MelGAN generator is not ported yet; see ROADMAP.md")
+        assert channels >= math.prod(upsample_scales)
+        assert channels % (2 ** len(upsample_scales)) == 0
+        assert (kernel_size - 1) % 2 == 0, "even kernel size unsupported"
+        act_params = nonlinear_activation_params or {"negative_slope": 0.2}
+        self.upsample_scales = tuple(int(s) for s in upsample_scales)
+        self.use_final_nonlinear_activation = use_final_nonlinear_activation
+        self.slope = act_params.get("negative_slope", 0.01)
+        self.pad_mode = PAD_MODES.get(pad)
+        conv_kw = dict(bias=bias, use_weight_norm=use_weight_norm,
+                       normal_std=INIT_STD, generator=generator)
+
+        def act():
+            return get_activation(nonlinear_activation, act_params)
+
+        layers = [get_pad(pad, (kernel_size - 1) // 2, pad_params),
+                  Conv1d(in_channels, channels, kernel_size, padding=0, **conv_kw)]
+        self._stages = []  # (act, deconv, [stacks]) indices per scale
+        for i, s in enumerate(self.upsample_scales):
+            ch = channels // (2 ** (i + 1))
+            first = len(layers)
+            layers += [act(), ConvTranspose1d(
+                channels // (2 ** i), ch, s * 2, s, padding=s // 2 + s % 2,
+                output_padding=s % 2, **conv_kw)]
+            layers += [ResidualStack(
+                kernel_size=stack_kernel_size, channels=ch,
+                dilation=stack_kernel_size ** j, bias=bias,
+                nonlinear_activation=nonlinear_activation,
+                nonlinear_activation_params=act_params, pad=pad,
+                pad_params=pad_params, use_weight_norm=use_weight_norm,
+                generator=generator) for j in range(stacks)]
+            self._stages.append((first, first + 1, list(range(first + 2, len(layers)))))
+        self._tail = len(layers)  # act, pad, conv[, tanh]
+        layers += [act(), get_pad(pad, (kernel_size - 1) // 2, pad_params),
+                   Conv1d(ch, out_channels, kernel_size, padding=0, **conv_kw)]
+        if use_final_nonlinear_activation:
+            layers += [nn.Tanh()]
+        self.melgan = nn.Sequential(*layers)
+
+        fuse_ok = (
+            (use_pallas_stacks or use_pallas_stacks_train)
+            and nonlinear_activation == "LeakyReLU"
+            and (self.pad_mode != "constant"
+                 or (pad_params or {}).get("value", 0.0) == 0.0))
+        # stages whose ResidualStacks run through fused_melgan_stacks
+        self.fused_stages = tuple(
+            i for i in range(len(self.upsample_scales))
+            if fuse_ok and channels // (2 ** (i + 1)) <= 128)
+        self._kernel_cache = None
+        if device is not None:
+            self.to(device)
+
+    @property
+    def upsample_factor(self) -> int:
+        f = 1
+        for s in self.upsample_scales:
+            f *= s
+        return f
+
+    def forward(self, c: torch.Tensor) -> torch.Tensor:
+        m = self.melgan
+        c = m[1](m[0](c))
+        last = len(self._stages) - 1
+        for i, (a, d, stack_ids) in enumerate(self._stages):
+            c = m[d](m[a](c))
+            if i not in self.fused_stages:
+                for j in stack_ids:
+                    c = m[j](c)
+                continue
+            w = (self._kernel_cache or {}).get(i) or self.stage_weights(i)
+            y = fused_melgan_stacks(c.transpose(1, 2).contiguous(), w["stacks"],
+                                    final=w["final"], slope=self.slope,
+                                    pad_mode=self.pad_mode)
+            c = y.transpose(1, 2)
+            if i == last and w["final"] is not None:
+                return c
+        for j in range(self._tail, len(m)):
+            c = m[j](c)
+        return c
+
+    def stage_weights(self, i: int) -> dict:
+        """Stage ``i``'s folded weights in the form of
+        ``fused_melgan_stacks``: the stacks' gather-form dicts and, on the
+        last stage with ``use_final_nonlinear_activation``, the output conv
+        as ``final``."""
+        stacks = [self.melgan[j].gather_weights() for j in self._stages[i][2]]
+        final = None
+        if i == len(self._stages) - 1 and self.use_final_nonlinear_activation:
+            conv = self.melgan[self._tail + 2]
+            w = conv.gather_weight().detach().contiguous()
+            b = torch.zeros_like(w[0, 0]) if conv.bias is None else conv.bias.detach()
+            final = (w, b.contiguous())
+        return {"stacks": stacks, "final": final}
+
+    def prepare_kernels(self) -> None:
+        """Gather the fused stages' folded weights once, for decode. Call it
+        after the weights are loaded, folded and on their device; loading
+        weights or moving the module afterwards drops them again."""
+        self._kernel_cache = {i: self.stage_weights(i) for i in self.fused_stages}
+
+    def remove_weight_norm(self) -> None:
+        remove_weight_norm(self)
+        self._kernel_cache = None
+
+    def _apply(self, fn, *args, **kwargs):
+        self._kernel_cache = None
+        return super()._apply(fn, *args, **kwargs)
+
+    def load_state_dict(self, *args, **kwargs):
+        self._kernel_cache = None
+        return super().load_state_dict(*args, **kwargs)

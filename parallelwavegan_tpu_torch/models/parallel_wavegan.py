@@ -24,7 +24,9 @@ Kernel flags keep the JAX names so that configs are shared:
 checkpoint chunking: they are accepted for config compatibility and have
 no effect here.
 Not ported yet, and refused with ``NotImplementedError`` (ROADMAP.md): the
-causal generator, ``pallas_stack_bf16`` and the MelGAN upsample net.
+causal generator, ``pallas_stack_bf16`` and the MelGAN upsample net (the
+port's ``MelGANGenerator`` exists; only its wiring as PWG's upsample net
+is missing).
 """
 
 from __future__ import annotations

@@ -48,6 +48,11 @@ _SIGNATURES = {
     # x, c, x_out, skip, wconv, bconv, waux, wskip, bskip, wres, bres, B, T,
     # C, Ca, K, dil, causal, accumulate, device, stream
     "wavenet_layer": [_P] * 11 + [_I] * 9 + [_P],
+    # x, out, wd, bd, w1, b1, ws, bs, B, T, C, K, dil, mode, slope, device,
+    # stream
+    "melgan_stack": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
+    # x, y, w, b, B, T, C, Cout, K, mode, slope, device, stream
+    "melgan_outconv": [_P] * 4 + [_I] * 6 + [_F, _I, _P],
 }
 
 
@@ -90,6 +95,23 @@ def check_tensor(name: str, t, device, shape, align: int = 0) -> None:
         raise ValueError(f"{name} must be contiguous")
     if align and t.data_ptr() % align:
         raise ValueError(f"{name} must be {align}-byte aligned")
+
+
+def launch_target(x) -> tuple:
+    """(device index, current stream handle) for launching on x's device."""
+    dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    return dev, torch.cuda.current_stream(x.device).cuda_stream
+
+
+def refuse_training(name: str, tensors) -> None:
+    """Raise when a forward through kernel ``name``, which has no backward
+    yet, would need gradients."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is inference-only (its backward is not ported, see "
+            "ROADMAP.md): run the forward under torch.inference_mode() or "
+            "torch.no_grad()")
 
 
 def _nvcc() -> str:

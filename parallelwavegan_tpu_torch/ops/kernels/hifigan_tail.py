@@ -116,45 +116,53 @@ def _check_cuda_inputs(x, stages, final_w, final_b, pre_blocks):
     build.check_tensor("final_b", final_b, x.device, (out_ch,))
 
 
+def _ptrs(tensors):
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def _ints(values):
+    return (ctypes.c_int * len(values))(*values)
+
+
+def run_mrf(lib, inp, blocks, slope: float, dev: int, stream) -> tuple:
+    """One MRF on the current stream: the mean over resblocks, each a chain
+    of residual units; the units of one dilation depth of all chains share
+    a ``hifigan_resunits`` launch, then ``hifigan_mean`` averages them.
+    Returns (output, number of launches)."""
+    b, t, c = inp.shape
+    outs = [torch.empty_like(inp) for _ in blocks]
+    tmps = [(torch.empty_like(inp), torch.empty_like(inp)) for _ in blocks]
+    src = [inp] * len(blocks)
+    # heaviest resblock first: its tiles are handed out first
+    order = sorted(range(len(blocks)), key=lambda j: -blocks[j]["w1"].shape[1])
+    depth = max(len(blk["dilations"]) for blk in blocks)
+    for di in range(depth):
+        units = []
+        for j in order:
+            blk, n = blocks[j], len(blocks[j]["dilations"])
+            if di < n:
+                dst = outs[j] if di == n - 1 else tmps[j][di % 2]
+                units.append((src[j], dst, blk["w1"][di], blk["b1"][di],
+                              blk["w2"][di], blk["b2"][di],
+                              blk["w1"].shape[1], int(blk["dilations"][di])))
+                src[j] = dst
+        cols = list(zip(*units))
+        lib.call("hifigan_resunits", len(units), *(_ptrs(col) for col in cols[:6]),
+                 _ints(cols[6]), _ints(cols[7]), b, t, c, slope, dev, stream)
+    acc = torch.empty_like(inp)
+    lib.call("hifigan_mean", len(outs), _ptrs(outs), acc.data_ptr(),
+             acc.numel(), dev, stream)
+    return acc, depth + 1
+
+
 def _run_cuda(x, stages, final_w, final_b, slope, pre_blocks):
     _check_cuda_inputs(x, stages, final_w, final_b, pre_blocks)
     lib = build.load()
-    dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    dev, stream = build.launch_target(x)
     b = x.shape[0]
 
-    def ptrs(tensors):
-        return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
-
-    def ints(values):
-        return (ctypes.c_int * len(values))(*values)
-
     def mrf(inp, blocks):
-        """Mean over resblocks; each resblock is a chain of residual units,
-        and the units of one dilation depth of all chains share a launch."""
-        t, c = inp.shape[1], inp.shape[2]
-        outs = [torch.empty_like(inp) for _ in blocks]
-        tmps = [(torch.empty_like(inp), torch.empty_like(inp)) for _ in blocks]
-        src = [inp] * len(blocks)
-        # heaviest resblock first: its tiles are handed out first
-        order = sorted(range(len(blocks)), key=lambda j: -blocks[j]["w1"].shape[1])
-        for di in range(max(len(blk["dilations"]) for blk in blocks)):
-            units = []
-            for j in order:
-                blk, n = blocks[j], len(blocks[j]["dilations"])
-                if di < n:
-                    dst = outs[j] if di == n - 1 else tmps[j][di % 2]
-                    units.append((src[j], dst, blk["w1"][di], blk["b1"][di],
-                                  blk["w2"][di], blk["b2"][di],
-                                  blk["w1"].shape[1], int(blk["dilations"][di])))
-                    src[j] = dst
-            cols = list(zip(*units))
-            lib.call("hifigan_resunits", len(units), *(ptrs(col) for col in cols[:6]),
-                     ints(cols[6]), ints(cols[7]), b, t, c, slope, dev, stream)
-        acc = torch.empty_like(inp)
-        lib.call("hifigan_mean", len(outs), ptrs(outs), acc.data_ptr(),
-                 acc.numel(), dev, stream)
-        return acc
+        return run_mrf(lib, inp, blocks, slope, dev, stream)[0]
 
     c = x
     if pre_blocks is not None:

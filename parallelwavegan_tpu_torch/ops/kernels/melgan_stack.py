@@ -1,0 +1,174 @@
+"""Fused MelGAN residual stacks of one upsample stage (K6).
+
+Counterpart of parallelwavegan_tpu/ops/pallas_kernels/melgan_stack.py
+(``melgan_stacks_xla`` :83, ``fused_melgan_stacks`` :250,
+``substitute_biases`` :194). The public functions keep the JAX layout and
+weight form, so a test can feed the same arrays to both packages: x is
+(B, T, C); each stack is a dict of folded weights in gather form, ``wd``
+(K, C, C), ``w1`` and ``ws`` (1, C, C), biases ``bd``, ``b1``, ``bs`` (or
+None, read as zeros) and ``dilation``; ``final`` is ``(w (K, C, out),
+b)`` for the generator's trailing act -> conv -> tanh. ``pad_mode`` is the
+JAX package's jnp.pad name: "reflect", "edge" or "constant" (zeros).
+
+For a CUDA tensor ``fused_melgan_stacks`` runs the hand-written kernel
+(csrc/melgan_stack.cu), one launch per stack and one for ``final``, with
+the padding applied inside the kernel; for a CPU tensor it runs the plain
+PyTorch version ``melgan_stacks_reference``. A CUDA tensor never takes
+the plain path: the JAX wrapper's edge stitching, which recomputes the
+first and last outputs with the XLA twin, is not carried over. The TPU
+tiling (``t_tile``) and lane packing do not carry over either. The kernel
+has no backward yet (ROADMAP.md K7), so a forward that would need
+gradients raises.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from parallelwavegan_tpu_torch.ops.kernels import build
+
+# JAX pad mode -> (torch F.pad mode, the kernel's mode number)
+_MODES = {"reflect": ("reflect", 0), "edge": ("replicate", 1),
+             "constant": ("constant", 2)}
+WIDTHS = tuple(range(16, 129, 16))  # instantiated in melgan_stack.cu
+
+# ---------------------------------------------------------------------------
+# plain version (port of melgan_stacks_xla)
+# ---------------------------------------------------------------------------
+
+
+def _conv(x, w, b, dilation: int = 1):
+    """Valid conv of (B, C, T) with a gather-form (K, Cin, Cout) kernel."""
+    return F.conv1d(x, w.permute(2, 1, 0), b, dilation=dilation)
+
+
+def _pad_mode(pad_mode: str) -> str:
+    if pad_mode not in _MODES:
+        raise ValueError(f"pad_mode {pad_mode!r} is not one of {sorted(_MODES)}")
+    return _MODES[pad_mode][0]
+
+
+def melgan_stacks_reference(x, stacks, *, final=None, slope: float = 0.2,
+                            pad_mode: str = "reflect"):
+    """Plain sequential ResidualStacks: x (B, T, C) -> (B, T, C), or (B, T,
+    out) with ``final``."""
+    mode = _pad_mode(pad_mode)
+    c = x.transpose(1, 2)
+    for st in stacks:
+        k, d = st["wd"].shape[0], int(st["dilation"])
+        p = (k - 1) // 2 * d
+        t = F.pad(F.leaky_relu(c, slope), (p, p), mode=mode)
+        z = _conv(t, st["wd"], st["bd"], d)
+        z = _conv(F.leaky_relu(z, slope), st["w1"], st["b1"])
+        c = z + _conv(c, st["ws"], st["bs"])
+    if final is not None:
+        fw, fb = final
+        p = (fw.shape[0] - 1) // 2
+        t = F.pad(F.leaky_relu(c, slope), (p, p), mode=mode)
+        c = torch.tanh(_conv(t, fw, fb))
+    return c.transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel
+# ---------------------------------------------------------------------------
+
+
+def _bias(b, n: int, like):
+    return torch.zeros(n, device=like.device, dtype=like.dtype) if b is None else b
+
+
+def _check_cuda_inputs(x, stacks, final, pad_mode) -> None:
+    if x.dim() != 3:
+        raise ValueError(f"x must be (B, T, C), got shape {tuple(x.shape)}")
+    b, t, c = x.shape
+    # x is read, and the output written, in 16-byte pieces
+    build.check_tensor("x", x, x.device, (b, t, c), align=16)
+    if c not in WIDTHS:
+        raise ValueError(f"x width {c} is not a multiple of 16 up to 128")
+    reflect = pad_mode == "reflect"
+    for i, st in enumerate(stacks):
+        k, d = st["wd"].shape[0], int(st["dilation"])
+        if k % 2 == 0 or d < 1:
+            raise ValueError(f"stacks[{i}]: odd kernel size and positive "
+                             "dilation required")
+        if reflect and (k - 1) // 2 * d >= t:
+            raise ValueError(f"stacks[{i}]: reflect padding of {(k - 1) // 2 * d} "
+                             f"needs more than that many samples, got T={t}")
+        for key, shape in (("wd", (k, c, c)), ("w1", (1, c, c)), ("ws", (1, c, c))):
+            # weights are copied in 16-byte pieces (cp.async)
+            build.check_tensor(f"stacks[{i}].{key}", st[key], x.device, shape,
+                               align=16)
+        for key in ("bd", "b1", "bs"):
+            if st[key] is not None:
+                build.check_tensor(f"stacks[{i}].{key}", st[key], x.device, (c,))
+    if final is not None:
+        fw, fb = final
+        kf, out_ch = fw.shape[0], fw.shape[-1]
+        if kf % 2 == 0:
+            raise ValueError("final needs an odd kernel size")
+        if reflect and (kf - 1) // 2 >= t:
+            raise ValueError(f"final: reflect padding needs T > {(kf - 1) // 2}")
+        build.check_tensor("final w", fw, x.device, (kf, c, out_ch))
+        if fb is not None:
+            build.check_tensor("final b", fb, x.device, (out_ch,))
+
+
+def _run_cuda(x, stacks, final, slope: float, pad_mode: str):
+    """One launch per stack (ping-pong between two buffers), then one for
+    ``final``, on the current stream."""
+    lib = build.load()
+    dev, stream = build.launch_target(x)
+    mode = _MODES[pad_mode][1]
+    b, t, c = x.shape
+    bufs = [torch.empty_like(x) for _ in range(min(2, len(stacks)))]
+    src = x
+    for i, st in enumerate(stacks):
+        dst = bufs[i % 2]
+        ptrs = [st["wd"], _bias(st["bd"], c, x), st["w1"], _bias(st["b1"], c, x),
+                st["ws"], _bias(st["bs"], c, x)]
+        lib.call("melgan_stack", src.data_ptr(), dst.data_ptr(),
+                 *(p.data_ptr() for p in ptrs), b, t, c, st["wd"].shape[0],
+                 int(st["dilation"]), mode, slope, dev, stream)
+        fused_melgan_stacks.launches += 1
+        src = dst
+    if final is None:
+        return src
+    fw, fb = final
+    out = torch.empty((b, t, fw.shape[-1]), device=x.device, dtype=torch.float32)
+    lib.call("melgan_outconv", src.data_ptr(), out.data_ptr(), fw.data_ptr(),
+             _bias(fb, fw.shape[-1], x).data_ptr(), b, t, c, fw.shape[-1],
+             fw.shape[0], mode, slope, dev, stream)
+    fused_melgan_stacks.launches += 1
+    return out
+
+
+def fused_melgan_stacks(x, stacks, *, final=None, slope: float = 0.2,
+                        pad_mode: str = "reflect"):
+    """A stage's ResidualStacks in sequence, then optionally the trailing
+    act -> conv -> tanh: x (B, T, C) -> (B, T, C), or (B, T, out).
+
+    A CUDA tensor goes through the hand-written kernel (C a multiple of 16
+    up to 128, odd kernel sizes, float32, contiguous, reflect padding
+    shorter than T) and raises on anything it does not take; a CPU tensor
+    goes through ``melgan_stacks_reference``. ``fused_melgan_stacks.calls``
+    counts the calls that ran the kernel, ``.launches`` its launches.
+    """
+    tensors = [x] + [st[k] for st in stacks for k in ("wd", "bd", "w1", "b1", "ws", "bs")]
+    build.refuse_training("the fused MelGAN stack kernel (K6, backward K7)",
+                          tensors + (list(final) if final is not None else []))
+    _pad_mode(pad_mode)
+    if x.device.type == "cpu":
+        return melgan_stacks_reference(x, stacks, final=final, slope=slope,
+                                       pad_mode=pad_mode)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_melgan_stacks: unsupported device {x.device}")
+    _check_cuda_inputs(x, stacks, final, pad_mode)
+    out = _run_cuda(x, stacks, final, slope, pad_mode)
+    fused_melgan_stacks.calls += 1
+    return out
+
+
+fused_melgan_stacks.calls = 0
+fused_melgan_stacks.launches = 0

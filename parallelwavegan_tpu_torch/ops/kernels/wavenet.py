@@ -77,15 +77,6 @@ def wavenet_stack_reference(x, c, weights, dilations):
 _WIDTHS = (16, 64)  # residual = skip = gate / 2, instantiated in wavenet.cu
 
 
-def _refuse_training(tensors) -> None:
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError(
-            "the fused WaveNet kernels are inference-only (their backward, "
-            "ROADMAP.md K4, is not ported): run the forward under "
-            "torch.inference_mode() or torch.no_grad()")
-
-
 def _check_cuda_inputs(x, c, weights, n_layers) -> None:
     if x.dim() != 3 or c is None or c.dim() != 3:
         raise ValueError("x and c must be (B, T, C) tensors")
@@ -116,8 +107,7 @@ def _run_layers(x, c, weights, dilations, causal: bool, counter):
     between two buffers, skip is written by the first layer and added to
     by the others. ``counter.launches`` counts the launches."""
     lib = build.load()
-    dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    dev, stream = build.launch_target(x)
     b, t, ch = x.shape
     ca, k = c.shape[2], weights["wconv"].shape[1]
     skip = torch.empty_like(x)
@@ -151,7 +141,8 @@ def fused_wavenet_stack(x, c, weights, dilations):
     tensor goes through ``wavenet_stack_reference``.
     ``fused_wavenet_stack.launches`` counts the kernel launches.
     """
-    _refuse_training([x, c, *weights.values()])
+    build.refuse_training("the fused WaveNet stack (K3, backward K4)",
+                          [x, c, *weights.values()])
     if _device_of(x, "fused_wavenet_stack") == "cpu":
         return wavenet_stack_reference(x, c, weights, dilations)
     _check_cuda_inputs(x, c, weights, len(dilations))
@@ -188,7 +179,7 @@ def fused_gated_resblock(x, c, conv_kernel, conv_bias, aux_kernel,
     """
     args = (conv_kernel, conv_bias, aux_kernel, skip_kernel, skip_bias,
             res_kernel, res_bias)
-    _refuse_training([x, c, *args])
+    build.refuse_training("the fused gated block (K5)", [x, c, *args])
     if _device_of(x, "fused_gated_resblock") == "cpu":
         return gated_resblock_reference(x, c, *args, dilation=dilation,
                                         causal=causal)

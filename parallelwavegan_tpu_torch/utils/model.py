@@ -7,9 +7,14 @@ registered for ``normalize_before``, and ``inference`` padding the mel to a
 bucket of 32 frames with edge values before trimming the output, so that
 the waveform equals the JAX package's. For Parallel WaveGAN the padded
 forward also edge-pads the mel by ``aux_context_window`` frames and takes
-noise of the padded length (:67-75, :155-164). ``load_model`` runs on the
-GPU unless the caller asks for the CPU. Batched, streaming, sharded and
-PQMF decode are not ported yet (ROADMAP.md).
+noise of the padded length (:67-75, :155-164). A generator with more than
+one output channel (Multi-band MelGAN) gets PQMF synthesis after its
+forward, with the config's ``pqmf_params`` or, for a config without them
+whose ``version`` is 0.4.2 or older (or absent), the old defaults taps 62,
+cutoff 0.15, beta 9.0 (:657-665); the upsample factor then counts the
+sub-bands (:588-604). ``load_model`` runs on the GPU unless the caller
+asks for the CPU. Batched, streaming and sharded decode are not ported
+yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from parallelwavegan_tpu_torch.ops.pqmf import PQMF
 from parallelwavegan_tpu_torch.utils.checkpoint import load_generator_state_dict
 from parallelwavegan_tpu_torch.utils.config import load_config
 from parallelwavegan_tpu_torch.utils.io import read_hdf5
@@ -42,20 +48,31 @@ class InferenceModel:
 
     BUCKET = 32  # mel frames; the JAX package pads to the same multiple
 
-    def __init__(self, generator, device, mean=None, scale=None):
+    def __init__(self, generator, device, mean=None, scale=None, pqmf=None):
         self.generator = generator
         self.device = torch.device(device)
         self.mean = mean
         self.scale = scale
+        self.pqmf = pqmf
+
+    @property
+    def upsample_factor(self) -> int:
+        """Mel frame -> output sample ratio, PQMF synthesis included."""
+        f = self.generator.upsample_factor
+        return f * self.pqmf.subbands if self.pqmf is not None else f
 
     def forward_padded(self, c: torch.Tensor,
                        z: torch.Tensor | None = None) -> torch.Tensor:
         """The padded forward, counterpart of the JAX ``_forward_fn()``: mel
         (pad_t, num_mels) and, for a generator that takes noise, z
-        (pad_t * upsample_factor,) -> (pad_t * upsample_factor, out)."""
+        (pad_t * upsample_factor,) -> (pad_t * upsample_factor, out); with
+        PQMF, the sub-bands synthesised to (pad_t * upsample_factor, 1)."""
         x = c.t()[None]
         if not getattr(self.generator, "requires_noise_input", False):
-            return self.generator(x)[0].t()
+            y = self.generator(x).transpose(1, 2)
+            if self.pqmf is not None:
+                y = self.pqmf.synthesis(y)
+            return y[0]
         win = self.generator.aux_context_window
         x = F.pad(x, (win, win), mode="replicate")
         return self.generator(z.reshape(1, 1, -1), x)[0].t()
@@ -74,7 +91,7 @@ class InferenceModel:
                 raise ValueError("normalize_before needs registered stats")
             c = (c - self.mean) / self.scale
         t = c.shape[0]
-        up = self.generator.upsample_factor
+        up = self.upsample_factor
         pad_t = -(-t // self.BUCKET) * self.BUCKET
         c_p = np.pad(c, ((0, pad_t - t), (0, 0)), mode="edge")
         c_p = torch.from_numpy(np.ascontiguousarray(c_p)).to(self.device)
@@ -123,4 +140,26 @@ def load_model(checkpoint: str, config: dict | None = None,
     if stats is not None:
         mean, scale = _load_stats(stats)
         logging.info("Successfully registered stats as buffer.")
-    return InferenceModel(generator, device, mean=mean, scale=scale)
+    pqmf = None
+    if config["generator_params"].get("out_channels", 1) > 1:
+        pqmf_params = dict(config.get("pqmf_params", {}))
+        if not pqmf_params and _version_leq(str(config.get("version", "0.1.0")),
+                                            "0.4.2"):
+            pqmf_params.update(taps=62, cutoff_ratio=0.15, beta=9.0)
+        pqmf = PQMF(subbands=config["generator_params"]["out_channels"],
+                    **pqmf_params)
+    return InferenceModel(generator, device, mean=mean, scale=scale, pqmf=pqmf)
+
+
+def _version_leq(a: str, b: str) -> bool:
+    """a <= b for dotted versions, non-digits ignored (the JAX package's
+    ``_version_leq``)."""
+
+    def key(v):
+        parts = []
+        for tok in v.split("."):
+            num = "".join(ch for ch in tok if ch.isdigit())
+            parts.append(int(num) if num else 0)
+        return parts
+
+    return key(a) <= key(b)

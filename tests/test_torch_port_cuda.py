@@ -1,5 +1,8 @@
 """The port's CUDA kernels on a CUDA device, against their plain versions:
-the fused HiFi-GAN tail, and the fused WaveNet layer (stack and block).
+the fused HiFi-GAN tail, the fused WaveNet layer (stack and block), the
+MelGAN stack kernel (K6) and the MRF stage on the residual-unit kernel
+(K2). The generator tests also check that no CUDA tensor reaches a plain
+version on the main path.
 
 These tests need an NVIDIA GPU with sm_90a (Hopper) and nvcc; elsewhere
 they skip. They import no JAX, so they run on a machine that has only
@@ -15,6 +18,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from parallelwavegan_tpu_torch.models import get_model_class  # noqa: E402
+from parallelwavegan_tpu_torch.ops.kernels import hifigan_mrf as mrf_mod  # noqa: E402
+from parallelwavegan_tpu_torch.ops.kernels import melgan_stack as stack_mod  # noqa: E402
 from parallelwavegan_tpu_torch.ops.kernels.hifigan_tail import (  # noqa: E402
     fused_hifigan_tail,
     hifigan_tail_reference,
@@ -207,3 +212,152 @@ def test_wavenet_kernel_rejects_unsupported_input(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         fused_wavenet_stack(torch.zeros(1, 64, 16, device=cuda).transpose(1, 2),
                             c, w, (1,))
+
+
+def _melgan_stacks(c, dilations, seed, bias=True):
+    rs = np.random.RandomState(seed)
+
+    def t(*shape, scale):
+        return torch.from_numpy((rs.randn(*shape) * scale).astype(np.float32))
+
+    return [{"wd": t(3, c, c, scale=0.5 / (3 * c) ** 0.5),
+             "bd": t(c, scale=0.1) if bias else None,
+             "w1": t(1, c, c, scale=0.5 / c ** 0.5),
+             "b1": t(c, scale=0.1) if bias else None,
+             "ws": t(1, c, c, scale=0.5 / c ** 0.5),
+             "bs": t(c, scale=0.1) if bias else None,
+             "dilation": d} for d in dilations]
+
+
+def _on(stacks, device):
+    return [{k: v.to(device) if torch.is_tensor(v) else v for k, v in st.items()}
+            for st in stacks]
+
+
+# MB-MelGAN v2's widths (96, 48), MelGAN v1's (128, 64, 32), the narrowest
+# (16), every pad mode, short T (all edge), B > 1 and no biases
+@pytest.mark.parametrize("c,b,t,mode,out_ch,bias", [
+    (96, 1, 4099, "reflect", None, True), (48, 2, 1000, "reflect", 4, True),
+    (128, 1, 777, "edge", 1, True), (64, 2, 1000, "constant", None, True),
+    (32, 3, 30, "reflect", 4, True), (16, 1, 5, "edge", None, True),
+    (80, 2, 333, "constant", 2, False), (112, 1, 200, "reflect", None, True)])
+def test_melgan_stacks_match_plain_version(cuda, c, b, t, mode, out_ch, bias):
+    stacks = _on(_melgan_stacks(c, (1, 3, 9, 27), seed=c, bias=bias), cuda)
+    rs = np.random.RandomState(1)
+    final = None
+    if out_ch is not None:
+        final = (torch.from_numpy((rs.randn(7, c, out_ch) * 0.5 / (7 * c) ** 0.5)
+                                  .astype(np.float32)).to(cuda),
+                 torch.from_numpy(rs.randn(out_ch).astype(np.float32)).to(cuda)
+                 if bias else None)
+    if mode == "reflect" and t <= 27:
+        stacks = stacks[:2]  # reflect padding needs T > the pad
+    x = torch.from_numpy(rs.randn(b, t, c).astype(np.float32)).to(cuda)
+    before = (stack_mod.fused_melgan_stacks.calls, stack_mod.fused_melgan_stacks.launches)
+    with torch.inference_mode():
+        got = stack_mod.fused_melgan_stacks(x, stacks, final=final, pad_mode=mode)
+        torch.cuda.synchronize()
+        want = stack_mod.melgan_stacks_reference(x, stacks, final=final,
+                                                 pad_mode=mode)
+    assert (stack_mod.fused_melgan_stacks.calls, stack_mod.fused_melgan_stacks.launches) == (
+        before[0] + 1, before[1] + len(stacks) + (final is not None))
+    assert got.shape == want.shape == (b, t, out_ch or c)
+    assert float((got - want).abs().max()) <= 2e-4
+
+
+def _refuse(monkeypatch, module, name):
+    def plain(*args, **kwargs):
+        raise AssertionError(f"{name} reached with a CUDA tensor")
+
+    monkeypatch.setattr(module, name, plain)
+
+
+def test_mbmelgan_generator_through_the_kernel(cuda, monkeypatch):
+    cls = get_model_class("MelGANGenerator")
+    small = dict(in_channels=16, out_channels=4, channels=384,
+                 upsample_scales=(8, 4, 2), stacks=4)
+    plain = cls(**small, generator=torch.Generator().manual_seed(4))
+    gen = cls(**small, use_pallas_stacks=True)
+    gen.load_state_dict(plain.state_dict())
+    for m in (plain, gen):
+        m.remove_weight_norm()
+        m.eval().to(cuda)
+    gen.prepare_kernels()
+    assert gen.fused_stages == (1, 2)  # stage 0 at 192 channels stays on cuDNN
+    c = torch.randn(2, 16, 40, generator=torch.Generator().manual_seed(5)).to(cuda)
+    with torch.inference_mode():
+        want = plain(c)
+        _refuse(monkeypatch, stack_mod, "melgan_stacks_reference")
+        before = stack_mod.fused_melgan_stacks.calls
+        got = gen(c)
+    torch.cuda.synchronize()
+    assert stack_mod.fused_melgan_stacks.calls == before + 2
+    assert got.shape == want.shape == (2, 4, 40 * 64)
+    assert float((got - want).abs().max()) <= 2e-4
+
+
+def test_melgan_kernel_rejects_unsupported_input(cuda):
+    stacks = _on(_melgan_stacks(24, (1,), seed=0), cuda)
+    with pytest.raises(ValueError, match="width 24"):
+        stack_mod.fused_melgan_stacks(torch.zeros(1, 64, 24, device=cuda), stacks)
+    stacks = _on(_melgan_stacks(32, (27,), seed=0), cuda)
+    with pytest.raises(ValueError, match="reflect padding"):
+        stack_mod.fused_melgan_stacks(torch.zeros(1, 27, 32, device=cuda), stacks)
+    with pytest.raises(ValueError, match="contiguous"):
+        stack_mod.fused_melgan_stacks(
+            torch.zeros(1, 32, 64, device=cuda).transpose(1, 2), stacks)
+
+
+@pytest.mark.parametrize("c,b,t", [(64, 1, 4099), (32, 2, 1000), (128, 1, 777),
+                                   (16, 3, 7)])
+def test_mrf_matches_plain_version(cuda, c, b, t):
+    gen = get_model_class("HiFiGANGenerator")(
+        in_channels=8, channels=2 * c, upsample_scales=(2,),
+        upsample_kernel_sizes=(4,), generator=torch.Generator().manual_seed(c))
+    gen.remove_weight_norm()
+    gen.to(cuda)
+    blocks = gen.mrf_weights(0)
+    x = torch.from_numpy(np.random.RandomState(2).randn(b, t, c)
+                         .astype(np.float32)).to(cuda)
+    before = (mrf_mod.fused_hifigan_mrf.calls, mrf_mod.fused_hifigan_mrf.launches)
+    with torch.inference_mode():
+        got = mrf_mod.fused_hifigan_mrf(x, blocks)
+        torch.cuda.synchronize()
+        want = mrf_mod.hifigan_mrf_reference(x, blocks)
+    assert (mrf_mod.fused_hifigan_mrf.calls, mrf_mod.fused_hifigan_mrf.launches) == (
+        before[0] + 1, before[1] + 4)  # 3 dilation depths and the mean
+    assert got.shape == want.shape == (b, t, c)
+    assert float((got - want).abs().max()) <= 2e-4
+
+
+def test_hifigan_generator_mrf_through_the_kernel(cuda, monkeypatch):
+    kw = dict(in_channels=8, channels=256, upsample_scales=(4, 4, 2, 2),
+              upsample_kernel_sizes=(8, 8, 4, 4))
+    plain = get_model_class("HiFiGANGenerator")(
+        **kw, generator=torch.Generator().manual_seed(6))
+    gen = get_model_class("HiFiGANGenerator")(**kw, use_pallas_mrf=True)
+    gen.load_state_dict(plain.state_dict())
+    for m in (plain, gen):
+        m.remove_weight_norm()
+        m.eval().to(cuda)
+    gen.prepare_kernels()
+    assert gen.mrf_stages == (1, 2, 3)
+    c = torch.randn(1, 8, 33, generator=torch.Generator().manual_seed(7)).to(cuda)
+    with torch.inference_mode():
+        want = plain(c)
+        _refuse(monkeypatch, mrf_mod, "hifigan_mrf_reference")
+        before = mrf_mod.fused_hifigan_mrf.calls
+        got = gen(c)
+    torch.cuda.synchronize()
+    assert mrf_mod.fused_hifigan_mrf.calls == before + 3
+    assert float((got - want).abs().max()) <= 2e-4
+
+
+def test_mrf_kernel_rejects_unsupported_width(cuda):
+    gen = get_model_class("HiFiGANGenerator")(
+        in_channels=8, channels=512, upsample_scales=(2,), upsample_kernel_sizes=(4,))
+    gen.remove_weight_norm()
+    gen.to(cuda)
+    with pytest.raises(ValueError, match="MRF width 256"):
+        mrf_mod.fused_hifigan_mrf(torch.zeros(1, 16, 256, device=cuda),
+                                  gen.mrf_weights(0))

@@ -21,6 +21,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 V1_YAML = os.path.join(ROOT, "egs", "ljspeech", "voc1", "conf", "hifigan.v1.yaml")
 PWG_V1_YAML = os.path.join(ROOT, "egs", "ljspeech", "voc1", "conf",
                            "parallel_wavegan.v1.yaml")
+MB_V2_YAML = os.path.join(ROOT, "egs", "ljspeech", "voc1", "conf",
+                          "multi_band_melgan.v2.yaml")
 CSRC = os.path.join(ROOT, "parallelwavegan_tpu_torch", "ops", "kernels", "csrc")
 
 
@@ -74,6 +76,17 @@ def test_chip_smoke_pwg_v1_parameters_equal_shipped_config():
         "ParallelWaveGANGenerator")
 
 
+def test_chip_smoke_mb_melgan_v2_parameters_equal_shipped_config():
+    yaml = pytest.importorskip("yaml")
+    smoke = _chip_smoke()
+    with open(MB_V2_YAML) as f:
+        cfg = yaml.safe_load(f)
+    assert smoke.V2_MB_GENERATOR == cfg["generator_params"]
+    assert cfg["generator_type"] == "MelGANGenerator"
+    for k, v in smoke.V1_FEATURES.items():
+        assert cfg[k] == v, k
+
+
 def _exported(source):
     """(name, parameter count) of each function in the extern "C" block."""
     import re
@@ -93,7 +106,8 @@ def test_every_kernel_entry_point_has_a_ctypes_signature():
     exported = {}
     for src in build.sources():
         exported.update(_exported(src))
-    assert {"hifigan_resunits", "wavenet_layer"} <= set(exported)
+    assert {"hifigan_resunits", "hifigan_mean", "wavenet_layer",
+            "melgan_stack", "melgan_outconv"} <= set(exported)
     assert set(exported) == set(build._SIGNATURES) | {"hifigan_error_string"}
     for name, argtypes in build._SIGNATURES.items():
         assert len(argtypes) == exported[name], name
