@@ -50,6 +50,22 @@ Phases (any failure exits non-zero; nothing is caught):
    ``--use-pallas-stacks`` (K6 called twice per utterance, 9 launches)
    and without; the WAVs agree to 2e-4.
 
+11. The TADE kernels (K8a, K8b) against their plain versions at
+   StyleMelGAN v1's blocks 3-8 of a 512-frame decode (B=1, T = 5632 ..
+   180224, scales 2 then 1, d=2, softmax), each timed beside its plain
+   version and bound, the six-block chain too, and ragged cases (B=2,
+   T=1001, scales (2, 1), softmax and sigmoid; no biases; T=5, below a
+   halo), |diff| <= 2e-4 + 2e-4 |plain|.
+12. The split of the StyleMelGAN v1 forward at 512 frames (704 padded):
+   noise upsample, blocks 0-2 (module path), blocks 3-8 with and without
+   the kernels, the output conv, the whole forward with and without.
+13. StyleMelGAN v1 decode through ``bin/decode.main``: a random-init,
+   full-width checkpoint with ``generator_params`` verbatim from
+   egs/ljspeech/voc1/conf/style_melgan.v1.yaml, decoded with
+   ``use_pallas_tade: true`` (6 + 5 + 5 = 16 gated blocks: 16 launches
+   each of K8a and K8b) and without, with the same noise; the WAVs agree
+   to 2e-4.
+
 Phase 3 also decodes HiFi-GAN v1 with ``use_pallas_mrf: true`` in the
 config (K2 called twice per utterance, stages 2 and 3, 8 launches) and
 holds it to the plain decode. Launch counts are reset just before each
@@ -105,6 +121,18 @@ V2_MB_GENERATOR = dict(
     upsample_scales=[8, 4, 2], stack_kernel_size=3, stacks=4,
     use_weight_norm=True, use_causal_conv=False,
 )
+# egs/ljspeech/voc1/conf/style_melgan.v1.yaml (a test holds these equal to it)
+V1_STYLE_GENERATOR = dict(
+    in_channels=128, aux_channels=80, channels=64, out_channels=1,
+    kernel_size=9, dilation=2, bias=True, noise_upsample_scales=[11, 2, 2, 2],
+    noise_upsample_activation="LeakyReLU",
+    noise_upsample_activation_params={"negative_slope": 0.2},
+    upsample_scales=[2, 2, 2, 2, 2, 2, 2, 2, 1], upsample_mode="nearest",
+    gated_function="softmax", use_weight_norm=True,
+)
+# a 512-frame StyleMelGAN decode: noise length ceil(512 / 88) = 6, rounded
+# up to 8, so the mel is edge-padded to 8 * 88 = 704 frames
+STYLE_FRAMES = 704
 UTT_FRAMES = (512, 300, 77)
 PEAK_FLOPS = 67e12  # float32 on the CUDA cores
 PEAK_BYTES = 3.35e12
@@ -158,8 +186,14 @@ def _reset_launch_counts() -> None:
 
     for fn in (fused_hifigan_tail, fused_wavenet_stack, fused_gated_resblock):
         fn.launches = 0
+    from parallelwavegan_tpu_torch.ops.kernels.tade_decode import (
+        fused_tade_blocks,
+    )
+
     for fn in (fused_melgan_stacks, fused_hifigan_mrf):
         fn.launches = fn.calls = 0
+    fused_tade_blocks.calls = 0
+    fused_tade_blocks.launches_k8a = fused_tade_blocks.launches_k8b = 0
 
 
 def _bound(flops: float, nbytes: float) -> dict:
@@ -857,6 +891,236 @@ def phase_mbmelgan_decode(card: str) -> dict:
     return {"launches": counts["stacks"][1], "err": err}
 
 
+def _style_v1(flags: dict):
+    """The full-width StyleMelGAN v1 generator from SEED on the card, weight
+    norm folded, eval mode, kernel weights prepared."""
+    import torch
+
+    from parallelwavegan_tpu_torch.models import get_model_class
+
+    gen = get_model_class("StyleMelGANGenerator")(
+        **dict(V1_STYLE_GENERATOR, **flags), device="cuda",
+        generator=torch.Generator().manual_seed(SEED))
+    gen.remove_weight_norm()
+    gen.eval()
+    gen.prepare_kernels()
+    return gen
+
+
+def _tade_work(x, blk, half: int) -> dict:
+    """Operations and bytes of one K8a (half 1) or K8b (half 2) call on a
+    block input x: ten 9 x 64 x 64 products per row at the kernel's rate."""
+    from parallelwavegan_tpu_torch.ops.kernels.tade_decode import WEIGHT_KEYS
+
+    b, t, c = x.shape
+    rows = b * t * (1 if half == 1 else int(blk["scale"]))
+    keys = WEIGHT_KEYS[:3] if half == 1 else WEIGHT_KEYS[3:]
+    mac = sum(blk[f"{k}_w"].numel() for k in keys)  # per row
+    weights = sum(blk[f"{k}{s}"].numel() for k in keys for s in ("_w", "_b"))
+    # K8a reads x, c and writes x2, a; K8b reads x, x2, a and writes out, a2
+    acts = 4 * b * t * c if half == 1 else 3 * b * t * c + 2 * rows * c
+    return _bound(2.0 * rows * mac, 4 * (acts + 2 * b * c + weights))
+
+
+def _check_allclose(name: str, got, want) -> float:
+    """max |diff|; fails unless |got - want| <= TOL + TOL * |want| throughout."""
+    import torch
+
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        _fail(f"{name}: shapes {tuple(got.shape)} vs {tuple(want.shape)} or "
+              "non-finite kernel output")
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, rtol=TOL, atol=TOL))
+    print(f"kernel vs plain [{name}]: max|diff| = {err:.3e} (rtol {TOL}, atol {TOL})")
+    if not ok:
+        _fail(f"{name}: kernel disagrees with its plain version")
+    return err
+
+
+def phase_tade_kernel(card: str) -> dict:
+    """K8a and K8b vs their plain versions at StyleMelGAN v1's blocks 3-8
+    of a 512-frame decode (B=1, T = 5632 .. 180224) and on ragged cases.
+    ms, plain_ms and the bound of each kernel are those of the six blocks,
+    one decode's work; the chain of six blocks is timed too."""
+    import numpy as np
+    import torch
+
+    from parallelwavegan_tpu_torch.ops.kernels import tade_decode as td
+
+    blocks = _style_v1({"use_pallas_tade": True})._kernel_cache[3:]
+    rs = np.random.RandomState(SEED)
+
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy((rs.randn(*shape) * scale).astype(np.float32)).to("cuda")
+
+    def random_block(scale, bias=True):
+        out = {"scale": scale, "dilation": 2}
+        for key in td.WEIGHT_KEYS:
+            cout = 64 if key.startswith("aux") else 128
+            out[f"{key}_w"] = randn(9, 64, cout, scale=1 / 24.0)
+            out[f"{key}_b"] = randn(cout, scale=0.1) if bias else torch.zeros(
+                cout, device="cuda")
+        return out
+
+    k8a, k8b, chain = {"errs": []}, {"errs": []}, {}
+    with torch.inference_mode():
+        t = STYLE_FRAMES * 8  # block 3's input length
+        x0, c0 = randn(1, t, 64), randn(1, t, 64)
+        x, c = x0, c0
+        for i, blk in enumerate(blocks, start=3):
+            t = x.shape[1]
+            x2, a = td.tade1_cuda(x, c, blk)
+            torch.cuda.synchronize()
+            x2r, ar = (v.contiguous() for v in td.tade1_reference(x, c, blk))
+            k8a["errs"] += [_check_allclose(f"K8a block {i} T={t} x2", x2, x2r),
+                            _check_allclose(f"K8a block {i} T={t} a", a, ar)]
+            out, a2 = td.tade2_cuda(x, x2r, ar, blk)
+            torch.cuda.synchronize()
+            outr, a2r = (v.contiguous() for v in td.tade2_reference(x, x2r, ar, blk))
+            k8b["errs"] += [_check_allclose(f"K8b block {i} T={t} out", out, outr),
+                            _check_allclose(f"K8b block {i} T={t} a2", a2, a2r)]
+            _timed(k8a, f"K8a block {i} B=1 T={t}", card,
+                   lambda: td.tade1_cuda(x, c, blk),
+                   lambda: td.tade1_reference(x, c, blk), _tade_work(x, blk, 1))
+            _timed(k8b, f"K8b block {i} B=1 T={t} -> {t * int(blk['scale'])}", card,
+                   lambda: td.tade2_cuda(x, x2r, ar, blk),
+                   lambda: td.tade2_reference(x, x2r, ar, blk), _tade_work(x, blk, 2))
+            x, c = outr, a2r
+
+        def plain_chain(x, c):
+            for blk in blocks:
+                x, c = td.tade_block_reference(x, c, blk)
+            return x, c
+
+        got = td.fused_tade_blocks(x0, c0, blocks)
+        torch.cuda.synchronize()
+        want = plain_chain(x0, c0)
+        chain["err"] = max(_check_allclose(f"K8 chain blocks 3-8 {n}", g, w)
+                           for n, g, w in zip(("x", "c"), got, want))
+        chain["ms"] = _median_ms(lambda: td.fused_tade_blocks(x0, c0, blocks))
+        chain["plain_ms"] = _median_ms(lambda: plain_chain(x0, c0))
+
+        # ragged: B=2, odd T, scales (2, 1), both gates, no biases, T below
+        # one halo (12 rows)
+        for name, (b, t), gated, bias in (
+                ("B=2 T=1001 softmax", (2, 1001), "softmax", True),
+                ("B=2 T=1001 sigmoid", (2, 1001), "sigmoid", True),
+                ("B=1 T=333 no bias", (1, 333), "softmax", False),
+                ("B=2 T=5 (below a halo)", (2, 5), "softmax", True)):
+            rb = [random_block(2, bias), random_block(1, bias)]
+            x, c = randn(b, t, 64), randn(b, t, 64)
+            got = td.fused_tade_blocks(x, c, rb, gated_function=gated, min_fused_t=1)
+            torch.cuda.synchronize()
+            want = (x, c)
+            for blk in rb:
+                want = td.tade_block_reference(*want, blk, gated_function=gated)
+            errs = [_check_allclose(f"K8 ragged {name} {n}", g, w)
+                    for n, g, w in zip(("x", "c"), got, want)]
+            k8a["errs"].append(max(errs))
+            k8b["errs"].append(max(errs))
+    print(f"K8 per 512-frame decode (blocks 3-8): K8a {k8a['ms']:.3f} ms (plain "
+          f"{k8a['plain_ms']:.3f}, bound {k8a['bound_ms']:.3f}), K8b {k8b['ms']:.3f} "
+          f"ms (plain {k8b['plain_ms']:.3f}, bound {k8b['bound_ms']:.3f}); chain "
+          f"{chain['ms']:.3f} ms (plain {chain['plain_ms']:.3f}, bound "
+          f"{k8a['bound_ms'] + k8b['bound_ms']:.3f}) on {card}")
+    return {"k8a": k8a, "k8b": k8b, "chain": chain}
+
+
+def phase_style_split(card: str) -> None:
+    """Where the StyleMelGAN v1 forward spends its time at 512 frames (704
+    padded), B=1."""
+    import torch
+
+    from parallelwavegan_tpu_torch.ops.kernels.tade_decode import (
+        fused_tade_blocks,
+    )
+
+    gen = _style_v1({"use_pallas_tade": True})
+    plain = _style_v1({})
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    nuf = gen.noise_upsample_factor
+    z = torch.randn(1, 128, STYLE_FRAMES // nuf, generator=g, device="cuda")
+    c = torch.randn(1, 80, STYLE_FRAMES, generator=g, device="cuda")
+    w = gen._kernel_cache[3:]
+
+    def head(x, c):  # blocks 0-2, below the gate: module path (cuDNN)
+        for blk in gen.blocks[:3]:
+            x, c = blk(x, c)
+        return x, c
+
+    def fused(x, c):
+        y, cy = fused_tade_blocks(x.transpose(1, 2).contiguous(),
+                                  c.transpose(1, 2).contiguous(), w)
+        return y.transpose(1, 2), cy.transpose(1, 2)
+
+    def plain_tail(x, c):
+        for blk in gen.blocks[3:]:
+            x, c = blk(x, c)
+        return x, c
+
+    with torch.inference_mode():
+        x = gen.noise_upsample(z)
+        x3, c3 = head(x, c)
+        y = plain_tail(x3, c3)[0]
+        t = {
+            "noise upsample": _median_ms(lambda: gen.noise_upsample(z)),
+            "blocks 0-2 (module path)": _median_ms(lambda: head(x, c)),
+            "blocks 3-8, kernels": _median_ms(lambda: fused(x3, c3)),
+            "blocks 3-8, plain": _median_ms(lambda: plain_tail(x3, c3)),
+            "output conv + tanh": _median_ms(lambda: gen.output_conv(y)),
+            "forward, kernels": _median_ms(lambda: gen(c, z)),
+            "forward, plain": _median_ms(lambda: plain(c, z)),
+        }
+    print(f"StyleMelGAN v1 forward split, 512 frames ({STYLE_FRAMES} padded), B=1, "
+          f"median of 10, CUDA events, on {card}: "
+          + "; ".join(f"{k} {v:.3f} ms" for k, v in t.items()))
+
+
+def phase_style_decode(card: str) -> dict:
+    """StyleMelGAN v1 decode entry point with use_pallas_tade, then without,
+    with the same noise."""
+    import numpy as np
+
+    from parallelwavegan_tpu_torch.bin import decode
+    from parallelwavegan_tpu_torch.ops.kernels.tade_decode import (
+        fused_tade_blocks,
+    )
+
+    p = _write_inputs("StyleMelGANGenerator", V1_STYLE_GENERATOR,
+                      {"tade": {"use_pallas_tade": True}, "plain": {}})
+    n = len(UTT_FRAMES)
+    # 512 frames: blocks 3-8 reach T >= 4096; 300 and 77 frames: blocks 4-8
+    expect = {"tade": (n, 16, 16), "plain": (0, 0, 0)}
+    res, counts = {}, {}
+    for name in ("tade", "plain"):
+        _reset_launch_counts()
+        np.random.seed(SEED)  # the same noise in every run
+        res[name] = decode.main(
+            ["--dumpdir", p["dump"], "--checkpoint", p["ckpt"],
+             "--normalize-before", "--device", "cuda", "--config", p[name],
+             "--outdir", os.path.join(p["root"], f"wav_{name}")])
+        counts[name] = (fused_tade_blocks.calls, fused_tade_blocks.launches_k8a,
+                        fused_tade_blocks.launches_k8b)
+        print(f"main path [StyleMelGAN v1, {name}]: fused_tade_blocks calls = "
+              f"{counts[name][0]}, K8a launches = {counts[name][1]}, K8b launches "
+              f"= {counts[name][2]} for {n} utterances")
+        if counts[name] != expect[name]:
+            _fail(f"StyleMelGAN {name} decode: (calls, K8a, K8b) {counts[name]}, "
+                  f"expected {expect[name]}")
+    err = _compare_wavs(os.path.join(p["root"], "wav_tade"),
+                        os.path.join(p["root"], "wav_plain"))
+    print(f"StyleMelGAN decode with the TADE kernels vs without: max|diff| = "
+          f"{err:.3e} (tol {TOL}, 16-bit WAVs)")
+    if not err <= TOL:
+        _fail("StyleMelGAN decode through the TADE kernels disagrees with the "
+              "plain decode")
+    print(f"StyleMelGAN decode RTF (mean of {n} utterances, first one includes "
+          f"warm-up) on {card}: " + ", ".join(f"{k} {_rtfs(v)}" for k, v in res.items()))
+    shutil.rmtree(p["root"])
+    return {"k8a_launches": counts["tade"][1], "k8b_launches": counts["tade"][2],
+            "err": err}
+
+
 def main() -> None:
     pkg = os.path.join(ROOT, "parallelwavegan_tpu_torch")
     if not os.path.isdir(pkg):
@@ -913,6 +1177,12 @@ def main() -> None:
     torch.cuda.synchronize()
     mb = phase_mbmelgan_decode(card)
     torch.cuda.synchronize()
+    k8 = phase_tade_kernel(card)
+    torch.cuda.synchronize()
+    phase_style_split(card)
+    torch.cuda.synchronize()
+    style = phase_style_decode(card)
+    torch.cuda.synchronize()
     shutil.rmtree(WORK, ignore_errors=True)
 
     def entry(name, source, replaces, launches, rec):
@@ -937,6 +1207,10 @@ def main() -> None:
               mb["launches"], k6),
         entry("fused_hifigan_mrf", "hifigan_tail.cu",
               "hifigan_mrf.py:178 and :399", dec["mrf_launches"], k2),
+        entry("fused_tade_blocks (K8a)", "tade.cu", "tade_decode.py:366",
+              style["k8a_launches"], k8["k8a"]),
+        entry("fused_tade_blocks (K8b)", "tade.cu", "tade_decode.py:437",
+              style["k8b_launches"], k8["k8b"]),
     ]}
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_main:.1f} s "
           f"(build included) on {card}")

@@ -2,7 +2,8 @@
 
 Reads mel features from a dump directory, decodes each utterance of any
 ported generator with ``load_model(...).inference`` on ``--device`` and
-writes 16-bit WAVs (Multi-band MelGAN after PQMF synthesis).
+writes 16-bit WAVs (Multi-band MelGAN after PQMF synthesis; StyleMelGAN
+with noise drawn as Parallel WaveGAN's is).
 ``--use-pallas-tail`` routes the HiFi-GAN decode tail,
 ``--use-pallas-stack`` the Parallel WaveGAN dilation cycles and
 ``--use-pallas-stacks`` the (Multi-band) MelGAN residual stacks through
@@ -10,8 +11,9 @@ their hand-written CUDA kernels (the JAX flag names, kept so configs and
 scripts are shared); a config that sets ``use_pallas_stack_train``, as
 the shipped ``parallel_wavegan.v1.yaml`` does, routes the PWG cycles
 there too, and HiFi-GAN's MRF kernel is reached through
-``use_pallas_mrf`` in the config, as in the JAX package, which has no
-flag for it. RTF is measured per utterance with the device synchronised
+``use_pallas_mrf`` in the config, and StyleMelGAN's TADE kernels (K8a,
+K8b) through ``use_pallas_tade``, as in the JAX package, which has no
+flag for either. RTF is measured per utterance with the device synchronised
 before each clock read. float32 convolutions run without TF32, as the JAX
 package computes in full float32.
 

@@ -3,10 +3,12 @@
 The inverse of parallelwavegan_tpu/convert/torch_checkpoint.py:510
 ``_convert_tree`` for the models the port has: module paths go through
 the same name maps as ``_t_hifigan_g`` (:131), ``_make_t_melgan_g``
-(:153-207, non-causal) and ``_make_t_pwg_g`` (:210-264) in reverse, conv
+(:153-207, non-causal), ``_make_t_pwg_g`` (:210-264) and
+``_t_style_melgan_g`` (:267-286) in reverse, conv
 kernels (K, Cin, Cout) are transposed to torch's (Cout, Cin, K)
 (``_CONV_PERM``), transposed-conv kernels (HiFi-GAN's ``upsamples_*``,
-MelGAN's deconv layers: the ``is_transpose`` set) are flipped along K and
+MelGAN's deconv layers, StyleMelGAN's ``noise_upsample_*``: the
+``is_transpose`` set) are flipped along K and
 laid out as torch's (Cin, Cout, K) (``_DECONV_PERM``, :466-467,
 :558-562), the UpsampleNetwork's (T, F, 1, 1) leaves
 ``conv_{i}[_v|_g]`` become ``up_layers.{step*i+1}`` Conv2d weights
@@ -103,6 +105,29 @@ def _melgan_map(model_params: dict):
     return prefix, deconvs
 
 
+_TADE_NAMES = {"tade1": "tade1", "tade2": "tade2", "gated_conv1": "gated_conv1",
+               "gated_conv2": "gated_conv2", "aux_conv": "aux_conv.0",
+               "gated_conv": "gated_conv.0", "output_conv": "output_conv.0"}
+
+
+def _style_melgan_prefix(path) -> str:
+    """Flax module path -> upstream prefix (``_t_style_melgan_g``): the
+    ``trunk`` level is dropped."""
+    out = []
+    for p in path:
+        if p == "trunk":
+            continue
+        if p.startswith("noise_upsample_"):
+            out.append(f"noise_upsample.{2 * _idx(p)}")
+        elif p.startswith("blocks_"):
+            out.append(f"blocks.{_idx(p)}")
+        elif p in _TADE_NAMES:
+            out.append(_TADE_NAMES[p])
+        else:
+            raise KeyError(f"style_melgan path segment {p!r}")
+    return ".".join(out)
+
+
 def _flatten(tree, prefix=()):
     for k, v in tree.items():
         if hasattr(v, "items"):  # dict or flax FrozenDict
@@ -115,7 +140,8 @@ def jax_params_to_state_dict(model_type: str, model_params: dict,
                              params) -> "OrderedDict[str, torch.Tensor]":
     """JAX params (``G.init(...)`` output or its ``"params"`` entry, with
     numpy or jax arrays as leaves) -> port state dict of float32 tensors.
-    ``model_type`` is a registered generator or ``"ResidualStack"``."""
+    ``model_type`` is a registered generator, ``"ResidualStack"`` or
+    ``"TADEResBlock"``."""
     if "params" in params:
         params = params["params"]
     deconvs = None  # MelGAN's deconv layer indices
@@ -130,6 +156,8 @@ def jax_params_to_state_dict(model_type: str, model_params: dict,
         prefix_of, deconvs = _melgan_map(model_params)
     elif model_type == "ResidualStack":
         prefix_of = _stack_prefix
+    elif model_type in ("StyleMelGANGenerator", "TADEResBlock"):
+        prefix_of = _style_melgan_prefix
     elif model_type == "ParallelWaveGANGenerator":
         prefix_of = _pwg_prefix
         up = model_params.get("upsample_params") or {}
@@ -153,7 +181,8 @@ def jax_params_to_state_dict(model_type: str, model_params: dict,
         if deconvs is not None:
             transpose = len(mods) == 1 and _idx(mods[0]) in deconvs
         else:
-            transpose = bool(mods) and mods[-1].startswith("upsamples_")
+            transpose = bool(mods) and mods[-1].startswith(
+                ("upsamples_", "noise_upsample_"))
         if name == "bias":
             sd[f"{prefix}.bias"] = w
         elif name in ("v", "kernel"):

@@ -1,8 +1,9 @@
 """Model registry of the port: the YAML-facing class names.
 
-``HiFiGANGenerator``, ``ParallelWaveGANGenerator`` and ``MelGANGenerator``
-(MelGAN and Multi-band MelGAN, non-causal) are ported so far; ROADMAP.md
-lists the rest in the order they are to come.
+``HiFiGANGenerator``, ``ParallelWaveGANGenerator``, ``MelGANGenerator``
+(MelGAN and Multi-band MelGAN, non-causal) and ``StyleMelGANGenerator``
+are ported so far; ROADMAP.md lists the rest in the order they are to
+come.
 """
 
 from parallelwavegan_tpu_torch.models.hifigan import HiFiGANGenerator
@@ -10,11 +11,13 @@ from parallelwavegan_tpu_torch.models.melgan import MelGANGenerator
 from parallelwavegan_tpu_torch.models.parallel_wavegan import (
     ParallelWaveGANGenerator,
 )
+from parallelwavegan_tpu_torch.models.style_melgan import StyleMelGANGenerator
 
 MODEL_REGISTRY = {
     "HiFiGANGenerator": HiFiGANGenerator,
     "MelGANGenerator": MelGANGenerator,
     "ParallelWaveGANGenerator": ParallelWaveGANGenerator,
+    "StyleMelGANGenerator": StyleMelGANGenerator,
 }
 
 

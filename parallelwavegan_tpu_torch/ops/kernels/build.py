@@ -53,6 +53,12 @@ _SIGNATURES = {
     "melgan_stack": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
     # x, y, w, b, B, T, C, Cout, K, mode, slope, device, stream
     "melgan_outconv": [_P] * 4 + [_I] * 6 + [_F, _I, _P],
+    # x, c, mean, rstd, x2, a, aux_w, aux_b, g_w, g_b, gc_w, gc_b, B, T,
+    # gate, device, stream
+    "tade1": [_P] * 12 + [_I] * 4 + [_P],
+    # x, x2, a, mean, rstd, out, a2, aux_w, aux_b, g_w, g_b, gc_w, gc_b, B,
+    # T, scale, dilation, gate, device, stream
+    "tade2": [_P] * 13 + [_I] * 6 + [_P],
 }
 
 

@@ -1,0 +1,230 @@
+"""Fused StyleMelGAN TADEResBlock decode (K8a, K8b).
+
+Counterpart of parallelwavegan_tpu/ops/pallas_kernels/tade_decode.py
+(``tade_block_xla`` :82-107, ``_run_tade1`` :366, ``_run_tade2`` :437,
+``fused_tade_blocks`` :514). The public functions keep the JAX layout and
+weight form, so a test can feed the same arrays to both packages: x is
+(B, T, 64), c (B, T, Ca); a block is a dict of folded weights in gather
+form (K, Cin, Cout), ``aux1_w`` (9, Ca, 64), ``g1_w``, ``gc1_w``, ``g2_w``,
+``gc2_w`` (9, 64, 128), ``aux2_w`` (9, 64, 64), their biases, ``scale``
+and ``dilation``, as ``TADEResBlock.folded_weights`` returns it (which
+adds the block itself under ``module``).
+
+A block is two halves, split where the JAX package splits it, because
+each half's instance norm is a reduction over the whole time axis of an
+activation the block produces:
+
+  K8a  a  = aux1(c); [s | h] = g1(a); y = s * norm(x) + h;
+       x2 = gate(gc1(y))                                     (rate T)
+  K8b  a2 = aux2(up(a)); [s | h] = g2(a2); y2 = s * up(norm(x2)) + h;
+       out = up(x) + gate(gc2_d(y2))                         (rate sT)
+
+with ``up`` the nearest x``scale`` stretch, every conv zero-padded "same"
+(d = ``dilation`` for gc2), and ``gate`` softmax over channels (or
+sigmoid) of the first half times tanh of the second. The norms'
+per-(batch, channel) mean and 1/std are two-pass torch reductions
+(``torch.var_mean``) between the launches.
+
+For a CUDA tensor each gated block runs the hand-written kernels of
+csrc/tade.cu, one launch of each; for a CPU tensor it runs the plain
+PyTorch version ``tade_block_reference``. A CUDA tensor never takes the
+plain path. The TPU lane packing, tiling (``t_tile``) and bf16-resident
+mode do not carry over. The kernels have no backward yet (ROADMAP.md K9),
+so a forward that would need gradients raises.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from parallelwavegan_tpu_torch.layers.tade import GATES, gate, instance_norm_1d
+from parallelwavegan_tpu_torch.ops.kernels import build
+
+C = 64  # the kernels' width, the JAX C0P
+KERNEL_SIZE = 9
+DILATIONS = (1, 2, 3, 4)  # instantiated in tade.cu
+EPS = 1e-5
+WEIGHT_KEYS = ("aux1", "g1", "gc1", "aux2", "g2", "gc2")
+
+# ---------------------------------------------------------------------------
+# plain version (port of tade_block_xla)
+# ---------------------------------------------------------------------------
+
+
+def _conv(x, w, b, d: int = 1):
+    """'Same' zero-padded conv of (B, T, Cin) with a (K, Cin, Cout) kernel."""
+    pad = (w.shape[0] - 1) // 2 * d
+    y = F.conv1d(x.transpose(1, 2), w.permute(2, 1, 0), b, padding=pad, dilation=d)
+    return y.transpose(1, 2)
+
+
+def _stretch(x, s: int):
+    return x if s == 1 else x.repeat_interleave(s, dim=1)
+
+
+def _gate(t, gated_function):
+    return gate(*t.chunk(2, dim=-1), gated_function, dim=-1)
+
+
+def tade1_reference(x, c, blk, gated_function: str = "softmax"):
+    """The first half of a block (K8a's function): (x2, a), both (B, T, 64)."""
+    a = _conv(c, blk["aux1_w"], blk["aux1_b"])
+    s, h = _conv(a, blk["g1_w"], blk["g1_b"]).chunk(2, dim=-1)
+    y = s * instance_norm_1d(x, dim=1) + h
+    return _gate(_conv(y, blk["gc1_w"], blk["gc1_b"]), gated_function), a
+
+
+def tade2_reference(x, x2, a, blk, gated_function: str = "softmax"):
+    """The second half (K8b's function): (out, a2), both (B, sT, 64)."""
+    sc, d = int(blk["scale"]), int(blk["dilation"])
+    a2 = _conv(_stretch(a, sc), blk["aux2_w"], blk["aux2_b"])
+    s, h = _conv(a2, blk["g2_w"], blk["g2_b"]).chunk(2, dim=-1)
+    y2 = s * _stretch(instance_norm_1d(x2, dim=1), sc) + h
+    t2 = _conv(y2, blk["gc2_w"], blk["gc2_b"], d)
+    return _stretch(x, sc) + _gate(t2, gated_function), a2
+
+
+def tade_block_reference(x, c, blk, *, gated_function: str = "softmax"):
+    """One TADEResBlock on folded weights: x (B, T, 64), c (B, T, Ca) ->
+    (x_out, c_out), both (B, T * scale, 64)."""
+    x2, a = tade1_reference(x, c, blk, gated_function)
+    return tade2_reference(x, x2, a, blk, gated_function)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels
+# ---------------------------------------------------------------------------
+
+
+def _stats(x):
+    """Per (batch, channel) mean and 1/std over time of x (B, T, C)."""
+    var, mean = torch.var_mean(x, dim=1, unbiased=False)
+    return mean.contiguous(), torch.rsqrt(var.clamp_min(0.0) + EPS).contiguous()
+
+
+def _check_cuda_inputs(x, c, blk) -> None:
+    if x.dim() != 3 or c.dim() != 3:
+        raise ValueError(f"x and c must be (B, T, C), got {tuple(x.shape)}, "
+                         f"{tuple(c.shape)}")
+    b, t, width = x.shape
+    if width != C or c.shape[2] != C:
+        raise ValueError(f"the TADE kernels take width {C} only, got x width "
+                         f"{width} and c width {c.shape[2]}")
+    if b > 65535:
+        raise ValueError(f"batch {b} exceeds the grid's 65535")
+    build.check_tensor("x", x, x.device, (b, t, C))
+    build.check_tensor("c", c, x.device, (b, t, C))
+    if int(blk["scale"]) not in (1, 2):
+        raise ValueError(f"the TADE kernels take scale 1 or 2, got {blk['scale']}")
+    if int(blk["dilation"]) not in DILATIONS:
+        raise ValueError(f"the TADE kernels take dilation in {DILATIONS}, "
+                         f"got {blk['dilation']}")
+    for key in WEIGHT_KEYS:
+        cout = C if key.startswith("aux") else 2 * C
+        # weights are copied in 8- and 16-byte pieces (cp.async)
+        build.check_tensor(f"{key}_w", blk[f"{key}_w"], x.device,
+                           (KERNEL_SIZE, C, cout), align=16)
+        build.check_tensor(f"{key}_b", blk[f"{key}_b"], x.device, (cout,))
+
+
+def _weights(blk, half: int):
+    keys = WEIGHT_KEYS[:3] if half == 1 else WEIGHT_KEYS[3:]
+    return [blk[f"{k}{s}"].data_ptr() for k in keys for s in ("_w", "_b")]
+
+
+def tade1_cuda(x, c, blk, gated_function: str = "softmax"):
+    """K8a on the card: the stats of x, then one launch. (x2, a)."""
+    _check_cuda_inputs(x, c, blk)
+    lib = build.load()
+    dev, stream = build.launch_target(x)
+    b, t, _ = x.shape
+    mean, rstd = _stats(x)
+    x2, a = torch.empty_like(x), torch.empty_like(x)
+    lib.call("tade1", x.data_ptr(), c.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+             x2.data_ptr(), a.data_ptr(), *_weights(blk, 1), b, t,
+             GATES.index(gated_function), dev, stream)
+    fused_tade_blocks.launches_k8a += 1
+    return x2, a
+
+
+def tade2_cuda(x, x2, a, blk, gated_function: str = "softmax"):
+    """K8b on the card: the stats of x2, then one launch. (out, a2)."""
+    _check_cuda_inputs(x, a, blk)
+    build.check_tensor("x2", x2, x.device, x.shape)
+    lib = build.load()
+    dev, stream = build.launch_target(x)
+    b, t, _ = x.shape
+    sc = int(blk["scale"])
+    mean, rstd = _stats(x2)
+    out = torch.empty((b, sc * t, C), device=x.device, dtype=torch.float32)
+    a2 = torch.empty_like(out)
+    lib.call("tade2", x.data_ptr(), x2.data_ptr(), a.data_ptr(), mean.data_ptr(),
+             rstd.data_ptr(), out.data_ptr(), a2.data_ptr(), *_weights(blk, 2), b, t,
+             sc, int(blk["dilation"]), GATES.index(gated_function), dev, stream)
+    fused_tade_blocks.launches_k8b += 1
+    return out, a2
+
+
+# ---------------------------------------------------------------------------
+# the block walk (port of fused_tade_blocks)
+# ---------------------------------------------------------------------------
+
+
+def gated(t: int, blk, *, min_fused_t: int, train: bool = False) -> bool:
+    """Whether a block of input length t runs the fused path: the JAX
+    decode gate (tade_decode.py:531: t >= min_fused_t, aux width 64), or
+    with ``train`` the train wrapper's (tade_train.py:725-730: also t even
+    and scale 1 or 2). The decode gate does not look at the scale, and a
+    gated block of another scale raises."""
+    ok = t >= min_fused_t and blk["aux1_w"].shape[1] == C
+    if train:
+        return ok and t % 2 == 0 and int(blk["scale"]) in (1, 2)
+    if ok and int(blk["scale"]) not in (1, 2):
+        raise ValueError(f"the fused TADE decode takes scale 1 or 2, got a gated "
+                         f"block of scale {blk['scale']} at T={t}")
+    return ok
+
+
+def fused_tade_blocks(x, c, blocks, *, gated_function: str = "softmax",
+                      min_fused_t: int = 4096, train: bool = False):
+    """Run a stack of TADEResBlocks: x (B, T0, 64), c (B, T0, Ca) ->
+    (x, c) at T0 times the product of the scales.
+
+    Blocks the gate passes (``gated``) run K8a then K8b on a CUDA tensor
+    (float32, contiguous, width 64, scale 1 or 2; anything else raises) or
+    ``tade_block_reference`` on a CPU tensor; the others run their
+    module's own forward (``blk["module"]``). ``fused_tade_blocks.calls``
+    counts the calls that launched a kernel, ``.launches_k8a`` and
+    ``.launches_k8b`` the launches of each kernel.
+    """
+    if gated_function not in GATES:
+        raise ValueError(f"{gated_function} is not supported.")
+    tensors = [x, c] + [blk[f"{k}{s}"] for blk in blocks for k in WEIGHT_KEYS
+                        for s in ("_w", "_b")]
+    build.refuse_training("the fused TADE kernels (K8, backward K9)", tensors)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_tade_blocks: unsupported device {x.device}")
+    launched = False
+    for i, blk in enumerate(blocks):
+        if not gated(x.shape[1], blk, min_fused_t=min_fused_t, train=train):
+            if blk.get("module") is None:
+                raise ValueError(f"blocks[{i}] is left out by the gate and has no "
+                                 "module to run")
+            y, cy = blk["module"](x.transpose(1, 2), c.transpose(1, 2))
+            x, c = y.transpose(1, 2).contiguous(), cy.transpose(1, 2).contiguous()
+            continue
+        if x.device.type == "cpu":
+            x, c = tade_block_reference(x, c, blk, gated_function=gated_function)
+            continue
+        x2, a = tade1_cuda(x, c, blk, gated_function)
+        x, c = tade2_cuda(x, x2, a, blk, gated_function)
+        launched = True
+    if launched:
+        fused_tade_blocks.calls += 1
+    return x, c
+
+
+fused_tade_blocks.calls = 0
+fused_tade_blocks.launches_k8a = 0
+fused_tade_blocks.launches_k8b = 0

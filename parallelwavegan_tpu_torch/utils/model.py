@@ -12,7 +12,12 @@ one output channel (Multi-band MelGAN) gets PQMF synthesis after its
 forward, with the config's ``pqmf_params`` or, for a config without them
 whose ``version`` is 0.4.2 or older (or absent), the old defaults taps 62,
 cutoff 0.15, beta 9.0 (:657-665); the upsample factor then counts the
-sub-bands (:588-604). ``load_model`` runs on the GPU unless the caller
+sub-bands (:588-604). StyleMelGAN (:76-88, :142-153) takes noise of
+``noise_len`` = ceil(T' / noise_upsample_factor) frames rounded up to a
+multiple of 4, and the mel edge-padded to ``noise_len * factor`` frames
+instead of the 32-frame bucket; since its instance norms run over the
+whole padded length, this padding, which is the JAX package's and not
+upstream's, is copied exactly. ``load_model`` runs on the GPU unless the caller
 asks for the CPU. Batched, streaming and sharded decode are not ported
 yet (ROADMAP.md).
 """
@@ -61,13 +66,22 @@ class InferenceModel:
         f = self.generator.upsample_factor
         return f * self.pqmf.subbands if self.pqmf is not None else f
 
+    def _style(self) -> bool:
+        return hasattr(self.generator, "noise_upsample_factor")
+
     def forward_padded(self, c: torch.Tensor,
                        z: torch.Tensor | None = None) -> torch.Tensor:
         """The padded forward, counterpart of the JAX ``_forward_fn()``: mel
         (pad_t, num_mels) and, for a generator that takes noise, z
         (pad_t * upsample_factor,) -> (pad_t * upsample_factor, out); with
-        PQMF, the sub-bands synthesised to (pad_t * upsample_factor, 1)."""
+        PQMF, the sub-bands synthesised to (pad_t * upsample_factor, 1).
+        StyleMelGAN takes z (noise_len, in_channels) and edge-pads the mel
+        to noise_len * noise_upsample_factor frames first."""
         x = c.t()[None]
+        if self._style():
+            pad = z.shape[0] * self.generator.noise_upsample_factor - c.shape[0]
+            x = F.pad(x, (0, pad), mode="replicate")
+            return self.generator(x, z.t()[None])[0].t()
         if not getattr(self.generator, "requires_noise_input", False):
             y = self.generator(x).transpose(1, 2)
             if self.pqmf is not None:
@@ -92,15 +106,23 @@ class InferenceModel:
             c = (c - self.mean) / self.scale
         t = c.shape[0]
         up = self.upsample_factor
-        pad_t = -(-t // self.BUCKET) * self.BUCKET
+        style = self._style()
+        if style:  # the mel is padded to the noise length in forward_padded
+            nuf = self.generator.noise_upsample_factor
+            noise_len = -(-((t - 1) // nuf + 1) // 4) * 4
+            pad_t = t
+        else:
+            pad_t = -(-t // self.BUCKET) * self.BUCKET
         c_p = np.pad(c, ((0, pad_t - t), (0, 0)), mode="edge")
         c_p = torch.from_numpy(np.ascontiguousarray(c_p)).to(self.device)
         z = None
-        if getattr(self.generator, "requires_noise_input", False):
+        if style or getattr(self.generator, "requires_noise_input", False):
             if rng is None:
                 rng = torch.Generator(device=self.device)
                 rng.manual_seed(int(np.random.randint(2**31)))
-            z = torch.randn(pad_t * up, generator=rng, device=self.device)
+            shape = ((noise_len, self.generator.in_channels) if style
+                     else (pad_t * up,))
+            z = torch.randn(shape, generator=rng, device=self.device)
         y = self.forward_padded(c_p, z)
         return y.cpu().numpy()[: t * up]
 

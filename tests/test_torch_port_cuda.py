@@ -1,8 +1,8 @@
 """The port's CUDA kernels on a CUDA device, against their plain versions:
 the fused HiFi-GAN tail, the fused WaveNet layer (stack and block), the
-MelGAN stack kernel (K6) and the MRF stage on the residual-unit kernel
-(K2). The generator tests also check that no CUDA tensor reaches a plain
-version on the main path.
+MelGAN stack kernel (K6), the MRF stage on the residual-unit kernel
+(K2) and the StyleMelGAN TADE kernels (K8a, K8b). The generator tests
+also check that no CUDA tensor reaches a plain version on the main path.
 
 These tests need an NVIDIA GPU with sm_90a (Hopper) and nvcc; elsewhere
 they skip. They import no JAX, so they run on a machine that has only
@@ -20,6 +20,7 @@ torch = pytest.importorskip("torch")
 from parallelwavegan_tpu_torch.models import get_model_class  # noqa: E402
 from parallelwavegan_tpu_torch.ops.kernels import hifigan_mrf as mrf_mod  # noqa: E402
 from parallelwavegan_tpu_torch.ops.kernels import melgan_stack as stack_mod  # noqa: E402
+from parallelwavegan_tpu_torch.ops.kernels import tade_decode as tade_mod  # noqa: E402
 from parallelwavegan_tpu_torch.ops.kernels.hifigan_tail import (  # noqa: E402
     fused_hifigan_tail,
     hifigan_tail_reference,
@@ -361,3 +362,112 @@ def test_mrf_kernel_rejects_unsupported_width(cuda):
     with pytest.raises(ValueError, match="MRF width 256"):
         mrf_mod.fused_hifigan_mrf(torch.zeros(1, 16, 256, device=cuda),
                                   gen.mrf_weights(0))
+
+
+def _tade_block(seed, scale=2, dilation=2, bias=True, aux=64):
+    rs = np.random.RandomState(seed)
+    out = {"scale": scale, "dilation": dilation}
+    for key in tade_mod.WEIGHT_KEYS:
+        cin = aux if key == "aux1" else 64
+        cout = 64 if key.startswith("aux") else 128
+        out[f"{key}_w"] = torch.from_numpy(
+            (rs.randn(9, cin, cout) / (9 * cin) ** 0.5).astype(np.float32))
+        out[f"{key}_b"] = torch.from_numpy(
+            ((rs.randn(cout) * 0.1) if bias else np.zeros(cout)).astype(np.float32))
+    return out
+
+
+def _tade_on(blk, device):
+    return {k: v.to(device) if torch.is_tensor(v) else v for k, v in blk.items()}
+
+
+def _tade_chain_reference(x, c, blocks, gated):
+    for blk in blocks:
+        x, c = tade_mod.tade_block_reference(x, c, blk, gated_function=gated)
+    return x, c
+
+
+# the ragged cases of chip_smoke.py: B=2, odd T, scales (2, 1), both gates,
+# no biases, T below one halo (12 rows), and dilations 1 and 4
+@pytest.mark.parametrize("b,t,gated,bias,dilation", [
+    (2, 1001, "softmax", True, 2), (2, 1001, "sigmoid", True, 2),
+    (1, 333, "softmax", False, 2), (2, 5, "softmax", True, 2),
+    (1, 130, "sigmoid", True, 1), (1, 200, "softmax", True, 4)])
+def test_tade_kernels_match_plain_version(cuda, b, t, gated, bias, dilation):
+    blocks = [_tade_on(_tade_block(s, scale=sc, dilation=dilation, bias=bias), cuda)
+              for s, sc in ((1, 2), (2, 1))]
+    rs = np.random.RandomState(3)
+    x = torch.from_numpy(rs.randn(b, t, 64).astype(np.float32)).to(cuda)
+    c = torch.from_numpy(rs.randn(b, t, 64).astype(np.float32)).to(cuda)
+    f = tade_mod.fused_tade_blocks
+    before = (f.calls, f.launches_k8a, f.launches_k8b)
+    with torch.inference_mode():
+        got = f(x, c, blocks, gated_function=gated, min_fused_t=1)
+        torch.cuda.synchronize()
+        want = _tade_chain_reference(x, c, blocks, gated)
+    assert (f.calls, f.launches_k8a, f.launches_k8b) == (
+        before[0] + 1, before[1] + 2, before[2] + 2)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == (b, 2 * t, 64)
+        torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-4)
+
+
+def test_tade_halves_match_plain_version(cuda):
+    blk = _tade_on(_tade_block(4), cuda)
+    rs = np.random.RandomState(5)
+    x, c = (torch.from_numpy(rs.randn(2, 777, 64).astype(np.float32)).to(cuda)
+            for _ in range(2))
+    with torch.inference_mode():
+        x2, a = tade_mod.tade1_cuda(x, c, blk)
+        x2r, ar = (v.contiguous() for v in tade_mod.tade1_reference(x, c, blk))
+        with pytest.raises(ValueError, match="contiguous"):
+            tade_mod.tade2_cuda(x, x2r, ar.transpose(1, 2).contiguous().transpose(1, 2),
+                                blk)
+        out, a2 = tade_mod.tade2_cuda(x, x2r, ar, blk)
+        outr, a2r = tade_mod.tade2_reference(x, x2r, ar, blk)
+    torch.cuda.synchronize()
+    for g, w in ((x2, x2r), (a, ar), (out, outr), (a2, a2r)):
+        torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-4)
+
+
+def test_style_melgan_generator_through_the_kernels(cuda, monkeypatch):
+    cls = get_model_class("StyleMelGANGenerator")
+    small = dict(in_channels=32, aux_channels=80, noise_upsample_scales=(11, 2),
+                 upsample_scales=(2, 2, 2, 1))
+    plain = cls(**small, generator=torch.Generator().manual_seed(4))
+    gen = cls(**small, use_pallas_tade=True, pallas_tade_min_t=100)
+    gen.load_state_dict(plain.state_dict())
+    for m in (plain, gen):
+        m.remove_weight_norm()
+        m.eval().to(cuda)
+    gen.prepare_kernels()
+    c = torch.randn(1, 80, 88, generator=torch.Generator().manual_seed(5)).to(cuda)
+    z = torch.randn(1, 32, 4, generator=torch.Generator().manual_seed(6)).to(cuda)
+    f = tade_mod.fused_tade_blocks
+    with torch.inference_mode():
+        want = plain(c, z)
+        _refuse(monkeypatch, tade_mod, "tade_block_reference")
+        before = (f.launches_k8a, f.launches_k8b)
+        got = gen(c, z)  # block inputs 88, 176, 352, 704: blocks 1-3 gated
+    torch.cuda.synchronize()
+    assert (f.launches_k8a, f.launches_k8b) == (before[0] + 3, before[1] + 3)
+    assert got.shape == want.shape == (1, 1, 88 * 8)
+    assert float((got - want).abs().max()) <= 2e-4
+
+
+def test_tade_kernels_reject_unsupported_input(cuda):
+    blk = _tade_on(_tade_block(6), cuda)
+    x = torch.zeros(1, 64, 64, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        tade_mod.fused_tade_blocks(x.double(), x.double(), [blk], min_fused_t=1)
+    with pytest.raises(ValueError, match="width 64 only"):
+        tade_mod.fused_tade_blocks(torch.zeros(1, 64, 32, device=cuda), x, [blk],
+                                   min_fused_t=1)
+    with pytest.raises(ValueError, match="scale 4"):
+        tade_mod.fused_tade_blocks(x, x, [dict(blk, scale=4)], min_fused_t=1)
+    with pytest.raises(ValueError, match="contiguous"):
+        tade_mod.fused_tade_blocks(torch.zeros(1, 64, 64, device=cuda).transpose(1, 2),
+                                   x, [blk], min_fused_t=1)
+    w = dict(blk, gc1_w=blk["gc1_w"].clone().requires_grad_(True))
+    with pytest.raises(RuntimeError, match="inference-only"):
+        tade_mod.fused_tade_blocks(x, x, [w], min_fused_t=1)

@@ -107,7 +107,7 @@ def test_every_kernel_entry_point_has_a_ctypes_signature():
     for src in build.sources():
         exported.update(_exported(src))
     assert {"hifigan_resunits", "hifigan_mean", "wavenet_layer",
-            "melgan_stack", "melgan_outconv"} <= set(exported)
+            "melgan_stack", "melgan_outconv", "tade1", "tade2"} <= set(exported)
     assert set(exported) == set(build._SIGNATURES) | {"hifigan_error_string"}
     for name, argtypes in build._SIGNATURES.items():
         assert len(argtypes) == exported[name], name
