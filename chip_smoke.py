@@ -65,6 +65,25 @@ Phases (any failure exits non-zero; nothing is caught):
    ``use_pallas_tade: true`` (6 + 5 + 5 = 16 gated blocks: 16 launches
    each of K8a and K8b) and without, with the same noise; the WAVs agree
    to 2e-4.
+14. The WaveNet backward kernel (K4) against its plain version (autograd
+   through the plain stack): the gradients of one PWG v1 dilation cycle
+   (10 layers in two 5-layer calls) at the v1 training shapes (B=6,
+   T=25600) under the loss of tests/test_wavenet_stack_train.py:55-59, a
+   ragged case (B=2, T=1000, the d=512 halo past both ends) and one
+   without biases, |diff| <= 2e-4 + 1e-3 |plain| on dx, dc and every
+   weight gradient; two runs compared bit for bit; CUDA-event times of the
+   cycle's backward beside its plain version and bound.
+15. The split of one PWG v1 train step (B=6, T=25600) with the kernels and
+   without: G forward, G losses, G backward, G optimizer step, the D
+   phase's G re-run and D update, and whole ``TrainStep`` calls (steps/s).
+16. PWG v1 training through ``bin/train.main``: the shipped config at full
+   width (V1_PWG_CONFIG with TRAIN_OVERRIDES: 4 steps, D from step 4,
+   saves at 2 and 4, an eval at 4) on an npy dump of 8 synthetic
+   utterances (150-300 frames, features from ``ops/mel.py``), with the
+   kernels (K4: 30 launches per G step) and with ``use_pallas_stack_train:
+   false``; the logged losses agree to 1e-4 relative at every step; a
+   ``--resume`` from the step-2 checkpoint reproduces steps 3-4 to 1e-4;
+   the final checkpoint decodes through ``bin/decode.main``.
 
 Phase 3 also decodes HiFi-GAN v1 with ``use_pallas_mrf: true`` in the
 config (K2 called twice per utterance, stages 2 and 3, 8 launches) and
@@ -115,6 +134,38 @@ V1_PWG_GENERATOR = dict(
     upsample_params={"upsample_scales": [4, 4, 4, 4]},
     use_pallas_stack_train=True,
 )
+# the rest of egs/ljspeech/voc1/conf/parallel_wavegan.v1.yaml (a test holds
+# the whole equal to it)
+V1_PWG_CONFIG = dict(
+    V1_FEATURES, global_gain_scale=1.0, trim_silence=True,
+    trim_threshold_in_db=60, trim_frame_size=2048, trim_hop_size=512,
+    format="hdf5", generator_params=V1_PWG_GENERATOR,
+    discriminator_params=dict(
+        in_channels=1, out_channels=1, kernel_size=3, layers=10,
+        conv_channels=64, bias=True, use_weight_norm=True,
+        nonlinear_activation="LeakyReLU",
+        nonlinear_activation_params={"negative_slope": 0.2}),
+    stft_loss_params=dict(fft_sizes=[1024, 2048, 512], hop_sizes=[120, 240, 50],
+                          win_lengths=[600, 1200, 240], window="hann_window"),
+    lambda_adv=4.0, batch_size=6, batch_max_steps=25600, pin_memory=True,
+    num_workers=2, remove_short_samples=True, allow_cache=True,
+    generator_optimizer_params=dict(lr=1.0e-4, eps=1.0e-6, weight_decay=0.0),
+    generator_scheduler_params=dict(step_size=200000, gamma=0.5),
+    generator_grad_norm=10,
+    discriminator_optimizer_params=dict(lr=5.0e-5, eps=1.0e-6, weight_decay=0.0),
+    discriminator_scheduler_params=dict(step_size=200000, gamma=0.5),
+    discriminator_grad_norm=1, discriminator_train_start_steps=100000,
+    train_max_steps=400000, save_interval_steps=5000, eval_interval_steps=1000,
+    log_interval_steps=100, num_save_intermediate_results=4,
+    generator_type="ParallelWaveGANGenerator",
+    discriminator_type="ParallelWaveGANDiscriminator",
+)
+# what phase 16 changes in it: npy dumps, 4 steps with D from step 4, a
+# save at 2 and 4, an eval at 4, every step logged
+TRAIN_OVERRIDES = dict(format="npy", train_max_steps=4,
+                       discriminator_train_start_steps=2, save_interval_steps=2,
+                       eval_interval_steps=4, log_interval_steps=1)
+TRAIN_UTTS = 8
 # egs/ljspeech/voc1/conf/multi_band_melgan.v2.yaml (a test holds these equal to it)
 V2_MB_GENERATOR = dict(
     in_channels=80, out_channels=4, kernel_size=7, channels=384,
@@ -184,7 +235,12 @@ def _reset_launch_counts() -> None:
         fused_wavenet_stack,
     )
 
-    for fn in (fused_hifigan_tail, fused_wavenet_stack, fused_gated_resblock):
+    from parallelwavegan_tpu_torch.ops.kernels.wavenet_train import (
+        wavenet_stack_backward,
+    )
+
+    for fn in (fused_hifigan_tail, fused_wavenet_stack, fused_gated_resblock,
+               wavenet_stack_backward):
         fn.launches = 0
     from parallelwavegan_tpu_torch.ops.kernels.tade_decode import (
         fused_tade_blocks,
@@ -1121,6 +1177,399 @@ def phase_style_decode(card: str) -> dict:
             "err": err}
 
 
+def _k4_work(x, c, w) -> dict:
+    """Operations and bytes that ``wavenet_stack_backward`` on one chunk of
+    L layers needs: each layer's z once, the residual product of the
+    first L - 1 layers (the inputs of the later ones), and the backward
+    products of all L (dg, the transposed conv, dc and the weight
+    gradients). Work the kernel does beyond that (z computed again in the
+    backward, the re-run's skip product) is not counted."""
+    b, t, cr = x.shape
+    n, k, _, cg = w["wconv"].shape
+    ca, h = c.shape[2], cg // 2
+    z = k * cr * cg + ca * cg
+    # dg (res and skip), transposed conv, dc, dwconv + dwaux, dwskip + dwres
+    bwd = 2 * h * cr + k * cg * cr + cg * ca + z + 2 * h * cr
+    weights = sum(v.numel() for v in w.values())
+    # in: x, c, dxo, dsk, weights; out: dx, dc, the weight gradients
+    nbytes = 4 * (2 * (x.numel() + c.numel()) + 2 * x.numel() + 2 * weights)
+    return _bound(2.0 * b * t * (n * (z + bwd) + (n - 1) * h * cr), nbytes)
+
+
+def phase_k4(card: str) -> dict:
+    """K4 against its plain version: the gradients of one v1 dilation cycle
+    (10 layers in two 5-layer calls) at the v1 training shapes (B=6,
+    T=25600), a ragged case (B=2, T=1000, the d=512 halo past both ends)
+    and one without biases, under the loss of
+    tests/test_wavenet_stack_train.py:55-59 scaled so that every gradient
+    is well above the tolerance's absolute term, with controls that the
+    check must reject; then two runs of the backward
+    compared bit for bit, and the backward of the cycle's two chunks timed
+    beside its plain version."""
+    import numpy as np
+    import torch
+
+    from parallelwavegan_tpu_torch.ops.kernels.wavenet import (
+        WEIGHT_KEYS,
+        wavenet_stack_reference,
+    )
+    from parallelwavegan_tpu_torch.ops.kernels.wavenet_train import (
+        fused_wavenet_cycle_train,
+        wavenet_stack_backward,
+        wavenet_stack_backward_reference,
+    )
+
+    n = V1_PWG_GENERATOR["layers"] // V1_PWG_GENERATOR["stacks"]
+    with torch.no_grad():
+        all_weights, all_dilations = _pwg_v1({}).stack_weights()
+    weights = {k: v[:n].contiguous() for k, v in all_weights.items()}
+    dils = all_dilations[:n]
+    no_bias = {k: torch.zeros_like(v) if k.startswith("b") else v
+               for k, v in weights.items()}
+    rs = np.random.RandomState(SEED)
+
+    def randn(*shape):
+        return torch.from_numpy(rs.randn(*shape).astype(np.float32)).to("cuda")
+
+    def grads(x, c, w, kernel: bool):
+        xv, cv = x.clone().requires_grad_(), c.clone().requires_grad_()
+        wv = {k: w[k].clone().requires_grad_() for k in WEIGHT_KEYS}
+        if kernel:
+            xo, sk = fused_wavenet_cycle_train(xv, cv, wv, dils, max_layers_per_call=5)
+        else:
+            xo, sk = wavenet_stack_reference(xv, cv, wv, dils)
+        # the loss of tests/test_wavenet_stack_train.py:55-59 times
+        # C sqrt(B T): cotangents of order 1 / sqrt(B T), so dx and dc lie
+        # well above the tolerance's 2e-4 and the weight gradients are of
+        # order one at every (B, T)
+        b, t, ch = x.shape
+        loss = ((xo ** 2).mean() + 0.5 * (sk ** 2).mean()) * ch * (b * t) ** 0.5
+        g = torch.autograd.grad(loss, [xv, cv, *(wv[k] for k in WEIGHT_KEYS)])
+        return dict(zip(("dx", "dc") + WEIGHT_KEYS, g))
+
+    def agrees(g, r) -> bool:
+        """The JAX test's |diff| <= 2e-4 + 1e-3 |plain| at every element, and
+        max|diff| <= 1e-4 max|plain|, which holds at any scale of the
+        gradient."""
+        d = (g - r).abs()
+        return bool((d <= TOL + 1e-3 * r.abs()).all()) and (
+            float(d.max()) <= 1e-4 * float(r.abs().max()))
+
+    rec = {"errs": []}
+    for name, (b, t), w in (("v1 cycle B=6 T=25600", (6, 25600), weights),
+                            ("ragged B=2 T=1000", (2, 1000), weights),
+                            ("no biases B=1 T=3000", (1, 3000), no_bias)):
+        x, c = randn(b, t, 64), randn(b, t, 80)
+        got = grads(x, c, w, True)
+        torch.cuda.synchronize()
+        want = grads(x, c, w, False)
+        for key in got:
+            g, r = got[key], want[key]
+            if g.shape != r.shape or not torch.isfinite(g).all():
+                _fail(f"K4 {name} {key}: shapes {tuple(g.shape)} vs "
+                      f"{tuple(r.shape)} or non-finite gradient")
+            err = float((g - r).abs().max())
+            rel = err / max(float(r.abs().max()), 1e-30)
+            print(f"K4 vs plain [{name}] {key}: max|diff| = {err:.3e}, max|plain| "
+                  f"= {float(r.abs().max()):.3e}, max|diff| / max|plain| = {rel:.3e} "
+                  f"(|diff| <= {TOL} + 1e-3 |plain| and max|diff| <= 1e-4 max|plain|)")
+            if not agrees(g, r):
+                _fail(f"K4 {name} {key}: kernel disagrees with its plain version")
+            rec["errs"].append(err)
+        if b == 6:
+            # controls at the v1 shapes: wrong gradients that the check must reject
+            dx = want["dx"]
+            controls = {f"{key} zeroed": (torch.zeros_like(r), r)
+                        for key, r in want.items()}
+            controls["dx moved 1 % toward its one-sample shift"] = (
+                dx + 0.01 * (dx.roll(1, 1) - dx), dx)
+            missed = [k for k, (g, r) in controls.items() if agrees(g, r)]
+            print(f"K4 check controls [{name}]: {len(controls) - len(missed)} of "
+                  f"{len(controls)} wrong gradients rejected")
+            if missed:
+                _fail(f"K4's check accepts wrong gradients: {missed}")
+
+    x, c = randn(6, 25600, 64), randn(6, 25600, 80)
+    dxo, dsk = randn(6, 25600, 64) * 1e-3, randn(6, 25600, 64) * 1e-3
+    chunks = [({k: v[s:s + 5] for k, v in weights.items()}, dils[s:s + 5])
+              for s in (0, 5)]
+    first = wavenet_stack_backward(x, c, *chunks[0], dxo, dsk)
+    second = wavenet_stack_backward(x, c, *chunks[0], dxo, dsk)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(first[:2], second[:2])) and all(
+        torch.equal(first[2][k], second[2][k]) for k in WEIGHT_KEYS)
+    print(f"K4 determinism: two runs of a v1 chunk bitwise equal = {same}")
+    if not same:
+        _fail("K4 gives different gradients in two runs")
+    for i, (w, d) in enumerate(chunks):
+        _timed(rec, f"K4 chunk {i} (layers {5 * i}-{5 * i + 4}) B=6 T=25600", card,
+               lambda: wavenet_stack_backward(x, c, w, d, dxo, dsk),
+               lambda: wavenet_stack_backward_reference(x, c, w, d, dxo, dsk),
+               _k4_work(x, c, w))
+    print(f"K4 per v1 cycle backward (two 5-layer calls, B=6 T=25600): kernel "
+          f"{rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, bound "
+          f"{rec['bound_ms']:.3f} ms on {card}")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wavenet_stack_backward(x, c, *chunks[0], dxo, dsk)
+        torch.cuda.synchronize()
+    names = ("wavenet_layer_kernel", "dz_kernel", "wgrad_partial_kernel",
+             "wgrad_reduce_kernel", "dx_kernel")
+    split = {n: [0.0, 0] for n in names + ("other",)}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", 0) or 0
+        if us > 0:
+            part = split[next((n for n in names if n in ev.key), "other")]
+            part[0] += us / 1e3
+            part[1] += ev.count
+    print(f"K4 chunk 0 device time by kernel (torch.profiler, one call; "
+          f"wavenet_layer_kernel is K3's re-run of layers 0-3) on {card}: "
+          + "; ".join(f"{n} {ms:.3f} ms ({k} launches)" for n, (ms, k) in split.items()))
+    return rec
+
+
+def _pwg_v1_config(kernel: bool, **overrides) -> dict:
+    """A fresh copy of the PWG v1 training config, with or without the
+    stack kernels, and with ``overrides``."""
+    cfg = json.loads(json.dumps(V1_PWG_CONFIG))
+    cfg["generator_params"]["use_pallas_stack_train"] = kernel
+    cfg.update(overrides)
+    return cfg
+
+
+def phase_train_split(card: str) -> None:
+    """Where one PWG v1 train step (B=6, T=25600, G and D phases) spends its
+    time, with the 30 layers through K3/K4 and through the plain path:
+    CUDA events between the parts of the step (median of 5 after two
+    warm-ups), then whole ``TrainStep`` calls on the host clock with a
+    synchronise (G-only and G+D steps/s)."""
+    import torch
+
+    from parallelwavegan_tpu_torch.models import get_model_class
+    from parallelwavegan_tpu_torch.optimizers import build_optimizer_from_config
+    from parallelwavegan_tpu_torch.train.criterion import build_criterion
+    from parallelwavegan_tpu_torch.train.step import TrainStep
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    b, t = V1_PWG_CONFIG["batch_size"], V1_PWG_CONFIG["batch_max_steps"]
+    frames = t // V1_PWG_CONFIG["hop_size"] + 2 * V1_PWG_GENERATOR["aux_context_window"]
+    batch = {"y": 0.3 * torch.randn(b, 1, t, generator=g, device="cuda"),
+             "z": torch.randn(b, 1, t, generator=g, device="cuda"),
+             "c": torch.randn(b, 80, frames, generator=g, device="cuda")}
+    parts = ("G forward", "G losses (STFT + D adversarial)", "G backward",
+             "G optimizer step", "D phase: G re-run, no grad",
+             "D phase: D forward, backward, step")
+    for name, kernel in (("kernel", True), ("plain", False)):
+        cfg = _pwg_v1_config(kernel)
+        init = torch.Generator().manual_seed(SEED)
+        gen = get_model_class(cfg["generator_type"])(
+            **cfg["generator_params"], generator=init).to("cuda")
+        dis = get_model_class(cfg["discriminator_type"])(
+            **cfg["discriminator_params"], generator=init).to("cuda")
+        crit = build_criterion(cfg)
+        opt_g = build_optimizer_from_config(cfg, "generator", gen.parameters())
+        opt_d = build_optimizer_from_config(cfg, "discriminator", dis.parameters())
+        g_params, d_params = list(gen.parameters()), list(dis.parameters())
+
+        def grads_of(loss, params):  # an unused parameter gets zeros, as in JAX
+            return [torch.zeros_like(p) if gr is None else gr for p, gr in zip(
+                params, torch.autograd.grad(loss, params, allow_unused=True))]
+
+        def update(opt, params, grads):
+            for p, gr in zip(params, grads):
+                p.grad = gr
+            opt.step()
+            for p in params:
+                p.grad = None
+
+        def staged():
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(parts) + 1)]
+            ev[0].record()
+            y_ = gen(batch["z"], batch["c"])
+            ev[1].record()
+            sc, mag = crit.stft(y_[:, 0], batch["y"][:, 0])
+            loss = (sc + mag) * crit.lambda_aux + crit.lambda_adv * crit.gen_adv(dis(y_))
+            ev[2].record()
+            grads = grads_of(loss, g_params)
+            ev[3].record()
+            update(opt_g, g_params, grads)
+            ev[4].record()
+            with torch.no_grad():
+                y_ = gen(batch["z"], batch["c"])
+            ev[5].record()
+            real, fake = crit.dis_adv(dis(y_), dis(batch["y"]))
+            update(opt_d, d_params, grads_of(real + fake, d_params))
+            ev[6].record()
+            torch.cuda.synchronize()
+            return [ev[i].elapsed_time(ev[i + 1]) for i in range(len(parts))]
+
+        staged()
+        staged()
+        runs = [staged() for _ in range(5)]
+        split = {p: statistics.median(r[i] for r in runs) for i, p in enumerate(parts)}
+        step = TrainStep(cfg, gen, dis, crit, opt_g, opt_d)
+        rate = {}
+        for phase, flags in (("G-only", (True, False)), ("G+D", (True, True))):
+            times = []
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(batch, *flags)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            rate[phase] = 1.0 / statistics.median(times[1:])
+        print(f"PWG v1 train step split [{name}], B={b} T={t}, median of 5, CUDA "
+              f"events, on {card}: "
+              + "; ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+              + f"; sum {sum(split.values()):.3f} ms; TrainStep: G-only "
+              f"{rate['G-only']:.3f} steps/s, G+D {rate['G+D']:.3f} steps/s "
+              f"(median of 3 after one, host clock); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        del gen, dis, opt_g, opt_d, step, g_params, d_params
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _write_train_dump(root: str) -> str:
+    """An npy dump of TRAIN_UTTS synthetic utterances (150-300 frames):
+    ``*-wave.npy`` and ``*-feats.npy`` from the port's ``ops/mel.py``."""
+    import numpy as np
+
+    from parallelwavegan_tpu_torch.ops.mel import logmelfilterbank
+
+    dump = os.path.join(root, "dump")
+    os.makedirs(dump)
+    rs = np.random.RandomState(SEED)
+    hop, fs = V1_FEATURES["hop_size"], V1_FEATURES["sampling_rate"]
+    feats = {k: v for k, v in V1_FEATURES.items() if k != "sampling_rate"}
+    for i in range(TRAIN_UTTS):
+        frames = 150 + 150 * i // (TRAIN_UTTS - 1)
+        n = frames * hop
+        t = np.arange(n) / fs
+        audio = (0.3 * np.sin(2 * np.pi * (110.0 + 20.0 * i) * t)
+                 + 0.05 * rs.randn(n)).astype(np.float32)
+        mel = logmelfilterbank(audio, fs, **feats)[:frames]
+        np.save(os.path.join(dump, f"utt{i}-wave.npy"), audio)
+        np.save(os.path.join(dump, f"utt{i}-feats.npy"), mel.astype(np.float32))
+    return dump
+
+
+def _losses_agree(name: str, got: dict, want: dict, steps) -> float:
+    """max relative difference of every logged training loss at ``steps``;
+    fails on a missing step or metric or a difference above 1e-4."""
+    worst = 0.0
+    for s in steps:
+        if s not in got or s not in want or sorted(got[s]) != sorted(want[s]):
+            _fail(f"{name}: logged steps or metrics differ at step {s}")
+        for key, v in want[s].items():
+            rel = abs(got[s][key] - v) / max(abs(v), 1e-30)
+            if not rel <= 1e-4:
+                _fail(f"{name}: step {s} {key} = {got[s][key]!r} vs {v!r}")
+            worst = max(worst, rel)
+    return worst
+
+
+def phase_train(card: str) -> dict:
+    """PWG v1 training through ``bin/train.main`` on the card: the v1 config
+    at full width with TRAIN_OVERRIDES, from SEED, with the kernels and
+    again without; then a resume from the step-2 checkpoint, and a decode
+    of the final checkpoint through ``bin/decode.main``."""
+    import numpy as np
+
+    from parallelwavegan_tpu_torch.bin import decode, train
+    from parallelwavegan_tpu_torch.ops.kernels.wavenet import fused_wavenet_stack
+    from parallelwavegan_tpu_torch.ops.kernels.wavenet_train import (
+        wavenet_stack_backward,
+    )
+
+    root = os.path.join(WORK, "train")
+    shutil.rmtree(root, ignore_errors=True)
+    dump = _write_train_dump(root)
+    configs = {}
+    for name, kernel in (("kernel", True), ("plain", False)):
+        configs[name] = os.path.join(root, f"pwg_v1_{name}.json")
+        with open(configs[name], "w") as f:
+            json.dump(_pwg_v1_config(kernel, **TRAIN_OVERRIDES), f)
+
+    steps = TRAIN_OVERRIDES["train_max_steps"]
+    layers = V1_PWG_GENERATOR["layers"]
+    per_call = 5  # pallas_stack_train_layers_per_call's default
+    # K3: every G forward (30 layers), the re-run inside each backward (the
+    # first 4 layers of each 5-layer chunk), the D phase's G re-run, the
+    # eval batch and its dumped predictions; K4: one launch per layer of
+    # every G backward
+    g_steps = {"kernel": steps, "resume": steps - 2}
+    # D trains where the steps done before the step exceed its start (step 4)
+    d_steps = steps - TRAIN_OVERRIDES["discriminator_train_start_steps"] - 1
+    expect = {"plain": (0, 0)}
+    for name, n in g_steps.items():
+        k3 = n * (layers + layers // per_call * (per_call - 1)) + (d_steps + 2) * layers
+        expect[name] = (k3, n * layers)
+    res, launches = {}, {}
+    for name, extra in (("kernel", []), ("plain", []),
+                        ("resume", ["--resume", os.path.join(
+                            root, "exp_kernel", "checkpoint-2steps.pkl")])):
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        res[name] = train.main(
+            ["--train-dumpdir", dump, "--dev-dumpdir", dump, "--outdir",
+             os.path.join(root, f"exp_{name}"), "--device", "cuda", "--verbose", "0",
+             "--config", configs["plain" if name == "plain" else "kernel"]] + extra)
+        seconds = time.perf_counter() - t0
+        launches[name] = (fused_wavenet_stack.launches, wavenet_stack_backward.launches)
+        print(f"main path [PWG v1 training, {name}]: {res[name]['steps']} steps in "
+              f"{seconds:.1f} s (set-up, eval and saves included) on {card}; "
+              f"K3 launches = {launches[name][0]}, K4 launches = {launches[name][1]}")
+        if res[name]["steps"] != steps or launches[name] != expect[name]:
+            _fail(f"PWG training {name}: steps {res[name]['steps']}, launches "
+                  f"{launches[name]}, expected {steps} and {expect[name]}")
+
+    logged = {name: {s: {k: v for k, v in m.items() if k.startswith("train/")}
+                     for s, m in r["history"] if "train/generator_loss" in m}
+              for name, r in res.items()}
+    for s, m in logged["kernel"].items():
+        print(f"  step {s}: " + ", ".join(f"{k} {v:.6f}" for k, v in sorted(m.items())))
+        if not all(np.isfinite(v) for v in m.values()):
+            _fail(f"PWG training: non-finite loss at step {s}")
+    if "train/discriminator_loss" not in logged["kernel"].get(steps, {}):
+        _fail("PWG training: the D phase did not run")
+    if not any("eval/generator_loss" in m for _, m in res["kernel"]["history"]):
+        _fail("PWG training: no evaluation was logged")
+    err = _losses_agree("kernel vs plain", logged["kernel"], logged["plain"],
+                        range(1, steps + 1))
+    print(f"PWG training losses, kernel vs plain: max relative diff = {err:.3e} "
+          f"over steps 1-{steps} (tol 1e-4)")
+    if sorted(logged["resume"]) != [3, 4]:
+        _fail(f"PWG resume logged steps {sorted(logged['resume'])}, expected [3, 4]")
+    err_resume = _losses_agree("resume vs uninterrupted", logged["resume"],
+                               logged["kernel"], (3, 4))
+    print(f"PWG training resumed from step 2 vs uninterrupted: max relative diff "
+          f"= {err_resume:.3e} over steps 3-4 (tol 1e-4)")
+
+    _reset_launch_counts()
+    wavdir = os.path.join(root, "wav")
+    decode.main(["--dumpdir", dump, "--outdir", wavdir, "--device", "cuda",
+                 "--checkpoint", os.path.join(root, "exp_kernel",
+                                              f"checkpoint-{steps}steps.pkl")])
+    from scipy.io import wavfile
+
+    wavs = sorted(os.listdir(wavdir))
+    if len(wavs) != TRAIN_UTTS or fused_wavenet_stack.launches != TRAIN_UTTS * layers:
+        _fail(f"decode of the trained checkpoint: {wavs}, K3 launches "
+              f"{fused_wavenet_stack.launches}")
+    for name in wavs:
+        _, data = wavfile.read(os.path.join(wavdir, name))
+        frames = np.load(os.path.join(dump, name.replace("_gen.wav", ".npy"))).shape[0]
+        if data.shape != (frames * V1_FEATURES["hop_size"],) or not data.any():
+            _fail(f"decode of the trained checkpoint: {name} {data.shape}")
+    print(f"decode of the step-{steps} checkpoint through bin/decode: "
+          f"{len(wavs)} utterances, K3 launches {fused_wavenet_stack.launches}")
+    shutil.rmtree(root)
+    return {"k4_launches": launches["kernel"][1], "err": err}
+
+
 def main() -> None:
     pkg = os.path.join(ROOT, "parallelwavegan_tpu_torch")
     if not os.path.isdir(pkg):
@@ -1183,6 +1632,12 @@ def main() -> None:
     torch.cuda.synchronize()
     style = phase_style_decode(card)
     torch.cuda.synchronize()
+    k4 = phase_k4(card)
+    torch.cuda.synchronize()
+    phase_train_split(card)
+    torch.cuda.synchronize()
+    pwg_train = phase_train(card)
+    torch.cuda.synchronize()
     shutil.rmtree(WORK, ignore_errors=True)
 
     def entry(name, source, replaces, launches, rec):
@@ -1211,6 +1666,8 @@ def main() -> None:
               style["k8a_launches"], k8["k8a"]),
         entry("fused_tade_blocks (K8b)", "tade.cu", "tade_decode.py:437",
               style["k8b_launches"], k8["k8b"]),
+        entry("wavenet_stack_backward (K4)", "wavenet_bwd.cu",
+              "wavenet_stack_train.py:187", pwg_train["k4_launches"], k4),
     ]}
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_main:.1f} s "
           f"(build included) on {card}")

@@ -1,0 +1,189 @@
+"""Training CLI of the port (counterpart of parallelwavegan_tpu/bin/train.py:43-375).
+
+Trains a generator and discriminator from dump directories on
+``--device`` (the GPU unless ``--device cpu`` is given; without a card it
+raises), writing ``config.yml`` and ``checkpoint-{steps}steps.pkl`` files
+in upstream's layout to ``--outdir``:
+
+    python -m parallelwavegan_tpu_torch.bin.train --train-dumpdir DUMP \
+        --dev-dumpdir DEV --outdir OUT --config CONF.json [--resume CKPT] \
+        [--pretrain CKPT] [--device cuda]
+
+The config is ``.json``, or YAML where PyYAML imports; ``format: npy``
+reads ``*-wave.npy`` / ``*-feats.npy`` pairs and ``hdf5`` needs h5py.
+Ported so far: Parallel WaveGAN (generator and ``ParallelWaveGANDiscriminator``,
+the STFT and adversarial losses, RAdam or Adam); with
+``use_pallas_stack_train`` its gated layers train through the K3 and K4
+kernels on the card. ``--resume`` restores the models, the optimizers,
+the step count and the data stream's position; ``--pretrain`` the model
+weights only. Not ported yet, and refused with ``NotImplementedError``
+(ROADMAP.md): ``mixed_precision``, ``distributed``, scp datasets and the
+other families and conditioning inputs. float32 convolutions and matmuls
+run without TF32, as the JAX package computes in full float32.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import sys
+
+import numpy as np
+import torch
+
+import parallelwavegan_tpu_torch
+from parallelwavegan_tpu_torch.data.collater import Collater
+from parallelwavegan_tpu_torch.data.datasets import AudioMelDataset
+from parallelwavegan_tpu_torch.data.loader import DataLoader
+from parallelwavegan_tpu_torch.models import get_model_class
+from parallelwavegan_tpu_torch.optimizers import build_optimizer_from_config
+from parallelwavegan_tpu_torch.train.criterion import build_criterion
+from parallelwavegan_tpu_torch.train.trainer import Trainer
+from parallelwavegan_tpu_torch.utils.config import load_config, write_config
+from parallelwavegan_tpu_torch.utils.io import read_hdf5
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to parallelwavegan_tpu_torch yet; see ROADMAP.md")
+
+
+def feature_flags(config: dict) -> dict:
+    """Input-feature flags from generator_type (train.py:1109-1117)."""
+    generator_type = config.get("generator_type", "ParallelWaveGANGenerator")
+    return {
+        "use_noise_input": (
+            "ParallelWaveGAN" in generator_type and "VQVAE" not in generator_type),
+        "use_aux_input": "VQVAE" not in generator_type,
+        "use_duration": "Duration" in generator_type,
+        "use_f0_and_excitation": generator_type == "UHiFiGANGenerator",
+        "use_local_condition": config.get("use_local_condition", False),
+        "use_global_condition": config.get("use_global_condition", False),
+    }
+
+
+def build_dataset(config: dict, args, split: str) -> AudioMelDataset:
+    """The (audio, mel) dataset of one split's dump directory."""
+    if getattr(args, f"{split}_dumpdir") is None:
+        raise ValueError(f"--{split}-dumpdir is required")
+    hop_size = config["hop_size"]
+    win = config["generator_params"].get("aux_context_window", 0)
+    mel_threshold = config["batch_max_steps"] // hop_size + 2 * win
+    if config.get("format", "hdf5") == "hdf5":
+        kw = dict(audio_query="*.h5", mel_query="*.h5",
+                  audio_load_fn=lambda x: read_hdf5(x, "wave"),
+                  mel_load_fn=lambda x: read_hdf5(x, "feats"))
+    else:
+        kw = dict(audio_query="*-wave.npy", mel_query="*-feats.npy",
+                  audio_load_fn=np.load, mel_load_fn=np.load)
+    return AudioMelDataset(
+        getattr(args, f"{split}_dumpdir"),
+        mel_length_threshold=mel_threshold
+        if config.get("remove_short_samples", False) else None,
+        allow_cache=config.get("allow_cache", False), **kw)
+
+
+def main(argv=None) -> dict:
+    """Run the training; returns {"steps": n, "history": [(steps, {metric:
+    mean}), ...]} of the log and eval intervals."""
+    parser = argparse.ArgumentParser(description="Train a vocoder (PyTorch/CUDA).")
+    for split in ("train", "dev"):
+        parser.add_argument(f"--{split}-wav-scp", default=None, type=str)
+        parser.add_argument(f"--{split}-feats-scp", default=None, type=str)
+        parser.add_argument(f"--{split}-segments", default=None, type=str)
+        parser.add_argument(f"--{split}-dumpdir", default=None, type=str)
+    parser.add_argument("--outdir", type=str, required=True)
+    parser.add_argument("--config", type=str, required=True)
+    parser.add_argument("--pretrain", default="", type=str)
+    parser.add_argument("--resume", default="", type=str)
+    parser.add_argument("--device", default="cuda", type=str)
+    parser.add_argument("--verbose", type=int, default=1)
+    args = parser.parse_args(argv)
+
+    logging.basicConfig(
+        level=logging.DEBUG if args.verbose > 1 else
+        (logging.INFO if args.verbose > 0 else logging.WARN),
+        format="%(asctime)s (%(module)s:%(lineno)d) %(levelname)s: %(message)s",
+        stream=sys.stdout)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda was given but no CUDA device is "
+                           "available: pass --device cpu to train on the CPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    config = load_config(args.config)
+    config.update(vars(args))
+    config["version"] = parallelwavegan_tpu_torch.__version__
+    for key, what in (("distributed", "distributed training"),
+                      ("mixed_precision", "mixed_precision")):
+        if config.get(key, False):
+            raise _not_ported(what)
+    if any(getattr(args, f"{split}_{kind}") for split in ("train", "dev")
+           for kind in ("wav_scp", "feats_scp", "segments")):
+        raise _not_ported("scp datasets (--*-wav-scp / --*-feats-scp / --*-segments)")
+    gen_type = config["generator_type"]
+    if gen_type != "ParallelWaveGANGenerator":
+        raise _not_ported(f"training {gen_type}")
+    flags = feature_flags(config)
+
+    os.makedirs(args.outdir, exist_ok=True)
+    write_config(os.path.join(args.outdir, "config.yml"), config)
+    for key, value in config.items():
+        logging.info("%s = %s", key, value)
+
+    seed = config.get("seed", 0)
+    train_dataset = build_dataset(config, args, "train")
+    logging.info("The number of training files = %d.", len(train_dataset))
+    dev_dataset = None
+    if args.dev_dumpdir is not None:
+        dev_dataset = build_dataset(config, args, "dev")
+        logging.info("The number of development files = %d.", len(dev_dataset))
+    collater = Collater(
+        batch_max_steps=config["batch_max_steps"], hop_size=config["hop_size"],
+        aux_context_window=config["generator_params"].get("aux_context_window", 0),
+        use_noise_input=flags["use_noise_input"],
+        use_aux_input=flags["use_aux_input"], use_duration=flags["use_duration"],
+        use_f0_and_excitation=flags["use_f0_and_excitation"],
+        use_local_condition=flags["use_local_condition"],
+        use_global_condition=flags["use_global_condition"],
+        rng=np.random.default_rng(seed))
+    workers = config.get("num_workers", 1)
+    train_loader = DataLoader(train_dataset, collater, batch_size=config["batch_size"],
+                              shuffle=True, seed=seed, num_workers=workers)
+    dev_loader = None
+    if dev_dataset is not None:
+        dev_loader = DataLoader(dev_dataset, collater, batch_size=config["batch_size"],
+                                shuffle=False, num_workers=workers)
+
+    init = torch.Generator().manual_seed(seed)
+    generator = get_model_class(gen_type)(
+        **config["generator_params"], generator=init).to(device)
+    discriminator = get_model_class(config["discriminator_type"])(
+        **config["discriminator_params"], generator=init).to(device)
+    for name, model in (("Generator", generator), ("Discriminator", discriminator)):
+        logging.info("%s parameters: %.2fM", name,
+                     sum(p.numel() for p in model.parameters()) / 1e6)
+    criterion = build_criterion(config)
+    opt_g = build_optimizer_from_config(config, "generator", generator.parameters())
+    opt_d = build_optimizer_from_config(config, "discriminator",
+                                        discriminator.parameters())
+    trainer = Trainer(config, generator, discriminator, criterion, opt_g, opt_d,
+                      train_loader, dev_loader, outdir=args.outdir, device=device)
+    if args.pretrain:
+        trainer.load_checkpoint(args.pretrain, load_only_params=True)
+        logging.info("Successfully loaded parameters from %s.", args.pretrain)
+    if args.resume:
+        trainer.load_checkpoint(args.resume)
+        train_loader.start_seq = trainer.steps
+        logging.info("Successfully resumed from %s.", args.resume)
+    try:
+        trainer.run()
+    except KeyboardInterrupt:
+        logging.info("Interrupted @ %d steps (checkpoint written).", trainer.steps)
+    return {"steps": trainer.steps, "history": trainer.history}
+
+
+if __name__ == "__main__":
+    main()

@@ -3,8 +3,9 @@
 The inverse of parallelwavegan_tpu/convert/torch_checkpoint.py:510
 ``_convert_tree`` for the models the port has: module paths go through
 the same name maps as ``_t_hifigan_g`` (:131), ``_make_t_melgan_g``
-(:153-207, non-causal), ``_make_t_pwg_g`` (:210-264) and
-``_t_style_melgan_g`` (:267-286) in reverse, conv
+(:153-207, non-causal), ``_make_t_pwg_g`` (:210-264),
+``_t_style_melgan_g`` (:267-286) and ``_make_t_pwg_d`` (:388-399) in
+reverse, conv
 kernels (K, Cin, Cout) are transposed to torch's (Cout, Cin, K)
 (``_CONV_PERM``), transposed-conv kernels (HiFi-GAN's ``upsamples_*``,
 MelGAN's deconv layers, StyleMelGAN's ``noise_upsample_*``: the
@@ -70,6 +71,23 @@ def _pwg_prefix(path) -> str:
         else:
             raise KeyError(f"pwg path segment {p!r}")
     return ".".join(out)
+
+
+def _pwg_d_map(model_params: dict):
+    """Flax path -> upstream prefix for ParallelWaveGANDiscriminator
+    (``_make_t_pwg_d``): ``conv_layers_{i}`` -> ``conv_layers.{2i}``,
+    ``last_conv`` -> ``conv_layers.{2(layers - 1)}``."""
+    layers = model_params.get("layers", 10)
+
+    def prefix(path) -> str:
+        (p,) = path
+        if p.startswith("conv_layers_"):
+            return f"conv_layers.{2 * _idx(p)}"
+        if p == "last_conv":
+            return f"conv_layers.{2 * (layers - 1)}"
+        raise KeyError(f"pwg-d path segment {p!r}")
+
+    return prefix
 
 
 # ResidualStack's flax names -> upstream's (non-causal)
@@ -140,8 +158,8 @@ def jax_params_to_state_dict(model_type: str, model_params: dict,
                              params) -> "OrderedDict[str, torch.Tensor]":
     """JAX params (``G.init(...)`` output or its ``"params"`` entry, with
     numpy or jax arrays as leaves) -> port state dict of float32 tensors.
-    ``model_type`` is a registered generator, ``"ResidualStack"`` or
-    ``"TADEResBlock"``."""
+    ``model_type`` is a registered generator or discriminator,
+    ``"ResidualStack"`` or ``"TADEResBlock"``."""
     if "params" in params:
         params = params["params"]
     deconvs = None  # MelGAN's deconv layer indices
@@ -162,6 +180,8 @@ def jax_params_to_state_dict(model_type: str, model_params: dict,
         prefix_of = _pwg_prefix
         up = model_params.get("upsample_params") or {}
         step = 3 if up.get("nonlinear_activation") is not None else 2
+    elif model_type == "ParallelWaveGANDiscriminator":
+        prefix_of = _pwg_d_map(model_params)
     else:
         raise NotImplementedError(
             f"{model_type} is not ported yet; see ROADMAP.md"

@@ -96,12 +96,14 @@ class WaveNetResidualBlock(nn.Module):
         x = (self.conv1x1_out(x) + residual) * math.sqrt(0.5)
         return x, s
 
-    def gather_weights(self) -> dict:
+    def gather_weights(self, differentiable: bool = False) -> dict:
         """Effective weights in the JAX gather form of ``collect_weights``
         (residual_block.py:126-176): wconv (K, C_r, C_g), bconv (C_g), waux
         (C_a, C_g), wskip (C_g/2, C_s), bskip, wres (C_g/2, C_r), bres.
         Without biases (``bias=False``) the biases are zeros, which the
-        stack kernel adds to the same result."""
+        stack kernel adds to the same result. They are detached unless
+        ``differentiable``: then they stay in the autograd graph, so the
+        gradients of the gathered weights reach ``weight_g``/``weight_v``."""
 
         def w1x1(conv):
             return effective_weight(conv)[:, :, 0].t()
@@ -114,7 +116,8 @@ class WaveNetResidualBlock(nn.Module):
         w["bconv"] = bias(self.conv, w["wconv"][0])
         w["bskip"] = bias(self.conv1x1_skip, w["wskip"])
         w["bres"] = bias(self.conv1x1_out, w["wres"])
-        return {k: w[k].detach().contiguous() for k in WEIGHT_KEYS}
+        return {k: (w[k] if differentiable else w[k].detach()).contiguous()
+                for k in WEIGHT_KEYS}
 
 
 class HiFiGANResidualBlock(nn.Module):

@@ -1,14 +1,15 @@
 """Model registry of the port: the YAML-facing class names.
 
 ``HiFiGANGenerator``, ``ParallelWaveGANGenerator``, ``MelGANGenerator``
-(MelGAN and Multi-band MelGAN, non-causal) and ``StyleMelGANGenerator``
-are ported so far; ROADMAP.md lists the rest in the order they are to
-come.
+(MelGAN and Multi-band MelGAN, non-causal), ``StyleMelGANGenerator`` and
+``ParallelWaveGANDiscriminator`` are ported so far; ROADMAP.md lists the
+rest in the order they are to come.
 """
 
 from parallelwavegan_tpu_torch.models.hifigan import HiFiGANGenerator
 from parallelwavegan_tpu_torch.models.melgan import MelGANGenerator
 from parallelwavegan_tpu_torch.models.parallel_wavegan import (
+    ParallelWaveGANDiscriminator,
     ParallelWaveGANGenerator,
 )
 from parallelwavegan_tpu_torch.models.style_melgan import StyleMelGANGenerator
@@ -16,6 +17,7 @@ from parallelwavegan_tpu_torch.models.style_melgan import StyleMelGANGenerator
 MODEL_REGISTRY = {
     "HiFiGANGenerator": HiFiGANGenerator,
     "MelGANGenerator": MelGANGenerator,
+    "ParallelWaveGANDiscriminator": ParallelWaveGANDiscriminator,
     "ParallelWaveGANGenerator": ParallelWaveGANGenerator,
     "StyleMelGANGenerator": StyleMelGANGenerator,
 }

@@ -1,6 +1,7 @@
-"""Parallel WaveGAN generator (PyTorch, (B, C, T) layout).
+"""Parallel WaveGAN generator and discriminator (PyTorch, (B, C, T) layout).
 
-Counterpart of parallelwavegan_tpu/models/parallel_wavegan.py:64-235:
+The generator is the counterpart of
+parallelwavegan_tpu/models/parallel_wavegan.py:64-235:
 noise and the upsampled mel through ``layers`` gated WaveNet blocks in
 ``stacks`` dilation cycles, the skip sum scaled by sqrt(1/layers), then
 ReLU -> 1x1 -> ReLU -> 1x1. Keys are upstream's: ``first_conv``,
@@ -11,18 +12,24 @@ Kernel flags keep the JAX names so that configs are shared:
 * ``use_pallas_stack`` or ``use_pallas_stack_train``, under the JAX gate
   (:142-148: c given, not causal, no dropout) runs the gated layers of
   every cycle through ``fused_wavenet_stack``, the hand-written CUDA
-  kernel on a GPU: one launch per layer into one skip buffer (JAX sums the
-  skips of each cycle's calls, :161-189; the result is the same). Without
-  biases (``bias: false``) the kernel gets zero biases. The shipped
-  ``parallel_wavegan.v1*.yaml`` set ``use_pallas_stack_train``; its
-  backward is not ported, so a forward that needs gradients raises.
+  kernel (K3) on a GPU: one launch per layer into one skip buffer (JAX
+  sums the skips of each cycle's calls, :161-189; the result is the
+  same). Without biases (``bias: false``) the kernel gets zero biases.
+  That path is inference-only: with ``use_pallas_stack`` a forward that
+  needs gradients raises, as the JAX kernel has no VJP.
+* ``use_pallas_stack_train`` with gradients on (training) runs each cycle
+  through ``fused_wavenet_cycle_train`` instead, as JAX does (:174-181):
+  chunks of ``pallas_stack_train_layers_per_call`` layers, each a
+  recompute checkpoint, forward through K3 and backward through the
+  hand-written K4 kernel; the gradients of the stacked weights flow
+  through ``torch.stack`` and weight norm to ``weight_g``/``weight_v``.
+  The shipped ``parallel_wavegan.v1*.yaml`` set this flag.
 * otherwise each block runs on its own, through ``fused_gated_resblock``
-  when ``use_pallas_kernels`` is set.
+  when ``use_pallas_kernels`` is set (inference-only too).
 
-``pallas_stack_tile``, ``pallas_stack_train_tile`` and
-``pallas_stack_train_layers_per_call`` are the TPU kernels' tiling and
-checkpoint chunking: they are accepted for config compatibility and have
-no effect here.
+``pallas_stack_tile`` and ``pallas_stack_train_tile`` are the TPU
+kernels' tiling: they are accepted for config compatibility and have no
+effect here.
 Not ported yet, and refused with ``NotImplementedError`` (ROADMAP.md): the
 causal generator, ``pallas_stack_bf16`` and the MelGAN upsample net (the
 port's ``MelGANGenerator`` exists; only its wiring as PWG's upsample net
@@ -38,11 +45,15 @@ import torch
 from torch import nn
 
 from parallelwavegan_tpu_torch.layers.convs import (
+    Conv1d,
     Conv1d1x1,
     kaiming_normal_relu_std,
     remove_weight_norm,
 )
-from parallelwavegan_tpu_torch.layers.residual_block import WaveNetResidualBlock
+from parallelwavegan_tpu_torch.layers.residual_block import (
+    WaveNetResidualBlock,
+    get_activation,
+)
 from parallelwavegan_tpu_torch.layers.upsample import (
     ConvInUpsampleNetwork,
     UpsampleNetwork,
@@ -50,6 +61,9 @@ from parallelwavegan_tpu_torch.layers.upsample import (
 from parallelwavegan_tpu_torch.ops.kernels.wavenet import (
     WEIGHT_KEYS,
     fused_wavenet_stack,
+)
+from parallelwavegan_tpu_torch.ops.kernels.wavenet_train import (
+    fused_wavenet_cycle_train,
 )
 
 
@@ -142,6 +156,8 @@ class ParallelWaveGANGenerator(nn.Module):
         ])
         self.use_stack = ((use_pallas_stack or use_pallas_stack_train)
                           and dropout == 0.0)
+        self.use_stack_train = use_pallas_stack_train and self.use_stack
+        self.layers_per_call = int(pallas_stack_train_layers_per_call)
         self._kernel_cache = None
         if device is not None:
             self.to(device)
@@ -178,18 +194,30 @@ class ParallelWaveGANGenerator(nn.Module):
 
     def _fused_stack(self, x, c, stack):
         """The skip sum (B, C_s, T) of every layer through the stack kernel,
-        channel-last inside."""
+        channel-last inside; differentiable, cycle by cycle, when training
+        with ``use_pallas_stack_train``."""
+        x, c = x.transpose(1, 2).contiguous(), c.transpose(1, 2).contiguous()
+        if self.use_stack_train and torch.is_grad_enabled():
+            weights, dilations = self.stack_weights(differentiable=True)
+            per = self.layers // self.stacks
+            skips = None
+            for s in range(0, self.layers, per):
+                cycle = {k: v[s:s + per] for k, v in weights.items()}
+                x, sk = fused_wavenet_cycle_train(
+                    x, c, cycle, dilations[s:s + per],
+                    max_layers_per_call=self.layers_per_call)
+                skips = sk if skips is None else skips + sk
+            return skips.transpose(1, 2)
         weights, dilations = stack or self.stack_weights()
-        _, skips = fused_wavenet_stack(x.transpose(1, 2).contiguous(),
-                                       c.transpose(1, 2).contiguous(),
-                                       weights, dilations)
+        _, skips = fused_wavenet_stack(x, c, weights, dilations)
         return skips.transpose(1, 2)
 
-    def stack_weights(self) -> tuple:
+    def stack_weights(self, differentiable: bool = False) -> tuple:
         """(every block's gather-form weights stacked along a leading layer
         axis, as the JAX generator stacks a cycle's (:161-173), the blocks'
-        dilations), from the current effective weights."""
-        per = [blk.gather_weights() for blk in self.conv_layers]
+        dilations), from the current effective weights; ``differentiable``
+        keeps them in the autograd graph."""
+        per = [blk.gather_weights(differentiable) for blk in self.conv_layers]
         return ({k: torch.stack([w[k] for w in per]) for k in WEIGHT_KEYS},
                 tuple(blk.dilation for blk in self.conv_layers))
 
@@ -217,3 +245,52 @@ class ParallelWaveGANGenerator(nn.Module):
     def load_state_dict(self, *args, **kwargs):
         self._kernel_cache = None
         return super().load_state_dict(*args, **kwargs)
+
+
+class ParallelWaveGANDiscriminator(nn.Module):
+    """Non-conditional dilated conv stack: (B, in, T) -> (B, out, T).
+
+    Counterpart of parallelwavegan_tpu/models/parallel_wavegan.py:238-291:
+    ``layers - 1`` convs of ``conv_channels`` at dilation 1, 1, 2, 3, ...
+    (or ``dilation_factor ** i``), each followed by the activation, then a
+    last conv. Keys are upstream's ``conv_layers.{2i}`` (activations at the
+    odd indices), the map of JAX's ``_make_t_pwg_d``
+    (convert/torch_checkpoint.py:388).
+    """
+
+    def __init__(self, in_channels: int = 1, out_channels: int = 1,
+                 kernel_size: int = 3, layers: int = 10,
+                 conv_channels: int = 64, dilation_factor: int = 1,
+                 nonlinear_activation: str = "LeakyReLU",
+                 nonlinear_activation_params: dict | None = None,
+                 bias: bool = True, use_weight_norm: bool = True,
+                 device: torch.device | str | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if (kernel_size - 1) % 2 != 0:
+            raise ValueError("kernel_size must be odd")
+        if dilation_factor <= 0:
+            raise ValueError("dilation_factor must be positive")
+        params = nonlinear_activation_params or {"negative_slope": 0.2}
+        kw = dict(bias=bias, use_weight_norm=use_weight_norm, generator=generator)
+        self.conv_layers = nn.ModuleList()
+        for i in range(layers - 1):
+            if i == 0:
+                dilation, cin = 1, in_channels
+            else:
+                dilation = i if dilation_factor == 1 else dilation_factor ** i
+                cin = conv_channels
+            self.conv_layers.append(Conv1d(
+                cin, conv_channels, kernel_size, dilation=dilation,
+                normal_std=kaiming_normal_relu_std(kernel_size * cin), **kw))
+            self.conv_layers.append(get_activation(nonlinear_activation, params))
+        self.conv_layers.append(Conv1d(
+            conv_channels, out_channels, kernel_size,
+            normal_std=kaiming_normal_relu_std(kernel_size * conv_channels), **kw))
+        if device is not None:
+            self.to(device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for f in self.conv_layers:
+            x = f(x)
+        return x

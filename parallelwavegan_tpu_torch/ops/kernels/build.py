@@ -48,6 +48,12 @@ _SIGNATURES = {
     # x, c, x_out, skip, wconv, bconv, waux, wskip, bskip, wres, bres, B, T,
     # C, Ca, K, dil, causal, accumulate, device, stream
     "wavenet_layer": [_P] * 11 + [_I] * 9 + [_P],
+    # x, c, dxo, dsk, dx, dc, dz, g, part, wconv, bconv, waux, wskip, wres,
+    # dwconv, dbconv, dwaux, dwskip, dbskip, dwres, dbres, part_floats, B, T,
+    # C, Ca, K, dil, accumulate_dc, device, stream
+    "wavenet_layer_bwd": [_P] * 21 + [ctypes.c_longlong] + [_I] * 8 + [_P],
+    # B, T, Ca, K -> floats of wavenet_layer_bwd's partial buffer
+    "wavenet_bwd_part_floats": [_I] * 4,
     # x, out, wd, bd, w1, b1, ws, bs, B, T, C, K, dil, mode, slope, device,
     # stream
     "melgan_stack": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
@@ -77,6 +83,10 @@ class KernelLibrary:
             fn.restype = ctypes.c_int
         self._lib.hifigan_error_string.argtypes = [ctypes.c_int]
         self._lib.hifigan_error_string.restype = ctypes.c_char_p
+
+    def query(self, name: str, *args) -> int:
+        """The value an entry point that launches nothing returns."""
+        return getattr(self._lib, name)(*args)
 
     def call(self, name: str, *args) -> None:
         """Launch one kernel; raise if the launch was refused."""

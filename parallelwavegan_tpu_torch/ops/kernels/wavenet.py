@@ -14,9 +14,10 @@ For a CUDA tensor the wrappers run the hand-written kernel
 (csrc/wavenet.cu), one launch per layer; K5 is its one-layer call with
 the causal flag. For a CPU tensor they run the plain PyTorch versions
 below. A CUDA tensor never takes the plain path. The TPU tiling knobs
-(``t_tile``) and the whole-cycle VMEM residency do not carry over. The
-kernels have no backward yet (ROADMAP.md K4), so a forward that would
-need gradients raises.
+(``t_tile``) and the whole-cycle VMEM residency do not carry over. These
+two wrappers are inference-only, as the JAX ``fused_wavenet_stack`` has
+no VJP, so a forward that would need gradients raises; the differentiable
+cycle is ``ops/kernels/wavenet_train.py`` (K3 forward, K4 backward).
 """
 
 from __future__ import annotations
@@ -102,19 +103,22 @@ def _check_cuda_inputs(x, c, weights, n_layers) -> None:
         build.check_tensor(key, weights[key], x.device, shapes[key], align=8)
 
 
-def _run_layers(x, c, weights, dilations, causal: bool, counter):
+def _run_layers(x, c, weights, dilations, causal: bool, counter, outs=None):
     """One kernel launch per layer on the current stream; x ping-pongs
     between two buffers, skip is written by the first layer and added to
-    by the others. ``counter.launches`` counts the launches."""
+    by the others. Given a list ``outs``, each layer writes a buffer of its
+    own and appends it to ``outs``. ``counter.launches`` counts the
+    launches."""
     lib = build.load()
     dev, stream = build.launch_target(x)
     b, t, ch = x.shape
     ca, k = c.shape[2], weights["wconv"].shape[1]
     skip = torch.empty_like(x)
-    bufs = [torch.empty_like(x) for _ in range(min(2, len(dilations)))]
+    n_bufs = len(dilations) if outs is not None else min(2, len(dilations))
+    bufs = [torch.empty_like(x) for _ in range(n_bufs)]
     src = x
     for layer, d in enumerate(dilations):
-        dst = bufs[layer % 2]
+        dst = bufs[layer % n_bufs]
         lib.call("wavenet_layer", src.data_ptr(), c.data_ptr(), dst.data_ptr(),
                  skip.data_ptr(),
                  *(weights[key][layer].data_ptr() for key in WEIGHT_KEYS),
@@ -122,6 +126,8 @@ def _run_layers(x, c, weights, dilations, causal: bool, counter):
                  stream)
         counter.launches += 1
         src = dst
+    if outs is not None:
+        outs.extend(bufs)
     return src, skip
 
 

@@ -1,0 +1,135 @@
+"""Train and eval steps (counterpart of parallelwavegan_tpu/train/step.py).
+
+One ``TrainStep`` call is one step of upstream's hot loop as the JAX
+package computes it (:152-365):
+
+* the G phase (:243-313): the generator's output, the auxiliary (STFT)
+  losses times ``lambda_aux`` and, when a D phase runs this step, the
+  adversarial loss of D's output on it times ``lambda_adv``; then one
+  update of G (clipping inside the optimizer);
+* the D phase (:315-353): with
+  ``update_prediction_after_generator_update`` (the default), or when G
+  did not train, G is re-run with its updated weights under
+  ``torch.no_grad()`` (for Parallel WaveGAN with ``use_pallas_stack_train``
+  that is the K3 inference path); D's real and fake losses, and one
+  update of D.
+
+Gradients are taken with ``torch.autograd.grad`` with respect to the
+phase's own parameters, so the G phase leaves D's untouched; a parameter
+the loss does not reach gets a zero gradient, as in JAX. Batches are dicts
+of float32 tensors in the (B, C, T) layout (``batch_to_device``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from parallelwavegan_tpu_torch.train.criterion import Criterion
+
+
+def batch_to_device(batch: dict, device) -> dict:
+    """A collated numpy batch ((B, T, C) arrays) -> float32 tensors in the
+    port's (B, C, T) layout on ``device``."""
+    out = {}
+    for k, v in batch.items():
+        v = np.asarray(v)
+        if v.ndim == 3:
+            v = v.transpose(0, 2, 1)
+        out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(device)
+    return out
+
+
+def generator_forward(config: dict, generator, batch: dict) -> torch.Tensor:
+    """The generator's output (B, out, T) for a batch (train.py:1109-1117
+    feature flags: Parallel WaveGAN takes noise and the mel)."""
+    gen_type = config["generator_type"]
+    if gen_type == "ParallelWaveGANGenerator":
+        return generator(batch["z"], batch["c"])
+    raise NotImplementedError(
+        f"training {gen_type} is not ported to parallelwavegan_tpu_torch yet; "
+        "see ROADMAP.md")
+
+
+def _aux_losses(criterion: Criterion, y_, y, metrics: dict):
+    """The auxiliary losses of a (B, 1, T) output against the target."""
+    gen_loss = 0.0
+    if criterion.stft is not None:
+        sc_loss, mag_loss = criterion.stft(y_[:, 0], y[:, 0])
+        gen_loss = gen_loss + sc_loss + mag_loss
+        metrics["spectral_convergence_loss"] = sc_loss
+        metrics["log_stft_magnitude_loss"] = mag_loss
+    return gen_loss
+
+
+def _update(optimizer, params, loss) -> None:
+    """One optimizer step on the gradients of ``loss`` w.r.t. ``params``."""
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    for p, g in zip(params, grads):
+        p.grad = torch.zeros_like(p) if g is None else g
+    optimizer.step()
+    for p in params:
+        p.grad = None
+
+
+class TrainStep:
+    """(batch, train_g, train_d) -> metrics (0-d tensors on the device)."""
+
+    def __init__(self, config: dict, generator, discriminator,
+                 criterion: Criterion, opt_g, opt_d):
+        self.config = config
+        self.generator = generator
+        self.discriminator = discriminator
+        self.criterion = criterion
+        self.opt_g = opt_g
+        self.opt_d = opt_d
+        self.g_params = [p for p in generator.parameters() if p.requires_grad]
+        self.d_params = [p for p in discriminator.parameters() if p.requires_grad]
+        self.update_prediction = config.get(
+            "update_prediction_after_generator_update", True)
+
+    def __call__(self, batch: dict, train_g: bool, train_d: bool) -> dict:
+        crit, metrics = self.criterion, {}
+        y, y_ = batch["y"], None
+        if train_g:
+            y_ = generator_forward(self.config, self.generator, batch)
+            gen_loss = _aux_losses(crit, y_, y, metrics) * crit.lambda_aux
+            if train_d:
+                adv_loss = crit.gen_adv(self.discriminator(y_))
+                metrics["adversarial_loss"] = adv_loss
+                gen_loss = gen_loss + crit.lambda_adv * adv_loss
+            metrics["generator_loss"] = gen_loss
+            _update(self.opt_g, self.g_params, gen_loss)
+            y_ = y_.detach()
+        if train_d:
+            if self.update_prediction or not train_g:
+                with torch.no_grad():
+                    y_ = generator_forward(self.config, self.generator, batch)
+            p = self.discriminator(y)
+            p_ = self.discriminator(y_)
+            real_loss, fake_loss = crit.dis_adv(p_, p)
+            dis_loss = real_loss + fake_loss
+            _update(self.opt_d, self.d_params, dis_loss)
+            metrics["real_loss"] = real_loss
+            metrics["fake_loss"] = fake_loss
+            metrics["discriminator_loss"] = dis_loss
+        return {k: v.detach() for k, v in metrics.items()}
+
+
+@torch.no_grad()
+def eval_step(config: dict, generator, discriminator, criterion: Criterion,
+              batch: dict) -> dict:
+    """Every loss of a batch, no update (step.py:368-425)."""
+    metrics = {}
+    y = batch["y"]
+    y_ = generator_forward(config, generator, batch)
+    gen_loss = _aux_losses(criterion, y_, y, metrics) * criterion.lambda_aux
+    p_, p = discriminator(y_), discriminator(y)
+    adv_loss = criterion.gen_adv(p_)
+    metrics["adversarial_loss"] = adv_loss
+    metrics["generator_loss"] = gen_loss + criterion.lambda_adv * adv_loss
+    real_loss, fake_loss = criterion.dis_adv(p_, p)
+    metrics["real_loss"] = real_loss
+    metrics["fake_loss"] = fake_loss
+    metrics["discriminator_loss"] = real_loss + fake_loss
+    return metrics

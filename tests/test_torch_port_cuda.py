@@ -1,8 +1,9 @@
 """The port's CUDA kernels on a CUDA device, against their plain versions:
-the fused HiFi-GAN tail, the fused WaveNet layer (stack and block), the
-MelGAN stack kernel (K6), the MRF stage on the residual-unit kernel
-(K2) and the StyleMelGAN TADE kernels (K8a, K8b). The generator tests
-also check that no CUDA tensor reaches a plain version on the main path.
+the fused HiFi-GAN tail, the fused WaveNet layer (stack and block) and
+its backward (K4), the MelGAN stack kernel (K6), the MRF stage on the
+residual-unit kernel (K2) and the StyleMelGAN TADE kernels (K8a, K8b).
+The generator tests also check that no CUDA tensor reaches a plain
+version on the main path.
 
 These tests need an NVIDIA GPU with sm_90a (Hopper) and nvcc; elsewhere
 they skip. They import no JAX, so they run on a machine that has only
@@ -32,6 +33,10 @@ from parallelwavegan_tpu_torch.ops.kernels.wavenet import (  # noqa: E402
     fused_wavenet_stack,
     gated_resblock_reference,
     wavenet_stack_reference,
+)
+from parallelwavegan_tpu_torch.ops.kernels.wavenet_train import (  # noqa: E402
+    wavenet_stack_backward,
+    wavenet_stack_backward_reference,
 )
 
 pytestmark = pytest.mark.gpu
@@ -213,6 +218,104 @@ def test_wavenet_kernel_rejects_unsupported_input(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         fused_wavenet_stack(torch.zeros(1, 64, 16, device=cuda).transpose(1, 2),
                             c, w, (1,))
+
+
+def _assert_grads_close(cases):
+    """|got - want| <= 2e-4 + 1e-3 |want| for each (name, got, want), the
+    JAX K4 test's tolerance (tests/test_wavenet_stack_train.py:70-72)."""
+    for name, g, r in cases:
+        assert g.shape == r.shape, name
+        assert torch.isfinite(g).all(), name
+        assert bool(((g - r).abs() <= 2e-4 + 1e-3 * r.abs()).all()), (
+            name, float((g - r).abs().max()))
+
+
+def _k4_case(cuda, ch, ca, b, t, bias, n_layers=5, seed=7):
+    w = {k: v.to(cuda) for k, v in _wavenet_weights(n_layers, ch, ca, seed=seed).items()}
+    if not bias:
+        for key in ("bconv", "bskip", "bres"):
+            w[key] = torch.zeros_like(w[key])
+    rs = np.random.RandomState(seed + 1)
+
+    def randn(*shape):
+        return torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(cuda)
+
+    return w, randn(b, t, ch), randn(b, t, ca), randn(b, t, ch), randn(b, t, ch)
+
+
+# v1 widths with the d=512 halo past both ends of a ragged T, an odd aux
+# width, the narrow width, no biases, and T = 1
+@pytest.mark.parametrize("ch,ca,b,t,bias,dils", [
+    (64, 80, 2, 1000, True, (32, 64, 128, 256, 512)),
+    (64, 10, 1, 777, True, (1, 2, 4, 8, 16)),
+    (16, 80, 3, 300, True, (1, 2, 4)),
+    (64, 80, 1, 1100, False, (1, 8, 64, 512)),
+    (64, 80, 2, 1, True, (1, 2)),
+])
+def test_wavenet_backward_matches_plain_version(cuda, ch, ca, b, t, bias, dils):
+    w, x, c, dxo, dsk = _k4_case(cuda, ch, ca, b, t, bias, n_layers=len(dils))
+    before = wavenet_stack_backward.launches
+    dx, dc, dw = wavenet_stack_backward(x, c, w, dils, dxo, dsk)
+    torch.cuda.synchronize()
+    assert wavenet_stack_backward.launches == before + len(dils)
+    rdx, rdc, rdw = wavenet_stack_backward_reference(x, c, w, dils, dxo, dsk)
+    _assert_grads_close([("dx", dx, rdx), ("dc", dc, rdc)]
+                        + [(k, dw[k], rdw[k]) for k in WEIGHT_KEYS])
+
+
+def test_wavenet_backward_is_deterministic(cuda):
+    dils = (1, 2, 4, 8, 16)
+    w, x, c, dxo, dsk = _k4_case(cuda, 64, 80, 2, 3000, True)
+    first = wavenet_stack_backward(x, c, w, dils, dxo, dsk)
+    second = wavenet_stack_backward(x, c, w, dils, dxo, dsk)
+    torch.cuda.synchronize()
+    for a, b in zip(first[:2], second[:2]):
+        assert torch.equal(a, b)
+    for k in WEIGHT_KEYS:
+        assert torch.equal(first[2][k], second[2][k]), k
+
+
+def test_pwg_generator_trains_through_the_kernels(cuda):
+    cls = get_model_class("ParallelWaveGANGenerator")
+    small = dict(layers=6, stacks=2, aux_channels=80,
+                 upsample_params={"upsample_scales": [4, 4]})
+    plain = cls(**small, generator=torch.Generator().manual_seed(4)).to(cuda)
+    gen = cls(**small, use_pallas_stack_train=True,
+              pallas_stack_train_layers_per_call=2).to(cuda)
+    gen.load_state_dict(plain.state_dict())
+    z = torch.randn(2, 1, 40 * 16, generator=torch.Generator().manual_seed(5))
+    c = torch.randn(2, 80, 44, generator=torch.Generator().manual_seed(6))
+    (plain(z.to(cuda), c.to(cuda)) ** 2).mean().backward()
+    before = wavenet_stack_backward.launches
+    (gen(z.to(cuda), c.to(cuda)) ** 2).mean().backward()
+    torch.cuda.synchronize()
+    assert wavenet_stack_backward.launches == before + 6  # one per layer
+    want = dict(plain.named_parameters())
+    assert gen.conv_layers[3].conv.weight_g.grad is not None
+    # the last layer's residual output is unused: autograd leaves None on
+    # the plain path, the kernel writes zeros (as JAX's VJP does)
+    _assert_grads_close([(k, p.grad, torch.zeros_like(p) if want[k].grad is None
+                          else want[k].grad) for k, p in gen.named_parameters()])
+
+
+def test_wavenet_backward_rejects_unsupported_input(cuda):
+    w, x, c, dxo, dsk = _k4_case(cuda, 64, 80, 1, 64, True, n_layers=1)
+    with pytest.raises(ValueError, match="dxo"):
+        wavenet_stack_backward(x, c, w, (1,), dxo[:, :32], dsk)
+    c = torch.zeros(1, 64, 130, device=cuda)
+    w["waux"] = torch.zeros(1, 130, 128, device=cuda)
+    with pytest.raises(ValueError, match="aux width 130"):
+        wavenet_stack_backward(x, c, w, (1,), dxo, dsk)
+
+
+def test_library_entry_points_match_signatures(cuda):
+    from parallelwavegan_tpu_torch.ops.kernels import build
+
+    lib = build.load()  # binds every name of _SIGNATURES
+    for name in build._SIGNATURES:
+        assert getattr(lib._lib, name).argtypes == build._SIGNATURES[name]
+    # jobs (3 taps, 2 aux pieces, skip, res) x ctas x (65 x 128)
+    assert lib.query("wavenet_bwd_part_floats", 6, 25600, 80, 3) == 7 * 150 * 65 * 128
 
 
 def _melgan_stacks(c, dilations, seed, bias=True):

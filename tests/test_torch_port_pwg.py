@@ -373,14 +373,17 @@ def test_load_model_defaults_to_the_gpu(tmp_path):
 
 
 def test_training_forward_through_a_kernel_raises():
-    for flag in FLAGS:
+    # the inference-only kernel paths have no VJP, as in JAX
+    for flag in ("use_pallas_stack", "use_pallas_kernels"):
         port = get_model_class(PWG)(**SMALL, **{flag: True})
         with pytest.raises(RuntimeError, match="inference-only"):
             port(_ncl(Z), _ncl(C))
-    # the plain path trains
-    port = get_model_class(PWG)(**SMALL)
-    port(_ncl(Z), _ncl(C)).sum().backward()
-    assert port.first_conv.weight_v.grad is not None
+    # the plain path and the differentiable cycle (K3 forward, K4 backward) train
+    for kw in ({}, {"use_pallas_stack_train": True}):
+        port = get_model_class(PWG)(**SMALL, **kw)
+        port(_ncl(Z), _ncl(C)).sum().backward()
+        assert port.first_conv.weight_v.grad is not None
+        assert port.conv_layers[0].conv.weight_g.grad is not None
 
 
 @pytest.mark.parametrize("kw,what", [
