@@ -84,6 +84,29 @@ Phases (any failure exits non-zero; nothing is caught):
    false``; the logged losses agree to 1e-4 relative at every step; a
    ``--resume`` from the step-2 checkpoint reproduces steps 3-4 to 1e-4;
    the final checkpoint decodes through ``bin/decode.main``.
+17. The MelGAN stack backward kernel (K7) against its plain version
+   (autograd through the plain stage): MelGAN v1's three fused stages at
+   the training shapes (B=8; T=6400, 12800, 25600 at C=128, 64, 32, the
+   last with the final conv to 1 and tanh; 3 stacks at d = 1, 3, 9,
+   reflect), ragged replicate and zero-padded cases with the final conv to
+   4, a case without biases and one with T just above the reflect pad,
+   under a random cotangent of scale 1 / sqrt(B T) with weights that keep
+   every gradient of order one, the inputs moved off LeakyReLU's kink at
+   0, |diff| <=
+   2e-4 + 1e-3 |plain| and max|diff| <= 1e-4 max|plain| on dx and every
+   weight and bias gradient, with zeroed and shifted gradients as controls
+   that must be rejected; two runs bit for bit; CUDA-event times of the
+   three stages' backward beside their plain version and bound, and a
+   torch.profiler split of stage 1's kernels.
+18. The split of one MelGAN v1 train step (B=8, T=25600) with
+   ``use_pallas_stacks_train`` and without, as phase 15.
+19. MelGAN v1 training through ``bin/train.main``: melgan.v1.yaml
+   (V1_MELGAN_CONFIG) plus ``use_pallas_stacks_train: true`` at full width
+   with TRAIN_OVERRIDES on phase 16's dump (K7: 10 launches per G step, 40
+   in all) and without the flag; losses agree to 1e-4 relative at every
+   step, a resume from step 2 reproduces steps 3-4, and the final
+   checkpoint decodes through ``bin/decode.main`` (K6: 10 launches per
+   utterance).
 
 Phase 3 also decodes HiFi-GAN v1 with ``use_pallas_mrf: true`` in the
 config (K2 called twice per utterance, stages 2 and 3, 8 launches) and
@@ -99,6 +122,7 @@ operations over 67 TFLOP/s, the H100 SXM data-sheet peaks at 700 W.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -166,6 +190,30 @@ TRAIN_OVERRIDES = dict(format="npy", train_max_steps=4,
                        discriminator_train_start_steps=2, save_interval_steps=2,
                        eval_interval_steps=4, log_interval_steps=1)
 TRAIN_UTTS = 8
+# egs/ljspeech/voc1/conf/melgan.v1.yaml (a test holds the whole equal to
+# it); phases 17-19 add use_pallas_stacks_train: true to its generator
+V1_MELGAN_CONFIG = dict(
+    V1_FEATURES, global_gain_scale=1.0, trim_silence=True,
+    trim_threshold_in_db=60, trim_frame_size=2048, trim_hop_size=512,
+    format="hdf5", generator_type="MelGANGenerator",
+    generator_params=dict(
+        in_channels=80, out_channels=1, kernel_size=7, channels=512,
+        upsample_scales=[8, 8, 2, 2], stack_kernel_size=3, stacks=3,
+        use_weight_norm=True, use_causal_conv=False),
+    discriminator_params=V1_PWG_CONFIG["discriminator_params"],
+    stft_loss_params=V1_PWG_CONFIG["stft_loss_params"],
+    lambda_adv=4.0, batch_size=8, batch_max_steps=25600, pin_memory=True,
+    num_workers=2, remove_short_samples=True, allow_cache=True,
+    generator_optimizer_params=dict(lr=1.0e-4, eps=1.0e-6, weight_decay=0.0),
+    generator_scheduler_params=dict(step_size=200000, gamma=0.5),
+    generator_grad_norm=10,
+    discriminator_optimizer_params=dict(lr=5.0e-5, eps=1.0e-6, weight_decay=0.0),
+    discriminator_scheduler_params=dict(step_size=200000, gamma=0.5),
+    discriminator_grad_norm=1, discriminator_train_start_steps=100000,
+    train_max_steps=400000, save_interval_steps=5000, eval_interval_steps=1000,
+    log_interval_steps=100, num_save_intermediate_results=4,
+    discriminator_type="ParallelWaveGANDiscriminator",
+)
 # egs/ljspeech/voc1/conf/multi_band_melgan.v2.yaml (a test holds these equal to it)
 V2_MB_GENERATOR = dict(
     in_channels=80, out_channels=4, kernel_size=7, channels=384,
@@ -235,12 +283,15 @@ def _reset_launch_counts() -> None:
         fused_wavenet_stack,
     )
 
+    from parallelwavegan_tpu_torch.ops.kernels.melgan_stack_train import (
+        melgan_stacks_backward,
+    )
     from parallelwavegan_tpu_torch.ops.kernels.wavenet_train import (
         wavenet_stack_backward,
     )
 
     for fn in (fused_hifigan_tail, fused_wavenet_stack, fused_gated_resblock,
-               wavenet_stack_backward):
+               wavenet_stack_backward, melgan_stacks_backward):
         fn.launches = 0
     from parallelwavegan_tpu_torch.ops.kernels.tade_decode import (
         fused_tade_blocks,
@@ -1330,6 +1381,271 @@ def phase_k4(card: str) -> dict:
     return rec
 
 
+def _k7_work(x, stacks, final) -> dict:
+    """Operations and bytes that ``melgan_stacks_backward`` on one stage
+    needs: each stack's z once, the 1x1 and skip products of every stack
+    but the last (the inputs of the later ones), the final conv's forward,
+    and the backward products of all (dh, the transposed conv, the skip's
+    transpose and the weight gradients; the final conv's transposed conv
+    and weight gradient). Work the kernel does beyond that (z computed
+    again in the backward, the re-run's last products) is not counted."""
+    b, t, c = x.shape
+    mac, out_ch = 0, c
+    for i, st in enumerate(stacks):
+        k = st["wd"].shape[0]
+        mac += k * c * c + (2 * k + 4) * c * c + (2 * c * c if i < len(stacks) - 1 else 0)
+    weights = [st[key] for st in stacks for key in ("wd", "bd", "w1", "b1", "ws", "bs")
+               if st[key] is not None]
+    if final is not None:
+        kf, _, out_ch = final[0].shape
+        mac += 3 * kf * c * out_ch
+        weights += [v for v in final if v is not None]
+    n_w = sum(w.numel() for w in weights)
+    # in: x, dy, weights; out: dx and the weight gradients
+    nbytes = 4 * (2 * x.numel() + b * t * out_ch + 2 * n_w)
+    return _bound(2.0 * b * t * mac, nbytes)
+
+
+def _off_the_kinks(x, stacks, fin, mode: str, slope: float, seed: int):
+    """(x with some rows moved, the number of rows moved): the rows where
+    the plain forward puts an input of LeakyReLU within 1e-5 of its rms of
+    the kink at 0 (every stack's input and z, the final conv's input) get
+    0.05 N(0, 1) added, until none is left. At such a point float32
+    rounding (about 4e-6 at C = 128, measured against float64) can put the
+    kernel and the plain version on the two sides of the kink, where the
+    derivative jumps by (1 - slope): a difference of the function, not of
+    the kernel, that a B T C = 6.5M stage meets a few times."""
+    import torch
+    import torch.nn.functional as F
+
+    from parallelwavegan_tpu_torch.ops.kernels.melgan_stack import _conv, _pad_mode
+
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    moved = 0
+    for _ in range(50):
+        near = torch.zeros(x.shape[:2], dtype=torch.bool, device=x.device)
+
+        def mark(v):
+            near.logical_or_((v.abs() < 1e-5 * v.pow(2).mean().sqrt()).any(1))
+
+        with torch.no_grad():
+            c = x.transpose(1, 2)
+            for st in stacks:
+                mark(c)
+                p = (st["wd"].shape[0] - 1) // 2 * st["dilation"]
+                z = _conv(F.pad(F.leaky_relu(c, slope), (p, p), mode=_pad_mode(mode)),
+                          st["wd"], st["bd"], st["dilation"])
+                mark(z)
+                c = _conv(F.leaky_relu(z, slope), st["w1"], st["b1"]) + _conv(
+                    c, st["ws"], st["bs"])
+            if fin is not None:
+                mark(c)
+        rows = near.nonzero()
+        if len(rows) == 0:
+            return x, moved
+        x = x.clone()
+        x[rows[:, 0], rows[:, 1]] += 0.05 * torch.randn(
+            len(rows), x.shape[2], generator=g, device=x.device)
+        moved += len(rows)
+    _fail("phase 17: could not move the input off the kinks of LeakyReLU")
+
+
+def _grads_agree(g, r) -> bool:
+    """The JAX test's |diff| <= 2e-4 + 1e-3 |plain| at every element, and
+    max|diff| <= 1e-4 max|plain|, which holds at any scale of the
+    gradient."""
+    d = (g - r).abs()
+    return bool((d <= TOL + 1e-3 * r.abs()).all()) and (
+        float(d.max()) <= 1e-4 * float(r.abs().max()))
+
+
+def phase_k7(card: str) -> dict:
+    """K7 against its plain version (autograd through the plain stage, its
+    forward included): MelGAN v1's three fused stages at the training
+    shapes (B=8: T=6400 at C=128, 12800 at 64, 25600 at 32 with the final
+    conv to 1 and tanh; 3 stacks at d = 1, 3, 9, reflect; random weights
+    from SEED), ragged replicate and zero-padded cases (B=2,
+    T=1000, C=48, final conv to 4), a case without biases and one with T
+    just above the reflect pad (C=32, d=9, T=10), under a random cotangent
+    of scale 1 / sqrt(B T) with weights that keep activations of order one
+    (so every weight gradient is of order one and dx far above 2e-4), the
+    inputs moved off the kinks of LeakyReLU (``_off_the_kinks``), with
+    controls that the check must reject; then two runs compared bit for
+    bit, and the three stages' backward timed beside their plain
+    version."""
+    import numpy as np
+    import torch
+
+    from parallelwavegan_tpu_torch.models import get_model_class
+    from parallelwavegan_tpu_torch.ops.kernels.melgan_stack_train import (
+        STACK_KEYS,
+        fused_melgan_stacks_train,
+        melgan_stacks_backward,
+        melgan_stacks_backward_reference,
+    )
+    from parallelwavegan_tpu_torch.ops.kernels.melgan_stack import (
+        melgan_stacks_reference,
+    )
+
+    gp = V1_MELGAN_CONFIG["generator_params"]
+    gen = get_model_class("MelGANGenerator")(**gp, use_pallas_stacks_train=True)
+    if gen.fused_stages != (1, 2, 3):
+        _fail(f"MelGAN v1 fused stages {gen.fused_stages}, expected (1, 2, 3)")
+    slope = gen.slope
+    del gen
+    rs = np.random.RandomState(SEED)
+
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy((rs.randn(*shape) * scale).astype(np.float32)).to("cuda")
+
+    # weights that keep activations of order one through the stacks (the
+    # generator's N(0, 0.02) init shrinks them, and with them the gradients,
+    # below the tolerance's 2e-4)
+    def random_stacks(c, dils, bias=True):
+        def b():
+            return randn(c, scale=0.1) if bias else None
+
+        return [{"wd": randn(3, c, c, scale=(3 * c) ** -0.5), "bd": b(),
+                 "w1": randn(1, c, c, scale=c ** -0.5), "b1": b(),
+                 "ws": randn(1, c, c, scale=c ** -0.5), "bs": b(),
+                 "dilation": d} for d in dils]
+
+    def final(c, out_ch, bias=True):
+        return (randn(7, c, out_ch, scale=(7 * c) ** -0.5),
+                randn(out_ch, scale=0.1) if bias else None)
+
+    ragged = random_stacks(48, (1, 3, 9))
+    b, t = V1_MELGAN_CONFIG["batch_size"], V1_MELGAN_CONFIG["batch_max_steps"]
+    dils = [gp["stack_kernel_size"] ** j for j in range(gp["stacks"])]
+    # stage i (C = 512 / 2^(i+1)) is 2^(3-i) times shorter than the audio
+    cases = [(f"v1 stage {i} B={b} T={t >> (3 - i)} C={512 >> (i + 1)}"
+              + (" + final" if i == 3 else ""),
+              randn(b, t >> (3 - i), 512 >> (i + 1)),
+              random_stacks(512 >> (i + 1), dils),
+              final(32, 1) if i == 3 else None, "reflect") for i in (1, 2, 3)]
+    cases += [
+        ("ragged replicate B=2 T=1000 C=48 + final", randn(2, 1000, 48), ragged,
+         final(48, 4), "edge"),
+        ("ragged zeros B=2 T=1000 C=48 + final", randn(2, 1000, 48), ragged,
+         final(48, 4), "constant"),
+        ("no biases B=1 T=3000 C=64 + final", randn(1, 3000, 64),
+         random_stacks(64, dils, bias=False), final(64, 1, bias=False), "reflect"),
+        ("T just above the pad B=1 T=10 C=32", randn(1, 10, 32),
+         random_stacks(32, dils), None, "reflect"),
+    ]
+
+    def grads(x, stacks, fin, mode, u, kernel: bool):
+        leaves = [x.clone().requires_grad_()]
+        sts = []
+        for st in stacks:
+            d = {"dilation": st["dilation"]}
+            for k in STACK_KEYS:
+                d[k] = None if st[k] is None else st[k].clone().requires_grad_()
+                leaves.append(d[k])
+            sts.append(d)
+        fv = None if fin is None else tuple(
+            None if v is None else v.clone().requires_grad_() for v in fin)
+        leaves += list(fv or ())
+        fn = fused_melgan_stacks_train if kernel else melgan_stacks_reference
+        y = fn(leaves[0], sts, final=fv, slope=slope, pad_mode=mode)
+        loss = (y * u).sum()
+        names = ["dx"] + [f"stacks[{i}].{k}" for i in range(len(stacks)) for k in STACK_KEYS]
+        names += ["final w", "final b"][:len(fv or ())]
+        used = [(n, v) for n, v in zip(names, leaves) if v is not None]
+        return dict(zip((n for n, _ in used),
+                        torch.autograd.grad(loss, [v for _, v in used])))
+
+    rec = {"errs": []}
+    for n, (name, x, stacks, fin, mode) in enumerate(cases):
+        x, moved = _off_the_kinks(x, stacks, fin, mode, slope, SEED + n)
+        cases[n] = (name, x, stacks, fin, mode)
+        print(f"K7 [{name}]: {moved} of {x.shape[0] * x.shape[1]} input rows moved "
+              "off the kinks of LeakyReLU")
+        # a random cotangent of scale 1 / sqrt(B T) (phase 14's loss scaling):
+        # the weight gradients, sums over B T rows, are of order one, and dx
+        # lies well above the tolerance's 2e-4
+        u = randn(*x.shape[:2], x.shape[2] if fin is None else fin[0].shape[2],
+                  scale=(x.shape[0] * x.shape[1]) ** -0.5)
+        got = grads(x, stacks, fin, mode, u, True)
+        torch.cuda.synchronize()
+        want = grads(x, stacks, fin, mode, u, False)
+        worst = (0.0, "")
+        for key in want:
+            g, r = got[key], want[key]
+            if g.shape != r.shape or not torch.isfinite(g).all():
+                _fail(f"K7 {name} {key}: shapes {tuple(g.shape)} vs "
+                      f"{tuple(r.shape)} or non-finite gradient")
+            if not _grads_agree(g, r):
+                _fail(f"K7 {name} {key}: kernel disagrees with its plain version "
+                      f"(max|diff| {float((g - r).abs().max()):.3e}, max|plain| "
+                      f"{float(r.abs().max()):.3e})")
+            err = float((g - r).abs().max())
+            rec["errs"].append(err)
+            worst = max(worst, (err / max(float(r.abs().max()), 1e-30), key))
+        print(f"K7 vs plain [{name}]: {len(want)} gradients, max|diff| = "
+              f"{max(rec['errs'][-len(want):]):.3e}, worst max|diff| / max|plain| = "
+              f"{worst[0]:.3e} ({worst[1]}; |diff| <= {TOL} + 1e-3 |plain| and "
+              f"max|diff| <= 1e-4 max|plain|); max|plain| of dx "
+              f"{float(want['dx'].abs().max()):.3e}, least max|plain| of a "
+              f"gradient {min(float(r.abs().max()) for r in want.values()):.3e}")
+        if name.startswith("v1 stage 1"):
+            # controls at the v1 shapes: wrong gradients that the check must reject
+            dx = want["dx"]
+            controls = {f"{key} zeroed": (torch.zeros_like(r), r) for key, r in want.items()}
+            controls["dx moved 1 % toward its one-sample shift"] = (
+                dx + 0.01 * (dx.roll(1, 1) - dx), dx)
+            missed = [k for k, (g, r) in controls.items() if _grads_agree(g, r)]
+            print(f"K7 check controls [{name}]: {len(controls) - len(missed)} of "
+                  f"{len(controls)} wrong gradients rejected")
+            if missed:
+                _fail(f"K7's check accepts wrong gradients: {missed}")
+        del got, want
+
+    _, x, stacks, fin, _ = cases[0]
+    dy = randn(*x.shape)
+    first = melgan_stacks_backward(x, stacks, fin, slope, "reflect", dy)
+    second = melgan_stacks_backward(x, stacks, fin, slope, "reflect", dy)
+    torch.cuda.synchronize()
+    same = torch.equal(first[0], second[0]) and all(
+        torch.equal(a[k], b2[k]) for a, b2 in zip(first[1], second[1]) for k in STACK_KEYS)
+    print(f"K7 determinism: two runs of v1 stage 1 bitwise equal = {same}")
+    if not same:
+        _fail("K7 gives different gradients in two runs")
+    del first, second
+    for name, x, stacks, fin, mode in cases[:3]:
+        dy = randn(*x.shape[:2], 1 if fin is not None else x.shape[2], scale=1e-3)
+        _timed(rec, f"K7 {name}", card,
+               lambda: melgan_stacks_backward(x, stacks, fin, slope, mode, dy),
+               lambda: melgan_stacks_backward_reference(x, stacks, fin, slope,
+                                                        mode, dy),
+               _k7_work(x, stacks, fin))
+    print(f"K7 per MelGAN v1 G step backward (stages 1-3, B={b} T={t}, K6's re-run "
+          f"included): kernel {rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, "
+          f"bound {rec['bound_ms']:.3f} ms on {card}")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    _, x, stacks, fin, mode = cases[0]
+    dy = randn(*x.shape, scale=1e-3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        melgan_stacks_backward(x, stacks, fin, slope, mode, dy)
+        torch.cuda.synchronize()
+    split = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", 0) or 0
+        if us > 0:
+            # "void (anonymous namespace)::dz_kernel(...)" -> "dz_kernel"
+            short = re.sub(r"[<(].*", "", ev.key.replace("(anonymous namespace)::", ""))
+            short = short.split("::")[-1].split()[-1]
+            part = split.setdefault(short, [0.0, 0])
+            part[0] += us / 1e3
+            part[1] += ev.count
+    print(f"K7 v1 stage 1 device time by kernel (torch.profiler, one call; "
+          f"stack_kernel is K6's re-run of stacks 0-1) on {card}: "
+          + "; ".join(f"{n} {ms:.3f} ms ({k} launches)" for n, (ms, k) in split.items()))
+    return rec
+
+
 def _pwg_v1_config(kernel: bool, **overrides) -> dict:
     """A fresh copy of the PWG v1 training config, with or without the
     stack kernels, and with ``overrides``."""
@@ -1339,10 +1655,19 @@ def _pwg_v1_config(kernel: bool, **overrides) -> dict:
     return cfg
 
 
-def phase_train_split(card: str) -> None:
-    """Where one PWG v1 train step (B=6, T=25600, G and D phases) spends its
-    time, with the 30 layers through K3/K4 and through the plain path:
-    CUDA events between the parts of the step (median of 5 after two
+def _melgan_v1_config(kernel: bool, **overrides) -> dict:
+    """A fresh copy of the MelGAN v1 training config, with or without the
+    stack kernels (``use_pallas_stacks_train``), and with ``overrides``."""
+    cfg = json.loads(json.dumps(V1_MELGAN_CONFIG))
+    cfg["generator_params"]["use_pallas_stacks_train"] = kernel
+    cfg.update(overrides)
+    return cfg
+
+
+def _train_split(card: str, label: str, config_of, batch: dict) -> None:
+    """Where one train step (G and D phases) of ``config_of(kernel)``
+    spends its time on ``batch``, with the kernels and through the plain
+    path: CUDA events between the parts of the step (median of 5 after two
     warm-ups), then whole ``TrainStep`` calls on the host clock with a
     synchronise (G-only and G+D steps/s)."""
     import torch
@@ -1350,19 +1675,18 @@ def phase_train_split(card: str) -> None:
     from parallelwavegan_tpu_torch.models import get_model_class
     from parallelwavegan_tpu_torch.optimizers import build_optimizer_from_config
     from parallelwavegan_tpu_torch.train.criterion import build_criterion
-    from parallelwavegan_tpu_torch.train.step import TrainStep
+    from parallelwavegan_tpu_torch.train.step import TrainStep, generator_forward
 
-    g = torch.Generator(device="cuda").manual_seed(SEED)
-    b, t = V1_PWG_CONFIG["batch_size"], V1_PWG_CONFIG["batch_max_steps"]
-    frames = t // V1_PWG_CONFIG["hop_size"] + 2 * V1_PWG_GENERATOR["aux_context_window"]
-    batch = {"y": 0.3 * torch.randn(b, 1, t, generator=g, device="cuda"),
-             "z": torch.randn(b, 1, t, generator=g, device="cuda"),
-             "c": torch.randn(b, 80, frames, generator=g, device="cuda")}
+    b, _, t = batch["y"].shape
     parts = ("G forward", "G losses (STFT + D adversarial)", "G backward",
              "G optimizer step", "D phase: G re-run, no grad",
              "D phase: D forward, backward, step")
     for name, kernel in (("kernel", True), ("plain", False)):
-        cfg = _pwg_v1_config(kernel)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        cfg = config_of(kernel)
         init = torch.Generator().manual_seed(SEED)
         gen = get_model_class(cfg["generator_type"])(
             **cfg["generator_params"], generator=init).to("cuda")
@@ -1387,7 +1711,7 @@ def phase_train_split(card: str) -> None:
         def staged():
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(parts) + 1)]
             ev[0].record()
-            y_ = gen(batch["z"], batch["c"])
+            y_ = generator_forward(cfg, gen, batch)
             ev[1].record()
             sc, mag = crit.stft(y_[:, 0], batch["y"][:, 0])
             loss = (sc + mag) * crit.lambda_aux + crit.lambda_adv * crit.gen_adv(dis(y_))
@@ -1397,7 +1721,7 @@ def phase_train_split(card: str) -> None:
             update(opt_g, g_params, grads)
             ev[4].record()
             with torch.no_grad():
-                y_ = gen(batch["z"], batch["c"])
+                y_ = generator_forward(cfg, gen, batch)
             ev[5].record()
             real, fake = crit.dis_adv(dis(y_), dis(batch["y"]))
             update(opt_d, d_params, grads_of(real + fake, d_params))
@@ -1420,16 +1744,42 @@ def phase_train_split(card: str) -> None:
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
             rate[phase] = 1.0 / statistics.median(times[1:])
-        print(f"PWG v1 train step split [{name}], B={b} T={t}, median of 5, CUDA "
+        print(f"{label} train step split [{name}], B={b} T={t}, median of 5, CUDA "
               f"events, on {card}: "
               + "; ".join(f"{k} {v:.3f} ms" for k, v in split.items())
               + f"; sum {sum(split.values()):.3f} ms; TrainStep: G-only "
               f"{rate['G-only']:.3f} steps/s, G+D {rate['G+D']:.3f} steps/s "
               f"(median of 3 after one, host clock); peak memory "
-              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+              f"({held / 2 ** 30:.2f} GiB held before the step was built)")
         del gen, dis, opt_g, opt_d, step, g_params, d_params
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
+
+
+def phase_train_split(card: str) -> None:
+    """Where one PWG v1 train step (B=6, T=25600) spends its time, with the
+    30 layers through K3/K4 and through the plain path."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    b, t = V1_PWG_CONFIG["batch_size"], V1_PWG_CONFIG["batch_max_steps"]
+    frames = t // V1_PWG_CONFIG["hop_size"] + 2 * V1_PWG_GENERATOR["aux_context_window"]
+    batch = {"y": 0.3 * torch.randn(b, 1, t, generator=g, device="cuda"),
+             "z": torch.randn(b, 1, t, generator=g, device="cuda"),
+             "c": torch.randn(b, 80, frames, generator=g, device="cuda")}
+    _train_split(card, "PWG v1", _pwg_v1_config, batch)
+
+
+def phase_melgan_train_split(card: str) -> None:
+    """Where one MelGAN v1 train step (B=8, T=25600) spends its time, with
+    stages 1-3 through K6/K7 and through the plain path."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    b, t = V1_MELGAN_CONFIG["batch_size"], V1_MELGAN_CONFIG["batch_max_steps"]
+    frames = t // V1_MELGAN_CONFIG["hop_size"]
+    batch = {"y": 0.3 * torch.randn(b, 1, t, generator=g, device="cuda"),
+             "c": torch.randn(b, 80, frames, generator=g, device="cuda")}
+    _train_split(card, "MelGAN v1", _melgan_v1_config, batch)
 
 
 def _write_train_dump(root: str) -> str:
@@ -1471,42 +1821,30 @@ def _losses_agree(name: str, got: dict, want: dict, steps) -> float:
     return worst
 
 
-def phase_train(card: str) -> dict:
-    """PWG v1 training through ``bin/train.main`` on the card: the v1 config
-    at full width with TRAIN_OVERRIDES, from SEED, with the kernels and
-    again without; then a resume from the step-2 checkpoint, and a decode
-    of the final checkpoint through ``bin/decode.main``."""
+def _train_runs(card: str, label: str, config_of, counters: dict, expect: dict,
+                decode_counter, per_utt: int) -> dict:
+    """Training through ``bin/train.main`` on the card: ``config_of(kernel,
+    **TRAIN_OVERRIDES)`` at full width from SEED on TRAIN_UTTS utterances,
+    with the kernels and again without, then a resume from the step-2
+    checkpoint; the launches of each kernel in ``counters`` must equal
+    ``expect[run]``. The logged losses of the kernel and plain runs, and of
+    the resumed and uninterrupted runs, agree to 1e-4 relative; the final
+    checkpoint decodes through ``bin/decode.main`` with ``per_utt``
+    launches of ``decode_counter`` per utterance."""
     import numpy as np
 
     from parallelwavegan_tpu_torch.bin import decode, train
-    from parallelwavegan_tpu_torch.ops.kernels.wavenet import fused_wavenet_stack
-    from parallelwavegan_tpu_torch.ops.kernels.wavenet_train import (
-        wavenet_stack_backward,
-    )
 
     root = os.path.join(WORK, "train")
     shutil.rmtree(root, ignore_errors=True)
     dump = _write_train_dump(root)
     configs = {}
     for name, kernel in (("kernel", True), ("plain", False)):
-        configs[name] = os.path.join(root, f"pwg_v1_{name}.json")
+        configs[name] = os.path.join(root, f"config_{name}.json")
         with open(configs[name], "w") as f:
-            json.dump(_pwg_v1_config(kernel, **TRAIN_OVERRIDES), f)
+            json.dump(config_of(kernel, **TRAIN_OVERRIDES), f)
 
     steps = TRAIN_OVERRIDES["train_max_steps"]
-    layers = V1_PWG_GENERATOR["layers"]
-    per_call = 5  # pallas_stack_train_layers_per_call's default
-    # K3: every G forward (30 layers), the re-run inside each backward (the
-    # first 4 layers of each 5-layer chunk), the D phase's G re-run, the
-    # eval batch and its dumped predictions; K4: one launch per layer of
-    # every G backward
-    g_steps = {"kernel": steps, "resume": steps - 2}
-    # D trains where the steps done before the step exceed its start (step 4)
-    d_steps = steps - TRAIN_OVERRIDES["discriminator_train_start_steps"] - 1
-    expect = {"plain": (0, 0)}
-    for name, n in g_steps.items():
-        k3 = n * (layers + layers // per_call * (per_call - 1)) + (d_steps + 2) * layers
-        expect[name] = (k3, n * layers)
     res, launches = {}, {}
     for name, extra in (("kernel", []), ("plain", []),
                         ("resume", ["--resume", os.path.join(
@@ -1518,12 +1856,12 @@ def phase_train(card: str) -> dict:
              os.path.join(root, f"exp_{name}"), "--device", "cuda", "--verbose", "0",
              "--config", configs["plain" if name == "plain" else "kernel"]] + extra)
         seconds = time.perf_counter() - t0
-        launches[name] = (fused_wavenet_stack.launches, wavenet_stack_backward.launches)
-        print(f"main path [PWG v1 training, {name}]: {res[name]['steps']} steps in "
+        launches[name] = tuple(fn.launches for fn in counters.values())
+        print(f"main path [{label} training, {name}]: {res[name]['steps']} steps in "
               f"{seconds:.1f} s (set-up, eval and saves included) on {card}; "
-              f"K3 launches = {launches[name][0]}, K4 launches = {launches[name][1]}")
+              + ", ".join(f"{k} launches = {n}" for k, n in zip(counters, launches[name])))
         if res[name]["steps"] != steps or launches[name] != expect[name]:
-            _fail(f"PWG training {name}: steps {res[name]['steps']}, launches "
+            _fail(f"{label} training {name}: steps {res[name]['steps']}, launches "
                   f"{launches[name]}, expected {steps} and {expect[name]}")
 
     logged = {name: {s: {k: v for k, v in m.items() if k.startswith("train/")}
@@ -1532,20 +1870,20 @@ def phase_train(card: str) -> dict:
     for s, m in logged["kernel"].items():
         print(f"  step {s}: " + ", ".join(f"{k} {v:.6f}" for k, v in sorted(m.items())))
         if not all(np.isfinite(v) for v in m.values()):
-            _fail(f"PWG training: non-finite loss at step {s}")
+            _fail(f"{label} training: non-finite loss at step {s}")
     if "train/discriminator_loss" not in logged["kernel"].get(steps, {}):
-        _fail("PWG training: the D phase did not run")
+        _fail(f"{label} training: the D phase did not run")
     if not any("eval/generator_loss" in m for _, m in res["kernel"]["history"]):
-        _fail("PWG training: no evaluation was logged")
+        _fail(f"{label} training: no evaluation was logged")
     err = _losses_agree("kernel vs plain", logged["kernel"], logged["plain"],
                         range(1, steps + 1))
-    print(f"PWG training losses, kernel vs plain: max relative diff = {err:.3e} "
+    print(f"{label} training losses, kernel vs plain: max relative diff = {err:.3e} "
           f"over steps 1-{steps} (tol 1e-4)")
     if sorted(logged["resume"]) != [3, 4]:
-        _fail(f"PWG resume logged steps {sorted(logged['resume'])}, expected [3, 4]")
+        _fail(f"{label} resume logged steps {sorted(logged['resume'])}, expected [3, 4]")
     err_resume = _losses_agree("resume vs uninterrupted", logged["resume"],
                                logged["kernel"], (3, 4))
-    print(f"PWG training resumed from step 2 vs uninterrupted: max relative diff "
+    print(f"{label} training resumed from step 2 vs uninterrupted: max relative diff "
           f"= {err_resume:.3e} over steps 3-4 (tol 1e-4)")
 
     _reset_launch_counts()
@@ -1556,18 +1894,71 @@ def phase_train(card: str) -> dict:
     from scipy.io import wavfile
 
     wavs = sorted(os.listdir(wavdir))
-    if len(wavs) != TRAIN_UTTS or fused_wavenet_stack.launches != TRAIN_UTTS * layers:
-        _fail(f"decode of the trained checkpoint: {wavs}, K3 launches "
-              f"{fused_wavenet_stack.launches}")
+    if len(wavs) != TRAIN_UTTS or decode_counter.launches != TRAIN_UTTS * per_utt:
+        _fail(f"decode of the trained {label} checkpoint: {wavs}, launches "
+              f"{decode_counter.launches}")
     for name in wavs:
         _, data = wavfile.read(os.path.join(wavdir, name))
         frames = np.load(os.path.join(dump, name.replace("_gen.wav", ".npy"))).shape[0]
         if data.shape != (frames * V1_FEATURES["hop_size"],) or not data.any():
-            _fail(f"decode of the trained checkpoint: {name} {data.shape}")
-    print(f"decode of the step-{steps} checkpoint through bin/decode: "
-          f"{len(wavs)} utterances, K3 launches {fused_wavenet_stack.launches}")
+            _fail(f"decode of the trained {label} checkpoint: {name} {data.shape}")
+    print(f"decode of the {label} step-{steps} checkpoint through bin/decode: "
+          f"{len(wavs)} utterances, {decode_counter.launches} launches")
     shutil.rmtree(root)
-    return {"k4_launches": launches["kernel"][1], "err": err}
+    return {"launches": launches["kernel"], "err": err}
+
+
+def _eval_and_d_forwards() -> int:
+    """G forwards under no_grad in TRAIN_OVERRIDES' 4 steps: the D phase's
+    re-run where D trains (the steps done before the step exceed its start:
+    step 4), the eval batch and its dumped predictions."""
+    steps = TRAIN_OVERRIDES["train_max_steps"]
+    return steps - TRAIN_OVERRIDES["discriminator_train_start_steps"] - 1 + 2
+
+
+def phase_train(card: str) -> dict:
+    """PWG v1 training through ``bin/train.main``: K3 in every G forward
+    (30 layers), the re-run inside each backward (the first 4 layers of
+    each 5-layer chunk) and the no-grad forwards; K4 one launch per layer
+    of every G backward."""
+    from parallelwavegan_tpu_torch.ops.kernels.wavenet import fused_wavenet_stack
+    from parallelwavegan_tpu_torch.ops.kernels.wavenet_train import (
+        wavenet_stack_backward,
+    )
+
+    steps = TRAIN_OVERRIDES["train_max_steps"]
+    layers = V1_PWG_GENERATOR["layers"]
+    per_call = 5  # pallas_stack_train_layers_per_call's default
+    expect = {"plain": (0, 0)}
+    for name, n in (("kernel", steps), ("resume", steps - 2)):
+        k3 = n * (layers + layers // per_call * (per_call - 1)) + _eval_and_d_forwards() * layers
+        expect[name] = (k3, n * layers)
+    out = _train_runs(card, "PWG v1", _pwg_v1_config,
+                      {"K3": fused_wavenet_stack, "K4": wavenet_stack_backward},
+                      expect, fused_wavenet_stack, layers)
+    return {"k4_launches": out["launches"][1], "err": out["err"]}
+
+
+def phase_melgan_train(card: str) -> dict:
+    """MelGAN v1 training through ``bin/train.main`` with
+    ``use_pallas_stacks_train``: K6 in every G forward (3 stages of 3
+    stacks, the last with the final conv: 10 launches), the re-run inside
+    each backward (stacks 0-1 of stages 1-2, all of stage 3 and its final
+    conv: 8) and the no-grad forwards; K7 one launch per stack and one for
+    the final conv of every G backward (10)."""
+    from parallelwavegan_tpu_torch.ops.kernels.melgan_stack import fused_melgan_stacks
+    from parallelwavegan_tpu_torch.ops.kernels.melgan_stack_train import (
+        melgan_stacks_backward,
+    )
+
+    steps = TRAIN_OVERRIDES["train_max_steps"]
+    expect = {"plain": (0, 0)}
+    for name, n in (("kernel", steps), ("resume", steps - 2)):
+        expect[name] = (n * (10 + 8) + _eval_and_d_forwards() * 10, n * 10)
+    out = _train_runs(card, "MelGAN v1", _melgan_v1_config,
+                      {"K6": fused_melgan_stacks, "K7": melgan_stacks_backward},
+                      expect, fused_melgan_stacks, 10)
+    return {"k7_launches": out["launches"][1], "err": out["err"]}
 
 
 def main() -> None:
@@ -1638,6 +2029,12 @@ def main() -> None:
     torch.cuda.synchronize()
     pwg_train = phase_train(card)
     torch.cuda.synchronize()
+    k7 = phase_k7(card)
+    torch.cuda.synchronize()
+    phase_melgan_train_split(card)
+    torch.cuda.synchronize()
+    melgan_train = phase_melgan_train(card)
+    torch.cuda.synchronize()
     shutil.rmtree(WORK, ignore_errors=True)
 
     def entry(name, source, replaces, launches, rec):
@@ -1668,6 +2065,8 @@ def main() -> None:
               style["k8b_launches"], k8["k8b"]),
         entry("wavenet_stack_backward (K4)", "wavenet_bwd.cu",
               "wavenet_stack_train.py:187", pwg_train["k4_launches"], k4),
+        entry("melgan_stacks_backward (K7)", "melgan_stack_bwd.cu",
+              "melgan_stack_train.py:247", melgan_train["k7_launches"], k7),
     ]}
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_main:.1f} s "
           f"(build included) on {card}")

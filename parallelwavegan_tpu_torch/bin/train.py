@@ -11,10 +11,13 @@ in upstream's layout to ``--outdir``:
 
 The config is ``.json``, or YAML where PyYAML imports; ``format: npy``
 reads ``*-wave.npy`` / ``*-feats.npy`` pairs and ``hdf5`` needs h5py.
-Ported so far: Parallel WaveGAN (generator and ``ParallelWaveGANDiscriminator``,
-the STFT and adversarial losses, RAdam or Adam); with
-``use_pallas_stack_train`` its gated layers train through the K3 and K4
-kernels on the card. ``--resume`` restores the models, the optimizers,
+Ported so far: the Parallel WaveGAN and MelGAN generators (MelGAN with one
+output channel: PQMF in the criterion is not ported) with
+``ParallelWaveGANDiscriminator``, the STFT and adversarial losses, RAdam
+or Adam. With ``use_pallas_stack_train`` PWG's gated layers train
+through the K3 and K4 kernels on the card, with
+``use_pallas_stacks_train`` MelGAN's residual stacks of at most 128
+channels through K6 and K7. ``--resume`` restores the models, the optimizers,
 the step count and the data stream's position; ``--pretrain`` the model
 weights only. Not ported yet, and refused with ``NotImplementedError``
 (ROADMAP.md): ``mixed_precision``, ``distributed``, scp datasets and the
@@ -124,7 +127,7 @@ def main(argv=None) -> dict:
            for kind in ("wav_scp", "feats_scp", "segments")):
         raise _not_ported("scp datasets (--*-wav-scp / --*-feats-scp / --*-segments)")
     gen_type = config["generator_type"]
-    if gen_type != "ParallelWaveGANGenerator":
+    if gen_type not in ("ParallelWaveGANGenerator", "MelGANGenerator"):
         raise _not_ported(f"training {gen_type}")
     flags = feature_flags(config)
 

@@ -5,7 +5,7 @@
   Parallel WaveGAN with local conditioning. Keys are upstream's ``conv``,
   ``conv1x1_aux``, ``conv1x1_skip`` and ``conv1x1_out``. With
   ``use_pallas`` and the JAX gate (:69-71: c given, bias on) the block
-  runs through ``fused_gated_resblock``.
+  runs through ``fused_gated_resblock``, which also trains.
 * ``HiFiGANResidualBlock``: counterpart of :241-320, per dilation, act ->
   dilated conv [-> act -> conv] with an additive residual. Submodules are
   ``nn.Sequential(act, conv)`` so the state-dict keys are upstream's
@@ -76,10 +76,11 @@ class WaveNetResidualBlock(nn.Module):
     def forward(self, x: torch.Tensor, c: torch.Tensor | None,
                 weights: dict | None = None):
         """``weights``: this block's ``gather_weights()``, prepared once
-        for decode; the fused path gathers them itself when not given."""
+        for decode; the fused path gathers them itself when not given,
+        in the autograd graph when gradients are on."""
         if self.use_fused and c is not None:
             x = F.dropout(x, p=self.dropout, training=self.training)
-            w = weights or self.gather_weights()
+            w = weights or self.gather_weights(torch.is_grad_enabled())
             r, s = fused_gated_resblock(
                 x.transpose(1, 2).contiguous(), c.transpose(1, 2).contiguous(),
                 *(w[k] for k in WEIGHT_KEYS), dilation=self.dilation,

@@ -52,15 +52,19 @@ class ResidualStack(nn.Module):
     def forward(self, c: torch.Tensor) -> torch.Tensor:
         return self.stack(c) + self.skip_layer(c)
 
-    def gather_weights(self) -> dict:
+    def gather_weights(self, differentiable: bool = False) -> dict:
         """Effective weights in the JAX ``collect_weights`` form
         (residual_stack.py:62-80): wd (K, C, C), w1 and ws (1, C, C), their
-        biases (zeros without ``bias``) and the dilation."""
+        biases (zeros without ``bias``) and the dilation. They are detached
+        unless ``differentiable``: then they stay in the autograd graph, so
+        the gradients of the gathered weights reach ``weight_g``/``weight_v``."""
 
         def conv(m):
-            w = m.gather_weight().detach().contiguous()
-            b = torch.zeros_like(w[0, 0]) if m.bias is None else m.bias.detach()
-            return w, b.contiguous()
+            w = m.gather_weight()
+            b = torch.zeros_like(w[0, 0]) if m.bias is None else m.bias
+            if not differentiable:
+                w, b = w.detach(), b.detach()
+            return w.contiguous(), b.contiguous()
 
         out = {"dilation": self.dilation}
         (out["wd"], out["bd"]), (out["w1"], out["b1"]), (out["ws"], out["bs"]) = (

@@ -15,16 +15,21 @@ deconv is initialised N(0, 0.02), the JAX ``normal_init(0.02)``.
 ``use_pallas_stacks`` or ``use_pallas_stacks_train`` (the JAX flag names)
 under the JAX gate (:81-87, :145: not causal, LeakyReLU, pad not constant
 or constant 0), per upsample stage of at most 128 channels, runs the
-stage's ResidualStacks through ``fused_melgan_stacks``: the hand-written
-CUDA kernel on a GPU, its plain PyTorch version on the CPU. On the last
-stage, with ``use_final_nonlinear_activation``, the trailing act -> out
-conv -> tanh folds into the same call (:182-200). Wider stages, the input
-conv and the deconvs stay on cuDNN, as JAX leaves them to XLA. The
-kernel's backward (K7) is not ported, so ``use_pallas_stacks_train`` runs
-the same forward and a forward that needs gradients raises;
+stage's ResidualStacks through the hand-written CUDA kernels on a GPU and
+their plain PyTorch versions on the CPU. On the last stage, with
+``use_final_nonlinear_activation``, the trailing act -> out conv -> tanh
+folds into the same call (:182-200). Wider stages, the input conv and the
+deconvs stay on cuDNN, as JAX leaves them to XLA. With
+``use_pallas_stacks_train`` and gradients on (training) a fused stage is
+``fused_melgan_stacks_train`` (:169-176): K6 forward, K7 backward, a
+recompute checkpoint whose weight gradients flow through weight norm to
+``weight_g``/``weight_v``. Otherwise (decode, eval, the D phase's re-run
+of G under ``torch.no_grad()``) it is ``fused_melgan_stacks`` (K6), which
+gives the same values; that wrapper is inference-only, as JAX's, so
+``use_pallas_stacks`` with gradients on raises.
 ``pallas_stacks_train_tile`` is a TPU tile size, accepted for config
-compatibility and without effect. The causal generator and the
-discriminators are not ported yet (ROADMAP.md M16).
+compatibility and without effect. The causal generator is not ported yet
+(ROADMAP.md M16).
 """
 
 from __future__ import annotations
@@ -49,6 +54,9 @@ from parallelwavegan_tpu_torch.layers.residual_stack import (
 )
 from parallelwavegan_tpu_torch.ops.kernels.melgan_stack import (
     fused_melgan_stacks,
+)
+from parallelwavegan_tpu_torch.ops.kernels.melgan_stack_train import (
+    fused_melgan_stacks_train,
 )
 
 
@@ -129,6 +137,7 @@ class MelGANGenerator(nn.Module):
         self.fused_stages = tuple(
             i for i in range(len(self.upsample_scales))
             if fuse_ok and channels // (2 ** (i + 1)) <= 128)
+        self.use_stacks_train = use_pallas_stacks_train
         self._kernel_cache = None
         if device is not None:
             self.to(device)
@@ -150,10 +159,13 @@ class MelGANGenerator(nn.Module):
                 for j in stack_ids:
                     c = m[j](c)
                 continue
-            w = (self._kernel_cache or {}).get(i) or self.stage_weights(i)
-            y = fused_melgan_stacks(c.transpose(1, 2).contiguous(), w["stacks"],
-                                    final=w["final"], slope=self.slope,
-                                    pad_mode=self.pad_mode)
+            if self.use_stacks_train and torch.is_grad_enabled():
+                w, fn = self.stage_weights(i, differentiable=True), fused_melgan_stacks_train
+            else:
+                w = (self._kernel_cache or {}).get(i) or self.stage_weights(i)
+                fn = fused_melgan_stacks
+            y = fn(c.transpose(1, 2).contiguous(), w["stacks"], final=w["final"],
+                   slope=self.slope, pad_mode=self.pad_mode)
             c = y.transpose(1, 2)
             if i == last and w["final"] is not None:
                 return c
@@ -161,18 +173,21 @@ class MelGANGenerator(nn.Module):
             c = m[j](c)
         return c
 
-    def stage_weights(self, i: int) -> dict:
+    def stage_weights(self, i: int, differentiable: bool = False) -> dict:
         """Stage ``i``'s folded weights in the form of
         ``fused_melgan_stacks``: the stacks' gather-form dicts and, on the
         last stage with ``use_final_nonlinear_activation``, the output conv
-        as ``final``."""
-        stacks = [self.melgan[j].gather_weights() for j in self._stages[i][2]]
+        as ``final``; ``differentiable`` keeps them in the autograd graph."""
+        stacks = [self.melgan[j].gather_weights(differentiable)
+                  for j in self._stages[i][2]]
         final = None
         if i == len(self._stages) - 1 and self.use_final_nonlinear_activation:
             conv = self.melgan[self._tail + 2]
-            w = conv.gather_weight().detach().contiguous()
-            b = torch.zeros_like(w[0, 0]) if conv.bias is None else conv.bias.detach()
-            final = (w, b.contiguous())
+            w = conv.gather_weight()
+            b = torch.zeros_like(w[0, 0]) if conv.bias is None else conv.bias
+            if not differentiable:
+                w, b = w.detach(), b.detach()
+            final = (w.contiguous(), b.contiguous())
         return {"stacks": stacks, "final": final}
 
     def prepare_kernels(self) -> None:

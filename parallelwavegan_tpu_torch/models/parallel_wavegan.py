@@ -25,7 +25,8 @@ Kernel flags keep the JAX names so that configs are shared:
   through ``torch.stack`` and weight norm to ``weight_g``/``weight_v``.
   The shipped ``parallel_wavegan.v1*.yaml`` set this flag.
 * otherwise each block runs on its own, through ``fused_gated_resblock``
-  when ``use_pallas_kernels`` is set (inference-only too).
+  when ``use_pallas_kernels`` is set: its forward is the kernel (K5) and
+  its backward autograd of the plain block, as in JAX.
 
 ``pallas_stack_tile`` and ``pallas_stack_train_tile`` are the TPU
 kernels' tiling: they are accepted for config compatibility and have no

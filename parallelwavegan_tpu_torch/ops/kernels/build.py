@@ -4,8 +4,9 @@ Every ``csrc/*.cu`` is compiled on first use by its own
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -c -Xcompiler -fPIC``
 process, all started together, and the objects are linked by one
 ``nvcc -shared`` into one shared library in ``_build/`` beside this file
-(listed in .gitignore), named by a hash of every source and the flags, so
-that an edit or a new source rebuilds. Each exported entry point has its
+(listed in .gitignore), named by a hash of every source, every header
+beside them (``csrc/*.cuh``) and the flags, so that an edit or a new
+source rebuilds. Each exported entry point has its
 ctypes signature in ``_SIGNATURES``; a test holds that table to the
 sources. Nothing is compiled when a module is imported: the CPU tests
 import every module.
@@ -59,6 +60,16 @@ _SIGNATURES = {
     "melgan_stack": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
     # x, y, w, b, B, T, C, Cout, K, mode, slope, device, stream
     "melgan_outconv": [_P] * 4 + [_I] * 6 + [_F, _I, _P],
+    # x, g, dx, dz, h, dxp, part, wd, bd, w1, ws, dwd, dbd, dw1, db1, dws,
+    # dbs, part_floats, B, T, C, K, dil, mode, slope, device, stream
+    "melgan_stack_bwd": [_P] * 17 + [ctypes.c_longlong] + [_I] * 6 + [_F, _I, _P],
+    # B, T, C, K -> floats of melgan_stack_bwd's partial buffer
+    "melgan_stack_bwd_part_floats": [_I] * 4,
+    # x, y, dy, dx, dpre, dxp, part, w, dw, db, part_floats, B, T, C, Cout,
+    # K, mode, slope, device, stream
+    "melgan_outconv_bwd": [_P] * 10 + [ctypes.c_longlong] + [_I] * 6 + [_F, _I, _P],
+    # B, T, C, Cout, K -> floats of melgan_outconv_bwd's partial buffer
+    "melgan_outconv_bwd_part_floats": [_I] * 5,
     # x, c, mean, rstd, x2, a, aux_w, aux_b, g_w, g_b, gc_w, gc_b, B, T,
     # gate, device, stream
     "tade1": [_P] * 12 + [_I] * 4 + [_P],
@@ -121,11 +132,11 @@ def launch_target(x) -> tuple:
 
 def refuse_training(name: str, tensors) -> None:
     """Raise when a forward through kernel ``name``, which has no backward
-    yet, would need gradients."""
+    on this path, would need gradients."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{name} is inference-only (its backward is not ported, see "
+            f"{name} is inference-only (no backward on this path, see "
             "ROADMAP.md): run the forward under torch.inference_mode() or "
             "torch.no_grad()")
 
@@ -146,9 +157,12 @@ def sources(csrc: str = CSRC) -> list[str]:
 
 
 def source_digest(paths: list[str]) -> str:
-    """Hash of the flags and of every source's name and content."""
+    """Hash of the flags and of the name and content of every source and of
+    every header (``*.cuh``) in the sources' directories."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for path in paths:
+    dirs = sorted({os.path.dirname(path) for path in paths})
+    headers = [h for d in dirs for h in sorted(glob.glob(os.path.join(d, "*.cuh")))]
+    for path in paths + headers:
         with open(path, "rb") as f:
             digest.update(os.path.basename(path).encode() + b"\0" + f.read() + b"\0")
     return digest.hexdigest()[:16]

@@ -16,9 +16,10 @@ the padding applied inside the kernel; for a CPU tensor it runs the plain
 PyTorch version ``melgan_stacks_reference``. A CUDA tensor never takes
 the plain path: the JAX wrapper's edge stitching, which recomputes the
 first and last outputs with the XLA twin, is not carried over. The TPU
-tiling (``t_tile``) and lane packing do not carry over either. The kernel
-has no backward yet (ROADMAP.md K7), so a forward that would need
-gradients raises.
+tiling (``t_tile``) and lane packing do not carry over either. This
+wrapper is inference-only, as the JAX ``fused_melgan_stacks`` has no VJP,
+so a forward that would need gradients raises; the differentiable stage
+is ``ops/kernels/melgan_stack_train.py`` (K6 forward, K7 backward).
 """
 
 from __future__ import annotations
@@ -115,17 +116,19 @@ def _check_cuda_inputs(x, stacks, final, pad_mode) -> None:
             build.check_tensor("final b", fb, x.device, (out_ch,))
 
 
-def _run_cuda(x, stacks, final, slope: float, pad_mode: str):
+def _run_cuda(x, stacks, final, slope: float, pad_mode: str, outs=None):
     """One launch per stack (ping-pong between two buffers), then one for
-    ``final``, on the current stream."""
+    ``final``, on the current stream. Given a list ``outs``, each stack
+    writes a buffer of its own and appends it to ``outs``."""
     lib = build.load()
     dev, stream = build.launch_target(x)
     mode = _MODES[pad_mode][1]
     b, t, c = x.shape
-    bufs = [torch.empty_like(x) for _ in range(min(2, len(stacks)))]
+    n_bufs = len(stacks) if outs is not None else min(2, len(stacks))
+    bufs = [torch.empty_like(x) for _ in range(n_bufs)]
     src = x
     for i, st in enumerate(stacks):
-        dst = bufs[i % 2]
+        dst = bufs[i % n_bufs]
         ptrs = [st["wd"], _bias(st["bd"], c, x), st["w1"], _bias(st["b1"], c, x),
                 st["ws"], _bias(st["bs"], c, x)]
         lib.call("melgan_stack", src.data_ptr(), dst.data_ptr(),
@@ -133,6 +136,8 @@ def _run_cuda(x, stacks, final, slope: float, pad_mode: str):
                  int(st["dilation"]), mode, slope, dev, stream)
         fused_melgan_stacks.launches += 1
         src = dst
+    if outs is not None:
+        outs.extend(bufs)
     if final is None:
         return src
     fw, fb = final
@@ -156,7 +161,8 @@ def fused_melgan_stacks(x, stacks, *, final=None, slope: float = 0.2,
     counts the calls that ran the kernel, ``.launches`` its launches.
     """
     tensors = [x] + [st[k] for st in stacks for k in ("wd", "bd", "w1", "b1", "ws", "bs")]
-    build.refuse_training("the fused MelGAN stack kernel (K6, backward K7)",
+    build.refuse_training("the fused MelGAN stack kernel (K6; train through "
+                          "fused_melgan_stacks_train)",
                           tensors + (list(final) if final is not None else []))
     _pad_mode(pad_mode)
     if x.device.type == "cpu":

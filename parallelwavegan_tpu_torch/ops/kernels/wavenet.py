@@ -13,11 +13,14 @@ wres (L, C_g/2, C_r), bres (L, C_r).
 For a CUDA tensor the wrappers run the hand-written kernel
 (csrc/wavenet.cu), one launch per layer; K5 is its one-layer call with
 the causal flag. For a CPU tensor they run the plain PyTorch versions
-below. A CUDA tensor never takes the plain path. The TPU tiling knobs
-(``t_tile``) and the whole-cycle VMEM residency do not carry over. These
-two wrappers are inference-only, as the JAX ``fused_wavenet_stack`` has
+below. A CUDA tensor never takes the plain forward. The TPU tiling knobs
+(``t_tile``) and the whole-cycle VMEM residency do not carry over. The
+stack wrappers are inference-only, as the JAX ``fused_wavenet_stack`` has
 no VJP, so a forward that would need gradients raises; the differentiable
-cycle is ``ops/kernels/wavenet_train.py`` (K3 forward, K4 backward).
+cycle is ``ops/kernels/wavenet_train.py`` (K3 forward, K4 backward). The
+block (K5) trains as the JAX ``fused_gated_resblock`` does
+(wavenet.py:292-313): its backward is autograd of the plain block on the
+saved inputs.
 """
 
 from __future__ import annotations
@@ -173,6 +176,40 @@ def fused_wavenet_cycle(x, c, weights, dilations, *,
     return x, skips
 
 
+class _GatedResblock(torch.autograd.Function):
+    """(x, c, dilation, causal, *block weights in ``WEIGHT_KEYS`` order) ->
+    (residual_out, skip_out): the kernel (or, on the CPU, the plain block)
+    forward; the backward is autograd of ``gated_resblock_reference`` on
+    the saved inputs, the JAX ``_bwd`` (wavenet.py:305-310)."""
+
+    @staticmethod
+    def forward(ctx, x, c, dilation, causal, *args):
+        ctx.block = (dilation, causal)
+        ctx.save_for_backward(x, c, *args)
+        if x.device.type == "cpu":
+            return gated_resblock_reference(x, c, *args, dilation=dilation,
+                                            causal=causal)
+        weights = {k: None if v is None else v[None]
+                   for k, v in zip(WEIGHT_KEYS, args)}
+        _check_cuda_inputs(x, c, weights, 1)
+        return _run_layers(x, c, weights, (dilation,), causal,
+                           fused_gated_resblock)
+
+    @staticmethod
+    def backward(ctx, dres, dskip):
+        dilation, causal = ctx.block
+        leaves = [None if v is None else v.detach().requires_grad_()
+                  for v in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = gated_resblock_reference(*leaves, dilation=dilation,
+                                           causal=causal)
+            used = [v for v in leaves if v is not None]
+            grads = iter(torch.autograd.grad(out, used, (dres, dskip),
+                                             allow_unused=True))
+        dx, dc, *dw = (None if v is None else next(grads) for v in leaves)
+        return (dx, dc, None, None, *dw)
+
+
 def fused_gated_resblock(x, c, conv_kernel, conv_bias, aux_kernel,
                          skip_kernel, skip_bias, res_kernel, res_bias,
                          dilation: int = 1, causal: bool = False):
@@ -180,20 +217,14 @@ def fused_gated_resblock(x, c, conv_kernel, conv_bias, aux_kernel,
 
     A CUDA tensor goes through the kernel's one-layer call (the widths of
     ``fused_wavenet_stack``; biases and c required); a CPU tensor goes
-    through ``gated_resblock_reference``. ``fused_gated_resblock.launches``
-    counts the kernel launches.
+    through ``gated_resblock_reference``. Differentiable in every input:
+    the backward is autograd of the plain block, as in JAX.
+    ``fused_gated_resblock.launches`` counts the kernel launches.
     """
-    args = (conv_kernel, conv_bias, aux_kernel, skip_kernel, skip_bias,
-            res_kernel, res_bias)
-    build.refuse_training("the fused gated block (K5)", [x, c, *args])
-    if _device_of(x, "fused_gated_resblock") == "cpu":
-        return gated_resblock_reference(x, c, *args, dilation=dilation,
-                                        causal=causal)
-    weights = {k: None if v is None else v[None]
-               for k, v in zip(WEIGHT_KEYS, args)}
-    _check_cuda_inputs(x, c, weights, 1)
-    return _run_layers(x, c, weights, (dilation,), causal,
-                       fused_gated_resblock)
+    _device_of(x, "fused_gated_resblock")
+    return _GatedResblock.apply(x, c, int(dilation), bool(causal), conv_kernel,
+                                conv_bias, aux_kernel, skip_kernel, skip_bias,
+                                res_kernel, res_bias)
 
 
 fused_gated_resblock.launches = 0

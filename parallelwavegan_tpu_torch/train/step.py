@@ -42,10 +42,13 @@ def batch_to_device(batch: dict, device) -> dict:
 
 def generator_forward(config: dict, generator, batch: dict) -> torch.Tensor:
     """The generator's output (B, out, T) for a batch (train.py:1109-1117
-    feature flags: Parallel WaveGAN takes noise and the mel)."""
+    feature flags: Parallel WaveGAN takes noise and the mel, MelGAN the mel
+    alone, as JAX's step.py:83-84)."""
     gen_type = config["generator_type"]
     if gen_type == "ParallelWaveGANGenerator":
         return generator(batch["z"], batch["c"])
+    if gen_type == "MelGANGenerator":
+        return generator(batch["c"])
     raise NotImplementedError(
         f"training {gen_type} is not ported to parallelwavegan_tpu_torch yet; "
         "see ROADMAP.md")

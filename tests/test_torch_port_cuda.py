@@ -1,6 +1,7 @@
 """The port's CUDA kernels on a CUDA device, against their plain versions:
-the fused HiFi-GAN tail, the fused WaveNet layer (stack and block) and
-its backward (K4), the MelGAN stack kernel (K6), the MRF stage on the
+the fused HiFi-GAN tail, the fused WaveNet layer (stack and block, the
+block's training by autograd of its plain version) and its backward (K4),
+the MelGAN stack kernel (K6) and its backward (K7), the MRF stage on the
 residual-unit kernel (K2) and the StyleMelGAN TADE kernels (K8a, K8b).
 The generator tests also check that no CUDA tensor reaches a plain
 version on the main path.
@@ -220,14 +221,26 @@ def test_wavenet_kernel_rejects_unsupported_input(cuda):
                             c, w, (1,))
 
 
-def _assert_grads_close(cases):
-    """|got - want| <= 2e-4 + 1e-3 |want| for each (name, got, want), the
-    JAX K4 test's tolerance (tests/test_wavenet_stack_train.py:70-72)."""
+def _grads_miss(g, r, strict) -> bool:
+    """True where g misses r: |g - r| > 2e-4 + 1e-3 |r| anywhere, the JAX
+    K4 test's tolerance (tests/test_wavenet_stack_train.py:70-72), or, when
+    ``strict``, max|g - r| > 1e-4 max|r|."""
+    d = (g - r).abs()
+    return (g.shape != r.shape or not bool(torch.isfinite(g).all())
+            or not bool((d <= 2e-4 + 1e-3 * r.abs()).all())
+            or (strict and float(d.max()) > 1e-4 * float(r.abs().max())))
+
+
+def _assert_grads_close(cases, strict=False):
+    """Each (name, got, want) within tolerance. ``strict`` is for gradients
+    of order one (a unit cotangent): it adds the 1e-4 max|want| bound, and
+    each ``got`` zeroed in turn must be rejected. A gradient that is zero
+    up to rounding, such as that of a weight-norm direction of one element,
+    has no relative error to hold."""
     for name, g, r in cases:
-        assert g.shape == r.shape, name
-        assert torch.isfinite(g).all(), name
-        assert bool(((g - r).abs() <= 2e-4 + 1e-3 * r.abs()).all()), (
-            name, float((g - r).abs().max()))
+        assert not _grads_miss(g, r, strict), (name, float((g - r).abs().max()))
+        if strict:
+            assert _grads_miss(torch.zeros_like(g), r, strict), f"zeroed {name} passed"
 
 
 def _k4_case(cuda, ch, ca, b, t, bias, n_layers=5, seed=7):
@@ -260,7 +273,7 @@ def test_wavenet_backward_matches_plain_version(cuda, ch, ca, b, t, bias, dils):
     assert wavenet_stack_backward.launches == before + len(dils)
     rdx, rdc, rdw = wavenet_stack_backward_reference(x, c, w, dils, dxo, dsk)
     _assert_grads_close([("dx", dx, rdx), ("dc", dc, rdc)]
-                        + [(k, dw[k], rdw[k]) for k in WEIGHT_KEYS])
+                        + [(k, dw[k], rdw[k]) for k in WEIGHT_KEYS], strict=True)
 
 
 def test_wavenet_backward_is_deterministic(cuda):
@@ -410,6 +423,138 @@ def test_melgan_kernel_rejects_unsupported_input(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         stack_mod.fused_melgan_stacks(
             torch.zeros(1, 32, 64, device=cuda).transpose(1, 2), stacks)
+
+
+def _k7_case(cuda, c, b, t, out_ch, bias, dils, seed=3):
+    stacks = _on(_melgan_stacks(c, dils, seed=seed, bias=bias), cuda)
+    rs = np.random.RandomState(seed + 1)
+
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy((rs.randn(*shape) * scale).astype(np.float32)).to(cuda)
+
+    final = None
+    if out_ch is not None:
+        final = (randn(7, c, out_ch, scale=0.5 / (7 * c) ** 0.5),
+                 randn(out_ch, scale=0.1) if bias else None)
+    return stacks, final, randn(b, t, c), randn(b, t, out_ch or c)
+
+
+def _k7_grads(dx, dstacks, dfinal):
+    out = [("dx", dx)]
+    for i, d in enumerate(dstacks):
+        out += [(f"stacks[{i}].{k}", v) for k, v in d.items() if v is not None]
+    for name, v in zip(("final w", "final b"), dfinal or ()):
+        if v is not None:
+            out.append((name, v))
+    return out
+
+
+# MelGAN v1's widths (128, 64 with the final conv to 1, 32 with T just
+# above the reflect pad of 9), ragged replicate and zero cases with the
+# final conv to 4, a width of two 64-channel pieces without biases, and
+# T below the pad (replicate)
+@pytest.mark.parametrize("c,b,t,mode,out_ch,bias,dils", [
+    (128, 2, 1000, "reflect", None, True, (1, 3, 9)),
+    (64, 1, 777, "reflect", 1, True, (1, 3, 9)),
+    (32, 1, 10, "reflect", 1, True, (1, 3, 9)),
+    (48, 2, 1000, "edge", 4, True, (1, 3, 9)),
+    (48, 2, 1000, "constant", 4, True, (1, 3, 9)),
+    (80, 1, 333, "edge", None, False, (1, 3, 9, 27)),
+    (16, 3, 5, "edge", 2, True, (1, 3)),
+])
+def test_melgan_stacks_backward_matches_plain_version(cuda, c, b, t, mode, out_ch,
+                                                      bias, dils):
+    from parallelwavegan_tpu_torch.ops.kernels import melgan_stack_train as k7
+
+    stacks, final, x, dy = _k7_case(cuda, c, b, t, out_ch, bias, dils)
+    before = k7.melgan_stacks_backward.launches
+    got = k7.melgan_stacks_backward(x, stacks, final, 0.2, mode, dy)
+    torch.cuda.synchronize()
+    assert k7.melgan_stacks_backward.launches == before + len(dils) + (final is not None)
+    want = k7.melgan_stacks_backward_reference(x, stacks, final, 0.2, mode, dy)
+    got, want = _k7_grads(*got), _k7_grads(*want)
+    assert [n for n, _ in got] == [n for n, _ in want]
+    _assert_grads_close([(n, g, r) for (n, g), (_, r) in zip(got, want)], strict=True)
+
+
+def test_melgan_stacks_backward_is_deterministic(cuda):
+    from parallelwavegan_tpu_torch.ops.kernels.melgan_stack_train import (
+        melgan_stacks_backward,
+    )
+
+    stacks, final, x, dy = _k7_case(cuda, 64, 2, 3000, 1, True, (1, 3, 9))
+    first = _k7_grads(*melgan_stacks_backward(x, stacks, final, 0.2, "reflect", dy))
+    second = _k7_grads(*melgan_stacks_backward(x, stacks, final, 0.2, "reflect", dy))
+    torch.cuda.synchronize()
+    for (name, a), (_, b) in zip(first, second):
+        assert torch.equal(a, b), name
+
+
+def test_melgan_generator_trains_through_the_kernels(cuda, monkeypatch):
+    from parallelwavegan_tpu_torch.ops.kernels import melgan_stack_train as k7
+
+    cls = get_model_class("MelGANGenerator")
+    small = dict(in_channels=16, out_channels=1, channels=256,
+                 upsample_scales=(4, 2, 2), stacks=3)
+    plain = cls(**small, generator=torch.Generator().manual_seed(4)).to(cuda)
+    # unit-norm filters (every weight-norm scale 1) and a unit cotangent keep
+    # every gradient of order one: the N(0, 0.02) init leaves them far
+    # under the 2e-4 term
+    with torch.no_grad():
+        for k, p in plain.named_parameters():
+            if k.endswith("weight_g"):
+                p.fill_(1.0)
+    gen = cls(**small, use_pallas_stacks_train=True).to(cuda)
+    gen.load_state_dict(plain.state_dict())
+    assert gen.fused_stages == (0, 1, 2)
+    c = torch.randn(2, 16, 40, generator=torch.Generator().manual_seed(5)).to(cuda)
+    cot = torch.randn(2, 1, 40 * 16, generator=torch.Generator().manual_seed(6)).to(cuda)
+    (plain(c) * cot).sum().backward()
+    _refuse(monkeypatch, k7, "melgan_stacks_reference")
+    _refuse(monkeypatch, k7, "melgan_stacks_backward_reference")
+    before = k7.melgan_stacks_backward.launches
+    (gen(c) * cot).sum().backward()
+    torch.cuda.synchronize()
+    assert k7.melgan_stacks_backward.launches == before + 10  # 9 stacks, final
+    want = dict(plain.named_parameters())
+    _assert_grads_close([(k, p.grad, want[k].grad) for k, p in gen.named_parameters()],
+                        strict=True)
+    with torch.no_grad():  # the D phase's re-run: K6 alone
+        calls = stack_mod.fused_melgan_stacks.calls
+        gen(c)
+    assert stack_mod.fused_melgan_stacks.calls == calls + 3
+
+
+def test_melgan_backward_rejects_unsupported_input(cuda):
+    from parallelwavegan_tpu_torch.ops.kernels.melgan_stack_train import (
+        melgan_stacks_backward,
+    )
+
+    stacks, final, x, dy = _k7_case(cuda, 32, 1, 64, None, True, (1,))
+    with pytest.raises(ValueError, match="dy"):
+        melgan_stacks_backward(x, stacks, final, 0.2, "reflect", dy[:, :32])
+    with pytest.raises(ValueError, match="reflect padding"):
+        melgan_stacks_backward(x[:, :9], _on(_melgan_stacks(32, (9,), 0), cuda),
+                               None, 0.2, "reflect", dy[:, :9])
+
+
+def test_gated_resblock_trains_on_the_card(cuda):
+    """K5 forward, backward by autograd of the plain block (as JAX)."""
+    w = _wavenet_weights(1, 64, 80, seed=2)
+    rs = np.random.RandomState(3)
+    inputs = [torch.from_numpy(rs.randn(2, 777, 64).astype(np.float32)),
+              torch.from_numpy(rs.randn(2, 777, 80).astype(np.float32))]
+    inputs += [w[key][0] for key in WEIGHT_KEYS]
+    grads = []
+    for fn in (fused_gated_resblock, gated_resblock_reference):
+        leaves = [v.to(cuda).requires_grad_() for v in inputs]
+        before = fused_gated_resblock.launches
+        r, s = fn(*leaves, dilation=4, causal=True)
+        ((r ** 2).sum() + (s ** 2).sum()).backward()
+        torch.cuda.synchronize()
+        grads.append([v.grad for v in leaves])
+        assert fused_gated_resblock.launches == before + (fn is fused_gated_resblock)
+    _assert_grads_close([(f"input {i}", g, r) for i, (g, r) in enumerate(zip(*grads))])
 
 
 @pytest.mark.parametrize("c,b,t", [(64, 1, 4099), (32, 2, 1000), (128, 1, 777),

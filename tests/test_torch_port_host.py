@@ -125,7 +125,9 @@ def test_library_hash_covers_every_source(tmp_path):
         os.path.basename(p) for p in build.sources()]
     base = build.source_digest(srcs)
     assert base == build.source_digest(build.sources())
-    for path in srcs:  # an edit of any one source changes the hash
+    headers = sorted(str(p) for p in csrc.glob("*.cuh"))
+    assert headers  # the row products K4 and K7 share
+    for path in srcs + headers:  # an edit of any one source or header changes it
         text = open(path).read()
         with open(path, "w") as f:
             f.write(text + "\n// edit\n")

@@ -366,14 +366,17 @@ def test_causal_variant_raises(cls, kw):
 
 def test_training_forward_through_the_kernel_raises():
     x = torch.from_numpy(MEL).transpose(1, 2)
-    for flag in ("use_pallas_stacks", "use_pallas_stacks_train"):
-        port = get_model_class(MELGAN)(**SMALL, **{flag: True},
-                                       pallas_stacks_train_tile=64)
-        with pytest.raises(RuntimeError, match="inference-only"):
-            port(x)
-    port = get_model_class(MELGAN)(**SMALL)  # the plain path trains
-    port(x).sum().backward()
-    assert port.melgan[1].weight_v.grad is not None
+    # the decode kernel's wrapper (K6 alone) has no VJP, as in JAX
+    port = get_model_class(MELGAN)(**SMALL, use_pallas_stacks=True)
+    with pytest.raises(RuntimeError, match="inference-only"):
+        port(x)
+    # the plain path and the differentiable stages (K6 forward, K7
+    # backward) train, and the stacks' weight gradients reach weight norm
+    for kw in ({}, dict(use_pallas_stacks_train=True, pallas_stacks_train_tile=64)):
+        port = get_model_class(MELGAN)(**SMALL, **kw)
+        port(x).sum().backward()
+        assert port.melgan[1].weight_v.grad is not None
+        assert port.melgan[4].stack[2].weight_g.grad.abs().sum() > 0
 
 
 def test_random_init_is_seeded_normal_002():

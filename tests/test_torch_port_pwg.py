@@ -27,6 +27,9 @@ from parallelwavegan_tpu.convert.torch_checkpoint import (  # noqa: E402
 from parallelwavegan_tpu.layers import residual_block as jax_rb  # noqa: E402
 from parallelwavegan_tpu.layers import upsample as jax_up  # noqa: E402
 from parallelwavegan_tpu.models import get_model_class as jax_model_class  # noqa: E402
+from parallelwavegan_tpu.ops.pallas_kernels.wavenet import (  # noqa: E402
+    fused_gated_resblock as jax_fused_gated_resblock,
+)
 from parallelwavegan_tpu.utils.model import InferenceModel as JaxInferenceModel  # noqa: E402
 from parallelwavegan_tpu_torch.bin import decode  # noqa: E402
 from parallelwavegan_tpu_torch.convert.jax_params import (  # noqa: E402
@@ -373,17 +376,44 @@ def test_load_model_defaults_to_the_gpu(tmp_path):
 
 
 def test_training_forward_through_a_kernel_raises():
-    # the inference-only kernel paths have no VJP, as in JAX
-    for flag in ("use_pallas_stack", "use_pallas_kernels"):
-        port = get_model_class(PWG)(**SMALL, **{flag: True})
-        with pytest.raises(RuntimeError, match="inference-only"):
-            port(_ncl(Z), _ncl(C))
-    # the plain path and the differentiable cycle (K3 forward, K4 backward) train
-    for kw in ({}, {"use_pallas_stack_train": True}):
+    # the inference-only stack kernel (K3 alone) has no VJP, as in JAX
+    port = get_model_class(PWG)(**SMALL, use_pallas_stack=True)
+    with pytest.raises(RuntimeError, match="inference-only"):
+        port(_ncl(Z), _ncl(C))
+    # the plain path, the differentiable cycle (K3 forward, K4 backward) and
+    # the block kernel (K5 forward, autograd of the plain block backward,
+    # JAX's custom_vjp) train
+    for kw in ({}, {"use_pallas_stack_train": True}, {"use_pallas_kernels": True}):
         port = get_model_class(PWG)(**SMALL, **kw)
         port(_ncl(Z), _ncl(C)).sum().backward()
         assert port.first_conv.weight_v.grad is not None
         assert port.conv_layers[0].conv.weight_g.grad is not None
+
+
+def test_block_kernel_grads_match_jax_fused_gated_resblock():
+    """The port's ``fused_gated_resblock`` (its plain forward on the CPU,
+    its backward autograd of the plain block) against the JAX
+    ``fused_gated_resblock`` in interpret mode, causal and not, within
+    2e-4."""
+    rs = np.random.RandomState(9)
+    arrays = [(rs.randn(2, 60, 8) * 0.5).astype(np.float32),
+              (rs.randn(2, 60, 10) * 0.5).astype(np.float32)]
+    for shape in ((3, 8, 16), (16,), (10, 16), (8, 8), (8,), (8, 8), (8,)):
+        arrays.append((rs.randn(*shape) * 0.3).astype(np.float32))
+    cot = [rs.randn(2, 60, 8).astype(np.float32) for _ in range(2)]
+    for dilation, causal in ((2, False), (4, True)):
+        def f(*args):
+            return jax_fused_gated_resblock(*args, dilation=dilation, causal=causal,
+                                            t_tile=32, interpret=True)
+
+        _, vjp = jax.vjp(f, *map(jnp.asarray, arrays))
+        want = vjp(tuple(map(jnp.asarray, cot)))
+        leaves = [torch.tensor(a, requires_grad=True) for a in arrays]
+        r, s = fused_gated_resblock(*leaves, dilation=dilation, causal=causal)
+        torch.autograd.backward((r, s), tuple(map(torch.from_numpy, cot)))
+        for i, (leaf, w) in enumerate(zip(leaves, want)):
+            np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(w), atol=2e-4,
+                                       err_msg=f"input {i}, dilation {dilation}")
 
 
 @pytest.mark.parametrize("kw,what", [

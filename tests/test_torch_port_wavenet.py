@@ -87,17 +87,27 @@ def test_gated_resblock_matches_jax(dilation, causal):
 
 
 def test_wrappers_refuse_a_training_forward():
+    """The stack wrapper (K3, no VJP in JAX) refuses a forward that needs
+    gradients; the block (K5, JAX's custom_vjp) trains, with the plain
+    block's gradients."""
     rs = np.random.RandomState(2)
     w = {k: _t(v) for k, v in _weights(rs, 2).items()}
     x = _t(rs.randn(1, 20, 8).astype(np.float32)).requires_grad_()
     c = _t(rs.randn(1, 20, 10).astype(np.float32))
     with pytest.raises(RuntimeError, match="inference-only"):
         wavenet.fused_wavenet_stack(x, c, w, (1, 2))
-    with pytest.raises(RuntimeError, match="inference-only"):
-        wavenet.fused_gated_resblock(x, c, *(w[k][0] for k in KEYS))
     with torch.no_grad():
         out, skip = wavenet.fused_wavenet_stack(x, c, w, (1, 2))
     assert out.shape == (1, 20, 8) and skip.shape == (1, 20, 8)
+    grads = []
+    for fn in (wavenet.fused_gated_resblock, wavenet.gated_resblock_reference):
+        leaves = [x.detach().clone().requires_grad_()] + [
+            w[k][0].clone().requires_grad_() for k in KEYS]
+        r, s = fn(leaves[0], c, *leaves[1:], dilation=2, causal=False)
+        ((r ** 2).sum() + s.sum()).backward()
+        grads.append([v.grad for v in leaves])
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 def test_wrappers_refuse_other_devices():
