@@ -108,6 +108,30 @@ Phases (any failure exits non-zero; nothing is caught):
    checkpoint decodes through ``bin/decode.main`` (K6: 10 launches per
    utterance).
 
+20. The TADE backward kernels (K9a, K9b) against their plain versions
+   (autograd through the plain stage or block): StyleMelGAN v1's blocks
+   4-8 at the training shapes (B=32; T = 1408 .. 22528, scales 2 then 1,
+   d=2, softmax), each stage alone, each block and the chain of the five,
+   ragged cases (B=2, T=1002, scales 2 and 1, softmax and sigmoid; no
+   biases; T=18, just above the backward's halo of 16 rows), under random
+   weights of unit gain and a random cotangent of scale 1 / sqrt(B sT),
+   |diff| <= 2e-4 + 1e-3 |plain| and max|diff| <= 1e-4 max|plain| on dx,
+   dc and all 12 weight and bias gradients, with zeroed and shifted
+   gradients as controls that must be rejected; two runs bit for bit;
+   CUDA-event times of K9a and K9b over blocks 4-8 beside their plain
+   versions and bounds, and a torch.profiler split of block 8.
+21. The split of one StyleMelGAN v1 train step (B=32, T=22528) with
+   ``use_pallas_tade_train`` and without, as phase 15.
+22. StyleMelGAN v1 training through ``bin/train.main``:
+   style_melgan.v1.yaml (V1_STYLE_CONFIG) plus ``use_pallas_tade_train:
+   true`` at full width and the shipped batch with TRAIN_OVERRIDES, on an
+   npy dump of STYLE_TRAIN_UTTS synthetic utterances (100-131 frames; a
+   batch of 32 needs 32 of them), with the kernels (K9a and K9b: 5
+   launches each per G step, 20 in all) and without; losses agree to 1e-4
+   relative at every step, a resume from step 2 reproduces steps 3-4, and
+   the final checkpoint decodes through ``bin/decode.main`` (K8a: 7
+   launches per utterance, noise padded to 352 frames).
+
 Phase 3 also decodes HiFi-GAN v1 with ``use_pallas_mrf: true`` in the
 config (K2 called twice per utterance, stages 2 and 3, 8 launches) and
 holds it to the plain decode. Launch counts are reset just before each
@@ -229,6 +253,47 @@ V1_STYLE_GENERATOR = dict(
     upsample_scales=[2, 2, 2, 2, 2, 2, 2, 2, 1], upsample_mode="nearest",
     gated_function="softmax", use_weight_norm=True,
 )
+# the whole of egs/ljspeech/voc1/conf/style_melgan.v1.yaml (a test holds it
+# equal to the file); phases 20-22 add use_pallas_tade_train: true
+V1_STYLE_CONFIG = dict(
+    V1_FEATURES, global_gain_scale=1.0, trim_silence=False,
+    trim_threshold_in_db=60, trim_frame_size=1024, trim_hop_size=256,
+    format="hdf5", generator_type="StyleMelGANGenerator",
+    generator_params=V1_STYLE_GENERATOR,
+    discriminator_type="StyleMelGANDiscriminator",
+    discriminator_params=dict(
+        repeats=4, window_sizes=[512, 1024, 2048, 4096],
+        pqmf_params=[[1, None, None, None], [2, 62, 0.267, 9.0],
+                     [4, 62, 0.142, 9.0], [8, 62, 0.07949, 9.0]],
+        discriminator_params=dict(
+            out_channels=1, kernel_sizes=[5, 3], channels=16,
+            max_downsample_channels=512, bias=True, downsample_scales=[4, 4, 4, 1],
+            nonlinear_activation="LeakyReLU",
+            nonlinear_activation_params={"negative_slope": 0.2}),
+        use_weight_norm=True),
+    stft_loss_params=V1_PWG_CONFIG["stft_loss_params"], lambda_aux=1.0,
+    lambda_adv=1.0, generator_adv_loss_params={"average_by_discriminators": False},
+    discriminator_adv_loss_params={"average_by_discriminators": False},
+    batch_size=32, batch_max_steps=22528, pin_memory=True, num_workers=2,
+    remove_short_samples=False, allow_cache=True,
+    generator_optimizer_type="Adam",
+    generator_optimizer_params=dict(lr=1.0e-4, betas=[0.5, 0.9], weight_decay=0.0),
+    generator_scheduler_type="MultiStepLR",
+    generator_scheduler_params=dict(
+        gamma=0.5, milestones=[100000, 300000, 500000, 700000, 900000]),
+    generator_grad_norm=-1, discriminator_optimizer_type="Adam",
+    discriminator_optimizer_params=dict(lr=2.0e-4, betas=[0.5, 0.9], weight_decay=0.0),
+    discriminator_scheduler_type="MultiStepLR",
+    discriminator_scheduler_params=dict(
+        gamma=0.5, milestones=[200000, 400000, 600000, 800000]),
+    discriminator_grad_norm=-1, discriminator_train_start_steps=100000,
+    train_max_steps=1500000, save_interval_steps=50000, eval_interval_steps=1000,
+    log_interval_steps=100, num_save_intermediate_results=4,
+)
+# phase 22's dump: the loader drops incomplete batches, so a batch of 32
+# needs 32 utterances; 100-131 frames, each longer than a crop of 88
+STYLE_TRAIN_UTTS = 32
+STYLE_TRAIN_FRAMES = (100, 131)
 # a 512-frame StyleMelGAN decode: noise length ceil(512 / 88) = 6, rounded
 # up to 8, so the mel is edge-padded to 8 * 88 = 704 frames
 STYLE_FRAMES = 704
@@ -297,10 +362,13 @@ def _reset_launch_counts() -> None:
         fused_tade_blocks,
     )
 
+    from parallelwavegan_tpu_torch.ops.kernels.tade_train import tade_block_backward
+
     for fn in (fused_melgan_stacks, fused_hifigan_mrf):
         fn.launches = fn.calls = 0
     fused_tade_blocks.calls = 0
     fused_tade_blocks.launches_k8a = fused_tade_blocks.launches_k8b = 0
+    tade_block_backward.launches_k9a = tade_block_backward.launches_k9b = 0
 
 
 def _bound(flops: float, nbytes: float) -> dict:
@@ -1782,8 +1850,8 @@ def phase_melgan_train_split(card: str) -> None:
     _train_split(card, "MelGAN v1", _melgan_v1_config, batch)
 
 
-def _write_train_dump(root: str) -> str:
-    """An npy dump of TRAIN_UTTS synthetic utterances (150-300 frames):
+def _write_train_dump(root: str, utts: int = TRAIN_UTTS, span=(150, 300)) -> str:
+    """An npy dump of ``utts`` synthetic utterances (``span`` frames):
     ``*-wave.npy`` and ``*-feats.npy`` from the port's ``ops/mel.py``."""
     import numpy as np
 
@@ -1794,8 +1862,8 @@ def _write_train_dump(root: str) -> str:
     rs = np.random.RandomState(SEED)
     hop, fs = V1_FEATURES["hop_size"], V1_FEATURES["sampling_rate"]
     feats = {k: v for k, v in V1_FEATURES.items() if k != "sampling_rate"}
-    for i in range(TRAIN_UTTS):
-        frames = 150 + 150 * i // (TRAIN_UTTS - 1)
+    for i in range(utts):
+        frames = span[0] + (span[1] - span[0]) * i // (utts - 1)
         n = frames * hop
         t = np.arange(n) / fs
         audio = (0.3 * np.sin(2 * np.pi * (110.0 + 20.0 * i) * t)
@@ -1822,22 +1890,23 @@ def _losses_agree(name: str, got: dict, want: dict, steps) -> float:
 
 
 def _train_runs(card: str, label: str, config_of, counters: dict, expect: dict,
-                decode_counter, per_utt: int) -> dict:
+                decode_count, decode_expect: int, utts: int = TRAIN_UTTS,
+                span=(150, 300)) -> dict:
     """Training through ``bin/train.main`` on the card: ``config_of(kernel,
-    **TRAIN_OVERRIDES)`` at full width from SEED on TRAIN_UTTS utterances,
-    with the kernels and again without, then a resume from the step-2
-    checkpoint; the launches of each kernel in ``counters`` must equal
-    ``expect[run]``. The logged losses of the kernel and plain runs, and of
-    the resumed and uninterrupted runs, agree to 1e-4 relative; the final
-    checkpoint decodes through ``bin/decode.main`` with ``per_utt``
-    launches of ``decode_counter`` per utterance."""
+    **TRAIN_OVERRIDES)`` at full width from SEED on ``utts`` utterances of
+    ``span`` frames, with the kernels and again without, then a resume from
+    the step-2 checkpoint; the launches in ``counters`` (name -> a function
+    that reads the count) must equal ``expect[run]``. The logged losses of
+    the kernel and plain runs, and of the resumed and uninterrupted runs,
+    agree to 1e-4 relative; the final checkpoint decodes through
+    ``bin/decode.main`` with ``decode_count()`` at ``decode_expect``."""
     import numpy as np
 
     from parallelwavegan_tpu_torch.bin import decode, train
 
     root = os.path.join(WORK, "train")
     shutil.rmtree(root, ignore_errors=True)
-    dump = _write_train_dump(root)
+    dump = _write_train_dump(root, utts, span)
     configs = {}
     for name, kernel in (("kernel", True), ("plain", False)):
         configs[name] = os.path.join(root, f"config_{name}.json")
@@ -1856,7 +1925,7 @@ def _train_runs(card: str, label: str, config_of, counters: dict, expect: dict,
              os.path.join(root, f"exp_{name}"), "--device", "cuda", "--verbose", "0",
              "--config", configs["plain" if name == "plain" else "kernel"]] + extra)
         seconds = time.perf_counter() - t0
-        launches[name] = tuple(fn.launches for fn in counters.values())
+        launches[name] = tuple(count() for count in counters.values())
         print(f"main path [{label} training, {name}]: {res[name]['steps']} steps in "
               f"{seconds:.1f} s (set-up, eval and saves included) on {card}; "
               + ", ".join(f"{k} launches = {n}" for k, n in zip(counters, launches[name])))
@@ -1894,16 +1963,16 @@ def _train_runs(card: str, label: str, config_of, counters: dict, expect: dict,
     from scipy.io import wavfile
 
     wavs = sorted(os.listdir(wavdir))
-    if len(wavs) != TRAIN_UTTS or decode_counter.launches != TRAIN_UTTS * per_utt:
+    if len(wavs) != utts or decode_count() != decode_expect:
         _fail(f"decode of the trained {label} checkpoint: {wavs}, launches "
-              f"{decode_counter.launches}")
+              f"{decode_count()}, expected {decode_expect}")
     for name in wavs:
         _, data = wavfile.read(os.path.join(wavdir, name))
         frames = np.load(os.path.join(dump, name.replace("_gen.wav", ".npy"))).shape[0]
         if data.shape != (frames * V1_FEATURES["hop_size"],) or not data.any():
             _fail(f"decode of the trained {label} checkpoint: {name} {data.shape}")
     print(f"decode of the {label} step-{steps} checkpoint through bin/decode: "
-          f"{len(wavs)} utterances, {decode_counter.launches} launches")
+          f"{len(wavs)} utterances, {decode_count()} launches")
     shutil.rmtree(root)
     return {"launches": launches["kernel"], "err": err}
 
@@ -1934,8 +2003,9 @@ def phase_train(card: str) -> dict:
         k3 = n * (layers + layers // per_call * (per_call - 1)) + _eval_and_d_forwards() * layers
         expect[name] = (k3, n * layers)
     out = _train_runs(card, "PWG v1", _pwg_v1_config,
-                      {"K3": fused_wavenet_stack, "K4": wavenet_stack_backward},
-                      expect, fused_wavenet_stack, layers)
+                      {"K3": lambda: fused_wavenet_stack.launches,
+                       "K4": lambda: wavenet_stack_backward.launches},
+                      expect, lambda: fused_wavenet_stack.launches, TRAIN_UTTS * layers)
     return {"k4_launches": out["launches"][1], "err": out["err"]}
 
 
@@ -1956,9 +2026,291 @@ def phase_melgan_train(card: str) -> dict:
     for name, n in (("kernel", steps), ("resume", steps - 2)):
         expect[name] = (n * (10 + 8) + _eval_and_d_forwards() * 10, n * 10)
     out = _train_runs(card, "MelGAN v1", _melgan_v1_config,
-                      {"K6": fused_melgan_stacks, "K7": melgan_stacks_backward},
-                      expect, fused_melgan_stacks, 10)
+                      {"K6": lambda: fused_melgan_stacks.launches,
+                       "K7": lambda: melgan_stacks_backward.launches},
+                      expect, lambda: fused_melgan_stacks.launches, TRAIN_UTTS * 10)
     return {"k7_launches": out["launches"][1], "err": out["err"]}
+
+
+def _style_v1_config(kernel: bool, **overrides) -> dict:
+    """A fresh copy of the StyleMelGAN v1 training config, with or without
+    the TADE train kernels (``use_pallas_tade_train``), and with
+    ``overrides``."""
+    cfg = json.loads(json.dumps(V1_STYLE_CONFIG))
+    cfg["generator_params"]["use_pallas_tade_train"] = kernel
+    cfg.update(overrides)
+    return cfg
+
+
+def _style_train_blocks() -> list:
+    """(block, input length, scale) of every block the train gate passes at
+    StyleMelGAN v1's training input (batch_max_steps / hop = 88 frames)."""
+    from parallelwavegan_tpu_torch.models import get_model_class
+    from parallelwavegan_tpu_torch.ops.kernels.tade_decode import gated
+
+    gen = get_model_class("StyleMelGANGenerator")(
+        **_style_v1_config(True)["generator_params"])
+    t, out = V1_STYLE_CONFIG["batch_max_steps"] // V1_FEATURES["hop_size"], []
+    for i, blk in enumerate(gen.block_weights()):
+        if gated(t, blk, min_fused_t=gen.min_fused_t, train=True):
+            out.append((i, t, int(blk["scale"])))
+        t *= int(blk["scale"])
+    return out
+
+
+def _k9_work(x, blk, half: int) -> dict:
+    """Operations and bytes of K9a (half 1) or K9b (half 2) on a block input
+    x: per row at the stage's rate, its three convs again (the re-run),
+    their transposes and their weight gradients, 3 x 9 x 64 x (64 + 128 +
+    128) multiply-adds; the inputs (x, c, dx2, da; or x, x2, a at T and
+    dout, da2 at sT) read once, the outputs (dx, dc; or dx, dx2, da) and
+    the weight gradients written once."""
+    from parallelwavegan_tpu_torch.ops.kernels.tade_decode import WEIGHT_KEYS
+
+    b, t, c = x.shape
+    sc = 1 if half == 1 else int(blk["scale"])
+    keys = WEIGHT_KEYS[:3] if half == 1 else WEIGHT_KEYS[3:]
+    mac = 3 * sum(blk[f"{k}_w"].numel() for k in keys)
+    weights = sum(blk[f"{k}{s}"].numel() for k in keys for s in ("_w", "_b"))
+    acts = 6 * b * t * c if half == 1 else 6 * b * t * c + 2 * b * sc * t * c
+    return _bound(2.0 * b * sc * t * mac, 4 * (acts + 2 * weights))
+
+
+def _check_grads(label: str, got: dict, want: dict) -> list:
+    """Each gradient of ``got`` against ``want`` by ``_grads_agree``; fails
+    on a miss. Returns the max |diff| of each."""
+    import torch
+
+    errs, worst = [], (0.0, "")
+    for key, r in want.items():
+        g = got[key]
+        if g.shape != r.shape or not torch.isfinite(g).all():
+            _fail(f"{label} {key}: shapes {tuple(g.shape)} vs {tuple(r.shape)} or "
+                  "non-finite gradient")
+        if not _grads_agree(g, r):
+            _fail(f"{label} {key}: kernel disagrees with its plain version (max|diff| "
+                  f"{float((g - r).abs().max()):.3e}, max|plain| {float(r.abs().max()):.3e})")
+        errs.append(float((g - r).abs().max()))
+        worst = max(worst, (errs[-1] / max(float(r.abs().max()), 1e-30), key))
+    print(f"{label}: {len(want)} gradients, max|diff| = {max(errs):.3e}, worst "
+          f"max|diff| / max|plain| = {worst[0]:.3e} ({worst[1]}); least max|plain| "
+          f"{min(float(r.abs().max()) for r in want.values()):.3e}")
+    return errs
+
+
+def phase_k9(card: str) -> dict:
+    """K9a and K9b against their plain versions (autograd through the plain
+    stage or block, forward included): StyleMelGAN v1's blocks 4-8 at the
+    training shapes (B=32, T = 1408 .. 22528; random weights of unit gain
+    from SEED), each stage alone, each block, the five-block chain through
+    ``fused_tade_blocks_train``, ragged cases, a case without biases and one
+    with T just above the backward's halo of 16 rows, under a random
+    cotangent of scale 1 / sqrt(B sT), with controls that the check must
+    reject; two runs bit for bit; K9a and K9b timed over blocks 4-8 beside
+    their plain versions (ms, plain_ms and bound: one G step's work)."""
+    import numpy as np
+    import torch
+
+    from parallelwavegan_tpu_torch.ops.kernels import tade_decode as td
+    from parallelwavegan_tpu_torch.ops.kernels import tade_train as tt
+
+    blocks = _style_train_blocks()
+    if [i for i, _, _ in blocks] != [4, 5, 6, 7, 8]:
+        _fail(f"StyleMelGAN v1 train blocks {blocks}, expected blocks 4-8")
+    b = V1_STYLE_CONFIG["batch_size"]
+    rs = np.random.RandomState(SEED)
+
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy((rs.randn(*shape) * scale).astype(np.float32)).to("cuda")
+
+    def random_block(scale, bias=True):  # unit-gain convs (phase 11's)
+        out = {"scale": scale, "dilation": 2}
+        for key in td.WEIGHT_KEYS:
+            cout = 64 if key.startswith("aux") else 128
+            out[f"{key}_w"] = randn(9, 64, cout, scale=1 / 24.0)
+            out[f"{key}_b"] = randn(cout, scale=0.1) if bias else torch.zeros(
+                cout, device="cuda")
+        return out
+
+    def named(dx_dc, dw, names=("dx", "dc")):
+        return {**dict(zip(names, dx_dc)), **dw}
+
+    cases = [(f"v1 block {i} B={b} T={t}", b, t, sc, "softmax", True)
+             for i, t, sc in blocks]
+    cases += [("ragged B=2 T=1002 scale 2 softmax", 2, 1002, 2, "softmax", True),
+              ("ragged B=2 T=1002 scale 1 sigmoid", 2, 1002, 1, "sigmoid", True),
+              ("no biases B=1 T=334 scale 2", 1, 334, 2, "softmax", False),
+              ("T just above the halo B=2 T=18 scale 2", 2, 18, 2, "softmax", True)]
+    k9a, k9b, chain_blocks = {"errs": []}, {"errs": []}, []
+    for name, bb, t, sc, gate, bias in cases:
+        blk = random_block(sc, bias)
+        x, c = randn(bb, t, 64), randn(bb, t, 64)
+        u = (bb * sc * t) ** -0.5
+        dxo, dco = randn(bb, sc * t, 64, scale=u), randn(bb, sc * t, 64, scale=u)
+        with torch.no_grad():
+            x2, a = td.tade1_cuda(x, c, blk, gate)
+        # each stage alone, K9a on K9b's plain cotangents
+        got = tt.tade2_backward_cuda(x, x2, a, blk, gate, dxo, dco)
+        torch.cuda.synchronize()
+        want = tt.tade2_backward_reference(x, x2, a, blk, gate, dxo, dco)
+        k9b["errs"] += _check_grads(f"K9b vs plain [{name}]",
+                                    named(got[:3], got[3], ("dx", "dx2", "da")),
+                                    named(want[:3], want[3], ("dx", "dx2", "da")))
+        dx2r, dar = want[1].contiguous(), want[2].contiguous()
+        got = tt.tade1_backward_cuda(x, c, blk, gate, dx2r, dar)
+        torch.cuda.synchronize()
+        want = tt.tade1_backward_reference(x, c, blk, gate, dx2r, dar)
+        k9a["errs"] += _check_grads(f"K9a vs plain [{name}]", named(got[:2], got[2]),
+                                    named(want[:2], want[2]))
+        got = tt.tade_block_backward(x, c, x2, a, blk, gate, dxo, dco)
+        torch.cuda.synchronize()
+        got = named(got[:2], got[2])
+        want = tt.tade_block_backward_reference(x, c, blk, gate, dxo, dco)
+        want = named(want[:2], want[2])
+        _check_grads(f"K9 block vs plain [{name}]", got, want)
+        del got
+        if name.startswith("v1 block 8"):
+            # controls at the v1 shapes: wrong gradients that the check must reject
+            dx = want["dx"]
+            controls = {f"{key} zeroed": (torch.zeros_like(r), r) for key, r in want.items()}
+            controls["dx moved 1 % toward its one-sample shift"] = (
+                dx + 0.01 * (dx.roll(1, 1) - dx), dx)
+            missed = [k for k, (g, r) in controls.items() if _grads_agree(g, r)]
+            print(f"K9 check controls [{name}]: {len(controls) - len(missed)} of "
+                  f"{len(controls)} wrong gradients rejected")
+            if missed:
+                _fail(f"K9's check accepts wrong gradients: {missed}")
+        del want
+        if name.startswith("v1"):
+            chain_blocks.append(blk)
+            _timed(k9a, f"K9a {name}", card,
+                   lambda: tt.tade1_backward_cuda(x, c, blk, gate, dx2r, dar),
+                   lambda: tt.tade1_backward_reference(x, c, blk, gate, dx2r, dar),
+                   _k9_work(x, blk, 1))
+            _timed(k9b, f"K9b {name} -> {sc * t}", card,
+                   lambda: tt.tade2_backward_cuda(x, x2, a, blk, gate, dxo, dco),
+                   lambda: tt.tade2_backward_reference(x, x2, a, blk, gate, dxo, dco),
+                   _k9_work(x, blk, 2))
+        torch.cuda.empty_cache()
+
+    # the chain of blocks 4-8 through the autograd Function
+    t0 = blocks[0][1]
+    x0, c0 = randn(b, t0, 64), randn(b, t0, 64)
+    u = (b * 16 * t0) ** -0.5
+    dxo, dco = randn(b, 16 * t0, 64, scale=u), randn(b, 16 * t0, 64, scale=u)
+    keys = tt.WEIGHTS
+
+    def chain_grads(kernel: bool) -> dict:
+        leaves = [x0.clone().requires_grad_(), c0.clone().requires_grad_()]
+        bl = []
+        for blk in chain_blocks:
+            d = dict(blk, **{k: blk[k].clone().requires_grad_() for k in keys})
+            bl.append(d)
+            leaves += [d[k] for k in keys]
+        x, c = leaves[0], leaves[1]
+        if kernel:
+            x, c = tt.fused_tade_blocks_train(x, c, bl, min_fused_t=1)
+        else:
+            for blk in bl:
+                x, c = td.tade_block_reference(x, c, blk)
+        names = ["dx", "dc"] + [f"blocks[{i}].{k}" for i in range(len(bl)) for k in keys]
+        return dict(zip(names, torch.autograd.grad((x * dxo).sum() + (c * dco).sum(),
+                                                   leaves)))
+
+    before = (tt.tade_block_backward.launches_k9a, tt.tade_block_backward.launches_k9b)
+    got = chain_grads(True)
+    torch.cuda.synchronize()
+    n = len(chain_blocks)
+    if (tt.tade_block_backward.launches_k9a, tt.tade_block_backward.launches_k9b) != (
+            before[0] + n, before[1] + n):
+        _fail("the K9 chain did not launch K9a and K9b once per block")
+    errs = _check_grads(f"K9 chain of blocks 4-8 vs plain [B={b} T={t0} -> {16 * t0}]",
+                        got, chain_grads(False))
+    k9a["errs"].append(max(errs))
+    k9b["errs"].append(max(errs))
+    del got
+
+    # determinism and the profiler split, at block 8
+    _, t8, sc8 = blocks[-1]
+    blk = chain_blocks[-1]
+    x, c = randn(b, t8, 64), randn(b, t8, 64)
+    dxo, dco = randn(b, sc8 * t8, 64, scale=1e-3), randn(b, sc8 * t8, 64, scale=1e-3)
+    with torch.no_grad():
+        x2, a = td.tade1_cuda(x, c, blk)
+    first = tt.tade_block_backward(x, c, x2, a, blk, "softmax", dxo, dco)
+    second = tt.tade_block_backward(x, c, x2, a, blk, "softmax", dxo, dco)
+    torch.cuda.synchronize()
+    same = all(torch.equal(p, q) for p, q in zip(first[:2], second[:2])) and all(
+        torch.equal(first[2][k], second[2][k]) for k in keys)
+    print(f"K9 determinism: two runs of v1 block 8 bitwise equal = {same}")
+    if not same:
+        _fail("K9 gives different gradients in two runs")
+    del first, second
+    print(f"K9 per StyleMelGAN v1 G step backward (blocks 4-8, B={b}, the re-runs "
+          f"included): K9a {k9a['ms']:.3f} ms (plain {k9a['plain_ms']:.3f}, bound "
+          f"{k9a['bound_ms']:.3f}), K9b {k9b['ms']:.3f} ms (plain {k9b['plain_ms']:.3f}, "
+          f"bound {k9b['bound_ms']:.3f}) on {card}")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tt.tade_block_backward(x, c, x2, a, blk, "softmax", dxo, dco)
+        torch.cuda.synchronize()
+    split = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", 0) or 0
+        if us > 0:
+            short = re.sub(r"[<(].*", "", ev.key.replace("(anonymous namespace)::", ""))
+            short = short.split("::")[-1].split()[-1]
+            part = split.setdefault(short, [0.0, 0])
+            part[0] += us / 1e3
+            part[1] += ev.count
+    print(f"K9 v1 block 8 device time by kernel (torch.profiler, one backward; "
+          f"tade1_kernel and tade2_kernel are the re-runs, stage_bwd_kernel the "
+          f"transposed convs, the rest torch's glue) on {card}: "
+          + "; ".join(f"{n} {ms:.3f} ms ({k} launches)" for n, (ms, k) in
+                      sorted(split.items(), key=lambda kv: -kv[1][0])))
+    return {"k9a": k9a, "k9b": k9b}
+
+
+def phase_style_train_split(card: str) -> None:
+    """Where one StyleMelGAN v1 train step (B=32, T=22528) spends its time,
+    with blocks 4-8 through K8/K9 and through the plain path."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    b, t = V1_STYLE_CONFIG["batch_size"], V1_STYLE_CONFIG["batch_max_steps"]
+    frames = t // V1_STYLE_CONFIG["hop_size"]
+    batch = {"y": 0.3 * torch.randn(b, 1, t, generator=g, device="cuda"),
+             "c": torch.randn(b, 80, frames, generator=g, device="cuda")}
+    _train_split(card, "StyleMelGAN v1", _style_v1_config, batch)
+
+
+def phase_style_train(card: str) -> dict:
+    """StyleMelGAN v1 training through ``bin/train.main`` with
+    ``use_pallas_tade_train``: K8a/K8b in every G forward (blocks 4-8: 5
+    launches each) and in the no-grad forwards, K9a/K9b once per gated
+    block of every G backward (5 each)."""
+    from parallelwavegan_tpu_torch.ops.kernels.tade_decode import fused_tade_blocks
+    from parallelwavegan_tpu_torch.ops.kernels.tade_train import tade_block_backward
+
+    steps = TRAIN_OVERRIDES["train_max_steps"]
+    n = len(_style_train_blocks())
+    expect = {"plain": (0, 0, 0)}
+    for name, k in (("kernel", steps), ("resume", steps - 2)):
+        expect[name] = ((k + _eval_and_d_forwards()) * n, k * n, k * n)
+    # decode pads the noise to 4 frames (352 mel frames) at every length in
+    # STYLE_TRAIN_FRAMES: block inputs 352 .. 90112, blocks 2-8 gated
+    per_utt = 7
+    out = _train_runs(
+        card, "StyleMelGAN v1", _style_v1_config,
+        {"K8a": lambda: fused_tade_blocks.launches_k8a,
+         "K9a": lambda: tade_block_backward.launches_k9a,
+         "K9b": lambda: tade_block_backward.launches_k9b},
+        expect, lambda: fused_tade_blocks.launches_k8a, STYLE_TRAIN_UTTS * per_utt,
+        STYLE_TRAIN_UTTS, STYLE_TRAIN_FRAMES)
+    return {"k9a_launches": out["launches"][1], "k9b_launches": out["launches"][2],
+            "err": out["err"]}
 
 
 def main() -> None:
@@ -2035,6 +2387,12 @@ def main() -> None:
     torch.cuda.synchronize()
     melgan_train = phase_melgan_train(card)
     torch.cuda.synchronize()
+    k9 = phase_k9(card)
+    torch.cuda.synchronize()
+    phase_style_train_split(card)
+    torch.cuda.synchronize()
+    style_train = phase_style_train(card)
+    torch.cuda.synchronize()
     shutil.rmtree(WORK, ignore_errors=True)
 
     def entry(name, source, replaces, launches, rec):
@@ -2067,6 +2425,10 @@ def main() -> None:
               "wavenet_stack_train.py:187", pwg_train["k4_launches"], k4),
         entry("melgan_stacks_backward (K7)", "melgan_stack_bwd.cu",
               "melgan_stack_train.py:247", melgan_train["k7_launches"], k7),
+        entry("tade_block_backward (K9a)", "tade_bwd.cu", "tade_train.py:438",
+              style_train["k9a_launches"], k9["k9a"]),
+        entry("tade_block_backward (K9b)", "tade_bwd.cu", "tade_train.py:523",
+              style_train["k9b_launches"], k9["k9b"]),
     ]}
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_main:.1f} s "
           f"(build included) on {card}")

@@ -13,13 +13,16 @@ The config is ``.json``, or YAML where PyYAML imports; ``format: npy``
 reads ``*-wave.npy`` / ``*-feats.npy`` pairs and ``hdf5`` needs h5py.
 Ported so far: the Parallel WaveGAN and MelGAN generators (MelGAN with one
 output channel: PQMF in the criterion is not ported) with
-``ParallelWaveGANDiscriminator``, the STFT and adversarial losses, RAdam
-or Adam. With ``use_pallas_stack_train`` PWG's gated layers train
-through the K3 and K4 kernels on the card, with
-``use_pallas_stacks_train`` MelGAN's residual stacks of at most 128
-channels through K6 and K7. ``--resume`` restores the models, the optimizers,
-the step count and the data stream's position; ``--pretrain`` the model
-weights only. Not ported yet, and refused with ``NotImplementedError``
+``ParallelWaveGANDiscriminator``, the StyleMelGAN generator with
+``StyleMelGANDiscriminator`` (its noise and windows drawn per step from
+the config's ``seed``), the STFT and adversarial losses, RAdam or Adam.
+With ``use_pallas_stack_train`` PWG's gated layers train through the K3
+and K4 kernels on the card, with ``use_pallas_stacks_train`` MelGAN's
+residual stacks of at most 128 channels through K6 and K7, with
+``use_pallas_tade_train`` StyleMelGAN's TADE blocks of at least
+``pallas_tade_train_min_t`` samples through K8a/K8b and K9a/K9b.
+``--resume`` restores the models, the optimizers, the step count and the
+data stream's position; ``--pretrain`` the model weights only. Not ported yet, and refused with ``NotImplementedError``
 (ROADMAP.md): ``mixed_precision``, ``distributed``, scp datasets and the
 other families and conditioning inputs. float32 convolutions and matmuls
 run without TF32, as the JAX package computes in full float32.
@@ -127,7 +130,8 @@ def main(argv=None) -> dict:
            for kind in ("wav_scp", "feats_scp", "segments")):
         raise _not_ported("scp datasets (--*-wav-scp / --*-feats-scp / --*-segments)")
     gen_type = config["generator_type"]
-    if gen_type not in ("ParallelWaveGANGenerator", "MelGANGenerator"):
+    if gen_type not in ("ParallelWaveGANGenerator", "MelGANGenerator",
+                        "StyleMelGANGenerator"):
         raise _not_ported(f"training {gen_type}")
     flags = feature_flags(config)
 

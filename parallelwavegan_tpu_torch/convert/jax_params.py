@@ -4,8 +4,9 @@ The inverse of parallelwavegan_tpu/convert/torch_checkpoint.py:510
 ``_convert_tree`` for the models the port has: module paths go through
 the same name maps as ``_t_hifigan_g`` (:131), ``_make_t_melgan_g``
 (:153-207, non-causal), ``_make_t_pwg_g`` (:210-264),
-``_t_style_melgan_g`` (:267-286) and ``_make_t_pwg_d`` (:388-399) in
-reverse, conv
+``_t_style_melgan_g`` (:267-286), ``_make_t_pwg_d`` (:388-399) and
+``_make_t_melgan_d`` (:420-434, nested under ``discriminators`` for
+StyleMelGAN's, :116-119) in reverse, conv
 kernels (K, Cin, Cout) are transposed to torch's (Cout, Cin, K)
 (``_CONV_PERM``), transposed-conv kernels (HiFi-GAN's ``upsamples_*``,
 MelGAN's deconv layers, StyleMelGAN's ``noise_upsample_*``: the
@@ -146,6 +147,34 @@ def _style_melgan_prefix(path) -> str:
     return ".".join(out)
 
 
+def _melgan_d_map(downsample_scales):
+    """Flax path -> upstream prefix for MelGANDiscriminator
+    (``_make_t_melgan_d``): ``layers_0`` -> ``layers.0.1`` (after the pad),
+    the downsampling convs and the first final conv -> ``layers.{i}.0``,
+    the last conv -> ``layers.{len(downsample_scales) + 2}``."""
+    last = len(downsample_scales) + 2
+
+    def prefix(path) -> str:
+        (p,) = path
+        if not p.startswith("layers_"):
+            raise KeyError(f"melgan-d path segment {p!r}")
+        i = _idx(p)
+        return "layers.0.1" if i == 0 else (f"layers.{i}.0" if i < last else f"layers.{last}")
+
+    return prefix
+
+
+def _nested(outer: str, inner):
+    """``{outer}_{i}/...`` -> ``{outer}.{i}.`` + inner(...)."""
+
+    def prefix(path) -> str:
+        if not path[0].startswith(f"{outer}_"):
+            raise KeyError(f"{outer} path segment {path[0]!r}")
+        return f"{outer}.{_idx(path[0])}.{inner(path[1:])}"
+
+    return prefix
+
+
 def _flatten(tree, prefix=()):
     for k, v in tree.items():
         if hasattr(v, "items"):  # dict or flax FrozenDict
@@ -182,6 +211,12 @@ def jax_params_to_state_dict(model_type: str, model_params: dict,
         step = 3 if up.get("nonlinear_activation") is not None else 2
     elif model_type == "ParallelWaveGANDiscriminator":
         prefix_of = _pwg_d_map(model_params)
+    elif model_type == "MelGANDiscriminator":
+        prefix_of = _melgan_d_map(model_params.get("downsample_scales", (4, 4, 4, 4)))
+    elif model_type == "StyleMelGANDiscriminator":
+        inner = (model_params.get("discriminator_params") or {}).get(
+            "downsample_scales", (4, 4, 4, 1))
+        prefix_of = _nested("discriminators", _melgan_d_map(inner))
     else:
         raise NotImplementedError(
             f"{model_type} is not ported yet; see ROADMAP.md"

@@ -95,10 +95,11 @@ def effective_weight(conv: nn.Module) -> torch.Tensor:
 class Conv1d(nn.Conv1d):
     """Conv1d with optional weight norm. ``padding`` is 'same' (zero
     padding, odd kernel), an int (0: valid), or 'causal' ((K-1)*dilation
-    zeros on the left only)."""
+    zeros on the left only); ``stride`` and ``groups`` as torch's."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  *, dilation: int = 1, padding: int | str = "same",
+                 stride: int = 1, groups: int = 1,
                  bias: bool = True, use_weight_norm: bool = True,
                  normal_std: float | None = None, zero_bias: bool = False,
                  generator: torch.Generator | None = None):
@@ -108,10 +109,11 @@ class Conv1d(nn.Conv1d):
             pad = 0
         else:
             pad = int(padding)
-        super().__init__(in_channels, out_channels, kernel_size,
-                         dilation=dilation, padding=pad, bias=bias)
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride,
+                         dilation=dilation, padding=pad, groups=groups, bias=bias)
         self.causal_pad = (kernel_size - 1) * dilation if padding == "causal" else 0
-        _init_(self, in_channels * kernel_size, generator, normal_std, zero_bias)
+        _init_(self, in_channels // groups * kernel_size, generator, normal_std,
+               zero_bias)
         if use_weight_norm:
             apply_weight_norm(self)
 

@@ -15,7 +15,9 @@ initialised N(0, 0.02) as upstream's ``reset_parameters`` does.
 
 ``TADEResBlock.folded_weights`` is the counterpart of the JAX
 ``collect_weights=True`` path: the effective weights in the gather form
-(K, Cin, Cout) that ``ops/kernels/tade_decode.py`` takes.
+(K, Cin, Cout) that ``ops/kernels/tade_decode.py`` and
+``ops/kernels/tade_train.py`` take, detached for decode or in the
+autograd graph for training.
 """
 
 from __future__ import annotations
@@ -109,16 +111,22 @@ class TADEResBlock(nn.Module):
         x = gate(*self.gated_conv2(x).chunk(2, dim=1), self.gated_function)
         return stretch_time(residual, self.upsample_factor) + x, c
 
-    def folded_weights(self) -> dict:
+    def folded_weights(self, differentiable: bool = False) -> dict:
         """The dict ``tade_block_xla`` takes (layers/tade.py:140-165 of the
         JAX package): gather-form weights, zero biases where the convs
         have none, ``scale`` and ``dilation``; ``module`` is this block,
-        for the blocks that the fused path's gate leaves out."""
+        for the blocks that the fused path's gate leaves out. The weights
+        are detached (decode) unless ``differentiable``: then they are
+        gathered in the autograd graph, so the gradients that the fused
+        train path gives them reach ``weight_g``/``weight_v`` and the
+        biases."""
 
         def conv(m):
-            w = m.gather_weight().detach().contiguous()
-            b = torch.zeros_like(w[0, 0]) if m.bias is None else m.bias.detach()
-            return w, b.contiguous()
+            w = m.gather_weight()
+            b = torch.zeros_like(w[0, 0]) if m.bias is None else m.bias
+            if not differentiable:
+                w, b = w.detach(), b.detach()
+            return w.contiguous(), b.contiguous()
 
         out = {"scale": self.upsample_factor, "dilation": self.dilation,
                "module": self}

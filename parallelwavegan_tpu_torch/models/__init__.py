@@ -1,24 +1,33 @@
 """Model registry of the port: the YAML-facing class names.
 
 ``HiFiGANGenerator``, ``ParallelWaveGANGenerator``, ``MelGANGenerator``
-(MelGAN and Multi-band MelGAN, non-causal), ``StyleMelGANGenerator`` and
-``ParallelWaveGANDiscriminator`` are ported so far; ROADMAP.md lists the
-rest in the order they are to come.
+(MelGAN and Multi-band MelGAN, non-causal), ``StyleMelGANGenerator``,
+``ParallelWaveGANDiscriminator``, ``MelGANDiscriminator`` and
+``StyleMelGANDiscriminator`` are ported so far; ROADMAP.md lists the rest
+in the order they are to come.
 """
 
 from parallelwavegan_tpu_torch.models.hifigan import HiFiGANGenerator
-from parallelwavegan_tpu_torch.models.melgan import MelGANGenerator
+from parallelwavegan_tpu_torch.models.melgan import (
+    MelGANDiscriminator,
+    MelGANGenerator,
+)
 from parallelwavegan_tpu_torch.models.parallel_wavegan import (
     ParallelWaveGANDiscriminator,
     ParallelWaveGANGenerator,
 )
-from parallelwavegan_tpu_torch.models.style_melgan import StyleMelGANGenerator
+from parallelwavegan_tpu_torch.models.style_melgan import (
+    StyleMelGANDiscriminator,
+    StyleMelGANGenerator,
+)
 
 MODEL_REGISTRY = {
     "HiFiGANGenerator": HiFiGANGenerator,
+    "MelGANDiscriminator": MelGANDiscriminator,
     "MelGANGenerator": MelGANGenerator,
     "ParallelWaveGANDiscriminator": ParallelWaveGANDiscriminator,
     "ParallelWaveGANGenerator": ParallelWaveGANGenerator,
+    "StyleMelGANDiscriminator": StyleMelGANDiscriminator,
     "StyleMelGANGenerator": StyleMelGANGenerator,
 }
 

@@ -30,6 +30,13 @@ gives the same values; that wrapper is inference-only, as JAX's, so
 ``pallas_stacks_train_tile`` is a TPU tile size, accepted for config
 compatibility and without effect. The causal generator is not ported yet
 (ROADMAP.md M16).
+
+``MelGANDiscriminator`` (JAX :233-322, upstream's keys ``layers.0.1``,
+``layers.{i}.0``, ``layers.{last}``) is the base discriminator of
+StyleMelGAN's random-window discriminator: a reflect-padded input conv of
+prod(kernel_sizes) taps, strided grouped convs, two final convs, N(0,
+0.02) weights and weight norm; its output is the list of every layer's
+features.
 """
 
 from __future__ import annotations
@@ -207,3 +214,56 @@ class MelGANGenerator(nn.Module):
     def load_state_dict(self, *args, **kwargs):
         self._kernel_cache = None
         return super().load_state_dict(*args, **kwargs)
+
+
+class MelGANDiscriminator(nn.Module):
+    """wave (B, in_channels, T) -> [every layer's output], the last (B,
+    out_channels, T / prod(downsample_scales))."""
+
+    def __init__(
+        self,
+        in_channels: int = 1,
+        out_channels: int = 1,
+        kernel_sizes: Sequence[int] = (5, 3),
+        channels: int = 16,
+        max_downsample_channels: int = 1024,
+        bias: bool = True,
+        downsample_scales: Sequence[int] = (4, 4, 4, 4),
+        nonlinear_activation: str = "LeakyReLU",
+        nonlinear_activation_params: dict | None = None,
+        pad: str = "ReflectionPad1d",
+        pad_params: dict | None = None,
+        use_weight_norm: bool = True,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        if len(kernel_sizes) != 2 or kernel_sizes[0] % 2 == 0 or kernel_sizes[1] % 2 == 0:
+            raise ValueError(f"kernel_sizes must be two odd sizes, got {kernel_sizes}")
+        act_params = nonlinear_activation_params or {"negative_slope": 0.2}
+        kw = dict(bias=bias, use_weight_norm=use_weight_norm, normal_std=INIT_STD,
+                  generator=generator)
+
+        def act():
+            return get_activation(nonlinear_activation, act_params)
+
+        k0 = math.prod(kernel_sizes)
+        layers = [nn.Sequential(get_pad(pad, (k0 - 1) // 2, pad_params),
+                                Conv1d(in_channels, channels, k0, padding=0, **kw), act())]
+        in_chs = channels
+        for s in downsample_scales:
+            out_chs = min(in_chs * s, max_downsample_channels)
+            layers.append(nn.Sequential(
+                Conv1d(in_chs, out_chs, s * 10 + 1, stride=s, padding=s * 5,
+                       groups=in_chs // 4, **kw), act()))
+            in_chs = out_chs
+        out_chs = min(in_chs * 2, max_downsample_channels)
+        layers.append(nn.Sequential(Conv1d(in_chs, out_chs, kernel_sizes[0], **kw), act()))
+        layers.append(Conv1d(out_chs, out_channels, kernel_sizes[1], **kw))
+        self.layers = nn.ModuleList(layers)
+
+    def forward(self, x: torch.Tensor) -> list:
+        outs = []
+        for f in self.layers:
+            x = f(x)
+            outs.append(x)
+        return outs

@@ -11,17 +11,29 @@ upstream's: ``noise_upsample.{2i}``, ``blocks.{i}.*`` and
 carries weight norm unless ``use_weight_norm`` is off.
 
 ``use_pallas_tade`` or ``use_pallas_tade_train`` (the JAX flag names) with
-``channels == 64`` (the JAX gate, :108-137) runs the blocks through
-``fused_tade_blocks``: blocks of input length at least
-``pallas_tade_min_t`` (or, with the train flag, ``pallas_tade_train_min_t``
-and the train wrapper's even-length and scale checks) whose aux width is
-64 run the hand-written CUDA kernels K8a/K8b on a GPU (their plain
-PyTorch version on the CPU); the rest, block 0 always, run their own
-forward. Their backward (K9) is not ported, so under either flag a
-forward that needs gradients raises. ``pallas_tade_tile`` and
-``pallas_tade_train_tile`` are TPU tile sizes, accepted for config
-compatibility and without effect. ``DiscreteSymbolStyleMelGANGenerator``
-and the random-window discriminator are not ported yet (ROADMAP.md M17).
+``channels == 64`` (the JAX gate, :108-137) runs the blocks through the
+fused path: blocks of input length at least ``pallas_tade_min_t`` (or,
+with the train flag, ``pallas_tade_train_min_t`` and the train wrapper's
+even-length and scale checks) whose aux width is 64 run the hand-written
+CUDA kernels K8a/K8b on a GPU (their plain PyTorch version on the CPU);
+the rest, block 0 always, run their own forward. ``use_pallas_tade_train``
+sends the blocks through ``fused_tade_blocks_train`` (:114-120), with
+gradients on or off, as JAX does: K8 forward, K9a/K9b backward, with the
+weights gathered in the autograd graph under grad so that the gradients
+reach ``weight_g``/``weight_v``. ``use_pallas_tade`` alone sends them
+through the inference-only ``fused_tade_blocks``, so it raises with
+gradients on, as in JAX.
+``pallas_tade_tile`` and ``pallas_tade_train_tile`` are TPU tile sizes,
+accepted for config compatibility and without effect.
+
+``StyleMelGANDiscriminator`` (:330-399) is the random-window
+discriminator: ``repeats`` passes over windows of ``window_sizes``, each
+cut at a random start in [0, T - size), split into sub-bands by PQMF
+(``pqmf_params``; one band means none) and judged by its own
+``MelGANDiscriminator``, whose parameters every repeat shares. The starts
+are drawn from an explicit CPU ``torch.Generator``, so that cutting needs
+no device sync, or given as ``starts``. ``DiscreteSymbolStyleMelGANGenerator``
+is not ported yet (ROADMAP.md M18).
 """
 
 from __future__ import annotations
@@ -39,7 +51,10 @@ from parallelwavegan_tpu_torch.layers.convs import (
 )
 from parallelwavegan_tpu_torch.layers.residual_block import get_activation
 from parallelwavegan_tpu_torch.layers.tade import INIT_STD, TADEResBlock
+from parallelwavegan_tpu_torch.models.melgan import MelGANDiscriminator
 from parallelwavegan_tpu_torch.ops.kernels.tade_decode import fused_tade_blocks
+from parallelwavegan_tpu_torch.ops.kernels.tade_train import fused_tade_blocks_train
+from parallelwavegan_tpu_torch.ops.pqmf import PQMF
 
 
 class StyleMelGANGenerator(nn.Module):
@@ -129,17 +144,21 @@ class StyleMelGANGenerator(nn.Module):
         return self.output_conv(x)
 
     def run_blocks_fused(self, x: torch.Tensor, c: torch.Tensor):
-        """The TADE blocks through ``fused_tade_blocks``: (B, C, T) in and out."""
-        w = self._kernel_cache or self.block_weights()
-        y, cy = fused_tade_blocks(
-            x.transpose(1, 2).contiguous(), c.transpose(1, 2).contiguous(), w,
-            gated_function=self.gated_function, min_fused_t=self.min_fused_t,
-            train=self.fused_train)
+        """The TADE blocks through the fused path: (B, C, T) in and out."""
+        x, c = x.transpose(1, 2).contiguous(), c.transpose(1, 2).contiguous()
+        kw = dict(gated_function=self.gated_function, min_fused_t=self.min_fused_t)
+        if torch.is_grad_enabled():  # never the folded cache: it is detached
+            w = self.block_weights(differentiable=True)
+        else:
+            w = self._kernel_cache or self.block_weights()
+        run = fused_tade_blocks_train if self.fused_train else fused_tade_blocks
+        y, cy = run(x, c, w, **kw)
         return y.transpose(1, 2), cy.transpose(1, 2)
 
-    def block_weights(self) -> list:
-        """Every block's folded weights, as ``fused_tade_blocks`` takes them."""
-        return [blk.folded_weights() for blk in self.blocks]
+    def block_weights(self, differentiable: bool = False) -> list:
+        """Every block's folded weights, as the fused path takes them;
+        ``differentiable`` keeps them in the autograd graph."""
+        return [blk.folded_weights(differentiable) for blk in self.blocks]
 
     def prepare_kernels(self) -> None:
         """Fold the blocks' weights once, for decode. Call it after the
@@ -158,3 +177,77 @@ class StyleMelGANGenerator(nn.Module):
     def load_state_dict(self, *args, **kwargs):
         self._kernel_cache = None
         return super().load_state_dict(*args, **kwargs)
+
+
+# the JAX package's defaults for the base discriminators (:358-369)
+_D_DEFAULTS = {
+    "out_channels": 1, "kernel_sizes": [5, 3], "channels": 16,
+    "max_downsample_channels": 512, "bias": True, "downsample_scales": [4, 4, 4, 1],
+    "nonlinear_activation": "LeakyReLU",
+    "nonlinear_activation_params": {"negative_slope": 0.2},
+    "pad": "ReflectionPad1d", "pad_params": {},
+}
+
+
+class StyleMelGANDiscriminator(nn.Module):
+    """wave (B, 1, T) -> one feature list per window, ``repeats *
+    len(window_sizes)`` of them, each a ``MelGANDiscriminator``'s output."""
+
+    def __init__(
+        self,
+        repeats: int = 2,
+        window_sizes: Sequence[int] = (512, 1024, 2048, 4096),
+        pqmf_params: Sequence[Sequence] = (
+            (1, None, None, None),
+            (2, 62, 0.26700, 9.0),
+            (4, 62, 0.14200, 9.0),
+            (8, 62, 0.07949, 9.0),
+        ),
+        discriminator_params: dict | None = None,
+        use_weight_norm: bool = True,
+        device: torch.device | str | None = None,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        if len(window_sizes) != len(pqmf_params):
+            raise ValueError("window_sizes and pqmf_params differ in length")
+        sizes = {ws // p[0] for ws, p in zip(window_sizes, pqmf_params)}
+        if len(sizes) != 1:
+            raise ValueError(f"every window must give one length per band, got {sizes}")
+        self.repeats = repeats
+        self.window_sizes = tuple(int(ws) for ws in window_sizes)
+        params = dict(_D_DEFAULTS, **(discriminator_params or {}))
+        self.discriminators = nn.ModuleList(
+            MelGANDiscriminator(**dict(params, in_channels=p[0]),
+                                use_weight_norm=use_weight_norm, generator=generator)
+            for p in pqmf_params)
+        self.pqmfs = [None if p[0] == 1 else PQMF(*p) for p in pqmf_params]
+        if device is not None:
+            self.to(device)
+
+    def draw_starts(self, length: int, generator: torch.Generator | None = None) -> list:
+        """``repeats * len(window_sizes)`` window starts, each uniform in
+        [0, length - size), from ``generator`` (a CPU one) or torch's
+        global CPU generator."""
+        return [int(torch.randint(0, length - ws, (), generator=generator))
+                for _ in range(self.repeats) for ws in self.window_sizes]
+
+    def forward(self, x: torch.Tensor, starts=None,
+                generator: torch.Generator | None = None) -> list:
+        """``starts`` (``repeats * len(window_sizes)`` ints) pins the
+        windows; without it they are drawn (``draw_starts``)."""
+        if starts is None:
+            starts = self.draw_starts(x.shape[-1], generator)
+        starts = [int(v) for v in starts]
+        if len(starts) != self.repeats * len(self.window_sizes):
+            raise ValueError(f"{len(starts)} starts for {self.repeats} repeats of "
+                             f"{len(self.window_sizes)} windows")
+        outs, i = [], 0
+        for _ in range(self.repeats):
+            for ws, pqmf, disc in zip(self.window_sizes, self.pqmfs, self.discriminators):
+                x_ = x[..., starts[i]:starts[i] + ws]
+                i += 1
+                if pqmf is not None:
+                    x_ = pqmf.analysis(x_.transpose(1, 2)).transpose(1, 2)
+                outs.append(disc(x_))
+        return outs

@@ -52,160 +52,20 @@
 //  - Two buffers of rows (input, then the gated product's input over the
 //    dead input) and the weight ring fit 78-92 KB, two blocks per SM,
 //    held to 128 registers a thread.
-// Blocks share nothing and carry nothing from tile to tile.
+// Blocks share nothing and carry nothing from tile to tile. The shared
+// pieces (conv9, the row staging, the gate) are in csrc/tade.cuh. With
+// the Save pointers given, each kernel is the re-run of the backward
+// (K9a, K9b in csrc/tade_bwd.cu): it keeps the gated conv's input, the
+// modulation's scale and the gate's pre-activations instead of applying
+// the gate (a compile-time variant; decode runs the kernels without it).
 
-#include <cuda_pipeline.h>
-#include <cuda_runtime.h>
-#include <stddef.h>
+#include "tade.cuh"
 
 namespace {
 
-constexpr int kC = 64;         // channels of every activation
-constexpr int kK = 9;          // taps of every conv
-constexpr int kHalf = 4;       // (kK - 1) / 2
-constexpr int kThreads = 256;
-constexpr int kTile = 64;      // output rows per block
-constexpr int kS = kC + 4;     // shared-memory row stride in floats
-constexpr int kCW = 32;        // input channels per streamed weight chunk
-constexpr int kChunks = kK * kC / kCW;
-constexpr size_t kMaxSmem = 227 * 1024;
+using namespace tadek;
+
 constexpr size_t kWeightFloats = 2 * (size_t)kCW * 2 * kC;  // two chunks
-
-__host__ __device__ constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
-
-// COUT / 4 threads across the columns, 4 columns each; R row groups. At
-// COUT = 128 a row group is one warp.
-template <int COUT>
-struct Map {
-  static constexpr int G = COUT / 4;
-  static constexpr int R = kThreads / G;
-};
-
-// The output column of slot j of thread g: at 128 columns, (2g, 2g+1) of
-// the first half then of the second; at 64, 4g .. 4g+3.
-template <int COUT>
-__device__ __forceinline__ int col(int g, int j) {
-  if (COUT == 2 * kC) return j < 2 ? 2 * g + j : kC + 2 * g + j - 2;
-  return 4 * g + j;
-}
-
-// Start copying one weight chunk (kCW rows of COUT) into shared memory in
-// thread column order, as one cp.async group.
-template <int COUT>
-__device__ __forceinline__ void stage_w(float* dst, const float* src) {
-  if (COUT == 2 * kC) {
-    for (int e = threadIdx.x; e < kCW * kC; e += kThreads) {
-      const int j = e / kC, h = e % kC;
-      const int g = h >> 1, which = h & 1;
-      __pipeline_memcpy_async(dst + j * COUT + 4 * g + 2 * which,
-                              src + j * COUT + which * kC + 2 * g, 8);
-    }
-  } else {
-    for (int e = threadIdx.x * 4; e < kCW * COUT; e += kThreads * 4)
-      __pipeline_memcpy_async(dst + e, src + e, 16);
-  }
-  __pipeline_commit();
-}
-
-// acc[i][j] = bias[col(g, j)] + sum over taps k and input channels ci of
-//   in_s[(m + k * D) * kS + ci] * w[k][ci][col(g, j)],  m = min(r + i*R, M-1):
-// output row m of the conv reads input rows m .. m + 8D. w is (9, 64,
-// COUT) in device memory; w_s holds two chunks. Starts and ends on a
-// barrier.
-template <int COUT, int KR, int D>
-__device__ __forceinline__ void conv9(const float* in_s, int M,
-                                      const float* __restrict__ w,
-                                      const float* __restrict__ bias,
-                                      float* w_s, float (&acc)[KR][4]) {
-  using P = Map<COUT>;
-  constexpr int kChunk = kCW * COUT;
-  const int g = threadIdx.x % P::G, r = threadIdx.x / P::G;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float bj = bias[col<COUT>(g, j)];
-#pragma unroll
-    for (int i = 0; i < KR; ++i) acc[i][j] = bj;
-  }
-  __syncthreads();  // input rows written, earlier readers of w_s done
-  stage_w<COUT>(w_s, w);
-  for (int c = 0; c < kChunks; ++c) {
-    if (c + 1 < kChunks) {
-      stage_w<COUT>(w_s + ((c + 1) & 1) * kChunk, w + (size_t)(c + 1) * kChunk);
-      __pipeline_wait_prior(1);  // all but the newest group: chunk c
-    } else {
-      __pipeline_wait_prior(0);
-    }
-    __syncthreads();  // chunk c visible to every thread
-    const float* cur = w_s + (c & 1) * kChunk + 4 * g;
-    const int k = c / (kC / kCW), ci0 = (c % (kC / kCW)) * kCW;
-    const float* xin = in_s + k * D * kS + ci0;
-#pragma unroll 1
-    for (int ci = 0; ci < kCW; ci += 4) {
-      float4 q[4];
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc)
-        q[cc] = *reinterpret_cast<const float4*>(cur + (ci + cc) * COUT);
-#pragma unroll
-      for (int i = 0; i < KR; ++i) {
-        const int m = min(r + i * P::R, M - 1);
-        const float4 xv = *reinterpret_cast<const float4*>(xin + m * kS + ci);
-        const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-        for (int cc = 0; cc < 4; ++cc) {
-          acc[i][0] = fmaf(xs[cc], q[cc].x, acc[i][0]);
-          acc[i][1] = fmaf(xs[cc], q[cc].y, acc[i][1]);
-          acc[i][2] = fmaf(xs[cc], q[cc].z, acc[i][2]);
-          acc[i][3] = fmaf(xs[cc], q[cc].w, acc[i][3]);
-        }
-      }
-    }
-    __syncthreads();  // chunk c consumed: its half is refilled next step
-  }
-}
-
-// rows p0 .. p0 + rows of src (row p reads source row p / s; zeros where p
-// is outside [0, t_out)) into dst, kS floats apart.
-__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src,
-                                          int p0, int rows, int t_out, int s) {
-  for (int idx = threadIdx.x; idx < rows * (kC / 4); idx += kThreads) {
-    const int q = idx / (kC / 4), cc = (idx % (kC / 4)) * 4;
-    const int p = p0 + q;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (p >= 0 && p < t_out)
-      v = *reinterpret_cast<const float4*>(src + (size_t)(p / s) * kC + cc);
-    *reinterpret_cast<float4*>(dst + q * kS + cc) = v;
-  }
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// The gate of one row, whose 64 channel pairs a warp holds: lane g has the
-// softmax half's channels (2g, 2g+1) in a[0..1], the tanh half's in
-// a[2..3]. Every lane of the warp must call it.
-__device__ __forceinline__ float2 gate2(const float (&a)[4], int softmax) {
-  float g0, g1;
-  if (softmax) {
-    const float mx = warp_max(fmaxf(a[0], a[1]));
-    const float e0 = expf(a[0] - mx), e1 = expf(a[1] - mx);
-    const float inv = 1.f / warp_sum(e0 + e1);
-    g0 = e0 * inv;
-    g1 = e1 * inv;
-  } else {
-    g0 = 1.f / (1.f + expf(-a[0]));
-    g1 = 1.f / (1.f + expf(-a[1]));
-  }
-  return make_float2(g0 * tanhf(a[2]), g1 * tanhf(a[3]));
-}
 
 // Row m (of M) of a 64-column conv's output, at position pos: zero outside
 // [0, t_out), stored to dst; rows [lo, lo + kTile) also to out (device).
@@ -231,11 +91,15 @@ __device__ __forceinline__ void store_aux(const float (&acc)[KR][4], int M, int 
 
 // y = s * (xr[pos / sc] - mean) * rstd + h over the M rows of a gate
 // conv's output at positions pos0 + m, zero outside [0, t_out), into dst.
-template <int KR>
+// With kSave, rows [lo, lo + kTile) inside [0, t_out) also go to y_out and
+// their scale s to s_out (device).
+template <int KR, bool kSave>
 __device__ __forceinline__ void store_modulated(const float (&acc)[KR][4], int M,
                                                 int pos0, int t_out, int sc,
                                                 const float* __restrict__ xr,
-                                                float2 mu, float2 rs, float* dst) {
+                                                float2 mu, float2 rs, float* dst, int lo,
+                                                float* __restrict__ y_out,
+                                                float* __restrict__ s_out) {
   using P = Map<2 * kC>;
   const int g = threadIdx.x % P::G, r = threadIdx.x / P::G;
 #pragma unroll
@@ -249,9 +113,43 @@ __device__ __forceinline__ void store_modulated(const float (&acc)[KR][4], int M
           *reinterpret_cast<const float2*>(xr + (size_t)(pos / sc) * kC + 2 * g);
       y.x = fmaf(acc[i][0], (xv.x - mu.x) * rs.x, acc[i][2]);
       y.y = fmaf(acc[i][1], (xv.y - mu.y) * rs.y, acc[i][3]);
+      if (kSave && m >= lo && m < lo + kTile) {
+        const size_t o = (size_t)pos * kC + 2 * g;
+        *reinterpret_cast<float2*>(y_out + o) = y;
+        *reinterpret_cast<float2*>(s_out + o) = make_float2(acc[i][0], acc[i][1]);
+      }
     }
     *reinterpret_cast<float2*>(dst + m * kS + 2 * g) = y;
   }
+}
+
+// The gated conv's row t (of t_out) from a thread's acc (columns (2g, 2g+1)
+// of each half): with kSave its pre-activations [ta | tb] to tp (rows of
+// 128); else gate(acc), plus the residual row xr[t / s] with kResidual, to
+// out. Every lane of the warp must call it. The residual is a compile-time
+// choice: a runtime null test of xr cost the decode's tade2_kernel<4>
+// registers (PERF.md §6).
+template <bool kSave, bool kResidual>
+__device__ __forceinline__ void store_gated(const float (&a)[4], int t, int t_out,
+                                            int softmax, float* __restrict__ out,
+                                            const float* __restrict__ xr, int s,
+                                            float* __restrict__ tp) {
+  const int g = threadIdx.x % 32;
+  if (kSave) {
+    if (t < t_out) {
+      float* row = tp + (size_t)t * 2 * kC + 2 * g;
+      *reinterpret_cast<float2*>(row) = make_float2(a[0], a[1]);
+      *reinterpret_cast<float2*>(row + kC) = make_float2(a[2], a[3]);
+    }
+    return;
+  }
+  float2 v = gate2(a, softmax);
+  if (t >= t_out) return;
+  if (kResidual) {
+    const float2 x = *reinterpret_cast<const float2*>(xr + (size_t)(t / s) * kC + 2 * g);
+    v = make_float2(x.x + v.x, x.y + v.y);
+  }
+  *reinterpret_cast<float2*>(out + (size_t)t * kC + 2 * g) = v;
 }
 
 struct Weights {  // one kernel's three convs, gather form, biases given
@@ -263,14 +161,26 @@ struct Weights {  // one kernel's three convs, gather form, biases given
   const float* gc_b;   // (128)
 };
 
+// What the backward's re-run keeps (K9, csrc/tade_bwd.cu), at the kernel's
+// output rate L: the gated conv's input y and the modulation's scale s
+// (B, L, 64), the gated conv's pre-activations t = [ta | tb] (B, L, 128),
+// and for K8b at scale 2 the stretched conditioning up(a) (B, L, 64).
+struct Save {
+  float* y;
+  float* s;
+  float* t;
+  float* ua;
+};
+
 struct Tade1 {
   const float* x;     // (B, T, 64)
   const float* c;     // (B, T, 64)
   const float* mean;  // (B, 64) of x
   const float* rstd;  // (B, 64)
-  float* x2;          // (B, T, 64)
+  float* x2;          // (B, T, 64), not written with Save
   float* a;           // (B, T, 64)
   Weights w;
+  Save sv;
   int T, softmax;
 };
 
@@ -280,9 +190,10 @@ struct Tade2 {
   const float* a;     // (B, T, 64)
   const float* mean;  // (B, 64) of x2
   const float* rstd;  // (B, 64)
-  float* out;         // (B, sT, 64)
+  float* out;         // (B, sT, 64), not written with Save
   float* a2;          // (B, sT, 64)
   Weights w;
+  Save sv;
   int T, scale, softmax;
 };
 
@@ -293,10 +204,11 @@ size_t smem_bytes(int rows0, int rows1) {
 }
 
 // K8a. Local rows: c at t0 - 12 + q, a at t0 - 8 + m, y at t0 - 4 + m,
-// x2 at t0 + m.
+// x2 at t0 + m. kSave: the backward's re-run (struct Save).
 constexpr int kRows0A = kTile + 6 * kHalf;  // c, then y
 constexpr int kRows1A = kTile + 4 * kHalf;  // a
 
+template <bool kSave>
 __global__ void __launch_bounds__(kThreads, 2) tade1_kernel(Tade1 p) {
   extern __shared__ float4 smem4[];
   float* w_s = reinterpret_cast<float*>(smem4);
@@ -319,18 +231,17 @@ __global__ void __launch_bounds__(kThreads, 2) tade1_kernel(Tade1 p) {
     conv9<2 * kC, KR, 1>(buf1, M, p.w.g_w, p.w.g_b, w_s, acc);
     const float2 mu = *reinterpret_cast<const float2*>(p.mean + b * kC + 2 * g);
     const float2 rs = *reinterpret_cast<const float2*>(p.rstd + b * kC + 2 * g);
-    store_modulated<KR>(acc, M, t0 - kHalf, T, 1, p.x + base, mu, rs, buf0);
+    store_modulated<KR, kSave>(acc, M, t0 - kHalf, T, 1, p.x + base, mu, rs, buf0,
+                               kHalf, p.sv.y + base, p.sv.s + base);
   }
   {  // x2 = gate(gc1(y))
     constexpr int M = kTile, KR = ceil_div(M, Map<2 * kC>::R);
     float acc[KR][4];
     conv9<2 * kC, KR, 1>(buf0, M, p.w.gc_w, p.w.gc_b, w_s, acc);
 #pragma unroll
-    for (int i = 0; i < KR; ++i) {
-      const float2 v = gate2(acc[i], p.softmax);
-      const int t = t0 + r + i * Map<2 * kC>::R;
-      if (t < T) *reinterpret_cast<float2*>(p.x2 + base + (size_t)t * kC + 2 * g) = v;
-    }
+    for (int i = 0; i < KR; ++i)
+      store_gated<kSave, false>(acc[i], t0 + r + i * Map<2 * kC>::R, T, p.softmax,
+                                p.x2 + base, nullptr, 1, p.sv.t + 2 * base);
   }
 }
 
@@ -343,7 +254,7 @@ struct Geo2 {
   static constexpr int kRows1 = kTile + 2 * (kHy + kHalf);      // a2
 };
 
-template <int D>
+template <int D, bool kSave>
 __global__ void __launch_bounds__(kThreads, 2) tade2_kernel(Tade2 p) {
   using G2 = Geo2<D>;
   extern __shared__ float4 smem4[];
@@ -355,6 +266,14 @@ __global__ void __launch_bounds__(kThreads, 2) tade2_kernel(Tade2 p) {
   const size_t in_base = (size_t)b * p.T * kC, out_base = (size_t)b * t_out * kC;
   const int p0 = t0 - G2::kHy - 2 * kHalf;
 
+  if (kSave && p.sv.ua != nullptr) {  // up(a) over this block's rows
+    for (int idx = threadIdx.x; idx < kTile * (kC / 4); idx += kThreads) {
+      const int t = t0 + idx / (kC / 4), cc = (idx % (kC / 4)) * 4;
+      if (t < t_out)
+        *reinterpret_cast<float4*>(p.sv.ua + out_base + (size_t)t * kC + cc) =
+            *reinterpret_cast<const float4*>(p.a + in_base + (size_t)(t / s) * kC + cc);
+    }
+  }
   load_rows(buf0, p.a + in_base, p0, G2::kRows0, t_out, s);
   {  // a2 = aux2(up(a))
     constexpr int M = G2::kRows1, KR = ceil_div(M, Map<kC>::R);
@@ -370,43 +289,56 @@ __global__ void __launch_bounds__(kThreads, 2) tade2_kernel(Tade2 p) {
     conv9<2 * kC, KR, 1>(buf1, M, p.w.g_w, p.w.g_b, w_s, acc);
     const float2 mu = *reinterpret_cast<const float2*>(p.mean + b * kC + 2 * g);
     const float2 rs = *reinterpret_cast<const float2*>(p.rstd + b * kC + 2 * g);
-    store_modulated<KR>(acc, M, t0 - G2::kHy, t_out, s, p.x2 + in_base, mu, rs,
-                        buf0);
+    store_modulated<KR, kSave>(acc, M, t0 - G2::kHy, t_out, s, p.x2 + in_base, mu, rs,
+                               buf0, G2::kHy, p.sv.y + out_base, p.sv.s + out_base);
   }
   {  // out = up(x) + gate(gc2_D(y2))
     constexpr int M = kTile, KR = ceil_div(M, Map<2 * kC>::R);
     float acc[KR][4];
     conv9<2 * kC, KR, D>(buf0, M, p.w.gc_w, p.w.gc_b, w_s, acc);
 #pragma unroll
-    for (int i = 0; i < KR; ++i) {
-      const float2 v = gate2(acc[i], p.softmax);
-      const int t = t0 + r + i * Map<2 * kC>::R;
-      if (t < t_out) {
-        const float2 xr =
-            *reinterpret_cast<const float2*>(p.x + in_base + (size_t)(t / s) * kC + 2 * g);
-        *reinterpret_cast<float2*>(p.out + out_base + (size_t)t * kC + 2 * g) =
-            make_float2(xr.x + v.x, xr.y + v.y);
-      }
-    }
+    for (int i = 0; i < KR; ++i)
+      store_gated<kSave, true>(acc[i], t0 + r + i * Map<2 * kC>::R, t_out,
+                               p.softmax, p.out + out_base, p.x + in_base, s,
+                               p.sv.t + 2 * out_base);
   }
 }
 
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, size_t bytes) {
-  if (bytes > kMaxSmem) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
+template <bool kSave>
+cudaError_t launch_tade1(const Tade1& p, int B, cudaStream_t stream) {
+  const size_t smem = smem_bytes(kRows0A, kRows1A);
+  cudaError_t e = set_smem(tade1_kernel<kSave>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((p.T + kTile - 1) / kTile, B);
+  tade1_kernel<kSave><<<grid, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
 }
 
-template <int D>
-int launch_tade2(const Tade2& p, int B, cudaStream_t stream) {
+template <int D, bool kSave>
+cudaError_t launch_tade2(const Tade2& p, int B, cudaStream_t stream) {
   using G2 = Geo2<D>;
   const size_t smem = smem_bytes(G2::kRows0, G2::kRows1);
-  cudaError_t e = set_smem(tade2_kernel<D>, smem);
+  cudaError_t e = set_smem(tade2_kernel<D, kSave>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((p.scale * p.T + kTile - 1) / kTile, B);
-  tade2_kernel<D><<<grid, kThreads, smem, stream>>>(p);
+  tade2_kernel<D, kSave><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <bool kSave>
+cudaError_t launch_tade2_dil(const Tade2& p, int B, int dilation, cudaStream_t s) {
+  switch (dilation) {
+    case 1:
+      return launch_tade2<1, kSave>(p, B, s);
+    case 2:
+      return launch_tade2<2, kSave>(p, B, s);
+    case 3:
+      return launch_tade2<3, kSave>(p, B, s);
+    case 4:
+      return launch_tade2<4, kSave>(p, B, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 bool bad_args(int B, int T, int gate) {
@@ -419,52 +351,48 @@ bool bad_args(int B, int T, int gate) {
 // accepted. gate: 0 softmax over channels, 1 sigmoid. Every activation is
 // (B, T, 64) float32 at its rate, weights (9, 64, 64) for aux and (9, 64,
 // 128) for the two gate convs, biases given (zeros where a conv has none).
+// y, s and t (and ua) are null for decode; given, they make the launch the
+// backward's re-run (struct Save), which writes them instead of x2 or out.
 extern "C" {
 
 // K8a: x2 = gate(gc1(g1(aux1(c)) modulating norm(x))), and a = aux1(c).
 int tade1(const float* x, const float* c, const float* mean, const float* rstd,
           float* x2, float* a, const float* aux_w, const float* aux_b,
           const float* g_w, const float* g_b, const float* gc_w, const float* gc_b,
-          int B, int T, int gate, int device, void* stream) {
+          float* y, float* s, float* t, int B, int T, int gate, int device,
+          void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
-  if (bad_args(B, T, gate)) return cudaErrorInvalidValue;
+  const bool save = y != nullptr;
+  if (bad_args(B, T, gate) || a == nullptr ||
+      (save ? s == nullptr || t == nullptr : x2 == nullptr))
+    return cudaErrorInvalidValue;
   const Tade1 p{x, c, mean, rstd, x2, a, {aux_w, aux_b, g_w, g_b, gc_w, gc_b},
-                T, gate == 0};
-  const size_t smem = smem_bytes(kRows0A, kRows1A);
-  e = set_smem(tade1_kernel, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((T + kTile - 1) / kTile, B);
-  tade1_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return cudaGetLastError();
+                {y, s, t, nullptr}, T, gate == 0};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return save ? launch_tade1<true>(p, B, st) : launch_tade1<false>(p, B, st);
 }
 
 // K8b: out = up(x) + gate(gc2_dil(g2(aux2(up(a))) modulating up(norm(x2)))),
 // and a2 = aux2(up(a)), at the output rate scale * T. scale 1 or 2,
-// dilation 1 .. 4.
+// dilation 1 .. 4. ua (the re-run's up(a)) may be null.
 int tade2(const float* x, const float* x2, const float* a, const float* mean,
           const float* rstd, float* out, float* a2, const float* aux_w,
           const float* aux_b, const float* g_w, const float* g_b,
-          const float* gc_w, const float* gc_b, int B, int T, int scale,
-          int dilation, int gate, int device, void* stream) {
+          const float* gc_w, const float* gc_b, float* y, float* s, float* t,
+          float* ua, int B, int T, int scale, int dilation, int gate, int device,
+          void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
-  if (bad_args(B, T, gate) || scale < 1 || scale > 2) return cudaErrorInvalidValue;
+  const bool save = y != nullptr;
+  if (bad_args(B, T, gate) || scale < 1 || scale > 2 || a2 == nullptr ||
+      (save ? s == nullptr || t == nullptr : out == nullptr))
+    return cudaErrorInvalidValue;
   const Tade2 p{x, x2, a, mean, rstd, out, a2, {aux_w, aux_b, g_w, g_b, gc_w, gc_b},
-                T, scale, gate == 0};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dilation) {
-    case 1:
-      return launch_tade2<1>(p, B, s);
-    case 2:
-      return launch_tade2<2>(p, B, s);
-    case 3:
-      return launch_tade2<3>(p, B, s);
-    case 4:
-      return launch_tade2<4>(p, B, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+                {y, s, t, ua}, T, scale, gate == 0};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return save ? launch_tade2_dil<true>(p, B, dilation, st)
+              : launch_tade2_dil<false>(p, B, dilation, st);
 }
 
 }  // extern "C"

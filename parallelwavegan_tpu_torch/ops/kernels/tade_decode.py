@@ -29,8 +29,9 @@ For a CUDA tensor each gated block runs the hand-written kernels of
 csrc/tade.cu, one launch of each; for a CPU tensor it runs the plain
 PyTorch version ``tade_block_reference``. A CUDA tensor never takes the
 plain path. The TPU lane packing, tiling (``t_tile``) and bf16-resident
-mode do not carry over. The kernels have no backward yet (ROADMAP.md K9),
-so a forward that would need gradients raises.
+mode do not carry over. This wrapper is inference-only, as JAX's, so a
+forward that would need gradients raises; the differentiable block, whose
+backward is K9a/K9b, is ``ops/kernels/tade_train.py``.
 """
 
 from __future__ import annotations
@@ -142,7 +143,7 @@ def tade1_cuda(x, c, blk, gated_function: str = "softmax"):
     mean, rstd = _stats(x)
     x2, a = torch.empty_like(x), torch.empty_like(x)
     lib.call("tade1", x.data_ptr(), c.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-             x2.data_ptr(), a.data_ptr(), *_weights(blk, 1), b, t,
+             x2.data_ptr(), a.data_ptr(), *_weights(blk, 1), None, None, None, b, t,
              GATES.index(gated_function), dev, stream)
     fused_tade_blocks.launches_k8a += 1
     return x2, a
@@ -160,8 +161,9 @@ def tade2_cuda(x, x2, a, blk, gated_function: str = "softmax"):
     out = torch.empty((b, sc * t, C), device=x.device, dtype=torch.float32)
     a2 = torch.empty_like(out)
     lib.call("tade2", x.data_ptr(), x2.data_ptr(), a.data_ptr(), mean.data_ptr(),
-             rstd.data_ptr(), out.data_ptr(), a2.data_ptr(), *_weights(blk, 2), b, t,
-             sc, int(blk["dilation"]), GATES.index(gated_function), dev, stream)
+             rstd.data_ptr(), out.data_ptr(), a2.data_ptr(), *_weights(blk, 2), None,
+             None, None, None, b, t, sc, int(blk["dilation"]),
+             GATES.index(gated_function), dev, stream)
     fused_tade_blocks.launches_k8b += 1
     return out, a2
 
@@ -186,8 +188,17 @@ def gated(t: int, blk, *, min_fused_t: int, train: bool = False) -> bool:
     return ok
 
 
+def run_module(i: int, blk, x, c):
+    """Block ``i`` of a walk through its module's forward, for a block the
+    gate leaves out: (B, T, C) in and out."""
+    if blk.get("module") is None:
+        raise ValueError(f"blocks[{i}] is left out by the gate and has no module to run")
+    y, cy = blk["module"](x.transpose(1, 2), c.transpose(1, 2))
+    return y.transpose(1, 2).contiguous(), cy.transpose(1, 2).contiguous()
+
+
 def fused_tade_blocks(x, c, blocks, *, gated_function: str = "softmax",
-                      min_fused_t: int = 4096, train: bool = False):
+                      min_fused_t: int = 4096):
     """Run a stack of TADEResBlocks: x (B, T0, 64), c (B, T0, Ca) ->
     (x, c) at T0 times the product of the scales.
 
@@ -202,17 +213,14 @@ def fused_tade_blocks(x, c, blocks, *, gated_function: str = "softmax",
         raise ValueError(f"{gated_function} is not supported.")
     tensors = [x, c] + [blk[f"{k}{s}"] for blk in blocks for k in WEIGHT_KEYS
                         for s in ("_w", "_b")]
-    build.refuse_training("the fused TADE kernels (K8, backward K9)", tensors)
+    build.refuse_training("the fused TADE kernels (K8; train through "
+                          "fused_tade_blocks_train, K9)", tensors)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_tade_blocks: unsupported device {x.device}")
     launched = False
     for i, blk in enumerate(blocks):
-        if not gated(x.shape[1], blk, min_fused_t=min_fused_t, train=train):
-            if blk.get("module") is None:
-                raise ValueError(f"blocks[{i}] is left out by the gate and has no "
-                                 "module to run")
-            y, cy = blk["module"](x.transpose(1, 2), c.transpose(1, 2))
-            x, c = y.transpose(1, 2).contiguous(), cy.transpose(1, 2).contiguous()
+        if not gated(x.shape[1], blk, min_fused_t=min_fused_t):
+            x, c = run_module(i, blk, x, c)
             continue
         if x.device.type == "cpu":
             x, c = tade_block_reference(x, c, blk, gated_function=gated_function)

@@ -1,0 +1,294 @@
+"""The differentiable fused StyleMelGAN TADEResBlock: K8 forward, K9 backward.
+
+Counterpart of parallelwavegan_tpu/ops/pallas_kernels/tade_train.py
+(``tade_block_train`` :659, ``_block_bwd`` :674-703,
+``fused_tade_blocks_train`` :709). Layout and weight form are those of
+``ops/kernels/tade_decode.py``: x (B, T, 64), c (B, T, Ca), a block a dict
+of gather-form weights (``WEIGHTS``), ``scale`` and ``dilation``.
+
+``tade_block_train`` is a ``torch.autograd.Function``: its forward is
+K8a then K8b on a CUDA tensor and ``tade_block_reference`` on a CPU
+tensor, and it saves the JAX residuals x, c, x2 and a (:654). Its backward
+is ``tade_block_backward``, in the JAX order: K9b (stage 2), the instance
+norm's backward on x2, K9a (stage 1), the instance norm's backward on x
+plus the stretch adjoint of dx_out for the residual. For a CUDA tensor
+each of K9a and K9b is one re-run of its K8 kernel from the residuals
+(keeping the gated conv's input, the modulation's scale and the gate's
+pre-activations, csrc/tade.cu's Save) and one call of csrc/tade_bwd.cu
+(the transposed convs in one kernel, the weight gradients in partial and
+reduce kernels); the instance norms' backward and the stretch adjoint are
+torch reductions between the launches, as they are XLA glue in JAX
+(:90-120). For a CPU tensor it is ``tade_block_backward_reference``,
+autograd through the plain block. A CUDA tensor never takes the plain
+path. The TPU lane packing, tiling (``t_tile``) and bf16 mode do not
+carry over.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from parallelwavegan_tpu_torch.layers.tade import GATES
+from parallelwavegan_tpu_torch.ops.kernels import build
+from parallelwavegan_tpu_torch.ops.kernels.tade_decode import (
+    C,
+    WEIGHT_KEYS,
+    _check_cuda_inputs,
+    _stats,
+    _weights,
+    gated,
+    run_module,
+    tade1_cuda,
+    tade1_reference,
+    tade2_cuda,
+    tade2_reference,
+    tade_block_reference,
+)
+
+# every weight and bias of a block, in the order tade_block_train takes them
+WEIGHTS = tuple(f"{k}{s}" for k in WEIGHT_KEYS for s in ("_w", "_b"))
+
+# ---------------------------------------------------------------------------
+# plain versions: autograd through the plain forward
+# ---------------------------------------------------------------------------
+
+
+def _grads(inputs: dict, outputs_of, cotangents) -> dict:
+    """Gradients of ``outputs_of(leaves)`` for ``cotangents``, by the
+    leaves' names (zeros for a leaf the outputs do not reach)."""
+    with torch.enable_grad():
+        leaves = {k: v.detach().requires_grad_() for k, v in inputs.items()}
+        outs = outputs_of(leaves)
+        got = torch.autograd.grad(outs, list(leaves.values()), cotangents,
+                                  allow_unused=True)
+    return {k: torch.zeros_like(v) if g is None else g
+            for (k, v), g in zip(leaves.items(), got)}
+
+
+def _blk_with(blk, leaves):
+    return {**blk, **{k: leaves[k] for k in WEIGHTS if k in leaves}}
+
+
+def tade1_backward_reference(x, c, blk, gated_function, dx2, da):
+    """Plain backward of ``tade1_reference`` (K9a's function) for the
+    cotangents dx2 and da of its outputs: (dx, dc, grads of aux1, g1, gc1)."""
+    g = _grads({"x": x, "c": c, **{k: blk[k] for k in WEIGHTS[:6]}},
+               lambda v: tade1_reference(v["x"], v["c"], _blk_with(blk, v),
+                                         gated_function), (dx2, da))
+    return g.pop("x"), g.pop("c"), g
+
+
+def tade2_backward_reference(x, x2, a, blk, gated_function, dout, da2):
+    """Plain backward of ``tade2_reference`` (K9b's function) for the
+    cotangents dout and da2 of its outputs: (dx, dx2, da, grads of aux2,
+    g2, gc2)."""
+    g = _grads({"x": x, "x2": x2, "a": a, **{k: blk[k] for k in WEIGHTS[6:]}},
+               lambda v: tade2_reference(v["x"], v["x2"], v["a"], _blk_with(blk, v),
+                                         gated_function), (dout, da2))
+    return g.pop("x"), g.pop("x2"), g.pop("a"), g
+
+
+def tade_block_backward_reference(x, c, blk, gated_function, dxo, dco):
+    """Plain backward of ``tade_block_reference`` for the cotangents dxo
+    and dco of its outputs: (dx, dc, the 12 weight and bias grads)."""
+    g = _grads({"x": x, "c": c, **{k: blk[k] for k in WEIGHTS}},
+               lambda v: tade_block_reference(v["x"], v["c"], _blk_with(blk, v),
+                                              gated_function=gated_function),
+               (dxo, dco))
+    return g.pop("x"), g.pop("c"), g
+
+
+# ---------------------------------------------------------------------------
+# glue between the launches (XLA glue in JAX too)
+# ---------------------------------------------------------------------------
+
+
+def instance_norm_backward(dxn, x, mean, rstd):
+    """dL/dx of xn = (x - mean) * rstd over time (dim 1) for dL/dxn = dxn:
+    rstd * (dxn - E[dxn] - xn * E[dxn * xn]) (JAX :90-105)."""
+    mean, rstd = mean[:, None], rstd[:, None]
+    xn = (x - mean) * rstd
+    e1 = dxn.mean(dim=1, keepdim=True)
+    e2 = (dxn * xn).mean(dim=1, keepdim=True)
+    return rstd * (dxn - e1 - xn * e2)
+
+
+def stretch_adjoint(z, scale: int):
+    """Adjoint of the nearest x``scale`` stretch along time: each group of
+    ``scale`` rows summed (JAX :108-120)."""
+    if scale == 1:
+        return z
+    b, rows, c = z.shape
+    return z.view(b, rows // scale, scale, c).sum(dim=2)
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels
+# ---------------------------------------------------------------------------
+
+
+def _transposed(w):
+    """Wt[j] = W[8 - j]^T: a conv's weights (9, Cin, Cout) as those of its
+    transposed conv (9, Cout, Cin), the form csrc/tade_bwd.cu takes."""
+    return w.detach().flip(0).transpose(1, 2).contiguous()
+
+
+def _stage_cuda(t, dout, sv, xr, mean, rstd, dext, blk, keys, y, ain, src,
+                scale: int, dilation: int, gated_function: str):
+    """One call of csrc/tade_stage_bwd: (dxn, da', dsrc, weight grads)."""
+    b, rows, _ = dout.shape
+    lib = build.load()
+    dev, stream = build.launch_target(dout)
+    n_part = lib.query("tade_stage_bwd_part_floats", b, rows)
+    if n_part < 0:
+        raise ValueError(f"(B, L) = ({b}, {rows}) needs too large a partial buffer")
+    part = torch.empty(n_part, device=dout.device)
+    wide = [torch.empty(b, rows, 2 * C, device=dout.device) for _ in range(2)]
+    dxn, da, dsrc = (torch.empty_like(dout) for _ in range(3))
+    aux, g, gc = keys
+    grads = {f"{k}{s}": torch.empty_like(blk[f"{k}{s}"]) for k in keys
+             for s in ("_w", "_b")}
+    # held until the launch is queued: a freed one could be reused at once
+    wts = [_transposed(blk[f"{k}_w"]) for k in (gc, g, aux)]
+    lib.call("tade_stage_bwd", t.data_ptr(), dout.data_ptr(), sv.data_ptr(),
+             xr.data_ptr(), mean.data_ptr(), rstd.data_ptr(), dext.data_ptr(),
+             *(w.data_ptr() for w in wts), y.data_ptr(), ain.data_ptr(), src.data_ptr(),
+             wide[0].data_ptr(), wide[1].data_ptr(), dxn.data_ptr(), da.data_ptr(),
+             dsrc.data_ptr(),
+             *(grads[f"{k}{s}"].data_ptr() for k in (gc, g, aux) for s in ("_w", "_b")),
+             part.data_ptr(), n_part, b, rows, scale, dilation,
+             GATES.index(gated_function), dev, stream)
+    return dxn, da, dsrc, grads
+
+
+def _check_cotangent(name, v, x, rows):
+    build.check_tensor(name, v, x.device, (x.shape[0], rows, C))
+
+
+def tade1_backward_cuda(x, c, blk, gated_function, dx2, da):
+    """K9a on the card: the stats of x, K8a's re-run, one call of
+    tade_stage_bwd and the instance norm's backward. (dx, dc, grads of
+    aux1, g1, gc1), those of ``tade1_backward_reference``."""
+    _check_cuda_inputs(x, c, blk)
+    t_len = x.shape[1]
+    _check_cotangent("dx2", dx2, x, t_len)
+    _check_cotangent("da", da, x, t_len)
+    lib = build.load()
+    dev, stream = build.launch_target(x)
+    mean, rstd = _stats(x)
+    a, y, s = (torch.empty_like(x) for _ in range(3))
+    t = torch.empty(x.shape[0], t_len, 2 * C, device=x.device)
+    lib.call("tade1", x.data_ptr(), c.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+             None, a.data_ptr(), *_weights(blk, 1), y.data_ptr(), s.data_ptr(),
+             t.data_ptr(), x.shape[0], t_len, GATES.index(gated_function), dev, stream)
+    dxn, _, dc, grads = _stage_cuda(t, dx2, s, x, mean, rstd, da, blk, WEIGHT_KEYS[:3],
+                                    y, a, c, 1, 1, gated_function)
+    tade_block_backward.launches_k9a += 1
+    return instance_norm_backward(dxn, x, mean, rstd), dc, grads
+
+
+def tade2_backward_cuda(x, x2, a, blk, gated_function, dout, da2):
+    """K9b on the card: the stats of x2, K8b's re-run, one call of
+    tade_stage_bwd, the stretch adjoints and the instance norm's backward.
+    (dx, dx2, da, grads of aux2, g2, gc2), those of
+    ``tade2_backward_reference``."""
+    _check_cuda_inputs(x, a, blk)
+    build.check_tensor("x2", x2, x.device, x.shape)
+    b, t_len, _ = x.shape
+    sc, d = int(blk["scale"]), int(blk["dilation"])
+    rows = sc * t_len
+    _check_cotangent("dout", dout, x, rows)
+    _check_cotangent("da2", da2, x, rows)
+    lib = build.load()
+    dev, stream = build.launch_target(x)
+    mean, rstd = _stats(x2)
+    a2, y, s = (torch.empty_like(dout) for _ in range(3))
+    t = torch.empty(b, rows, 2 * C, device=x.device)
+    ua = torch.empty_like(dout) if sc == 2 else None
+    lib.call("tade2", x.data_ptr(), x2.data_ptr(), a.data_ptr(), mean.data_ptr(),
+             rstd.data_ptr(), None, a2.data_ptr(), *_weights(blk, 2), y.data_ptr(),
+             s.data_ptr(), t.data_ptr(), None if ua is None else ua.data_ptr(), b,
+             t_len, sc, d, GATES.index(gated_function), dev, stream)
+    dxn, _, dua, grads = _stage_cuda(t, dout, s, x2, mean, rstd, da2, blk,
+                                     WEIGHT_KEYS[3:], y, a2, a if ua is None else ua,
+                                     sc, d, gated_function)
+    tade_block_backward.launches_k9b += 1
+    dx2 = instance_norm_backward(stretch_adjoint(dxn, sc), x2, mean, rstd)
+    return stretch_adjoint(dout, sc), dx2, stretch_adjoint(dua, sc), grads
+
+
+# ---------------------------------------------------------------------------
+# the block's backward and autograd Function
+# ---------------------------------------------------------------------------
+
+
+def tade_block_backward(x, c, x2, a, blk, gated_function, dxo, dco):
+    """(dx, dc, the 12 weight and bias grads) of one block for the
+    cotangents dxo and dco of (x_out, c_out), from the residuals x, c, x2
+    and a. A CUDA tensor goes through K9b then K9a (float32, contiguous,
+    width 64, scale 1 or 2, dilation 1-4; anything else raises);
+    ``tade_block_backward.launches_k9a`` and ``.launches_k9b`` count their
+    calls. A CPU tensor goes through ``tade_block_backward_reference``."""
+    if gated_function not in GATES:
+        raise ValueError(f"{gated_function} is not supported.")
+    if x.device.type == "cpu":
+        return tade_block_backward_reference(x, c, blk, gated_function, dxo, dco)
+    if x.device.type != "cuda":
+        raise ValueError(f"tade_block_backward: unsupported device {x.device}")
+    dx_res, dx2, da, g2 = tade2_backward_cuda(x, x2, a, blk, gated_function, dxo, dco)
+    dx, dc, g1 = tade1_backward_cuda(x, c, blk, gated_function, dx2, da)
+    return dx + dx_res, dc, {**g1, **g2}
+
+
+tade_block_backward.launches_k9a = 0
+tade_block_backward.launches_k9b = 0
+
+
+class tade_block_train(torch.autograd.Function):  # noqa: N801 (JAX name)
+    """Differentiable fused block: (x, c, (scale, dilation, gate), *the
+    weights in ``WEIGHTS`` order) -> (x_out, c_out)."""
+
+    @staticmethod
+    def forward(ctx, x, c, meta, *weights):
+        blk = dict(zip(WEIGHTS, weights), scale=meta[0], dilation=meta[1])
+        if x.device.type == "cpu":
+            x2, a = tade1_reference(x, c, blk, meta[2])
+            out, a2 = tade2_reference(x, x2, a, blk, meta[2])
+        else:
+            x2, a = tade1_cuda(x, c, blk, meta[2])
+            out, a2 = tade2_cuda(x, x2, a, blk, meta[2])
+        ctx.meta = meta
+        ctx.save_for_backward(x, c, x2, a, *weights)
+        return out, a2
+
+    @staticmethod
+    def backward(ctx, dxo, dco):
+        x, c, x2, a, *weights = ctx.saved_tensors
+        scale, dilation, gated_function = ctx.meta
+        blk = dict(zip(WEIGHTS, weights), scale=scale, dilation=dilation)
+        dx, dc, dw = tade_block_backward(x, c, x2, a, blk, gated_function,
+                                         dxo.contiguous(), dco.contiguous())
+        return (dx, dc, None, *(dw[k] for k in WEIGHTS))
+
+
+def fused_tade_blocks_train(x, c, blocks, *, gated_function: str = "softmax",
+                            min_fused_t: int = 1024):
+    """Differentiable stack of TADEResBlocks, the values of
+    ``fused_tade_blocks``: x (B, T0, 64), c (B, T0, Ca) -> (x, c) at T0
+    times the product of the scales. Blocks the train gate passes
+    (``tade_decode.gated(train=True)``: T >= ``min_fused_t``, T even, scale
+    1 or 2, aux width 64) are ``tade_block_train``; the others run their
+    module's forward (``blk["module"]``), under autograd as it is. With
+    gradients off (the D phase's re-run of G, eval, decode) each gated
+    block is K8a then K8b alone."""
+    if gated_function not in GATES:
+        raise ValueError(f"{gated_function} is not supported.")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_tade_blocks_train: unsupported device {x.device}")
+    for i, blk in enumerate(blocks):
+        if gated(x.shape[1], blk, min_fused_t=min_fused_t, train=True):
+            meta = (int(blk["scale"]), int(blk["dilation"]), gated_function)
+            x, c = tade_block_train.apply(x, c, meta, *(blk[k] for k in WEIGHTS))
+        else:
+            x, c = run_module(i, blk, x, c)
+    return x, c

@@ -18,6 +18,15 @@ Gradients are taken with ``torch.autograd.grad`` with respect to the
 phase's own parameters, so the G phase leaves D's untouched; a parameter
 the loss does not reach gets a zero gradient, as in JAX. Batches are dicts
 of float32 tensors in the (B, C, T) layout (``batch_to_device``).
+
+StyleMelGAN draws what JAX draws from its step key: the noise z of the G
+phase and of the D phase's re-run (on the device), and the random-window
+discriminator's starts of the G phase's adversarial call and of the D
+phase's real and fake calls (on the CPU). Each draw comes from a generator
+seeded by (seed, step, stream) alone (``seeded``), so a resumed run draws
+what the uninterrupted run drew at the same step. A batch that holds
+``z`` or ``rwd_starts_adv`` / ``_real`` / ``_fake`` pins them instead, as
+JAX's step.py:46-50, :288 and :338-340 take them.
 """
 
 from __future__ import annotations
@@ -40,18 +49,50 @@ def batch_to_device(batch: dict, device) -> dict:
     return out
 
 
-def generator_forward(config: dict, generator, batch: dict) -> torch.Tensor:
+# the streams of one step's draws (``seeded``)
+NOISE_G, NOISE_D, STARTS_ADV, STARTS_REAL, STARTS_FAKE, NOISE_EVAL, STARTS_EVAL = range(7)
+
+
+def seeded(device, *keys: int) -> torch.Generator:
+    """A generator on ``device`` seeded by ``keys`` alone, e.g. (seed,
+    step, stream)."""
+    state = np.random.SeedSequence([int(k) for k in keys]).generate_state(2, np.uint32)
+    return torch.Generator(device=device).manual_seed(
+        int(state[0]) << 32 | int(state[1]))
+
+
+def generator_forward(config: dict, generator, batch: dict,
+                      draws: tuple = ()) -> torch.Tensor:
     """The generator's output (B, out, T) for a batch (train.py:1109-1117
     feature flags: Parallel WaveGAN takes noise and the mel, MelGAN the mel
-    alone, as JAX's step.py:83-84)."""
+    alone, as JAX's step.py:83-84; StyleMelGAN the mel and ``batch["z"]``
+    where the batch has it, else z drawn on the batch's device from a
+    generator seeded by ``draws``, e.g. (seed, step, stream))."""
     gen_type = config["generator_type"]
     if gen_type == "ParallelWaveGANGenerator":
         return generator(batch["z"], batch["c"])
     if gen_type == "MelGANGenerator":
         return generator(batch["c"])
+    if gen_type == "StyleMelGANGenerator":
+        z = batch.get("z")
+        noise = None if z is not None else seeded(batch["c"].device, *draws)
+        return generator(batch["c"], z, generator=noise)
     raise NotImplementedError(
         f"training {gen_type} is not ported to parallelwavegan_tpu_torch yet; "
         "see ROADMAP.md")
+
+
+def discriminator_forward(config: dict, discriminator, y, batch: dict, key: str,
+                          draws: tuple = ()):
+    """The discriminator's output for y; StyleMelGAN's windows start at
+    ``batch["rwd_starts_" + key]`` where the batch has it, else are drawn
+    from a CPU generator seeded by ``draws``."""
+    if config["discriminator_type"] == "StyleMelGANDiscriminator":
+        starts = batch.get(f"rwd_starts_{key}")
+        if starts is not None:
+            return discriminator(y, starts.tolist())
+        return discriminator(y, generator=seeded("cpu", *draws))
+    return discriminator(y)
 
 
 def _aux_losses(criterion: Criterion, y_, y, metrics: dict):
@@ -76,7 +117,9 @@ def _update(optimizer, params, loss) -> None:
 
 
 class TrainStep:
-    """(batch, train_g, train_d) -> metrics (0-d tensors on the device)."""
+    """(batch, train_g, train_d, step) -> metrics (0-d tensors on the
+    device); ``step`` (the steps done before this one) and the config's
+    ``seed`` seed StyleMelGAN's draws."""
 
     def __init__(self, config: dict, generator, discriminator,
                  criterion: Criterion, opt_g, opt_d):
@@ -90,15 +133,21 @@ class TrainStep:
         self.d_params = [p for p in discriminator.parameters() if p.requires_grad]
         self.update_prediction = config.get(
             "update_prediction_after_generator_update", True)
+        self.seed = config.get("seed", 0)
 
-    def __call__(self, batch: dict, train_g: bool, train_d: bool) -> dict:
-        crit, metrics = self.criterion, {}
+    def __call__(self, batch: dict, train_g: bool, train_d: bool, step: int = 0) -> dict:
+        crit, metrics, cfg = self.criterion, {}, self.config
         y, y_ = batch["y"], None
+
+        def dis(v, key, stream):
+            return discriminator_forward(cfg, self.discriminator, v, batch, key,
+                                         (self.seed, step, stream))
+
         if train_g:
-            y_ = generator_forward(self.config, self.generator, batch)
+            y_ = generator_forward(cfg, self.generator, batch, (self.seed, step, NOISE_G))
             gen_loss = _aux_losses(crit, y_, y, metrics) * crit.lambda_aux
             if train_d:
-                adv_loss = crit.gen_adv(self.discriminator(y_))
+                adv_loss = crit.gen_adv(dis(y_, "adv", STARTS_ADV))
                 metrics["adversarial_loss"] = adv_loss
                 gen_loss = gen_loss + crit.lambda_adv * adv_loss
             metrics["generator_loss"] = gen_loss
@@ -107,9 +156,10 @@ class TrainStep:
         if train_d:
             if self.update_prediction or not train_g:
                 with torch.no_grad():
-                    y_ = generator_forward(self.config, self.generator, batch)
-            p = self.discriminator(y)
-            p_ = self.discriminator(y_)
+                    y_ = generator_forward(cfg, self.generator, batch,
+                                           (self.seed, step, NOISE_D))
+            p = dis(y, "real", STARTS_REAL)
+            p_ = dis(y_, "fake", STARTS_FAKE)
             real_loss, fake_loss = crit.dis_adv(p_, p)
             dis_loss = real_loss + fake_loss
             _update(self.opt_d, self.d_params, dis_loss)
@@ -121,13 +171,17 @@ class TrainStep:
 
 @torch.no_grad()
 def eval_step(config: dict, generator, discriminator, criterion: Criterion,
-              batch: dict) -> dict:
-    """Every loss of a batch, no update (step.py:368-425)."""
+              batch: dict, draws: tuple = (0,)) -> dict:
+    """Every loss of a batch, no update (step.py:368-425). StyleMelGAN
+    draws its noise and windows from generators seeded by ``draws`` (e.g.
+    (seed, step, batch index)); the real and fake waves share the windows,
+    as JAX's one key gives both."""
     metrics = {}
     y = batch["y"]
-    y_ = generator_forward(config, generator, batch)
+    y_ = generator_forward(config, generator, batch, (*draws, NOISE_EVAL))
     gen_loss = _aux_losses(criterion, y_, y, metrics) * criterion.lambda_aux
-    p_, p = discriminator(y_), discriminator(y)
+    p_, p = (discriminator_forward(config, discriminator, v, batch, "eval",
+                                   (*draws, STARTS_EVAL)) for v in (y_, y))
     adv_loss = criterion.gen_adv(p_)
     metrics["adversarial_loss"] = adv_loss
     metrics["generator_loss"] = gen_loss + criterion.lambda_adv * adv_loss

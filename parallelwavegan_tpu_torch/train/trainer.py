@@ -13,6 +13,11 @@ when the loop ends, however it ends.
 SIGTERM sets a flag that the loop reads after each step and, unlike the
 JAX trainer (:146, ADVICE r5), also before the eval and save hooks, so a
 preempted run goes straight to the final checkpoint.
+
+Random draws (StyleMelGAN's noise and windows) are seeded by the config's
+``seed`` and the step count: the train step by its step, each dev batch
+by (step, its index), the dumps by the step, so every dev batch sees fresh
+noise and windows (JAX :275-278) and a resumed run repeats the draws.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import numpy as np
 import torch
 
 from parallelwavegan_tpu_torch.train.step import (
+    NOISE_EVAL,
     TrainStep,
     batch_to_device,
     eval_step,
@@ -128,7 +134,7 @@ class Trainer:
     def _train_step(self, batch) -> None:
         train_g, train_d = self._phase_flags()
         batch = batch_to_device(batch, self.device)
-        self._pending.append(self.step_fn(batch, train_g, train_d))
+        self._pending.append(self.step_fn(batch, train_g, train_d, self.steps))
         self.steps += 1
         if self.steps >= self.config["train_max_steps"]:
             self.finish_train = True
@@ -174,10 +180,13 @@ class Trainer:
         self.generator.eval()
         self.discriminator.eval()
         totals, first = defaultdict(float), None
-        for batch in itertools.islice(self.dev_loader.epoch_batches(0), limit):
+        seed = self.config.get("seed", 0)
+        for i, batch in enumerate(itertools.islice(self.dev_loader.epoch_batches(0),
+                                                   limit)):
             first = first or batch
             m = eval_step(self.config, self.generator, self.discriminator,
-                          self.criterion, batch_to_device(batch, self.device))
+                          self.criterion, batch_to_device(batch, self.device),
+                          (seed, self.steps, i))
             for k, v in m.items():
                 totals[k] += float(v)
         self._log("eval", totals, limit)
@@ -193,7 +202,8 @@ class Trainer:
         dirname = os.path.join(self.outdir, "predictions", f"{self.steps}steps")
         os.makedirs(dirname, exist_ok=True)
         small = batch_to_device({k: v[:n] for k, v in batch.items()}, self.device)
-        y_ = generator_forward(self.config, self.generator, small).cpu().numpy()
+        draws = (self.config.get("seed", 0), self.steps, NOISE_EVAL)
+        y_ = generator_forward(self.config, self.generator, small, draws).cpu().numpy()
         y = small["y"].cpu().numpy()
         fs = self.config["sampling_rate"]
         try:

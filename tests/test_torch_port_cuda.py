@@ -2,8 +2,8 @@
 the fused HiFi-GAN tail, the fused WaveNet layer (stack and block, the
 block's training by autograd of its plain version) and its backward (K4),
 the MelGAN stack kernel (K6) and its backward (K7), the MRF stage on the
-residual-unit kernel (K2) and the StyleMelGAN TADE kernels (K8a, K8b).
-The generator tests also check that no CUDA tensor reaches a plain
+residual-unit kernel (K2) and the StyleMelGAN TADE kernels (K8a, K8b) and
+their backward (K9a, K9b). The generator tests also check that no CUDA tensor reaches a plain
 version on the main path.
 
 These tests need an NVIDIA GPU with sm_90a (Hopper) and nvcc; elsewhere
@@ -719,3 +719,120 @@ def test_tade_kernels_reject_unsupported_input(cuda):
     w = dict(blk, gc1_w=blk["gc1_w"].clone().requires_grad_(True))
     with pytest.raises(RuntimeError, match="inference-only"):
         tade_mod.fused_tade_blocks(x, x, [w], min_fused_t=1)
+
+
+def _k9_case(cuda, b, t, scale, dilation, bias, seed=7):
+    """A block of unit-gain convs, its input and the forward's residuals,
+    and cotangents of scale 1 / sqrt(B sT): every gradient of order one."""
+    blk = _tade_on(_tade_block(seed, scale=scale, dilation=dilation, bias=bias), cuda)
+    rs = np.random.RandomState(seed + 1)
+
+    def randn(*shape, s=1.0):
+        return torch.from_numpy((rs.randn(*shape) * s).astype(np.float32)).to(cuda)
+
+    x, c = randn(b, t, 64), randn(b, t, 64)
+    u = (b * t * scale) ** -0.5
+    return blk, x, c, randn(b, scale * t, 64, s=u), randn(b, scale * t, 64, s=u)
+
+
+def _k9_pairs(got, want):
+    (dx, dc, dw), (rx, rc, rw) = got, want
+    return [("dx", dx, rx), ("dc", dc, rc)] + [(k, dw[k], rw[k]) for k in rw]
+
+
+# ragged B and T, scales 1 and 2, both gates, no biases, T of one tile and
+# of a few rows, dilations 1 and 4
+@pytest.mark.parametrize("b,t,scale,gated,bias,dilation", [
+    (2, 1002, 2, "softmax", True, 2), (2, 1002, 1, "sigmoid", True, 2),
+    (1, 334, 2, "softmax", False, 2), (2, 6, 2, "softmax", True, 2),
+    (1, 130, 1, "softmax", True, 1), (1, 200, 2, "sigmoid", True, 4)])
+def test_tade_backward_matches_plain_version(cuda, b, t, scale, gated, bias, dilation):
+    from parallelwavegan_tpu_torch.ops.kernels import tade_train as k9
+
+    blk, x, c, dxo, dco = _k9_case(cuda, b, t, scale, dilation, bias)
+    x2, a = (v.contiguous() for v in tade_mod.tade1_reference(x, c, blk, gated))
+    f = k9.tade_block_backward
+    before = (f.launches_k9a, f.launches_k9b)
+    got = f(x, c, x2, a, blk, gated, dxo, dco)
+    torch.cuda.synchronize()
+    assert (f.launches_k9a, f.launches_k9b) == (before[0] + 1, before[1] + 1)
+    want = k9.tade_block_backward_reference(x, c, blk, gated, dxo, dco)
+    _assert_grads_close(_k9_pairs(got, want), strict=True)
+    # each kernel alone against its own plain version
+    dxr, dx2, da, g2 = k9.tade2_backward_cuda(x, x2, a, blk, gated, dxo, dco)
+    w = k9.tade2_backward_reference(x, x2, a, blk, gated, dxo, dco)
+    _assert_grads_close([("dx", dxr, w[0]), ("dx2", dx2, w[1]), ("da", da, w[2])]
+                        + [(k, g2[k], w[3][k]) for k in w[3]], strict=True)
+    dx2, da = w[1].contiguous(), w[2].contiguous()  # autograd's strides vary
+    w1 = k9.tade1_backward_reference(x, c, blk, gated, dx2, da)
+    _assert_grads_close(_k9_pairs(k9.tade1_backward_cuda(x, c, blk, gated, dx2, da),
+                                  w1), strict=True)
+
+
+def test_tade_backward_is_deterministic(cuda):
+    from parallelwavegan_tpu_torch.ops.kernels import tade_train as k9
+
+    blk, x, c, dxo, dco = _k9_case(cuda, 2, 3000, 2, 2, True)
+    x2, a = tade_mod.tade1_cuda(x, c, blk)
+    first = k9.tade_block_backward(x, c, x2, a, blk, "softmax", dxo, dco)
+    second = k9.tade_block_backward(x, c, x2, a, blk, "softmax", dxo, dco)
+    torch.cuda.synchronize()
+    for name, p, q in _k9_pairs(first, second):
+        assert torch.equal(p, q), name
+
+
+def test_style_melgan_generator_trains_through_the_kernels(cuda, monkeypatch):
+    from parallelwavegan_tpu_torch.ops.kernels import tade_train as k9
+
+    cls = get_model_class("StyleMelGANGenerator")
+    small = dict(in_channels=32, aux_channels=80, noise_upsample_scales=(11, 2),
+                 upsample_scales=(2, 2, 2, 1))
+    plain = cls(**small, generator=torch.Generator().manual_seed(4)).to(cuda)
+    with torch.no_grad():  # unit-norm filters: gradients of order one
+        for k, p in plain.named_parameters():
+            if k.endswith("weight_g"):
+                p.fill_(1.0)
+    gen = cls(**small, use_pallas_tade_train=True, pallas_tade_train_min_t=80).to(cuda)
+    gen.load_state_dict(plain.state_dict())
+    c = torch.randn(2, 80, 22, generator=torch.Generator().manual_seed(5)).to(cuda)
+    z = torch.randn(2, 32, 1, generator=torch.Generator().manual_seed(6)).to(cuda)
+    cot = torch.randn(2, 1, 22 * 8, generator=torch.Generator().manual_seed(7)).to(cuda)
+    (plain(c, z) * cot).sum().backward()
+    for name in ("tade_block_backward_reference", "tade1_reference", "tade2_reference"):
+        _refuse(monkeypatch, k9, name)
+    f, k8 = k9.tade_block_backward, tade_mod.fused_tade_blocks
+    before = (f.launches_k9a, f.launches_k9b, k8.launches_k8a, k8.launches_k8b)
+    (gen(c, z) * cot).sum().backward()  # block inputs 22, 44, 88, 176: 2, 3 gated
+    torch.cuda.synchronize()
+    assert (f.launches_k9a, f.launches_k9b, k8.launches_k8a, k8.launches_k8b) == tuple(
+        n + 2 for n in before)
+    want = dict(plain.named_parameters())
+    _assert_grads_close([(k, p.grad, want[k].grad) for k, p in gen.named_parameters()],
+                        strict=True)
+    with torch.no_grad():  # the D phase's re-run: K8 alone
+        gen(c, z)
+    assert (k8.launches_k8a, k8.launches_k8b) == (before[2] + 4, before[3] + 4)
+    assert (f.launches_k9a, f.launches_k9b) == (before[0] + 2, before[1] + 2)
+
+
+def test_tade_backward_rejects_unsupported_input(cuda):
+    from parallelwavegan_tpu_torch.ops.kernels import tade_train as k9
+
+    blk, x, c, dxo, dco = _k9_case(cuda, 1, 64, 2, 2, True)
+    x2, a = tade_mod.tade1_cuda(x, c, blk)
+    f = k9.tade_block_backward
+    before = (f.launches_k9a, f.launches_k9b)
+    with pytest.raises(ValueError, match="width 64 only"):
+        f(x[..., :32].contiguous(), c, x2, a, blk, "softmax", dxo, dco)
+    with pytest.raises(ValueError, match="float32"):
+        f(x, c, x2, a, blk, "softmax", dxo.double(), dco)
+    with pytest.raises(ValueError, match="contiguous"):
+        f(x, c, x2, a, blk, "softmax", dxo,
+          torch.zeros(1, 64, 128, device=cuda).transpose(1, 2))
+    with pytest.raises(ValueError, match="scale 1 or 2"):
+        f(x, c, x2, a, dict(blk, scale=4), "softmax", dxo, dco)
+    with pytest.raises(ValueError, match="dilation"):
+        f(x, c, x2, a, dict(blk, dilation=5), "softmax", dxo, dco)
+    with pytest.raises(ValueError, match="dout"):
+        f(x, c, x2, a, blk, "softmax", dxo[:, :64].contiguous(), dco)
+    assert (f.launches_k9a, f.launches_k9b) == before

@@ -39,6 +39,7 @@ from parallelwavegan_tpu_torch.convert.jax_params import (  # noqa: E402
 from parallelwavegan_tpu_torch.layers.tade import TADEResBlock  # noqa: E402
 from parallelwavegan_tpu_torch.models import get_model_class  # noqa: E402
 from parallelwavegan_tpu_torch.ops.kernels import tade_decode as port_td  # noqa: E402
+from parallelwavegan_tpu_torch.ops.kernels import tade_train as port_tt  # noqa: E402
 from parallelwavegan_tpu_torch.utils.checkpoint import save_checkpoint  # noqa: E402
 from parallelwavegan_tpu_torch.utils.model import load_model  # noqa: E402
 
@@ -283,14 +284,16 @@ def test_generator_matches_jax(flag, monkeypatch):
         v, jnp.asarray(c), jnp.asarray(z)))
     port = get_model_class(STYLE)(**params, **flags).eval()
     port.load_state_dict(jax_params_to_state_dict(STYLE, params, v), strict=True)
-    seen = []
-    real = port_td.tade_block_reference
+    # each gated block runs the plain first half once on the CPU: through
+    # fused_tade_blocks with the decode flag, tade_block_train with the train one
+    mod = port_tt if flag == "use_pallas_tade_train" else port_td
+    seen, real = [], mod.tade1_reference
 
-    def spy(x, cc, blk, **kw):
+    def spy(x, *args):
         seen.append(x.shape[1])
-        return real(x, cc, blk, **kw)
+        return real(x, *args)
 
-    monkeypatch.setattr(port_td, "tade_block_reference", spy)
+    monkeypatch.setattr(mod, "tade1_reference", spy)
     with torch.no_grad():
         got = port(torch.from_numpy(c).transpose(1, 2), torch.from_numpy(z).transpose(1, 2))
     assert got.shape == (2, 1, 40 * 4)
@@ -348,17 +351,27 @@ def test_random_init_is_seeded_normal_002_and_z_from_the_generator():
     torch.testing.assert_close(y1, y2, rtol=0, atol=0)
 
 
-def test_training_forward_through_the_kernel_raises():
+@pytest.mark.parametrize("flag", ["use_pallas_tade", "use_pallas_tade_train", None])
+def test_training_forward_through_the_kernel_raises(flag):
+    """Under grad the decode flag raises (its wrapper is inference-only, as
+    JAX's); the train flag trains its gated blocks (1 and 2) through
+    ``fused_tade_blocks_train``, with non-zero gradients reaching their
+    weight norm; the plain path trains."""
     c, z = _inputs(10, b=1, tz=2)
     args = (torch.from_numpy(c).transpose(1, 2), torch.from_numpy(z).transpose(1, 2))
-    for flag in ("use_pallas_tade", "use_pallas_tade_train"):
-        port = get_model_class(STYLE)(**SMALL, **{flag: True}, pallas_tade_min_t=1,
-                                      pallas_tade_train_min_t=1)
+    flags = {} if flag is None else {flag: True}
+    port = get_model_class(STYLE)(**SMALL, **flags, pallas_tade_min_t=1,
+                                  pallas_tade_train_min_t=1)
+    if flag == "use_pallas_tade":
         with pytest.raises(RuntimeError, match="inference-only"):
             port(*args)
-    port = get_model_class(STYLE)(**SMALL)  # the plain path trains
+        return
     port(*args).sum().backward()
-    assert port.blocks[0].gated_conv1.weight_v.grad is not None
+    for blk in port.blocks:
+        for conv in (blk.tade1.aux_conv[0], blk.gated_conv1, blk.tade2.gated_conv[0],
+                     blk.gated_conv2):
+            for p in (conv.weight_v, conv.weight_g, conv.bias):
+                assert p.grad is not None and float(p.grad.abs().max()) > 0
 
 
 def _write_style(tmp_path, frames=(25, 41), **flags):

@@ -456,8 +456,8 @@ def test_sigterm_stops_before_eval_and_save(tmp_path):
                       device="cpu", writer=False)
     real_step, saved = trainer.step_fn, []
 
-    def step_then_term(batch, train_g, train_d):
-        out = real_step(batch, train_g, train_d)
+    def step_then_term(batch, train_g, train_d, step):
+        out = real_step(batch, train_g, train_d, step)
         if trainer.steps == 1:  # the counter moves after this call: step 2
             os.kill(os.getpid(), signal.SIGTERM)
         return out
