@@ -72,7 +72,9 @@ Phases (any failure exits non-zero; nothing is caught):
    ragged case (B=2, T=1000, the d=512 halo past both ends) and one
    without biases, |diff| <= 2e-4 + 1e-3 |plain| on dx, dc and every
    weight gradient; two runs compared bit for bit; CUDA-event times of the
-   cycle's backward beside its plain version and bound.
+   cycle's backward beside its plain version and its bounds (at the
+   split-TF32 tensor-core rate K4 multiplies at, and at the float32
+   CUDA-core rate), and a torch.profiler split of its kernels.
 15. The split of one PWG v1 train step (B=6, T=25600) with the kernels and
    without: G forward, G losses, G backward, G optimizer step, the D
    phase's G re-run and D update, and whole ``TrainStep`` calls (steps/s).
@@ -299,6 +301,7 @@ STYLE_TRAIN_FRAMES = (100, 131)
 STYLE_FRAMES = 704
 UTT_FRAMES = (512, 300, 77)
 PEAK_FLOPS = 67e12  # float32 on the CUDA cores
+PEAK_TF32 = 495e12  # TF32 on the tensor cores (dense)
 PEAK_BYTES = 3.35e12
 
 
@@ -1425,16 +1428,25 @@ def phase_k4(card: str) -> dict:
                lambda: wavenet_stack_backward(x, c, w, d, dxo, dsk),
                lambda: wavenet_stack_backward_reference(x, c, w, d, dxo, dsk),
                _k4_work(x, c, w))
+    # K4 multiplies on the tensor cores in split TF32, three TF32 products
+    # per multiply: its bound is that of the units it uses
+    fp32_ms = rec["bound_ms"]
+    tf32_ms = 3 * rec["flops"] / PEAK_TF32 * 1e3
+    bytes_ms = rec["bytes"] / PEAK_BYTES * 1e3
+    rec["bound_ms"] = max(tf32_ms, bytes_ms)
+    rec["bound_by"] = "operations" if tf32_ms >= bytes_ms else "bytes"
     print(f"K4 per v1 cycle backward (two 5-layer calls, B=6 T=25600): kernel "
           f"{rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, bound "
-          f"{rec['bound_ms']:.3f} ms on {card}")
+          f"{rec['bound_ms']:.3f} ms at the split-TF32 rate (3 x "
+          f"{rec['flops'] / 1e9:.1f} GFLOP / 495 TFLOP/s; {rec['bound_ms'] / rec['ms']:.1%} "
+          f"of it), {fp32_ms:.3f} ms at the float32 CUDA-core rate on {card}")
 
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         wavenet_stack_backward(x, c, *chunks[0], dxo, dsk)
         torch.cuda.synchronize()
-    names = ("wavenet_layer_kernel", "dz_kernel", "wgrad_partial_kernel",
+    names = ("wavenet_layer_kernel", "dz_kernel", "wgrad_kernel",
              "wgrad_reduce_kernel", "dx_kernel")
     split = {n: [0.0, 0] for n in names + ("other",)}
     for ev in prof.key_averages():

@@ -53,8 +53,8 @@ _SIGNATURES = {
     # dwconv, dbconv, dwaux, dwskip, dbskip, dwres, dbres, part_floats, B, T,
     # C, Ca, K, dil, accumulate_dc, device, stream
     "wavenet_layer_bwd": [_P] * 21 + [ctypes.c_longlong] + [_I] * 8 + [_P],
-    # B, T, Ca, K -> floats of wavenet_layer_bwd's partial buffer
-    "wavenet_bwd_part_floats": [_I] * 4,
+    # B, T, C, Ca, K -> floats of wavenet_layer_bwd's partial buffer
+    "wavenet_bwd_part_floats": [_I] * 5,
     # x, out, wd, bd, w1, b1, ws, bs, B, T, C, K, dil, mode, slope, device,
     # stream
     "melgan_stack": [_P] * 8 + [_I] * 6 + [_F, _I, _P],

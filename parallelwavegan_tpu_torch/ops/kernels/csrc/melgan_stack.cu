@@ -22,8 +22,11 @@
 // C x C multiply-adds per sample (three taps, the 1x1 conv and the skip),
 // 6.04 GFLOP for stage 1 and 3.11 GFLOP for stage 2 with its final conv,
 // against 6 MB of activations in and out per launch. In float32 on the
-// CUDA cores (67 TFLOP/s; TF32 would miss the 2e-4 agreement with the
-// float32 reference) that is 0.090 and 0.046 ms of arithmetic against
+// CUDA cores (67 TFLOP/s; the products are FFMA: one TF32 product per
+// multiply missed the 1e-4 max|plain| agreement with the float32
+// reference in K4 on the card, 4.6e-4 to 1.3e-3 of max|plain| at v1
+// shapes, where split TF32 held it within 1e-5, PERF.md; split TF32
+// is untried here) that is 0.090 and 0.046 ms of arithmetic against
 // about 0.002 ms of bytes per launch at 3.35 TB/s, so the kernel is bound
 // by FMA issue and by the shared-memory loads that feed it, not by HBM.
 //

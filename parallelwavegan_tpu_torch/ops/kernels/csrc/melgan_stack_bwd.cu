@@ -51,8 +51,12 @@
 // about 10 C floats of activations read and written per row: at MelGAN
 // v1's C = 128, 64 and 32 that is 52 to 208 FLOP per byte, above the
 // card's float32 balance point (20 FLOP per byte at 67 TFLOP/s and 3.35
-// TB/s), so it is bound by FMA issue. TF32 tensor cores would miss the
-// 2e-4 agreement with the float32 reference, so the products are FFMA.
+// TB/s), so it is bound by FMA issue. The products are FFMA:
+// one TF32 product per multiply missed the 1e-4 max|plain| agreement with
+// the float32 reference in K4 on the card (4.6e-4 to 1.3e-3 of max|plain|
+// at v1 shapes; PERF.md), where split TF32 on the tensor cores held
+// it within 1e-5; this kernel's products are of the same kind, and split
+// TF32 is untried here.
 // This first design stages operands through shared memory without double
 // buffering, 8 rows x 4 output channels per thread (float4 loads of both
 // operands feed 128 FMAs per 12 loads); it aims at being right, and its
@@ -95,15 +99,15 @@ __global__ void __launch_bounds__(kThreads) dz_kernel(StackBwd p) {
   for (int i = 0; i < kRT; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) z[i][j] = m.active ? p.bd[4 * m.cg + j] : 0.f;
-  row_product<true>(segs, p.K, Pad{p.T, 1, p.pad, p.mode, p.slope}, C, tile, b,
-                    u0, w_s, a_s, z);
+  row_product(segs, p.K, Pad{p.T, 1, p.pad, p.mode, p.slope}, C, tile, b, u0, w_s,
+              a_s, z);
 
   // dh = g . W1^T: W[q][n] = W1[n][q]
   segs[0] = Seg{p.g, C, C, 0, 1.f, p.w1, 1, C};
   float dh[kRT][4];
   zero(dh);
-  row_product<true>(segs, 1, Pad{p.T, 0, 0, kZero, 0.f}, C, tile, b, u0, w_s,
-                    a_s, dh);
+  row_product(segs, 1, Pad{p.T, 0, 0, kZero, 0.f}, C, tile, b, u0, w_s,
+              a_s, dh);
   if (!m.active) return;
 #pragma unroll
   for (int i = 0; i < kRT; ++i) {
@@ -159,8 +163,8 @@ __global__ void __launch_bounds__(kThreads) dxp_kernel(DxArgs p) {
                   p.w + (size_t)k * p.w_tap, 1, p.src_ld};
   float acc[kRT][4];
   zero(acc);
-  row_product<true>(segs, p.K, Pad{p.T, 0, 0, kZero, 0.f}, C, tile, b, u0, w_s,
-                    a_s, acc);
+  row_product(segs, p.K, Pad{p.T, 0, 0, kZero, 0.f}, C, tile, b, u0, w_s,
+              a_s, acc);
   if (!m.active) return;
 #pragma unroll
   for (int i = 0; i < kRT; ++i) {
@@ -203,8 +207,8 @@ __global__ void __launch_bounds__(kThreads) dx_kernel(DxArgs p) {
   zero(acc);
   if (p.ws != nullptr) {  // the same branch in every thread
     const Seg seg{p.g, C, C, 0, 1.f, p.ws, 1, C};  // W[q][n] = Ws[n][q]
-    row_product<true>(&seg, 1, Pad{p.T, 0, 0, kZero, 0.f}, C, tile, b, u0, w_s,
-                      a_s, acc);
+    row_product(&seg, 1, Pad{p.T, 0, 0, kZero, 0.f}, C, tile, b, u0, w_s,
+                a_s, acc);
   }
   if (!m.active) return;
   const float* dxp = p.dxp + (size_t)b * (p.T + 2 * p.pad) * C;

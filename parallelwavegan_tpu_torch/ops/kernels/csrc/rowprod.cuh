@@ -1,6 +1,6 @@
-// Row products and weight gradients shared by the backward kernels K4
-// (wavenet_bwd.cu) and K7 (melgan_stack_bwd.cu), float32 on the CUDA cores,
-// in the channel-last (B, T, C) layout.
+// Row products and weight gradients of the backward kernels K7
+// (melgan_stack_bwd.cu) and K9 (tade_bwd.cu, the weight-gradient kernels
+// only), float32 on the CUDA cores, in the channel-last (B, T, C) layout.
 //
 // row_product: a block's tile of output rows u0 .. u0 + tile - 1 of one
 //   batch item times small weight matrices, summed over segments (a conv
@@ -11,7 +11,7 @@
 //   and db = sum b over every row of every batch item, as partial slabs
 //   (one per kRowsPerCta rows of a batch item and per job) that the reduce
 //   sums in a fixed order, so two runs give the same bits without atomics;
-//   the partial kernel's thread map is fixed at compile time for K4 and
+//   the partial kernel's thread map is fixed at compile time for K9 and
 //   fitted to each job for K7.
 // An operand's rows are read as stored (times a scale, zero outside
 // [0, T)), or, with Pad::act, as pad(leaky(.)): the padded LeakyReLU input
@@ -94,10 +94,9 @@ struct Pad {
 };
 
 // Element ch of row t of one batch item's operand (rows ld floats apart).
-template <bool kAct = true>
 __device__ __forceinline__ float load(const float* src, int ld, int t, int ch,
                                       float scale, const Pad& pd) {
-  if (kAct && pd.act) {
+  if (pd.act) {
     const int r = pad_row(t, pd.T, pd.pad, pd.mode);
     return r >= 0 ? leaky(src[(size_t)r * ld + ch], pd.slope) : 0.f;
   }
@@ -133,29 +132,22 @@ struct RowMap {
 // acc[i][j] += sum over the segments and their channels p of
 // A[u0 + rg + i * rgs + shift][p] * W[p][4 * cg + j] for batch item b.
 // w_s holds kCW * kMaxN floats, a_s tile * kAS (16-byte aligned). Every
-// thread of the block must call it (it synchronises). kVecA reads the
-// staged operand rows as float4 (12 shared loads per 128 FMAs, but 32 more
-// registers, K7); else one float per row and channel (9 loads per 32
-// FMAs, rows kCW + 1 apart), which leaves room for more resident blocks
-// (K4). kAct = false drops the pad(leaky) read at compile time (K4 has no
-// padded operand). Inlined, so that a caller's constant tile and width
-// fold: K4's row kernels then keep to 80 registers, three blocks per SM.
-template <bool kVecA, bool kAct = true>
+// thread of the block must call it (it synchronises). The staged operand
+// rows are read as float4 (12 shared loads per 128 FMAs).
 __device__ __forceinline__ void row_product(const Seg* segs, int nseg, const Pad& pd,
                                             int n, int tile, int b, int u0, float* w_s,
                                             float* a_s, float (&acc)[kRT][4]) {
   const RowMap m(n, tile);
   const int np = 4 * m.ng;
-  constexpr int kS = kVecA ? kAS : kCW + 1;  // row stride of a_s
   for (int g = 0; g < nseg; ++g) {
     const Seg sg = segs[g];
     const float* src = sg.src + (size_t)b * pd.T * sg.ld;
     for (int c0 = 0; c0 < sg.P; c0 += kCW) {
       for (int e = threadIdx.x; e < tile * kCW; e += kThreads) {
         const int row = e / kCW, j = e % kCW;
-        a_s[row * kS + j] = c0 + j < sg.P ? load<kAct>(src, sg.ld, u0 + row + sg.shift,
-                                                       c0 + j, sg.scale, pd)
-                                          : 0.f;
+        a_s[row * kAS + j] =
+            c0 + j < sg.P ? load(src, sg.ld, u0 + row + sg.shift, c0 + j, sg.scale, pd)
+                          : 0.f;
       }
       // weights: thread e stages W[c0 + e / np][e % np]
       for (int e = threadIdx.x; e < kCW * np; e += kThreads) {
@@ -167,36 +159,20 @@ __device__ __forceinline__ void row_product(const Seg* segs, int nseg, const Pad
       }
       __syncthreads();
       if (m.active) {
-        const float* arow = a_s + m.rg * kS;
-        if constexpr (kVecA) {
+        const float* arow = a_s + m.rg * kAS;
 #pragma unroll
-          for (int ci = 0; ci < kCW; ci += 4) {
-            float4 av[kRT];
+        for (int ci = 0; ci < kCW; ci += 4) {
+          float4 av[kRT];
 #pragma unroll
-            for (int i = 0; i < kRT; ++i)
-              av[i] = *reinterpret_cast<const float4*>(arow + i * m.rgs * kS + ci);
+          for (int i = 0; i < kRT; ++i)
+            av[i] = *reinterpret_cast<const float4*>(arow + i * m.rgs * kAS + ci);
 #pragma unroll
-            for (int cc = 0; cc < 4; ++cc) {
-              const float4 w =
-                  *reinterpret_cast<const float4*>(w_s + (ci + cc) * np + 4 * m.cg);
-#pragma unroll
-              for (int i = 0; i < kRT; ++i) {
-                const float a = lane(av[i], cc);
-                acc[i][0] = fmaf(a, w.x, acc[i][0]);
-                acc[i][1] = fmaf(a, w.y, acc[i][1]);
-                acc[i][2] = fmaf(a, w.z, acc[i][2]);
-                acc[i][3] = fmaf(a, w.w, acc[i][3]);
-              }
-            }
-          }
-        } else {
-#pragma unroll 4
-          for (int ci = 0; ci < kCW; ++ci) {
+          for (int cc = 0; cc < 4; ++cc) {
             const float4 w =
-                *reinterpret_cast<const float4*>(w_s + ci * np + 4 * m.cg);
+                *reinterpret_cast<const float4*>(w_s + (ci + cc) * np + 4 * m.cg);
 #pragma unroll
             for (int i = 0; i < kRT; ++i) {
-              const float a = arow[i * m.rgs * kS + ci];
+              const float a = lane(av[i], cc);
               acc[i][0] = fmaf(a, w.x, acc[i][0]);
               acc[i][1] = fmaf(a, w.y, acc[i][1]);
               acc[i][2] = fmaf(a, w.z, acc[i][2]);
@@ -236,7 +212,7 @@ struct WArgs {
 // Thread (pg, cg) holds the job's rows pg * rpt .. pg * rpt + rpt - 1 and
 // columns 4 * cg .. 4 * cg + 3; the threads of pg 0 also sum the columns.
 // kNG > 0 fixes the map at compile time, kNG column groups and rpt =
-// kMaxP / (kThreads / kNG) for every job (K4, whose jobs are 64 or 128
+// kMaxP / (kThreads / kNG) for every job (K9, whose jobs are 64 or 128
 // wide); kNG = 0 fits it to each job's N and P (K7, from 1 to 128 wide).
 template <int kNG>
 __global__ void __launch_bounds__(kThreads) wgrad_partial_kernel(WArgs w) {

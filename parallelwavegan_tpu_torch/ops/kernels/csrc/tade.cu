@@ -29,8 +29,12 @@
 // blocks 3-8 here (T = 5632 .. 180224): 130.8 GFLOP for K8a, 195.2 for
 // K8b, at least 1.95 and 2.91 ms on the CUDA cores against 0.11 and 0.16
 // ms for their bytes. So the kernels are bound by FMA issue and by the
-// shared-memory loads that feed it; TF32 tensor cores would miss the 2e-4
-// agreement with the float32 reference, so the products are FFMA.
+// shared-memory loads that feed it. The products are FFMA:
+// one TF32 product per multiply missed the 1e-4 max|plain| agreement with
+// the float32 reference in K4 on the card (4.6e-4 to 1.3e-3 of max|plain|
+// at v1 shapes; PERF.md), where split TF32 on the tensor cores held
+// it within 1e-5; this kernel's products are of the same kind, and split
+// TF32 is untried here.
 //
 // What the design does about it:
 //  - The TPU kernels pack two samples into the 128 lanes with block-matrix

@@ -45,7 +45,7 @@
 //     dsrc over 64; rows outside [0, L) are zeroed, the adjoint of the
 //     forward's padding. Its own rows of dT, dG, dxn, da' and dsrc go to
 //     device memory.
-//  2. wgrad_partial_kernel (csrc/rowprod.cuh, shared with K4 and K7): one
+//  2. wgrad_partial_kernel (csrc/rowprod.cuh, shared with K7): one
 //     block per 1,024 rows of one batch item and per job (a tap of Wgc or
 //     Wg, 64 x 128; then, in a second launch, a tap of Waux, 64 x 64): the
 //     job's product and its right operand's column sums into a slab.
@@ -59,8 +59,12 @@
 // 1.1 MFLOP per row against about 3.5 KB of activations read and written
 // per row (the re-run's outputs included): some 300 FLOP per byte, far
 // above the float32 balance point (67 TFLOP/s over 3.35 TB/s = 20), so it
-// is bound by FMA issue. TF32 tensor cores would miss the 2e-4 agreement
-// with the float32 reference, so the products are FFMA. The chain kernel
+// is bound by FMA issue. The products are FFMA:
+// one TF32 product per multiply missed the 1e-4 max|plain| agreement with
+// the float32 reference in K4 on the card (4.6e-4 to 1.3e-3 of max|plain|
+// at v1 shapes; PERF.md), where split TF32 on the tensor cores held
+// it within 1e-5; this kernel's products are of the same kind, and split
+// TF32 is untried here. The chain kernel
 // is K8's design (two blocks per SM at D <= 3); the weight gradients take
 // the shared partial kernel as it is. This first design aims at being
 // right, and its time stands beside its bound in PERF.md.

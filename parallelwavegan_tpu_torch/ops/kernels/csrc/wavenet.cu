@@ -28,9 +28,12 @@
 // 112.7 GFLOP, at least 1.68 ms on the CUDA cores, against 0.04 ms for
 // the bytes a fused cycle must move, and 1.6 ms per decode even for the
 // per-layer round trips of this design. So it is bound by FMA issue and
-// by the shared-memory loads that feed it. TF32 tensor cores would miss
-// the 2e-4 agreement with the float32 reference, so the products are
-// FFMA.
+// by the shared-memory loads that feed it. The products are FFMA:
+// one TF32 product per multiply missed the 1e-4 max|plain| agreement with
+// the float32 reference in K4 on the card (4.6e-4 to 1.3e-3 of max|plain|
+// at v1 shapes; PERF.md), where split TF32 on the tensor cores held
+// it within 1e-5; this kernel's products are of the same kind, and split
+// TF32 is untried here.
 //
 // What the design does about it:
 //  - The TPU kernel keeps a whole cycle resident with a 1,023-row halo

@@ -14,7 +14,8 @@ is a recompute checkpoint. Its backward is ``wavenet_stack_backward``: for
 a CUDA tensor it re-runs K3 from the saved input, keeping every layer's
 input in device memory, then walks the layers in reverse through the
 hand-written K4 kernel (csrc/wavenet_bwd.cu, one ``wavenet_layer_bwd``
-call of four CUDA kernels per layer); for a CPU tensor it runs
+call of four CUDA kernels per layer, their products on the tensor cores
+in split TF32); for a CPU tensor it runs
 ``wavenet_stack_backward_reference``. A CUDA tensor never takes the plain
 path.
 """
@@ -55,8 +56,8 @@ def wavenet_stack_backward(x, c, weights, dilations, dxo, dsk):
     dxo of x_out and dsk of the skip sum.
 
     A CUDA tensor goes through K4, one ``wavenet_layer_bwd`` call per layer
-    (the widths of ``fused_wavenet_stack``, C_a <= 128; float32,
-    contiguous), and raises on anything it does not take;
+    (the widths of ``fused_wavenet_stack``, C_a <= 128, kernel size <= 7;
+    float32, contiguous), and raises on anything it does not take;
     ``wavenet_stack_backward.launches`` counts those calls. A CPU tensor
     goes through ``wavenet_stack_backward_reference``.
     """
@@ -68,6 +69,8 @@ def wavenet_stack_backward(x, c, weights, dilations, dxo, dsk):
     ca, k = c.shape[2], weights["wconv"].shape[1]
     if ca > 128:
         raise ValueError(f"aux width {ca} is more than the backward kernel's 128")
+    if k > 7:
+        raise ValueError(f"kernel size {k} is more than the backward kernel's 7")
     build.check_tensor("dxo", dxo, x.device, x.shape)
     build.check_tensor("dsk", dsk, x.device, x.shape)
     # x_0 .. x_{L-1}: the chunk input and every later layer's input, re-run
@@ -76,7 +79,7 @@ def wavenet_stack_backward(x, c, weights, dilations, dxo, dsk):
     _run_layers(x, c, weights, dilations[:-1], False, fused_wavenet_stack, xs)
     lib = build.load()
     dev, stream = build.launch_target(x)
-    n_part = lib.query("wavenet_bwd_part_floats", b, t, ca, k)
+    n_part = lib.query("wavenet_bwd_part_floats", b, t, ch, ca, k)
     if n_part < 0:
         raise ValueError(f"(B, T) = ({b}, {t}) needs too large a partial buffer")
     part = torch.empty(n_part, device=x.device)

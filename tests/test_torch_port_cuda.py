@@ -1,6 +1,7 @@
 """The port's CUDA kernels on a CUDA device, against their plain versions:
 the fused HiFi-GAN tail, the fused WaveNet layer (stack and block, the
-block's training by autograd of its plain version) and its backward (K4),
+block's training by autograd of its plain version) and its backward (K4,
+split TF32 on the tensor cores),
 the MelGAN stack kernel (K6) and its backward (K7), the MRF stage on the
 residual-unit kernel (K2) and the StyleMelGAN TADE kernels (K8a, K8b) and
 their backward (K9a, K9b). The generator tests also check that no CUDA tensor reaches a plain
@@ -243,8 +244,9 @@ def _assert_grads_close(cases, strict=False):
             assert _grads_miss(torch.zeros_like(g), r, strict), f"zeroed {name} passed"
 
 
-def _k4_case(cuda, ch, ca, b, t, bias, n_layers=5, seed=7):
-    w = {k: v.to(cuda) for k, v in _wavenet_weights(n_layers, ch, ca, seed=seed).items()}
+def _k4_case(cuda, ch, ca, b, t, bias, n_layers=5, seed=7, k=3):
+    w = {key: v.to(cuda)
+         for key, v in _wavenet_weights(n_layers, ch, ca, k=k, seed=seed).items()}
     if not bias:
         for key in ("bconv", "bskip", "bres"):
             w[key] = torch.zeros_like(w[key])
@@ -257,13 +259,22 @@ def _k4_case(cuda, ch, ca, b, t, bias, n_layers=5, seed=7):
 
 
 # v1 widths with the d=512 halo past both ends of a ragged T, an odd aux
-# width, the narrow width, no biases, and T = 1
+# width (4-byte copies), the narrow width, no biases, and T = 1; T at the
+# 64-row tile of dz_kernel and dx_kernel and at the 1,024-row block of the
+# weight gradients, each +- 1, T below one tile, d >= T, and the narrow
+# width with the odd aux width
 @pytest.mark.parametrize("ch,ca,b,t,bias,dils", [
     (64, 80, 2, 1000, True, (32, 64, 128, 256, 512)),
     (64, 10, 1, 777, True, (1, 2, 4, 8, 16)),
     (16, 80, 3, 300, True, (1, 2, 4)),
     (64, 80, 1, 1100, False, (1, 8, 64, 512)),
     (64, 80, 2, 1, True, (1, 2)),
+    (64, 80, 2, 63, True, (1, 2, 4)),
+    (64, 80, 1, 65, True, (8, 64, 128)),
+    (64, 80, 2, 1023, True, (1, 16, 256)),
+    (64, 80, 1, 1025, True, (2, 32, 512)),
+    (64, 80, 3, 40, True, (1, 4, 32, 64)),
+    (16, 10, 2, 129, True, (1, 128, 512)),
 ])
 def test_wavenet_backward_matches_plain_version(cuda, ch, ca, b, t, bias, dils):
     w, x, c, dxo, dsk = _k4_case(cuda, ch, ca, b, t, bias, n_layers=len(dils))
@@ -271,6 +282,30 @@ def test_wavenet_backward_matches_plain_version(cuda, ch, ca, b, t, bias, dils):
     dx, dc, dw = wavenet_stack_backward(x, c, w, dils, dxo, dsk)
     torch.cuda.synchronize()
     assert wavenet_stack_backward.launches == before + len(dils)
+    rdx, rdc, rdw = wavenet_stack_backward_reference(x, c, w, dils, dxo, dsk)
+    _assert_grads_close([("dx", dx, rdx), ("dc", dc, rdc)]
+                        + [(k, dw[k], rdw[k]) for k in WEIGHT_KEYS], strict=True)
+
+
+def test_wavenet_backward_kernel_size_five(cuda):
+    """K = 5: the weight gradients take the taps in two jobs per half of
+    dz (three taps, then two with the aux input)."""
+    dils = (1, 4, 64)
+    w, x, c, dxo, dsk = _k4_case(cuda, 64, 80, 2, 700, True, n_layers=3, k=5)
+    dx, dc, dw = wavenet_stack_backward(x, c, w, dils, dxo, dsk)
+    rdx, rdc, rdw = wavenet_stack_backward_reference(x, c, w, dils, dxo, dsk)
+    _assert_grads_close([("dx", dx, rdx), ("dc", dc, rdc)]
+                        + [(k, dw[k], rdw[k]) for k in WEIGHT_KEYS], strict=True)
+
+
+def test_wavenet_backward_unaligned_aux_input(cuda):
+    """An aux input 4 bytes off a 16-byte boundary takes the 4-byte copies."""
+    dils = (1, 2, 512)
+    w, x, c, dxo, dsk = _k4_case(cuda, 64, 80, 2, 300, True, n_layers=3)
+    c_off = torch.empty(c.numel() + 1, device=cuda)[1:].view(c.shape)
+    c_off.copy_(c)
+    assert c_off.data_ptr() % 16 == 4
+    dx, dc, dw = wavenet_stack_backward(x, c_off, w, dils, dxo, dsk)
     rdx, rdc, rdw = wavenet_stack_backward_reference(x, c, w, dils, dxo, dsk)
     _assert_grads_close([("dx", dx, rdx), ("dc", dc, rdc)]
                         + [(k, dw[k], rdw[k]) for k in WEIGHT_KEYS], strict=True)
@@ -327,8 +362,11 @@ def test_library_entry_points_match_signatures(cuda):
     lib = build.load()  # binds every name of _SIGNATURES
     for name in build._SIGNATURES:
         assert getattr(lib._lib, name).argtypes == build._SIGNATURES[name]
-    # jobs (3 taps, 2 aux pieces, skip, res) x ctas x (65 x 128)
-    assert lib.query("wavenet_bwd_part_floats", 6, 25600, 80, 3) == 7 * 150 * 65 * 128
+    # ctas x (two halves of dz against 3 taps and aux, 272 + 1 rows of 64;
+    # g against dS and against dxn, 64 + 1 rows of 64)
+    assert lib.query("wavenet_bwd_part_floats", 6, 25600, 64, 80, 3) == (
+        150 * (2 * 273 * 64 + 2 * 65 * 64))
+    assert lib.query("wavenet_bwd_part_floats", 6, 25600, 32, 80, 3) == -1
 
 
 def _melgan_stacks(c, dilations, seed, bias=True):
