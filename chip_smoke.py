@@ -121,7 +121,9 @@ Phases (any failure exits non-zero; nothing is caught):
    dc and all 12 weight and bias gradients, with zeroed and shifted
    gradients as controls that must be rejected; two runs bit for bit;
    CUDA-event times of K9a and K9b over blocks 4-8 beside their plain
-   versions and bounds, and a torch.profiler split of block 8.
+   versions and their bounds (at the split-TF32 tensor-core rate they
+   multiply at, and at the float32 CUDA-core rate), and torch.profiler
+   splits by kernel of block 8 and of one G step's blocks 4-8.
 21. The split of one StyleMelGAN v1 train step (B=32, T=22528) with
    ``use_pallas_tade_train`` and without, as phase 15.
 22. StyleMelGAN v1 training through ``bin/train.main``:
@@ -379,6 +381,18 @@ def _bound(flops: float, nbytes: float) -> dict:
     return {"bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "flops": flops, "bytes": nbytes}
+
+
+def _split_tf32_bound(rec: dict) -> float:
+    """Set rec's bound to that of the units a split-TF32 kernel uses:
+    three TF32 products per multiply at the tensor cores' rate, or its
+    bytes. Returns its bound at the float32 CUDA-core rate."""
+    fp32_ms = rec["bound_ms"]
+    tf32_ms = 3 * rec["flops"] / PEAK_TF32 * 1e3
+    bytes_ms = rec["bytes"] / PEAK_BYTES * 1e3
+    rec["bound_ms"] = max(tf32_ms, bytes_ms)
+    rec["bound_by"] = "operations" if tf32_ms >= bytes_ms else "bytes"
+    return fp32_ms
 
 
 def _tail_work(x, w) -> dict:
@@ -1428,13 +1442,9 @@ def phase_k4(card: str) -> dict:
                lambda: wavenet_stack_backward(x, c, w, d, dxo, dsk),
                lambda: wavenet_stack_backward_reference(x, c, w, d, dxo, dsk),
                _k4_work(x, c, w))
-    # K4 multiplies on the tensor cores in split TF32, three TF32 products
-    # per multiply: its bound is that of the units it uses
-    fp32_ms = rec["bound_ms"]
-    tf32_ms = 3 * rec["flops"] / PEAK_TF32 * 1e3
-    bytes_ms = rec["bytes"] / PEAK_BYTES * 1e3
-    rec["bound_ms"] = max(tf32_ms, bytes_ms)
-    rec["bound_by"] = "operations" if tf32_ms >= bytes_ms else "bytes"
+    # K4 multiplies on the tensor cores in split TF32: its bound is that of
+    # the units it uses
+    fp32_ms = _split_tf32_bound(rec)
     print(f"K4 per v1 cycle backward (two 5-layer calls, B=6 T=25600): kernel "
           f"{rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, bound "
           f"{rec['bound_ms']:.3f} ms at the split-TF32 rate (3 x "
@@ -2258,30 +2268,55 @@ def phase_k9(card: str) -> dict:
     if not same:
         _fail("K9 gives different gradients in two runs")
     del first, second
+    # K9 multiplies on the tensor cores in split TF32 (its re-run of K8 on
+    # the CUDA cores): the bound is that of the units its products use
+    fp32_ms = {k: _split_tf32_bound(rec) for k, rec in (("K9a", k9a), ("K9b", k9b))}
     print(f"K9 per StyleMelGAN v1 G step backward (blocks 4-8, B={b}, the re-runs "
-          f"included): K9a {k9a['ms']:.3f} ms (plain {k9a['plain_ms']:.3f}, bound "
-          f"{k9a['bound_ms']:.3f}), K9b {k9b['ms']:.3f} ms (plain {k9b['plain_ms']:.3f}, "
-          f"bound {k9b['bound_ms']:.3f}) on {card}")
+          "included): " + ", ".join(
+              f"{k} {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}; bound {r['bound_ms']:.3f} "
+              f"ms at the split-TF32 rate, 3 x {r['flops'] / 1e9:.1f} GFLOP / 495 TFLOP/s, "
+              f"{r['bound_ms'] / r['ms']:.1%} of it; {fp32_ms[k]:.3f} ms at the float32 "
+              "CUDA-core rate)" for k, r in (("K9a", k9a), ("K9b", k9b))) + f" on {card}")
 
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        tt.tade_block_backward(x, c, x2, a, blk, "softmax", dxo, dco)
-        torch.cuda.synchronize()
-    split = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", 0) or 0
-        if us > 0:
-            short = re.sub(r"[<(].*", "", ev.key.replace("(anonymous namespace)::", ""))
-            short = short.split("::")[-1].split()[-1]
-            part = split.setdefault(short, [0.0, 0])
-            part[0] += us / 1e3
-            part[1] += ev.count
-    print(f"K9 v1 block 8 device time by kernel (torch.profiler, one backward; "
-          f"tade1_kernel and tade2_kernel are the re-runs, stage_bwd_kernel the "
-          f"transposed convs, the rest torch's glue) on {card}: "
-          + "; ".join(f"{n} {ms:.3f} ms ({k} launches)" for n, (ms, k) in
-                      sorted(split.items(), key=lambda kv: -kv[1][0])))
+    def by_kernel(fn) -> str:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        split = {}
+        for ev in prof.key_averages():
+            us = getattr(ev, "device_time_total", 0) or 0
+            if us > 0:
+                short = re.sub(r"[<(].*", "", ev.key.replace("(anonymous namespace)::", ""))
+                short = short.split("::")[-1].split()[-1]
+                part = split.setdefault(short, [0.0, 0])
+                part[0] += us / 1e3
+                part[1] += ev.count
+        return "; ".join(f"{n} {ms:.3f} ms ({k} launches)" for n, (ms, k) in
+                         sorted(split.items(), key=lambda kv: -kv[1][0]))
+
+    names = ("tade1_kernel and tade2_kernel are K8's re-runs, stage_bwd_kernel the "
+             "transposed convs, stage_wgrad_kernel and stage_wgrad_reduce_kernel the "
+             "weight gradients, the rest torch's glue")
+    print(f"K9 v1 block 8 device time by kernel (torch.profiler, one backward; {names}) "
+          f"on {card}: " + by_kernel(
+              lambda: tt.tade_block_backward(x, c, x2, a, blk, "softmax", dxo, dco)))
+    del x, c, x2, a, dxo, dco
+    # one G step's K9 work (each of blocks 4-8 backward once), by kernel
+    step = []
+    for (_, t, sc), blk in zip(blocks, chain_blocks):
+        x, c = randn(b, t, 64), randn(b, t, 64)
+        with torch.no_grad():
+            x2, a = td.tade1_cuda(x, c, blk)
+        step.append((x, c, x2, a, blk, randn(b, sc * t, 64, scale=1e-3),
+                     randn(b, sc * t, 64, scale=1e-3)))
+    print(f"K9 per StyleMelGAN v1 G step device time by kernel (torch.profiler, blocks "
+          f"4-8 backward once each; {names}) on {card}: " + by_kernel(
+              lambda: [tt.tade_block_backward(x, c, x2, a, blk, "softmax", dxo, dco)
+                       for x, c, x2, a, blk, dxo, dco in step]))
+    del step
+    torch.cuda.empty_cache()
     return {"k9a": k9a, "k9b": k9b}
 
 

@@ -76,7 +76,7 @@ _SIGNATURES = {
     # x, x2, a, mean, rstd, out, a2, aux_w, aux_b, g_w, g_b, gc_w, gc_b, y,
     # s, t, ua, B, T, scale, dilation, gate, device, stream
     "tade2": [_P] * 17 + [_I] * 6 + [_P],
-    # t, dout, s, xr, mean, rstd, dext, wt_gc, wt_g, wt_aux, y, ain, src,
+    # t, dout, s, xr, mean, rstd, dext, wf_gc, wf_g, wf_aux, y, ain, src,
     # dT, dG, dxn, da, dsrc, dw_gc, db_gc, dw_g, db_g, dw_aux, db_aux, part,
     # part_floats, B, L, scale, dilation, gate, device, stream
     "tade_stage_bwd": [_P] * 25 + [ctypes.c_longlong] + [_I] * 6 + [_P],

@@ -1,6 +1,6 @@
-// Row products and weight gradients of the backward kernels K7
-// (melgan_stack_bwd.cu) and K9 (tade_bwd.cu, the weight-gradient kernels
-// only), float32 on the CUDA cores, in the channel-last (B, T, C) layout.
+// Row products and weight gradients of the backward kernel K7
+// (melgan_stack_bwd.cu), float32 on the CUDA cores, in the channel-last
+// (B, T, C) layout.
 //
 // row_product: a block's tile of output rows u0 .. u0 + tile - 1 of one
 //   batch item times small weight matrices, summed over segments (a conv
@@ -11,8 +11,8 @@
 //   and db = sum b over every row of every batch item, as partial slabs
 //   (one per kRowsPerCta rows of a batch item and per job) that the reduce
 //   sums in a fixed order, so two runs give the same bits without atomics;
-//   the partial kernel's thread map is fixed at compile time for K9 and
-//   fitted to each job for K7.
+//   the partial kernel's thread map is fitted to each job (kNG = 0) or
+//   fixed at compile time (kNG > 0, which no kernel takes now).
 // An operand's rows are read as stored (times a scale, zero outside
 // [0, T)), or, with Pad::act, as pad(leaky(.)): the padded LeakyReLU input
 // of a MelGAN stack's dilated conv (reflect, replicate or zeros, as
@@ -212,8 +212,8 @@ struct WArgs {
 // Thread (pg, cg) holds the job's rows pg * rpt .. pg * rpt + rpt - 1 and
 // columns 4 * cg .. 4 * cg + 3; the threads of pg 0 also sum the columns.
 // kNG > 0 fixes the map at compile time, kNG column groups and rpt =
-// kMaxP / (kThreads / kNG) for every job (K9, whose jobs are 64 or 128
-// wide); kNG = 0 fits it to each job's N and P (K7, from 1 to 128 wide).
+// kMaxP / (kThreads / kNG) for every job (unused); kNG = 0 fits it to each
+// job's N and P (K7, from 1 to 128 wide).
 template <int kNG>
 __global__ void __launch_bounds__(kThreads) wgrad_partial_kernel(WArgs w) {
   // 8 floats past the last row: a thread's rows may run past P

@@ -1,14 +1,15 @@
-// The pieces of the fused StyleMelGAN TADE kernels that the forward
-// (csrc/tade.cu: K8a, K8b) and the backward (csrc/tade_bwd.cu: K9a, K9b)
-// share, float32 on the CUDA cores, in the channel-last (B, T, 64) layout:
+// The pieces of the fused StyleMelGAN TADE kernels (csrc/tade.cu: K8a,
+// K8b), float32 on the CUDA cores, in the channel-last (B, T, 64) layout:
 // the 9-tap conv of rows staged in shared memory against weights streamed
 // through a double-buffered cp.async ring (conv9), the staging of rows at
 // a nearest-stretch rate (load_rows), and the gate of a row whose channels
-// one warp holds (gate2). See csrc/tade.cu for the design.
+// one warp holds (gate2). See csrc/tade.cu for the design. The backward
+// (csrc/tade_bwd.cu: K9a, K9b) takes the widths, the warp reductions and
+// set_smem from here; its products are its own, on the tensor cores.
 //
 // Everything lives in namespace tadek inside an anonymous namespace, so
-// that a source can include csrc/rowprod.cuh too (whose kThreads and kCW
-// are its own), and each source gets its own copy.
+// that a source can include csrc/mma_tf32x3.cuh too, and each source gets
+// its own copy.
 
 #pragma once
 

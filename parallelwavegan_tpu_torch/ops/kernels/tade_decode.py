@@ -114,8 +114,9 @@ def _check_cuda_inputs(x, c, blk) -> None:
                          f"{width} and c width {c.shape[2]}")
     if b > 65535:
         raise ValueError(f"batch {b} exceeds the grid's 65535")
-    build.check_tensor("x", x, x.device, (b, t, C))
-    build.check_tensor("c", c, x.device, (b, t, C))
+    # rows are read in 16-byte pieces
+    build.check_tensor("x", x, x.device, (b, t, C), align=16)
+    build.check_tensor("c", c, x.device, (b, t, C), align=16)
     if int(blk["scale"]) not in (1, 2):
         raise ValueError(f"the TADE kernels take scale 1 or 2, got {blk['scale']}")
     if int(blk["dilation"]) not in DILATIONS:

@@ -15,13 +15,14 @@ plus the stretch adjoint of dx_out for the residual. For a CUDA tensor
 each of K9a and K9b is one re-run of its K8 kernel from the residuals
 (keeping the gated conv's input, the modulation's scale and the gate's
 pre-activations, csrc/tade.cu's Save) and one call of csrc/tade_bwd.cu
-(the transposed convs in one kernel, the weight gradients in partial and
-reduce kernels); the instance norms' backward and the stretch adjoint are
-torch reductions between the launches, as they are XLA glue in JAX
-(:90-120). For a CPU tensor it is ``tade_block_backward_reference``,
-autograd through the plain block. A CUDA tensor never takes the plain
-path. The TPU lane packing, tiling (``t_tile``) and bf16 mode do not
-carry over.
+(the transposed convs in one kernel, the weight gradients in a kernel and
+its reduce, every product split TF32 on the tensor cores, the weights
+split once per call by ``tf32x3.conv_fragments``); the instance norms'
+backward and the stretch adjoint are torch reductions between the
+launches, as they are XLA glue in JAX (:90-120). For a CPU tensor it is
+``tade_block_backward_reference``, autograd through the plain block. A
+CUDA tensor never takes the plain path. The TPU lane packing, tiling
+(``t_tile``) and bf16 mode do not carry over.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ from parallelwavegan_tpu_torch.ops.kernels.tade_decode import (
     tade2_reference,
     tade_block_reference,
 )
+from parallelwavegan_tpu_torch.ops.kernels.tf32x3 import conv_fragments
 
 # every weight and bias of a block, in the order tade_block_train takes them
 WEIGHTS = tuple(f"{k}{s}" for k in WEIGHT_KEYS for s in ("_w", "_b"))
@@ -127,12 +129,6 @@ def stretch_adjoint(z, scale: int):
 # ---------------------------------------------------------------------------
 
 
-def _transposed(w):
-    """Wt[j] = W[8 - j]^T: a conv's weights (9, Cin, Cout) as those of its
-    transposed conv (9, Cout, Cin), the form csrc/tade_bwd.cu takes."""
-    return w.detach().flip(0).transpose(1, 2).contiguous()
-
-
 def _stage_cuda(t, dout, sv, xr, mean, rstd, dext, blk, keys, y, ain, src,
                 scale: int, dilation: int, gated_function: str):
     """One call of csrc/tade_stage_bwd: (dxn, da', dsrc, weight grads)."""
@@ -148,8 +144,9 @@ def _stage_cuda(t, dout, sv, xr, mean, rstd, dext, blk, keys, y, ain, src,
     aux, g, gc = keys
     grads = {f"{k}{s}": torch.empty_like(blk[f"{k}{s}"]) for k in keys
              for s in ("_w", "_b")}
-    # held until the launch is queued: a freed one could be reused at once
-    wts = [_transposed(blk[f"{k}_w"]) for k in (gc, g, aux)]
+    # the transposed convs' weights split into TF32 hi and lo in fragment
+    # order, held until the launch is queued: a freed one could be reused
+    wts = [conv_fragments(blk[f"{k}_w"]) for k in (gc, g, aux)]
     lib.call("tade_stage_bwd", t.data_ptr(), dout.data_ptr(), sv.data_ptr(),
              xr.data_ptr(), mean.data_ptr(), rstd.data_ptr(), dext.data_ptr(),
              *(w.data_ptr() for w in wts), y.data_ptr(), ain.data_ptr(), src.data_ptr(),
@@ -162,7 +159,7 @@ def _stage_cuda(t, dout, sv, xr, mean, rstd, dext, blk, keys, y, ain, src,
 
 
 def _check_cotangent(name, v, x, rows):
-    build.check_tensor(name, v, x.device, (x.shape[0], rows, C))
+    build.check_tensor(name, v, x.device, (x.shape[0], rows, C), align=16)
 
 
 def tade1_backward_cuda(x, c, blk, gated_function, dx2, da):
@@ -193,7 +190,7 @@ def tade2_backward_cuda(x, x2, a, blk, gated_function, dout, da2):
     (dx, dx2, da, grads of aux2, g2, gc2), those of
     ``tade2_backward_reference``."""
     _check_cuda_inputs(x, a, blk)
-    build.check_tensor("x2", x2, x.device, x.shape)
+    build.check_tensor("x2", x2, x.device, x.shape, align=16)
     b, t_len, _ = x.shape
     sc, d = int(blk["scale"]), int(blk["dilation"])
     rows = sc * t_len

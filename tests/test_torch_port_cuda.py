@@ -779,11 +779,14 @@ def _k9_pairs(got, want):
 
 
 # ragged B and T, scales 1 and 2, both gates, no biases, T of one tile and
-# of a few rows, dilations 1 and 4
+# of a few rows, dilations 1 to 4, L not a multiple of the chain's 112-row
+# tile, and stage-2 rows just below and above a 1,024-row slab boundary
 @pytest.mark.parametrize("b,t,scale,gated,bias,dilation", [
     (2, 1002, 2, "softmax", True, 2), (2, 1002, 1, "sigmoid", True, 2),
     (1, 334, 2, "softmax", False, 2), (2, 6, 2, "softmax", True, 2),
-    (1, 130, 1, "softmax", True, 1), (1, 200, 2, "sigmoid", True, 4)])
+    (1, 130, 1, "softmax", True, 1), (1, 200, 2, "sigmoid", True, 4),
+    (1, 500, 2, "softmax", True, 3), (2, 225, 1, "sigmoid", True, 2),
+    (1, 511, 2, "softmax", True, 2), (1, 513, 2, "softmax", True, 2)])
 def test_tade_backward_matches_plain_version(cuda, b, t, scale, gated, bias, dilation):
     from parallelwavegan_tpu_torch.ops.kernels import tade_train as k9
 

@@ -5,7 +5,8 @@ The kernel multiplies on the tensor cores in TF32: a float32 value keeps
 10 mantissa bits there. It splits each operand v into hi = tf32(v) and
 lo = tf32(v - hi) (``cvt.rna``: to nearest, ties away from zero) and
 forms every product as a_lo.b_hi + a_hi.b_lo + a_hi.b_hi with float32
-accumulators (csrc/mma_tf32x3.cuh). Here that split runs in torch on the
+accumulators (csrc/mma_tf32x3.cuh; ``to_tf32`` is the port's, from
+ops/kernels/tf32x3.py). Here that split runs in torch on the
 CPU, each product a float32 matmul of TF32 values (exact, since two 11-bit
 significands multiply into 22 bits), through one layer's backward written
 out in the kernel's own decomposition: z, the gate, dg, dz, dx, dc and the
@@ -35,17 +36,11 @@ from parallelwavegan_tpu_torch.ops.kernels.wavenet import (  # noqa: E402
     gated_resblock_reference,
     wavenet_stack_reference,
 )
+from parallelwavegan_tpu_torch.ops.kernels.tf32x3 import to_tf32  # noqa: E402
 
 SQRT_HALF = 0.5 ** 0.5
 V1 = dict(layers=30, stacks=3, residual_channels=64, gate_channels=128,
           skip_channels=64, aux_channels=80, kernel_size=3)
-
-
-def to_tf32(v):
-    """``cvt.rna.tf32.f32``: v rounded to 10 mantissa bits, to nearest, ties
-    away from zero (a float32 with its low 13 bits cleared)."""
-    bits = v.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
 def mm_split(a, b):
