@@ -53,9 +53,12 @@ Phases (any failure exits non-zero; nothing is caught):
 11. The TADE kernels (K8a, K8b) against their plain versions at
    StyleMelGAN v1's blocks 3-8 of a 512-frame decode (B=1, T = 5632 ..
    180224, scales 2 then 1, d=2, softmax), each timed beside its plain
-   version and bound, the six-block chain too, and ragged cases (B=2,
-   T=1001, scales (2, 1), softmax and sigmoid; no biases; T=5, below a
-   halo), |diff| <= 2e-4 + 2e-4 |plain|.
+   version and bounds (at the split-TF32 tensor-core rate they multiply
+   at, and at the float32 CUDA-core rate), the six-block chain too, and
+   ragged cases (B=2, T=1001, scales (2, 1), softmax and sigmoid; no
+   biases; T=5, below a halo), |diff| <= 2e-4 + 2e-4 |plain|, with
+   max|diff| / max|plain| printed; then the same at the training shapes
+   of blocks 4-8 (B=32, T = 1408 .. 22528), one G step's forward.
 12. The split of the StyleMelGAN v1 forward at 512 frames (704 padded):
    noise upsample, blocks 0-2 (module path), blocks 3-8 with and without
    the kernels, the output conv, the whole forward with and without.
@@ -145,7 +148,9 @@ The last three lines are the kernel record (JSON), the card's name and
 power limit from nvidia-smi, and {"ok": true, "device": {...}}. Every
 bound in the record is the larger of the bytes each call must move (each
 input read once, each output written once) over 3.35 TB/s and its float32
-operations over 67 TFLOP/s, the H100 SXM data-sheet peaks at 700 W.
+operations over 67 TFLOP/s, the H100 SXM data-sheet peaks at 700 W; for
+the kernels that multiply in split TF32 on the tensor cores (K4, K8, K9),
+three TF32 operations per multiply-add's two over 495 TFLOP/s instead.
 """
 
 from __future__ import annotations
@@ -1123,7 +1128,8 @@ def _check_allclose(name: str, got, want) -> float:
               "non-finite kernel output")
     err = float((got - want).abs().max())
     ok = bool(torch.allclose(got, want, rtol=TOL, atol=TOL))
-    print(f"kernel vs plain [{name}]: max|diff| = {err:.3e} (rtol {TOL}, atol {TOL})")
+    print(f"kernel vs plain [{name}]: max|diff| = {err:.3e}, max|diff| / max|plain| = "
+          f"{err / max(float(want.abs().max()), 1e-30):.3e} (rtol {TOL}, atol {TOL})")
     if not ok:
         _fail(f"{name}: kernel disagrees with its plain version")
     return err
@@ -1131,15 +1137,18 @@ def _check_allclose(name: str, got, want) -> float:
 
 def phase_tade_kernel(card: str) -> dict:
     """K8a and K8b vs their plain versions at StyleMelGAN v1's blocks 3-8
-    of a 512-frame decode (B=1, T = 5632 .. 180224) and on ragged cases.
-    ms, plain_ms and the bound of each kernel are those of the six blocks,
-    one decode's work; the chain of six blocks is timed too."""
+    of a 512-frame decode (B=1, T = 5632 .. 180224), on ragged cases and
+    at the training shapes of blocks 4-8 (B=32, T = 1408 .. 22528). ms,
+    plain_ms and the bound of each kernel are those of the six decode
+    blocks, one decode's work ("train": of the five training blocks, one G
+    step's forward); the chain of six blocks is timed too."""
     import numpy as np
     import torch
 
     from parallelwavegan_tpu_torch.ops.kernels import tade_decode as td
 
-    blocks = _style_v1({"use_pallas_tade": True})._kernel_cache[3:]
+    all_blocks = _style_v1({"use_pallas_tade": True})._kernel_cache
+    blocks = all_blocks[3:]
     rs = np.random.RandomState(SEED)
 
     def randn(*shape, scale=1.0):
@@ -1210,12 +1219,52 @@ def phase_tade_kernel(card: str) -> dict:
                     for n, g, w in zip(("x", "c"), got, want)]
             k8a["errs"].append(max(errs))
             k8b["errs"].append(max(errs))
-    print(f"K8 per 512-frame decode (blocks 3-8): K8a {k8a['ms']:.3f} ms (plain "
-          f"{k8a['plain_ms']:.3f}, bound {k8a['bound_ms']:.3f}), K8b {k8b['ms']:.3f} "
-          f"ms (plain {k8b['plain_ms']:.3f}, bound {k8b['bound_ms']:.3f}); chain "
-          f"{chain['ms']:.3f} ms (plain {chain['plain_ms']:.3f}, bound "
-          f"{k8a['bound_ms'] + k8b['bound_ms']:.3f}) on {card}")
-    return {"k8a": k8a, "k8b": k8b, "chain": chain}
+        del x, c, x0, c0, x2, a, x2r, ar, out, a2, outr, a2r, got, want
+
+        # the training shapes: blocks 4-8 of one G step's forward (B=32)
+        train = {"k8a": {"errs": []}, "k8b": {"errs": []}}
+        bt = V1_STYLE_CONFIG["batch_size"]
+        for i, t, _ in _style_train_blocks():
+            blk = all_blocks[i]
+            x, c = randn(bt, t, 64), randn(bt, t, 64)
+            x2, a = td.tade1_cuda(x, c, blk)
+            torch.cuda.synchronize()
+            x2r, ar = (v.contiguous() for v in td.tade1_reference(x, c, blk))
+            train["k8a"]["errs"] += [
+                _check_allclose(f"K8a train block {i} B={bt} T={t} {n}", g, w)
+                for n, g, w in (("x2", x2, x2r), ("a", a, ar))]
+            out, a2 = td.tade2_cuda(x, x2r, ar, blk)
+            torch.cuda.synchronize()
+            outr, a2r = (v.contiguous() for v in td.tade2_reference(x, x2r, ar, blk))
+            train["k8b"]["errs"] += [
+                _check_allclose(f"K8b train block {i} B={bt} T={t} {n}", g, w)
+                for n, g, w in (("out", out, outr), ("a2", a2, a2r))]
+            del x2, a, out, a2, outr, a2r
+            _timed(train["k8a"], f"K8a train block {i} B={bt} T={t}", card,
+                   lambda: td.tade1_cuda(x, c, blk),
+                   lambda: td.tade1_reference(x, c, blk), _tade_work(x, blk, 1))
+            _timed(train["k8b"], f"K8b train block {i} B={bt} T={t} -> "
+                   f"{t * int(blk['scale'])}", card,
+                   lambda: td.tade2_cuda(x, x2r, ar, blk),
+                   lambda: td.tade2_reference(x, x2r, ar, blk), _tade_work(x, blk, 2))
+            del x, c, x2r, ar
+            torch.cuda.empty_cache()
+    # K8 multiplies on the tensor cores in split TF32: each bound is that of
+    # the units its products use, the float32 CUDA-core one beside it
+    for label, recs in (("per 512-frame decode (blocks 3-8, B=1)", (k8a, k8b)),
+                        (f"per StyleMelGAN v1 G-step forward (blocks 4-8, B={bt})",
+                         (train["k8a"], train["k8b"]))):
+        fp32_ms = [_split_tf32_bound(r) for r in recs]
+        print(f"K8 {label}: " + ", ".join(
+            f"{k} {r['ms']:.3f} ms (plain {r['plain_ms']:.3f}; bound {r['bound_ms']:.3f} "
+            f"ms at the split-TF32 rate, 3 x {r['flops'] / 1e9:.1f} GFLOP / 495 TFLOP/s, "
+            f"{r['bound_ms'] / r['ms']:.1%} of it; {f:.3f} ms at the float32 CUDA-core "
+            f"rate, {f / r['ms']:.1%} of it)" for k, r, f in zip(("K8a", "K8b"), recs,
+                                                                  fp32_ms))
+            + f" on {card}")
+    print(f"K8 chain of blocks 3-8 (fused_tade_blocks, B=1): {chain['ms']:.3f} ms (plain "
+          f"{chain['plain_ms']:.3f}) on {card}")
+    return {"k8a": k8a, "k8b": k8b, "chain": chain, "train": train}
 
 
 def phase_style_split(card: str) -> None:

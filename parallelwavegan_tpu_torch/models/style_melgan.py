@@ -52,7 +52,10 @@ from parallelwavegan_tpu_torch.layers.convs import (
 from parallelwavegan_tpu_torch.layers.residual_block import get_activation
 from parallelwavegan_tpu_torch.layers.tade import INIT_STD, TADEResBlock
 from parallelwavegan_tpu_torch.models.melgan import MelGANDiscriminator
-from parallelwavegan_tpu_torch.ops.kernels.tade_decode import fused_tade_blocks
+from parallelwavegan_tpu_torch.ops.kernels.tade_decode import (
+    fused_tade_blocks,
+    with_fragments,
+)
 from parallelwavegan_tpu_torch.ops.kernels.tade_train import fused_tade_blocks_train
 from parallelwavegan_tpu_torch.ops.pqmf import PQMF
 
@@ -161,10 +164,15 @@ class StyleMelGANGenerator(nn.Module):
         return [blk.folded_weights(differentiable) for blk in self.blocks]
 
     def prepare_kernels(self) -> None:
-        """Fold the blocks' weights once, for decode. Call it after the
-        weights are loaded, folded and on their device; loading weights or
-        moving the module afterwards drops them again."""
-        self._kernel_cache = self.block_weights() if self.use_fused else None
+        """Fold the blocks' weights once, for decode, and on the card split
+        them once for the TADE kernels (``tade_decode.with_fragments``).
+        Call it after the weights are loaded, folded and on their device;
+        loading weights or moving the module afterwards drops them again."""
+        if not self.use_fused:
+            self._kernel_cache = None
+            return
+        self._kernel_cache = [with_fragments(w) if w["g1_w"].is_cuda else w
+                              for w in self.block_weights()]
 
     def remove_weight_norm(self) -> None:
         remove_weight_norm(self)

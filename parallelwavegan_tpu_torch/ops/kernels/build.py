@@ -70,12 +70,12 @@ _SIGNATURES = {
     "melgan_outconv_bwd": [_P] * 10 + [ctypes.c_longlong] + [_I] * 6 + [_F, _I, _P],
     # B, T, C, Cout, K -> floats of melgan_outconv_bwd's partial buffer
     "melgan_outconv_bwd_part_floats": [_I] * 5,
-    # x, c, mean, rstd, x2, a, aux_w, aux_b, g_w, g_b, gc_w, gc_b, y, s, t,
-    # B, T, gate, device, stream
-    "tade1": [_P] * 15 + [_I] * 4 + [_P],
-    # x, x2, a, mean, rstd, out, a2, aux_w, aux_b, g_w, g_b, gc_w, gc_b, y,
-    # s, t, ua, B, T, scale, dilation, gate, device, stream
-    "tade2": [_P] * 17 + [_I] * 6 + [_P],
+    # x, c, mean, rstd, x2, a, wf, aux_b, g_b, gc_b, y, s, t, B, T, gate,
+    # device, stream
+    "tade1": [_P] * 13 + [_I] * 4 + [_P],
+    # x, x2, a, mean, rstd, out, a2, wf, aux_b, g_b, gc_b, y, s, t, ua, B, T,
+    # scale, dilation, gate, device, stream
+    "tade2": [_P] * 15 + [_I] * 6 + [_P],
     # t, dout, s, xr, mean, rstd, dext, wf_gc, wf_g, wf_aux, y, ain, src,
     # dT, dG, dxn, da, dsrc, dw_gc, db_gc, dw_g, db_g, dw_aux, db_aux, part,
     # part_floats, B, L, scale, dilation, gate, device, stream

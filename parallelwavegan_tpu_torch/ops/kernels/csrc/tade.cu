@@ -1,4 +1,5 @@
-// Fused StyleMelGAN TADEResBlock decode for Hopper (sm_90a), float32.
+// Fused StyleMelGAN TADEResBlock forward for Hopper (sm_90a), float32 in and
+// out, every conv product on the tensor cores in split TF32.
 //
 // Replaces the two Pallas TPU kernels of
 // parallelwavegan_tpu/ops/pallas_kernels/tade_decode.py, reached through
@@ -18,50 +19,60 @@
 // second. mean and rstd are the instance norms' per (batch, channel)
 // statistics, computed between the launches by the Python wrapper
 // (ops/kernels/tade_decode.py); this file allocates nothing. Layout is the
-// JAX package's channel-last (B, T, 64), weights its gather form (9, 64,
-// Cout).
+// JAX package's channel-last (B, T, 64).
 //
 // What bounds it on the card. Each kernel does ten 9 x 64 x 64 products
 // per row (aux 64 columns, the gate convs 128 each): 184,320
 // multiply-adds per row against 4 * 64 * 4 = 1 KB of rows in and out, so
-// about 360 FLOP per byte, far above the float32 balance point (67
-// TFLOP/s over 3.35 TB/s = 20). A 512-frame StyleMelGAN v1 decode sends
-// blocks 3-8 here (T = 5632 .. 180224): 130.8 GFLOP for K8a, 195.2 for
-// K8b, at least 1.95 and 2.91 ms on the CUDA cores against 0.11 and 0.16
-// ms for their bytes. So the kernels are bound by FMA issue and by the
-// shared-memory loads that feed it. The products are FFMA:
-// one TF32 product per multiply missed the 1e-4 max|plain| agreement with
-// the float32 reference in K4 on the card (4.6e-4 to 1.3e-3 of max|plain|
-// at v1 shapes; PERF.md), where split TF32 on the tensor cores held
-// it within 1e-5; this kernel's products are of the same kind, and split
-// TF32 is untried here.
+// about 360 FLOP per byte, far above the card's balance point: it is bound
+// by arithmetic. Every conv product runs on the tensor cores in split TF32
+// (csrc/mma_tf32x3.cuh: v = hi + lo, a.b = a_lo.b_hi + a_hi.b_lo +
+// a_hi.b_hi, three mma.sync.m16n8k8 TF32 products into float32), which
+// keeps float32's accuracy where one TF32 product per multiply missed the
+// 1e-4 max|plain| agreement in K4 on the card and in K9's emulation
+// (PERF.md; tests/test_torch_port_tade_fwd_tf32x3.py holds this
+// decomposition to the float32 reference on the CPU). No conv product is
+// left on FFMA.
 //
 // What the design does about it:
 //  - The TPU kernels pack two samples into the 128 lanes with block-matrix
 //    weights, sum the softmax with a block-diagonal ones matmul and take a
-//    per-phase row max. None of that is carried over: here one shared-
-//    memory row is one sample, and the softmax's max and sum are warp
-//    shuffles.
-//  - A block owns 64 output rows of one batch item and keeps the chain of
-//    three convs on chip: the input rows with a halo of 12 per side (16 +
-//    4 at dilation D in K8b, at the output rate), then each conv's output
-//    over the rows the next conv needs. Every product is (rows x 576) .
-//    (576 x Cout), its weights streamed 32 input channels of one tap at a
-//    time through shared memory, double-buffered with cp.async.
-//  - In the 128-column gate convs each thread holds rows of columns (2g,
-//    2g+1) of the softmax half and the same pair of the tanh half (the
-//    weight columns are permuted while they are copied, as csrc/wavenet.cu
-//    pairs its gate), and the 32 threads of a row group are one warp, so
-//    the gate is applied in registers with a shuffle reduction per row.
-//  - Two buffers of rows (input, then the gated product's input over the
-//    dead input) and the weight ring fit 78-92 KB, two blocks per SM,
-//    held to 128 registers a thread.
-// Blocks share nothing and carry nothing from tile to tile. The shared
-// pieces (conv9, the row staging, the gate) are in csrc/tade.cuh. With
-// the Save pointers given, each kernel is the re-run of the backward
-// (K9a, K9b in csrc/tade_bwd.cu): it keeps the gated conv's input, the
-// modulation's scale and the gate's pre-activations instead of applying
-// the gate (a compile-time variant; decode runs the kernels without it).
+//    per-phase row max. None of that is carried over.
+//  - A block of 8 warps owns TO output rows of one batch item, TO = 120 -
+//    8D (K8a: D = 1, 112 rows; K8b: 112, 104, 96, 88 at D = 1-4), so that
+//    the first conv's rows are 128, and keeps the chain of three convs on
+//    chip: the first conv's input rows with their halo (12 per side in
+//    K8a; 8 + 4D in K8b, at the output rate, the stretch applied while
+//    staging), copied by cp.async, then each conv's output over the rows
+//    the next conv needs: 128 of the first (aux), 120 of the second (g),
+//    TO of the gated conv.
+//  - Each conv is tadek::conv9_tf32x3 (csrc/tade.cuh, the conv of K9's
+//    chain): a pass forms a 128-row x 64-column output tile, 32 x 32 a
+//    warp, against depth 9 x 64, the weights split once by the wrapper
+//    into TF32 hi and lo in the B fragments' own order (ops/kernels/
+//    tf32x3.py forward_fragments: one 16-byte shared load per fragment, no
+//    split) and streamed 16 KB at a time through a two-stage cp.async
+//    ring; rows sit 72 floats apart (8 mod 32: the A pairs' 8-byte loads
+//    are free of bank conflicts) and only A is split in the loop; each
+//    tap's tile sums go into float32 totals, since the tensor cores round
+//    their accumulation toward zero. aux is one pass, g and gc (128
+//    columns) two.
+//  - forward_fragments permutes the 128-column convs' columns so that a
+//    thread's accumulators hold s_j beside h_j (ta_j beside tb_j), and in
+//    the next column tile channel j + 1: the modulation is applied in
+//    registers and stored as float pairs. The gated conv's two passes are
+//    staged to shared memory (32 channel pairs each, over a buffer that is
+//    dead by then) and the gate is applied one warp per row, its softmax
+//    sums as shuffles.
+//  - Two buffers of 136 rows (the input rows, then y; the first conv's
+//    output, then the gate's first half) and the ring take 108.5 KB: two
+//    blocks per SM, held to 128 registers a thread.
+// Blocks share nothing and carry nothing from tile to tile, and every sum
+// is taken in a fixed order: two runs give the same bits. With the Save
+// pointers given, each kernel is the re-run of the backward (K9a, K9b in
+// csrc/tade_bwd.cu): it keeps the gated conv's input, the modulation's
+// scale and the gate's pre-activations instead of applying the gate (a
+// compile-time variant; decode runs the kernels without it).
 
 #include "tade.cuh"
 
@@ -69,70 +80,155 @@ namespace {
 
 using namespace tadek;
 
-constexpr size_t kWeightFloats = 2 * (size_t)kCW * 2 * kC;  // two chunks
+constexpr int kLd = kC + 8;               // row stride of staged rows, 8 mod 32
+constexpr int kM1 = 128;                  // rows of the first conv (aux)
+constexpr int kM2 = kM1 - 2 * kHalf;      // 120: rows of the second (g)
+constexpr int kRows = kM1 + 2 * kHalf;    // 136: rows of each buffer
+constexpr int kPassF = kK * kC * kC * 2;  // floats of one 64-column weight pass
+constexpr size_t kSmem = sizeof(float) * ((size_t)kWStages * kChunkF + 2 * kRows * kLd);
 
-// Row m (of M) of a 64-column conv's output, at position pos: zero outside
-// [0, t_out), stored to dst; rows [lo, lo + kTile) also to out (device).
-template <int KR>
-__device__ __forceinline__ void store_aux(const float (&acc)[KR][4], int M, int pos0,
-                                          int t_out, float* dst, int lo,
-                                          float* __restrict__ out) {
-  using P = Map<kC>;
-  const int g = threadIdx.x % P::G, r = threadIdx.x / P::G;
-#pragma unroll
-  for (int i = 0; i < KR; ++i) {
-    const int m = r + i * P::R;
-    const int pos = pos0 + m;
-    if (m >= M) continue;
-    const bool in = pos >= 0 && pos < t_out;
-    const float4 v = in ? make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3])
-                        : make_float4(0.f, 0.f, 0.f, 0.f);
-    *reinterpret_cast<float4*>(dst + m * kS + 4 * g) = v;
-    if (in && m >= lo && m < lo + kTile)
-      *reinterpret_cast<float4*>(out + (size_t)pos * kC + 4 * g) = v;
+// output rows of a block whose gated conv has dilation D
+template <int D>
+constexpr int kTO = kM2 - 2 * kHalf * D;
+
+// Rows p0 .. p0 + kRows of src at rate t_out into dst, kLd floats apart,
+// as one cp.async group: row p reads source row p / s, zeros where p is
+// outside [0, t_out).
+__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src,
+                                           int p0, int t_out, int s) {
+  for (int idx = threadIdx.x; idx < kRows * (kC / 4); idx += kThreads) {
+    const int q = idx >> 4, c4 = (idx & 15) * 4, p = p0 + q;
+    const bool ok = p >= 0 && p < t_out;
+    cp_async<16>(dst + q * kLd + c4, ok ? src + (size_t)(p / s) * kC + c4 : src, ok);
   }
+  cp_async_commit();
 }
 
-// y = s * (xr[pos / sc] - mean) * rstd + h over the M rows of a gate
-// conv's output at positions pos0 + m, zero outside [0, t_out), into dst.
-// With kSave, rows [lo, lo + kTile) inside [0, t_out) also go to y_out and
-// their scale s to s_out (device).
-template <int KR, bool kSave>
-__device__ __forceinline__ void store_modulated(const float (&acc)[KR][4], int M,
-                                                int pos0, int t_out, int sc,
-                                                const float* __restrict__ xr,
-                                                float2 mu, float2 rs, float* dst, int lo,
-                                                float* __restrict__ y_out,
-                                                float* __restrict__ s_out) {
-  using P = Map<2 * kC>;
-  const int g = threadIdx.x % P::G, r = threadIdx.x / P::G;
+// Pass `pass` of a conv over the rows in in_s (see conv9_tf32x3): weight
+// passes 0 (aux), 1-2 (g), 3-4 (gc) of the wrapper's fragments.
+template <int D, int M>
+__device__ __forceinline__ void conv(const float* in_s, const float* __restrict__ wf,
+                                     int pass, float* w_s, float (&tot)[2][4][4]) {
+  conv9_tf32x3<kC, D, M>(in_s, kLd, wf + (size_t)pass * kPassF, w_s, tot);
+}
+
+// The first conv's tile + bias, zero outside [0, L), into dst (row m at
+// position pos0 + m); rows m in [lo, lo + TO) inside [0, L) also to out
+// (device).
+template <int TO>
+__device__ __forceinline__ void store_aux(const float (&tot)[2][4][4],
+                                          const float* __restrict__ bias, int pos0, int L,
+                                          float* dst, int lo, float* __restrict__ out) {
+  const int warp = threadIdx.x >> 5, wm = warp & 3, wn = warp >> 2;
+  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
 #pragma unroll
-  for (int i = 0; i < KR; ++i) {
-    const int m = r + i * P::R;
-    const int pos = pos0 + m;
-    if (m >= M) continue;
-    float2 y = make_float2(0.f, 0.f);
-    if (pos >= 0 && pos < t_out) {
-      const float2 xv =
-          *reinterpret_cast<const float2*>(xr + (size_t)(pos / sc) * kC + 2 * g);
-      y.x = fmaf(acc[i][0], (xv.x - mu.x) * rs.x, acc[i][2]);
-      y.y = fmaf(acc[i][1], (xv.y - mu.y) * rs.y, acc[i][3]);
-      if (kSave && m >= lo && m < lo + kTile) {
-        const size_t o = (size_t)pos * kC + 2 * g;
-        *reinterpret_cast<float2*>(y_out + o) = y;
-        *reinterpret_cast<float2*>(s_out + o) = make_float2(acc[i][0], acc[i][1]);
+  for (int ni = 0; ni < 4; ++ni) {
+    const int ch = 32 * wn + 8 * ni + 2 * tig;
+    const float2 bv = ld2(bias + ch);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = 32 * wm + 16 * mi + gid + 8 * h, pos = pos0 + m;
+        float2 v = make_float2(0.f, 0.f);
+        if (pos >= 0 && pos < L) {
+          v = make_float2(tot[mi][ni][2 * h] + bv.x, tot[mi][ni][2 * h + 1] + bv.y);
+          if (m >= lo && m < lo + TO) st2(out + (size_t)pos * kC + ch, v);
+        }
+        st2(dst + m * kLd + ch, v);
       }
-    }
-    *reinterpret_cast<float2*>(dst + m * kS + 2 * g) = y;
   }
 }
 
-// The gated conv's row t (of t_out) from a thread's acc (columns (2g, 2g+1)
-// of each half): with kSave its pre-activations [ta | tb] to tp (rows of
-// 128); else gate(acc), plus the residual row xr[t / s] with kResidual, to
+// The even channel of a thread's column pair q (0, 1) in pass p (0, 1) of
+// a 128-column conv: forward_fragments puts, in columns 2 tig and 2 tig +
+// 1 of column tile 8p + 4wn + 2q + e, channel 8 (4p + 2wn + q) + 2 tig + e
+// of the first half and of the second.
+__device__ __forceinline__ int pair_channel(int p, int q) {
+  return 8 * (4 * p + 2 * (threadIdx.x >> 7) + q) + 2 * (threadIdx.x & 3);
+}
+
+// Pass p of the second conv, [s | h] = g(a') + bias: y = s * (xr[pos / sc]
+// - mean) * rstd + h over rows m < kM2 at positions pos0 + m, zero outside
+// [0, L), into dst. With kSave, rows m in [lo, lo + TO) inside [0, L) also
+// send their s to s_out (device); their y goes from dst (save_rows).
+template <int TO, bool kSave>
+__device__ __forceinline__ void store_modulated(
+    const float (&tot)[2][4][4], int p, const float* __restrict__ bias,
+    const float* __restrict__ mean, const float* __restrict__ rstd, int pos0, int L,
+    int sc, const float* __restrict__ xr, float* dst, int lo, float* __restrict__ s_out) {
+  const int wm = (threadIdx.x >> 5) & 3, gid = (threadIdx.x & 31) >> 2;
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int ch = pair_channel(p, q);
+    const float2 bs = ld2(bias + ch), bh = ld2(bias + kC + ch);
+    const float2 mu = ld2(mean + ch), rs = ld2(rstd + ch);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = 32 * wm + 16 * mi + gid + 8 * h, pos = pos0 + m;
+        if (m >= kM2) continue;
+        float2 y = make_float2(0.f, 0.f);
+        if (pos >= 0 && pos < L) {
+          const float2 s = make_float2(tot[mi][2 * q][2 * h] + bs.x,
+                                       tot[mi][2 * q + 1][2 * h] + bs.y);
+          const float2 xv = ld2(xr + (size_t)(pos / sc) * kC + ch);
+          y.x = fmaf(s.x, (xv.x - mu.x) * rs.x, tot[mi][2 * q][2 * h + 1] + bh.x);
+          y.y = fmaf(s.y, (xv.y - mu.y) * rs.y, tot[mi][2 * q + 1][2 * h + 1] + bh.y);
+          if (kSave && m >= lo && m < lo + TO) st2(s_out + (size_t)pos * kC + ch, s);
+        }
+        st2(dst + m * kLd + ch, y);
+      }
+  }
+}
+
+// The block's own rows of the gated conv's input, local rows lo .. lo + TO
+// of y_s at positions t0 .. t0 + TO, inside [0, L), to y_out (device), in
+// 16-byte pieces. Copying them here rather than from the epilogue's
+// registers kept the Save variant of K8a at 128 registers without a spill.
+template <int TO>
+__device__ __forceinline__ void save_rows(const float* y_s, int lo, int t0, int L,
+                                          float* __restrict__ y_out) {
+  for (int idx = threadIdx.x; idx < TO * (kC / 4); idx += kThreads) {
+    const int m = idx >> 4, c4 = (idx & 15) * 4, t = t0 + m;
+    if (t < L)
+      *reinterpret_cast<float4*>(y_out + (size_t)t * kC + c4) =
+          *reinterpret_cast<const float4*>(y_s + (m + lo) * kLd + c4);
+  }
+}
+
+// Pass p of the gated conv, [ta | tb] + bias over rows m < TO, into S: row
+// m holds channels 32p .. 32p + 31 of ta at S[m kLd + j] and of tb at S[m
+// kLd + 32 + j], j = channel - 32p.
+template <int TO>
+__device__ __forceinline__ void stage_gate_inputs(const float (&tot)[2][4][4], int p,
+                                                  const float* __restrict__ bias,
+                                                  float* S) {
+  const int wm = (threadIdx.x >> 5) & 3, gid = (threadIdx.x & 31) >> 2;
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int ch = pair_channel(p, q), j = ch - 32 * p;
+    const float2 ba = ld2(bias + ch), bb = ld2(bias + kC + ch);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = 32 * wm + 16 * mi + gid + 8 * h;
+        if (m >= TO) continue;
+        st2(S + m * kLd + j, make_float2(tot[mi][2 * q][2 * h] + ba.x,
+                                         tot[mi][2 * q + 1][2 * h] + ba.y));
+        st2(S + m * kLd + 32 + j, make_float2(tot[mi][2 * q][2 * h + 1] + bb.x,
+                                              tot[mi][2 * q + 1][2 * h + 1] + bb.y));
+      }
+  }
+}
+
+// The gated conv's row t (of t_out) from lane g's channels (2g, 2g+1) of
+// each half in a: with kSave its pre-activations [ta | tb] to tp (rows of
+// 128); else gate(a), plus the residual row xr[t / s] with kResidual, to
 // out. Every lane of the warp must call it. The residual is a compile-time
-// choice: a runtime null test of xr cost the decode's tade2_kernel<4>
-// registers (PERF.md §6).
+// choice: a runtime null test of xr costs registers.
 template <bool kSave, bool kResidual>
 __device__ __forceinline__ void store_gated(const float (&a)[4], int t, int t_out,
                                             int softmax, float* __restrict__ out,
@@ -142,26 +238,42 @@ __device__ __forceinline__ void store_gated(const float (&a)[4], int t, int t_ou
   if (kSave) {
     if (t < t_out) {
       float* row = tp + (size_t)t * 2 * kC + 2 * g;
-      *reinterpret_cast<float2*>(row) = make_float2(a[0], a[1]);
-      *reinterpret_cast<float2*>(row + kC) = make_float2(a[2], a[3]);
+      st2(row, make_float2(a[0], a[1]));
+      st2(row + kC, make_float2(a[2], a[3]));
     }
     return;
   }
   float2 v = gate2(a, softmax);
   if (t >= t_out) return;
   if (kResidual) {
-    const float2 x = *reinterpret_cast<const float2*>(xr + (size_t)(t / s) * kC + 2 * g);
+    const float2 x = ld2(xr + (size_t)(t / s) * kC + 2 * g);
     v = make_float2(x.x + v.x, x.y + v.y);
   }
-  *reinterpret_cast<float2*>(out + (size_t)t * kC + 2 * g) = v;
+  st2(out + (size_t)t * kC + 2 * g, v);
 }
 
-struct Weights {  // one kernel's three convs, gather form, biases given
-  const float* aux_w;  // (9, 64, 64)
+// Rows t0 + m, m < TO, of the gated conv's output, staged in S0 (channels
+// 0-31) and S1 (32-63), through store_gated, one warp per row.
+template <int TO, bool kSave, bool kResidual>
+__device__ __forceinline__ void gate_rows(const float* S0, const float* S1, int t0,
+                                          int t_out, int softmax, float* __restrict__ out,
+                                          const float* __restrict__ xr, int s,
+                                          float* __restrict__ tp) {
+  const int lane = threadIdx.x & 31;
+  const float* S = (lane < 16 ? S0 : S1) + 2 * (lane & 15);
+  for (int m = threadIdx.x >> 5; m < TO; m += kThreads / 32) {
+    const int t = t0 + m;
+    if (t >= t_out) break;  // the same for the whole warp
+    const float2 ta = ld2(S + m * kLd), tb = ld2(S + m * kLd + 32);
+    const float a[4] = {ta.x, ta.y, tb.x, tb.y};
+    store_gated<kSave, kResidual>(a, t, t_out, softmax, out, xr, s, tp);
+  }
+}
+
+struct Weights {    // one kernel's three convs
+  const float* wf;  // (5, 72, 8, 32, 4): aux, g, gc in fragment order
   const float* aux_b;  // (64)
-  const float* g_w;    // (9, 64, 128)
   const float* g_b;    // (128)
-  const float* gc_w;   // (9, 64, 128)
   const float* gc_b;   // (128)
 };
 
@@ -201,131 +313,96 @@ struct Tade2 {
   int T, scale, softmax;
 };
 
-// Shared memory: the weight ring, then buffer 0 (rows of the first conv's
-// input, later the last conv's input) and buffer 1 (the middle conv's).
-size_t smem_bytes(int rows0, int rows1) {
-  return sizeof(float) * (kWeightFloats + (size_t)(rows0 + rows1) * kS);
-}
-
 // K8a. Local rows: c at t0 - 12 + q, a at t0 - 8 + m, y at t0 - 4 + m,
 // x2 at t0 + m. kSave: the backward's re-run (struct Save).
-constexpr int kRows0A = kTile + 6 * kHalf;  // c, then y
-constexpr int kRows1A = kTile + 4 * kHalf;  // a
-
 template <bool kSave>
 __global__ void __launch_bounds__(kThreads, 2) tade1_kernel(Tade1 p) {
+  constexpr int TO = kTO<1>;
   extern __shared__ float4 smem4[];
   float* w_s = reinterpret_cast<float*>(smem4);
-  float* buf0 = w_s + kWeightFloats;
-  float* buf1 = buf0 + kRows0A * kS;
-  const int b = blockIdx.y, t0 = blockIdx.x * kTile, T = p.T;
+  float* buf0 = w_s + kWStages * kChunkF;  // c, then y, then the gate's second half
+  float* buf1 = buf0 + kRows * kLd;        // a, then the gate's first half
+  const int b = blockIdx.y, t0 = blockIdx.x * TO, T = p.T;
   const size_t base = (size_t)b * T * kC;
+  float tot[2][4][4];
 
-  load_rows(buf0, p.c + base, t0 - 3 * kHalf, kRows0A, T, 1);
-  {  // a = aux1(c)
-    constexpr int M = kRows1A, KR = ceil_div(M, Map<kC>::R);
-    float acc[KR][4];
-    conv9<kC, KR, 1>(buf0, M, p.w.aux_w, p.w.aux_b, w_s, acc);
-    store_aux<KR>(acc, M, t0 - 2 * kHalf, T, buf1, 2 * kHalf, p.a + base);
+  stage_rows(buf0, p.c + base, t0 - 3 * kHalf, T, 1);
+  conv<1, kM1>(buf0, p.w.wf, 0, w_s, tot);  // a = aux1(c)
+  store_aux<TO>(tot, p.w.aux_b, t0 - 2 * kHalf, T, buf1, 2 * kHalf, p.a + base);
+  for (int h = 0; h < 2; ++h) {  // y = s * norm(x) + h, [s | h] = g1(a)
+    conv<1, kM2>(buf1, p.w.wf, 1 + h, w_s, tot);
+    store_modulated<TO, kSave>(tot, h, p.w.g_b, p.mean + b * kC, p.rstd + b * kC,
+                               t0 - kHalf, T, 1, p.x + base, buf0, kHalf, p.sv.s + base);
   }
-  const int g = threadIdx.x % 32, r = threadIdx.x / 32;
-  {  // y = s * norm(x) + h, [s | h] = g1(a); over the dead c rows
-    constexpr int M = kTile + 2 * kHalf, KR = ceil_div(M, Map<2 * kC>::R);
-    float acc[KR][4];
-    conv9<2 * kC, KR, 1>(buf1, M, p.w.g_w, p.w.g_b, w_s, acc);
-    const float2 mu = *reinterpret_cast<const float2*>(p.mean + b * kC + 2 * g);
-    const float2 rs = *reinterpret_cast<const float2*>(p.rstd + b * kC + 2 * g);
-    store_modulated<KR, kSave>(acc, M, t0 - kHalf, T, 1, p.x + base, mu, rs, buf0,
-                               kHalf, p.sv.y + base, p.sv.s + base);
+  for (int h = 0; h < 2; ++h) {  // x2 = gate(gc1(y))
+    conv<1, TO>(buf0, p.w.wf, 3 + h, w_s, tot);
+    stage_gate_inputs<TO>(tot, h, p.w.gc_b, h ? buf0 : buf1);
+    // y is whole in buf0 until the second pass's epilogue
+    if (kSave && h == 0) save_rows<TO>(buf0, kHalf, t0, T, p.sv.y + base);
   }
-  {  // x2 = gate(gc1(y))
-    constexpr int M = kTile, KR = ceil_div(M, Map<2 * kC>::R);
-    float acc[KR][4];
-    conv9<2 * kC, KR, 1>(buf0, M, p.w.gc_w, p.w.gc_b, w_s, acc);
-#pragma unroll
-    for (int i = 0; i < KR; ++i)
-      store_gated<kSave, false>(acc[i], t0 + r + i * Map<2 * kC>::R, T, p.softmax,
-                                p.x2 + base, nullptr, 1, p.sv.t + 2 * base);
-  }
+  __syncthreads();
+  gate_rows<TO, kSave, false>(buf1, buf0, t0, T, p.softmax, p.x2 + base, nullptr, 1,
+                              p.sv.t + 2 * base);
 }
 
 // K8b at dilation D. Local rows at the output rate: up(a) at p0 + q with
 // p0 = t0 - 4D - 8, a2 at p0 + 4 + m, y2 at t0 - 4D + m, out at t0 + m.
-template <int D>
-struct Geo2 {
-  static constexpr int kHy = kHalf * D;                   // gc2's halo
-  static constexpr int kRows0 = kTile + 2 * (kHy + 2 * kHalf);  // up(a), then y2
-  static constexpr int kRows1 = kTile + 2 * (kHy + kHalf);      // a2
-};
-
 template <int D, bool kSave>
 __global__ void __launch_bounds__(kThreads, 2) tade2_kernel(Tade2 p) {
-  using G2 = Geo2<D>;
+  constexpr int TO = kTO<D>;
   extern __shared__ float4 smem4[];
   float* w_s = reinterpret_cast<float*>(smem4);
-  float* buf0 = w_s + kWeightFloats;
-  float* buf1 = buf0 + G2::kRows0 * kS;
-  const int b = blockIdx.y, t0 = blockIdx.x * kTile, s = p.scale;
+  float* buf0 = w_s + kWStages * kChunkF;  // up(a), then y2, then the gate's second half
+  float* buf1 = buf0 + kRows * kLd;        // a2, then the gate's first half
+  const int b = blockIdx.y, t0 = blockIdx.x * TO, s = p.scale;
   const int t_out = s * p.T;
   const size_t in_base = (size_t)b * p.T * kC, out_base = (size_t)b * t_out * kC;
-  const int p0 = t0 - G2::kHy - 2 * kHalf;
+  const int p0 = t0 - kHalf * D - 2 * kHalf;
+  float tot[2][4][4];
 
   if (kSave && p.sv.ua != nullptr) {  // up(a) over this block's rows
-    for (int idx = threadIdx.x; idx < kTile * (kC / 4); idx += kThreads) {
+    for (int idx = threadIdx.x; idx < TO * (kC / 4); idx += kThreads) {
       const int t = t0 + idx / (kC / 4), cc = (idx % (kC / 4)) * 4;
       if (t < t_out)
         *reinterpret_cast<float4*>(p.sv.ua + out_base + (size_t)t * kC + cc) =
             *reinterpret_cast<const float4*>(p.a + in_base + (size_t)(t / s) * kC + cc);
     }
   }
-  load_rows(buf0, p.a + in_base, p0, G2::kRows0, t_out, s);
-  {  // a2 = aux2(up(a))
-    constexpr int M = G2::kRows1, KR = ceil_div(M, Map<kC>::R);
-    float acc[KR][4];
-    conv9<kC, KR, 1>(buf0, M, p.w.aux_w, p.w.aux_b, w_s, acc);
-    store_aux<KR>(acc, M, p0 + kHalf, t_out, buf1, G2::kHy + kHalf,
-                  p.a2 + out_base);
+  stage_rows(buf0, p.a + in_base, p0, t_out, s);
+  conv<1, kM1>(buf0, p.w.wf, 0, w_s, tot);  // a2 = aux2(up(a))
+  store_aux<TO>(tot, p.w.aux_b, p0 + kHalf, t_out, buf1, kHalf * D + kHalf,
+                p.a2 + out_base);
+  for (int h = 0; h < 2; ++h) {  // y2 = s * up(norm(x2)) + h, [s | h] = g2(a2)
+    conv<1, kM2>(buf1, p.w.wf, 1 + h, w_s, tot);
+    store_modulated<TO, kSave>(tot, h, p.w.g_b, p.mean + b * kC, p.rstd + b * kC,
+                               t0 - kHalf * D, t_out, s, p.x2 + in_base, buf0, kHalf * D,
+                               p.sv.s + out_base);
   }
-  const int g = threadIdx.x % 32, r = threadIdx.x / 32;
-  {  // y2 = s * up(norm(x2)) + h, [s | h] = g2(a2); over the dead up(a) rows
-    constexpr int M = kTile + 2 * G2::kHy, KR = ceil_div(M, Map<2 * kC>::R);
-    float acc[KR][4];
-    conv9<2 * kC, KR, 1>(buf1, M, p.w.g_w, p.w.g_b, w_s, acc);
-    const float2 mu = *reinterpret_cast<const float2*>(p.mean + b * kC + 2 * g);
-    const float2 rs = *reinterpret_cast<const float2*>(p.rstd + b * kC + 2 * g);
-    store_modulated<KR, kSave>(acc, M, t0 - G2::kHy, t_out, s, p.x2 + in_base, mu, rs,
-                               buf0, G2::kHy, p.sv.y + out_base, p.sv.s + out_base);
+  for (int h = 0; h < 2; ++h) {  // out = up(x) + gate(gc2_D(y2))
+    conv<D, TO>(buf0, p.w.wf, 3 + h, w_s, tot);
+    stage_gate_inputs<TO>(tot, h, p.w.gc_b, h ? buf0 : buf1);
+    if (kSave && h == 0) save_rows<TO>(buf0, kHalf * D, t0, t_out, p.sv.y + out_base);
   }
-  {  // out = up(x) + gate(gc2_D(y2))
-    constexpr int M = kTile, KR = ceil_div(M, Map<2 * kC>::R);
-    float acc[KR][4];
-    conv9<2 * kC, KR, D>(buf0, M, p.w.gc_w, p.w.gc_b, w_s, acc);
-#pragma unroll
-    for (int i = 0; i < KR; ++i)
-      store_gated<kSave, true>(acc[i], t0 + r + i * Map<2 * kC>::R, t_out,
-                               p.softmax, p.out + out_base, p.x + in_base, s,
-                               p.sv.t + 2 * out_base);
-  }
+  __syncthreads();
+  gate_rows<TO, kSave, true>(buf1, buf0, t0, t_out, p.softmax, p.out + out_base,
+                             p.x + in_base, s, p.sv.t + 2 * out_base);
 }
 
 template <bool kSave>
 cudaError_t launch_tade1(const Tade1& p, int B, cudaStream_t stream) {
-  const size_t smem = smem_bytes(kRows0A, kRows1A);
-  cudaError_t e = set_smem(tade1_kernel<kSave>, smem);
+  cudaError_t e = set_smem(tade1_kernel<kSave>, kSmem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((p.T + kTile - 1) / kTile, B);
-  tade1_kernel<kSave><<<grid, kThreads, smem, stream>>>(p);
+  const dim3 grid((p.T + kTO<1> - 1) / kTO<1>, B);
+  tade1_kernel<kSave><<<grid, kThreads, kSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <int D, bool kSave>
 cudaError_t launch_tade2(const Tade2& p, int B, cudaStream_t stream) {
-  using G2 = Geo2<D>;
-  const size_t smem = smem_bytes(G2::kRows0, G2::kRows1);
-  cudaError_t e = set_smem(tade2_kernel<D, kSave>, smem);
+  cudaError_t e = set_smem(tade2_kernel<D, kSave>, kSmem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((p.scale * p.T + kTile - 1) / kTile, B);
-  tade2_kernel<D, kSave><<<grid, kThreads, smem, stream>>>(p);
+  const dim3 grid((p.scale * p.T + kTO<D> - 1) / kTO<D>, B);
+  tade2_kernel<D, kSave><<<grid, kThreads, kSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -353,26 +430,28 @@ bool bad_args(int B, int T, int gate) {
 
 // Each entry point returns a cudaError_t value: 0 when the launch was
 // accepted. gate: 0 softmax over channels, 1 sigmoid. Every activation is
-// (B, T, 64) float32 at its rate, weights (9, 64, 64) for aux and (9, 64,
-// 128) for the two gate convs, biases given (zeros where a conv has none).
-// y, s and t (and ua) are null for decode; given, they make the launch the
-// backward's re-run (struct Save), which writes them instead of x2 or out.
+// (B, T, 64) float32 at its rate. wf is the half's three convs (aux (9, 64,
+// 64), then g and gc (9, 64, 128), gather form) split into TF32 hi and lo
+// in the mma fragments' order, the 128-column convs' columns paired
+// (ops/kernels/tf32x3.py forward_fragments); biases given (zeros where a
+// conv has none); every pointer 16-byte aligned. y, s and t (and ua) are
+// null for decode; given, they make the launch the backward's re-run
+// (struct Save), which writes them instead of x2 or out.
 extern "C" {
 
 // K8a: x2 = gate(gc1(g1(aux1(c)) modulating norm(x))), and a = aux1(c).
 int tade1(const float* x, const float* c, const float* mean, const float* rstd,
-          float* x2, float* a, const float* aux_w, const float* aux_b,
-          const float* g_w, const float* g_b, const float* gc_w, const float* gc_b,
-          float* y, float* s, float* t, int B, int T, int gate, int device,
-          void* stream) {
+          float* x2, float* a, const float* wf, const float* aux_b, const float* g_b,
+          const float* gc_b, float* y, float* s, float* t, int B, int T, int gate,
+          int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   const bool save = y != nullptr;
   if (bad_args(B, T, gate) || a == nullptr ||
       (save ? s == nullptr || t == nullptr : x2 == nullptr))
     return cudaErrorInvalidValue;
-  const Tade1 p{x, c, mean, rstd, x2, a, {aux_w, aux_b, g_w, g_b, gc_w, gc_b},
-                {y, s, t, nullptr}, T, gate == 0};
+  const Tade1 p{x, c, mean, rstd, x2, a, {wf, aux_b, g_b, gc_b}, {y, s, t, nullptr},
+                T, gate == 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return save ? launch_tade1<true>(p, B, st) : launch_tade1<false>(p, B, st);
 }
@@ -381,19 +460,17 @@ int tade1(const float* x, const float* c, const float* mean, const float* rstd,
 // and a2 = aux2(up(a)), at the output rate scale * T. scale 1 or 2,
 // dilation 1 .. 4. ua (the re-run's up(a)) may be null.
 int tade2(const float* x, const float* x2, const float* a, const float* mean,
-          const float* rstd, float* out, float* a2, const float* aux_w,
-          const float* aux_b, const float* g_w, const float* g_b,
-          const float* gc_w, const float* gc_b, float* y, float* s, float* t,
-          float* ua, int B, int T, int scale, int dilation, int gate, int device,
-          void* stream) {
+          const float* rstd, float* out, float* a2, const float* wf, const float* aux_b,
+          const float* g_b, const float* gc_b, float* y, float* s, float* t, float* ua,
+          int B, int T, int scale, int dilation, int gate, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   const bool save = y != nullptr;
   if (bad_args(B, T, gate) || scale < 1 || scale > 2 || a2 == nullptr ||
       (save ? s == nullptr || t == nullptr : out == nullptr))
     return cudaErrorInvalidValue;
-  const Tade2 p{x, x2, a, mean, rstd, out, a2, {aux_w, aux_b, g_w, g_b, gc_w, gc_b},
-                {y, s, t, ua}, T, scale, gate == 0};
+  const Tade2 p{x,  x2, a, mean, rstd, out, a2, {wf, aux_b, g_b, gc_b}, {y, s, t, ua},
+                T, scale, gate == 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return save ? launch_tade2_dil<true>(p, B, dilation, st)
               : launch_tade2_dil<false>(p, B, dilation, st);

@@ -1,142 +1,125 @@
-// The pieces of the fused StyleMelGAN TADE kernels (csrc/tade.cu: K8a,
-// K8b), float32 on the CUDA cores, in the channel-last (B, T, 64) layout:
-// the 9-tap conv of rows staged in shared memory against weights streamed
-// through a double-buffered cp.async ring (conv9), the staging of rows at
-// a nearest-stretch rate (load_rows), and the gate of a row whose channels
-// one warp holds (gate2). See csrc/tade.cu for the design. The backward
-// (csrc/tade_bwd.cu: K9a, K9b) takes the widths, the warp reductions and
-// set_smem from here; its products are its own, on the tensor cores.
+// The pieces that the fused StyleMelGAN TADE kernels share (csrc/tade.cu:
+// K8a, K8b; csrc/tade_bwd.cu: K9a, K9b), in the channel-last (B, T, 64)
+// layout: the widths, the 9-tap conv of rows staged in shared memory
+// against weights split into TF32 hi and lo in the mma B fragments' order
+// and streamed through a cp.async ring (conv9_tf32x3, every product split
+// TF32 on the tensor cores, csrc/mma_tf32x3.cuh), the warp reductions, and
+// the gate of a row whose channels one warp holds (gate2).
 //
-// Everything lives in namespace tadek inside an anonymous namespace, so
-// that a source can include csrc/mma_tf32x3.cuh too, and each source gets
-// its own copy.
+// Everything lives in namespace tadek inside an anonymous namespace: each
+// source that includes it gets its own copy.
 
 #pragma once
 
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+
+#include "mma_tf32x3.cuh"
 
 namespace {
 namespace tadek {
 
+using namespace tf32x3;
+
 constexpr int kC = 64;         // channels of every activation
 constexpr int kK = 9;          // taps of every conv
 constexpr int kHalf = 4;       // (kK - 1) / 2
-constexpr int kThreads = 256;
-constexpr int kTile = 64;      // output rows per block
-constexpr int kS = kC + 4;     // shared-memory row stride of 64-wide rows
-constexpr int kCW = 32;        // input channels per streamed weight chunk
+constexpr int kThreads = 256;  // 8 warps: 4 of 32 rows x 2 of 32 columns
+constexpr int kKC = 32;        // input channels of one weight chunk
+constexpr int kChunkF = kKC * kC * 2;  // its floats: 4 k-steps x 8 tiles x 32 x 4
+constexpr int kWStages = 2;
 constexpr size_t kMaxSmem = 227 * 1024;
 
-__host__ __device__ constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
-
-// COUT / 4 threads across the columns, 4 columns each; R row groups. At
-// COUT = 128 a row group is one warp.
-template <int COUT>
-struct Map {
-  static constexpr int G = COUT / 4;
-  static constexpr int R = kThreads / G;
-};
-
-// The output column of slot j of thread g: at 128 columns, (2g, 2g+1) of
-// the first half then of the second; at 64, 4g .. 4g+3.
-template <int COUT>
-__device__ __forceinline__ int col(int g, int j) {
-  if (COUT == 2 * kC) return j < 2 ? 2 * g + j : kC + 2 * g + j - 2;
-  return 4 * g + j;
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
 }
 
-// Start copying one weight chunk (kCW rows of COUT) into shared memory in
-// thread column order, as one cp.async group.
-template <int COUT>
-__device__ __forceinline__ void stage_w(float* dst, const float* src) {
-  if (COUT == 2 * kC) {
-    for (int e = threadIdx.x; e < kCW * kC; e += kThreads) {
-      const int j = e / kC, h = e % kC;
-      const int g = h >> 1, which = h & 1;
-      __pipeline_memcpy_async(dst + j * COUT + 4 * g + 2 * which,
-                              src + j * COUT + which * kC + 2 * g, 8);
-    }
-  } else {
-    for (int e = threadIdx.x * 4; e < kCW * COUT; e += kThreads * 4)
-      __pipeline_memcpy_async(dst + e, src + e, 16);
-  }
-  __pipeline_commit();
+__device__ __forceinline__ void st2(float* p, float2 v) {
+  *reinterpret_cast<float2*>(p) = v;
 }
 
-// acc[i][j] = bias[col(g, j)] (0 without kBias, bias then unread) + sum
-// over taps k and input channels ci < CIN of
-//   in_s[(m + k * D) * (CIN + 4) + ci] * w[k][ci][col(g, j)],
-// m = min(r + i*R, M-1): output row m of the conv reads input rows m ..
-// m + 8D. w is (9, CIN, COUT) in device memory; w_s holds two chunks.
-// Starts and ends on a barrier. The bias is a compile-time choice, so the
-// forward kernels, whose biases are always given, test nothing for it.
-template <int COUT, int KR, int D, int CIN = kC, bool kBias = true>
-__device__ __forceinline__ void conv9(const float* in_s, int M,
-                                      const float* __restrict__ w,
-                                      const float* __restrict__ bias,
-                                      float* w_s, float (&acc)[KR][4]) {
-  using P = Map<COUT>;
-  constexpr int kChunk = kCW * COUT;
-  constexpr int kChunks = kK * CIN / kCW;
-  constexpr int kSin = CIN + 4;
-  const int g = threadIdx.x % P::G, r = threadIdx.x / P::G;
+// The 32 x 32 output tile of warp (wm, wn) = warp % 4, warp / 4 of a 9-tap
+// conv of 64 output columns: tot[mi][ni][e] = sum over taps j and input
+// channels ci < CIN of in_s[(m + j D) ld + ci] W[j][ci][n] at rows m = 32
+// wm + 16 mi + gid (+ 8 for e >= 2) and columns n = 32 wn + 8 ni + 2 tig
+// (+ 1 for odd e). An m-tile at or past M is skipped. wf holds W in
+// fragment order (9 CIN / 8 k-steps of 8 column tiles x 32 lanes x {hi, lo
+// of B[tig][gid], hi, lo of B[tig + 4][gid]}, logical k = tig, tig + 4
+// being channels 2 tig, 2 tig + 1 of the k-step; ops/kernels/tf32x3.py);
+// w_s two chunks of it. The tensor cores round each accumulation toward
+// zero, so each tap's tile sums (CIN / 8 k-steps, three products each)
+// go into the float32 totals once per tap. Starts and ends on a barrier;
+// a cp.async group committed before the call (a conv's input rows) has
+// landed when the first product is formed.
+template <int CIN, int D, int M>
+__device__ __forceinline__ void conv9_tf32x3(const float* in_s, int ld,
+                                             const float* __restrict__ wf, float* w_s,
+                                             float (&tot)[2][4][4]) {
+  constexpr int kPerTap = CIN / kKC;
+  const int warp = threadIdx.x >> 5, wm = warp & 3, wn = warp >> 2;
+  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+  const bool on[2] = {32 * wm < M, 32 * wm + 16 < M};
+  float acc[2][4][4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float bj = kBias ? bias[col<COUT>(g, j)] : 0.f;
+  for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int i = 0; i < KR; ++i) acc[i][j] = bj;
-  }
-  __syncthreads();  // input rows written, earlier readers of w_s done
-  stage_w<COUT>(w_s, w);
-  for (int c = 0; c < kChunks; ++c) {
-    if (c + 1 < kChunks) {
-      stage_w<COUT>(w_s + ((c + 1) & 1) * kChunk, w + (size_t)(c + 1) * kChunk);
-      __pipeline_wait_prior(1);  // all but the newest group: chunk c
-    } else {
-      __pipeline_wait_prior(0);
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tot[mi][ni][e] = 0.f;
+  auto compute = [&](int c, int buf) {
+    const int j = c / kPerTap, part = c % kPerTap;
+    if (part == 0) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
     }
-    __syncthreads();  // chunk c visible to every thread
-    const float* cur = w_s + (c & 1) * kChunk + 4 * g;
-    const int k = c / (CIN / kCW), ci0 = (c % (CIN / kCW)) * kCW;
-    const float* xin = in_s + k * D * kSin + ci0;
-#pragma unroll 1
-    for (int ci = 0; ci < kCW; ci += 4) {
-      float4 q[4];
+    const float* xa = in_s + (32 * wm + gid + j * D) * ld + part * kKC + 2 * tig;
+    const float* ws = w_s + buf * kChunkF + wn * 4 * 128 + lane * 4;
 #pragma unroll
-      for (int cc = 0; cc < 4; ++cc)
-        q[cc] = *reinterpret_cast<const float4*>(cur + (ci + cc) * COUT);
+    for (int ks = 0; ks < kKC / 8; ++ks) {
+      FragA a[2];
 #pragma unroll
-      for (int i = 0; i < KR; ++i) {
-        const int m = min(r + i * P::R, M - 1);
-        const float4 xv = *reinterpret_cast<const float4*>(xin + m * kSin + ci);
-        const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
+      for (int mi = 0; mi < 2; ++mi) {
+        if (!on[mi]) continue;
+        const float2 u = ld2(xa + mi * 16 * ld + ks * 8);
+        const float2 v = ld2(xa + (mi * 16 + 8) * ld + ks * 8);
+        split(u.x, a[mi].hi[0], a[mi].lo[0]);
+        split(v.x, a[mi].hi[1], a[mi].lo[1]);
+        split(u.y, a[mi].hi[2], a[mi].lo[2]);
+        split(v.y, a[mi].hi[3], a[mi].lo[3]);
+      }
 #pragma unroll
-        for (int cc = 0; cc < 4; ++cc) {
-          acc[i][0] = fmaf(xs[cc], q[cc].x, acc[i][0]);
-          acc[i][1] = fmaf(xs[cc], q[cc].y, acc[i][1]);
-          acc[i][2] = fmaf(xs[cc], q[cc].z, acc[i][2]);
-          acc[i][3] = fmaf(xs[cc], q[cc].w, acc[i][3]);
-        }
+      for (int ni = 0; ni < 4; ++ni) {
+        const float4 w = *reinterpret_cast<const float4*>(ws + (ks * 8 + ni) * 128);
+        const FragB b{{__float_as_uint(w.x), __float_as_uint(w.z)},
+                      {__float_as_uint(w.y), __float_as_uint(w.w)}};
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+          if (on[mi]) mma3(acc[mi][ni], a[mi], b);
       }
     }
-    __syncthreads();  // chunk c consumed: its half is refilled next step
-  }
-}
-
-// rows p0 .. p0 + rows of src (row p reads source row p / s; zeros where p
-// is outside [0, t_out)) into dst, kS floats apart.
-__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src,
-                                          int p0, int rows, int t_out, int s) {
-  for (int idx = threadIdx.x; idx < rows * (kC / 4); idx += kThreads) {
-    const int q = idx / (kC / 4), cc = (idx % (kC / 4)) * 4;
-    const int p = p0 + q;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (p >= 0 && p < t_out)
-      v = *reinterpret_cast<const float4*>(src + (size_t)(p / s) * kC + cc);
-    *reinterpret_cast<float4*>(dst + q * kS + cc) = v;
-  }
+    if (part == kPerTap - 1) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) tot[mi][ni][e] += acc[mi][ni][e];
+    }
+  };
+  pipeline<kWStages>(
+      kK * kPerTap,
+      [&](int c, int buf) {
+        const float* src = wf + (size_t)c * kChunkF;
+        float* dst = w_s + buf * kChunkF;
+#pragma unroll
+        for (int e = threadIdx.x * 4; e < kChunkF; e += kThreads * 4)
+          cp_async<16>(dst + e, src + e, true);
+      },
+      compute);
 }
 
 __device__ __forceinline__ float warp_max(float v) {

@@ -43,9 +43,10 @@
 //     row's loads issued before this row's sums), dy and dG
 //     over 128, da' over 128 (120 needed), dsrc over 112; rows outside
 //     [0, L) are zeroed, the adjoint of the forward's padding. Each
-//     transposed conv is conv9_tf32x3: a 128 x 64 (or 112 x 64) output
-//     tile against depth 9 x 128 (dy, da') or 9 x 64 (dsrc). Its own rows
-//     of dT, dG, dxn, da' and dsrc go to device memory.
+//     transposed conv is conv9_tf32x3 (csrc/tade.cuh, K8's conv too): a
+//     128 x 64 (or 112 x 64) output tile against depth 9 x 128 (dy, da')
+//     or 9 x 64 (dsrc). Its own rows of dT, dG, dxn, da' and dsrc go to
+//     device memory.
 //  2. stage_wgrad_kernel, one block of 512 threads per 1,024 rows of one
 //     batch item and per job: a job is one conv's nine taps against 32
 //     columns of its cotangent (Wgc: 4 jobs over dT, Wg: 4 over dG, Waux: 2
@@ -133,9 +134,8 @@ constexpr int kTO = 112;           // output rows (dsrc) of a block
 constexpr int kMG = 128;           // rows of the dy and da' products
 constexpr int kLd2 = kC2 + 8;      // row stride of 128-wide rows, 8 mod 32
 constexpr int kLd1 = kC + 8;       // row stride of 64-wide rows, 8 mod 32
-constexpr int kKC = 32;            // input channels of one weight chunk
-constexpr int kChunkF = kKC * kC * 2;  // its floats: 4 k-steps x 8 tiles x 32 x 4
-constexpr int kWStages = 2;
+constexpr int kChunkF = tk::kChunkF;   // floats of one weight chunk
+constexpr int kWStages = tk::kWStages;
 
 __host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
 
@@ -166,13 +166,9 @@ struct StageBwd {
   int L, sc, softmax;
 };
 
-__device__ __forceinline__ float2 ld2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-
-__device__ __forceinline__ void st2(float* p, float2 v) {
-  *reinterpret_cast<float2*>(p) = v;
-}
+using tk::conv9_tf32x3;
+using tk::ld2;
+using tk::st2;
 
 // The VJP of one row of gate(t) = softmax(ta) (or sigmoid(ta)) * tanh(tb),
 // whose channels (2l, 2l+1) of each half lane l holds (the JAX _gate_vjp,
@@ -196,86 +192,6 @@ __device__ __forceinline__ void gate_vjp(float2 ta, float2 tb, float2 g, int sof
     dta = make_float2(g.x * th0 * p0 * (1.f - p0), g.y * th1 * p1 * (1.f - p1));
   }
   dtb = make_float2(g.x * p0 * (1.f - th0 * th0), g.y * p1 * (1.f - th1 * th1));
-}
-
-// The 32 x 32 output tile of warp (wm, wn) = warp % 4, warp / 4 of a
-// transposed conv: tot[mi][ni][e] = sum over taps j and input channels ci
-// < CIN of in_s[(m + j D) ld + ci] W[j][ci][n] at rows m = 32 wm + 16 mi +
-// gid (+ 8 for e >= 2) and columns n = 32 wn + 8 ni + 2 tig (+ 1 for odd
-// e). An m-tile at or past M is skipped. wf holds W in fragment order (9
-// CIN / 8 k-steps of 8 column tiles x 32 lanes x {hi, lo of B[tig][gid],
-// hi, lo of B[tig + 4][gid]}, logical k = tig, tig + 4 being channels 2
-// tig, 2 tig + 1 of the k-step); w_s two chunks of it. Starts and ends on
-// a barrier.
-template <int CIN, int D, int M>
-__device__ __forceinline__ void conv9_tf32x3(const float* in_s, int ld,
-                                             const float* __restrict__ wf, float* w_s,
-                                             float (&tot)[2][4][4]) {
-  constexpr int kPerTap = CIN / kKC;
-  const int warp = threadIdx.x >> 5, wm = warp & 3, wn = warp >> 2;
-  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
-  const bool on[2] = {32 * wm < M, 32 * wm + 16 < M};
-  float acc[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) tot[mi][ni][e] = 0.f;
-  auto compute = [&](int c, int buf) {
-    const int j = c / kPerTap, part = c % kPerTap;
-    if (part == 0) {
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-    }
-    const float* xa = in_s + (32 * wm + gid + j * D) * ld + part * kKC + 2 * tig;
-    const float* ws = w_s + buf * kChunkF + wn * 4 * 128 + lane * 4;
-#pragma unroll
-    for (int ks = 0; ks < kKC / 8; ++ks) {
-      FragA a[2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        if (!on[mi]) continue;
-        const float2 u = ld2(xa + mi * 16 * ld + ks * 8);
-        const float2 v = ld2(xa + (mi * 16 + 8) * ld + ks * 8);
-        split(u.x, a[mi].hi[0], a[mi].lo[0]);
-        split(v.x, a[mi].hi[1], a[mi].lo[1]);
-        split(u.y, a[mi].hi[2], a[mi].lo[2]);
-        split(v.y, a[mi].hi[3], a[mi].lo[3]);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const float4 w = *reinterpret_cast<const float4*>(ws + (ks * 8 + ni) * 128);
-        const FragB b{{__float_as_uint(w.x), __float_as_uint(w.z)},
-                      {__float_as_uint(w.y), __float_as_uint(w.w)}};
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-          if (on[mi]) mma3(acc[mi][ni], a[mi], b);
-      }
-    }
-    if (part == kPerTap - 1) {
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) tot[mi][ni][e] += acc[mi][ni][e];
-    }
-  };
-  pipeline<kWStages>(
-      kK * kPerTap,
-      [&](int c, int buf) {
-        const float* src = wf + (size_t)c * kChunkF;
-        float* dst = w_s + buf * kChunkF;
-#pragma unroll
-        for (int e = threadIdx.x * 4; e < kChunkF; e += kCThreads * 4)
-          cp_async<16>(dst + e, src + e, true);
-      },
-      compute);
 }
 
 // Local rows: dT at t0 - 8 - 4D + q, dy and dG at t0 - 8 + m, da' at

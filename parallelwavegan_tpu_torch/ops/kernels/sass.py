@@ -1,0 +1,104 @@
+"""What the kernel sources compile to: per kernel, its SASS instruction
+count and its tensor-core (HMMA) and fused multiply-add (FFMA) counts, and,
+against a second source tree, which kernels' SASS is identical.
+
+Needs nvcc and cuobjdump (the CUDA toolkit), so it runs where the card is:
+    python -m parallelwavegan_tpu_torch.ops.kernels.sass [--against DIR]
+DIR is another tree's ``csrc`` directory (a parent commit unpacked with
+``git archive``). Each source is compiled by itself to a cubin with the
+flags of ``build.py``, all at once, into a temporary directory. Names in
+the anonymous namespace carry a per-file hash, which is cut before two
+trees are compared; so are addresses and encodings.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import re
+import subprocess
+import tempfile
+
+from parallelwavegan_tpu_torch.ops.kernels import build
+
+
+def _cut_anon(name: str) -> str:
+    """A mangled name with its anonymous namespace (``_ZN<length>
+    _GLOBAL__N__...``, named after the file) replaced by ANON."""
+    m = re.match(r"_ZN(\d+)_GLOBAL__N__", name)
+    if not m:
+        return name
+    return "_ZNANON" + name[m.end(1) + int(m.group(1)):]
+
+
+def compile_cubins(csrc: str, out_dir: str) -> dict:
+    """{source name: cubin path} for every ``*.cu`` in csrc."""
+    nvcc = build._nvcc()
+    flags = [f for f in build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    procs = {}
+    for src in build.sources(csrc):
+        name = os.path.basename(src)
+        cubin = os.path.join(out_dir, f"{name}.cubin")
+        procs[name] = (cubin, subprocess.Popen(
+            [nvcc, *flags, "-cubin", "-o", cubin, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    out = {}
+    for name, (cubin, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name}:\n{log}")
+        out[name] = cubin
+    return out
+
+
+def kernels_of(cubin: str) -> dict:
+    """{kernel name, anonymous-namespace hash cut: [instructions]}."""
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", cubin], capture_output=True, text=True,
+                          check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = _cut_anon(m.group(1))
+            out[name] = []
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", line)
+        if name and m:
+            out[name].append(m.group(1))
+    return out
+
+
+def counts(instrs: list) -> str:
+    ops = [i.split()[1] if i.startswith("@") else i.split()[0] for i in instrs]
+    hmma = sorted({op for op in ops if op.startswith("HMMA")})
+    n = {k: sum(op.startswith(k) for op in ops) for k in ("HMMA", "FFMA")}
+    return (f"{len(instrs)} instructions, HMMA {n['HMMA']}"
+            f"{' (' + ', '.join(hmma) + ')' if hmma else ''}, FFMA {n['FFMA']}")
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--against", help="another tree's csrc directory")
+    args = ap.parse_args(argv)
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(os.path.join(tmp, "a"))
+        mine = compile_cubins(build.CSRC, os.path.join(tmp, "a"))
+        other = {}
+        if args.against:
+            os.makedirs(os.path.join(tmp, "b"))
+            other = compile_cubins(args.against, os.path.join(tmp, "b"))
+        for src, cubin in mine.items():
+            ks = kernels_of(cubin)
+            theirs = kernels_of(other[src]) if src in other else None
+            for name in sorted(ks):
+                note = ""
+                if theirs is not None:
+                    note = ("; SASS identical to the other tree's" if theirs.get(name)
+                            == ks[name] else "; SASS differs from the other tree's"
+                            if name in theirs else "; not in the other tree")
+                print(f"SASS {src} {name}: {counts(ks[name])}{note}")
+
+
+if __name__ == "__main__":
+    main()

@@ -26,8 +26,12 @@ per-(batch, channel) mean and 1/std are two-pass torch reductions
 (``torch.var_mean``) between the launches.
 
 For a CUDA tensor each gated block runs the hand-written kernels of
-csrc/tade.cu, one launch of each; for a CPU tensor it runs the plain
-PyTorch version ``tade_block_reference``. A CUDA tensor never takes the
+csrc/tade.cu, one launch of each, every conv product split TF32 on the
+tensor cores; each half's three convs go to its kernel split once into
+TF32 hi and lo in the mma fragments' order (``tf32x3.forward_fragments``),
+per call or, for decode, once in ``with_fragments`` (the blocks'
+``frag1`` and ``frag2``). For a CPU tensor it runs the plain PyTorch
+version ``tade_block_reference``. A CUDA tensor never takes the
 plain path. The TPU lane packing, tiling (``t_tile``) and bf16-resident
 mode do not carry over. This wrapper is inference-only, as JAX's, so a
 forward that would need gradients raises; the differentiable block, whose
@@ -41,12 +45,15 @@ import torch.nn.functional as F
 
 from parallelwavegan_tpu_torch.layers.tade import GATES, gate, instance_norm_1d
 from parallelwavegan_tpu_torch.ops.kernels import build
+from parallelwavegan_tpu_torch.ops.kernels.tf32x3 import forward_fragments
 
 C = 64  # the kernels' width, the JAX C0P
 KERNEL_SIZE = 9
 DILATIONS = (1, 2, 3, 4)  # instantiated in tade.cu
 EPS = 1e-5
 WEIGHT_KEYS = ("aux1", "g1", "gc1", "aux2", "g2", "gc2")
+# a half's three convs split for its kernel (tf32x3.forward_fragments)
+FRAGMENTS_SHAPE = (5, KERNEL_SIZE * C // 8, 8, 32, 4)
 
 # ---------------------------------------------------------------------------
 # plain version (port of tade_block_xla)
@@ -124,15 +131,46 @@ def _check_cuda_inputs(x, c, blk) -> None:
                          f"got {blk['dilation']}")
     for key in WEIGHT_KEYS:
         cout = C if key.startswith("aux") else 2 * C
-        # weights are copied in 8- and 16-byte pieces (cp.async)
+        # the kernels read the weights' split (forward_fragments), and the
+        # biases in 8-byte pairs
         build.check_tensor(f"{key}_w", blk[f"{key}_w"], x.device,
-                           (KERNEL_SIZE, C, cout), align=16)
-        build.check_tensor(f"{key}_b", blk[f"{key}_b"], x.device, (cout,))
+                           (KERNEL_SIZE, C, cout))
+        build.check_tensor(f"{key}_b", blk[f"{key}_b"], x.device, (cout,), align=8)
+    for half in (1, 2):
+        if f"frag{half}" in blk:
+            build.check_tensor(f"frag{half}", blk[f"frag{half}"], x.device,
+                               FRAGMENTS_SHAPE, align=16)
 
 
-def _weights(blk, half: int):
-    keys = WEIGHT_KEYS[:3] if half == 1 else WEIGHT_KEYS[3:]
-    return [blk[f"{k}{s}"].data_ptr() for k in keys for s in ("_w", "_b")]
+def _keys(half: int):
+    return WEIGHT_KEYS[:3] if half == 1 else WEIGHT_KEYS[3:]
+
+
+def _split(blk, half: int):
+    """Half ``half``'s three convs split for its kernel."""
+    return forward_fragments(*(blk[f"{k}_w"] for k in _keys(half)))
+
+
+def _fragments(blk, half: int):
+    """The block's ``frag1``/``frag2`` where ``with_fragments`` made them,
+    else the split made now."""
+    cached = blk.get(f"frag{half}")
+    return cached if cached is not None else _split(blk, half)
+
+
+def with_fragments(blk):
+    """``blk`` with each half's three convs split once for the kernels
+    (``frag1``, ``frag2``), for a decode that runs the same weights many
+    times; unchanged where the kernels do not take the block (an aux width
+    other than 64). The split is as stale as the weights it was made from:
+    make it again after they change."""
+    if blk["aux1_w"].shape[1] != C:
+        return blk
+    return dict(blk, frag1=_split(blk, 1), frag2=_split(blk, 2))
+
+
+def _biases(blk, half: int):
+    return [blk[f"{k}_b"].data_ptr() for k in _keys(half)]
 
 
 def tade1_cuda(x, c, blk, gated_function: str = "softmax"):
@@ -143,9 +181,10 @@ def tade1_cuda(x, c, blk, gated_function: str = "softmax"):
     b, t, _ = x.shape
     mean, rstd = _stats(x)
     x2, a = torch.empty_like(x), torch.empty_like(x)
+    wf = _fragments(blk, 1)  # held until the launch is queued
     lib.call("tade1", x.data_ptr(), c.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-             x2.data_ptr(), a.data_ptr(), *_weights(blk, 1), None, None, None, b, t,
-             GATES.index(gated_function), dev, stream)
+             x2.data_ptr(), a.data_ptr(), wf.data_ptr(), *_biases(blk, 1), None, None,
+             None, b, t, GATES.index(gated_function), dev, stream)
     fused_tade_blocks.launches_k8a += 1
     return x2, a
 
@@ -161,9 +200,10 @@ def tade2_cuda(x, x2, a, blk, gated_function: str = "softmax"):
     mean, rstd = _stats(x2)
     out = torch.empty((b, sc * t, C), device=x.device, dtype=torch.float32)
     a2 = torch.empty_like(out)
+    wf = _fragments(blk, 2)
     lib.call("tade2", x.data_ptr(), x2.data_ptr(), a.data_ptr(), mean.data_ptr(),
-             rstd.data_ptr(), out.data_ptr(), a2.data_ptr(), *_weights(blk, 2), None,
-             None, None, None, b, t, sc, int(blk["dilation"]),
+             rstd.data_ptr(), out.data_ptr(), a2.data_ptr(), wf.data_ptr(),
+             *_biases(blk, 2), None, None, None, None, b, t, sc, int(blk["dilation"]),
              GATES.index(gated_function), dev, stream)
     fused_tade_blocks.launches_k8b += 1
     return out, a2

@@ -34,9 +34,10 @@ from parallelwavegan_tpu_torch.ops.kernels import build
 from parallelwavegan_tpu_torch.ops.kernels.tade_decode import (
     C,
     WEIGHT_KEYS,
+    _biases,
     _check_cuda_inputs,
+    _fragments,
     _stats,
-    _weights,
     gated,
     run_module,
     tade1_cuda,
@@ -162,6 +163,42 @@ def _check_cotangent(name, v, x, rows):
     build.check_tensor(name, v, x.device, (x.shape[0], rows, C), align=16)
 
 
+def tade1_rerun_cuda(x, c, blk, gated_function, mean, rstd):
+    """K8a's re-run for K9a (csrc/tade.cu's Save variant), from x's
+    statistics mean and rstd: (a, y, s, t), the aux conv's output, the
+    gated conv's input, the modulation's scale (B, T, 64) and the gated
+    conv's pre-activations (B, T, 128)."""
+    lib = build.load()
+    dev, stream = build.launch_target(x)
+    a, y, s = (torch.empty_like(x) for _ in range(3))
+    t = torch.empty(x.shape[0], x.shape[1], 2 * C, device=x.device)
+    wf = _fragments(blk, 1)  # held until the launch is queued
+    lib.call("tade1", x.data_ptr(), c.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+             None, a.data_ptr(), wf.data_ptr(), *_biases(blk, 1), y.data_ptr(),
+             s.data_ptr(), t.data_ptr(), x.shape[0], x.shape[1],
+             GATES.index(gated_function), dev, stream)
+    return a, y, s, t
+
+
+def tade2_rerun_cuda(x, x2, a, blk, gated_function, mean, rstd):
+    """K8b's re-run for K9b, from x2's statistics: (a2, y, s, t, ua) at the
+    output rate, ua the stretched a at scale 2 (None at scale 1)."""
+    lib = build.load()
+    dev, stream = build.launch_target(x)
+    b, t_len, _ = x.shape
+    sc = int(blk["scale"])
+    a2, y, s = (torch.empty(b, sc * t_len, C, device=x.device) for _ in range(3))
+    t = torch.empty(b, sc * t_len, 2 * C, device=x.device)
+    ua = torch.empty_like(a2) if sc == 2 else None
+    wf = _fragments(blk, 2)
+    lib.call("tade2", x.data_ptr(), x2.data_ptr(), a.data_ptr(), mean.data_ptr(),
+             rstd.data_ptr(), None, a2.data_ptr(), wf.data_ptr(), *_biases(blk, 2),
+             y.data_ptr(), s.data_ptr(), t.data_ptr(),
+             None if ua is None else ua.data_ptr(), b, t_len, sc, int(blk["dilation"]),
+             GATES.index(gated_function), dev, stream)
+    return a2, y, s, t, ua
+
+
 def tade1_backward_cuda(x, c, blk, gated_function, dx2, da):
     """K9a on the card: the stats of x, K8a's re-run, one call of
     tade_stage_bwd and the instance norm's backward. (dx, dc, grads of
@@ -170,14 +207,8 @@ def tade1_backward_cuda(x, c, blk, gated_function, dx2, da):
     t_len = x.shape[1]
     _check_cotangent("dx2", dx2, x, t_len)
     _check_cotangent("da", da, x, t_len)
-    lib = build.load()
-    dev, stream = build.launch_target(x)
     mean, rstd = _stats(x)
-    a, y, s = (torch.empty_like(x) for _ in range(3))
-    t = torch.empty(x.shape[0], t_len, 2 * C, device=x.device)
-    lib.call("tade1", x.data_ptr(), c.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-             None, a.data_ptr(), *_weights(blk, 1), y.data_ptr(), s.data_ptr(),
-             t.data_ptr(), x.shape[0], t_len, GATES.index(gated_function), dev, stream)
+    a, y, s, t = tade1_rerun_cuda(x, c, blk, gated_function, mean, rstd)
     dxn, _, dc, grads = _stage_cuda(t, dx2, s, x, mean, rstd, da, blk, WEIGHT_KEYS[:3],
                                     y, a, c, 1, 1, gated_function)
     tade_block_backward.launches_k9a += 1
@@ -191,21 +222,13 @@ def tade2_backward_cuda(x, x2, a, blk, gated_function, dout, da2):
     ``tade2_backward_reference``."""
     _check_cuda_inputs(x, a, blk)
     build.check_tensor("x2", x2, x.device, x.shape, align=16)
-    b, t_len, _ = x.shape
+    t_len = x.shape[1]
     sc, d = int(blk["scale"]), int(blk["dilation"])
     rows = sc * t_len
     _check_cotangent("dout", dout, x, rows)
     _check_cotangent("da2", da2, x, rows)
-    lib = build.load()
-    dev, stream = build.launch_target(x)
     mean, rstd = _stats(x2)
-    a2, y, s = (torch.empty_like(dout) for _ in range(3))
-    t = torch.empty(b, rows, 2 * C, device=x.device)
-    ua = torch.empty_like(dout) if sc == 2 else None
-    lib.call("tade2", x.data_ptr(), x2.data_ptr(), a.data_ptr(), mean.data_ptr(),
-             rstd.data_ptr(), None, a2.data_ptr(), *_weights(blk, 2), y.data_ptr(),
-             s.data_ptr(), t.data_ptr(), None if ua is None else ua.data_ptr(), b,
-             t_len, sc, d, GATES.index(gated_function), dev, stream)
+    a2, y, s, t, ua = tade2_rerun_cuda(x, x2, a, blk, gated_function, mean, rstd)
     dxn, _, dua, grads = _stage_cuda(t, dout, s, x2, mean, rstd, da2, blk,
                                      WEIGHT_KEYS[3:], y, a2, a if ua is None else ua,
                                      sc, d, gated_function)

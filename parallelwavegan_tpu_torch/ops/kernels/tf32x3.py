@@ -1,13 +1,16 @@
 """Split TF32 on the host side: the rounding of csrc/mma_tf32x3.cuh and
-the weight layout that K9's chain kernel (csrc/tade_bwd.cu) reads.
+the weight layouts that the TADE kernels read (K9's chain kernel in
+csrc/tade_bwd.cu, K8a and K8b in csrc/tade.cu).
 
 A float32 value v is split into hi = tf32(v) and lo = tf32(v - hi), both
 TF32 (10 mantissa bits, rounded as ``cvt.rna``: to nearest, ties away
 from zero); a product is then a_lo.b_hi + a_hi.b_lo + a_hi.b_hi on the
-tensor cores. ``conv_fragments`` splits a conv's weights once per call and
-stores them in the order in which ``mma.sync.m16n8k8`` takes its B
-operand, so that the kernel loads a thread's (hi, lo) of both B registers
-with one 16-byte shared-memory load and splits only the activations.
+tensor cores. ``conv_fragments`` (a transposed conv's weights) and
+``forward_fragments`` (a forward kernel's three convs) split the weights
+once per call and store them in the order in which ``mma.sync.m16n8k8``
+takes its B operand, so that the kernel loads a thread's (hi, lo) of both
+B registers with one 16-byte shared-memory load and splits only the
+activations.
 """
 
 from __future__ import annotations
@@ -29,26 +32,58 @@ def split_tf32(v):
     return hi, to_tf32(v - hi)
 
 
-def conv_fragments(w):
-    """A 9-tap conv's gather-form weights w (9, Cin, Cout), Cin and Cout
-    multiples of 8, as those of its transposed conv, Wt[j] = w[8 - j]^T,
-    flattened to depth K = 9 Cout (tap major), split and laid out as the B
-    operands of m16n8k8 TF32 products: (K / 8, Cin / 8, 32, 4), entry [ks,
-    nt, lane] = (hi, lo of Wt[8 ks + 2 tig, 8 nt + gid], hi, lo of Wt[8 ks
-    + 2 tig + 1, 8 nt + gid]) with lane = 4 gid + tig. Logical depth k = tig
-    of a k-step is row 2 tig and k = tig + 4 row 2 tig + 1 (the kernel reads
-    its A operand's channels in the same pairs). What csrc/tade_bwd.cu
-    takes."""
-    n = w.shape[1]
-    if n % 8 or w.shape[2] % 8:
-        raise ValueError(f"conv_fragments needs widths of multiples of 8, got "
-                         f"{tuple(w.shape)}")
-    wt = w.detach().flip(0).transpose(1, 2).reshape(-1, n)
-    k = wt.shape[0]
+def _fragments(wk):
+    """A (K, N) product operand, K and N multiples of 8, split and laid out
+    as the B operands of m16n8k8 TF32 products: (K / 8, N / 8, 32, 4),
+    entry [ks, nt, lane] = (hi, lo of wk[8 ks + 2 tig, 8 nt + gid], hi, lo
+    of wk[8 ks + 2 tig + 1, 8 nt + gid]) with lane = 4 gid + tig. Logical
+    depth k = tig of a k-step is row 2 tig and k = tig + 4 row 2 tig + 1
+    (the kernels read their A operand's channels in the same pairs)."""
+    k, n = wk.shape
 
     def arrange(x):  # (ks, tig, pair, nt, gid) -> (ks, nt, gid, tig, pair)
         return x.reshape(k // 8, 4, 2, n // 8, 8).permute(0, 3, 4, 1, 2)
 
-    hi, lo = split_tf32(wt)
-    return torch.stack([arrange(hi), arrange(lo)], dim=-1).reshape(
-        k // 8, n // 8, 32, 4).contiguous()
+    hi, lo = split_tf32(wk)
+    return torch.stack([arrange(hi), arrange(lo)], dim=-1).reshape(k // 8, n // 8, 32, 4)
+
+
+def conv_fragments(w):
+    """A 9-tap conv's gather-form weights w (9, Cin, Cout), Cin and Cout
+    multiples of 8, as those of its transposed conv, Wt[j] = w[8 - j]^T,
+    flattened to depth K = 9 Cout (tap major), in ``_fragments``' layout:
+    (K / 8, Cin / 8, 32, 4). What csrc/tade_bwd.cu takes."""
+    n = w.shape[1]
+    if n % 8 or w.shape[2] % 8:
+        raise ValueError(f"conv_fragments needs widths of multiples of 8, got "
+                         f"{tuple(w.shape)}")
+    return _fragments(w.detach().flip(0).transpose(1, 2).reshape(-1, n))
+
+
+def _pair_columns(wk):
+    """The 128 columns of a gated conv's (K, 128) weights reordered so that
+    column 8 nt + 2 tig + e is original column 64 e + 8 (nt // 2) + 2 tig +
+    nt % 2: the kernel's thread (gid, tig) then holds in one column tile a
+    channel's first-half column beside its second-half column ([s | h] or
+    [ta | tb]), and in the next tile the next channel's. A reshape and a
+    copy (an index tensor would be copied to the card on every call)."""
+    # original column (e, nt // 2, tig, nt % 2) -> (nt // 2, nt % 2, tig, e)
+    return wk.reshape(-1, 2, 8, 4, 2).permute(0, 2, 4, 3, 1).reshape(-1, 128)
+
+
+def forward_fragments(aux_w, g_w, gc_w):
+    """The three convs of a forward TADE kernel (K8a: aux1, g1, gc1; K8b:
+    aux2, g2, gc2), gather-form weights (9, 64, 64), (9, 64, 128) and (9,
+    64, 128), as the kernel takes them: each conv w[k] as is, flattened to
+    depth 9 x 64 (tap major), the 128-column convs' columns paired
+    (``_pair_columns``), all in ``_fragments``' layout and cut into
+    passes of 64 columns: (5, 576 / 8, 8, 32, 4), pass 0 aux, 1-2 g, 3-4
+    gc. What csrc/tade.cu takes."""
+    shapes = [tuple(w.shape) for w in (aux_w, g_w, gc_w)]
+    if shapes != [(9, 64, 64), (9, 64, 128), (9, 64, 128)]:
+        raise ValueError(f"forward_fragments takes (9, 64, 64), (9, 64, 128), "
+                         f"(9, 64, 128), got {shapes}")
+    wk = torch.cat([aux_w.detach().reshape(-1, 64), _pair_columns(g_w.detach()),
+                    _pair_columns(gc_w.detach())], dim=1)
+    f = _fragments(wk)  # (72, 40, 32, 4)
+    return f.reshape(f.shape[0], 5, 8, 32, 4).transpose(0, 1).contiguous()

@@ -1,0 +1,141 @@
+"""Device times of the forward TADE kernels K8a and K8b on the card, by the
+public wrappers alone, so that two trees can be timed in turns:
+
+    python parallelwavegan_tpu_torch/ops/kernels/time_tade.py [--root DIR]
+
+DIR (default: this file's tree) is put first on sys.path, so its package
+and its kernel sources are the ones timed (a parent commit unpacked with
+``git archive``). Two measurements, as ``chip_smoke.py`` phases 11 and 20
+take them:
+
+- decode: K8a and K8b (``tade1_cuda``, ``tade2_cuda``, the instance-norm
+  statistics included) at StyleMelGAN v1's blocks 3-8 of a 512-frame
+  decode (B=1, T = 5632 .. 180224), weights from ``prepare_kernels``;
+  median of 10 of each call (CUDA events), summed over the blocks; and
+  the same with each call splitting its weights (the blocks without the
+  split that ``prepare_kernels`` keeps, where a tree keeps one);
+- re-run: K8's re-runs inside K9 (``tade1_kernel`` and ``tade2_kernel``
+  device time under torch.profiler) in one G step's backward of blocks
+  4-8 at B=32 (T = 1408 .. 22528); median of 3.
+
+Prints the card (``nvidia-smi``) and one JSON line of the times in ms.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+
+def _median_ms(fn, reps: int = 10) -> float:
+    import torch
+
+    fn()
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=os.path.abspath(
+        os.path.join(os.path.dirname(__file__), "..", "..", "..")))
+    args = ap.parse_args(argv)
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    import parallelwavegan_tpu_torch
+    from chip_smoke import STYLE_FRAMES, V1_STYLE_CONFIG, V1_STYLE_GENERATOR
+    from parallelwavegan_tpu_torch.models import get_model_class
+    from parallelwavegan_tpu_torch.ops.kernels import tade_decode as td
+    from parallelwavegan_tpu_torch.ops.kernels import tade_train as tt
+
+    if not torch.cuda.is_available():
+        raise SystemExit("time_tade: needs a CUDA device")
+    if not parallelwavegan_tpu_torch.__file__.startswith(root):
+        raise SystemExit(f"time_tade: imported {parallelwavegan_tpu_torch.__file__}")
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    gen = get_model_class("StyleMelGANGenerator")(
+        **dict(V1_STYLE_GENERATOR, use_pallas_tade=True), device="cuda",
+        generator=torch.Generator().manual_seed(0))
+    gen.remove_weight_norm()
+    gen.eval()
+    gen.prepare_kernels()
+    blocks = gen._kernel_cache
+    rs = np.random.RandomState(0)
+
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy((rs.randn(*shape) * scale).astype(np.float32)).cuda()
+
+    out = {"root": root}
+    x0, c0 = randn(1, STYLE_FRAMES * 8, 64), randn(1, STYLE_FRAMES * 8, 64)
+    for name, bl in (("decode_ms", blocks[3:]),
+                     ("decode_split_per_call_ms",
+                      [{k: v for k, v in blk.items() if not k.startswith("frag")}
+                       for blk in blocks[3:]])):
+        k8a = k8b = 0.0
+        x, c = x0, c0
+        with torch.inference_mode():
+            for blk in bl:
+                x2, a = td.tade1_cuda(x, c, blk)
+                k8a += _median_ms(lambda: td.tade1_cuda(x, c, blk))
+                k8b += _median_ms(lambda: td.tade2_cuda(x, x2, a, blk))
+                x, c = td.tade2_cuda(x, x2, a, blk)
+        out[name] = {"k8a": k8a, "k8b": k8b, "sum": k8a + k8b}
+
+    b = V1_STYLE_CONFIG["batch_size"]
+    t = V1_STYLE_CONFIG["batch_max_steps"] // V1_STYLE_CONFIG["hop_size"]
+    step = []
+    for i, blk in enumerate(blocks):
+        if i >= 4:
+            sc = int(blk["scale"])
+            x, c = randn(b, t, 64), randn(b, t, 64)
+            with torch.no_grad():
+                x2, a = td.tade1_cuda(x, c, blk)
+            step.append((x, c, x2, a, blk, randn(b, sc * t, 64, scale=1e-3),
+                         randn(b, sc * t, 64, scale=1e-3)))
+        t *= int(blk["scale"])
+
+    from torch.profiler import ProfilerActivity, profile
+
+    def backward():
+        for x, c, x2, a, blk, dxo, dco in step:
+            tt.tade_block_backward(x, c, x2, a, blk, "softmax", dxo, dco)
+
+    backward()
+    runs = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            backward()
+            torch.cuda.synchronize()
+        ms = {"k8a": 0.0, "k8b": 0.0}
+        for ev in prof.key_averages():
+            us = getattr(ev, "device_time_total", 0) or 0
+            for name, key in (("tade1_kernel", "k8a"), ("tade2_kernel", "k8b")):
+                if name in ev.key:
+                    ms[key] += us / 1e3
+        runs.append(ms)
+    mid = sorted(runs, key=lambda r: r["k8a"] + r["k8b"])[1]
+    out["rerun_ms"] = {**mid, "sum": mid["k8a"] + mid["k8b"]}
+    print(card)
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

@@ -3,7 +3,8 @@ the fused HiFi-GAN tail, the fused WaveNet layer (stack and block, the
 block's training by autograd of its plain version) and its backward (K4,
 split TF32 on the tensor cores),
 the MelGAN stack kernel (K6) and its backward (K7), the MRF stage on the
-residual-unit kernel (K2) and the StyleMelGAN TADE kernels (K8a, K8b) and
+residual-unit kernel (K2) and the StyleMelGAN TADE kernels (K8a, K8b,
+decode and the backward's re-run, split TF32 on the tensor cores) and
 their backward (K9a, K9b). The generator tests also check that no CUDA tensor reaches a plain
 version on the main path.
 
@@ -674,11 +675,17 @@ def _tade_chain_reference(x, c, blocks, gated):
 
 
 # the ragged cases of chip_smoke.py: B=2, odd T, scales (2, 1), both gates,
-# no biases, T below one halo (12 rows), and dilations 1 and 4
+# no biases, T below one halo (12 rows), and dilations 1 to 4; T of a
+# whole number of K8a's 112-row tiles (and of K8b's at D = 1, 224 rows),
+# one row past a tile, below a halo at D = 3 and 4, and at D = 3 and 4 at
+# scale 2 (K8b's tiles of 96 and 88 rows)
 @pytest.mark.parametrize("b,t,gated,bias,dilation", [
     (2, 1001, "softmax", True, 2), (2, 1001, "sigmoid", True, 2),
     (1, 333, "softmax", False, 2), (2, 5, "softmax", True, 2),
-    (1, 130, "sigmoid", True, 1), (1, 200, "softmax", True, 4)])
+    (1, 130, "sigmoid", True, 1), (1, 200, "softmax", True, 4),
+    (2, 224, "softmax", True, 1), (2, 113, "sigmoid", True, 3),
+    (1, 9, "softmax", True, 3), (2, 23, "softmax", True, 4),
+    (2, 700, "softmax", False, 3), (1, 1003, "sigmoid", True, 4)])
 def test_tade_kernels_match_plain_version(cuda, b, t, gated, bias, dilation):
     blocks = [_tade_on(_tade_block(s, scale=sc, dilation=dilation, bias=bias), cuda)
               for s, sc in ((1, 2), (2, 1))]
@@ -714,6 +721,79 @@ def test_tade_halves_match_plain_version(cuda):
     torch.cuda.synchronize()
     for g, w in ((x2, x2r), (a, ar), (out, outr), (a2, a2r)):
         torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-4)
+
+
+def _save_reference(x, c_or_a, blk, half):
+    """What the Save variant writes, from the plain convs: K8a (a, y, s, t),
+    K8b (a2, y, s, t, up(a)) at the kernel's rate."""
+    sc = 1 if half == 1 else int(blk["scale"])
+    d = 1 if half == 1 else int(blk["dilation"])
+    aux, g, gc = tade_mod.WEIGHT_KEYS[:3] if half == 1 else tade_mod.WEIGHT_KEYS[3:]
+    src = tade_mod._stretch(c_or_a, sc)
+    a = tade_mod._conv(src, blk[f"{aux}_w"], blk[f"{aux}_b"])
+    s, h = tade_mod._conv(a, blk[f"{g}_w"], blk[f"{g}_b"]).chunk(2, dim=-1)
+    mean, rstd = tade_mod._stats(x)
+    y = s * tade_mod._stretch((x - mean[:, None]) * rstd[:, None], sc) + h
+    t = tade_mod._conv(y, blk[f"{gc}_w"], blk[f"{gc}_b"], d)
+    return (a, y, s, t) if half == 1 else (a, y, s, t, src)
+
+
+@pytest.mark.parametrize("b,t,scale,dilation", [
+    (2, 337, 2, 2), (1, 224, 1, 1), (2, 101, 2, 4), (1, 6, 2, 3)])
+def test_tade_save_variant_matches_plain_version(cuda, b, t, scale, dilation):
+    """K8a's and K8b's re-run for K9 (the Save variant: a, y, s, t and
+    up(a)) against the plain convs, and the kernels with the weights split
+    once (``with_fragments``) bit for bit those that split per call."""
+    from parallelwavegan_tpu_torch.ops.kernels import tade_train as k9
+
+    blk = _tade_on(_tade_block(8, scale=scale, dilation=dilation), cuda)
+    rs = np.random.RandomState(9)
+    x, c = (torch.from_numpy(rs.randn(b, t, 64).astype(np.float32)).to(cuda)
+            for _ in range(2))
+    with torch.inference_mode():
+        x2, a = tade_mod.tade1_cuda(x, c, blk)
+        got1 = k9.tade1_rerun_cuda(x, c, blk, "softmax", *tade_mod._stats(x))
+        got2 = k9.tade2_rerun_cuda(x, x2, a, blk, "softmax", *tade_mod._stats(x2))
+        want1 = _save_reference(x, c, blk, 1)
+        want2 = _save_reference(x2, a, blk, 2)
+        pre = tade_mod.with_fragments(blk)
+        cached = (tade_mod.tade1_cuda(x, c, pre), tade_mod.tade2_cuda(x, x2, a, pre))
+        fresh = (tade_mod.tade1_cuda(x, c, blk), tade_mod.tade2_cuda(x, x2, a, blk))
+    torch.cuda.synchronize()
+    assert (got2[4] is None) == (scale == 1)
+    for name, g, w in zip(("a", "y", "s", "t", "a2", "y2", "s2", "t2", "ua"),
+                          got1 + got2, want1 + want2):
+        if g is None:
+            continue
+        assert g.shape == w.shape, name
+        torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-4, msg=name)
+    for p, q in zip(cached, fresh):
+        for u, v in zip(p, q):
+            assert torch.equal(u, v)
+
+
+def test_tade_kernels_are_deterministic(cuda):
+    """K8a and K8b, the decode and the Save variant, give the same bits in
+    two runs (every sum in a fixed order, no atomics)."""
+    from parallelwavegan_tpu_torch.ops.kernels import tade_train as k9
+
+    blk = _tade_on(_tade_block(10, scale=2, dilation=2), cuda)
+    rs = np.random.RandomState(11)
+    x, c = (torch.from_numpy(rs.randn(2, 3001, 64).astype(np.float32)).to(cuda)
+            for _ in range(2))
+
+    def run():
+        with torch.inference_mode():
+            x2, a = tade_mod.tade1_cuda(x, c, blk)
+            out = tade_mod.tade2_cuda(x, x2, a, blk)
+            save1 = k9.tade1_rerun_cuda(x, c, blk, "softmax", *tade_mod._stats(x))
+            save2 = k9.tade2_rerun_cuda(x, x2, a, blk, "softmax", *tade_mod._stats(x2))
+        return [x2, a, *out, *save1, *save2]
+
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    for i, (p, q) in enumerate(zip(first, second)):
+        assert torch.equal(p, q), i
 
 
 def test_style_melgan_generator_through_the_kernels(cuda, monkeypatch):
