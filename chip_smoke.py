@@ -101,8 +101,11 @@ Phases (any failure exits non-zero; nothing is caught):
    2e-4 + 1e-3 |plain| and max|diff| <= 1e-4 max|plain| on dx and every
    weight and bias gradient, with zeroed and shifted gradients as controls
    that must be rejected; two runs bit for bit; CUDA-event times of the
-   three stages' backward beside their plain version and bound, and a
-   torch.profiler split of stage 1's kernels.
+   three stages' backward beside their plain version and bounds (at the
+   split-TF32 tensor-core rate K7 multiplies at, and at the float32
+   CUDA-core rate), a torch.profiler split of each stage's kernels (the
+   final conv's and K6's re-run apart), and each K7 kernel's registers,
+   spills and SASS counts (``ops/kernels/sass.py``).
 18. The split of one MelGAN v1 train step (B=8, T=25600) with
    ``use_pallas_stacks_train`` and without, as phase 15.
 19. MelGAN v1 training through ``bin/train.main``: melgan.v1.yaml
@@ -149,7 +152,7 @@ power limit from nvidia-smi, and {"ok": true, "device": {...}}. Every
 bound in the record is the larger of the bytes each call must move (each
 input read once, each output written once) over 3.35 TB/s and its float32
 operations over 67 TFLOP/s, the H100 SXM data-sheet peaks at 700 W; for
-the kernels that multiply in split TF32 on the tensor cores (K4, K8, K9),
+the kernels that multiply in split TF32 on the tensor cores (K4, K7, K8, K9),
 three TF32 operations per multiply-add's two over 495 TFLOP/s instead.
 """
 
@@ -1758,30 +1761,42 @@ def phase_k7(card: str) -> dict:
                lambda: melgan_stacks_backward_reference(x, stacks, fin, slope,
                                                         mode, dy),
                _k7_work(x, stacks, fin))
+    # K7 multiplies its stacks on the tensor cores in split TF32: its bound
+    # is that of the units it uses
+    fp32_ms = _split_tf32_bound(rec)
     print(f"K7 per MelGAN v1 G step backward (stages 1-3, B={b} T={t}, K6's re-run "
           f"included): kernel {rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, "
-          f"bound {rec['bound_ms']:.3f} ms on {card}")
+          f"bound {rec['bound_ms']:.3f} ms at the split-TF32 rate (3 x "
+          f"{rec['flops'] / 1e9:.1f} GFLOP / 495 TFLOP/s; {rec['bound_ms'] / rec['ms']:.1%} "
+          f"of it), {fp32_ms:.3f} ms at the float32 CUDA-core rate on {card}")
 
     from torch.profiler import ProfilerActivity, profile
 
-    _, x, stacks, fin, mode = cases[0]
-    dy = randn(*x.shape, scale=1e-3)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        melgan_stacks_backward(x, stacks, fin, slope, mode, dy)
-        torch.cuda.synchronize()
-    split = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", 0) or 0
-        if us > 0:
-            # "void (anonymous namespace)::dz_kernel(...)" -> "dz_kernel"
-            short = re.sub(r"[<(].*", "", ev.key.replace("(anonymous namespace)::", ""))
-            short = short.split("::")[-1].split()[-1]
-            part = split.setdefault(short, [0.0, 0])
-            part[0] += us / 1e3
-            part[1] += ev.count
-    print(f"K7 v1 stage 1 device time by kernel (torch.profiler, one call; "
-          f"stack_kernel is K6's re-run of stacks 0-1) on {card}: "
-          + "; ".join(f"{n} {ms:.3f} ms ({k} launches)" for n, (ms, k) in split.items()))
+    from parallelwavegan_tpu_torch.ops.kernels import build, sass
+    from parallelwavegan_tpu_torch.ops.kernels.time_melgan import by_kernel
+
+    k6_ms = k7_ms = 0.0
+    for name, x, stacks, fin, mode in cases[:3]:
+        dy = randn(*x.shape[:2], 1 if fin is not None else x.shape[2], scale=1e-3)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            melgan_stacks_backward(x, stacks, fin, slope, mode, dy)
+            torch.cuda.synchronize()
+        split = by_kernel(prof)
+        k6_ms += sum(ms for n, (ms, _) in split.items()
+                     if n.startswith(("stack_kernel", "outconv_kernel")))
+        k7_ms += sum(ms for ms, _ in split.values())
+        print(f"K7 {name} device time by kernel (torch.profiler, one call; "
+              f"stack_kernel<C> and outconv_kernel are K6's re-run, "
+              f"outconv_bwd_kernel and slab_sum_kernel the final conv's backward) "
+              f"on {card}: "
+              + "; ".join(f"{n} {ms:.3f} ms ({k} launches)" for n, (ms, k) in split.items()))
+    print(f"K7 per G step under torch.profiler: {k7_ms:.3f} ms, of which K6's re-run "
+          f"{k6_ms:.3f} ms ({k6_ms / k7_ms:.1%}) on {card}")
+    for kernel, use in sass.resource_usage(
+            os.path.join(build.CSRC, "melgan_stack_bwd.cu")).items():
+        print(f"K7 {kernel}: {use.get('registers')} registers, spill stores "
+              f"{use.get('spill_stores')} B, loads {use.get('spill_loads')} B; "
+              f"SASS {use.get('sass')}")
     return rec
 
 

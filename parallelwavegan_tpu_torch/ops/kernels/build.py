@@ -60,14 +60,14 @@ _SIGNATURES = {
     "melgan_stack": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
     # x, y, w, b, B, T, C, Cout, K, mode, slope, device, stream
     "melgan_outconv": [_P] * 4 + [_I] * 6 + [_F, _I, _P],
-    # x, g, dx, dz, h, dxp, part, wd, bd, w1, ws, dwd, dbd, dw1, db1, dws,
-    # dbs, part_floats, B, T, C, K, dil, mode, slope, device, stream
-    "melgan_stack_bwd": [_P] * 17 + [ctypes.c_longlong] + [_I] * 6 + [_F, _I, _P],
-    # B, T, C, K -> floats of melgan_stack_bwd's partial buffer
-    "melgan_stack_bwd_part_floats": [_I] * 4,
-    # x, y, dy, dx, dpre, dxp, part, w, dw, db, part_floats, B, T, C, Cout,
-    # K, mode, slope, device, stream
-    "melgan_outconv_bwd": [_P] * 10 + [ctypes.c_longlong] + [_I] * 6 + [_F, _I, _P],
+    # x, g, dx, dz, h, part, wf, bd, dwd, dbd, dw1, db1, dws, dbs,
+    # part_floats, B, T, C, K, dil, mode, slope, device, stream
+    "melgan_stack_bwd": [_P] * 14 + [ctypes.c_longlong] + [_I] * 6 + [_F, _I, _P],
+    # B, T, C, K, dil -> floats of melgan_stack_bwd's partial buffer
+    "melgan_stack_bwd_part_floats": [_I] * 5,
+    # x, y, dy, dx, part, w, dw, db, part_floats, B, T, C, Cout, K, mode,
+    # slope, device, stream
+    "melgan_outconv_bwd": [_P] * 8 + [ctypes.c_longlong] + [_I] * 6 + [_F, _I, _P],
     # B, T, C, Cout, K -> floats of melgan_outconv_bwd's partial buffer
     "melgan_outconv_bwd_part_floats": [_I] * 5,
     # x, c, mean, rstd, x2, a, wf, aux_b, g_b, gc_b, y, s, t, B, T, gate,

@@ -16,8 +16,10 @@ backward is ``melgan_stacks_backward``: for a CUDA tensor it re-runs K6
 from the saved input, keeping every stack's input in device memory, then
 runs the final conv's backward and walks the stacks in reverse through
 the hand-written K7 kernel (csrc/melgan_stack_bwd.cu: one
-``melgan_outconv_bwd`` call, then one ``melgan_stack_bwd`` call of five
-CUDA kernels per stack); for a CPU tensor it runs
+``melgan_outconv_bwd`` call of two CUDA kernels, then one
+``melgan_stack_bwd`` call of four per stack, its products split TF32 on
+the tensor cores against weights that ``tf32x3.stack_fragments`` splits
+once per call); for a CPU tensor it runs
 ``melgan_stacks_backward_reference``. A CUDA tensor never takes the plain
 path. K6 pads inside the kernel and K7 applies the padding's adjoint, so
 the gradient is exact over the whole sequence: the JAX wrapper's zero-pad
@@ -30,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from parallelwavegan_tpu_torch.ops.kernels import build
+from parallelwavegan_tpu_torch.ops.kernels.tf32x3 import stack_fragments
 from parallelwavegan_tpu_torch.ops.kernels.melgan_stack import (
     _MODES,
     _bias,
@@ -74,10 +77,11 @@ def melgan_stacks_backward(x, stacks, final, slope, pad_mode, dy):
     output; a bias that is None gets None.
 
     A CUDA tensor goes through K7 (the widths and pad modes of
-    ``fused_melgan_stacks``; float32, contiguous) and raises on anything it
-    does not take; ``melgan_stacks_backward.launches`` counts one per stack
-    and one for ``final``. K6 re-runs the stage from x first (counted in
-    ``fused_melgan_stacks.launches``). A CPU tensor goes through
+    ``fused_melgan_stacks``, stack and final kernels odd up to 7, the final
+    conv to at most 4 channels; float32, contiguous) and raises on anything
+    it does not take; ``melgan_stacks_backward.launches`` counts one per
+    stack and one for ``final``. K6 re-runs the stage from x first (counted
+    in ``fused_melgan_stacks.launches``). A CPU tensor goes through
     ``melgan_stacks_backward_reference``.
     """
     _pad_mode(pad_mode)
@@ -90,8 +94,15 @@ def melgan_stacks_backward(x, stacks, final, slope, pad_mode, dy):
     b, t, c = x.shape
     out_ch = c if final is None else final[0].shape[-1]
     build.check_tensor("dy", dy, x.device, (b, t, out_ch))
+    for i, st in enumerate(stacks):
+        if st["wd"].shape[0] > 7:
+            raise ValueError(f"stacks[{i}]: K7 takes kernel sizes up to 7")
+    if final is not None and (final[0].shape[0] > 7 or out_ch > 4):
+        raise ValueError("final: K7 takes kernel sizes up to 7 and at most 4 outputs")
     if not stacks and final is None:
         return dy, [], None
+    if dy.data_ptr() % 16:  # the stacks stage their rows in 16-byte pieces
+        dy = dy.clone()
     # the input of every stack and of the final conv, re-run through K6;
     # with the final conv its output y too (its backward reads 1 - y^2)
     xs = [x]
@@ -102,34 +113,31 @@ def melgan_stacks_backward(x, stacks, final, slope, pad_mode, dy):
     lib = build.load()
     dev, stream = build.launch_target(x)
     mode = _MODES[pad_mode][1]
-    pads = [(st["wd"].shape[0] - 1) // 2 * int(st["dilation"]) for st in stacks]
-    queries = [lib.query("melgan_stack_bwd_part_floats", b, t, c, st["wd"].shape[0])
-               for st in stacks]
+    queries = [lib.query("melgan_stack_bwd_part_floats", b, t, c, st["wd"].shape[0],
+                         int(st["dilation"])) for st in stacks]
     if final is not None:
         kf = final[0].shape[0]
-        pads.append((kf - 1) // 2)
         queries.append(lib.query("melgan_outconv_bwd_part_floats", b, t, c,
                                  out_ch, kf))
     if min(queries) < 0:
         raise ValueError(f"(B, T, C) = ({b}, {t}, {c}) needs too large a partial buffer")
     n_part = max(queries)
     part = torch.empty(n_part, device=x.device)
-    dxp = torch.empty(b * (t + 2 * max(pads)) * c, device=x.device)
     bufs = [torch.empty_like(x), torch.empty_like(x)]
     g, n_out = dy, 0
     dfinal = None
     if final is not None:
         fw, fb = final
         dw, db = torch.empty_like(fw), torch.empty(out_ch, device=x.device)
-        dpre = torch.empty_like(dy)
         lib.call("melgan_outconv_bwd", xs[-1].data_ptr(), y.data_ptr(),
-                 dy.data_ptr(), bufs[0].data_ptr(), dpre.data_ptr(), dxp.data_ptr(),
-                 part.data_ptr(), fw.data_ptr(), dw.data_ptr(), db.data_ptr(),
-                 n_part, b, t, c, out_ch, kf, mode, slope, dev, stream)
+                 dy.data_ptr(), bufs[0].data_ptr(), part.data_ptr(), fw.data_ptr(),
+                 dw.data_ptr(), db.data_ptr(), n_part, b, t, c, out_ch, kf, mode,
+                 slope, dev, stream)
         melgan_stacks_backward.launches += 1
         g, n_out = bufs[0], 1
         dfinal = (dw, None if fb is None else db)
     dz, h = torch.empty_like(x), torch.empty_like(x)
+    frags = stack_fragments(stacks) if stacks else []
     dstacks = [None] * len(stacks)
     for i in reversed(range(len(stacks))):
         st = stacks[i]
@@ -137,12 +145,10 @@ def melgan_stacks_backward(x, stacks, final, slope, pad_mode, dy):
         d = {k: torch.empty_like(st[k]) for k in ("wd", "w1", "ws")}
         d.update({k: torch.empty(c, device=x.device) for k in ("bd", "b1", "bs")})
         lib.call("melgan_stack_bwd", xs[i].data_ptr(), g.data_ptr(),
-                 dst.data_ptr(), dz.data_ptr(), h.data_ptr(), dxp.data_ptr(),
-                 part.data_ptr(), st["wd"].data_ptr(),
-                 _bias(st["bd"], c, x).data_ptr(), st["w1"].data_ptr(),
-                 st["ws"].data_ptr(), *(d[k].data_ptr() for k in STACK_KEYS),
-                 n_part, b, t, c, st["wd"].shape[0], int(st["dilation"]), mode,
-                 slope, dev, stream)
+                 dst.data_ptr(), dz.data_ptr(), h.data_ptr(), part.data_ptr(),
+                 frags[i].data_ptr(), _bias(st["bd"], c, x).data_ptr(),
+                 *(d[k].data_ptr() for k in STACK_KEYS), n_part, b, t, c,
+                 st["wd"].shape[0], int(st["dilation"]), mode, slope, dev, stream)
         melgan_stacks_backward.launches += 1
         dstacks[i] = {k: None if k[0] == "b" and st[k] is None else d[k]
                       for k in STACK_KEYS}

@@ -1,6 +1,8 @@
 """What the kernel sources compile to: per kernel, its SASS instruction
 count and its tensor-core (HMMA) and fused multiply-add (FFMA) counts, and,
-against a second source tree, which kernels' SASS is identical.
+against a second source tree, which kernels' SASS is identical;
+``resource_usage`` gives one source's registers and spills (``ptxas
+-v``) beside those counts.
 
 Needs nvcc and cuobjdump (the CUDA toolkit), so it runs where the card is:
     python -m parallelwavegan_tpu_torch.ops.kernels.sass [--against DIR]
@@ -75,6 +77,48 @@ def counts(instrs: list) -> str:
     n = {k: sum(op.startswith(k) for op in ops) for k in ("HMMA", "FFMA")}
     return (f"{len(instrs)} instructions, HMMA {n['HMMA']}"
             f"{' (' + ', '.join(hmma) + ')' if hmma else ''}, FFMA {n['FFMA']}")
+
+
+def short_name(mangled: str) -> str:
+    """A kernel's name and integer template arguments out of its mangled
+    name: ``_ZN..9dz_kernelILi128EEEv..`` -> ``dz_kernel<128>``."""
+    name = _cut_anon(mangled)
+    rest = name[len("_ZNANON"):] if name.startswith("_ZNANON") else name.lstrip("_Z")
+    m = re.match(r"(\d+)", rest)
+    if not m:
+        return mangled
+    n = int(m.group(1))
+    base, rest = rest[m.end():m.end() + n], rest[m.end() + n:]
+    args = re.match(r"ILi(\d+)E", rest)
+    return f"{base}<{args.group(1)}>" if args else base
+
+
+def resource_usage(source: str) -> dict:
+    """{kernel: {"registers", "spill_stores", "spill_loads" (bytes), "sass"
+    (``counts``)}} of one kernel source, compiled by itself with the flags
+    of ``build.py`` into a temporary cubin (nvcc and cuobjdump needed)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cubin = os.path.join(tmp, "k.cubin")
+        proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-cubin", "-o", cubin,
+                               source], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}{proc.stderr}")
+        out, entry = {}, None
+        for line in (proc.stdout + proc.stderr).splitlines():
+            m = re.search(r"entry function '(\w+)'", line)
+            if m:
+                entry = short_name(m.group(1))
+                out[entry] = {"registers": 0, "spill_stores": 0, "spill_loads": 0}
+            m = re.search(r"Used (\d+) registers", line)
+            if m and entry:
+                out[entry]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and entry:
+                out[entry]["spill_stores"] = int(m.group(1))
+                out[entry]["spill_loads"] = int(m.group(2))
+        for name, instrs in kernels_of(cubin).items():
+            out.setdefault(short_name(name), {})["sass"] = counts(instrs)
+    return out
 
 
 def main(argv=None) -> None:

@@ -1,12 +1,14 @@
 """Split TF32 on the host side: the rounding of csrc/mma_tf32x3.cuh and
-the weight layouts that the TADE kernels read (K9's chain kernel in
-csrc/tade_bwd.cu, K8a and K8b in csrc/tade.cu).
+the weight layouts that the kernels read (K9's chain kernel in
+csrc/tade_bwd.cu, K8a and K8b in csrc/tade.cu, K7's row products in
+csrc/melgan_stack_bwd.cu).
 
 A float32 value v is split into hi = tf32(v) and lo = tf32(v - hi), both
 TF32 (10 mantissa bits, rounded as ``cvt.rna``: to nearest, ties away
 from zero); a product is then a_lo.b_hi + a_hi.b_lo + a_hi.b_hi on the
-tensor cores. ``conv_fragments`` (a transposed conv's weights) and
-``forward_fragments`` (a forward kernel's three convs) split the weights
+tensor cores. ``conv_fragments`` (a transposed conv's weights),
+``forward_fragments`` (a forward kernel's three convs) and
+``stack_fragments`` (the MelGAN stacks' products) split the weights
 once per call and store them in the order in which ``mma.sync.m16n8k8``
 takes its B operand, so that the kernel loads a thread's (hi, lo) of both
 B registers with one 16-byte shared-memory load and splits only the
@@ -33,19 +35,23 @@ def split_tf32(v):
 
 
 def _fragments(wk):
-    """A (K, N) product operand, K and N multiples of 8, split and laid out
-    as the B operands of m16n8k8 TF32 products: (K / 8, N / 8, 32, 4),
-    entry [ks, nt, lane] = (hi, lo of wk[8 ks + 2 tig, 8 nt + gid], hi, lo
-    of wk[8 ks + 2 tig + 1, 8 nt + gid]) with lane = 4 gid + tig. Logical
-    depth k = tig of a k-step is row 2 tig and k = tig + 4 row 2 tig + 1
-    (the kernels read their A operand's channels in the same pairs)."""
-    k, n = wk.shape
+    """A (..., K, N) product operand (a stack of them), K and N multiples
+    of 8, split and laid out as the B operands of m16n8k8 TF32 products:
+    (..., K / 8, N / 8, 32, 4), entry [ks, nt, lane] = (hi, lo of wk[8 ks
+    + 2 tig, 8 nt + gid], hi, lo of wk[8 ks + 2 tig + 1, 8 nt + gid]) with
+    lane = 4 gid + tig. Logical depth k = tig of a k-step is row 2 tig and
+    k = tig + 4 row 2 tig + 1 (the kernels read their A operand's channels
+    in the same pairs)."""
+    *lead, k, n = wk.shape
+    d = len(lead)
 
     def arrange(x):  # (ks, tig, pair, nt, gid) -> (ks, nt, gid, tig, pair)
-        return x.reshape(k // 8, 4, 2, n // 8, 8).permute(0, 3, 4, 1, 2)
+        return x.reshape(*lead, k // 8, 4, 2, n // 8, 8).permute(
+            *range(d), d, d + 3, d + 4, d + 1, d + 2)
 
     hi, lo = split_tf32(wk)
-    return torch.stack([arrange(hi), arrange(lo)], dim=-1).reshape(k // 8, n // 8, 32, 4)
+    return torch.stack([arrange(hi), arrange(lo)], dim=-1).reshape(
+        *lead, k // 8, n // 8, 32, 4)
 
 
 def conv_fragments(w):
@@ -87,3 +93,21 @@ def forward_fragments(aux_w, g_w, gc_w):
                     _pair_columns(gc_w.detach())], dim=1)
     f = _fragments(wk)  # (72, 40, 32, 4)
     return f.reshape(f.shape[0], 5, 8, 32, 4).transpose(0, 1).contiguous()
+
+
+def stack_fragments(stacks):
+    """The products of MelGAN ResidualStacks of one width C (gather-form
+    ``wd`` (K, C, C), ``w1`` and ``ws`` (1, C, C), C a multiple of 16) as
+    K7 takes them, one tensor per stack: its 2K + 2 matrices Wd[k] (z),
+    W1^T (dh = g . W1^T), Wd[k]^T (the transposed conv) and Ws^T (g . Ws^T)
+    in ``_fragments``' layout, (2K + 2, C / 8, C / 8, 32, 4). All stacks are
+    split in one pass. What csrc/melgan_stack_bwd.cu takes."""
+    mats = []
+    for st in stacks:
+        wd, w1, ws = (st[k].detach() for k in ("wd", "w1", "ws"))
+        if wd.shape[1] % 16 or wd.shape[1:] != wd.shape[1:][::-1]:
+            raise ValueError(f"stack_fragments needs square widths of multiples of 16, "
+                             f"got {tuple(wd.shape)}")
+        mats += [wd, w1.transpose(1, 2), wd.transpose(1, 2), ws.transpose(1, 2)]
+    f = _fragments(torch.cat(mats))
+    return list(f.split([2 * st["wd"].shape[0] + 2 for st in stacks]))

@@ -516,6 +516,31 @@ def test_melgan_stacks_backward_matches_plain_version(cuda, c, b, t, mode, out_c
     _assert_grads_close([(n, g, r) for (n, g), (_, r) in zip(got, want)], strict=True)
 
 
+# kernel sizes 5 and 7: weight-gradient jobs of one to three taps (a
+# dilation past a staged step's 64 rows takes one tap a job), a padding
+# wider than a row tile (the fold over several tiles) and, in replicate,
+# wider than T
+@pytest.mark.parametrize("c,t,k,dils,mode,out_ch", [
+    (128, 500, 5, (1, 70), "reflect", None),
+    (64, 300, 7, (2, 30), "edge", 1),
+    (32, 90, 7, (40,), "edge", 4),
+])
+def test_melgan_stacks_backward_wide_kernels(cuda, c, t, k, dils, mode, out_ch):
+    from parallelwavegan_tpu_torch.ops.kernels import melgan_stack_train as k7
+
+    stacks, final, x, dy = _k7_case(cuda, c, 2, t, out_ch, True, dils)
+    rs = np.random.RandomState(k)
+    for st in stacks:
+        st["wd"] = torch.from_numpy(
+            (rs.randn(k, c, c) * 0.5 / (k * c) ** 0.5).astype(np.float32)).to(cuda)
+    got = k7.melgan_stacks_backward(x, stacks, final, 0.2, mode, dy)
+    torch.cuda.synchronize()
+    want = k7.melgan_stacks_backward_reference(x, stacks, final, 0.2, mode, dy)
+    got, want = _k7_grads(*got), _k7_grads(*want)
+    assert [n for n, _ in got] == [n for n, _ in want]
+    _assert_grads_close([(n, g, r) for (n, g), (_, r) in zip(got, want)], strict=True)
+
+
 def test_melgan_stacks_backward_is_deterministic(cuda):
     from parallelwavegan_tpu_torch.ops.kernels.melgan_stack_train import (
         melgan_stacks_backward,

@@ -126,7 +126,7 @@ def test_library_hash_covers_every_source(tmp_path):
     base = build.source_digest(srcs)
     assert base == build.source_digest(build.sources())
     headers = sorted(str(p) for p in csrc.glob("*.cuh"))
-    assert headers  # the row products K4 and K7 share
+    assert headers  # the split-TF32 blocks and TADE pieces the kernels share
     for path in srcs + headers:  # an edit of any one source or header changes it
         text = open(path).read()
         with open(path, "w") as f:
