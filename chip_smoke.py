@@ -18,10 +18,17 @@ Phases (any failure exits non-zero; nothing is caught):
    utterance) and again with the tail off; the two must agree to 2e-4.
 4. The WaveNet layer kernel against its plain version at Parallel WaveGAN
    v1 widths (residual 64, gate 128, skip 64, aux 80): one dilation cycle
-   (1..512) at B=1, T=131072 (512 frames) with CUDA-event times, a ragged
-   cycle (B=2, T=1000, the d=512 halo past both ends), and single layers
-   (K5) at the main path's shapes, non-causal d=1 and d=512 at T=131072
-   (timed at d=1), and non-causal d=1 and causal d=4 at T=777.
+   (1..512) at B=1, T=131072 (512 frames) with CUDA-event times (with the
+   weights' split that decode keeps, and splitting per call) beside its
+   bounds at the split-TF32 and float32 rates, a ragged cycle (B=2,
+   T=1000, the d=512 halo past both ends), and single layers (K5) at the
+   main path's shapes, non-causal d=1 and d=512 at T=131072 (timed at
+   d=1), and non-causal d=1 and causal d=4 at T=777; each within 2e-4 and
+   1e-4 max|plain|, two runs bit for bit, with a neighbouring layer's
+   split and (for the cycles) the columns unpaired as controls that the
+   check must reject; a torch.profiler split of one cycle (the layers
+   apart from the weight split), and the kernel's registers, spills and
+   SASS counts (``ops/kernels/sass.py``).
 5. The split of the Parallel WaveGAN v1 forward at 512 frames: upsample
    net, the 30 layers with and without the kernel, the last convs, and the
    whole forward with and without it.
@@ -152,8 +159,9 @@ power limit from nvidia-smi, and {"ok": true, "device": {...}}. Every
 bound in the record is the larger of the bytes each call must move (each
 input read once, each output written once) over 3.35 TB/s and its float32
 operations over 67 TFLOP/s, the H100 SXM data-sheet peaks at 700 W; for
-the kernels that multiply in split TF32 on the tensor cores (K4, K7, K8, K9),
-three TF32 operations per multiply-add's two over 495 TFLOP/s instead.
+the kernels that multiply in split TF32 on the tensor cores (K3, K4, K5,
+K7, K8, K9), three TF32 operations per multiply-add's two over 495 TFLOP/s
+instead.
 """
 
 from __future__ import annotations
@@ -643,10 +651,17 @@ def _pwg_v1(flags: dict):
 
 
 def phase_wavenet(card: str) -> dict:
-    """The WaveNet layer kernel (K3 stack, K5 block) vs its plain version."""
+    """The WaveNet layer kernel (K3 stack, K5 block) vs its plain version,
+    max|diff| <= 2e-4 and <= 1e-4 max|plain|, with controls that the check
+    must reject (a neighbouring layer's split, the columns unpaired), two
+    runs bit for bit, the bounds at the split-TF32 and float32 rates, the
+    kernels' registers and SASS counts, and a profiler split of one cycle
+    whose call splits its weights."""
     import numpy as np
     import torch
 
+    from parallelwavegan_tpu_torch.ops.kernels import build, sass, tf32x3
+    from parallelwavegan_tpu_torch.ops.kernels.time_melgan import by_kernel
     from parallelwavegan_tpu_torch.ops.kernels.wavenet import (
         WEIGHT_KEYS,
         fused_gated_resblock,
@@ -657,8 +672,9 @@ def phase_wavenet(card: str) -> dict:
 
     gen = _pwg_v1({})
     n = V1_PWG_GENERATOR["layers"] // V1_PWG_GENERATOR["stacks"]
-    all_weights, all_dilations = gen.stack_weights()
-    weights = {k: v[:n] for k, v in all_weights.items()}  # the first cycle
+    all_weights, all_dilations = gen._kernel_cache["stack"]  # with decode's split
+    kept = {k: v[:n] for k, v in all_weights.items()}  # the first cycle
+    weights = {k: kept[k] for k in WEIGHT_KEYS}
     dilations = all_dilations[:n]
     rs = np.random.RandomState(SEED)
 
@@ -667,37 +683,85 @@ def phase_wavenet(card: str) -> dict:
         c = torch.from_numpy(rs.randn(b, t, 80).astype(np.float32)).to("cuda")
         return x, c
 
-    def check(name, got, want):
+    def err_of(got, want):
         for g, r in zip(got, want):
             if g.shape != r.shape or not torch.isfinite(g).all():
-                _fail(f"{name}: shapes {tuple(g.shape)} vs {tuple(r.shape)} "
-                      "or non-finite kernel output")
-        err = max(float((g - r).abs().max()) for g, r in zip(got, want))
+                _fail(f"shapes {tuple(g.shape)} vs {tuple(r.shape)} or non-finite "
+                      "kernel output")
+        return (max(float((g - r).abs().max()) for g, r in zip(got, want)),
+                min(float(r.abs().max()) for r in want))
+
+    def check(name, got, want):
+        err, peak = err_of(got, want)
         print(f"kernel vs plain [{name}]: max|diff| (x_out, skip) = {err:.3e} "
-              f"(tol {TOL})")
-        if not err <= TOL:
+              f"(tol {TOL}), {err / peak:.2e} of max|plain| (tol 1e-4)")
+        if not (err <= TOL and err <= 1e-4 * peak):
             _fail(f"{name}: kernel disagrees with its plain version")
         return err
+
+    def rejected(name, got, want):
+        err, peak = err_of(got, want)
+        print(f"K3 check control [{name}]: max|diff| = {err:.3e}, "
+              f"{err / peak:.2e} of max|plain|: rejected = "
+              f"{not (err <= TOL and err <= 1e-4 * peak)}")
+        if err <= TOL and err <= 1e-4 * peak:
+            _fail(f"phase 4's check accepts the kernel on {name}")
 
     stack, block = {"errs": []}, {"errs": []}
     with torch.inference_mode():
         for name, (b, t) in (("v1 cycle", (1, 131072)), ("ragged", (2, 1000))):
             x, c = inputs(b, t)
-            got = fused_wavenet_stack(x, c, weights, dilations)
+            got = fused_wavenet_stack(x, c, kept, dilations)
             torch.cuda.synchronize()
             want = wavenet_stack_reference(x, c, weights, dilations)
             stack["errs"].append(check(f"stack {name} B={b} T={t}", got, want))
+            again = fused_wavenet_stack(x, c, kept, dilations)
+            fresh = fused_wavenet_stack(x, c, weights, dilations)  # split per call
+            same = all(torch.equal(g, a) and torch.equal(g, f)
+                       for g, a, f in zip(got, again, fresh))
+            print(f"K3 determinism [{name}]: two runs, and a run that splits its "
+                  f"weights, bitwise equal = {same}")
+            if not same:
+                _fail(f"K3 gives different outputs in two runs ({name})")
+            frag = kept["frag"]
+            rejected(f"{name}, layer l reads layer l + 1's split", fused_wavenet_stack(
+                x, c, dict(weights, frag=frag.roll(-1, dims=0)), dilations), want)
+            unpaired = tf32x3._fragments(tf32x3.wavenet_matrix(weights))
+            rejected(f"{name}, the columns unpaired", fused_wavenet_stack(
+                x, c, dict(weights, frag=unpaired), dilations), want)
             if name == "v1 cycle":
                 stack["ms"] = _median_ms(
+                    lambda: fused_wavenet_stack(x, c, kept, dilations))
+                stack["split_per_call_ms"] = _median_ms(
                     lambda: fused_wavenet_stack(x, c, weights, dilations))
                 stack["plain_ms"] = _median_ms(
                     lambda: wavenet_stack_reference(x, c, weights, dilations))
                 stack.update(_wavenet_work(x, c, weights))
+                fp32_ms = _split_tf32_bound(stack)
                 print(f"time [stack, one v1 cycle of 10 layers, B=1 T=131072, "
-                      f"median of 10, CUDA events]: kernel {stack['ms']:.3f} ms, "
-                      f"plain {stack['plain_ms']:.3f} ms, bound "
-                      f"{stack['bound_ms']:.3f} ms ({stack['flops'] / 1e9:.1f} "
-                      f"GFLOP, {stack['bytes'] / 1e6:.1f} MB) on {card}")
+                      f"median of 10, CUDA events]: kernel {stack['ms']:.3f} ms "
+                      f"(split kept, as decode), {stack['split_per_call_ms']:.3f} ms "
+                      f"splitting the weights per call, plain "
+                      f"{stack['plain_ms']:.3f} ms, bound {stack['bound_ms']:.3f} ms at "
+                      f"the split-TF32 rate (3 x {stack['flops'] / 1e9:.1f} GFLOP / 495 "
+                      f"TFLOP/s; {stack['bound_ms'] / stack['ms']:.1%} of it), "
+                      f"{fp32_ms:.3f} ms at the float32 CUDA-core rate "
+                      f"({stack['bytes'] / 1e6:.1f} MB) on {card}")
+                from torch.profiler import ProfilerActivity, profile
+
+                fused_wavenet_stack(x, c, weights, dilations)
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    fused_wavenet_stack(x, c, weights, dilations)
+                    torch.cuda.synchronize()
+                split = by_kernel(prof)
+                layer_ms = sum(ms for k, (ms, _) in split.items()
+                               if k.startswith("wavenet_layer_kernel"))
+                total = sum(ms for ms, _ in split.values())
+                print(f"K3 one v1 cycle splitting its weights, device time by kernel "
+                      f"(torch.profiler): layers {layer_ms:.3f} ms, the weight split "
+                      f"{total - layer_ms:.3f} ms on {card}: "
+                      + "; ".join(f"{k} {ms:.3f} ms ({m} launches)"
+                                  for k, (ms, m) in split.items()))
 
         # K5 on the main path (use_pallas_kernels decode) runs non-causal
         # layers d=1..512 at T up to 131072; the causal case is extra
@@ -705,23 +769,37 @@ def phase_wavenet(card: str) -> dict:
                               (0, 777, False), (2, 777, True)):
             d = dilations[li]
             args = [weights[k][li] for k in WEIGHT_KEYS]
+            frag = kept["frag"][li]
             x, c = inputs(1, t)
-            got = fused_gated_resblock(x, c, *args, dilation=d, causal=causal)
+            got = fused_gated_resblock(x, c, *args, dilation=d, causal=causal,
+                                       fragments=frag)
             torch.cuda.synchronize()
             want = gated_resblock_reference(x, c, *args, dilation=d, causal=causal)
             block["errs"].append(check(f"block d={d} causal={causal} B=1 T={t}",
                                        got, want))
+            again = fused_gated_resblock(x, c, *args, dilation=d, causal=causal)
+            if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                _fail(f"K5 gives different outputs in two runs (d={d})")
+            rejected(f"block d={d}, the next layer's split", fused_gated_resblock(
+                x, c, *args, dilation=d, causal=causal,
+                fragments=kept["frag"][(li + 1) % n]), want)
             if (t, d) == (131072, 1):
-                block["ms"] = _median_ms(
-                    lambda: fused_gated_resblock(x, c, *args, dilation=d))
+                block["ms"] = _median_ms(lambda: fused_gated_resblock(
+                    x, c, *args, dilation=d, fragments=frag))
                 block["plain_ms"] = _median_ms(lambda: gated_resblock_reference(
                     x, c, *args, dilation=d, causal=False))
                 block.update(_wavenet_work(
                     x, c, {k: weights[k][li:li + 1] for k in WEIGHT_KEYS}))
+        fp32_ms = _split_tf32_bound(block)
         print(f"time [block, one v1 layer d=1, B=1 T=131072, median of 10, CUDA "
               f"events]: kernel {block['ms']:.3f} ms, plain "
-              f"{block['plain_ms']:.3f} ms, bound {block['bound_ms']:.3f} ms on "
-              f"{card}")
+              f"{block['plain_ms']:.3f} ms, bound {block['bound_ms']:.3f} ms at the "
+              f"split-TF32 rate ({block['bound_ms'] / block['ms']:.1%} of it), "
+              f"{fp32_ms:.3f} ms at the float32 rate on {card}")
+    for kernel, use in sass.resource_usage(os.path.join(build.CSRC, "wavenet.cu")).items():
+        print(f"K3/K5 {kernel}: {use.get('registers')} registers, spill stores "
+              f"{use.get('spill_stores')} B, loads {use.get('spill_loads')} B; "
+              f"SASS {use.get('sass')}")
     return {"stack": stack, "block": block}
 
 
@@ -1400,6 +1478,7 @@ def phase_k4(card: str) -> dict:
     from parallelwavegan_tpu_torch.ops.kernels.wavenet import (
         WEIGHT_KEYS,
         wavenet_stack_reference,
+        with_fragments,
     )
     from parallelwavegan_tpu_torch.ops.kernels.wavenet_train import (
         fused_wavenet_cycle_train,
@@ -1479,7 +1558,9 @@ def phase_k4(card: str) -> dict:
 
     x, c = randn(6, 25600, 64), randn(6, 25600, 80)
     dxo, dsk = randn(6, 25600, 64) * 1e-3, randn(6, 25600, 64) * 1e-3
-    chunks = [({k: v[s:s + 5] for k, v in weights.items()}, dils[s:s + 5])
+    # with the weights' split for K3's re-run that a training forward makes
+    # and its backward reuses (wavenet_stack_train)
+    chunks = [(with_fragments({k: v[s:s + 5] for k, v in weights.items()}), dils[s:s + 5])
               for s in (0, 5)]
     first = wavenet_stack_backward(x, c, *chunks[0], dxo, dsk)
     second = wavenet_stack_backward(x, c, *chunks[0], dxo, dsk)

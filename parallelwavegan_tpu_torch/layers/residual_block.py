@@ -76,15 +76,16 @@ class WaveNetResidualBlock(nn.Module):
     def forward(self, x: torch.Tensor, c: torch.Tensor | None,
                 weights: dict | None = None):
         """``weights``: this block's ``gather_weights()``, prepared once
-        for decode; the fused path gathers them itself when not given,
-        in the autograd graph when gradients are on."""
+        for decode (with the kernel's split ``frag`` on the card); the fused
+        path gathers them itself when not given, in the autograd graph when
+        gradients are on."""
         if self.use_fused and c is not None:
             x = F.dropout(x, p=self.dropout, training=self.training)
             w = weights or self.gather_weights(torch.is_grad_enabled())
             r, s = fused_gated_resblock(
                 x.transpose(1, 2).contiguous(), c.transpose(1, 2).contiguous(),
                 *(w[k] for k in WEIGHT_KEYS), dilation=self.dilation,
-                causal=self.use_causal_conv)
+                causal=self.use_causal_conv, fragments=w.get("frag"))
             return r.transpose(1, 2), s.transpose(1, 2)
         residual = x
         x = F.dropout(x, p=self.dropout, training=self.training)

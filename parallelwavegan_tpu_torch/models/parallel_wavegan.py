@@ -62,6 +62,7 @@ from parallelwavegan_tpu_torch.layers.upsample import (
 from parallelwavegan_tpu_torch.ops.kernels.wavenet import (
     WEIGHT_KEYS,
     fused_wavenet_stack,
+    with_fragments,
 )
 from parallelwavegan_tpu_torch.ops.kernels.wavenet_train import (
     fused_wavenet_cycle_train,
@@ -223,16 +224,22 @@ class ParallelWaveGANGenerator(nn.Module):
                 tuple(blk.dilation for blk in self.conv_layers))
 
     def prepare_kernels(self) -> None:
-        """Gather the kernel weights once, for decode. Call it after the
+        """Gather the kernel weights once, for decode, and on the card split
+        them once for K3/K5 (``wavenet.with_fragments``). Call it after the
         weights are loaded, folded and on their device; loading weights or
         moving the module afterwards drops them again."""
+
+        def split(w):
+            return with_fragments(w) if w["wconv"].is_cuda else w
+
         self._kernel_cache = None
         if self.use_stack:
-            self._kernel_cache = {"stack": self.stack_weights(), "blocks": None}
+            weights, dilations = self.stack_weights()
+            self._kernel_cache = {"stack": (split(weights), dilations), "blocks": None}
         elif self.conv_layers[0].use_fused:
             self._kernel_cache = {
                 "stack": None,
-                "blocks": [blk.gather_weights() for blk in self.conv_layers],
+                "blocks": [split(blk.gather_weights()) for blk in self.conv_layers],
             }
 
     def remove_weight_norm(self) -> None:

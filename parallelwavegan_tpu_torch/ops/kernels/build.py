@@ -46,9 +46,9 @@ _SIGNATURES = {
     "hifigan_deconv": [_P] * 4 + [_I] * 8 + [_F, _I, _P],
     # x, y, w, b, B, T, Cin, Cout, K, slope, device, stream
     "hifigan_outconv": [_P] * 4 + [_I] * 5 + [_F, _I, _P],
-    # x, c, x_out, skip, wconv, bconv, waux, wskip, bskip, wres, bres, B, T,
-    # C, Ca, K, dil, causal, accumulate, device, stream
-    "wavenet_layer": [_P] * 11 + [_I] * 9 + [_P],
+    # x, c, x_out, skip, wf, bconv, bskip, bres, B, T, C, Ca, K, dil, causal,
+    # accumulate, device, stream
+    "wavenet_layer": [_P] * 8 + [_I] * 9 + [_P],
     # x, c, dxo, dsk, dx, dc, dz, g, part, wconv, bconv, waux, wskip, wres,
     # dwconv, dbconv, dwaux, dwskip, dbskip, dwres, dbres, part_floats, B, T,
     # C, Ca, K, dil, accumulate_dc, device, stream

@@ -151,6 +151,17 @@ __device__ __forceinline__ void mma3_first(float (&d)[4], const FragA& a, const 
   mma(d, a.hi, b.hi);
 }
 
+// acc += a.b at float32 accuracy, the k-step's three products formed from
+// zero and added into acc in float32: no chain that the tensor cores
+// round toward zero is longer than one k-step. Four FADDs more than mma3,
+// for accumulators that have no float32 totals beside them.
+__device__ __forceinline__ void mma3_add(float (&acc)[4], const FragA& a, const FragB& b) {
+  float d[4];
+  mma3_first(d, a, b);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += d[e];
+}
+
 __device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
 
 // A[m][k] = s[m * ld + k] (rows of an operand tile; ld 4 mod 32)

@@ -1,4 +1,5 @@
-// Fused WaveNet gated residual layer for Hopper (sm_90a), float32.
+// Fused WaveNet gated residual layer for Hopper (sm_90a), float32 in and
+// out, every product on the tensor cores in split TF32.
 //
 // Replaces two Pallas TPU kernels of the JAX package:
 //   parallelwavegan_tpu/ops/pallas_kernels/wavenet_stack.py:199
@@ -9,7 +10,7 @@
 // One launch computes one layer, in the channel-last (B, T, C) layout of
 // the JAX package, for every row t of every batch item:
 //   z     = sum_k x[t + k*dil - left] . Wconv[k] + bconv + c[t] . Waux
-//   g     = tanh(z[:, :H]) * sigmoid(z[:, H:])
+//   g     = tanh(z[:, :C]) * sigmoid(z[:, C:])
 //   skip  = g . Wskip + bskip            (added to skip when accumulating)
 //   x_out = (g . Wres + bres + x[t]) * sqrt(1/2)
 // with rows of x outside [0, T) read as zero at every layer, as the JAX
@@ -23,72 +24,104 @@
 // gate 128, skip 64, aux 80, K = 3) one layer takes 3*64*128 + 80*128 +
 // 64*64 + 64*64 = 43,008 multiply-adds per sample, against 4 * (64 + 80
 // + 64 + 64) = 1,088 bytes of activations in and out: about 79 FLOP per
-// byte, far above the card's float32 balance point (67 TFLOP/s over
-// 3.35 TB/s = 20). One 10-layer cycle at 512 frames (T = 131,072) is
-// 112.7 GFLOP, at least 1.68 ms on the CUDA cores, against 0.04 ms for
-// the bytes a fused cycle must move, and 1.6 ms per decode even for the
-// per-layer round trips of this design. So it is bound by FMA issue and
-// by the shared-memory loads that feed it. The products are FFMA:
-// one TF32 product per multiply missed the 1e-4 max|plain| agreement with
-// the float32 reference in K4 on the card (4.6e-4 to 1.3e-3 of max|plain|
-// at v1 shapes; PERF.md), where split TF32 on the tensor cores held
-// it within 1e-5; this kernel's products are of the same kind, and split
-// TF32 is untried here.
+// byte. One 10-layer cycle at 512 frames (T = 131,072) is 112.7 GFLOP:
+// 1.68 ms on the CUDA cores at their float32 peak, 0.68 ms on the tensor
+// cores in split TF32 (three TF32 products per multiply at 495 TFLOP/s),
+// against about 0.53 ms for the bytes of the per-layer round trips. So it
+// is bound by arithmetic. Every product runs on the tensor cores in split
+// TF32 (csrc/mma_tf32x3.cuh: v = hi + lo, a.b = a_lo.b_hi + a_hi.b_lo +
+// a_hi.b_hi, three mma.sync.m16n8k8 into float32), which keeps float32's
+// accuracy where one TF32 product per multiply missed the 1e-4 max|plain|
+// agreement in K4, K8 and K9 (PERF.md;
+// tests/test_torch_port_wavenet_fwd_tf32x3.py holds this decomposition
+// to the float32 reference on the CPU). No product is left on FFMA: the
+// kernel's FFMAs are those of tanhf and expf in the gate.
 //
-// What the design does about it:
+// What the design does about it (the patterns of K7, K8 and K9):
 //  - The TPU kernel keeps a whole cycle resident with a 1,023-row halo
 //    per side; a 64-channel float32 tile with that halo does not fit a
 //    block's 227 KB of shared memory, so a cycle here is one launch per
 //    layer. The TPU's 128-lane channel padding and its small-dilation
 //    XLA fallback are layout rules of that chip and are not carried
 //    over.
-//  - A block owns TT rows of one batch item. Both products of the layer
-//    are (TT x depth) . (depth x 2H) with 2H = 128 output columns: the
-//    gate pre-activation over depth K*C + Ca = 272, then [skip | res]
-//    over the H = 64 gated channels. Each thread holds 16 rows x 4
-//    columns in registers. Its four columns are a pair of tanh columns
-//    and the matching pair of sigmoid columns, so the gate is applied
-//    in registers; the [skip | res] pair is chosen the same way.
-//  - The reduction is streamed in chunks of 32 input channels (of one
-//    tap of x, or of c): the activation rows of the chunk and the
-//    weight rows, permuted into the thread's column order while they
-//    are copied, go through shared memory double-buffered with
-//    cp.async, so that the next chunk's loads run under this chunk's
-//    FMAs. Rows outside [0, T) are written as zeros instead of copied.
-//    Each FMA step reads four input channels of one row as a float4
-//    broadcast and the weights as one float4 per thread. The block is
-//    held to 128 registers a thread (no spills) so that two blocks share
-//    an SM: at 142 registers only one fitted, and a v1 cycle took 4.6 ms
-//    instead of 3.7 on an H100 (chip_smoke.py).
-//  - g stays in shared memory (over the dead activation buffers) for
-//    the second product; skip and x_out are written once, and skip is
-//    read-modified-written by the one thread that owns each element,
-//    so there are no atomics.
-// Blocks share nothing and carry nothing from tile to tile.
+//  - The wrapper splits the weights once (ops/kernels/tf32x3.py
+//    wavenet_fragments; decode keeps the split, training makes it once
+//    per forward and K4's re-run reuses it) into TF32 hi and lo in the mma
+//    B fragments' own order: one 16-byte shared load gives a thread (hi,
+//    lo) of both B registers, with no split. Both products have 2C
+//    columns, so the gate's [Wconv[0..K-1]; Waux] and [Wskip | Wres] are
+//    one fragment tensor of depth K C + Ca8 + C (Ca zero-padded to a
+//    multiple of 8), streamed in chunks of 32 rows (16 at C = 16) through
+//    a two-stage cp.async ring.
+//  - The columns are paired: in each 8-column tile a thread holds channel
+//    j's tanh column beside its sigmoid column (and skip_j beside res_j),
+//    and in the next tile channel j + 1. The gate is applied on the
+//    accumulators, and the epilogue writes skip and x_out as float pairs.
+//  - A warp owns 32 rows x 64 columns (2 x 8 tiles; at C = 16 all 32
+//    columns), so each B fragment feeds two m-tiles and each A fragment
+//    eight n-tiles. 8 warps cover 128 rows at C = 64 (256 at C = 16).
+//  - Each tap's rows of x (and c's rows) are staged as a chunk of their own
+//    by cp.async, zeros outside [0, T) and past Ca from its zero fill (4-
+//    byte copies where Ca or c's address is not a multiple of 16 bytes,
+//    chosen per call), rows 8 mod 32 floats apart, and split where a
+//    fragment is loaded (an 8-byte load of the channel pair that logical
+//    k = tig, tig + 4 reads). A window with the taps' halo would be
+//    staged once at small dilations but does not fit beside the ring
+//    once the dilation reaches a few dozen rows, and the taps' re-read
+//    rows come from L2: one layer at d = 1 runs no faster than the
+//    cycle's mean layer (PERF.md §6, PR 12). Splitting each staged
+//    chunk once into (hi, lo) planes would double the operand buffers and
+//    cost the second block per SM.
+//  - The tensor cores round their accumulation toward zero. At 64
+//    accumulators a thread, per-tap float32 totals beside them (as K8
+//    keeps them) would cost the second block per SM; instead each k-step's
+//    three products are formed from zero and added into the float32
+//    accumulators (mma3_add), so no rounded chain is longer than one
+//    k-step.
+//  - g = tanh(z_t) sigmoid(z_s) is written once into shared memory over
+//    the operand buffers (dead by then: the ring's last chunks are weights
+//    only) and multiplied by [Wskip | Wres] from there. skip is
+//    read-modified-written by the one thread that owns each element, so
+//    there are no atomics.
+//  - Two blocks of 104 KB share an SM at C = 64, held to 128 registers a
+//    thread.
+// Blocks share nothing and carry nothing from tile to tile, and every sum
+// is taken in a fixed order: two runs give the same bits.
 
-#include <cuda_pipeline.h>
-#include <cuda_runtime.h>
-#include <stddef.h>
+#include <stdint.h>
+
+#include "mma_tf32x3.cuh"
 
 namespace {
 
+using namespace tf32x3;
+
 constexpr int kThreads = 256;
-constexpr int kRows = 16;  // rows per thread
+constexpr int kWarps = kThreads / 32;
+constexpr int kStages = 2;
 constexpr float kSqrtHalf = 0.70710678118654752f;
 constexpr size_t kMaxSmem = 227 * 1024;
 
-// Thread map for H = CH gated channels (residual = skip = CH, gate = 2*CH):
-// G threads across channel pairs, R row groups, TT rows per tile, CW
-// input channels per streamed chunk, N = 2*CH staged output columns.
+// The block's shape at residual width CH (gate 2 CH, skip = residual = CH).
 template <int CH>
-struct WMap {
-  static constexpr int G = CH / 2;
-  static constexpr int R = kThreads / G;
-  static constexpr int TT = R * kRows;
-  static constexpr int CW = CH < 32 ? CH : 32;
-  static constexpr int N = 2 * CH;
-  static_assert(kThreads % G == 0 && CH % CW == 0 && CW % 4 == 0, "width");
-  static_assert(2 * CW >= CH, "g (TT x CH) must fit the activation buffers");
+struct Geo {
+  static constexpr int kN = 2 * CH;                  // columns of both products
+  static constexpr int kNT = kN / 8;                 // their 8-column tiles
+  static constexpr int kWN = kNT < 8 ? kNT : 8;      // tiles of a warp
+  static constexpr int kWC = kNT / kWN;              // warps across the columns
+  static constexpr int kWR = kWarps / kWC;           // warps down the rows
+  static constexpr int kTT = 32 * kWR;               // rows of a tile
+  static constexpr int kKC = CH < 32 ? CH : 32;      // depth of a chunk
+  static constexpr int kKS = kKC / 8;                // its k-steps
+  static constexpr int kPerTap = CH / kKC;           // chunks of one tap
+  static constexpr int kLdA = kKC + 8;               // staged row stride, 8 or 24 mod 32
+  static constexpr int kLdG = CH + 8;                // g's row stride, 8 or 24 mod 32
+  static constexpr int kAF = kTT * kLdA;             // floats of an operand chunk
+  static constexpr int kStepF = kNT * 128;           // floats of one k-step's weights
+  static constexpr int kBF = kKS * kStepF;           // of a weight chunk
+  static constexpr size_t kSmem = sizeof(float) * kStages * (kAF + kBF);
+  static_assert(kWN % 2 == 0 && kNT % kWN == 0 && kWarps % kWC == 0, "warp map");
+  static_assert(kTT * kLdG <= kStages * kAF, "g must fit the operand buffers");
 };
 
 struct Layer {
@@ -96,241 +129,230 @@ struct Layer {
   const float* c;      // (B, T, Ca)
   float* x_out;        // (B, T, CH)
   float* skip;         // (B, T, CH)
-  const float* wconv;  // (K, CH, 2CH)
+  const float* wf;     // ((K CH + Ca8 + CH) / 8, CH / 4, 32, 4), fragment order
   const float* bconv;  // (2CH)
-  const float* waux;   // (Ca, 2CH)
-  const float* wskip;  // (CH, CH)
   const float* bskip;  // (CH)
-  const float* wres;   // (CH, CH)
   const float* bres;   // (CH)
   int T, Ca, K, dil, left, accumulate;
 };
 
-// dst[j][4g .. 4g+1] = a[j][2g .. 2g+1], dst[j][4g+2 .. 4g+3] = b[j][2g ..
-// 2g+1] for the CW rows j of a chunk; rows j >= valid are zero.
-template <int CH>
-__device__ __forceinline__ void stage_pairs(float* dst, const float* a,
-                                            const float* b, int stride,
-                                            int valid) {
-  using M = WMap<CH>;
-  for (int e = threadIdx.x; e < M::CW * CH; e += kThreads) {
-    const int j = e / CH, h = e % CH;  // h: 2 * pair + which
-    const int g = h >> 1, which = h & 1;
-    float* d = dst + j * M::N + 4 * g + 2 * which;
-    if (j < valid) {
-      __pipeline_memcpy_async(d, (which ? b : a) + (size_t)j * stride + 2 * g, 8);
-    } else {
-      d[0] = 0.f;
-      d[1] = 0.f;
-    }
-  }
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
 }
 
-// Start copying chunk idx of the gate product: the activation rows (TT x
-// CW, row-major) and the weight rows (CW x N, thread column order), as
-// one cp.async group. Chunks 0 .. K*CH/CW - 1 are taps of x, the rest
-// are channels of c.
-template <int CH>
-__device__ __forceinline__ void stage_gate_chunk(const Layer& p, int b, int t0,
-                                                 int idx, float* a_dst,
-                                                 float* w_dst) {
-  using M = WMap<CH>;
-  constexpr int kPerTap = CH / M::CW;
-  const int n_x = p.K * kPerTap;
-  if (idx < n_x) {
-    const int k = idx / kPerTap;
-    const int c0 = (idx % kPerTap) * M::CW;
-    const int base = t0 + k * p.dil - p.left;
-    const float* xb = p.x + (size_t)b * p.T * CH + c0;
-    for (int e = threadIdx.x; e < M::TT * (M::CW / 4); e += kThreads) {
-      const int row = e / (M::CW / 4), q = (e % (M::CW / 4)) * 4;
-      const int t = base + row;
-      float* d = a_dst + row * M::CW + q;
-      if (t >= 0 && t < p.T) {
-        __pipeline_memcpy_async(d, xb + (size_t)t * CH + q, 16);
-      } else {
-        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-    }
-    const float* w = p.wconv + ((size_t)k * CH + c0) * M::N;
-    stage_pairs<CH>(w_dst, w, w + CH, M::N, M::CW);
-  } else {
-    const int c0 = (idx - n_x) * M::CW;
-    const float* cb = p.c + (size_t)b * p.T * p.Ca;
-    for (int e = threadIdx.x; e < M::TT * M::CW; e += kThreads) {
-      const int row = e / M::CW, j = e % M::CW;
-      const int t = t0 + row, ch = c0 + j;
-      float* d = a_dst + row * M::CW + j;
-      if (t < p.T && ch < p.Ca) {
-        __pipeline_memcpy_async(d, cb + (size_t)t * p.Ca + ch, 4);
-      } else {
-        *d = 0.f;
-      }
-    }
-    const float* w = p.waux + (size_t)c0 * M::N;
-    const int valid = p.Ca - c0 < M::CW ? p.Ca - c0 : M::CW;
-    stage_pairs<CH>(w_dst, w, w + CH, M::N, valid);
-  }
-  __pipeline_commit();
-}
-
-// acc[i][j] += sum_ci a_s[row_i][col0 + ci] * w_s[ci][4g + j] over the CW
-// channels of one chunk, row_i = r + i*R.
-template <int CH>
-__device__ __forceinline__ void fma_chunk(const float* __restrict__ a_s,
-                                          int stride, int col0,
-                                          const float* __restrict__ w_s,
-                                          int r, int g,
-                                          float (&acc)[kRows][4]) {
-  using M = WMap<CH>;
-  const float* arow = a_s + r * stride + col0;
-#pragma unroll 1  // unrolling further costs the registers of a second block
-  for (int ci = 0; ci < M::CW; ci += 4) {
-    float4 w[4];
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc)
-      w[cc] = *reinterpret_cast<const float4*>(w_s + (ci + cc) * M::N + 4 * g);
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const float4 xv =
-          *reinterpret_cast<const float4*>(arow + i * M::R * stride + ci);
-      const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-        acc[i][0] = fmaf(xs[cc], w[cc].x, acc[i][0]);
-        acc[i][1] = fmaf(xs[cc], w[cc].y, acc[i][1]);
-        acc[i][2] = fmaf(xs[cc], w[cc].z, acc[i][2]);
-        acc[i][3] = fmaf(xs[cc], w[cc].w, acc[i][3]);
-      }
-    }
-  }
+__device__ __forceinline__ void st2(float* p, float2 v) {
+  *reinterpret_cast<float2*>(p) = v;
 }
 
 __device__ __forceinline__ float sigmoid(float v) {
   return 1.f / (1.f + expf(-v));
 }
 
-// At most 128 registers a thread, so that two blocks (16 warps) share an SM.
 template <int CH>
-__global__ void __launch_bounds__(kThreads, 2) wavenet_layer_kernel(Layer p) {
-  using M = WMap<CH>;
-  extern __shared__ float4 smem4[];
-  float* w_s = reinterpret_cast<float*>(smem4);  // 2 x CW x N
-  float* a_s = w_s + 2 * M::CW * M::N;            // 2 x TT x CW
-  float* g_s = a_s;  // TT x CH, over the activation buffers once read
+using Acc = float[2][Geo<CH>::kWN][4];
 
-  const int b = blockIdx.y;
-  const int t0 = blockIdx.x * M::TT;
-  const int g = threadIdx.x % M::G;
-  const int r = threadIdx.x / M::G;
-
-  // gate pre-activation: columns (2g, 2g+1) of the tanh half and of the
-  // sigmoid half
-  float acc[kRows][4];
-  {
-    const float b0 = p.bconv[2 * g], b1 = p.bconv[2 * g + 1];
-    const float b2 = p.bconv[CH + 2 * g], b3 = p.bconv[CH + 2 * g + 1];
+template <int CH>
+__device__ __forceinline__ void zero(Acc<CH>& v) {
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      acc[i][0] = b0;
-      acc[i][1] = b1;
-      acc[i][2] = b2;
-      acc[i][3] = b3;
-    }
-  }
-  const int n1 = p.K * (CH / M::CW) + (p.Ca + M::CW - 1) / M::CW;
-  stage_gate_chunk<CH>(p, b, t0, 0, a_s, w_s);
-  for (int c = 0; c < n1; ++c) {
-    if (c + 1 < n1) {
-      const int nb = (c + 1) & 1;
-      stage_gate_chunk<CH>(p, b, t0, c + 1, a_s + nb * M::TT * M::CW,
-                           w_s + nb * M::CW * M::N);
-      __pipeline_wait_prior(1);  // all but the newest group: chunk c
-    } else {
-      __pipeline_wait_prior(0);
-    }
-    __syncthreads();  // chunk c visible to every thread
-    fma_chunk<CH>(a_s + (c & 1) * M::TT * M::CW, M::CW, 0,
-                  w_s + (c & 1) * M::CW * M::N, r, g, acc);
-    __syncthreads();  // chunk c consumed: its buffers are refilled next
-  }
-
-  // gate, into shared memory for the second product
+  for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = r + i * M::R;
-    const float g0 = tanhf(acc[i][0]) * sigmoid(acc[i][2]);
-    const float g1 = tanhf(acc[i][1]) * sigmoid(acc[i][3]);
-    *reinterpret_cast<float2*>(g_s + row * CH + 2 * g) = make_float2(g0, g1);
-  }
-
-  // [skip | res]: columns (2g, 2g+1) of each
-  {
-    const float b0 = p.bskip[2 * g], b1 = p.bskip[2 * g + 1];
-    const float b2 = p.bres[2 * g], b3 = p.bres[2 * g + 1];
+    for (int ni = 0; ni < Geo<CH>::kWN; ++ni)
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      acc[i][0] = b0;
-      acc[i][1] = b1;
-      acc[i][2] = b2;
-      acc[i][3] = b3;
-    }
-  }
-  constexpr int n2 = CH / M::CW;
-  stage_pairs<CH>(w_s, p.wskip, p.wres, CH, M::CW);
-  __pipeline_commit();
-#pragma unroll 1
-  for (int c = 0; c < n2; ++c) {
-    if (c + 1 < n2) {
-      const size_t off = (size_t)(c + 1) * M::CW * CH;
-      stage_pairs<CH>(w_s + ((c + 1) & 1) * M::CW * M::N, p.wskip + off,
-                      p.wres + off, CH, M::CW);
-      __pipeline_commit();
-      __pipeline_wait_prior(1);
-    } else {
-      __pipeline_wait_prior(0);
-    }
-    __syncthreads();  // weights of chunk c and (first time) g visible
-    fma_chunk<CH>(g_s, CH, c * M::CW, w_s + (c & 1) * M::CW * M::N, r, g, acc);
-    __syncthreads();
-  }
+      for (int e = 0; e < 4; ++e) v[mi][ni][e] = 0.f;
+}
 
-  const size_t bo = (size_t)b * p.T * CH;
-  const float* __restrict__ xb = p.x + bo;
-  float* __restrict__ sk = p.skip + bo;
-  float* __restrict__ xo = p.x_out + bo;
+// acc += the first nks k-steps of a staged operand (rows kLd floats apart,
+// the warp's rows from 32 wm) times a weight chunk in fragment order (k-
+// steps of kNT column tiles x 32 lanes x {hi, lo of B[tig][gid], hi, lo
+// of B[tig + 4][gid]}; logical k = tig, tig + 4 is channel 2 tig, 2 tig +
+// 1 of the k-step, ops/kernels/tf32x3.py), over the warp's kWN tiles,
+// each k-step's sum added into acc in float32 (mma3_add). The m-tiles are
+// the outer loop, so that one A fragment is live at a time: with both
+// live the kernel spilled at 128 registers.
+template <int CH, int kLd>
+__device__ __forceinline__ void product(const float* a_s, const float* b_s, int nks,
+                                        Acc<CH>& acc) {
+  using G = Geo<CH>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp % G::kWR, wn = warp / G::kWR, gid = lane >> 2, tig = lane & 3;
+  const float* xa = a_s + (32 * wm + gid) * kLd + 2 * tig;
+  const float* wb = b_s + wn * G::kWN * 128 + lane * 4;
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int t = t0 + r + i * M::R;
-    if (t < p.T) {
-      const size_t o = (size_t)t * CH + 2 * g;
-      float2 s = make_float2(acc[i][0], acc[i][1]);
-      if (p.accumulate) {
-        const float2 prev = *reinterpret_cast<const float2*>(sk + o);
-        s.x = prev.x + s.x;
-        s.y = prev.y + s.y;
+  for (int ks = 0; ks < G::kKS; ++ks) {
+    if (ks >= nks) break;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      FragA a;
+      const float2 u = ld2(xa + mi * 16 * kLd + ks * 8);
+      const float2 v = ld2(xa + (mi * 16 + 8) * kLd + ks * 8);
+      split(u.x, a.hi[0], a.lo[0]);
+      split(v.x, a.hi[1], a.lo[1]);
+      split(u.y, a.hi[2], a.lo[2]);
+      split(v.y, a.hi[3], a.lo[3]);
+#pragma unroll
+      for (int ni = 0; ni < G::kWN; ++ni) {
+        const float4 w = *reinterpret_cast<const float4*>(wb + (ks * G::kNT + ni) * 128);
+        const FragB b{{__float_as_uint(w.x), __float_as_uint(w.z)},
+                      {__float_as_uint(w.y), __float_as_uint(w.w)}};
+        mma3_add(acc[mi][ni], a, b);
       }
-      *reinterpret_cast<float2*>(sk + o) = s;
-      const float2 xr = *reinterpret_cast<const float2*>(xb + o);
-      *reinterpret_cast<float2*>(xo + o) = make_float2(
-          (acc[i][2] + xr.x) * kSqrtHalf, (acc[i][3] + xr.y) * kSqrtHalf);
     }
   }
 }
 
-template <int CH>
+// Visit a thread's column pairs: fn(mi, q, h, row, ch) for the warp's tile
+// row `row` (32 wm + 16 mi + gid + 8 h) and the channels ch, ch + 1 that
+// its tiles 2q and 2q + 1 hold (wavenet_fragments pairs the columns so
+// that column 2 tig + e of tile nt is half e's channel 8 (nt / 2) + 2 tig
+// + nt % 2): half 0's values are v[mi][2q][2h] and v[mi][2q + 1][2h], half
+// 1's v[mi][2q][2h + 1] and v[mi][2q + 1][2h + 1].
+template <int CH, class Fn>
+__device__ __forceinline__ void for_each_pair(Fn&& fn) {
+  using G = Geo<CH>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp % G::kWR, wn = warp / G::kWR, gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int q = 0; q < G::kWN / 2; ++q)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        fn(mi, q, h, 32 * wm + 16 * mi + gid + 8 * h,
+           8 * (wn * (G::kWN / 2) + q) + 2 * tig);
+}
+
+// Channels c0 .. c0 + kKC - 1 of the tile's rows of c (zero past Ca and T)
+// into a_s, four channels a thread and step: one 16-byte copy (kV4) or four
+// 4-byte ones. The staging loops stay rolled: unrolled, they spilled at
+// 128 registers, with the accumulators live.
+template <int CH, bool kV4>
+__device__ __forceinline__ void stage_aux(float* a_s, const float* c, int c0, int t0, int T,
+                                          int ca) {
+  using G = Geo<CH>;
+  constexpr int kPieces = G::kKC / 4;
+#pragma unroll 1
+  for (int e = threadIdx.x; e < G::kTT * kPieces; e += kThreads) {
+    const int r = e / kPieces, q = (e % kPieces) * 4, t = t0 + r, ch = c0 + q;
+    const float* src = c + (size_t)t * ca + ch;
+    float* dst = a_s + r * G::kLdA + q;
+    if constexpr (kV4) {
+      const bool ok = t < T && ch < ca;
+      cp_async<16>(dst, ok ? src : c, ok);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool ok = t < T && ch + j < ca;
+        cp_async<4>(dst + j, ok ? src + j : c, ok);
+      }
+    }
+  }
+}
+
+// One layer for one tile of kTT rows of batch item blockIdx.y. The ring's
+// chunks: the K taps of x (kPerTap each), c's channels (the last chunk
+// ragged), then [Wskip | Wres] against g. kV4: c is copied in 16-byte
+// pieces. At most 128 registers a thread, so that two blocks share an SM.
+template <int CH, bool kV4>
+__global__ void __launch_bounds__(kThreads, 2) wavenet_layer_kernel(Layer p) {
+  using G = Geo<CH>;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);  // kStages operand chunks, then
+  float* w_ring = smem + kStages * G::kAF;        // kStages weight chunks
+  float* g_s = smem;                              // g, over the operand chunks
+  const int b = blockIdx.y, t0 = blockIdx.x * G::kTT, T = p.T;
+  const float* x = p.x + (size_t)b * T * CH;
+  const float* c = p.c + (size_t)b * T * p.Ca;
+  const int nx = p.K * G::kPerTap;
+  const int ks_out = (p.K * CH + ((p.Ca + 7) & ~7)) / 8;  // [skip | res]'s first k-step
+  const int ng = nx + (ks_out - nx * G::kKS + G::kKS - 1) / G::kKS;  // chunks of z
+  // chunk i's first k-step and k-step count
+  auto ks_first = [&](int i) { return i < ng ? i * G::kKS : ks_out + (i - ng) * G::kKS; };
+  auto ks_count = [&](int i) { return i < ng ? min(G::kKS, ks_out - i * G::kKS) : G::kKS; };
+
+  Acc<CH> acc;
+  zero<CH>(acc);
+
+  auto stage = [&](int i, int buf) {
+    const float* src = p.wf + (size_t)ks_first(i) * G::kStepF;
+    float* dst = w_ring + buf * G::kBF;
+    const int nf = ks_count(i) * G::kStepF;
+    for (int e = threadIdx.x * 4; e < nf; e += kThreads * 4) cp_async<16>(dst + e, src + e, true);
+    if (i >= ng) return;  // g is the operand
+    float* a_s = smem + buf * G::kAF;
+    if (i < nx) {
+      const int tap = i / G::kPerTap, c0 = (i % G::kPerTap) * G::kKC;
+      const int r0 = t0 + tap * p.dil - p.left;
+      constexpr int kPieces = G::kKC / 4;
+#pragma unroll 1
+      for (int e = threadIdx.x; e < G::kTT * kPieces; e += kThreads) {
+        const int r = e / kPieces, q = (e % kPieces) * 4, t = r0 + r;
+        const bool ok = t >= 0 && t < T;
+        cp_async<16>(a_s + r * G::kLdA + q, ok ? x + (size_t)t * CH + c0 + q : x, ok);
+      }
+    } else {
+      stage_aux<CH, kV4>(a_s, c, (i - nx) * G::kKC, t0, T, p.Ca);
+    }
+  };
+
+  auto compute = [&](int i, int buf) {
+    const float* b_s = w_ring + buf * G::kBF;
+    if (i < ng) {
+      product<CH, G::kLdA>(smem + buf * G::kAF, b_s, ks_count(i), acc);
+      return;
+    }
+    if (i == ng) {  // z complete: the gate on the accumulators, g into g_s
+      for_each_pair<CH>([&](int mi, int q, int h, int row, int ch) {
+        const float2 bt = ld2(p.bconv + ch), bs = ld2(p.bconv + CH + ch);
+        const float g0 = tanhf(acc[mi][2 * q][2 * h] + bt.x) *
+                         sigmoid(acc[mi][2 * q][2 * h + 1] + bs.x);
+        const float g1 = tanhf(acc[mi][2 * q + 1][2 * h] + bt.y) *
+                         sigmoid(acc[mi][2 * q + 1][2 * h + 1] + bs.y);
+        st2(g_s + row * G::kLdG + ch, make_float2(g0, g1));
+      });
+      zero<CH>(acc);
+      __syncthreads();  // every warp's channels of g visible
+    }
+    product<CH, G::kLdG>(g_s + (i - ng) * G::kKC, b_s, G::kKS, acc);
+  };
+
+  pipeline<kStages>(ng + G::kPerTap, stage, compute);
+
+  const size_t bo = (size_t)b * T * CH;
+  for_each_pair<CH>([&](int mi, int q, int h, int row, int ch) {
+    const int t = t0 + row;
+    if (t >= T) return;
+    const size_t o = bo + (size_t)t * CH + ch;
+    const float2 bs = ld2(p.bskip + ch), br = ld2(p.bres + ch);
+    float2 s = make_float2(acc[mi][2 * q][2 * h] + bs.x, acc[mi][2 * q + 1][2 * h] + bs.y);
+    if (p.accumulate) {
+      const float2 prev = ld2(p.skip + o);
+      s = make_float2(prev.x + s.x, prev.y + s.y);
+    }
+    st2(p.skip + o, s);
+    const float2 xr = ld2(p.x + o);
+    st2(p.x_out + o,
+        make_float2((acc[mi][2 * q][2 * h + 1] + br.x + xr.x) * kSqrtHalf,
+                    (acc[mi][2 * q + 1][2 * h + 1] + br.y + xr.y) * kSqrtHalf));
+  });
+}
+
+template <int CH, bool kV4>
 int launch_layer(const Layer& p, int B, cudaStream_t stream) {
-  using M = WMap<CH>;
-  const size_t smem =
-      sizeof(float) * (2 * (size_t)M::CW * M::N + 2 * (size_t)M::TT * M::CW);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      wavenet_layer_kernel<CH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  using G = Geo<CH>;
+  if (G::kSmem > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(wavenet_layer_kernel<CH, kV4>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)G::kSmem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((p.T + M::TT - 1) / M::TT, B);
-  wavenet_layer_kernel<CH><<<grid, kThreads, smem, stream>>>(p);
+  const dim3 grid((p.T + G::kTT - 1) / G::kTT, B);
+  wavenet_layer_kernel<CH, kV4><<<grid, kThreads, G::kSmem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <int CH>
+int launch_width(const Layer& p, int B, cudaStream_t stream) {
+  const bool v4 = p.Ca % 4 == 0 && reinterpret_cast<uintptr_t>(p.c) % 16 == 0;
+  return v4 ? launch_layer<CH, true>(p, B, stream) : launch_layer<CH, false>(p, B, stream);
 }
 
 }  // namespace
@@ -339,30 +361,28 @@ extern "C" {
 
 // One gated layer. C is the residual width, which the kernel takes equal
 // to the skip width and to half the gate width (16 or 64); Ca >= 1 is
-// the conditioning width. skip is written (accumulate 0) or added to
-// (accumulate 1). Returns a cudaError_t value: 0 when the launch was
-// accepted.
+// the conditioning width. wf is the layer's weights as
+// ops/kernels/tf32x3.py wavenet_fragments lays them out; x and wf must be
+// 16-byte aligned, the biases 8-byte aligned. skip is written
+// (accumulate 0) or added to (accumulate 1). Returns a cudaError_t value:
+// 0 when the launch was accepted.
 int wavenet_layer(const float* x, const float* c, float* x_out, float* skip,
-                  const float* wconv, const float* bconv, const float* waux,
-                  const float* wskip, const float* bskip, const float* wres,
-                  const float* bres, int B, int T, int C, int Ca, int K,
-                  int dil, int causal, int accumulate, int device,
-                  void* stream) {
+                  const float* wf, const float* bconv, const float* bskip,
+                  const float* bres, int B, int T, int C, int Ca, int K, int dil,
+                  int causal, int accumulate, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return e;
   if (B < 1 || B > 65535 || T < 1 || Ca < 1 || K < 1 || dil < 1)
     return cudaErrorInvalidValue;
   const int pad = (K - 1) * dil;
-  const Layer p{x,     c,     x_out, skip, wconv, bconv,
-                waux,  wskip, bskip, wres, bres,  T,
-                Ca,    K,     dil,   causal ? pad : pad / 2,
-                accumulate ? 1 : 0};
+  const Layer p{x,     c, x_out, skip, wf, bconv, bskip, bres, T, Ca, K, dil,
+                causal ? pad : pad / 2, accumulate ? 1 : 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C) {
     case 16:
-      return launch_layer<16>(p, B, s);
+      return launch_width<16>(p, B, s);
     case 64:
-      return launch_layer<64>(p, B, s);
+      return launch_width<64>(p, B, s);
     default:
       return cudaErrorInvalidValue;
   }

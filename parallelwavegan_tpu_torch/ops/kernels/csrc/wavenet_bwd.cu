@@ -85,6 +85,11 @@
 // the tensor cores round their accumulation toward zero: a chain of 1,024
 // rows drifted to 1e-3 of a gradient of order 10, so the tile sums are
 // added into float32 totals every 32 rows. g is written for this kernel.
+// dz_kernel adds each k-step's three products into its float32
+// accumulators (mma3_add) rather than chaining z's 34 k-steps (at v1) on
+// the tensor cores: the chain's rounding left dWconv at 0.97 of the GPU
+// tests' 2e-4 + 1e-3 |plain| limit, and past it once K3 became split TF32
+// (PERF.md §6, PR 12).
 // dx is not fused into dz_kernel either: at dilations up to 512 the
 // transposed conv needs dz rows a whole dilation away.
 
@@ -258,8 +263,8 @@ __global__ void __launch_bounds__(kThreads, 2) dz_kernel(LayerBwd p) {
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const FragB bf = load_b_kn(bs + ks * 8 * kLdG + h * kC + jt * 8, kLdG);
-            mma3(az[0][jw][h], a0, bf);
-            mma3(az[1][jw][h], a1, bf);
+            mma3_add(az[0][jw][h], a0, bf);
+            mma3_add(az[1][jw][h], a1, bf);
           }
         }
       }
@@ -283,8 +288,8 @@ __global__ void __launch_bounds__(kThreads, 2) dz_kernel(LayerBwd p) {
           const int jt = wn + 4 * jw;
           if (jt >= kJT) break;
           const FragB bf = load_b_nk(bs + jt * 8 * kAS + ks * 8, kAS);
-          mma3(adg[0][jw], a0, bf);
-          mma3(adg[1][jw], a1, bf);
+          mma3_add(adg[0][jw], a0, bf);
+          mma3_add(adg[1][jw], a1, bf);
         }
       }
     }

@@ -80,8 +80,10 @@ def counts(instrs: list) -> str:
 
 
 def short_name(mangled: str) -> str:
-    """A kernel's name and integer template arguments out of its mangled
-    name: ``_ZN..9dz_kernelILi128EEEv..`` -> ``dz_kernel<128>``."""
+    """A kernel's name and integer and bool template arguments out of its
+    mangled name: ``_ZN..9dz_kernelILi128EEEv..`` -> ``dz_kernel<128>``,
+    ``..20wavenet_layer_kernelILi64ELb1EEEv..`` -> ``wavenet_layer_kernel<64,
+    true>``."""
     name = _cut_anon(mangled)
     rest = name[len("_ZNANON"):] if name.startswith("_ZNANON") else name.lstrip("_Z")
     m = re.match(r"(\d+)", rest)
@@ -89,8 +91,12 @@ def short_name(mangled: str) -> str:
         return mangled
     n = int(m.group(1))
     base, rest = rest[m.end():m.end() + n], rest[m.end() + n:]
-    args = re.match(r"ILi(\d+)E", rest)
-    return f"{base}<{args.group(1)}>" if args else base
+    args = re.match(r"I((?:L[ib]\d+E)+)E", rest)
+    if not args:
+        return base
+    vals = [v if t == "i" else ("true" if v == "1" else "false")
+            for t, v in re.findall(r"L([ib])(\d+)E", args.group(1))]
+    return f"{base}<{', '.join(vals)}>"
 
 
 def resource_usage(source: str) -> dict:

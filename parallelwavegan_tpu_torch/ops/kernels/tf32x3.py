@@ -1,14 +1,15 @@
 """Split TF32 on the host side: the rounding of csrc/mma_tf32x3.cuh and
 the weight layouts that the kernels read (K9's chain kernel in
 csrc/tade_bwd.cu, K8a and K8b in csrc/tade.cu, K7's row products in
-csrc/melgan_stack_bwd.cu).
+csrc/melgan_stack_bwd.cu, the WaveNet layer K3/K5 in csrc/wavenet.cu).
 
 A float32 value v is split into hi = tf32(v) and lo = tf32(v - hi), both
 TF32 (10 mantissa bits, rounded as ``cvt.rna``: to nearest, ties away
 from zero); a product is then a_lo.b_hi + a_hi.b_lo + a_hi.b_hi on the
 tensor cores. ``conv_fragments`` (a transposed conv's weights),
-``forward_fragments`` (a forward kernel's three convs) and
-``stack_fragments`` (the MelGAN stacks' products) split the weights
+``forward_fragments`` (a forward kernel's three convs),
+``stack_fragments`` (the MelGAN stacks' products) and
+``wavenet_fragments`` (the WaveNet layers' two products) split the weights
 once per call and store them in the order in which ``mma.sync.m16n8k8``
 takes its B operand, so that the kernel loads a thread's (hi, lo) of both
 B registers with one 16-byte shared-memory load and splits only the
@@ -67,14 +68,17 @@ def conv_fragments(w):
 
 
 def _pair_columns(wk):
-    """The 128 columns of a gated conv's (K, 128) weights reordered so that
-    column 8 nt + 2 tig + e is original column 64 e + 8 (nt // 2) + 2 tig +
-    nt % 2: the kernel's thread (gid, tig) then holds in one column tile a
-    channel's first-half column beside its second-half column ([s | h] or
-    [ta | tb]), and in the next tile the next channel's. A reshape and a
-    copy (an index tensor would be copied to the card on every call)."""
+    """The n columns (n = 2C, a multiple of 16) of a gated product's (K, n)
+    weights, halves [first | second], reordered so that column 8 nt + 2 tig
+    + e is original column C e + 8 (nt // 2) + 2 tig + nt % 2: the kernel's
+    thread (gid, tig) then holds in one column tile a channel's first-half
+    column beside its second-half column ([s | h], [ta | tb], [tanh |
+    sigmoid] or [skip | res]), and in the next tile the next channel's. A
+    reshape and a copy (an index tensor would be copied to the card on
+    every call)."""
+    n = wk.shape[-1]
     # original column (e, nt // 2, tig, nt % 2) -> (nt // 2, nt % 2, tig, e)
-    return wk.reshape(-1, 2, 8, 4, 2).permute(0, 2, 4, 3, 1).reshape(-1, 128)
+    return wk.reshape(-1, 2, n // 16, 4, 2).permute(0, 2, 4, 3, 1).reshape(-1, n)
 
 
 def forward_fragments(aux_w, g_w, gc_w):
@@ -111,3 +115,44 @@ def stack_fragments(stacks):
         mats += [wd, w1.transpose(1, 2), wd.transpose(1, 2), ws.transpose(1, 2)]
     f = _fragments(torch.cat(mats))
     return list(f.split([2 * st["wd"].shape[0] + 2 for st in stacks]))
+
+
+def wavenet_depth(c: int, ca: int, k: int) -> int:
+    """Depth of a WaveNet layer's fragment tensor: K taps of C channels, Ca
+    zero-padded to a multiple of 8, then C for [Wskip | Wres]."""
+    return k * c + (ca + 7) // 8 * 8 + c
+
+
+def wavenet_matrix(weights):
+    """The two products of L WaveNet layers (the stacked gather form of
+    ops/kernels/wavenet.py: ``wconv`` (L, K, C, 2C), ``waux`` (L, Ca, 2C),
+    ``wskip`` and ``wres`` (L, C, C)) as one matrix of 2C columns per
+    layer, (L, ``wavenet_depth``, 2C): the gate's [Wconv[0]; ..;
+    Wconv[K-1]; Waux] (Ca zero-padded to a multiple of 8) and [Wskip |
+    Wres] below it, columns in their natural order."""
+    wconv, waux, wskip, wres = (weights[k].detach() for k in
+                                ("wconv", "waux", "wskip", "wres"))
+    if wconv.dim() != 4 or wconv.shape[2] % 8 or wconv.shape[3] != 2 * wconv.shape[2]:
+        raise ValueError(f"wavenet_fragments needs wconv (L, K, C, 2C), C a multiple "
+                         f"of 8, got {tuple(wconv.shape)}")
+    n_layers, k, c, n = wconv.shape
+    ca = waux.shape[1] if waux.dim() == 3 else -1
+    shapes = {"waux": (waux, (n_layers, ca, n)), "wskip": (wskip, (n_layers, c, c)),
+              "wres": (wres, (n_layers, c, c))}
+    for name, (w, want) in shapes.items():
+        if ca < 1 or tuple(w.shape) != want:
+            raise ValueError(f"wavenet_fragments: {name} has shape {tuple(w.shape)}, "
+                             f"expected {want} for wconv {tuple(wconv.shape)}")
+    return torch.cat([wconv.reshape(n_layers, k * c, n),
+                      torch.nn.functional.pad(waux, (0, 0, 0, (ca + 7) // 8 * 8 - ca)),
+                      torch.cat([wskip, wres], dim=2)], dim=1)
+
+
+def wavenet_fragments(weights):
+    """``wavenet_matrix`` of L WaveNet layers as K3/K5 take it: the columns
+    paired (``_pair_columns``: tanh_j beside sigmoid_j, skip_j beside
+    res_j), in ``_fragments``' layout, (L, ``wavenet_depth`` / 8, C / 4,
+    32, 4). All layers are split in one pass. What csrc/wavenet.cu
+    takes."""
+    m = wavenet_matrix(weights)
+    return _fragments(_pair_columns(m).reshape(m.shape))

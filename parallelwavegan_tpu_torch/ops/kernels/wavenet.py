@@ -11,10 +11,15 @@ bconv (L, C_g), waux (L, C_a, C_g), wskip (L, C_g/2, C_s), bskip (L, C_s),
 wres (L, C_g/2, C_r), bres (L, C_r).
 
 For a CUDA tensor the wrappers run the hand-written kernel
-(csrc/wavenet.cu), one launch per layer; K5 is its one-layer call with
-the causal flag. For a CPU tensor they run the plain PyTorch versions
-below. A CUDA tensor never takes the plain forward. The TPU tiling knobs
-(``t_tile``) and the whole-cycle VMEM residency do not carry over. The
+(csrc/wavenet.cu, every product split TF32 on the tensor cores), one
+launch per layer; K5 is its one-layer call with the causal flag. The
+kernel reads each layer's weights split into TF32 hi and lo in the mma
+fragments' order (``tf32x3.wavenet_fragments``): a weights dict may carry
+that split as ``frag`` (``with_fragments``, which decode's
+``prepare_kernels`` calls once), else each call makes it. For a CPU
+tensor they run the plain PyTorch versions below. A CUDA tensor never
+takes the plain forward. The TPU tiling knobs (``t_tile``) and the
+whole-cycle VMEM residency do not carry over. The
 stack wrappers are inference-only, as the JAX ``fused_wavenet_stack`` has
 no VJP, so a forward that would need gradients raises; the differentiable
 cycle is ``ops/kernels/wavenet_train.py`` (K3 forward, K4 backward). The
@@ -31,6 +36,10 @@ import torch
 import torch.nn.functional as F
 
 from parallelwavegan_tpu_torch.ops.kernels import build
+from parallelwavegan_tpu_torch.ops.kernels.tf32x3 import (
+    wavenet_depth,
+    wavenet_fragments,
+)
 
 SQRT_HALF = math.sqrt(0.5)
 WEIGHT_KEYS = ("wconv", "bconv", "waux", "wskip", "bskip", "wres", "bres")
@@ -97,25 +106,45 @@ def _check_cuda_inputs(x, c, weights, n_layers) -> None:
         "bskip": (n_layers, ch), "wres": (n_layers, ch, ch),
         "bres": (n_layers, ch),
     }
-    # x is copied in 16-byte pieces, the weights in 8-byte pieces
+    # x and the weights' split are copied in 16-byte pieces, the biases
+    # read in 8-byte pieces
     build.check_tensor("x", x, x.device, (b, t, ch), align=16)
     build.check_tensor("c", c, x.device, (b, t, ca), align=4)
     for key in WEIGHT_KEYS:
         if weights.get(key) is None:
             raise ValueError(f"the kernel needs {key} (bias=True, aux input)")
         build.check_tensor(key, weights[key], x.device, shapes[key], align=8)
+    if weights.get("frag") is not None:
+        build.check_tensor("frag", weights["frag"], x.device,
+                           (n_layers, wavenet_depth(ch, ca, k) // 8, ch // 4, 32, 4),
+                           align=16)
+
+
+def with_fragments(weights):
+    """``weights`` (a stack's, or one block's unstacked) with the split the
+    kernel reads (``frag``), for a decode that runs the same weights many
+    times. The split is as stale as the weights it was made from: make it
+    again after they change."""
+    if weights["wconv"].dim() == 4:
+        return dict(weights, frag=wavenet_fragments(weights))
+    one = {k: weights[k][None] for k in ("wconv", "waux", "wskip", "wres")}
+    return dict(weights, frag=wavenet_fragments(one)[0])
 
 
 def _run_layers(x, c, weights, dilations, causal: bool, counter, outs=None):
     """One kernel launch per layer on the current stream; x ping-pongs
     between two buffers, skip is written by the first layer and added to
-    by the others. Given a list ``outs``, each layer writes a buffer of its
-    own and appends it to ``outs``. ``counter.launches`` counts the
-    launches."""
+    by the others. The weights' split is ``weights["frag"]`` where given,
+    else made here, once for all the layers. Given a list ``outs``, each
+    layer writes a buffer of its own and appends it to ``outs``.
+    ``counter.launches`` counts the launches."""
     lib = build.load()
     dev, stream = build.launch_target(x)
     b, t, ch = x.shape
     ca, k = c.shape[2], weights["wconv"].shape[1]
+    frag = weights.get("frag")
+    if frag is None:
+        frag = wavenet_fragments(weights)  # held until the launches are queued
     skip = torch.empty_like(x)
     n_bufs = len(dilations) if outs is not None else min(2, len(dilations))
     bufs = [torch.empty_like(x) for _ in range(n_bufs)]
@@ -123,8 +152,9 @@ def _run_layers(x, c, weights, dilations, causal: bool, counter, outs=None):
     for layer, d in enumerate(dilations):
         dst = bufs[layer % n_bufs]
         lib.call("wavenet_layer", src.data_ptr(), c.data_ptr(), dst.data_ptr(),
-                 skip.data_ptr(),
-                 *(weights[key][layer].data_ptr() for key in WEIGHT_KEYS),
+                 skip.data_ptr(), frag[layer].data_ptr(),
+                 *(weights[key][layer].data_ptr()
+                   for key in ("bconv", "bskip", "bres")),
                  b, t, ch, ca, k, int(d), int(causal), int(layer > 0), dev,
                  stream)
         counter.launches += 1
@@ -146,7 +176,8 @@ def fused_wavenet_stack(x, c, weights, dilations):
 
     A CUDA tensor goes through the hand-written kernel, one launch per
     layer (C_r = C_s = C_g / 2 in {16, 64}, any C_a and kernel size;
-    float32, contiguous) and raises on anything it does not take; a CPU
+    float32, contiguous; the split ``frag`` of ``with_fragments`` used
+    where the dict has it) and raises on anything it does not take; a CPU
     tensor goes through ``wavenet_stack_reference``.
     ``fused_wavenet_stack.launches`` counts the kernel launches.
     """
@@ -177,13 +208,14 @@ def fused_wavenet_cycle(x, c, weights, dilations, *,
 
 
 class _GatedResblock(torch.autograd.Function):
-    """(x, c, dilation, causal, *block weights in ``WEIGHT_KEYS`` order) ->
-    (residual_out, skip_out): the kernel (or, on the CPU, the plain block)
-    forward; the backward is autograd of ``gated_resblock_reference`` on
-    the saved inputs, the JAX ``_bwd`` (wavenet.py:305-310)."""
+    """(x, c, dilation, causal, frag, *block weights in ``WEIGHT_KEYS``
+    order) -> (residual_out, skip_out): the kernel (or, on the CPU, the
+    plain block) forward, on the weights' split ``frag`` (made here when
+    None); the backward is autograd of ``gated_resblock_reference`` on the
+    saved inputs, the JAX ``_bwd`` (wavenet.py:305-310)."""
 
     @staticmethod
-    def forward(ctx, x, c, dilation, causal, *args):
+    def forward(ctx, x, c, dilation, causal, frag, *args):
         ctx.block = (dilation, causal)
         ctx.save_for_backward(x, c, *args)
         if x.device.type == "cpu":
@@ -191,6 +223,7 @@ class _GatedResblock(torch.autograd.Function):
                                             causal=causal)
         weights = {k: None if v is None else v[None]
                    for k, v in zip(WEIGHT_KEYS, args)}
+        weights["frag"] = None if frag is None else frag[None]
         _check_cuda_inputs(x, c, weights, 1)
         return _run_layers(x, c, weights, (dilation,), causal,
                            fused_gated_resblock)
@@ -207,24 +240,26 @@ class _GatedResblock(torch.autograd.Function):
             grads = iter(torch.autograd.grad(out, used, (dres, dskip),
                                              allow_unused=True))
         dx, dc, *dw = (None if v is None else next(grads) for v in leaves)
-        return (dx, dc, None, None, *dw)
+        return (dx, dc, None, None, None, *dw)
 
 
 def fused_gated_resblock(x, c, conv_kernel, conv_bias, aux_kernel,
                          skip_kernel, skip_bias, res_kernel, res_bias,
-                         dilation: int = 1, causal: bool = False):
+                         dilation: int = 1, causal: bool = False, fragments=None):
     """One gated block -> (residual_out, skip_out), causal or not.
 
     A CUDA tensor goes through the kernel's one-layer call (the widths of
-    ``fused_wavenet_stack``; biases and c required); a CPU tensor goes
-    through ``gated_resblock_reference``. Differentiable in every input:
-    the backward is autograd of the plain block, as in JAX.
-    ``fused_gated_resblock.launches`` counts the kernel launches.
+    ``fused_wavenet_stack``; biases and c required) on ``fragments``, the
+    block's split (``wavenet_fragments`` of its weights stacked as one
+    layer, first axis dropped), made per call when None; a CPU tensor goes
+    through ``gated_resblock_reference``. Differentiable in every input
+    but ``fragments``: the backward is autograd of the plain block, as in
+    JAX. ``fused_gated_resblock.launches`` counts the kernel launches.
     """
     _device_of(x, "fused_gated_resblock")
-    return _GatedResblock.apply(x, c, int(dilation), bool(causal), conv_kernel,
-                                conv_bias, aux_kernel, skip_kernel, skip_bias,
-                                res_kernel, res_bias)
+    return _GatedResblock.apply(x, c, int(dilation), bool(causal), fragments,
+                                conv_kernel, conv_bias, aux_kernel, skip_kernel,
+                                skip_bias, res_kernel, res_bias)
 
 
 fused_gated_resblock.launches = 0

@@ -10,10 +10,13 @@ stacked per-layer weights of ``WEIGHT_KEYS``.
 the K3 kernel (``_run_layers``) on a CUDA tensor, ``wavenet_stack_reference``
 on a CPU tensor, and it saves only the chunk's (x, c, weights), as the JAX
 ``custom_vjp`` does (:346-350), so each call of ``fused_wavenet_cycle_train``
-is a recompute checkpoint. Its backward is ``wavenet_stack_backward``: for
-a CUDA tensor it re-runs K3 from the saved input, keeping every layer's
-input in device memory, then walks the layers in reverse through the
-hand-written K4 kernel (csrc/wavenet_bwd.cu, one ``wavenet_layer_bwd``
+is a recompute checkpoint. On a CUDA tensor it also keeps the weights'
+split for K3 (``tf32x3.wavenet_fragments``, made once per forward since the
+weights change every step; 1.7 MB for five v1 layers): the backward's
+re-run of K3 reads it instead of splitting the same weights again. Its
+backward is ``wavenet_stack_backward``: for a CUDA tensor it re-runs K3
+from the saved input, keeping every layer's input in device memory, then
+walks the layers in reverse through the hand-written K4 kernel (csrc/wavenet_bwd.cu, one ``wavenet_layer_bwd``
 call of four CUDA kernels per layer, their products on the tensor cores
 in split TF32); for a CPU tensor it runs
 ``wavenet_stack_backward_reference``. A CUDA tensor never takes the plain
@@ -32,6 +35,7 @@ from parallelwavegan_tpu_torch.ops.kernels.wavenet import (
     _run_layers,
     fused_wavenet_stack,
     wavenet_stack_reference,
+    with_fragments,
 )
 
 
@@ -57,9 +61,10 @@ def wavenet_stack_backward(x, c, weights, dilations, dxo, dsk):
 
     A CUDA tensor goes through K4, one ``wavenet_layer_bwd`` call per layer
     (the widths of ``fused_wavenet_stack``, C_a <= 128, kernel size <= 7;
-    float32, contiguous), and raises on anything it does not take;
-    ``wavenet_stack_backward.launches`` counts those calls. A CPU tensor
-    goes through ``wavenet_stack_backward_reference``.
+    float32, contiguous), after K3's re-run of the layer inputs (on
+    ``weights["frag"]`` where given), and raises on anything it does not
+    take; ``wavenet_stack_backward.launches`` counts those calls. A CPU
+    tensor goes through ``wavenet_stack_backward_reference``.
     """
     if _device_of(x, "wavenet_stack_backward") == "cpu":
         return wavenet_stack_backward_reference(x, c, weights, dilations, dxo, dsk)
@@ -115,17 +120,20 @@ class wavenet_stack_train(torch.autograd.Function):  # noqa: N801 (JAX name)
     def forward(ctx, x, c, dilations, *weights):
         w = dict(zip(WEIGHT_KEYS, weights))
         ctx.dilations = dilations
+        ctx.frag = None
         ctx.save_for_backward(x, c, *weights)
         if _device_of(x, "wavenet_stack_train") == "cpu":
             return wavenet_stack_reference(x, c, w, dilations)
         _check_cuda_inputs(x, c, w, len(dilations))
+        w = with_fragments(w)
+        ctx.frag = w["frag"]
         return _run_layers(x, c, w, dilations, False, fused_wavenet_stack)
 
     @staticmethod
     def backward(ctx, dxo, dsk):
         x, c, *weights = ctx.saved_tensors
         dx, dc, dw = wavenet_stack_backward(
-            x, c, dict(zip(WEIGHT_KEYS, weights)), ctx.dilations,
+            x, c, dict(zip(WEIGHT_KEYS, weights), frag=ctx.frag), ctx.dilations,
             dxo.contiguous(), dsk.contiguous())
         return (dx, dc, None, *(dw[k] for k in WEIGHT_KEYS))
 

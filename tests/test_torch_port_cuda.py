@@ -1,7 +1,7 @@
 """The port's CUDA kernels on a CUDA device, against their plain versions:
-the fused HiFi-GAN tail, the fused WaveNet layer (stack and block, the
-block's training by autograd of its plain version) and its backward (K4,
-split TF32 on the tensor cores),
+the fused HiFi-GAN tail, the fused WaveNet layer (K3 stack and K5 block,
+split TF32 on the tensor cores, the block's training by autograd of its
+plain version) and its backward (K4, split TF32 as well),
 the MelGAN stack kernel (K6) and its backward (K7), the MRF stage on the
 residual-unit kernel (K2) and the StyleMelGAN TADE kernels (K8a, K8b,
 decode and the backward's re-run, split TF32 on the tensor cores) and
@@ -159,6 +159,97 @@ def test_gated_resblock_matches_plain_version(cuda, dilation, causal, k):
     assert fused_gated_resblock.launches == before + 1
     for g, r in zip(got, want):
         assert float((g - r).abs().max()) <= 2e-4
+
+
+def _within(got, want):
+    """max|diff| <= 2e-4 and <= 1e-4 max|plain| (chip_smoke.py phase 4)."""
+    err = float((got - want).abs().max())
+    return err <= 2e-4 and err <= 1e-4 * float(want.abs().max())
+
+
+def _v1_cycle(cuda, b, t, seed=1):
+    gen = get_model_class("ParallelWaveGANGenerator")(
+        layers=30, stacks=3, aux_channels=80, generator=torch.Generator().manual_seed(0))
+    gen.remove_weight_norm()
+    all_w, all_d = gen.stack_weights()
+    w = {k: v[:10].contiguous().to(cuda) for k, v in all_w.items()}
+    rs = np.random.RandomState(seed)
+    x = torch.from_numpy(rs.randn(b, t, 64).astype(np.float32)).to(cuda)
+    c = torch.from_numpy(rs.randn(b, t, 80).astype(np.float32)).to(cuda)
+    return x, c, w, tuple(all_d[:10])
+
+
+def test_wavenet_v1_cycle_within_a_ten_thousandth(cuda):
+    """One PWG v1 cycle (the generator's weights from seed 0), split made
+    once (``with_fragments``), against the plain version; two runs give the
+    same bits."""
+    from parallelwavegan_tpu_torch.ops.kernels.wavenet import with_fragments
+
+    x, c, w, dil = _v1_cycle(cuda, 1, 4099)
+    wf = with_fragments(w)
+    with torch.inference_mode():
+        got = fused_wavenet_stack(x, c, wf, dil)
+        again = fused_wavenet_stack(x, c, wf, dil)
+        split_per_call = fused_wavenet_stack(x, c, w, dil)
+        torch.cuda.synchronize()
+        want = wavenet_stack_reference(x, c, w, dil)
+    for g, a, p, r in zip(got, again, split_per_call, want):
+        assert _within(g, r), float((g - r).abs().max())
+        assert torch.equal(g, a) and torch.equal(g, p)
+
+
+def test_wavenet_wide_kernel_past_the_rows(cuda):
+    """K = 7 at dilation 512 on 300 rows: every tap but the centre one
+    reads rows outside [0, T), for the stack and the causal block."""
+    w = {k: v.to(cuda) for k, v in _wavenet_weights(2, 64, 80, k=7, seed=5).items()}
+    rs = np.random.RandomState(6)
+    x = torch.from_numpy(rs.randn(2, 300, 64).astype(np.float32)).to(cuda)
+    c = torch.from_numpy(rs.randn(2, 300, 80).astype(np.float32)).to(cuda)
+    args = [w[key][1] for key in WEIGHT_KEYS]
+    with torch.inference_mode():
+        got = fused_wavenet_stack(x, c, w, (512, 256))
+        blk = fused_gated_resblock(x, c, *args, dilation=512, causal=True)
+        torch.cuda.synchronize()
+        want = wavenet_stack_reference(x, c, w, (512, 256))
+        want_blk = gated_resblock_reference(x, c, *args, dilation=512, causal=True)
+    for g, r in zip((*got, *blk), (*want, *want_blk)):
+        assert _within(g, r), float((g - r).abs().max())
+
+
+def test_gated_resblock_causal_narrow(cuda):
+    """K5 at C = 16, causal, with an aux width that is not a multiple of 4
+    (4-byte copies) and the block's split passed in."""
+    from parallelwavegan_tpu_torch.ops.kernels.wavenet import with_fragments
+
+    w = _wavenet_weights(1, 16, 10, k=3, seed=7)
+    blk = with_fragments({key: v[0].to(cuda) for key, v in w.items()})
+    args = [blk[key] for key in WEIGHT_KEYS]
+    rs = np.random.RandomState(8)
+    x = torch.from_numpy(rs.randn(3, 777, 16).astype(np.float32)).to(cuda)
+    c = torch.from_numpy(rs.randn(3, 777, 10).astype(np.float32)).to(cuda)
+    before = fused_gated_resblock.launches
+    with torch.inference_mode():
+        got = fused_gated_resblock(x, c, *args, dilation=8, causal=True,
+                                   fragments=blk["frag"])
+        torch.cuda.synchronize()
+        want = gated_resblock_reference(x, c, *args, dilation=8, causal=True)
+    assert fused_gated_resblock.launches == before + 1
+    for g, r in zip(got, want):
+        assert _within(g, r), float((g - r).abs().max())
+
+
+def test_wavenet_fragments_refuse_a_wrong_width(cuda):
+    from parallelwavegan_tpu_torch.ops.kernels.tf32x3 import wavenet_fragments
+
+    w = {k: v.to(cuda) for k, v in _wavenet_weights(1, 64, 80).items()}
+    with pytest.raises(ValueError, match="wavenet_fragments: wres"):
+        wavenet_fragments(dict(w, wres=w["wres"][:, :, :32]))
+    x = torch.zeros(1, 16, 64, device=cuda)
+    c = torch.zeros(1, 16, 80, device=cuda)
+    stale = dict(w, frag=wavenet_fragments(w)[:, :-1])  # one k-step short
+    with pytest.raises(ValueError, match="frag has shape"):
+        with torch.inference_mode():
+            fused_wavenet_stack(x, c, stale, (1,))
 
 
 def test_pwg_generator_through_the_kernels(cuda):
