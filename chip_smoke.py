@@ -7,15 +7,25 @@ Phases (any failure exits non-zero; nothing is caught):
 1. Preconditions and build: a CUDA device must be present; every kernel
    source (``ops/kernels/csrc/*.cu``) is compiled from this checkout, one
    nvcc process per source, all started together, into one library.
-2. HiFi-GAN tail kernel against its plain PyTorch version at the HiFi-GAN
-   v1 tail shapes (B=1, T0=32768, C0=128: the tail of a 512-frame decode)
-   and on one ragged case (B=2, T0=1000), max |diff| <= 2e-4, with
-   CUDA-event times.
+2. HiFi-GAN tail kernel (K1; its residual units split TF32 on the tensor
+   cores) against its plain PyTorch version at the HiFi-GAN v1 tail shapes
+   (B=1, T0=32768, C0=128: the tail of a 512-frame decode) and on one
+   ragged case (B=2, T0=1000), on decode's weights and on random weights
+   of gain one at the same shapes, max |diff| <= 2e-4 and <= 1e-4
+   max|plain|, two runs (and a run that splits its weights) bit for bit,
+   with a neighbouring dilation's split and the split's lo halves zeroed
+   as controls that the check must reject on the latter; CUDA-event times with the weights'
+   split that decode keeps and splitting per call, beside the bounds at
+   the split-TF32 and float32 rates; a torch.profiler split of one call
+   by kernel; the residual-unit kernels' registers, spills and SASS counts
+   (``ops/kernels/sass.py``); the HiFi-GAN v1 forward at 512 frames with
+   the tail and without.
 3. HiFi-GAN v1 decode through ``parallelwavegan_tpu_torch.bin.decode.main``:
    a random-init, full-width checkpoint, stats and a 3-utterance npy dump
    directory are written to a scratch directory in the checkout and
    decoded with ``--use-pallas-tail`` (the kernel must launch once per
-   utterance) and again with the tail off; the two must agree to 2e-4.
+   utterance, every residual unit on the tensor cores) and again with the
+   tail off; the two must agree to 2e-4.
 4. The WaveNet layer kernel against its plain version at Parallel WaveGAN
    v1 widths (residual 64, gate 128, skip 64, aux 80): one dilation cycle
    (1..512) at B=1, T=131072 (512 frames) with CUDA-event times (with the
@@ -47,7 +57,10 @@ Phases (any failure exits non-zero; nothing is caught):
 8. The MRF kernel (K2) against its plain version: HiFi-GAN v1's stage 2
    and 3 shapes (1, 65536, 64) and (1, 131072, 32), stage 1's (1, 32768,
    128) (the width ``pallas_mrf_max_channels: 128`` sends), and a ragged
-   B=2, T=1000 case.
+   B=2, T=1000 case, each within 2e-4 and 1e-4 max|plain|, bit for bit in
+   two runs, on decode's weights and on random weights of gain one, with
+   phase 2's two controls rejected on the latter; times with the split
+   kept and per call, beside both bounds.
 9. The split of the MB-MelGAN v2 forward at 512 frames: input conv and
    stage 0, stage 1, stage 2 with the final conv (each with and without
    K6), and PQMF synthesis.
@@ -150,18 +163,18 @@ Phases (any failure exits non-zero; nothing is caught):
    launches per utterance, noise padded to 352 frames).
 
 Phase 3 also decodes HiFi-GAN v1 with ``use_pallas_mrf: true`` in the
-config (K2 called twice per utterance, stages 2 and 3, 8 launches) and
-holds it to the plain decode. Launch counts are reset just before each
-decode and read just after it.
+config (K2 called twice per utterance, stages 2 and 3, 8 launches, every
+residual unit on the tensor cores) and holds it to the plain decode.
+Launch counts are reset just before each decode and read just after it.
 
 The last three lines are the kernel record (JSON), the card's name and
 power limit from nvidia-smi, and {"ok": true, "device": {...}}. Every
 bound in the record is the larger of the bytes each call must move (each
 input read once, each output written once) over 3.35 TB/s and its float32
 operations over 67 TFLOP/s, the H100 SXM data-sheet peaks at 700 W; for
-the kernels that multiply in split TF32 on the tensor cores (K3, K4, K5,
-K7, K8, K9), three TF32 operations per multiply-add's two over 495 TFLOP/s
-instead.
+the kernels that multiply in split TF32 on the tensor cores (K1, K2, K3,
+K4, K5, K7, K8, K9), three TF32 operations per multiply-add's two over 495
+TFLOP/s instead.
 """
 
 from __future__ import annotations
@@ -360,6 +373,7 @@ def _reset_launch_counts() -> None:
     )
     from parallelwavegan_tpu_torch.ops.kernels.hifigan_tail import (
         fused_hifigan_tail,
+        run_mrf,
     )
     from parallelwavegan_tpu_torch.ops.kernels.melgan_stack import (
         fused_melgan_stacks,
@@ -387,6 +401,7 @@ def _reset_launch_counts() -> None:
 
     for fn in (fused_melgan_stacks, fused_hifigan_mrf):
         fn.launches = fn.calls = 0
+    run_mrf.tensor_core_launches = run_mrf.cuda_core_launches = 0
     fused_tade_blocks.calls = 0
     fused_tade_blocks.launches_k8a = fused_tade_blocks.launches_k8b = 0
     tade_block_backward.launches_k9a = tade_block_backward.launches_k9b = 0
@@ -445,8 +460,99 @@ def _wavenet_work(x, c, w) -> dict:
     return _bound(2.0 * b * t * n * mac_per_row, nbytes)
 
 
+def _unit_gain_blocks(rs, c: int) -> list:
+    """An MRF of v1's structure (K = 3, 7, 11 at dilations 1, 3, 5) at
+    width c with random weights of gain about one (N(0, 2 / (K c))) and
+    biases of 0.1, split as decode splits them: every unit's branch is as
+    large as its input, so that one TF32 product per weight shows. On the
+    generator's initial weights a branch is a fraction of its input, and
+    the check cannot see it (tests/test_torch_port_hifigan_tf32x3.py's
+    emulation: 6.8e-6 against a limit of 8.5e-6 on the v1 tail at T0 =
+    300)."""
+    import numpy as np
+    import torch
+
+    from parallelwavegan_tpu_torch.ops.kernels.hifigan_tail import with_fragments
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to("cuda")
+
+    return with_fragments([
+        {"w1": t(rs.randn(3, k, c, c) * (2.0 / (k * c)) ** 0.5), "b1": t(rs.randn(3, c) * 0.1),
+         "w2": t(rs.randn(3, k, c, c) * (2.0 / (k * c)) ** 0.5), "b2": t(rs.randn(3, c) * 0.1),
+         "dilations": (1, 3, 5)} for k in (3, 7, 11)])
+
+
+def _unit_gain_tail(rs) -> dict:
+    """The v1 tail's bundle (C0 = 128, two stride-2 stages, the output conv
+    to 1) with ``_unit_gain_blocks`` MRFs, transposed convs of gain one and
+    an output conv of gain 0.3 (the output's tanh below saturation)."""
+    import numpy as np
+    import torch
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32)).to("cuda")
+
+    stages = [{"deconv_w": t(rs.randn(4, cin, cin // 2) / (2 * cin) ** 0.5),
+               "deconv_b": t(rs.randn(cin // 2) * 0.1), "stride": 2, "padding": 1,
+               "blocks": _unit_gain_blocks(rs, cin // 2)} for cin in (128, 64)]
+    return {"pre_blocks": _unit_gain_blocks(rs, 128), "stages": stages,
+            "final_w": t(rs.randn(7, 32, 1) * 0.3 / (7 * 32) ** 0.5),
+            "final_b": t(rs.randn(1) * 0.1)}
+
+
+def _without_split(blocks) -> list:
+    """The blocks without the split they carry: a call on them makes it."""
+    return [{k: v for k, v in blk.items() if k not in ("f1", "f2")} for blk in blocks]
+
+
+def _mrf_controls(blocks) -> dict:
+    """Two wrong splits of an MRF's blocks that the check must reject: unit
+    d reading dilation d + 1's fragments, and fragments whose lo halves are
+    zero (one TF32 product per weight)."""
+    import torch
+
+    lo = torch.tensor([1, 3], device=blocks[0]["f1"].device)
+    return {
+        "a neighbouring dilation's split": [
+            dict(blk, f1=blk["f1"].roll(-1, 0), f2=blk["f2"].roll(-1, 0)) for blk in blocks],
+        "the split's lo halves zeroed": [
+            dict(blk, f1=blk["f1"].index_fill(-1, lo, 0.0),
+                 f2=blk["f2"].index_fill(-1, lo, 0.0)) for blk in blocks],
+    }
+
+
+def _within(got, want) -> tuple:
+    """(max|got - want|, its ratio to max|want|, whether both bounds hold:
+    2e-4 and 1e-4 max|want|); fails on a wrong shape or non-finite output."""
+    import torch
+
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        _fail(f"shapes {tuple(got.shape)} vs {tuple(want.shape)} or non-finite "
+              "kernel output")
+    err = float((got - want).abs().max())
+    ratio = err / float(want.abs().max())
+    return err, ratio, err <= TOL and ratio <= 1e-4
+
+
+def _resunit_resources(label: str) -> None:
+    """The residual-unit kernels' registers, spills and SASS counts."""
+    from parallelwavegan_tpu_torch.ops.kernels import build, sass
+
+    usage = sass.resource_usage(os.path.join(build.CSRC, "hifigan_tail.cu"))
+    for kernel, use in usage.items():
+        if kernel.startswith("resunit"):
+            print(f"{label} {kernel}: {use.get('registers')} registers, spill stores "
+                  f"{use.get('spill_stores')} B, loads {use.get('spill_loads')} B; "
+                  f"SASS {use.get('sass')}")
+
+
 def phase_kernel(card: str) -> dict:
-    """Kernel vs plain version at the v1 tail shapes and one ragged case."""
+    """K1 vs its plain version at the v1 tail shapes and one ragged case,
+    max|diff| <= 2e-4 and <= 1e-4 max|plain|, with controls that the check
+    must reject (a neighbouring dilation's split, the lo halves zeroed),
+    two runs bit for bit, both bounds, a profiler split by kernel, the
+    residual units' registers and SASS counts, and the v1 forward."""
     import numpy as np
     import torch
 
@@ -454,47 +560,110 @@ def phase_kernel(card: str) -> dict:
     from parallelwavegan_tpu_torch.ops.kernels.hifigan_tail import (
         fused_hifigan_tail,
         hifigan_tail_reference,
+        run_mrf,
     )
+    from parallelwavegan_tpu_torch.ops.kernels.time_melgan import by_kernel
 
-    gen = get_model_class("HiFiGANGenerator")(
-        **V1_GENERATOR, use_pallas_tail=True, device="cuda",
-        generator=torch.Generator().manual_seed(SEED),
-    )
-    gen.remove_weight_norm()
-    gen.eval()
-    w = gen.tail_weights()
-    args = (w["stages"], w["final_w"], w["final_b"])
-    kw = dict(slope=gen.slope, pre_blocks=w["pre_blocks"])
+    def v1(**flags):
+        gen = get_model_class("HiFiGANGenerator")(
+            **V1_GENERATOR, **flags, device="cuda",
+            generator=torch.Generator().manual_seed(SEED))
+        gen.remove_weight_norm()
+        gen.eval()
+        gen.prepare_kernels()
+        return gen
+
+    gen = v1(use_pallas_tail=True)
+    kept, per_call = gen._tail_cache, gen.tail_weights()  # with decode's split, without
     rs = np.random.RandomState(SEED)
-    record = {}
-    for name, (b, t0) in (("v1", (1, 32768)), ("ragged", (2, 1000))):
-        x = torch.from_numpy(
-            (rs.randn(b, t0, 128) * 0.5).astype(np.float32)).to("cuda")
-        with torch.inference_mode():
-            got = fused_hifigan_tail(x, *args, **kw)
-            torch.cuda.synchronize()
-            ref = hifigan_tail_reference(x, *args, **kw)
-            torch.cuda.synchronize()
-        if got.shape != (b, t0 * 4, 1) or ref.shape != got.shape:
-            _fail(f"{name}: shapes {tuple(got.shape)} vs {tuple(ref.shape)}")
-        if not torch.isfinite(got).all():
-            _fail(f"{name}: non-finite kernel output")
-        err = float((got - ref).abs().max())
-        print(f"kernel vs plain [{name}] B={b} T0={t0} C0=128: "
-              f"max|diff| = {err:.3e} (tol {TOL})")
-        if not err <= TOL:
-            _fail(f"{name}: kernel disagrees with its plain version")
-        record[f"{name}_err"] = err
-        if name == "v1":
-            with torch.inference_mode():
-                record["ms"] = _median_ms(lambda: fused_hifigan_tail(x, *args, **kw))
-                record["plain_ms"] = _median_ms(
-                    lambda: hifigan_tail_reference(x, *args, **kw))
-            record.update(_tail_work(x, w))
-            print(f"time [v1, median of 10, CUDA events]: kernel "
-                  f"{record['ms']:.3f} ms, plain {record['plain_ms']:.3f} ms, "
-                  f"bound {record['bound_ms']:.3f} ms ({record['flops'] / 1e9:.1f} "
-                  f"GFLOP, {record['bytes'] / 1e6:.1f} MB) on {card}")
+    unit = _unit_gain_tail(rs)
+
+    def tail(x, w):
+        return fused_hifigan_tail(x, w["stages"], w["final_w"], w["final_b"],
+                                  slope=gen.slope, pre_blocks=w["pre_blocks"])
+
+    def plain(x, w=per_call):
+        return hifigan_tail_reference(x, w["stages"], w["final_w"], w["final_b"],
+                                      slope=gen.slope, pre_blocks=w["pre_blocks"])
+
+    def with_blocks(w, fn):  # the bundle with fn applied to every MRF's blocks
+        return dict(w, pre_blocks=fn(w["pre_blocks"]) if w["pre_blocks"] else None,
+                    stages=[dict(st, blocks=fn(st["blocks"])) for st in w["stages"]])
+
+    bundles = {"decode's weights": (kept, per_call),
+               "unit-gain weights": (unit, with_blocks(unit, _without_split))}
+    record = {"errs": []}
+    with torch.inference_mode():
+        for name, (b, t0) in (("v1", (1, 32768)), ("ragged", (2, 1000))):
+            x = torch.from_numpy(
+                (rs.randn(b, t0, 128) * 0.5).astype(np.float32)).to("cuda")
+            for label, (w, w_split) in bundles.items():
+                run_mrf.tensor_core_launches = run_mrf.cuda_core_launches = 0
+                got = tail(x, w)
+                torch.cuda.synchronize()
+                routes = (run_mrf.tensor_core_launches, run_mrf.cuda_core_launches)
+                ref = plain(x, w_split)
+                torch.cuda.synchronize()
+                if got.shape != (b, t0 * 4, 1):
+                    _fail(f"{name}: shape {tuple(got.shape)}")
+                err, ratio, ok = _within(got, ref)
+                print(f"K1 vs plain [{name} B={b} T0={t0} C0=128, {label}]: max|diff| = "
+                      f"{err:.3e} (tol {TOL}), {ratio:.2e} of max|plain| (tol 1e-4); "
+                      f"residual-unit launches on the tensor cores {routes[0]}, on the "
+                      f"CUDA cores {routes[1]}")
+                if not ok:
+                    _fail(f"{name}, {label}: K1 disagrees with its plain version")
+                if routes != (9, 0):
+                    _fail(f"{name}: residual-unit routes {routes}, expected all 9 "
+                          "launches (3 MRFs x 3 dilation depths) on the tensor cores")
+                record["errs"].append(err)
+                same = torch.equal(got, tail(x, w)) and torch.equal(got, tail(x, w_split))
+                print(f"K1 determinism [{name}, {label}]: two runs, and a run that "
+                      f"splits its weights, bitwise equal = {same}")
+                if not same:
+                    _fail(f"K1 gives different outputs in two runs ({name}, {label})")
+            ref = plain(x, unit)
+            for control in _mrf_controls(unit["pre_blocks"]):
+                bad = with_blocks(unit, lambda bl, c=control: _mrf_controls(bl)[c])
+                cerr, cratio, cok = _within(tail(x, bad), ref)
+                print(f"K1 check control [{name}, unit-gain weights, {control}]: "
+                      f"max|diff| = {cerr:.3e}, {cratio:.2e} of max|plain|: rejected = "
+                      f"{not cok}")
+                if cok:
+                    _fail(f"phase 2's check accepts K1 with {control} ({name})")
+            if name == "v1":
+                record["ms"] = _median_ms(lambda: tail(x, kept))
+                record["split_per_call_ms"] = _median_ms(lambda: tail(x, per_call))
+                record["plain_ms"] = _median_ms(lambda: plain(x))
+                record.update(_tail_work(x, kept))
+                fp32_ms = _split_tf32_bound(record)
+                print(f"time [K1, v1 tail, median of 10, CUDA events]: kernel "
+                      f"{record['ms']:.3f} ms (split kept, as decode), "
+                      f"{record['split_per_call_ms']:.3f} ms splitting the weights per "
+                      f"call, plain {record['plain_ms']:.3f} ms, bound "
+                      f"{record['bound_ms']:.3f} ms at the split-TF32 rate (3 x "
+                      f"{record['flops'] / 1e9:.1f} GFLOP / 495 TFLOP/s; "
+                      f"{record['bound_ms'] / record['ms']:.1%} of it), {fp32_ms:.3f} ms at "
+                      f"the float32 CUDA-core rate ({fp32_ms / record['ms']:.1%}; "
+                      f"{record['bytes'] / 1e6:.1f} MB) on {card}")
+                from torch.profiler import ProfilerActivity, profile
+
+                tail(x, kept)
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    tail(x, kept)
+                    torch.cuda.synchronize()
+                split = by_kernel(prof)
+                total = sum(ms for ms, _ in split.values())
+                print(f"K1 one v1 call, device time by kernel (torch.profiler): "
+                      f"{total:.3f} ms on {card}: "
+                      + "; ".join(f"{k} {ms:.3f} ms ({ms / total:.1%}, {m} launches)"
+                                  for k, (ms, m) in split.items()))
+        plain_gen = v1()
+        mel = torch.from_numpy(rs.randn(1, 80, 512).astype(np.float32)).to("cuda")
+        fwd, fwd_plain = _median_ms(lambda: gen(mel)), _median_ms(lambda: plain_gen(mel))
+    print(f"HiFi-GAN v1 forward, 512 frames, B=1, median of 10, CUDA events: with the "
+          f"tail kernel {fwd:.3f} ms, plain {fwd_plain:.3f} ms on {card}")
+    _resunit_resources("K1/K2")
     return record
 
 
@@ -592,6 +761,7 @@ def phase_decode(card: str) -> dict:
     )
     from parallelwavegan_tpu_torch.ops.kernels.hifigan_tail import (
         fused_hifigan_tail,
+        run_mrf,
     )
 
     p = _write_inputs("HiFiGANGenerator", V1_GENERATOR,
@@ -601,9 +771,12 @@ def phase_decode(card: str) -> dict:
     common = ["--dumpdir", p["dump"], "--checkpoint", p["ckpt"],
               "--normalize-before", "--device", "cuda"]
     n = len(UTT_FRAMES)
-    # tail: one call per utterance; mrf: stages 2 and 3 (C = 64, 32), each
-    # 3 resunit launches (one per dilation depth) and a mean
-    expect = {"tail": (n, 0, 0), "mrf": (0, 2 * n, 8 * n), "plain": (0, 0, 0)}
+    # tail: one call per utterance (15 launches: 3 MRFs of 3 resunit
+    # launches and a mean, 2 deconvs, the output conv); mrf: stages 2 and 3
+    # (C = 64, 32), each 3 resunit launches (one per dilation depth) and a
+    # mean; every resunit launch on the tensor cores (C = 128, 64, 32)
+    expect = {"tail": (n, 0, 0, 9 * n, 0), "mrf": (0, 2 * n, 8 * n, 6 * n, 0),
+              "plain": (0, 0, 0, 0, 0)}
     res, counts = {}, {}
     for name in ("tail", "mrf", "plain"):
         _reset_launch_counts()
@@ -612,10 +785,13 @@ def phase_decode(card: str) -> dict:
                       "--config", p[name]]
             + (["--use-pallas-tail"] if name == "tail" else []))
         counts[name] = (fused_hifigan_tail.launches, fused_hifigan_mrf.calls,
-                        fused_hifigan_mrf.launches)
+                        fused_hifigan_mrf.launches, run_mrf.tensor_core_launches,
+                        run_mrf.cuda_core_launches)
         print(f"main path [HiFi-GAN v1, {name}]: tail kernel calls = "
               f"{counts[name][0]}, MRF kernel calls = {counts[name][1]} "
-              f"(launches {counts[name][2]}) for {n} utterances")
+              f"(launches {counts[name][2]}); residual-unit launches on the tensor "
+              f"cores {counts[name][3]}, on the CUDA cores {counts[name][4]} for {n} "
+              "utterances")
         if counts[name] != expect[name]:
             _fail(f"HiFi-GAN {name} decode: counts {counts[name]}, expected "
                   f"{expect[name]}")
@@ -1018,8 +1194,10 @@ def phase_melgan_kernel(card: str) -> dict:
 
 def phase_mrf_kernel(card: str) -> dict:
     """K2 vs its plain version at HiFi-GAN v1's MRF shapes (512 frames)
-    and one ragged case. ms, plain_ms and the bound are those of stages 2
-    and 3, one decode's K2 work with the default gate."""
+    and one ragged case, within 2e-4 and 1e-4 max|plain|, bit for bit in
+    two runs, with phase 2's controls rejected. ms, plain_ms and the bound
+    are those of stages 2 and 3, one decode's K2 work with the default
+    gate; stage 1 (K2a) is timed apart."""
     import numpy as np
     import torch
 
@@ -1034,29 +1212,69 @@ def phase_mrf_kernel(card: str) -> dict:
         device="cuda", generator=torch.Generator().manual_seed(SEED))
     gen.remove_weight_norm()
     gen.eval()
+    gen.prepare_kernels()  # decode's blocks, with their split
     rs = np.random.RandomState(SEED)
     slope = gen.slope
     cases = [("v1 stage 2", (1, 65536), 2), ("v1 stage 3", (1, 131072), 3),
              ("v1 stage 1 (K2a width)", (1, 32768), 1), ("ragged B=2 T=1000", (2, 1000), 2)]
-    rec = {"errs": []}
+    rec, k2a = {"errs": []}, {}
     with torch.inference_mode():
         for name, (b, t), stage in cases:
-            blocks = gen.mrf_weights(stage)
-            c = blocks[0]["w1"].shape[-1]
+            kept, per_call = gen._mrf_cache[stage], gen.mrf_weights(stage)
+            c = kept[0]["w1"].shape[-1]
+            unit = _unit_gain_blocks(rs, c)
             x = torch.from_numpy((rs.randn(b, t, c) * 0.5).astype(np.float32)).to("cuda")
-            got = fused_hifigan_mrf(x, blocks, slope=slope)
-            torch.cuda.synchronize()
-            want = hifigan_mrf_reference(x, blocks, slope=slope)
-            torch.cuda.synchronize()
-            rec["errs"].append(_check_close(f"K2 {name} C={c}", got, want))
-            if name.startswith("v1"):
-                work = _mrf_work(x, blocks)
-                target = rec if stage in (2, 3) else {}
-                _timed(target, f"K2 {name} B={b} T={t} C={c}", card,
-                       lambda: fused_hifigan_mrf(x, blocks, slope=slope),
-                       lambda: hifigan_mrf_reference(x, blocks, slope=slope), work)
-    print(f"K2 per 512-frame decode (stages 2 and 3): kernel {rec['ms']:.3f} ms, "
-          f"plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms on {card}")
+            for label, (w, w_split) in (("decode's weights", (kept, per_call)),
+                                        ("unit-gain weights", (unit, _without_split(unit)))):
+                got = fused_hifigan_mrf(x, w, slope=slope)
+                torch.cuda.synchronize()
+                want = hifigan_mrf_reference(x, w_split, slope=slope)
+                torch.cuda.synchronize()
+                err, ratio, ok = _within(got, want)
+                print(f"K2 vs plain [{name} C={c}, {label}]: max|diff| = {err:.3e} (tol "
+                      f"{TOL}), {ratio:.2e} of max|plain| (tol 1e-4)")
+                if not ok:
+                    _fail(f"K2 {name}, {label}: kernel disagrees with its plain version")
+                rec["errs"].append(err)
+                same = (torch.equal(got, fused_hifigan_mrf(x, w, slope=slope)) and
+                        torch.equal(got, fused_hifigan_mrf(x, w_split, slope=slope)))
+                print(f"K2 determinism [{name}, {label}]: two runs, and a run that "
+                      f"splits its weights, bitwise equal = {same}")
+                if not same:
+                    _fail(f"K2 gives different outputs in two runs ({name}, {label})")
+            want = hifigan_mrf_reference(x, unit, slope=slope)
+            for control, bad in _mrf_controls(unit).items():
+                cerr, cratio, cok = _within(fused_hifigan_mrf(x, bad, slope=slope), want)
+                print(f"K2 check control [{name}, unit-gain weights, {control}]: "
+                      f"max|diff| = {cerr:.3e}, {cratio:.2e} of max|plain|: rejected = "
+                      f"{not cok}")
+                if cok:
+                    _fail(f"phase 8's check accepts K2 with {control} ({name})")
+            if not name.startswith("v1"):
+                continue
+            target = rec if stage in (2, 3) else k2a
+            work = _mrf_work(x, per_call)
+            times = {"ms": _median_ms(lambda: fused_hifigan_mrf(x, kept, slope=slope)),
+                     "split_per_call_ms": _median_ms(
+                         lambda: fused_hifigan_mrf(x, per_call, slope=slope)),
+                     "plain_ms": _median_ms(
+                         lambda: hifigan_mrf_reference(x, per_call, slope=slope)),
+                     "flops": work["flops"], "bytes": work["bytes"]}
+            print(f"time [K2 {name} B={b} T={t} C={c}, median of 10, CUDA events]: "
+                  f"kernel {times['ms']:.3f} ms (split kept), "
+                  f"{times['split_per_call_ms']:.3f} ms splitting per call, plain "
+                  f"{times['plain_ms']:.3f} ms ({work['flops'] / 1e9:.2f} GFLOP) on {card}")
+            for k, v in times.items():
+                target[k] = target.get(k, 0.0) + v
+    for label, r in (("K2b per 512-frame decode (stages 2 and 3)", rec),
+                     ("K2a, stage 1's MRF", k2a)):
+        r.update(_bound(r["flops"], r["bytes"]))
+        fp32_ms = _split_tf32_bound(r)
+        print(f"{label}: kernel {r['ms']:.3f} ms (split kept), "
+              f"{r['split_per_call_ms']:.3f} ms splitting per call, plain "
+              f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms at the split-TF32 "
+              f"rate ({r['bound_ms'] / r['ms']:.1%} of it), {fp32_ms:.3f} ms at the "
+              f"float32 rate ({fp32_ms / r['ms']:.1%}) on {card}")
     return rec
 
 
@@ -2597,7 +2815,6 @@ def main() -> None:
                 # no single PyTorch call computes any of these functions
                 "library_ms": None}
 
-    kern["errs"] = [kern["v1_err"], kern["ragged_err"]]
     record = {"kernels": [
         entry("fused_hifigan_tail", "hifigan_tail.cu", "hifigan_tail.py:256",
               dec["launches"], kern),

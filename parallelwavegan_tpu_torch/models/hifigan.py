@@ -45,6 +45,7 @@ from parallelwavegan_tpu_torch.ops.kernels.hifigan_mrf import (
 )
 from parallelwavegan_tpu_torch.ops.kernels.hifigan_tail import (
     fused_hifigan_tail,
+    with_fragments,
 )
 
 
@@ -179,11 +180,14 @@ class HiFiGANGenerator(nn.Module):
                               slope=self.slope)
         return y.transpose(1, 2)
 
-    def mrf_weights(self, i: int) -> list:
+    def mrf_weights(self, i: int, fragments: bool = False) -> list:
         """Stage ``i``'s resblocks in the block form of
-        ``fused_hifigan_mrf``, from the current effective weights."""
+        ``fused_hifigan_mrf``, from the current effective weights; with
+        ``fragments``, also their split for the tensor cores
+        (``with_fragments``)."""
         nb = self.num_blocks
-        return [self.blocks[i * nb + j].gather_weights() for j in range(nb)]
+        blocks = [self.blocks[i * nb + j].gather_weights() for j in range(nb)]
+        return with_fragments(blocks) if fragments else blocks
 
     def _fused_tail(self, c: torch.Tensor) -> torch.Tensor:
         if torch.is_grad_enabled():
@@ -198,14 +202,15 @@ class HiFiGANGenerator(nn.Module):
         )
         return y.transpose(1, 2)
 
-    def tail_weights(self) -> dict:
+    def tail_weights(self, fragments: bool = False) -> dict:
         """The weight bundle of ``fused_hifigan_tail`` in the JAX gather
-        form (hifigan_tail.py:86-90), from the current effective weights."""
-        nb = self.num_blocks
+        form (hifigan_tail.py:86-90), from the current effective weights;
+        with ``fragments``, each MRF's blocks also carry their split for the
+        tensor cores (``with_fragments``)."""
         tf = self.tail_from
 
         def blocks(i):
-            return [self.blocks[i * nb + j].gather_weights() for j in range(nb)]
+            return self.mrf_weights(i, fragments)
 
         stages = []
         for i in range(tf, len(self.upsample_scales)):
@@ -226,11 +231,14 @@ class HiFiGANGenerator(nn.Module):
         }
 
     def prepare_kernels(self) -> None:
-        """Build the tail and MRF weight bundles once, for decode. Call it
-        after the weights are loaded, folded and on their device; loading
-        weights or moving the module afterwards drops the bundles again."""
-        self._tail_cache = self.tail_weights() if self.tail_from is not None else None
-        self._mrf_cache = {i: self.mrf_weights(i) for i in self.mrf_stages}
+        """Build the tail and MRF weight bundles once, for decode, with the
+        residual units' weights split for the tensor cores. Call it after
+        the weights are loaded, folded and on their device; loading weights
+        or moving the module afterwards drops the bundles again."""
+        self._tail_cache = (self.tail_weights(fragments=True)
+                            if self.tail_from is not None else None)
+        self._mrf_cache = {i: self.mrf_weights(i, fragments=True)
+                           for i in self.mrf_stages}
 
     def remove_weight_norm(self) -> None:
         remove_weight_norm(self)

@@ -37,9 +37,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # n, then arrays of n: x, out, w1, b1, w2, b2, K, dil; B, T, C, slope,
-    # device, stream
-    "hifigan_resunits": [_I] + [_P] * 8 + [_I] * 3 + [_F, _I, _P],
+    # n, then arrays of n: x, out, w1, b1, w2, b2, f1, f2, K, dil; B, T, C,
+    # slope, device, stream
+    "hifigan_resunits": [_I] + [_P] * 10 + [_I] * 3 + [_F, _I, _P],
     # n, array of n sources, out, numel, device, stream
     "hifigan_mean": [_I, _P, _P, ctypes.c_longlong, _I, _P],
     # x, y, w, b, B, T, Tout, Cin, Cout, K, stride, pad, slope, device, stream

@@ -13,8 +13,12 @@ arrays to both packages: x is (B, T, C) and ``blocks`` is a list of
 For a CUDA tensor ``fused_hifigan_mrf`` runs the port's residual-unit
 kernel (csrc/hifigan_tail.cu, ``hifigan_resunits`` and ``hifigan_mean``,
 the kernels that run the MRFs inside the decode tail): one launch per
-dilation depth across the stage's resblocks, then one for the mean. For a
-CPU tensor it runs the plain PyTorch version ``hifigan_mrf_reference``. A
+dilation depth across the stage's resblocks, then one for the mean. At
+widths 16-128 the units run on the tensor cores in split TF32, on the
+weights' split that the blocks carry as ``f1``/``f2``
+(``hifigan_tail.with_fragments``, which decode's ``prepare_kernels``
+calls once) or that each call makes. For a CPU tensor it runs the plain
+PyTorch version ``hifigan_mrf_reference``, which ignores the split. A
 CUDA tensor never takes the plain path. The kernel has no backward, so a
 forward that would need gradients raises.
 """
@@ -28,6 +32,7 @@ from parallelwavegan_tpu_torch.ops.kernels.hifigan_tail import (
     _mrf,
     run_mrf,
 )
+from parallelwavegan_tpu_torch.ops.kernels.tf32x3 import MRF_WIDTHS
 
 
 def hifigan_mrf_reference(x, blocks, *, slope: float = 0.1):
@@ -39,7 +44,8 @@ def _check_cuda_inputs(x, blocks) -> None:
     if x.dim() != 3:
         raise ValueError(f"x must be (B, T, C), got shape {tuple(x.shape)}")
     b, t, c = x.shape
-    build.check_tensor("x", x, x.device, (b, t, c))
+    # the tensor-core residual units read x in 16-byte pieces
+    build.check_tensor("x", x, x.device, (b, t, c), align=16 if c in MRF_WIDTHS else 0)
     if c not in _WIDTHS:
         raise ValueError(f"MRF width {c} is not a power of two <= 128, the "
                          "widths the residual-unit kernel is built for")
@@ -51,9 +57,12 @@ def fused_hifigan_mrf(x, blocks, *, slope: float = 0.1):
 
     A CUDA tensor goes through the residual-unit kernel (C a power of two
     <= 128, 1 to 8 resblocks with w2/b2, odd kernel sizes; float32,
-    contiguous) and raises on anything it does not take; a CPU tensor
-    goes through ``hifigan_mrf_reference``. ``fused_hifigan_mrf.calls``
-    counts the calls that ran the kernel, ``.launches`` its launches.
+    contiguous; each block's split ``f1``/``f2`` of ``with_fragments``
+    used where it has one) and raises on anything it does not take; a CPU
+    tensor goes through ``hifigan_mrf_reference``.
+    ``fused_hifigan_mrf.calls`` counts the calls that ran the kernel,
+    ``.launches`` its launches (``run_mrf``'s counters split the
+    residual-unit launches by route).
     """
     build.refuse_training("the fused MRF kernel (K2)", [x] + [
         blk[k] for blk in blocks for k in ("w1", "b1", "w2", "b2") if k in blk])

@@ -12,7 +12,13 @@ dilations}.
 (csrc/hifigan_tail.cu) for a CUDA tensor and the plain PyTorch version
 ``hifigan_tail_reference`` for a CPU tensor; a CUDA tensor never takes the
 plain path. The TPU kernel's block-matrix lane packing is not carried
-over: the CUDA kernel reads the gather-form weights as they are.
+over. At widths 16-128 the residual units run on the tensor cores in split
+TF32 and read each conv's weights split into TF32 hi and lo in the mma
+fragments' order (``tf32x3.mrf_fragments``): a block dict may carry that
+split as ``f1``/``f2`` (``with_fragments``, which decode's
+``prepare_kernels`` calls once), else each call makes it. Below 16 they
+run on the CUDA cores from the gather-form weights; the plain version
+ignores the split.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from parallelwavegan_tpu_torch.ops.kernels import build
+from parallelwavegan_tpu_torch.ops.kernels.tf32x3 import MRF_WIDTHS, mrf_fragments
 
 # ---------------------------------------------------------------------------
 # plain version (port of hifigan_tail_xla / hifigan_mrf_xla)
@@ -77,6 +84,7 @@ def _check_blocks(name, blocks, device, c):
     if not 1 <= len(blocks) <= _MAX_CHAINS:
         raise ValueError(f"{name}: 1 to {_MAX_CHAINS} resblocks per MRF, "
                          f"got {len(blocks)}")
+    tc = c in MRF_WIDTHS
     for bi, blk in enumerate(blocks):
         if "w2" not in blk:
             raise ValueError(f"{name}[{bi}]: the kernel needs w2/b2 "
@@ -85,18 +93,23 @@ def _check_blocks(name, blocks, device, c):
         if k % 2 == 0 or any(int(d) < 1 for d in blk["dilations"]):
             raise ValueError(f"{name}[{bi}]: odd kernel size and positive "
                              "dilations required")
-        for key, shape in (("w1", (n, k, c, c)), ("b1", (n, c)),
-                           ("w2", (n, k, c, c)), ("b2", (n, c))):
-            # w1/w2 are copied in 16-byte pieces (cp.async)
+        shapes = {"w1": ((n, k, c, c), 16), "b1": ((n, c), 8 if tc else 0),
+                  "w2": ((n, k, c, c), 16), "b2": ((n, c), 8 if tc else 0)}
+        if tc:  # the split, where the block carries it, copied in 16-byte pieces
+            shapes.update({key: ((n, k * c // 8, c // 8, 32, 4), 16)
+                           for key in ("f1", "f2") if blk.get(key) is not None})
+        for key, (shape, align) in shapes.items():
+            # biases are read in 8-byte pieces on the tensor cores
             build.check_tensor(f"{name}[{bi}].{key}", blk[key], device, shape,
-                               align=16 if key in ("w1", "w2") else 0)
+                               align=align)
 
 
 def _check_cuda_inputs(x, stages, final_w, final_b, pre_blocks):
     if x.dim() != 3:
         raise ValueError(f"x must be (B, T, C), got shape {tuple(x.shape)}")
     b, t, c = x.shape
-    build.check_tensor("x", x, x.device, (b, t, c))
+    # the tensor-core residual units read x in 16-byte pieces
+    build.check_tensor("x", x, x.device, (b, t, c), align=16 if c in MRF_WIDTHS else 0)
     if c not in _WIDTHS:
         raise ValueError(f"x width {c} is not a power of two <= 128")
     if pre_blocks is not None:
@@ -117,19 +130,40 @@ def _check_cuda_inputs(x, stages, final_w, final_b, pre_blocks):
 
 
 def _ptrs(tensors):
-    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    """A C array of the tensors' data pointers (null for None)."""
+    return (ctypes.c_void_p * len(tensors))(
+        *[None if t is None else t.data_ptr() for t in tensors])
 
 
 def _ints(values):
     return (ctypes.c_int * len(values))(*values)
 
 
+def with_fragments(blocks):
+    """An MRF's ``blocks`` with the split that the tensor-core residual
+    units read (``f1``, ``f2``; ``tf32x3.mrf_fragments``, one pass for all
+    blocks), for a decode that runs the same weights many times; as they
+    are at a width that runs on the CUDA cores. The split is as stale as
+    the weights it was made from: make it again after they change."""
+    if not blocks or blocks[0]["w1"].shape[-1] not in MRF_WIDTHS:
+        return blocks
+    return [dict(blk, f1=f1, f2=f2) for blk, (f1, f2) in
+            zip(blocks, mrf_fragments(blocks))]
+
+
 def run_mrf(lib, inp, blocks, slope: float, dev: int, stream) -> tuple:
     """One MRF on the current stream: the mean over resblocks, each a chain
     of residual units; the units of one dilation depth of all chains share
-    a ``hifigan_resunits`` launch, then ``hifigan_mean`` averages them.
-    Returns (output, number of launches)."""
+    a ``hifigan_resunits`` launch, then ``hifigan_mean`` averages them. At
+    the tensor-core widths the blocks' split is used where they carry it,
+    else made here (and held until the launches are queued).
+    ``run_mrf.tensor_core_launches`` and ``.cuda_core_launches`` count the
+    residual-unit launches of each route. Returns (output, number of
+    launches)."""
     b, t, c = inp.shape
+    tc = c in MRF_WIDTHS
+    if tc and any(blk.get(k) is None for blk in blocks for k in ("f1", "f2")):
+        blocks = with_fragments(blocks)
     outs = [torch.empty_like(inp) for _ in blocks]
     tmps = [(torch.empty_like(inp), torch.empty_like(inp)) for _ in blocks]
     src = [inp] * len(blocks)
@@ -144,15 +178,24 @@ def run_mrf(lib, inp, blocks, slope: float, dev: int, stream) -> tuple:
                 dst = outs[j] if di == n - 1 else tmps[j][di % 2]
                 units.append((src[j], dst, blk["w1"][di], blk["b1"][di],
                               blk["w2"][di], blk["b2"][di],
+                              *((blk["f1"][di], blk["f2"][di]) if tc else (None, None)),
                               blk["w1"].shape[1], int(blk["dilations"][di])))
                 src[j] = dst
         cols = list(zip(*units))
-        lib.call("hifigan_resunits", len(units), *(_ptrs(col) for col in cols[:6]),
-                 _ints(cols[6]), _ints(cols[7]), b, t, c, slope, dev, stream)
+        lib.call("hifigan_resunits", len(units), *(_ptrs(col) for col in cols[:8]),
+                 _ints(cols[8]), _ints(cols[9]), b, t, c, slope, dev, stream)
+        if tc:
+            run_mrf.tensor_core_launches += 1
+        else:
+            run_mrf.cuda_core_launches += 1
     acc = torch.empty_like(inp)
     lib.call("hifigan_mean", len(outs), _ptrs(outs), acc.data_ptr(),
              acc.numel(), dev, stream)
     return acc, depth + 1
+
+
+run_mrf.tensor_core_launches = 0
+run_mrf.cuda_core_launches = 0
 
 
 def _run_cuda(x, stages, final_w, final_b, slope, pre_blocks):

@@ -1,16 +1,18 @@
 """Split TF32 on the host side: the rounding of csrc/mma_tf32x3.cuh and
 the weight layouts that the kernels read (K9's chain kernel in
 csrc/tade_bwd.cu, K8a and K8b in csrc/tade.cu, K7's row products in
-csrc/melgan_stack_bwd.cu, the WaveNet layer K3/K5 in csrc/wavenet.cu).
+csrc/melgan_stack_bwd.cu, the WaveNet layer K3/K5 in csrc/wavenet.cu, the
+HiFi-GAN residual unit of K1 and K2 in csrc/hifigan_tail.cu).
 
 A float32 value v is split into hi = tf32(v) and lo = tf32(v - hi), both
 TF32 (10 mantissa bits, rounded as ``cvt.rna``: to nearest, ties away
 from zero); a product is then a_lo.b_hi + a_hi.b_lo + a_hi.b_hi on the
 tensor cores. ``conv_fragments`` (a transposed conv's weights),
 ``forward_fragments`` (a forward kernel's three convs),
-``stack_fragments`` (the MelGAN stacks' products) and
-``wavenet_fragments`` (the WaveNet layers' two products) split the weights
-once per call and store them in the order in which ``mma.sync.m16n8k8``
+``stack_fragments`` (the MelGAN stacks' products),
+``wavenet_fragments`` (the WaveNet layers' two products) and
+``mrf_fragments`` (an MRF's residual-unit convs) split the weights once
+per call and store them in the order in which ``mma.sync.m16n8k8``
 takes its B operand, so that the kernel loads a thread's (hi, lo) of both
 B registers with one 16-byte shared-memory load and splits only the
 activations.
@@ -156,3 +158,30 @@ def wavenet_fragments(weights):
     takes."""
     m = wavenet_matrix(weights)
     return _fragments(_pair_columns(m).reshape(m.shape))
+
+
+MRF_WIDTHS = (16, 32, 64, 128)  # the residual unit's tensor-core widths
+
+
+def mrf_fragments(blocks):
+    """The convs of an MRF's resblocks (gather-form ``w1`` and ``w2`` (n_dil,
+    K, C, C) each, C in ``MRF_WIDTHS``) as csrc/hifigan_tail.cu's
+    residual-unit kernel takes them: each dilation's conv w[k] flattened to
+    depth K C, tap major (row k C + ci, the A operand's rows shifted by k
+    dil), in ``_fragments``' layout: one (f1, f2) per block, each (n_dil, K
+    C / 8, C / 8, 32, 4). Every block is split in one pass, into views of
+    one tensor."""
+    mats, steps = [], []
+    c = blocks[0]["w1"].shape[-1] if blocks else 0
+    for bi, blk in enumerate(blocks):
+        for key in ("w1", "w2"):
+            w = blk[key].detach()
+            if w.dim() != 4 or tuple(w.shape[2:]) != (c, c) or c not in MRF_WIDTHS:
+                raise ValueError(f"mrf_fragments takes (n_dil, K, C, C) weights of one "
+                                 f"width C in {MRF_WIDTHS}, got blocks[{bi}].{key} of "
+                                 f"shape {tuple(w.shape)}")
+            mats.append(w.reshape(-1, c))
+            steps.append(w.shape[0] * w.shape[1] * c // 8)
+    parts = _fragments(torch.cat(mats)).split(steps)
+    return [tuple(p.reshape(blk["w1"].shape[0], -1, c // 8, 32, 4)
+                  for p in parts[2 * bi:2 * bi + 2]) for bi, blk in enumerate(blocks)]

@@ -8,6 +8,10 @@ decode and the backward's re-run, split TF32 on the tensor cores) and
 their backward (K9a, K9b). The generator tests also check that no CUDA tensor reaches a plain
 version on the main path.
 
+The HiFi-GAN residual units run on the tensor cores in split TF32 at
+widths 16-128 and on the CUDA cores below; the tests check which route
+each launch took.
+
 These tests need an NVIDIA GPU with sm_90a (Hopper) and nvcc; elsewhere
 they skip. They import no JAX, so they run on a machine that has only
 torch (``tests/conftest.py`` imports jax, hence ``--noconftest``):
@@ -66,6 +70,14 @@ def _generator(channels, seed=0):
     return gen.eval()
 
 
+def _routes():
+    from parallelwavegan_tpu_torch.ops.kernels.hifigan_tail import run_mrf
+
+    return run_mrf.tensor_core_launches, run_mrf.cuda_core_launches
+
+
+# tail widths (pre-MRF, stage 1, stage 2): 128, 64, 32 (tensor cores); 8,
+# 4, 2 (CUDA cores); 32, 16, 8 (both)
 @pytest.mark.parametrize("channels,b,t0", [(512, 1, 777), (512, 2, 64),
                                            (32, 3, 130), (128, 1, 1)])
 def test_kernel_matches_plain_version(cuda, channels, b, t0):
@@ -76,13 +88,55 @@ def test_kernel_matches_plain_version(cuda, channels, b, t0):
                          .astype(np.float32)).to(cuda)
     args = (x, w["stages"], w["final_w"], w["final_b"])
     kw = dict(slope=gen.slope, pre_blocks=w["pre_blocks"])
-    before = fused_hifigan_tail.launches
+    before, routes = fused_hifigan_tail.launches, _routes()
     got = fused_hifigan_tail(*args, **kw)
     torch.cuda.synchronize()
     assert fused_hifigan_tail.launches == before + 1
+    tc = sum(3 for c in (c0, c0 // 2, c0 // 4) if c >= 16)  # 3 dilation depths
+    assert _routes() == (routes[0] + tc, routes[1] + 9 - tc)
     want = hifigan_tail_reference(*args, **kw)
     assert got.shape == want.shape == (b, t0 * 4, 1)
-    assert float((got - want).abs().max()) <= 2e-4
+    err = float((got - want).abs().max())
+    assert err <= 2e-4 and err <= 1e-4 * float(want.abs().max())
+
+
+def test_kernel_is_deterministic(cuda):
+    """Two runs, and runs on the split that decode keeps, bit for bit."""
+    gen = _generator(512, seed=4).to(cuda)
+    gen.prepare_kernels()
+    w, kept = gen.tail_weights(), gen._tail_cache
+    x = torch.from_numpy(np.random.RandomState(5).randn(2, 300, 128)
+                         .astype(np.float32)).to(cuda)
+    outs = [fused_hifigan_tail(x, v["stages"], v["final_w"], v["final_b"],
+                               slope=gen.slope, pre_blocks=v["pre_blocks"])
+            for v in (w, w, kept, kept)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    blocks = kept["stages"][0]["blocks"]
+    xm = torch.from_numpy(np.random.RandomState(6).randn(1, 1000, 64)
+                          .astype(np.float32)).to(cuda)
+    with torch.inference_mode():
+        a, b = (mrf_mod.fused_hifigan_mrf(xm, blocks) for _ in range(2))
+    assert torch.equal(a, b)
+
+
+def test_kernel_rejects_a_wrong_split(cuda):
+    """Fragments of the wrong shape, or on the CPU, raise."""
+    gen = _generator(512, seed=4).to(cuda)
+    gen.prepare_kernels()
+    w = gen._tail_cache
+    x = torch.zeros(1, 40, 128, device=cuda)
+    pre = w["pre_blocks"]
+    for bad, match in ((dict(pre[1], f1=pre[1]["f1"][:, :-1].contiguous()),
+                        r"pre_blocks\[1\]\.f1 has shape"),
+                       (dict(pre[2], f2=pre[2]["f2"].cpu()), r"pre_blocks\[2\]\.f2 is on cpu")):
+        blocks = [bad if blk["w1"].shape == bad["w1"].shape else blk for blk in pre]
+        with pytest.raises(ValueError, match=match):
+            fused_hifigan_tail(x, w["stages"], w["final_w"], w["final_b"],
+                               pre_blocks=blocks)
+    with torch.inference_mode(), pytest.raises(ValueError, match=r"blocks\[0\]\.f1 has shape"):
+        mrf_mod.fused_hifigan_mrf(torch.zeros(1, 40, 64, device=cuda), [
+            dict(w["stages"][0]["blocks"][0], f1=pre[0]["f1"])] + w["stages"][0]["blocks"][1:])
 
 
 def test_generator_decode_through_kernel(cuda):
@@ -724,14 +778,17 @@ def test_mrf_matches_plain_version(cuda, c, b, t):
     x = torch.from_numpy(np.random.RandomState(2).randn(b, t, c)
                          .astype(np.float32)).to(cuda)
     before = (mrf_mod.fused_hifigan_mrf.calls, mrf_mod.fused_hifigan_mrf.launches)
+    routes = _routes()
     with torch.inference_mode():
         got = mrf_mod.fused_hifigan_mrf(x, blocks)
         torch.cuda.synchronize()
         want = mrf_mod.hifigan_mrf_reference(x, blocks)
     assert (mrf_mod.fused_hifigan_mrf.calls, mrf_mod.fused_hifigan_mrf.launches) == (
         before[0] + 1, before[1] + 4)  # 3 dilation depths and the mean
+    assert _routes() == (routes[0] + 3, routes[1])  # on the tensor cores
     assert got.shape == want.shape == (b, t, c)
-    assert float((got - want).abs().max()) <= 2e-4
+    err = float((got - want).abs().max())
+    assert err <= 2e-4 and err <= 1e-4 * float(want.abs().max())
 
 
 def test_hifigan_generator_mrf_through_the_kernel(cuda, monkeypatch):
