@@ -49,11 +49,24 @@ Phases (any failure exits non-zero; nothing is caught):
    kernel: 30 launches per utterance), then with ``use_pallas_kernels``
    instead (the one-layer call: 30 launches per utterance), then with
    every kernel flag off, each with the same noise; the WAVs agree to 2e-4.
-7. The MelGAN stack kernel (K6) against its plain version, max |diff| <=
-   2e-4, with CUDA-event times: Multi-band MelGAN v2's stage 1 (B=1,
-   T=16384, C=96, 4 stacks, reflect) and stage 2 with the final conv
-   (B=1, T=32768, C=48 -> 4, tanh) at 512 frames, and ragged B=2, T=1000,
-   C=64 cases in replicate and zero padding.
+7. The MelGAN stack kernel (K6; split TF32 on the tensor cores) against
+   its plain version, max |diff| <= 2e-4 and <= 1e-4 max|plain|, two runs
+   (and a run that splits its weights) bit for bit: Multi-band MelGAN
+   v2's stage 1 (B=1, T=16384, C=96, 4 stacks, reflect) and stage 2 with
+   the final conv (B=1, T=32768, C=48 -> 4, tanh) at 512 frames, on
+   decode's weights and on random weights of gain one, with the split's
+   lo halves zeroed as a control that the check must reject on the
+   latter; ragged B=2, T=1000, C=64 cases in replicate and zero padding, a
+   padding too wide for one window (C=128, d=130: the taps staged one at a
+   time) and MelGAN v1's training stages (B=8); CUDA-event times of one
+   decode's K6 with the split that decode keeps and splitting per call,
+   beside its bounds at the split-TF32 and float32 rates, a torch.profiler
+   split by kernel, the v1 training forward's K6 beside its plain version,
+   K6's weight-split kernel bit for bit against its plain version
+   (``tf32x3.stack_forward_fragments``) at every case's weights,
+   and the kernels' registers, spills and SASS counts
+   (``ops/kernels/sass.py``: HMMA.1688.F32.TF32 and no FFMA in the stack
+   kernel, or the phase fails).
 8. The MRF kernel (K2) against its plain version: HiFi-GAN v1's stage 2
    and 3 shapes (1, 65536, 64) and (1, 131072, 32), stage 1's (1, 32768,
    128) (the width ``pallas_mrf_max_channels: 128`` sends), and a ragged
@@ -67,8 +80,9 @@ Phases (any failure exits non-zero; nothing is caught):
 10. MB-MelGAN v2 decode through ``bin/decode.main``: a random-init,
    full-width checkpoint with ``generator_params`` verbatim from
    egs/ljspeech/voc1/conf/multi_band_melgan.v2.yaml, decoded with
-   ``--use-pallas-stacks`` (K6 called twice per utterance, 9 launches)
-   and without; the WAVs agree to 2e-4.
+   ``--use-pallas-stacks`` (K6 called twice per utterance, 9 launches;
+   its weight split launched once per stage when the model is loaded,
+   never per utterance) and without; the WAVs agree to 2e-4.
 
 11. The TADE kernels (K8a, K8b) against their plain versions at
    StyleMelGAN v1's blocks 3-8 of a 512-frame decode (B=1, T = 5632 ..
@@ -127,14 +141,16 @@ Phases (any failure exits non-zero; nothing is caught):
    final conv's and K6's re-run apart), and each K7 kernel's registers,
    spills and SASS counts (``ops/kernels/sass.py``).
 18. The split of one MelGAN v1 train step (B=8, T=25600) with
-   ``use_pallas_stacks_train`` and without, as phase 15.
+   ``use_pallas_stacks_train`` and without, as phase 15, and K6's device
+   time over the three fused stages of one G forward (torch.profiler).
 19. MelGAN v1 training through ``bin/train.main``: melgan.v1.yaml
    (V1_MELGAN_CONFIG) plus ``use_pallas_stacks_train: true`` at full width
    with TRAIN_OVERRIDES on phase 16's dump (K7: 10 launches per G step, 40
    in all) and without the flag; losses agree to 1e-4 relative at every
    step, a resume from step 2 reproduces steps 3-4, and the final
    checkpoint decodes through ``bin/decode.main`` (K6: 10 launches per
-   utterance).
+   utterance; its weight split 3 launches per G forward, none in the
+   backward).
 
 20. The TADE backward kernels (K9a, K9b) against their plain versions
    (autograd through the plain stage or block): StyleMelGAN v1's blocks
@@ -172,9 +188,8 @@ power limit from nvidia-smi, and {"ok": true, "device": {...}}. Every
 bound in the record is the larger of the bytes each call must move (each
 input read once, each output written once) over 3.35 TB/s and its float32
 operations over 67 TFLOP/s, the H100 SXM data-sheet peaks at 700 W; for
-the kernels that multiply in split TF32 on the tensor cores (K1, K2, K3,
-K4, K5, K7, K8, K9), three TF32 operations per multiply-add's two over 495
-TFLOP/s instead.
+the kernels that multiply in split TF32 on the tensor cores (K1 to K9),
+three TF32 operations per multiply-add's two over 495 TFLOP/s instead.
 """
 
 from __future__ import annotations
@@ -401,6 +416,9 @@ def _reset_launch_counts() -> None:
 
     for fn in (fused_melgan_stacks, fused_hifigan_mrf):
         fn.launches = fn.calls = 0
+    from parallelwavegan_tpu_torch.ops.kernels.melgan_stack import kernel_weights
+
+    kernel_weights.launches = 0
     run_mrf.tensor_core_launches = run_mrf.cuda_core_launches = 0
     fused_tade_blocks.calls = 0
     fused_tade_blocks.launches_k8a = fused_tade_blocks.launches_k8b = 0
@@ -1111,19 +1129,6 @@ def _mrf_work(x, blocks) -> dict:
     return _bound(2.0 * b * t * mac, nbytes)
 
 
-def _check_close(name: str, got, want) -> float:
-    import torch
-
-    if got.shape != want.shape or not torch.isfinite(got).all():
-        _fail(f"{name}: shapes {tuple(got.shape)} vs {tuple(want.shape)} or "
-              "non-finite kernel output")
-    err = float((got - want).abs().max())
-    print(f"kernel vs plain [{name}]: max|diff| = {err:.3e} (tol {TOL})")
-    if not err <= TOL:
-        _fail(f"{name}: kernel disagrees with its plain version")
-    return err
-
-
 def _timed(rec: dict, name: str, card: str, fn, plain, work: dict) -> None:
     """Median CUDA-event times of kernel and plain, summed into rec."""
     ms, plain_ms = _median_ms(fn), _median_ms(plain)
@@ -1138,17 +1143,76 @@ def _timed(rec: dict, name: str, card: str, fn, plain, work: dict) -> None:
     rec["bound_by"] = "operations" if ops_ms >= rec["bytes"] / PEAK_BYTES * 1e3 else "bytes"
 
 
+def _unit_gain_stacks(rs, c: int, dilations) -> list:
+    """Random ResidualStacks of width c and gain about one (Wd N(0, 1 /
+    (3 c)), W1 and Ws N(0, 1 / c), biases 0.1): every branch as large as
+    its input, so that one TF32 product per weight shows. On the
+    generator's N(0, 0.02) init a stack's branches are a small part of its
+    output and the check cannot see it."""
+    import numpy as np
+    import torch
+
+    def t(*shape, scale):
+        return torch.from_numpy((rs.randn(*shape) * scale).astype(np.float32)).to("cuda")
+
+    return [{"wd": t(3, c, c, scale=(3 * c) ** -0.5), "bd": t(c, scale=0.1),
+             "w1": t(1, c, c, scale=c ** -0.5), "b1": t(c, scale=0.1),
+             "ws": t(1, c, c, scale=c ** -0.5), "bs": t(c, scale=0.1),
+             "dilation": d} for d in dilations]
+
+
+def _k6_resources(card: str) -> None:
+    """K6's registers, spills and SASS counts; fails unless the stack
+    kernel's products are HMMA.1688.F32.TF32 with no FFMA and no spill."""
+    from parallelwavegan_tpu_torch.ops.kernels import build, sass
+
+    usage = sass.resource_usage(os.path.join(build.CSRC, "melgan_stack.cu"))
+    for kernel, use in usage.items():
+        print(f"K6 {kernel}: {use.get('registers')} registers, spill stores "
+              f"{use.get('spill_stores')} B, loads {use.get('spill_loads')} B; "
+              f"SASS {use.get('sass')} on {card}")
+        if kernel.startswith("stack_tc_kernel"):
+            counts = use.get("sass", "")
+            ffma = re.search(r"FFMA (\d+)", counts)
+            if ("HMMA.1688.F32.TF32" not in counts or ffma is None
+                    or ffma.group(1) != "0" or use.get("spill_stores")
+                    or use.get("spill_loads")):
+                _fail(f"K6 {kernel}: expected HMMA.1688.F32.TF32 products, no FFMA and "
+                      f"no spill, got {use}")
+
+
 def phase_melgan_kernel(card: str) -> dict:
     """K6 vs its plain version at the MB-MelGAN v2 stage shapes (512
-    frames) and on ragged replicate / zero-padded cases. ms, plain_ms and
-    the bound are those of both v2 stages, one decode's K6 work."""
+    frames), on decode's weights (their split as ``prepare_kernels`` keeps
+    it) and on random weights of gain one, with the split's lo halves
+    zeroed as a control that the check must reject on the latter; ragged
+    replicate / zero-padded cases, a padding too wide for one window
+    (its taps staged one at a time) and MelGAN v1's training stages (B=8);
+    max|diff| <= 2e-4 and <= 1e-4 max|plain|, two runs (and a run that
+    splits its weights) bit for bit; K6's weight-split kernel bit for bit
+    against its plain version. ms, plain_ms and the bound are those of one
+    decode's K6 work, both v2 stages' calls timed in one window, with the
+    split kept."""
     import numpy as np
     import torch
 
     from parallelwavegan_tpu_torch.ops.kernels.melgan_stack import (
+        _packed_biases,
         fused_melgan_stacks,
+        kernel_weights,
         melgan_stacks_reference,
+        with_fragments,
     )
+    from parallelwavegan_tpu_torch.ops.kernels.tf32x3 import stack_forward_fragments
+    from parallelwavegan_tpu_torch.ops.kernels.time_melgan import profile_by_kernel
+
+    def check_split(name, stacks):  # the split kernel against its plain version
+        frags, biases = kernel_weights(stacks)
+        same = all(torch.equal(a, b) for a, b in zip(frags, stack_forward_fragments(stacks)))
+        same = same and all(torch.equal(a, b) for a, b in zip(biases, _packed_biases(stacks)))
+        print(f"K6 weight split [{name}]: kernel and plain version bitwise equal = {same}")
+        if not same:
+            _fail(f"K6's weight-split kernel disagrees with its plain version ({name})")
 
     gen = _mb_v2({"use_pallas_stacks": True})
     rs = np.random.RandomState(SEED)
@@ -1156,39 +1220,136 @@ def phase_melgan_kernel(card: str) -> dict:
     def randn(*shape, scale=1.0):
         return torch.from_numpy((rs.randn(*shape) * scale).astype(np.float32)).to("cuda")
 
-    def random_stacks(c):
-        return [{"wd": randn(3, c, c, scale=0.5 / (3 * c) ** 0.5), "bd": randn(c, scale=0.1),
-                 "w1": randn(1, c, c, scale=0.5 / c ** 0.5), "b1": randn(c, scale=0.1),
-                 "ws": randn(1, c, c, scale=0.5 / c ** 0.5), "bs": randn(c, scale=0.1),
-                 "dilation": 3 ** j} for j in range(4)]
+    def lo_zeroed(stacks):  # one TF32 product per weight
+        lo = torch.tensor([1, 3], device="cuda")
+        return [dict(st, frag=st["frag"].index_fill(-1, lo, 0.0))
+                for st in with_fragments(stacks)]
 
-    w1, w2 = gen.stage_weights(1), gen.stage_weights(2)
-    ragged = random_stacks(64)
-    cases = [
-        ("v2 stage 1", randn(1, 16384, 96, scale=0.5), w1["stacks"], None, "reflect"),
-        ("v2 stage 2 + final", randn(1, 32768, 48, scale=0.5), w2["stacks"],
-         w2["final"], "reflect"),
-        ("ragged replicate B=2 T=1000 C=64", randn(2, 1000, 64), ragged, None, "edge"),
-        ("ragged zeros B=2 T=1000 C=64 + final", randn(2, 1000, 64), ragged,
-         (randn(7, 64, 4, scale=0.5 / (7 * 64) ** 0.5), randn(4, scale=0.1)),
-         "constant"),
+    v2 = V2_MB_GENERATOR
+    dils = [v2["stack_kernel_size"] ** j for j in range(v2["stacks"])]
+    gp = V1_MELGAN_CONFIG["generator_params"]
+    v1_dils = [gp["stack_kernel_size"] ** j for j in range(gp["stacks"])]
+    b1, t1 = V1_MELGAN_CONFIG["batch_size"], V1_MELGAN_CONFIG["batch_max_steps"]
+    ragged = _unit_gain_stacks(rs, 64, dils)
+    wide = _unit_gain_stacks(rs, 128, (1, 130))
+    # (name, x, {weights label: (stacks as run, stacks that split per call)},
+    # final, mode); decode's stages with the split kept and unit-gain weights
+    cases = []
+    for i, (t, c) in ((1, (16384, 96)), (2, (32768, 48))):
+        kept, per_call = gen._kernel_cache[i], gen.stage_weights(i)
+        unit = _unit_gain_stacks(rs, c, dils)
+        cases.append((f"v2 stage {i} B=1 T={t} C={c}" + (" + final" if i == 2 else ""),
+                      randn(1, t, c, scale=0.5),
+                      {"decode's weights": (kept["stacks"], per_call["stacks"]),
+                       "unit-gain weights": (with_fragments(unit), unit)},
+                      kept["final"], "reflect"))
+    cases += [
+        ("ragged replicate B=2 T=1000 C=64", randn(2, 1000, 64),
+         {"unit-gain weights": (ragged, ragged)}, None, "edge"),
+        ("ragged zeros B=2 T=1000 C=64 + final", randn(2, 1000, 64),
+         {"unit-gain weights": (ragged, ragged)},
+         (randn(7, 64, 4, scale=0.5 / (7 * 64) ** 0.5), randn(4, scale=0.1)), "constant"),
+        ("a padding of 130 rows, one tap at a time, B=2 T=600 C=128", randn(2, 600, 128),
+         {"unit-gain weights": (wide, wide)}, None, "reflect"),
     ]
-    rec = {"errs": []}
+    for i in (1, 2, 3):  # MelGAN v1's training forward
+        c, t = 512 >> (i + 1), t1 >> (3 - i)
+        st = _unit_gain_stacks(rs, c, v1_dils)
+        cases.append((f"v1 training stage {i} B={b1} T={t} C={c}" + (" + final" if i == 3 else ""),
+                      randn(b1, t, c), {"unit-gain weights": (st, st)},
+                      (randn(7, c, 1, scale=0.3 * (7 * c) ** -0.5), randn(1, scale=0.1))
+                      if i == 3 else None, "reflect"))
+    rec = {"errs": [], "ms": 0.0, "split_per_call_ms": 0.0, "plain_ms": 0.0,
+           "flops": 0.0, "bytes": 0.0}
+    train = {"ms": 0.0, "plain_ms": 0.0, "flops": 0.0}
     with torch.inference_mode():
-        for name, x, stacks, final, mode in cases:
+        for name, x, weights, final, mode in cases:
             kw = dict(final=final, slope=gen.slope, pad_mode=mode)
-            got = fused_melgan_stacks(x, stacks, **kw)
-            torch.cuda.synchronize()
-            want = melgan_stacks_reference(x, stacks, **kw)
-            torch.cuda.synchronize()
-            rec["errs"].append(_check_close(f"K6 {name}", got, want))
+            for label, (stacks, unsplit) in weights.items():
+                got = fused_melgan_stacks(x, stacks, **kw)
+                torch.cuda.synchronize()
+                want = melgan_stacks_reference(x, unsplit, **kw)
+                torch.cuda.synchronize()
+                err, ratio, ok = _within(got, want)
+                print(f"K6 vs plain [{name}, {label}]: max|diff| = {err:.3e} (tol {TOL}), "
+                      f"{ratio:.2e} of max|plain| (tol 1e-4)")
+                if not ok:
+                    _fail(f"{name}, {label}: K6 disagrees with its plain version")
+                rec["errs"].append(err)
+                same = (torch.equal(got, fused_melgan_stacks(x, stacks, **kw))
+                        and torch.equal(got, fused_melgan_stacks(x, unsplit, **kw)))
+                print(f"K6 determinism [{name}, {label}]: two runs, and a run that "
+                      f"splits its weights, bitwise equal = {same}")
+                if not same:
+                    _fail(f"K6 gives different outputs in two runs ({name}, {label})")
+                if name.startswith("v2") and label == "unit-gain weights":
+                    cerr, cratio, cok = _within(
+                        fused_melgan_stacks(x, lo_zeroed(unsplit), **kw), want)
+                    print(f"K6 check control [{name}, {label}, the split's lo halves "
+                          f"zeroed]: max|diff| = {cerr:.3e}, {cratio:.2e} of max|plain|: "
+                          f"rejected = {not cok}")
+                    if cok:
+                        _fail(f"phase 7's check accepts K6 with one TF32 product ({name})")
+            stacks, unsplit = next(iter(weights.values()))
+            check_split(name, unsplit)
             if name.startswith("v2"):
-                _timed(rec, f"K6 {name}", card,
-                       lambda: fused_melgan_stacks(x, stacks, **kw),
-                       lambda: melgan_stacks_reference(x, stacks, **kw),
-                       _stacks_work(x, stacks, final))
-    print(f"K6 per 512-frame decode (both stages): kernel {rec['ms']:.3f} ms, "
-          f"plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms on {card}")
+                work = _stacks_work(x, unsplit, final)
+                t = {"ms": _median_ms(lambda: fused_melgan_stacks(x, stacks, **kw)),
+                     "split_per_call_ms": _median_ms(
+                         lambda: fused_melgan_stacks(x, unsplit, **kw)),
+                     "plain_ms": _median_ms(
+                         lambda: melgan_stacks_reference(x, unsplit, **kw))}
+                print(f"time [K6 {name}, median of 10, CUDA events]: kernel "
+                      f"{t['ms']:.3f} ms (split kept, as decode), "
+                      f"{t['split_per_call_ms']:.3f} ms splitting per call, plain "
+                      f"{t['plain_ms']:.3f} ms ({work['flops'] / 1e9:.2f} GFLOP, "
+                      f"{work['bytes'] / 1e6:.1f} MB) on {card}")
+                for k in ("ms", "split_per_call_ms", "plain_ms"):
+                    rec[k] += t[k]
+                rec["flops"] += work["flops"]
+                rec["bytes"] += work["bytes"]
+            elif name.startswith("v1"):
+                train["ms"] += _median_ms(lambda: fused_melgan_stacks(x, stacks, **kw))
+                train["plain_ms"] += _median_ms(
+                    lambda: melgan_stacks_reference(x, stacks, **kw))
+                train["flops"] += _stacks_work(x, stacks, final)["flops"]
+        # one decode's K6: both stages' calls in one window, as a decode makes
+        # them (the second call's host work overlaps the first's kernels)
+        x1, x2 = cases[0][1], cases[1][1]
+        stages = [(x1, gen._kernel_cache[1], gen.stage_weights(1)),
+                  (x2, gen._kernel_cache[2], gen.stage_weights(2))]
+
+        def decode_k6(kept=True, fn=fused_melgan_stacks):
+            for x, w, w_per_call in stages:
+                fn(x, (w if kept else w_per_call)["stacks"], final=w["final"],
+                   slope=gen.slope, pad_mode="reflect")
+
+        separate = {k: rec[k] for k in ("ms", "split_per_call_ms", "plain_ms")}
+        rec["ms"] = _median_ms(decode_k6)
+        rec["split_per_call_ms"] = _median_ms(lambda: decode_k6(kept=False))
+        rec["plain_ms"] = _median_ms(lambda: decode_k6(fn=melgan_stacks_reference))
+        split = profile_by_kernel(decode_k6)
+    rec.update(_bound(rec["flops"], rec["bytes"]))
+    fp32_ms = _split_tf32_bound(rec)
+    print(f"K6 per 512-frame decode (both stages' calls in one window, split kept): "
+          f"kernel {rec['ms']:.3f} ms ({rec['split_per_call_ms']:.3f} ms splitting per "
+          f"call), plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms at the "
+          f"split-TF32 rate (3 x {rec['flops'] / 1e9:.2f} GFLOP / 495 TFLOP/s; "
+          f"{rec['bound_ms'] / rec['ms']:.1%} of it), {fp32_ms:.4f} ms at the float32 "
+          f"CUDA-core rate ({fp32_ms / rec['ms']:.1%}) on {card}; the stages timed apart "
+          f"and summed: kernel {separate['ms']:.3f} ms ({separate['split_per_call_ms']:.3f} "
+          f"splitting per call), plain {separate['plain_ms']:.3f} ms")
+    total = sum(ms for ms, _ in split.values())
+    print(f"K6 one decode, device time by kernel (torch.profiler): {total:.3f} ms on "
+          f"{card}: " + "; ".join(f"{k} {ms:.3f} ms ({ms / total:.1%}, {m} launches)"
+                                  for k, (ms, m) in split.items())
+          if total else f"K6 one decode: torch.profiler recorded no device time on {card}")
+    print(f"K6 over MelGAN v1's three training stages (B={b1}, one G forward, splitting "
+          f"per call as training does): kernel {train['ms']:.3f} ms, plain "
+          f"{train['plain_ms']:.3f} ms, bound {3 * train['flops'] / PEAK_TF32 * 1e3:.3f} ms "
+          f"at the split-TF32 rate, {train['flops'] / PEAK_FLOPS * 1e3:.3f} ms at the "
+          f"float32 rate ({train['flops'] / 1e9:.1f} GFLOP) on {card}")
+    _k6_resources(card)
     return rec
 
 
@@ -1353,13 +1514,15 @@ def phase_mbmelgan_decode(card: str) -> dict:
     from parallelwavegan_tpu_torch.bin import decode
     from parallelwavegan_tpu_torch.ops.kernels.melgan_stack import (
         fused_melgan_stacks,
+        kernel_weights,
     )
 
     p = _write_inputs("MelGANGenerator", V2_MB_GENERATOR, {"config": {}})
     n = len(UTT_FRAMES)
     # stages 1 and 2 (96, 48 channels): 4 stack launches each, and the
-    # final conv on stage 2
-    expect = {"stacks": (2 * n, 9 * n), "plain": (0, 0)}
+    # final conv on stage 2; each stage's weights split once, when the
+    # model is loaded (prepare_kernels), and never per utterance
+    expect = {"stacks": (2 * n, 9 * n, 2), "plain": (0, 0, 0)}
     res, counts = {}, {}
     for name in ("stacks", "plain"):
         _reset_launch_counts()
@@ -1368,12 +1531,14 @@ def phase_mbmelgan_decode(card: str) -> dict:
              "--normalize-before", "--device", "cuda", "--config", p["config"],
              "--outdir", os.path.join(p["root"], f"wav_{name}")]
             + (["--use-pallas-stacks"] if name == "stacks" else []))
-        counts[name] = (fused_melgan_stacks.calls, fused_melgan_stacks.launches)
+        counts[name] = (fused_melgan_stacks.calls, fused_melgan_stacks.launches,
+                        kernel_weights.launches)
         print(f"main path [MB-MelGAN v2, {name}]: stack kernel calls = "
-              f"{counts[name][0]}, launches = {counts[name][1]} for {n} utterances")
+              f"{counts[name][0]}, launches = {counts[name][1]}, weight-split "
+              f"launches = {counts[name][2]} for {n} utterances")
         if counts[name] != expect[name]:
-            _fail(f"MB-MelGAN {name} decode: (calls, launches) {counts[name]}, "
-                  f"expected {expect[name]}")
+            _fail(f"MB-MelGAN {name} decode: (calls, launches, split launches) "
+                  f"{counts[name]}, expected {expect[name]}")
     err = _compare_wavs(os.path.join(p["root"], "wav_stacks"),
                         os.path.join(p["root"], "wav_plain"))
     print(f"MB-MelGAN decode with stack kernel vs without: max|diff| = {err:.3e} "
@@ -2069,28 +2234,24 @@ def phase_k7(card: str) -> dict:
           f"{rec['flops'] / 1e9:.1f} GFLOP / 495 TFLOP/s; {rec['bound_ms'] / rec['ms']:.1%} "
           f"of it), {fp32_ms:.3f} ms at the float32 CUDA-core rate on {card}")
 
-    from torch.profiler import ProfilerActivity, profile
-
     from parallelwavegan_tpu_torch.ops.kernels import build, sass
-    from parallelwavegan_tpu_torch.ops.kernels.time_melgan import by_kernel
+    from parallelwavegan_tpu_torch.ops.kernels.time_melgan import profile_by_kernel
 
     k6_ms = k7_ms = 0.0
     for name, x, stacks, fin, mode in cases[:3]:
         dy = randn(*x.shape[:2], 1 if fin is not None else x.shape[2], scale=1e-3)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            melgan_stacks_backward(x, stacks, fin, slope, mode, dy)
-            torch.cuda.synchronize()
-        split = by_kernel(prof)
+        split = profile_by_kernel(
+            lambda: melgan_stacks_backward(x, stacks, fin, slope, mode, dy))
         k6_ms += sum(ms for n, (ms, _) in split.items()
-                     if n.startswith(("stack_kernel", "outconv_kernel")))
+                     if n.startswith(("split_kernel", "stack_tc_kernel", "outconv_kernel")))
         k7_ms += sum(ms for ms, _ in split.values())
         print(f"K7 {name} device time by kernel (torch.profiler, one call; "
-              f"stack_kernel<C> and outconv_kernel are K6's re-run, "
+              f"split_kernel, stack_tc_kernel<C> and outconv_kernel are K6's re-run, "
               f"outconv_bwd_kernel and slab_sum_kernel the final conv's backward) "
               f"on {card}: "
               + "; ".join(f"{n} {ms:.3f} ms ({k} launches)" for n, (ms, k) in split.items()))
     print(f"K7 per G step under torch.profiler: {k7_ms:.3f} ms, of which K6's re-run "
-          f"{k6_ms:.3f} ms ({k6_ms / k7_ms:.1%}) on {card}")
+          f"{k6_ms:.3f} ms ({k6_ms / max(k7_ms, 1e-9):.1%}) on {card}")
     for kernel, use in sass.resource_usage(
             os.path.join(build.CSRC, "melgan_stack_bwd.cu")).items():
         print(f"K7 {kernel}: {use.get('registers')} registers, spill stores "
@@ -2117,12 +2278,15 @@ def _melgan_v1_config(kernel: bool, **overrides) -> dict:
     return cfg
 
 
-def _train_split(card: str, label: str, config_of, batch: dict) -> None:
+def _train_split(card: str, label: str, config_of, batch: dict,
+                 forward_kernels: tuple = ()) -> None:
     """Where one train step (G and D phases) of ``config_of(kernel)``
     spends its time on ``batch``, with the kernels and through the plain
     path: CUDA events between the parts of the step (median of 5 after two
     warm-ups), then whole ``TrainStep`` calls on the host clock with a
-    synchronise (G-only and G+D steps/s)."""
+    synchronise (G-only and G+D steps/s). With ``forward_kernels`` (kernel
+    name prefixes), their device time in one G forward with the kernels
+    (torch.profiler)."""
     import torch
 
     from parallelwavegan_tpu_torch.models import get_model_class
@@ -2186,6 +2350,19 @@ def _train_split(card: str, label: str, config_of, batch: dict) -> None:
         staged()
         runs = [staged() for _ in range(5)]
         split = {p: statistics.median(r[i] for r in runs) for i, p in enumerate(parts)}
+        if kernel and forward_kernels:
+            from parallelwavegan_tpu_torch.ops.kernels.time_melgan import (
+                profile_by_kernel,
+            )
+
+            mine = {k: v for k, v in profile_by_kernel(
+                lambda: generator_forward(cfg, gen, batch)).items()
+                if k.startswith(forward_kernels)}
+            print(f"{label} G forward [kernel], B={b} T={t}, device time of "
+                  f"{', '.join(forward_kernels)} (torch.profiler, one forward): "
+                  f"{sum(ms for ms, _ in mine.values()):.3f} ms on {card}: "
+                  + "; ".join(f"{k} {ms:.3f} ms ({n} launches)"
+                              for k, (ms, n) in mine.items()))
         step = TrainStep(cfg, gen, dis, crit, opt_g, opt_d)
         rate = {}
         for phase, flags in (("G-only", (True, False)), ("G+D", (True, True))):
@@ -2224,7 +2401,8 @@ def phase_train_split(card: str) -> None:
 
 def phase_melgan_train_split(card: str) -> None:
     """Where one MelGAN v1 train step (B=8, T=25600) spends its time, with
-    stages 1-3 through K6/K7 and through the plain path."""
+    stages 1-3 through K6/K7 and through the plain path, and K6's time in
+    the G forward."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -2232,7 +2410,8 @@ def phase_melgan_train_split(card: str) -> None:
     frames = t // V1_MELGAN_CONFIG["hop_size"]
     batch = {"y": 0.3 * torch.randn(b, 1, t, generator=g, device="cuda"),
              "c": torch.randn(b, 80, frames, generator=g, device="cuda")}
-    _train_split(card, "MelGAN v1", _melgan_v1_config, batch)
+    _train_split(card, "MelGAN v1", _melgan_v1_config, batch,
+                 forward_kernels=("split_kernel", "stack_tc_kernel", "outconv_kernel"))
 
 
 def _write_train_dump(root: str, utts: int = TRAIN_UTTS, span=(150, 300)) -> str:
@@ -2399,20 +2578,26 @@ def phase_melgan_train(card: str) -> dict:
     ``use_pallas_stacks_train``: K6 in every G forward (3 stages of 3
     stacks, the last with the final conv: 10 launches), the re-run inside
     each backward (stacks 0-1 of stages 1-2, all of stage 3 and its final
-    conv: 8) and the no-grad forwards; K7 one launch per stack and one for
-    the final conv of every G backward (10)."""
-    from parallelwavegan_tpu_torch.ops.kernels.melgan_stack import fused_melgan_stacks
+    conv: 8) and the no-grad forwards; K6's weight split once per stage of
+    every forward (the backward's re-run reads the forward's); K7 one
+    launch per stack and one for the final conv of every G backward (10)."""
+    from parallelwavegan_tpu_torch.ops.kernels.melgan_stack import (
+        fused_melgan_stacks,
+        kernel_weights,
+    )
     from parallelwavegan_tpu_torch.ops.kernels.melgan_stack_train import (
         melgan_stacks_backward,
     )
 
     steps = TRAIN_OVERRIDES["train_max_steps"]
-    expect = {"plain": (0, 0)}
+    expect = {"plain": (0, 0, 0)}
     for name, n in (("kernel", steps), ("resume", steps - 2)):
-        expect[name] = (n * (10 + 8) + _eval_and_d_forwards() * 10, n * 10)
+        expect[name] = (n * (10 + 8) + _eval_and_d_forwards() * 10, n * 10,
+                        (n + _eval_and_d_forwards()) * 3)
     out = _train_runs(card, "MelGAN v1", _melgan_v1_config,
                       {"K6": lambda: fused_melgan_stacks.launches,
-                       "K7": lambda: melgan_stacks_backward.launches},
+                       "K7": lambda: melgan_stacks_backward.launches,
+                       "K6 weight split": lambda: kernel_weights.launches},
                       expect, lambda: fused_melgan_stacks.launches, TRAIN_UTTS * 10)
     return {"k7_launches": out["launches"][1], "err": out["err"]}
 

@@ -26,7 +26,9 @@ recompute checkpoint whose weight gradients flow through weight norm to
 ``weight_g``/``weight_v``. Otherwise (decode, eval, the D phase's re-run
 of G under ``torch.no_grad()``) it is ``fused_melgan_stacks`` (K6), which
 gives the same values; that wrapper is inference-only, as JAX's, so
-``use_pallas_stacks`` with gradients on raises.
+``use_pallas_stacks`` with gradients on raises. ``prepare_kernels`` keeps
+each fused stage's weights, on the card with K6's split of them, so a
+decode splits nothing per utterance.
 ``pallas_stacks_train_tile`` is a TPU tile size, accepted for config
 compatibility and without effect. The causal generator is not ported yet
 (ROADMAP.md M16).
@@ -61,6 +63,7 @@ from parallelwavegan_tpu_torch.layers.residual_stack import (
 )
 from parallelwavegan_tpu_torch.ops.kernels.melgan_stack import (
     fused_melgan_stacks,
+    with_fragments,
 )
 from parallelwavegan_tpu_torch.ops.kernels.melgan_stack_train import (
     fused_melgan_stacks_train,
@@ -198,10 +201,17 @@ class MelGANGenerator(nn.Module):
         return {"stacks": stacks, "final": final}
 
     def prepare_kernels(self) -> None:
-        """Gather the fused stages' folded weights once, for decode. Call it
-        after the weights are loaded, folded and on their device; loading
-        weights or moving the module afterwards drops them again."""
-        self._kernel_cache = {i: self.stage_weights(i) for i in self.fused_stages}
+        """Gather the fused stages' folded weights once, for decode, and on
+        the card split them once for K6 (``melgan_stack.with_fragments``).
+        Call it after the weights are loaded, folded and on their device;
+        loading weights or moving the module afterwards drops them again."""
+
+        def split(w):
+            if not w["stacks"] or not w["stacks"][0]["wd"].is_cuda:
+                return w
+            return dict(w, stacks=with_fragments(w["stacks"]))
+
+        self._kernel_cache = {i: split(self.stage_weights(i)) for i in self.fused_stages}
 
     def remove_weight_norm(self) -> None:
         remove_weight_norm(self)

@@ -55,9 +55,11 @@ _SIGNATURES = {
     "wavenet_layer_bwd": [_P] * 21 + [ctypes.c_longlong] + [_I] * 8 + [_P],
     # B, T, C, Ca, K -> floats of wavenet_layer_bwd's partial buffer
     "wavenet_bwd_part_floats": [_I] * 5,
-    # x, out, wd, bd, w1, b1, ws, bs, B, T, C, K, dil, mode, slope, device,
+    # x, out, wf, bias, B, T, C, K, dil, mode, slope, device, stream
+    "melgan_stack": [_P] * 4 + [_I] * 6 + [_F, _I, _P],
+    # n, (wd, w1, ws, bd, b1, bs) per stack, K per stack, out, C, device,
     # stream
-    "melgan_stack": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
+    "melgan_stack_split": [_I, _P, _P, _P, _I, _I, _P],
     # x, y, w, b, B, T, C, Cout, K, mode, slope, device, stream
     "melgan_outconv": [_P] * 4 + [_I] * 6 + [_F, _I, _P],
     # x, g, dx, dz, h, part, wf, bd, dwd, dbd, dw1, db1, dws, dbs,

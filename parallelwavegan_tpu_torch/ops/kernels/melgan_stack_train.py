@@ -11,11 +11,13 @@ C, out), b)`` for the trailing act -> conv -> tanh.
 ``melgan_stacks_train`` is a ``torch.autograd.Function``: its forward is
 the K6 kernel on a CUDA tensor and ``melgan_stacks_reference`` on a CPU
 tensor, and it saves only the stage's input and weights, the JAX residual
-``(x, ws)`` (:349-354), so each stage is a recompute checkpoint. Its
+``(x, ws)`` (:349-354), so each stage is a recompute checkpoint; on a CUDA
+tensor it also keeps what K6 read of the weights (their split and packed
+biases, ``melgan_stack.kernel_weights``: one split per forward). Its
 backward is ``melgan_stacks_backward``: for a CUDA tensor it re-runs K6
-from the saved input, keeping every stack's input in device memory, then
-runs the final conv's backward and walks the stacks in reverse through
-the hand-written K7 kernel (csrc/melgan_stack_bwd.cu: one
+from the saved input on that split, keeping every stack's input in
+device memory, then runs the final conv's backward and walks the stacks
+in reverse through the hand-written K7 kernel (csrc/melgan_stack_bwd.cu: one
 ``melgan_outconv_bwd`` call of two CUDA kernels, then one
 ``melgan_stack_bwd`` call of four per stack, its products split TF32 on
 the tensor cores against weights that ``tf32x3.stack_fragments`` splits
@@ -39,6 +41,7 @@ from parallelwavegan_tpu_torch.ops.kernels.melgan_stack import (
     _check_cuda_inputs,
     _pad_mode,
     _run_cuda,
+    kernel_weights,
     melgan_stacks_reference,
 )
 
@@ -72,9 +75,11 @@ def melgan_stacks_backward_reference(x, stacks, final, slope, pad_mode, dy):
     return dx, dstacks, dfinal
 
 
-def melgan_stacks_backward(x, stacks, final, slope, pad_mode, dy):
+def melgan_stacks_backward(x, stacks, final, slope, pad_mode, dy, fwd_split=None):
     """(dx, dstacks, dfinal) of one stage for the cotangent dy of its
-    output; a bias that is None gets None.
+    output; a bias that is None gets None. ``fwd_split`` is what K6's
+    re-run reads, ``melgan_stack.kernel_weights(stacks)`` as the forward
+    made it (made here when not given).
 
     A CUDA tensor goes through K7 (the widths and pad modes of
     ``fused_melgan_stacks``, stack and final kernels odd up to 7, the final
@@ -106,10 +111,12 @@ def melgan_stacks_backward(x, stacks, final, slope, pad_mode, dy):
     # the input of every stack and of the final conv, re-run through K6;
     # with the final conv its output y too (its backward reads 1 - y^2)
     xs = [x]
+    fwd_frags, fwd_biases = kernel_weights(stacks) if fwd_split is None else fwd_split
     if final is None:
-        _run_cuda(x, stacks[:-1], None, slope, pad_mode, xs)
+        _run_cuda(x, stacks[:-1], None, slope, pad_mode, xs,
+                  (fwd_frags[:-1], fwd_biases[:-1]))
     else:
-        y = _run_cuda(x, stacks, final, slope, pad_mode, xs)
+        y = _run_cuda(x, stacks, final, slope, pad_mode, xs, (fwd_frags, fwd_biases))
     lib = build.load()
     dev, stream = build.launch_target(x)
     mode = _MODES[pad_mode][1]
@@ -168,20 +175,22 @@ class melgan_stacks_train(torch.autograd.Function):  # noqa: N801 (JAX name)
     def forward(ctx, x, meta, *weights):
         ctx.meta = meta
         ctx.save_for_backward(x, *weights)
+        ctx.split = None
         stacks, final = _unflatten(meta, weights)
         slope, pad_mode = meta[2], meta[3]
         if x.device.type == "cpu":
             return melgan_stacks_reference(x, stacks, final=final, slope=slope,
                                            pad_mode=pad_mode)
         _check_cuda_inputs(x, stacks, final, pad_mode)
-        return _run_cuda(x, stacks, final, slope, pad_mode)
+        ctx.split = kernel_weights(stacks)  # the backward's re-run reads it too
+        return _run_cuda(x, stacks, final, slope, pad_mode, split=ctx.split)
 
     @staticmethod
     def backward(ctx, dy):
         x, *weights = ctx.saved_tensors
         stacks, final = _unflatten(ctx.meta, weights)
         dx, dstacks, dfinal = melgan_stacks_backward(
-            x, stacks, final, ctx.meta[2], ctx.meta[3], dy.contiguous())
+            x, stacks, final, ctx.meta[2], ctx.meta[3], dy.contiguous(), ctx.split)
         grads = [d[k] for d in dstacks for k in STACK_KEYS] + list(dfinal or ())
         return (dx, None, *grads)
 

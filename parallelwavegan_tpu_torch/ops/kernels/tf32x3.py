@@ -1,15 +1,17 @@
 """Split TF32 on the host side: the rounding of csrc/mma_tf32x3.cuh and
 the weight layouts that the kernels read (K9's chain kernel in
 csrc/tade_bwd.cu, K8a and K8b in csrc/tade.cu, K7's row products in
-csrc/melgan_stack_bwd.cu, the WaveNet layer K3/K5 in csrc/wavenet.cu, the
-HiFi-GAN residual unit of K1 and K2 in csrc/hifigan_tail.cu).
+csrc/melgan_stack_bwd.cu, the MelGAN stack K6 in csrc/melgan_stack.cu, the
+WaveNet layer K3/K5 in csrc/wavenet.cu, the HiFi-GAN residual unit of K1
+and K2 in csrc/hifigan_tail.cu).
 
 A float32 value v is split into hi = tf32(v) and lo = tf32(v - hi), both
 TF32 (10 mantissa bits, rounded as ``cvt.rna``: to nearest, ties away
 from zero); a product is then a_lo.b_hi + a_hi.b_lo + a_hi.b_hi on the
 tensor cores. ``conv_fragments`` (a transposed conv's weights),
 ``forward_fragments`` (a forward kernel's three convs),
-``stack_fragments`` (the MelGAN stacks' products),
+``stack_fragments`` (the MelGAN stacks' backward products),
+``stack_forward_fragments`` (their forward products),
 ``wavenet_fragments`` (the WaveNet layers' two products) and
 ``mrf_fragments`` (an MRF's residual-unit convs) split the weights once
 per call and store them in the order in which ``mma.sync.m16n8k8``
@@ -117,6 +119,31 @@ def stack_fragments(stacks):
         mats += [wd, w1.transpose(1, 2), wd.transpose(1, 2), ws.transpose(1, 2)]
     f = _fragments(torch.cat(mats))
     return list(f.split([2 * st["wd"].shape[0] + 2 for st in stacks]))
+
+
+def stack_forward_fragments(stacks):
+    """The products of MelGAN ResidualStacks of one width C (gather-form
+    ``wd`` (K, C, C), ``w1`` and ``ws`` (1, C, C), C a multiple of 16) as
+    K6 takes them, one tensor per stack: its K + 2 matrices Wd[k] (z =
+    sum_k leaky(x_pad) . Wd[k]), W1 and Ws (out = [leaky(z) | x] . [W1;
+    Ws]) in ``_fragments``' layout, (K + 2, C / 8, C / 8, 32, 4): (K + 2) C
+    / 8 k-steps of one stream. All stacks are split in one pass, into views
+    of one tensor. What csrc/melgan_stack.cu's stack kernel takes; the
+    plain version of its split_kernel (``melgan_stack.kernel_weights``)."""
+    if not stacks:
+        return []
+    mats = []
+    for st in stacks:
+        wd, w1, ws = (st[k].detach() for k in ("wd", "w1", "ws"))
+        c = wd.shape[-1]
+        if (c % 16 or wd.dim() != 3 or wd.shape[1] != c
+                or tuple(w1.shape) != (1, c, c) or tuple(ws.shape) != (1, c, c)):
+            raise ValueError(f"stack_forward_fragments needs wd (K, C, C), w1 and ws "
+                             f"(1, C, C), C a multiple of 16, got {tuple(wd.shape)}, "
+                             f"{tuple(w1.shape)}, {tuple(ws.shape)}")
+        mats += [wd, w1, ws]
+    f = _fragments(torch.cat(mats))
+    return list(f.split([st["wd"].shape[0] + 2 for st in stacks]))
 
 
 def wavenet_depth(c: int, ca: int, k: int) -> int:

@@ -515,17 +515,17 @@ def test_library_entry_points_match_signatures(cuda):
     assert lib.query("wavenet_bwd_part_floats", 6, 25600, 32, 80, 3) == -1
 
 
-def _melgan_stacks(c, dilations, seed, bias=True):
+def _melgan_stacks(c, dilations, seed, bias=True, gain=0.5):
     rs = np.random.RandomState(seed)
 
     def t(*shape, scale):
         return torch.from_numpy((rs.randn(*shape) * scale).astype(np.float32))
 
-    return [{"wd": t(3, c, c, scale=0.5 / (3 * c) ** 0.5),
+    return [{"wd": t(3, c, c, scale=gain / (3 * c) ** 0.5),
              "bd": t(c, scale=0.1) if bias else None,
-             "w1": t(1, c, c, scale=0.5 / c ** 0.5),
+             "w1": t(1, c, c, scale=gain / c ** 0.5),
              "b1": t(c, scale=0.1) if bias else None,
-             "ws": t(1, c, c, scale=0.5 / c ** 0.5),
+             "ws": t(1, c, c, scale=gain / c ** 0.5),
              "bs": t(c, scale=0.1) if bias else None,
              "dilation": d} for d in dilations]
 
@@ -535,15 +535,21 @@ def _on(stacks, device):
             for st in stacks]
 
 
+def _k6_close(got, want):
+    """K6's bound: max|diff| <= 2e-4 and <= 1e-4 max|plain|."""
+    err = float((got - want).abs().max())
+    return err <= 2e-4 and err <= 1e-4 * float(want.abs().max())
+
+
 # MB-MelGAN v2's widths (96, 48), MelGAN v1's (128, 64, 32), the narrowest
-# (16), every pad mode, short T (all edge), B > 1 and no biases
+# (16), every pad mode, short T (all edge), B > 1 and no biases; each on
+# weights of gain 0.5 and of gain one (every branch as large as its input)
 @pytest.mark.parametrize("c,b,t,mode,out_ch,bias", [
     (96, 1, 4099, "reflect", None, True), (48, 2, 1000, "reflect", 4, True),
     (128, 1, 777, "edge", 1, True), (64, 2, 1000, "constant", None, True),
     (32, 3, 30, "reflect", 4, True), (16, 1, 5, "edge", None, True),
     (80, 2, 333, "constant", 2, False), (112, 1, 200, "reflect", None, True)])
 def test_melgan_stacks_match_plain_version(cuda, c, b, t, mode, out_ch, bias):
-    stacks = _on(_melgan_stacks(c, (1, 3, 9, 27), seed=c, bias=bias), cuda)
     rs = np.random.RandomState(1)
     final = None
     if out_ch is not None:
@@ -551,19 +557,84 @@ def test_melgan_stacks_match_plain_version(cuda, c, b, t, mode, out_ch, bias):
                                   .astype(np.float32)).to(cuda),
                  torch.from_numpy(rs.randn(out_ch).astype(np.float32)).to(cuda)
                  if bias else None)
-    if mode == "reflect" and t <= 27:
-        stacks = stacks[:2]  # reflect padding needs T > the pad
     x = torch.from_numpy(rs.randn(b, t, c).astype(np.float32)).to(cuda)
-    before = (stack_mod.fused_melgan_stacks.calls, stack_mod.fused_melgan_stacks.launches)
+    for gain in (0.5, 1.0):
+        stacks = _on(_melgan_stacks(c, (1, 3, 9, 27), seed=c, bias=bias, gain=gain), cuda)
+        if mode == "reflect" and t <= 27:
+            stacks = stacks[:2]  # reflect padding needs T > the pad
+        before = (stack_mod.fused_melgan_stacks.calls, stack_mod.fused_melgan_stacks.launches)
+        with torch.inference_mode():
+            got = stack_mod.fused_melgan_stacks(x, stacks, final=final, pad_mode=mode)
+            torch.cuda.synchronize()
+            want = stack_mod.melgan_stacks_reference(x, stacks, final=final,
+                                                     pad_mode=mode)
+        assert (stack_mod.fused_melgan_stacks.calls,
+                stack_mod.fused_melgan_stacks.launches) == (
+            before[0] + 1, before[1] + len(stacks) + (final is not None))
+        assert got.shape == want.shape == (b, t, out_ch or c)
+        assert _k6_close(got, want), (gain, float((got - want).abs().max()))
+
+
+# paddings too wide for one window beside the ring: the taps' rows staged
+# one tap at a time (C = 128, d = 130; C = 96, d = 200), and a kernel size
+# of 5 with the window whole (C = 48)
+@pytest.mark.parametrize("c,t,k,dils,mode", [
+    (128, 600, 3, (1, 130), "reflect"), (96, 900, 3, (200, 2), "edge"),
+    (48, 500, 5, (1, 30), "constant")])
+def test_melgan_stacks_wide_padding(cuda, c, t, k, dils, mode):
+    rs = np.random.RandomState(k)
+    stacks = _on(_melgan_stacks(c, dils, seed=c, gain=1.0), cuda)
+    for st in stacks:
+        st["wd"] = torch.from_numpy(
+            (rs.randn(k, c, c) / (k * c) ** 0.5).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(rs.randn(2, t, c).astype(np.float32)).to(cuda)
     with torch.inference_mode():
-        got = stack_mod.fused_melgan_stacks(x, stacks, final=final, pad_mode=mode)
+        got = stack_mod.fused_melgan_stacks(x, stacks, pad_mode=mode)
         torch.cuda.synchronize()
-        want = stack_mod.melgan_stacks_reference(x, stacks, final=final,
-                                                 pad_mode=mode)
-    assert (stack_mod.fused_melgan_stacks.calls, stack_mod.fused_melgan_stacks.launches) == (
-        before[0] + 1, before[1] + len(stacks) + (final is not None))
-    assert got.shape == want.shape == (b, t, out_ch or c)
-    assert float((got - want).abs().max()) <= 2e-4
+        want = stack_mod.melgan_stacks_reference(x, stacks, pad_mode=mode)
+    assert _k6_close(got, want), float((got - want).abs().max())
+
+
+# MB-MelGAN v2's widths, v1's 128 with K = 5, missing biases, and 18
+# stacks (two launches of 16 and 2)
+@pytest.mark.parametrize("c,k,n,bias", [(96, 3, 4, True), (48, 3, 4, True),
+                                        (128, 5, 3, False), (16, 3, 18, True)])
+def test_melgan_split_kernel_matches_plain_version(cuda, c, k, n, bias):
+    """The split kernel against its plain version (``tf32x3.
+    stack_forward_fragments`` and the biases stacked), bit for bit."""
+    from parallelwavegan_tpu_torch.ops.kernels.tf32x3 import stack_forward_fragments
+
+    stacks = _on(_melgan_stacks(c, (1,) * n, seed=c + n, bias=bias, gain=1.0), cuda)
+    rs = np.random.RandomState(k)
+    for st in stacks:
+        st["wd"] = torch.from_numpy((rs.randn(k, c, c) / c).astype(np.float32)).to(cuda)
+    if bias:
+        stacks[1]["b1"] = None
+    before = stack_mod.kernel_weights.launches
+    frags, biases = stack_mod.kernel_weights(stacks)
+    torch.cuda.synchronize()
+    assert stack_mod.kernel_weights.launches == before + (n + 15) // 16
+    want = stack_forward_fragments(stacks)
+    assert len(frags) == len(want) == n
+    for got, ref in zip(frags, want):
+        assert got.shape == ref.shape and torch.equal(got, ref)
+    for st, got in zip(stacks, biases):
+        for row, key in enumerate(("bd", "b1", "bs")):
+            ref = torch.zeros(c, device=cuda) if st[key] is None else st[key]
+            assert torch.equal(got[row], ref), key
+
+
+def test_melgan_stacks_are_deterministic(cuda):
+    """Two runs, and runs on the split that decode keeps, bit for bit."""
+    stacks = _on(_melgan_stacks(96, (1, 3, 9, 27), seed=2, gain=1.0), cuda)
+    kept = stack_mod.with_fragments(stacks)
+    x = torch.randn(1, 5000, 96, generator=torch.Generator().manual_seed(3)).to(cuda)
+    with torch.inference_mode():
+        first = stack_mod.fused_melgan_stacks(x, stacks)
+        second = stack_mod.fused_melgan_stacks(x, stacks)
+        third = stack_mod.fused_melgan_stacks(x, kept)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(first, third)
 
 
 def _refuse(monkeypatch, module, name):
@@ -597,6 +668,28 @@ def test_mbmelgan_generator_through_the_kernel(cuda, monkeypatch):
     assert float((got - want).abs().max()) <= 2e-4
 
 
+def test_mbmelgan_decode_makes_no_split(cuda, monkeypatch):
+    """After ``prepare_kernels`` every fused stage carries its split: a
+    decode forward makes none."""
+    gen = get_model_class("MelGANGenerator")(
+        in_channels=16, out_channels=4, channels=384, upsample_scales=(8, 4, 2),
+        stacks=4, use_pallas_stacks=True, generator=torch.Generator().manual_seed(4))
+    gen.remove_weight_norm()
+    gen.eval().to(cuda)
+    c = torch.randn(1, 16, 40, generator=torch.Generator().manual_seed(5)).to(cuda)
+    with torch.inference_mode():
+        per_call = gen(c)  # no prepare_kernels: each call splits
+        gen.prepare_kernels()
+        assert all(st["frag"] is not None for w in gen._kernel_cache.values()
+                   for st in w["stacks"])
+        _refuse(monkeypatch, stack_mod, "stack_forward_fragments")
+        splits = stack_mod.kernel_weights.launches
+        got = gen(c)
+    torch.cuda.synchronize()
+    assert stack_mod.kernel_weights.launches == splits
+    assert torch.equal(got, per_call)
+
+
 def test_melgan_kernel_rejects_unsupported_input(cuda):
     stacks = _on(_melgan_stacks(24, (1,), seed=0), cuda)
     with pytest.raises(ValueError, match="width 24"):
@@ -604,12 +697,57 @@ def test_melgan_kernel_rejects_unsupported_input(cuda):
     stacks = _on(_melgan_stacks(32, (27,), seed=0), cuda)
     with pytest.raises(ValueError, match="reflect padding"):
         stack_mod.fused_melgan_stacks(torch.zeros(1, 27, 32, device=cuda), stacks)
+    kept = stack_mod.with_fragments(stacks)[0]
+    stale = [dict(kept, frag=kept["frag"][:-1])]  # one matrix short
+    with pytest.raises(ValueError, match="frag has shape"):
+        stack_mod.fused_melgan_stacks(torch.zeros(1, 64, 32, device=cuda), stale)
     with pytest.raises(ValueError, match="contiguous"):
         stack_mod.fused_melgan_stacks(
             torch.zeros(1, 32, 64, device=cuda).transpose(1, 2), stacks)
 
 
-def _k7_case(cuda, c, b, t, out_ch, bias, dils, seed=3):
+def _off_the_kinks(x, stacks, final, mode, seed):
+    """x with its rows moved (0.05 N(0, 1) added) where the plain forward
+    puts an input of LeakyReLU (each stack's input and z, the final conv's
+    input) within 1e-5 of its rms of the kink at 0, until none is left, as
+    chip_smoke.py phase 17 does. There float32 rounding, which differs
+    between K6's split-TF32 forward, K7's recomputed z and the plain
+    version, can put the two paths on the two sides of the kink, where the
+    derivative jumps by 1 - slope: a difference of the function, not of the
+    kernels: at C = 128, B = 2, T = 1000 such a z put dx 3.9e-3 off the
+    plain version's, while K7 fed the plain forward's stack inputs agreed."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    for _ in range(50):
+        near = torch.zeros(x.shape[:2], dtype=torch.bool, device=x.device)
+
+        def mark(v):
+            near.logical_or_((v.abs() < 1e-5 * v.pow(2).mean().sqrt()).any(1))
+
+        with torch.no_grad():
+            c = x.transpose(1, 2)
+            for st in stacks:
+                mark(c)
+                p = (st["wd"].shape[0] - 1) // 2 * st["dilation"]
+                z = stack_mod._conv(F.pad(F.leaky_relu(c, 0.2), (p, p),
+                                          mode=stack_mod._pad_mode(mode)),
+                                    st["wd"], st["bd"], st["dilation"])
+                mark(z)
+                c = stack_mod._conv(F.leaky_relu(z, 0.2), st["w1"], st["b1"]) + \
+                    stack_mod._conv(c, st["ws"], st["bs"])
+            if final is not None:
+                mark(c)
+        rows = near.nonzero()
+        if len(rows) == 0:
+            return x
+        x = x.clone()
+        x[rows[:, 0], rows[:, 1]] += 0.05 * torch.randn(
+            len(rows), x.shape[2], generator=g, device=x.device)
+    raise AssertionError("could not move the input off the kinks of LeakyReLU")
+
+
+def _k7_case(cuda, c, b, t, out_ch, bias, dils, seed=3, mode="reflect"):
     stacks = _on(_melgan_stacks(c, dils, seed=seed, bias=bias), cuda)
     rs = np.random.RandomState(seed + 1)
 
@@ -620,7 +758,8 @@ def _k7_case(cuda, c, b, t, out_ch, bias, dils, seed=3):
     if out_ch is not None:
         final = (randn(7, c, out_ch, scale=0.5 / (7 * c) ** 0.5),
                  randn(out_ch, scale=0.1) if bias else None)
-    return stacks, final, randn(b, t, c), randn(b, t, out_ch or c)
+    x, dy = randn(b, t, c), randn(b, t, out_ch or c)
+    return stacks, final, _off_the_kinks(x, stacks, final, mode, seed), dy
 
 
 def _k7_grads(dx, dstacks, dfinal):
@@ -650,7 +789,7 @@ def test_melgan_stacks_backward_matches_plain_version(cuda, c, b, t, mode, out_c
                                                       bias, dils):
     from parallelwavegan_tpu_torch.ops.kernels import melgan_stack_train as k7
 
-    stacks, final, x, dy = _k7_case(cuda, c, b, t, out_ch, bias, dils)
+    stacks, final, x, dy = _k7_case(cuda, c, b, t, out_ch, bias, dils, mode=mode)
     before = k7.melgan_stacks_backward.launches
     got = k7.melgan_stacks_backward(x, stacks, final, 0.2, mode, dy)
     torch.cuda.synchronize()
@@ -673,11 +812,12 @@ def test_melgan_stacks_backward_matches_plain_version(cuda, c, b, t, mode, out_c
 def test_melgan_stacks_backward_wide_kernels(cuda, c, t, k, dils, mode, out_ch):
     from parallelwavegan_tpu_torch.ops.kernels import melgan_stack_train as k7
 
-    stacks, final, x, dy = _k7_case(cuda, c, 2, t, out_ch, True, dils)
+    stacks, final, x, dy = _k7_case(cuda, c, 2, t, out_ch, True, dils, mode=mode)
     rs = np.random.RandomState(k)
     for st in stacks:
         st["wd"] = torch.from_numpy(
             (rs.randn(k, c, c) * 0.5 / (k * c) ** 0.5).astype(np.float32)).to(cuda)
+    x = _off_the_kinks(x, stacks, final, mode, k)  # at the new taps' z
     got = k7.melgan_stacks_backward(x, stacks, final, 0.2, mode, dy)
     torch.cuda.synchronize()
     want = k7.melgan_stacks_backward_reference(x, stacks, final, 0.2, mode, dy)
@@ -721,10 +861,26 @@ def test_melgan_generator_trains_through_the_kernels(cuda, monkeypatch):
     (plain(c) * cot).sum().backward()
     _refuse(monkeypatch, k7, "melgan_stacks_reference")
     _refuse(monkeypatch, k7, "melgan_stacks_backward_reference")
+    k7_splits = []
+
+    def counted(stacks):
+        k7_splits.append(len(stacks))
+        return stack_fragments(stacks)
+
+    # one split per stage for K6 in the forward (its re-run in the backward
+    # reads it again) and one for K7 in the backward
+    stack_fragments = k7.stack_fragments
+    monkeypatch.setattr(k7, "stack_fragments", counted)
     before = k7.melgan_stacks_backward.launches
-    (gen(c) * cot).sum().backward()
+    k6_splits = stack_mod.kernel_weights.launches
+    y = gen(c)
+    assert stack_mod.kernel_weights.launches == k6_splits + 3 and k7_splits == []
+    (y * cot).sum().backward()
     torch.cuda.synchronize()
+    assert stack_mod.kernel_weights.launches == k6_splits + 3 and k7_splits == [3, 3, 3]
     assert k7.melgan_stacks_backward.launches == before + 10  # 9 stacks, final
+    with torch.no_grad():
+        assert float((y - plain(c)).abs().max()) <= 2e-4
     want = dict(plain.named_parameters())
     _assert_grads_close([(k, p.grad, want[k].grad) for k, p in gen.named_parameters()],
                         strict=True)
