@@ -178,6 +178,22 @@ Phases (any failure exits non-zero; nothing is caught):
    the final checkpoint decodes through ``bin/decode.main`` (K8a: 7
    launches per utterance, noise padded to 352 frames).
 
+23. The split of one HiFi-GAN v1 train step (hifigan.v1.yaml verbatim,
+   B=16, T=8192; no kernel runs in it), as phase 15: G forward, G
+   losses (mel, D on y_, D on y for feature matching), G backward, G
+   optimizer step, the D phase's G re-run, D's two forwards with its
+   backward and step, ``TrainStep`` G-only and G+D steps/s and peak memory.
+24. HiFi-GAN v1 training through ``bin/train.main``: the shipped config
+   at full width and batch with HIFIGAN_TRAIN_OVERRIDES (TRAIN_OVERRIDES
+   with v1's own start steps: steps 1-4 are G only, D only, G+D, G+D), on
+   an npy dump of HIFIGAN_TRAIN_UTTS synthetic utterances (150-300 frames;
+   a batch of 16 needs 16 of them); every logged loss finite; a
+   ``--resume`` from the step-2 checkpoint reproduces steps 3-4 to 1e-4
+   relative and the spectral norm's (u, v) to 1e-6; one G+D ``TrainStep``
+   at B=2 agrees with the CPU's to 1e-4 relative on every loss; the final
+   checkpoint decodes through ``bin/decode.main`` with ``--use-pallas-tail``
+   (K1 once per utterance) and without, the WAVs within 2e-4.
+
 Phase 3 also decodes HiFi-GAN v1 with ``use_pallas_mrf: true`` in the
 config (K2 called twice per utterance, stages 2 and 3, 8 launches, every
 residual unit on the tensor cores) and holds it to the plain decode.
@@ -342,6 +358,61 @@ V1_STYLE_CONFIG = dict(
 # needs 32 utterances; 100-131 frames, each longer than a crop of 88
 STYLE_TRAIN_UTTS = 32
 STYLE_TRAIN_FRAMES = (100, 131)
+# the whole of egs/ljspeech/voc1/conf/hifigan.v1.yaml (a test holds it equal
+# to the file), trained by phases 23-24 as it ships
+V1_HIFIGAN_CONFIG = dict(
+    V1_FEATURES, global_gain_scale=1.0, trim_silence=False,
+    trim_threshold_in_db=20, trim_frame_size=1024, trim_hop_size=256,
+    format="hdf5", generator_type="HiFiGANGenerator", generator_params=V1_GENERATOR,
+    discriminator_type="HiFiGANMultiScaleMultiPeriodDiscriminator",
+    discriminator_params=dict(
+        scales=3, scale_downsample_pooling="AvgPool1d",
+        scale_downsample_pooling_params=dict(kernel_size=4, stride=2, padding=2),
+        scale_discriminator_params=dict(
+            in_channels=1, out_channels=1, kernel_sizes=[15, 41, 5, 3], channels=128,
+            max_downsample_channels=1024, max_groups=16, bias=True,
+            downsample_scales=[4, 4, 4, 4, 1], nonlinear_activation="LeakyReLU",
+            nonlinear_activation_params={"negative_slope": 0.1}),
+        follow_official_norm=True, periods=[2, 3, 5, 7, 11],
+        period_discriminator_params=dict(
+            in_channels=1, out_channels=1, kernel_sizes=[5, 3], channels=32,
+            downsample_scales=[3, 3, 3, 3, 1], max_downsample_channels=1024,
+            bias=True, nonlinear_activation="LeakyReLU",
+            nonlinear_activation_params={"negative_slope": 0.1},
+            use_weight_norm=True, use_spectral_norm=False)),
+    use_stft_loss=False, use_mel_loss=True,
+    mel_loss_params=dict(fs=22050, fft_size=1024, hop_size=256, win_length=None,
+                         window="hann", num_mels=80, fmin=0, fmax=11025, log_base=None),
+    generator_adv_loss_params={"average_by_discriminators": False},
+    discriminator_adv_loss_params={"average_by_discriminators": False},
+    use_feat_match_loss=True,
+    feat_match_loss_params=dict(average_by_discriminators=False,
+                                average_by_layers=False, include_final_outputs=False),
+    lambda_aux=45.0, lambda_adv=1.0, lambda_feat_match=2.0, batch_size=16,
+    batch_max_steps=8192, pin_memory=True, num_workers=2,
+    remove_short_samples=False, allow_cache=True,
+    generator_optimizer_type="Adam",
+    generator_optimizer_params=dict(lr=2.0e-4, betas=[0.5, 0.9], weight_decay=0.0),
+    generator_scheduler_type="MultiStepLR",
+    generator_scheduler_params=dict(gamma=0.5,
+                                    milestones=[200000, 400000, 600000, 800000]),
+    generator_grad_norm=-1, discriminator_optimizer_type="Adam",
+    discriminator_optimizer_params=dict(lr=2.0e-4, betas=[0.5, 0.9], weight_decay=0.0),
+    discriminator_scheduler_type="MultiStepLR",
+    discriminator_scheduler_params=dict(gamma=0.5,
+                                        milestones=[200000, 400000, 600000, 800000]),
+    discriminator_grad_norm=-1, generator_train_start_steps=1,
+    discriminator_train_start_steps=0, train_max_steps=2500000,
+    save_interval_steps=10000, eval_interval_steps=1000, log_interval_steps=100,
+    num_save_intermediate_results=4,
+)
+# TRAIN_OVERRIDES but v1's own start steps: steps 1-4 are G only, D only,
+# G+D, G+D
+HIFIGAN_TRAIN_OVERRIDES = {k: v for k, v in TRAIN_OVERRIDES.items()
+                           if k != "discriminator_train_start_steps"}
+# phase 24's dump: the loader drops incomplete batches, so a batch of 16
+# needs 16 utterances
+HIFIGAN_TRAIN_UTTS = 16
 # a 512-frame StyleMelGAN decode: noise length ceil(512 / 88) = 6, rounded
 # up to 8, so the mel is edge-padded to 8 * 88 = 704 frames
 STYLE_FRAMES = 704
@@ -743,14 +814,14 @@ def _read_wavs(outdir: str) -> dict:
     return out
 
 
-def _compare_wavs(dir_a: str, dir_b: str) -> float:
-    """max |a - b| over the utterances; fails on a wrong set, length,
-    non-finite or silent output."""
+def _compare_wavs(dir_a: str, dir_b: str, frames=UTT_FRAMES) -> float:
+    """max |a - b| over the utterances of ``frames`` frames each; fails on
+    a wrong set, length, non-finite or silent output."""
     import numpy as np
 
     wav_a, wav_b = _read_wavs(dir_a), _read_wavs(dir_b)
     expected = {f"utt{i}-feats_gen.wav": f * V1_FEATURES["hop_size"]
-                for i, f in enumerate(UTT_FRAMES)}
+                for i, f in enumerate(frames)}
     if set(wav_a) != set(expected) or set(wav_b) != set(expected):
         _fail(f"wav files {sorted(wav_a)} / {sorted(wav_b)}")
     err = 0.0
@@ -2279,26 +2350,41 @@ def _melgan_v1_config(kernel: bool, **overrides) -> dict:
 
 
 def _train_split(card: str, label: str, config_of, batch: dict,
-                 forward_kernels: tuple = ()) -> None:
+                 forward_kernels: tuple = (),
+                 losses: str = "STFT + D adversarial",
+                 variants=(("kernel", True), ("plain", False))) -> None:
     """Where one train step (G and D phases) of ``config_of(kernel)``
-    spends its time on ``batch``, with the kernels and through the plain
-    path: CUDA events between the parts of the step (median of 5 after two
-    warm-ups), then whole ``TrainStep`` calls on the host clock with a
-    synchronise (G-only and G+D steps/s). With ``forward_kernels`` (kernel
-    name prefixes), their device time in one G forward with the kernels
-    (torch.profiler)."""
+    spends its time on ``batch``, for each (name, kernel) of ``variants``
+    (with the kernels and through the plain path): CUDA events between the
+    parts of the step (median of 5 after two warm-ups), then whole
+    ``TrainStep`` calls on the host clock with a synchronise (G-only and
+    G+D steps/s). The G losses (``losses`` names them) are the train
+    step's: the auxiliary ones, D on the generated wave and, with feature
+    matching, D on the real one without grad. With ``forward_kernels``
+    (kernel name prefixes), their device time in one G forward with the
+    kernels (torch.profiler)."""
     import torch
 
     from parallelwavegan_tpu_torch.models import get_model_class
     from parallelwavegan_tpu_torch.optimizers import build_optimizer_from_config
     from parallelwavegan_tpu_torch.train.criterion import build_criterion
-    from parallelwavegan_tpu_torch.train.step import TrainStep, generator_forward
+    from parallelwavegan_tpu_torch.train.step import (
+        TrainStep,
+        adv_losses,
+        aux_losses,
+        generator_forward,
+    )
 
     b, _, t = batch["y"].shape
-    parts = ("G forward", "G losses (STFT + D adversarial)", "G backward",
+    parts = ("G forward", f"G losses ({losses})", "G backward",
              "G optimizer step", "D phase: G re-run, no grad",
              "D phase: D forward, backward, step")
-    for name, kernel in (("kernel", True), ("plain", False)):
+
+    def real_features(dis):
+        with torch.no_grad():
+            return dis(batch["y"])
+
+    for name, kernel in variants:
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2330,8 +2416,9 @@ def _train_split(card: str, label: str, config_of, batch: dict,
             ev[0].record()
             y_ = generator_forward(cfg, gen, batch)
             ev[1].record()
-            sc, mag = crit.stft(y_[:, 0], batch["y"][:, 0])
-            loss = (sc + mag) * crit.lambda_aux + crit.lambda_adv * crit.gen_adv(dis(y_))
+            loss = (aux_losses(crit, y_, batch["y"], {}) * crit.lambda_aux
+                    + crit.lambda_adv * adv_losses(crit, dis(y_),
+                                                    lambda: real_features(dis), {}))
             ev[2].record()
             grads = grads_of(loss, g_params)
             ev[3].record()
@@ -2908,6 +2995,230 @@ def phase_style_train(card: str) -> dict:
             "err": out["err"]}
 
 
+def _hifigan_v1_config(kernel: bool = False, **overrides) -> dict:
+    """A fresh copy of hifigan.v1.yaml with ``overrides``; its training runs
+    no kernel (``kernel`` is for ``_train_split``'s signature)."""
+    cfg = json.loads(json.dumps(V1_HIFIGAN_CONFIG))
+    cfg.update(overrides)
+    return cfg
+
+
+def _conv_gflop(model, fn) -> float:
+    """GFLOP of the convolutions of ``model`` that ``fn`` runs: two per
+    multiply-add, counted from each conv's input and output shapes."""
+    import math
+
+    import torch
+
+    total = [0]
+
+    def hook(m, inputs, out):
+        if isinstance(m, torch.nn.ConvTranspose1d):  # each input times its taps
+            total[0] += 2 * inputs[0].numel() * m.out_channels // m.groups * m.kernel_size[0]
+        else:
+            total[0] += 2 * out.numel() * (m.in_channels // m.groups) * math.prod(m.kernel_size)
+
+    handles = [m.register_forward_hook(hook) for m in model.modules() if isinstance(
+        m, (torch.nn.Conv1d, torch.nn.Conv2d, torch.nn.ConvTranspose1d))]
+    try:
+        fn()
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0] / 1e9
+
+
+def phase_hifigan_train_split(card: str) -> None:
+    """Where one HiFi-GAN v1 train step (B=16, T=8192) spends its time: the
+    generator, the mel loss, the five period and three scale
+    discriminators with their spectral norm, feature matching; then the
+    generator's and the two discriminator groups' forwards alone (no
+    grad), beside the GFLOP of their convolutions."""
+    import torch
+
+    from parallelwavegan_tpu_torch.models import get_model_class
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    b, t = V1_HIFIGAN_CONFIG["batch_size"], V1_HIFIGAN_CONFIG["batch_max_steps"]
+    frames = t // V1_HIFIGAN_CONFIG["hop_size"]
+    batch = {"y": 0.3 * torch.randn(b, 1, t, generator=g, device="cuda"),
+             "c": torch.randn(b, 80, frames, generator=g, device="cuda")}
+    _train_split(card, "HiFi-GAN v1", _hifigan_v1_config, batch,
+                 losses="mel, D on y_, D on y for feature matching",
+                 variants=(("no kernel on this path", False),))
+    cfg = _hifigan_v1_config()
+    init = torch.Generator().manual_seed(SEED)
+    gen = get_model_class(cfg["generator_type"])(
+        **cfg["generator_params"], generator=init).to("cuda")
+    dis = get_model_class(cfg["discriminator_type"])(
+        **cfg["discriminator_params"], generator=init).to("cuda")
+    parts = []
+    with torch.no_grad():
+        for name, model, fn in (
+                ("G", gen, lambda: gen(batch["c"])),
+                ("MSD (3 scales)", dis.msd, lambda: dis.msd(batch["y"])),
+                ("MPD (5 periods)", dis.mpd, lambda: dis.mpd(batch["y"]))):
+            gflop, ms = _conv_gflop(model, fn), _median_ms(fn)
+            parts.append(f"{name} {ms:.3f} ms for {gflop:.1f} GFLOP of convolutions "
+                         f"({gflop / ms:.1f} TFLOP/s)")
+    print(f"HiFi-GAN v1 forwards alone, B={b} T={t}, no grad, D in train mode, "
+          f"median of 10, CUDA events, on {card}: " + "; ".join(parts))
+    del gen, dis
+
+
+def _spectral_vectors(path: str) -> dict:
+    """The discriminator's spectral-norm (u, v) in a training checkpoint."""
+    import torch
+
+    sd = torch.load(path, map_location="cpu", weights_only=True)["model"]["discriminator"]
+    return {k[:-1] + vec: sd[k[:-1] + vec] for k in sd if k.endswith("weight_u")
+            for vec in "uv"}
+
+
+def _hifigan_cross_check(card: str) -> float:
+    """One G+D ``TrainStep`` of v1 at B=2 x 8192 on the card and on the CPU
+    from the same weights and batch (TF32 off on both): every loss to 1e-4
+    relative."""
+    import torch
+
+    from parallelwavegan_tpu_torch.models import get_model_class
+    from parallelwavegan_tpu_torch.optimizers import build_optimizer_from_config
+    from parallelwavegan_tpu_torch.train.criterion import build_criterion
+    from parallelwavegan_tpu_torch.train.step import TrainStep
+
+    cfg = _hifigan_v1_config(batch_size=2)
+    g = torch.Generator().manual_seed(SEED + 1)
+    t = cfg["batch_max_steps"]
+    batch = {"y": 0.3 * torch.randn(2, 1, t, generator=g),
+             "c": torch.randn(2, 80, t // cfg["hop_size"], generator=g)}
+    got = {}
+    for device in ("cuda", "cpu"):
+        init = torch.Generator().manual_seed(SEED)  # the same weights on both
+        gd = get_model_class(cfg["generator_type"])(
+            **cfg["generator_params"], generator=init).to(device)
+        dd = get_model_class(cfg["discriminator_type"])(
+            **cfg["discriminator_params"], generator=init).to(device)
+        step = TrainStep(cfg, gd, dd, build_criterion(cfg),
+                         build_optimizer_from_config(cfg, "generator", gd.parameters()),
+                         build_optimizer_from_config(cfg, "discriminator", dd.parameters()))
+        t0 = time.perf_counter()
+        got[device] = {k: float(v) for k, v in step(
+            {k: v.to(device) for k, v in batch.items()}, True, True, 0).items()}
+        print(f"HiFi-GAN v1 G+D TrainStep at B=2 T={t} on {device}: "
+              f"{time.perf_counter() - t0:.1f} s (first call, host clock)")
+        del gd, dd, step
+    worst = 0.0
+    for key, want in got["cpu"].items():
+        rel = abs(got["cuda"][key] - want) / max(abs(want), 1e-30)
+        if not rel <= 1e-4 or key not in got["cuda"]:
+            _fail(f"HiFi-GAN v1 cross-check: {key} = {got['cuda'].get(key)!r} on the "
+                  f"card vs {want!r} on the CPU")
+        worst = max(worst, rel)
+    if sorted(got["cuda"]) != sorted(got["cpu"]):
+        _fail(f"HiFi-GAN v1 cross-check: metrics {sorted(got['cuda'])} vs "
+              f"{sorted(got['cpu'])}")
+    print(f"HiFi-GAN v1 G+D step, card ({card}) vs CPU: max relative loss diff "
+          f"{worst:.3e} over {sorted(got['cpu'])} (tol 1e-4)")
+    return worst
+
+
+def phase_hifigan_train(card: str) -> dict:
+    """HiFi-GAN v1 training through ``bin/train.main``: hifigan.v1.yaml at
+    full width and batch with HIFIGAN_TRAIN_OVERRIDES on a dump of
+    HIFIGAN_TRAIN_UTTS synthetic utterances (steps 1-4: G only, D only,
+    G+D, G+D; every logged loss finite), a resume from step 2 that logs
+    steps 3-4 to 1e-4 and ends on the same spectral (u, v) to 1e-6, the
+    card against the CPU on one G+D step, and the trained checkpoint
+    decoded through ``bin/decode.main`` with the tail kernel K1 (one launch
+    per utterance) and without, the WAVs within 2e-4."""
+    import numpy as np
+
+    from parallelwavegan_tpu_torch.bin import decode, train
+    from parallelwavegan_tpu_torch.ops.kernels.hifigan_tail import fused_hifigan_tail
+
+    root = os.path.join(WORK, "hifigan_train")
+    shutil.rmtree(root, ignore_errors=True)
+    utts = HIFIGAN_TRAIN_UTTS
+    dump = _write_train_dump(root, utts)
+    config = os.path.join(root, "config.json")
+    with open(config, "w") as f:
+        json.dump(_hifigan_v1_config(**HIFIGAN_TRAIN_OVERRIDES), f)
+    steps = HIFIGAN_TRAIN_OVERRIDES["train_max_steps"]
+    res = {}
+    for name, extra in (("run", []), ("resume", ["--resume", os.path.join(
+            root, "exp_run", "checkpoint-2steps.pkl")])):
+        t0 = time.perf_counter()
+        res[name] = train.main(
+            ["--train-dumpdir", dump, "--dev-dumpdir", dump, "--outdir",
+             os.path.join(root, f"exp_{name}"), "--device", "cuda", "--verbose", "0",
+             "--config", config] + extra)
+        print(f"main path [HiFi-GAN v1 training, {name}]: {res[name]['steps']} steps in "
+              f"{time.perf_counter() - t0:.1f} s (set-up, eval and saves included) "
+              f"on {card}")
+        if res[name]["steps"] != steps:
+            _fail(f"HiFi-GAN v1 training {name}: {res[name]['steps']} steps")
+    logged = {name: {s: {k: v for k, v in m.items() if k.startswith("train/")}
+                     for s, m in r["history"] if any(k.startswith("train/") for k in m)}
+              for name, r in res.items()}
+    run = logged["run"]
+    g_keys = {"train/mel_loss", "train/generator_loss"}
+    gd_keys = g_keys | {"train/adversarial_loss", "train/feature_matching_loss",
+                        "train/real_loss", "train/fake_loss", "train/discriminator_loss"}
+    phases = {1: (g_keys, "train/discriminator_loss"),
+              2: ({"train/real_loss", "train/fake_loss"}, "train/generator_loss"),
+              3: (gd_keys, None), 4: (gd_keys, None)}
+    for s, (need, absent) in phases.items():
+        m = run.get(s, {})
+        print(f"  step {s}: " + ", ".join(f"{k} {v:.6f}" for k, v in sorted(m.items())))
+        if not need <= set(m) or absent in m:
+            _fail(f"HiFi-GAN v1 training: step {s} logged {sorted(m)}")
+        if not all(np.isfinite(v) for v in m.values()):
+            _fail(f"HiFi-GAN v1 training: non-finite loss at step {s}")
+    if not any("eval/feature_matching_loss" in m for _, m in res["run"]["history"]):
+        _fail("HiFi-GAN v1 training: no evaluation was logged")
+    if sorted(logged["resume"]) != [3, 4]:
+        _fail(f"HiFi-GAN v1 resume logged steps {sorted(logged['resume'])}")
+    err_resume = _losses_agree("HiFi-GAN v1 resume vs uninterrupted", logged["resume"],
+                               run, (3, 4))
+    ckpt = os.path.join(root, "exp_run", f"checkpoint-{steps}steps.pkl")
+    a = _spectral_vectors(ckpt)
+    b = _spectral_vectors(os.path.join(root, "exp_resume", f"checkpoint-{steps}steps.pkl"))
+    moved = _spectral_vectors(os.path.join(root, "exp_run", "checkpoint-2steps.pkl"))
+    uv_err = max(float((a[k] - b[k]).abs().max()) for k in a)
+    uv_moved = max(float((a[k] - moved[k]).abs().max()) for k in a)
+    if len(a) != 2 * 8 or sorted(a) != sorted(b) or not uv_err <= 1e-6:
+        _fail(f"HiFi-GAN v1 resume: spectral (u, v) differ by {uv_err:.3e} ({len(a)})")
+    print(f"HiFi-GAN v1 resumed from step 2 vs uninterrupted: max relative loss diff "
+          f"{err_resume:.3e} over steps 3-4 (tol 1e-4); spectral (u, v) of the "
+          f"{len(a) // 2} convs of scale 0: max |diff| {uv_err:.3e} (tol 1e-6), "
+          f"moved {uv_moved:.3e} since step 2")
+    if not uv_moved > 0:
+        _fail("HiFi-GAN v1 training: the power iteration did not move (u, v)")
+    cross = _hifigan_cross_check(card)
+
+    wavdirs = {}
+    for name, flags, expect in (("tail", ["--use-pallas-tail"], utts), ("plain", [], 0)):
+        wavdirs[name] = os.path.join(root, f"wav_{name}")
+        _reset_launch_counts()
+        decode.main(["--dumpdir", dump, "--outdir", wavdirs[name], "--device", "cuda",
+                     "--checkpoint", ckpt, "--verbose", "0"] + flags)
+        n = len(os.listdir(wavdirs[name]))
+        print(f"main path [decode of the HiFi-GAN v1 step-{steps} checkpoint, {name}]: "
+              f"{n} utterances, K1 launches = {fused_hifigan_tail.launches}")
+        if n != utts or fused_hifigan_tail.launches != expect:
+            _fail(f"decode of the trained HiFi-GAN v1 checkpoint [{name}]: {n} WAVs, "
+                  f"{fused_hifigan_tail.launches} K1 launches, expected {expect}")
+    frames = [np.load(os.path.join(dump, f"utt{i}-feats.npy")).shape[0]
+              for i in range(utts)]
+    err = _compare_wavs(wavdirs["tail"], wavdirs["plain"], frames)
+    print(f"HiFi-GAN v1 trained checkpoint, tail kernel vs plain decode: max |diff| "
+          f"{err:.3e} (tol {TOL})")
+    if not err <= TOL:
+        _fail(f"decode of the trained HiFi-GAN v1 checkpoint: tail vs plain {err:.3e}")
+    shutil.rmtree(root)
+    return {"err_resume": err_resume, "cross": cross, "decode_err": err}
+
+
 def main() -> None:
     pkg = os.path.join(ROOT, "parallelwavegan_tpu_torch")
     if not os.path.isdir(pkg):
@@ -2987,6 +3298,10 @@ def main() -> None:
     phase_style_train_split(card)
     torch.cuda.synchronize()
     style_train = phase_style_train(card)
+    torch.cuda.synchronize()
+    phase_hifigan_train_split(card)
+    torch.cuda.synchronize()
+    phase_hifigan_train(card)
     torch.cuda.synchronize()
     shutil.rmtree(WORK, ignore_errors=True)
 

@@ -15,7 +15,11 @@ Ported so far: the Parallel WaveGAN and MelGAN generators (MelGAN with one
 output channel: PQMF in the criterion is not ported) with
 ``ParallelWaveGANDiscriminator``, the StyleMelGAN generator with
 ``StyleMelGANDiscriminator`` (its noise and windows drawn per step from
-the config's ``seed``), the STFT and adversarial losses, RAdam or Adam.
+the config's ``seed``), the HiFi-GAN generator with the HiFi-GAN
+discriminators (spectral norm included), the STFT, mel, feature-matching
+and adversarial losses, RAdam or Adam. HiFi-GAN's ``use_pallas_tail`` and
+``use_pallas_mrf`` run kernels without a backward: a training config that
+sets either is refused before any step (they are for decode).
 With ``use_pallas_stack_train`` PWG's gated layers train through the K3
 and K4 kernels on the card, with ``use_pallas_stacks_train`` MelGAN's
 residual stacks of at most 128 channels through K6 and K7, with
@@ -131,8 +135,12 @@ def main(argv=None) -> dict:
         raise _not_ported("scp datasets (--*-wav-scp / --*-feats-scp / --*-segments)")
     gen_type = config["generator_type"]
     if gen_type not in ("ParallelWaveGANGenerator", "MelGANGenerator",
-                        "StyleMelGANGenerator"):
+                        "StyleMelGANGenerator", "HiFiGANGenerator"):
         raise _not_ported(f"training {gen_type}")
+    for flag in ("use_pallas_tail", "use_pallas_mrf"):
+        if config["generator_params"].get(flag, False):
+            raise ValueError(f"generator_params.{flag} runs a kernel without a "
+                             "backward: it is decode only; drop it to train")
     flags = feature_flags(config)
 
     os.makedirs(args.outdir, exist_ok=True)

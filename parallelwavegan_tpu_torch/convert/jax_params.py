@@ -4,18 +4,24 @@ The inverse of parallelwavegan_tpu/convert/torch_checkpoint.py:510
 ``_convert_tree`` for the models the port has: module paths go through
 the same name maps as ``_t_hifigan_g`` (:131), ``_make_t_melgan_g``
 (:153-207, non-causal), ``_make_t_pwg_g`` (:210-264),
-``_t_style_melgan_g`` (:267-286), ``_make_t_pwg_d`` (:388-399) and
+``_t_style_melgan_g`` (:267-286), ``_make_t_pwg_d`` (:388-399),
 ``_make_t_melgan_d`` (:420-434, nested under ``discriminators`` for
-StyleMelGAN's, :116-119) in reverse, conv
+StyleMelGAN's, :116-119), and HiFi-GAN's ``_t_hifigan_period_d`` and
+``_make_t_hifigan_scale_d`` (:437-463, nested under ``discriminators``
+and ``msd``/``mpd``, :94-122) in reverse, conv
 kernels (K, Cin, Cout) are transposed to torch's (Cout, Cin, K)
-(``_CONV_PERM``), transposed-conv kernels (HiFi-GAN's ``upsamples_*``,
+(``_CONV_PERM``) and 2-D ones (Kh, Kw, Cin, Cout) to (Cout, Cin, Kh, Kw)
+(``_CONV2D_PERM``), transposed-conv kernels (HiFi-GAN's ``upsamples_*``,
 MelGAN's deconv layers, StyleMelGAN's ``noise_upsample_*``: the
 ``is_transpose`` set) are flipped along K and
 laid out as torch's (Cin, Cout, K) (``_DECONV_PERM``, :466-467,
 :558-562), the UpsampleNetwork's (T, F, 1, 1) leaves
 ``conv_{i}[_v|_g]`` become ``up_layers.{step*i+1}`` Conv2d weights
 (1, 1, F, T) (``_UPCONV2D_PERM``, :469), and weight norm's ``g``/``v``
-become ``weight_g``/``weight_v``.
+become ``weight_g``/``weight_v``. A module in the ``spectral`` collection
+(spectral norm) has its ``kernel`` as ``weight_orig`` and its
+power-iteration vectors ``u``/``v`` as ``weight_u``/``weight_v``, the
+inverse of ``convert_state_dict`` (:675-684).
 """
 
 from __future__ import annotations
@@ -164,6 +170,45 @@ def _melgan_d_map(downsample_scales):
     return prefix
 
 
+def _hifigan_period_d_prefix(path) -> str:
+    """``convs_{i}`` -> ``convs.{i}.0``, ``output_conv`` as it is."""
+    (p,) = path
+    if p.startswith("convs_"):
+        return f"convs.{_idx(p)}.0"
+    if p == "output_conv":
+        return "output_conv"
+    raise KeyError(f"period-d path segment {p!r}")
+
+
+def _hifigan_scale_d_map(model_params: dict):
+    """``layers_{i}`` -> ``layers.{i}.0``, the last conv ->
+    ``layers.{len(downsample_scales) + 2}``."""
+    last = len(model_params.get("downsample_scales", (2, 2, 4, 4, 1))) + 2
+
+    def prefix(path) -> str:
+        (p,) = path
+        if not p.startswith("layers_"):
+            raise KeyError(f"scale-d path segment {p!r}")
+        i = _idx(p)
+        return f"layers.{i}.0" if i < last else f"layers.{last}"
+
+    return prefix
+
+
+def _hifigan_msmpd_map(model_params: dict):
+    """``msd/discriminators_{i}/...`` and ``mpd/discriminators_{i}/...``."""
+    inner = {"msd": _nested("discriminators", _hifigan_scale_d_map(
+                 model_params.get("scale_discriminator_params") or {})),
+             "mpd": _nested("discriminators", _hifigan_period_d_prefix)}
+
+    def prefix(path) -> str:
+        if path[0] not in inner:
+            raise KeyError(f"msmpd path segment {path[0]!r}")
+        return f"{path[0]}.{inner[path[0]](path[1:])}"
+
+    return prefix
+
+
 def _nested(outer: str, inner):
     """``{outer}_{i}/...`` -> ``{outer}.{i}.`` + inner(...)."""
 
@@ -183,14 +228,19 @@ def _flatten(tree, prefix=()):
             yield prefix + (k,), v
 
 
-def jax_params_to_state_dict(model_type: str, model_params: dict,
-                             params) -> "OrderedDict[str, torch.Tensor]":
+def jax_params_to_state_dict(model_type: str, model_params: dict, params,
+                             spectral=None) -> "OrderedDict[str, torch.Tensor]":
     """JAX params (``G.init(...)`` output or its ``"params"`` entry, with
     numpy or jax arrays as leaves) -> port state dict of float32 tensors.
     ``model_type`` is a registered generator or discriminator,
-    ``"ResidualStack"`` or ``"TADEResBlock"``."""
+    ``"ResidualStack"`` or ``"TADEResBlock"``. ``spectral`` is the
+    ``spectral`` collection of a model with spectral norm (JAX's
+    ``vars_d["spectral"]``); a full ``init`` output carries its own."""
     if "params" in params:
+        spectral = params.get("spectral", spectral)
         params = params["params"]
+    spectral_vecs = {tuple(path): leaf for path, leaf in _flatten(spectral or {})}
+    spectral_mods = {path[:-1] for path in spectral_vecs}
     deconvs = None  # MelGAN's deconv layer indices
     if model_type == "HiFiGANGenerator":
         n_up = len(model_params.get("upsample_scales", (8, 8, 2, 2)))
@@ -213,6 +263,17 @@ def jax_params_to_state_dict(model_type: str, model_params: dict,
         prefix_of = _pwg_d_map(model_params)
     elif model_type == "MelGANDiscriminator":
         prefix_of = _melgan_d_map(model_params.get("downsample_scales", (4, 4, 4, 4)))
+    elif model_type == "HiFiGANPeriodDiscriminator":
+        prefix_of = _hifigan_period_d_prefix
+    elif model_type == "HiFiGANMultiPeriodDiscriminator":
+        prefix_of = _nested("discriminators", _hifigan_period_d_prefix)
+    elif model_type == "HiFiGANScaleDiscriminator":
+        prefix_of = _hifigan_scale_d_map(model_params)
+    elif model_type == "HiFiGANMultiScaleDiscriminator":
+        prefix_of = _nested("discriminators", _hifigan_scale_d_map(
+            model_params.get("discriminator_params") or {}))
+    elif model_type == "HiFiGANMultiScaleMultiPeriodDiscriminator":
+        prefix_of = _hifigan_msmpd_map(model_params)
     elif model_type == "StyleMelGANDiscriminator":
         inner = (model_params.get("discriminator_params") or {}).get(
             "downsample_scales", (4, 4, 4, 1))
@@ -241,15 +302,26 @@ def jax_params_to_state_dict(model_type: str, model_params: dict,
         if name == "bias":
             sd[f"{prefix}.bias"] = w
         elif name in ("v", "kernel"):
-            if transpose:
+            if w.ndim == 4:  # (Kh, Kw, Cin, Cout) -> (Cout, Cin, Kh, Kw)
+                w = np.transpose(w, (3, 2, 0, 1))
+            elif transpose:
                 w = np.transpose(w[::-1], (1, 2, 0))
             else:
                 w = np.transpose(w, (2, 1, 0))
-            sd[f"{prefix}.{'weight_v' if name == 'v' else 'weight'}"] = w
+            if name == "v":
+                sd[f"{prefix}.weight_v"] = w
+            elif tuple(mods) in spectral_mods:
+                sd[f"{prefix}.weight_orig"] = w
+                for vec in ("u", "v"):
+                    sd[f"{prefix}.weight_{vec}"] = np.asarray(
+                        spectral_vecs[tuple(mods) + (vec,)], dtype=np.float32)
+            else:
+                sd[f"{prefix}.weight"] = w
         elif name == "g":
             # JAX keeps the norm axis in place ((1, 1, Cout) for a conv,
-            # (1, Cin, 1) for a transpose); torch's weight_g is (n, 1, 1)
-            sd[f"{prefix}.weight_g"] = w.reshape(-1, 1, 1)
+            # (1, Cin, 1) for a transpose, (1, 1, 1, Cout) for a 2-D conv);
+            # torch's weight_g is (n, 1, 1) or (n, 1, 1, 1)
+            sd[f"{prefix}.weight_g"] = w.reshape(-1, *[1] * (w.ndim - 1))
         else:
             raise KeyError(f"unknown leaf {name!r} at {'/'.join(mods)}")
     return OrderedDict(

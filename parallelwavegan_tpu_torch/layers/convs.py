@@ -1,11 +1,23 @@
-"""Weight-normalised 1-D convolutions (PyTorch, (B, C, T) layout).
+"""Weight- or spectrally normalised convolutions (PyTorch, (B, C, T) and
+(B, C, H, W) layouts).
 
-Counterpart of parallelwavegan_tpu/layers/convs.py:78-250. Weight norm is
+Counterpart of parallelwavegan_tpu/layers/convs.py:78-341. Weight norm is
 the legacy ``torch.nn.utils.weight_norm`` at dim 0, which keeps upstream's
 ``weight_g``/``weight_v`` state-dict keys. On torch's native layouts dim 0
 is the output channel of a conv and the input channel of a transposed
 conv, the same norm groups as the JAX package. For decode the norm is
 folded into a plain weight (``remove_weight_norm``), as upstream does.
+
+Spectral norm (``apply_spectral_norm``) computes what the JAX package's
+``_NormalizedKernel`` computes (:106-142) under upstream's keys
+``weight_orig``, ``weight_u`` and ``weight_v``: the weight reshaped to
+(dim0, -1), one power iteration (v <- W^T u / |W^T u|, u <- W v / |W v|,
+each norm plus 1e-12) on every train-mode forward, with or without grad,
+none in eval mode, and the weight W / (u . W v + 1e-12) with u and v held
+constant, so the gradient reaches W through sigma as well. JAX starts its
+iteration from ``jax.random.key(W.shape[1])`` and runs one at init; the
+port runs that one at init from the module's generator, so the two starts
+differ and tests carry (u, v) across.
 
 Initialisation follows the JAX package: torch's default
 U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weights and biases, or N(0, std)
@@ -85,6 +97,56 @@ def remove_weight_norm(module: nn.Module) -> None:
             torch.nn.utils.remove_weight_norm(m)
 
 
+def _normalize(vec: torch.Tensor) -> torch.Tensor:
+    return vec / (torch.linalg.vector_norm(vec) + 1e-12)
+
+
+def _spectral_weight(module: nn.Module, inputs) -> None:
+    """Forward pre-hook: ``module.weight`` from ``weight_orig`` and the
+    power-iteration vectors, one iteration first in train mode."""
+    w = module.weight_orig
+    w_mat = w.reshape(w.shape[0], -1)
+    if module.training:
+        with torch.no_grad():
+            v = _normalize(w_mat.t() @ module.weight_u)
+            u = _normalize(w_mat @ v)
+            module.weight_u.copy_(u)
+            module.weight_v.copy_(v)
+    else:
+        # copies: a later train-mode forward updates the buffers in place
+        u, v = module.weight_u.clone(), module.weight_v.clone()
+    sigma = torch.dot(u, w_mat @ v)
+    module.weight = w / (sigma + 1e-12)
+
+
+def apply_spectral_norm(module: nn.Module,
+                        generator: torch.Generator | None = None) -> nn.Module:
+    """Spectral norm of ``module.weight`` at dim 0, under upstream's keys;
+    u starts from N(0, 1) draws of ``generator`` and one power iteration
+    runs at once, as the JAX package's init runs one."""
+    w = module.weight.detach()
+    del module._parameters["weight"]
+    module.register_parameter("weight_orig", nn.Parameter(w))
+    w_mat = w.reshape(w.shape[0], -1)
+    u0 = torch.randn(w_mat.shape[0], generator=generator, dtype=w.dtype)
+    v = _normalize(w_mat.t() @ _normalize(u0.to(w.device)))
+    module.register_buffer("weight_u", _normalize(w_mat @ v))
+    module.register_buffer("weight_v", v)
+    module.weight = w  # a plain attribute, recomputed before every forward
+    module.register_forward_pre_hook(_spectral_weight)
+    return module
+
+
+def _apply_norm(module: nn.Module, use_weight_norm: bool,
+                use_spectral_norm: bool, generator) -> None:
+    if use_weight_norm and use_spectral_norm:
+        raise ValueError("Either use use_weight_norm or use_spectral_norm.")
+    if use_weight_norm:
+        apply_weight_norm(module)
+    elif use_spectral_norm:
+        apply_spectral_norm(module, generator)
+
+
 def effective_weight(conv: nn.Module) -> torch.Tensor:
     """The weight a forward pass would use, recomputed from (g, v)."""
     if hasattr(conv, "weight_g"):
@@ -93,14 +155,15 @@ def effective_weight(conv: nn.Module) -> torch.Tensor:
 
 
 class Conv1d(nn.Conv1d):
-    """Conv1d with optional weight norm. ``padding`` is 'same' (zero
-    padding, odd kernel), an int (0: valid), or 'causal' ((K-1)*dilation
+    """Conv1d with optional weight or spectral norm. ``padding`` is 'same'
+    (zero padding, odd kernel), an int (0: valid), or 'causal' ((K-1)*dilation
     zeros on the left only); ``stride`` and ``groups`` as torch's."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  *, dilation: int = 1, padding: int | str = "same",
                  stride: int = 1, groups: int = 1,
                  bias: bool = True, use_weight_norm: bool = True,
+                 use_spectral_norm: bool = False,
                  normal_std: float | None = None, zero_bias: bool = False,
                  generator: torch.Generator | None = None):
         if padding == "same":
@@ -114,8 +177,7 @@ class Conv1d(nn.Conv1d):
         self.causal_pad = (kernel_size - 1) * dilation if padding == "causal" else 0
         _init_(self, in_channels // groups * kernel_size, generator, normal_std,
                zero_bias)
-        if use_weight_norm:
-            apply_weight_norm(self)
+        _apply_norm(self, use_weight_norm, use_spectral_norm, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.causal_pad:
@@ -159,3 +221,19 @@ class ConvTranspose1d(nn.ConvTranspose1d):
         (Cin, Cout, K) scatter weight flipped along K
         (parallelwavegan_tpu/ops/conv.py:104-141)."""
         return effective_weight(self).permute(2, 0, 1).flip(0)
+
+
+class Conv2d(nn.Conv2d):
+    """Conv2d with optional weight or spectral norm for the period
+    discriminators (the JAX package's ``Conv2dP``, :309-341), torch's
+    default uniform init; weight norm's ``weight_g`` is (Cout, 1, 1, 1)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: tuple,
+                 *, stride: tuple = (1, 1), padding: tuple = (0, 0),
+                 bias: bool = True, use_weight_norm: bool = True,
+                 use_spectral_norm: bool = False,
+                 generator: torch.Generator | None = None):
+        super().__init__(in_channels, out_channels, tuple(kernel_size),
+                         stride=tuple(stride), padding=tuple(padding), bias=bias)
+        _init_(self, in_channels * math.prod(kernel_size), generator, None)
+        _apply_norm(self, use_weight_norm, use_spectral_norm, generator)

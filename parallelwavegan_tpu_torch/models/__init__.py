@@ -2,12 +2,20 @@
 
 ``HiFiGANGenerator``, ``ParallelWaveGANGenerator``, ``MelGANGenerator``
 (MelGAN and Multi-band MelGAN, non-causal), ``StyleMelGANGenerator``,
-``ParallelWaveGANDiscriminator``, ``MelGANDiscriminator`` and
-``StyleMelGANDiscriminator`` are ported so far; ROADMAP.md lists the rest
+``ParallelWaveGANDiscriminator``, ``MelGANDiscriminator``,
+``StyleMelGANDiscriminator`` and HiFi-GAN's period, multi-period, scale,
+multi-scale and multi-scale multi-period discriminators are ported so far; ROADMAP.md lists the rest
 in the order they are to come.
 """
 
-from parallelwavegan_tpu_torch.models.hifigan import HiFiGANGenerator
+from parallelwavegan_tpu_torch.models.hifigan import (
+    HiFiGANGenerator,
+    HiFiGANMultiPeriodDiscriminator,
+    HiFiGANMultiScaleDiscriminator,
+    HiFiGANMultiScaleMultiPeriodDiscriminator,
+    HiFiGANPeriodDiscriminator,
+    HiFiGANScaleDiscriminator,
+)
 from parallelwavegan_tpu_torch.models.melgan import (
     MelGANDiscriminator,
     MelGANGenerator,
@@ -23,6 +31,11 @@ from parallelwavegan_tpu_torch.models.style_melgan import (
 
 MODEL_REGISTRY = {
     "HiFiGANGenerator": HiFiGANGenerator,
+    "HiFiGANMultiPeriodDiscriminator": HiFiGANMultiPeriodDiscriminator,
+    "HiFiGANMultiScaleDiscriminator": HiFiGANMultiScaleDiscriminator,
+    "HiFiGANMultiScaleMultiPeriodDiscriminator": HiFiGANMultiScaleMultiPeriodDiscriminator,
+    "HiFiGANPeriodDiscriminator": HiFiGANPeriodDiscriminator,
+    "HiFiGANScaleDiscriminator": HiFiGANScaleDiscriminator,
     "MelGANDiscriminator": MelGANDiscriminator,
     "MelGANGenerator": MelGANGenerator,
     "ParallelWaveGANDiscriminator": ParallelWaveGANDiscriminator,

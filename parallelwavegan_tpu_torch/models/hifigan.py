@@ -1,6 +1,6 @@
-"""HiFi-GAN generator (PyTorch, (B, C, T) layout).
+"""HiFi-GAN generator and discriminators (PyTorch, (B, C, T) layout).
 
-Counterpart of parallelwavegan_tpu/models/hifigan.py:137-353. Submodule
+Counterpart of parallelwavegan_tpu/models/hifigan.py:137-631. Submodule
 names and ``nn.Sequential`` nesting reproduce upstream's state-dict keys
 (``input_conv.*``, ``upsamples.{i}.1.*``, ``blocks.{j}.convs{1,2}.{m}.1.*``,
 ``output_conv.1.*``), so a state dict of this module is an upstream
@@ -20,8 +20,15 @@ Kernel flags keep the JAX names so that configs are shared:
 Either runs the hand-written CUDA kernel on a GPU and its plain PyTorch
 version on the CPU. ``pallas_mrf_tile`` and ``pallas_tail_tile`` are the
 TPU kernels' tile sizes: they are accepted for config compatibility and
-have no effect here. The causal variant and the discriminators are not
-ported yet.
+have no effect here. The causal variant is not ported yet.
+
+The five discriminators (JAX :367-631) keep upstream's state-dict keys
+(``convs.{j}.0.*`` and ``output_conv.*`` of a period discriminator,
+``layers.{j}.0.*`` and the last ``layers.{n}.*`` of a scale discriminator,
+nested under ``discriminators.{i}``, and ``msd.``/``mpd.`` in the
+combined one), the keys the JAX converter translates
+(convert/torch_checkpoint.py:82-122, 437-469). Each returns a list of
+every layer's output per discriminator, the last entry the final output.
 """
 
 from __future__ import annotations
@@ -31,8 +38,11 @@ from typing import Sequence
 import torch
 from torch import nn
 
+import torch.nn.functional as F
+
 from parallelwavegan_tpu_torch.layers.convs import (
     Conv1d,
+    Conv2d,
     ConvTranspose1d,
     remove_weight_norm,
 )
@@ -251,3 +261,198 @@ class HiFiGANGenerator(nn.Module):
     def load_state_dict(self, *args, **kwargs):
         self._tail_cache = self._mrf_cache = None
         return super().load_state_dict(*args, **kwargs)
+
+
+def _leaky(name: str, params: dict | None) -> nn.Module:
+    return get_activation(name, params or {"negative_slope": 0.1})
+
+
+class HiFiGANPeriodDiscriminator(nn.Module):
+    """wave (B, in_channels, T) -> [every layer's output]: T is reflect-padded
+    to a multiple of ``period`` and folded to (B, C, T / period, period);
+    the last entry is the output conv's, flattened to (B, -1)."""
+
+    def __init__(
+        self,
+        in_channels: int = 1,
+        out_channels: int = 1,
+        period: int = 3,
+        kernel_sizes: Sequence[int] = (5, 3),
+        channels: int = 32,
+        downsample_scales: Sequence[int] = (3, 3, 3, 3, 1),
+        max_downsample_channels: int = 1024,
+        bias: bool = True,
+        nonlinear_activation: str = "LeakyReLU",
+        nonlinear_activation_params: dict | None = None,
+        use_weight_norm: bool = True,
+        use_spectral_norm: bool = False,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        self.period = period
+        kw = dict(bias=bias, use_weight_norm=use_weight_norm,
+                  use_spectral_norm=use_spectral_norm, generator=generator)
+        k0, k1 = kernel_sizes
+        self.convs = nn.ModuleList()
+        in_chs, out_chs = in_channels, channels
+        for scale in downsample_scales:
+            self.convs.append(nn.Sequential(
+                Conv2d(in_chs, out_chs, (k0, 1), stride=(scale, 1),
+                       padding=((k0 - 1) // 2, 0), **kw),
+                _leaky(nonlinear_activation, nonlinear_activation_params)))
+            in_chs, out_chs = out_chs, min(out_chs * 4, max_downsample_channels)
+        # kernel (k1 - 1, 1) with padding (k1 - 1) // 2: the JAX package's
+        # (and upstream's) output conv
+        self.output_conv = Conv2d(in_chs, out_channels, (k1 - 1, 1),
+                                  padding=((k1 - 1) // 2, 0), **kw)
+
+    def forward(self, x: torch.Tensor) -> list:
+        b, c, t = x.shape
+        if t % self.period:
+            x = F.pad(x, (0, self.period - t % self.period), "reflect")
+            t = x.shape[-1]
+        x = x.reshape(b, c, t // self.period, self.period)
+        outs = []
+        for layer in self.convs:
+            x = layer(x)
+            outs.append(x)
+        outs.append(torch.flatten(self.output_conv(x), 1))
+        return outs
+
+
+class HiFiGANMultiPeriodDiscriminator(nn.Module):
+    """One period discriminator per entry of ``periods``."""
+
+    def __init__(self, periods: Sequence[int] = (2, 3, 5, 7, 11),
+                 discriminator_params: dict | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        params = dict(discriminator_params or {})
+        self.discriminators = nn.ModuleList(
+            HiFiGANPeriodDiscriminator(**dict(params, period=p), generator=generator)
+            for p in periods)
+
+    def forward(self, x: torch.Tensor) -> list:
+        return [d(x) for d in self.discriminators]
+
+
+class HiFiGANScaleDiscriminator(nn.Module):
+    """wave (B, in_channels, T) -> [every layer's output]: a conv, strided
+    grouped convs (groups 4, times 4 per layer up to ``max_groups``), a
+    conv and the output conv."""
+
+    def __init__(
+        self,
+        in_channels: int = 1,
+        out_channels: int = 1,
+        kernel_sizes: Sequence[int] = (15, 41, 5, 3),
+        channels: int = 128,
+        max_downsample_channels: int = 1024,
+        max_groups: int = 16,
+        bias: bool = True,
+        downsample_scales: Sequence[int] = (2, 2, 4, 4, 1),
+        nonlinear_activation: str = "LeakyReLU",
+        nonlinear_activation_params: dict | None = None,
+        use_weight_norm: bool = True,
+        use_spectral_norm: bool = False,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        if len(kernel_sizes) != 4 or any(k % 2 == 0 for k in kernel_sizes):
+            raise ValueError(f"kernel_sizes must be four odd sizes, got {kernel_sizes}")
+        kw = dict(bias=bias, use_weight_norm=use_weight_norm,
+                  use_spectral_norm=use_spectral_norm, generator=generator)
+
+        def act():
+            return _leaky(nonlinear_activation, nonlinear_activation_params)
+
+        k0, k1, k2, k3 = kernel_sizes
+        layers = [nn.Sequential(Conv1d(in_channels, channels, k0, **kw), act())]
+        in_chs = out_chs = channels
+        groups = 4
+        for scale in downsample_scales:
+            layers.append(nn.Sequential(
+                Conv1d(in_chs, out_chs, k1, stride=scale, padding=(k1 - 1) // 2,
+                       groups=groups, **kw), act()))
+            in_chs, out_chs = out_chs, min(out_chs * 2, max_downsample_channels)
+            groups = min(groups * 4, max_groups)
+        out_chs = min(in_chs * 2, max_downsample_channels)
+        layers.append(nn.Sequential(Conv1d(in_chs, out_chs, k2, **kw), act()))
+        layers.append(Conv1d(out_chs, out_channels, k3, **kw))
+        self.layers = nn.ModuleList(layers)
+
+    def forward(self, x: torch.Tensor) -> list:
+        outs = []
+        for f in self.layers:
+            x = f(x)
+            outs.append(x)
+        return outs
+
+
+def _pool_params(key: str, pooling: str, params: dict | None) -> dict:
+    """torch's AvgPool1d(4, 2, 2) updated by ``params``, the one pooling
+    the JAX package computes (its ``avg_pool1d``, :549, whatever ``key``
+    names); any other pooling, or another argument, raises."""
+    if pooling != "AvgPool1d":
+        raise ValueError(f"{key}: {pooling!r} is not supported, only AvgPool1d")
+    pool = {"kernel_size": 4, "stride": 2, "padding": 2}
+    unknown = set(params or {}) - set(pool)
+    if unknown:
+        raise ValueError(f"{key}_params: {sorted(unknown)} are not supported")
+    return dict(pool, **(params or {}))
+
+
+class HiFiGANMultiScaleDiscriminator(nn.Module):
+    """``scales`` scale discriminators, the input average-pooled (padding
+    counted) between them; with ``follow_official_norm`` the first uses
+    spectral norm and the rest weight norm."""
+
+    def __init__(self, scales: int = 3, downsample_pooling: str = "AvgPool1d",
+                 downsample_pooling_params: dict | None = None,
+                 discriminator_params: dict | None = None,
+                 follow_official_norm: bool = False,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.pool = _pool_params("downsample_pooling", downsample_pooling,
+                                 downsample_pooling_params)
+        params = dict(discriminator_params or {})
+        self.discriminators = nn.ModuleList()
+        for i in range(scales):
+            p = dict(params)
+            if follow_official_norm:
+                p.update(use_weight_norm=i != 0, use_spectral_norm=i == 0)
+            self.discriminators.append(
+                HiFiGANScaleDiscriminator(**p, generator=generator))
+
+    def forward(self, x: torch.Tensor) -> list:
+        outs = []
+        for i, d in enumerate(self.discriminators):
+            if i:
+                x = F.avg_pool1d(x, **self.pool, count_include_pad=True)
+            outs.append(d(x))
+        return outs
+
+
+class HiFiGANMultiScaleMultiPeriodDiscriminator(nn.Module):
+    """The multi-scale discriminator's outputs, then the multi-period
+    discriminator's."""
+
+    def __init__(self, scales: int = 3,
+                 scale_downsample_pooling: str = "AvgPool1d",
+                 scale_downsample_pooling_params: dict | None = None,
+                 scale_discriminator_params: dict | None = None,
+                 follow_official_norm: bool = True,
+                 periods: Sequence[int] = (2, 3, 5, 7, 11),
+                 period_discriminator_params: dict | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        _pool_params("scale_downsample_pooling", scale_downsample_pooling,
+                     scale_downsample_pooling_params)
+        self.msd = HiFiGANMultiScaleDiscriminator(
+            scales, scale_downsample_pooling, scale_downsample_pooling_params,
+            scale_discriminator_params, follow_official_norm, generator=generator)
+        self.mpd = HiFiGANMultiPeriodDiscriminator(
+            periods, period_discriminator_params, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> list:
+        return self.msd(x) + self.mpd(x)

@@ -3,7 +3,9 @@ parallelwavegan_tpu/train/criterion.py).
 
 The backward-compatible defaults of the JAX package (:64-68) apply: the
 STFT loss is on and the sub-band STFT, mel, feature-matching and duration
-losses are off when their keys are absent. Those four, and PQMF in the
+losses are off when their keys are absent. The mel loss takes
+``mel_loss_params`` or, without them, the config's feature keys
+(:81-96). The sub-band STFT and duration losses, and PQMF in the
 criterion (a generator with more than one output channel), are not ported
 yet and raise ``NotImplementedError`` (ROADMAP.md).
 """
@@ -15,7 +17,9 @@ from dataclasses import dataclass
 
 from parallelwavegan_tpu_torch.losses import (
     DiscriminatorAdversarialLoss,
+    FeatureMatchLoss,
     GeneratorAdversarialLoss,
+    MelSpectrogramLoss,
     MultiResolutionSTFTLoss,
 )
 
@@ -27,8 +31,11 @@ class Criterion:
     gen_adv: GeneratorAdversarialLoss
     dis_adv: DiscriminatorAdversarialLoss
     stft: MultiResolutionSTFTLoss | None
+    mel: MelSpectrogramLoss | None
+    feat_match: FeatureMatchLoss | None
     lambda_aux: float
     lambda_adv: float
+    lambda_feat_match: float
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -45,8 +52,6 @@ def build_criterion(config: dict) -> Criterion:
     config.setdefault("use_feat_match_loss", False)
     config.setdefault("use_duration_loss", False)
     for key, what in (("use_subband_stft_loss", "the sub-band STFT loss"),
-                      ("use_mel_loss", "the mel loss"),
-                      ("use_feat_match_loss", "the feature-matching loss"),
                       ("use_duration_loss", "the duration loss")):
         if config[key]:
             raise _not_ported(what)
@@ -57,7 +62,17 @@ def build_criterion(config: dict) -> Criterion:
         params = dict(config.get("stft_loss_params", {}))
         params.pop("window", None)
         stft = MultiResolutionSTFTLoss(**params)
-    else:
+    mel = None
+    if config["use_mel_loss"]:
+        mel = MelSpectrogramLoss(**(config.get("mel_loss_params") or {
+            "fs": config["sampling_rate"], "fft_size": config["fft_size"],
+            "hop_size": config["hop_size"], "win_length": config["win_length"],
+            "window": config["window"], "num_mels": config["num_mels"],
+            "fmin": config["fmin"], "fmax": config["fmax"]}))
+    feat_match = None
+    if config["use_feat_match_loss"]:
+        feat_match = FeatureMatchLoss(**config.get("feat_match_loss_params", {}))
+    if stft is None and mel is None:
         logging.warning("no auxiliary (stft/mel) loss is enabled")
     return Criterion(
         gen_adv=GeneratorAdversarialLoss(
@@ -65,6 +80,9 @@ def build_criterion(config: dict) -> Criterion:
         dis_adv=DiscriminatorAdversarialLoss(
             **config.get("discriminator_adv_loss_params", {})),
         stft=stft,
+        mel=mel,
+        feat_match=feat_match,
         lambda_aux=config.get("lambda_aux", 1.0),
         lambda_adv=config.get("lambda_adv", 1.0),
+        lambda_feat_match=config.get("lambda_feat_match", 1.0),
     )

@@ -3,16 +3,24 @@
 One ``TrainStep`` call is one step of upstream's hot loop as the JAX
 package computes it (:152-365):
 
-* the G phase (:243-313): the generator's output, the auxiliary (STFT)
-  losses times ``lambda_aux`` and, when a D phase runs this step, the
-  adversarial loss of D's output on it times ``lambda_adv``; then one
-  update of G (clipping inside the optimizer);
+* the G phase (:243-313): the generator's output, the auxiliary (STFT,
+  mel) losses times ``lambda_aux`` and, when a D phase runs this step, the
+  adversarial loss of D's output on it plus, with the feature-matching
+  loss, ``lambda_feat_match`` times the L1 between D's features of it and
+  of the real wave (D's pass over the real wave runs without grad: its
+  features are detached), all times ``lambda_adv``; then one update of G
+  (clipping inside the optimizer);
 * the D phase (:315-353): with
   ``update_prediction_after_generator_update`` (the default), or when G
   did not train, G is re-run with its updated weights under
   ``torch.no_grad()`` (for Parallel WaveGAN with ``use_pallas_stack_train``
   that is the K3 inference path); D's real and fake losses, and one
   update of D.
+
+A discriminator with spectral norm runs one power iteration in every
+train-mode forward: the G phase's one or two, then the D phase's over the
+real and the fake wave, in JAX's order (:281-303, :337-341); the eval
+step runs D in eval mode (``Trainer`` sets it), so (u, v) stay.
 
 Gradients are taken with ``torch.autograd.grad`` with respect to the
 phase's own parameters, so the G phase leaves D's untouched; a parameter
@@ -25,8 +33,8 @@ discriminator's starts of the G phase's adversarial call and of the D
 phase's real and fake calls (on the CPU). Each draw comes from a generator
 seeded by (seed, step, stream) alone (``seeded``), so a resumed run draws
 what the uninterrupted run drew at the same step. A batch that holds
-``z`` or ``rwd_starts_adv`` / ``_real`` / ``_fake`` pins them instead, as
-JAX's step.py:46-50, :288 and :338-340 take them.
+``z`` or ``rwd_starts_adv`` / ``_fm`` / ``_real`` / ``_fake`` pins them
+instead, as JAX's step.py:46-50, :288 and :338-340 take them.
 """
 
 from __future__ import annotations
@@ -64,14 +72,15 @@ def seeded(device, *keys: int) -> torch.Generator:
 def generator_forward(config: dict, generator, batch: dict,
                       draws: tuple = ()) -> torch.Tensor:
     """The generator's output (B, out, T) for a batch (train.py:1109-1117
-    feature flags: Parallel WaveGAN takes noise and the mel, MelGAN the mel
-    alone, as JAX's step.py:83-84; StyleMelGAN the mel and ``batch["z"]``
-    where the batch has it, else z drawn on the batch's device from a
-    generator seeded by ``draws``, e.g. (seed, step, stream))."""
+    feature flags: Parallel WaveGAN takes noise and the mel, MelGAN and
+    HiFi-GAN the mel alone, as JAX's step.py:83-84; StyleMelGAN the mel
+    and ``batch["z"]`` where the batch has it, else z drawn on the batch's
+    device from a generator seeded by ``draws``, e.g. (seed, step,
+    stream))."""
     gen_type = config["generator_type"]
     if gen_type == "ParallelWaveGANGenerator":
         return generator(batch["z"], batch["c"])
-    if gen_type == "MelGANGenerator":
+    if gen_type in ("MelGANGenerator", "HiFiGANGenerator"):
         return generator(batch["c"])
     if gen_type == "StyleMelGANGenerator":
         z = batch.get("z")
@@ -95,7 +104,7 @@ def discriminator_forward(config: dict, discriminator, y, batch: dict, key: str,
     return discriminator(y)
 
 
-def _aux_losses(criterion: Criterion, y_, y, metrics: dict):
+def aux_losses(criterion: Criterion, y_, y, metrics: dict):
     """The auxiliary losses of a (B, 1, T) output against the target."""
     gen_loss = 0.0
     if criterion.stft is not None:
@@ -103,7 +112,24 @@ def _aux_losses(criterion: Criterion, y_, y, metrics: dict):
         gen_loss = gen_loss + sc_loss + mag_loss
         metrics["spectral_convergence_loss"] = sc_loss
         metrics["log_stft_magnitude_loss"] = mag_loss
+    if criterion.mel is not None:
+        mel_loss = criterion.mel(y_[:, 0], y[:, 0])
+        gen_loss = gen_loss + mel_loss
+        metrics["mel_loss"] = mel_loss
     return gen_loss
+
+
+def adv_losses(criterion: Criterion, p_, real_features, metrics: dict):
+    """The adversarial loss of D's output ``p_`` on the generated wave plus,
+    with the feature-matching loss, ``lambda_feat_match`` times it against
+    ``real_features()`` (D's output on the real wave)."""
+    adv_loss = criterion.gen_adv(p_)
+    metrics["adversarial_loss"] = adv_loss
+    if criterion.feat_match is not None:
+        fm_loss = criterion.feat_match(p_, real_features())
+        metrics["feature_matching_loss"] = fm_loss
+        adv_loss = adv_loss + criterion.lambda_feat_match * fm_loss
+    return adv_loss
 
 
 def _update(optimizer, params, loss) -> None:
@@ -145,10 +171,14 @@ class TrainStep:
 
         if train_g:
             y_ = generator_forward(cfg, self.generator, batch, (self.seed, step, NOISE_G))
-            gen_loss = _aux_losses(crit, y_, y, metrics) * crit.lambda_aux
+            gen_loss = aux_losses(crit, y_, y, metrics) * crit.lambda_aux
             if train_d:
-                adv_loss = crit.gen_adv(dis(y_, "adv", STARTS_ADV))
-                metrics["adversarial_loss"] = adv_loss
+                def real_features():  # detached by the loss: no graph needed
+                    with torch.no_grad():  # the same windows, as JAX's rng_gd
+                        return dis(y, "fm", STARTS_ADV)
+
+                adv_loss = adv_losses(crit, dis(y_, "adv", STARTS_ADV),
+                                       real_features, metrics)
                 gen_loss = gen_loss + crit.lambda_adv * adv_loss
             metrics["generator_loss"] = gen_loss
             _update(self.opt_g, self.g_params, gen_loss)
@@ -172,18 +202,18 @@ class TrainStep:
 @torch.no_grad()
 def eval_step(config: dict, generator, discriminator, criterion: Criterion,
               batch: dict, draws: tuple = (0,)) -> dict:
-    """Every loss of a batch, no update (step.py:368-425). StyleMelGAN
+    """Every loss of a batch, no update (step.py:368-425); run the models in
+    eval mode, so that a spectral norm's (u, v) stay. StyleMelGAN
     draws its noise and windows from generators seeded by ``draws`` (e.g.
     (seed, step, batch index)); the real and fake waves share the windows,
     as JAX's one key gives both."""
     metrics = {}
     y = batch["y"]
     y_ = generator_forward(config, generator, batch, (*draws, NOISE_EVAL))
-    gen_loss = _aux_losses(criterion, y_, y, metrics) * criterion.lambda_aux
+    gen_loss = aux_losses(criterion, y_, y, metrics) * criterion.lambda_aux
     p_, p = (discriminator_forward(config, discriminator, v, batch, "eval",
                                    (*draws, STARTS_EVAL)) for v in (y_, y))
-    adv_loss = criterion.gen_adv(p_)
-    metrics["adversarial_loss"] = adv_loss
+    adv_loss = adv_losses(criterion, p_, lambda: p, metrics)
     metrics["generator_loss"] = gen_loss + criterion.lambda_adv * adv_loss
     real_loss, fake_loss = criterion.dis_adv(p_, p)
     metrics["real_loss"] = real_loss

@@ -8,6 +8,9 @@ A training checkpoint (counterpart of parallelwavegan_tpu/utils/
 checkpoint.py, ROADMAP M10) also holds ``model.discriminator``,
 ``optimizer.{generator,discriminator}``, ``scheduler.{generator,
 discriminator}`` (the update count each schedule is at) and ``epochs``.
+The state dicts hold the buffers too, so a spectral norm's power-iteration
+vectors (``weight_u``, ``weight_v``) are saved and restored with the
+weights, bit for bit.
 """
 
 from __future__ import annotations

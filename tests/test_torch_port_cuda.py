@@ -1286,3 +1286,68 @@ def test_tade_backward_rejects_unsupported_input(cuda):
     with pytest.raises(ValueError, match="dout"):
         f(x, c, x2, a, blk, "softmax", dxo[:, :64].contiguous(), dco)
     assert (f.launches_k9a, f.launches_k9b) == before
+
+
+def test_hifigan_train_step_on_the_card_matches_the_cpu(cuda):
+    """A small HiFi-GAN generator against the multi-scale multi-period
+    discriminator (spectral norm on scale 0, hifigan.v1.yaml's losses):
+    two G+D ``TrainStep`` calls on the card and on the CPU from the same
+    weights and batches, TF32 off: every loss within 1e-4 relative, the
+    spectral (u, v) within 1e-5. No kernel runs on this path."""
+    from parallelwavegan_tpu_torch.optimizers import build_optimizer_from_config
+    from parallelwavegan_tpu_torch.train.criterion import build_criterion
+    from parallelwavegan_tpu_torch.train.step import TrainStep
+
+    scale = dict(channels=8, max_downsample_channels=16, max_groups=4,
+                 downsample_scales=[2, 2, 1], kernel_sizes=[5, 7, 3, 3])
+    period = dict(channels=4, max_downsample_channels=16, downsample_scales=[3, 3, 1])
+    adam = {"lr": 2e-4, "betas": [0.5, 0.9], "eps": 1e-6, "weight_decay": 0.0}
+    config = {
+        "generator_type": "HiFiGANGenerator",
+        "generator_params": dict(in_channels=8, channels=32, upsample_scales=[4, 4],
+                                 upsample_kernel_sizes=[8, 8]),
+        "discriminator_type": "HiFiGANMultiScaleMultiPeriodDiscriminator",
+        "discriminator_params": dict(scales=2, scale_discriminator_params=scale,
+                                     periods=[2, 3], period_discriminator_params=period),
+        "use_stft_loss": False, "use_mel_loss": True,
+        "mel_loss_params": dict(fs=8000, fft_size=64, hop_size=16, num_mels=8, fmin=0,
+                                fmax=4000, log_base=None),
+        "generator_adv_loss_params": {"average_by_discriminators": False},
+        "discriminator_adv_loss_params": {"average_by_discriminators": False},
+        "use_feat_match_loss": True,
+        "feat_match_loss_params": {"average_by_discriminators": False,
+                                   "average_by_layers": False},
+        "lambda_aux": 45.0, "lambda_feat_match": 2.0,
+        "generator_optimizer_type": "Adam", "generator_optimizer_params": adam,
+        "discriminator_optimizer_type": "Adam", "discriminator_optimizer_params": adam,
+    }
+    g = torch.Generator().manual_seed(3)
+    batches = [{"y": 0.3 * torch.randn(2, 1, 320, generator=g),
+                "c": torch.randn(2, 8, 20, generator=g)} for _ in range(2)]
+    got, dis = {}, {}
+    for device in ("cuda", "cpu"):
+        gen = get_model_class(config["generator_type"])(
+            **config["generator_params"], generator=torch.Generator().manual_seed(0))
+        dis[device] = get_model_class(config["discriminator_type"])(
+            **config["discriminator_params"],
+            generator=torch.Generator().manual_seed(1)).to(device)
+        gen.to(device)
+        step = TrainStep(config, gen, dis[device], build_criterion(config),
+                         build_optimizer_from_config(config, "generator", gen.parameters()),
+                         build_optimizer_from_config(config, "discriminator",
+                                                     dis[device].parameters()))
+        got[device] = [{k: float(v) for k, v in step(
+            {k: v.to(device) for k, v in b.items()}, True, True, i).items()}
+            for i, b in enumerate(batches)]
+    for i, (a, b) in enumerate(zip(got["cuda"], got["cpu"])):
+        assert sorted(a) == sorted(b) and "feature_matching_loss" in a
+        for k in b:
+            assert abs(a[k] - b[k]) <= 1e-4 * abs(b[k]), (i, k, a[k], b[k])
+    uv = {k: t for k, t in dis["cpu"].state_dict().items() if k.endswith("weight_u")}
+    assert len(uv) == 6
+    card = dis["cuda"].state_dict()
+    for k in uv:
+        for vec in ("u", "v"):
+            key = k[:-1] + vec
+            torch.testing.assert_close(card[key].cpu(), dis["cpu"].state_dict()[key],
+                                       rtol=0, atol=1e-5)

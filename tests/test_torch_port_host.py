@@ -205,6 +205,9 @@ def test_port_never_imports_jax():
     for root, _, names in os.walk(os.path.join(ROOT, "parallelwavegan_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 15
+    pkg = os.path.join(ROOT, "parallelwavegan_tpu_torch")
+    assert {os.path.join(pkg, "losses", f) for f in ("mel_loss.py", "feat_match_loss.py")
+            } <= set(files)
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

@@ -486,9 +486,9 @@ def test_train_main_needs_a_card_unless_cpu_is_asked_for(train_args):
 @pytest.mark.parametrize("override,argv,what", [
     ({"mixed_precision": True}, [], "mixed_precision"),
     ({"distributed": True}, [], "distributed"),
-    ({"use_mel_loss": True}, [], "mel loss"),
-    ({"use_feat_match_loss": True}, [], "feature-matching"),
-    ({"generator_type": "HiFiGANGenerator"}, [], "HiFiGANGenerator"),
+    ({"use_subband_stft_loss": True}, [], "sub-band STFT loss"),
+    ({"use_duration_loss": True}, [], "duration loss"),
+    ({"generator_type": "UHiFiGANGenerator"}, [], "UHiFiGANGenerator"),
     ({}, ["--dev-segments", "segments"], "scp datasets"),
 ])
 def test_unported_training_options_raise(tmp_path, train_args, override, argv, what):
