@@ -182,7 +182,10 @@ Phases (any failure exits non-zero; nothing is caught):
    B=16, T=8192; no kernel runs in it), as phase 15: G forward, G
    losses (mel, D on y_, D on y for feature matching), G backward, G
    optimizer step, the D phase's G re-run, D's two forwards with its
-   backward and step, ``TrainStep`` G-only and G+D steps/s and peak memory.
+   backward and step, ``TrainStep`` G-only and G+D steps/s and peak memory;
+   then the same in bf16 (``mixed_precision``) in the same call, the
+   forwards alone in both, and the G forward's kernels of most device time
+   in both (torch.profiler).
 24. HiFi-GAN v1 training through ``bin/train.main``: the shipped config
    at full width and batch with HIFIGAN_TRAIN_OVERRIDES (TRAIN_OVERRIDES
    with v1's own start steps: steps 1-4 are G only, D only, G+D, G+D), on
@@ -193,6 +196,39 @@ Phases (any failure exits non-zero; nothing is caught):
    at B=2 agrees with the CPU's to 1e-4 relative on every loss; the final
    checkpoint decodes through ``bin/decode.main`` with ``--use-pallas-tail``
    (K1 once per utterance) and without, the WAVs within 2e-4.
+
+25. The bf16-resident modes of K6 and K7 (mixed precision) against their
+   bf16 plain versions at MelGAN v1's three fused stages (B=8; T=6400,
+   12800, 25600 at C=128, 64, 32, the last with the final conv to 1; the
+   weights of phase 17, a bf16 input moved off LeakyReLU's kink as K6's
+   bf16 chain computes it): K6's float32 chain (what K7's re-run keeps)
+   against the plain version's, its bf16 output the chain's rounding bit
+   for bit; K7's dx and every gradient under a cotangent of scale 1 /
+   sqrt(B T), its plain version fed the chain stack by stack; rms|diff|
+   <= 1e-3 rms|plain| and max|diff| <= 1e-2 max|plain|, where the float32
+   kernels on the same values and weights cut to bf16 by truncation (and
+   for K7 each zeroed gradient) must be rejected; CUDA-event times of one
+   G step's K6 forward and K7 beside their bf16 plain versions and the
+   float32 kernels, and their bf16 bounds (bf16 operations over 989
+   TFLOP/s, bf16 bytes over 3.35 TB/s).
+26. HiFi-GAN v1 with ``mixed_precision`` (the main path in bf16):
+   hifigan.v1.fullscale.bf16.yaml (V1_HIFIGAN_BF16_CONFIG) through
+   ``bin/train.main`` at full width and batch with
+   HIFIGAN_TRAIN_OVERRIDES on a dump of HIFIGAN_TRAIN_UTTS utterances,
+   every logged loss finite, a resume from step 2 logging steps 3-4 within
+   1e-2 relative, every tensor of the checkpoints (both models, both
+   optimizers, spectral norm's (u, v)) float32; one G+D step at B=2 on
+   the card against the CPU's within 1e-2 relative (bf16 rounds at other
+   elements in cuDNN and on the CPU), and its first-step losses against the
+   float32 step's within 3e-2 (tests/test_mixed_precision.py:123's bound)
+   and apart by more than 1e-4 in some loss.
+   Phase 23 splits the bf16 step beside the float32 one.
+27. MelGAN v1 with ``mixed_precision`` and ``use_pallas_stacks_train``
+   through ``bin/train.main`` (TRAIN_OVERRIDES, phase 16's dump): K6's
+   bf16 mode 18 launches per G step and 10 per bf16 G forward without
+   grad (the D phase's re-run), K7's 10 per G step; the same run with
+   K6's and K7's bf16 plain versions on the card logs the same losses
+   within 1e-2 relative.
 
 Phase 3 also decodes HiFi-GAN v1 with ``use_pallas_mrf: true`` in the
 config (K2 called twice per utterance, stages 2 and 3, 8 launches, every
@@ -205,7 +241,9 @@ bound in the record is the larger of the bytes each call must move (each
 input read once, each output written once) over 3.35 TB/s and its float32
 operations over 67 TFLOP/s, the H100 SXM data-sheet peaks at 700 W; for
 the kernels that multiply in split TF32 on the tensor cores (K1 to K9),
-three TF32 operations per multiply-add's two over 495 TFLOP/s instead.
+three TF32 operations per multiply-add's two over 495 TFLOP/s instead,
+and for K6's and K7's bf16 modes bf16 operations over 989 TFLOP/s and
+their bf16 bytes.
 """
 
 from __future__ import annotations
@@ -406,6 +444,14 @@ V1_HIFIGAN_CONFIG = dict(
     save_interval_steps=10000, eval_interval_steps=1000, log_interval_steps=100,
     num_save_intermediate_results=4,
 )
+# the whole of egs/yesno/voc1/conf/hifigan.v1.fullscale.bf16.yaml (a test
+# holds it equal to the file): v1 at 8 kHz with mixed_precision, trained by
+# phase 26
+V1_HIFIGAN_BF16_CONFIG = dict(
+    V1_HIFIGAN_CONFIG, sampling_rate=8000, fmax=4000,
+    mel_loss_params=dict(V1_HIFIGAN_CONFIG["mel_loss_params"], fs=8000, fmax=4000),
+    train_max_steps=26000, save_interval_steps=26000, eval_interval_steps=5000,
+    log_interval_steps=200, mixed_precision=True)
 # TRAIN_OVERRIDES but v1's own start steps: steps 1-4 are G only, D only,
 # G+D, G+D
 HIFIGAN_TRAIN_OVERRIDES = {k: v for k, v in TRAIN_OVERRIDES.items()
@@ -419,6 +465,7 @@ STYLE_FRAMES = 704
 UTT_FRAMES = (512, 300, 77)
 PEAK_FLOPS = 67e12  # float32 on the CUDA cores
 PEAK_TF32 = 495e12  # TF32 on the tensor cores (dense)
+PEAK_BF16 = 989e12  # bf16 on the tensor cores (dense)
 PEAK_BYTES = 3.35e12
 
 
@@ -487,6 +534,7 @@ def _reset_launch_counts() -> None:
 
     for fn in (fused_melgan_stacks, fused_hifigan_mrf):
         fn.launches = fn.calls = 0
+    fused_melgan_stacks.bf16_launches = melgan_stacks_backward.bf16_launches = 0
     from parallelwavegan_tpu_torch.ops.kernels.melgan_stack import kernel_weights
 
     kernel_weights.launches = 0
@@ -1234,7 +1282,10 @@ def _unit_gain_stacks(rs, c: int, dilations) -> list:
 
 def _k6_resources(card: str) -> None:
     """K6's registers, spills and SASS counts; fails unless the stack
-    kernel's products are HMMA.1688.F32.TF32 with no FFMA and no spill."""
+    kernel's products are HMMA.1688.F32.TF32 with no FFMA and no spill, and
+    in its bf16 mode (``stack_tc_kernel<C, true>``) HMMA.16816.F32.BF16
+    with no FFMA (its spills are printed: 4 bytes at C = 128, where it needs
+    one register past the 128 of two blocks an SM)."""
     from parallelwavegan_tpu_torch.ops.kernels import build, sass
 
     usage = sass.resource_usage(os.path.join(build.CSRC, "melgan_stack.cu"))
@@ -1245,11 +1296,12 @@ def _k6_resources(card: str) -> None:
         if kernel.startswith("stack_tc_kernel"):
             counts = use.get("sass", "")
             ffma = re.search(r"FFMA (\d+)", counts)
-            if ("HMMA.1688.F32.TF32" not in counts or ffma is None
-                    or ffma.group(1) != "0" or use.get("spill_stores")
-                    or use.get("spill_loads")):
-                _fail(f"K6 {kernel}: expected HMMA.1688.F32.TF32 products, no FFMA and "
-                      f"no spill, got {use}")
+            bf16 = kernel.endswith("true>")
+            hmma = "HMMA.16816.F32.BF16" if bf16 else "HMMA.1688.F32.TF32"
+            spills = not bf16 and (use.get("spill_stores") or use.get("spill_loads"))
+            if hmma not in counts or ffma is None or ffma.group(1) != "0" or spills:
+                _fail(f"K6 {kernel}: expected {hmma} products, no FFMA"
+                      + ("" if bf16 else " and no spill") + f", got {use}")
 
 
 def phase_melgan_kernel(card: str) -> dict:
@@ -2362,11 +2414,15 @@ def _train_split(card: str, label: str, config_of, batch: dict,
     step's: the auxiliary ones, D on the generated wave and, with feature
     matching, D on the real one without grad. With ``forward_kernels``
     (kernel name prefixes), their device time in one G forward with the
-    kernels (torch.profiler)."""
+    kernels (torch.profiler). A config with ``mixed_precision`` casts as
+    ``TrainStep`` does: each phase's parameters and inputs to bf16, the
+    outputs back to float32 (the casts of G's parameters timed in G forward
+    and the D phase's re-run, those of D's in G losses and the D phase)."""
     import torch
 
     from parallelwavegan_tpu_torch.models import get_model_class
     from parallelwavegan_tpu_torch.optimizers import build_optimizer_from_config
+    from parallelwavegan_tpu_torch.train import precision
     from parallelwavegan_tpu_torch.train.criterion import build_criterion
     from parallelwavegan_tpu_torch.train.step import (
         TrainStep,
@@ -2379,10 +2435,6 @@ def _train_split(card: str, label: str, config_of, batch: dict,
     parts = ("G forward", f"G losses ({losses})", "G backward",
              "G optimizer step", "D phase: G re-run, no grad",
              "D phase: D forward, backward, step")
-
-    def real_features(dis):
-        with torch.no_grad():
-            return dis(batch["y"])
 
     for name, kernel in variants:
         gc.collect()
@@ -2411,23 +2463,43 @@ def _train_split(card: str, label: str, config_of, batch: dict,
             for p in params:
                 p.grad = None
 
+        mixed = bool(cfg.get("mixed_precision", False))
+
+        def G():  # the generator's output as the train step computes it
+            if not mixed:
+                return generator_forward(cfg, gen, batch)
+            return precision.to_f32(generator_forward(
+                cfg, gen, precision.to_bf16(batch), params=precision.bf16_params(gen)))
+
+        def D(v, params):
+            if not mixed:
+                return dis(v)
+            return precision.to_f32(precision.call(dis, params, precision.to_bf16(v)))
+
         def staged():
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(parts) + 1)]
             ev[0].record()
-            y_ = generator_forward(cfg, gen, batch)
+            y_ = G()
             ev[1].record()
+            with torch.no_grad():
+                p_d = precision.bf16_params(dis) if mixed else None
+
+            def real_features():
+                with torch.no_grad():
+                    return D(batch["y"], p_d)
+
             loss = (aux_losses(crit, y_, batch["y"], {}) * crit.lambda_aux
-                    + crit.lambda_adv * adv_losses(crit, dis(y_),
-                                                    lambda: real_features(dis), {}))
+                    + crit.lambda_adv * adv_losses(crit, D(y_, p_d), real_features, {}))
             ev[2].record()
             grads = grads_of(loss, g_params)
             ev[3].record()
             update(opt_g, g_params, grads)
             ev[4].record()
             with torch.no_grad():
-                y_ = generator_forward(cfg, gen, batch)
+                y_ = G()
             ev[5].record()
-            real, fake = crit.dis_adv(dis(y_), dis(batch["y"]))
+            p_d = precision.bf16_params(dis) if mixed else None
+            real, fake = crit.dis_adv(D(y_, p_d), D(batch["y"], p_d))
             update(opt_d, d_params, grads_of(real + fake, d_params))
             ev[6].record()
             torch.cuda.synchronize()
@@ -3029,11 +3101,13 @@ def _conv_gflop(model, fn) -> float:
 
 
 def phase_hifigan_train_split(card: str) -> None:
-    """Where one HiFi-GAN v1 train step (B=16, T=8192) spends its time: the
+    """Where one HiFi-GAN v1 train step (B=16, T=8192) spends its time, in
+    float32 and in bf16 (``mixed_precision``): the
     generator, the mel loss, the five period and three scale
     discriminators with their spectral norm, feature matching; then the
     generator's and the two discriminator groups' forwards alone (no
-    grad), beside the GFLOP of their convolutions."""
+    grad) in float32 and bf16, beside the GFLOP of their convolutions, and
+    the generator forward's six kernels of most device time in each."""
     import torch
 
     from parallelwavegan_tpu_torch.models import get_model_class
@@ -3043,26 +3117,42 @@ def phase_hifigan_train_split(card: str) -> None:
     frames = t // V1_HIFIGAN_CONFIG["hop_size"]
     batch = {"y": 0.3 * torch.randn(b, 1, t, generator=g, device="cuda"),
              "c": torch.randn(b, 80, frames, generator=g, device="cuda")}
-    _train_split(card, "HiFi-GAN v1", _hifigan_v1_config, batch,
+    # float32 and bf16 (mixed_precision, phase 26's config at v1's widths
+    # and batch) in one call; no kernel runs on this path
+    _train_split(card, "HiFi-GAN v1", lambda mixed: _hifigan_v1_config(
+                     mixed_precision=mixed), batch,
                  losses="mel, D on y_, D on y for feature matching",
-                 variants=(("no kernel on this path", False),))
+                 variants=(("float32", False), ("bf16, mixed_precision", True)))
     cfg = _hifigan_v1_config()
     init = torch.Generator().manual_seed(SEED)
     gen = get_model_class(cfg["generator_type"])(
         **cfg["generator_params"], generator=init).to("cuda")
     dis = get_model_class(cfg["discriminator_type"])(
         **cfg["discriminator_params"], generator=init).to("cuda")
-    parts = []
+    from parallelwavegan_tpu_torch.ops.kernels.time_melgan import profile_by_kernel
+    from parallelwavegan_tpu_torch.train import precision
+
+    parts, tops = [], []
     with torch.no_grad():
-        for name, model, fn in (
-                ("G", gen, lambda: gen(batch["c"])),
-                ("MSD (3 scales)", dis.msd, lambda: dis.msd(batch["y"])),
-                ("MPD (5 periods)", dis.mpd, lambda: dis.mpd(batch["y"]))):
-            gflop, ms = _conv_gflop(model, fn), _median_ms(fn)
-            parts.append(f"{name} {ms:.3f} ms for {gflop:.1f} GFLOP of convolutions "
-                         f"({gflop / ms:.1f} TFLOP/s)")
+        for name, model, x in (("G", gen, batch["c"]), ("MSD (3 scales)", dis.msd, batch["y"]),
+                               ("MPD (5 periods)", dis.mpd, batch["y"])):
+            # bf16: the parameters cast once, outside the timed call
+            p16, x16 = precision.bf16_params(model), x.to(torch.bfloat16)
+            runs = {"float32": lambda: model(x),
+                    "bf16": lambda: precision.call(model, p16, x16)}
+            gflop = _conv_gflop(model, runs["float32"])
+            ms = {k: _median_ms(fn) for k, fn in runs.items()}
+            parts.append(f"{name} ({gflop:.1f} GFLOP of convolutions) " + ", ".join(
+                f"{k} {v:.3f} ms ({gflop / v:.1f} TFLOP/s)" for k, v in ms.items()))
+            if name == "G":
+                for k, fn in runs.items():
+                    split = sorted(profile_by_kernel(fn).items(), key=lambda kv: -kv[1][0])
+                    tops.append(f"{k}: " + "; ".join(
+                        f"{n} {v:.3f} ms ({c} launches)" for n, (v, c) in split[:6]))
     print(f"HiFi-GAN v1 forwards alone, B={b} T={t}, no grad, D in train mode, "
           f"median of 10, CUDA events, on {card}: " + "; ".join(parts))
+    print(f"HiFi-GAN v1 G forward, the six kernels of most device time (torch.profiler, "
+          f"one forward) on {card}: " + " | ".join(tops))
     del gen, dis
 
 
@@ -3219,6 +3309,421 @@ def phase_hifigan_train(card: str) -> dict:
     return {"err_resume": err_resume, "cross": cross, "decode_err": err}
 
 
+def _bf16_close(got, want) -> bool:
+    """The bf16 modes' bound against their plain versions: rms|diff| <=
+    1e-3 rms|plain| and max|diff| <= 1e-2 max|plain|. Both round the same
+    operands to bf16 and add exact products in float32 in other orders, so
+    they part where a float32 value sits within that difference of a bf16
+    rounding point (one bf16 step in one operand, which the chain of stacks
+    spreads: 2.8e-4 rms at C = 128, measured); a rounding missed, added or
+    truncated moves every value by about 2e-3 rms."""
+    d, w = (got.float() - want.float()), want.float()
+    return (float(d.pow(2).mean().sqrt()) <= 1e-3 * float(w.pow(2).mean().sqrt())
+            and float(d.abs().max()) <= 1e-2 * float(w.abs().max()))
+
+
+def _bf16_work(flops: float, nbytes: float) -> dict:
+    """The bound of a bf16 mode: its operations at the tensor cores' bf16
+    rate, or its bytes."""
+    ops_ms, bytes_ms = flops / PEAK_BF16 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+def _bf16_stage_bytes(x, stacks, final, backward: bool) -> float:
+    """Bytes one bf16 stage call must move: x, its output (and for the
+    backward dy in and dx out) in bf16, the weights read in bf16 (the
+    biases in float32) and, for the backward, the weight gradients written
+    in float32."""
+    b, t, c = x.shape
+    out_ch = c if final is None else final[0].shape[-1]
+    n_w = sum(st[k].numel() for st in stacks for k in ("wd", "w1", "ws"))
+    n_b = sum(st[k].numel() for st in stacks for k in ("bd", "b1", "bs") if st[k] is not None)
+    if final is not None:
+        n_w += final[0].numel()
+        n_b += 0 if final[1] is None else final[1].numel()
+    acts = 2 * (x.numel() + b * t * out_ch) * (2 if backward else 1)
+    return acts + 2 * n_w + 4 * n_b + (4 * (n_w + n_b) if backward else 0)
+
+
+def _kernel_chain(x, stacks, final, slope, mode):
+    """The inputs of stacks 1, 2, .. and of the final conv as K6's bf16 mode
+    computes them in float32 (what K7's re-run keeps)."""
+    import torch
+
+    from parallelwavegan_tpu_torch.ops.kernels.melgan_stack import _run_cuda_bf16
+
+    xs = []
+    with torch.no_grad():
+        _run_cuda_bf16(x, stacks, final, slope, mode, outs=xs, keep_f32=True)
+    return xs
+
+
+def _off_the_kinks_bf16(x, stacks, fin, mode: str, slope: float, seed: int):
+    """(x, rows moved): ``_off_the_kinks`` for the bf16 mode: x is bf16, and
+    the LeakyReLU inputs computed in float32 (the later stacks' inputs, each
+    z, the final conv's input) are K6's bf16 chain's."""
+    import torch
+
+    from parallelwavegan_tpu_torch.ops.kernels.melgan_stack import stacks_forward_bf16
+
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    moved = 0
+    for _ in range(50):
+        with torch.no_grad():
+            fwd = stacks_forward_bf16(x, stacks, fin, slope, mode,
+                                      _kernel_chain(x, stacks, fin, slope, mode))
+        vals = fwd["xs"][1:] + fwd["zs"] + ([fwd["xf"]] if fin is not None else [])
+        near = torch.zeros(x.shape[:2], dtype=torch.bool, device=x.device)
+        for v in vals:
+            near.logical_or_((v.abs() < 1e-5 * v.pow(2).mean().sqrt()).any(2))
+        rows = near.nonzero()
+        if len(rows) == 0:
+            return x, moved
+        x = x.float()
+        x[rows[:, 0], rows[:, 1]] += 0.05 * torch.randn(
+            len(rows), x.shape[2], generator=g, device=x.device)
+        x = x.to(torch.bfloat16)
+        moved += len(rows)
+    _fail("phase 25: could not move the input off the kinks of LeakyReLU")
+
+
+def phase_k67_bf16(card: str) -> dict:
+    """K6's and K7's bf16-resident modes against their bf16 plain versions
+    at MelGAN v1's three fused training stages, with the controls that the
+    check must reject, and their times beside the plain versions, the
+    float32 kernels and their bf16 bounds (module docstring, phase 25)."""
+    import numpy as np
+    import torch
+
+    from parallelwavegan_tpu_torch.ops.kernels.melgan_stack import (
+        _run_cuda_bf16,
+        fused_melgan_stacks,
+        melgan_stacks_reference_bf16,
+        stacks_forward_bf16,
+    )
+    from parallelwavegan_tpu_torch.ops.kernels.melgan_stack_train import (
+        STACK_KEYS,
+        melgan_stacks_backward,
+        melgan_stacks_backward_reference_bf16,
+    )
+
+    gp = V1_MELGAN_CONFIG["generator_params"]
+    b, t = V1_MELGAN_CONFIG["batch_size"], V1_MELGAN_CONFIG["batch_max_steps"]
+    dils = [gp["stack_kernel_size"] ** j for j in range(gp["stacks"])]
+    slope, mode = 0.2, "reflect"
+    rs = np.random.RandomState(SEED + 25)
+
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy((rs.randn(*shape) * scale).astype(np.float32)).to("cuda")
+
+    def truncated(stacks):  # the weights cut to bf16 by truncation (a control)
+        return [{k: (v.view(torch.int32) & -65536).view(torch.float32)
+                 if k in ("wd", "w1", "ws") else v for k, v in st.items()} for st in stacks]
+
+    def grads(dx, dstacks, dfinal):
+        out = [("dx", dx)] + [(f"stacks[{i}].{k}", d[k]) for i, d in enumerate(dstacks)
+                              for k in STACK_KEYS if d[k] is not None]
+        return out + list(zip(("final w", "final b"), dfinal or ()))
+
+    k6, k7 = {"errs": []}, {"errs": []}
+    stages = []
+    for i in (1, 2, 3):
+        c, ti = 512 >> (i + 1), t >> (3 - i)
+        stacks = [{"wd": randn(3, c, c, scale=(3 * c) ** -0.5), "bd": randn(c, scale=0.1),
+                   "w1": randn(1, c, c, scale=c ** -0.5), "b1": randn(c, scale=0.1),
+                   "ws": randn(1, c, c, scale=c ** -0.5), "bs": randn(c, scale=0.1),
+                   "dilation": d} for d in dils]
+        fin = (randn(7, c, 1, scale=(7 * c) ** -0.5), randn(1, scale=0.1)) if i == 3 else None
+        x, moved = _off_the_kinks_bf16(randn(b, ti, c).to(torch.bfloat16), stacks, fin, mode,
+                                       slope, SEED + i)
+        dy = randn(b, ti, 1 if fin else c, scale=(b * ti) ** -0.5).to(torch.bfloat16)
+        name = f"v1 stage {i} B={b} T={ti} C={c}" + (" + final" if fin else "")
+        stages.append((name, x, stacks, fin, dy))
+        # K6: the float32 chain against the plain version's; the bf16 output
+        with torch.no_grad():
+            out = fused_melgan_stacks(x, stacks, final=fin)
+            chain = _run_cuda_bf16(x, stacks, fin, slope, mode, keep_f32=True)
+            f32 = fused_melgan_stacks(x.float(), stacks, final=fin)
+            trunc = _run_cuda_bf16(x, truncated(stacks), fin, slope, mode, keep_f32=True)
+        want = stacks_forward_bf16(x, stacks, fin, slope, mode)["y"]
+        torch.cuda.synchronize()
+        if not torch.equal(out, chain.to(torch.bfloat16)):
+            _fail(f"K6 bf16 {name}: the bf16 output is not its float32 chain rounded")
+        if not _bf16_close(chain, want):
+            _fail(f"K6 bf16 {name}: kernel disagrees with its bf16 plain version "
+                  f"(max|diff| {float((chain - want).abs().max()):.3e})")
+        if _bf16_close(f32, want) or _bf16_close(trunc, want):
+            _fail(f"K6 bf16 {name}: the check accepts the float32 kernel or truncated weights")
+        d = (chain - want).float()
+        k6["errs"].append(float(d.abs().max()))
+        print(f"K6 bf16 vs plain [{name}]: {moved} input rows moved off the kinks; "
+              f"rms|diff| / rms|plain| = {float(d.pow(2).mean().sqrt() / want.pow(2).mean().sqrt()):.3e}, "
+              f"max|diff| / max|plain| = {float(d.abs().max() / want.abs().max()):.3e} "
+              "(bounds 1e-3 and 1e-2); the float32 kernel's and the truncated weights' "
+              "outputs rejected")
+        del out, chain, f32, trunc, want
+        # K7: its plain version fed K6's chain stack by stack
+        got = grads(*melgan_stacks_backward(x, stacks, fin, slope, mode, dy))
+        ref = grads(*melgan_stacks_backward_reference_bf16(
+            x, stacks, fin, slope, mode, dy, _kernel_chain(x, stacks, fin, slope, mode)))
+        torch.cuda.synchronize()
+        worst = 0.0
+        for (key, g), (_, r) in zip(got, ref):
+            if g.dtype != r.dtype or g.shape != r.shape or not torch.isfinite(g.float()).all():
+                _fail(f"K7 bf16 {name} {key}: {g.dtype} {tuple(g.shape)} vs {r.dtype} "
+                      f"{tuple(r.shape)}, or non-finite")
+            if not _bf16_close(g, r) or _bf16_close(torch.zeros_like(g), r):
+                _fail(f"K7 bf16 {name} {key}: kernel disagrees with its bf16 plain version "
+                      f"(max|diff| {float((g.float() - r.float()).abs().max()):.3e}, "
+                      f"max|plain| {float(r.float().abs().max()):.3e})")
+            dd = (g.float() - r.float())
+            k7["errs"].append(float(dd.abs().max()))
+            worst = max(worst, float(dd.pow(2).mean().sqrt() / r.float().pow(2).mean().sqrt()))
+        for label, wrong in (("the float32 kernel", melgan_stacks_backward(
+                x.float(), stacks, fin, slope, mode, dy.float())), ("truncated weights",
+                melgan_stacks_backward(x, truncated(stacks), fin, slope, mode, dy))):
+            if all(_bf16_close(g, r) for (_, g), (_, r) in zip(grads(*wrong), ref)):
+                _fail(f"K7 bf16 {name}: the check accepts {label}")
+        print(f"K7 bf16 vs plain [{name}]: {len(ref)} gradients, worst rms|diff| / "
+              f"rms|plain| = {worst:.3e} (bound 1e-3, max 1e-2 of max|plain|); the float32 "
+              "kernel's, the truncated weights' and each zeroed gradient rejected")
+        del got, ref
+
+    f32_ms = {"K6": 0.0, "K7": 0.0}
+    for name, x, stacks, fin, dy in stages:
+        w6 = _bf16_work(_stacks_work(x, stacks, fin)["flops"],
+                        _bf16_stage_bytes(x, stacks, fin, False))
+        w7 = _bf16_work(_k7_work(x, stacks, fin)["flops"],
+                        _bf16_stage_bytes(x, stacks, fin, True))
+        with torch.inference_mode():
+            _timed(k6, f"K6 bf16 {name}", card,
+                   lambda: fused_melgan_stacks(x, stacks, final=fin),
+                   lambda: melgan_stacks_reference_bf16(x, stacks, final=fin), w6)
+            xf = x.float()
+            f32_ms["K6"] += _median_ms(lambda: fused_melgan_stacks(xf, stacks, final=fin))
+        _timed(k7, f"K7 bf16 {name}", card,
+               lambda: melgan_stacks_backward(x, stacks, fin, slope, mode, dy),
+               lambda: melgan_stacks_backward_reference_bf16(x, stacks, fin, slope, mode, dy),
+               w7)
+        xf, dyf = x.float(), dy.float()
+        f32_ms["K7"] += _median_ms(lambda: melgan_stacks_backward(xf, stacks, fin, slope,
+                                                                  mode, dyf))
+    for label, rec in (("K6", k6), ("K7", k7)):
+        rec.update(_bf16_work(rec["flops"], rec["bytes"]))
+        print(f"{label} bf16 per MelGAN v1 G step (stages 1-3, B={b} T={t}"
+              + (", K6's re-run included" if label == "K7" else ", the training forward")
+              + f"): kernel {rec['ms']:.3f} ms, bf16 plain {rec['plain_ms']:.3f} ms, "
+              f"float32 kernel {f32_ms[label]:.3f} ms; bf16 bound {rec['bound_ms']:.3f} ms "
+              f"({rec['flops'] / 1e9:.1f} GFLOP / 989 TFLOP/s, {rec['bytes'] / 1e6:.1f} MB / "
+              f"3.35 TB/s; {rec['bound_by']}; {rec['bound_ms'] / rec['ms']:.1%} of it) on {card}")
+    return {"k6": k6, "k7": k7}
+
+
+def _checkpoint_dtypes(path: str) -> set:
+    """The dtypes of every tensor in a training checkpoint (models and
+    optimizers)."""
+    import torch
+
+    found = set()
+
+    def walk(v):
+        if torch.is_tensor(v):
+            found.add(v.dtype)
+        elif isinstance(v, dict):
+            for u in v.values():
+                walk(u)
+        elif isinstance(v, (list, tuple)):
+            for u in v:
+                walk(u)
+
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    walk(ckpt["model"])
+    walk(ckpt.get("optimizer", {}))
+    return found
+
+
+def _hifigan_bf16_cross_check(card: str) -> tuple:
+    """One G+D ``TrainStep`` of V1_HIFIGAN_BF16_CONFIG at B=2 on the card and
+    on the CPU, and in float32 on the card, from the same weights and batch:
+    (max relative loss diff card vs CPU, {loss: relative diff bf16 vs
+    float32}, denominator at least 0.1)."""
+    import torch
+
+    from parallelwavegan_tpu_torch.models import get_model_class
+    from parallelwavegan_tpu_torch.optimizers import build_optimizer_from_config
+    from parallelwavegan_tpu_torch.train.criterion import build_criterion
+    from parallelwavegan_tpu_torch.train.step import TrainStep
+
+    g = torch.Generator().manual_seed(SEED + 1)
+    t = V1_HIFIGAN_BF16_CONFIG["batch_max_steps"]
+    batch = {"y": 0.3 * torch.randn(2, 1, t, generator=g),
+             "c": torch.randn(2, 80, t // V1_HIFIGAN_BF16_CONFIG["hop_size"], generator=g)}
+    got = {}
+    for device, mixed in (("cuda", True), ("cpu", True), ("cuda", False)):
+        cfg = dict(json.loads(json.dumps(V1_HIFIGAN_BF16_CONFIG)), batch_size=2,
+                   mixed_precision=mixed)
+        init = torch.Generator().manual_seed(SEED)
+        gd = get_model_class(cfg["generator_type"])(
+            **cfg["generator_params"], generator=init).to(device)
+        dd = get_model_class(cfg["discriminator_type"])(
+            **cfg["discriminator_params"], generator=init).to(device)
+        step = TrainStep(cfg, gd, dd, build_criterion(cfg),
+                         build_optimizer_from_config(cfg, "generator", gd.parameters()),
+                         build_optimizer_from_config(cfg, "discriminator", dd.parameters()))
+        got[device, mixed] = {k: float(v) for k, v in step(
+            {k: v.to(device) for k, v in batch.items()}, True, True, 0).items()}
+        del gd, dd, step
+
+    def rel(a, b):
+        if sorted(a) != sorted(b):
+            _fail(f"HiFi-GAN v1 bf16: metrics {sorted(a)} vs {sorted(b)}")
+        return {k: abs(a[k] - b[k]) / max(abs(b[k]), 0.1) for k in b}
+
+    return (max(rel(got["cuda", True], got["cpu", True]).values()),
+            rel(got["cuda", True], got["cuda", False]))
+
+
+def phase_hifigan_bf16_train(card: str) -> dict:
+    """HiFi-GAN v1 with ``mixed_precision`` through ``bin/train.main``
+    (module docstring, phase 26)."""
+    import numpy as np
+
+    from parallelwavegan_tpu_torch.bin import train
+
+    root = os.path.join(WORK, "hifigan_bf16")
+    shutil.rmtree(root, ignore_errors=True)
+    dump = _write_train_dump(root, HIFIGAN_TRAIN_UTTS)
+    config = os.path.join(root, "config.json")
+    with open(config, "w") as f:
+        json.dump(dict(V1_HIFIGAN_BF16_CONFIG, **HIFIGAN_TRAIN_OVERRIDES), f)
+    steps = HIFIGAN_TRAIN_OVERRIDES["train_max_steps"]
+    res = {}
+    for name, extra in (("run", []), ("resume", ["--resume", os.path.join(
+            root, "exp_run", "checkpoint-2steps.pkl")])):
+        t0 = time.perf_counter()
+        res[name] = train.main(
+            ["--train-dumpdir", dump, "--dev-dumpdir", dump, "--outdir",
+             os.path.join(root, f"exp_{name}"), "--device", "cuda", "--verbose", "0",
+             "--config", config] + extra)
+        print(f"main path [HiFi-GAN v1 bf16 training, {name}]: {res[name]['steps']} steps "
+              f"in {time.perf_counter() - t0:.1f} s (set-up, eval and saves included) "
+              f"on {card}")
+        if res[name]["steps"] != steps:
+            _fail(f"HiFi-GAN v1 bf16 training {name}: {res[name]['steps']} steps")
+    logged = {name: {s: {k: v for k, v in m.items() if k.startswith("train/")}
+                     for s, m in r["history"] if any(k.startswith("train/") for k in m)}
+              for name, r in res.items()}
+    for s in range(1, steps + 1):
+        m = logged["run"].get(s, {})
+        print(f"  step {s}: " + ", ".join(f"{k} {v:.6f}" for k, v in sorted(m.items())))
+        if not m or not all(np.isfinite(v) for v in m.values()):
+            _fail(f"HiFi-GAN v1 bf16 training: step {s} logged {m}")
+    if sorted(logged["resume"]) != [3, 4]:
+        _fail(f"HiFi-GAN v1 bf16 resume logged steps {sorted(logged['resume'])}")
+    err_resume = max(abs(logged["resume"][s][k] - v) / max(abs(v), 0.1)
+                     for s in (3, 4) for k, v in logged["run"][s].items())
+    dtypes = set()
+    for name, s in (("run", 2), ("run", steps), ("resume", steps)):
+        dtypes |= _checkpoint_dtypes(os.path.join(root, f"exp_{name}",
+                                                  f"checkpoint-{s}steps.pkl"))
+    import torch
+
+    print(f"HiFi-GAN v1 bf16 resumed from step 2 vs uninterrupted: max relative loss "
+          f"diff {err_resume:.3e} over steps 3-4 (bound 1e-2); checkpoint tensor types "
+          f"{sorted(str(d) for d in dtypes)}")
+    if not err_resume <= 1e-2:
+        _fail(f"HiFi-GAN v1 bf16 resume: losses differ by {err_resume:.3e}")
+    if dtypes != {torch.float32}:
+        _fail(f"HiFi-GAN v1 bf16 checkpoints hold {dtypes}: the master state is float32")
+    shutil.rmtree(root)
+    cross, vs_f32 = _hifigan_bf16_cross_check(card)
+    print(f"HiFi-GAN v1 bf16 G+D step at B=2, card ({card}) vs CPU: max relative loss "
+          f"diff {cross:.3e} (bound 1e-2); bf16 vs float32 on the card: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in sorted(vs_f32.items()))
+          + " (bound 3e-2; above 1e-4 somewhere: a float32 run would not pass for bf16)")
+    if (not cross <= 1e-2 or not max(vs_f32.values()) <= 3e-2
+            or not max(vs_f32.values()) > 1e-4):
+        _fail(f"HiFi-GAN v1 bf16 cross-check: {cross:.3e} vs the CPU, {vs_f32} vs float32")
+    return {"err_resume": err_resume, "cross": cross, "vs_f32": vs_f32}
+
+
+def phase_melgan_bf16_train(card: str) -> dict:
+    """MelGAN v1 with ``mixed_precision`` and ``use_pallas_stacks_train``
+    through ``bin/train.main``, K6's and K7's bf16 launches counted, against
+    the same run with their bf16 plain versions on the card (module
+    docstring, phase 27)."""
+    import numpy as np
+    import torch
+
+    from parallelwavegan_tpu_torch.bin import train
+    from parallelwavegan_tpu_torch.ops.kernels import melgan_stack as m6
+    from parallelwavegan_tpu_torch.ops.kernels import melgan_stack_train as m7
+
+    root = os.path.join(WORK, "melgan_bf16")
+    shutil.rmtree(root, ignore_errors=True)
+    dump = _write_train_dump(root)
+    config = os.path.join(root, "config.json")
+    with open(config, "w") as f:
+        json.dump(_melgan_v1_config(True, mixed_precision=True, **TRAIN_OVERRIDES), f)
+    steps = TRAIN_OVERRIDES["train_max_steps"]
+    d_reruns = steps - TRAIN_OVERRIDES["discriminator_train_start_steps"] - 1
+    expect = (steps * (10 + 8) + d_reruns * 10, steps * 10)
+
+    def plain_forward(x, stacks, final, slope, pad_mode, outs=None, split=None,
+                      keep_f32=False):
+        y = m6.stacks_forward_bf16(x, stacks, final, slope, pad_mode)["y"]
+        return y if keep_f32 else y.to(torch.bfloat16)
+
+    def plain_backward(x, stacks, final, slope, pad_mode, dy, fwd_split):
+        return m7.melgan_stacks_backward_reference_bf16(x, stacks, final, slope, pad_mode, dy)
+
+    res, counts = {}, {}
+    for name in ("kernel", "plain"):
+        saved = (m6._run_cuda_bf16, m7._run_cuda_bf16, m7._backward_cuda)
+        if name == "plain":  # the bf16 plain versions on the card, in place of K6 and K7
+            m6._run_cuda_bf16 = m7._run_cuda_bf16 = plain_forward
+            m7._backward_cuda = plain_backward
+        try:
+            _reset_launch_counts()
+            t0 = time.perf_counter()
+            res[name] = train.main(
+                ["--train-dumpdir", dump, "--dev-dumpdir", dump, "--outdir",
+                 os.path.join(root, f"exp_{name}"), "--device", "cuda", "--verbose", "0",
+                 "--config", config])
+            seconds = time.perf_counter() - t0
+            counts[name] = (m6.fused_melgan_stacks.bf16_launches,
+                            m7.melgan_stacks_backward.bf16_launches)
+        finally:
+            m6._run_cuda_bf16, m7._run_cuda_bf16, m7._backward_cuda = saved
+        print(f"main path [MelGAN v1 bf16 training, {name}]: {res[name]['steps']} steps in "
+              f"{seconds:.1f} s on {card}; K6 bf16 launches = {counts[name][0]}, K7 bf16 "
+              f"launches = {counts[name][1]}")
+    if counts["kernel"] != expect or counts["plain"] != (0, 0):
+        _fail(f"MelGAN v1 bf16 training: launches {counts}, expected {expect} with the "
+              "kernels")
+    logged = {name: {s: {k: v for k, v in m.items() if k.startswith("train/")}
+                     for s, m in r["history"] if "train/generator_loss" in m}
+              for name, r in res.items()}
+    worst = 0.0
+    for s in range(1, steps + 1):
+        got, want = logged["kernel"].get(s), logged["plain"].get(s)
+        if not got or sorted(got) != sorted(want or {}):
+            _fail(f"MelGAN v1 bf16 training: step {s} logged {got} and {want}")
+        print(f"  step {s}: " + ", ".join(f"{k} {v:.6f}" for k, v in sorted(got.items())))
+        if not all(np.isfinite(v) for v in got.values()):
+            _fail(f"MelGAN v1 bf16 training: non-finite loss at step {s}")
+        worst = max([worst] + [abs(got[k] - v) / max(abs(v), 0.1) for k, v in want.items()])
+    print(f"MelGAN v1 bf16 training, K6/K7 vs their bf16 plain versions: max relative "
+          f"loss diff {worst:.3e} over steps 1-{steps} (bound 1e-2) on {card}")
+    if not worst <= 1e-2:
+        _fail(f"MelGAN v1 bf16 training: kernels vs plain {worst:.3e}")
+    shutil.rmtree(root)
+    return {"k6_launches": counts["kernel"][0], "k7_launches": counts["kernel"][1],
+            "err": worst}
+
+
 def main() -> None:
     pkg = os.path.join(ROOT, "parallelwavegan_tpu_torch")
     if not os.path.isdir(pkg):
@@ -3303,6 +3808,12 @@ def main() -> None:
     torch.cuda.synchronize()
     phase_hifigan_train(card)
     torch.cuda.synchronize()
+    k67 = phase_k67_bf16(card)
+    torch.cuda.synchronize()
+    phase_hifigan_bf16_train(card)
+    torch.cuda.synchronize()
+    melgan_bf16 = phase_melgan_bf16_train(card)
+    torch.cuda.synchronize()
     shutil.rmtree(WORK, ignore_errors=True)
 
     def entry(name, source, replaces, launches, rec):
@@ -3338,6 +3849,10 @@ def main() -> None:
               style_train["k9a_launches"], k9["k9a"]),
         entry("tade_block_backward (K9b)", "tade_bwd.cu", "tade_train.py:523",
               style_train["k9b_launches"], k9["k9b"]),
+        entry("fused_melgan_stacks (K6 bf16-resident mode)", "melgan_stack.cu",
+              "melgan_stack.py:285", melgan_bf16["k6_launches"], k67["k6"]),
+        entry("melgan_stacks_backward (K7 bf16-resident mode)", "melgan_stack_bwd.cu",
+              "melgan_stack_train.py:247", melgan_bf16["k7_launches"], k67["k7"]),
     ]}
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_main:.1f} s "
           f"(build included) on {card}")

@@ -26,10 +26,16 @@ residual stacks of at most 128 channels through K6 and K7, with
 ``use_pallas_tade_train`` StyleMelGAN's TADE blocks of at least
 ``pallas_tade_train_min_t`` samples through K8a/K8b and K9a/K9b.
 ``--resume`` restores the models, the optimizers, the step count and the
-data stream's position; ``--pretrain`` the model weights only. Not ported yet, and refused with ``NotImplementedError``
-(ROADMAP.md): ``mixed_precision``, ``distributed``, scp datasets and the
-other families and conditioning inputs. float32 convolutions and matmuls
-run without TF32, as the JAX package computes in full float32.
+data stream's position; ``--pretrain`` the model weights only.
+``mixed_precision: true`` runs the forwards and backwards in bf16 with
+float32 master weights, optimizer state, losses and spectral (u, v), as
+the JAX package does (``train/precision.py``; MelGAN's stacks with
+``use_pallas_stacks_train`` through K6/K7's bf16 modes). Not ported yet,
+and refused with ``NotImplementedError`` (ROADMAP.md): ``mixed_precision``
+with ``use_pallas_tade_train`` (K8/K9's bf16 modes), ``pallas_stack_bf16``,
+``distributed``, scp datasets and the other families and conditioning
+inputs. float32 convolutions and matmuls run without TF32, as the JAX
+package computes in full float32.
 """
 
 from __future__ import annotations
@@ -126,10 +132,13 @@ def main(argv=None) -> dict:
     config = load_config(args.config)
     config.update(vars(args))
     config["version"] = parallelwavegan_tpu_torch.__version__
-    for key, what in (("distributed", "distributed training"),
-                      ("mixed_precision", "mixed_precision")):
-        if config.get(key, False):
-            raise _not_ported(what)
+    if config.get("distributed", False):
+        raise _not_ported("distributed training")
+    if config.get("mixed_precision", False) and config.get(
+            "generator_params", {}).get("use_pallas_tade_train", False):
+        # JAX runs K8/K9's bf16 modes there (tade_train.py:736)
+        raise _not_ported("mixed_precision with use_pallas_tade_train (the bf16 "
+                          "modes of the TADE kernels K8/K9)")
     if any(getattr(args, f"{split}_{kind}") for split in ("train", "dev")
            for kind in ("wav_scp", "feats_scp", "segments")):
         raise _not_ported("scp datasets (--*-wav-scp / --*-feats-scp / --*-segments)")

@@ -6,7 +6,10 @@ the legacy ``torch.nn.utils.weight_norm`` at dim 0, which keeps upstream's
 ``weight_g``/``weight_v`` state-dict keys. On torch's native layouts dim 0
 is the output channel of a conv and the input channel of a transposed
 conv, the same norm groups as the JAX package. For decode the norm is
-folded into a plain weight (``remove_weight_norm``), as upstream does.
+folded into a plain weight (``remove_weight_norm``), as upstream does. On
+bf16 parameters (mixed precision's cast copies) the weight is JAX's
+formula in bf16, g * v / (|v| + 1e-12) (:97-105), whose roundings differ
+from torch's v * (g / |v|) by a scale of each output channel.
 
 Spectral norm (``apply_spectral_norm``) computes what the JAX package's
 ``_NormalizedKernel`` computes (:106-142) under upstream's keys
@@ -35,6 +38,7 @@ a flat ``nn.Sequential`` keeps upstream's indices.
 
 from __future__ import annotations
 
+import importlib
 import math
 import warnings
 
@@ -82,12 +86,38 @@ def _init_(conv: nn.Module, fan_in: int, generator, normal_std,
                 conv.bias.uniform_(-bound, bound, generator=generator)
 
 
+_WeightNorm = importlib.import_module("torch.nn.utils.weight_norm").WeightNorm
+
+
+def norm_weight(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Weight norm's weight at dim 0 from (v, g): torch's in float32; on
+    bf16 JAX's g * v / (|v| + 1e-12), each op rounded to bf16 as XLA rounds
+    it (the squares' sum taken in float32)."""
+    if v.dtype != torch.bfloat16:
+        return torch._weight_norm(v, g, 0)
+    n = (v * v).sum(tuple(range(1, v.dim())), keepdim=True).sqrt()
+    return g * v / (n + 1e-12)
+
+
+class _WeightNormHook(_WeightNorm):
+    """torch's legacy weight-norm hook (its keys and its
+    ``remove_weight_norm``), computing ``norm_weight``."""
+
+    def compute_weight(self, module: nn.Module) -> torch.Tensor:
+        return norm_weight(getattr(module, self.name + "_v"),
+                           getattr(module, self.name + "_g"))
+
+
 def apply_weight_norm(module: nn.Module) -> nn.Module:
     """Legacy weight norm at dim 0 (upstream's ``weight_g``/``weight_v``)."""
     with warnings.catch_warnings():
         # the parametrizations API would rename the keys upstream uses
         warnings.simplefilter("ignore", FutureWarning)
-        return torch.nn.utils.weight_norm(module, dim=0)
+        torch.nn.utils.weight_norm(module, dim=0)
+    for hook in module._forward_pre_hooks.values():
+        if type(hook) is _WeightNorm:
+            hook.__class__ = _WeightNormHook
+    return module
 
 
 def remove_weight_norm(module: nn.Module) -> None:
@@ -103,9 +133,13 @@ def _normalize(vec: torch.Tensor) -> torch.Tensor:
 
 def _spectral_weight(module: nn.Module, inputs) -> None:
     """Forward pre-hook: ``module.weight`` from ``weight_orig`` and the
-    power-iteration vectors, one iteration first in train mode."""
+    power-iteration vectors, one iteration first in train mode. A bf16
+    ``weight_orig`` (mixed precision's cast parameters) is read in float32,
+    as JAX promotes bf16 @ float32 (convs.py:140-156): the iteration and
+    sigma run in float32 on the bf16 values, (u, v) stay float32, and the
+    weight divided by sigma is cast back to bf16."""
     w = module.weight_orig
-    w_mat = w.reshape(w.shape[0], -1)
+    w_mat = w.reshape(w.shape[0], -1).float()
     if module.training:
         with torch.no_grad():
             v = _normalize(w_mat.t() @ module.weight_u)
@@ -116,7 +150,7 @@ def _spectral_weight(module: nn.Module, inputs) -> None:
         # copies: a later train-mode forward updates the buffers in place
         u, v = module.weight_u.clone(), module.weight_v.clone()
     sigma = torch.dot(u, w_mat @ v)
-    module.weight = w / (sigma + 1e-12)
+    module.weight = (w.float() / (sigma + 1e-12)).to(w.dtype)
 
 
 def apply_spectral_norm(module: nn.Module,
@@ -150,7 +184,7 @@ def _apply_norm(module: nn.Module, use_weight_norm: bool,
 def effective_weight(conv: nn.Module) -> torch.Tensor:
     """The weight a forward pass would use, recomputed from (g, v)."""
     if hasattr(conv, "weight_g"):
-        return torch._weight_norm(conv.weight_v, conv.weight_g, 0)
+        return norm_weight(conv.weight_v, conv.weight_g)
     return conv.weight
 
 

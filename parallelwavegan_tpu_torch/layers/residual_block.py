@@ -27,14 +27,31 @@ from parallelwavegan_tpu_torch.layers.convs import (
     effective_weight,
     kaiming_normal_relu_std,
 )
+from parallelwavegan_tpu_torch.ops.kernels.mma_bf16 import slope_of
 from parallelwavegan_tpu_torch.ops.kernels.wavenet import (
     WEIGHT_KEYS,
     fused_gated_resblock,
 )
 
 
+class LeakyReLU(nn.LeakyReLU):
+    """``torch.nn.LeakyReLU`` that, on a bf16 input (mixed precision),
+    multiplies by the slope rounded to bf16, as the JAX package's
+    ``negative_slope * x`` does in x's type (layers/convs.py:32-33): the
+    product of two bf16 values is exact in float32 and rounded once.
+    float32 inputs are torch's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype != torch.bfloat16:
+            return super().forward(x)
+        return F.leaky_relu(x, slope_of(self.negative_slope), self.inplace)
+
+
 def get_activation(name: str, params: dict | None) -> nn.Module:
-    """Upstream builds activations as ``getattr(torch.nn, name)(**params)``."""
+    """Upstream builds activations as ``getattr(torch.nn, name)(**params)``
+    (LeakyReLU as the subclass above)."""
+    if name == "LeakyReLU":
+        return LeakyReLU(**(params or {}))
     return getattr(nn, name)(**(params or {}))
 
 

@@ -47,6 +47,7 @@ from parallelwavegan_tpu_torch.layers.convs import (
     remove_weight_norm,
 )
 from parallelwavegan_tpu_torch.layers.residual_block import (
+    LeakyReLU,
     HiFiGANResidualBlock,
     get_activation,
 )
@@ -124,7 +125,7 @@ class HiFiGANGenerator(nn.Module):
                 ))
         # official impl uses the default LeakyReLU slope (0.01) here
         self.output_conv = nn.Sequential(
-            nn.LeakyReLU(),
+            LeakyReLU(),
             Conv1d(channels // (2 ** len(upsample_scales)), out_channels,
                    kernel_size, **conv_kw),
             nn.Tanh(),

@@ -172,7 +172,10 @@ class MelGANGenerator(nn.Module):
             if self.use_stacks_train and torch.is_grad_enabled():
                 w, fn = self.stage_weights(i, differentiable=True), fused_melgan_stacks_train
             else:
-                w = (self._kernel_cache or {}).get(i) or self.stage_weights(i)
+                # decode's float32 weights, never under mixed precision's bf16
+                # parameters (which stage_weights reads)
+                cache = self._kernel_cache if c.dtype == torch.float32 else None
+                w = (cache or {}).get(i) or self.stage_weights(i)
                 fn = fused_melgan_stacks
             y = fn(c.transpose(1, 2).contiguous(), w["stacks"], final=w["final"],
                    slope=self.slope, pad_mode=self.pad_mode)

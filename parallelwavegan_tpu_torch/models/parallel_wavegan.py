@@ -199,7 +199,9 @@ class ParallelWaveGANGenerator(nn.Module):
         channel-last inside; differentiable, cycle by cycle, when training
         with ``use_pallas_stack_train``."""
         x, c = x.transpose(1, 2).contiguous(), c.transpose(1, 2).contiguous()
-        if self.use_stack_train and torch.is_grad_enabled():
+        # under mixed precision the no-grad forward too runs JAX's chunks,
+        # whose boundaries round to bf16
+        if self.use_stack_train and (torch.is_grad_enabled() or x.dtype == torch.bfloat16):
             weights, dilations = self.stack_weights(differentiable=True)
             per = self.layers // self.stacks
             skips = None

@@ -72,6 +72,17 @@ _SIGNATURES = {
     "melgan_outconv_bwd": [_P] * 8 + [ctypes.c_longlong] + [_I] * 6 + [_F, _I, _P],
     # B, T, C, Cout, K -> floats of melgan_outconv_bwd's partial buffer
     "melgan_outconv_bwd_part_floats": [_I] * 5,
+    # the bf16-resident modes: x, out, wf, bias, B, T, C, K, dil, mode,
+    # slope, slope_x, x_bf16, out_bf16, device, stream
+    "melgan_stack_bf16": [_P] * 4 + [_I] * 6 + [_F, _F, _I, _I, _I, _P],
+    # x, y, w, b, B, T, C, Cout, K, mode, slope, y_bf16, device, stream
+    "melgan_outconv_bf16": [_P] * 4 + [_I] * 6 + [_F, _I, _I, _P],
+    # melgan_stack_bwd's arguments, then slope_x, x_bf16, g_bf16 before
+    # device and stream
+    "melgan_stack_bwd_bf16": [_P] * 14 + [ctypes.c_longlong] + [_I] * 6
+    + [_F, _F, _I, _I, _I, _P],
+    # melgan_outconv_bwd's arguments (dy bf16)
+    "melgan_outconv_bwd_bf16": [_P] * 8 + [ctypes.c_longlong] + [_I] * 6 + [_F, _I, _P],
     # x, c, mean, rstd, x2, a, wf, aux_b, g_b, gc_b, y, s, t, B, T, gate,
     # device, stream
     "tade1": [_P] * 13 + [_I] * 4 + [_P],
@@ -115,21 +126,28 @@ class KernelLibrary:
             raise RuntimeError(f"{name} failed: CUDA error {err} ({msg})")
 
 
-def check_tensor(name: str, t, device, shape, align: int = 0) -> None:
-    """Raise unless ``t`` is a contiguous float32 tensor of ``shape`` on
-    ``device`` (and its data ``align``-byte aligned, where asked)."""
+def check_tensor(name: str, t, device, shape, align: int = 0,
+                 dtypes=(torch.float32,)) -> None:
+    """Raise unless ``t`` is a contiguous tensor of one of ``dtypes``
+    (float32 by default) and of ``shape`` on ``device`` (and its data
+    ``align``-byte aligned, where asked)."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, x is on {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype not in dtypes:
+        names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise ValueError(f"{name} must be {names}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if align and t.data_ptr() % align:
         raise ValueError(f"{name} must be {align}-byte aligned")
+
+
+BF16 = (torch.bfloat16,)
+EITHER = (torch.float32, torch.bfloat16)  # weights that a bf16 mode rounds
 
 
 def launch_target(x) -> tuple:

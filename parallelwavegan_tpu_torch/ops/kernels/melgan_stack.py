@@ -27,6 +27,15 @@ ignores them. This wrapper is inference-only, as the JAX
 ``fused_melgan_stacks`` has no VJP, so a forward that would need
 gradients raises; the differentiable stage is
 ``ops/kernels/melgan_stack_train.py`` (K6 forward, K7 backward).
+
+A bf16 x runs the JAX kernel's bf16-resident mode (``mxu_bf16``,
+melgan_stack.py:302-326): every product's operands rounded to bf16 (the
+padded leaky(x), leaky(z), x; the weights), float32 sums, z and the chain
+between stacks in float32, the stage's output bf16. Its plain version is
+``melgan_stacks_reference_bf16``; on the card the kernel's bf16 mode
+(weights rounded once into bf16 fragments, ``mma_bf16``). A bf16 x on the
+card never reaches the float32 kernel or a plain version. The weights may
+be float32 or bf16 (rounded either way); the biases are added in float32.
 """
 
 from __future__ import annotations
@@ -36,7 +45,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from parallelwavegan_tpu_torch.ops.kernels import build
+from parallelwavegan_tpu_torch.ops.kernels import build, mma_bf16
 from parallelwavegan_tpu_torch.ops.kernels.tf32x3 import stack_forward_fragments
 
 # JAX pad mode -> (torch F.pad mode, the kernel's mode number)
@@ -81,6 +90,83 @@ def melgan_stacks_reference(x, stacks, *, final=None, slope: float = 0.2,
     return c.transpose(1, 2)
 
 
+def _bf(v):
+    """v rounded to bf16 (to nearest even), as float32."""
+    return v.to(torch.bfloat16).float()
+
+
+def _f32(v):
+    return None if v is None else v.float()
+
+
+def _pad_cl(v, p: int, mode: str):
+    """(B, T, C) padded by p rows at both ends."""
+    return F.pad(v.transpose(1, 2), (p, p), mode=mode).transpose(1, 2)
+
+
+def _conv_cl(vp, w, b, dilation: int, t: int):
+    """sum_k vp[:, k d : k d + t] . w[k] (+ b): the valid conv of a padded
+    (B, t + (K - 1) d, Cin) by a gather-form (K, Cin, Cout) kernel, one
+    float32 product per tap."""
+    out = None
+    for k in range(w.shape[0]):
+        term = vp[:, k * dilation:k * dilation + t] @ w[k]
+        out = term if out is None else out + term
+    return out if b is None else out + b
+
+
+def stacks_forward_bf16(x, stacks, final, slope: float, pad_mode: str,
+                        inputs=None) -> dict:
+    """The bf16-resident forward of one stage, every value it keeps: "xs"
+    (each stack's input, float32; the first the bf16 x widened), "zs" (each
+    stack's z + bd), "ts" (each stack's padded leaky input rounded to bf16,
+    (B, T + 2P, C)), then with ``final`` "xf" (the final conv's input), "tf"
+    (its rounded padded input) and "y" (its tanh, float32), else "y" the
+    last stack's output (float32). ``inputs`` (float32, one per stack) are
+    the inputs of stacks 1, 2, .. and of the final conv to take in place of
+    the chain's own: values that another forward rounded at other points,
+    so that a backward can be held to that forward stack by stack."""
+    mode = _pad_mode(pad_mode)
+    t = x.shape[1]
+    c = x.float()
+    out = {"xs": [], "zs": [], "ts": []}
+    for i, st in enumerate(stacks):
+        if i > 0 and inputs is not None:
+            c = inputs[i - 1]
+        k, d = st["wd"].shape[0], int(st["dilation"])
+        # on the bf16 stage input LeakyReLU multiplies in bf16 (JAX _leaky)
+        s = mma_bf16.slope_of(slope) if i == 0 else slope
+        tp = _bf(_pad_cl(F.leaky_relu(c, s), (k - 1) // 2 * d, mode))
+        z = _conv_cl(tp, _bf(st["wd"]), _f32(st["bd"]), d, t)
+        h = _conv_cl(_bf(F.leaky_relu(z, slope)), _bf(st["w1"]), _f32(st["b1"]), 1, t)
+        out["xs"].append(c)
+        out["zs"].append(z)
+        out["ts"].append(tp)
+        c = h + _conv_cl(_bf(c), _bf(st["ws"]), _f32(st["bs"]), 1, t)
+    if final is None:
+        out["y"] = c
+        return out
+    fw, fb = final
+    s = mma_bf16.slope_of(slope) if not stacks else slope
+    if stacks and inputs is not None:
+        c = inputs[len(stacks) - 1]
+    out["xf"] = c
+    out["tf"] = _bf(_pad_cl(F.leaky_relu(c, s), (fw.shape[0] - 1) // 2, mode))
+    out["y"] = torch.tanh(_conv_cl(out["tf"], _bf(fw), _f32(fb), 1, t))
+    return out
+
+
+def melgan_stacks_reference_bf16(x, stacks, *, final=None, slope: float = 0.2,
+                                 pad_mode: str = "reflect"):
+    """Plain version of K6's bf16-resident mode (the JAX ``_kernel_stacks``
+    with ``mxu_bf16``, whose casts it copies: each product's operands
+    rounded to bf16, the products summed in float32, z, the stack's sum and
+    the chain between stacks float32): x (B, T, C) bf16 -> bf16 (B, T, C),
+    or (B, T, out) with ``final``. Exact products of bf16 values, so only
+    the order of the sums differs from the kernel."""
+    return stacks_forward_bf16(x, stacks, final, slope, pad_mode)["y"].to(torch.bfloat16)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernel
 # ---------------------------------------------------------------------------
@@ -99,8 +185,12 @@ def _check_cuda_inputs(x, stacks, final, pad_mode) -> None:
     if x.dim() != 3:
         raise ValueError(f"x must be (B, T, C), got shape {tuple(x.shape)}")
     b, t, c = x.shape
+    bf16 = x.dtype == torch.bfloat16
+    if bf16 and final is not None and not stacks:
+        raise ValueError("the bf16 mode runs the final conv after one stack at least")
     # x is read, and the output written, in 16-byte pieces
-    build.check_tensor("x", x, x.device, (b, t, c), align=16)
+    build.check_tensor("x", x, x.device, (b, t, c), align=16,
+                       dtypes=build.BF16 if bf16 else (torch.float32,))
     if c not in WIDTHS:
         raise ValueError(f"x width {c} is not a multiple of 16 up to 128")
     reflect = pad_mode == "reflect"
@@ -112,32 +202,35 @@ def _check_cuda_inputs(x, stacks, final, pad_mode) -> None:
         if reflect and (k - 1) // 2 * d >= t:
             raise ValueError(f"stacks[{i}]: reflect padding of {(k - 1) // 2 * d} "
                              f"needs more than that many samples, got T={t}")
-        if _kept(st):  # the kernel reads these alone; the split in 16-byte pieces
+        if _kept(st) and not bf16:  # the kernel reads these alone; the split in 16-byte pieces
             build.check_tensor(f"stacks[{i}].frag", st["frag"], x.device,
                                (k + 2, c // 8, c // 8, 32, 4), align=16)
             build.check_tensor(f"stacks[{i}].biases", st["biases"], x.device, (3, c))
         else:
-            _check_weights(i, st, x.device, c)
+            _check_weights(i, st, x.device, c, bf16)
     if final is not None:
         fw, fb = final
         kf, out_ch = fw.shape[0], fw.shape[-1]
+        kinds = build.EITHER if bf16 else (torch.float32,)
         if kf % 2 == 0:
             raise ValueError("final needs an odd kernel size")
         if reflect and (kf - 1) // 2 >= t:
             raise ValueError(f"final: reflect padding needs T > {(kf - 1) // 2}")
-        build.check_tensor("final w", fw, x.device, (kf, c, out_ch))
+        build.check_tensor("final w", fw, x.device, (kf, c, out_ch), dtypes=kinds)
         if fb is not None:
-            build.check_tensor("final b", fb, x.device, (out_ch,))
+            build.check_tensor("final b", fb, x.device, (out_ch,), dtypes=kinds)
 
 
-def _check_weights(i: int, st, device, c: int) -> None:
-    """Stack i's gather-form weights as the split kernel reads them."""
+def _check_weights(i: int, st, device, c: int, bf16: bool = False) -> None:
+    """Stack i's gather-form weights as the split kernel reads them (in the
+    bf16 mode float32 or bf16, as the layout rounds them)."""
     k = st["wd"].shape[0]
+    kinds = build.EITHER if bf16 else (torch.float32,)
     for key, shape in (("wd", (k, c, c)), ("w1", (1, c, c)), ("ws", (1, c, c))):
-        build.check_tensor(f"stacks[{i}].{key}", st[key], device, shape)
+        build.check_tensor(f"stacks[{i}].{key}", st[key], device, shape, dtypes=kinds)
     for key in ("bd", "b1", "bs"):
         if st[key] is not None:
-            build.check_tensor(f"stacks[{i}].{key}", st[key], device, (c,))
+            build.check_tensor(f"stacks[{i}].{key}", st[key], device, (c,), dtypes=kinds)
 
 
 def _packed_biases(stacks):
@@ -146,8 +239,8 @@ def _packed_biases(stacks):
     if not stacks:
         return []
     like = stacks[0]["wd"]
-    zero = torch.zeros(like.shape[-1], device=like.device, dtype=like.dtype)
-    parts = [zero if st[k] is None else st[k].detach()
+    zero = torch.zeros(like.shape[-1], device=like.device)
+    parts = [zero if st[k] is None else st[k].detach().float()
              for st in stacks for k in ("bd", "b1", "bs")]
     return list(torch.stack(parts).view(len(stacks), 3, -1))
 
@@ -210,6 +303,59 @@ def with_fragments(stacks):
     return [dict(st, frag=f, biases=bb) for st, f, bb in zip(stacks, frags, biases)]
 
 
+def kernel_weights_bf16(stacks) -> tuple:
+    """(fragments, biases): what the bf16 mode reads of each stack, its
+    weights rounded to bf16 in the mma fragments' order
+    (``mma_bf16.stack_forward_fragments``, (K + 2, C / 16, C / 8, 32, 4))
+    and its biases as one float32 (3, C) tensor; made once for all the
+    stacks, in PyTorch on either device."""
+    return mma_bf16.stack_forward_fragments(stacks), _packed_biases(stacks)
+
+
+def _run_cuda_bf16(x, stacks, final, slope: float, pad_mode: str, outs=None,
+                   split=None, keep_f32: bool = False):
+    """``_run_cuda``'s bf16-resident mode: x bf16; the chain between the
+    launches float32 (as the JAX kernel keeps it); the stage's output bf16,
+    or float32 with ``keep_f32`` (K7's re-run, whose backward reads the
+    unrounded values). ``split`` is ``kernel_weights_bf16(stacks)``."""
+    lib = build.load()
+    dev, stream = build.launch_target(x)
+    mode = _MODES[pad_mode][1]
+    b, t, c = x.shape
+    frags, biases = kernel_weights_bf16(stacks) if split is None else split
+    last = len(stacks) - 1
+    n_bufs = len(stacks) if outs is not None else min(2, len(stacks))
+    bufs = [torch.empty(x.shape, device=x.device) for _ in range(n_bufs)]
+    src, slope_x = x, mma_bf16.slope_of(slope)
+    for i, st in enumerate(stacks):
+        out_bf16 = i == last and final is None and not keep_f32
+        dst = torch.empty_like(x) if out_bf16 else bufs[i % n_bufs]
+        lib.call("melgan_stack_bf16", src.data_ptr(), dst.data_ptr(), frags[i].data_ptr(),
+                 biases[i].data_ptr(), b, t, c, st["wd"].shape[0], int(st["dilation"]),
+                 mode, slope, slope_x if i == 0 else slope, int(i == 0), int(out_bf16),
+                 dev, stream)
+        fused_melgan_stacks.launches += 1
+        fused_melgan_stacks.bf16_launches += 1
+        src = dst
+    if outs is not None:
+        outs.extend(bufs)
+    if final is None:
+        return src
+    fw, fb = final
+    out_ch = fw.shape[-1]
+    y = torch.empty((b, t, out_ch), device=x.device,
+                    dtype=torch.float32 if keep_f32 else torch.bfloat16)
+    # held until the launch is queued: a freed block would be reused at once
+    w = _bf(fw.detach()).contiguous()
+    bias = _bias(_f32(fb), out_ch, src).detach().contiguous()
+    lib.call("melgan_outconv_bf16", src.data_ptr(), y.data_ptr(), w.data_ptr(),
+             bias.data_ptr(), b, t, c, out_ch, fw.shape[0], mode, slope,
+             int(not keep_f32), dev, stream)
+    fused_melgan_stacks.launches += 1
+    fused_melgan_stacks.bf16_launches += 1
+    return y
+
+
 def _run_cuda(x, stacks, final, slope: float, pad_mode: str, outs=None, split=None):
     """One launch per stack (ping-pong between two buffers), then one for
     ``final``, on the current stream. ``split`` is ``kernel_weights(stacks)``,
@@ -250,12 +396,13 @@ def fused_melgan_stacks(x, stacks, *, final=None, slope: float = 0.2,
     act -> conv -> tanh: x (B, T, C) -> (B, T, C), or (B, T, out).
 
     A CUDA tensor goes through the hand-written kernel (C a multiple of 16
-    up to 128, odd kernel sizes, float32, contiguous, reflect padding
-    shorter than T; the split and biases of ``with_fragments`` used where
-    every stack has them) and raises on anything it does not take; a
-    CPU tensor goes through ``melgan_stacks_reference``.
+    up to 128, odd kernel sizes, float32 or bf16, contiguous, reflect
+    padding shorter than T; the split and biases of ``with_fragments`` used
+    where every stack has them and x is float32) and raises on anything it
+    does not take; a CPU tensor goes through ``melgan_stacks_reference``
+    (``melgan_stacks_reference_bf16`` for a bf16 x).
     ``fused_melgan_stacks.calls`` counts the calls that ran the kernel,
-    ``.launches`` its launches.
+    ``.launches`` its launches, ``.bf16_launches`` those in the bf16 mode.
     """
     if torch.is_grad_enabled():  # decode runs without: skip gathering the tensors
         build.refuse_training(
@@ -263,16 +410,19 @@ def fused_melgan_stacks(x, stacks, *, final=None, slope: float = 0.2,
             [x] + [st[k] for st in stacks for k in ("wd", "bd", "w1", "b1", "ws", "bs")]
             + (list(final) if final is not None else []))
     _pad_mode(pad_mode)
+    bf16 = x.dtype == torch.bfloat16
     if x.device.type == "cpu":
-        return melgan_stacks_reference(x, stacks, final=final, slope=slope,
-                                       pad_mode=pad_mode)
+        fn = melgan_stacks_reference_bf16 if bf16 else melgan_stacks_reference
+        return fn(x, stacks, final=final, slope=slope, pad_mode=pad_mode)
     if x.device.type != "cuda":
         raise ValueError(f"fused_melgan_stacks: unsupported device {x.device}")
     _check_cuda_inputs(x, stacks, final, pad_mode)
-    out = _run_cuda(x, stacks, final, slope, pad_mode)
+    run = _run_cuda_bf16 if bf16 else _run_cuda
+    out = run(x, stacks, final, slope, pad_mode)
     fused_melgan_stacks.calls += 1
     return out
 
 
 fused_melgan_stacks.calls = 0
 fused_melgan_stacks.launches = 0
+fused_melgan_stacks.bf16_launches = 0

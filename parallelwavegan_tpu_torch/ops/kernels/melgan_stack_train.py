@@ -27,22 +27,46 @@ path. K6 pads inside the kernel and K7 applies the padding's adjoint, so
 the gradient is exact over the whole sequence: the JAX wrapper's zero-pad
 core and its autodiff of the XLA twin on 3R-sample edge windows
 (:21-29, :403-408) are not carried over, and neither is ``t_tile``.
+
+A bf16 x runs the JAX kernel's bf16-resident mode (``mxu_bf16``,
+:253-289, with the shared ``_apply_conv_t``/``_conv_wgrads`` of
+tade_train.py:173-210): K6's bf16 mode forward (and re-run), and a
+backward whose products take bf16 operands where JAX casts them (the
+cotangents dz and g, the padded leaky(x), leaky(z), x and the weights)
+and sum in float32; the bias gradients sum the unrounded cotangents; dx
+comes back bf16 and every weight gradient in its weight's type, as
+JAX's ``_core_bwd`` casts them (:363-371). Its plain version is
+``melgan_stacks_backward_reference_bf16``, written with its own roundings
+(JAX's backward rounds dz and the weights again, which autograd of the
+bf16 forward would not); on the card K7's bf16 mode. The padding's
+adjoint, which JAX leaves to its XLA twin on the edge windows, sums the
+cotangent rows that the padded positions read in float32 and rounds the
+sum once, per tap, as one more operand row of the transposed conv.
 """
 
 from __future__ import annotations
 
-import torch
+import functools
 
-from parallelwavegan_tpu_torch.ops.kernels import build
+import torch
+import torch.nn.functional as F
+
+from parallelwavegan_tpu_torch.ops.kernels import build, mma_bf16
 from parallelwavegan_tpu_torch.ops.kernels.tf32x3 import stack_fragments
 from parallelwavegan_tpu_torch.ops.kernels.melgan_stack import (
     _MODES,
+    _bf,
     _bias,
     _check_cuda_inputs,
+    _f32,
     _pad_mode,
     _run_cuda,
+    _run_cuda_bf16,
     kernel_weights,
+    kernel_weights_bf16,
     melgan_stacks_reference,
+    melgan_stacks_reference_bf16,
+    stacks_forward_bf16,
 )
 
 STACK_KEYS = ("wd", "bd", "w1", "b1", "ws", "bs")
@@ -75,6 +99,102 @@ def melgan_stacks_backward_reference(x, stacks, final, slope, pad_mode, dy):
     return dx, dstacks, dfinal
 
 
+def _dleaky(v, slope: float):
+    """1 at v >= 0, else slope (the JAX kernels' _dleaky)."""
+    return torch.where(v >= 0, 1.0, slope)
+
+
+def _fold(e, pad: int, t: int, mode: str):
+    """The padding's adjoint of the cotangents e (B, t + 2 pad, C) of the
+    padded positions -pad .. t + pad - 1, the interior left out: at each
+    row of x, the float32 sum of the rows of the positions that read it
+    (``mode`` is torch's pad name)."""
+    out = e.new_zeros(e.shape[0], t, e.shape[2])
+    if pad == 0 or mode == "constant":
+        return out
+    left, right = e[:, :pad], e[:, pad + t:]
+    if mode == "reflect":  # -j reads row j, t + j reads row t - 2 - j
+        out[:, 1:pad + 1] += left.flip(1)
+        out[:, t - 1 - pad:t - 1] += right.flip(1)
+    else:  # replicate: rows 0 and t - 1
+        out[:, 0] += left.sum(1)
+        out[:, t - 1] += right.sum(1)
+    return out
+
+
+def _conv_t_bf16(g, w, dil: int, pad: int, mode: str):
+    """The transposed conv of g (B, T, Cout) through w (K, Cin, Cout) in the
+    bf16 mode: sum over taps k of bf16(G_k) . bf16(w[k])^T, where G_k's row
+    t is g[t + pad - k dil] and, as an operand row of its own, the float32
+    sum of the rows that tap k reads for the padded positions folded onto
+    t (``_fold``); each rounded to bf16 once."""
+    t = g.shape[1]
+    wb = _bf(w)
+    gp = F.pad(g, (0, 0, 2 * pad, 2 * pad))
+    out = None
+    for k in range(w.shape[0]):
+        s = k * dil - pad  # tap k at output row u reads padded position u + s
+        e = gp[:, pad - s:pad - s + t + 2 * pad]  # e[:, q + pad] = g[q - s]
+        wt = wb[k].transpose(0, 1)
+        term = _bf(e[:, pad:pad + t]) @ wt + _bf(_fold(e, pad, t, mode)) @ wt
+        out = term if out is None else out + term
+    return out
+
+
+def _wgrad_bf16(tp, g, dil: int, t: int, k: int):
+    """(K, Cin, Cout): sum over rows of bf16 operands, tap k's rows of the
+    padded input tp (already rounded) against bf16(g)."""
+    gb = _bf(g)
+    return torch.stack([torch.einsum("btc,bto->co", tp[:, i * dil:i * dil + t], gb)
+                        for i in range(k)])
+
+
+def melgan_stacks_backward_reference_bf16(x, stacks, final, slope, pad_mode, dy,
+                                          inputs=None):
+    """Plain backward of K6's bf16-resident mode (the JAX
+    ``_kernel_stacks_bwd`` with ``mxu_bf16``): (dx bf16, dstacks, dfinal)
+    with float32 weight gradients, for the bf16 cotangent dy of the stage's
+    output; a bias that is None gets None. Every product rounds its
+    operands to bf16 where JAX casts them and sums in float32; the bias
+    gradients are sums of the unrounded cotangents. ``inputs`` as
+    ``stacks_forward_bf16`` takes them (K7's re-run's, to hold its backward
+    stack by stack)."""
+    mode = _pad_mode(pad_mode)
+    t = x.shape[1]
+    fwd = stacks_forward_bf16(x, stacks, final, slope, pad_mode, inputs)
+    dfinal = None
+    if final is not None:
+        fw, fb = final
+        y = fwd["y"]
+        dpre = dy.float() * (1 - y * y)
+        dfinal = (_wgrad_bf16(fwd["tf"], dpre, 1, t, fw.shape[0]),
+                  None if fb is None else dpre.sum((0, 1)))
+        g = _conv_t_bf16(dpre, fw, 1, (fw.shape[0] - 1) // 2, mode) * _dleaky(
+            fwd["xf"], slope)
+    else:
+        g = dy.float()
+    dstacks = [None] * len(stacks)
+    for i in reversed(range(len(stacks))):
+        st = stacks[i]
+        k, d = st["wd"].shape[0], int(st["dilation"])
+        xi, z = fwd["xs"][i], fwd["zs"][i]
+        gb, db = _bf(g), g.sum((0, 1))
+        dz = (gb @ _bf(st["w1"][0]).transpose(0, 1)) * _dleaky(z, slope)
+        dstacks[i] = {
+            "wd": _wgrad_bf16(fwd["ts"][i], dz, d, t, k),
+            "bd": dz.sum((0, 1)),
+            "w1": torch.einsum("btc,bto->co", _bf(F.leaky_relu(z, slope)), gb)[None],
+            "b1": db,
+            "ws": torch.einsum("btc,bto->co", _bf(xi), gb)[None],
+            "bs": db.clone()}
+        for key in ("bd", "b1", "bs"):
+            if st[key] is None:
+                dstacks[i][key] = None
+        g = (_conv_t_bf16(dz, st["wd"], d, (k - 1) // 2 * d, mode) * _dleaky(xi, slope)
+             + gb @ _bf(st["ws"][0]).transpose(0, 1))
+    return g.to(torch.bfloat16), dstacks, dfinal
+
+
 def melgan_stacks_backward(x, stacks, final, slope, pad_mode, dy, fwd_split=None):
     """(dx, dstacks, dfinal) of one stage for the cotangent dy of its
     output; a bias that is None gets None. ``fwd_split`` is what K6's
@@ -87,18 +207,24 @@ def melgan_stacks_backward(x, stacks, final, slope, pad_mode, dy, fwd_split=None
     it does not take; ``melgan_stacks_backward.launches`` counts one per
     stack and one for ``final``. K6 re-runs the stage from x first (counted
     in ``fused_melgan_stacks.launches``). A CPU tensor goes through
-    ``melgan_stacks_backward_reference``.
+    ``melgan_stacks_backward_reference``. A bf16 x (and dy) runs the
+    bf16-resident mode (``melgan_stacks_backward_reference_bf16`` on the
+    CPU; ``.bf16_launches`` counts its launches on the card), dx bf16 and
+    the weight gradients float32; ``fwd_split`` is then
+    ``melgan_stack.kernel_weights_bf16(stacks)``.
     """
     _pad_mode(pad_mode)
+    bf16 = x.dtype == torch.bfloat16
     if x.device.type == "cpu":
-        return melgan_stacks_backward_reference(x, stacks, final, slope,
-                                                pad_mode, dy)
+        fn = melgan_stacks_backward_reference_bf16 if bf16 else melgan_stacks_backward_reference
+        return fn(x, stacks, final, slope, pad_mode, dy)
     if x.device.type != "cuda":
         raise ValueError(f"melgan_stacks_backward: unsupported device {x.device}")
     _check_cuda_inputs(x, stacks, final, pad_mode)
     b, t, c = x.shape
     out_ch = c if final is None else final[0].shape[-1]
-    build.check_tensor("dy", dy, x.device, (b, t, out_ch))
+    build.check_tensor("dy", dy, x.device, (b, t, out_ch),
+                       dtypes=build.BF16 if bf16 else (torch.float32,))
     for i, st in enumerate(stacks):
         if st["wd"].shape[0] > 7:
             raise ValueError(f"stacks[{i}]: K7 takes kernel sizes up to 7")
@@ -108,15 +234,31 @@ def melgan_stacks_backward(x, stacks, final, slope, pad_mode, dy, fwd_split=None
         return dy, [], None
     if dy.data_ptr() % 16:  # the stacks stage their rows in 16-byte pieces
         dy = dy.clone()
-    # the input of every stack and of the final conv, re-run through K6;
-    # with the final conv its output y too (its backward reads 1 - y^2)
+    return _backward_cuda(x, stacks, final, slope, pad_mode, dy, fwd_split)
+
+
+def _backward_cuda(x, stacks, final, slope, pad_mode, dy, fwd_split):
+    """K7 on the card (``melgan_stacks_backward``'s inputs, checked): K6
+    re-runs the stage from x, keeping every stack's input and, with the
+    final conv, its output y (float32 in the bf16 mode: its backward reads
+    the unrounded values); then one ``melgan_outconv_bwd`` call and one
+    ``melgan_stack_bwd`` call per stack in reverse, or their ``_bf16``
+    forms for a bf16 x (the weights rounded once into bf16 fragments,
+    the stage's dx bf16)."""
+    bf16 = x.dtype == torch.bfloat16
+    b, t, c = x.shape
+    out_ch = c if final is None else final[0].shape[-1]
     xs = [x]
-    fwd_frags, fwd_biases = kernel_weights(stacks) if fwd_split is None else fwd_split
-    if final is None:
-        _run_cuda(x, stacks[:-1], None, slope, pad_mode, xs,
-                  (fwd_frags[:-1], fwd_biases[:-1]))
+    if bf16:
+        split = kernel_weights_bf16(stacks) if fwd_split is None else fwd_split
+        rerun = functools.partial(_run_cuda_bf16, keep_f32=True)
     else:
-        y = _run_cuda(x, stacks, final, slope, pad_mode, xs, (fwd_frags, fwd_biases))
+        split = kernel_weights(stacks) if fwd_split is None else fwd_split
+        rerun = _run_cuda
+    if final is None:
+        rerun(x, stacks[:-1], None, slope, pad_mode, xs, (split[0][:-1], split[1][:-1]))
+    else:
+        y = rerun(x, stacks, final, slope, pad_mode, xs, split)
     lib = build.load()
     dev, stream = build.launch_target(x)
     mode = _MODES[pad_mode][1]
@@ -130,40 +272,53 @@ def melgan_stacks_backward(x, stacks, final, slope, pad_mode, dy, fwd_split=None
         raise ValueError(f"(B, T, C) = ({b}, {t}, {c}) needs too large a partial buffer")
     n_part = max(queries)
     part = torch.empty(n_part, device=x.device)
-    bufs = [torch.empty_like(x), torch.empty_like(x)]
+    bufs = [torch.empty(x.shape, device=x.device) for _ in range(2)]
+    suffix = "_bf16" if bf16 else ""
     g, n_out = dy, 0
     dfinal = None
     if final is not None:
         fw, fb = final
-        dw, db = torch.empty_like(fw), torch.empty(out_ch, device=x.device)
-        lib.call("melgan_outconv_bwd", xs[-1].data_ptr(), y.data_ptr(),
-                 dy.data_ptr(), bufs[0].data_ptr(), part.data_ptr(), fw.data_ptr(),
+        dw, db = torch.empty(fw.shape, device=x.device), torch.empty(out_ch, device=x.device)
+        w = _bf(fw.detach()).contiguous() if bf16 else fw  # held until the launch is queued
+        lib.call("melgan_outconv_bwd" + suffix, xs[-1].data_ptr(), y.data_ptr(),
+                 dy.data_ptr(), bufs[0].data_ptr(), part.data_ptr(), w.data_ptr(),
                  dw.data_ptr(), db.data_ptr(), n_part, b, t, c, out_ch, kf, mode,
                  slope, dev, stream)
-        melgan_stacks_backward.launches += 1
+        _count(bf16)
         g, n_out = bufs[0], 1
         dfinal = (dw, None if fb is None else db)
-    dz, h = torch.empty_like(x), torch.empty_like(x)
-    frags = stack_fragments(stacks) if stacks else []
+    dz, h = torch.empty(x.shape, device=x.device), torch.empty(x.shape, device=x.device)
+    frags = (mma_bf16.stack_fragments if bf16 else stack_fragments)(stacks) if stacks else []
     dstacks = [None] * len(stacks)
     for i in reversed(range(len(stacks))):
         st = stacks[i]
-        dst = bufs[n_out % 2]
-        d = {k: torch.empty_like(st[k]) for k in ("wd", "w1", "ws")}
+        # the stage's dx in x's type; the stacks' between in float32
+        dst = torch.empty_like(x) if bf16 and i == 0 else bufs[n_out % 2]
+        d = {k: torch.empty(st[k].shape, device=x.device) for k in ("wd", "w1", "ws")}
         d.update({k: torch.empty(c, device=x.device) for k in ("bd", "b1", "bs")})
-        lib.call("melgan_stack_bwd", xs[i].data_ptr(), g.data_ptr(),
+        bd = _bias(_f32(st["bd"]), c, dz).detach().contiguous()
+        # the bf16 mode: x's LeakyReLU slope and whether x and g are bf16
+        extra = ((mma_bf16.slope_of(slope) if i == 0 else slope, int(i == 0),
+                  int(g is dy)) if bf16 else ())
+        lib.call("melgan_stack_bwd" + suffix, xs[i].data_ptr(), g.data_ptr(),
                  dst.data_ptr(), dz.data_ptr(), h.data_ptr(), part.data_ptr(),
-                 frags[i].data_ptr(), _bias(st["bd"], c, x).data_ptr(),
+                 frags[i].data_ptr(), bd.data_ptr(),
                  *(d[k].data_ptr() for k in STACK_KEYS), n_part, b, t, c,
-                 st["wd"].shape[0], int(st["dilation"]), mode, slope, dev, stream)
-        melgan_stacks_backward.launches += 1
+                 st["wd"].shape[0], int(st["dilation"]), mode, slope, *extra, dev, stream)
+        _count(bf16)
         dstacks[i] = {k: None if k[0] == "b" and st[k] is None else d[k]
                       for k in STACK_KEYS}
         g, n_out = dst, n_out + 1
     return g, dstacks, dfinal
 
 
+def _count(bf16: bool) -> None:
+    melgan_stacks_backward.launches += 1
+    melgan_stacks_backward.bf16_launches += int(bf16)
+
+
 melgan_stacks_backward.launches = 0
+melgan_stacks_backward.bf16_launches = 0
 
 
 class melgan_stacks_train(torch.autograd.Function):  # noqa: N801 (JAX name)
@@ -178,11 +333,16 @@ class melgan_stacks_train(torch.autograd.Function):  # noqa: N801 (JAX name)
         ctx.split = None
         stacks, final = _unflatten(meta, weights)
         slope, pad_mode = meta[2], meta[3]
+        bf16 = x.dtype == torch.bfloat16
         if x.device.type == "cpu":
-            return melgan_stacks_reference(x, stacks, final=final, slope=slope,
-                                           pad_mode=pad_mode)
+            fn = melgan_stacks_reference_bf16 if bf16 else melgan_stacks_reference
+            return fn(x, stacks, final=final, slope=slope, pad_mode=pad_mode)
         _check_cuda_inputs(x, stacks, final, pad_mode)
-        ctx.split = kernel_weights(stacks)  # the backward's re-run reads it too
+        # the backward's re-run reads the forward's weights too
+        if bf16:
+            ctx.split = kernel_weights_bf16(stacks)
+            return _run_cuda_bf16(x, stacks, final, slope, pad_mode, split=ctx.split)
+        ctx.split = kernel_weights(stacks)
         return _run_cuda(x, stacks, final, slope, pad_mode, split=ctx.split)
 
     @staticmethod
@@ -192,7 +352,9 @@ class melgan_stacks_train(torch.autograd.Function):  # noqa: N801 (JAX name)
         dx, dstacks, dfinal = melgan_stacks_backward(
             x, stacks, final, ctx.meta[2], ctx.meta[3], dy.contiguous(), ctx.split)
         grads = [d[k] for d in dstacks for k in STACK_KEYS] + list(dfinal or ())
-        return (dx, None, *grads)
+        # each gradient in its input's type, as JAX's _core_bwd casts them
+        grads = [None if g is None else g.to(w.dtype) for g, w in zip(grads, weights)]
+        return (dx.to(x.dtype), None, *grads)
 
 
 def _unflatten(meta, weights):

@@ -1,0 +1,81 @@
+"""bf16 tensor-core products on the host side: the weight layouts that the
+bf16-resident modes of the MelGAN stack kernels read (K6 in
+csrc/melgan_stack.cu, K7 in csrc/melgan_stack_bwd.cu, both through
+csrc/mma_bf16.cuh).
+
+The JAX kernels' bf16 mode (``mxu_bf16``) casts every dot operand to
+bf16 and accumulates in float32. Here the weights are rounded to bf16 once
+(to nearest even, as ``astype(bfloat16)``) and stored in the order in
+which ``mma.sync.m16n8k16`` takes its B operand, so that a lane loads its
+two B registers with one 8-byte load; the activations are rounded where a
+kernel forms a fragment.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def fragments(wk):
+    """A (..., K, N) product operand (a stack of them), K a multiple of 16
+    and N of 8, rounded to bf16 and laid out as the B operands of m16n8k16
+    bf16 products: (..., K / 16, N / 8, 32, 4) bf16, entry [ks, nt, lane]
+    = (wk[16 ks + 2 tig, 8 nt + gid], wk[.. + 1, ..], wk[.. + 8, ..],
+    wk[.. + 9, ..]) with lane = 4 gid + tig."""
+    *lead, k, n = wk.shape
+    d = len(lead)
+    if k % 16 or n % 8:
+        raise ValueError(f"bf16 fragments need a depth of a multiple of 16 and a "
+                         f"width of a multiple of 8, got {tuple(wk.shape)}")
+    # (ks, half, tig, pair, nt, gid) -> (ks, nt, gid, tig, half, pair)
+    x = wk.detach().to(torch.bfloat16).reshape(*lead, k // 16, 2, 4, 2, n // 8, 8)
+    x = x.permute(*range(d), d, d + 4, d + 5, d + 2, d + 1, d + 3)
+    return x.reshape(*lead, k // 16, n // 8, 32, 4).contiguous()
+
+
+def _check(stacks):
+    for st in stacks:
+        wd, w1, ws = (st[k] for k in ("wd", "w1", "ws"))
+        c = wd.shape[-1]
+        if (c % 16 or wd.dim() != 3 or wd.shape[1] != c
+                or tuple(w1.shape) != (1, c, c) or tuple(ws.shape) != (1, c, c)):
+            raise ValueError(f"bf16 stack fragments need wd (K, C, C), w1 and ws (1, C, "
+                             f"C), C a multiple of 16, got {tuple(wd.shape)}, "
+                             f"{tuple(w1.shape)}, {tuple(ws.shape)}")
+
+
+def stack_forward_fragments(stacks):
+    """K6's bf16 weights of MelGAN ResidualStacks of one width C, one tensor
+    per stack: its K + 2 matrices Wd[k], W1 and Ws (the order of
+    ``tf32x3.stack_forward_fragments``) in ``fragments``' layout, (K + 2, C
+    / 16, C / 8, 32, 4) bf16; all stacks in one pass, views of one
+    tensor."""
+    if not stacks:
+        return []
+    _check(stacks)
+    mats = [m for st in stacks for m in (st["wd"], st["w1"], st["ws"])]
+    f = fragments(torch.cat([m.detach() for m in mats]))
+    return list(f.split([st["wd"].shape[0] + 2 for st in stacks]))
+
+
+def stack_fragments(stacks):
+    """K7's bf16 weights of MelGAN ResidualStacks of one width C, one tensor
+    per stack: its 2K + 2 matrices Wd[k], W1^T, Wd[k]^T and Ws^T (the order
+    of ``tf32x3.stack_fragments``) in ``fragments``' layout, (2K + 2, C /
+    16, C / 8, 32, 4) bf16."""
+    if not stacks:
+        return []
+    _check(stacks)
+    mats = []
+    for st in stacks:
+        wd, w1, ws = (st[k].detach() for k in ("wd", "w1", "ws"))
+        mats += [wd, w1.transpose(1, 2), wd.transpose(1, 2), ws.transpose(1, 2)]
+    f = fragments(torch.cat(mats))
+    return list(f.split([2 * st["wd"].shape[0] + 2 for st in stacks]))
+
+
+def slope_of(slope: float) -> float:
+    """The slope with which LeakyReLU multiplies a bf16 value in the JAX
+    package (``_leaky``: ``x * jnp.asarray(slope, x.dtype)``): slope
+    rounded to bf16."""
+    return float(torch.tensor(slope, dtype=torch.float64).to(torch.bfloat16))

@@ -28,7 +28,12 @@ and its kernel sources are the ones timed (a parent commit unpacked with
 - K7 (``melgan_stacks_backward``, K6's re-run included) at the same
   stages and weights, beside ``melgan_stacks_backward_reference``, per
   stage and summed over the three (one G step's backward), with the
-  device time by kernel of one call per stage.
+  device time by kernel of one call per stage;
+- where the tree has them, K6's and K7's bf16-resident modes (mixed
+  precision: a bf16 input, the same weights) at the same stages, beside
+  their bf16 plain versions (``melgan_stacks_reference_bf16``,
+  ``melgan_stacks_backward_reference_bf16``), per stage and summed; the
+  float32 times above are the float32 kernels' on the same shapes.
 
 Prints the card (``nvidia-smi``) and one JSON line of the times in ms.
 """
@@ -64,8 +69,8 @@ def short_name(key: str) -> str:
     """A profiler kernel name without return type, namespaces and
     parameters: "void (anonymous namespace)::dz_kernel<128>((anonymous
     namespace)::StackArgs)" -> "dz_kernel<128>"; template arguments are
-    kept only when they are plain numbers (PyTorch's own kernels get
-    "<...>")."""
+    kept only when they are plain numbers or bools (PyTorch's own kernels
+    get "<...>")."""
     name = re.sub(r"^void ", "", key.replace("(anonymous namespace)::", ""))
     depth = 0
     for i, ch in enumerate(name):
@@ -77,7 +82,8 @@ def short_name(key: str) -> str:
     base = base.split("::")[-1]
     if not args:
         return base
-    return f"{base}<{args}" if re.fullmatch(r"[\d, ]+>", args) else f"{base}<...>"
+    plain = re.fullmatch(r"(?:\d+|true|false)(?:, (?:\d+|true|false))*>", args)
+    return f"{base}<{args}" if plain else f"{base}<...>"
 
 
 def by_kernel(prof) -> dict:
@@ -215,6 +221,17 @@ def _training(out: dict, smoke, randn) -> None:
         melgan_stacks_backward_reference,
     )
 
+    try:  # the bf16 modes, where the tree has them
+        from parallelwavegan_tpu_torch.ops.kernels.melgan_stack import (
+            melgan_stacks_reference_bf16,
+        )
+        from parallelwavegan_tpu_torch.ops.kernels.melgan_stack_train import (
+            melgan_stacks_backward_reference_bf16,
+        )
+    except ImportError:
+        melgan_stacks_reference_bf16 = None
+    fwd16, bwd16 = {}, {}
+
     gp = smoke.V1_MELGAN_CONFIG["generator_params"]
     b, t = smoke.V1_MELGAN_CONFIG["batch_size"], smoke.V1_MELGAN_CONFIG["batch_max_steps"]
     dils = [gp["stack_kernel_size"] ** j for j in range(gp["stacks"])]
@@ -242,6 +259,26 @@ def _training(out: dict, smoke, randn) -> None:
                 x, stacks, fin, 0.2, "reflect", dy)),
             "by_kernel": profile_by_kernel(lambda: melgan_stacks_backward(x, stacks, fin, 0.2,
                                                                  "reflect", dy))}
+        if melgan_stacks_reference_bf16 is None:
+            continue
+        xb, dyb = x.to(torch.bfloat16), dy.to(torch.bfloat16)
+        with torch.inference_mode():
+            fwd16[name] = {
+                "ms": _median_ms(lambda: fused_melgan_stacks(xb, stacks, final=fin)),
+                "plain_ms": _median_ms(lambda: melgan_stacks_reference_bf16(
+                    xb, stacks, final=fin))}
+        bwd16[name] = {
+            "ms": _median_ms(lambda: melgan_stacks_backward(xb, stacks, fin, 0.2,
+                                                            "reflect", dyb)),
+            "plain_ms": _median_ms(lambda: melgan_stacks_backward_reference_bf16(
+                xb, stacks, fin, 0.2, "reflect", dyb))}
+    if fwd16:
+        out["bf16"] = {
+            "k6_train_forward": fwd16, "stages": bwd16,
+            "k6_train_forward_ms": sum(v["ms"] for v in fwd16.values()),
+            "k6_train_forward_plain_ms": sum(v["plain_ms"] for v in fwd16.values()),
+            "g_step_ms": sum(v["ms"] for v in bwd16.values()),
+            "g_step_plain_ms": sum(v["plain_ms"] for v in bwd16.values())}
     out["k6_train_forward"] = fwd
     out["k6_train_forward_ms"] = sum(s["ms"] for s in fwd.values())
     out["k6_train_forward_plain_ms"] = sum(s["plain_ms"] for s in fwd.values())

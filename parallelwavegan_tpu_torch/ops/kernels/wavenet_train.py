@@ -21,6 +21,14 @@ call of four CUDA kernels per layer, their products on the tensor cores
 in split TF32); for a CPU tensor it runs
 ``wavenet_stack_backward_reference``. A CUDA tensor never takes the plain
 path.
+
+Under mixed precision (a bf16 x) it computes as the JAX package's K3/K4
+path does with its default ``compute_dtype`` (float32): the chunk's inputs,
+weights and cotangents are widened to float32 and run through the float32
+kernels (wavenet_stack_train.py:223-238), the outputs come back in x's
+type (wavenet_stack.py:269-271), and dx, dc and the weight gradients in
+their inputs' types (:361-362). The bf16 mode of K3/K4
+(``pallas_stack_bf16``) is not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -118,24 +126,40 @@ class wavenet_stack_train(torch.autograd.Function):  # noqa: N801 (JAX name)
 
     @staticmethod
     def forward(ctx, x, c, dilations, *weights):
-        w = dict(zip(WEIGHT_KEYS, weights))
         ctx.dilations = dilations
         ctx.frag = None
         ctx.save_for_backward(x, c, *weights)
+        out_type = x.dtype
+        x, c, weights = _widened(x, c, weights)
+        w = dict(zip(WEIGHT_KEYS, weights))
         if _device_of(x, "wavenet_stack_train") == "cpu":
-            return wavenet_stack_reference(x, c, w, dilations)
-        _check_cuda_inputs(x, c, w, len(dilations))
-        w = with_fragments(w)
-        ctx.frag = w["frag"]
-        return _run_layers(x, c, w, dilations, False, fused_wavenet_stack)
+            outs = wavenet_stack_reference(x, c, w, dilations)
+        else:
+            _check_cuda_inputs(x, c, w, len(dilations))
+            w = with_fragments(w)
+            ctx.frag = w["frag"]
+            outs = _run_layers(x, c, w, dilations, False, fused_wavenet_stack)
+        return tuple(v.to(out_type) for v in outs)
 
     @staticmethod
     def backward(ctx, dxo, dsk):
-        x, c, *weights = ctx.saved_tensors
+        saved = ctx.saved_tensors
+        x, c, weights = _widened(saved[0], saved[1], saved[2:])
         dx, dc, dw = wavenet_stack_backward(
             x, c, dict(zip(WEIGHT_KEYS, weights), frag=ctx.frag), ctx.dilations,
-            dxo.contiguous(), dsk.contiguous())
-        return (dx, dc, None, *(dw[k] for k in WEIGHT_KEYS))
+            dxo.float().contiguous(), dsk.float().contiguous())
+        grads = (dx, dc, *(dw[k] for k in WEIGHT_KEYS))
+        # each in its input's type, as JAX's _train_bwd casts them
+        return tuple(g.to(v.dtype) for g, v in zip(grads[:2], saved[:2])) + (None,) + tuple(
+            g.to(v.dtype) for g, v in zip(grads[2:], saved[2:]))
+
+
+def _widened(x, c, weights):
+    """(x, c, weights) in float32: JAX's K3/K4 compute a bf16 chunk in
+    float32 (``compute_dtype``)."""
+    if x.dtype != torch.bfloat16:
+        return x, c, weights
+    return x.float(), c.float(), [w.float() for w in weights]
 
 
 def fused_wavenet_cycle_train(x, c, weights, dilations, *,

@@ -61,7 +61,9 @@ class PQMF:
 
     The default (taps 62, cutoff 0.142, beta 9.0) is the reference's tuning
     for 4 subbands. The filters are kept as float32 tensors and moved to
-    the input's device on first use there.
+    the input's device on first use there; a bf16 input (mixed precision)
+    is filtered by them cast to bf16, as the JAX package casts them to the
+    input's type.
     """
 
     def __init__(self, subbands: int = 4, taps: int = 62,
@@ -89,7 +91,7 @@ class PQMF:
     def analysis(self, x: torch.Tensor) -> torch.Tensor:
         """Split (B, T, 1) into subband signals (B, T // subbands, subbands)."""
         h, _, _ = self._on(x.device)
-        y = F.conv1d(x.transpose(1, 2), h, stride=self.subbands,
+        y = F.conv1d(x.transpose(1, 2), h.to(x.dtype), stride=self.subbands,
                      padding=self.taps // 2)
         return y.transpose(1, 2)
 
@@ -98,6 +100,6 @@ class PQMF:
         zero-stuffing transposed conv (x subbands gain), then the
         synthesis filter."""
         _, g, updown = self._on(x.device)
-        y = F.conv_transpose1d(x.transpose(1, 2), updown, stride=self.subbands)
-        y = F.conv1d(y, g, padding=self.taps // 2)
+        y = F.conv_transpose1d(x.transpose(1, 2), updown.to(x.dtype), stride=self.subbands)
+        y = F.conv1d(y, g.to(x.dtype), padding=self.taps // 2)
         return y.transpose(1, 2)

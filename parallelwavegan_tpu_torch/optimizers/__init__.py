@@ -104,6 +104,11 @@ class _OptaxChain(torch.optim.Optimizer):
         params = [p for g in self.param_groups for p in g["params"]
                   if p.grad is not None]
         grads = [p.grad for p in params]
+        for p, g in zip(params, grads):  # mixed precision's casts give float32 back
+            if g.dtype != p.dtype or p.dtype == torch.bfloat16:
+                raise TypeError(f"a {g.dtype} gradient of a {p.dtype} parameter: the "
+                                "master parameters, their gradients and the optimizer "
+                                "state are float32")
         if self.grad_norm and self.grad_norm > 0:
             norm = global_norm(grads)
             if not bool(norm < self.grad_norm):

@@ -35,6 +35,18 @@ seeded by (seed, step, stream) alone (``seeded``), so a resumed run draws
 what the uninterrupted run drew at the same step. A batch that holds
 ``z`` or ``rwd_starts_adv`` / ``_fm`` / ``_real`` / ``_fake`` pins them
 instead, as JAX's step.py:46-50, :288 and :338-340 take them.
+
+With ``mixed_precision: true`` the step runs JAX's mixed form
+(step.py:182-205, :247-341; ``train/precision.py``): each phase's
+parameters are cast to bf16 at use and the module runs on those copies,
+the batch is cast to bf16 (StyleMelGAN's noise is drawn in the mel's
+type, bf16, inside the generator, or cast with the batch where the batch
+holds it), and G's output and D's outputs and features go back to float32
+before any loss. The G phase casts D's parameters without grad (it takes
+no gradient of them); the D phase's re-run of G casts G's updated ones.
+The master parameters, the optimizer state, the losses and spectral
+norm's (u, v) stay float32. ``eval_step`` runs in float32, as JAX's
+does.
 """
 
 from __future__ import annotations
@@ -42,6 +54,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from parallelwavegan_tpu_torch.train import precision
 from parallelwavegan_tpu_torch.train.criterion import Criterion
 
 
@@ -70,38 +83,40 @@ def seeded(device, *keys: int) -> torch.Generator:
 
 
 def generator_forward(config: dict, generator, batch: dict,
-                      draws: tuple = ()) -> torch.Tensor:
+                      draws: tuple = (), params: dict | None = None) -> torch.Tensor:
     """The generator's output (B, out, T) for a batch (train.py:1109-1117
     feature flags: Parallel WaveGAN takes noise and the mel, MelGAN and
     HiFi-GAN the mel alone, as JAX's step.py:83-84; StyleMelGAN the mel
     and ``batch["z"]`` where the batch has it, else z drawn on the batch's
     device from a generator seeded by ``draws``, e.g. (seed, step,
-    stream))."""
+    stream)). ``params`` (``precision.bf16_params``) stand in for the
+    generator's own."""
     gen_type = config["generator_type"]
     if gen_type == "ParallelWaveGANGenerator":
-        return generator(batch["z"], batch["c"])
+        return precision.call(generator, params, batch["z"], batch["c"])
     if gen_type in ("MelGANGenerator", "HiFiGANGenerator"):
-        return generator(batch["c"])
+        return precision.call(generator, params, batch["c"])
     if gen_type == "StyleMelGANGenerator":
         z = batch.get("z")
         noise = None if z is not None else seeded(batch["c"].device, *draws)
-        return generator(batch["c"], z, generator=noise)
+        return precision.call(generator, params, batch["c"], z, generator=noise)
     raise NotImplementedError(
         f"training {gen_type} is not ported to parallelwavegan_tpu_torch yet; "
         "see ROADMAP.md")
 
 
 def discriminator_forward(config: dict, discriminator, y, batch: dict, key: str,
-                          draws: tuple = ()):
+                          draws: tuple = (), params: dict | None = None):
     """The discriminator's output for y; StyleMelGAN's windows start at
     ``batch["rwd_starts_" + key]`` where the batch has it, else are drawn
-    from a CPU generator seeded by ``draws``."""
+    from a CPU generator seeded by ``draws``. ``params``
+    (``precision.bf16_params``) stand in for the discriminator's own."""
     if config["discriminator_type"] == "StyleMelGANDiscriminator":
         starts = batch.get(f"rwd_starts_{key}")
         if starts is not None:
-            return discriminator(y, starts.tolist())
-        return discriminator(y, generator=seeded("cpu", *draws))
-    return discriminator(y)
+            return precision.call(discriminator, params, y, starts.tolist())
+        return precision.call(discriminator, params, y, generator=seeded("cpu", *draws))
+    return precision.call(discriminator, params, y)
 
 
 def aux_losses(criterion: Criterion, y_, y, metrics: dict):
@@ -160,24 +175,44 @@ class TrainStep:
         self.update_prediction = config.get(
             "update_prediction_after_generator_update", True)
         self.seed = config.get("seed", 0)
+        self.mixed = bool(config.get("mixed_precision", False))
+
+    def _cast(self, module, grad: bool = True):
+        """The module's bf16 parameters under mixed precision, else None
+        (its own); made without grad where no gradient of them is taken."""
+        if not self.mixed:
+            return None
+        with torch.set_grad_enabled(grad and torch.is_grad_enabled()):
+            return precision.bf16_params(module)
 
     def __call__(self, batch: dict, train_g: bool, train_d: bool, step: int = 0) -> dict:
         crit, metrics, cfg = self.criterion, {}, self.config
         y, y_ = batch["y"], None
+        mixed = self.mixed
+        batch_c = precision.to_bf16(batch) if mixed else batch
 
-        def dis(v, key, stream):
-            return discriminator_forward(cfg, self.discriminator, v, batch, key,
-                                         (self.seed, step, stream))
+        def dis(v, key, stream, params):
+            out = discriminator_forward(cfg, self.discriminator,
+                                        precision.to_bf16(v) if mixed else v, batch, key,
+                                        (self.seed, step, stream), params)
+            return precision.to_f32(out) if mixed else out
+
+        def gen(stream, params):
+            out = generator_forward(cfg, self.generator, batch_c, (self.seed, step, stream),
+                                    params)
+            return precision.to_f32(out) if mixed else out
 
         if train_g:
-            y_ = generator_forward(cfg, self.generator, batch, (self.seed, step, NOISE_G))
+            y_ = gen(NOISE_G, self._cast(self.generator))
             gen_loss = aux_losses(crit, y_, y, metrics) * crit.lambda_aux
             if train_d:
+                p_d = self._cast(self.discriminator, grad=False)
+
                 def real_features():  # detached by the loss: no graph needed
                     with torch.no_grad():  # the same windows, as JAX's rng_gd
-                        return dis(y, "fm", STARTS_ADV)
+                        return dis(y, "fm", STARTS_ADV, p_d)
 
-                adv_loss = adv_losses(crit, dis(y_, "adv", STARTS_ADV),
+                adv_loss = adv_losses(crit, dis(y_, "adv", STARTS_ADV, p_d),
                                        real_features, metrics)
                 gen_loss = gen_loss + crit.lambda_adv * adv_loss
             metrics["generator_loss"] = gen_loss
@@ -186,10 +221,10 @@ class TrainStep:
         if train_d:
             if self.update_prediction or not train_g:
                 with torch.no_grad():
-                    y_ = generator_forward(cfg, self.generator, batch,
-                                           (self.seed, step, NOISE_D))
-            p = dis(y, "real", STARTS_REAL)
-            p_ = dis(y_, "fake", STARTS_FAKE)
+                    y_ = gen(NOISE_D, self._cast(self.generator))
+            p_d = self._cast(self.discriminator)
+            p = dis(y, "real", STARTS_REAL, p_d)
+            p_ = dis(y_, "fake", STARTS_FAKE, p_d)
             real_loss, fake_loss = crit.dis_adv(p_, p)
             dis_loss = real_loss + fake_loss
             _update(self.opt_d, self.d_params, dis_loss)

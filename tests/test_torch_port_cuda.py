@@ -903,6 +903,203 @@ def test_melgan_backward_rejects_unsupported_input(cuda):
                                None, 0.2, "reflect", dy[:, :9])
 
 
+# ---------------------------------------------------------------------------
+# bf16-resident modes of K6 and K7 (mixed_precision training)
+# ---------------------------------------------------------------------------
+
+
+def _bf16_close(got, want) -> bool:
+    """The bf16 modes' bound against their plain versions: rms|diff| <=
+    1e-3 rms|plain| and max|diff| <= 1e-2 max|plain|. Both round the same
+    operands to bf16 and add exact products in float32, in other orders, so
+    they part where a float32 value sits within that difference of a bf16
+    rounding point: one bf16 step (2^-8) in one operand, which the chain of
+    stacks spreads (measured up to 2.8e-4 rms at C = 128, three stacks of
+    gain one, on an H100). A rounding missed, added or truncated moves every
+    value coherently: the float32 kernel, or weights cut to bf16 by
+    truncation, differ by about 2e-3 to 4e-3 rms."""
+    d, w = (got.float() - want.float()), want.float()
+    return (float(d.pow(2).mean().sqrt()) <= 1e-3 * float(w.pow(2).mean().sqrt())
+            and float(d.abs().max()) <= 1e-2 * float(w.abs().max()))
+
+
+def _as(stacks, final, dtype):
+    sts = [{k: v.to(dtype) if torch.is_tensor(v) else v for k, v in st.items()}
+           for st in stacks]
+    fin = None if final is None else tuple(None if v is None else v.to(dtype)
+                                           for v in final)
+    return sts, fin
+
+
+def _kernel_chain(x, stacks, final, mode):
+    """The inputs of stacks 1, 2, .. and of the final conv (or the stage's
+    output) as K6's bf16 mode computes them in float32 (K7's re-run)."""
+    xs = []
+    with torch.no_grad():
+        stack_mod._run_cuda_bf16(x, stacks, final, 0.2, mode, outs=xs, keep_f32=True)
+    return xs
+
+
+def _off_the_kinks_bf16(x, stacks, final, mode, seed):
+    """x (bf16) with its rows moved (0.05 N(0, 1) added, rounded again)
+    where K6's bf16 chain puts an input of LeakyReLU computed in float32 (a
+    later stack's input, each z, the final conv's input) within 1e-5 of its
+    rms of the kink (``_off_the_kinks``); the stage input, bf16, has an
+    exact sign."""
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    for _ in range(50):
+        with torch.no_grad():
+            fwd = stack_mod.stacks_forward_bf16(x, stacks, final, 0.2, mode,
+                                                _kernel_chain(x, stacks, final, mode))
+        vals = fwd["xs"][1:] + fwd["zs"] + ([fwd["xf"]] if final is not None else [])
+        near = torch.zeros(x.shape[:2], dtype=torch.bool, device=x.device)
+        for v in vals:
+            near.logical_or_((v.abs() < 1e-5 * v.pow(2).mean().sqrt()).any(2))
+        rows = near.nonzero()
+        if len(rows) == 0:
+            return x
+        x = x.float()
+        x[rows[:, 0], rows[:, 1]] += 0.05 * torch.randn(
+            len(rows), x.shape[2], generator=g, device=x.device)
+        x = x.to(torch.bfloat16)
+    raise AssertionError("could not move the input off the kinks of LeakyReLU")
+
+
+def _truncated(stacks):
+    """The stacks' weights cut to bf16 by truncation (a control)."""
+    return [{k: (v.view(torch.int32) & -65536).view(torch.float32)
+             if k in ("wd", "w1", "ws") else v for k, v in st.items()} for st in stacks]
+
+
+# MelGAN v1's widths (128; 64 and 32 with the final conv to 1), ragged
+# replicate and zero cases, MB-MelGAN v2's 96 without biases, the narrowest
+# (16, T below the pad), 80 and 112 (C not a multiple of 32); weights given
+# in float32 or bf16. The stage's float32 chain (the output K7's re-run
+# keeps) is held to the plain version's; the bf16 output is its rounding.
+@pytest.mark.parametrize("c,b,t,mode,out_ch,bias,wdtype", [
+    (128, 2, 1000, "reflect", None, True, torch.float32),
+    (64, 1, 777, "reflect", 1, True, torch.bfloat16),
+    (32, 2, 1000, "reflect", 1, True, torch.bfloat16),
+    (48, 2, 1000, "edge", 4, True, torch.float32),
+    (96, 1, 500, "constant", None, False, torch.bfloat16),
+    (16, 3, 5, "edge", 2, True, torch.float32),
+    (80, 1, 333, "edge", None, True, torch.float32),
+    (112, 1, 200, "reflect", None, True, torch.bfloat16)])
+def test_melgan_stacks_bf16_match_plain_version(cuda, c, b, t, mode, out_ch, bias, wdtype):
+    stacks = _on(_melgan_stacks(c, (1, 3, 9), seed=11, bias=bias, gain=1.0), cuda)
+    rs = np.random.RandomState(12)
+    final = None
+    if out_ch is not None:
+        final = (torch.from_numpy((rs.randn(7, c, out_ch) / (7 * c) ** 0.5)
+                                  .astype(np.float32)).to(cuda),
+                 torch.from_numpy(rs.randn(out_ch).astype(np.float32)).to(cuda)
+                 if bias else None)
+    x = torch.from_numpy(rs.randn(b, t, c).astype(np.float32)).to(cuda).to(torch.bfloat16)
+    sts, fin = _as(stacks, final, wdtype)
+    before = stack_mod.fused_melgan_stacks.bf16_launches
+    with torch.no_grad():
+        got = stack_mod.fused_melgan_stacks(x, sts, final=fin, pad_mode=mode)
+        chain = stack_mod._run_cuda_bf16(x, sts, fin, 0.2, mode, keep_f32=True)
+    torch.cuda.synchronize()
+    assert stack_mod.fused_melgan_stacks.bf16_launches == before + 2 * (3 + (final is not None))
+    assert got.dtype == torch.bfloat16 and torch.equal(got, chain.to(torch.bfloat16))
+    want = stack_mod.stacks_forward_bf16(x, sts, fin, 0.2, mode)["y"]
+    assert got.shape == want.shape
+    assert torch.equal(stack_mod.melgan_stacks_reference_bf16(x, sts, final=fin, pad_mode=mode),
+                       want.to(torch.bfloat16))
+    assert _bf16_close(chain, want), float((chain - want).abs().max())
+    # controls: the float32 kernel on the same values, and weights cut to
+    # bf16 by truncation in place of rounding
+    with torch.no_grad():
+        f32 = stack_mod.fused_melgan_stacks(x.float(), stacks, final=final, pad_mode=mode)
+        trunc = stack_mod._run_cuda_bf16(x, _truncated(stacks), final, 0.2, mode,
+                                         keep_f32=True)
+    assert not _bf16_close(f32, want) and not _bf16_close(trunc, want)
+
+
+# K7 is held stack by stack: its plain version takes the stacks' inputs
+# from K6's bf16 chain (``inputs``), as rounding flips in the chain would
+# otherwise move a z across LeakyReLU's kink
+@pytest.mark.parametrize("c,b,t,mode,out_ch,bias,dils", [
+    (128, 2, 1000, "reflect", None, True, (1, 3, 9)),
+    (64, 1, 777, "reflect", 1, True, (1, 3, 9)),
+    (32, 1, 10, "reflect", 1, True, (1, 3, 9)),
+    (48, 2, 1000, "edge", 4, True, (1, 3, 9)),
+    (48, 2, 1000, "constant", 4, True, (1, 3, 9)),
+    (80, 1, 333, "edge", None, False, (1, 3, 9, 27)),
+    (16, 3, 5, "edge", 2, True, (1, 3)),
+    (64, 2, 300, "reflect", None, True, (9,)),
+])
+def test_melgan_stacks_backward_bf16_matches_plain_version(cuda, c, b, t, mode, out_ch,
+                                                           bias, dils):
+    from parallelwavegan_tpu_torch.ops.kernels import melgan_stack_train as k7
+
+    stacks, final, x, dy = _k7_case(cuda, c, b, t, out_ch, bias, dils, mode=mode)
+    stacks = [dict(st, **{k: st[k] * 2 for k in ("wd", "w1", "ws")}) for st in stacks]
+    x = _off_the_kinks_bf16(x.to(torch.bfloat16), stacks, final, mode, 5)
+    dy = dy.to(torch.bfloat16)
+    before = k7.melgan_stacks_backward.bf16_launches
+    got = k7.melgan_stacks_backward(x, stacks, final, 0.2, mode, dy)
+    torch.cuda.synchronize()
+    assert k7.melgan_stacks_backward.bf16_launches == before + len(dils) + (final is not None)
+    chain = _kernel_chain(x, stacks, final, mode)
+    want = _k7_grads(*k7.melgan_stacks_backward_reference_bf16(x, stacks, final, 0.2, mode,
+                                                               dy, chain))
+    got = _k7_grads(*got)
+    assert [n for n, _ in got] == [n for n, _ in want]
+    for (name, g), (_, r) in zip(got, want):
+        assert g.dtype == r.dtype and g.shape == r.shape, name
+        assert _bf16_close(g, r), (name, float((g.float() - r.float()).abs().max()),
+                                   float(r.float().abs().max()))
+        assert not _bf16_close(torch.zeros_like(g), r), name
+    # controls: K7's float32 mode on the same values, and weights cut to
+    # bf16 by truncation
+    for wrong in (k7.melgan_stacks_backward(x.float(), stacks, final, 0.2, mode, dy.float()),
+                  k7.melgan_stacks_backward(x, _truncated(stacks), final, 0.2, mode, dy)):
+        assert not all(_bf16_close(g, r) for (_, g), (_, r) in zip(_k7_grads(*wrong), want))
+
+
+def test_melgan_stacks_backward_bf16_is_deterministic(cuda):
+    from parallelwavegan_tpu_torch.ops.kernels.melgan_stack_train import (
+        melgan_stacks_backward,
+    )
+
+    stacks, final, x, dy = _k7_case(cuda, 64, 2, 3000, 1, True, (1, 3, 9))
+    x, dy = x.to(torch.bfloat16), dy.to(torch.bfloat16)
+    first = _k7_grads(*melgan_stacks_backward(x, stacks, final, 0.2, "reflect", dy))
+    second = _k7_grads(*melgan_stacks_backward(x, stacks, final, 0.2, "reflect", dy))
+    torch.cuda.synchronize()
+    for (name, a), (_, b) in zip(first, second):
+        assert torch.equal(a, b), name
+
+
+def test_melgan_stage_bf16_trains_through_the_kernels(cuda, monkeypatch):
+    """The autograd Function on bf16 weights and input: K6 and K7 in their
+    bf16 modes, never a plain version; dx bf16 and every weight gradient in
+    its weight's type."""
+    from parallelwavegan_tpu_torch.ops.kernels import melgan_stack_train as k7
+
+    stacks, final, x, dy = _k7_case(cuda, 32, 2, 2000, 1, True, (1, 3, 9))
+    sts, fin = _as(stacks, final, torch.bfloat16)
+    x = _off_the_kinks_bf16(x.to(torch.bfloat16), sts, fin, "reflect", 6)
+    leaves = [x.clone().requires_grad_()] + [
+        st[k].clone().requires_grad_() for st in sts for k in k7.STACK_KEYS] + [
+        v.clone().requires_grad_() for v in fin]
+    _refuse(monkeypatch, k7, "melgan_stacks_reference_bf16")
+    _refuse(monkeypatch, k7, "melgan_stacks_backward_reference_bf16")
+    n6, n7 = stack_mod.fused_melgan_stacks.bf16_launches, k7.melgan_stacks_backward.bf16_launches
+    args = leaves[1:]
+    sts_l = [dict(zip(k7.STACK_KEYS, args[6 * i:6 * i + 6]), dilation=st["dilation"])
+             for i, st in enumerate(sts)]
+    y = k7.fused_melgan_stacks_train(leaves[0], sts_l, final=tuple(args[18:]))
+    grads = torch.autograd.grad(y, leaves, dy.to(torch.bfloat16))
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16
+    assert stack_mod.fused_melgan_stacks.bf16_launches == n6 + 4 + 4  # forward, re-run
+    assert k7.melgan_stacks_backward.bf16_launches == n7 + 4
+    assert all(g.dtype == torch.bfloat16 for g in grads)
+
+
 def test_gated_resblock_trains_on_the_card(cuda):
     """K5 forward, backward by autograd of the plain block (as JAX)."""
     w = _wavenet_weights(1, 64, 80, seed=2)

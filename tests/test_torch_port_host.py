@@ -208,6 +208,8 @@ def test_port_never_imports_jax():
     pkg = os.path.join(ROOT, "parallelwavegan_tpu_torch")
     assert {os.path.join(pkg, "losses", f) for f in ("mel_loss.py", "feat_match_loss.py")
             } <= set(files)
+    assert {os.path.join(pkg, "train", "precision.py"),
+            os.path.join(pkg, "ops", "kernels", "mma_bf16.py")} <= set(files)
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

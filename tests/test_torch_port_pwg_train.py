@@ -1,7 +1,8 @@
 """Parallel WaveGAN training modules of the port held against the JAX package
 on the CPU: the plain version of the K4 backward, the generator's
-gradients through ``use_pallas_stack_train``, the discriminator, and a
-training checkpoint decoded by both packages.
+gradients through ``use_pallas_stack_train``, the discriminator, a
+training checkpoint decoded by both packages, and the K3/K4 path on bf16
+inputs (mixed precision: widened to float32, as JAX's).
 
 Inputs are made with numpy from seeds and fed to both packages. The JAX
 side of the K4 cases is ``fused_wavenet_cycle_train(..., interpret=True)``
@@ -120,6 +121,44 @@ def test_k4_chunked_plain_version_matches_jax_kernel():
     for name, g in zip(WEIGHT_KEYS, got[2:]):
         np.testing.assert_allclose(g.numpy(), np.asarray(want[name]), atol=2e-4,
                                    rtol=1e-3, err_msg=name)
+
+
+def test_wavenet_cycle_train_under_bf16_computes_as_jax():
+    """Parallel WaveGAN's K3/K4 path on bf16 inputs (``mixed_precision``
+    with ``use_pallas_stack_train``): the port widens the chunk to float32,
+    as JAX's ``fused_wavenet_cycle_train`` does (wavenet_stack_train.py:
+    223-238), returns outputs in x's type and gradients in their inputs'
+    types (:361-362). Against JAX in interpret mode, two layers a call (the
+    chunks' outputs and skip sums rounded to bf16 in both): the outputs and
+    gradients agree to rms|diff| <= 1e-3 rms|JAX| and max|diff| <= 1e-2
+    max|JAX| (the same roundings; float32 sums in other orders)."""
+    rs = np.random.RandomState(0)
+    dils = (1, 2, 4, 1)
+    x, c = ((rs.randn(2, 256, 8) * 0.3).astype(np.float32) for _ in range(2))
+    shapes = {"wconv": (4, 3, 8, 16), "bconv": (4, 16), "waux": (4, 8, 16),
+              "wskip": (4, 8, 8), "bskip": (4, 8), "wres": (4, 8, 8), "bres": (4, 8)}
+    w = {k: (rs.randn(*s) * 0.2).astype(np.float32) for k, s in shapes.items()}
+    cot = [rs.randn(2, 256, 8).astype(np.float32) for _ in range(2)]
+    bf = jnp.bfloat16
+    jw = {k: jnp.asarray(v).astype(bf) for k, v in w.items()}
+    outs, vjp = jax.vjp(lambda x, c, w: jax_cycle_train(
+        x, c, w, dils, t_tile=128, max_layers_per_call=2, interpret=True),
+        jnp.asarray(x).astype(bf), jnp.asarray(c).astype(bf), jw)
+    gx, gc, gw = vjp(tuple(jnp.asarray(u).astype(bf) for u in cot))
+    want = list(outs) + [gx, gc] + [gw[k] for k in WEIGHT_KEYS]
+
+    leaves = [torch.from_numpy(v).to(torch.bfloat16).requires_grad_() for v in (x, c)]
+    tw = {k: torch.from_numpy(w[k]).to(torch.bfloat16).requires_grad_() for k in WEIGHT_KEYS}
+    xo, sk = fused_wavenet_cycle_train(*leaves, tw, dils, max_layers_per_call=2)
+    grads = torch.autograd.grad((xo, sk), leaves + [tw[k] for k in WEIGHT_KEYS],
+                                [torch.from_numpy(u).to(torch.bfloat16) for u in cot])
+    got = [xo, sk] + list(grads)
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    for name, g, r in zip(("x_out", "skips", "dx", "dc") + WEIGHT_KEYS, got, want):
+        g, r = g.detach().float().numpy(), np.asarray(r.astype(jnp.float32))
+        d = g - r
+        assert np.sqrt((d ** 2).mean()) <= 1e-3 * np.sqrt((r ** 2).mean()), name
+        assert np.abs(d).max() <= 1e-2 * np.abs(r).max(), name
 
 
 def test_backward_on_the_cpu_is_the_plain_version():

@@ -484,7 +484,10 @@ def test_train_main_needs_a_card_unless_cpu_is_asked_for(train_args):
 
 
 @pytest.mark.parametrize("override,argv,what", [
-    ({"mixed_precision": True}, [], "mixed_precision"),
+    # the bf16 modes of the TADE kernels are not ported: mixed precision
+    # with them (JAX's tade_train.py:736) is refused
+    ({"mixed_precision": True, "generator_type": "StyleMelGANGenerator",
+      "generator_params": {"use_pallas_tade_train": True}}, [], "mixed_precision"),
     ({"distributed": True}, [], "distributed"),
     ({"use_subband_stft_loss": True}, [], "sub-band STFT loss"),
     ({"use_duration_loss": True}, [], "duration loss"),
