@@ -167,7 +167,8 @@ Phases (any failure exits non-zero; nothing is caught):
    multiply at, and at the float32 CUDA-core rate), and torch.profiler
    splits by kernel of block 8 and of one G step's blocks 4-8.
 21. The split of one StyleMelGAN v1 train step (B=32, T=22528) with
-   ``use_pallas_tade_train`` and without, as phase 15.
+   ``use_pallas_tade_train`` and without, as phase 15, and with it in
+   bf16 (``mixed_precision``, K8/K9's bf16 modes).
 22. StyleMelGAN v1 training through ``bin/train.main``:
    style_melgan.v1.yaml (V1_STYLE_CONFIG) plus ``use_pallas_tade_train:
    true`` at full width and the shipped batch with TRAIN_OVERRIDES, on an
@@ -229,6 +230,33 @@ Phases (any failure exits non-zero; nothing is caught):
    grad (the D phase's re-run), K7's 10 per G step; the same run with
    K6's and K7's bf16 plain versions on the card logs the same losses
    within 1e-2 relative.
+28. The bf16-resident modes of K8a/K8b and K9a/K9b (mixed precision)
+   against their bf16 plain versions at StyleMelGAN v1's training blocks
+   4-8 (B=32, T = 1408 .. 22528; random unit-gain weights in bf16 from
+   SEED, bf16 x and c, bf16 cotangents of scale 1 / sqrt(B sT)): K8a's x2
+   and a, K8b's out and a2 (on K8a's outputs), and K9b then K9a stage by
+   stage (K9a on K9b's dx2 and da), each plain version of K9 fed the
+   kernels' own re-run (``tade*_backward_reference_bf16(..., rerun)``: a
+   second bf16 forward would round other elements); rms|diff| <= 1e-3
+   rms|plain| and max|diff| <= 1e-2 max|plain| on every output and
+   gradient, where the float32 kernels on the same values, the float32
+   weights cut to bf16 by truncation and each zeroed output must be
+   rejected; registers, spills and SASS of every instantiation of
+   ``csrc/tade.cu`` and ``csrc/tade_bwd.cu`` (the bf16 ones must multiply
+   as HMMA.16816.F32.BF16, without TF32 and without a spill); CUDA-event
+   times of one G step's K8a, K8b, K9a and K9b (blocks 4-8) beside their
+   bf16 plain versions and the float32 kernels, and their bf16 bounds.
+29. StyleMelGAN v1 with ``mixed_precision`` and ``use_pallas_tade_train``
+   through ``bin/train.main`` at full width and the shipped batch of 32 x
+   22528 (TRAIN_OVERRIDES, on a dump of STYLE_TRAIN_UTTS utterances):
+   K8a/K8b's bf16 modes 5 launches per G step and per D phase re-run,
+   K9a/K9b's 5 per G step (the eval's forwards run in float32); the same
+   run with their bf16 plain versions on the card logs the same losses
+   within 1e-2 relative; a resume from step 2 logs steps 3-4 within 1e-2;
+   the checkpoints hold float32 alone; one G+D step at B=2 on the card
+   (the kernels) against the CPU (the bf16 plain versions) within 1e-2
+   relative, and against float32 within 3e-2 and apart by more than 1e-4
+   in some loss.
 
 Phase 3 also decodes HiFi-GAN v1 with ``use_pallas_mrf: true`` in the
 config (K2 called twice per utterance, stages 2 and 3, 8 launches, every
@@ -242,8 +270,8 @@ input read once, each output written once) over 3.35 TB/s and its float32
 operations over 67 TFLOP/s, the H100 SXM data-sheet peaks at 700 W; for
 the kernels that multiply in split TF32 on the tensor cores (K1 to K9),
 three TF32 operations per multiply-add's two over 495 TFLOP/s instead,
-and for K6's and K7's bf16 modes bf16 operations over 989 TFLOP/s and
-their bf16 bytes.
+and for the bf16 modes of K6, K7, K8 and K9 bf16 operations over 989
+TFLOP/s and their bf16 bytes.
 """
 
 from __future__ import annotations
@@ -542,6 +570,8 @@ def _reset_launch_counts() -> None:
     fused_tade_blocks.calls = 0
     fused_tade_blocks.launches_k8a = fused_tade_blocks.launches_k8b = 0
     tade_block_backward.launches_k9a = tade_block_backward.launches_k9b = 0
+    fused_tade_blocks.bf16_launches_k8a = fused_tade_blocks.bf16_launches_k8b = 0
+    tade_block_backward.bf16_launches_k9a = tade_block_backward.bf16_launches_k9b = 0
 
 
 def _bound(flops: float, nbytes: float) -> dict:
@@ -3029,7 +3059,8 @@ def phase_k9(card: str) -> dict:
 
 def phase_style_train_split(card: str) -> None:
     """Where one StyleMelGAN v1 train step (B=32, T=22528) spends its time,
-    with blocks 4-8 through K8/K9 and through the plain path."""
+    with blocks 4-8 through K8/K9 and through the plain path, and in bf16
+    (``mixed_precision``) through K8/K9's bf16 modes."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -3037,7 +3068,10 @@ def phase_style_train_split(card: str) -> None:
     frames = t // V1_STYLE_CONFIG["hop_size"]
     batch = {"y": 0.3 * torch.randn(b, 1, t, generator=g, device="cuda"),
              "c": torch.randn(b, 80, frames, generator=g, device="cuda")}
-    _train_split(card, "StyleMelGAN v1", _style_v1_config, batch)
+    _train_split(card, "StyleMelGAN v1",
+                 lambda v: _style_v1_config(v[0], mixed_precision=v[1]), batch,
+                 variants=(("kernel", (True, False)), ("plain", (False, False)),
+                           ("bf16, mixed_precision, kernel", (True, True))))
 
 
 def phase_style_train(card: str) -> dict:
@@ -3724,6 +3758,382 @@ def phase_melgan_bf16_train(card: str) -> dict:
             "err": worst}
 
 
+def _tade_bf16_work(x, blk, half: int, backward: bool) -> dict:
+    """The bf16 bound of K8a/K8b (``backward`` False) or K9a/K9b on a block
+    input x: its products (K9: the re-run, the transposed convs and the
+    weight gradients, three times K8's) at the bf16 tensor-core rate, or
+    its bytes: the activations read and written in bf16 (K8a x, c -> x2,
+    a; K8b x, x2, a -> out, a2; K9a x, c, dx2, da -> dx, dc; K9b x, x2, a,
+    dout, da2 -> dx, dx2, da), the weights read in bf16, the biases in
+    float32 and, for K9, the weight gradients written in float32."""
+    from parallelwavegan_tpu_torch.ops.kernels.tade_decode import WEIGHT_KEYS
+
+    b, t, c = x.shape
+    sc = 1 if half == 1 else int(blk["scale"])
+    keys = WEIGHT_KEYS[:3] if half == 1 else WEIGHT_KEYS[3:]
+    mac = sum(blk[f"{k}_w"].numel() for k in keys) * (3 if backward else 1)
+    n_w = sum(blk[f"{k}_w"].numel() for k in keys)
+    n_b = sum(blk[f"{k}_b"].numel() for k in keys)
+    if half == 1:
+        acts = (6 if backward else 4) * b * t * c
+    else:
+        acts = (6 * b * t * c + 2 * b * sc * t * c if backward
+                else 3 * b * t * c + 2 * b * sc * t * c)
+    grads = 4 * (n_w + n_b) if backward else 0
+    return _bf16_work(2.0 * b * sc * t * mac, 2 * acts + 2 * n_w + 4 * n_b + grads)
+
+
+def _built_resources(names) -> dict:
+    """{kernel: {"registers", "spill_stores", "spill_loads" (bytes), "sass"
+    (``sass.counts``)}} of the built library's kernels whose name starts
+    with one of ``names``: registers and spills from the build's own
+    ``ptxas -v`` lines, SASS from the library (cuobjdump), without
+    compiling again; a library loaded from an earlier build has no log,
+    and then their sources are compiled once more (``sass.resource_usage``)."""
+    from parallelwavegan_tpu_torch.ops.kernels import build, sass
+
+    lib = build.load()
+    if not lib.log:
+        out = {}
+        for src in ("tade.cu", "tade_bwd.cu"):
+            out.update(sass.resource_usage(os.path.join(build.CSRC, src)))
+        return {k: v for k, v in out.items() if k.startswith(tuple(names))}
+    out, entry = {}, None
+    for line in lib.log.splitlines():
+        m = re.search(r"entry function '(\w+)'", line)
+        if m:
+            entry = sass.short_name(m.group(1))
+            out[entry] = {"registers": 0, "spill_stores": 0, "spill_loads": 0}
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out[entry]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and entry:
+            out[entry]["spill_stores"], out[entry]["spill_loads"] = map(int, m.groups())
+    for name, instrs in sass.kernels_of(lib.path).items():
+        out.setdefault(sass.short_name(name), {})["sass"] = sass.counts(instrs)
+    return {k: v for k, v in sorted(out.items()) if k.startswith(tuple(names))}
+
+
+def phase_k89_bf16(card: str) -> dict:
+    """The bf16-resident modes of K8a/K8b and K9a/K9b against their bf16
+    plain versions at StyleMelGAN v1's training blocks 4-8 (module
+    docstring, phase 28)."""
+    import numpy as np
+    import torch
+
+    from parallelwavegan_tpu_torch.ops.kernels import tade_decode as td
+    from parallelwavegan_tpu_torch.ops.kernels import tade_train as tt
+
+    for kernel, use in _built_resources(("tade1_kernel", "tade2_kernel", "stage_bwd_kernel",
+                                         "stage_wgrad_kernel")).items():
+        print(f"K8/K9 {kernel}: {use.get('registers')} registers, spill stores "
+              f"{use.get('spill_stores')} B, loads {use.get('spill_loads')} B; SASS "
+              f"{use.get('sass')} on {card}")
+        counts = use.get("sass", "")
+        if kernel.endswith("true>") and ("HMMA.16816.F32.BF16" not in counts
+                                         or "TF32" in counts or use.get("spill_stores")
+                                         or use.get("spill_loads")):
+            _fail(f"{kernel}: expected bf16 products (HMMA.16816.F32.BF16) and no "
+                  f"spill, got {use}")
+
+    blocks = _style_train_blocks()
+    b = V1_STYLE_CONFIG["batch_size"]
+    rs = np.random.RandomState(SEED + 28)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy((rs.randn(*shape) * scale).astype(np.float32)).to("cuda")
+
+    def pairs(names, got, want):
+        """(name, kernel's, plain's) of each output: the named tensors,
+        then a dict of weight gradients where there is one."""
+        out = list(zip(names, got, want))
+        if len(want) > len(names):
+            out += [(k, got[-1][k], want[-1][k]) for k in want[-1]]
+        return out
+
+    def check(label: str, names, got, want, rec: dict) -> float:
+        """``_bf16_close`` of each output, in its plain version's dtype;
+        returns the worst rms|diff| / rms|plain|."""
+        worst = 0.0
+        for name, g, w in pairs(names, got, want):
+            if g.dtype != w.dtype or g.shape != w.shape or not torch.isfinite(g.float()).all():
+                _fail(f"{label} {name}: {g.dtype} {tuple(g.shape)} vs {w.dtype} "
+                      f"{tuple(w.shape)}, or non-finite")
+            if not _bf16_close(g, w) or _bf16_close(torch.zeros_like(g), w):
+                _fail(f"{label} {name}: kernel disagrees with its bf16 plain version "
+                      f"(max|diff| {float((g.float() - w.float()).abs().max()):.3e}, "
+                      f"max|plain| {float(w.float().abs().max()):.3e})")
+            d = g.float() - w.float()
+            rec["errs"].append(float(d.abs().max()))
+            worst = max(worst, float(d.pow(2).mean().sqrt() / w.float().pow(2).mean().sqrt()))
+        return worst
+
+    def rejected(label: str, control: str, names, wrong, want) -> None:
+        if all(_bf16_close(g, w) for _, g, w in pairs(names, wrong, want)):
+            _fail(f"{label}: the check accepts {control}")
+
+    n8a, n8b, n9a, n9b = ("x2", "a"), ("out", "a2"), ("dx", "dc"), ("dx", "dx2", "da")
+    recs = {k: {"errs": []} for k in ("k8a", "k8b", "k9a", "k9b")}
+    f32_ms = dict.fromkeys(recs, 0.0)
+    for i, t, sc in blocks:
+        blk32 = {"scale": sc, "dilation": 2}
+        for key in td.WEIGHT_KEYS:
+            cout = 64 if key.startswith("aux") else 128
+            blk32[f"{key}_w"] = randn(9, 64, cout, scale=1 / 24.0)
+            blk32[f"{key}_b"] = randn(cout, scale=0.1)
+        blk = {k: v.to(bf16) if torch.is_tensor(v) else v for k, v in blk32.items()}
+        trunc = {k: (v.view(torch.int32) & -65536).view(torch.float32)
+                 if k.endswith("_w") else v for k, v in blk32.items()}
+        x, c = randn(b, t, 64).to(bf16), randn(b, t, 64).to(bf16)
+        u = (b * sc * t) ** -0.5
+        dout, da2 = (randn(b, sc * t, 64, scale=u).to(bf16) for _ in range(2))
+        name = f"v1 block {i} B={b} T={t}" + (f" -> {sc * t}" if sc > 1 else "")
+        with torch.no_grad():
+            x2, a = td.tade1_cuda(x, c, blk)
+            got8b = td.tade2_cuda(x, x2, a, blk)
+            want8a = td.tade1_reference_bf16(x, c, blk)
+            want8b = td.tade2_reference_bf16(x, x2, a, blk)
+        w8a = check(f"K8a bf16 {name}", n8a, (x2, a), want8a, recs["k8a"])
+        w8b = check(f"K8b bf16 {name}", n8b, got8b, want8b, recs["k8b"])
+        with torch.no_grad():
+            xf, cf, x2f, af = x.float(), c.float(), x2.float(), a.float()
+            for control, w8, w8b_ in (
+                    ("the float32 kernels", td.tade1_cuda(xf, cf, blk32),
+                     td.tade2_cuda(xf, x2f, af, blk32)),
+                    ("truncated weights", td.tade1_cuda(x, c, trunc),
+                     td.tade2_cuda(x, x2, a, trunc))):
+                rejected(f"K8a bf16 {name}", control, n8a, w8, want8a)
+                rejected(f"K8b bf16 {name}", control, n8b, w8b_, want8b)
+        del got8b, want8a, want8b, w8, w8b_
+        # K9, stage by stage: each plain version fed the kernel's own re-run
+        got9b = tt.tade2_backward_cuda(x, x2, a, blk, "softmax", dout, da2)
+        dx2, da = got9b[1], got9b[2]
+        got9a = tt.tade1_backward_cuda(x, c, blk, "softmax", dx2, da)
+        with torch.no_grad():
+            m2, r2 = td._stats(x2.float())
+            m1, r1 = td._stats(x.float())
+            rerun2 = tt.tade2_rerun_cuda(x, x2, a, blk, "softmax", m2, r2)
+            rerun1 = tt.tade1_rerun_cuda(x, c, blk, "softmax", m1, r1)
+        want9b = tt.tade2_backward_reference_bf16(x, x2, a, blk, "softmax", dout, da2, rerun2)
+        want9a = tt.tade1_backward_reference_bf16(x, c, blk, "softmax", dx2, da, rerun1)
+        del rerun1, rerun2
+        w9b = check(f"K9b bf16 {name}", n9b, got9b, want9b, recs["k9b"])
+        w9a = check(f"K9a bf16 {name}", n9a, got9a, want9a, recs["k9a"])
+        for control, g9b, g9a in (
+                ("the float32 kernels",
+                 tt.tade2_backward_cuda(xf, x2f, af, blk32, "softmax", dout.float(),
+                                        da2.float()),
+                 tt.tade1_backward_cuda(xf, cf, blk32, "softmax", dx2.float(), da.float())),
+                ("truncated weights",
+                 tt.tade2_backward_cuda(x, x2, a, trunc, "softmax", dout, da2),
+                 tt.tade1_backward_cuda(x, c, trunc, "softmax", dx2, da))):
+            rejected(f"K9b bf16 {name}", control, n9b, g9b, want9b)
+            rejected(f"K9a bf16 {name}", control, n9a, g9a, want9a)
+        del got9a, got9b, want9a, want9b, g9a, g9b
+        print(f"K8/K9 bf16 vs plain [{name}]: worst rms|diff| / rms|plain| K8a {w8a:.3e}, "
+              f"K8b {w8b:.3e}, K9a {w9a:.3e}, K9b {w9b:.3e} (bound 1e-3, max 1e-2 of "
+              "max|plain|; K9 fed the kernels' re-run); the float32 kernels' and the "
+              "truncated weights' results rejected")
+        with torch.no_grad():
+            _timed(recs["k8a"], f"K8a bf16 {name}", card, lambda: td.tade1_cuda(x, c, blk),
+                   lambda: td.tade1_reference_bf16(x, c, blk),
+                   _tade_bf16_work(x, blk, 1, False))
+            _timed(recs["k8b"], f"K8b bf16 {name}", card,
+                   lambda: td.tade2_cuda(x, x2, a, blk),
+                   lambda: td.tade2_reference_bf16(x, x2, a, blk),
+                   _tade_bf16_work(x, blk, 2, False))
+            f32_ms["k8a"] += _median_ms(lambda: td.tade1_cuda(xf, cf, blk32))
+            f32_ms["k8b"] += _median_ms(lambda: td.tade2_cuda(xf, x2f, af, blk32))
+        _timed(recs["k9a"], f"K9a bf16 {name}", card,
+               lambda: tt.tade1_backward_cuda(x, c, blk, "softmax", dx2, da),
+               lambda: tt.tade1_backward_reference(x, c, blk, "softmax", dx2, da),
+               _tade_bf16_work(x, blk, 1, True))
+        _timed(recs["k9b"], f"K9b bf16 {name}", card,
+               lambda: tt.tade2_backward_cuda(x, x2, a, blk, "softmax", dout, da2),
+               lambda: tt.tade2_backward_reference(x, x2, a, blk, "softmax", dout, da2),
+               _tade_bf16_work(x, blk, 2, True))
+        dx2f, daf, doutf, da2f = dx2.float(), da.float(), dout.float(), da2.float()
+        f32_ms["k9a"] += _median_ms(
+            lambda: tt.tade1_backward_cuda(xf, cf, blk32, "softmax", dx2f, daf))
+        f32_ms["k9b"] += _median_ms(
+            lambda: tt.tade2_backward_cuda(xf, x2f, af, blk32, "softmax", doutf, da2f))
+        del x, c, x2, a, xf, cf, x2f, af, dx2, da, dout, da2, dx2f, daf, doutf, da2f
+        torch.cuda.empty_cache()
+    for label, rec in recs.items():
+        rec.update(_bf16_work(rec["flops"], rec["bytes"]))
+        print(f"{label.upper()} bf16 per StyleMelGAN v1 G step (blocks 4-8, B={b}"
+              + (", the re-run and the glue included" if label.startswith("k9") else
+                 ", the training forward") + f"): kernel {rec['ms']:.3f} ms, bf16 plain "
+              f"{rec['plain_ms']:.3f} ms, float32 kernel {f32_ms[label]:.3f} ms; bf16 bound "
+              f"{rec['bound_ms']:.3f} ms ({rec['flops'] / 1e9:.1f} GFLOP / 989 TFLOP/s, "
+              f"{rec['bytes'] / 1e6:.1f} MB / 3.35 TB/s; {rec['bound_by']}; "
+              f"{rec['bound_ms'] / rec['ms']:.1%} of it) on {card}")
+    return recs
+
+
+def _style_bf16_cross_check(card: str) -> tuple:
+    """One G+D ``TrainStep`` of StyleMelGAN v1 with ``mixed_precision`` and
+    ``use_pallas_tade_train`` at B=2 on the card (the bf16 kernels) and on
+    the CPU (their bf16 plain versions), and in float32 on the card, from
+    the same weights and batch (z given): (max relative loss diff card vs
+    CPU, {loss: relative diff bf16 vs float32}, denominator at least 0.1)."""
+    import torch
+
+    from parallelwavegan_tpu_torch.models import get_model_class
+    from parallelwavegan_tpu_torch.optimizers import build_optimizer_from_config
+    from parallelwavegan_tpu_torch.train.criterion import build_criterion
+    from parallelwavegan_tpu_torch.train.step import TrainStep
+
+    g = torch.Generator().manual_seed(SEED + 29)
+    t = V1_STYLE_CONFIG["batch_max_steps"]
+    gp = V1_STYLE_CONFIG["generator_params"]
+    batch = {"y": 0.3 * torch.randn(2, 1, t, generator=g),
+             "c": torch.randn(2, 80, t // V1_STYLE_CONFIG["hop_size"], generator=g),
+             "z": torch.randn(2, gp["in_channels"], 1, generator=g)}
+    got = {}
+    for device, mixed in (("cuda", True), ("cpu", True), ("cuda", False)):
+        cfg = _style_v1_config(True, batch_size=2, mixed_precision=mixed)
+        init = torch.Generator().manual_seed(SEED)
+        gd = get_model_class(cfg["generator_type"])(
+            **cfg["generator_params"], generator=init).to(device)
+        dd = get_model_class(cfg["discriminator_type"])(
+            **cfg["discriminator_params"], generator=init).to(device)
+        step = TrainStep(cfg, gd, dd, build_criterion(cfg),
+                         build_optimizer_from_config(cfg, "generator", gd.parameters()),
+                         build_optimizer_from_config(cfg, "discriminator", dd.parameters()))
+        got[device, mixed] = {k: float(v) for k, v in step(
+            {k: v.to(device) for k, v in batch.items()}, True, True, 0).items()}
+        del gd, dd, step
+
+    def rel(a, b):
+        if sorted(a) != sorted(b):
+            _fail(f"StyleMelGAN v1 bf16: metrics {sorted(a)} vs {sorted(b)}")
+        return {k: abs(a[k] - b[k]) / max(abs(b[k]), 0.1) for k in b}
+
+    return (max(rel(got["cuda", True], got["cpu", True]).values()),
+            rel(got["cuda", True], got["cuda", False]))
+
+
+def phase_style_bf16_train(card: str) -> dict:
+    """StyleMelGAN v1 with ``mixed_precision`` and ``use_pallas_tade_train``
+    through ``bin/train.main``, the bf16 launches of K8a/K8b and K9a/K9b
+    counted, against the same run with their bf16 plain versions on the
+    card, and a resume (module docstring, phase 29)."""
+    import numpy as np
+    import torch
+
+    from parallelwavegan_tpu_torch.bin import train
+    from parallelwavegan_tpu_torch.ops.kernels import tade_decode as td
+    from parallelwavegan_tpu_torch.ops.kernels import tade_train as tt
+
+    root = os.path.join(WORK, "style_bf16")
+    shutil.rmtree(root, ignore_errors=True)
+    dump = _write_train_dump(root, STYLE_TRAIN_UTTS, STYLE_TRAIN_FRAMES)
+    config = os.path.join(root, "config.json")
+    with open(config, "w") as f:
+        json.dump(_style_v1_config(True, mixed_precision=True, **TRAIN_OVERRIDES), f)
+    steps = TRAIN_OVERRIDES["train_max_steps"]
+    n = len(_style_train_blocks())
+    # bf16: the G phases' forwards and the D phases' re-runs; the eval's two
+    # forwards run in float32 (K8's float32 mode), as the trainer's eval does
+    d_reruns = steps - TRAIN_OVERRIDES["discriminator_train_start_steps"] - 1
+    expect = {}
+    for name, k in (("kernel", steps), ("plain", 0), ("resume", steps - 2)):
+        fwd = (k + d_reruns) * n if k else 0
+        expect[name] = (fwd, fwd, k * n, k * n,
+                        (k + _eval_and_d_forwards()) * n if k else 2 * n)
+
+    saved = (tt.tade1_cuda, tt.tade2_cuda, tt.tade1_backward_cuda, tt.tade2_backward_cuda)
+
+    def plain(bf16_version, kernel):
+        """The bf16 plain version on a bf16 input, else the float32 kernel
+        (the eval's forwards)."""
+        def run(x, *args):
+            if x.dtype != torch.bfloat16:
+                return kernel(x, *args)
+            return tuple(v.contiguous() if torch.is_tensor(v) else v
+                         for v in bf16_version(x, *args))
+        return run
+
+    res, counts = {}, {}
+    for name, extra in (("kernel", []), ("plain", []), ("resume", ["--resume", os.path.join(
+            root, "exp_kernel", "checkpoint-2steps.pkl")])):
+        if name == "plain":  # the bf16 plain versions on the card, in place of K8 and K9
+            tt.tade1_cuda = plain(td.tade1_reference_bf16, saved[0])
+            tt.tade2_cuda = plain(td.tade2_reference_bf16, saved[1])
+            tt.tade1_backward_cuda = plain(tt.tade1_backward_reference_bf16, saved[2])
+            tt.tade2_backward_cuda = plain(tt.tade2_backward_reference_bf16, saved[3])
+        try:
+            _reset_launch_counts()
+            t0 = time.perf_counter()
+            res[name] = train.main(
+                ["--train-dumpdir", dump, "--dev-dumpdir", dump, "--outdir",
+                 os.path.join(root, f"exp_{name}"), "--device", "cuda", "--verbose", "0",
+                 "--config", config] + extra)
+            seconds = time.perf_counter() - t0
+            counts[name] = (td.fused_tade_blocks.bf16_launches_k8a,
+                            td.fused_tade_blocks.bf16_launches_k8b,
+                            tt.tade_block_backward.bf16_launches_k9a,
+                            tt.tade_block_backward.bf16_launches_k9b,
+                            td.fused_tade_blocks.launches_k8a)
+        finally:
+            (tt.tade1_cuda, tt.tade2_cuda, tt.tade1_backward_cuda,
+             tt.tade2_backward_cuda) = saved
+        print(f"main path [StyleMelGAN v1 bf16 training, {name}]: {res[name]['steps']} "
+              f"steps in {seconds:.1f} s (set-up, eval and saves included) on {card}; bf16 "
+              "launches " + ", ".join(f"{k} {v}" for k, v in zip(
+                  ("K8a", "K8b", "K9a", "K9b"), counts[name]))
+              + f"; K8a launches in all {counts[name][4]} (the eval's float32)")
+        if res[name]["steps"] != steps or counts[name] != expect[name]:
+            _fail(f"StyleMelGAN v1 bf16 training {name}: {res[name]['steps']} steps, "
+                  f"launches {counts[name]}, expected {expect[name]}")
+    logged = {name: {s: {k: v for k, v in m.items() if k.startswith("train/")}
+                     for s, m in r["history"] if "train/generator_loss" in m}
+              for name, r in res.items()}
+    worst = 0.0
+    for s in range(1, steps + 1):
+        got, want = logged["kernel"].get(s), logged["plain"].get(s)
+        if not got or sorted(got) != sorted(want or {}):
+            _fail(f"StyleMelGAN v1 bf16 training: step {s} logged {got} and {want}")
+        print(f"  step {s}: " + ", ".join(f"{k} {v:.6f}" for k, v in sorted(got.items())))
+        if not all(np.isfinite(v) for v in got.values()):
+            _fail(f"StyleMelGAN v1 bf16 training: non-finite loss at step {s}")
+        worst = max([worst] + [abs(got[k] - v) / max(abs(v), 0.1) for k, v in want.items()])
+    if "train/discriminator_loss" not in logged["kernel"].get(steps, {}):
+        _fail("StyleMelGAN v1 bf16 training: the D phase did not run")
+    if sorted(logged["resume"]) != [3, 4]:
+        _fail(f"StyleMelGAN v1 bf16 resume logged steps {sorted(logged['resume'])}")
+    err_resume = max(abs(logged["resume"][s][k] - v) / max(abs(v), 0.1)
+                     for s in (3, 4) for k, v in logged["kernel"][s].items())
+    dtypes = set()
+    for name, s in (("kernel", 2), ("kernel", steps), ("resume", steps)):
+        dtypes |= _checkpoint_dtypes(os.path.join(root, f"exp_{name}",
+                                                  f"checkpoint-{s}steps.pkl"))
+    print(f"StyleMelGAN v1 bf16 training, K8/K9 vs their bf16 plain versions: max relative "
+          f"loss diff {worst:.3e} over steps 1-{steps} (bound 1e-2); resumed from step 2 vs "
+          f"uninterrupted {err_resume:.3e} over steps 3-4 (bound 1e-2); checkpoint tensor "
+          f"types {sorted(str(d) for d in dtypes)} on {card}")
+    if not worst <= 1e-2 or not err_resume <= 1e-2:
+        _fail(f"StyleMelGAN v1 bf16 training: kernels vs plain {worst:.3e}, resume "
+              f"{err_resume:.3e}")
+    if dtypes != {torch.float32}:
+        _fail(f"StyleMelGAN v1 bf16 checkpoints hold {dtypes}: the master state is float32")
+    shutil.rmtree(root)
+    cross, vs_f32 = _style_bf16_cross_check(card)
+    print(f"StyleMelGAN v1 bf16 G+D step at B=2, card ({card}, K8/K9 bf16) vs CPU (their "
+          f"bf16 plain versions): max relative loss diff {cross:.3e} (bound 1e-2); bf16 vs "
+          "float32 on the card: " + ", ".join(f"{k} {v:.3e}" for k, v in sorted(vs_f32.items()))
+          + " (bound 3e-2; above 1e-4 somewhere: a float32 run would not pass for bf16)")
+    if (not cross <= 1e-2 or not max(vs_f32.values()) <= 3e-2
+            or not max(vs_f32.values()) > 1e-4):
+        _fail(f"StyleMelGAN v1 bf16 cross-check: {cross:.3e} vs the CPU, {vs_f32} vs float32")
+    return {"k8a_launches": counts["kernel"][0], "k8b_launches": counts["kernel"][1],
+            "k9a_launches": counts["kernel"][2], "k9b_launches": counts["kernel"][3],
+            "err": worst, "err_resume": err_resume, "cross": cross}
+
+
 def main() -> None:
     pkg = os.path.join(ROOT, "parallelwavegan_tpu_torch")
     if not os.path.isdir(pkg):
@@ -3814,6 +4224,10 @@ def main() -> None:
     torch.cuda.synchronize()
     melgan_bf16 = phase_melgan_bf16_train(card)
     torch.cuda.synchronize()
+    k89 = phase_k89_bf16(card)
+    torch.cuda.synchronize()
+    style_bf16 = phase_style_bf16_train(card)
+    torch.cuda.synchronize()
     shutil.rmtree(WORK, ignore_errors=True)
 
     def entry(name, source, replaces, launches, rec):
@@ -3853,6 +4267,14 @@ def main() -> None:
               "melgan_stack.py:285", melgan_bf16["k6_launches"], k67["k6"]),
         entry("melgan_stacks_backward (K7 bf16-resident mode)", "melgan_stack_bwd.cu",
               "melgan_stack_train.py:247", melgan_bf16["k7_launches"], k67["k7"]),
+        entry("fused_tade_blocks_train (K8a bf16-resident mode)", "tade.cu",
+              "tade_decode.py:366", style_bf16["k8a_launches"], k89["k8a"]),
+        entry("fused_tade_blocks_train (K8b bf16-resident mode)", "tade.cu",
+              "tade_decode.py:437", style_bf16["k8b_launches"], k89["k8b"]),
+        entry("tade_block_backward (K9a bf16-resident mode)", "tade_bwd.cu",
+              "tade_train.py:438", style_bf16["k9a_launches"], k89["k9a"]),
+        entry("tade_block_backward (K9b bf16-resident mode)", "tade_bwd.cu",
+              "tade_train.py:523", style_bf16["k9b_launches"], k89["k9b"]),
     ]}
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_main:.1f} s "
           f"(build included) on {card}")

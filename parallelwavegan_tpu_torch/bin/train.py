@@ -30,9 +30,10 @@ data stream's position; ``--pretrain`` the model weights only.
 ``mixed_precision: true`` runs the forwards and backwards in bf16 with
 float32 master weights, optimizer state, losses and spectral (u, v), as
 the JAX package does (``train/precision.py``; MelGAN's stacks with
-``use_pallas_stacks_train`` through K6/K7's bf16 modes). Not ported yet,
-and refused with ``NotImplementedError`` (ROADMAP.md): ``mixed_precision``
-with ``use_pallas_tade_train`` (K8/K9's bf16 modes), ``pallas_stack_bf16``,
+``use_pallas_stacks_train`` through K6/K7's bf16 modes, StyleMelGAN's
+TADE blocks with ``use_pallas_tade_train`` through K8/K9's, on the card,
+and through their bf16 plain versions on the CPU). Not ported yet, and
+refused with ``NotImplementedError`` (ROADMAP.md): ``pallas_stack_bf16``,
 ``distributed``, scp datasets and the other families and conditioning
 inputs. float32 convolutions and matmuls run without TF32, as the JAX
 package computes in full float32.
@@ -134,11 +135,6 @@ def main(argv=None) -> dict:
     config["version"] = parallelwavegan_tpu_torch.__version__
     if config.get("distributed", False):
         raise _not_ported("distributed training")
-    if config.get("mixed_precision", False) and config.get(
-            "generator_params", {}).get("use_pallas_tade_train", False):
-        # JAX runs K8/K9's bf16 modes there (tade_train.py:736)
-        raise _not_ported("mixed_precision with use_pallas_tade_train (the bf16 "
-                          "modes of the TADE kernels K8/K9)")
     if any(getattr(args, f"{split}_{kind}") for split in ("train", "dev")
            for kind in ("wav_scp", "feats_scp", "segments")):
         raise _not_ported("scp datasets (--*-wav-scp / --*-feats-scp / --*-segments)")

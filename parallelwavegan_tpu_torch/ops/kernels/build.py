@@ -95,6 +95,11 @@ _SIGNATURES = {
     "tade_stage_bwd": [_P] * 25 + [ctypes.c_longlong] + [_I] * 6 + [_P],
     # B, L -> floats of tade_stage_bwd's partial buffer
     "tade_stage_bwd_part_floats": [_I] * 2,
+    # the bf16-resident modes, the float32 entry points' arguments (the
+    # activations bf16, the weights in bf16 fragments)
+    "tade1_bf16": [_P] * 13 + [_I] * 4 + [_P],
+    "tade2_bf16": [_P] * 15 + [_I] * 6 + [_P],
+    "tade_stage_bwd_bf16": [_P] * 25 + [ctypes.c_longlong] + [_I] * 6 + [_P],
 }
 
 

@@ -1,7 +1,8 @@
 """bf16 tensor-core products on the host side: the weight layouts that the
-bf16-resident modes of the MelGAN stack kernels read (K6 in
-csrc/melgan_stack.cu, K7 in csrc/melgan_stack_bwd.cu, both through
-csrc/mma_bf16.cuh).
+bf16-resident modes of the MelGAN stack kernels (K6 in
+csrc/melgan_stack.cu, K7 in csrc/melgan_stack_bwd.cu) and of the TADE
+kernels (K8a/K8b in csrc/tade.cu, K9a/K9b in csrc/tade_bwd.cu, through
+csrc/tade.cuh's conv9_bf16) read, all through csrc/mma_bf16.cuh.
 
 The JAX kernels' bf16 mode (``mxu_bf16``) casts every dot operand to
 bf16 and accumulates in float32. Here the weights are rounded to bf16 once
@@ -14,6 +15,8 @@ kernel forms a fragment.
 from __future__ import annotations
 
 import torch
+
+from parallelwavegan_tpu_torch.ops.kernels.tf32x3 import _pair_columns
 
 
 def fragments(wk):
@@ -79,3 +82,35 @@ def slope_of(slope: float) -> float:
     package (``_leaky``: ``x * jnp.asarray(slope, x.dtype)``): slope
     rounded to bf16."""
     return float(torch.tensor(slope, dtype=torch.float64).to(torch.bfloat16))
+
+
+def tade_forward_fragments(aux_w, g_w, gc_w):
+    """The three convs of a forward TADE kernel in its bf16 mode (K8a:
+    aux1, g1, gc1; K8b: aux2, g2, gc2), gather-form (9, 64, 64), (9, 64,
+    128), (9, 64, 128), float32 or bf16: the matrix of
+    ``tf32x3.forward_fragments`` (each conv flattened to depth 9 x 64, tap
+    major, the 128-column convs' columns paired) rounded to bf16 in
+    ``fragments``' layout and cut into passes of 64 columns: (5, 36, 8,
+    32, 4) bf16, pass 0 aux, 1-2 g, 3-4 gc. What csrc/tade.cu's bf16 entry
+    points take."""
+    shapes = [tuple(w.shape) for w in (aux_w, g_w, gc_w)]
+    if shapes != [(9, 64, 64), (9, 64, 128), (9, 64, 128)]:
+        raise ValueError(f"tade_forward_fragments takes (9, 64, 64), (9, 64, 128), "
+                         f"(9, 64, 128), got {shapes}")
+    wk = torch.cat([aux_w.detach().reshape(-1, 64), _pair_columns(g_w.detach()),
+                    _pair_columns(gc_w.detach())], dim=1)
+    f = fragments(wk)  # (36, 40, 32, 4)
+    return f.reshape(f.shape[0], 5, 8, 32, 4).transpose(0, 1).contiguous()
+
+
+def tade_conv_fragments(w):
+    """A 9-tap conv's gather-form weights w (9, Cin, Cout), Cin a multiple of
+    8 and Cout of 16, as those of its transposed conv (Wt[j] = w[8 - j]^T,
+    depth 9 Cout, tap major; ``tf32x3.conv_fragments``' matrix) rounded to
+    bf16 in ``fragments``' layout: (9 Cout / 16, Cin / 8, 32, 4) bf16. What
+    csrc/tade_bwd.cu's bf16 entry point takes."""
+    n = w.shape[1]
+    if w.dim() != 3 or w.shape[0] != 9 or n % 8 or w.shape[2] % 16:
+        raise ValueError(f"tade_conv_fragments needs (9, Cin, Cout), Cin a multiple of 8 "
+                         f"and Cout of 16, got {tuple(w.shape)}")
+    return fragments(w.detach().flip(0).transpose(1, 2).reshape(-1, n))

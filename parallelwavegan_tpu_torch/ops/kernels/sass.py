@@ -10,7 +10,10 @@ DIR is another tree's ``csrc`` directory (a parent commit unpacked with
 ``git archive``). Each source is compiled by itself to a cubin with the
 flags of ``build.py``, all at once, into a temporary directory. Names in
 the anonymous namespace carry a per-file hash, which is cut before two
-trees are compared; so are addresses and encodings.
+trees are compared; so are addresses and encodings. A kernel that gained
+a last ``bool`` template argument for a bf16 mode (``tade1_kernel<kSave,
+kBF16>``) is compared, at ``false``, with the other tree's kernel without
+it (``tade1_kernel<kSave>``).
 """
 
 from __future__ import annotations
@@ -99,6 +102,17 @@ def short_name(mangled: str) -> str:
     return f"{base}<{', '.join(vals)}>"
 
 
+def without_bf16_flag(short: str) -> str | None:
+    """A short name whose last template argument is ``false`` without it
+    (``tade1_kernel<true, false>`` -> ``tade1_kernel<true>``,
+    ``stage_wgrad_kernel<false>`` -> ``stage_wgrad_kernel``), else None."""
+    m = re.match(r"(.*?)(?:<(.*), )?(?:<)?false>$", short)
+    if not m:
+        return None
+    base, rest = m.group(1), m.group(2)
+    return f"{base}<{rest}>" if rest else base
+
+
 def resource_usage(source: str) -> dict:
     """{kernel: {"registers", "spill_stores", "spill_loads" (bytes), "sass"
     (``counts``)}} of one kernel source, compiled by itself with the flags
@@ -141,12 +155,16 @@ def main(argv=None) -> None:
         for src, cubin in mine.items():
             ks = kernels_of(cubin)
             theirs = kernels_of(other[src]) if src in other else None
+            by_short = {short_name(k): v for k, v in (theirs or {}).items()}
             for name in sorted(ks):
                 note = ""
                 if theirs is not None:
-                    note = ("; SASS identical to the other tree's" if theirs.get(name)
-                            == ks[name] else "; SASS differs from the other tree's"
-                            if name in theirs else "; not in the other tree")
+                    old = theirs.get(name)
+                    if old is None:
+                        old = by_short.get(without_bf16_flag(short_name(name)))
+                    note = ("; not in the other tree" if old is None else
+                            "; SASS identical to the other tree's" if old == ks[name]
+                            else "; SASS differs from the other tree's")
                 print(f"SASS {src} {name}: {counts(ks[name])}{note}")
 
 

@@ -32,10 +32,21 @@ TF32 hi and lo in the mma fragments' order (``tf32x3.forward_fragments``),
 per call or, for decode, once in ``with_fragments`` (the blocks'
 ``frag1`` and ``frag2``). For a CPU tensor it runs the plain PyTorch
 version ``tade_block_reference``. A CUDA tensor never takes the
-plain path. The TPU lane packing, tiling (``t_tile``) and bf16-resident
-mode do not carry over. This wrapper is inference-only, as JAX's, so a
-forward that would need gradients raises; the differentiable block, whose
-backward is K9a/K9b, is ``ops/kernels/tade_train.py``.
+plain path. The TPU lane packing and tiling (``t_tile``) do not carry
+over. This wrapper is inference-only, as JAX's, so a forward that would
+need gradients raises; the differentiable block, whose backward is
+K9a/K9b, is ``ops/kernels/tade_train.py``.
+
+The kernels' bf16-resident mode (JAX's ``mxu_bf16``, which
+``fused_tade_blocks_train`` turns on for a bf16 x, tade_train.py:776;
+JAX's decode wrapper has none) is ``tade1_cuda``/``tade2_cuda`` on a bf16
+x and c: x, c, x2, a, out and a2 bf16 in memory, the statistics float32,
+each conv's operands rounded to bf16 (the weights once, by
+``mma_bf16.tade_forward_fragments``), the products summed in float32, the
+biases, modulation and gate in float32. Its plain versions are
+``tade1_reference_bf16`` and ``tade2_reference_bf16``, differentiable,
+their backward rounding where JAX's reverse kernels round (``_ConvBF16``,
+``_NormBF16``, ``_StretchBF16``).
 """
 
 from __future__ import annotations
@@ -44,7 +55,7 @@ import torch
 import torch.nn.functional as F
 
 from parallelwavegan_tpu_torch.layers.tade import GATES, gate, instance_norm_1d
-from parallelwavegan_tpu_torch.ops.kernels import build
+from parallelwavegan_tpu_torch.ops.kernels import build, mma_bf16
 from parallelwavegan_tpu_torch.ops.kernels.tf32x3 import forward_fragments
 
 C = 64  # the kernels' width, the JAX C0P
@@ -95,9 +106,136 @@ def tade2_reference(x, x2, a, blk, gated_function: str = "softmax"):
 
 def tade_block_reference(x, c, blk, *, gated_function: str = "softmax"):
     """One TADEResBlock on folded weights: x (B, T, 64), c (B, T, Ca) ->
-    (x_out, c_out), both (B, T * scale, 64)."""
+    (x_out, c_out), both (B, T * scale, 64). A bf16 x runs the bf16 plain
+    versions (``tade1_reference_bf16``, c then bf16 too)."""
+    if x.dtype == torch.bfloat16:
+        x2, a = tade1_reference_bf16(x, c, blk, gated_function)
+        return tade2_reference_bf16(x, x2, a, blk, gated_function)
     x2, a = tade1_reference(x, c, blk, gated_function)
     return tade2_reference(x, x2, a, blk, gated_function)
+
+
+# ---------------------------------------------------------------------------
+# plain versions of the bf16-resident mode (JAX's mxu_bf16)
+# ---------------------------------------------------------------------------
+
+
+def _rb(v):
+    """v rounded to bf16 (to nearest even, as astype(bfloat16)), as float32."""
+    return v.detach().to(torch.bfloat16).float()
+
+
+def instance_norm_backward(dxn, x, mean, rstd):
+    """dL/dx of xn = (x - mean) * rstd over time (dim 1) for dL/dxn = dxn:
+    rstd * (dxn - E[dxn] - xn * E[dxn * xn]) (JAX tade_train.py:90-105)."""
+    mean, rstd = mean[:, None], rstd[:, None]
+    xn = (x - mean) * rstd
+    e1 = dxn.mean(dim=1, keepdim=True)
+    e2 = (dxn * xn).mean(dim=1, keepdim=True)
+    return rstd * (dxn - e1 - xn * e2)
+
+
+class _ConvBF16(torch.autograd.Function):
+    """A "same" 9-tap conv in JAX's bf16 mode: z = conv(bf16(x), bf16(w)) +
+    b, products of the rounded operands summed in float32, the bias added
+    in float32 (``_apply_conv``, tade_decode.py:173-190). Its backward is
+    JAX's reverse kernels' (tade_train.py:173-208): dx = conv^T(bf16(dz),
+    bf16(w)), dw from bf16(x) and bf16(dz), db = sum of dz, all float32
+    (autograd casts each to its input's dtype)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, d):
+        xr, wr = _rb(x), _rb(w)
+        ctx.save_for_backward(xr, wr)
+        ctx.d = d
+        return _conv(xr, wr, b.detach().float(), d)
+
+    @staticmethod
+    def backward(ctx, dz):
+        xr, wr = ctx.saved_tensors
+        dx, dw = conv_vjp_bf16(xr, wr, dz, ctx.d)
+        return dx, dw, dz.float().sum(dim=(0, 1)), None
+
+
+def conv_vjp_bf16(x, w, dz, d: int = 1):
+    """(dx, dw) of ``_ConvBF16`` for the cotangent dz: the transposed conv
+    of bf16(dz) with bf16(w), and the weight gradient of bf16(x) against
+    bf16(dz), both summed in float32 (JAX's ``_apply_conv_t`` and
+    ``_conv_wgrads``)."""
+    with torch.enable_grad():
+        xl, wl = _rb(x).requires_grad_(), _rb(w).requires_grad_()
+        return torch.autograd.grad(_conv(xl, wl, None, d), (xl, wl), _rb(dz))
+
+
+class _NormBF16(torch.autograd.Function):
+    """The instance norm of a bf16 activation x (B, T, 64): xn = (x -
+    mean) * rstd in float32, the statistics float32 from the bf16 values
+    (``_packed_stats``, tade_decode.py:127-140). Backward: its cotangent
+    rounded to bf16 (the reverse kernels store dxn in bf16), the norm's
+    backward in float32, dx rounded to bf16 (``_in_bwd_packed``,
+    tade_train.py:130-145)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        xf = x.float()
+        mean, rstd = _stats(xf)
+        ctx.save_for_backward(xf, mean, rstd)
+        return (xf - mean[:, None]) * rstd[:, None]
+
+    @staticmethod
+    def backward(ctx, dxn):
+        xf, mean, rstd = ctx.saved_tensors
+        return instance_norm_backward(_rb(dxn), xf, mean, rstd).to(torch.bfloat16)
+
+
+class _StretchBF16(torch.autograd.Function):
+    """The nearest x``scale`` stretch along time of a value whose cotangent
+    JAX's stage-2 kernel stores in bf16: backward rounds the cotangent to
+    bf16 and sums each group of ``scale`` rows in bf16 (``_stretch_t_packed``
+    on bf16 arrays, tade_train.py:148-160); at scale 1 it only rounds."""
+
+    @staticmethod
+    def forward(ctx, v, scale):
+        ctx.scale = scale
+        return _stretch(v, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.to(torch.bfloat16)
+        if ctx.scale > 1:
+            b, rows, c = g.shape
+            g = g.view(b, rows // ctx.scale, ctx.scale, c).sum(dim=2)
+        return g, None
+
+
+def tade1_reference_bf16(x, c, blk, gated_function: str = "softmax"):
+    """K8a's function in the bf16-resident mode (JAX ``_kernel_tade1`` with
+    ``mxu_bf16``): x, c (B, T, 64) bf16 -> (x2, a) bf16. Each conv's
+    operands rounded to bf16 and the products summed in float32
+    (``_ConvBF16``); a, the modulation and the gate float32 until the
+    outputs are rounded on store. Differentiable: its autograd rounds
+    where JAX's reverse kernel does (``_ConvBF16``, ``_NormBF16``); the
+    weights may be float32 or bf16 (rounded either way)."""
+    a = _ConvBF16.apply(c, blk["aux1_w"], blk["aux1_b"], 1)
+    s, h = _ConvBF16.apply(a, blk["g1_w"], blk["g1_b"], 1).chunk(2, dim=-1)
+    y = s * _NormBF16.apply(x) + h
+    x2 = _gate(_ConvBF16.apply(y, blk["gc1_w"], blk["gc1_b"], 1), gated_function)
+    return x2.to(torch.bfloat16), a.to(torch.bfloat16)
+
+
+def tade2_reference_bf16(x, x2, a, blk, gated_function: str = "softmax"):
+    """K8b's function in the bf16-resident mode (JAX ``_kernel_tade2`` with
+    ``mxu_bf16``): x, x2, a (B, T, 64) bf16 -> (out, a2) (B, sT, 64) bf16,
+    out = bf16(up(x) + gate(...)) with the sum in float32. Differentiable
+    as ``tade1_reference_bf16``; the stretches' adjoints sum in bf16
+    (``_StretchBF16``)."""
+    sc, d = int(blk["scale"]), int(blk["dilation"])
+    a2 = _ConvBF16.apply(_StretchBF16.apply(a, sc), blk["aux2_w"], blk["aux2_b"], 1)
+    s, h = _ConvBF16.apply(a2, blk["g2_w"], blk["g2_b"], 1).chunk(2, dim=-1)
+    y2 = s * _StretchBF16.apply(_NormBF16.apply(x2), sc) + h
+    t2 = _ConvBF16.apply(y2, blk["gc2_w"], blk["gc2_b"], d)
+    out = _StretchBF16.apply(x, sc).float() + _gate(t2, gated_function)
+    return out.to(torch.bfloat16), a2.to(torch.bfloat16)
 
 
 # ---------------------------------------------------------------------------
@@ -112,6 +250,8 @@ def _stats(x):
 
 
 def _check_cuda_inputs(x, c, blk) -> None:
+    """Raise unless the kernels take x, c and the block: float32 x and c
+    (or, for the bf16 mode, both bf16, the weights then float32 or bf16)."""
     if x.dim() != 3 or c.dim() != 3:
         raise ValueError(f"x and c must be (B, T, C), got {tuple(x.shape)}, "
                          f"{tuple(c.shape)}")
@@ -121,9 +261,11 @@ def _check_cuda_inputs(x, c, blk) -> None:
                          f"{width} and c width {c.shape[2]}")
     if b > 65535:
         raise ValueError(f"batch {b} exceeds the grid's 65535")
+    bf16 = x.dtype == torch.bfloat16
+    io = build.BF16 if bf16 else (torch.float32,)
     # rows are read in 16-byte pieces
-    build.check_tensor("x", x, x.device, (b, t, C), align=16)
-    build.check_tensor("c", c, x.device, (b, t, C), align=16)
+    build.check_tensor("x", x, x.device, (b, t, C), align=16, dtypes=io)
+    build.check_tensor("c", c, x.device, (b, t, C), align=16, dtypes=io)
     if int(blk["scale"]) not in (1, 2):
         raise ValueError(f"the TADE kernels take scale 1 or 2, got {blk['scale']}")
     if int(blk["dilation"]) not in DILATIONS:
@@ -132,12 +274,14 @@ def _check_cuda_inputs(x, c, blk) -> None:
     for key in WEIGHT_KEYS:
         cout = C if key.startswith("aux") else 2 * C
         # the kernels read the weights' split (forward_fragments), and the
-        # biases in 8-byte pairs
+        # biases in 8-byte pairs (the bf16 mode's widened by the wrapper)
+        kinds = build.EITHER if bf16 else (torch.float32,)
         build.check_tensor(f"{key}_w", blk[f"{key}_w"], x.device,
-                           (KERNEL_SIZE, C, cout))
-        build.check_tensor(f"{key}_b", blk[f"{key}_b"], x.device, (cout,), align=8)
+                           (KERNEL_SIZE, C, cout), dtypes=kinds)
+        build.check_tensor(f"{key}_b", blk[f"{key}_b"], x.device, (cout,),
+                           align=0 if bf16 else 8, dtypes=kinds)
     for half in (1, 2):
-        if f"frag{half}" in blk:
+        if f"frag{half}" in blk and not bf16:
             build.check_tensor(f"frag{half}", blk[f"frag{half}"], x.device,
                                FRAGMENTS_SHAPE, align=16)
 
@@ -151,9 +295,12 @@ def _split(blk, half: int):
     return forward_fragments(*(blk[f"{k}_w"] for k in _keys(half)))
 
 
-def _fragments(blk, half: int):
+def _fragments(blk, half: int, bf16: bool = False):
     """The block's ``frag1``/``frag2`` where ``with_fragments`` made them,
-    else the split made now."""
+    else the split made now; with ``bf16`` the half's convs rounded to
+    bf16 now (``mma_bf16.tade_forward_fragments``)."""
+    if bf16:
+        return mma_bf16.tade_forward_fragments(*(blk[f"{k}_w"] for k in _keys(half)))
     cached = blk.get(f"frag{half}")
     return cached if cached is not None else _split(blk, half)
 
@@ -170,42 +317,58 @@ def with_fragments(blk):
 
 
 def _biases(blk, half: int):
-    return [blk[f"{k}_b"].data_ptr() for k in _keys(half)]
+    """The half's three biases as float32 (the bf16 mode's widened): hold
+    them until the launch is queued."""
+    return [blk[f"{k}_b"].float().contiguous() for k in _keys(half)]
+
+
+def _ptrs(tensors):
+    return [t.data_ptr() for t in tensors]
+
+
+def _entry(name: str, x) -> str:
+    return f"{name}_bf16" if x.dtype == torch.bfloat16 else name
 
 
 def tade1_cuda(x, c, blk, gated_function: str = "softmax"):
-    """K8a on the card: the stats of x, then one launch. (x2, a)."""
+    """K8a on the card: the stats of x, then one launch. (x2, a), in x's
+    dtype (a bf16 x runs the bf16-resident mode)."""
     _check_cuda_inputs(x, c, blk)
+    bf16 = x.dtype == torch.bfloat16
     lib = build.load()
     dev, stream = build.launch_target(x)
     b, t, _ = x.shape
-    mean, rstd = _stats(x)
+    mean, rstd = _stats(x.float())
     x2, a = torch.empty_like(x), torch.empty_like(x)
-    wf = _fragments(blk, 1)  # held until the launch is queued
-    lib.call("tade1", x.data_ptr(), c.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-             x2.data_ptr(), a.data_ptr(), wf.data_ptr(), *_biases(blk, 1), None, None,
-             None, b, t, GATES.index(gated_function), dev, stream)
+    wf, bias = _fragments(blk, 1, bf16), _biases(blk, 1)  # held until the launch is queued
+    lib.call(_entry("tade1", x), x.data_ptr(), c.data_ptr(), mean.data_ptr(),
+             rstd.data_ptr(), x2.data_ptr(), a.data_ptr(), wf.data_ptr(), *_ptrs(bias),
+             None, None, None, b, t, GATES.index(gated_function), dev, stream)
     fused_tade_blocks.launches_k8a += 1
+    fused_tade_blocks.bf16_launches_k8a += int(bf16)
     return x2, a
 
 
 def tade2_cuda(x, x2, a, blk, gated_function: str = "softmax"):
-    """K8b on the card: the stats of x2, then one launch. (out, a2)."""
+    """K8b on the card: the stats of x2, then one launch. (out, a2), in x's
+    dtype (a bf16 x runs the bf16-resident mode)."""
     _check_cuda_inputs(x, a, blk)
-    build.check_tensor("x2", x2, x.device, x.shape)
+    bf16 = x.dtype == torch.bfloat16
+    build.check_tensor("x2", x2, x.device, x.shape, align=16, dtypes=(x.dtype,))
     lib = build.load()
     dev, stream = build.launch_target(x)
     b, t, _ = x.shape
     sc = int(blk["scale"])
-    mean, rstd = _stats(x2)
-    out = torch.empty((b, sc * t, C), device=x.device, dtype=torch.float32)
+    mean, rstd = _stats(x2.float())
+    out = torch.empty((b, sc * t, C), device=x.device, dtype=x.dtype)
     a2 = torch.empty_like(out)
-    wf = _fragments(blk, 2)
-    lib.call("tade2", x.data_ptr(), x2.data_ptr(), a.data_ptr(), mean.data_ptr(),
-             rstd.data_ptr(), out.data_ptr(), a2.data_ptr(), wf.data_ptr(),
-             *_biases(blk, 2), None, None, None, None, b, t, sc, int(blk["dilation"]),
+    wf, bias = _fragments(blk, 2, bf16), _biases(blk, 2)
+    lib.call(_entry("tade2", x), x.data_ptr(), x2.data_ptr(), a.data_ptr(),
+             mean.data_ptr(), rstd.data_ptr(), out.data_ptr(), a2.data_ptr(), wf.data_ptr(),
+             *_ptrs(bias), None, None, None, None, b, t, sc, int(blk["dilation"]),
              GATES.index(gated_function), dev, stream)
     fused_tade_blocks.launches_k8b += 1
+    fused_tade_blocks.bf16_launches_k8b += int(bf16)
     return out, a2
 
 
@@ -248,7 +411,9 @@ def fused_tade_blocks(x, c, blocks, *, gated_function: str = "softmax",
     ``tade_block_reference`` on a CPU tensor; the others run their
     module's own forward (``blk["module"]``). ``fused_tade_blocks.calls``
     counts the calls that launched a kernel, ``.launches_k8a`` and
-    ``.launches_k8b`` the launches of each kernel.
+    ``.launches_k8b`` the launches of each kernel (``.bf16_launches_k8a``
+    and ``.bf16_launches_k8b`` those in the bf16 mode, which the training
+    wrapper's bf16 x runs).
     """
     if gated_function not in GATES:
         raise ValueError(f"{gated_function} is not supported.")
@@ -258,6 +423,9 @@ def fused_tade_blocks(x, c, blocks, *, gated_function: str = "softmax",
                           "fused_tade_blocks_train, K9)", tensors)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_tade_blocks: unsupported device {x.device}")
+    if x.dtype != torch.float32:
+        raise ValueError(f"fused_tade_blocks takes float32 x, got {x.dtype}: JAX's decode "
+                         "wrapper has no bf16 mode (train through fused_tade_blocks_train)")
     launched = False
     for i, blk in enumerate(blocks):
         if not gated(x.shape[1], blk, min_fused_t=min_fused_t):
@@ -277,3 +445,5 @@ def fused_tade_blocks(x, c, blocks, *, gated_function: str = "softmax",
 fused_tade_blocks.calls = 0
 fused_tade_blocks.launches_k8a = 0
 fused_tade_blocks.launches_k8b = 0
+fused_tade_blocks.bf16_launches_k8a = 0
+fused_tade_blocks.bf16_launches_k8b = 0

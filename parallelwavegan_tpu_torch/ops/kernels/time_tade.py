@@ -5,7 +5,7 @@ public wrappers alone, so that two trees can be timed in turns:
 
 DIR (default: this file's tree) is put first on sys.path, so its package
 and its kernel sources are the ones timed (a parent commit unpacked with
-``git archive``). Two measurements, as ``chip_smoke.py`` phases 11 and 20
+``git archive``). Three measurements, as ``chip_smoke.py`` phases 11, 20 and 28
 take them:
 
 - decode: K8a and K8b (``tade1_cuda``, ``tade2_cuda``, the instance-norm
@@ -16,7 +16,15 @@ take them:
   split that ``prepare_kernels`` keeps, where a tree keeps one);
 - re-run: K8's re-runs inside K9 (``tade1_kernel`` and ``tade2_kernel``
   device time under torch.profiler) in one G step's backward of blocks
-  4-8 at B=32 (T = 1408 .. 22528); median of 3.
+  4-8 at B=32 (T = 1408 .. 22528); median of 3;
+- bf16 (a tree with the bf16-resident modes, else left out): one G step's
+  K8a, K8b (``tade1_cuda``, ``tade2_cuda``) and K9a, K9b
+  (``tade1_backward_cuda``, ``tade2_backward_cuda``) over blocks 4-8 at
+  B=32 on bf16 inputs and weights, beside the float32 kernels on the same
+  values and the bf16 plain versions (``tade1_reference_bf16``,
+  ``tade2_reference_bf16``, ``tade1_backward_reference``,
+  ``tade2_backward_reference`` on bf16); medians of 10 (CUDA events), the
+  weights split per call as training splits them.
 
 Prints the card (``nvidia-smi``) and one JSON line of the times in ms.
 """
@@ -45,6 +53,44 @@ def _median_ms(fn, reps: int = 10) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _bf16_step(td, tt, step) -> dict:
+    """{kernel: {"bf16", "float32", "bf16_plain"}}: one G step's K8a, K8b,
+    K9a and K9b over the blocks of ``step`` (x, c, x2, a, blk, dxo, dco)."""
+    import torch
+
+    bf = torch.bfloat16
+    out = {k: {"bf16": 0.0, "float32": 0.0, "bf16_plain": 0.0}
+           for k in ("k8a", "k8b", "k9a", "k9b")}
+    for x, c, _, _, blk, dxo, dco in step:
+        b32 = {k: v for k, v in blk.items() if not k.startswith("frag")}
+        b16 = {k: v.to(bf) if torch.is_tensor(v) else v for k, v in b32.items()}
+        runs = {"float32": (x, c, dxo, dco, b32),
+                "bf16": (x.to(bf), c.to(bf), dxo.to(bf), dco.to(bf), b16)}
+        for mode, (xx, cc, do, dc, bl) in runs.items():
+            with torch.no_grad():
+                x2, a = td.tade1_cuda(xx, cc, bl)
+            _, dx2, da, _ = tt.tade2_backward_cuda(xx, x2, a, bl, "softmax", do, dc)
+            fns = {"k8a": lambda: td.tade1_cuda(xx, cc, bl),
+                   "k8b": lambda: td.tade2_cuda(xx, x2, a, bl),
+                   "k9a": lambda: tt.tade1_backward_cuda(xx, cc, bl, "softmax", dx2, da),
+                   "k9b": lambda: tt.tade2_backward_cuda(xx, x2, a, bl, "softmax", do, dc)}
+            if mode == "bf16":
+                plain = {"k8a": lambda: td.tade1_reference_bf16(xx, cc, bl),
+                         "k8b": lambda: td.tade2_reference_bf16(xx, x2, a, bl),
+                         "k9a": lambda: tt.tade1_backward_reference(xx, cc, bl, "softmax",
+                                                                    dx2, da),
+                         "k9b": lambda: tt.tade2_backward_reference(xx, x2, a, bl,
+                                                                    "softmax", do, dc)}
+            for k, fn in fns.items():
+                with torch.no_grad():
+                    out[k][mode] += _median_ms(fn)
+                    if mode == "bf16":
+                        out[k]["bf16_plain"] += _median_ms(plain[k])
+            del x2, a, dx2, da
+        torch.cuda.empty_cache()
+    return out
 
 
 def main(argv=None) -> None:
@@ -133,6 +179,8 @@ def main(argv=None) -> None:
         runs.append(ms)
     mid = sorted(runs, key=lambda r: r["k8a"] + r["k8b"])[1]
     out["rerun_ms"] = {**mid, "sum": mid["k8a"] + mid["k8b"]}
+    if hasattr(td, "tade1_reference_bf16"):
+        out["bf16_step_ms"] = _bf16_step(td, tt, step)
     print(card)
     print(json.dumps(out))
 

@@ -5,7 +5,9 @@ plain version) and its backward (K4, split TF32 as well),
 the MelGAN stack kernel (K6) and its backward (K7), the MRF stage on the
 residual-unit kernel (K2) and the StyleMelGAN TADE kernels (K8a, K8b,
 decode and the backward's re-run, split TF32 on the tensor cores) and
-their backward (K9a, K9b). The generator tests also check that no CUDA tensor reaches a plain
+their backward (K9a, K9b), K6/K7 and K8/K9 also in their bf16-resident
+modes (``-k bf16``: one bf16 product per multiply, against plain versions
+that round where JAX rounds). The generator tests also check that no CUDA tensor reaches a plain
 version on the main path.
 
 The HiFi-GAN residual units run on the tensor cores in split TF32 at
@@ -1483,6 +1485,180 @@ def test_tade_backward_rejects_unsupported_input(cuda):
     with pytest.raises(ValueError, match="dout"):
         f(x, c, x2, a, blk, "softmax", dxo[:, :64].contiguous(), dco)
     assert (f.launches_k9a, f.launches_k9b) == before
+
+
+# ---------------------------------------------------------------------------
+# bf16-resident modes of K8 and K9 (mixed_precision training)
+# ---------------------------------------------------------------------------
+
+
+def _tade_truncated(blk):
+    """The block's weights cut to bf16 by truncation (a control)."""
+    return {k: (v.float().view(torch.int32) & -65536).view(torch.float32)
+            if k.endswith("_w") else v for k, v in blk.items()}
+
+
+def _tade_bf16_case(cuda, b, t, scale, dilation, bias, wdtype, seed=21):
+    """A unit-gain block (weights in wdtype), bf16 x and c, bf16 cotangents
+    of scale 1 / sqrt(B sT), and the block's float32 weights truncated to
+    bf16 (a control: truncating bf16 weights would change nothing)."""
+    blk, x, c, dxo, dco = _k9_case(cuda, b, t, scale, dilation, bias, seed=seed)
+    trunc = _tade_truncated(blk)
+    blk = {k: v.to(wdtype) if torch.is_tensor(v) else v for k, v in blk.items()}
+    return blk, *(v.to(torch.bfloat16) for v in (x, c, dxo, dco)), trunc
+
+
+# StyleMelGAN v1's block shapes cut in T (blocks 4-8 are scale 2 or 1,
+# dilation 2, softmax), a ragged T of no whole tile, the sigmoid gate, no
+# biases, dilations 1, 3 and 4, bf16 and float32 weights
+@pytest.mark.parametrize("b,t,scale,dilation,gated,bias,wdtype", [
+    (4, 1408, 2, 2, "softmax", True, torch.bfloat16),
+    (4, 2816, 1, 2, "softmax", True, torch.bfloat16),
+    (2, 1001, 2, 2, "sigmoid", True, torch.float32),
+    (1, 333, 2, 1, "softmax", False, torch.bfloat16),
+    (2, 130, 1, 3, "sigmoid", True, torch.float32),
+    (1, 200, 2, 4, "softmax", True, torch.bfloat16)])
+def test_tade_bf16_kernels_match_plain_version(cuda, b, t, scale, dilation, gated, bias,
+                                               wdtype):
+    """K8a and K8b in the bf16 mode against ``tade1_reference_bf16`` /
+    ``tade2_reference_bf16`` (K8b on K8a's outputs), to ``_bf16_close``;
+    the float32 kernels on the same values and truncated weights are
+    rejected."""
+    blk, x, c, _, _, tb = _tade_bf16_case(cuda, b, t, scale, dilation, bias, wdtype)
+    f = tade_mod.fused_tade_blocks
+    before = (f.bf16_launches_k8a, f.bf16_launches_k8b)
+    with torch.no_grad():
+        x2, a = tade_mod.tade1_cuda(x, c, blk, gated)
+        out, a2 = tade_mod.tade2_cuda(x, x2, a, blk, gated)
+        want = (*tade_mod.tade1_reference_bf16(x, c, blk, gated),
+                *tade_mod.tade2_reference_bf16(x, x2, a, blk, gated))
+        b32 = {k: v.float() if torch.is_tensor(v) else v for k, v in blk.items()}
+        f32 = (*tade_mod.tade1_cuda(x.float(), c.float(), b32, gated),
+               *tade_mod.tade2_cuda(x.float(), x2.float(), a.float(), b32, gated))
+        trunc = (*tade_mod.tade1_cuda(x, c, tb, gated),
+                 *tade_mod.tade2_cuda(x, x2, a, tb, gated))
+    torch.cuda.synchronize()
+    assert (f.bf16_launches_k8a, f.bf16_launches_k8b) == (before[0] + 2, before[1] + 2)
+    for name, g, w in zip(("x2", "a", "out", "a2"), (x2, a, out, a2), want):
+        assert g.dtype == w.dtype == torch.bfloat16 and g.shape == w.shape, name
+        assert _bf16_close(g, w), (name, float((g.float() - w.float()).abs().max()))
+    assert not all(_bf16_close(g, w) for g, w in zip(f32, want))
+    assert not all(_bf16_close(g, w) for g, w in zip(trunc, want))
+
+
+@pytest.mark.parametrize("b,t,scale,dilation,gated,bias,wdtype", [
+    (4, 1408, 2, 2, "softmax", True, torch.bfloat16),
+    (4, 2816, 1, 2, "softmax", True, torch.bfloat16),
+    (2, 1002, 2, 2, "sigmoid", True, torch.float32),
+    (1, 334, 2, 1, "softmax", False, torch.bfloat16),
+    (2, 6, 2, 2, "softmax", True, torch.bfloat16),
+    (1, 513, 2, 4, "sigmoid", True, torch.float32)])
+def test_tade_bf16_backward_matches_plain_version(cuda, b, t, scale, dilation, gated, bias,
+                                                  wdtype):
+    """K9b and K9a in the bf16 mode, stage by stage, against their plain
+    versions fed the kernels' own re-run (``tade2_backward_reference_bf16``
+    / ``tade1_backward_reference_bf16`` with ``rerun``: the bf16 chain of a
+    second forward would move values by its own roundings), to
+    ``_bf16_close``; the float32 kernels and truncated weights rejected."""
+    from parallelwavegan_tpu_torch.ops.kernels import tade_train as k9
+
+    blk, x, c, dxo, dco, tb = _tade_bf16_case(cuda, b, t, scale, dilation, bias, wdtype)
+    with torch.no_grad():
+        x2, a = tade_mod.tade1_cuda(x, c, blk, gated)
+    f = k9.tade_block_backward
+    before = (f.bf16_launches_k9a, f.bf16_launches_k9b)
+    got2 = k9.tade2_backward_cuda(x, x2, a, blk, gated, dxo, dco)
+    got1 = k9.tade1_backward_cuda(x, c, blk, gated, got2[1], got2[2])
+    m2, r2 = tade_mod._stats(x2.float())
+    m1, r1 = tade_mod._stats(x.float())
+    with torch.no_grad():
+        rerun2 = k9.tade2_rerun_cuda(x, x2, a, blk, gated, m2, r2)
+        rerun1 = k9.tade1_rerun_cuda(x, c, blk, gated, m1, r1)
+    want2 = k9.tade2_backward_reference_bf16(x, x2, a, blk, gated, dxo, dco, rerun2)
+    want1 = k9.tade1_backward_reference_bf16(x, c, blk, gated, got2[1], got2[2], rerun1)
+    torch.cuda.synchronize()
+    assert (f.bf16_launches_k9a, f.bf16_launches_k9b) == (before[0] + 1, before[1] + 1)
+
+    def pairs(g1, g2, w1, w2):
+        return ([("dx", g1[0], w1[0]), ("dc", g1[1], w1[1]), ("dx res", g2[0], w2[0]),
+                 ("dx2", g2[1], w2[1]), ("da", g2[2], w2[2])]
+                + [(k, g1[2][k], w1[2][k]) for k in w1[2]]
+                + [(k, g2[3][k], w2[3][k]) for k in w2[3]])
+
+    for name, g, w in pairs(got1, got2, want1, want2):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert g.dtype == (torch.bfloat16 if name in ("dx", "dc", "dx res", "dx2", "da")
+                           else torch.float32), name
+        assert _bf16_close(g, w), (name, float((g.float() - w.float()).abs().max()),
+                                   float(w.float().abs().max()))
+        assert not _bf16_close(torch.zeros_like(g), w), name
+    # controls: the float32 kernels on the same values, truncated weights
+    b32 = {k: v.float() if torch.is_tensor(v) else v for k, v in blk.items()}
+    xf, cf, x2f, af = x.float(), c.float(), x2.float(), a.float()
+    g2 = k9.tade2_backward_cuda(xf, x2f, af, b32, gated, dxo.float(), dco.float())
+    g1 = k9.tade1_backward_cuda(xf, cf, b32, gated, got2[1].float(), got2[2].float())
+    assert not all(_bf16_close(g, w) for _, g, w in pairs(g1, g2, want1, want2))
+    g2 = k9.tade2_backward_cuda(x, x2, a, tb, gated, dxo, dco)
+    g1 = k9.tade1_backward_cuda(x, c, tb, gated, got2[1], got2[2])
+    assert not all(_bf16_close(g, w) for _, g, w in pairs(g1, g2, want1, want2))
+
+
+def test_tade_bf16_kernels_are_deterministic(cuda):
+    from parallelwavegan_tpu_torch.ops.kernels import tade_train as k9
+
+    blk, x, c, dxo, dco, _ = _tade_bf16_case(cuda, 2, 3000, 2, 2, True, torch.bfloat16)
+
+    def run():
+        with torch.no_grad():
+            x2, a = tade_mod.tade1_cuda(x, c, blk)
+            out = tade_mod.tade2_cuda(x, x2, a, blk)
+        dx, dc, dw = k9.tade_block_backward(x, c, x2, a, blk, "softmax", dxo, dco)
+        return [x2, a, *out, dx, dc, *dw.values()]
+
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    for i, (p, q) in enumerate(zip(first, second)):
+        assert torch.equal(p, q), i
+
+
+def test_style_melgan_generator_trains_bf16_through_the_kernels(cuda, monkeypatch):
+    """``mixed_precision``'s bf16 parameters and input through the fused
+    train path: K8 and K9 in their bf16 modes, never a plain version; the
+    output bf16 and every master gradient float32 and finite."""
+    from parallelwavegan_tpu_torch.ops.kernels import tade_train as k9
+    from parallelwavegan_tpu_torch.train import precision
+
+    cls = get_model_class("StyleMelGANGenerator")
+    small = dict(in_channels=32, aux_channels=80, noise_upsample_scales=(11, 2),
+                 upsample_scales=(2, 2, 2, 1))
+    gen = cls(**small, use_pallas_tade_train=True, pallas_tade_train_min_t=80,
+              generator=torch.Generator().manual_seed(4)).to(cuda)
+    c = torch.randn(2, 80, 22, generator=torch.Generator().manual_seed(5)).to(cuda)
+    z = torch.randn(2, 32, 1, generator=torch.Generator().manual_seed(6)).to(cuda)
+    for name in ("tade_block_backward_reference", "tade1_reference_bf16",
+                 "tade2_reference_bf16", "tade1_reference", "tade2_reference"):
+        _refuse(monkeypatch, k9, name)
+    f, k8 = k9.tade_block_backward, tade_mod.fused_tade_blocks
+    before = (f.bf16_launches_k9a, f.bf16_launches_k9b, k8.bf16_launches_k8a,
+              k8.bf16_launches_k8b)
+    y = precision.call(gen, precision.bf16_params(gen), c.to(torch.bfloat16),
+                       z.to(torch.bfloat16))
+    assert y.dtype == torch.bfloat16 and y.shape == (2, 1, 22 * 8)
+    y.float().pow(2).mean().backward()  # block inputs 22, 44, 88, 176: 2, 3 gated
+    torch.cuda.synchronize()
+    assert (f.bf16_launches_k9a, f.bf16_launches_k9b, k8.bf16_launches_k8a,
+            k8.bf16_launches_k8b) == tuple(n + 2 for n in before)
+    for k, p in gen.named_parameters():
+        assert p.grad is not None and p.grad.dtype == torch.float32, k
+        assert torch.isfinite(p.grad).all(), k
+
+
+def test_tade_bf16_rejects_mixed_input(cuda):
+    blk, x, c, dxo, dco, _ = _tade_bf16_case(cuda, 1, 64, 2, 2, True, torch.bfloat16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        tade_mod.tade1_cuda(x, c.float(), blk)
+    with pytest.raises(ValueError, match="float32"):
+        tade_mod.fused_tade_blocks(x, c, [blk], min_fused_t=1)
 
 
 def test_hifigan_train_step_on_the_card_matches_the_cpu(cuda):

@@ -3,8 +3,9 @@
 with the spectral-norm discriminator of tests/test_mixed_precision.py
 (its config), Parallel WaveGAN, MelGAN with ``use_pallas_stacks_train``
 (the bf16 modes of K6/K7: the port's plain versions, JAX's kernels in
-interpret mode) and StyleMelGAN (its plain blocks, as JAX runs them
-without ``use_pallas_tade_train``).
+interpret mode) and StyleMelGAN, with its plain blocks (as JAX runs them
+without ``use_pallas_tade_train``) and with ``use_pallas_tade_train``
+(the bf16 modes of K8/K9, likewise).
 
 Both packages start from the same weights (the port's, carried across by
 the JAX package's converter, spectral norm's (u, v) with them) and take
@@ -123,7 +124,12 @@ STYLE = dict(_OPT, **{
     "generator_adv_loss_params": {"average_by_discriminators": False},
     "discriminator_adv_loss_params": {"average_by_discriminators": False},
 })
-CONFIGS = {"hifigan": HIFIGAN, "pwg": PWG, "melgan": MELGAN, "style_melgan": STYLE}
+# blocks 1 and 2 (inputs of 20 and 40 samples) fused: K8/K9's bf16 modes
+# (the port's bf16 plain versions, JAX's kernels in interpret mode)
+STYLE_TADE = dict(STYLE, generator_params=dict(
+    STYLE["generator_params"], use_pallas_tade_train=True, pallas_tade_train_min_t=20))
+CONFIGS = {"hifigan": HIFIGAN, "pwg": PWG, "melgan": MELGAN, "style_melgan": STYLE,
+           "style_melgan_tade_train": STYLE_TADE}
 
 
 def _batch(name):

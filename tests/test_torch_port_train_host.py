@@ -484,10 +484,6 @@ def test_train_main_needs_a_card_unless_cpu_is_asked_for(train_args):
 
 
 @pytest.mark.parametrize("override,argv,what", [
-    # the bf16 modes of the TADE kernels are not ported: mixed precision
-    # with them (JAX's tade_train.py:736) is refused
-    ({"mixed_precision": True, "generator_type": "StyleMelGANGenerator",
-      "generator_params": {"use_pallas_tade_train": True}}, [], "mixed_precision"),
     ({"distributed": True}, [], "distributed"),
     ({"use_subband_stft_loss": True}, [], "sub-band STFT loss"),
     ({"use_duration_loss": True}, [], "duration loss"),
@@ -502,6 +498,68 @@ def test_unported_training_options_raise(tmp_path, train_args, override, argv, w
         json.dump(config, f)
     with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP.md"):
         train.main(train_args("exp", "--device", "cpu", *argv))
+
+
+def test_train_main_runs_mixed_precision_through_the_tade_kernels(tmp_path, monkeypatch):
+    """``mixed_precision`` with ``use_pallas_tade_train`` (refused until the
+    bf16 modes of K8/K9 were ported): a small StyleMelGAN through
+    ``bin/train.main`` on the CPU for two steps, its long blocks through the
+    bf16 plain versions of K8a/K8b (counted), the losses finite, every
+    checkpoint tensor float32."""
+    from parallelwavegan_tpu_torch.ops.kernels import tade_train
+
+    rs = np.random.RandomState(0)
+    os.makedirs(tmp_path / "dump")
+    for i in range(2):
+        frames = 12 + 3 * i
+        np.save(tmp_path / "dump" / f"u{i}-wave.npy",
+                (0.1 * rs.randn(frames * 4)).astype(np.float32))
+        np.save(tmp_path / "dump" / f"u{i}-feats.npy", rs.randn(frames, 20).astype(np.float32))
+    config = {
+        "sampling_rate": 8000, "hop_size": 4, "format": "npy", "mixed_precision": True,
+        "generator_type": "StyleMelGANGenerator",
+        # block inputs 10, 20, 40: blocks 1 and 2 fused
+        "generator_params": dict(in_channels=16, aux_channels=20, channels=64,
+                                 out_channels=1, kernel_size=9, dilation=2,
+                                 noise_upsample_scales=[5, 2], upsample_scales=[2, 2, 1],
+                                 use_pallas_tade_train=True, pallas_tade_train_min_t=20),
+        "discriminator_type": "StyleMelGANDiscriminator",
+        "discriminator_params": dict(
+            repeats=2, window_sizes=[16, 32],
+            pqmf_params=[[1, None, None, None], [2, 62, 0.267, 9.0]],
+            discriminator_params=dict(channels=8, max_downsample_channels=32,
+                                      downsample_scales=[2, 2])),
+        "stft_loss_params": {"fft_sizes": [16, 32, 8], "hop_sizes": [4, 8, 2],
+                             "win_lengths": [12, 24, 6], "window": "hann_window"},
+        "generator_adv_loss_params": {"average_by_discriminators": False},
+        "discriminator_adv_loss_params": {"average_by_discriminators": False},
+        "generator_optimizer_type": "Adam", "generator_optimizer_params": {"lr": 1e-4},
+        "discriminator_optimizer_type": "Adam",
+        "discriminator_optimizer_params": {"lr": 1e-4},
+        "generator_grad_norm": 10, "discriminator_grad_norm": 1,
+        "batch_size": 2, "batch_max_steps": 40, "num_workers": 1, "train_max_steps": 2,
+        "save_interval_steps": 1, "eval_interval_steps": 100, "log_interval_steps": 1,
+    }
+    with open(tmp_path / "c.json", "w") as f:
+        json.dump(config, f)
+    calls = []
+    real = tade_train.tade1_reference_bf16
+    monkeypatch.setattr(tade_train, "tade1_reference_bf16",
+                        lambda *a, **k: calls.append(a[0].dtype) or real(*a, **k))
+    out = train.main(["--train-dumpdir", str(tmp_path / "dump"), "--dev-dumpdir",
+                      str(tmp_path / "dump"), "--outdir", str(tmp_path / "exp"),
+                      "--config", str(tmp_path / "c.json"), "--verbose", "0",
+                      "--device", "cpu"])
+    assert out["steps"] == 2
+    # two fused blocks per generator forward, two G phases at least
+    assert len(calls) >= 4 and set(calls) == {torch.bfloat16}
+    logged = [m for _, m in out["history"] if "train/generator_loss" in m]
+    assert len(logged) == 2 and all(np.isfinite(v) for m in logged for v in m.values())
+    ckpt = torch.load(tmp_path / "exp" / "checkpoint-2steps.pkl", weights_only=True)
+    tensors = [v for part in ("model", "optimizer") for sd in ckpt[part].values()
+               for v in (sd.values() if part == "model" else
+                         [t for st in sd["state"].values() for t in st.values()])]
+    assert tensors and all(t.dtype == torch.float32 for t in tensors)
 
 
 def test_load_config_without_pyyaml(tmp_path, monkeypatch):
