@@ -257,6 +257,36 @@ Phases (any failure exits non-zero; nothing is caught):
    (the kernels) against the CPU (the bf16 plain versions) within 1e-2
    relative, and against float32 within 3e-2 and apart by more than 1e-4
    in some loss.
+30. K3's bf16-resident mode (``pallas_stack_bf16``) against its bf16 plain
+   version at a PWG v1 cycle (B=1, T=131072, 10 layers at d=1..512, C=64,
+   aux 80, the generator's weights from SEED with decode's bf16 fragments)
+   and a ragged one (B=3, T=777, C=16, aux 10, random weights of gain
+   one): each layer fed the plain version's input, within rms|diff| <=
+   1e-3 rms|plain| and max|diff| <= 1e-2 max|plain| and with at least 99 %
+   of the residual bit-equal, where the float32 kernel, the weights cut to
+   bf16 by truncation and the plain version with g unrounded must be
+   rejected at every layer; the whole cycle within the chain's noise (at
+   least 25 % of the residual bit-equal, the skip within 2.5e-3 rms and
+   1e-2 max), where the float32 kernel must be rejected; two runs and a
+   run that rounds its weights per call bit for bit; the bf16
+   instantiations' registers, spills and SASS (HMMA.16816.F32.BF16, no
+   TF32, no spill, at most 128 registers); CUDA-event times of the v1
+   cycle beside the float32 K3 and the bf16 plain version, its bound and
+   the per-layer design's bytes.
+31. The rest of the Parallel WaveGAN family on the main path: PWG v1
+   decode of the three utterances through ``bin/decode.main
+   --use-pallas-stack`` with ``pallas_stack_bf16`` (V1_PWG_GENERATOR
+   without ``use_pallas_stack_train``; 90 launches of K3's bf16 mode, no
+   float32 K3), held to the same decode with the bf16 plain version
+   patched in within 5e-3 rms (its distance from the float32 stack decode
+   printed); the causal PWG v1 decode with ``use_pallas_kernels`` (90
+   launches of K5's causal call) against its plain decode within 2e-4;
+   PWG v1 with ``ResidualParallelWaveGANDiscriminator`` at its defaults
+   (30 layers, 64 / 128 / 64) through ``bin/train.main`` at 6 x 25600
+   (TRAIN_OVERRIDES with D from step 2, K3/K4 through
+   ``use_pallas_stack_train``, and without them; a resume from step 2; the
+   checkpoint decoded), and one G+D step at B=2 on the card against the
+   CPU within 1e-4 relative.
 
 Phase 3 also decodes HiFi-GAN v1 with ``use_pallas_mrf: true`` in the
 config (K2 called twice per utterance, stages 2 and 3, 8 launches, every
@@ -270,7 +300,7 @@ input read once, each output written once) over 3.35 TB/s and its float32
 operations over 67 TFLOP/s, the H100 SXM data-sheet peaks at 700 W; for
 the kernels that multiply in split TF32 on the tensor cores (K1 to K9),
 three TF32 operations per multiply-add's two over 495 TFLOP/s instead,
-and for the bf16 modes of K6, K7, K8 and K9 bf16 operations over 989
+and for the bf16 modes of K3, K6, K7, K8 and K9 bf16 operations over 989
 TFLOP/s and their bf16 bytes.
 """
 
@@ -554,6 +584,7 @@ def _reset_launch_counts() -> None:
     for fn in (fused_hifigan_tail, fused_wavenet_stack, fused_gated_resblock,
                wavenet_stack_backward, melgan_stacks_backward):
         fn.launches = 0
+    fused_wavenet_stack.bf16_launches = 0
     from parallelwavegan_tpu_torch.ops.kernels.tade_decode import (
         fused_tade_blocks,
     )
@@ -3783,19 +3814,20 @@ def _tade_bf16_work(x, blk, half: int, backward: bool) -> dict:
     return _bf16_work(2.0 * b * sc * t * mac, 2 * acts + 2 * n_w + 4 * n_b + grads)
 
 
-def _built_resources(names) -> dict:
+def _built_resources(names, sources=("tade.cu", "tade_bwd.cu")) -> dict:
     """{kernel: {"registers", "spill_stores", "spill_loads" (bytes), "sass"
     (``sass.counts``)}} of the built library's kernels whose name starts
     with one of ``names``: registers and spills from the build's own
     ``ptxas -v`` lines, SASS from the library (cuobjdump), without
     compiling again; a library loaded from an earlier build has no log,
-    and then their sources are compiled once more (``sass.resource_usage``)."""
+    and then their ``sources`` are compiled once more
+    (``sass.resource_usage``)."""
     from parallelwavegan_tpu_torch.ops.kernels import build, sass
 
     lib = build.load()
     if not lib.log:
         out = {}
-        for src in ("tade.cu", "tade_bwd.cu"):
+        for src in sources:
             out.update(sass.resource_usage(os.path.join(build.CSRC, src)))
         return {k: v for k, v in out.items() if k.startswith(tuple(names))}
     out, entry = {}, None
@@ -4134,6 +4166,355 @@ def phase_style_bf16_train(card: str) -> dict:
             "err": worst, "err_resume": err_resume, "cross": cross}
 
 
+# K3's bf16 mode: the check of one layer fed the plain version's input (the
+# PR 16/17 rule and the share of bit-equal residuals), and of a whole cycle
+# against the chain's own noise; the CPU floors they rest on are in
+# PERF.md (PR 18): one layer, the plain version against itself with float64
+# sums, 3.5e-5 rms on x and 1.8e-5 on the skip with 99.98 % of x bit-equal;
+# a v1 cycle 3.2e-3 rms on x (53.5 % bit-equal) and 1.2e-3 on the skip; the
+# v1 generator's output 2.7e-3 rms.
+K3_BF16_LAYER_EQUAL = 0.99
+K3_BF16_CYCLE_EQUAL = 0.25
+K3_BF16_CYCLE_SKIP_RMS = 2.5e-3
+K3_BF16_DECODE_RMS = 5e-3
+
+
+def _rms_max_equal(got, want) -> tuple:
+    """(rms|diff| / rms|want|, max|diff| / max|want|, share of bit-equal
+    elements, max|diff|); fails on a wrong shape or non-finite output."""
+    import torch
+
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        _fail(f"shapes {tuple(got.shape)} vs {tuple(want.shape)} or non-finite output")
+    d, w = got.float() - want.float(), want.float()
+    return (float(d.pow(2).mean().sqrt() / w.pow(2).mean().sqrt()),
+            float(d.abs().max() / w.abs().max()), float((got == want).float().mean()),
+            float(d.abs().max()))
+
+
+def _k3_bf16_layer_ok(got, want) -> bool:
+    """One layer of K3's bf16 mode against its plain version on the same
+    input: x_out and skip within the PR 16/17 rule (``_bf16_close``) and x_out
+    bit-equal in at least K3_BF16_LAYER_EQUAL of its elements."""
+    return (all(_bf16_close(g, r) for g, r in zip(got, want))
+            and _rms_max_equal(got[0], want[0])[2] >= K3_BF16_LAYER_EQUAL)
+
+
+def _k3_bf16_cycle_ok(got, want) -> bool:
+    """A whole cycle against the plain version: at least K3_BF16_CYCLE_EQUAL
+    of x bit-equal, the skip within K3_BF16_CYCLE_SKIP_RMS rms and 1e-2 max
+    of the plain version's."""
+    sx, ss = _rms_max_equal(got[0], want[0]), _rms_max_equal(got[1], want[1])
+    return sx[2] >= K3_BF16_CYCLE_EQUAL and ss[0] <= K3_BF16_CYCLE_SKIP_RMS and ss[1] <= 1e-2
+
+
+def phase_k3_bf16(card: str) -> dict:
+    """K3's bf16-resident mode against its bf16 plain version at a PWG v1
+    cycle and a ragged C = 16 cycle, layer by layer and whole, with three
+    controls, bitwise reruns, its build resources and its times (module
+    docstring, phase 30)."""
+    import numpy as np
+    import torch
+
+    from parallelwavegan_tpu_torch.ops.kernels import wavenet as wn
+
+    for kernel, use in _built_resources(("wavenet_layer_kernel",), ("wavenet.cu",)).items():
+        print(f"K3/K5 {kernel}: {use.get('registers')} registers, spill stores "
+              f"{use.get('spill_stores')} B, loads {use.get('spill_loads')} B; SASS "
+              f"{use.get('sass')}")
+        if kernel.endswith("true>") and (
+                use.get("spill_stores") or use.get("spill_loads")
+                or use.get("registers", 999) > 128
+                or "HMMA.16816.F32.BF16" not in use.get("sass", "")
+                or "TF32" in use.get("sass", "")):
+            _fail(f"K3's bf16 instantiation {kernel}: spills, more than 128 registers "
+                  "or not bf16 HMMA")
+
+    def trunc(v):  # float32 weights cut to bf16 by truncation (a control)
+        return (v.contiguous().view(torch.int32) & ~0xFFFF).view(torch.float32)
+
+    gen = _pwg_v1({"use_pallas_stack_train": False, "use_pallas_stack": True,
+                   "pallas_stack_bf16": True})
+    n = V1_PWG_GENERATOR["layers"] // V1_PWG_GENERATOR["stacks"]
+    all_w, all_d = gen._kernel_cache["stack"]  # with decode's bf16 fragments
+    v1 = ({k: v[:n] for k, v in all_w.items()}, tuple(all_d[:n]))
+    rs = np.random.RandomState(SEED)
+    ragged = {key: torch.from_numpy((rs.randn(*shape) * (2.0 / fan) ** 0.5).astype(
+        np.float32)).to("cuda") for key, shape, fan in (
+        ("wconv", (n, 3, 16, 32), 48), ("bconv", (n, 32), 4), ("waux", (n, 10, 32), 10),
+        ("wskip", (n, 16, 16), 16), ("bskip", (n, 16), 4), ("wres", (n, 16, 16), 16),
+        ("bres", (n, 16), 4))}
+    cases = (("v1 cycle", 1, 131072, 80, v1[0], v1[1]),
+             ("ragged C=16", 3, 777, 10, wn.with_fragments_bf16(ragged),
+              tuple(2 ** i for i in range(n))))
+    rec, bf16 = {"errs": []}, torch.bfloat16
+    with torch.inference_mode():
+        for name, b, t, ca, w, dil in cases:
+            ch = w["wres"].shape[-1]
+            x = torch.from_numpy(rs.randn(b, t, ch).astype(np.float32)).to("cuda")
+            c = torch.from_numpy(rs.randn(b, t, ca).astype(np.float32)).to("cuda")
+            plain_w = {k: w[k] for k in wn.WEIGHT_KEYS}
+            worst = {"kernel": [0.0, 0.0, 1.0, 0.0]}
+            rejected = {"float32 kernel": 0, "weights truncated to bf16": 0,
+                        "g unrounded (plain version)": 0}
+            xl = x
+            for li, d in enumerate(dil):
+                wl = {k: v[li:li + 1] for k, v in w.items()}
+                pl = {k: wl[k] for k in wn.WEIGHT_KEYS}
+                want = wn.wavenet_stack_reference_bf16(xl, c, pl, (d,))
+                got = wn.fused_wavenet_stack(xl, c, wl, (d,), bf16)
+                torch.cuda.synchronize()
+                sx, ss = _rms_max_equal(got[0], want[0]), _rms_max_equal(got[1], want[1])
+                worst["kernel"] = [max(worst["kernel"][0], sx[0], ss[0]),
+                                   max(worst["kernel"][1], sx[1], ss[1]),
+                                   min(worst["kernel"][2], sx[2]),
+                                   max(worst["kernel"][3], sx[3], ss[3])]
+                if not _k3_bf16_layer_ok(got, want):
+                    _fail(f"K3 bf16 {name} layer {li} (d={d}): x {sx}, skip {ss} against "
+                          "its plain version")
+                controls = {
+                    "float32 kernel": wn.fused_wavenet_stack(xl, c, pl, (d,)),
+                    "weights truncated to bf16": wn.fused_wavenet_stack(
+                        xl, c, {k: trunc(v) if k[0] == "w" else v for k, v in pl.items()},
+                        (d,), bf16),
+                    "g unrounded (plain version)": wn.wavenet_stack_reference_bf16(
+                        xl, c, pl, (d,), round_g=False),
+                }
+                for cname, out in controls.items():
+                    rejected[cname] += not _k3_bf16_layer_ok(out, want)
+                xl = want[0]
+            rec["errs"].append(worst["kernel"][3])
+            print(f"K3 bf16 vs plain [{name}, B={b} T={t} C={ch} Ca={ca}, each of "
+                  f"{len(dil)} layers fed the plain version's input]: worst rms|diff| "
+                  f"{worst['kernel'][0]:.2e} of rms|plain| (bound 1e-3), max "
+                  f"{worst['kernel'][1]:.2e} of max|plain| (bound 1e-2), least share of x "
+                  f"bit-equal {worst['kernel'][2]:.5f} (bound {K3_BF16_LAYER_EQUAL}), max|diff| "
+                  f"{worst['kernel'][3]:.3e}")
+            for cname, count in rejected.items():
+                print(f"K3 bf16 check control [{name}, {cname}]: rejected at {count} of "
+                      f"{len(dil)} layers")
+                if count != len(dil):
+                    _fail(f"phase 30's layer check accepts {cname} ({name})")
+            got = wn.fused_wavenet_stack(x, c, w, dil, bf16)
+            again = wn.fused_wavenet_stack(x, c, w, dil, bf16)
+            fresh = wn.fused_wavenet_stack(x, c, plain_w, dil, bf16)  # rounded per call
+            want = wn.wavenet_stack_reference_bf16(x, c, plain_w, dil)
+            f32 = wn.fused_wavenet_stack(x, c, plain_w, dil)
+            torch.cuda.synchronize()
+            same = all(torch.equal(g, a) and torch.equal(g, f)
+                       for g, a, f in zip(got, again, fresh))
+            print(f"K3 bf16 determinism [{name}]: two runs, and a run that rounds its "
+                  f"weights per call, bitwise equal = {same}")
+            if not same:
+                _fail(f"K3 bf16 gives different outputs in two runs ({name})")
+            print(f"K3 bf16 whole cycle vs plain [{name}]: x {_rms_max_equal(got[0], want[0])}, "
+                  f"skip {_rms_max_equal(got[1], want[1])} (rms, max, share bit-equal, "
+                  f"max|diff|; bounds: x bit-equal >= {K3_BF16_CYCLE_EQUAL}, skip rms <= "
+                  f"{K3_BF16_CYCLE_SKIP_RMS}, max <= 1e-2); float32 kernel x "
+                  f"{_rms_max_equal(f32[0], want[0])}, skip {_rms_max_equal(f32[1], want[1])}")
+            if not _k3_bf16_cycle_ok(got, want) or _k3_bf16_cycle_ok(f32, want):
+                _fail(f"K3 bf16 whole cycle ({name}): the kernel outside the chain's noise, "
+                      "or the float32 kernel inside it")
+            if name != "v1 cycle":
+                continue
+            wf = wn.with_fragments(plain_w)
+            rec["ms"] = _median_ms(lambda: wn.fused_wavenet_stack(x, c, w, dil, bf16))
+            rec["f32_ms"] = _median_ms(lambda: wn.fused_wavenet_stack(x, c, wf, dil))
+            rec["plain_ms"] = _median_ms(
+                lambda: wn.wavenet_stack_reference_bf16(x, c, plain_w, dil))
+            flops = _wavenet_work(x, c, plain_w)["flops"]
+            n_w = sum(plain_w[k].numel() for k in ("wconv", "waux", "wskip", "wres"))
+            n_b = sum(plain_w[k].numel() for k in ("bconv", "bskip", "bres"))
+            rows = b * t
+            nbytes = rows * (2 * (2 * ch + ca) + 4 * ch) + 2 * n_w + 4 * n_b
+            rec.update(_bf16_work(flops, nbytes))
+            design = rows * (len(dil) * (2 * 2 * ch + 2 * ca + 4 * ch)
+                             + (len(dil) - 1) * 4 * ch) + 2 * n_w + 4 * n_b
+            print(f"time [K3 bf16, one v1 cycle of {len(dil)} layers, B={b} T={t}, median "
+                  f"of 10, CUDA events]: kernel {rec['ms']:.3f} ms (bf16 weights kept, as "
+                  f"decode), float32 K3 {rec['f32_ms']:.3f} ms, bf16 plain version "
+                  f"{rec['plain_ms']:.3f} ms; bound {rec['bound_ms']:.3f} ms by "
+                  f"{rec['bound_by']} ({flops / 1e9:.1f} GFLOP at 989 TFLOP/s, "
+                  f"{nbytes / 1e6:.1f} MB of the cycle's inputs and outputs at 3.35 TB/s; "
+                  f"{rec['bound_ms'] / rec['ms']:.1%} of it), the per-layer design's "
+                  f"{design / 1e9:.2f} GB at 3.35 TB/s {design / PEAK_BYTES * 1e3:.3f} ms "
+                  f"({design / PEAK_BYTES * 1e3 / rec['ms']:.1%}) on {card}")
+    return rec
+
+
+def _k3_bf16_generator() -> dict:
+    """PWG v1's generator params for K3's bf16 mode: the shipped ones without
+    ``use_pallas_stack_train``, with ``use_pallas_stack`` and
+    ``pallas_stack_bf16``."""
+    gp = {k: v for k, v in V1_PWG_GENERATOR.items() if k != "use_pallas_stack_train"}
+    return dict(gp, use_pallas_stack=True, pallas_stack_bf16=True)
+
+
+def _wav_rms(dir_a: str, dir_b: str) -> tuple:
+    """(rms|a - b| / rms|b|, max|a - b| / max|b|) over every utterance of
+    two decodes (``_compare_wavs`` checks their set, lengths and values)."""
+    import numpy as np
+
+    _compare_wavs(dir_a, dir_b)
+    wav_a, wav_b = _read_wavs(dir_a), _read_wavs(dir_b)
+    a = np.concatenate([wav_a[k] for k in sorted(wav_a)])
+    b = np.concatenate([wav_b[k] for k in sorted(wav_b)])
+    return (float(np.sqrt(((a - b) ** 2).mean() / (b ** 2).mean())),
+            float(np.abs(a - b).max() / np.abs(b).max()))
+
+
+def _residual_d_config(kernel: bool, **overrides) -> dict:
+    """PWG v1's training config with ResidualParallelWaveGANDiscriminator at
+    its defaults (30 layers, 64 / 128 / 64 channels) and D from step 2."""
+    cfg = _pwg_v1_config(kernel, **overrides)
+    cfg.update(discriminator_type="ResidualParallelWaveGANDiscriminator",
+               discriminator_params={}, discriminator_train_start_steps=0)
+    return cfg
+
+
+def _residual_d_cross_check(card: str) -> float:
+    """One G+D ``TrainStep`` of PWG v1 (``use_pallas_stack_train``: K3/K4 on
+    the card, their plain versions on the CPU) with the residual
+    discriminator at B=2 x 25600, on the card and on the CPU from the same
+    weights and batch: every loss to 1e-4 relative."""
+    import torch
+
+    from parallelwavegan_tpu_torch.models import get_model_class
+    from parallelwavegan_tpu_torch.optimizers import build_optimizer_from_config
+    from parallelwavegan_tpu_torch.train.criterion import build_criterion
+    from parallelwavegan_tpu_torch.train.step import TrainStep
+
+    cfg = _residual_d_config(True, batch_size=2)
+    g = torch.Generator().manual_seed(SEED + 1)
+    t = cfg["batch_max_steps"]
+    frames = t // cfg["hop_size"] + 2 * cfg["generator_params"]["aux_context_window"]
+    batch = {"y": 0.3 * torch.randn(2, 1, t, generator=g),
+             "c": torch.randn(2, 80, frames, generator=g),
+             "z": torch.randn(2, 1, t, generator=g)}
+    got = {}
+    for device in ("cuda", "cpu"):
+        init = torch.Generator().manual_seed(SEED)  # the same weights on both
+        gd = get_model_class(cfg["generator_type"])(
+            **cfg["generator_params"], generator=init).to(device)
+        dd = get_model_class(cfg["discriminator_type"])(
+            **cfg["discriminator_params"], generator=init).to(device)
+        step = TrainStep(cfg, gd, dd, build_criterion(cfg),
+                         build_optimizer_from_config(cfg, "generator", gd.parameters()),
+                         build_optimizer_from_config(cfg, "discriminator", dd.parameters()))
+        t0 = time.perf_counter()
+        got[device] = {k: float(v) for k, v in step(
+            {k: v.to(device) for k, v in batch.items()}, True, True, 0).items()}
+        print(f"PWG v1 + residual D G+D TrainStep at B=2 T={t} on {device}: "
+              f"{time.perf_counter() - t0:.1f} s (first call, host clock)")
+        del gd, dd, step
+    if sorted(got["cuda"]) != sorted(got["cpu"]):
+        _fail(f"residual D cross-check: metrics {sorted(got['cuda'])} vs {sorted(got['cpu'])}")
+    worst = 0.0
+    for key, want in got["cpu"].items():
+        rel = abs(got["cuda"][key] - want) / max(abs(want), 1e-30)
+        if not rel <= 1e-4:
+            _fail(f"residual D cross-check: {key} = {got['cuda'][key]!r} on the card vs "
+                  f"{want!r} on the CPU")
+        worst = max(worst, rel)
+    print(f"PWG v1 + residual D G+D step, card ({card}) vs CPU: max relative loss diff "
+          f"{worst:.3e} over {sorted(got['cpu'])} (tol 1e-4)")
+    return worst
+
+
+def phase_pwg_family(card: str) -> dict:
+    """PWG v1 decode in K3's bf16 mode and causal through K5, and PWG v1
+    training with ResidualParallelWaveGANDiscriminator (module docstring,
+    phase 31)."""
+    import numpy as np
+    import torch
+
+    import parallelwavegan_tpu_torch.models.parallel_wavegan as pwg_mod
+    from parallelwavegan_tpu_torch.bin import decode
+    from parallelwavegan_tpu_torch.ops.kernels import wavenet as wn
+    from parallelwavegan_tpu_torch.ops.kernels.wavenet_train import wavenet_stack_backward
+
+    gp = _k3_bf16_generator()
+    causal = dict(gp, use_pallas_stack=False, pallas_stack_bf16=False, use_causal_conv=True)
+    per_run = V1_PWG_GENERATOR["layers"] * len(UTT_FRAMES)
+
+    def plain_bf16(x, c, weights, dilations, compute_dtype):
+        if compute_dtype != torch.bfloat16:
+            _fail("the bf16 decode asked for another compute type")
+        return wn.wavenet_stack_reference_bf16(x, c, {k: weights[k] for k in wn.WEIGHT_KEYS},
+                                               dilations)
+
+    # run: (config, launches expected (K3, K3's bf16 mode, K5), the stack
+    # patched to its bf16 plain version); the same noise in every run
+    runs = {"bf16": ("bf16", (per_run, per_run, 0), False),
+            "bf16_plain": ("bf16", (0, 0, 0), True),
+            "float32": ("float32", (per_run, 0, 0), False),
+            "causal_k5": ("causal_k5", (0, 0, per_run), False),
+            "causal_plain": ("causal_plain", (0, 0, 0), False)}
+    res = {}
+    for name, (cfg, expect, patched) in runs.items():
+        if name == "bf16":
+            p = _write_inputs("ParallelWaveGANGenerator", gp,
+                              {"bf16": {}, "float32": {"pallas_stack_bf16": False}})
+        elif name == "causal_k5":  # the causal model's own checkpoint
+            err, err_max = _wav_rms(os.path.join(p["root"], "wav_bf16"),
+                                    os.path.join(p["root"], "wav_bf16_plain"))
+            f32_rms, f32_max = _wav_rms(os.path.join(p["root"], "wav_float32"),
+                                        os.path.join(p["root"], "wav_bf16_plain"))
+            p = _write_inputs("ParallelWaveGANGenerator", causal,
+                              {"causal_k5": {"use_pallas_kernels": True}, "causal_plain": {}})
+        _reset_launch_counts()
+        np.random.seed(SEED)
+        real = pwg_mod.fused_wavenet_stack
+        if patched:
+            pwg_mod.fused_wavenet_stack = plain_bf16
+        try:
+            res[name] = decode.main(
+                ["--dumpdir", p["dump"], "--checkpoint", p["ckpt"], "--normalize-before",
+                 "--device", "cuda", "--config", p[cfg], "--use-pallas-stack",
+                 "--outdir", os.path.join(p["root"], f"wav_{name}")])
+        finally:
+            pwg_mod.fused_wavenet_stack = real
+        got = (wn.fused_wavenet_stack.launches, wn.fused_wavenet_stack.bf16_launches,
+               wn.fused_gated_resblock.launches)
+        print(f"main path [PWG v1 {name} decode]: K3 launches = {got[0]} (bf16 mode "
+              f"{got[1]}), K5 launches = {got[2]} for {len(UTT_FRAMES)} utterances")
+        if got != expect:
+            _fail(f"PWG {name} decode: launches {got}, expected {expect}")
+        if name == "bf16":
+            k3_bf16_launches = got[1]
+    print(f"PWG v1 bf16 decode (K3 bf16, 16-bit WAVs) vs its bf16 plain version: rms|diff| "
+          f"{err:.3e} of rms|plain| (bound {K3_BF16_DECODE_RMS}), max {err_max:.3e} of "
+          f"max|plain|; the float32 stack decode vs the bf16 plain one: {f32_rms:.3e} rms, "
+          f"{f32_max:.3e} max")
+    if not err <= K3_BF16_DECODE_RMS:
+        _fail("PWG v1 bf16 decode outside the bf16 chain's noise of its plain version")
+    causal_err = _compare_wavs(os.path.join(p["root"], "wav_causal_k5"),
+                               os.path.join(p["root"], "wav_causal_plain"))
+    print(f"causal PWG v1 decode, K5 vs plain: max|diff| = {causal_err:.3e} (tol {TOL})")
+    if not causal_err <= TOL:
+        _fail("causal PWG v1 decode through K5 disagrees with the plain decode")
+    print(f"PWG v1 decode RTF (mean of {len(UTT_FRAMES)} utterances, first one includes "
+          f"warm-up) on {card}: " + ", ".join(f"{k} {_rtfs(v)}" for k, v in res.items()))
+    shutil.rmtree(p["root"])
+
+    steps = TRAIN_OVERRIDES["train_max_steps"]
+    layers = V1_PWG_GENERATOR["layers"]
+    per_call = 5  # pallas_stack_train_layers_per_call's default
+    expect = {"plain": (0, 0)}
+    for name, n, d_steps in (("kernel", steps, steps - 1), ("resume", steps - 2, 2)):
+        # no-grad G forwards: the D phase's re-run at steps 2-4 (of them the
+        # resumed run's 3-4) and the eval at step 4 (its batch, its predictions)
+        k3 = n * (layers + layers // per_call * (per_call - 1)) + (d_steps + 2) * layers
+        expect[name] = (k3, n * layers)
+    out = _train_runs(card, "PWG v1 + residual D", _residual_d_config,
+                      {"K3": lambda: wn.fused_wavenet_stack.launches,
+                       "K4": lambda: wavenet_stack_backward.launches},
+                      expect, lambda: wn.fused_wavenet_stack.launches, TRAIN_UTTS * layers)
+    cross = _residual_d_cross_check(card)
+    return {"k3_bf16_launches": k3_bf16_launches, "decode_rms": err,
+            "causal_err": causal_err, "train_err": out["err"], "cross": cross}
+
+
 def main() -> None:
     pkg = os.path.join(ROOT, "parallelwavegan_tpu_torch")
     if not os.path.isdir(pkg):
@@ -4228,6 +4609,10 @@ def main() -> None:
     torch.cuda.synchronize()
     style_bf16 = phase_style_bf16_train(card)
     torch.cuda.synchronize()
+    k3_bf16 = phase_k3_bf16(card)
+    torch.cuda.synchronize()
+    pwg_family = phase_pwg_family(card)
+    torch.cuda.synchronize()
     shutil.rmtree(WORK, ignore_errors=True)
 
     def entry(name, source, replaces, launches, rec):
@@ -4275,6 +4660,8 @@ def main() -> None:
               "tade_train.py:438", style_bf16["k9a_launches"], k89["k9a"]),
         entry("tade_block_backward (K9b bf16-resident mode)", "tade_bwd.cu",
               "tade_train.py:523", style_bf16["k9b_launches"], k89["k9b"]),
+        entry("fused_wavenet_stack (K3 bf16-resident mode)", "wavenet.cu",
+              "wavenet_stack.py:199", pwg_family["k3_bf16_launches"], k3_bf16),
     ]}
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_main:.1f} s "
           f"(build included) on {card}")

@@ -10,7 +10,9 @@ with noise drawn as Parallel WaveGAN's is).
 their hand-written CUDA kernels (the JAX flag names, kept so configs and
 scripts are shared); a config that sets ``use_pallas_stack_train``, as
 the shipped ``parallel_wavegan.v1.yaml`` does, routes the PWG cycles
-there too, and HiFi-GAN's MRF kernel is reached through
+there too (``pallas_stack_bf16`` in the config, without
+``use_pallas_stack_train``, runs them in K3's bf16-resident mode, as
+JAX's ``compute_dtype=bfloat16``), and HiFi-GAN's MRF kernel is reached through
 ``use_pallas_mrf`` in the config, and StyleMelGAN's TADE kernels (K8a,
 K8b) through ``use_pallas_tade``, as in the JAX package, which has no
 flag for either. RTF is measured per utterance with the device synchronised

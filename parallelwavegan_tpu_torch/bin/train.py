@@ -11,9 +11,11 @@ in upstream's layout to ``--outdir``:
 
 The config is ``.json``, or YAML where PyYAML imports; ``format: npy``
 reads ``*-wave.npy`` / ``*-feats.npy`` pairs and ``hdf5`` needs h5py.
-Ported so far: the Parallel WaveGAN and MelGAN generators (MelGAN with one
-output channel: PQMF in the criterion is not ported) with
-``ParallelWaveGANDiscriminator``, the StyleMelGAN generator with
+Ported so far: the Parallel WaveGAN generator (causal or not, with any of
+its upsample nets but the causal MelGAN one) and the MelGAN generator
+(with one output channel: PQMF in the criterion is not ported) with
+``ParallelWaveGANDiscriminator`` or
+``ResidualParallelWaveGANDiscriminator``, the StyleMelGAN generator with
 ``StyleMelGANDiscriminator`` (its noise and windows drawn per step from
 the config's ``seed``), the HiFi-GAN generator with the HiFi-GAN
 discriminators (spectral norm included), the STFT, mel, feature-matching
@@ -21,7 +23,10 @@ and adversarial losses, RAdam or Adam. HiFi-GAN's ``use_pallas_tail`` and
 ``use_pallas_mrf`` run kernels without a backward: a training config that
 sets either is refused before any step (they are for decode).
 With ``use_pallas_stack_train`` PWG's gated layers train through the K3
-and K4 kernels on the card, with ``use_pallas_stacks_train`` MelGAN's
+and K4 kernels on the card (in float32: ``pallas_stack_bf16``, K3's
+decode-only bf16 mode, has no effect beside it, as in JAX; with
+``use_pallas_stack`` alone a forward that needs gradients raises, as the
+JAX kernel has no VJP), with ``use_pallas_stacks_train`` MelGAN's
 residual stacks of at most 128 channels through K6 and K7, with
 ``use_pallas_tade_train`` StyleMelGAN's TADE blocks of at least
 ``pallas_tade_train_min_t`` samples through K8a/K8b and K9a/K9b.
@@ -33,9 +38,8 @@ the JAX package does (``train/precision.py``; MelGAN's stacks with
 ``use_pallas_stacks_train`` through K6/K7's bf16 modes, StyleMelGAN's
 TADE blocks with ``use_pallas_tade_train`` through K8/K9's, on the card,
 and through their bf16 plain versions on the CPU). Not ported yet, and
-refused with ``NotImplementedError`` (ROADMAP.md): ``pallas_stack_bf16``,
-``distributed``, scp datasets and the other families and conditioning
-inputs. float32 convolutions and matmuls run without TF32, as the JAX
+refused with ``NotImplementedError`` (ROADMAP.md): ``distributed``, scp
+datasets and the other families and conditioning inputs. float32 convolutions and matmuls run without TF32, as the JAX
 package computes in full float32.
 """
 

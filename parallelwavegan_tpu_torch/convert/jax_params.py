@@ -3,8 +3,9 @@
 The inverse of parallelwavegan_tpu/convert/torch_checkpoint.py:510
 ``_convert_tree`` for the models the port has: module paths go through
 the same name maps as ``_t_hifigan_g`` (:131), ``_make_t_melgan_g``
-(:153-207, non-causal), ``_make_t_pwg_g`` (:210-264),
-``_t_style_melgan_g`` (:267-286), ``_make_t_pwg_d`` (:388-399),
+(:153-207, non-causal), ``_make_t_pwg_g`` (:210-264, its MelGAN upsample
+net under ``upsample_net.melgan.*``), ``_t_style_melgan_g`` (:267-286),
+``_make_t_pwg_d`` (:388-399), ``_t_residual_pwg_d`` (:402-418),
 ``_make_t_melgan_d`` (:420-434, nested under ``discriminators`` for
 StyleMelGAN's, :116-119), and HiFi-GAN's ``_t_hifigan_period_d`` and
 ``_make_t_hifigan_scale_d`` (:437-463, nested under ``discriminators``
@@ -95,6 +96,29 @@ def _pwg_d_map(model_params: dict):
         raise KeyError(f"pwg-d path segment {p!r}")
 
     return prefix
+
+
+_RESIDUAL_PWG_D_NAMES = {
+    "first_conv": "first_conv.0", "last_conv_1": "last_conv_layers.1",
+    "last_conv_2": "last_conv_layers.3", "conv": "conv",
+    "conv1x1_aux": "conv1x1_aux", "conv1x1_skip": "conv1x1_skip",
+    "conv1x1_out": "conv1x1_out",
+}
+
+
+def _residual_pwg_d_prefix(path) -> str:
+    """Flax path -> upstream prefix for ResidualParallelWaveGANDiscriminator
+    (``_t_residual_pwg_d``): ``first_conv`` -> ``first_conv.0`` (its
+    Sequential holds the activation at 1)."""
+    out = []
+    for p in path:
+        if p.startswith("conv_layers_"):
+            out.append(f"conv_layers.{_idx(p)}")
+        elif p in _RESIDUAL_PWG_D_NAMES:
+            out.append(_RESIDUAL_PWG_D_NAMES[p])
+        else:
+            raise KeyError(f"residual-pwg-d path segment {p!r}")
+    return ".".join(out)
 
 
 # ResidualStack's flax names -> upstream's (non-causal)
@@ -241,7 +265,9 @@ def jax_params_to_state_dict(model_type: str, model_params: dict, params,
         params = params["params"]
     spectral_vecs = {tuple(path): leaf for path, leaf in _flatten(spectral or {})}
     spectral_mods = {path[:-1] for path in spectral_vecs}
-    deconvs = None  # MelGAN's deconv layer indices
+    # MelGAN's deconv layer indices, or the module paths of a PWG's MelGAN
+    # upsample net's deconvs
+    deconvs = None
     if model_type == "HiFiGANGenerator":
         n_up = len(model_params.get("upsample_scales", (8, 8, 2, 2)))
         found = sum(1 for k in params if str(k).startswith("upsamples_"))
@@ -259,8 +285,19 @@ def jax_params_to_state_dict(model_type: str, model_params: dict, params,
         prefix_of = _pwg_prefix
         up = model_params.get("upsample_params") or {}
         step = 3 if up.get("nonlinear_activation") is not None else 2
+        if model_params.get("upsample_net") == "MelGANGenerator":
+            melgan_prefix, melgan_deconvs = _melgan_map(up)
+
+            def prefix_of(path):
+                if path and path[0] == "upsample_net":
+                    return f"upsample_net.{melgan_prefix(path[1:])}"
+                return _pwg_prefix(path)
+
+            deconvs = {("upsample_net", f"layers_{i}") for i in melgan_deconvs}
     elif model_type == "ParallelWaveGANDiscriminator":
         prefix_of = _pwg_d_map(model_params)
+    elif model_type == "ResidualParallelWaveGANDiscriminator":
+        prefix_of = _residual_pwg_d_prefix
     elif model_type == "MelGANDiscriminator":
         prefix_of = _melgan_d_map(model_params.get("downsample_scales", (4, 4, 4, 4)))
     elif model_type == "HiFiGANPeriodDiscriminator":
@@ -294,7 +331,9 @@ def jax_params_to_state_dict(model_type: str, model_params: dict, params,
             sd[f"{prefix}.up_layers.{step * int(m.group(1)) + 1}.{suffix}"] = (
                 np.transpose(w, (3, 2, 1, 0)))
             continue
-        if deconvs is not None:
+        if deconvs is not None and model_type == "ParallelWaveGANGenerator":
+            transpose = tuple(mods) in deconvs
+        elif deconvs is not None:
             transpose = len(mods) == 1 and _idx(mods[0]) in deconvs
         else:
             transpose = bool(mods) and mods[-1].startswith(

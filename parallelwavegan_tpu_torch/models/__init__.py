@@ -1,11 +1,13 @@
 """Model registry of the port: the YAML-facing class names.
 
-``HiFiGANGenerator``, ``ParallelWaveGANGenerator``, ``MelGANGenerator``
-(MelGAN and Multi-band MelGAN, non-causal), ``StyleMelGANGenerator``,
-``ParallelWaveGANDiscriminator``, ``MelGANDiscriminator``,
+``HiFiGANGenerator``, ``ParallelWaveGANGenerator`` (causal or not, with
+any of its three upsample nets, except causal with the MelGAN one),
+``MelGANGenerator`` (MelGAN and Multi-band MelGAN, non-causal),
+``StyleMelGANGenerator``, ``ParallelWaveGANDiscriminator``,
+``ResidualParallelWaveGANDiscriminator``, ``MelGANDiscriminator``,
 ``StyleMelGANDiscriminator`` and HiFi-GAN's period, multi-period, scale,
-multi-scale and multi-scale multi-period discriminators are ported so far; ROADMAP.md lists the rest
-in the order they are to come.
+multi-scale and multi-scale multi-period discriminators are ported so
+far; ROADMAP.md lists the rest in the order they are to come.
 """
 
 from parallelwavegan_tpu_torch.models.hifigan import (
@@ -23,6 +25,7 @@ from parallelwavegan_tpu_torch.models.melgan import (
 from parallelwavegan_tpu_torch.models.parallel_wavegan import (
     ParallelWaveGANDiscriminator,
     ParallelWaveGANGenerator,
+    ResidualParallelWaveGANDiscriminator,
 )
 from parallelwavegan_tpu_torch.models.style_melgan import (
     StyleMelGANDiscriminator,
@@ -40,6 +43,7 @@ MODEL_REGISTRY = {
     "MelGANGenerator": MelGANGenerator,
     "ParallelWaveGANDiscriminator": ParallelWaveGANDiscriminator,
     "ParallelWaveGANGenerator": ParallelWaveGANGenerator,
+    "ResidualParallelWaveGANDiscriminator": ResidualParallelWaveGANDiscriminator,
     "StyleMelGANDiscriminator": StyleMelGANDiscriminator,
     "StyleMelGANGenerator": StyleMelGANGenerator,
 }

@@ -1,4 +1,4 @@
-"""Parallel WaveGAN generator and discriminator (PyTorch, (B, C, T) layout).
+"""Parallel WaveGAN generator and discriminators (PyTorch, (B, C, T) layout).
 
 The generator is the counterpart of
 parallelwavegan_tpu/models/parallel_wavegan.py:64-235:
@@ -6,6 +6,12 @@ noise and the upsampled mel through ``layers`` gated WaveNet blocks in
 ``stacks`` dilation cycles, the skip sum scaled by sqrt(1/layers), then
 ReLU -> 1x1 -> ReLU -> 1x1. Keys are upstream's: ``first_conv``,
 ``upsample_net.*``, ``conv_layers.{i}.*``, ``last_conv_layers.{1,3}``.
+``upsample_net`` is ``ConvInUpsampleNetwork``, ``UpsampleNetwork`` or
+``MelGANGenerator`` (JAX :54-60: ``aux_context_window`` 0, no final tanh,
+weight norm as the generator's; keys ``upsample_net.melgan.*``).
+``use_causal_conv`` makes every block and the upsample net causal, as in
+JAX; the causal generator with the MelGAN upsample net waits for the
+causal MelGAN generator (ROADMAP.md M16).
 
 Kernel flags keep the JAX names so that configs are shared:
 
@@ -17,6 +23,11 @@ Kernel flags keep the JAX names so that configs are shared:
   same). Without biases (``bias: false``) the kernel gets zero biases.
   That path is inference-only: with ``use_pallas_stack`` a forward that
   needs gradients raises, as the JAX kernel has no VJP.
+* ``pallas_stack_bf16`` with ``use_pallas_stack`` runs that path in K3's
+  bf16-resident mode (JAX :184-187, ``compute_dtype=bfloat16``): x, c and
+  the weights rounded to bf16, the skip summed in float32. JAX ignores the
+  flag when ``use_pallas_stack_train`` is set (:174-181), and so does the
+  port: the cycles then run in float32.
 * ``use_pallas_stack_train`` with gradients on (training) runs each cycle
   through ``fused_wavenet_cycle_train`` instead, as JAX does (:174-181):
   chunks of ``pallas_stack_train_layers_per_call`` layers, each a
@@ -25,16 +36,20 @@ Kernel flags keep the JAX names so that configs are shared:
   through ``torch.stack`` and weight norm to ``weight_g``/``weight_v``.
   The shipped ``parallel_wavegan.v1*.yaml`` set this flag.
 * otherwise each block runs on its own, through ``fused_gated_resblock``
-  when ``use_pallas_kernels`` is set: its forward is the kernel (K5) and
-  its backward autograd of the plain block, as in JAX.
+  when ``use_pallas_kernels`` is set: its forward is the kernel (K5,
+  causal or not) and its backward autograd of the plain block, as in JAX.
 
 ``pallas_stack_tile`` and ``pallas_stack_train_tile`` are the TPU
 kernels' tiling: they are accepted for config compatibility and have no
 effect here.
-Not ported yet, and refused with ``NotImplementedError`` (ROADMAP.md): the
-causal generator, ``pallas_stack_bf16`` and the MelGAN upsample net (the
-port's ``MelGANGenerator`` exists; only its wiring as PWG's upsample net
-is missing).
+
+``ResidualParallelWaveGANDiscriminator`` (JAX :294-371) is a WaveNet-like
+discriminator without conditioning: ``first_conv`` (1x1 and the
+activation), gated blocks with no aux input, the skip sum scaled by
+sqrt(1/layers), then activation -> 1x1 -> activation -> 1x1, on cuDNN (JAX
+runs no kernel here). Keys are upstream's (JAX
+convert/torch_checkpoint.py:402 ``_t_residual_pwg_d``): ``first_conv.0``,
+``conv_layers.{i}.*``, ``last_conv_layers.{1,3}``.
 """
 
 from __future__ import annotations
@@ -59,19 +74,16 @@ from parallelwavegan_tpu_torch.layers.upsample import (
     ConvInUpsampleNetwork,
     UpsampleNetwork,
 )
+from parallelwavegan_tpu_torch.models.melgan import MelGANGenerator
 from parallelwavegan_tpu_torch.ops.kernels.wavenet import (
     WEIGHT_KEYS,
     fused_wavenet_stack,
     with_fragments,
+    with_fragments_bf16,
 )
 from parallelwavegan_tpu_torch.ops.kernels.wavenet_train import (
     fused_wavenet_cycle_train,
 )
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to parallelwavegan_tpu_torch yet; see ROADMAP.md")
 
 
 class ParallelWaveGANGenerator(nn.Module):
@@ -109,12 +121,11 @@ class ParallelWaveGANGenerator(nn.Module):
         generator: torch.Generator | None = None,
     ):
         super().__init__()
-        if use_causal_conv:
-            raise _not_ported("the causal Parallel WaveGAN generator")
-        if pallas_stack_bf16:
-            raise _not_ported("pallas_stack_bf16 (the bf16 WaveNet stack)")
-        if upsample_net == "MelGANGenerator":
-            raise _not_ported("upsample_net MelGANGenerator")
+        if use_causal_conv and upsample_net == "MelGANGenerator":
+            raise NotImplementedError(
+                "the causal Parallel WaveGAN generator with upsample_net "
+                "MelGANGenerator needs the causal MelGAN generator, which is not "
+                "ported to parallelwavegan_tpu_torch yet; see ROADMAP.md (M16)")
         assert layers % stacks == 0
         self.layers = layers
         self.stacks = stacks
@@ -136,6 +147,13 @@ class ParallelWaveGANGenerator(nn.Module):
                     aux_context_window=aux_context_window, generator=generator)
             elif upsample_net == "UpsampleNetwork":
                 self.upsample_net = UpsampleNetwork(**params)
+            elif upsample_net == "MelGANGenerator":
+                # JAX :54-60: the generator's weight norm, no final tanh
+                if aux_context_window != 0:
+                    raise ValueError("upsample_net MelGANGenerator takes no "
+                                     f"aux_context_window, got {aux_context_window}")
+                params["use_final_nonlinear_activation"] = False
+                self.upsample_net = MelGANGenerator(**params, generator=generator)
             else:
                 raise ValueError(f"upsample_net {upsample_net!r} is not supported")
         per_cycle = layers // stacks
@@ -156,9 +174,12 @@ class ParallelWaveGANGenerator(nn.Module):
             Conv1d1x1(skip_channels, out_channels, bias=True,
                       normal_std=kaiming_normal_relu_std(skip_channels), **kw),
         ])
+        # the JAX gate (:142-148); c given is checked per call
         self.use_stack = ((use_pallas_stack or use_pallas_stack_train)
-                          and dropout == 0.0)
+                          and not use_causal_conv and dropout == 0.0)
         self.use_stack_train = use_pallas_stack_train and self.use_stack
+        # JAX ignores pallas_stack_bf16 under use_pallas_stack_train (:174-187)
+        self.stack_bf16 = pallas_stack_bf16 and self.use_stack and not self.use_stack_train
         self.layers_per_call = int(pallas_stack_train_layers_per_call)
         self._kernel_cache = None
         if device is not None:
@@ -213,7 +234,9 @@ class ParallelWaveGANGenerator(nn.Module):
                 skips = sk if skips is None else skips + sk
             return skips.transpose(1, 2)
         weights, dilations = stack or self.stack_weights()
-        _, skips = fused_wavenet_stack(x, c, weights, dilations)
+        _, skips = fused_wavenet_stack(
+            x, c, weights, dilations,
+            torch.bfloat16 if self.stack_bf16 else torch.float32)
         return skips.transpose(1, 2)
 
     def stack_weights(self, differentiable: bool = False) -> tuple:
@@ -227,14 +250,21 @@ class ParallelWaveGANGenerator(nn.Module):
 
     def prepare_kernels(self) -> None:
         """Gather the kernel weights once, for decode, and on the card split
-        them once for K3/K5 (``wavenet.with_fragments``). Call it after the
-        weights are loaded, folded and on their device; loading weights or
-        moving the module afterwards drops them again."""
+        them once for K3/K5 (``wavenet.with_fragments``), or round them once
+        into bf16 fragments for K3's bf16 mode
+        (``wavenet.with_fragments_bf16``); a MelGAN upsample net prepares
+        its own. Call it after the weights are loaded, folded and on their
+        device; loading weights or moving the module afterwards drops them
+        again."""
 
         def split(w):
-            return with_fragments(w) if w["wconv"].is_cuda else w
+            if not w["wconv"].is_cuda:
+                return w
+            return with_fragments_bf16(w) if self.stack_bf16 else with_fragments(w)
 
         self._kernel_cache = None
+        if hasattr(self.upsample_net, "prepare_kernels"):
+            self.upsample_net.prepare_kernels()
         if self.use_stack:
             weights, dilations = self.stack_weights()
             self._kernel_cache = {"stack": (split(weights), dilations), "blocks": None}
@@ -244,16 +274,21 @@ class ParallelWaveGANGenerator(nn.Module):
                 "blocks": [split(blk.gather_weights()) for blk in self.conv_layers],
             }
 
+    def _drop_kernel_weights(self) -> None:
+        self._kernel_cache = None
+        if hasattr(self.upsample_net, "_kernel_cache"):
+            self.upsample_net._kernel_cache = None
+
     def remove_weight_norm(self) -> None:
         remove_weight_norm(self)
-        self._kernel_cache = None
+        self._drop_kernel_weights()
 
     def _apply(self, fn, *args, **kwargs):
-        self._kernel_cache = None
+        self._kernel_cache = None  # the children's _apply drops theirs
         return super()._apply(fn, *args, **kwargs)
 
     def load_state_dict(self, *args, **kwargs):
-        self._kernel_cache = None
+        self._drop_kernel_weights()
         return super().load_state_dict(*args, **kwargs)
 
 
@@ -302,5 +337,62 @@ class ParallelWaveGANDiscriminator(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for f in self.conv_layers:
+            x = f(x)
+        return x
+
+
+class ResidualParallelWaveGANDiscriminator(nn.Module):
+    """WaveNet-like discriminator: (B, in, T) -> (B, out, T) (module
+    docstring; JAX parallel_wavegan.py:294-371)."""
+
+    def __init__(self, in_channels: int = 1, out_channels: int = 1,
+                 kernel_size: int = 3, layers: int = 30, stacks: int = 3,
+                 residual_channels: int = 64, gate_channels: int = 128,
+                 skip_channels: int = 64, dropout: float = 0.0,
+                 bias: bool = True, use_weight_norm: bool = True,
+                 use_causal_conv: bool = False,
+                 nonlinear_activation: str = "LeakyReLU",
+                 nonlinear_activation_params: dict | None = None,
+                 device: torch.device | str | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if (kernel_size - 1) % 2 != 0:
+            raise ValueError("kernel_size must be odd")
+        assert layers % stacks == 0
+        self.layers = layers
+        params = nonlinear_activation_params or {"negative_slope": 0.2}
+        kw = dict(use_weight_norm=use_weight_norm, generator=generator)
+        per_cycle = layers // stacks
+        self.first_conv = nn.Sequential(
+            Conv1d1x1(in_channels, residual_channels, bias=True,
+                      normal_std=kaiming_normal_relu_std(in_channels), **kw),
+            get_activation(nonlinear_activation, params))
+        self.conv_layers = nn.ModuleList([
+            WaveNetResidualBlock(
+                kernel_size=kernel_size, residual_channels=residual_channels,
+                gate_channels=gate_channels, skip_channels=skip_channels,
+                aux_channels=-1, dilation=2 ** (layer % per_cycle),
+                dropout=dropout, bias=bias, use_causal_conv=use_causal_conv, **kw)
+            for layer in range(layers)
+        ])
+        self.last_conv_layers = nn.ModuleList([
+            get_activation(nonlinear_activation, params),
+            Conv1d1x1(skip_channels, skip_channels, bias=True,
+                      normal_std=kaiming_normal_relu_std(skip_channels), **kw),
+            get_activation(nonlinear_activation, params),
+            Conv1d1x1(skip_channels, out_channels, bias=True,
+                      normal_std=kaiming_normal_relu_std(skip_channels), **kw),
+        ])
+        if device is not None:
+            self.to(device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.first_conv(x)
+        skips = 0.0
+        for f in self.conv_layers:
+            x, h = f(x, None)
+            skips = skips + h
+        x = skips * math.sqrt(1.0 / self.layers)
+        for f in self.last_conv_layers:
             x = f(x)
         return x

@@ -49,6 +49,8 @@ _SIGNATURES = {
     # x, c, x_out, skip, wf, bconv, bskip, bres, B, T, C, Ca, K, dil, causal,
     # accumulate, device, stream
     "wavenet_layer": [_P] * 8 + [_I] * 9 + [_P],
+    # the same in the bf16-resident mode (x, c, x_out and wf bf16)
+    "wavenet_layer_bf16": [_P] * 8 + [_I] * 9 + [_P],
     # x, c, dxo, dsk, dx, dc, dz, g, part, wconv, bconv, waux, wskip, wres,
     # dwconv, dbconv, dwaux, dwskip, dbskip, dwres, dbres, part_floats, B, T,
     # C, Ca, K, dil, accumulate_dc, device, stream

@@ -90,9 +90,7 @@ def melgan_stacks_reference(x, stacks, *, final=None, slope: float = 0.2,
     return c.transpose(1, 2)
 
 
-def _bf(v):
-    """v rounded to bf16 (to nearest even), as float32."""
-    return v.to(torch.bfloat16).float()
+_bf = mma_bf16.rounded
 
 
 def _f32(v):

@@ -1,8 +1,9 @@
 """bf16 tensor-core products on the host side: the weight layouts that the
-bf16-resident modes of the MelGAN stack kernels (K6 in
-csrc/melgan_stack.cu, K7 in csrc/melgan_stack_bwd.cu) and of the TADE
-kernels (K8a/K8b in csrc/tade.cu, K9a/K9b in csrc/tade_bwd.cu, through
-csrc/tade.cuh's conv9_bf16) read, all through csrc/mma_bf16.cuh.
+bf16-resident modes of the WaveNet layer kernel (K3 in csrc/wavenet.cu),
+the MelGAN stack kernels (K6 in csrc/melgan_stack.cu, K7 in
+csrc/melgan_stack_bwd.cu) and the TADE kernels (K8a/K8b in csrc/tade.cu,
+K9a/K9b in csrc/tade_bwd.cu, through csrc/tade.cuh's conv9_bf16) read,
+all through csrc/mma_bf16.cuh.
 
 The JAX kernels' bf16 mode (``mxu_bf16``) casts every dot operand to
 bf16 and accumulates in float32. Here the weights are rounded to bf16 once
@@ -16,7 +17,14 @@ from __future__ import annotations
 
 import torch
 
-from parallelwavegan_tpu_torch.ops.kernels.tf32x3 import _pair_columns
+from parallelwavegan_tpu_torch.ops.kernels.tf32x3 import _pair_columns, wavenet_matrix
+
+
+def rounded(v):
+    """v rounded to bf16 (to nearest even, as ``astype(bfloat16)``), as
+    float32: what the bf16 plain versions take for an operand that JAX
+    casts."""
+    return v.to(torch.bfloat16).float()
 
 
 def fragments(wk):
@@ -114,3 +122,28 @@ def tade_conv_fragments(w):
         raise ValueError(f"tade_conv_fragments needs (9, Cin, Cout), Cin a multiple of 8 "
                          f"and Cout of 16, got {tuple(w.shape)}")
     return fragments(w.detach().flip(0).transpose(1, 2).reshape(-1, n))
+
+
+def wavenet_depth(c: int, ca: int, k: int) -> int:
+    """Depth of a WaveNet layer's bf16 fragment tensor: K taps of C
+    channels, Ca zero-padded to a multiple of 16, then C for [Wskip |
+    Wres]."""
+    return k * c + (ca + 15) // 16 * 16 + c
+
+
+def wavenet_fragments(weights):
+    """The bf16 counterpart of ``tf32x3.wavenet_fragments``: the two products
+    of L WaveNet layers (``wavenet_matrix``: the gate's [Wconv[0]; ..;
+    Wconv[K-1]; Waux] and [Wskip | Wres] below it, Waux zero-padded to a
+    multiple of 16 rows here), the columns paired as K3 pairs them
+    (``_pair_columns``: tanh_j beside sigmoid_j, skip_j beside res_j),
+    rounded to bf16 in ``fragments``' layout: (L, ``wavenet_depth`` / 16,
+    C / 4, 32, 4) bf16. What csrc/wavenet.cu's bf16 mode takes."""
+    m = wavenet_matrix(weights)
+    n_layers, _, n = m.shape
+    k, c = weights["wconv"].shape[1:3]
+    ca = weights["waux"].shape[1]
+    head = k * c + (ca + 7) // 8 * 8  # the gate's rows, Ca padded to 8
+    pad = wavenet_depth(c, ca, k) - m.shape[1]
+    m = torch.cat([m[:, :head], m.new_zeros(n_layers, pad, n), m[:, head:]], dim=1)
+    return fragments(_pair_columns(m).reshape(m.shape))

@@ -13,6 +13,11 @@ seed 0 (the first cycle: 10 layers, d = 1 .. 512) and random inputs:
   where the tree keeps one), and with each call splitting its weights;
   and at B=6, T=25600 (a training batch; a training forward splits its
   weights once per call);
+- K3's bf16-resident mode per v1 cycle at B=1, T=131072 (``compute_dtype=
+  torch.bfloat16`` on the bf16 fragments of ``with_fragments_bf16``, what
+  decode keeps for ``pallas_stack_bf16``) beside its bf16 plain version,
+  where the tree has the mode (null otherwise), to hold beside the float32
+  K3 above;
 - K5, one layer at d=1, B=1, T=131072 (``fused_gated_resblock`` on the
   block weights of ``prepare_kernels`` with ``use_pallas_kernels``);
 - ``wavenet_stack_backward`` per v1 cycle at B=6, T=25600 as two 5-layer
@@ -171,6 +176,12 @@ def main(argv=None) -> None:
         out["k3_decode_split_per_call"] = timed(
             lambda: wn.fused_wavenet_stack(x, c, plain_w, dils),
             lambda: wn.wavenet_stack_reference(x, c, plain_w, dils))
+        out["k3_bf16_decode"] = None
+        if hasattr(wn, "wavenet_stack_reference_bf16"):
+            kept_bf16 = wn.with_fragments_bf16(plain_w)
+            out["k3_bf16_decode"] = timed(
+                lambda: wn.fused_wavenet_stack(x, c, kept_bf16, dils, torch.bfloat16),
+                lambda: wn.wavenet_stack_reference_bf16(x, c, plain_w, dils))
         args = [bw[k] for k in wn.WEIGHT_KEYS]
         out["k5_layer_d1"] = timed(
             lambda: wn.fused_gated_resblock(x, c, *args, dilation=1, **bkw),

@@ -26,6 +26,26 @@ cycle is ``ops/kernels/wavenet_train.py`` (K3 forward, K4 backward). The
 block (K5) trains as the JAX ``fused_gated_resblock`` does
 (wavenet.py:292-313): its backward is autograd of the plain block on the
 saved inputs.
+
+``compute_dtype=torch.bfloat16`` is K3's bf16-resident mode, the JAX
+``fused_wavenet_stack(..., compute_dtype=jnp.bfloat16)``
+(wavenet_stack.py:199, casts at :240-253, bf16 scratch at :291-292), which
+the JAX generator runs for ``pallas_stack_bf16``: x (when a call starts),
+c and the weights rounded to bf16, the biases and every sum float32, g
+rounded to bf16 before [Wskip | Wres], the skip summed in float32 and the
+residual rounded to bf16 at every layer; both outputs come back in x's
+type. Its plain version is ``wavenet_stack_reference_bf16`` (float32
+products of the operands rounded where JAX rounds them). On the card it
+is the kernel's bf16 instantiation (csrc/wavenet.cu): x stays bf16 through
+all the layers of a call and c is cast once, the weights are rounded once
+into bf16 fragments (``mma_bf16.wavenet_fragments``, kept as
+``frag_bf16`` by ``with_fragments_bf16``), one m16n8k16 bf16 product per
+16-deep k-step. Bound at PWG v1 (one 10-layer cycle, T = 131,072): 0.114
+ms of bf16 products at 989 TFLOP/s against 89 MB of the cycle's own
+inputs and outputs (0.027 ms at 3.35 TB/s), so bound by operations; the
+one launch per layer moves about 1.2 GB (0.36 ms), most of it the float32
+skip's read and write, which the TPU kernel keeps in VMEM for the whole
+cycle. Inference-only, as in JAX.
 """
 
 from __future__ import annotations
@@ -35,7 +55,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from parallelwavegan_tpu_torch.ops.kernels import build
+from parallelwavegan_tpu_torch.ops.kernels import build, mma_bf16
 from parallelwavegan_tpu_torch.ops.kernels.tf32x3 import (
     wavenet_depth,
     wavenet_fragments,
@@ -83,6 +103,42 @@ def wavenet_stack_reference(x, c, weights, dilations):
     return x, skips
 
 
+_bf = mma_bf16.rounded
+
+
+def wavenet_stack_reference_bf16(x, c, weights, dilations, sum_dtype=torch.float32,
+                                 round_g: bool = True):
+    """Plain version of K3's bf16-resident mode (the JAX ``_kernel`` with
+    ``compute_dtype=bfloat16``, wavenet_stack.py:59-172, whose casts it
+    copies) -> (x_out, skip_sum), both in x's type: x, c and the weights
+    wconv, waux, wskip, wres rounded to bf16, their products exact and
+    summed in ``sum_dtype`` (float32 as JAX; float64 measures how far the
+    order of the sums moves the result), the biases added in float32; per
+    layer g = tanh(z_t) sigmoid(z_s) rounded to bf16, the skip summed in
+    float32 and the new residual ((g . Wres + bres + x) sqrt(1/2)) rounded
+    to bf16. Rows outside [0, T) read as zero at every layer. ``round_g``
+    False leaves g unrounded: a control that a check of the bf16 mode must
+    reject."""
+    wd = {k: _bf(weights[k].float()).to(sum_dtype) for k in ("wconv", "waux", "wskip", "wres")}
+    xv, cv = _bf(x.float()), _bf(c.float()).to(sum_dtype)
+    skips = 0.0
+    for layer, d in enumerate(dilations):
+        wconv = wd["wconv"][layer]
+        pad = (wconv.shape[0] - 1) * int(d)
+        xp = F.pad(xv.to(sum_dtype).transpose(1, 2), (pad // 2, pad - pad // 2))
+        z = F.conv1d(xp, wconv.permute(2, 1, 0), dilation=int(d)).transpose(1, 2)
+        z = (z.float() + weights["bconv"][layer].float()).to(sum_dtype)
+        z = (z + cv @ wd["waux"][layer]).float()
+        half = z.shape[-1] // 2
+        g = torch.tanh(z[..., :half]) * torch.sigmoid(z[..., half:])
+        g = (_bf(g) if round_g else g).to(sum_dtype)
+        # JAX's association: (skip_acc + g . Wskip) + bskip
+        skips = (skips + (g @ wd["wskip"][layer]).float()) + weights["bskip"][layer].float()
+        r = (g @ wd["wres"][layer]).float() + weights["bres"][layer].float()
+        xv = _bf((r + xv) * SQRT_HALF)
+    return xv.to(x.dtype), skips.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernel
 # ---------------------------------------------------------------------------
@@ -90,7 +146,10 @@ def wavenet_stack_reference(x, c, weights, dilations):
 _WIDTHS = (16, 64)  # residual = skip = gate / 2, instantiated in wavenet.cu
 
 
-def _check_cuda_inputs(x, c, weights, n_layers) -> None:
+def _check_cuda_inputs(x, c, weights, n_layers, bf16: bool = False) -> None:
+    """bf16: the bf16 mode's operands, x and c bf16, the weights float32 or
+    bf16 (rounded either way) beside float32 biases and a bf16
+    ``frag_bf16``."""
     if x.dim() != 3 or c is None or c.dim() != 3:
         raise ValueError("x and c must be (B, T, C) tensors")
     b, t, ch = x.shape
@@ -108,13 +167,22 @@ def _check_cuda_inputs(x, c, weights, n_layers) -> None:
     }
     # x and the weights' split are copied in 16-byte pieces, the biases
     # read in 8-byte pieces
-    build.check_tensor("x", x, x.device, (b, t, ch), align=16)
-    build.check_tensor("c", c, x.device, (b, t, ca), align=4)
+    act = build.BF16 if bf16 else (torch.float32,)
+    build.check_tensor("x", x, x.device, (b, t, ch), align=16, dtypes=act)
+    build.check_tensor("c", c, x.device, (b, t, ca), align=4, dtypes=act)
     for key in WEIGHT_KEYS:
         if weights.get(key) is None:
             raise ValueError(f"the kernel needs {key} (bias=True, aux input)")
-        build.check_tensor(key, weights[key], x.device, shapes[key], align=8)
-    if weights.get("frag") is not None:
+        kinds = build.EITHER if bf16 and key[0] == "w" else (torch.float32,)
+        build.check_tensor(key, weights[key], x.device, shapes[key], align=8,
+                           dtypes=kinds)
+    if bf16:
+        if weights.get("frag_bf16") is not None:
+            build.check_tensor(
+                "frag_bf16", weights["frag_bf16"], x.device,
+                (n_layers, mma_bf16.wavenet_depth(ch, ca, k) // 16, ch // 4, 32, 4),
+                align=16, dtypes=build.BF16)
+    elif weights.get("frag") is not None:
         build.check_tensor("frag", weights["frag"], x.device,
                            (n_layers, wavenet_depth(ch, ca, k) // 8, ch // 4, 32, 4),
                            align=16)
@@ -131,33 +199,46 @@ def with_fragments(weights):
     return dict(weights, frag=wavenet_fragments(one)[0])
 
 
-def _run_layers(x, c, weights, dilations, causal: bool, counter, outs=None):
+def with_fragments_bf16(weights):
+    """``weights`` (a stack's) with the bf16 mode's weights rounded to bf16
+    in the kernel's fragment order (``frag_bf16``,
+    ``mma_bf16.wavenet_fragments``), for a decode that runs the same
+    weights many times; as stale as the weights it was made from."""
+    return dict(weights, frag_bf16=mma_bf16.wavenet_fragments(weights))
+
+
+def _run_layers(x, c, weights, dilations, causal: bool, counter, outs=None,
+                bf16: bool = False):
     """One kernel launch per layer on the current stream; x ping-pongs
     between two buffers, skip is written by the first layer and added to
     by the others. The weights' split is ``weights["frag"]`` where given,
     else made here, once for all the layers. Given a list ``outs``, each
     layer writes a buffer of its own and appends it to ``outs``.
-    ``counter.launches`` counts the launches."""
+    ``counter.launches`` counts the launches. ``bf16``: the bf16 mode (x
+    and c bf16, the skip float32) on ``weights["frag_bf16"]`` or the bf16
+    fragments made here; ``counter.bf16_launches`` counts these too."""
     lib = build.load()
     dev, stream = build.launch_target(x)
     b, t, ch = x.shape
     ca, k = c.shape[2], weights["wconv"].shape[1]
-    frag = weights.get("frag")
-    if frag is None:
-        frag = wavenet_fragments(weights)  # held until the launches are queued
-    skip = torch.empty_like(x)
+    frag = weights.get("frag_bf16" if bf16 else "frag")
+    if frag is None:  # held until the launches are queued
+        frag = mma_bf16.wavenet_fragments(weights) if bf16 else wavenet_fragments(weights)
+    skip = torch.empty_like(x, dtype=torch.float32)
     n_bufs = len(dilations) if outs is not None else min(2, len(dilations))
     bufs = [torch.empty_like(x) for _ in range(n_bufs)]
     src = x
     for layer, d in enumerate(dilations):
         dst = bufs[layer % n_bufs]
-        lib.call("wavenet_layer", src.data_ptr(), c.data_ptr(), dst.data_ptr(),
-                 skip.data_ptr(), frag[layer].data_ptr(),
+        lib.call("wavenet_layer_bf16" if bf16 else "wavenet_layer", src.data_ptr(),
+                 c.data_ptr(), dst.data_ptr(), skip.data_ptr(), frag[layer].data_ptr(),
                  *(weights[key][layer].data_ptr()
                    for key in ("bconv", "bskip", "bres")),
                  b, t, ch, ca, k, int(d), int(causal), int(layer > 0), dev,
                  stream)
         counter.launches += 1
+        if bf16:
+            counter.bf16_launches += 1
         src = dst
     if outs is not None:
         outs.extend(bufs)
@@ -170,7 +251,7 @@ def _device_of(x, name: str) -> str:
     return x.device.type
 
 
-def fused_wavenet_stack(x, c, weights, dilations):
+def fused_wavenet_stack(x, c, weights, dilations, compute_dtype=torch.float32):
     """Gated layers of one dilation cycle -> (x_out (B, T, C_r), skip_sum
     (B, T, C_s)).
 
@@ -179,30 +260,48 @@ def fused_wavenet_stack(x, c, weights, dilations):
     float32, contiguous; the split ``frag`` of ``with_fragments`` used
     where the dict has it) and raises on anything it does not take; a CPU
     tensor goes through ``wavenet_stack_reference``.
-    ``fused_wavenet_stack.launches`` counts the kernel launches.
+    ``compute_dtype=torch.bfloat16`` is the bf16-resident mode (module
+    docstring): x float32 or bf16, the outputs in x's type, the rounded
+    weights ``frag_bf16`` of ``with_fragments_bf16`` used where the dict
+    has them; on a CPU tensor ``wavenet_stack_reference_bf16``.
+    ``fused_wavenet_stack.launches`` counts the kernel launches,
+    ``.bf16_launches`` those of the bf16 mode.
     """
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
+    bf16 = compute_dtype == torch.bfloat16
     build.refuse_training("the fused WaveNet stack (K3, backward K4)",
                           [x, c, *weights.values()])
     if _device_of(x, "fused_wavenet_stack") == "cpu":
+        if bf16:
+            return wavenet_stack_reference_bf16(x, c, weights, dilations)
         return wavenet_stack_reference(x, c, weights, dilations)
-    _check_cuda_inputs(x, c, weights, len(dilations))
-    return _run_layers(x, c, weights, dilations, False, fused_wavenet_stack)
+    if not bf16:
+        _check_cuda_inputs(x, c, weights, len(dilations))
+        return _run_layers(x, c, weights, dilations, False, fused_wavenet_stack)
+    xb, cb = x.to(torch.bfloat16).contiguous(), c.to(torch.bfloat16).contiguous()
+    _check_cuda_inputs(xb, cb, weights, len(dilations), bf16=True)
+    xo, skip = _run_layers(xb, cb, weights, dilations, False, fused_wavenet_stack,
+                           bf16=True)
+    return xo.to(x.dtype), skip.to(x.dtype)
 
 
 fused_wavenet_stack.launches = 0
+fused_wavenet_stack.bf16_launches = 0
 
 
 def fused_wavenet_cycle(x, c, weights, dilations, *,
-                        max_layers_per_call: int = 10):
+                        max_layers_per_call: int = 10, compute_dtype=torch.float32):
     """A dilation cycle as calls of at most ``max_layers_per_call`` layers
     of ``fused_wavenet_stack``, skips summed between calls as the JAX
-    package does (wavenet_stack.py:175-196). The generator does not chunk:
-    it runs all its layers through one ``fused_wavenet_stack`` call."""
+    package does (wavenet_stack.py:175-196), in ``compute_dtype``. The
+    generator does not chunk: it runs all its layers through one
+    ``fused_wavenet_stack`` call."""
     skips = None
     for s in range(0, len(dilations), max_layers_per_call):
         e = min(s + max_layers_per_call, len(dilations))
         chunk = {k: v[s:e] for k, v in weights.items()}
-        x, sk = fused_wavenet_stack(x, c, chunk, dilations[s:e])
+        x, sk = fused_wavenet_stack(x, c, chunk, dilations[s:e], compute_dtype)
         skips = sk if skips is None else skips + sk
     return x, skips
 

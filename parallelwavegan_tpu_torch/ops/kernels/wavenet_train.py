@@ -27,8 +27,10 @@ path does with its default ``compute_dtype`` (float32): the chunk's inputs,
 weights and cotangents are widened to float32 and run through the float32
 kernels (wavenet_stack_train.py:223-238), the outputs come back in x's
 type (wavenet_stack.py:269-271), and dx, dc and the weight gradients in
-their inputs' types (:361-362). The bf16 mode of K3/K4
-(``pallas_stack_bf16``) is not ported (ROADMAP.md).
+their inputs' types (:361-362). K3's bf16-resident mode
+(``pallas_stack_bf16``) is decode only, as in JAX, which gives it no VJP
+and ignores the flag under ``use_pallas_stack_train``: this cycle always
+runs float32.
 """
 
 from __future__ import annotations

@@ -5,9 +5,9 @@ plain version) and its backward (K4, split TF32 as well),
 the MelGAN stack kernel (K6) and its backward (K7), the MRF stage on the
 residual-unit kernel (K2) and the StyleMelGAN TADE kernels (K8a, K8b,
 decode and the backward's re-run, split TF32 on the tensor cores) and
-their backward (K9a, K9b), K6/K7 and K8/K9 also in their bf16-resident
-modes (``-k bf16``: one bf16 product per multiply, against plain versions
-that round where JAX rounds). The generator tests also check that no CUDA tensor reaches a plain
+their backward (K9a, K9b), K3, K6/K7 and K8/K9 also in their
+bf16-resident modes (``-k bf16``: one bf16 product per multiply, against
+plain versions that round where JAX rounds). The generator tests also check that no CUDA tensor reaches a plain
 version on the main path.
 
 The HiFi-GAN residual units run on the tensor cores in split TF32 at
@@ -306,6 +306,126 @@ def test_wavenet_fragments_refuse_a_wrong_width(cuda):
     with pytest.raises(ValueError, match="frag has shape"):
         with torch.inference_mode():
             fused_wavenet_stack(x, c, stale, (1,))
+
+
+def _k3_bf16_layer_ok(got, want):
+    """One layer of K3's bf16 mode against its bf16 plain version on the same
+    input (chip_smoke.py phase 30): rms|diff| <= 1e-3 rms|plain| and
+    max|diff| <= 1e-2 max|plain| on x_out and skip, and x_out bit-equal in
+    at least 99 % of its elements (the CPU floor, float32 against float64
+    sums: 99.98 %)."""
+    for g, r in zip(got, want):
+        d, w = g.float() - r.float(), r.float()
+        if not (float(d.pow(2).mean().sqrt()) <= 1e-3 * float(w.pow(2).mean().sqrt())
+                and float(d.abs().max()) <= 1e-2 * float(w.abs().max())):
+            return False
+    return float((got[0] == want[0]).float().mean()) >= 0.99
+
+
+# the bf16-resident mode at v1 widths, an odd aux width (2-byte c loads),
+# the narrow width and one row
+@pytest.mark.parametrize("ch,ca,b,t", [(64, 80, 1, 4099), (64, 10, 2, 1000),
+                                       (16, 80, 3, 777), (16, 8, 2, 1)])
+def test_wavenet_stack_bf16_matches_plain_version(cuda, ch, ca, b, t):
+    """K3's bf16 mode layer by layer (d = 1..512), each layer fed the plain
+    version's input, with the float32 kernel, the weights truncated to bf16
+    and g left unrounded rejected at every layer; then the cycle, twice and
+    on weights rounded per call, bit for bit."""
+    from parallelwavegan_tpu_torch.ops.kernels.wavenet import (
+        wavenet_stack_reference_bf16,
+        with_fragments_bf16,
+    )
+
+    dil = tuple(2 ** i for i in range(10))
+    w = {k: v.to(cuda) for k, v in _wavenet_weights(len(dil), ch, ca, seed=ch + ca).items()}
+    kept = with_fragments_bf16(w)
+    rs = np.random.RandomState(t)
+    x = torch.from_numpy(rs.randn(b, t, ch).astype(np.float32)).to(cuda)
+    c = torch.from_numpy(rs.randn(b, t, ca).astype(np.float32)).to(cuda)
+    bf16 = torch.bfloat16
+
+    def trunc(v):
+        return (v.contiguous().view(torch.int32) & ~0xFFFF).view(torch.float32)
+
+    before = (fused_wavenet_stack.launches, fused_wavenet_stack.bf16_launches)
+    xl = x
+    with torch.inference_mode():
+        for li, d in enumerate(dil):
+            wl = {k: v[li:li + 1] for k, v in kept.items()}
+            pl = {k: wl[k] for k in WEIGHT_KEYS}
+            want = wavenet_stack_reference_bf16(xl, c, pl, (d,))
+            got = fused_wavenet_stack(xl, c, wl, (d,), bf16)
+            torch.cuda.synchronize()
+            assert _k3_bf16_layer_ok(got, want), (li, d)
+            for control in (
+                    fused_wavenet_stack(xl, c, pl, (d,)),
+                    fused_wavenet_stack(xl, c, {k: trunc(v) if k[0] == "w" else v
+                                                for k, v in pl.items()}, (d,), bf16),
+                    wavenet_stack_reference_bf16(xl, c, pl, (d,), round_g=False)):
+                assert not _k3_bf16_layer_ok(control, want), (li, d)
+            xl = want[0]
+        got = fused_wavenet_stack(x, c, kept, dil, bf16)
+        again = fused_wavenet_stack(x, c, w, dil, bf16)
+        xb = fused_wavenet_stack(x.to(bf16), c, kept, dil, bf16)
+        torch.cuda.synchronize()
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    assert xb[0].dtype == bf16 and torch.equal(xb[0].float(), got[0])
+    assert got[0].dtype == got[1].dtype == torch.float32
+    # one layer of the loop above is two bf16 launches (the kernel and the
+    # truncated control) and one float32 launch
+    n = len(dil)
+    assert (fused_wavenet_stack.launches - before[0],
+            fused_wavenet_stack.bf16_launches - before[1]) == (3 * n + 3 * n, 2 * n + 3 * n)
+
+
+def test_wavenet_stack_bf16_refuses_what_it_does_not_take(cuda):
+    from parallelwavegan_tpu_torch.ops.kernels.wavenet import with_fragments_bf16
+
+    w = {k: v.to(cuda) for k, v in _wavenet_weights(1, 64, 80).items()}
+    x = torch.zeros(1, 16, 64, device=cuda)
+    c = torch.zeros(1, 16, 80, device=cuda)
+    stale = dict(w, frag_bf16=with_fragments_bf16(w)["frag_bf16"][:, :-1])
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="frag_bf16 has shape"):
+            fused_wavenet_stack(x, c, stale, (1,), torch.bfloat16)
+        narrow = {k: v.to(cuda) for k, v in _wavenet_weights(1, 8, 80).items()}
+        with pytest.raises(ValueError, match="residual width 8"):
+            fused_wavenet_stack(torch.zeros(1, 16, 8, device=cuda), c, narrow, (1,),
+                                torch.bfloat16)
+
+
+def test_pwg_generator_bf16_stack_on_the_card(cuda):
+    """``use_pallas_stack`` with ``pallas_stack_bf16``: every layer through K3's
+    bf16 mode (no float32 launch, no plain version), its output within the
+    bf16 chain's noise of the generator with the bf16 plain version."""
+    import parallelwavegan_tpu_torch.models.parallel_wavegan as pwg_mod
+    from parallelwavegan_tpu_torch.ops.kernels.wavenet import wavenet_stack_reference_bf16
+
+    cls = get_model_class("ParallelWaveGANGenerator")
+    small = dict(layers=6, stacks=2, aux_channels=80, use_pallas_stack=True,
+                 pallas_stack_bf16=True, upsample_params={"upsample_scales": [4, 4]})
+    gen = cls(**small, generator=torch.Generator().manual_seed(4))
+    gen.remove_weight_norm()
+    gen.eval().to(cuda)
+    gen.prepare_kernels()
+    assert "frag_bf16" in gen._kernel_cache["stack"][0]
+    z = torch.randn(2, 1, 40 * 16, generator=torch.Generator().manual_seed(5)).to(cuda)
+    c = torch.randn(2, 80, 44, generator=torch.Generator().manual_seed(6)).to(cuda)
+    before = (fused_wavenet_stack.launches, fused_wavenet_stack.bf16_launches)
+    with torch.inference_mode():
+        got = gen(z, c)
+        torch.cuda.synchronize()
+        assert (fused_wavenet_stack.launches - before[0],
+                fused_wavenet_stack.bf16_launches - before[1]) == (6, 6)
+        real = pwg_mod.fused_wavenet_stack
+        pwg_mod.fused_wavenet_stack = lambda x, cc, w, d, dt: wavenet_stack_reference_bf16(
+            x, cc, {k: w[k] for k in WEIGHT_KEYS}, d)
+        try:
+            want = gen(z, c)
+        finally:
+            pwg_mod.fused_wavenet_stack = real
+    d = got - want
+    assert float(d.pow(2).mean().sqrt()) <= 5e-3 * float(want.pow(2).mean().sqrt())
 
 
 def test_pwg_generator_through_the_kernels(cuda):

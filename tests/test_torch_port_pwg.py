@@ -417,9 +417,10 @@ def test_block_kernel_grads_match_jax_fused_gated_resblock():
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(use_causal_conv=True), "causal"),
-    (dict(pallas_stack_bf16=True), "pallas_stack_bf16"),
-    (dict(upsample_net="MelGANGenerator", aux_context_window=0), "MelGANGenerator"),
+    (dict(use_causal_conv=True, upsample_net="MelGANGenerator", aux_context_window=0,
+          upsample_params={"in_channels": 10, "out_channels": 10, "channels": 32,
+                           "upsample_scales": [4, 4]}),
+     "causal.*MelGANGenerator.*causal MelGAN generator"),
 ])
 def test_unported_options_raise(kw, what):
     with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP.md"):
