@@ -211,7 +211,13 @@ Phases (any failure exits non-zero; nothing is caught):
    for K7 each zeroed gradient) must be rejected; CUDA-event times of one
    G step's K6 forward and K7 beside their bf16 plain versions and the
    float32 kernels, and their bf16 bounds (bf16 operations over 989
-   TFLOP/s, bf16 bytes over 3.35 TB/s).
+   TFLOP/s, bf16 bytes over 3.35 TB/s). The same at MB-MelGAN v2's two
+   fused stages (B=64; T=2048 at C=96, 4096 at C=48 with the final conv
+   to 4; 4 stacks, dilations 1-27), where K6's max|diff| is held to 2e-2
+   of max|plain|, and their times per v2 G step. At each stage the plain
+   versions with other float32 sums (``_reordered_conv_cl``) are held
+   against the plain versions and printed beside, a witness of how far
+   two faithful versions part.
 26. HiFi-GAN v1 with ``mixed_precision`` (the main path in bf16):
    hifigan.v1.fullscale.bf16.yaml (V1_HIFIGAN_BF16_CONFIG) through
    ``bin/train.main`` at full width and batch with
@@ -225,11 +231,20 @@ Phases (any failure exits non-zero; nothing is caught):
    and apart by more than 1e-4 in some loss.
    Phase 23 splits the bf16 step beside the float32 one.
 27. MelGAN v1 with ``mixed_precision`` and ``use_pallas_stacks_train``
-   through ``bin/train.main`` (TRAIN_OVERRIDES, phase 16's dump): K6's
-   bf16 mode 18 launches per G step and 10 per bf16 G forward without
-   grad (the D phase's re-run), K7's 10 per G step; the same run with
-   K6's and K7's bf16 plain versions on the card logs the same losses
-   within 1e-2 relative.
+   through ``bin/train.main`` (TRAIN_OVERRIDES, phase 16's dump, a
+   checkpoint after every step): K6's bf16 mode 18 launches per G step
+   and 10 per bf16 G forward without grad (the D phase's re-run), K7's 10
+   per G step; each step again with K6's and K7's bf16 plain versions on
+   the card, from the kernel run's checkpoint of the step before, logs the
+   same losses within 1e-2 relative, and a model that took no step comes
+   out unmoved. Printed beside, not held: the state each step leaves
+   (parameters, update, moments, gradient), the kernels' and the plain
+   versions' with other float32 sums, each against the plain versions';
+   and the kernel run and three plain runs left to themselves (the plain
+   versions again, with torch's float32 Hann window, with other sums)
+   against a plain run. Neither can be bounded: one spectral bin at the
+   STFT loss's clamp, put on either side by two faithful versions, moves
+   G's gradient by up to several times its rms (PERF.md §6).
 28. The bf16-resident modes of K8a/K8b and K9a/K9b (mixed precision)
    against their bf16 plain versions at StyleMelGAN v1's training blocks
    4-8 (B=32, T = 1408 .. 22528; random unit-gain weights in bf16 from
@@ -288,6 +303,26 @@ Phases (any failure exits non-zero; nothing is caught):
    checkpoint decoded), and one G+D step at B=2 on the card against the
    CPU within 1e-4 relative.
 
+32. The split of one MB-MelGAN v2 train step (multi_band_melgan.v2.yaml
+   verbatim, B=64, T=16384) with ``use_pallas_stacks_train`` and without,
+   as phase 15 (G losses: the full band synthesised by PQMF, its STFT
+   loss halved, half the sub-band STFT loss, D's adversarial loss), K6's
+   device time in one G forward and K6's and K7's, by kernel, in one G
+   forward and backward of the auxiliary losses (torch.profiler).
+33. MB-MelGAN v2 training through ``bin/train.main``: V2_MB_CONFIG plus
+   ``use_pallas_stacks_train: true`` at full width and the shipped batch of
+   64 x 16384 with TRAIN_OVERRIDES (D from step 3 for v2's 200000), on an
+   npy dump of MB_TRAIN_UTTS synthetic utterances (80-100 frames; a batch
+   of 64 needs 64 of them), with the kernels (K6 at C = 96 and 48: 4 + 3
+   and 5 + 5 launches per G step, 4 and 5 per G forward without grad; K7
+   4 and 5 per G step) and without; losses agree to 1e-4 relative, a
+   resume from step 2 reproduces steps 3-4, the checkpoint decodes through
+   ``bin/decode.main --use-pallas-stacks`` (K6 then PQMF synthesis, 9
+   launches per utterance) within 2e-4 of the plain decode; one G+D step
+   at B=2 on the card against the CPU to 1e-4 relative; and the same 4
+   steps with ``mixed_precision`` through K6/K7's bf16 modes, held step by
+   step as phase 27.
+
 Phase 3 also decodes HiFi-GAN v1 with ``use_pallas_mrf: true`` in the
 config (K2 called twice per utterance, stages 2 and 3, 8 launches, every
 residual unit on the tensor cores) and holds it to the plain decode.
@@ -308,6 +343,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -404,6 +440,52 @@ V2_MB_GENERATOR = dict(
     upsample_scales=[8, 4, 2], stack_kernel_size=3, stacks=4,
     use_weight_norm=True, use_causal_conv=False,
 )
+# the whole of egs/ljspeech/voc1/conf/multi_band_melgan.v2.yaml (a test
+# holds it equal to the file); phases 32-33 add use_pallas_stacks_train:
+# true to its generator and train it with TRAIN_OVERRIDES
+V2_MB_CONFIG = dict(
+    V1_FEATURES, global_gain_scale=1.0, trim_silence=True,
+    trim_threshold_in_db=60, trim_frame_size=2048, trim_hop_size=512,
+    format="hdf5", generator_type="MelGANGenerator", generator_params=V2_MB_GENERATOR,
+    discriminator_type="MelGANMultiScaleDiscriminator",
+    discriminator_params=dict(
+        in_channels=1, out_channels=1, scales=3, downsample_pooling="AvgPool1d",
+        downsample_pooling_params=dict(kernel_size=4, stride=2, padding=1,
+                                       count_include_pad=False),
+        kernel_sizes=[5, 3], channels=16, max_downsample_channels=512,
+        downsample_scales=[4, 4, 4], nonlinear_activation="LeakyReLU",
+        nonlinear_activation_params={"negative_slope": 0.2}, use_weight_norm=True),
+    stft_loss_params=V1_PWG_CONFIG["stft_loss_params"], use_subband_stft_loss=True,
+    subband_stft_loss_params=dict(fft_sizes=[384, 683, 171], hop_sizes=[30, 60, 10],
+                                  win_lengths=[150, 300, 60], window="hann_window"),
+    use_feat_match_loss=False, lambda_adv=2.5, batch_size=64, batch_max_steps=16384,
+    pin_memory=True, num_workers=4, remove_short_samples=True, allow_cache=True,
+    generator_optimizer_type="Adam",
+    generator_optimizer_params=dict(lr=1.0e-3, eps=1.0e-7, weight_decay=0.0,
+                                    amsgrad=True),
+    generator_grad_norm=-1, generator_scheduler_type="MultiStepLR",
+    generator_scheduler_params=dict(
+        gamma=0.5, milestones=[100000, 200000, 300000, 400000, 500000, 600000]),
+    discriminator_optimizer_type="Adam",
+    discriminator_optimizer_params=dict(lr=1.0e-3, eps=1.0e-7, weight_decay=0.0,
+                                        amsgrad=True),
+    discriminator_grad_norm=-1, discriminator_scheduler_type="MultiStepLR",
+    discriminator_scheduler_params=dict(
+        gamma=0.5, milestones=[100000, 200000, 300000, 400000, 500000, 600000]),
+    discriminator_train_start_steps=200000, train_max_steps=1000000,
+    save_interval_steps=50000, eval_interval_steps=1000, log_interval_steps=1000,
+    num_save_intermediate_results=4,
+)
+# phase 33's dump: the loader drops incomplete batches, so a batch of 64
+# needs 64 utterances; 80-100 frames, each longer than a crop of 64
+MB_TRAIN_UTTS = 64
+MB_TRAIN_FRAMES = (80, 100)
+# K6's launches per MB-MelGAN v2 G forward: stage 1 (C=96) 4 stacks, stage
+# 2 (C=48) 4 stacks and the final conv; K7's re-run of them: stage 1's
+# first 3 stacks, all of stage 2; K7 one per stack and final conv
+MB_K6 = {96: 4, 48: 5}
+MB_K6_RERUN = {96: 3, 48: 5}
+MB_K7 = {96: 4, 48: 5}
 # egs/ljspeech/voc1/conf/style_melgan.v1.yaml (a test holds these equal to it)
 V1_STYLE_GENERATOR = dict(
     in_channels=128, aux_channels=80, channels=64, out_channels=1,
@@ -594,6 +676,8 @@ def _reset_launch_counts() -> None:
     for fn in (fused_melgan_stacks, fused_hifigan_mrf):
         fn.launches = fn.calls = 0
     fused_melgan_stacks.bf16_launches = melgan_stacks_backward.bf16_launches = 0
+    fused_melgan_stacks.launches_by_width = {}
+    melgan_stacks_backward.launches_by_width = {}
     from parallelwavegan_tpu_torch.ops.kernels.melgan_stack import kernel_weights
 
     kernel_weights.launches = 0
@@ -2465,7 +2549,8 @@ def _melgan_v1_config(kernel: bool, **overrides) -> dict:
 def _train_split(card: str, label: str, config_of, batch: dict,
                  forward_kernels: tuple = (),
                  losses: str = "STFT + D adversarial",
-                 variants=(("kernel", True), ("plain", False))) -> None:
+                 variants=(("kernel", True), ("plain", False)),
+                 step_kernels: tuple = ()) -> None:
     """Where one train step (G and D phases) of ``config_of(kernel)``
     spends its time on ``batch``, for each (name, kernel) of ``variants``
     (with the kernels and through the plain path): CUDA events between the
@@ -2478,7 +2563,11 @@ def _train_split(card: str, label: str, config_of, batch: dict,
     kernels (torch.profiler). A config with ``mixed_precision`` casts as
     ``TrainStep`` does: each phase's parameters and inputs to bf16, the
     outputs back to float32 (the casts of G's parameters timed in G forward
-    and the D phase's re-run, those of D's in G losses and the D phase)."""
+    and the D phase's re-run, those of D's in G losses and the D phase). A
+    multi-band generator's sub-bands are synthesised in G losses (and in
+    the D phase's re-run), as the train step does. With ``step_kernels``
+    (kernel name prefixes), their device time in one G forward and
+    backward of the auxiliary losses with the kernels (torch.profiler)."""
     import torch
 
     from parallelwavegan_tpu_torch.models import get_model_class
@@ -2489,6 +2578,7 @@ def _train_split(card: str, label: str, config_of, batch: dict,
         TrainStep,
         adv_losses,
         aux_losses,
+        full_band,
         generator_forward,
     )
 
@@ -2549,7 +2639,8 @@ def _train_split(card: str, label: str, config_of, batch: dict,
                 with torch.no_grad():
                     return D(batch["y"], p_d)
 
-            loss = (aux_losses(crit, y_, batch["y"], {}) * crit.lambda_aux
+            aux, y_ = aux_losses(crit, y_, batch["y"], {})
+            loss = (aux * crit.lambda_aux
                     + crit.lambda_adv * adv_losses(crit, D(y_, p_d), real_features, {}))
             ev[2].record()
             grads = grads_of(loss, g_params)
@@ -2557,7 +2648,7 @@ def _train_split(card: str, label: str, config_of, batch: dict,
             update(opt_g, g_params, grads)
             ev[4].record()
             with torch.no_grad():
-                y_ = G()
+                y_ = full_band(crit, G())
             ev[5].record()
             p_d = precision.bf16_params(dis) if mixed else None
             real, fake = crit.dis_adv(D(y_, p_d), D(batch["y"], p_d))
@@ -2583,6 +2674,22 @@ def _train_split(card: str, label: str, config_of, batch: dict,
                   f"{sum(ms for ms, _ in mine.values()):.3f} ms on {card}: "
                   + "; ".join(f"{k} {ms:.3f} ms ({n} launches)"
                               for k, (ms, n) in mine.items()))
+        if kernel and step_kernels:
+            from parallelwavegan_tpu_torch.ops.kernels.time_melgan import (
+                profile_by_kernel,
+            )
+
+            def g_step():  # G forward and the backward of its auxiliary losses
+                grads_of(aux_losses(crit, G(), batch["y"], {})[0], g_params)
+
+            split_k = profile_by_kernel(g_step)
+            mine = {k: v for k, v in split_k.items() if k.startswith(step_kernels)}
+            total = sum(ms for ms, _ in split_k.values())
+            print(f"{label} G forward + backward of the auxiliary losses [kernel], B={b} "
+                  f"T={t}, device time by kernel (torch.profiler, one call) on {card}: "
+                  f"all kernels {total:.3f} ms, of them "
+                  + "; ".join(f"{k} {ms:.3f} ms ({n} launches)"
+                              for k, (ms, n) in sorted(mine.items())))
         step = TrainStep(cfg, gen, dis, crit, opt_g, opt_d)
         rate = {}
         for phase, flags in (("G-only", (True, False)), ("G+D", (True, True))):
@@ -2675,7 +2782,7 @@ def _losses_agree(name: str, got: dict, want: dict, steps) -> float:
 
 def _train_runs(card: str, label: str, config_of, counters: dict, expect: dict,
                 decode_count, decode_expect: int, utts: int = TRAIN_UTTS,
-                span=(150, 300)) -> dict:
+                span=(150, 300), decode_flags=(), compare_plain_decode=False) -> dict:
     """Training through ``bin/train.main`` on the card: ``config_of(kernel,
     **TRAIN_OVERRIDES)`` at full width from SEED on ``utts`` utterances of
     ``span`` frames, with the kernels and again without, then a resume from
@@ -2683,7 +2790,9 @@ def _train_runs(card: str, label: str, config_of, counters: dict, expect: dict,
     that reads the count) must equal ``expect[run]``. The logged losses of
     the kernel and plain runs, and of the resumed and uninterrupted runs,
     agree to 1e-4 relative; the final checkpoint decodes through
-    ``bin/decode.main`` with ``decode_count()`` at ``decode_expect``."""
+    ``bin/decode.main`` (with ``decode_flags``) with ``decode_count()`` at
+    ``decode_expect``; with ``compare_plain_decode`` it decodes again with
+    the plain config (no launch) and the WAVs agree to TOL."""
     import numpy as np
 
     from parallelwavegan_tpu_torch.bin import decode, train
@@ -2741,10 +2850,26 @@ def _train_runs(card: str, label: str, config_of, counters: dict, expect: dict,
 
     _reset_launch_counts()
     wavdir = os.path.join(root, "wav")
+    ckpt = os.path.join(root, "exp_kernel", f"checkpoint-{steps}steps.pkl")
     decode.main(["--dumpdir", dump, "--outdir", wavdir, "--device", "cuda",
-                 "--checkpoint", os.path.join(root, "exp_kernel",
-                                              f"checkpoint-{steps}steps.pkl")])
+                 "--checkpoint", ckpt, *decode_flags])
     from scipy.io import wavfile
+
+    decode_err = None
+    if compare_plain_decode:
+        launches_kernel = decode_count()
+        decode.main(["--dumpdir", dump, "--outdir", os.path.join(root, "wav_plain"),
+                     "--device", "cuda", "--checkpoint", ckpt, "--config", configs["plain"]])
+        if decode_count() != launches_kernel:
+            _fail(f"the plain decode of the {label} checkpoint launched a kernel")
+        wav_a, wav_b = _read_wavs(wavdir), _read_wavs(os.path.join(root, "wav_plain"))
+        if sorted(wav_a) != sorted(wav_b):
+            _fail(f"{label} decodes: {sorted(wav_a)} vs {sorted(wav_b)}")
+        decode_err = max(float(np.abs(wav_a[k] - wav_b[k]).max()) for k in wav_a)
+        print(f"decode of the {label} step-{steps} checkpoint, kernel vs plain: max|diff| "
+              f"= {decode_err:.3e} over {len(wav_a)} utterances (tol {TOL})")
+        if not decode_err <= TOL:
+            _fail(f"{label} checkpoint: the kernel decode disagrees with the plain one")
 
     wavs = sorted(os.listdir(wavdir))
     if len(wavs) != utts or decode_count() != decode_expect:
@@ -2758,7 +2883,7 @@ def _train_runs(card: str, label: str, config_of, counters: dict, expect: dict,
     print(f"decode of the {label} step-{steps} checkpoint through bin/decode: "
           f"{len(wavs)} utterances, {decode_count()} launches")
     shutil.rmtree(root)
-    return {"launches": launches["kernel"], "err": err}
+    return {"launches": launches["kernel"], "err": err, "decode_err": decode_err}
 
 
 def _eval_and_d_forwards() -> int:
@@ -2820,6 +2945,150 @@ def phase_melgan_train(card: str) -> dict:
                        "K6 weight split": lambda: kernel_weights.launches},
                       expect, lambda: fused_melgan_stacks.launches, TRAIN_UTTS * 10)
     return {"k7_launches": out["launches"][1], "err": out["err"]}
+
+
+def _mb_v2_config(kernel: bool, **overrides) -> dict:
+    """A fresh copy of the MB-MelGAN v2 training config, with or without
+    the stack kernels (``use_pallas_stacks_train``), and with ``overrides``."""
+    cfg = json.loads(json.dumps(V2_MB_CONFIG))
+    cfg["generator_params"]["use_pallas_stacks_train"] = kernel
+    cfg.update(overrides)
+    return cfg
+
+
+def phase_mb_melgan_train_split(card: str) -> None:
+    """Where one MB-MelGAN v2 train step (B=64, T=16384) spends its time,
+    with stages 1-2 through K6/K7 and through the plain path, and K6's and
+    K7's device time in one G forward and backward."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    b, t = V2_MB_CONFIG["batch_size"], V2_MB_CONFIG["batch_max_steps"]
+    frames = t // V2_MB_CONFIG["hop_size"]
+    batch = {"y": 0.3 * torch.randn(b, 1, t, generator=g, device="cuda"),
+             "c": torch.randn(b, 80, frames, generator=g, device="cuda")}
+    _train_split(card, "MB-MelGAN v2", _mb_v2_config, batch,
+                 forward_kernels=("split_kernel", "stack_tc_kernel", "outconv_kernel"),
+                 losses="full-band and sub-band STFT + D adversarial",
+                 step_kernels=("split_kernel", "stack_tc_kernel", "outconv_kernel",
+                               "dz_kernel", "dx_kernel", "wgrad_kernel",
+                               "wgrad_reduce_kernel", "outconv_bwd_kernel",
+                               "slab_sum_kernel"))
+    from parallelwavegan_tpu_torch.models import get_model_class
+
+    gen = get_model_class("MelGANGenerator")(**_mb_v2_config(True)["generator_params"])
+    work = {"K6": [0.0, 0.0], "K7": [0.0, 0.0]}
+    for i in gen.fused_stages:
+        w = gen.stage_weights(i)
+        x = torch.empty((b, frames * math.prod(gen.upsample_scales[:i + 1]),
+                         w["stacks"][0]["wd"].shape[-1]), device="meta")
+        for name, fn in (("K6", _stacks_work), ("K7", _k7_work)):
+            rec = fn(x, w["stacks"], w["final"])
+            work[name][0] += rec["flops"]
+            work[name][1] += rec["bytes"]
+    for name, (flops, nbytes) in work.items():
+        rec = _bound(flops, nbytes)
+        fp32_ms = _split_tf32_bound(rec)
+        print(f"MB-MelGAN v2 {name} per G step at B={b} T={t} (stages 1-2): "
+              f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB; bound {rec['bound_ms']:.3f} ms "
+              f"at the split-TF32 rate ({rec['bound_by']}), {fp32_ms:.3f} at the float32 "
+              "rate")
+
+
+def _mb_v2_cross_check(card: str) -> float:
+    """One G+D ``TrainStep`` of MB-MelGAN v2 (``use_pallas_stacks_train``:
+    K6/K7 on the card, their plain versions on the CPU) at B=2 x 16384, on
+    the card and on the CPU from the same weights and batch: every loss to
+    1e-4 relative."""
+    import torch
+
+    from parallelwavegan_tpu_torch.models import get_model_class
+    from parallelwavegan_tpu_torch.optimizers import build_optimizer_from_config
+    from parallelwavegan_tpu_torch.train.criterion import build_criterion
+    from parallelwavegan_tpu_torch.train.step import TrainStep
+
+    cfg = _mb_v2_config(True, batch_size=2)
+    g = torch.Generator().manual_seed(SEED + 1)
+    t = cfg["batch_max_steps"]
+    batch = {"y": 0.3 * torch.randn(2, 1, t, generator=g),
+             "c": torch.randn(2, 80, t // cfg["hop_size"], generator=g)}
+    got = {}
+    for device in ("cuda", "cpu"):
+        init = torch.Generator().manual_seed(SEED)  # the same weights on both
+        gd = get_model_class(cfg["generator_type"])(
+            **cfg["generator_params"], generator=init).to(device)
+        dd = get_model_class(cfg["discriminator_type"])(
+            **cfg["discriminator_params"], generator=init).to(device)
+        step = TrainStep(cfg, gd, dd, build_criterion(cfg),
+                         build_optimizer_from_config(cfg, "generator", gd.parameters()),
+                         build_optimizer_from_config(cfg, "discriminator", dd.parameters()))
+        t0 = time.perf_counter()
+        got[device] = {k: float(v) for k, v in step(
+            {k: v.to(device) for k, v in batch.items()}, True, True, 0).items()}
+        print(f"MB-MelGAN v2 G+D TrainStep at B=2 T={t} on {device}: "
+              f"{time.perf_counter() - t0:.1f} s (first call, host clock)")
+        del gd, dd, step
+    if sorted(got["cuda"]) != sorted(got["cpu"]):
+        _fail(f"MB-MelGAN v2 cross-check: metrics {sorted(got['cuda'])} vs "
+              f"{sorted(got['cpu'])}")
+    worst = 0.0
+    for key, want in got["cpu"].items():
+        rel = abs(got["cuda"][key] - want) / max(abs(want), 1e-30)
+        print(f"  {key}: card {got['cuda'][key]!r}, CPU {want!r}, relative {rel:.3e}")
+        worst = max(worst, rel)
+    print(f"MB-MelGAN v2 G+D step at B=2, card ({card}) vs CPU: max relative loss diff "
+          f"{worst:.3e} over {sorted(got['cpu'])} (tol 1e-4)")
+    if not worst <= 1e-4:
+        _fail(f"MB-MelGAN v2 cross-check: the card and the CPU differ by {worst:.3e}")
+    return worst
+
+
+def phase_mb_melgan_train(card: str) -> dict:
+    """MB-MelGAN v2 training through ``bin/train.main`` with
+    ``use_pallas_stacks_train`` (module docstring, phase 33): K6 and K7 at
+    C = 96 and 48 counted, the kernel run against the plain one, a resume,
+    the decode of the checkpoint through K6 against the plain decode, a
+    B=2 step on the card against the CPU, and the same 4 steps in bf16
+    against K6/K7's bf16 plain versions."""
+    from parallelwavegan_tpu_torch.ops.kernels.melgan_stack import (
+        fused_melgan_stacks,
+        kernel_weights,
+    )
+    from parallelwavegan_tpu_torch.ops.kernels.melgan_stack_train import (
+        melgan_stacks_backward,
+    )
+
+    steps = TRAIN_OVERRIDES["train_max_steps"]
+    fwd = sum(MB_K6.values())
+    expect = {"plain": (0,) * 7}
+    for name, n in (("kernel", steps), ("resume", steps - 2)):
+        e = _eval_and_d_forwards()
+        expect[name] = (
+            n * (fwd + sum(MB_K6_RERUN.values())) + e * fwd, n * sum(MB_K7.values()),
+            *(n * (MB_K6[c] + MB_K6_RERUN[c]) + e * MB_K6[c] for c in (96, 48)),
+            *(n * MB_K7[c] for c in (96, 48)), (n + e) * len(MB_K6))
+    out = _train_runs(
+        card, "MB-MelGAN v2", _mb_v2_config,
+        {"K6": lambda: fused_melgan_stacks.launches,
+         "K7": lambda: melgan_stacks_backward.launches,
+         "K6 at C=96": lambda: fused_melgan_stacks.launches_by_width.get(96, 0),
+         "K6 at C=48": lambda: fused_melgan_stacks.launches_by_width.get(48, 0),
+         "K7 at C=96": lambda: melgan_stacks_backward.launches_by_width.get(96, 0),
+         "K7 at C=48": lambda: melgan_stacks_backward.launches_by_width.get(48, 0),
+         "K6 weight split": lambda: kernel_weights.launches},
+        expect, lambda: fused_melgan_stacks.launches, MB_TRAIN_UTTS * fwd,
+        utts=MB_TRAIN_UTTS, span=MB_TRAIN_FRAMES, decode_flags=("--use-pallas-stacks",),
+        compare_plain_decode=True)
+    cross = _mb_v2_cross_check(card)
+    d_reruns = steps - TRAIN_OVERRIDES["discriminator_train_start_steps"] - 1
+    bf16 = _melgan_bf16_runs(
+        card, "MB-MelGAN v2", _mb_v2_config,
+        (steps * (fwd + sum(MB_K6_RERUN.values())) + d_reruns * fwd,
+         steps * sum(MB_K7.values())), utts=MB_TRAIN_UTTS, span=MB_TRAIN_FRAMES)
+    return {"k6_launches": out["launches"][0], "k7_launches": out["launches"][1],
+            "err": out["err"], "decode_err": out["decode_err"], "cross": cross,
+            "k6_bf16_launches": bf16["k6_launches"], "k7_bf16_launches": bf16["k7_launches"],
+            "bf16_err": bf16["err"]}
 
 
 def _style_v1_config(kernel: bool, **overrides) -> dict:
@@ -3374,17 +3643,18 @@ def phase_hifigan_train(card: str) -> dict:
     return {"err_resume": err_resume, "cross": cross, "decode_err": err}
 
 
-def _bf16_close(got, want) -> bool:
+def _bf16_close(got, want, max_rel: float = 1e-2) -> bool:
     """The bf16 modes' bound against their plain versions: rms|diff| <=
-    1e-3 rms|plain| and max|diff| <= 1e-2 max|plain|. Both round the same
-    operands to bf16 and add exact products in float32 in other orders, so
-    they part where a float32 value sits within that difference of a bf16
-    rounding point (one bf16 step in one operand, which the chain of stacks
-    spreads: 2.8e-4 rms at C = 128, measured); a rounding missed, added or
-    truncated moves every value by about 2e-3 rms."""
+    1e-3 rms|plain| and max|diff| <= ``max_rel`` (1e-2) max|plain|. Both
+    round the same operands to bf16 and add exact products in float32 in
+    other orders, so they part where a float32 value sits within that
+    difference of a bf16 rounding point (one bf16 step in one operand,
+    which the chain of stacks spreads: 2.8e-4 rms at C = 128, measured); a
+    rounding missed, added or truncated moves every value by about 2e-3
+    rms."""
     d, w = (got.float() - want.float()), want.float()
     return (float(d.pow(2).mean().sqrt()) <= 1e-3 * float(w.pow(2).mean().sqrt())
-            and float(d.abs().max()) <= 1e-2 * float(w.abs().max()))
+            and float(d.abs().max()) <= max_rel * float(w.abs().max()))
 
 
 def _bf16_work(flops: float, nbytes: float) -> dict:
@@ -3456,12 +3726,14 @@ def _off_the_kinks_bf16(x, stacks, fin, mode: str, slope: float, seed: int):
 
 def phase_k67_bf16(card: str) -> dict:
     """K6's and K7's bf16-resident modes against their bf16 plain versions
-    at MelGAN v1's three fused training stages, with the controls that the
-    check must reject, and their times beside the plain versions, the
-    float32 kernels and their bf16 bounds (module docstring, phase 25)."""
+    at MelGAN v1's three fused training stages and MB-MelGAN v2's two, with
+    the controls that the check must reject, and their times beside the
+    plain versions, the float32 kernels (v1) and their bf16 bounds (module
+    docstring, phase 25)."""
     import numpy as np
     import torch
 
+    from parallelwavegan_tpu_torch.ops.kernels import melgan_stack as m6
     from parallelwavegan_tpu_torch.ops.kernels.melgan_stack import (
         _run_cuda_bf16,
         fused_melgan_stacks,
@@ -3477,6 +3749,21 @@ def phase_k67_bf16(card: str) -> dict:
     gp = V1_MELGAN_CONFIG["generator_params"]
     b, t = V1_MELGAN_CONFIG["batch_size"], V1_MELGAN_CONFIG["batch_max_steps"]
     dils = [gp["stack_kernel_size"] ** j for j in range(gp["stacks"])]
+    # (name, B, T, C, dilations, final conv's outputs, K6's max bound): v1's
+    # three fused stages, then MB-MelGAN v2's two (C = 96 and 48, the final
+    # conv to 4), where K6's max|diff| is held to 2e-2 of max|plain|: B=64
+    # puts a million outputs in the tail, and the plain version with other
+    # sums (the witness printed below) parts from it by 1.007e-2 at C = 48
+    # (PERF.md §6)
+    specs = [(f"v1 stage {i}", b, t >> (3 - i), 512 >> (i + 1), dils, 1 if i == 3 else 0,
+              1e-2) for i in (1, 2, 3)]
+    gp2 = V2_MB_CONFIG["generator_params"]
+    b2 = V2_MB_CONFIG["batch_size"]
+    frames2 = V2_MB_CONFIG["batch_max_steps"] // V2_MB_CONFIG["hop_size"]
+    dils2 = [gp2["stack_kernel_size"] ** j for j in range(gp2["stacks"])]
+    for i, c in ((1, 96), (2, 48)):
+        specs.append((f"v2 stage {i}", b2, frames2 * math.prod(gp2["upsample_scales"][:i + 1]),
+                      c, dils2, gp2["out_channels"] if i == 2 else 0, 2e-2))
     slope, mode = 0.2, "reflect"
     rs = np.random.RandomState(SEED + 25)
 
@@ -3494,17 +3781,18 @@ def phase_k67_bf16(card: str) -> dict:
 
     k6, k7 = {"errs": []}, {"errs": []}
     stages = []
-    for i in (1, 2, 3):
-        c, ti = 512 >> (i + 1), t >> (3 - i)
+    conv_cl = m6._conv_cl
+    for j, (stage, bi, ti, c, dl, n_out, k6_max) in enumerate(specs):
         stacks = [{"wd": randn(3, c, c, scale=(3 * c) ** -0.5), "bd": randn(c, scale=0.1),
                    "w1": randn(1, c, c, scale=c ** -0.5), "b1": randn(c, scale=0.1),
                    "ws": randn(1, c, c, scale=c ** -0.5), "bs": randn(c, scale=0.1),
-                   "dilation": d} for d in dils]
-        fin = (randn(7, c, 1, scale=(7 * c) ** -0.5), randn(1, scale=0.1)) if i == 3 else None
-        x, moved = _off_the_kinks_bf16(randn(b, ti, c).to(torch.bfloat16), stacks, fin, mode,
-                                       slope, SEED + i)
-        dy = randn(b, ti, 1 if fin else c, scale=(b * ti) ** -0.5).to(torch.bfloat16)
-        name = f"v1 stage {i} B={b} T={ti} C={c}" + (" + final" if fin else "")
+                   "dilation": d} for d in dl]
+        fin = ((randn(7, c, n_out, scale=(7 * c) ** -0.5), randn(n_out, scale=0.1))
+               if n_out else None)
+        x, moved = _off_the_kinks_bf16(randn(bi, ti, c).to(torch.bfloat16), stacks, fin, mode,
+                                       slope, SEED + 1 + j)
+        dy = randn(bi, ti, n_out or c, scale=(bi * ti) ** -0.5).to(torch.bfloat16)
+        name = f"{stage} B={bi} T={ti} C={c}" + (f" + final to {n_out}" if fin else "")
         stages.append((name, x, stacks, fin, dy))
         # K6: the float32 chain against the plain version's; the bf16 output
         with torch.no_grad():
@@ -3516,23 +3804,41 @@ def phase_k67_bf16(card: str) -> dict:
         torch.cuda.synchronize()
         if not torch.equal(out, chain.to(torch.bfloat16)):
             _fail(f"K6 bf16 {name}: the bf16 output is not its float32 chain rounded")
-        if not _bf16_close(chain, want):
+        if not _bf16_close(chain, want, k6_max):
             _fail(f"K6 bf16 {name}: kernel disagrees with its bf16 plain version "
                   f"(max|diff| {float((chain - want).abs().max()):.3e})")
-        if _bf16_close(f32, want) or _bf16_close(trunc, want):
+        if _bf16_close(f32, want, k6_max) or _bf16_close(trunc, want, k6_max):
             _fail(f"K6 bf16 {name}: the check accepts the float32 kernel or truncated weights")
+        m6._conv_cl = _reordered_conv_cl
+        try:
+            wit6 = _ratios(stacks_forward_bf16(x, stacks, fin, slope, mode)["y"], want)
+        finally:
+            m6._conv_cl = conv_cl
+        print(f"K6 bf16 [{name}]: its plain version with other sums (the witness) against "
+              f"it at {wit6[0]:.3f} and {wit6[1]:.3f} of 1e-3 rms|plain| and 1e-2 max|plain|")
         d = (chain - want).float()
         k6["errs"].append(float(d.abs().max()))
         print(f"K6 bf16 vs plain [{name}]: {moved} input rows moved off the kinks; "
               f"rms|diff| / rms|plain| = {float(d.pow(2).mean().sqrt() / want.pow(2).mean().sqrt()):.3e}, "
               f"max|diff| / max|plain| = {float(d.abs().max() / want.abs().max()):.3e} "
-              "(bounds 1e-3 and 1e-2); the float32 kernel's and the truncated weights' "
-              "outputs rejected")
+              f"(bounds 1e-3 and {k6_max:g}); the float32 kernel's and the truncated "
+              "weights' outputs rejected")
         del out, chain, f32, trunc, want
         # K7: its plain version fed K6's chain stack by stack
         got = grads(*melgan_stacks_backward(x, stacks, fin, slope, mode, dy))
+        chain_in = _kernel_chain(x, stacks, fin, slope, mode)
         ref = grads(*melgan_stacks_backward_reference_bf16(
-            x, stacks, fin, slope, mode, dy, _kernel_chain(x, stacks, fin, slope, mode)))
+            x, stacks, fin, slope, mode, dy, chain_in))
+        m6._conv_cl = _reordered_conv_cl
+        try:
+            ref_w = grads(*melgan_stacks_backward_reference_bf16(
+                x, stacks, fin, slope, mode, dy, chain_in))
+        finally:
+            m6._conv_cl = conv_cl
+        wit7 = [_ratios(w, r) for (_, w), (_, r) in zip(ref_w, ref)]
+        print(f"K7 bf16 [{name}]: its plain version with other sums against it at "
+              f"{max(w[0] for w in wit7):.3f} and {max(w[1] for w in wit7):.3f} of the bounds "
+              "at most")
         torch.cuda.synchronize()
         worst = 0.0
         for (key, g), (_, r) in zip(got, ref):
@@ -3557,24 +3863,37 @@ def phase_k67_bf16(card: str) -> dict:
         del got, ref
 
     f32_ms = {"K6": 0.0, "K7": 0.0}
+    v2 = {"K6": {}, "K7": {}}  # timed beside, not in the record's v1 step
     for name, x, stacks, fin, dy in stages:
+        r6, r7 = (v2["K6"], v2["K7"]) if name.startswith("v2") else (k6, k7)
         w6 = _bf16_work(_stacks_work(x, stacks, fin)["flops"],
                         _bf16_stage_bytes(x, stacks, fin, False))
         w7 = _bf16_work(_k7_work(x, stacks, fin)["flops"],
                         _bf16_stage_bytes(x, stacks, fin, True))
         with torch.inference_mode():
-            _timed(k6, f"K6 bf16 {name}", card,
+            _timed(r6, f"K6 bf16 {name}", card,
                    lambda: fused_melgan_stacks(x, stacks, final=fin),
                    lambda: melgan_stacks_reference_bf16(x, stacks, final=fin), w6)
-            xf = x.float()
-            f32_ms["K6"] += _median_ms(lambda: fused_melgan_stacks(xf, stacks, final=fin))
-        _timed(k7, f"K7 bf16 {name}", card,
+            if r6 is k6:
+                xf = x.float()
+                f32_ms["K6"] += _median_ms(lambda: fused_melgan_stacks(xf, stacks, final=fin))
+        _timed(r7, f"K7 bf16 {name}", card,
                lambda: melgan_stacks_backward(x, stacks, fin, slope, mode, dy),
                lambda: melgan_stacks_backward_reference_bf16(x, stacks, fin, slope, mode, dy),
                w7)
-        xf, dyf = x.float(), dy.float()
-        f32_ms["K7"] += _median_ms(lambda: melgan_stacks_backward(xf, stacks, fin, slope,
-                                                                  mode, dyf))
+        if r7 is k7:
+            xf, dyf = x.float(), dy.float()
+            f32_ms["K7"] += _median_ms(lambda: melgan_stacks_backward(xf, stacks, fin, slope,
+                                                                      mode, dyf))
+    for label, rec in v2.items():
+        rec.update(_bf16_work(rec["flops"], rec["bytes"]))
+        print(f"{label} bf16 per MB-MelGAN v2 G step (stages 1-2, B={b2} T="
+              f"{V2_MB_CONFIG['batch_max_steps']}"
+              + (", K6's re-run included" if label == "K7" else ", the training forward")
+              + f"): kernel {rec['ms']:.3f} ms, bf16 plain {rec['plain_ms']:.3f} ms; bf16 "
+              f"bound {rec['bound_ms']:.3f} ms ({rec['flops'] / 1e9:.1f} GFLOP, "
+              f"{rec['bytes'] / 1e6:.1f} MB; {rec['bound_by']}; "
+              f"{rec['bound_ms'] / rec['ms']:.1%} of it) on {card}")
     for label, rec in (("K6", k6), ("K7", k7)):
         rec.update(_bf16_work(rec["flops"], rec["bytes"]))
         print(f"{label} bf16 per MelGAN v1 G step (stages 1-3, B={b} T={t}"
@@ -3719,22 +4038,124 @@ def phase_melgan_bf16_train(card: str) -> dict:
     through ``bin/train.main``, K6's and K7's bf16 launches counted, against
     the same run with their bf16 plain versions on the card (module
     docstring, phase 27)."""
+    steps = TRAIN_OVERRIDES["train_max_steps"]
+    d_reruns = steps - TRAIN_OVERRIDES["discriminator_train_start_steps"] - 1
+    return _melgan_bf16_runs(card, "MelGAN v1", _melgan_v1_config,
+                             (steps * (10 + 8) + d_reruns * 10, steps * 10))
+
+
+def _reordered_conv_cl(vp, w, b, dilation: int, t: int):
+    """``melgan_stack._conv_cl`` with the taps summed last to first and each
+    product split in two halves of its inputs: the same function, other
+    float32 sums. Patched into the bf16 plain versions, it gives a second
+    plain version that parts from the first where a float32 value sits
+    near a bf16 rounding point, as the kernels do (a witness of how far
+    two faithful versions part)."""
+    out, h = None, w.shape[1] // 2
+    for k in reversed(range(w.shape[0])):
+        v = vp[:, k * dilation:k * dilation + t]
+        term = v[..., h:] @ w[k][h:] + v[..., :h] @ w[k][:h]
+        out = term if out is None else out + term
+    return out if b is None else out + b
+
+
+def _ratios(got, want) -> tuple:
+    """(rms|diff| / (1e-3 rms|plain|), max|diff| / (1e-2 max|plain|)):
+    ``_bf16_close``'s two measures against their bounds (both <= 1 passes)."""
+    d, w = (got.float() - want.float()), want.float()
+    rms_d, max_d = float(d.pow(2).mean().sqrt()), float(d.abs().max())
+    rms_w, max_w = float(w.pow(2).mean().sqrt()), float(w.abs().max())
+    return (rms_d / (1e-3 * rms_w) if rms_w else (0.0 if rms_d == 0 else math.inf),
+            max_d / (1e-2 * max_w) if max_w else (0.0 if max_d == 0 else math.inf))
+
+
+def _step_states(prev: dict | None, got: dict, want: dict) -> dict:
+    """How far step k of one run (``got``, its training checkpoint) lies
+    from another run's step k from the same state (``want``): ``prev`` is
+    the checkpoint of step k - 1 both started from, None at step 1 (the
+    same seeded init, zero moments). A model whose optimizer took no step
+    must come out of both bit for bit as it went in (held). For each model
+    that stepped -> {"G gradient": d, ...}: rms|diff| / rms|want| over all
+    its tensors of a kind: ``parameters``, the ``update`` from step k - 1,
+    the optimizer's moments, and the ``gradient`` recovered from the first
+    moment, g = (mu_k - b1 mu_{k-1}) / (1 - b1)."""
+    import torch
+
+    sums: dict = {}
+
+    def note(kind, g, w):
+        acc = sums.setdefault(kind, [0.0, 0.0])
+        acc[0] += float((g.float() - w.float()).pow(2).sum())
+        acc[1] += float(w.float().pow(2).sum())
+
+    for model, tag in (("generator", "G"), ("discriminator", "D")):
+        pg, wg = got["optimizer"][model], want["optimizer"][model]
+        count = pg["param_groups"][0]["step_count"]
+        before = 0 if prev is None else prev["optimizer"][model]["param_groups"][0]["step_count"]
+        if count == before:  # this model took no step: nothing may have moved
+            for key, v in got["model"][model].items():
+                if not torch.equal(v, want["model"][model][key]) or (
+                        prev is not None and not torch.equal(v, prev["model"][model][key])):
+                    _fail(f"{tag} took no step but {key} moved")
+            continue
+        for key, v in got["model"][model].items():
+            if v.is_floating_point():
+                note(f"{tag} parameters", v, want["model"][model][key])
+                if prev is not None:
+                    p0 = prev["model"][model][key]
+                    note(f"{tag} update", v - p0, want["model"][model][key] - p0)
+        b1 = pg["param_groups"][0]["betas"][0]
+        for i, st in pg["state"].items():
+            for kind, v in st.items():
+                note(f"{tag} {kind}", v, wg["state"][i][kind])
+            mu0 = (0.0 if prev is None or i not in prev["optimizer"][model]["state"]
+                   else prev["optimizer"][model]["state"][i]["exp_avg"])
+            note(f"{tag} gradient", (st["exp_avg"] - b1 * mu0) / (1 - b1),
+                 (wg["state"][i]["exp_avg"] - b1 * mu0) / (1 - b1))
+    return {kind: math.sqrt(d / w) if w else 0.0 for kind, (d, w) in sorted(sums.items())}
+
+
+def _melgan_bf16_runs(card: str, label: str, config_of, expect: tuple,
+                      utts: int = TRAIN_UTTS, span=(150, 300)) -> dict:
+    """``config_of(True, mixed_precision=True, **TRAIN_OVERRIDES)`` through
+    ``bin/train.main`` on ``utts`` utterances of ``span`` frames, K6's and
+    K7's bf16 launches at ``expect`` and a checkpoint after every step.
+    Then, with K6's and K7's bf16 plain versions patched in on the card (no
+    launch), each step k again, resumed from the kernel run's checkpoint of
+    step k - 1 (step 1 from the same init): every logged loss of step k
+    within 1e-2 relative (of max(|plain|, 0.1)), and a model that took no
+    step unmoved (``_step_states``).
+
+    Measured beside that and printed, not held: the state that step leaves,
+    the kernel run's and (the witness) that of the plain versions with
+    other float32 sums (``_reordered_conv_cl``) from the same state, each
+    against the plain run's (``_step_states``); and runs left to
+    themselves for all the steps: the kernel run and three plain runs, the
+    plain versions again, with torch's float32 Hann window (a last-bit
+    change at some taps) and with other sums, each against a plain run.
+    Neither can be held to a bound: the STFT log-magnitude loss's gradient
+    jumps at its clamp (0 below eps, 1 / (2 eps) of the power above it), so
+    one bin that two faithful versions put on either side moves G's
+    gradient by up to several times its rms, and runs left to themselves
+    part by as much (PERF.md §6)."""
     import numpy as np
     import torch
 
     from parallelwavegan_tpu_torch.bin import train
+    from parallelwavegan_tpu_torch.ops import stft
     from parallelwavegan_tpu_torch.ops.kernels import melgan_stack as m6
     from parallelwavegan_tpu_torch.ops.kernels import melgan_stack_train as m7
 
     root = os.path.join(WORK, "melgan_bf16")
     shutil.rmtree(root, ignore_errors=True)
-    dump = _write_train_dump(root)
-    config = os.path.join(root, "config.json")
-    with open(config, "w") as f:
-        json.dump(_melgan_v1_config(True, mixed_precision=True, **TRAIN_OVERRIDES), f)
+    dump = _write_train_dump(root, utts, span)
     steps = TRAIN_OVERRIDES["train_max_steps"]
-    d_reruns = steps - TRAIN_OVERRIDES["discriminator_train_start_steps"] - 1
-    expect = (steps * (10 + 8) + d_reruns * 10, steps * 10)
+    configs = {}
+    for k in range(1, steps + 1):
+        configs[k] = os.path.join(root, f"config_{k}.json")
+        with open(configs[k], "w") as f:
+            json.dump(config_of(True, mixed_precision=True, **dict(
+                TRAIN_OVERRIDES, train_max_steps=k, save_interval_steps=1)), f)
 
     def plain_forward(x, stacks, final, slope, pad_mode, outs=None, split=None,
                       keep_f32=False):
@@ -3744,46 +4165,104 @@ def phase_melgan_bf16_train(card: str) -> dict:
     def plain_backward(x, stacks, final, slope, pad_mode, dy, fwd_split):
         return m7.melgan_stacks_backward_reference_bf16(x, stacks, final, slope, pad_mode, dy)
 
-    res, counts = {}, {}
-    for name in ("kernel", "plain"):
-        saved = (m6._run_cuda_bf16, m7._run_cuda_bf16, m7._backward_cuda)
-        if name == "plain":  # the bf16 plain versions on the card, in place of K6 and K7
-            m6._run_cuda_bf16 = m7._run_cuda_bf16 = plain_forward
-            m7._backward_cuda = plain_backward
-        try:
-            _reset_launch_counts()
-            t0 = time.perf_counter()
-            res[name] = train.main(
-                ["--train-dumpdir", dump, "--dev-dumpdir", dump, "--outdir",
-                 os.path.join(root, f"exp_{name}"), "--device", "cuda", "--verbose", "0",
-                 "--config", config])
-            seconds = time.perf_counter() - t0
-            counts[name] = (m6.fused_melgan_stacks.bf16_launches,
-                            m7.melgan_stacks_backward.bf16_launches)
-        finally:
-            m6._run_cuda_bf16, m7._run_cuda_bf16, m7._backward_cuda = saved
-        print(f"main path [MelGAN v1 bf16 training, {name}]: {res[name]['steps']} steps in "
-              f"{seconds:.1f} s on {card}; K6 bf16 launches = {counts[name][0]}, K7 bf16 "
-              f"launches = {counts[name][1]}")
+    def torch_window(win_length, device, dtype):
+        return torch.hann_window(win_length, periodic=True, dtype=dtype, device=device)
+
+    def run(name, config, resume=None):
+        args = ["--train-dumpdir", dump, "--dev-dumpdir", dump, "--outdir",
+                os.path.join(root, f"exp_{name}"), "--device", "cuda", "--verbose", "0",
+                "--config", config]
+        return train.main(args + (["--resume", resume] if resume else []))
+
+    def from_kernel(name, k):  # step k again from the kernel run's state
+        prev = os.path.join(root, "exp_kernel", f"checkpoint-{k - 1}steps.pkl")
+        return run(f"{name}_{k}", configs[k], prev if k > 1 else None)
+
+    def losses(result):
+        return {s: {k: v for k, v in m.items() if k.startswith("train/")}
+                for s, m in result["history"] if "train/generator_loss" in m}
+
+    def ckpt(name, k):
+        return torch.load(os.path.join(root, f"exp_{name}", f"checkpoint-{k}steps.pkl"),
+                          map_location="cpu", weights_only=True)
+
+    def apart(a, b, s):  # the loss measure at step s
+        return max(abs(a[s][k] - v) / max(abs(v), 0.1) for k, v in b[s].items())
+
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    kernel = run("kernel", configs[steps])
+    counts = {"kernel": (m6.fused_melgan_stacks.bf16_launches,
+                         m7.melgan_stacks_backward.bf16_launches)}
+    print(f"main path [{label} bf16 training, kernel]: {kernel['steps']} steps in "
+          f"{time.perf_counter() - t0:.1f} s on {card}; K6 bf16 launches = "
+          f"{counts['kernel'][0]}, K7 bf16 launches = {counts['kernel'][1]}")
+    plain, free = {}, {}
+    saved = (m6._run_cuda_bf16, m7._run_cuda_bf16, m7._backward_cuda, stft.hann_window,
+             m6._conv_cl)
+    # the bf16 plain versions on the card, in place of K6 and K7
+    m6._run_cuda_bf16 = m7._run_cuda_bf16 = plain_forward
+    m7._backward_cuda = plain_backward
+    try:
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        for k in range(1, steps + 1):
+            plain[k] = losses(from_kernel("plain", k))
+        counts["plain"] = (m6.fused_melgan_stacks.bf16_launches,
+                           m7.melgan_stacks_backward.bf16_launches)
+        seconds = time.perf_counter() - t0
+        for name in ("plain", "plain again"):
+            free[name] = losses(run(name.replace(" ", "_"), configs[steps]))
+        stft.hann_window = torch_window
+        free["plain with torch's window"] = losses(run("plain_torch_window", configs[steps]))
+        stft.hann_window = saved[3]
+        m6._conv_cl = _reordered_conv_cl
+        free["plain with other sums"] = losses(run("plain_other_sums", configs[steps]))
+        for k in range(1, steps + 1):
+            from_kernel("witness", k)
+    finally:
+        (m6._run_cuda_bf16, m7._run_cuda_bf16, m7._backward_cuda, stft.hann_window,
+         m6._conv_cl) = saved
+    print(f"main path [{label} bf16 training, plain]: steps 1-{steps}, each from the "
+          f"kernel run's state, in {seconds:.1f} s on {card}; K6 bf16 launches = "
+          f"{counts['plain'][0]}, K7 bf16 launches = {counts['plain'][1]}")
     if counts["kernel"] != expect or counts["plain"] != (0, 0):
-        _fail(f"MelGAN v1 bf16 training: launches {counts}, expected {expect} with the "
+        _fail(f"{label} bf16 training: launches {counts}, expected {expect} with the "
               "kernels")
-    logged = {name: {s: {k: v for k, v in m.items() if k.startswith("train/")}
-                     for s, m in r["history"] if "train/generator_loss" in m}
-              for name, r in res.items()}
+    logged = losses(kernel)
     worst = 0.0
     for s in range(1, steps + 1):
-        got, want = logged["kernel"].get(s), logged["plain"].get(s)
-        if not got or sorted(got) != sorted(want or {}):
-            _fail(f"MelGAN v1 bf16 training: step {s} logged {got} and {want}")
-        print(f"  step {s}: " + ", ".join(f"{k} {v:.6f}" for k, v in sorted(got.items())))
+        got, want = logged.get(s), plain[s].get(s)
+        if not got or sorted(got) != sorted(want or {}) or sorted(plain[s]) != [s]:
+            _fail(f"{label} bf16 training: step {s} logged {got} and {plain[s]}")
+        step_worst = apart({s: got}, {s: want}, s)
+        print(f"  step {s}: " + ", ".join(f"{k} {v:.6f} (plain {want[k]:.6f})"
+                                          for k, v in sorted(got.items()))
+              + f"; max relative diff {step_worst:.3e}")
         if not all(np.isfinite(v) for v in got.values()):
-            _fail(f"MelGAN v1 bf16 training: non-finite loss at step {s}")
-        worst = max([worst] + [abs(got[k] - v) / max(abs(v), 0.1) for k, v in want.items()])
-    print(f"MelGAN v1 bf16 training, K6/K7 vs their bf16 plain versions: max relative "
-          f"loss diff {worst:.3e} over steps 1-{steps} (bound 1e-2) on {card}")
+            _fail(f"{label} bf16 training: non-finite loss at step {s}")
+        worst = max(worst, step_worst)
+        prev = ckpt("kernel", s - 1) if s > 1 else None
+        base = ckpt(f"plain_{s}", s)
+        kern = _step_states(prev, ckpt("kernel", s), base)
+        wit = _step_states(prev, ckpt(f"witness_{s}", s), base)
+        print(f"  step {s} state, rms|diff| / rms|plain| of the kernels' (of the plain "
+              "versions' with other sums, the witness) against the plain versions', not "
+              "held: " + "; ".join(f"{kind} {v:.3e} ({wit.get(kind, math.nan):.3e})"
+                                   for kind, v in kern.items()))
+    for name, other in (("the kernels", logged), ("the plain versions again",
+                                                  free["plain again"])) + tuple(
+            (key, free[key]) for key in ("plain with torch's window",
+                                         "plain with other sums")):
+        print(f"{label} bf16 training left to itself, {name} against the plain versions: "
+              "max relative loss diff by step " + ", ".join(
+                  f"{s} {apart(other, free['plain'], s):.3e}" for s in range(1, steps + 1))
+              + f" (not held) on {card}")
+    print(f"{label} bf16 training, K6/K7 vs their bf16 plain versions, each step from the "
+          f"same state: max relative loss diff {worst:.3e} over steps 1-{steps} (bound "
+          f"1e-2) on {card}")
     if not worst <= 1e-2:
-        _fail(f"MelGAN v1 bf16 training: kernels vs plain {worst:.3e}")
+        _fail(f"{label} bf16 training: kernels vs plain {worst:.3e}")
     shutil.rmtree(root)
     return {"k6_launches": counts["kernel"][0], "k7_launches": counts["kernel"][1],
             "err": worst}
@@ -4613,6 +5092,10 @@ def main() -> None:
     torch.cuda.synchronize()
     pwg_family = phase_pwg_family(card)
     torch.cuda.synchronize()
+    phase_mb_melgan_train_split(card)
+    torch.cuda.synchronize()
+    mb_train = phase_mb_melgan_train(card)
+    torch.cuda.synchronize()
     shutil.rmtree(WORK, ignore_errors=True)
 
     def entry(name, source, replaces, launches, rec):
@@ -4633,7 +5116,7 @@ def main() -> None:
         entry("fused_gated_resblock", "wavenet.cu", "wavenet.py:280",
               pwg["block_launches"], wn["block"]),
         entry("fused_melgan_stacks", "melgan_stack.cu", "melgan_stack.py:285",
-              mb["launches"], k6),
+              mb["launches"] + mb_train["k6_launches"], k6),
         entry("fused_hifigan_mrf", "hifigan_tail.cu",
               "hifigan_mrf.py:178 and :399", dec["mrf_launches"], k2),
         entry("fused_tade_blocks (K8a)", "tade.cu", "tade_decode.py:366",
@@ -4642,16 +5125,18 @@ def main() -> None:
               style["k8b_launches"], k8["k8b"]),
         entry("wavenet_stack_backward (K4)", "wavenet_bwd.cu",
               "wavenet_stack_train.py:187", pwg_train["k4_launches"], k4),
-        entry("melgan_stacks_backward (K7)", "melgan_stack_bwd.cu",
-              "melgan_stack_train.py:247", melgan_train["k7_launches"], k7),
+        entry("melgan_stacks_backward (K7)", "melgan_stack_bwd.cu", "melgan_stack_train.py:247",
+              melgan_train["k7_launches"] + mb_train["k7_launches"], k7),
         entry("tade_block_backward (K9a)", "tade_bwd.cu", "tade_train.py:438",
               style_train["k9a_launches"], k9["k9a"]),
         entry("tade_block_backward (K9b)", "tade_bwd.cu", "tade_train.py:523",
               style_train["k9b_launches"], k9["k9b"]),
         entry("fused_melgan_stacks (K6 bf16-resident mode)", "melgan_stack.cu",
-              "melgan_stack.py:285", melgan_bf16["k6_launches"], k67["k6"]),
+              "melgan_stack.py:285", melgan_bf16["k6_launches"] + mb_train["k6_bf16_launches"],
+              k67["k6"]),
         entry("melgan_stacks_backward (K7 bf16-resident mode)", "melgan_stack_bwd.cu",
-              "melgan_stack_train.py:247", melgan_bf16["k7_launches"], k67["k7"]),
+              "melgan_stack_train.py:247",
+              melgan_bf16["k7_launches"] + mb_train["k7_bf16_launches"], k67["k7"]),
         entry("fused_tade_blocks_train (K8a bf16-resident mode)", "tade.cu",
               "tade_decode.py:366", style_bf16["k8a_launches"], k89["k8a"]),
         entry("fused_tade_blocks_train (K8b bf16-resident mode)", "tade.cu",

@@ -12,14 +12,16 @@ in upstream's layout to ``--outdir``:
 The config is ``.json``, or YAML where PyYAML imports; ``format: npy``
 reads ``*-wave.npy`` / ``*-feats.npy`` pairs and ``hdf5`` needs h5py.
 Ported so far: the Parallel WaveGAN generator (causal or not, with any of
-its upsample nets but the causal MelGAN one) and the MelGAN generator
-(with one output channel: PQMF in the criterion is not ported) with
-``ParallelWaveGANDiscriminator`` or
-``ResidualParallelWaveGANDiscriminator``, the StyleMelGAN generator with
+its upsample nets) and the MelGAN generator (causal or not; Multi-band
+MelGAN with ``out_channels`` sub-bands, synthesised by PQMF in the
+criterion) with ``ParallelWaveGANDiscriminator``,
+``ResidualParallelWaveGANDiscriminator`` or
+``MelGANMultiScaleDiscriminator``, the StyleMelGAN generator with
 ``StyleMelGANDiscriminator`` (its noise and windows drawn per step from
 the config's ``seed``), the HiFi-GAN generator with the HiFi-GAN
-discriminators (spectral norm included), the STFT, mel, feature-matching
-and adversarial losses, RAdam or Adam. HiFi-GAN's ``use_pallas_tail`` and
+discriminators (spectral norm included), the STFT, sub-band STFT, mel,
+feature-matching and adversarial losses, RAdam, Adam, or Adam with
+``amsgrad: true`` (optax's AMSGrad). HiFi-GAN's ``use_pallas_tail`` and
 ``use_pallas_mrf`` run kernels without a backward: a training config that
 sets either is refused before any step (they are for decode).
 With ``use_pallas_stack_train`` PWG's gated layers train through the K3
@@ -30,8 +32,9 @@ JAX kernel has no VJP), with ``use_pallas_stacks_train`` MelGAN's
 residual stacks of at most 128 channels through K6 and K7, with
 ``use_pallas_tade_train`` StyleMelGAN's TADE blocks of at least
 ``pallas_tade_train_min_t`` samples through K8a/K8b and K9a/K9b.
-``--resume`` restores the models, the optimizers, the step count and the
-data stream's position; ``--pretrain`` the model weights only.
+``--resume`` restores the models, the optimizers (AMSGrad's ``nu_max``
+too), the step count and the data stream's position; ``--pretrain`` the
+model weights only.
 ``mixed_precision: true`` runs the forwards and backwards in bf16 with
 float32 master weights, optimizer state, losses and spectral (u, v), as
 the JAX package does (``train/precision.py``; MelGAN's stacks with
@@ -39,7 +42,8 @@ the JAX package does (``train/precision.py``; MelGAN's stacks with
 TADE blocks with ``use_pallas_tade_train`` through K8/K9's, on the card,
 and through their bf16 plain versions on the CPU). Not ported yet, and
 refused with ``NotImplementedError`` (ROADMAP.md): ``distributed``, scp
-datasets and the other families and conditioning inputs. float32 convolutions and matmuls run without TF32, as the JAX
+datasets, the duration loss, optimizers other than RAdam and Adam, and
+the other families and conditioning inputs. float32 convolutions and matmuls run without TF32, as the JAX
 package computes in full float32.
 """
 

@@ -3,11 +3,12 @@
 The inverse of parallelwavegan_tpu/convert/torch_checkpoint.py:510
 ``_convert_tree`` for the models the port has: module paths go through
 the same name maps as ``_t_hifigan_g`` (:131), ``_make_t_melgan_g``
-(:153-207, non-causal), ``_make_t_pwg_g`` (:210-264, its MelGAN upsample
-net under ``upsample_net.melgan.*``), ``_t_style_melgan_g`` (:267-286),
-``_make_t_pwg_d`` (:388-399), ``_t_residual_pwg_d`` (:402-418),
-``_make_t_melgan_d`` (:420-434, nested under ``discriminators`` for
-StyleMelGAN's, :116-119), and HiFi-GAN's ``_t_hifigan_period_d`` and
+(:153-207, causal or not), ``_make_t_pwg_g`` (:210-264, its MelGAN
+upsample net under ``upsample_net.melgan.*``), ``_t_style_melgan_g``
+(:267-286), ``_make_t_pwg_d`` (:388-399), ``_t_residual_pwg_d``
+(:402-418), ``_make_t_melgan_d`` (:420-434, nested under
+``discriminators`` for StyleMelGAN's and the MelGAN multi-scale one,
+:85-90, :116-119), and HiFi-GAN's ``_t_hifigan_period_d`` and
 ``_make_t_hifigan_scale_d`` (:437-463, nested under ``discriminators``
 and ``msd``/``mpd``, :94-122) in reverse, conv
 kernels (K, Cin, Cout) are transposed to torch's (Cout, Cin, K)
@@ -121,35 +122,45 @@ def _residual_pwg_d_prefix(path) -> str:
     return ".".join(out)
 
 
-# ResidualStack's flax names -> upstream's (non-causal)
+# ResidualStack's flax names -> upstream's, non-causal and causal
 _STACK_NAMES = {"conv_dilated": "stack.2", "conv_1x1": "stack.4",
                 "skip_conv": "skip_layer"}
+_CAUSAL_STACK_NAMES = {"conv_dilated": "stack.1.conv", "conv_1x1": "stack.3",
+                       "skip_conv": "skip_layer"}
 
 
-def _stack_prefix(path) -> str:
-    return ".".join(_STACK_NAMES[p] for p in path)
+def _stack_prefix(path, causal: bool = False) -> str:
+    names = _CAUSAL_STACK_NAMES if causal else _STACK_NAMES
+    return ".".join(names[p] for p in path)
 
 
 def _melgan_map(model_params: dict):
-    """(prefix function, deconv layer indices) for MelGANGenerator: flax
+    """(prefix function, deconv module paths) for MelGANGenerator: flax
     ``layers_{li}`` -> upstream ``melgan.{idx}`` of the flat Sequential
-    (pad, conv, then per scale act, deconv, stacks, then act, pad, conv)."""
-    if model_params.get("use_causal_conv", False):
-        raise NotImplementedError("the causal MelGAN generator is not ported yet")
-    layer_map, deconvs = {0: 1}, set()
-    idx, li = 2, 1
+    (pad, conv, then per scale act, deconv, stacks, then act, pad, conv;
+    causal: CausalConv1d ``{idx}.conv``, per scale act,
+    CausalConvTranspose1d ``{idx}.deconv`` (flax ``layers_{li}/deconv``),
+    stacks, then act, CausalConv1d, as ``_make_t_melgan_g`` :153-207)."""
+    causal = model_params.get("use_causal_conv", False)
+    layer_map, deconvs = {0: "0.conv" if causal else "1"}, set()
+    idx, li = (1, 1) if causal else (2, 1)
     for _ in model_params.get("upsample_scales", (8, 8, 2, 2)):
-        layer_map[li] = idx + 1  # after the activation
-        deconvs.add(li)
+        layer_map[li] = str(idx + 1)  # after the activation
+        deconvs.add((f"layers_{li}", "deconv") if causal else (f"layers_{li}",))
         idx, li = idx + 2, li + 1
         for _ in range(model_params.get("stacks", 3)):
-            layer_map[li] = idx
+            layer_map[li] = str(idx)
             idx, li = idx + 1, li + 1
-    layer_map[li] = idx + 2  # after the activation and the pad
+    # after the activation (and the pad)
+    layer_map[li] = f"{idx + 1}.conv" if causal else str(idx + 2)
 
     def prefix(path) -> str:
         out = f"melgan.{layer_map[_idx(path[0])]}"
-        return f"{out}.{_stack_prefix(path[1:])}" if len(path) > 1 else out
+        if len(path) == 1:
+            return out
+        if tuple(path[1:]) == ("deconv",):
+            return f"{out}.deconv"
+        return f"{out}.{_stack_prefix(path[1:], causal)}"
 
     return prefix, deconvs
 
@@ -278,7 +289,10 @@ def jax_params_to_state_dict(model_type: str, model_params: dict, params,
     elif model_type == "MelGANGenerator":
         prefix_of, deconvs = _melgan_map(model_params)
     elif model_type == "ResidualStack":
-        prefix_of = _stack_prefix
+        causal = model_params.get("use_causal_conv", False)
+
+        def prefix_of(path):
+            return _stack_prefix(path, causal)
     elif model_type in ("StyleMelGANGenerator", "TADEResBlock"):
         prefix_of = _style_melgan_prefix
     elif model_type == "ParallelWaveGANGenerator":
@@ -286,20 +300,24 @@ def jax_params_to_state_dict(model_type: str, model_params: dict, params,
         up = model_params.get("upsample_params") or {}
         step = 3 if up.get("nonlinear_activation") is not None else 2
         if model_params.get("upsample_net") == "MelGANGenerator":
-            melgan_prefix, melgan_deconvs = _melgan_map(up)
+            melgan_prefix, melgan_deconvs = _melgan_map(   # the generator's causality
+                dict(up, use_causal_conv=model_params.get("use_causal_conv", False)))
 
             def prefix_of(path):
                 if path and path[0] == "upsample_net":
                     return f"upsample_net.{melgan_prefix(path[1:])}"
                 return _pwg_prefix(path)
 
-            deconvs = {("upsample_net", f"layers_{i}") for i in melgan_deconvs}
+            deconvs = {("upsample_net", *d) for d in melgan_deconvs}
     elif model_type == "ParallelWaveGANDiscriminator":
         prefix_of = _pwg_d_map(model_params)
     elif model_type == "ResidualParallelWaveGANDiscriminator":
         prefix_of = _residual_pwg_d_prefix
     elif model_type == "MelGANDiscriminator":
         prefix_of = _melgan_d_map(model_params.get("downsample_scales", (4, 4, 4, 4)))
+    elif model_type == "MelGANMultiScaleDiscriminator":
+        prefix_of = _nested("discriminators", _melgan_d_map(
+            model_params.get("downsample_scales", (4, 4, 4, 4))))
     elif model_type == "HiFiGANPeriodDiscriminator":
         prefix_of = _hifigan_period_d_prefix
     elif model_type == "HiFiGANMultiPeriodDiscriminator":
@@ -331,10 +349,8 @@ def jax_params_to_state_dict(model_type: str, model_params: dict, params,
             sd[f"{prefix}.up_layers.{step * int(m.group(1)) + 1}.{suffix}"] = (
                 np.transpose(w, (3, 2, 1, 0)))
             continue
-        if deconvs is not None and model_type == "ParallelWaveGANGenerator":
+        if deconvs is not None:
             transpose = tuple(mods) in deconvs
-        elif deconvs is not None:
-            transpose = len(mods) == 1 and _idx(mods[0]) in deconvs
         else:
             transpose = bool(mods) and mods[-1].startswith(
                 ("upsamples_", "noise_upsample_"))

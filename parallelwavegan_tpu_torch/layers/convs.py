@@ -33,7 +33,14 @@ comes from the explicit ``torch.Generator`` passed in.
 
 ``get_pad`` builds the three pad layers MelGAN reaches by name, as
 upstream's ``getattr(torch.nn, pad)(amount, **pad_params)`` does, so that
-a flat ``nn.Sequential`` keeps upstream's indices.
+a flat ``nn.Sequential`` keeps upstream's indices. ``CausalConv1d`` and
+``CausalConvTranspose1d`` are the causal MelGAN's convs under upstream's
+keys (``conv.*``, ``deconv.*``): the first pads (K - 1) * dilation on the
+left only in the given pad mode (the JAX package's causal pad,
+parallelwavegan_tpu/layers/residual_stack.py:95-97; upstream pads both
+sides and trims, which gives the same output), the second replicates one
+frame on the left, runs the full transposed conv and trims ``stride``
+samples from both ends (JAX convs.py:281-306).
 """
 
 from __future__ import annotations
@@ -271,3 +278,41 @@ class Conv2d(nn.Conv2d):
                          stride=tuple(stride), padding=tuple(padding), bias=bias)
         _init_(self, in_channels * math.prod(kernel_size), generator, None)
         _apply_norm(self, use_weight_norm, use_spectral_norm, generator)
+
+
+class CausalConv1d(nn.Module):
+    """A valid Conv1d after a left pad of (K - 1) * dilation in ``pad``
+    (one of ``PAD_MODES``' layers, with ``pad_params``): length kept."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, *,
+                 dilation: int = 1, pad: str = "ConstantPad1d",
+                 pad_params: dict | None = None, **conv_kw):
+        super().__init__()
+        if pad not in PAD_MODES:
+            raise ValueError(f"pad {pad!r} is not supported")
+        mode = {"reflect": "reflect", "edge": "replicate", "constant": "constant"}
+        self.mode = mode[PAD_MODES[pad]]
+        self.value = (pad_params or {}).get("value", 0.0) if self.mode == "constant" else None
+        self.amount = (kernel_size - 1) * dilation
+        self.conv = Conv1d(in_channels, out_channels, kernel_size, dilation=dilation,
+                           padding=0, **conv_kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.amount:
+            x = F.pad(x, (self.amount, 0), mode=self.mode, value=self.value)
+        return self.conv(x)
+
+
+class CausalConvTranspose1d(nn.Module):
+    """(B, Cin, T) -> (B, Cout, T * stride + K - 2 * stride)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int, **deconv_kw):
+        super().__init__()
+        self.stride = stride
+        self.deconv = ConvTranspose1d(in_channels, out_channels, kernel_size, stride,
+                                      **deconv_kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.deconv(F.pad(x, (1, 0), mode="replicate"))
+        return y[:, :, self.stride:-self.stride]

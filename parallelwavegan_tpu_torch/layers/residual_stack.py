@@ -6,8 +6,11 @@ input. The submodules are upstream's ``stack = Sequential(act, pad,
 conv, act, conv)`` and ``skip_layer``, so the state-dict keys are
 ``stack.2.*``, ``stack.4.*`` and ``skip_layer.*`` (the non-causal map of
 parallelwavegan_tpu/convert/torch_checkpoint.py:185-193). The three pad
-layers of the JAX package (``_PAD_MODES``) are taken; the causal variant
-is not ported yet and raises ``NotImplementedError`` (ROADMAP.md M16).
+layers of the JAX package (``_PAD_MODES``) are taken. The causal stack
+(``use_causal_conv``, JAX :94-97) is upstream's ``stack = Sequential(act,
+CausalConv1d, act, conv)``, keys ``stack.1.conv.*``, ``stack.3.*`` and
+``skip_layer.*`` (the causal map, :185-190): the dilated conv sees
+(K - 1) * dilation samples of the stack's pad on the left only.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from parallelwavegan_tpu_torch.layers.convs import Conv1d, get_pad
+from parallelwavegan_tpu_torch.layers.convs import CausalConv1d, Conv1d, get_pad
 from parallelwavegan_tpu_torch.layers.residual_block import get_activation
 
 INIT_STD = 0.02  # N(0, 0.02) conv weights, the JAX normal_init(0.02)
@@ -32,22 +35,25 @@ class ResidualStack(nn.Module):
                  use_causal_conv: bool = False, use_weight_norm: bool = True,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if use_causal_conv:
-            raise NotImplementedError(
-                "the causal ResidualStack is not ported yet; see ROADMAP.md")
-        assert (kernel_size - 1) % 2 == 0, "even kernel size unsupported"
         params = nonlinear_activation_params or {"negative_slope": 0.2}
         self.dilation = dilation
-        kw = dict(padding=0, bias=bias, use_weight_norm=use_weight_norm,
+        kw = dict(bias=bias, use_weight_norm=use_weight_norm,
                   normal_std=INIT_STD, generator=generator)
+        if use_causal_conv:
+            dilated = [CausalConv1d(channels, channels, kernel_size, dilation=dilation,
+                                    pad=pad, pad_params=pad_params, **kw)]
+        else:
+            assert (kernel_size - 1) % 2 == 0, "even kernel size unsupported"
+            dilated = [get_pad(pad, (kernel_size - 1) // 2 * dilation, pad_params),
+                       Conv1d(channels, channels, kernel_size, dilation=dilation,
+                              padding=0, **kw)]
         self.stack = nn.Sequential(
             get_activation(nonlinear_activation, params),
-            get_pad(pad, (kernel_size - 1) // 2 * dilation, pad_params),
-            Conv1d(channels, channels, kernel_size, dilation=dilation, **kw),
+            *dilated,
             get_activation(nonlinear_activation, params),
-            Conv1d(channels, channels, 1, **kw),
+            Conv1d(channels, channels, 1, padding=0, **kw),
         )
-        self.skip_layer = Conv1d(channels, channels, 1, **kw)
+        self.skip_layer = Conv1d(channels, channels, 1, padding=0, **kw)
 
     def forward(self, c: torch.Tensor) -> torch.Tensor:
         return self.stack(c) + self.skip_layer(c)

@@ -1,10 +1,10 @@
 """Model registry of the port: the YAML-facing class names.
 
 ``HiFiGANGenerator``, ``ParallelWaveGANGenerator`` (causal or not, with
-any of its three upsample nets, except causal with the MelGAN one),
-``MelGANGenerator`` (MelGAN and Multi-band MelGAN, non-causal),
-``StyleMelGANGenerator``, ``ParallelWaveGANDiscriminator``,
-``ResidualParallelWaveGANDiscriminator``, ``MelGANDiscriminator``,
+any of its three upsample nets), ``MelGANGenerator`` (MelGAN and
+Multi-band MelGAN, causal or not), ``StyleMelGANGenerator``,
+``ParallelWaveGANDiscriminator``, ``ResidualParallelWaveGANDiscriminator``,
+``MelGANDiscriminator``, ``MelGANMultiScaleDiscriminator``,
 ``StyleMelGANDiscriminator`` and HiFi-GAN's period, multi-period, scale,
 multi-scale and multi-scale multi-period discriminators are ported so
 far; ROADMAP.md lists the rest in the order they are to come.
@@ -21,6 +21,7 @@ from parallelwavegan_tpu_torch.models.hifigan import (
 from parallelwavegan_tpu_torch.models.melgan import (
     MelGANDiscriminator,
     MelGANGenerator,
+    MelGANMultiScaleDiscriminator,
 )
 from parallelwavegan_tpu_torch.models.parallel_wavegan import (
     ParallelWaveGANDiscriminator,
@@ -41,6 +42,7 @@ MODEL_REGISTRY = {
     "HiFiGANScaleDiscriminator": HiFiGANScaleDiscriminator,
     "MelGANDiscriminator": MelGANDiscriminator,
     "MelGANGenerator": MelGANGenerator,
+    "MelGANMultiScaleDiscriminator": MelGANMultiScaleDiscriminator,
     "ParallelWaveGANDiscriminator": ParallelWaveGANDiscriminator,
     "ParallelWaveGANGenerator": ParallelWaveGANGenerator,
     "ResidualParallelWaveGANDiscriminator": ResidualParallelWaveGANDiscriminator,

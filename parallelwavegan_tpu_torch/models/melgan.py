@@ -30,15 +30,25 @@ gives the same values; that wrapper is inference-only, as JAX's, so
 each fused stage's weights, on the card with K6's split of them, so a
 decode splits nothing per utterance.
 ``pallas_stacks_train_tile`` is a TPU tile size, accepted for config
-compatibility and without effect. The causal generator is not ported yet
-(ROADMAP.md M16).
+compatibility and without effect. The causal generator
+(``use_causal_conv``, JAX :92-130, :203-210) is upstream's causal
+Sequential: ``CausalConv1d`` in and out (keys ``melgan.0.conv``,
+``melgan.{last}.conv``), ``CausalConvTranspose1d`` per scale
+(``melgan.{i}.deconv``) and causal ResidualStacks; it runs no kernel, as
+the JAX gate (:82-83) requires a non-causal generator.
 
 ``MelGANDiscriminator`` (JAX :233-322, upstream's keys ``layers.0.1``,
 ``layers.{i}.0``, ``layers.{last}``) is the base discriminator of
-StyleMelGAN's random-window discriminator: a reflect-padded input conv of
+StyleMelGAN's random-window discriminator and of
+``MelGANMultiScaleDiscriminator``: a reflect-padded input conv of
 prod(kernel_sizes) taps, strided grouped convs, two final convs, N(0,
 0.02) weights and weight norm; its output is the list of every layer's
-features.
+features. ``MelGANMultiScaleDiscriminator`` (JAX :354-403, keys
+``discriminators.{i}.layers.*``) runs ``scales`` of them, each on the
+wave average-pooled once more than the last (torch's ``avg_pool1d``,
+which computes JAX's :325-351; AvgPool1d(4, 2, 1,
+count_include_pad=False) unless ``downsample_pooling_params`` say
+otherwise), and returns their lists.
 """
 
 from __future__ import annotations
@@ -47,10 +57,13 @@ import math
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from parallelwavegan_tpu_torch.layers.convs import (
     PAD_MODES,
+    CausalConv1d,
+    CausalConvTranspose1d,
     Conv1d,
     ConvTranspose1d,
     get_pad,
@@ -97,12 +110,10 @@ class MelGANGenerator(nn.Module):
         generator: torch.Generator | None = None,
     ):
         super().__init__()
-        if use_causal_conv:
-            raise NotImplementedError(
-                "the causal MelGAN generator is not ported yet; see ROADMAP.md")
         assert channels >= math.prod(upsample_scales)
         assert channels % (2 ** len(upsample_scales)) == 0
-        assert (kernel_size - 1) % 2 == 0, "even kernel size unsupported"
+        if not use_causal_conv:
+            assert (kernel_size - 1) % 2 == 0, "even kernel size unsupported"
         act_params = nonlinear_activation_params or {"negative_slope": 0.2}
         self.upsample_scales = tuple(int(s) for s in upsample_scales)
         self.use_final_nonlinear_activation = use_final_nonlinear_activation
@@ -114,32 +125,44 @@ class MelGANGenerator(nn.Module):
         def act():
             return get_activation(nonlinear_activation, act_params)
 
-        layers = [get_pad(pad, (kernel_size - 1) // 2, pad_params),
-                  Conv1d(in_channels, channels, kernel_size, padding=0, **conv_kw)]
+        def conv(cin, cout):  # [pad, conv], or the causal conv
+            if use_causal_conv:
+                return [CausalConv1d(cin, cout, kernel_size, pad=pad,
+                                     pad_params=pad_params, **conv_kw)]
+            return [get_pad(pad, (kernel_size - 1) // 2, pad_params),
+                    Conv1d(cin, cout, kernel_size, padding=0, **conv_kw)]
+
+        def deconv(cin, cout, s):
+            if use_causal_conv:
+                return CausalConvTranspose1d(cin, cout, s * 2, s, **conv_kw)
+            return ConvTranspose1d(cin, cout, s * 2, s, padding=s // 2 + s % 2,
+                                   output_padding=s % 2, **conv_kw)
+
+        layers = conv(in_channels, channels)
+        self._head = len(layers)
         self._stages = []  # (act, deconv, [stacks]) indices per scale
         for i, s in enumerate(self.upsample_scales):
             ch = channels // (2 ** (i + 1))
             first = len(layers)
-            layers += [act(), ConvTranspose1d(
-                channels // (2 ** i), ch, s * 2, s, padding=s // 2 + s % 2,
-                output_padding=s % 2, **conv_kw)]
+            layers += [act(), deconv(channels // (2 ** i), ch, s)]
             layers += [ResidualStack(
                 kernel_size=stack_kernel_size, channels=ch,
                 dilation=stack_kernel_size ** j, bias=bias,
                 nonlinear_activation=nonlinear_activation,
                 nonlinear_activation_params=act_params, pad=pad,
-                pad_params=pad_params, use_weight_norm=use_weight_norm,
+                pad_params=pad_params, use_causal_conv=use_causal_conv,
+                use_weight_norm=use_weight_norm,
                 generator=generator) for j in range(stacks)]
             self._stages.append((first, first + 1, list(range(first + 2, len(layers)))))
-        self._tail = len(layers)  # act, pad, conv[, tanh]
-        layers += [act(), get_pad(pad, (kernel_size - 1) // 2, pad_params),
-                   Conv1d(ch, out_channels, kernel_size, padding=0, **conv_kw)]
+        self._tail = len(layers)  # act, [pad,] conv[, tanh]
+        layers += [act(), *conv(ch, out_channels)]
         if use_final_nonlinear_activation:
             layers += [nn.Tanh()]
         self.melgan = nn.Sequential(*layers)
 
         fuse_ok = (
             (use_pallas_stacks or use_pallas_stacks_train)
+            and not use_causal_conv
             and nonlinear_activation == "LeakyReLU"
             and (self.pad_mode != "constant"
                  or (pad_params or {}).get("value", 0.0) == 0.0))
@@ -161,7 +184,8 @@ class MelGANGenerator(nn.Module):
 
     def forward(self, c: torch.Tensor) -> torch.Tensor:
         m = self.melgan
-        c = m[1](m[0](c))
+        for j in range(self._head):
+            c = m[j](c)
         last = len(self._stages) - 1
         for i, (a, d, stack_ids) in enumerate(self._stages):
             c = m[d](m[a](c))
@@ -279,4 +303,53 @@ class MelGANDiscriminator(nn.Module):
         for f in self.layers:
             x = f(x)
             outs.append(x)
+        return outs
+
+
+class MelGANMultiScaleDiscriminator(nn.Module):
+    """wave (B, in_channels, T) -> one ``MelGANDiscriminator`` list of
+    features per scale, scale i on the wave pooled i times."""
+
+    def __init__(
+        self,
+        in_channels: int = 1,
+        out_channels: int = 1,
+        scales: int = 3,
+        downsample_pooling: str = "AvgPool1d",
+        downsample_pooling_params: dict | None = None,
+        kernel_sizes: Sequence[int] = (5, 3),
+        channels: int = 16,
+        max_downsample_channels: int = 1024,
+        bias: bool = True,
+        downsample_scales: Sequence[int] = (4, 4, 4, 4),
+        nonlinear_activation: str = "LeakyReLU",
+        nonlinear_activation_params: dict | None = None,
+        pad: str = "ReflectionPad1d",
+        pad_params: dict | None = None,
+        use_weight_norm: bool = True,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        if downsample_pooling != "AvgPool1d":
+            raise ValueError(f"downsample_pooling {downsample_pooling!r} is not "
+                             "supported: the JAX package pools with AvgPool1d alone")
+        self.pool_params = {"kernel_size": 4, "stride": 2, "padding": 1,
+                            "count_include_pad": False}
+        self.pool_params.update(downsample_pooling_params or {})
+        self.discriminators = nn.ModuleList([MelGANDiscriminator(
+            in_channels=in_channels, out_channels=out_channels,
+            kernel_sizes=kernel_sizes, channels=channels,
+            max_downsample_channels=max_downsample_channels, bias=bias,
+            downsample_scales=downsample_scales,
+            nonlinear_activation=nonlinear_activation,
+            nonlinear_activation_params=nonlinear_activation_params, pad=pad,
+            pad_params=pad_params, use_weight_norm=use_weight_norm,
+            generator=generator) for _ in range(scales)])
+
+    def forward(self, x: torch.Tensor) -> list:
+        outs = []
+        for i, d in enumerate(self.discriminators):
+            if i:  # JAX's avg_pool1d (:325-351) is torch's AvgPool1d
+                x = F.avg_pool1d(x, **self.pool_params)
+            outs.append(d(x))
         return outs

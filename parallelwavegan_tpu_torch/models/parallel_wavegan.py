@@ -10,8 +10,8 @@ ReLU -> 1x1 -> ReLU -> 1x1. Keys are upstream's: ``first_conv``,
 ``MelGANGenerator`` (JAX :54-60: ``aux_context_window`` 0, no final tanh,
 weight norm as the generator's; keys ``upsample_net.melgan.*``).
 ``use_causal_conv`` makes every block and the upsample net causal, as in
-JAX; the causal generator with the MelGAN upsample net waits for the
-causal MelGAN generator (ROADMAP.md M16).
+JAX (with the MelGAN upsample net, the causal MelGAN generator; keys
+``upsample_net.melgan.0.conv``, ``.{i}.deconv``, ``.{j}.stack.1.conv``).
 
 Kernel flags keep the JAX names so that configs are shared:
 
@@ -121,11 +121,6 @@ class ParallelWaveGANGenerator(nn.Module):
         generator: torch.Generator | None = None,
     ):
         super().__init__()
-        if use_causal_conv and upsample_net == "MelGANGenerator":
-            raise NotImplementedError(
-                "the causal Parallel WaveGAN generator with upsample_net "
-                "MelGANGenerator needs the causal MelGAN generator, which is not "
-                "ported to parallelwavegan_tpu_torch yet; see ROADMAP.md (M16)")
         assert layers % stacks == 0
         self.layers = layers
         self.stacks = stacks

@@ -332,8 +332,7 @@ def _run_cuda_bf16(x, stacks, final, slope: float, pad_mode: str, outs=None,
                  biases[i].data_ptr(), b, t, c, st["wd"].shape[0], int(st["dilation"]),
                  mode, slope, slope_x if i == 0 else slope, int(i == 0), int(out_bf16),
                  dev, stream)
-        fused_melgan_stacks.launches += 1
-        fused_melgan_stacks.bf16_launches += 1
+        _count(c, True)
         src = dst
     if outs is not None:
         outs.extend(bufs)
@@ -349,8 +348,7 @@ def _run_cuda_bf16(x, stacks, final, slope: float, pad_mode: str, outs=None,
     lib.call("melgan_outconv_bf16", src.data_ptr(), y.data_ptr(), w.data_ptr(),
              bias.data_ptr(), b, t, c, out_ch, fw.shape[0], mode, slope,
              int(not keep_f32), dev, stream)
-    fused_melgan_stacks.launches += 1
-    fused_melgan_stacks.bf16_launches += 1
+    _count(c, True)
     return y
 
 
@@ -373,7 +371,7 @@ def _run_cuda(x, stacks, final, slope: float, pad_mode: str, outs=None, split=No
         lib.call("melgan_stack", src.data_ptr(), dst.data_ptr(), frags[i].data_ptr(),
                  biases[i].data_ptr(), b, t, c, st["wd"].shape[0],
                  int(st["dilation"]), mode, slope, dev, stream)
-        fused_melgan_stacks.launches += 1
+        _count(c, False)
         src = dst
     if outs is not None:
         outs.extend(bufs)
@@ -384,8 +382,16 @@ def _run_cuda(x, stacks, final, slope: float, pad_mode: str, outs=None, split=No
     lib.call("melgan_outconv", src.data_ptr(), out.data_ptr(), fw.data_ptr(),
              _bias(fb, fw.shape[-1], x).data_ptr(), b, t, c, fw.shape[-1],
              fw.shape[0], mode, slope, dev, stream)
-    fused_melgan_stacks.launches += 1
+    _count(c, False)
     return out
+
+
+def _count(c: int, bf16: bool) -> None:
+    """One launch of K6 at stage width c (``launches_by_width``)."""
+    fused_melgan_stacks.launches += 1
+    fused_melgan_stacks.bf16_launches += int(bf16)
+    by_width = fused_melgan_stacks.launches_by_width
+    by_width[c] = by_width.get(c, 0) + 1
 
 
 def fused_melgan_stacks(x, stacks, *, final=None, slope: float = 0.2,
@@ -400,7 +406,8 @@ def fused_melgan_stacks(x, stacks, *, final=None, slope: float = 0.2,
     does not take; a CPU tensor goes through ``melgan_stacks_reference``
     (``melgan_stacks_reference_bf16`` for a bf16 x).
     ``fused_melgan_stacks.calls`` counts the calls that ran the kernel,
-    ``.launches`` its launches, ``.bf16_launches`` those in the bf16 mode.
+    ``.launches`` its launches, ``.bf16_launches`` those in the bf16 mode,
+    ``.launches_by_width`` the launches at each stage width C.
     """
     if torch.is_grad_enabled():  # decode runs without: skip gathering the tensors
         build.refuse_training(
@@ -424,3 +431,4 @@ def fused_melgan_stacks(x, stacks, *, final=None, slope: float = 0.2,
 fused_melgan_stacks.calls = 0
 fused_melgan_stacks.launches = 0
 fused_melgan_stacks.bf16_launches = 0
+fused_melgan_stacks.launches_by_width = {}

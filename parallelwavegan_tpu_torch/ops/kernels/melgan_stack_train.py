@@ -205,7 +205,8 @@ def melgan_stacks_backward(x, stacks, final, slope, pad_mode, dy, fwd_split=None
     ``fused_melgan_stacks``, stack and final kernels odd up to 7, the final
     conv to at most 4 channels; float32, contiguous) and raises on anything
     it does not take; ``melgan_stacks_backward.launches`` counts one per
-    stack and one for ``final``. K6 re-runs the stage from x first (counted
+    stack and one for ``final`` (``.launches_by_width`` at each stage width
+    C). K6 re-runs the stage from x first (counted
     in ``fused_melgan_stacks.launches``). A CPU tensor goes through
     ``melgan_stacks_backward_reference``. A bf16 x (and dy) runs the
     bf16-resident mode (``melgan_stacks_backward_reference_bf16`` on the
@@ -284,7 +285,7 @@ def _backward_cuda(x, stacks, final, slope, pad_mode, dy, fwd_split):
                  dy.data_ptr(), bufs[0].data_ptr(), part.data_ptr(), w.data_ptr(),
                  dw.data_ptr(), db.data_ptr(), n_part, b, t, c, out_ch, kf, mode,
                  slope, dev, stream)
-        _count(bf16)
+        _count(c, bf16)
         g, n_out = bufs[0], 1
         dfinal = (dw, None if fb is None else db)
     dz, h = torch.empty(x.shape, device=x.device), torch.empty(x.shape, device=x.device)
@@ -305,20 +306,23 @@ def _backward_cuda(x, stacks, final, slope, pad_mode, dy, fwd_split):
                  frags[i].data_ptr(), bd.data_ptr(),
                  *(d[k].data_ptr() for k in STACK_KEYS), n_part, b, t, c,
                  st["wd"].shape[0], int(st["dilation"]), mode, slope, *extra, dev, stream)
-        _count(bf16)
+        _count(c, bf16)
         dstacks[i] = {k: None if k[0] == "b" and st[k] is None else d[k]
                       for k in STACK_KEYS}
         g, n_out = dst, n_out + 1
     return g, dstacks, dfinal
 
 
-def _count(bf16: bool) -> None:
+def _count(c: int, bf16: bool) -> None:
     melgan_stacks_backward.launches += 1
     melgan_stacks_backward.bf16_launches += int(bf16)
+    by_width = melgan_stacks_backward.launches_by_width
+    by_width[c] = by_width.get(c, 0) + 1
 
 
 melgan_stacks_backward.launches = 0
 melgan_stacks_backward.bf16_launches = 0
+melgan_stacks_backward.launches_by_width = {}
 
 
 class melgan_stacks_train(torch.autograd.Function):  # noqa: N801 (JAX name)

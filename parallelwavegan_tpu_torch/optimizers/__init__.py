@@ -10,6 +10,12 @@ these optimizers compute optax's functions and not ``torch.optim``'s:
   multiplying by sqrt(1 - beta2^t) and rectifies when rho_t > 5; with
   PWG v1's eps of 1e-6 the two differ from step 6 on.
 * ``Adam`` is ``optax.adam``.
+* ``AMSGrad`` (``Adam`` with ``amsgrad: true``) is ``optax.amsgrad``: the
+  running maximum ``nu_max`` is taken of the bias-corrected second moment
+  and the step is m_hat / (sqrt(nu_max) + eps). ``torch.optim.Adam(amsgrad=
+  True)`` takes the maximum of the raw second moment and divides it by the
+  current step's correction; the two differ from step 2 on. ``amsgrad``
+  beside ``RAdam`` has no effect, as in the JAX package (:136-140).
 * Gradient clipping is ``optax.clip_by_global_norm``: gradients are scaled
   by max_norm / ||g|| when ||g|| >= max_norm, where
   ``torch.nn.utils.clip_grad_norm_`` scales by max_norm / (||g|| + 1e-6).
@@ -19,8 +25,9 @@ these optimizers compute optax's functions and not ``torch.optim``'s:
   gives ``lr * gamma ** (n // step_size)``, the JAX unit.
 
 Each optimizer is a ``torch.optim.Optimizer``: ``step()`` reads ``.grad``,
-and ``state_dict()`` holds the moments (``exp_avg``, ``exp_avg_sq``) and,
-in each parameter group, the update count ``step_count``. The other
+and ``state_dict()`` holds the moments (``exp_avg``, ``exp_avg_sq``, and
+AMSGrad's ``nu_max``) and, in each parameter group, the update count
+``step_count``. The other
 optimizer and scheduler types of the JAX package raise
 ``NotImplementedError`` (ROADMAP.md).
 """
@@ -30,6 +37,7 @@ from __future__ import annotations
 import math
 from typing import Callable
 
+import numpy as np
 import torch
 
 _NOT_PORTED_OPTIMIZERS = ("AdamW", "SGD", "NAdam", "NAdamW", "Adamax",
@@ -76,6 +84,16 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
 
 
+def _correction(b: float, count: int, dtype: torch.dtype) -> float:
+    """optax's bias correction 1 - b ** count, computed in the moments'
+    type as optax computes it: in float32 b = 0.999 is 0.99900001, and the
+    correction of step 1 is 1.3e-5 below the exact one."""
+    if dtype == torch.float64:
+        return 1.0 - b ** count
+    one = np.float32(1.0)
+    return float(one - np.float32(b) ** np.float32(count))
+
+
 class _OptaxChain(torch.optim.Optimizer):
     """clip_by_global_norm -> add_decayed_weights -> the scaling of the
     subclass -> scale by -lr(update count), applied to ``.grad``. Each
@@ -83,6 +101,8 @@ class _OptaxChain(torch.optim.Optimizer):
     where it can be (a new tensor per parameter costs the host more than
     the update costs the card), so a step is a few dozen launches whatever
     the parameter count."""
+
+    STATE_KEYS = ("exp_avg", "exp_avg_sq")
 
     def __init__(self, params, lr_schedule: Callable[[int], float],
                  betas=(0.9, 0.999), eps: float = 1e-8,
@@ -126,16 +146,16 @@ class _OptaxChain(torch.optim.Optimizer):
                 gs = torch._foreach_add(gs, ps, alpha=group["weight_decay"])
             for p in ps:
                 if not self.state[p]:
-                    self.state[p]["exp_avg"] = torch.zeros_like(p)
-                    self.state[p]["exp_avg_sq"] = torch.zeros_like(p)
+                    for key in self.STATE_KEYS:
+                        self.state[p][key] = torch.zeros_like(p)
             updates = self._scale(gs, [self.state[p] for p in ps], group, count + 1)
             torch._foreach_mul_(updates, -self.lr_schedule(count))
             torch._foreach_add_(ps, updates)
 
     @staticmethod
-    def _moments(gs, states, group, count):
+    def _moments(gs, states, group, count, root: bool = True):
         """The moments updated in place, b m + (1 - b) g, and new tensors
-        m_hat and sqrt(v_hat) + eps."""
+        m_hat and sqrt(v_hat) + eps (v_hat itself unless ``root``)."""
         b1, b2 = group["betas"]
         mu = [s["exp_avg"] for s in states]
         nu = [s["exp_avg_sq"] for s in states]
@@ -143,10 +163,11 @@ class _OptaxChain(torch.optim.Optimizer):
         torch._foreach_add_(mu, gs, alpha=1 - b1)
         torch._foreach_mul_(nu, b2)
         torch._foreach_addcmul_(nu, gs, gs, value=1 - b2)
-        mu_hat = torch._foreach_div(mu, 1 - b1 ** count)
-        denom = torch._foreach_div(nu, 1 - b2 ** count)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, group["eps"])
+        mu_hat = torch._foreach_div(mu, _correction(b1, count, mu[0].dtype))
+        denom = torch._foreach_div(nu, _correction(b2, count, nu[0].dtype))
+        if root:
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, group["eps"])
         return mu_hat, denom
 
 
@@ -155,6 +176,22 @@ class Adam(_OptaxChain):
 
     def _scale(self, gs, states, group, count):
         mu_hat, denom = self._moments(gs, states, group, count)
+        torch._foreach_div_(mu_hat, denom)
+        return mu_hat
+
+
+class AMSGrad(_OptaxChain):
+    """``optax.amsgrad``: nu_max = max(nu_max, v_hat), then m_hat /
+    (sqrt(nu_max) + eps)."""
+
+    STATE_KEYS = ("exp_avg", "exp_avg_sq", "nu_max")
+
+    def _scale(self, gs, states, group, count):
+        mu_hat, nu_hat = self._moments(gs, states, group, count, root=False)
+        nu_max = [s["nu_max"] for s in states]
+        torch._foreach_maximum_(nu_max, nu_hat)
+        denom = torch._foreach_sqrt(nu_max)
+        torch._foreach_add_(denom, group["eps"])
         torch._foreach_div_(mu_hat, denom)
         return mu_hat
 
@@ -193,9 +230,8 @@ def build_optimizer(params, optimizer_type: str,
     eps = p.pop("eps", None)
     eps = 1e-8 if eps is None else eps
     weight_decay = p.pop("weight_decay", 0.0)
-    if p.pop("amsgrad", False):
-        raise _not_ported("amsgrad")
-    cls = {"Adam": Adam, "RAdam": RAdam}.get(optimizer_type)
+    amsgrad = p.pop("amsgrad", False)
+    cls = {"Adam": AMSGrad if amsgrad else Adam, "RAdam": RAdam}.get(optimizer_type)
     if cls is None:
         if optimizer_type in _NOT_PORTED_OPTIMIZERS:
             raise _not_ported(f"optimizer {optimizer_type}")

@@ -5,9 +5,14 @@ The backward-compatible defaults of the JAX package (:64-68) apply: the
 STFT loss is on and the sub-band STFT, mel, feature-matching and duration
 losses are off when their keys are absent. The mel loss takes
 ``mel_loss_params`` or, without them, the config's feature keys
-(:81-96). The sub-band STFT and duration losses, and PQMF in the
-criterion (a generator with more than one output channel), are not ported
-yet and raise ``NotImplementedError`` (ROADMAP.md).
+(:81-96). A generator with more than one output channel (Multi-band
+MelGAN) gets ``pqmf``, a PQMF bank of that many sub-bands with the
+config's ``pqmf_params`` (:106-114), and ``use_subband_stft_loss`` (which
+needs such a generator, :76-80) a second multi-resolution STFT loss from
+``subband_stft_loss_params``; ``train/step.py`` synthesises the full band
+and analyses the target with ``pqmf``. The duration loss and the VQVAE
+generator's PQMF (:115-120) are not ported yet and raise
+``NotImplementedError`` (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from parallelwavegan_tpu_torch.losses import (
     MelSpectrogramLoss,
     MultiResolutionSTFTLoss,
 )
+from parallelwavegan_tpu_torch.ops.pqmf import PQMF
 
 
 @dataclass(frozen=True)
@@ -36,6 +42,8 @@ class Criterion:
     lambda_aux: float
     lambda_adv: float
     lambda_feat_match: float
+    sub_stft: MultiResolutionSTFTLoss | None = None
+    pqmf: PQMF | None = None
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -51,17 +59,23 @@ def build_criterion(config: dict) -> Criterion:
     config.setdefault("use_mel_loss", False)
     config.setdefault("use_feat_match_loss", False)
     config.setdefault("use_duration_loss", False)
-    for key, what in (("use_subband_stft_loss", "the sub-band STFT loss"),
-                      ("use_duration_loss", "the duration loss")):
-        if config[key]:
-            raise _not_ported(what)
-    if config["generator_params"].get("out_channels", 1) > 1:
-        raise _not_ported("PQMF in the criterion (multi-band generators)")
-    stft = None
+    if config["use_duration_loss"]:
+        raise _not_ported("the duration loss")
+    subbands = config["generator_params"].get("out_channels", 1)
+    stft = sub_stft = pqmf = None
     if config["use_stft_loss"]:
         params = dict(config.get("stft_loss_params", {}))
         params.pop("window", None)
         stft = MultiResolutionSTFTLoss(**params)
+    if config["use_subband_stft_loss"]:
+        if subbands <= 1:
+            raise ValueError("use_subband_stft_loss needs a generator with more than "
+                             f"one output channel, got out_channels {subbands}")
+        params = dict(config.get("subband_stft_loss_params", {}))
+        params.pop("window", None)
+        sub_stft = MultiResolutionSTFTLoss(**params)
+    if subbands > 1:
+        pqmf = PQMF(subbands=subbands, **config.get("pqmf_params", {}))
     mel = None
     if config["use_mel_loss"]:
         mel = MelSpectrogramLoss(**(config.get("mel_loss_params") or {
@@ -72,7 +86,7 @@ def build_criterion(config: dict) -> Criterion:
     feat_match = None
     if config["use_feat_match_loss"]:
         feat_match = FeatureMatchLoss(**config.get("feat_match_loss_params", {}))
-    if stft is None and mel is None:
+    if stft is None and sub_stft is None and mel is None:
         logging.warning("no auxiliary (stft/mel) loss is enabled")
     return Criterion(
         gen_adv=GeneratorAdversarialLoss(
@@ -85,4 +99,6 @@ def build_criterion(config: dict) -> Criterion:
         lambda_aux=config.get("lambda_aux", 1.0),
         lambda_adv=config.get("lambda_adv", 1.0),
         lambda_feat_match=config.get("lambda_feat_match", 1.0),
+        sub_stft=sub_stft,
+        pqmf=pqmf,
     )

@@ -17,6 +17,14 @@ package computes it (:152-365):
   that is the K3 inference path); D's real and fake losses, and one
   update of D.
 
+A multi-band generator (Multi-band MelGAN: ``criterion.pqmf`` is set)
+gives sub-bands (B, S, T / S); ``aux_losses`` synthesises them to the full
+band (B, 1, T) as JAX's ``_generator_losses`` does (:125-150), and the
+full band is what the full-band losses and D see, in both phases and in
+the eval step. With the sub-band STFT loss the full-band STFT loss is
+halved and half the sub-band loss of the sub-bands against the target's
+PQMF analysis is added, before ``lambda_aux`` and the adversarial terms.
+
 A discriminator with spectral norm runs one power iteration in every
 train-mode forward: the G phase's one or two, then the D phase's over the
 real and the fake wave, in JAX's order (:281-303, :337-341); the eval
@@ -119,19 +127,39 @@ def discriminator_forward(config: dict, discriminator, y, batch: dict, key: str,
     return precision.call(discriminator, params, y)
 
 
+def full_band(criterion: Criterion, y_) -> torch.Tensor:
+    """The generator's output as a wave (B, 1, T): a multi-band output (B,
+    S, T / S) synthesised by ``criterion.pqmf``, any other as it is."""
+    if criterion.pqmf is None:
+        return y_
+    return criterion.pqmf.synthesis(y_.transpose(1, 2)).transpose(1, 2)
+
+
 def aux_losses(criterion: Criterion, y_, y, metrics: dict):
-    """The auxiliary losses of a (B, 1, T) output against the target."""
+    """(the auxiliary losses of the generator's output ``y_`` against the
+    target (B, 1, T), the full-band wave of ``y_``) (JAX step.py:125-150):
+    the STFT and mel losses of the full band and, with the sub-band STFT
+    loss, half the STFT loss plus half the sub-band loss of the sub-bands
+    against the target's analysis (the sub-band loss takes (B, T, S))."""
+    y_full = full_band(criterion, y_)
     gen_loss = 0.0
     if criterion.stft is not None:
-        sc_loss, mag_loss = criterion.stft(y_[:, 0], y[:, 0])
+        sc_loss, mag_loss = criterion.stft(y_full[:, 0], y[:, 0])
         gen_loss = gen_loss + sc_loss + mag_loss
         metrics["spectral_convergence_loss"] = sc_loss
         metrics["log_stft_magnitude_loss"] = mag_loss
+    if criterion.sub_stft is not None:
+        gen_loss = gen_loss * 0.5  # the balance of upstream's train.py:242-247
+        y_mb = criterion.pqmf.analysis(y.transpose(1, 2))
+        sub_sc, sub_mag = criterion.sub_stft(y_.transpose(1, 2), y_mb)
+        gen_loss = gen_loss + 0.5 * (sub_sc + sub_mag)
+        metrics["sub_spectral_convergence_loss"] = sub_sc
+        metrics["sub_log_stft_magnitude_loss"] = sub_mag
     if criterion.mel is not None:
-        mel_loss = criterion.mel(y_[:, 0], y[:, 0])
+        mel_loss = criterion.mel(y_full[:, 0], y[:, 0])
         gen_loss = gen_loss + mel_loss
         metrics["mel_loss"] = mel_loss
-    return gen_loss
+    return gen_loss, y_full
 
 
 def adv_losses(criterion: Criterion, p_, real_features, metrics: dict):
@@ -203,8 +231,9 @@ class TrainStep:
             return precision.to_f32(out) if mixed else out
 
         if train_g:
-            y_ = gen(NOISE_G, self._cast(self.generator))
-            gen_loss = aux_losses(crit, y_, y, metrics) * crit.lambda_aux
+            gen_loss, y_ = aux_losses(crit, gen(NOISE_G, self._cast(self.generator)), y,
+                                      metrics)
+            gen_loss = gen_loss * crit.lambda_aux
             if train_d:
                 p_d = self._cast(self.discriminator, grad=False)
 
@@ -221,7 +250,7 @@ class TrainStep:
         if train_d:
             if self.update_prediction or not train_g:
                 with torch.no_grad():
-                    y_ = gen(NOISE_D, self._cast(self.generator))
+                    y_ = full_band(crit, gen(NOISE_D, self._cast(self.generator)))
             p_d = self._cast(self.discriminator)
             p = dis(y, "real", STARTS_REAL, p_d)
             p_ = dis(y_, "fake", STARTS_FAKE, p_d)
@@ -244,8 +273,10 @@ def eval_step(config: dict, generator, discriminator, criterion: Criterion,
     as JAX's one key gives both."""
     metrics = {}
     y = batch["y"]
-    y_ = generator_forward(config, generator, batch, (*draws, NOISE_EVAL))
-    gen_loss = aux_losses(criterion, y_, y, metrics) * criterion.lambda_aux
+    gen_loss, y_ = aux_losses(
+        criterion, generator_forward(config, generator, batch, (*draws, NOISE_EVAL)), y,
+        metrics)
+    gen_loss = gen_loss * criterion.lambda_aux
     p_, p = (discriminator_forward(config, discriminator, v, batch, "eval",
                                    (*draws, STARTS_EVAL)) for v in (y_, y))
     adv_loss = adv_losses(criterion, p_, lambda: p, metrics)

@@ -37,6 +37,7 @@ from parallelwavegan_tpu_torch.train.step import (
     TrainStep,
     batch_to_device,
     eval_step,
+    full_band,
     generator_forward,
 )
 from parallelwavegan_tpu_torch.utils.checkpoint import (
@@ -197,13 +198,15 @@ class Trainer:
 
     @torch.no_grad()
     def _save_intermediate_result(self, batch) -> None:
-        """WAVs (and, where matplotlib imports, plots) of a few dev items."""
+        """WAVs (and, where matplotlib imports, plots) of a few dev items;
+        a multi-band generator's sub-bands synthesised first (JAX :328-329)."""
         n = self.config.get("num_save_intermediate_results", 4)
         dirname = os.path.join(self.outdir, "predictions", f"{self.steps}steps")
         os.makedirs(dirname, exist_ok=True)
         small = batch_to_device({k: v[:n] for k, v in batch.items()}, self.device)
         draws = (self.config.get("seed", 0), self.steps, NOISE_EVAL)
-        y_ = generator_forward(self.config, self.generator, small, draws).cpu().numpy()
+        y_ = full_band(self.criterion, generator_forward(
+            self.config, self.generator, small, draws)).cpu().numpy()
         y = small["y"].cpu().numpy()
         fs = self.config["sampling_rate"]
         try:

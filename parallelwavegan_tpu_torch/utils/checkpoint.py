@@ -6,7 +6,8 @@ parallelwavegan_tpu/convert/torch_checkpoint.py:33 reads, so a checkpoint
 written here decodes through the JAX package's ``load_model`` as well.
 A training checkpoint (counterpart of parallelwavegan_tpu/utils/
 checkpoint.py, ROADMAP M10) also holds ``model.discriminator``,
-``optimizer.{generator,discriminator}``, ``scheduler.{generator,
+``optimizer.{generator,discriminator}`` (each parameter's moments, and
+AMSGrad's ``nu_max``), ``scheduler.{generator,
 discriminator}`` (the update count each schedule is at) and ``epochs``.
 The state dicts hold the buffers too, so a spectral norm's power-iteration
 vectors (``weight_u``, ``weight_v``) are saved and restored with the

@@ -22,6 +22,8 @@ Tolerance 2e-4 (ROADMAP.md's kernel bound); TF32 is off for the plain
 version's cuDNN convolutions.
 """
 
+import math
+
 import numpy as np
 import pytest
 
@@ -896,8 +898,8 @@ def _k7_grads(dx, dstacks, dfinal):
 
 # MelGAN v1's widths (128, 64 with the final conv to 1, 32 with T just
 # above the reflect pad of 9), ragged replicate and zero cases with the
-# final conv to 4, a width of two 64-channel pieces without biases, and
-# T below the pad (replicate)
+# final conv to 4, a width of two 64-channel pieces without biases, T
+# below the pad (replicate), and MB-MelGAN v2's training stages
 @pytest.mark.parametrize("c,b,t,mode,out_ch,bias,dils", [
     (128, 2, 1000, "reflect", None, True, (1, 3, 9)),
     (64, 1, 777, "reflect", 1, True, (1, 3, 9)),
@@ -906,6 +908,10 @@ def _k7_grads(dx, dstacks, dfinal):
     (48, 2, 1000, "constant", 4, True, (1, 3, 9)),
     (80, 1, 333, "edge", None, False, (1, 3, 9, 27)),
     (16, 3, 5, "edge", 2, True, (1, 3)),
+    # MB-MelGAN v2's training stages: 96 channels, then 48 with the final
+    # conv to 4 sub-bands; 4 stacks at d = 1, 3, 9, 27
+    (96, 2, 256, "reflect", None, True, (1, 3, 9, 27)),
+    (48, 2, 512, "reflect", 4, True, (1, 3, 9, 27)),
 ])
 def test_melgan_stacks_backward_matches_plain_version(cuda, c, b, t, mode, out_ch,
                                                       bias, dils):
@@ -1010,6 +1016,137 @@ def test_melgan_generator_trains_through_the_kernels(cuda, monkeypatch):
         calls = stack_mod.fused_melgan_stacks.calls
         gen(c)
     assert stack_mod.fused_melgan_stacks.calls == calls + 3
+
+
+def _mel_off_the_kinks(gen, c, seed, stages, rel=1e-5):
+    """c with the mel frames moved (0.05 N(0, 1) added) under which the
+    plain forward of ``gen`` puts an input of a LeakyReLU that sees one of
+    ``stages`` (each stack's input and z, the activation after the stage,
+    the final conv's input) within ``rel`` of its rms of the kink at 0,
+    until none is left: ``_off_the_kinks`` at the generator's input."""
+    scales, hooks, near = gen.upsample_scales, [], []
+
+    def watch(module, factor):
+        def hook(mod, inputs):
+            v = inputs[0]
+            hit = (v.abs() < rel * v.pow(2).mean().sqrt()).any(1).nonzero()
+            near.extend((int(b), int(t) // factor) for b, t in hit)
+        hooks.append(module.register_forward_pre_hook(hook))
+
+    for i in stages:
+        factor = math.prod(scales[:i + 1])
+        for j in gen._stages[i][2]:
+            watch(gen.melgan[j].stack[0], factor)
+            watch(gen.melgan[j].stack[3], factor)
+        if i + 1 < len(scales):
+            watch(gen.melgan[gen._stages[i + 1][0]], factor)
+    watch(gen.melgan[gen._tail], math.prod(scales))
+    g = torch.Generator(device=c.device).manual_seed(seed)
+    try:
+        for _ in range(50):
+            near.clear()
+            with torch.no_grad():
+                gen(c)
+            if not near:
+                return c
+            b, f = map(list, zip(*set(near)))
+            c = c.clone()
+            c[b, :, f] += 0.05 * torch.randn(len(b), c.shape[1], generator=g,
+                                             device=c.device)
+    finally:
+        for h in hooks:
+            h.remove()
+    raise AssertionError("could not move the mel off the kinks of LeakyReLU")
+
+
+def test_mb_melgan_v2_g_step_through_the_kernels(cuda, monkeypatch):
+    """One MB-MelGAN G step at v2's fused stage widths (96 and 48, 4 stacks
+    each, the final conv to 4 sub-bands and tanh), the kernels' path (K6
+    forward, K7 backward) against the plain path: the step's losses (the
+    full-band and sub-band STFT losses at v2's sizes and the multi-scale
+    discriminator's adversarial loss) to 1e-4 relative, and every gradient
+    of G by ``_assert_grads_close(strict=True)`` under two cotangents on
+    G's output: a unit random one, and the step's own (the losses'
+    gradient at the plain path's output). Each path's own loss gradient
+    is not compared: the STFT log-magnitude loss at bins of small
+    magnitude turns K6's forward difference (5e-6 of the output here,
+    within its bound) into gradient differences 2.9 times the plain path's
+    own float32 error against float64 (on the card). Unit-norm filters
+    keep the gradients of order one; the mel is moved until no LeakyReLU
+    input that a fused stage feeds lies within 1e-5 of its rms of the kink
+    in the plain forward, where the two paths' roundings could take
+    opposite sides: one such z of stage 0 put a bias gradient 1.4 % off
+    the plain one, a function's difference and not the kernels'."""
+    from parallelwavegan_tpu_torch.ops.kernels import melgan_stack_train as k7
+    from parallelwavegan_tpu_torch.train.criterion import build_criterion
+    from parallelwavegan_tpu_torch.train.step import aux_losses
+
+    cls = get_model_class("MelGANGenerator")
+    small = dict(in_channels=16, out_channels=4, channels=192, upsample_scales=(4, 2),
+                 stacks=4)
+    plain = cls(**small, generator=torch.Generator().manual_seed(4)).to(cuda)
+    with torch.no_grad():
+        for k, p in plain.named_parameters():
+            if k.endswith("weight_g"):
+                p.fill_(1.0)
+    gen = cls(**small, use_pallas_stacks_train=True).to(cuda)
+    gen.load_state_dict(plain.state_dict())
+    assert gen.fused_stages == (0, 1)
+    assert [gen.melgan[gen._stages[i][2][0]].stack[2].weight_v.shape[0] for i in (0, 1)] \
+        == [96, 48]
+    dis = get_model_class("MelGANMultiScaleDiscriminator")(
+        channels=16, max_downsample_channels=64, downsample_scales=(4, 4, 4),
+        generator=torch.Generator().manual_seed(7)).to(cuda)
+    config = {"generator_params": small, "use_subband_stft_loss": True,
+              "stft_loss_params": {"fft_sizes": [1024, 2048, 512],
+                                   "hop_sizes": [120, 240, 50],
+                                   "win_lengths": [600, 1200, 240]},
+              "subband_stft_loss_params": {"fft_sizes": [384, 683, 171],
+                                           "hop_sizes": [30, 60, 10],
+                                           "win_lengths": [150, 300, 60]},
+              "lambda_adv": 2.5}
+    crit = build_criterion(config)
+    frames = 64  # sub-bands of 512 samples, past the 683-point FFT's pad
+    g = torch.Generator().manual_seed(5)
+    c = _mel_off_the_kinks(plain, torch.randn(2, 16, frames, generator=g).to(cuda), 6,
+                           gen.fused_stages)
+    y = (0.3 * torch.randn(2, 1, frames * 32, generator=g)).to(cuda)
+
+    def losses(out):
+        metrics = {}
+        aux, y_full = aux_losses(crit, out, y, metrics)
+        metrics["adversarial_loss"] = crit.gen_adv(dis(y_full))
+        return aux + crit.lambda_adv * metrics["adversarial_loss"], metrics
+
+    out = plain(c).detach().requires_grad_()
+    loss, want = losses(out)
+    step_cot = torch.autograd.grad(loss, out)[0]
+    _refuse(monkeypatch, k7, "melgan_stacks_reference")
+    _refuse(monkeypatch, k7, "melgan_stacks_backward_reference")
+    with torch.no_grad():
+        got = losses(gen(c))[1]
+    assert sorted(got) == sorted(want) and "sub_log_stft_magnitude_loss" in got
+    for k in want:
+        rel = abs(float(got[k]) - float(want[k])) / abs(float(want[k]))
+        assert rel <= 1e-4, (k, float(got[k]), float(want[k]))
+    ref = dict(plain.named_parameters())
+    for cot in (torch.randn(2, 4, frames * 8, generator=g).to(cuda), step_cot):
+        for m in (plain, gen):
+            m.zero_grad()
+        (plain(c) * cot).sum().backward()
+        before = (k7.melgan_stacks_backward.launches,
+                  dict(stack_mod.fused_melgan_stacks.launches_by_width),
+                  dict(k7.melgan_stacks_backward.launches_by_width))
+        (gen(c) * cot).sum().backward()
+        torch.cuda.synchronize()
+        assert k7.melgan_stacks_backward.launches == before[0] + 9  # 8 stacks, final
+        for c_, k6_n, k7_n in ((96, 4 + 3, 4), (48, 5 + 5, 5)):  # forward + re-run
+            assert stack_mod.fused_melgan_stacks.launches_by_width.get(c_, 0) \
+                == before[1].get(c_, 0) + k6_n
+            assert k7.melgan_stacks_backward.launches_by_width.get(c_, 0) \
+                == before[2].get(c_, 0) + k7_n
+        _assert_grads_close([(k, p.grad, ref[k].grad) for k, p in gen.named_parameters()],
+                            strict=True)
 
 
 def test_melgan_backward_rejects_unsupported_input(cuda):

@@ -355,13 +355,28 @@ def test_decode_cli_routes_mbmelgan_through_the_stacks(tmp_path, monkeypatch):
         assert np.abs(wavs[0].astype(int) - wavs[1].astype(int)).max() <= 1
 
 
-@pytest.mark.parametrize("cls,kw", [
-    (ResidualStack, dict(use_causal_conv=True)),
-    (get_model_class(MELGAN), dict(SMALL, use_causal_conv=True)),
+@pytest.mark.parametrize("cls,kw,keys", [
+    (ResidualStack, dict(use_causal_conv=True),
+     {"stack.1.conv", "stack.3", "skip_layer"}),
+    (get_model_class(MELGAN), dict(SMALL, use_causal_conv=True),
+     {"melgan.0.conv", "melgan.2.deconv", "melgan.3.stack.1.conv", "melgan.3.stack.3",
+      "melgan.3.skip_layer", "melgan.4.stack.1.conv", "melgan.4.stack.3",
+      "melgan.4.skip_layer", "melgan.6.deconv", "melgan.7.stack.1.conv",
+      "melgan.7.stack.3", "melgan.7.skip_layer", "melgan.8.stack.1.conv",
+      "melgan.8.stack.3", "melgan.8.skip_layer", "melgan.10.conv"}),
 ])
-def test_causal_variant_raises(cls, kw):
-    with pytest.raises(NotImplementedError, match="causal.*ROADMAP.md"):
-        cls(**kw)
+def test_causal_variant_has_upstream_keys(cls, kw, keys):
+    """The causal stack and generator (upstream's CausalConv1d ``.conv`` and
+    CausalConvTranspose1d ``.deconv``, the causal stack's Sequential(act,
+    CausalConv1d, act, conv)) keep their length and run no kernel."""
+    m = cls(**kw)
+    assert {k.rsplit(".", 1)[0] for k in m.state_dict()} == keys
+    if cls is ResidualStack:
+        x = torch.randn(2, 32, 40)
+        assert m(x).shape == x.shape
+    else:
+        assert m.fused_stages == ()
+        assert m(torch.from_numpy(MEL).transpose(1, 2)).shape[-1] == MEL.shape[1] * 8
 
 
 def test_training_forward_through_the_kernel_raises():

@@ -412,10 +412,25 @@ def test_train_main_runs_4_steps_resume_reproduces_them_and_both_packages_decode
     np.testing.assert_allclose(got, want, atol=2e-4)
 
 
-def test_multi_band_training_still_raises(tmp_path):
-    config = dict(CONFIG, generator_params=dict(SMALL, out_channels=2))
-    with pytest.raises(NotImplementedError, match="PQMF.*ROADMAP.md"):
-        build_criterion(config)
+def test_multi_band_criterion_synthesises_the_sub_bands():
+    """A generator of 2 sub-bands gets PQMF in the criterion (no sub-band
+    STFT loss unless asked for); ``aux_losses`` synthesises its output to
+    the full band, which is what the STFT loss sees."""
+    from parallelwavegan_tpu_torch.train.step import aux_losses
+
+    crit = build_criterion(dict(CONFIG, generator_params=dict(SMALL, out_channels=2)))
+    assert crit.pqmf is not None and crit.pqmf.subbands == 2 and crit.sub_stft is None
+    rs = np.random.RandomState(9)
+    y_mb = torch.from_numpy(rs.randn(2, 2, 512).astype(np.float32))
+    y = torch.from_numpy(rs.randn(2, 1, 1024).astype(np.float32))
+    metrics = {}
+    loss, full = aux_losses(crit, y_mb, y, metrics)
+    want = crit.pqmf.synthesis(y_mb.transpose(1, 2)).transpose(1, 2)
+    assert full.shape == (2, 1, 1024)
+    torch.testing.assert_close(full, want, rtol=0, atol=0)
+    sc, mag = crit.stft(want[:, 0], y[:, 0])
+    torch.testing.assert_close(loss, sc + mag, rtol=0, atol=0)
+    assert sorted(metrics) == ["log_stft_magnitude_loss", "spectral_convergence_loss"]
 
 
 def test_chip_smoke_melgan_v1_training_config_equals_shipped_config():

@@ -416,15 +416,30 @@ def test_block_kernel_grads_match_jax_fused_gated_resblock():
                                        err_msg=f"input {i}, dilation {dilation}")
 
 
-@pytest.mark.parametrize("kw,what", [
-    (dict(use_causal_conv=True, upsample_net="MelGANGenerator", aux_context_window=0,
-          upsample_params={"in_channels": 10, "out_channels": 10, "channels": 32,
-                           "upsample_scales": [4, 4]}),
-     "causal.*MelGANGenerator.*causal MelGAN generator"),
-])
-def test_unported_options_raise(kw, what):
-    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP.md"):
-        get_model_class(PWG)(**dict(SMALL, **kw))
+def test_causal_generator_with_melgan_upsample_net_is_causal():
+    """The causal generator with the MelGAN upsample net (refused until the
+    causal MelGAN generator was ported) has upstream's causal keys under
+    ``upsample_net.melgan`` and keeps the samples before a mel frame as
+    they were when that frame and the ones after it change."""
+    kw = dict(SMALL, use_causal_conv=True, upsample_net="MelGANGenerator",
+              aux_context_window=0,
+              upsample_params={"in_channels": 10, "out_channels": 10, "channels": 32,
+                               "upsample_scales": [4, 4]})
+    gen = get_model_class(PWG)(**kw, generator=torch.Generator().manual_seed(3))
+    keys = {k.rsplit(".", 1)[0] for k in gen.state_dict() if k.startswith("upsample_net.")}
+    assert {"upsample_net.melgan.0.conv", "upsample_net.melgan.2.deconv",
+            "upsample_net.melgan.3.stack.1.conv", "upsample_net.melgan.3.stack.3",
+            "upsample_net.melgan.7.deconv", "upsample_net.melgan.12.conv"} <= keys
+    rs = np.random.RandomState(4)
+    z = torch.from_numpy(rs.randn(1, 1, 12 * 16).astype(np.float32))
+    c = torch.from_numpy(rs.randn(1, 10, 12).astype(np.float32))
+    c2 = c.clone()
+    c2[:, :, 8:] = 0.0
+    with torch.no_grad():
+        y, y2 = gen(z, c), gen(z, c2)
+    assert y.shape == (1, 1, 12 * 16)
+    torch.testing.assert_close(y2[..., :8 * 16], y[..., :8 * 16], rtol=0, atol=0)
+    assert not torch.equal(y2, y)
 
 
 def test_random_init_is_seeded_and_kaiming():

@@ -485,7 +485,7 @@ def test_train_main_needs_a_card_unless_cpu_is_asked_for(train_args):
 
 @pytest.mark.parametrize("override,argv,what", [
     ({"distributed": True}, [], "distributed"),
-    ({"use_subband_stft_loss": True}, [], "sub-band STFT loss"),
+    ({"generator_optimizer_type": "AdamW"}, [], "optimizer AdamW"),
     ({"use_duration_loss": True}, [], "duration loss"),
     ({"generator_type": "UHiFiGANGenerator"}, [], "UHiFiGANGenerator"),
     ({}, ["--dev-segments", "segments"], "scp datasets"),
