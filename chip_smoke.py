@@ -322,6 +322,28 @@ Phases (any failure exits non-zero; nothing is caught):
    at B=2 on the card against the CPU to 1e-4 relative; and the same 4
    steps with ``mixed_precision`` through K6/K7's bf16 modes, held step by
    step as phase 27.
+34. The recipe at LJSpeech's shapes, in ``egs/yesno/voc1/run.sh``'s stage
+   order, through the port's CLIs: 44 seeded utterances of 1.5-6 s at
+   22.05 kHz (harmonics of a random f0 under AM, plus noise; 16-bit WAVs
+   written by the port's ``write_wav``), 8 of the train split's 20 cut from
+   one recording by a ``segments`` file, 16 dev and 8 eval;
+   ``preprocess`` of each split's ``wav.scp`` with hifigan.v1.yaml as it
+   ships but npy dumps, ``compute_statistics`` on train, ``normalize``
+   (the normalized train features of zero mean and unit scale); HiFi-GAN
+   v1 at full width and its batch of 16 x 8192 for 4 steps with
+   HIFIGAN_TRAIN_OVERRIDES through ``bin/train.main --train-wav-scp
+   --train-feats-scp --train-segments --dev-wav-scp --dev-feats-scp``
+   (every loss finite, an eval logged); the eval mels written to a Kaldi
+   ark with ``write_ark`` and its feats.scp with byte offsets, decoded by
+   ``bin/decode.main --feats-scp --batch-size 4`` with
+   ``--use-pallas-tail`` (K1 once per batch: 2 launches) and without, the
+   waveforms before the 16-bit rounding within 2e-4 and 1e-4 max|plain|;
+   K1 on each batch's own tail input against its plain version with
+   CUDA-event times (median of 10) beside its split-TF32 bound; then PWG
+   v1 (K3: 30 launches) and MB-MelGAN v2 (K6: 9 launches) decoded by
+   ``--feats-scp --batch-size 4`` on UTT_FRAMES and a fourth mel of 512
+   frames, each within 2e-4 of its plain batched decode; the host time of
+   each stage.
 
 Phase 3 also decodes HiFi-GAN v1 with ``use_pallas_mrf: true`` in the
 config (K2 called twice per utterance, stages 2 and 3, 8 launches, every
@@ -4994,6 +5016,303 @@ def phase_pwg_family(card: str) -> dict:
             "causal_err": causal_err, "train_err": out["err"], "cross": cross}
 
 
+# phase 34: the recipe at LJSpeech's shapes. 44 utterances of 1.5-6 s at
+# 22.05 kHz, split train / dev / eval; the loader drops incomplete batches,
+# so train and dev each need HiFi-GAN v1's batch of 16; 8 of the train
+# utterances are cut by a segments file from one long recording
+RECIPE_SPLITS = {"train": 20, "dev": 16, "eval": 8}
+RECIPE_SEGMENTED = 8
+RECIPE_SECONDS = (1.5, 6.0)
+RECIPE_BATCH = 4  # decode's --batch-size
+
+
+def _recipe_corpus(root: str) -> dict:
+    """The phase's WAVs (16-bit, the port's ``write_wav``): harmonics of a
+    random f0 under AM, plus noise; a wav.scp per split and the train
+    split's segments file. Returns {split: wav.scp} and "segments"."""
+    import numpy as np
+
+    from parallelwavegan_tpu_torch.utils.io import write_wav
+
+    fs = V1_FEATURES["sampling_rate"]
+    rs = np.random.RandomState(SEED)
+    wavdir = os.path.join(root, "wav")
+    os.makedirs(wavdir)
+
+    def utterance():
+        t = np.arange(int(rs.uniform(*RECIPE_SECONDS) * fs)) / fs
+        f0 = rs.uniform(80.0, 260.0)
+        x = sum(np.sin(2 * np.pi * k * f0 * t + rs.uniform(0, 2 * np.pi)) / k
+                for k in range(1, 6))
+        am = 1.0 + 0.6 * np.sin(2 * np.pi * rs.uniform(0.5, 4.0) * t)
+        return (0.15 * x * am + 0.01 * rs.randn(len(t))).clip(-0.99, 0.99)
+
+    paths, segments = {}, []
+    for split, n in RECIPE_SPLITS.items():
+        lines = []
+        if split == "train":
+            pieces = [utterance() for _ in range(RECIPE_SEGMENTED)]
+            write_wav(os.path.join(wavdir, "long.wav"), fs, np.concatenate(pieces))
+            lines.append(f"long {wavdir}/long.wav\n")
+            start = 0
+            for i, p in enumerate(pieces):
+                # start and end on the 16-bit WAV's sample grid, in seconds
+                segments.append(f"train{i:02d} long {start / fs:.6f} "
+                                f"{(start + len(p)) / fs:.6f}\n")
+                start += len(p)
+        for i in range(RECIPE_SEGMENTED if split == "train" else 0, n):
+            utt = f"{split}{i:02d}"
+            write_wav(os.path.join(wavdir, f"{utt}.wav"), fs, utterance())
+            lines.append(f"{utt} {wavdir}/{utt}.wav\n")
+            if split == "train":
+                segments.append(f"{utt} {utt} 0.0 -1\n")
+        paths[split] = os.path.join(root, f"{split}_wav.scp")
+        with open(paths[split], "w") as f:
+            f.writelines(lines)
+    paths["segments"] = os.path.join(root, "train_segments")
+    with open(paths["segments"], "w") as f:
+        f.writelines(segments)
+    return paths
+
+
+def _batched_kernel_decode(card: str, gen_type: str, generator_params: dict,
+                           variants: dict, counter, expect: int) -> dict:
+    """``bin/decode.main --feats-scp --batch-size 4`` of a random-init, full
+    width checkpoint on UTT_FRAMES and a fourth mel of 512 frames (one
+    batch), with the kernel config and the plain one, the same noise: the
+    kernel launches ``expect`` times and the WAVs agree to TOL."""
+    import numpy as np
+
+    from parallelwavegan_tpu_torch.bin import decode
+
+    p = _write_inputs(gen_type, generator_params, variants)
+    rs = np.random.RandomState(SEED + 4)
+    fourth = np.load(os.path.join(p["dump"], "utt0-feats.npy"))
+    np.save(os.path.join(p["dump"], "utt3-feats.npy"),
+            (fourth + 0.1 * rs.randn(*fourth.shape)).astype(np.float32))
+    frames = UTT_FRAMES + (UTT_FRAMES[0],)
+    scp = os.path.join(p["root"], "feats.scp")
+    with open(scp, "w") as f:
+        f.writelines(f"utt{i}-feats {p['dump']}/utt{i}-feats.npy\n"
+                     for i in range(len(frames)))
+    launches, res = {}, {}
+    for name in ("kernel", "plain"):
+        _reset_launch_counts()
+        np.random.seed(SEED)  # the same noise in both runs
+        res[name] = decode.main(
+            ["--feats-scp", scp, "--batch-size", str(RECIPE_BATCH), "--checkpoint",
+             p["ckpt"], "--normalize-before", "--device", "cuda", "--verbose", "0",
+             "--config", p[name], "--outdir", os.path.join(p["root"], f"wav_{name}")])
+        launches[name] = counter()
+    err = _compare_wavs(os.path.join(p["root"], "wav_kernel"),
+                        os.path.join(p["root"], "wav_plain"), frames)
+    print(f"main path [{gen_type} batched decode, B={RECIPE_BATCH}, frames {frames}]: "
+          f"kernel launches {launches['kernel']} (plain run {launches['plain']}); "
+          f"kernel vs plain max|diff| = {err:.3e} (tol {TOL}, 16-bit WAVs); RTF of the "
+          f"batch (first call, warm-up included) kernel {res['kernel']['rtf']:.6f}, "
+          f"plain {res['plain']['rtf']:.6f} on {card}")
+    if launches != {"kernel": expect, "plain": 0}:
+        _fail(f"{gen_type} batched decode: launches {launches}, expected {expect} and 0")
+    if not err <= TOL:
+        _fail(f"{gen_type} batched decode through its kernel disagrees with the plain one")
+    shutil.rmtree(p["root"])
+    return {"launches": launches["kernel"], "err": err}
+
+
+def phase_recipe(card: str) -> dict:
+    """The recipe at LJSpeech's shapes (module docstring, phase 34):
+    preprocess, compute_statistics and normalize through the port's CLIs,
+    4 HiFi-GAN v1 steps through scp files, decode from a Kaldi ark in
+    batches of 4 through K1 and without it; K3 and K6 in batched decode."""
+    import numpy as np
+    import torch
+
+    import parallelwavegan_tpu_torch.models.hifigan as hifigan_mod
+    from parallelwavegan_tpu_torch.bin import (
+        compute_statistics,
+        decode,
+        normalize,
+        preprocess,
+        train,
+    )
+    from parallelwavegan_tpu_torch.ops.kernels.hifigan_tail import (
+        fused_hifigan_tail,
+        hifigan_tail_reference,
+    )
+    from parallelwavegan_tpu_torch.ops.kernels.melgan_stack import fused_melgan_stacks
+    from parallelwavegan_tpu_torch.ops.kernels.wavenet import fused_wavenet_stack
+    from parallelwavegan_tpu_torch.utils.kaldi_ark import write_ark
+
+    root = os.path.join(WORK, "recipe")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    seconds = {}
+
+    def stage(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    wav = stage("write the corpus", _recipe_corpus, root)
+    config = os.path.join(root, "config.json")
+    with open(config, "w") as f:  # hifigan.v1.yaml as it ships, but npy dumps
+        json.dump(_hifigan_v1_config(**HIFIGAN_TRAIN_OVERRIDES), f)
+    common = ["--config", config, "--verbose", "0"]
+
+    def dump(split, kind):
+        return os.path.join(root, "dump", split, kind)
+
+    def run_preprocess():
+        for split in RECIPE_SPLITS:
+            preprocess.main(common + ["--wav-scp", wav[split], "--dumpdir", dump(split, "raw")]
+                            + (["--segments", wav["segments"]] if split == "train" else []))
+
+    def run_normalize():
+        for split in RECIPE_SPLITS:
+            normalize.main(common + ["--rootdir", dump(split, "raw"), "--dumpdir",
+                                     dump(split, "norm"), "--stats",
+                                     os.path.join(root, "stats.npy")])
+
+    stage("preprocess", run_preprocess)
+    stage("compute_statistics", compute_statistics.main,
+          common + ["--rootdir", dump("train", "raw"), "--dumpdir", root])
+    stage("normalize", run_normalize)
+    mels = {}
+    for split, n in RECIPE_SPLITS.items():
+        names = sorted(os.listdir(dump(split, "norm")))
+        feats = [x for x in names if x.endswith("-feats.npy")]
+        if len(feats) != n or len(names) != 2 * n:
+            _fail(f"recipe: {split} normalized dump holds {names}")
+        with open(os.path.join(root, f"{split}_feats.scp"), "w") as f:
+            for name in feats:  # npy dumps name an utterance after its wave file
+                utt = name.split("-")[0]
+                mels[utt] = np.load(os.path.join(dump(split, "norm"), name))
+                f.write(f"{utt} {dump(split, 'norm')}/{name}\n")
+    stats = np.load(os.path.join(root, "stats.npy"))
+    allm = np.concatenate([mels[u] for u in mels if u.startswith("train")])
+    if stats.shape != (2, 80) or not np.isfinite(allm).all() or not (
+            abs(allm.mean(0)).max() < 1e-3 and abs(allm.std(0) - 1).max() < 1e-3):
+        _fail("recipe: the normalized train features are not of zero mean and unit scale")
+
+    res = stage("train (4 steps)", train.main, [
+        "--train-wav-scp", wav["train"], "--train-segments", wav["segments"],
+        "--train-feats-scp", os.path.join(root, "train_feats.scp"),
+        "--dev-wav-scp", wav["dev"], "--dev-feats-scp", os.path.join(root, "dev_feats.scp"),
+        "--outdir", os.path.join(root, "exp"), "--device", "cuda", "--verbose", "0",
+        "--config", config])
+    steps = HIFIGAN_TRAIN_OVERRIDES["train_max_steps"]
+    logged = {s: m for s, m in res["history"] if any(k.startswith("train/") for k in m)}
+    for s in range(1, steps + 1):
+        m = {k: v for k, v in logged.get(s, {}).items() if k.startswith("train/")}
+        print(f"  recipe step {s}: " + ", ".join(f"{k} {v:.6f}" for k, v in sorted(m.items())))
+        if not m or not all(np.isfinite(v) for v in m.values()):
+            _fail(f"recipe training: step {s} logged {m}")
+    if res["steps"] != steps or not any("eval/mel_loss" in m for _, m in res["history"]):
+        _fail(f"recipe training: {res['steps']} steps, eval logged: "
+              f"{any('eval/mel_loss' in m for _, m in res['history'])}")
+
+    ark, scp = os.path.join(root, "eval.ark"), os.path.join(root, "eval.scp")
+    evals = sorted(u for u in mels if u.startswith("eval"))
+    stage("write the eval ark", write_ark, ark, {u: mels[u] for u in evals}, scp)
+    ckpt = os.path.join(root, "exp", f"checkpoint-{steps}steps.pkl")
+    calls, wavs, run = [], {"tail": {}, "plain": {}}, {}
+    real_tail, real_write = hifigan_mod.fused_hifigan_tail, decode.write_wav
+
+    def keep(x, *args, **kwargs):  # the tail's inputs, for the timing below
+        calls.append((x.clone(), args, kwargs))
+        return real_tail(x, *args, **kwargs)
+
+    def write(path, fs, y):  # each waveform before the 16-bit rounding
+        wavs[run["name"]][os.path.basename(path)] = y.copy()
+        real_write(path, fs, y)
+
+    hifigan_mod.fused_hifigan_tail, decode.write_wav = keep, write
+    try:
+        for name, flags in (("tail", ["--use-pallas-tail"]), ("plain", [])):
+            run["name"] = name
+            _reset_launch_counts()
+            out = stage(f"decode ({name}, B={RECIPE_BATCH})", decode.main, [
+                "--feats-scp", scp, "--batch-size", str(RECIPE_BATCH), "--checkpoint",
+                ckpt, "--device", "cuda", "--verbose", "0",
+                "--outdir", os.path.join(root, f"wav_{name}")] + flags)
+            n = fused_hifigan_tail.launches
+            want = -(-len(evals) // RECIPE_BATCH) if name == "tail" else 0
+            print(f"main path [recipe decode from the Kaldi ark, {name}, "
+                  f"--batch-size {RECIPE_BATCH}]: K1 launches = {n} for {len(evals)} "
+                  f"utterances; RTF per batch {['%.6f' % r for r in out['rtfs']]}")
+            if n != want:
+                _fail(f"recipe decode [{name}]: {n} K1 launches, expected {want}")
+            if name == "tail":
+                k1_launches = n
+    finally:
+        hifigan_mod.fused_hifigan_tail, decode.write_wav = real_tail, real_write
+    if sorted(wavs["tail"]) != sorted(wavs["plain"]) or len(wavs["tail"]) != len(evals):
+        _fail(f"recipe decode: {sorted(wavs['tail'])} vs {sorted(wavs['plain'])}")
+    err = ratio = 0.0
+    hop = V1_FEATURES["hop_size"]
+    for k, want in wavs["plain"].items():
+        got = wavs["tail"][k]
+        utt = k[: -len("_gen.wav")]
+        if got.shape != want.shape or want.shape != (mels[utt].shape[0] * hop,) or not (
+                np.isfinite(got).all() and np.abs(want).max() > 0):
+            _fail(f"recipe decode: {k} shapes {got.shape} / {want.shape}")
+        e = float(np.abs(got - want).max())
+        err, ratio = max(err, e), max(ratio, e / float(np.abs(want).max()))
+    print(f"recipe decode, K1 at B={RECIPE_BATCH} vs plain (float, before the 16-bit "
+          f"rounding): max|diff| = {err:.3e} (tol {TOL}), {ratio:.2e} of max|plain| "
+          f"(tol 1e-4) over {len(evals)} utterances")
+    if not (err <= TOL and ratio <= 1e-4):
+        _fail("recipe decode: K1 at B=4 disagrees with the plain decode")
+
+    # K1 per B=4 batch on the decode's own tail inputs and weights
+    k1 = {"errs": [], "ms": [], "plain_ms": [], "bound_ms": []}
+    with torch.inference_mode():
+        for x, args, kwargs in calls[: k1_launches]:
+            stages, final_w, final_b = args
+            got = real_tail(x, *args, **kwargs)
+            ref = hifigan_tail_reference(x, stages, final_w, final_b, **kwargs)
+            e, r, ok = _within(got, ref)
+            if not ok or x.shape[0] != RECIPE_BATCH:
+                _fail(f"K1 at {tuple(x.shape)}: max|diff| {e:.3e}, {r:.2e} of max|plain|")
+            rec = _tail_work(x, {"stages": stages, "final_w": final_w, "final_b": final_b,
+                                 "pre_blocks": kwargs.get("pre_blocks")})
+            fp32_ms = _split_tf32_bound(rec)
+            ms = _median_ms(lambda: real_tail(x, *args, **kwargs))
+            plain_ms = _median_ms(lambda: hifigan_tail_reference(
+                x, stages, final_w, final_b, **kwargs))
+            print(f"time [K1, recipe decode batch (B, T0, C0) = {tuple(x.shape)}, median of "
+                  f"10, CUDA events]: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+                  f"{rec['bound_ms']:.3f} ms at the split-TF32 rate (3 x "
+                  f"{rec['flops'] / 1e9:.1f} GFLOP / 495 TFLOP/s; {rec['bound_ms'] / ms:.1%} "
+                  f"of it), {fp32_ms:.3f} ms at the float32 rate; max|diff| {e:.3e} "
+                  f"({r:.2e} of max|plain|) on {card}")
+            for key, v in (("errs", e), ("ms", ms), ("plain_ms", plain_ms),
+                           ("bound_ms", rec["bound_ms"])):
+                k1[key].append(v)
+    shutil.rmtree(root)
+
+    def k3_count():
+        return fused_wavenet_stack.launches
+
+    def k6_count():
+        return fused_melgan_stacks.launches
+
+    t0 = time.perf_counter()
+    # one batch of 4: the 30 layers once (K3), the 8 stacks and final conv once (K6)
+    k3 = _batched_kernel_decode(card, "ParallelWaveGANGenerator", V1_PWG_GENERATOR,
+                                {"kernel": {}, "plain": {"use_pallas_stack_train": False}},
+                                k3_count, V1_PWG_GENERATOR["layers"])
+    k6 = _batched_kernel_decode(card, "MelGANGenerator", V2_MB_GENERATOR,
+                                {"kernel": {"use_pallas_stacks": True}, "plain": {}},
+                                k6_count, 9)
+    seconds["PWG v1 and MB-MelGAN v2 batched decodes"] = time.perf_counter() - t0
+    print(f"recipe host time by stage on {card}: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
+    return {"k1_launches": k1_launches, "err": err, "k1": k1,
+            "k3_launches": k3["launches"], "k6_launches": k6["launches"]}
+
+
 def main() -> None:
     pkg = os.path.join(ROOT, "parallelwavegan_tpu_torch")
     if not os.path.isdir(pkg):
@@ -5096,6 +5415,9 @@ def main() -> None:
     torch.cuda.synchronize()
     mb_train = phase_mb_melgan_train(card)
     torch.cuda.synchronize()
+    recipe = phase_recipe(card)
+    torch.cuda.synchronize()
+    kern["errs"] += recipe["k1"]["errs"]  # K1 at B=4 on the recipe's decode
     shutil.rmtree(WORK, ignore_errors=True)
 
     def entry(name, source, replaces, launches, rec):
@@ -5110,13 +5432,13 @@ def main() -> None:
 
     record = {"kernels": [
         entry("fused_hifigan_tail", "hifigan_tail.cu", "hifigan_tail.py:256",
-              dec["launches"], kern),
+              dec["launches"] + recipe["k1_launches"], kern),
         entry("fused_wavenet_stack", "wavenet.cu", "wavenet_stack.py:199",
-              pwg["stack_launches"], wn["stack"]),
+              pwg["stack_launches"] + recipe["k3_launches"], wn["stack"]),
         entry("fused_gated_resblock", "wavenet.cu", "wavenet.py:280",
               pwg["block_launches"], wn["block"]),
         entry("fused_melgan_stacks", "melgan_stack.cu", "melgan_stack.py:285",
-              mb["launches"] + mb_train["k6_launches"], k6),
+              mb["launches"] + mb_train["k6_launches"] + recipe["k6_launches"], k6),
         entry("fused_hifigan_mrf", "hifigan_tail.cu",
               "hifigan_mrf.py:178 and :399", dec["mrf_launches"], k2),
         entry("fused_tade_blocks (K8a)", "tade.cu", "tade_decode.py:366",

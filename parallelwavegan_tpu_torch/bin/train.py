@@ -1,13 +1,17 @@
 """Training CLI of the port (counterpart of parallelwavegan_tpu/bin/train.py:43-375).
 
-Trains a generator and discriminator from dump directories on
-``--device`` (the GPU unless ``--device cpu`` is given; without a card it
-raises), writing ``config.yml`` and ``checkpoint-{steps}steps.pkl`` files
-in upstream's layout to ``--outdir``:
+Trains a generator and discriminator from dump directories, or from a
+``wav.scp`` and a ``feats.scp`` (ark, hdf5 or npy) with an optional kaldi
+``segments`` file per split, on ``--device`` (the GPU unless ``--device
+cpu`` is given; without a card it raises), writing ``config.yml`` and
+``checkpoint-{steps}steps.pkl`` files in upstream's layout to ``--outdir``:
 
     python -m parallelwavegan_tpu_torch.bin.train --train-dumpdir DUMP \
         --dev-dumpdir DEV --outdir OUT --config CONF.json [--resume CKPT] \
         [--pretrain CKPT] [--device cuda]
+    python -m parallelwavegan_tpu_torch.bin.train --train-wav-scp wav.scp \
+        --train-feats-scp feats.scp [--train-segments segments] \
+        --dev-wav-scp ... --dev-feats-scp ... --outdir OUT --config CONF.json
 
 The config is ``.json``, or YAML where PyYAML imports; ``format: npy``
 reads ``*-wave.npy`` / ``*-feats.npy`` pairs and ``hdf5`` needs h5py.
@@ -41,10 +45,11 @@ the JAX package does (``train/precision.py``; MelGAN's stacks with
 ``use_pallas_stacks_train`` through K6/K7's bf16 modes, StyleMelGAN's
 TADE blocks with ``use_pallas_tade_train`` through K8/K9's, on the card,
 and through their bf16 plain versions on the CPU). Not ported yet, and
-refused with ``NotImplementedError`` (ROADMAP.md): ``distributed``, scp
-datasets, the duration loss, optimizers other than RAdam and Adam, and
-the other families and conditioning inputs. float32 convolutions and matmuls run without TF32, as the JAX
-package computes in full float32.
+refused with ``NotImplementedError`` (ROADMAP.md): ``distributed``, the
+duration loss, optimizers other than RAdam and Adam, and the other
+families; the local, global and F0 datasets are built as in JAX, and the
+collater refuses their conditioning inputs. float32 convolutions and
+matmuls run without TF32, as the JAX package computes in full float32.
 """
 
 from __future__ import annotations
@@ -59,7 +64,12 @@ import torch
 
 import parallelwavegan_tpu_torch
 from parallelwavegan_tpu_torch.data.collater import Collater
-from parallelwavegan_tpu_torch.data.datasets import AudioMelDataset
+from parallelwavegan_tpu_torch.data.datasets import (
+    AudioDataset,
+    AudioMelDataset,
+    AudioMelF0ExcitationDataset,
+    AudioMelSCPDataset,
+)
 from parallelwavegan_tpu_torch.data.loader import DataLoader
 from parallelwavegan_tpu_torch.models import get_model_class
 from parallelwavegan_tpu_torch.optimizers import build_optimizer_from_config
@@ -88,25 +98,56 @@ def feature_flags(config: dict) -> dict:
     }
 
 
-def build_dataset(config: dict, args, split: str) -> AudioMelDataset:
-    """The (audio, mel) dataset of one split's dump directory."""
-    if getattr(args, f"{split}_dumpdir") is None:
-        raise ValueError(f"--{split}-dumpdir is required")
-    hop_size = config["hop_size"]
+def build_dataset(config: dict, args, split: str):
+    """The dataset of one split: a dump directory (``--{split}-dumpdir``),
+    with the local, global or F0 streams that the generator's flags ask
+    for, or a ``--{split}-wav-scp`` and ``--{split}-feats-scp`` pair with
+    ``--{split}-segments`` (JAX ``bin/train.py:58-155``)."""
+    flags = feature_flags(config)
+    rootdir = getattr(args, f"{split}_dumpdir", None)
+    wav_scp = getattr(args, f"{split}_wav_scp", None)
+    hop_size = config.get("hop_size")  # absent for wave-to-wave VQ configs
     win = config["generator_params"].get("aux_context_window", 0)
-    mel_threshold = config["batch_max_steps"] // hop_size + 2 * win
+    mel_threshold = None
+    if hop_size and config.get("remove_short_samples", False):
+        mel_threshold = config["batch_max_steps"] // hop_size + 2 * win
+    cache = config.get("allow_cache", False)
+    if rootdir is None:
+        if wav_scp is None:
+            raise ValueError(f"--{split}-dumpdir or --{split}-wav-scp is required")
+        return AudioMelSCPDataset(
+            wav_scp, getattr(args, f"{split}_feats_scp"),
+            segments=getattr(args, f"{split}_segments", None),
+            mel_length_threshold=mel_threshold, allow_cache=cache)
     if config.get("format", "hdf5") == "hdf5":
-        kw = dict(audio_query="*.h5", mel_query="*.h5",
-                  audio_load_fn=lambda x: read_hdf5(x, "wave"),
-                  mel_load_fn=lambda x: read_hdf5(x, "feats"))
+        def reader(name):
+            return lambda x: read_hdf5(x, name)
+
+        query = {name: "*.h5" for name in ("wave", "feats", "local", "global")}
     else:
-        kw = dict(audio_query="*-wave.npy", mel_query="*-feats.npy",
-                  audio_load_fn=np.load, mel_load_fn=np.load)
+        def reader(name):
+            return np.load
+
+        query = {name: f"*-{name}.npy" for name in ("wave", "feats", "local", "global")}
+    audio = dict(audio_query=query["wave"], audio_load_fn=reader("wave"))
+    local = dict(local_query=query["local"], local_load_fn=reader("local"))
+    glob = {}
+    if flags["use_global_condition"]:
+        glob = dict(global_query=query["global"], global_load_fn=reader("global"))
+    if flags["use_f0_and_excitation"]:
+        return AudioMelF0ExcitationDataset(
+            rootdir, **audio, mel_query=query["feats"], mel_load_fn=reader("feats"),
+            mel_length_threshold=mel_threshold, allow_cache=cache)
+    if not flags["use_aux_input"]:
+        if flags["use_local_condition"]:
+            # the local features ride in the mel's place (upstream train.py:1219)
+            return AudioMelDataset(rootdir, **audio, mel_query=local["local_query"],
+                                   mel_load_fn=local["local_load_fn"], **glob,
+                                   allow_cache=cache)
+        return AudioDataset(rootdir, **audio, **glob, allow_cache=cache)
     return AudioMelDataset(
-        getattr(args, f"{split}_dumpdir"),
-        mel_length_threshold=mel_threshold
-        if config.get("remove_short_samples", False) else None,
-        allow_cache=config.get("allow_cache", False), **kw)
+        rootdir, **audio, mel_query=query["feats"], mel_load_fn=reader("feats"),
+        mel_length_threshold=mel_threshold, allow_cache=cache)
 
 
 def main(argv=None) -> dict:
@@ -143,9 +184,6 @@ def main(argv=None) -> dict:
     config["version"] = parallelwavegan_tpu_torch.__version__
     if config.get("distributed", False):
         raise _not_ported("distributed training")
-    if any(getattr(args, f"{split}_{kind}") for split in ("train", "dev")
-           for kind in ("wav_scp", "feats_scp", "segments")):
-        raise _not_ported("scp datasets (--*-wav-scp / --*-feats-scp / --*-segments)")
     gen_type = config["generator_type"]
     if gen_type not in ("ParallelWaveGANGenerator", "MelGANGenerator",
                         "StyleMelGANGenerator", "HiFiGANGenerator"):
@@ -165,7 +203,7 @@ def main(argv=None) -> dict:
     train_dataset = build_dataset(config, args, "train")
     logging.info("The number of training files = %d.", len(train_dataset))
     dev_dataset = None
-    if args.dev_dumpdir is not None:
+    if args.dev_dumpdir is not None or args.dev_feats_scp is not None:
         dev_dataset = build_dataset(config, args, "dev")
         logging.info("The number of development files = %d.", len(dev_dataset))
     collater = Collater(

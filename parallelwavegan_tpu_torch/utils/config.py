@@ -32,6 +32,17 @@ def load_config(path: str) -> dict:
                 "which is not installed") from e
 
 
+def merge_args(config: dict, args, exclude: tuple = ("config",)) -> dict:
+    """The config with an argparse namespace's values laid over it (the
+    arguments win), ``exclude`` left out."""
+    merged = dict(config)
+    for k, v in vars(args).items():
+        if k in exclude:
+            continue
+        merged[k] = v
+    return merged
+
+
 def write_config(path: str, config: dict) -> None:
     """``config`` as YAML where PyYAML imports, else as JSON."""
     try:

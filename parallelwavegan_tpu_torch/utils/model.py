@@ -1,6 +1,6 @@
 """Model loading + inference wrapper (the port's ``load_model``).
 
-Counterpart of parallelwavegan_tpu/utils/model.py:42-164 and :613-670:
+Counterpart of parallelwavegan_tpu/utils/model.py:42-231 and :613-670:
 config discovery from the checkpoint directory, the ``upsample_kernal_sizes``
 typo remap, generator-only weight load from an upstream ``.pkl``, stats
 registered for ``normalize_before``, and ``inference`` padding the mel to a
@@ -17,9 +17,14 @@ sub-bands (:588-604). StyleMelGAN (:76-88, :142-153) takes noise of
 multiple of 4, and the mel edge-padded to ``noise_len * factor`` frames
 instead of the 32-frame bucket; since its instance norms run over the
 whole padded length, this padding, which is the JAX package's and not
-upstream's, is copied exactly. ``load_model`` runs on the GPU unless the caller
-asks for the CPU. Batched, streaming and sharded decode are not ported
-yet (ROADMAP.md).
+upstream's, is copied exactly. ``inference_batch`` (JAX :167-231) decodes
+a list of mels of HiFi-GAN, Parallel WaveGAN or (Multi-band) MelGAN as
+one (B, T, C) forward: each mel edge-padded to the 32-frame bucket of the
+longest, each output trimmed to its own length (Parallel WaveGAN takes
+noise of the padded length); StyleMelGAN, whose instance norms run over
+the whole padded length, is refused, as in JAX. ``load_model`` runs on
+the GPU unless the caller asks for the CPU. Streaming and sharded decode
+are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -77,19 +82,32 @@ class InferenceModel:
         PQMF, the sub-bands synthesised to (pad_t * upsample_factor, 1).
         StyleMelGAN takes z (noise_len, in_channels) and edge-pads the mel
         to noise_len * noise_upsample_factor frames first."""
-        x = c.t()[None]
+        return self.forward_padded_batch(c[None], None if z is None else z[None])[0]
+
+    def forward_padded_batch(self, c: torch.Tensor,
+                             z: torch.Tensor | None = None) -> torch.Tensor:
+        """``forward_padded`` of a batch, one forward: mel (B, pad_t,
+        num_mels) and z (B, ...) -> (B, pad_t * upsample_factor, out), the
+        JAX ``jax.vmap(_forward_fn())``."""
+        x = c.transpose(1, 2)
         if self._style():
-            pad = z.shape[0] * self.generator.noise_upsample_factor - c.shape[0]
+            pad = z.shape[1] * self.generator.noise_upsample_factor - c.shape[1]
             x = F.pad(x, (0, pad), mode="replicate")
-            return self.generator(x, z.t()[None])[0].t()
+            return self.generator(x, z.transpose(1, 2)).transpose(1, 2)
         if not getattr(self.generator, "requires_noise_input", False):
             y = self.generator(x).transpose(1, 2)
             if self.pqmf is not None:
                 y = self.pqmf.synthesis(y)
-            return y[0]
+            return y
         win = self.generator.aux_context_window
         x = F.pad(x, (win, win), mode="replicate")
-        return self.generator(z.reshape(1, 1, -1), x)[0].t()
+        return self.generator(z.reshape(z.shape[0], 1, -1), x).transpose(1, 2)
+
+    def _noise_rng(self, rng: torch.Generator | None) -> torch.Generator:
+        if rng is None:
+            rng = torch.Generator(device=self.device)
+            rng.manual_seed(int(np.random.randint(2**31)))
+        return rng
 
     @torch.inference_mode()
     def inference(self, c, normalize_before: bool = False,
@@ -117,14 +135,44 @@ class InferenceModel:
         c_p = torch.from_numpy(np.ascontiguousarray(c_p)).to(self.device)
         z = None
         if style or getattr(self.generator, "requires_noise_input", False):
-            if rng is None:
-                rng = torch.Generator(device=self.device)
-                rng.manual_seed(int(np.random.randint(2**31)))
             shape = ((noise_len, self.generator.in_channels) if style
                      else (pad_t * up,))
-            z = torch.randn(shape, generator=rng, device=self.device)
+            z = torch.randn(shape, generator=self._noise_rng(rng), device=self.device)
         y = self.forward_padded(c_p, z)
         return y.cpu().numpy()[: t * up]
+
+    # the generators whose output at a frame does not depend on the padded
+    # length (JAX ``_STREAMABLE``)
+    BATCHABLE = ("ParallelWaveGANGenerator", "MelGANGenerator", "HiFiGANGenerator")
+
+    @torch.inference_mode()
+    def inference_batch(self, mels: list, normalize_before: bool = False,
+                        rng: torch.Generator | None = None) -> list:
+        """A list of mels (T'_i, num_mels) -> their waveforms (T'_i *
+        upsample_factor, out), decoded as one (B, pad_t, num_mels) forward:
+        each mel edge-padded to pad_t, the 32-frame bucket of the longest.
+        Parallel WaveGAN's noise (B, pad_t * upsample_factor) comes from
+        ``rng`` as in ``inference``."""
+        name = type(self.generator).__name__
+        if name not in self.BATCHABLE:
+            raise ValueError(f"{name} does not support batched decode")
+        mels = [np.asarray(c, np.float32) for c in mels]
+        if normalize_before:
+            if self.mean is None:
+                raise ValueError("normalize_before needs registered stats")
+            mels = [(c - self.mean) / self.scale for c in mels]
+        lens = [c.shape[0] for c in mels]
+        pad_t = -(-max(lens) // self.BUCKET) * self.BUCKET
+        batch = np.stack([np.pad(c, ((0, pad_t - c.shape[0]), (0, 0)), mode="edge")
+                          for c in mels])
+        up = self.upsample_factor
+        z = None
+        if getattr(self.generator, "requires_noise_input", False):
+            z = torch.randn((len(mels), pad_t * up), generator=self._noise_rng(rng),
+                            device=self.device)
+        y = self.forward_padded_batch(torch.from_numpy(batch).to(self.device), z)
+        y = y.cpu().numpy()
+        return [y[i, : n * up] for i, n in enumerate(lens)]
 
 
 def load_model(checkpoint: str, config: dict | None = None,

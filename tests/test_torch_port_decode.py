@@ -16,6 +16,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
+
 from scipy.io import wavfile  # noqa: E402
 
 from parallelwavegan_tpu.utils.model import load_model as jax_load_model  # noqa: E402

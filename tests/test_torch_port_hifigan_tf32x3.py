@@ -35,6 +35,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
+
 import jax.numpy as jnp  # noqa: E402
 
 from parallelwavegan_tpu.ops.pallas_kernels.hifigan_mrf import (  # noqa: E402

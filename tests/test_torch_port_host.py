@@ -11,6 +11,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
+
 from parallelwavegan_tpu.ops import mel as jax_mel  # noqa: E402
 from parallelwavegan_tpu_torch.data.datasets import MelDataset  # noqa: E402
 from parallelwavegan_tpu_torch.ops import mel as port_mel  # noqa: E402
@@ -232,7 +234,8 @@ def test_mel_dataset_and_wav_io(tmp_path):
     for name in ("b-feats.npy", "sub/a-feats.npy"):
         np.save(tmp_path / name, np.full((3, 2), len(name), np.float32))
     (tmp_path / "x.txt").write_text("")
-    ds = MelDataset(str(tmp_path), mel_query="*-feats.npy", mel_load_fn=np.load)
+    ds = MelDataset(str(tmp_path), mel_query="*-feats.npy", mel_load_fn=np.load,
+                    return_utt_id=True)
     assert len(ds) == 2 and ds.utt_ids == ["b-feats", "a-feats"]
     utt, mel = ds[1]
     assert utt == "a-feats" and mel.shape == (3, 2)

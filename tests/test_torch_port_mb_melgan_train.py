@@ -26,6 +26,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
+
 import jax  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -403,7 +405,7 @@ def test_train_step_matches_jax_build_train_step():
         out = []
         for model_type, params, module, opt in models:
             named = dict(module.named_parameters())
-            sd = {k: v.detach().numpy() for k, v in module.state_dict().items()}
+            sd = {k: v.detach().numpy().copy() for k, v in module.state_dict().items()}
             moments = {m: _to_jax(model_type, params, {
                 k: opt.state[p][key].numpy() for k, p in named.items()})
                 for m, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq"), ("nu_max", "nu_max"))

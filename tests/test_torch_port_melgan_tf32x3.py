@@ -44,6 +44,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
+
 import torch.nn.functional as F  # noqa: E402
 
 from parallelwavegan_tpu_torch.ops.kernels.melgan_stack import (  # noqa: E402

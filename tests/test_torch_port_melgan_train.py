@@ -24,6 +24,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -312,7 +314,7 @@ def _batches(n, seed=8):
 
 
 def _to_jax(model_type, params, module):
-    sd = {k: v.detach().numpy() for k, v in module.state_dict().items()}
+    sd = {k: v.detach().numpy().copy() for k, v in module.state_dict().items()}
     return convert_state_dict(model_type, params, sd)[0]
 
 

@@ -36,6 +36,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -162,7 +164,7 @@ def _models(cfg):
 
 
 def _to_jax(model_type, params, module):
-    sd = {k: v.detach().numpy() for k, v in module.state_dict().items()}
+    sd = {k: v.detach().numpy().copy() for k, v in module.state_dict().items()}
     return convert_state_dict(model_type, params, sd)
 
 

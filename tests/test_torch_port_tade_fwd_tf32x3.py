@@ -31,6 +31,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
+
 from parallelwavegan_tpu_torch.ops.kernels import tade_decode as td  # noqa: E402
 from parallelwavegan_tpu_torch.ops.kernels.tf32x3 import (  # noqa: E402
     forward_fragments,

@@ -17,6 +17,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import optax  # noqa: E402
@@ -324,7 +326,7 @@ def _port_models():
 
 
 def _to_jax(model_type, params, module):
-    sd = {k: v.detach().numpy() for k, v in module.state_dict().items()}
+    sd = {k: v.detach().numpy().copy() for k, v in module.state_dict().items()}
     return convert_state_dict(model_type, params, sd)[0]
 
 
@@ -488,7 +490,7 @@ def test_train_main_needs_a_card_unless_cpu_is_asked_for(train_args):
     ({"generator_optimizer_type": "AdamW"}, [], "optimizer AdamW"),
     ({"use_duration_loss": True}, [], "duration loss"),
     ({"generator_type": "UHiFiGANGenerator"}, [], "UHiFiGANGenerator"),
-    ({}, ["--dev-segments", "segments"], "scp datasets"),
+    ({"use_local_condition": True}, [], "local conditioning"),
 ])
 def test_unported_training_options_raise(tmp_path, train_args, override, argv, what):
     with open(tmp_path / "c.json") as f:

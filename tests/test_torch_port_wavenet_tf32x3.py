@@ -30,6 +30,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_port_threads import one_torch_thread  # noqa: E402,F401
+
 from parallelwavegan_tpu_torch.models import get_model_class  # noqa: E402
 from parallelwavegan_tpu_torch.ops.kernels.wavenet import (  # noqa: E402
     WEIGHT_KEYS,
