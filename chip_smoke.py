@@ -344,6 +344,28 @@ Phases (any failure exits non-zero; nothing is caught):
    ``--feats-scp --batch-size 4`` on UTT_FRAMES and a fourth mel of 512
    frames, each within 2e-4 of its plain batched decode; the host time of
    each stage.
+35. The discrete-symbol (HuBERT-unit) vocoders at the widths of their
+   shipped configs (embedded copies of hifigan_hubert.v1.yaml,
+   hifigan_hubert_duration.v1.yaml and style_melgan_hubert.v1.yaml, held
+   equal to the files by a test), random weights from SEED, npy token
+   dumps: the discrete HiFi-GAN decodes 3 utterances of 512, 300 and 77
+   ids with speaker ids through ``bin/decode.main --use-pallas-tail`` (K1
+   once per utterance, its tail entered at 80 frames an id and width 128)
+   and without, the waveforms before the 16-bit rounding within 2e-4 and
+   1e-4 max|plain|; K1 alone at the 512-id tail, (1, 40960, 128), against
+   its plain version with CUDA-event times beside its split-TF32 bound;
+   the duration model decodes 200 ids with given durations expanded to
+   512 frames through ``InferenceModel.inference(ds=...)`` with K1 (one
+   launch) and without, held the same way, and once through its predictor
+   by ``bin/decode.main``; the discrete StyleMelGAN decodes the 3
+   utterances with ``use_pallas_tade`` (K8a/K8b 18 launches each: blocks
+   2-8, 3-8 and 4-8 of the 560, 336 and 112 padded ids) and without, the
+   same noise, within 2e-4; it trains 4 steps at 16 x 17920 (D from step
+   3) through ``bin/train.main`` with ``use_pallas_tade_train`` (blocks 3-8
+   through K8/K9: K8 48 launches, K9 24) and without, the logged losses
+   within 1e-4 relative, then the split of its train step by part; the
+   duration HiFi-GAN trains 4 steps at 16 x 10240 (no kernel, its own
+   start steps), each step's duration loss printed.
 
 Phase 3 also decodes HiFi-GAN v1 with ``use_pallas_mrf: true`` in the
 config (K2 called twice per utterance, stages 2 and 3, 8 launches, every
@@ -2814,7 +2836,7 @@ def _train_runs(card: str, label: str, config_of, counters: dict, expect: dict,
     agree to 1e-4 relative; the final checkpoint decodes through
     ``bin/decode.main`` (with ``decode_flags``) with ``decode_count()`` at
     ``decode_expect``; with ``compare_plain_decode`` it decodes again with
-    the plain config (no launch) and the WAVs agree to TOL."""
+    the plain run's ``config.yml`` (no launch) and the WAVs agree to TOL."""
     import numpy as np
 
     from parallelwavegan_tpu_torch.bin import decode, train
@@ -2880,8 +2902,11 @@ def _train_runs(card: str, label: str, config_of, counters: dict, expect: dict,
     decode_err = None
     if compare_plain_decode:
         launches_kernel = decode_count()
+        # the plain run's own config.yml: the plain flags and the PQMF the
+        # training wrote there, which the kernel decode's config.yml holds too
         decode.main(["--dumpdir", dump, "--outdir", os.path.join(root, "wav_plain"),
-                     "--device", "cuda", "--checkpoint", ckpt, "--config", configs["plain"]])
+                     "--device", "cuda", "--checkpoint", ckpt, "--config",
+                     os.path.join(root, "exp_plain", "config.yml")])
         if decode_count() != launches_kernel:
             _fail(f"the plain decode of the {label} checkpoint launched a kernel")
         wav_a, wav_b = _read_wavs(wavdir), _read_wavs(os.path.join(root, "wav_plain"))
@@ -5313,6 +5338,462 @@ def phase_recipe(card: str) -> dict:
             "k3_launches": k3["launches"], "k6_launches": k6["launches"]}
 
 
+# phase 35: the discrete-symbol (HuBERT-unit) vocoders. The features of
+# the hubert recipes: unit ids (and a speaker id) for the mel, at 16 kHz
+# with hop 320
+HUBERT_FEATURES = dict(sampling_rate=16000, fft_size=None, hop_size=320,
+                       win_length=None, window=None, num_mels=2, fmin=None,
+                       fmax=None, global_gain_scale=1.0, trim_silence=False,
+                       trim_threshold_in_db=20, trim_frame_size=1024,
+                       trim_hop_size=256, format="hdf5")
+HUBERT_TRAINING = dict(
+    batch_size=16, batch_max_steps=10240, pin_memory=True, num_workers=2,
+    remove_short_samples=False, allow_cache=True,
+    generator_optimizer_type="Adam",
+    generator_optimizer_params=dict(lr=2.0e-4, betas=[0.5, 0.9], weight_decay=0.0),
+    generator_scheduler_type="MultiStepLR",
+    generator_scheduler_params=dict(gamma=0.5,
+                                    milestones=[200000, 400000, 600000, 800000]),
+    generator_grad_norm=-1, discriminator_optimizer_type="Adam",
+    discriminator_optimizer_params=dict(lr=2.0e-4, betas=[0.5, 0.9], weight_decay=0.0),
+    discriminator_scheduler_type="MultiStepLR",
+    discriminator_scheduler_params=dict(gamma=0.5,
+                                        milestones=[200000, 400000, 600000, 800000]),
+    discriminator_grad_norm=-1, generator_train_start_steps=1,
+    discriminator_train_start_steps=0, train_max_steps=2500000,
+    save_interval_steps=50000, eval_interval_steps=1000, log_interval_steps=100,
+    num_save_intermediate_results=4,
+)
+# the HiFi-GAN trunk of the hubert generators (scales 10, 8, 2, 2: 320
+# samples an id)
+HUBERT_TRUNK = dict(
+    in_channels=512, out_channels=1, channels=512, kernel_size=7,
+    upsample_scales=[10, 8, 2, 2], upsample_kernel_sizes=[20, 16, 4, 4],
+    resblock_kernel_sizes=[3, 7, 11],
+    resblock_dilations=[[1, 3, 5], [1, 3, 5], [1, 3, 5]],
+    use_additional_convs=True, bias=True, nonlinear_activation="LeakyReLU",
+    nonlinear_activation_params={"negative_slope": 0.1}, use_weight_norm=True,
+)
+# the whole of egs/vctk/hubert_voc1/conf/hifigan_hubert.v1.yaml (a test
+# holds it equal to the file): 100 units, 128 speakers added at width 512
+HUBERT_HIFIGAN_CONFIG = dict(
+    HUBERT_FEATURES, generator_type="DiscreteSymbolHiFiGANGenerator",
+    generator_params=dict(HUBERT_TRUNK, num_embs=100, num_spk_embs=128,
+                          spk_emb_dim=512, concat_spk_emb=False),
+    discriminator_type="HiFiGANMultiScaleMultiPeriodDiscriminator",
+    discriminator_params=V1_HIFIGAN_CONFIG["discriminator_params"],
+    use_stft_loss=False, use_mel_loss=True,
+    mel_loss_params=dict(fs=16000, fft_size=1024, hop_size=256, win_length=None,
+                         window="hann", num_mels=80, fmin=0, fmax=8000, log_base=None),
+    generator_adv_loss_params={"average_by_discriminators": False},
+    discriminator_adv_loss_params={"average_by_discriminators": False},
+    use_feat_match_loss=True,
+    feat_match_loss_params=dict(average_by_discriminators=False,
+                                average_by_layers=False, include_final_outputs=True),
+    lambda_aux=45.0, lambda_adv=1.0, lambda_feat_match=2.0, **HUBERT_TRAINING,
+)
+# the whole of egs/cvss_c/hubert_voc1/conf/hifigan_hubert_duration.v1.yaml
+# (a test holds it equal to the file): 500 units, no speaker, the duration
+# predictor and its loss
+HUBERT_DURATION_CONFIG = dict(
+    HUBERT_HIFIGAN_CONFIG, num_mels=1, generator_type="DiscreteSymbolDurationGenerator",
+    generator_params=dict(HUBERT_TRUNK, num_embs=500, duration_layers=2,
+                          duration_chans=384, duration_kernel_size=3,
+                          duration_offset=1.0, duration_dropout_rate=0.5,
+                          num_spk_embs=0),
+    use_duration_loss=True, duration_loss_params=dict(offset=1.0, reduction="mean"),
+    num_workers=0,
+)
+# the whole of egs/vctk/hubert_voc1/conf/style_melgan_hubert.v1.yaml (a test
+# holds it equal to the file): noise x56, blocks 5, 2 x 6, 1, 1 (320 samples
+# an id), block 0's aux width 128
+HUBERT_STYLE_CONFIG = dict(
+    HUBERT_FEATURES, num_mels=1, trim_threshold_in_db=60,
+    generator_type="DiscreteSymbolStyleMelGANGenerator",
+    generator_params=dict(
+        in_channels=128, aux_channels=128, channels=64, out_channels=1,
+        num_embs=100, num_spk_embs=128, spk_emb_dim=128, concat_spk_emb=False,
+        kernel_size=9, dilation=2, bias=True, noise_upsample_scales=[7, 2, 2, 2],
+        noise_upsample_activation="LeakyReLU",
+        noise_upsample_activation_params={"negative_slope": 0.2},
+        upsample_scales=[5, 2, 2, 2, 2, 2, 2, 1, 1], upsample_mode="nearest",
+        gated_function="softmax", use_weight_norm=True),
+    discriminator_type="StyleMelGANDiscriminator",
+    discriminator_params=V1_STYLE_CONFIG["discriminator_params"],
+    stft_loss_params=V1_STYLE_CONFIG["stft_loss_params"], lambda_aux=1.0,
+    lambda_adv=1.0, generator_adv_loss_params={"average_by_discriminators": False},
+    discriminator_adv_loss_params={"average_by_discriminators": False},
+    **{k: v for k, v in dict(
+        HUBERT_TRAINING, batch_max_steps=17920,
+        generator_optimizer_params=dict(lr=1.0e-4, betas=[0.5, 0.9], weight_decay=0.0),
+        generator_scheduler_params=dict(
+            gamma=0.5, milestones=[100000, 300000, 500000, 700000, 900000]),
+        discriminator_train_start_steps=100000,
+        train_max_steps=1500000).items() if k != "generator_train_start_steps"},
+)
+
+
+# phase 35's decodes: 3 utterances of these many ids (each with a speaker
+# id), and the duration model's given durations expanded to 512 frames
+HUBERT_UTTS = (512, 300, 77)
+HUBERT_DURATION_IDS = 200
+HUBERT_FRAMES = 512
+# phase 35's training: the loader drops incomplete batches, so a batch of
+# 16 needs 16 utterances; 4 steps, D from step 3 for StyleMelGAN (its own
+# 100000), the duration model with its own start steps (G only, D only,
+# G+D, G+D)
+HUBERT_TRAIN_UTTS = 16
+HUBERT_TRAIN_OVERRIDES = dict(TRAIN_OVERRIDES, discriminator_train_start_steps=1)
+
+
+def _hubert_config(base: dict, **generator_params) -> dict:
+    """A fresh copy of a hubert config with npy dumps and ``generator_params``
+    laid over its own."""
+    cfg = json.loads(json.dumps(base))
+    cfg["format"] = "npy"
+    cfg["generator_params"].update(generator_params)
+    return cfg
+
+
+def _token_dump(root: str, lengths, speakers: bool, hop: int = 0, seed: int = SEED) -> str:
+    """An npy dump of unit-id utterances (runs of 1-4 equal ids of 100,
+    channel 1 a speaker id of 128 where ``speakers``); with ``hop`` also
+    their waves (harmonics of a random f0 plus noise at 16 kHz)."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    os.makedirs(root)
+    for i, n in enumerate(lengths):
+        units = np.repeat(rs.randint(0, 100, n), rs.randint(1, 5, n))[:n]
+        feats = units[:, None].astype(np.float32)
+        if speakers:
+            feats = np.concatenate([feats, np.full_like(feats, rs.randint(128))], axis=1)
+        np.save(os.path.join(root, f"utt{i}-feats.npy"), feats)
+        if hop:
+            t = np.arange(n * hop) / 16000.0
+            audio = (0.3 * np.sin(2 * np.pi * rs.uniform(90, 250) * t)
+                     + 0.05 * rs.randn(n * hop)).astype(np.float32)
+            np.save(os.path.join(root, f"utt{i}-wave.npy"), audio)
+    return root
+
+
+def _hubert_checkpoint(root: str, config: dict, variants: dict) -> dict:
+    """A random-init checkpoint of ``config``'s generator from SEED under
+    root/exp and one JSON config per variant (generator_params overrides)."""
+    import torch
+
+    from parallelwavegan_tpu_torch.models import get_model_class
+    from parallelwavegan_tpu_torch.utils.checkpoint import save_checkpoint
+
+    exp = os.path.join(root, "exp")
+    os.makedirs(exp)
+    gen = get_model_class(config["generator_type"])(
+        **config["generator_params"], generator=torch.Generator().manual_seed(SEED))
+    paths = {"ckpt": os.path.join(exp, "checkpoint-0steps.pkl")}
+    save_checkpoint(paths["ckpt"], gen.state_dict(), steps=0)
+    for name, overrides in variants.items():
+        paths[name] = os.path.join(exp, f"config_{name}.json")
+        with open(paths[name], "w") as f:
+            json.dump(_hubert_config(config, **overrides), f)
+    return paths
+
+
+def _decode_floats(args: list) -> tuple:
+    """``bin/decode.main(args)`` and each waveform it wrote, before the
+    16-bit rounding."""
+    from parallelwavegan_tpu_torch.bin import decode
+
+    wavs, real = {}, decode.write_wav
+
+    def write(path, fs, y):
+        wavs[os.path.basename(path)] = y.copy()
+        real(path, fs, y)
+
+    decode.write_wav = write
+    try:
+        res = decode.main(args + ["--verbose", "0"])
+    finally:
+        decode.write_wav = real
+    return res, wavs
+
+
+def _floats_agree(label: str, got: dict, want: dict, lengths: dict,
+                  relative: bool = True) -> float:
+    """max|got - want| over the utterances; fails on a wrong set or length,
+    a non-finite or silent output, or a difference above 2e-4 or (with
+    ``relative``) 1e-4 of max|want|."""
+    import numpy as np
+
+    if sorted(got) != sorted(want) or sorted(want) != sorted(lengths):
+        _fail(f"{label}: waveforms {sorted(got)} / {sorted(want)}")
+    err = ratio = 0.0
+    for k, n in lengths.items():
+        a, b = got[k], want[k]
+        if a.shape != (n,) or b.shape != (n,) or not np.isfinite(a).all() or not (
+                np.abs(b).max() > 0):
+            _fail(f"{label}: {k} shapes {a.shape} / {b.shape}, expected {n}")
+        e = float(np.abs(a - b).max())
+        err, ratio = max(err, e), max(ratio, e / float(np.abs(b).max()))
+    print(f"{label}, kernel vs plain (float, before the 16-bit rounding): max|diff| = "
+          f"{err:.3e} (tol {TOL}), {ratio:.2e} of max|plain|"
+          + (" (tol 1e-4)" if relative else ""))
+    if not (err <= TOL and (ratio <= 1e-4 or not relative)):
+        _fail(f"{label}: the kernel decode disagrees with the plain one")
+    return err
+
+
+def _hubert_train(card: str, label: str, config_of, counters: dict, expect: dict,
+                  frames) -> dict:
+    """``bin/train.main`` for 4 steps from SEED at full width on
+    HUBERT_TRAIN_UTTS token utterances of ``frames`` frames with their
+    waves, for each variant of ``expect`` (name -> launches read by
+    ``counters``); the variants' logged losses agree to 1e-4 relative.
+    Returns {name: {step: {loss: value}}}."""
+    import numpy as np
+
+    from parallelwavegan_tpu_torch.bin import train
+
+    root = os.path.join(WORK, "hubert_train")
+    shutil.rmtree(root, ignore_errors=True)
+    cfg0 = config_of(False)
+    speakers = cfg0["generator_params"].get("num_spk_embs", 0) > 0
+    hop = cfg0["hop_size"]
+    lengths = [frames[0] + (frames[1] - frames[0]) * i // (HUBERT_TRAIN_UTTS - 1)
+               for i in range(HUBERT_TRAIN_UTTS)]
+    dump = _token_dump(os.path.join(root, "dump"), lengths, speakers, hop)
+    steps = cfg0["train_max_steps"]
+    logged = {}
+    for name, want in expect.items():
+        config = os.path.join(root, f"config_{name}.json")
+        with open(config, "w") as f:
+            json.dump(config_of(name == "kernel"), f)
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        res = train.main(["--train-dumpdir", dump, "--dev-dumpdir", dump, "--outdir",
+                          os.path.join(root, f"exp_{name}"), "--device", "cuda",
+                          "--verbose", "0", "--config", config])
+        seconds = time.perf_counter() - t0
+        got = tuple(count() for count in counters.values())
+        print(f"main path [{label} training, {name}]: {res['steps']} steps in "
+              f"{seconds:.1f} s (set-up, eval and saves included) on {card}; "
+              + ", ".join(f"{k} launches = {n}" for k, n in zip(counters, got)))
+        if res["steps"] != steps or got != want:
+            _fail(f"{label} training {name}: steps {res['steps']}, launches {got}, "
+                  f"expected {steps} and {want}")
+        logged[name] = {}
+        for s, m in res["history"]:
+            logged[name].setdefault(s, {}).update(
+                {k: v for k, v in m.items() if k.startswith("train/")})
+        for s in range(1, steps + 1):
+            m = logged[name].get(s, {})
+            print(f"  {name} step {s}: "
+                  + ", ".join(f"{k} {v:.6f}" for k, v in sorted(m.items())))
+            if not m or not all(np.isfinite(v) for v in m.values()):
+                _fail(f"{label} training {name}: step {s} logged {m}")
+        if "train/discriminator_loss" not in logged[name][steps]:
+            _fail(f"{label} training {name}: the D phase did not run")
+        if not any("eval/generator_loss" in m for _, m in res["history"]):
+            _fail(f"{label} training {name}: no evaluation was logged")
+    if set(logged) == {"kernel", "plain"}:
+        err = _losses_agree(f"{label} kernel vs plain", logged["kernel"], logged["plain"],
+                            range(1, steps + 1))
+        print(f"{label} training losses, kernel vs plain: max relative diff = {err:.3e} "
+              f"over steps 1-{steps} (tol 1e-4)")
+    shutil.rmtree(root)
+    return logged
+
+
+def phase_hubert(card: str) -> dict:
+    """The discrete-symbol (HuBERT-unit) vocoders at the widths of their
+    shipped configs (module docstring, phase 35): decode through K1 and
+    K8, the duration model's given and predicted durations, StyleMelGAN
+    training through K8/K9 and the duration model's training."""
+    import numpy as np
+    import torch
+
+    import parallelwavegan_tpu_torch.models.hifigan as hifigan_mod
+    from parallelwavegan_tpu_torch.ops.kernels.hifigan_tail import (
+        fused_hifigan_tail,
+        hifigan_tail_reference,
+    )
+    from parallelwavegan_tpu_torch.ops.kernels.tade_decode import fused_tade_blocks
+    from parallelwavegan_tpu_torch.ops.kernels.tade_train import tade_block_backward
+    from parallelwavegan_tpu_torch.utils.model import load_model
+
+    t_phase = time.perf_counter()
+    root = os.path.join(WORK, "hubert")
+    shutil.rmtree(root, ignore_errors=True)
+    out = {"k1": {"errs": []}}
+    up = 320  # samples an id in every hubert config
+    lengths = {f"utt{i}-feats_gen.wav": n * up for i, n in enumerate(HUBERT_UTTS)}
+
+    # 1. HiFi-GAN: 3 utterances with speakers through bin/decode, K1 and plain
+    hifi = os.path.join(root, "hifigan")
+    dump = _token_dump(os.path.join(hifi, "dump"), HUBERT_UTTS, speakers=True)
+    p = _hubert_checkpoint(hifi, HUBERT_HIFIGAN_CONFIG,
+                           {"tail": {}, "plain": {"use_pallas_tail": False}})
+    calls, real_tail = [], hifigan_mod.fused_hifigan_tail
+
+    def keep(x, *args, **kwargs):  # the tail's inputs, for the timing below
+        calls.append((x.clone(), args, kwargs))
+        return real_tail(x, *args, **kwargs)
+
+    wavs, k1 = {}, {}
+    hifigan_mod.fused_hifigan_tail = keep
+    try:
+        for name, flags in (("tail", ["--use-pallas-tail"]), ("plain", [])):
+            _reset_launch_counts()
+            res, wavs[name] = _decode_floats(
+                ["--dumpdir", dump, "--checkpoint", p["ckpt"], "--config", p[name],
+                 "--device", "cuda", "--outdir", os.path.join(hifi, f"wav_{name}")] + flags)
+            k1[name] = fused_hifigan_tail.launches
+            print(f"main path [hubert HiFi-GAN decode, {name}]: K1 launches = {k1[name]} "
+                  f"for {len(HUBERT_UTTS)} utterances of {HUBERT_UTTS} ids; RTF "
+                  f"{_rtfs(res)} on {card}")
+    finally:
+        hifigan_mod.fused_hifigan_tail = real_tail
+    if k1 != {"tail": len(HUBERT_UTTS), "plain": 0}:
+        _fail(f"hubert HiFi-GAN decode: K1 launches {k1}, expected {len(HUBERT_UTTS)} and 0")
+    out["k1"]["errs"].append(_floats_agree("hubert HiFi-GAN decode", wavs["tail"],
+                                           wavs["plain"], lengths))
+    out["k1_launches"] = k1["tail"]
+
+    # K1 alone at the 512-id utterance's tail: (1, 40960, 128)
+    x, args, kwargs = calls[0]
+    if tuple(x.shape) != (1, HUBERT_UTTS[0] * 80, 128):
+        _fail(f"hubert HiFi-GAN: K1's first input {tuple(x.shape)}")
+    stages, final_w, final_b = args
+    with torch.inference_mode():
+        got = real_tail(x, *args, **kwargs)
+        ref = hifigan_tail_reference(x, stages, final_w, final_b, **kwargs)
+        e, r, ok = _within(got, ref)
+        if not ok:
+            _fail(f"K1 at {tuple(x.shape)}: max|diff| {e:.3e}, {r:.2e} of max|plain|")
+        rec = _tail_work(x, {"stages": stages, "final_w": final_w, "final_b": final_b,
+                             "pre_blocks": kwargs.get("pre_blocks")})
+        fp32_ms = _split_tf32_bound(rec)
+        ms = _median_ms(lambda: real_tail(x, *args, **kwargs))
+        plain_ms = _median_ms(lambda: hifigan_tail_reference(
+            x, stages, final_w, final_b, **kwargs))
+    out["k1"]["errs"].append(e)
+    out["k1"].update(ms=ms, plain_ms=plain_ms, bound_ms=rec["bound_ms"])
+    print(f"time [K1, hubert HiFi-GAN tail (B, T0, C0) = {tuple(x.shape)}, median of 10, "
+          f"CUDA events]: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{rec['bound_ms']:.3f} ms at the split-TF32 rate (3 x {rec['flops'] / 1e9:.1f} "
+          f"GFLOP / 495 TFLOP/s; {rec['bound_ms'] / ms:.1%} of it), {fp32_ms:.3f} ms at "
+          f"the float32 rate; max|diff| {e:.3e} ({r:.2e} of max|plain|) on {card}")
+    del calls, x, args, kwargs, got, ref
+
+    # 2. the duration model: given durations (512 frames) through
+    # InferenceModel.inference(ds=...), K1 and plain; then its predictor
+    # through bin/decode
+    dur = os.path.join(root, "duration")
+    ddump = _token_dump(os.path.join(dur, "dump"), (HUBERT_DURATION_IDS,), speakers=False)
+    p = _hubert_checkpoint(dur, HUBERT_DURATION_CONFIG,
+                           {"tail": {"use_pallas_tail": True}, "plain": {}})
+    ids = np.load(os.path.join(ddump, "utt0-feats.npy"))
+    rs = np.random.RandomState(SEED + 5)
+    ds = rs.multinomial(HUBERT_FRAMES - len(ids), np.full(len(ids), 1.0 / len(ids))) + 1
+    ys = {}
+    for name in ("tail", "plain"):
+        with open(p[name]) as f:
+            model = load_model(p["ckpt"], json.load(f), device="cuda")
+        _reset_launch_counts()
+        ys[name] = model.inference(ids, ds=ds)[:, 0]
+        k1[name] = fused_hifigan_tail.launches
+        del model
+    print(f"main path [hubert duration decode, given durations ({len(ids)} ids, "
+          f"{int(ds.sum())} frames)]: K1 launches = {k1['tail']} (plain run {k1['plain']})")
+    if (k1["tail"], k1["plain"]) != (1, 0):
+        _fail(f"hubert duration decode: K1 launches {k1}, expected 1 and 0")
+    out["k1"]["errs"].append(_floats_agree(
+        "hubert duration decode, given durations", {"u": ys["tail"]}, {"u": ys["plain"]},
+        {"u": HUBERT_FRAMES * up}))
+    out["k1_launches"] += k1["tail"]
+    _reset_launch_counts()
+    res, pred = _decode_floats(["--dumpdir", ddump, "--checkpoint", p["ckpt"], "--config",
+                                p["tail"], "--device", "cuda", "--outdir",
+                                os.path.join(dur, "wav")])
+    y = pred.get("utt0-feats_gen.wav")
+    print(f"main path [hubert duration decode through bin/decode, predicted durations]: "
+          f"K1 launches = {fused_hifigan_tail.launches}, {0 if y is None else len(y)} "
+          f"samples for {len(ids)} ids; RTF {_rtfs(res)} on {card}")
+    if (fused_hifigan_tail.launches != 1 or y is None or len(y) % up
+            or not np.isfinite(y).all()):
+        _fail("hubert duration decode through the predictor")
+    out["k1_launches"] += 1
+
+    # 3. StyleMelGAN: 3 utterances with speakers, use_pallas_tade and plain,
+    # the same noise
+    sty = os.path.join(root, "style")
+    sdump = _token_dump(os.path.join(sty, "dump"), HUBERT_UTTS, speakers=True)
+    p = _hubert_checkpoint(sty, HUBERT_STYLE_CONFIG,
+                           {"tade": {"use_pallas_tade": True}, "plain": {}})
+    k8, wavs = {}, {}
+    for name in ("tade", "plain"):
+        _reset_launch_counts()
+        np.random.seed(SEED)  # the same noise in both runs
+        res, wavs[name] = _decode_floats(
+            ["--dumpdir", sdump, "--checkpoint", p["ckpt"], "--config", p[name],
+             "--device", "cuda", "--outdir", os.path.join(sty, f"wav_{name}")])
+        k8[name] = (fused_tade_blocks.launches_k8a, fused_tade_blocks.launches_k8b)
+        print(f"main path [hubert StyleMelGAN decode, {name}]: K8a/K8b launches = "
+              f"{k8[name]} for {len(HUBERT_UTTS)} utterances; RTF {_rtfs(res)} on {card}")
+    # noise of (T - 1) // 56 + 1 frames: 560, 336 and 112 padded ids, blocks
+    # of input length 4096 or more: 2-8, 3-8 and 4-8
+    if k8 != {"tade": (18, 18), "plain": (0, 0)}:
+        _fail(f"hubert StyleMelGAN decode: K8 launches {k8}, expected 18 each and 0")
+    # K8's decode bound, as phase 13's: 2e-4 (the TADE chain's output is
+    # small at a random init, so no bound relative to it)
+    out["k8_err"] = _floats_agree("hubert StyleMelGAN decode", wavs["tade"],
+                                  wavs["plain"], lengths, relative=False)
+    out["k8a_launches"], out["k8b_launches"] = k8["tade"]
+    shutil.rmtree(root)
+
+    # 4. StyleMelGAN training at 16 x 17920 through K8/K9 and plain
+    def style_config(kernel):
+        return dict(_hubert_config(HUBERT_STYLE_CONFIG, use_pallas_tade_train=kernel),
+                    **HUBERT_TRAIN_OVERRIDES)
+
+    steps = HUBERT_TRAIN_OVERRIDES["train_max_steps"]
+    g_forwards = steps + (steps - HUBERT_TRAIN_OVERRIDES["discriminator_train_start_steps"]
+                          - 1) + 2  # G steps, D re-runs, the eval batch and its dump
+    blocks = 6  # blocks 3-8 at a crop of 56 ids (T = 1120 .. 17920)
+    _hubert_train(
+        card, "hubert StyleMelGAN", style_config,
+        {"K8a": lambda: fused_tade_blocks.launches_k8a,
+         "K8b": lambda: fused_tade_blocks.launches_k8b,
+         "K9a": lambda: tade_block_backward.launches_k9a,
+         "K9b": lambda: tade_block_backward.launches_k9b},
+        {"kernel": (g_forwards * blocks,) * 2 + (steps * blocks,) * 2,
+         "plain": (0, 0, 0, 0)}, frames=(60, 90))
+    out["k8a_launches"] += g_forwards * blocks
+    out["k8b_launches"] += g_forwards * blocks
+    out["k9_launches"] = steps * blocks
+    b, t = HUBERT_STYLE_CONFIG["batch_size"], HUBERT_STYLE_CONFIG["batch_max_steps"]
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    ids = torch.randint(0, 100, (b, 1, t // up), generator=g, device="cuda")
+    spk = torch.randint(0, 128, (b, 1, 1), generator=g, device="cuda").expand(-1, 1, t // up)
+    batch = {"y": 0.3 * torch.randn(b, 1, t, generator=g, device="cuda"),
+             "c": torch.cat([ids, spk], 1).float()}
+    _train_split(card, "hubert StyleMelGAN", style_config, batch)
+
+    # 5. the duration model's training at 16 x 10240 (no kernel)
+    def duration_config(kernel):
+        return dict(_hubert_config(HUBERT_DURATION_CONFIG),
+                    **HIFIGAN_TRAIN_OVERRIDES)
+
+    logged = _hubert_train(card, "hubert duration HiFi-GAN", duration_config,
+                           {"K1": lambda: fused_hifigan_tail.launches},
+                           {"plain": (0,)}, frames=(40, 70))
+    d_loss = [logged["plain"][s].get("train/duration_loss") for s in range(1, steps + 1)]
+    print(f"hubert duration HiFi-GAN training: duration loss by step {d_loss} on {card}")
+    if sum(v is not None for v in d_loss) < steps - 1:
+        _fail(f"hubert duration training: duration losses {d_loss}")
+    print(f"phase 35 (hubert vocoders) took {time.perf_counter() - t_phase:.1f} s on {card}")
+    return out
+
+
 def main() -> None:
     pkg = os.path.join(ROOT, "parallelwavegan_tpu_torch")
     if not os.path.isdir(pkg):
@@ -5418,6 +5899,11 @@ def main() -> None:
     recipe = phase_recipe(card)
     torch.cuda.synchronize()
     kern["errs"] += recipe["k1"]["errs"]  # K1 at B=4 on the recipe's decode
+    hubert = phase_hubert(card)
+    torch.cuda.synchronize()
+    kern["errs"] += hubert["k1"]["errs"]  # K1 on the hubert decodes
+    k8["k8a"]["errs"].append(hubert["k8_err"])
+    k8["k8b"]["errs"].append(hubert["k8_err"])
     shutil.rmtree(WORK, ignore_errors=True)
 
     def entry(name, source, replaces, launches, rec):
@@ -5432,7 +5918,7 @@ def main() -> None:
 
     record = {"kernels": [
         entry("fused_hifigan_tail", "hifigan_tail.cu", "hifigan_tail.py:256",
-              dec["launches"] + recipe["k1_launches"], kern),
+              dec["launches"] + recipe["k1_launches"] + hubert["k1_launches"], kern),
         entry("fused_wavenet_stack", "wavenet.cu", "wavenet_stack.py:199",
               pwg["stack_launches"] + recipe["k3_launches"], wn["stack"]),
         entry("fused_gated_resblock", "wavenet.cu", "wavenet.py:280",
@@ -5442,17 +5928,17 @@ def main() -> None:
         entry("fused_hifigan_mrf", "hifigan_tail.cu",
               "hifigan_mrf.py:178 and :399", dec["mrf_launches"], k2),
         entry("fused_tade_blocks (K8a)", "tade.cu", "tade_decode.py:366",
-              style["k8a_launches"], k8["k8a"]),
+              style["k8a_launches"] + hubert["k8a_launches"], k8["k8a"]),
         entry("fused_tade_blocks (K8b)", "tade.cu", "tade_decode.py:437",
-              style["k8b_launches"], k8["k8b"]),
+              style["k8b_launches"] + hubert["k8b_launches"], k8["k8b"]),
         entry("wavenet_stack_backward (K4)", "wavenet_bwd.cu",
               "wavenet_stack_train.py:187", pwg_train["k4_launches"], k4),
         entry("melgan_stacks_backward (K7)", "melgan_stack_bwd.cu", "melgan_stack_train.py:247",
               melgan_train["k7_launches"] + mb_train["k7_launches"], k7),
         entry("tade_block_backward (K9a)", "tade_bwd.cu", "tade_train.py:438",
-              style_train["k9a_launches"], k9["k9a"]),
+              style_train["k9a_launches"] + hubert["k9_launches"], k9["k9a"]),
         entry("tade_block_backward (K9b)", "tade_bwd.cu", "tade_train.py:523",
-              style_train["k9b_launches"], k9["k9b"]),
+              style_train["k9b_launches"] + hubert["k9_launches"], k9["k9b"]),
         entry("fused_melgan_stacks (K6 bf16-resident mode)", "melgan_stack.cu",
               "melgan_stack.py:285", melgan_bf16["k6_launches"] + mb_train["k6_bf16_launches"],
               k67["k6"]),

@@ -7,7 +7,13 @@ decodes each utterance of any ported generator with
 the utterances sorted by length and N at a time through
 ``inference_batch``) and writes 16-bit WAVs (Multi-band MelGAN after PQMF
 synthesis; StyleMelGAN with noise drawn as Parallel WaveGAN's is).
-``--use-pallas-tail`` routes the HiFi-GAN decode tail,
+The discrete-symbol (HuBERT-unit) generators decode dumps whose
+features are unit ids (T, 1), or (T, 2) with the speaker id in channel 1
+where the config has speakers (``InferenceModel.inference``'s discrete
+branch; ``--normalize-before`` does not apply to ids, as in JAX).
+``--use-pallas-tail`` routes the HiFi-GAN decode tail (of
+``HiFiGANGenerator``, ``DiscreteSymbolHiFiGANGenerator`` and
+``DiscreteSymbolDurationGenerator``, JAX :161-167),
 ``--use-pallas-stack`` the Parallel WaveGAN dilation cycles and
 ``--use-pallas-stacks`` the (Multi-band) MelGAN residual stacks through
 their hand-written CUDA kernels (the JAX flag names, kept so configs and
@@ -135,11 +141,13 @@ def main(argv=None) -> dict:
         raise ValueError("Support only hdf5 or npy format.")
     logging.info("The number of features to be decoded = %d.", len(dataset))
 
-    for flag, key, gtype in (
-            (args.use_pallas_tail, "use_pallas_tail", "HiFiGANGenerator"),
-            (args.use_pallas_stack, "use_pallas_stack", "ParallelWaveGANGenerator"),
-            (args.use_pallas_stacks, "use_pallas_stacks", "MelGANGenerator")):
-        if flag and generator_type == gtype:
+    for flag, key, gtypes in (
+            (args.use_pallas_tail, "use_pallas_tail",
+             ("HiFiGANGenerator", "DiscreteSymbolHiFiGANGenerator",
+              "DiscreteSymbolDurationGenerator")),
+            (args.use_pallas_stack, "use_pallas_stack", ("ParallelWaveGANGenerator",)),
+            (args.use_pallas_stacks, "use_pallas_stacks", ("MelGANGenerator",))):
+        if flag and generator_type in gtypes:
             config = dict(config)
             config["generator_params"] = dict(config["generator_params"],
                                               **{key: True})

@@ -18,12 +18,18 @@ reads ``*-wave.npy`` / ``*-feats.npy`` pairs and ``hdf5`` needs h5py.
 Ported so far: the Parallel WaveGAN generator (causal or not, with any of
 its upsample nets) and the MelGAN generator (causal or not; Multi-band
 MelGAN with ``out_channels`` sub-bands, synthesised by PQMF in the
-criterion) with ``ParallelWaveGANDiscriminator``,
+criterion, whose filter is written into ``config.yml`` as explicit
+``pqmf_params``, so that decode in either package synthesises with the
+filter G trained with, not the legacy one that a config without them and
+of ``version`` 0.4.2 or older gets) with ``ParallelWaveGANDiscriminator``,
 ``ResidualParallelWaveGANDiscriminator`` or
 ``MelGANMultiScaleDiscriminator``, the StyleMelGAN generator with
 ``StyleMelGANDiscriminator`` (its noise and windows drawn per step from
 the config's ``seed``), the HiFi-GAN generator with the HiFi-GAN
-discriminators (spectral norm included), the STFT, sub-band STFT, mel,
+discriminators (spectral norm included), the three discrete-symbol
+(HuBERT-unit) generators with their discriminators (the ids collated as
+the mel; the duration generator on collapsed runs and their durations,
+``use_duration``, with the duration loss), the STFT, sub-band STFT, mel,
 feature-matching and adversarial losses, RAdam, Adam, or Adam with
 ``amsgrad: true`` (optax's AMSGrad). HiFi-GAN's ``use_pallas_tail`` and
 ``use_pallas_mrf`` run kernels without a backward: a training config that
@@ -45,9 +51,9 @@ the JAX package does (``train/precision.py``; MelGAN's stacks with
 ``use_pallas_stacks_train`` through K6/K7's bf16 modes, StyleMelGAN's
 TADE blocks with ``use_pallas_tade_train`` through K8/K9's, on the card,
 and through their bf16 plain versions on the CPU). Not ported yet, and
-refused with ``NotImplementedError`` (ROADMAP.md): ``distributed``, the
-duration loss, optimizers other than RAdam and Adam, and the other
-families; the local, global and F0 datasets are built as in JAX, and the
+refused with ``NotImplementedError`` (ROADMAP.md): ``distributed``,
+optimizers other than RAdam and Adam, VQ-VAE and U-Net HiFi-GAN; the
+local, global and F0 datasets are built as in JAX, and the
 collater refuses their conditioning inputs. float32 convolutions and
 matmuls run without TF32, as the JAX package computes in full float32.
 """
@@ -73,7 +79,7 @@ from parallelwavegan_tpu_torch.data.datasets import (
 from parallelwavegan_tpu_torch.data.loader import DataLoader
 from parallelwavegan_tpu_torch.models import get_model_class
 from parallelwavegan_tpu_torch.optimizers import build_optimizer_from_config
-from parallelwavegan_tpu_torch.train.criterion import build_criterion
+from parallelwavegan_tpu_torch.train.criterion import build_criterion, build_pqmf
 from parallelwavegan_tpu_torch.train.trainer import Trainer
 from parallelwavegan_tpu_torch.utils.config import load_config, write_config
 from parallelwavegan_tpu_torch.utils.io import read_hdf5
@@ -186,13 +192,20 @@ def main(argv=None) -> dict:
         raise _not_ported("distributed training")
     gen_type = config["generator_type"]
     if gen_type not in ("ParallelWaveGANGenerator", "MelGANGenerator",
-                        "StyleMelGANGenerator", "HiFiGANGenerator"):
+                        "StyleMelGANGenerator", "HiFiGANGenerator",
+                        "DiscreteSymbolHiFiGANGenerator",
+                        "DiscreteSymbolDurationGenerator",
+                        "DiscreteSymbolStyleMelGANGenerator"):
         raise _not_ported(f"training {gen_type}")
     for flag in ("use_pallas_tail", "use_pallas_mrf"):
         if config["generator_params"].get(flag, False):
             raise ValueError(f"generator_params.{flag} runs a kernel without a "
                              "backward: it is decode only; drop it to train")
     flags = feature_flags(config)
+    pqmf = build_pqmf(config)
+    if pqmf is not None:  # decode synthesises with the filter G trains with
+        config["pqmf_params"] = {"taps": pqmf.taps, "cutoff_ratio": pqmf.cutoff_ratio,
+                                 "beta": pqmf.beta}
 
     os.makedirs(args.outdir, exist_ok=True)
     write_config(os.path.join(args.outdir, "config.yml"), config)

@@ -13,7 +13,11 @@ upsample net under ``upsample_net.melgan.*``), ``_t_style_melgan_g``
 and ``msd``/``mpd``, :94-122) in reverse, conv
 kernels (K, Cin, Cout) are transposed to torch's (Cout, Cin, K)
 (``_CONV_PERM``) and 2-D ones (Kh, Kw, Cin, Cout) to (Cout, Cin, Kh, Kw)
-(``_CONV2D_PERM``), transposed-conv kernels (HiFi-GAN's ``upsamples_*``,
+(``_CONV2D_PERM``), the discrete generators' embeddings, LayerNorm scales
+and the duration predictor's head (``_t_discrete_hifigan_g``,
+``_t_duration_predictor``, ``_t_discrete_style_melgan_g``, :353-385) as
+torch's ``weight`` (the head's transposed), transposed-conv kernels
+(HiFi-GAN's ``upsamples_*``,
 MelGAN's deconv layers, StyleMelGAN's ``noise_upsample_*``: the
 ``is_transpose`` set) are flipped along K and
 laid out as torch's (Cin, Cout, K) (``_DECONV_PERM``, :466-467,
@@ -188,6 +192,37 @@ def _style_melgan_prefix(path) -> str:
     return ".".join(out)
 
 
+def _duration_prefix(path) -> str:
+    """DurationPredictor (``_t_duration_predictor``): ``conv_{i}`` ->
+    ``conv.{i}.0``, ``norm_{i}`` -> ``conv.{i}.2``; the head's leaves sit at
+    the module's root and go to ``linear``."""
+    if not path:
+        return "linear"
+    (p,) = path
+    if p.startswith("conv_"):
+        return f"conv.{_idx(p)}.0"
+    if p.startswith("norm_"):
+        return f"conv.{_idx(p)}.2"
+    raise KeyError(f"duration-predictor path segment {p!r}")
+
+
+def _discrete_hifigan_prefix(path) -> str:
+    """``_t_discrete_hifigan_g``: ``embedding/{emb,spk_emb}`` -> ``emb`` /
+    ``spk_emb``, ``duration_predictor/...``, and the ``trunk`` at the root."""
+    if path[0] == "embedding":
+        return path[1]
+    if path[0] == "duration_predictor":
+        return f"duration_predictor.{_duration_prefix(path[1:])}"
+    if path[0] == "trunk":
+        return _hifigan_prefix(path[1:])
+    raise KeyError(f"discrete-hifigan path segment {path[0]!r}")
+
+
+def _discrete_style_melgan_prefix(path) -> str:
+    """``_t_discrete_style_melgan_g``: ``emb``/``spk_emb``, then the trunk."""
+    return path[0] if path[0] in ("emb", "spk_emb") else _style_melgan_prefix(path)
+
+
 def _melgan_d_map(downsample_scales):
     """Flax path -> upstream prefix for MelGANDiscriminator
     (``_make_t_melgan_d``): ``layers_0`` -> ``layers.0.1`` (after the pad),
@@ -268,9 +303,10 @@ def jax_params_to_state_dict(model_type: str, model_params: dict, params,
     """JAX params (``G.init(...)`` output or its ``"params"`` entry, with
     numpy or jax arrays as leaves) -> port state dict of float32 tensors.
     ``model_type`` is a registered generator or discriminator,
-    ``"ResidualStack"`` or ``"TADEResBlock"``. ``spectral`` is the
-    ``spectral`` collection of a model with spectral norm (JAX's
-    ``vars_d["spectral"]``); a full ``init`` output carries its own."""
+    ``"ResidualStack"``, ``"TADEResBlock"`` or ``"DurationPredictor"``.
+    ``spectral`` is the ``spectral`` collection of a model with spectral
+    norm (JAX's ``vars_d["spectral"]``); a full ``init`` output carries its
+    own."""
     if "params" in params:
         spectral = params.get("spectral", spectral)
         params = params["params"]
@@ -295,6 +331,13 @@ def jax_params_to_state_dict(model_type: str, model_params: dict, params,
             return _stack_prefix(path, causal)
     elif model_type in ("StyleMelGANGenerator", "TADEResBlock"):
         prefix_of = _style_melgan_prefix
+    elif model_type in ("DiscreteSymbolHiFiGANGenerator",
+                        "DiscreteSymbolDurationGenerator"):
+        prefix_of = _discrete_hifigan_prefix
+    elif model_type == "DiscreteSymbolStyleMelGANGenerator":
+        prefix_of = _discrete_style_melgan_prefix
+    elif model_type == "DurationPredictor":
+        prefix_of = _duration_prefix
     elif model_type == "ParallelWaveGANGenerator":
         prefix_of = _pwg_prefix
         up = model_params.get("upsample_params") or {}
@@ -354,8 +397,12 @@ def jax_params_to_state_dict(model_type: str, model_params: dict, params,
         else:
             transpose = bool(mods) and mods[-1].startswith(
                 ("upsamples_", "noise_upsample_"))
-        if name == "bias":
+        if name in ("bias", "linear_bias"):
             sd[f"{prefix}.bias"] = w
+        elif name in ("embedding", "scale"):  # an embedding table, LayerNorm's scale
+            sd[f"{prefix}.weight"] = w
+        elif name == "linear_kernel":  # (in, out) -> torch Linear's (out, in)
+            sd[f"{prefix}.weight"] = w.T
         elif name in ("v", "kernel"):
             if w.ndim == 4:  # (Kh, Kw, Cin, Cout) -> (Cout, Cin, Kh, Kw)
                 w = np.transpose(w, (3, 2, 0, 1))

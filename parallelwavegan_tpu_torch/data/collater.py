@@ -1,13 +1,20 @@
 """Random fixed-length crop collater (counterpart of
-parallelwavegan_tpu/data/collater.py:21-144, the mel-to-wave branch).
+parallelwavegan_tpu/data/collater.py:21-144, the mel-to-wave branch and
+its duration branch).
 
 A random frame start per utterance; the audio slice [start*hop,
 start*hop + batch_max_steps]; the mel slice with ``aux_context_window``
 frames each side; noise z ~ N(0, 1) for generators that take it. Output
 is numpy in the JAX package's layout: y (B, T, 1), c (B, T'+2w, C), z
-(B, T, 1). Randomness comes from an explicit ``numpy.random.Generator``,
-so the same seed gives the JAX package's batches exactly. The duration,
-f0/excitation and VQ branches are not ported yet (ROADMAP.md).
+(B, T, 1). Discrete-symbol features (unit ids, and the speaker id in
+channel 1) come out as float32 c like a mel, which the generators cast
+to ids. With ``use_duration`` each crop's runs of equal rows collapse
+into (codes, durations) (:111-127, ``_unique_consecutive`` :219-227):
+c (B, L, C) int32 padded with ``pad_value`` and ds (B, L) int32 padded
+with zeros, L the most runs in the batch. Randomness comes from an
+explicit ``numpy.random.Generator``, so the same seed gives the JAX
+package's batches exactly. The f0/excitation and VQ branches are not
+ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -26,7 +33,6 @@ class Collater:
                  rng: np.random.Generator | None = None):
         for flag, what in ((use_f0_and_excitation, "f0/excitation input"),
                            (not use_aux_input, "the VQ (wave-to-wave) collater"),
-                           (use_duration, "duration input"),
                            (use_global_condition, "global conditioning"),
                            (use_local_condition, "local conditioning")):
             if flag:
@@ -40,6 +46,7 @@ class Collater:
         self.batch_max_steps = batch_max_steps
         self.aux_context_window = aux_context_window
         self.use_noise_input = use_noise_input
+        self.use_duration = use_duration
         self.pad_value = pad_value
         self.rng = rng or np.random.default_rng()
         self.start_offset = aux_context_window
@@ -47,7 +54,8 @@ class Collater:
         self.mel_threshold = self.batch_max_frames + 2 * aux_context_window
 
     def __call__(self, batch, rng=None) -> dict:
-        """Items -> {'y', 'c'[, 'z']} of float32 numpy arrays; ``rng``
+        """Items -> {'y', 'c'[, 'z']} of float32 numpy arrays (with
+        ``use_duration`` {'y', 'c', 'ds'}, c and ds int32); ``rng``
         overrides the instance generator for this call (the loader passes a
         per-batch child generator)."""
         rng = rng if rng is not None else self.rng
@@ -67,6 +75,16 @@ class Collater:
         y_batch = np.stack([x[s:s + self.batch_max_steps]
                             for x, s in zip(xs, x_starts)]).astype(np.float32)[..., None]
         c_batch = np.stack([c[s:e] for c, s, e in zip(cs, c_starts, c_ends)])
+        if self.use_duration:
+            runs = [_unique_consecutive(c) for c in c_batch]
+            longest = max(len(d) for _, d in runs)
+            c_pad = np.full((len(runs), longest) + runs[0][0].shape[1:], self.pad_value,
+                            dtype=np.int32)
+            d_pad = np.zeros((len(runs), longest), dtype=np.int32)
+            for i, (code, d) in enumerate(runs):
+                c_pad[i, :len(code)] = code
+                d_pad[i, :len(d)] = d
+            return {"c": c_pad, "y": y_batch, "ds": d_pad}
         out = {"c": c_batch.astype(np.float32), "y": y_batch}
         if self.use_noise_input:
             out["z"] = rng.standard_normal(y_batch.shape).astype(np.float32)
@@ -80,3 +98,15 @@ class Collater:
             raise ValueError(f"audio of {len(x)} samples for {len(c)} frames "
                              f"of hop {self.hop_size}")
         return x, c
+
+
+def _unique_consecutive(c: np.ndarray):
+    """Runs of equal rows of c (T, ...) -> (codes (runs, ...) int32, counts
+    (runs,) int32), as ``torch.unique_consecutive(..., dim=0)``."""
+    c = np.asarray(c)
+    if c.ndim == 1:
+        c = c[:, None]
+    change = np.any(c[1:] != c[:-1], axis=tuple(range(1, c.ndim)))
+    starts = np.flatnonzero(np.concatenate([[True], change]))
+    counts = np.diff(np.concatenate([starts, [len(c)]]))
+    return c[starts].astype(np.int32), counts.astype(np.int32)

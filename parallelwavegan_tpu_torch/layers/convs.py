@@ -144,9 +144,10 @@ def _spectral_weight(module: nn.Module, inputs) -> None:
     ``weight_orig`` (mixed precision's cast parameters) is read in float32,
     as JAX promotes bf16 @ float32 (convs.py:140-156): the iteration and
     sigma run in float32 on the bf16 values, (u, v) stay float32, and the
-    weight divided by sigma is cast back to bf16."""
+    weight divided by sigma is cast back to bf16 (a float64 one stays float64)."""
     w = module.weight_orig
-    w_mat = w.reshape(w.shape[0], -1).float()
+    acc = torch.promote_types(w.dtype, torch.float32)
+    w_mat = w.reshape(w.shape[0], -1).to(acc)
     if module.training:
         with torch.no_grad():
             v = _normalize(w_mat.t() @ module.weight_u)
@@ -157,7 +158,7 @@ def _spectral_weight(module: nn.Module, inputs) -> None:
         # copies: a later train-mode forward updates the buffers in place
         u, v = module.weight_u.clone(), module.weight_v.clone()
     sigma = torch.dot(u, w_mat @ v)
-    module.weight = (w.float() / (sigma + 1e-12)).to(w.dtype)
+    module.weight = (w.to(acc) / (sigma + 1e-12)).to(w.dtype)
 
 
 def apply_spectral_norm(module: nn.Module,

@@ -3,13 +3,21 @@
 ``HiFiGANGenerator``, ``ParallelWaveGANGenerator`` (causal or not, with
 any of its three upsample nets), ``MelGANGenerator`` (MelGAN and
 Multi-band MelGAN, causal or not), ``StyleMelGANGenerator``,
+the discrete-symbol generators ``DiscreteSymbolHiFiGANGenerator``,
+``DiscreteSymbolDurationGenerator`` and
+``DiscreteSymbolStyleMelGANGenerator``,
 ``ParallelWaveGANDiscriminator``, ``ResidualParallelWaveGANDiscriminator``,
 ``MelGANDiscriminator``, ``MelGANMultiScaleDiscriminator``,
 ``StyleMelGANDiscriminator`` and HiFi-GAN's period, multi-period, scale,
 multi-scale and multi-scale multi-period discriminators are ported so
-far; ROADMAP.md lists the rest in the order they are to come.
+far; ``VQVAE`` and ``UHiFiGANGenerator`` raise ``NotImplementedError``
+(ROADMAP.md lists them in the order they are to come).
 """
 
+from parallelwavegan_tpu_torch.models.discrete import (
+    DiscreteSymbolDurationGenerator,
+    DiscreteSymbolHiFiGANGenerator,
+)
 from parallelwavegan_tpu_torch.models.hifigan import (
     HiFiGANGenerator,
     HiFiGANMultiPeriodDiscriminator,
@@ -29,11 +37,15 @@ from parallelwavegan_tpu_torch.models.parallel_wavegan import (
     ResidualParallelWaveGANDiscriminator,
 )
 from parallelwavegan_tpu_torch.models.style_melgan import (
+    DiscreteSymbolStyleMelGANGenerator,
     StyleMelGANDiscriminator,
     StyleMelGANGenerator,
 )
 
 MODEL_REGISTRY = {
+    "DiscreteSymbolDurationGenerator": DiscreteSymbolDurationGenerator,
+    "DiscreteSymbolHiFiGANGenerator": DiscreteSymbolHiFiGANGenerator,
+    "DiscreteSymbolStyleMelGANGenerator": DiscreteSymbolStyleMelGANGenerator,
     "HiFiGANGenerator": HiFiGANGenerator,
     "HiFiGANMultiPeriodDiscriminator": HiFiGANMultiPeriodDiscriminator,
     "HiFiGANMultiScaleDiscriminator": HiFiGANMultiScaleDiscriminator,

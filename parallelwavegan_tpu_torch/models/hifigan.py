@@ -8,8 +8,9 @@ checkpoint and ``parallelwavegan_tpu``'s ``load_model`` reads it.
 
 Kernel flags keep the JAX names so that configs are shared:
 
-* ``use_pallas_tail``, under the JAX gate (:203-221): the last two
-  stride-2 stages and the output conv run through ``fused_hifigan_tail``.
+* ``use_pallas_tail``, under the JAX gate (:203-221, with the discrete
+  trunk's kernel test, models/discrete.py:111-116): the last two stride-2
+  stages and the output conv run through ``fused_hifigan_tail``.
 * ``use_pallas_mrf``, under the JAX gate (:290-313: not causal,
   ``use_additional_convs``, ``bias``, stage width at most
   ``pallas_mrf_max_channels``) and a LeakyReLU activation (the kernel
@@ -107,13 +108,12 @@ class HiFiGANGenerator(nn.Module):
         self.upsamples = nn.ModuleList()
         self.blocks = nn.ModuleList()
         for i, (s, k) in enumerate(zip(upsample_scales, upsample_kernel_sizes)):
-            assert k == 2 * s
             ch = channels // (2 ** (i + 1))
+            pad, out_pad = self.deconv_padding(k, s)
             self.upsamples.append(nn.Sequential(
                 get_activation(nonlinear_activation, act_params),
-                ConvTranspose1d(channels // (2 ** i), ch, k, s,
-                                padding=s // 2 + s % 2, output_padding=s % 2,
-                                **conv_kw),
+                ConvTranspose1d(channels // (2 ** i), ch, k, s, padding=pad,
+                                output_padding=out_pad, **conv_kw),
             ))
             for rk, rd in zip(resblock_kernel_sizes, resblock_dilations):
                 self.blocks.append(HiFiGANResidualBlock(
@@ -141,6 +141,10 @@ class HiFiGANGenerator(nn.Module):
             and nonlinear_activation == "LeakyReLU"
             and n_up >= 2
             and all(s == 2 for s in self.upsample_scales[-2:])
+            # the kernel's stages give s * T samples, which the discrete
+            # trunk's (K - s) // 2 padding gives only for K == 2s
+            and all(k == 2 * s for s, k in zip(self.upsample_scales[-2:],
+                                               upsample_kernel_sizes[-2:]))
         ):
             c_tail = channels // (2 ** (n_up - 2))
             # the same gate as the JAX generator: tail entry width a
@@ -158,6 +162,13 @@ class HiFiGANGenerator(nn.Module):
         self._mrf_cache = None
         if device is not None:
             self.to(device)
+
+    @staticmethod
+    def deconv_padding(kernel_size: int, scale: int) -> tuple:
+        """(padding, output_padding) of a stage's transposed conv: s // 2 +
+        s % 2 and s % 2, for a kernel of 2s (upstream's HiFi-GAN)."""
+        assert kernel_size == 2 * scale
+        return scale // 2 + scale % 2, scale % 2
 
     @property
     def upsample_factor(self) -> int:

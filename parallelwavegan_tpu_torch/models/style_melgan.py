@@ -32,8 +32,16 @@ cut at a random start in [0, T - size), split into sub-bands by PQMF
 (``pqmf_params``; one band means none) and judged by its own
 ``MelGANDiscriminator``, whose parameters every repeat shares. The starts
 are drawn from an explicit CPU ``torch.Generator``, so that cutting needs
-no device sync, or given as ``starts``. ``DiscreteSymbolStyleMelGANGenerator``
-is not ported yet (ROADMAP.md M18).
+no device sync, or given as ``starts``.
+
+``DiscreteSymbolStyleMelGANGenerator`` (:232-327) takes unit ids (B, 2, T)
+(the speaker id in channel 1 of the first frame) for the mel: ``emb``
+(width ``aux_channels``) and ``spk_emb``, added (which needs
+``spk_emb_dim == aux_channels``) or concatenated, feed this trunk, whose
+keys sit at the root as upstream's (JAX convert/torch_checkpoint.py:380-385).
+At the shipped hubert scales (5, 2, 2, 2, 2, 2, 2, 1, 1) block 0 has an
+aux width of 128, so the kernels' gate (width 64) leaves it to its own
+forward at any length.
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ from parallelwavegan_tpu_torch.layers.convs import (
 )
 from parallelwavegan_tpu_torch.layers.residual_block import get_activation
 from parallelwavegan_tpu_torch.layers.tade import INIT_STD, TADEResBlock
+from parallelwavegan_tpu_torch.models.discrete import embed_symbols, embedding
 from parallelwavegan_tpu_torch.models.melgan import MelGANDiscriminator
 from parallelwavegan_tpu_torch.ops.kernels.tade_decode import (
     fused_tade_blocks,
@@ -185,6 +194,35 @@ class StyleMelGANGenerator(nn.Module):
     def load_state_dict(self, *args, **kwargs):
         self._kernel_cache = None
         return super().load_state_dict(*args, **kwargs)
+
+
+class DiscreteSymbolStyleMelGANGenerator(StyleMelGANGenerator):
+    """(ids (B, 2, T'), z (B, in_channels, Tz)) -> wave (B, out_channels,
+    T' * prod(upsample_scales)), T' = Tz * prod(noise_upsample_scales); z
+    drawn as (B, in_channels, 1) from ``generator`` where it is None."""
+
+    def __init__(self, in_channels: int = 128, aux_channels: int = 128,
+                 channels: int = 64, out_channels: int = 1, num_embs: int = 100,
+                 num_spk_embs: int = 128, spk_emb_dim: int = 128,
+                 concat_spk_emb: bool = False, **kwargs):
+        if not concat_spk_emb and aux_channels != spk_emb_dim:
+            raise ValueError(f"adding the speaker embedding needs spk_emb_dim "
+                             f"{spk_emb_dim} == aux_channels {aux_channels}")
+        device = kwargs.pop("device", None)
+        trunk_aux = aux_channels + spk_emb_dim if concat_spk_emb else aux_channels
+        super().__init__(in_channels=in_channels, aux_channels=trunk_aux,
+                         channels=channels, out_channels=out_channels, **kwargs)
+        generator = kwargs.get("generator")
+        self.emb = embedding(num_embs, aux_channels, generator)
+        self.spk_emb = embedding(num_spk_embs, spk_emb_dim, generator)
+        self.concat_spk_emb = concat_spk_emb
+        if device is not None:
+            self.to(device)
+
+    def forward(self, c: torch.Tensor, z: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        cond = embed_symbols(c, self.emb, self.spk_emb, self.concat_spk_emb)
+        return super().forward(cond, z, generator)
 
 
 # the JAX package's defaults for the base discriminators (:358-369)

@@ -7,12 +7,16 @@ losses are off when their keys are absent. The mel loss takes
 ``mel_loss_params`` or, without them, the config's feature keys
 (:81-96). A generator with more than one output channel (Multi-band
 MelGAN) gets ``pqmf``, a PQMF bank of that many sub-bands with the
-config's ``pqmf_params`` (:106-114), and ``use_subband_stft_loss`` (which
-needs such a generator, :76-80) a second multi-resolution STFT loss from
+config's ``pqmf_params`` (:106-114; ``build_pqmf``, whose filter
+``bin/train.py`` writes into the run's ``config.yml`` so that decode
+synthesises with it), and ``use_subband_stft_loss`` (which needs such a
+generator, :76-80) a second multi-resolution STFT loss from
 ``subband_stft_loss_params``; ``train/step.py`` synthesises the full band
-and analyses the target with ``pqmf``. The duration loss and the VQVAE
-generator's PQMF (:115-120) are not ported yet and raise
-``NotImplementedError`` (ROADMAP.md).
+and analyses the target with ``pqmf``. ``use_duration_loss`` is
+accepted and, as in JAX (:68, :140), decides nothing: the duration loss
+is the train step's, for ``DiscreteSymbolDurationGenerator`` whatever the
+flag says, as in JAX's step.py. The VQVAE generator's PQMF (:115-120) is
+not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -46,9 +50,11 @@ class Criterion:
     pqmf: PQMF | None = None
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to parallelwavegan_tpu_torch yet; see ROADMAP.md")
+def build_pqmf(config: dict) -> PQMF | None:
+    """The PQMF bank of a generator of more than one output channel, from
+    the config's ``pqmf_params`` (defaults where absent); None otherwise."""
+    subbands = config["generator_params"].get("out_channels", 1)
+    return PQMF(subbands=subbands, **config.get("pqmf_params", {})) if subbands > 1 else None
 
 
 def build_criterion(config: dict) -> Criterion:
@@ -59,10 +65,8 @@ def build_criterion(config: dict) -> Criterion:
     config.setdefault("use_mel_loss", False)
     config.setdefault("use_feat_match_loss", False)
     config.setdefault("use_duration_loss", False)
-    if config["use_duration_loss"]:
-        raise _not_ported("the duration loss")
     subbands = config["generator_params"].get("out_channels", 1)
-    stft = sub_stft = pqmf = None
+    stft = sub_stft = None
     if config["use_stft_loss"]:
         params = dict(config.get("stft_loss_params", {}))
         params.pop("window", None)
@@ -74,8 +78,7 @@ def build_criterion(config: dict) -> Criterion:
         params = dict(config.get("subband_stft_loss_params", {}))
         params.pop("window", None)
         sub_stft = MultiResolutionSTFTLoss(**params)
-    if subbands > 1:
-        pqmf = PQMF(subbands=subbands, **config.get("pqmf_params", {}))
+    pqmf = build_pqmf(config)
     mel = None
     if config["use_mel_loss"]:
         mel = MelSpectrogramLoss(**(config.get("mel_loss_params") or {

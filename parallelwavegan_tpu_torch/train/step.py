@@ -35,8 +35,21 @@ phase's own parameters, so the G phase leaves D's untouched; a parameter
 the loss does not reach gets a zero gradient, as in JAX. Batches are dicts
 of float32 tensors in the (B, C, T) layout (``batch_to_device``).
 
+The discrete-symbol generators (JAX step.py:59-74) take the collated ids
+``c``; ``DiscreteSymbolStyleMelGANGenerator`` draws its noise as
+StyleMelGAN does. ``DiscreteSymbolDurationGenerator`` runs teacher-forced
+to ``out_length = T // prod(upsample_scales)`` frames on the batch's
+durations ``ds`` and also returns log-domain durations; its duration
+loss, mean((ds_ - log(ds + 1))^2) over every position, padded ones
+included (the + 1 is JAX's, which does not read
+``duration_loss_params.offset``), is added to the auxiliary losses before
+``lambda_aux`` in the G phase and in eval (:261-268, :396-400). The
+predictor's dropout follows the module's mode, on in training and off in
+eval, its masks drawn as StyleMelGAN's noise is (below).
+
 StyleMelGAN draws what JAX draws from its step key: the noise z of the G
-phase and of the D phase's re-run (on the device), and the random-window
+phase and of the D phase's re-run (on the device; the duration
+predictor's dropout masks likewise), and the random-window
 discriminator's starts of the G phase's adversarial call and of the D
 phase's real and fake calls (on the CPU). Each draw comes from a generator
 seeded by (seed, step, stream) alone (``seeded``), so a resumed run draws
@@ -58,6 +71,8 @@ does.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -94,20 +109,28 @@ def generator_forward(config: dict, generator, batch: dict,
                       draws: tuple = (), params: dict | None = None) -> torch.Tensor:
     """The generator's output (B, out, T) for a batch (train.py:1109-1117
     feature flags: Parallel WaveGAN takes noise and the mel, MelGAN and
-    HiFi-GAN the mel alone, as JAX's step.py:83-84; StyleMelGAN the mel
-    and ``batch["z"]`` where the batch has it, else z drawn on the batch's
-    device from a generator seeded by ``draws``, e.g. (seed, step,
-    stream)). ``params`` (``precision.bf16_params``) stand in for the
-    generator's own."""
+    HiFi-GAN the mel alone, as JAX's step.py:83-84, the discrete HiFi-GAN
+    the ids; StyleMelGAN, discrete or not, the mel or ids and ``batch["z"]``
+    where the batch has it, else z drawn on the batch's device from a
+    generator seeded by ``draws``, e.g. (seed, step, stream); the duration
+    generator (wave, log-durations), see the module docstring).
+    ``params`` (``precision.bf16_params``) stand in for the generator's
+    own."""
     gen_type = config["generator_type"]
     if gen_type == "ParallelWaveGANGenerator":
         return precision.call(generator, params, batch["z"], batch["c"])
-    if gen_type in ("MelGANGenerator", "HiFiGANGenerator"):
+    if gen_type in ("MelGANGenerator", "HiFiGANGenerator",
+                    "DiscreteSymbolHiFiGANGenerator"):
         return precision.call(generator, params, batch["c"])
-    if gen_type == "StyleMelGANGenerator":
+    if gen_type in ("StyleMelGANGenerator", "DiscreteSymbolStyleMelGANGenerator"):
         z = batch.get("z")
         noise = None if z is not None else seeded(batch["c"].device, *draws)
         return precision.call(generator, params, batch["c"], z, generator=noise)
+    if gen_type == "DiscreteSymbolDurationGenerator":
+        factor = math.prod(config["generator_params"].get("upsample_scales", (8, 8, 2, 2)))
+        return precision.call(generator, params, batch["c"], batch["ds"],
+                              batch["y"].shape[-1] // factor,
+                              generator=seeded(batch["c"].device, *draws))
     raise NotImplementedError(
         f"training {gen_type} is not ported to parallelwavegan_tpu_torch yet; "
         "see ROADMAP.md")
@@ -125,6 +148,19 @@ def discriminator_forward(config: dict, discriminator, y, batch: dict, key: str,
             return precision.call(discriminator, params, y, starts.tolist())
         return precision.call(discriminator, params, y, generator=seeded("cpu", *draws))
     return precision.call(discriminator, params, y)
+
+
+def split_durations(out) -> tuple:
+    """A generator's output as (wave, log-durations): the duration generator
+    gives both, any other its wave and None."""
+    return out if isinstance(out, tuple) else (out, None)
+
+
+def duration_loss(ds_, ds, metrics: dict) -> torch.Tensor:
+    """mean((ds_ - log(ds + 1))^2) over every position (JAX step.py:261-268)."""
+    loss = torch.mean((ds_ - torch.log(ds.float() + 1.0)) ** 2)
+    metrics["duration_loss"] = loss
+    return loss
 
 
 def full_band(criterion: Criterion, y_) -> torch.Tensor:
@@ -231,9 +267,10 @@ class TrainStep:
             return precision.to_f32(out) if mixed else out
 
         if train_g:
-            gen_loss, y_ = aux_losses(crit, gen(NOISE_G, self._cast(self.generator)), y,
-                                      metrics)
-            gen_loss = gen_loss * crit.lambda_aux
+            y_, ds_ = split_durations(gen(NOISE_G, self._cast(self.generator)))
+            gen_loss = 0.0 if ds_ is None else duration_loss(ds_, batch["ds"], metrics)
+            aux_loss, y_ = aux_losses(crit, y_, y, metrics)
+            gen_loss = (gen_loss + aux_loss) * crit.lambda_aux
             if train_d:
                 p_d = self._cast(self.discriminator, grad=False)
 
@@ -250,7 +287,8 @@ class TrainStep:
         if train_d:
             if self.update_prediction or not train_g:
                 with torch.no_grad():
-                    y_ = full_band(crit, gen(NOISE_D, self._cast(self.generator)))
+                    y_ = full_band(crit, split_durations(
+                        gen(NOISE_D, self._cast(self.generator)))[0])
             p_d = self._cast(self.discriminator)
             p = dis(y, "real", STARTS_REAL, p_d)
             p_ = dis(y_, "fake", STARTS_FAKE, p_d)
@@ -273,10 +311,11 @@ def eval_step(config: dict, generator, discriminator, criterion: Criterion,
     as JAX's one key gives both."""
     metrics = {}
     y = batch["y"]
-    gen_loss, y_ = aux_losses(
-        criterion, generator_forward(config, generator, batch, (*draws, NOISE_EVAL)), y,
-        metrics)
-    gen_loss = gen_loss * criterion.lambda_aux
+    y_, ds_ = split_durations(
+        generator_forward(config, generator, batch, (*draws, NOISE_EVAL)))
+    gen_loss = 0.0 if ds_ is None else duration_loss(ds_, batch["ds"], metrics)
+    aux_loss, y_ = aux_losses(criterion, y_, y, metrics)
+    gen_loss = (gen_loss + aux_loss) * criterion.lambda_aux
     p_, p = (discriminator_forward(config, discriminator, v, batch, "eval",
                                    (*draws, STARTS_EVAL)) for v in (y_, y))
     adv_loss = adv_losses(criterion, p_, lambda: p, metrics)

@@ -39,6 +39,7 @@ from parallelwavegan_tpu_torch.train.step import (
     eval_step,
     full_band,
     generator_forward,
+    split_durations,
 )
 from parallelwavegan_tpu_torch.utils.checkpoint import (
     load_training_checkpoint,
@@ -205,8 +206,8 @@ class Trainer:
         os.makedirs(dirname, exist_ok=True)
         small = batch_to_device({k: v[:n] for k, v in batch.items()}, self.device)
         draws = (self.config.get("seed", 0), self.steps, NOISE_EVAL)
-        y_ = full_band(self.criterion, generator_forward(
-            self.config, self.generator, small, draws)).cpu().numpy()
+        y_ = full_band(self.criterion, split_durations(generator_forward(
+            self.config, self.generator, small, draws))[0]).cpu().numpy()
         y = small["y"].cpu().numpy()
         fs = self.config["sampling_rate"]
         try:

@@ -22,9 +22,20 @@ a list of mels of HiFi-GAN, Parallel WaveGAN or (Multi-band) MelGAN as
 one (B, T, C) forward: each mel edge-padded to the 32-frame bucket of the
 longest, each output trimmed to its own length (Parallel WaveGAN takes
 noise of the padded length); StyleMelGAN, whose instance norms run over
-the whole padded length, is refused, as in JAX. ``load_model`` runs on
-the GPU unless the caller asks for the CPU. Streaming and sharded decode
-are not ported yet (ROADMAP.md).
+the whole padded length, is refused, as in JAX. The discrete-symbol
+generators decode unit ids (T, 1|2) as JAX's ``_inference_discrete``
+does (:502-590), padding included, since edge padding changes the last
+samples: the discrete HiFi-GAN's ids edge-padded to the 32-frame bucket
+(at least one bucket) and the output trimmed; the duration generator's
+ids embedded and their durations predicted (or ``ds`` given, bypassing
+the predictor), the embeddings expanded on the host
+(``repeat_by_durations_np``), edge-padded to the bucket, through
+``decode_expanded`` and trimmed; the discrete StyleMelGAN's ids
+edge-padded to ``noise_len * noise_upsample_factor``, noise_len = (T - 1)
+// factor + 1 with no rounding to a multiple of 4 (the mel StyleMelGAN's
+differs). ``inference_batch`` refuses them, as JAX's ``_STREAMABLE``
+does. ``load_model`` runs on the GPU unless the caller asks for the CPU.
+Streaming and sharded decode are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from parallelwavegan_tpu_torch.layers.duration import repeat_by_durations_np
 from parallelwavegan_tpu_torch.ops.pqmf import PQMF
 from parallelwavegan_tpu_torch.utils.checkpoint import load_generator_state_dict
 from parallelwavegan_tpu_torch.utils.config import load_config
@@ -103,20 +115,29 @@ class InferenceModel:
         x = F.pad(x, (win, win), mode="replicate")
         return self.generator(z.reshape(z.shape[0], 1, -1), x).transpose(1, 2)
 
-    def _noise_rng(self, rng: torch.Generator | None) -> torch.Generator:
+    def _noise(self, shape: tuple, rng: torch.Generator | None) -> torch.Tensor:
+        """N(0, 1) noise on the model's device from ``rng``, or from a
+        generator seeded by ``np.random.randint(2**31)`` as the JAX package
+        seeds its key."""
         if rng is None:
             rng = torch.Generator(device=self.device)
             rng.manual_seed(int(np.random.randint(2**31)))
-        return rng
+        return torch.randn(shape, generator=rng, device=self.device)
+
+    DISCRETE = ("DiscreteSymbolHiFiGANGenerator", "DiscreteSymbolDurationGenerator",
+                "DiscreteSymbolStyleMelGANGenerator")
 
     @torch.inference_mode()
     def inference(self, c, normalize_before: bool = False,
-                  rng: torch.Generator | None = None) -> np.ndarray:
-        """mel (T', num_mels) -> waveform (T' * upsample_factor, out).
+                  rng: torch.Generator | None = None, ds=None) -> np.ndarray:
+        """mel (T', num_mels) -> waveform (T' * upsample_factor, out), or
+        for a discrete-symbol generator unit ids (T', 1|2) -> waveform,
+        ``ds`` (T',) the duration generator's given durations.
 
         A generator that takes noise gets it from ``rng``, a generator on
-        the model's device, or else from one seeded by
-        ``np.random.randint(2**31)`` as the JAX package seeds its key."""
+        the model's device (``_noise``)."""
+        if type(self.generator).__name__ in self.DISCRETE:
+            return self._inference_discrete(np.asarray(c), rng, ds)
         c = np.asarray(c, dtype=np.float32)
         if normalize_before:
             if self.mean is None:
@@ -137,9 +158,46 @@ class InferenceModel:
         if style or getattr(self.generator, "requires_noise_input", False):
             shape = ((noise_len, self.generator.in_channels) if style
                      else (pad_t * up,))
-            z = torch.randn(shape, generator=self._noise_rng(rng), device=self.device)
+            z = self._noise(shape, rng)
         y = self.forward_padded(c_p, z)
         return y.cpu().numpy()[: t * up]
+
+    def _bucket(self, t: int) -> int:
+        return max(self.BUCKET, -(-t // self.BUCKET) * self.BUCKET)
+
+    def _ids(self, c: np.ndarray) -> torch.Tensor:
+        """Ids (T, C) -> (1, C, T) on the device, cast there by the model."""
+        return torch.from_numpy(np.ascontiguousarray(c.T[None])).to(self.device)
+
+    def _inference_discrete(self, c: np.ndarray, rng, ds) -> np.ndarray:
+        """Unit ids (T, 1|2) -> waveform (JAX ``_inference_discrete``)."""
+        if c.ndim == 1:
+            c = c[:, None]
+        gen, t = self.generator, c.shape[0]
+        name = type(gen).__name__
+        if name == "DiscreteSymbolDurationGenerator":
+            ids = self._ids(c.astype(np.int64))
+            if ds is None:
+                ds = gen.predict_durations(ids)[0].cpu().numpy()
+            emb = gen.embed_tokens(ids)[0].T.cpu().numpy()  # (T, C)
+            expanded = repeat_by_durations_np(emb, np.asarray(ds).reshape(-1))
+            frames = expanded.shape[0]
+            pad_t = self._bucket(frames)
+            expanded = np.pad(expanded, ((0, pad_t - frames), (0, 0)), mode="edge")
+            y = gen.decode_expanded(torch.from_numpy(expanded.T[None].copy()).to(self.device))
+            return y[0].T.cpu().numpy()[: frames * (y.shape[-1] // pad_t)]
+        if name == "DiscreteSymbolStyleMelGANGenerator":
+            nuf = gen.noise_upsample_factor
+            noise_len = (t - 1) // nuf + 1
+            pad_t = noise_len * nuf
+            c_p = np.pad(c, ((0, pad_t - t), (0, 0)), mode="edge")
+            z = self._noise((1, gen.in_channels, noise_len), rng)
+            y = gen(self._ids(c_p), z)
+            return y[0].T.cpu().numpy()[: t * gen.upsample_factor]
+        pad_t = self._bucket(t)
+        c_p = np.pad(c, ((0, pad_t - t), (0, 0)), mode="edge").astype(np.float32)
+        y = gen(self._ids(c_p))
+        return y[0].T.cpu().numpy()[: t * (y.shape[-1] // pad_t)]
 
     # the generators whose output at a frame does not depend on the padded
     # length (JAX ``_STREAMABLE``)
@@ -168,8 +226,7 @@ class InferenceModel:
         up = self.upsample_factor
         z = None
         if getattr(self.generator, "requires_noise_input", False):
-            z = torch.randn((len(mels), pad_t * up), generator=self._noise_rng(rng),
-                            device=self.device)
+            z = self._noise((len(mels), pad_t * up), rng)
         y = self.forward_padded_batch(torch.from_numpy(batch).to(self.device), z)
         y = y.cpu().numpy()
         return [y[i, : n * up] for i, n in enumerate(lens)]

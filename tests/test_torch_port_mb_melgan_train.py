@@ -69,6 +69,7 @@ from parallelwavegan_tpu_torch.train.step import (  # noqa: E402
     aux_losses,
     batch_to_device,
 )
+from parallelwavegan_tpu_torch.utils.config import load_config  # noqa: E402
 from parallelwavegan_tpu_torch.utils.model import load_model  # noqa: E402
 
 MELGAN, MSD, PWG = "MelGANGenerator", "MelGANMultiScaleDiscriminator", "ParallelWaveGANGenerator"
@@ -492,7 +493,11 @@ def test_train_main_runs_4_steps_resume_reproduces_them_and_both_packages_decode
     from step 3, the eval dumps synthesised to the full band, AMSGrad's
     ``nu_max`` in the checkpoint; a resume from step 2 logs steps 3-4 as
     the uninterrupted run did, bit for bit; the step-4 checkpoint decodes
-    in both packages alike (PQMF synthesis after the generator)."""
+    in both packages alike (PQMF synthesis after the generator), through
+    the PQMF its criterion trained with: ``config.yml`` carries it as
+    explicit ``pqmf_params`` (cutoff 0.142, where a config of version 0.1.0
+    without them decodes through the legacy cutoff 0.15), and the port's
+    decode filters equal the criterion's."""
     from scipy.io import wavfile
 
     _write_dump(str(tmp_path / "train"), 5, 0)
@@ -531,10 +536,21 @@ def test_train_main_runs_4_steps_resume_reproduces_them_and_both_packages_decode
     for s in (3, 4):
         assert again[s] == logged[s], s
 
+    trained = build_criterion(json.loads(json.dumps(CONFIG))).pqmf
+    written = load_config(str(tmp_path / "exp" / "config.yml"))
+    assert "pqmf_params" not in CONFIG and written["version"] == "0.1.0"
+    assert written["pqmf_params"] == {"taps": 62, "cutoff_ratio": 0.142, "beta": 9.0} == {
+        "taps": trained.taps, "cutoff_ratio": trained.cutoff_ratio, "beta": trained.beta}
     ckpt = str(tmp_path / "exp" / "checkpoint-4steps.pkl")
     jax_model = jax_load_model(ckpt)  # reads config.yml beside the checkpoint
     port = load_model(ckpt, device="cpu")
     assert port.pqmf is not None and port.upsample_factor == HOP
+    for a, b in zip(port.pqmf._filters["cpu"], trained._filters["cpu"]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    legacy = load_model(ckpt, dict(written, pqmf_params={}), device="cpu").pqmf
+    assert not torch.equal(legacy._filters["cpu"][0], trained._filters["cpu"][0])
+    np.testing.assert_array_equal(np.asarray(jax_model.pqmf._analysis_kernel)[:, 0, :].T,
+                                  trained._filters["cpu"][0][:, 0, :].numpy())
     mel = np.random.RandomState(7).randn(33, 10).astype(np.float32)
     got = port.inference(mel)
     want = np.asarray(jax_model.inference(mel))

@@ -488,7 +488,7 @@ def test_train_main_needs_a_card_unless_cpu_is_asked_for(train_args):
 @pytest.mark.parametrize("override,argv,what", [
     ({"distributed": True}, [], "distributed"),
     ({"generator_optimizer_type": "AdamW"}, [], "optimizer AdamW"),
-    ({"use_duration_loss": True}, [], "duration loss"),
+    ({"generator_type": "VQVAE"}, [], "VQVAE"),
     ({"generator_type": "UHiFiGANGenerator"}, [], "UHiFiGANGenerator"),
     ({"use_local_condition": True}, [], "local conditioning"),
 ])
