@@ -366,6 +366,28 @@ Phases (any failure exits non-zero; nothing is caught):
    within 1e-4 relative, then the split of its train step by part; the
    duration HiFi-GAN trains 4 steps at 16 x 10240 (no kernel, its own
    start steps), each step's duration loss printed.
+36. The VQ-VAE and the U-Net HiFi-GAN at the widths of their shipped
+   configs (embedded copies of conditioned_melgan_vae.v3.yaml, opencpop's
+   uhifigan.v1.yaml and yesno's uhifigan.v1.debug.yaml, held equal to the
+   files by tests), npy dumps made from SEED: the VQ-VAE trains 4 steps at
+   16 x 8192 (D from step 3) through ``bin/train.main`` with
+   ``decoder_conf.use_pallas_stacks_train`` (its decoder's stages of 128,
+   64 and 32 channels through K6/K7: K6 112 launches, K7 40) and without,
+   the logged losses within 1e-4 relative; K7 at the decoder's three
+   training stages (B=16) against its plain version as phase 17 checks
+   it; the trained checkpoint decodes 3 utterances of 96000, 48100 and
+   12345 samples with speakers through ``bin/decode.main`` with
+   ``decoder_conf.use_pallas_stacks`` (K6 10 launches an utterance) and
+   without, the waveforms before the 16-bit rounding within 2e-4 and 1e-4
+   max|plain| and the two symbol files ``text`` identical; K6 alone at the
+   first utterance's stages ((1, 24064, 128), (1, 48128, 64), (1, 96256,
+   32) with the final conv) against its plain version, with CUDA-event
+   times beside its split-TF32 bound. The U-Net HiFi-GAN trains 4 G+D
+   steps at 16 x 8400 (no kernel) on a dump whose f0 and excitation the
+   port's ``ops/f0.py`` made, step 1 at B=2 (dropout 0) holds every loss
+   to the CPU's to 1e-5 relative, the checkpoint decodes 3 utterances with
+   ``--use-f0-and-excitation`` (its default), and the yesno debug recipe
+   trains 2 steps as it ships (AdamW, ExponentialLR).
 
 Phase 3 also decodes HiFi-GAN v1 with ``use_pallas_mrf: true`` in the
 config (K2 called twice per utterance, stages 2 and 3, 8 launches, every
@@ -5794,6 +5816,550 @@ def phase_hubert(card: str) -> dict:
     return out
 
 
+# phase 36: the VQ-VAE and the U-Net HiFi-GAN. The whole of
+# egs/vctk/vq1/conf/conditioned_melgan_vae.v3.yaml (a test holds it equal to
+# the file): 24 kHz waves, 128 speakers, a MelGAN-D encoder down 4 4 2 2 to
+# a 512 x 256 codebook, a MelGAN decoder of 512 channels from 256 + 128
+VQ_VCTK_CONFIG = dict(
+    sampling_rate=24000, global_gain_scale=1.0, trim_silence=True,
+    trim_threshold_in_db=20, trim_frame_size=1024, trim_hop_size=256,
+    use_global_condition=True, format="hdf5", generator_type="VQVAE",
+    generator_params=dict(
+        in_channels=1, out_channels=1, num_embeds=512, embed_dim=256,
+        num_global_embeds=128, global_embed_dim=128,
+        encoder_type="MelGANDiscriminator", decoder_type="MelGANGenerator",
+        encoder_conf=dict(out_channels=256, downsample_scales=[4, 4, 2, 2],
+                          max_downsample_channels=1024),
+        decoder_conf=dict(in_channels=384, upsample_scales=[4, 4, 2, 2], channels=512,
+                          stacks=3)),
+    discriminator_type="MelGANMultiScaleDiscriminator",
+    discriminator_params=dict(
+        in_channels=1, out_channels=1, scales=3, downsample_pooling="AvgPool1d",
+        downsample_pooling_params=dict(kernel_size=4, stride=2, padding=1,
+                                       count_include_pad=False),
+        kernel_sizes=[5, 3], channels=16, max_downsample_channels=1024,
+        downsample_scales=[4, 4, 4, 4], nonlinear_activation="LeakyReLU",
+        nonlinear_activation_params={"negative_slope": 0.2}, use_weight_norm=True),
+    stft_loss_params=dict(fft_sizes=[1024, 2048, 512], hop_sizes=[120, 240, 50],
+                          win_lengths=[600, 1200, 240], window="hann_window"),
+    use_feat_match_loss=True, lambda_commit=0.25, lambda_feat_match=25.0,
+    lambda_adv=4.0, lambda_aux_after_introduce_adv_loss=1.0, batch_size=16,
+    batch_max_steps=8192, pin_memory=True, num_workers=2, remove_short_samples=False,
+    allow_cache=True,
+    generator_optimizer_params=dict(lr=1.0e-4, eps=1.0e-6, weight_decay=0.0),
+    generator_scheduler_params=dict(step_size=5000000, gamma=0.5),
+    generator_grad_norm=10,
+    discriminator_optimizer_params=dict(lr=5.0e-5, eps=1.0e-6, weight_decay=0.0),
+    discriminator_scheduler_params=dict(step_size=5000000, gamma=0.5),
+    discriminator_grad_norm=1, discriminator_train_start_steps=100000,
+    train_max_steps=5000000, save_interval_steps=5000, eval_interval_steps=1000,
+    log_interval_steps=100, num_save_intermediate_results=4,
+)
+# the whole of egs/opencpop/voc1/conf/uhifigan.v1.yaml (a test holds it
+# equal to the file): 24 kHz, hop 300, 32 channels doubling to 512, down 5
+# 5 4 3 and up 3 4 5 5, HiFi-GAN v1's discriminators
+UHIFIGAN_OPENCPOP_CONFIG = dict(
+    sampling_rate=24000, fft_size=2048, hop_size=300, win_length=1200, window="hann",
+    num_mels=80, fmin=80, fmax=7600, global_gain_scale=1.0, trim_silence=False,
+    trim_threshold_in_db=20, trim_frame_size=1024, trim_hop_size=256, format="hdf5",
+    generator_type="UHiFiGANGenerator",
+    generator_params=dict(
+        in_channels=80, out_channels=1, channels=32, kernel_size=7,
+        downsample_scales=[5, 5, 4, 3], downsample_kernel_sizes=[10, 10, 8, 6],
+        upsample_scales=[3, 4, 5, 5], upsample_kernel_sizes=[6, 8, 10, 10],
+        resblock_kernel_sizes=[3, 7, 11],
+        resblock_dilations=[[1, 3, 5], [1, 3, 5], [1, 3, 5]], dropout=0.1,
+        use_additional_convs=True, bias=True, nonlinear_activation="LeakyReLU",
+        nonlinear_activation_params={"negative_slope": 0.1}, use_weight_norm=True),
+    discriminator_type="HiFiGANMultiScaleMultiPeriodDiscriminator",
+    discriminator_params=dict(
+        scales=3, scale_downsample_pooling="AvgPool1d",
+        scale_downsample_pooling_params=dict(kernel_size=4, stride=2, padding=2),
+        scale_discriminator_params=dict(
+            in_channels=1, out_channels=1, kernel_sizes=[15, 41, 5, 3], channels=128,
+            max_downsample_channels=1024, max_groups=16, bias=True,
+            downsample_scales=[4, 4, 4, 4, 1], nonlinear_activation="LeakyReLU",
+            nonlinear_activation_params={"negative_slope": 0.1}),
+        follow_official_norm=True, periods=[2, 3, 5, 7, 11],
+        period_discriminator_params=dict(
+            in_channels=1, out_channels=1, kernel_sizes=[5, 3], channels=32,
+            downsample_scales=[3, 3, 3, 3, 1], max_downsample_channels=1024, bias=True,
+            nonlinear_activation="LeakyReLU",
+            nonlinear_activation_params={"negative_slope": 0.1}, use_weight_norm=True,
+            use_spectral_norm=False)),
+    use_stft_loss=True,
+    stft_loss_params=dict(fft_sizes=[1024, 2048, 512], hop_sizes=[120, 240, 50],
+                          win_lengths=[600, 1200, 240], window="hann_window"),
+    use_mel_loss=True,
+    mel_loss_params=dict(fs=24000, fft_size=2048, hop_size=300, win_length=1200,
+                         window="hann", num_mels=80, fmin=0, fmax=12000, log_base=None),
+    generator_adv_loss_params={"average_by_discriminators": False},
+    discriminator_adv_loss_params={"average_by_discriminators": False},
+    use_feat_match_loss=True,
+    feat_match_loss_params=dict(average_by_discriminators=False, average_by_layers=False,
+                                include_final_outputs=False),
+    lambda_aux=45.0, lambda_adv=1.0, lambda_feat_match=2.0, batch_size=16,
+    batch_max_steps=8400, pin_memory=True, num_workers=2, remove_short_samples=False,
+    allow_cache=False, generator_optimizer_type="Adam",
+    generator_optimizer_params=dict(lr=0.0002, betas=[0.5, 0.9], weight_decay=0.0),
+    generator_scheduler_type="MultiStepLR",
+    generator_scheduler_params=dict(gamma=0.5, milestones=[200000, 400000, 600000, 800000]),
+    generator_grad_norm=-1, discriminator_optimizer_type="Adam",
+    discriminator_optimizer_params=dict(lr=0.0002, betas=[0.5, 0.9], weight_decay=0.0),
+    discriminator_scheduler_type="MultiStepLR",
+    discriminator_scheduler_params=dict(gamma=0.5,
+                                        milestones=[200000, 400000, 600000, 800000]),
+    discriminator_grad_norm=-1, generator_train_start_steps=1,
+    discriminator_train_start_steps=0, train_max_steps=2500000,
+    save_interval_steps=10000, eval_interval_steps=1000, log_interval_steps=100,
+    num_save_intermediate_results=4, f0min=80.0, f0max=750.0,
+)
+# the whole of egs/yesno/voc1/conf/uhifigan.v1.debug.yaml (a test holds it
+# equal to the file): AdamW and ExponentialLR, G from step 6
+UHIFIGAN_YESNO_DEBUG_CONFIG = dict(
+    sampling_rate=8000, fft_size=1024, hop_size=256, win_length=None, window="hann",
+    num_mels=80, fmin=80, fmax=3800, global_gain_scale=1.0, trim_silence=True,
+    trim_threshold_in_db=20, trim_frame_size=1024, trim_hop_size=256, format="hdf5",
+    generator_type="UHiFiGANGenerator",
+    generator_params=dict(
+        UHIFIGAN_OPENCPOP_CONFIG["generator_params"], downsample_scales=[2, 2, 8, 8],
+        downsample_kernel_sizes=[4, 4, 16, 16], upsample_scales=[8, 8, 2, 2],
+        upsample_kernel_sizes=[16, 16, 4, 4]),
+    discriminator_type="HiFiGANMultiScaleMultiPeriodDiscriminator",
+    discriminator_params=dict(
+        scales=2, scale_downsample_pooling="AvgPool1d",
+        scale_downsample_pooling_params=dict(kernel_size=4, stride=2, padding=2),
+        scale_discriminator_params=dict(
+            UHIFIGAN_OPENCPOP_CONFIG["discriminator_params"]["scale_discriminator_params"],
+            channels=16, max_downsample_channels=32, downsample_scales=[4, 4, 4, 4]),
+        follow_official_norm=True, periods=[2, 3],
+        period_discriminator_params=dict(
+            UHIFIGAN_OPENCPOP_CONFIG["discriminator_params"]["period_discriminator_params"],
+            downsample_scales=[4, 4, 4, 4], max_downsample_channels=32)),
+    use_stft_loss=False, use_mel_loss=True,
+    generator_adv_loss_params={"average_by_discriminators": False},
+    discriminator_adv_loss_params={"average_by_discriminators": False},
+    use_feat_match_loss=True,
+    feat_match_loss_params=dict(average_by_discriminators=False, average_by_layers=False,
+                                include_final_outputs=True),
+    lambda_aux=45.0, lambda_adv=1.0, lambda_feat_match=2.0, batch_size=2,
+    batch_max_steps=4096, pin_memory=True, num_workers=2, remove_short_samples=False,
+    allow_cache=True, generator_optimizer_type="AdamW",
+    generator_optimizer_params=dict(lr=0.0002, betas=[0.8, 0.99], weight_decay=0.0),
+    generator_scheduler_type="ExponentialLR", generator_scheduler_params={"gamma": 0.999},
+    generator_grad_norm=-1, discriminator_optimizer_type="AdamW",
+    discriminator_optimizer_params=dict(lr=0.0002, betas=[0.8, 0.99], weight_decay=0.0),
+    discriminator_scheduler_type="ExponentialLR",
+    discriminator_scheduler_params={"gamma": 0.999}, discriminator_grad_norm=-1,
+    generator_train_start_steps=5, discriminator_train_start_steps=0, train_max_steps=10,
+    save_interval_steps=5, eval_interval_steps=5, log_interval_steps=5,
+    num_save_intermediate_results=4,
+)
+# phase 36's VQ-VAE decodes: 3 utterances of these many samples (4, 2 and
+# 0.5 s at 24 kHz, none a multiple of the 1024-sample bucket), each with a
+# speaker; its training: 16 utterances (a batch of 16 needs 16) of
+# 9000-16000 samples, 4 steps with D from step 3 (the config's own start
+# is 100000)
+VQ_UTTS = (96000, 48100, 12345)
+VQ_TRAIN_UTTS = 16
+VQ_TRAIN_SPAN = (9000, 16000)
+# the U-Net HiFi-GAN's: 16 utterances of 40-70 frames, 4 G+D steps (the
+# start steps -1: G and D from the first), 3 decoded utterances of these
+# many frames
+UHIFIGAN_TRAIN_UTTS = 16
+UHIFIGAN_TRAIN_OVERRIDES = dict(TRAIN_OVERRIDES, generator_train_start_steps=-1,
+                                discriminator_train_start_steps=-1)
+UHIFIGAN_UTTS = (320, 150, 41)
+
+
+def _vq_dump(root: str, lengths, speakers: int, seed: int) -> str:
+    """An npy dump of random 24 kHz waves (``*-wave.npy``: harmonics of a
+    random f0 plus noise) and their speaker ids (``*-global.npy``)."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    os.makedirs(root)
+    for i, n in enumerate(lengths):
+        t = np.arange(n) / 24000.0
+        audio = (0.3 * np.sin(2 * np.pi * rs.uniform(90, 250) * t)
+                 + 0.05 * rs.randn(n)).astype(np.float32)
+        np.save(os.path.join(root, f"utt{i}-wave.npy"), audio)
+        np.save(os.path.join(root, f"utt{i}-global.npy"), np.array([rs.randint(speakers)]))
+    return root
+
+
+def _vq_config(train_kernel: bool = False, decode_kernel: bool = False,
+               **overrides) -> dict:
+    cfg = json.loads(json.dumps(VQ_VCTK_CONFIG))
+    cfg["format"] = "npy"
+    cfg["generator_params"]["decoder_conf"].update(
+        use_pallas_stacks_train=train_kernel, use_pallas_stacks=decode_kernel)
+    cfg.update(overrides)
+    return cfg
+
+
+def _k7_agrees(label: str, x, stacks, fin, slope: float, seed: int) -> float:
+    """K7 against autograd through K6's plain version on one stage (phase
+    17's check: the input moved off LeakyReLU's kinks, a cotangent of scale
+    1 / sqrt(B T), every gradient within |diff| <= 2e-4 + 1e-3 |plain| and
+    1e-4 max|plain|); returns max|diff|."""
+    import torch
+
+    from parallelwavegan_tpu_torch.ops.kernels.melgan_stack import melgan_stacks_reference
+    from parallelwavegan_tpu_torch.ops.kernels.melgan_stack_train import (
+        STACK_KEYS,
+        fused_melgan_stacks_train,
+    )
+
+    x, moved = _off_the_kinks(x, stacks, fin, "reflect", slope, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    out_ch = x.shape[2] if fin is None else fin[0].shape[2]
+    u = torch.randn(*x.shape[:2], out_ch, generator=g, device="cuda") / (
+        x.shape[0] * x.shape[1]) ** 0.5
+    grads = []
+    for fn in (fused_melgan_stacks_train, melgan_stacks_reference):
+        leaves = [x.clone().requires_grad_()]
+        sts = []
+        for st in stacks:
+            d = {"dilation": st["dilation"]}
+            for k in STACK_KEYS:
+                d[k] = st[k].clone().requires_grad_()
+                leaves.append(d[k])
+            sts.append(d)
+        fv = None if fin is None else tuple(v.clone().requires_grad_() for v in fin)
+        leaves += list(fv or ())
+        y = fn(leaves[0], sts, final=fv, slope=slope, pad_mode="reflect")
+        grads.append(torch.autograd.grad((y * u).sum(), leaves))
+    err = 0.0
+    for i, (a, b) in enumerate(zip(*grads)):
+        if not _grads_agree(a, b):
+            _fail(f"K7 [{label}] gradient {i}: max|diff| {float((a - b).abs().max()):.3e}, "
+                  f"max|plain| {float(b.abs().max()):.3e}")
+        err = max(err, float((a - b).abs().max()))
+    print(f"K7 vs plain [{label}]: {len(grads[1])} gradients within |diff| <= {TOL} + "
+          f"1e-3 |plain| and 1e-4 max|plain|, max|diff| = {err:.3e} ({moved} input rows "
+          "moved off the kinks)")
+    return err
+
+
+def _uhifigan_dump(root: str, frames, config: dict, seed: int) -> str:
+    """An npy dump as the port's preprocess writes it for a U-Net HiFi-GAN:
+    a sine of a random f0 plus noise, its mel (``ops/mel.py``), and the f0
+    and excitation of ``ops/f0.py`` (one excitation row a frame)."""
+    import numpy as np
+
+    from parallelwavegan_tpu_torch.ops.f0 import extract_f0_and_excitation
+    from parallelwavegan_tpu_torch.ops.mel import logmelfilterbank
+
+    rs = np.random.RandomState(seed)
+    hop, fs = config["hop_size"], config["sampling_rate"]
+    os.makedirs(root)
+    for i, n in enumerate(frames):
+        t = n * hop
+        audio = (0.3 * np.sin(2 * np.pi * rs.uniform(100, 300) * np.arange(t) / fs)
+                 + 0.02 * rs.randn(t)).astype(np.float32)
+        mel = logmelfilterbank(audio, fs, fft_size=config["fft_size"], hop_size=hop,
+                               win_length=config["win_length"], num_mels=config["num_mels"],
+                               fmin=config["fmin"], fmax=config["fmax"])[:n]
+        f0, exc = extract_f0_and_excitation(audio, fs, hop, fmin=config.get("f0min", 70.0),
+                                            fmax=config.get("f0max", 340.0))
+        for name, arr in (("wave", audio), ("feats", mel), ("f0", f0[:n]),
+                          ("excitation", exc.reshape(n, hop))):
+            np.save(os.path.join(root, f"utt{i}-{name}.npy"), arr.astype(np.float32))
+    return root
+
+
+def _uhifigan_cross_check(card: str) -> float:
+    """Step 1 (G+D) of the opencpop U-Net HiFi-GAN at full width and B=2
+    (dropout 0) on the card and on the CPU from the same weights and batch,
+    TF32 off on both: every loss to 1e-5 relative."""
+    import torch
+
+    from parallelwavegan_tpu_torch.models import get_model_class
+    from parallelwavegan_tpu_torch.optimizers import build_optimizer_from_config
+    from parallelwavegan_tpu_torch.train.criterion import build_criterion
+    from parallelwavegan_tpu_torch.train.step import TrainStep
+
+    cfg = json.loads(json.dumps(UHIFIGAN_OPENCPOP_CONFIG))
+    cfg["generator_params"]["dropout"] = 0.0
+    g = torch.Generator().manual_seed(SEED + 2)
+    t, hop = cfg["batch_max_steps"], cfg["hop_size"]
+    batch = {"y": 0.3 * torch.randn(2, 1, t, generator=g),
+             "c": torch.randn(2, 80, t // hop, generator=g),
+             "excitation": 0.1 * torch.randn(2, 1, t, generator=g)}
+    got = {}
+    for device in ("cuda", "cpu"):
+        init = torch.Generator().manual_seed(SEED)  # the same weights on both
+        gd = get_model_class(cfg["generator_type"])(
+            **cfg["generator_params"], generator=init).to(device)
+        dd = get_model_class(cfg["discriminator_type"])(
+            **cfg["discriminator_params"], generator=init).to(device)
+        step = TrainStep(cfg, gd, dd, build_criterion(cfg),
+                         build_optimizer_from_config(cfg, "generator", gd.parameters()),
+                         build_optimizer_from_config(cfg, "discriminator", dd.parameters()))
+        t0 = time.perf_counter()
+        got[device] = {k: float(v) for k, v in step(
+            {k: v.to(device) for k, v in batch.items()}, True, True, 0).items()}
+        print(f"U-Net HiFi-GAN G+D TrainStep at B=2 T={t} on {device}: "
+              f"{time.perf_counter() - t0:.1f} s (first call, host clock)")
+        del gd, dd, step
+    if sorted(got["cuda"]) != sorted(got["cpu"]):
+        _fail(f"U-Net HiFi-GAN cross-check: metrics {sorted(got['cuda'])} vs "
+              f"{sorted(got['cpu'])}")
+    rel = {k: abs(got["cuda"][k] - v) / max(abs(v), 1e-30) for k, v in got["cpu"].items()}
+    print(f"U-Net HiFi-GAN step 1 (G+D), card ({card}) vs CPU, relative loss diffs "
+          "(tol 1e-5): " + ", ".join(f"{k} {r:.2e}" for k, r in sorted(rel.items())))
+    bad = {k: (got["cuda"][k], got["cpu"][k]) for k, r in rel.items() if not r <= 1e-5}
+    if bad:
+        _fail(f"U-Net HiFi-GAN cross-check, card vs CPU: {bad}")
+    return max(rel.values())
+
+
+def phase_vq_uhifigan(card: str) -> dict:
+    """The VQ-VAE (conditioned_melgan_vae.v3.yaml) and the U-Net HiFi-GAN
+    (opencpop uhifigan.v1.yaml) at the widths of their shipped configs
+    (module docstring, phase 36)."""
+    import numpy as np
+    import torch
+
+    import parallelwavegan_tpu_torch.models.melgan as melgan_mod
+    from parallelwavegan_tpu_torch.bin import decode, train
+    from parallelwavegan_tpu_torch.ops.kernels.melgan_stack import (
+        fused_melgan_stacks,
+        melgan_stacks_reference,
+    )
+    from parallelwavegan_tpu_torch.ops.kernels.melgan_stack_train import (
+        melgan_stacks_backward,
+    )
+    from parallelwavegan_tpu_torch.utils.model import load_model
+
+    t_phase = time.perf_counter()
+    root = os.path.join(WORK, "vq_uhifigan")
+    shutil.rmtree(root, ignore_errors=True)
+    out = {"k6": {"errs": []}, "k7_errs": []}
+
+    # 1. the VQ-VAE trained through bin/train.main at 16 x 8192, the decoder's
+    # stages of 128, 64 and 32 channels through K6/K7 and plain
+    steps = HUBERT_TRAIN_OVERRIDES["train_max_steps"]
+    g_forwards = steps - HUBERT_TRAIN_OVERRIDES["discriminator_train_start_steps"] - 1 + 2
+    expect = {"kernel": (steps * (10 + 8) + g_forwards * 10, steps * 10), "plain": (0, 0)}
+    dump = _vq_dump(os.path.join(root, "train_dump"), [
+        VQ_TRAIN_SPAN[0] + (VQ_TRAIN_SPAN[1] - VQ_TRAIN_SPAN[0]) * i // (VQ_TRAIN_UTTS - 1)
+        for i in range(VQ_TRAIN_UTTS)], 128, SEED)
+    logged = {}
+    for name in ("kernel", "plain"):
+        config = os.path.join(root, f"train_{name}.json")
+        with open(config, "w") as f:
+            json.dump(_vq_config(train_kernel=name == "kernel", **HUBERT_TRAIN_OVERRIDES), f)
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        res = train.main(["--train-dumpdir", dump, "--dev-dumpdir", dump, "--outdir",
+                          os.path.join(root, f"exp_{name}"), "--device", "cuda",
+                          "--verbose", "0", "--config", config])
+        seconds = time.perf_counter() - t0
+        got = (fused_melgan_stacks.launches, melgan_stacks_backward.launches)
+        print(f"main path [VQ-VAE v3 training, {name}]: {res['steps']} steps in "
+              f"{seconds:.1f} s (set-up, eval and saves included) on {card}; K6 launches "
+              f"= {got[0]} (by width {fused_melgan_stacks.launches_by_width}), K7 "
+              f"launches = {got[1]}")
+        if res["steps"] != steps or got != expect[name]:
+            _fail(f"VQ-VAE training {name}: steps {res['steps']}, launches {got}, "
+                  f"expected {steps} and {expect[name]}")
+        logged[name] = {}
+        for s, m in res["history"]:
+            logged[name].setdefault(s, {}).update(
+                {k: v for k, v in m.items() if k.startswith("train/")})
+        for s in range(1, steps + 1):
+            m = logged[name].get(s, {})
+            print(f"  {name} step {s}: " + ", ".join(f"{k} {v:.6f}" for k, v in sorted(m.items())))
+            if ("train/quantization_loss" not in m
+                    or not all(np.isfinite(v) for v in m.values())):
+                _fail(f"VQ-VAE training {name}: step {s} logged {m}")
+        if "train/discriminator_loss" not in logged[name][steps]:
+            _fail(f"VQ-VAE training {name}: the D phase did not run")
+        if not any("eval/commitment_loss" in m for _, m in res["history"]):
+            _fail(f"VQ-VAE training {name}: no evaluation was logged")
+    err = _losses_agree("VQ-VAE kernel vs plain", logged["kernel"], logged["plain"],
+                        range(1, steps + 1))
+    print(f"VQ-VAE v3 training losses, K6/K7 vs plain: max relative diff = {err:.3e} over "
+          f"steps 1-{steps} (tol 1e-4)")
+    out["k6_launches"], out["k7_launches"] = expect["kernel"]
+    # K7 at the decoder's training stages (B=16: T = 2048, 4096, 8192 at C =
+    # 128, 64, 32, the last with the final conv), random weights of gain one
+    rs = np.random.RandomState(SEED + 3)
+
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy((rs.randn(*shape) * scale).astype(np.float32)).to("cuda")
+
+    b, t = VQ_VCTK_CONFIG["batch_size"], VQ_VCTK_CONFIG["batch_max_steps"]
+    for i, (c, tt) in enumerate(((128, t // 4), (64, t // 2), (32, t)), start=1):
+        stacks = _unit_gain_stacks(rs, c, (1, 3, 9))
+        fin = ((randn(7, c, 1, scale=0.3 * (7 * c) ** -0.5), randn(1, scale=0.1))
+               if i == 3 else None)
+        out["k7_errs"].append(_k7_agrees(
+            f"VQ decoder training stage {i} B={b} T={tt} C={c}" + (" + final" if fin else ""),
+            randn(b, tt, c), stacks, fin, 0.2, SEED + 10 + i))
+
+    # 2. decode of the trained checkpoint through bin/decode.main: 3
+    # utterances with speakers, decoder_conf.use_pallas_stacks (K6) and plain
+    ddump = _vq_dump(os.path.join(root, "decode_dump"), VQ_UTTS, 128, SEED + 1)
+    ckpt = os.path.join(root, "exp_kernel", f"checkpoint-{steps}steps.pkl")
+    calls, real_k6 = [], melgan_mod.fused_melgan_stacks
+
+    def keep(x, *args, **kwargs):  # the first utterance's stage inputs, for the timing
+        if len(calls) < 3:
+            calls.append(x.clone())
+        return real_k6(x, *args, **kwargs)
+
+    wavs, texts, k6 = {}, {}, {}
+    melgan_mod.fused_melgan_stacks = keep
+    try:
+        for name in ("kernel", "plain"):
+            config = os.path.join(root, f"decode_{name}.json")
+            with open(config, "w") as f:
+                json.dump(_vq_config(decode_kernel=name == "kernel"), f)
+            outdir = os.path.join(root, f"wav_{name}")
+            _reset_launch_counts()
+            res, wavs[name] = _decode_floats(["--dumpdir", ddump, "--checkpoint", ckpt,
+                                              "--config", config, "--device", "cuda",
+                                              "--outdir", outdir])
+            k6[name] = fused_melgan_stacks.launches
+            with open(os.path.join(outdir, "text")) as f:
+                texts[name] = f.read()
+            print(f"main path [VQ-VAE v3 decode, {name}]: K6 launches = {k6[name]} for "
+                  f"{len(VQ_UTTS)} utterances of {VQ_UTTS} samples; RTF {_rtfs(res)} on {card}")
+    finally:
+        melgan_mod.fused_melgan_stacks = real_k6
+    if k6 != {"kernel": 10 * len(VQ_UTTS), "plain": 0}:
+        _fail(f"VQ-VAE decode: K6 launches {k6}, expected {10 * len(VQ_UTTS)} and 0")
+    lengths = {f"utt{i}-wave_gen.wav": n for i, n in enumerate(VQ_UTTS)}
+    out["k6"]["errs"].append(_floats_agree("VQ-VAE v3 decode", wavs["kernel"], wavs["plain"],
+                                           lengths))
+    out["k6_launches"] += k6["kernel"]
+    lines = texts["kernel"].splitlines()
+    ids = [len(line.split()) - 1 for line in lines]
+    print(f"VQ-VAE symbol files, K6 vs plain decode: identical = "
+          f"{texts['kernel'] == texts['plain']}; ids per utterance {ids}")
+    if texts["kernel"] != texts["plain"] or ids != [-(-n // 64) for n in VQ_UTTS]:
+        _fail(f"VQ-VAE decode: the symbol files differ or hold {ids} ids")
+
+    # K6 alone at the first utterance's decoder stages (96000 samples padded
+    # to 96256: T = 24064, 48128, 96256 at C = 128, 64, 32), the split kept
+    with open(os.path.join(root, "decode_kernel.json")) as f:
+        model = load_model(ckpt, json.load(f), device="cuda")
+    dec = model.generator.decoder
+    if dec.fused_stages != (1, 2, 3) or [tuple(x.shape) for x in calls] != [
+            (1, 24064, 128), (1, 48128, 64), (1, 96256, 32)]:
+        _fail(f"VQ-VAE decoder: fused stages {dec.fused_stages}, K6 inputs "
+              f"{[tuple(x.shape) for x in calls]}")
+    stages = [(x, dec._kernel_cache[i], dec.stage_weights(i)) for i, x in
+              zip(dec.fused_stages, calls)]
+    kw = dict(slope=dec.slope, pad_mode=dec.pad_mode)
+    rec = {"flops": 0.0, "bytes": 0.0}
+    with torch.inference_mode():
+        for x, kept, plain_w in stages:
+            got = fused_melgan_stacks(x, kept["stacks"], final=kept["final"], **kw)
+            want = melgan_stacks_reference(x, plain_w["stacks"], final=plain_w["final"], **kw)
+            e, r, ok = _within(got, want)
+            print(f"K6 vs plain [VQ decoder stage {tuple(x.shape)}, decode's weights]: "
+                  f"max|diff| = {e:.3e} (tol {TOL}), {r:.2e} of max|plain| (tol 1e-4)")
+            if not ok:
+                _fail(f"K6 at the VQ decoder's stage {tuple(x.shape)} disagrees")
+            out["k6"]["errs"].append(e)
+            work = _stacks_work(x, plain_w["stacks"], plain_w["final"])
+            rec["flops"] += work["flops"]
+            rec["bytes"] += work["bytes"]
+
+        def decode_k6(fn=fused_melgan_stacks, plain=False):
+            for x, kept, plain_w in stages:
+                w = plain_w if plain else kept
+                fn(x, w["stacks"], final=w["final"], **kw)
+
+        ms = _median_ms(decode_k6)
+        plain_ms = _median_ms(lambda: decode_k6(melgan_stacks_reference, plain=True))
+    rec.update(_bound(rec["flops"], rec["bytes"]))
+    fp32_ms = _split_tf32_bound(rec)
+    out["k6"].update(ms=ms, plain_ms=plain_ms, bound_ms=rec["bound_ms"])
+    print(f"time [K6, VQ-VAE v3 decoder stages 1-3 of a {VQ_UTTS[0]}-sample utterance in "
+          f"one window, split kept, median of 10, CUDA events]: kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {rec['bound_ms']:.3f} ms at the split-TF32 rate (3 x "
+          f"{rec['flops'] / 1e9:.1f} GFLOP / 495 TFLOP/s; {rec['bound_ms'] / ms:.1%} of it), "
+          f"{fp32_ms:.3f} ms at the float32 rate, {rec['bytes'] / 1e6:.1f} MB on {card}")
+    del model, dec, stages, calls
+    shutil.rmtree(os.path.join(root, "train_dump"))
+
+    # 3. the U-Net HiFi-GAN at 16 x 8400: 4 G+D steps through bin/train.main
+    # (no kernel: every launch count stays 0), step 1 against the CPU, a
+    # decode with f0 and excitation, and the yesno debug recipe's AdamW +
+    # ExponentialLR for 2 steps
+    cfg = json.loads(json.dumps(UHIFIGAN_OPENCPOP_CONFIG))
+    hop = cfg["hop_size"]
+    udump = _uhifigan_dump(os.path.join(root, "uhifigan_dump"), [
+        40 + 30 * i // (UHIFIGAN_TRAIN_UTTS - 1) for i in range(UHIFIGAN_TRAIN_UTTS)],
+        cfg, SEED)
+    config = os.path.join(root, "uhifigan.json")
+    with open(config, "w") as f:
+        json.dump(dict(cfg, **UHIFIGAN_TRAIN_OVERRIDES), f)
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    res = train.main(["--train-dumpdir", udump, "--dev-dumpdir", udump, "--outdir",
+                      os.path.join(root, "exp_uhifigan"), "--device", "cuda", "--verbose",
+                      "0", "--config", config])
+    print(f"main path [U-Net HiFi-GAN (opencpop v1) training]: {res['steps']} steps in "
+          f"{time.perf_counter() - t0:.1f} s (set-up, eval and saves included) on {card}")
+    logged = {}
+    for s, m in res["history"]:
+        logged.setdefault(s, {}).update({k: v for k, v in m.items() if k.startswith("train/")})
+    need = {"train/mel_loss", "train/spectral_convergence_loss", "train/adversarial_loss",
+            "train/feature_matching_loss", "train/real_loss", "train/discriminator_loss"}
+    for s in range(1, steps + 1):
+        m = logged.get(s, {})
+        print(f"  step {s}: " + ", ".join(f"{k} {v:.6f}" for k, v in sorted(m.items())))
+        if not need <= set(m) or not all(np.isfinite(v) for v in m.values()):
+            _fail(f"U-Net HiFi-GAN training: step {s} logged {sorted(m)}")
+    if res["steps"] != steps or fused_melgan_stacks.launches:
+        _fail(f"U-Net HiFi-GAN training: {res['steps']} steps")
+    out["uhifigan_cross"] = _uhifigan_cross_check(card)
+    sdump = _uhifigan_dump(os.path.join(root, "uhifigan_decode"), UHIFIGAN_UTTS, cfg,
+                           SEED + 1)
+    res, uwavs = _decode_floats(["--dumpdir", sdump, "--device", "cuda", "--outdir",
+                                 os.path.join(root, "wav_uhifigan"), "--checkpoint",
+                                 os.path.join(root, "exp_uhifigan",
+                                              f"checkpoint-{steps}steps.pkl")])
+    for i, n in enumerate(UHIFIGAN_UTTS):
+        y = uwavs.get(f"utt{i}-feats_gen.wav")
+        if y is None or y.shape != (n * hop,) or not np.isfinite(y).all() or not np.abs(
+                y).max() > 0:
+            _fail(f"U-Net HiFi-GAN decode: utt{i} {None if y is None else y.shape}")
+    print(f"main path [U-Net HiFi-GAN decode with f0 and excitation]: {len(uwavs)} "
+          f"utterances of {UHIFIGAN_UTTS} frames; RTF {_rtfs(res)} on {card}")
+    ycfg = dict(json.loads(json.dumps(UHIFIGAN_YESNO_DEBUG_CONFIG)), format="npy",
+                train_max_steps=2, save_interval_steps=2, eval_interval_steps=2,
+                log_interval_steps=1, num_workers=1)
+    ydump = _uhifigan_dump(os.path.join(root, "yesno_dump"), (30, 34), ycfg, SEED + 2)
+    config = os.path.join(root, "yesno.json")
+    with open(config, "w") as f:
+        json.dump(ycfg, f)
+    res = train.main(["--train-dumpdir", ydump, "--dev-dumpdir", ydump, "--outdir",
+                      os.path.join(root, "exp_yesno"), "--device", "cuda", "--verbose", "0",
+                      "--config", config])
+    ylog = {}
+    for s, m in res["history"]:
+        ylog.setdefault(s, {}).update(m)
+    print("main path [U-Net HiFi-GAN yesno debug recipe, AdamW + ExponentialLR, G only then "
+          "D only]: " + "; ".join(f"step {s}: " + ", ".join(
+              f"{k} {v:.6f}" for k, v in sorted(m.items()) if k.startswith("train/"))
+              for s, m in sorted(ylog.items())))
+    if (res["steps"] != 2 or "train/mel_loss" not in ylog.get(1, {})
+            or "train/discriminator_loss" not in ylog.get(2, {})
+            or not all(np.isfinite(v) for m in ylog.values() for v in m.values())):
+        _fail(f"U-Net HiFi-GAN yesno debug training: {res['steps']} steps, logged {ylog}")
+    shutil.rmtree(root)
+    print(f"phase 36 (VQ-VAE and U-Net HiFi-GAN) took {time.perf_counter() - t_phase:.1f} s "
+          f"on {card}")
+    return out
+
+
 def main() -> None:
     pkg = os.path.join(ROOT, "parallelwavegan_tpu_torch")
     if not os.path.isdir(pkg):
@@ -5904,6 +6470,10 @@ def main() -> None:
     kern["errs"] += hubert["k1"]["errs"]  # K1 on the hubert decodes
     k8["k8a"]["errs"].append(hubert["k8_err"])
     k8["k8b"]["errs"].append(hubert["k8_err"])
+    vq = phase_vq_uhifigan(card)
+    torch.cuda.synchronize()
+    k6["errs"] += vq["k6"]["errs"]  # K6 on the VQ-VAE decoder's stages
+    k7["errs"] += vq["k7_errs"]  # K7 at the VQ-VAE decoder's training stages
     shutil.rmtree(WORK, ignore_errors=True)
 
     def entry(name, source, replaces, launches, rec):
@@ -5924,7 +6494,8 @@ def main() -> None:
         entry("fused_gated_resblock", "wavenet.cu", "wavenet.py:280",
               pwg["block_launches"], wn["block"]),
         entry("fused_melgan_stacks", "melgan_stack.cu", "melgan_stack.py:285",
-              mb["launches"] + mb_train["k6_launches"] + recipe["k6_launches"], k6),
+              mb["launches"] + mb_train["k6_launches"] + recipe["k6_launches"]
+              + vq["k6_launches"], k6),
         entry("fused_hifigan_mrf", "hifigan_tail.cu",
               "hifigan_mrf.py:178 and :399", dec["mrf_launches"], k2),
         entry("fused_tade_blocks (K8a)", "tade.cu", "tade_decode.py:366",
@@ -5934,7 +6505,8 @@ def main() -> None:
         entry("wavenet_stack_backward (K4)", "wavenet_bwd.cu",
               "wavenet_stack_train.py:187", pwg_train["k4_launches"], k4),
         entry("melgan_stacks_backward (K7)", "melgan_stack_bwd.cu", "melgan_stack_train.py:247",
-              melgan_train["k7_launches"] + mb_train["k7_launches"], k7),
+              melgan_train["k7_launches"] + mb_train["k7_launches"] + vq["k7_launches"],
+              k7),
         entry("tade_block_backward (K9a)", "tade_bwd.cu", "tade_train.py:438",
               style_train["k9a_launches"] + hubert["k9_launches"], k9["k9a"]),
         entry("tade_block_backward (K9b)", "tade_bwd.cu", "tade_train.py:523",

@@ -24,17 +24,31 @@ there too (``pallas_stack_bf16`` in the config, without
 JAX's ``compute_dtype=bfloat16``), and HiFi-GAN's MRF kernel is reached through
 ``use_pallas_mrf`` in the config, and StyleMelGAN's TADE kernels (K8a,
 K8b) through ``use_pallas_tade``, as in the JAX package, which has no
-flag for either. RTF is measured per utterance (per batch with
+flag for either. ``--use-f0-and-excitation``, on by default for the
+U-Net HiFi-GAN (JAX :44-50, :116-200), reads each utterance's f0 and
+excitation beside its mel from ``--dumpdir`` (an scp carries none) and
+decodes one utterance at a time whatever ``--batch-size`` says (:186).
+A VQ-VAE checkpoint decodes wave to wave (``_decode_vqvae``, JAX
+:253-381): each utterance of ``--dumpdir`` (with its local and global
+conditioning) or of the wav.scp given as ``--feats-scp`` (with
+``--segments``) is edge-padded to a multiple of prod(encoder
+downsample_scales) x in_channels x 16 samples, encoded to codebook
+indices (through PQMF analysis where the encoder reads sub-bands) and
+decoded, its wave trimmed to the input's length; the indices of each
+utterance, ceil(T / (downsample x in_channels)) of them, go to the
+symbol file ``text`` in the output directory. Its decoder reaches K6
+through ``decoder_conf.use_pallas_stacks`` in the config.
+RTF is measured per utterance (per batch with
 ``--batch-size``) with the device synchronised before each clock read.
-Streaming, sharded, VQ-VAE and f0/excitation decode are not ported yet
-and are refused by name (ROADMAP.md). float32 convolutions run without
-TF32, as the JAX package computes in full float32.
+Streaming and sharded decode are not ported yet and are refused by name
+(ROADMAP.md). float32 convolutions run without TF32, as the JAX package
+computes in full float32.
 
     python -m parallelwavegan_tpu_torch.bin.decode \
-        (--dumpdir DUMP | --feats-scp feats.scp) [--batch-size N] \
-        --outdir OUT --checkpoint CKPT.pkl [--config CONFIG] \
+        (--dumpdir DUMP | --feats-scp feats.scp [--segments S]) \
+        [--batch-size N] --outdir OUT --checkpoint CKPT.pkl [--config CONFIG] \
         [--normalize-before] [--use-pallas-tail] [--use-pallas-stack] \
-        [--use-pallas-stacks] [--device cuda]
+        [--use-pallas-stacks] [--use-f0-and-excitation] [--device cuda]
 """
 
 from __future__ import annotations
@@ -47,8 +61,15 @@ import time
 import numpy as np
 import torch
 
-from parallelwavegan_tpu_torch.data.datasets import MelDataset, MelSCPDataset
-from parallelwavegan_tpu_torch.utils.config import load_config
+from parallelwavegan_tpu_torch.data.datasets import (
+    AudioDataset,
+    AudioSCPDataset,
+    MelDataset,
+    MelF0ExcitationDataset,
+    MelSCPDataset,
+)
+from parallelwavegan_tpu_torch.ops.pqmf import PQMF
+from parallelwavegan_tpu_torch.utils.config import load_config, validate_local_condition
 from parallelwavegan_tpu_torch.utils.io import read_hdf5, write_wav
 from parallelwavegan_tpu_torch.utils.model import load_model
 
@@ -90,19 +111,21 @@ def main(argv=None) -> dict:
     )
     parser.add_argument("--batch-size", type=int, default=1,
                         help="decode N utterances per forward, sorted by length")
-    refused = {"streaming": "streaming decode", "sharded": "sharded decode",
-               "use_f0_and_excitation": "f0/excitation decode",
-               "segments": "VQ-VAE wav.scp decode"}
+    parser.add_argument("--segments", default=None, type=str,
+                        help="kaldi-style segments file (VQ-VAE wav.scp decode)")
+    parser.add_argument("--use-f0-and-excitation", default=None, action="store_true",
+                        help="read f0 and excitation beside the mel (on by default "
+                             "for UHiFiGANGenerator)")
+    refused = {"streaming": "streaming decode", "sharded": "sharded decode"}
     for dest, what in refused.items():
-        parser.add_argument(f"--{dest.replace('_', '-')}", default=None,
-                            **({} if dest == "segments" else {"action": "store_true"}),
+        parser.add_argument(f"--{dest}", default=None, action="store_true",
                             help=f"{what}: not ported yet")
     parser.add_argument("--device", default="cuda", type=str)
     parser.add_argument("--verbose", type=int, default=1)
     args = parser.parse_args(argv)
     for dest, what in refused.items():
         if getattr(args, dest) is not None:
-            raise _not_ported(f"{what} (--{dest.replace('_', '-')})")
+            raise _not_ported(f"{what} (--{dest})")
     if (args.feats_scp is not None) == (args.dumpdir is not None):
         raise ValueError("Please specify either --dumpdir or --feats-scp.")
 
@@ -125,20 +148,29 @@ def main(argv=None) -> dict:
 
     generator_type = config.get("generator_type", "ParallelWaveGANGenerator")
     if generator_type == "VQVAE":
-        raise _not_ported("VQ-VAE decode")
-    if generator_type == "UHiFiGANGenerator":
-        raise _not_ported("f0/excitation decode (UHiFiGANGenerator)")
+        validate_local_condition(config)
+        return _decode_vqvae(args, config, device)
+    if args.use_f0_and_excitation is None:
+        args.use_f0_and_excitation = generator_type == "UHiFiGANGenerator"
     fmt = config.get("format", "hdf5")
-    if args.feats_scp is not None:
-        dataset = MelSCPDataset(args.feats_scp, return_utt_id=True)
-    elif fmt == "hdf5":
-        dataset = MelDataset(args.dumpdir, mel_query="*.h5", return_utt_id=True,
-                             mel_load_fn=lambda x: read_hdf5(x, "feats"))
-    elif fmt == "npy":
-        dataset = MelDataset(args.dumpdir, mel_query="*-feats.npy",
-                             mel_load_fn=np.load, return_utt_id=True)
-    else:
+    if fmt not in ("hdf5", "npy"):
         raise ValueError("Support only hdf5 or npy format.")
+    mel_kw = (dict(mel_query="*.h5", mel_load_fn=lambda x: read_hdf5(x, "feats"))
+              if fmt == "hdf5" else dict(mel_query="*-feats.npy", mel_load_fn=np.load))
+    if args.feats_scp is not None:
+        if args.use_f0_and_excitation:
+            raise NotImplementedError(
+                "scp decode does not carry f0/excitation features (UHiFiGAN "
+                "needs --dumpdir)")
+        dataset = MelSCPDataset(args.feats_scp, return_utt_id=True)
+    elif args.use_f0_and_excitation:
+        extra = {} if fmt == "hdf5" else dict(
+            f0_query="*-f0.npy", f0_load_fn=np.load,
+            excitation_query="*-excitation.npy", excitation_load_fn=np.load)
+        dataset = MelF0ExcitationDataset(args.dumpdir, return_utt_id=True, **mel_kw,
+                                         **extra)
+    else:
+        dataset = MelDataset(args.dumpdir, return_utt_id=True, **mel_kw)
     logging.info("The number of features to be decoded = %d.", len(dataset))
 
     for flag, key, gtypes in (
@@ -156,14 +188,17 @@ def main(argv=None) -> dict:
 
     os.makedirs(args.outdir, exist_ok=True)
     fs = config["sampling_rate"]
-    if args.batch_size > 1:
+    if args.batch_size > 1 and not args.use_f0_and_excitation:
         return _decode_batched(args, model, dataset, fs, device)
     rtfs = []
     for i in range(len(dataset)):
-        utt_id, c = dataset[i]
+        item = dataset[i]
+        utt_id, c = item[0], item[1]
+        excitation = item[3] if args.use_f0_and_excitation else None
         _synchronize(device)
         start = time.perf_counter()
-        y = model.inference(c, normalize_before=args.normalize_before)[:, 0]
+        y = model.inference(c, normalize_before=args.normalize_before,
+                            excitation=excitation)[:, 0]
         _synchronize(device)
         rtf = (time.perf_counter() - start) / (len(y) / fs)
         if not np.all(np.isfinite(y)):
@@ -207,6 +242,81 @@ def _decode_batched(args, model, dataset, fs: int, device: torch.device) -> dict
     logging.info("Finished batched generation of %d utterances (RTF = %.06f).",
                  len(items), rtf)
     return {"rtf": rtf, "rtfs": rtfs}
+
+
+def _decode_vqvae(args, config: dict, device: torch.device) -> dict:
+    """VQ-VAE wave-to-wave decode (JAX ``_decode_vqvae``): per utterance
+    encode -> decode, ``{utt}_gen.wav`` and a line of ``text``."""
+    fmt = config.get("format", "hdf5")
+    use_local = config.get("use_local_condition", False)
+    use_global = config.get("use_global_condition", False)
+    if args.dumpdir is not None:
+        def reader(name):
+            return (lambda x: read_hdf5(x, name)) if fmt == "hdf5" else np.load
+
+        def query(name):
+            return "*.h5" if fmt == "hdf5" else f"*-{name}.npy"
+
+        cond = {}
+        for flag, name in ((use_local, "local"), (use_global, "global")):
+            if flag:
+                cond.update({f"{name}_query": query(name), f"{name}_load_fn": reader(name)})
+        dataset = AudioDataset(args.dumpdir, audio_query=query("wave"),
+                               audio_load_fn=reader("wave"), return_utt_id=True, **cond)
+    else:
+        if use_local or use_global:
+            raise ValueError("scp decode does not carry local/global conditioning")
+        dataset = AudioSCPDataset(args.feats_scp, segments=args.segments,
+                                  return_utt_id=True)
+    logging.info("The number of utterances to be decoded = %d.", len(dataset))
+    model = load_model(args.checkpoint, config, device=device).generator
+    subbands = config["generator_params"].get("in_channels", 1)
+    pqmf = PQMF(subbands) if subbands > 1 else None
+    downs = model.downsample_factor
+    bucket = downs * subbands * 16
+    os.makedirs(args.outdir, exist_ok=True)
+    fs = config["sampling_rate"]
+    rtfs = []
+    with open(os.path.join(args.outdir, "text"), "w") as sym_f:
+        for i in range(len(dataset)):
+            utt_id, audio, *rest = dataset[i]
+            l = rest.pop(0) if use_local else None
+            g = rest.pop(0) if use_global else None
+            audio = np.asarray(audio, np.float32)
+            t = len(audio)
+            pad_t = -(-t // bucket) * bucket
+            x = torch.from_numpy(np.pad(audio, (0, pad_t - t), mode="edge")[None, None])
+            if l is not None:  # on the hop grid, padded to the latent's frames
+                n_l = pad_t // config["hop_size"]
+                l = np.asarray(l, np.float32)
+                l = np.pad(l, ((0, max(0, n_l - len(l))), (0, 0)), mode="edge")[:n_l]
+                l = torch.from_numpy(np.ascontiguousarray(l.T[None])).to(device)
+            if g is not None:
+                g = torch.from_numpy(np.asarray(g).reshape(1).astype(np.int64)).to(device)
+            _synchronize(device)
+            start = time.perf_counter()
+            with torch.inference_mode():
+                x = x.to(device)
+                if pqmf is not None:
+                    x = pqmf.analysis(x.transpose(1, 2)).transpose(1, 2)
+                indices = model.encode(x)
+                y = model.decode(indices, l, g)
+                if pqmf is not None:
+                    y = pqmf.synthesis(y.transpose(1, 2)).transpose(1, 2)
+                y = y[0, 0, :t].cpu().numpy()
+                indices = indices[0].cpu().numpy()
+            _synchronize(device)
+            rtfs.append((time.perf_counter() - start) / (len(y) / fs))
+            if not np.all(np.isfinite(y)):
+                raise FloatingPointError(f"non-finite samples decoded for {utt_id}")
+            logging.info("%s: %d samples, RTF = %.06f", utt_id, len(y), rtfs[-1])
+            write_wav(os.path.join(args.outdir, f"{utt_id}_gen.wav"), fs, y)
+            n_sym = -(-t // (downs * subbands))
+            sym_f.write(f"{utt_id} " + " ".join(str(int(s)) for s in indices[:n_sym]) + "\n")
+    mean_rtf = float(np.mean(rtfs))
+    logging.info("Finished generation of %d utterances (RTF = %.06f).", len(dataset),
+                 mean_rtf)
+    return {"rtf": mean_rtf, "rtfs": rtfs}
 
 
 if __name__ == "__main__":

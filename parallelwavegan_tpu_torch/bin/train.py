@@ -29,9 +29,17 @@ the config's ``seed``), the HiFi-GAN generator with the HiFi-GAN
 discriminators (spectral norm included), the three discrete-symbol
 (HuBERT-unit) generators with their discriminators (the ids collated as
 the mel; the duration generator on collapsed runs and their durations,
-``use_duration``, with the duration loss), the STFT, sub-band STFT, mel,
-feature-matching and adversarial losses, RAdam, Adam, or Adam with
-``amsgrad: true`` (optax's AMSGrad). HiFi-GAN's ``use_pallas_tail`` and
+``use_duration``, with the duration loss), the VQ-VAE (wave to wave: its
+own wave cropped, with the global ids of ``use_global_condition`` and
+the local features of ``use_local_condition``, read from hdf5 or
+``*-local.npy`` / ``*-global.npy`` and riding the mel's place in the
+dataset; its quantization and commitment losses; ``validate_local_condition``
+checks the local grid against the encoder's stride), the U-Net HiFi-GAN
+(the f0 and excitation of an ``AudioMelF0ExcitationDataset`` dump beside
+the mel, its dropout seeded per step), the STFT, sub-band STFT, mel,
+feature-matching and adversarial losses, RAdam, Adam, Adam with
+``amsgrad: true`` (optax's AMSGrad) or AdamW (optax's), and the StepLR,
+MultiStepLR and ExponentialLR schedules. HiFi-GAN's ``use_pallas_tail`` and
 ``use_pallas_mrf`` run kernels without a backward: a training config that
 sets either is refused before any step (they are for decode).
 With ``use_pallas_stack_train`` PWG's gated layers train through the K3
@@ -51,10 +59,9 @@ the JAX package does (``train/precision.py``; MelGAN's stacks with
 ``use_pallas_stacks_train`` through K6/K7's bf16 modes, StyleMelGAN's
 TADE blocks with ``use_pallas_tade_train`` through K8/K9's, on the card,
 and through their bf16 plain versions on the CPU). Not ported yet, and
-refused with ``NotImplementedError`` (ROADMAP.md): ``distributed``,
-optimizers other than RAdam and Adam, VQ-VAE and U-Net HiFi-GAN; the
-local, global and F0 datasets are built as in JAX, and the
-collater refuses their conditioning inputs. float32 convolutions and
+refused with ``NotImplementedError`` (ROADMAP.md): ``distributed``, the
+other optimizers and schedulers, and the causal HiFi-GAN generator.
+float32 convolutions and
 matmuls run without TF32, as the JAX package computes in full float32.
 """
 
@@ -81,7 +88,11 @@ from parallelwavegan_tpu_torch.models import get_model_class
 from parallelwavegan_tpu_torch.optimizers import build_optimizer_from_config
 from parallelwavegan_tpu_torch.train.criterion import build_criterion, build_pqmf
 from parallelwavegan_tpu_torch.train.trainer import Trainer
-from parallelwavegan_tpu_torch.utils.config import load_config, write_config
+from parallelwavegan_tpu_torch.utils.config import (
+    load_config,
+    validate_local_condition,
+    write_config,
+)
 from parallelwavegan_tpu_torch.utils.io import read_hdf5
 
 
@@ -102,6 +113,9 @@ def feature_flags(config: dict) -> dict:
         "use_local_condition": config.get("use_local_condition", False),
         "use_global_condition": config.get("use_global_condition", False),
     }
+
+
+_STREAMS = ("wave", "feats", "local", "global", "f0", "excitation")
 
 
 def build_dataset(config: dict, args, split: str):
@@ -129,20 +143,24 @@ def build_dataset(config: dict, args, split: str):
         def reader(name):
             return lambda x: read_hdf5(x, name)
 
-        query = {name: "*.h5" for name in ("wave", "feats", "local", "global")}
+        query = {name: "*.h5" for name in _STREAMS}
     else:
         def reader(name):
             return np.load
 
-        query = {name: f"*-{name}.npy" for name in ("wave", "feats", "local", "global")}
+        query = {name: f"*-{name}.npy" for name in _STREAMS}
     audio = dict(audio_query=query["wave"], audio_load_fn=reader("wave"))
     local = dict(local_query=query["local"], local_load_fn=reader("local"))
     glob = {}
     if flags["use_global_condition"]:
         glob = dict(global_query=query["global"], global_load_fn=reader("global"))
     if flags["use_f0_and_excitation"]:
+        # npy dumps read *-f0.npy and *-excitation.npy (JAX reads them as hdf5
+        # whatever the format, :86-94)
         return AudioMelF0ExcitationDataset(
             rootdir, **audio, mel_query=query["feats"], mel_load_fn=reader("feats"),
+            f0_query=query["f0"], f0_load_fn=reader("f0"),
+            excitation_query=query["excitation"], excitation_load_fn=reader("excitation"),
             mel_length_threshold=mel_threshold, allow_cache=cache)
     if not flags["use_aux_input"]:
         if flags["use_local_condition"]:
@@ -188,6 +206,7 @@ def main(argv=None) -> dict:
     config = load_config(args.config)
     config.update(vars(args))
     config["version"] = parallelwavegan_tpu_torch.__version__
+    validate_local_condition(config)
     if config.get("distributed", False):
         raise _not_ported("distributed training")
     gen_type = config["generator_type"]
@@ -195,7 +214,8 @@ def main(argv=None) -> dict:
                         "StyleMelGANGenerator", "HiFiGANGenerator",
                         "DiscreteSymbolHiFiGANGenerator",
                         "DiscreteSymbolDurationGenerator",
-                        "DiscreteSymbolStyleMelGANGenerator"):
+                        "DiscreteSymbolStyleMelGANGenerator", "VQVAE",
+                        "UHiFiGANGenerator"):
         raise _not_ported(f"training {gen_type}")
     for flag in ("use_pallas_tail", "use_pallas_mrf"):
         if config["generator_params"].get(flag, False):
@@ -220,7 +240,7 @@ def main(argv=None) -> dict:
         dev_dataset = build_dataset(config, args, "dev")
         logging.info("The number of development files = %d.", len(dev_dataset))
     collater = Collater(
-        batch_max_steps=config["batch_max_steps"], hop_size=config["hop_size"],
+        batch_max_steps=config["batch_max_steps"], hop_size=config.get("hop_size"),
         aux_context_window=config["generator_params"].get("aux_context_window", 0),
         use_noise_input=flags["use_noise_input"],
         use_aux_input=flags["use_aux_input"], use_duration=flags["use_duration"],

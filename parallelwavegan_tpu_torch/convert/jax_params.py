@@ -10,7 +10,13 @@ upsample net under ``upsample_net.melgan.*``), ``_t_style_melgan_g``
 ``discriminators`` for StyleMelGAN's and the MelGAN multi-scale one,
 :85-90, :116-119), and HiFi-GAN's ``_t_hifigan_period_d`` and
 ``_make_t_hifigan_scale_d`` (:437-463, nested under ``discriminators``
-and ``msd``/``mpd``, :94-122) in reverse, conv
+and ``msd``/``mpd``, :94-122), the U-Net HiFi-GAN's ``_t_uhifigan_g``
+(:289-315; its ``upsamples_{i}`` and causal ``upsamples_{i}/deconv`` the
+transposed convs) and the VQ-VAE's ``_make_t_vqvae`` (:318-350: the
+MelGAN discriminator's map under ``encoder``, the MelGAN generator's
+under ``decoder``, the codebook's ``embedding`` as
+``codebook.embedding.weight``, ``local_embed`` and ``global_embed``) in
+reverse, conv
 kernels (K, Cin, Cout) are transposed to torch's (Cout, Cin, K)
 (``_CONV_PERM``) and 2-D ones (Kh, Kw, Cin, Cout) to (Cout, Cin, Kh, Kw)
 (``_CONV2D_PERM``), the discrete generators' embeddings, LayerNorm scales
@@ -223,6 +229,54 @@ def _discrete_style_melgan_prefix(path) -> str:
     return path[0] if path[0] in ("emb", "spk_emb") else _style_melgan_prefix(path)
 
 
+_UHIFIGAN_NAMES = {"input_conv": "input_conv.0", "hidden_conv": "hidden_conv",
+                   "output_conv": "output_conv.1", "conv": "conv", "deconv": "deconv"}
+
+
+def _uhifigan_prefix(path) -> str:
+    """``_t_uhifigan_g``: ``input_conv`` -> ``input_conv.0``, the MRFs'
+    blocks -> ``{down,up}samples_mrf.{n}``, ``downsamples_{i}`` ->
+    ``downsamples.{i}.0``, ``upsamples_{i}`` -> ``upsamples.{i}.1``,
+    ``output_conv`` -> ``output_conv.1``, the blocks' convs as HiFi-GAN's."""
+    out = []
+    for p in path:
+        if p.startswith(("downsamples_mrf_", "upsamples_mrf_")):
+            out.append(f"{p.rsplit('_', 1)[0]}.{_idx(p)}")
+        elif p.startswith("downsamples_"):
+            out.append(f"downsamples.{_idx(p)}.0")
+        elif p.startswith("upsamples_"):
+            out.append(f"upsamples.{_idx(p)}.1")
+        elif p.startswith(("convs1_", "convs2_")):
+            out.append(f"{p.rsplit('_', 1)[0]}.{_idx(p)}.1")
+        elif p in _UHIFIGAN_NAMES:
+            out.append(_UHIFIGAN_NAMES[p])
+        else:
+            raise KeyError(f"uhifigan path segment {p!r}")
+    return ".".join(out)
+
+
+def _vqvae_map(model_params: dict):
+    """(prefix function, deconv module paths) for VQVAE (``_make_t_vqvae``)."""
+    enc = model_params.get("encoder_conf") or {"downsample_scales": [4, 4, 2, 2]}
+    dec = model_params.get("decoder_conf") or {"upsample_scales": [4, 4, 2, 2],
+                                               "stacks": 3}
+    enc_prefix = _melgan_d_map(enc.get("downsample_scales", (4, 4, 4, 4)))
+    dec_prefix, dec_deconvs = _melgan_map(dec)
+
+    def prefix(path) -> str:
+        if path[0] == "encoder":
+            return f"encoder.{enc_prefix(path[1:])}"
+        if path[0] == "decoder":
+            return f"decoder.{dec_prefix(path[1:])}"
+        if path[0] == "codebook":
+            return "codebook.embedding"
+        if path[0] in ("local_embed", "global_embed"):
+            return path[0]
+        raise KeyError(f"vqvae path segment {path[0]!r}")
+
+    return prefix, {("decoder", *d) for d in dec_deconvs}
+
+
 def _melgan_d_map(downsample_scales):
     """Flax path -> upstream prefix for MelGANDiscriminator
     (``_make_t_melgan_d``): ``layers_0`` -> ``layers.0.1`` (after the pad),
@@ -352,6 +406,13 @@ def jax_params_to_state_dict(model_type: str, model_params: dict, params,
                 return _pwg_prefix(path)
 
             deconvs = {("upsample_net", *d) for d in melgan_deconvs}
+    elif model_type == "UHiFiGANGenerator":
+        prefix_of = _uhifigan_prefix
+        causal = model_params.get("use_causal_conv", False)
+        deconvs = {(f"upsamples_{i}", "deconv") if causal else (f"upsamples_{i}",)
+                   for i in range(len(model_params.get("upsample_scales", (8, 8, 2, 2))))}
+    elif model_type == "VQVAE":
+        prefix_of, deconvs = _vqvae_map(model_params)
     elif model_type == "ParallelWaveGANDiscriminator":
         prefix_of = _pwg_d_map(model_params)
     elif model_type == "ResidualParallelWaveGANDiscriminator":

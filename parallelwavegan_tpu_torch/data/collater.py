@@ -1,6 +1,6 @@
 """Random fixed-length crop collater (counterpart of
-parallelwavegan_tpu/data/collater.py:21-144, the mel-to-wave branch and
-its duration branch).
+parallelwavegan_tpu/data/collater.py:21-227: the mel-to-wave branch with
+its duration and f0/excitation branches, and the VQ-VAE branch).
 
 A random frame start per utterance; the audio slice [start*hop,
 start*hop + batch_max_steps]; the mel slice with ``aux_context_window``
@@ -13,8 +13,20 @@ into (codes, durations) (:111-127, ``_unique_consecutive`` :219-227):
 c (B, L, C) int32 padded with ``pad_value`` and ds (B, L) int32 padded
 with zeros, L the most runs in the batch. Randomness comes from an
 explicit ``numpy.random.Generator``, so the same seed gives the JAX
-package's batches exactly. The f0/excitation and VQ branches are not
-ported yet (ROADMAP.md).
+package's batches exactly.
+
+With ``use_f0_and_excitation`` (U-Net HiFi-GAN, :133-141) items are
+(audio, mel, f0, excitation), the f0 (T', ) and the excitation (T', hop)
+per frame, both cropped as the mel is: the batch adds 'f0' (B, T', 1)
+and 'excitation' (B, T' hop, 1). ``use_aux_input`` false is the VQ-VAE
+wave-to-wave branch (:147-213): without local conditioning a random
+audio crop per item longer than ``batch_max_steps`` ('y'), with its
+global id ('global' (B,) int32, items (audio, id)) under
+``use_global_condition``; with ``use_local_condition`` items are
+(audio, local features[, id]), the local features cropped on the hop
+grid ('local' (B, T', C), no context window) and the audio on the
+samples under them. ``hop_size`` may be None there (a wave-to-wave
+config without features).
 """
 
 from __future__ import annotations
@@ -23,7 +35,7 @@ import numpy as np
 
 
 class Collater:
-    """Fixed-shape batches from variable-length (audio, mel) items."""
+    """Fixed-shape batches from variable-length (audio, mel, ...) items."""
 
     def __init__(self, batch_max_steps=20480, hop_size=256,
                  aux_context_window=2, use_noise_input=False,
@@ -31,34 +43,42 @@ class Collater:
                  use_duration=False, use_global_condition=False,
                  use_local_condition=False, pad_value=0,
                  rng: np.random.Generator | None = None):
-        for flag, what in ((use_f0_and_excitation, "f0/excitation input"),
-                           (not use_aux_input, "the VQ (wave-to-wave) collater"),
-                           (use_global_condition, "global conditioning"),
-                           (use_local_condition, "local conditioning")):
-            if flag:
-                raise NotImplementedError(
-                    f"{what} is not ported to parallelwavegan_tpu_torch yet; "
-                    "see ROADMAP.md")
-        if batch_max_steps % hop_size != 0:
-            batch_max_steps += -(batch_max_steps % hop_size)
-        self.hop_size = hop_size
-        self.batch_max_frames = batch_max_steps // hop_size
+        if hop_size is not None:
+            if batch_max_steps % hop_size != 0:
+                batch_max_steps += -(batch_max_steps % hop_size)
+            self.hop_size = hop_size
+            self.batch_max_frames = batch_max_steps // hop_size
         self.batch_max_steps = batch_max_steps
         self.aux_context_window = aux_context_window
         self.use_noise_input = use_noise_input
+        self.use_f0_and_excitation = use_f0_and_excitation
+        self.use_aux_input = use_aux_input
         self.use_duration = use_duration
+        self.use_global_condition = use_global_condition
+        self.use_local_condition = use_local_condition
         self.pad_value = pad_value
         self.rng = rng or np.random.default_rng()
-        self.start_offset = aux_context_window
-        self.end_offset = -(self.batch_max_frames + aux_context_window)
-        self.mel_threshold = self.batch_max_frames + 2 * aux_context_window
+        if use_aux_input or use_local_condition:
+            self.start_offset = aux_context_window
+            self.end_offset = -(self.batch_max_frames + aux_context_window)
+            self.mel_threshold = self.batch_max_frames + 2 * aux_context_window
+        else:
+            self.start_offset = 0
+            self.end_offset = -batch_max_steps
+            self.audio_threshold = batch_max_steps
 
     def __call__(self, batch, rng=None) -> dict:
-        """Items -> {'y', 'c'[, 'z']} of float32 numpy arrays (with
-        ``use_duration`` {'y', 'c', 'ds'}, c and ds int32); ``rng``
-        overrides the instance generator for this call (the loader passes a
-        per-batch child generator)."""
+        """Items -> {'y', 'c'[, 'z'][, 'f0', 'excitation']} of float32 numpy
+        arrays (with ``use_duration`` {'y', 'c', 'ds'}, c and ds int32; the
+        VQ branch {'y'[, 'local'][, 'global']}); ``rng`` overrides the
+        instance generator for this call (the loader passes a per-batch
+        child generator)."""
         rng = rng if rng is not None else self.rng
+        if self.use_aux_input:
+            return self._collate_mel2wav(batch, rng)
+        return self._collate_vq(batch, rng)
+
+    def _collate_mel2wav(self, batch, rng) -> dict:
         batch = [self._adjust_length(*b) for b in batch
                  if len(b[1]) > self.mel_threshold]
         if not batch:
@@ -88,16 +108,63 @@ class Collater:
         out = {"c": c_batch.astype(np.float32), "y": y_batch}
         if self.use_noise_input:
             out["z"] = rng.standard_normal(y_batch.shape).astype(np.float32)
+        if self.use_f0_and_excitation:
+            f_batch = np.stack([b[2][s:e] for b, s, e in zip(batch, c_starts, c_ends)])
+            e_batch = np.stack([b[3][s:e] for b, s, e in zip(batch, c_starts, c_ends)])
+            if f_batch.ndim == 2:
+                f_batch = f_batch[..., None]
+            out["f0"] = f_batch.astype(np.float32)
+            out["excitation"] = e_batch.reshape(len(batch), -1, 1).astype(np.float32)
         return out
 
-    def _adjust_length(self, x, c):
+    def _collate_vq(self, batch, rng) -> dict:
+        """The wave-to-wave crops (JAX :147-213)."""
+        if self.use_local_condition:
+            # strict >: an item of exactly the threshold leaves no start
+            items = [self._adjust_length(b[0], b[1]) + tuple(b[2:]) for b in batch
+                     if len(b[1]) > self.mel_threshold]
+            if not items:
+                raise ValueError("no utterance in the batch is longer than "
+                                 f"mel_threshold={self.mel_threshold} frames")
+            l_starts = np.array([rng.integers(self.start_offset, len(b[1]) + self.end_offset)
+                                 for b in items])
+            y_starts = l_starts * self.hop_size
+            out = {"y": np.stack([b[0][s:s + self.batch_max_steps]
+                                  for b, s in zip(items, y_starts)]
+                                 ).astype(np.float32)[..., None],
+                   "local": np.stack([b[1][s:s + self.batch_max_frames]
+                                      for b, s in zip(items, l_starts)]).astype(np.float32)}
+            if self.use_global_condition:
+                out["global"] = _global_ids(b[2] for b in items)
+            return out
+        if self.use_global_condition:
+            items = [b for b in batch if len(b[0]) > self.audio_threshold]
+        else:
+            items = [(b,) for b in batch if len(b) > self.audio_threshold]
+        if not items:
+            raise ValueError("no utterance in the batch is longer than "
+                             f"audio_threshold={self.audio_threshold} samples")
+        y_starts = np.array([rng.integers(self.start_offset, len(b[0]) + self.end_offset)
+                             for b in items])
+        out = {"y": np.stack([b[0][s:s + self.batch_max_steps]
+                              for b, s in zip(items, y_starts)]).astype(np.float32)[..., None]}
+        if self.use_global_condition:
+            out["global"] = _global_ids(b[1] for b in items)
+        return out
+
+    def _adjust_length(self, x, c, *extras):
         """Edge-pad audio so len(x) == len(c) * hop (train.py:877-897)."""
         if len(x) < len(c) * self.hop_size:
             x = np.pad(x, (0, len(c) * self.hop_size - len(x)), mode="edge")
         if len(x) != len(c) * self.hop_size:
             raise ValueError(f"audio of {len(x)} samples for {len(c)} frames "
                              f"of hop {self.hop_size}")
-        return x, c
+        return (x, c) + extras
+
+
+def _global_ids(ids) -> np.ndarray:
+    """One int32 id per item, from ids stored as scalars or arrays of one."""
+    return np.array([np.reshape(g, (1,))[0] for g in ids], dtype=np.int32)
 
 
 def _unique_consecutive(c: np.ndarray):

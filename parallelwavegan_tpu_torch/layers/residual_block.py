@@ -9,7 +9,9 @@
 * ``HiFiGANResidualBlock``: counterpart of :241-320, per dilation, act ->
   dilated conv [-> act -> conv] with an additive residual. Submodules are
   ``nn.Sequential(act, conv)`` so the state-dict keys are upstream's
-  ``convs1.{m}.1.*`` / ``convs2.{m}.1.*``.
+  ``convs1.{m}.1.*`` / ``convs2.{m}.1.*``. With ``use_causal_conv`` (U-Net
+  HiFi-GAN's causal MRFs) each conv pads (K - 1) * dilation zeros on the
+  left only, the JAX ``padding="causal"``.
 """
 
 from __future__ import annotations
@@ -147,13 +149,14 @@ class HiFiGANResidualBlock(nn.Module):
                  use_additional_convs: bool = True,
                  nonlinear_activation: str = "LeakyReLU",
                  nonlinear_activation_params: dict | None = None,
-                 use_weight_norm: bool = True,
+                 use_weight_norm: bool = True, use_causal_conv: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
         params = nonlinear_activation_params or {"negative_slope": 0.1}
         self.dilations = tuple(int(d) for d in dilations)
         self.use_additional_convs = use_additional_convs
         conv_kw = dict(bias=bias, use_weight_norm=use_weight_norm,
+                       padding="causal" if use_causal_conv else "same",
                        generator=generator)
         self.convs1 = nn.ModuleList()
         if use_additional_convs:

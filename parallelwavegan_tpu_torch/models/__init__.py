@@ -8,10 +8,12 @@ the discrete-symbol generators ``DiscreteSymbolHiFiGANGenerator``,
 ``DiscreteSymbolStyleMelGANGenerator``,
 ``ParallelWaveGANDiscriminator``, ``ResidualParallelWaveGANDiscriminator``,
 ``MelGANDiscriminator``, ``MelGANMultiScaleDiscriminator``,
-``StyleMelGANDiscriminator`` and HiFi-GAN's period, multi-period, scale,
-multi-scale and multi-scale multi-period discriminators are ported so
-far; ``VQVAE`` and ``UHiFiGANGenerator`` raise ``NotImplementedError``
-(ROADMAP.md lists them in the order they are to come).
+``StyleMelGANDiscriminator``, HiFi-GAN's period, multi-period, scale,
+multi-scale and multi-scale multi-period discriminators, the U-Net
+HiFi-GAN generator ``UHiFiGANGenerator`` (causal or not) and the VQ-VAE
+codec ``VQVAE`` are ported. A name the JAX package has and the port does
+not, such as the causal HiFi-GAN generator's, raises
+``NotImplementedError`` (ROADMAP.md).
 """
 
 from parallelwavegan_tpu_torch.models.discrete import (
@@ -36,6 +38,8 @@ from parallelwavegan_tpu_torch.models.parallel_wavegan import (
     ParallelWaveGANGenerator,
     ResidualParallelWaveGANDiscriminator,
 )
+from parallelwavegan_tpu_torch.models.uhifigan import UHiFiGANGenerator
+from parallelwavegan_tpu_torch.models.vqvae import VQVAE
 from parallelwavegan_tpu_torch.models.style_melgan import (
     DiscreteSymbolStyleMelGANGenerator,
     StyleMelGANDiscriminator,
@@ -60,6 +64,8 @@ MODEL_REGISTRY = {
     "ResidualParallelWaveGANDiscriminator": ResidualParallelWaveGANDiscriminator,
     "StyleMelGANDiscriminator": StyleMelGANDiscriminator,
     "StyleMelGANGenerator": StyleMelGANGenerator,
+    "UHiFiGANGenerator": UHiFiGANGenerator,
+    "VQVAE": VQVAE,
 }
 
 

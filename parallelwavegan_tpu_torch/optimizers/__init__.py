@@ -10,6 +10,12 @@ these optimizers compute optax's functions and not ``torch.optim``'s:
   multiplying by sqrt(1 - beta2^t) and rectifies when rho_t > 5; with
   PWG v1's eps of 1e-6 the two differ from step 6 on.
 * ``Adam`` is ``optax.adam``.
+* ``AdamW`` is ``optax.adamw`` with the config's own ``weight_decay``,
+  0 when not given (torch's AdamW defaults to 0.01; the JAX package
+  applies only what the config asks for, :138-151): the update is
+  m_hat / (sqrt(v_hat) + eps) + weight_decay * p, decoupled from the
+  moments, times -lr. ``AdamW`` with ``amsgrad: true`` is
+  ``optax.amsgrad`` and its ``weight_decay`` has no effect, as in JAX.
 * ``AMSGrad`` (``Adam`` with ``amsgrad: true``) is ``optax.amsgrad``: the
   running maximum ``nu_max`` is taken of the bias-corrected second moment
   and the step is m_hat / (sqrt(nu_max) + eps). ``torch.optim.Adam(amsgrad=
@@ -22,7 +28,9 @@ these optimizers compute optax's functions and not ``torch.optim``'s:
 * Weight decay is L2 added to the gradient after clipping (the JAX
   chain's ``add_decayed_weights``, :203-215).
 * The learning rate of update n (0 first) is ``schedule(n)``: StepLR
-  gives ``lr * gamma ** (n // step_size)``, the JAX unit.
+  gives ``lr * gamma ** (n // step_size)``, the JAX unit, and
+  ExponentialLR ``lr * gamma ** n`` (:46-52), computed in float32 as
+  optax computes it on its int32 count.
 
 Each optimizer is a ``torch.optim.Optimizer``: ``step()`` reads ``.grad``,
 and ``state_dict()`` holds the moments (``exp_avg``, ``exp_avg_sq``, and
@@ -40,9 +48,9 @@ from typing import Callable
 import numpy as np
 import torch
 
-_NOT_PORTED_OPTIMIZERS = ("AdamW", "SGD", "NAdam", "NAdamW", "Adamax",
+_NOT_PORTED_OPTIMIZERS = ("SGD", "NAdam", "NAdamW", "Adamax",
                           "RMSprop", "Adagrad", "Adadelta", "Lamb", "Lion")
-_NOT_PORTED_SCHEDULERS = ("ExponentialLR", "CosineAnnealingLR",
+_NOT_PORTED_SCHEDULERS = ("CosineAnnealingLR",
                           "CosineAnnealingWarmRestarts", "LinearLR",
                           "PolynomialLR")
 
@@ -70,6 +78,9 @@ def build_lr_schedule(base_lr: float, scheduler_type: str | None,
         milestones = sorted({int(m) for m in params["milestones"]})
         gamma = params.get("gamma", 0.1)
         return lambda step: base_lr * gamma ** sum(step >= m for m in milestones)
+    if scheduler_type == "ExponentialLR":
+        gamma = np.float32(params["gamma"])
+        return lambda step: float(np.float32(base_lr) * gamma ** np.float32(step))
     if scheduler_type in _NOT_PORTED_SCHEDULERS:
         raise _not_ported(f"scheduler {scheduler_type}")
     if scheduler_type == "LambdaLR":
@@ -103,6 +114,7 @@ class _OptaxChain(torch.optim.Optimizer):
     the parameter count."""
 
     STATE_KEYS = ("exp_avg", "exp_avg_sq")
+    DECOUPLED_DECAY = False  # weight decay added to the update, after scaling
 
     def __init__(self, params, lr_schedule: Callable[[int], float],
                  betas=(0.9, 0.999), eps: float = 1e-8,
@@ -142,13 +154,16 @@ class _OptaxChain(torch.optim.Optimizer):
             if not ps:
                 continue
             gs = [by_param[p] for p in ps]
-            if group["weight_decay"] > 0:
-                gs = torch._foreach_add(gs, ps, alpha=group["weight_decay"])
+            decay = group["weight_decay"]
+            if decay > 0 and not self.DECOUPLED_DECAY:
+                gs = torch._foreach_add(gs, ps, alpha=decay)
             for p in ps:
                 if not self.state[p]:
                     for key in self.STATE_KEYS:
                         self.state[p][key] = torch.zeros_like(p)
             updates = self._scale(gs, [self.state[p] for p in ps], group, count + 1)
+            if decay > 0 and self.DECOUPLED_DECAY:
+                torch._foreach_add_(updates, ps, alpha=decay)
             torch._foreach_mul_(updates, -self.lr_schedule(count))
             torch._foreach_add_(ps, updates)
 
@@ -178,6 +193,12 @@ class Adam(_OptaxChain):
         mu_hat, denom = self._moments(gs, states, group, count)
         torch._foreach_div_(mu_hat, denom)
         return mu_hat
+
+
+class AdamW(Adam):
+    """``optax.adamw``: m_hat / (sqrt(v_hat) + eps) + weight_decay * p."""
+
+    DECOUPLED_DECAY = True
 
 
 class AMSGrad(_OptaxChain):
@@ -231,7 +252,10 @@ def build_optimizer(params, optimizer_type: str,
     eps = 1e-8 if eps is None else eps
     weight_decay = p.pop("weight_decay", 0.0)
     amsgrad = p.pop("amsgrad", False)
-    cls = {"Adam": AMSGrad if amsgrad else Adam, "RAdam": RAdam}.get(optimizer_type)
+    if optimizer_type == "AdamW" and amsgrad:
+        weight_decay = 0.0  # optax.amsgrad without decay, as the JAX package builds it
+    cls = {"Adam": AMSGrad if amsgrad else Adam, "AdamW": AMSGrad if amsgrad else AdamW,
+           "RAdam": RAdam}.get(optimizer_type)
     if cls is None:
         if optimizer_type in _NOT_PORTED_OPTIMIZERS:
             raise _not_ported(f"optimizer {optimizer_type}")

@@ -15,8 +15,11 @@ generator, :76-80) a second multi-resolution STFT loss from
 and analyses the target with ``pqmf``. ``use_duration_loss`` is
 accepted and, as in JAX (:68, :140), decides nothing: the duration loss
 is the train step's, for ``DiscreteSymbolDurationGenerator`` whatever the
-flag says, as in JAX's step.py. The VQVAE generator's PQMF (:115-120) is
-not ported yet (ROADMAP.md).
+flag says, as in JAX's step.py. A VQ-VAE has no ``pqmf`` (its output is
+the full band) and, where it reads more than one channel, its encoder's
+input is the PQMF analysis of the wave by ``encoder_pqmf``, of
+``in_channels`` sub-bands (:115-120); ``lambda_commit`` (default 0.25)
+weighs its commitment loss (:139).
 """
 
 from __future__ import annotations
@@ -48,13 +51,18 @@ class Criterion:
     lambda_feat_match: float
     sub_stft: MultiResolutionSTFTLoss | None = None
     pqmf: PQMF | None = None
+    lambda_commit: float = 0.25
+    encoder_pqmf: PQMF | None = None
 
 
 def build_pqmf(config: dict) -> PQMF | None:
     """The PQMF bank of a generator of more than one output channel, from
-    the config's ``pqmf_params`` (defaults where absent); None otherwise."""
+    the config's ``pqmf_params`` (defaults where absent); None otherwise,
+    and for a VQ-VAE."""
     subbands = config["generator_params"].get("out_channels", 1)
-    return PQMF(subbands=subbands, **config.get("pqmf_params", {})) if subbands > 1 else None
+    if subbands <= 1 or config.get("generator_type") == "VQVAE":
+        return None
+    return PQMF(subbands=subbands, **config.get("pqmf_params", {}))
 
 
 def build_criterion(config: dict) -> Criterion:
@@ -89,7 +97,12 @@ def build_criterion(config: dict) -> Criterion:
     feat_match = None
     if config["use_feat_match_loss"]:
         feat_match = FeatureMatchLoss(**config.get("feat_match_loss_params", {}))
-    if stft is None and sub_stft is None and mel is None:
+    encoder_pqmf = None
+    in_channels = config["generator_params"].get("in_channels", 1)
+    if config.get("generator_type") == "VQVAE" and in_channels > 1:
+        encoder_pqmf = PQMF(subbands=in_channels, **config.get("pqmf_params", {}))
+    if stft is None and sub_stft is None and mel is None and (
+            config.get("generator_type") != "VQVAE"):
         logging.warning("no auxiliary (stft/mel) loss is enabled")
     return Criterion(
         gen_adv=GeneratorAdversarialLoss(
@@ -104,4 +117,6 @@ def build_criterion(config: dict) -> Criterion:
         lambda_feat_match=config.get("lambda_feat_match", 1.0),
         sub_stft=sub_stft,
         pqmf=pqmf,
+        lambda_commit=config.get("lambda_commit", 0.25),
+        encoder_pqmf=encoder_pqmf,
     )

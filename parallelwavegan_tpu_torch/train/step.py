@@ -47,6 +47,20 @@ included (the + 1 is JAX's, which does not read
 predictor's dropout follows the module's mode, on in training and off in
 eval, its masks drawn as StyleMelGAN's noise is (below).
 
+The VQ-VAE (JAX step.py:76-82, :116-122, :240-260, :315-330, :372-395)
+reads the wave itself (``batch["y_in"]``, ``vq_input``: the wave, or its
+PQMF analysis where the encoder reads more than one channel) with the
+batch's ``local`` and ``global`` conditioning and gives (x_bar, z_e,
+z_q); its own loss, added to the auxiliary losses before ``lambda_aux``
+in the G phase and in eval, is the quantization loss mean((z_q -
+sg(z_e))^2) plus ``lambda_commit`` times the commitment loss mean((z_e
+- sg(z_q))^2) (``own_loss``). The U-Net HiFi-GAN takes the batch's
+``excitation`` and mel (:51-58); its dropout runs in the G phase with
+masks drawn as StyleMelGAN's noise is (below), and is off in the D
+phase's re-run of G, as JAX's ``deterministic=not train``, and in eval.
+Where D does not train in a step, the G phase has no adversarial term,
+as JAX's ``g_sees_d``.
+
 StyleMelGAN draws what JAX draws from its step key: the noise z of the G
 phase and of the D phase's re-run (on the device; the duration
 predictor's dropout masks likewise), and the random-window
@@ -105,17 +119,29 @@ def seeded(device, *keys: int) -> torch.Generator:
         int(state[0]) << 32 | int(state[1]))
 
 
+def vq_input(criterion: Criterion, batch: dict) -> dict:
+    """The batch with the VQ-VAE encoder's input ``y_in``: the wave, or its
+    PQMF analysis (B, S, T / S) by ``criterion.encoder_pqmf``."""
+    y = batch["y"]
+    if criterion.encoder_pqmf is not None:
+        y = criterion.encoder_pqmf.analysis(y.transpose(1, 2)).transpose(1, 2)
+    return dict(batch, y_in=y)
+
+
 def generator_forward(config: dict, generator, batch: dict,
-                      draws: tuple = (), params: dict | None = None) -> torch.Tensor:
+                      draws: tuple = (), params: dict | None = None,
+                      train: bool = True):
     """The generator's output (B, out, T) for a batch (train.py:1109-1117
     feature flags: Parallel WaveGAN takes noise and the mel, MelGAN and
     HiFi-GAN the mel alone, as JAX's step.py:83-84, the discrete HiFi-GAN
     the ids; StyleMelGAN, discrete or not, the mel or ids and ``batch["z"]``
     where the batch has it, else z drawn on the batch's device from a
     generator seeded by ``draws``, e.g. (seed, step, stream); the duration
-    generator (wave, log-durations), see the module docstring).
-    ``params`` (``precision.bf16_params``) stand in for the generator's
-    own."""
+    generator (wave, log-durations); the VQ-VAE ``batch["y_in"]`` and
+    the conditioning, (x_bar, z_e, z_q); the U-Net HiFi-GAN the excitation
+    and the mel, its dropout masks drawn like StyleMelGAN's noise and off
+    unless ``train``, see the module docstring). ``params``
+    (``precision.bf16_params``) stand in for the generator's own."""
     gen_type = config["generator_type"]
     if gen_type == "ParallelWaveGANGenerator":
         return precision.call(generator, params, batch["z"], batch["c"])
@@ -131,6 +157,13 @@ def generator_forward(config: dict, generator, batch: dict,
         return precision.call(generator, params, batch["c"], batch["ds"],
                               batch["y"].shape[-1] // factor,
                               generator=seeded(batch["c"].device, *draws))
+    if gen_type == "VQVAE":
+        return precision.call(generator, params, batch["y_in"], batch.get("local"),
+                              batch.get("global"))
+    if gen_type == "UHiFiGANGenerator":
+        return precision.call(generator, params, batch["excitation"], batch["c"],
+                              generator=seeded(batch["c"].device, *draws),
+                              deterministic=not train)
     raise NotImplementedError(
         f"training {gen_type} is not ported to parallelwavegan_tpu_torch yet; "
         "see ROADMAP.md")
@@ -150,17 +183,32 @@ def discriminator_forward(config: dict, discriminator, y, batch: dict, key: str,
     return precision.call(discriminator, params, y)
 
 
-def split_durations(out) -> tuple:
-    """A generator's output as (wave, log-durations): the duration generator
-    gives both, any other its wave and None."""
-    return out if isinstance(out, tuple) else (out, None)
+def wave_of(out) -> torch.Tensor:
+    """The wave of a generator's output: the duration generator's and the
+    VQ-VAE's first output, any other's output."""
+    return out[0] if isinstance(out, tuple) else out
 
 
-def duration_loss(ds_, ds, metrics: dict) -> torch.Tensor:
-    """mean((ds_ - log(ds + 1))^2) over every position (JAX step.py:261-268)."""
-    loss = torch.mean((ds_ - torch.log(ds.float() + 1.0)) ** 2)
-    metrics["duration_loss"] = loss
-    return loss
+def own_loss(config: dict, criterion: Criterion, out, batch: dict, metrics: dict):
+    """(the wave, the generator's own loss before the auxiliary losses): the
+    duration generator's duration loss mean((ds_ - log(ds + 1))^2) over
+    every position (JAX step.py:261-268), the VQ-VAE's quantization loss
+    plus ``lambda_commit`` times its commitment loss (:240-260), 0 for any
+    other generator."""
+    gen_type = config["generator_type"]
+    if gen_type == "DiscreteSymbolDurationGenerator":
+        y_, ds_ = out
+        loss = torch.mean((ds_ - torch.log(batch["ds"].float() + 1.0)) ** 2)
+        metrics["duration_loss"] = loss
+        return y_, loss
+    if gen_type == "VQVAE":
+        y_, z_e, z_q = out
+        quantize = torch.mean((z_q - z_e.detach()) ** 2)
+        commit = torch.mean((z_e - z_q.detach()) ** 2)
+        metrics["quantization_loss"] = quantize
+        metrics["commitment_loss"] = commit
+        return y_, quantize + criterion.lambda_commit * commit
+    return out, 0.0
 
 
 def full_band(criterion: Criterion, y_) -> torch.Tensor:
@@ -252,6 +300,8 @@ class TrainStep:
     def __call__(self, batch: dict, train_g: bool, train_d: bool, step: int = 0) -> dict:
         crit, metrics, cfg = self.criterion, {}, self.config
         y, y_ = batch["y"], None
+        if cfg["generator_type"] == "VQVAE":
+            batch = vq_input(crit, batch)
         mixed = self.mixed
         batch_c = precision.to_bf16(batch) if mixed else batch
 
@@ -261,14 +311,14 @@ class TrainStep:
                                         (self.seed, step, stream), params)
             return precision.to_f32(out) if mixed else out
 
-        def gen(stream, params):
+        def gen(stream, params, train=True):
             out = generator_forward(cfg, self.generator, batch_c, (self.seed, step, stream),
-                                    params)
+                                    params, train)
             return precision.to_f32(out) if mixed else out
 
         if train_g:
-            y_, ds_ = split_durations(gen(NOISE_G, self._cast(self.generator)))
-            gen_loss = 0.0 if ds_ is None else duration_loss(ds_, batch["ds"], metrics)
+            y_, gen_loss = own_loss(cfg, crit, gen(NOISE_G, self._cast(self.generator)),
+                                    batch, metrics)
             aux_loss, y_ = aux_losses(crit, y_, y, metrics)
             gen_loss = (gen_loss + aux_loss) * crit.lambda_aux
             if train_d:
@@ -287,8 +337,8 @@ class TrainStep:
         if train_d:
             if self.update_prediction or not train_g:
                 with torch.no_grad():
-                    y_ = full_band(crit, split_durations(
-                        gen(NOISE_D, self._cast(self.generator)))[0])
+                    y_ = full_band(crit, wave_of(
+                        gen(NOISE_D, self._cast(self.generator), train=False)))
             p_d = self._cast(self.discriminator)
             p = dis(y, "real", STARTS_REAL, p_d)
             p_ = dis(y_, "fake", STARTS_FAKE, p_d)
@@ -311,9 +361,10 @@ def eval_step(config: dict, generator, discriminator, criterion: Criterion,
     as JAX's one key gives both."""
     metrics = {}
     y = batch["y"]
-    y_, ds_ = split_durations(
-        generator_forward(config, generator, batch, (*draws, NOISE_EVAL)))
-    gen_loss = 0.0 if ds_ is None else duration_loss(ds_, batch["ds"], metrics)
+    if config["generator_type"] == "VQVAE":
+        batch = vq_input(criterion, batch)
+    y_, gen_loss = own_loss(config, criterion, generator_forward(
+        config, generator, batch, (*draws, NOISE_EVAL), train=False), batch, metrics)
     aux_loss, y_ = aux_losses(criterion, y_, y, metrics)
     gen_loss = (gen_loss + aux_loss) * criterion.lambda_aux
     p_, p = (discriminator_forward(config, discriminator, v, batch, "eval",

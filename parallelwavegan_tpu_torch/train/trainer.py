@@ -39,7 +39,8 @@ from parallelwavegan_tpu_torch.train.step import (
     eval_step,
     full_band,
     generator_forward,
-    split_durations,
+    vq_input,
+    wave_of,
 )
 from parallelwavegan_tpu_torch.utils.checkpoint import (
     load_training_checkpoint,
@@ -205,9 +206,11 @@ class Trainer:
         dirname = os.path.join(self.outdir, "predictions", f"{self.steps}steps")
         os.makedirs(dirname, exist_ok=True)
         small = batch_to_device({k: v[:n] for k, v in batch.items()}, self.device)
+        if self.config["generator_type"] == "VQVAE":
+            small = vq_input(self.criterion, small)
         draws = (self.config.get("seed", 0), self.steps, NOISE_EVAL)
-        y_ = full_band(self.criterion, split_durations(generator_forward(
-            self.config, self.generator, small, draws))[0]).cpu().numpy()
+        y_ = full_band(self.criterion, wave_of(generator_forward(
+            self.config, self.generator, small, draws, train=False))).cpu().numpy()
         y = small["y"].cpu().numpy()
         fs = self.config["sampling_rate"]
         try:

@@ -43,6 +43,28 @@ def merge_args(config: dict, args, exclude: tuple = ("config",)) -> dict:
     return merged
 
 
+def validate_local_condition(config: dict) -> None:
+    """Raise unless a local-conditioned VQ-VAE's ``hop_size`` equals its
+    encoder's stride, prod(encoder downsample_scales): the local features
+    ride the hop grid and are concatenated onto the latent's, so the two
+    must be one grid (JAX utils/config.py:30-55)."""
+    if not config.get("use_local_condition", False):
+        return
+    if "VQVAE" not in config.get("generator_type", ""):
+        return
+    enc = config.get("generator_params", {}).get("encoder_conf") or {}
+    scales = enc.get("downsample_scales", [4, 4, 2, 2])
+    stride = 1
+    for s in scales:
+        stride *= int(s)
+    hop = config.get("hop_size")
+    if hop != stride:
+        raise ValueError(
+            f"use_local_condition requires hop_size == prod(encoder downsample_scales): "
+            f"hop_size={hop}, encoder stride={stride} ({list(scales)}) — the local "
+            "features and the VQ latent would sit on different grids")
+
+
 def write_config(path: str, config: dict) -> None:
     """``config`` as YAML where PyYAML imports, else as JSON."""
     try:

@@ -34,8 +34,13 @@ the predictor), the embeddings expanded on the host
 edge-padded to ``noise_len * noise_upsample_factor``, noise_len = (T - 1)
 // factor + 1 with no rounding to a multiple of 4 (the mel StyleMelGAN's
 differs). ``inference_batch`` refuses them, as JAX's ``_STREAMABLE``
-does. ``load_model`` runs on the GPU unless the caller asks for the CPU.
-Streaming and sharded decode are not ported yet (ROADMAP.md).
+does. The U-Net HiFi-GAN decodes a mel with its excitation (JAX
+``_inference_uhifigan``, :468-499): the mel edge-padded to the 32-frame
+bucket, the excitation cut or zero-padded to the padded length times
+prod(upsample_scales), the output trimmed. A VQ-VAE loads without stats
+(:653) and decodes through ``bin/decode.py``'s own loop (its ``encode`` and
+``decode``). ``load_model`` runs on the GPU unless the caller asks for
+the CPU. Streaming and sharded decode are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -127,22 +132,30 @@ class InferenceModel:
     DISCRETE = ("DiscreteSymbolHiFiGANGenerator", "DiscreteSymbolDurationGenerator",
                 "DiscreteSymbolStyleMelGANGenerator")
 
+    def _normalized(self, c: np.ndarray, normalize_before: bool) -> np.ndarray:
+        if not normalize_before:
+            return c
+        if self.mean is None:
+            raise ValueError("normalize_before needs registered stats")
+        return (c - self.mean) / self.scale
+
     @torch.inference_mode()
     def inference(self, c, normalize_before: bool = False,
-                  rng: torch.Generator | None = None, ds=None) -> np.ndarray:
+                  rng: torch.Generator | None = None, ds=None,
+                  excitation=None) -> np.ndarray:
         """mel (T', num_mels) -> waveform (T' * upsample_factor, out), or
         for a discrete-symbol generator unit ids (T', 1|2) -> waveform,
-        ``ds`` (T',) the duration generator's given durations.
+        ``ds`` (T',) the duration generator's given durations; the U-Net
+        HiFi-GAN takes the excitation (T' * hop samples, in any shape).
 
         A generator that takes noise gets it from ``rng``, a generator on
         the model's device (``_noise``)."""
-        if type(self.generator).__name__ in self.DISCRETE:
+        name = type(self.generator).__name__
+        if name in self.DISCRETE:
             return self._inference_discrete(np.asarray(c), rng, ds)
-        c = np.asarray(c, dtype=np.float32)
-        if normalize_before:
-            if self.mean is None:
-                raise ValueError("normalize_before needs registered stats")
-            c = (c - self.mean) / self.scale
+        c = self._normalized(np.asarray(c, dtype=np.float32), normalize_before)
+        if name == "UHiFiGANGenerator":
+            return self._inference_uhifigan(c, excitation)
         t = c.shape[0]
         up = self.upsample_factor
         style = self._style()
@@ -161,6 +174,19 @@ class InferenceModel:
             z = self._noise(shape, rng)
         y = self.forward_padded(c_p, z)
         return y.cpu().numpy()[: t * up]
+
+    def _inference_uhifigan(self, c: np.ndarray, excitation) -> np.ndarray:
+        """(mel (T', C), excitation) -> waveform (T' * factor, 1) (JAX
+        ``_inference_uhifigan``)."""
+        t = c.shape[0]
+        factor = self.generator.upsample_factor
+        pad_t = -(-t // self.BUCKET) * self.BUCKET
+        c = np.pad(c, ((0, pad_t - t), (0, 0)), mode="edge")
+        e = np.asarray(excitation, np.float32).reshape(-1)[: pad_t * factor]
+        e = np.pad(e, (0, pad_t * factor - len(e)))
+        y = self.generator(torch.from_numpy(e[None, None].copy()).to(self.device),
+                           torch.from_numpy(np.ascontiguousarray(c.T[None])).to(self.device))
+        return y[0].T.cpu().numpy()[: t * factor]
 
     def _bucket(self, t: int) -> int:
         return max(self.BUCKET, -(-t // self.BUCKET) * self.BUCKET)
@@ -214,11 +240,8 @@ class InferenceModel:
         name = type(self.generator).__name__
         if name not in self.BATCHABLE:
             raise ValueError(f"{name} does not support batched decode")
-        mels = [np.asarray(c, np.float32) for c in mels]
-        if normalize_before:
-            if self.mean is None:
-                raise ValueError("normalize_before needs registered stats")
-            mels = [(c - self.mean) / self.scale for c in mels]
+        mels = [self._normalized(np.asarray(c, np.float32), normalize_before)
+                for c in mels]
         lens = [c.shape[0] for c in mels]
         pad_t = -(-max(lens) // self.BUCKET) * self.BUCKET
         batch = np.stack([np.pad(c, ((0, pad_t - c.shape[0]), (0, 0)), mode="edge")
@@ -264,7 +287,7 @@ def load_model(checkpoint: str, config: dict | None = None,
         if os.path.exists(cand):
             stats = cand
     mean = scale = None
-    if stats is not None:
+    if stats is not None and generator_type != "VQVAE":
         mean, scale = _load_stats(stats)
         logging.info("Successfully registered stats as buffer.")
     pqmf = None

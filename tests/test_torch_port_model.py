@@ -141,7 +141,7 @@ def test_tail_refuses_a_training_forward():
 
 def test_registry_names_unported_models():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_model_class("UHiFiGANGenerator")
+        get_model_class("CausalHiFiGANGenerator")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         get_model_class("HiFiGANGenerator")(use_causal_conv=True)
 

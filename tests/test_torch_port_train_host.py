@@ -240,7 +240,7 @@ def test_optimizer_state_round_trips_and_unported_types_raise():
     again.load_state_dict(opt.state_dict())
     assert again.step_count == 3
     torch.testing.assert_close(again.state[tp[0]]["exp_avg"], opt.state[tp[0]]["exp_avg"])
-    for kind in ("AdamW", "SGD", "Lion"):
+    for kind in ("NAdam", "SGD", "Lion"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             build_optimizer(tp, kind, {})
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -487,10 +487,11 @@ def test_train_main_needs_a_card_unless_cpu_is_asked_for(train_args):
 
 @pytest.mark.parametrize("override,argv,what", [
     ({"distributed": True}, [], "distributed"),
-    ({"generator_optimizer_type": "AdamW"}, [], "optimizer AdamW"),
-    ({"generator_type": "VQVAE"}, [], "VQVAE"),
-    ({"generator_type": "UHiFiGANGenerator"}, [], "UHiFiGANGenerator"),
-    ({"use_local_condition": True}, [], "local conditioning"),
+    ({"generator_optimizer_type": "SGD"}, [], "optimizer SGD"),
+    ({"generator_scheduler_type": "CosineAnnealingLR"}, [], "scheduler CosineAnnealingLR"),
+    ({"generator_type": "HiFiGANGenerator", "generator_params": {"use_causal_conv": True}},
+     [], "causal HiFi-GAN"),
+    ({"discriminator_optimizer_type": "Lion"}, [], "optimizer Lion"),
 ])
 def test_unported_training_options_raise(tmp_path, train_args, override, argv, what):
     with open(tmp_path / "c.json") as f:
