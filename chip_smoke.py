@@ -388,6 +388,26 @@ Phases (any failure exits non-zero; nothing is caught):
    to the CPU's to 1e-5 relative, the checkpoint decodes 3 utterances with
    ``--use-f0-and-excitation`` (its default), and the yesno debug recipe
    trains 2 steps as it ships (AdamW, ExponentialLR).
+37. The decode surfaces on full-width random-init checkpoints, each held
+   within 2e-4 and 1e-4 max|reference| (waveforms before the 16-bit
+   rounding): HiFi-GAN v1 with ``--use-pallas-tail --streaming`` through
+   ``bin/decode.main`` on a dump of one 8183-frame (95 s) and one
+   200-frame utterance (K1: 3 calls for the long one, its 30 interior
+   windows a batch of 32 at (32, 24576, 128); 1 for the short one, which
+   falls back to one-shot), against the plain streamed decode and against
+   the forward of the exact-length mel; PWG v1 as it ships (K3, 90
+   launches) and MB-MelGAN v2 with ``--use-pallas-stacks`` (K6, 27
+   launches) streamed on one 2500-frame utterance each, against their
+   plain streamed decodes (PWG with the same noise) and the exact-length
+   forwards; ``inference_sharded`` over ``make_mesh([cuda:0] * 4)``
+   against ``inference`` and ``inference_batch`` over ``[cuda:0] * 2``
+   against no mesh (K1); the causal HiFi-GAN v1 (``use_pallas_tail`` set,
+   which its gate ignores: no K1 launch) one-shot and streamed on the card
+   against the CPU; ``bin/evaluate_mcd.main`` between the streamed and
+   one-shot decodes of two utterances of 160 and 192 frames (MCD < 0.01
+   dB). Warm (second calls): the 95 s utterance's one-shot and streamed
+   wall time and peak device memory, and K1 at (32, 24576, 128) against
+   its plain version beside its split-TF32 bound.
 
 Phase 3 also decodes HiFi-GAN v1 with ``use_pallas_mrf: true`` in the
 config (K2 called twice per utterance, stages 2 and 3, 8 launches, every
@@ -1015,10 +1035,11 @@ def phase_kernel(card: str) -> dict:
     return record
 
 
-def _write_inputs(gen_type: str, generator_params: dict, variants: dict) -> dict:
-    """Under WORK/<gen_type>: a random-init checkpoint, stats, an npy dump
-    directory of the utterances, and one config per variant (overrides of
-    ``generator_params``)."""
+def _write_inputs(gen_type: str, generator_params: dict, variants: dict,
+                  frames=UTT_FRAMES, name: str | None = None) -> dict:
+    """Under WORK/<name or gen_type>: a random-init checkpoint, stats, an
+    npy dump directory of utterances of ``frames`` frames, and one config
+    per variant (overrides of ``generator_params``)."""
     import numpy as np
     import torch
 
@@ -1026,7 +1047,7 @@ def _write_inputs(gen_type: str, generator_params: dict, variants: dict) -> dict
     from parallelwavegan_tpu_torch.ops.mel import logmelfilterbank
     from parallelwavegan_tpu_torch.utils.checkpoint import save_checkpoint
 
-    root = os.path.join(WORK, gen_type)
+    root = os.path.join(WORK, name or gen_type)
     shutil.rmtree(root, ignore_errors=True)
     exp, dump = os.path.join(root, "exp"), os.path.join(root, "dump")
     os.makedirs(exp)
@@ -1039,13 +1060,13 @@ def _write_inputs(gen_type: str, generator_params: dict, variants: dict) -> dict
     rs = np.random.RandomState(SEED)
     hop, fs = V1_FEATURES["hop_size"], V1_FEATURES["sampling_rate"]
     mels = []
-    for i, frames in enumerate(UTT_FRAMES):
-        n = frames * hop
+    for i, n_frames in enumerate(frames):
+        n = n_frames * hop
         t = np.arange(n) / fs
         f0 = 110.0 + 40.0 * i
         audio = 0.3 * np.sin(2 * np.pi * f0 * t) + 0.05 * rs.randn(n)
         feats = {k: v for k, v in V1_FEATURES.items() if k != "sampling_rate"}
-        mel = logmelfilterbank(audio, fs, **feats)[:frames]
+        mel = logmelfilterbank(audio, fs, **feats)[:n_frames]
         np.save(os.path.join(dump, f"utt{i}-feats.npy"), mel.astype(np.float32))
         mels.append(mel)
     allm = np.concatenate(mels)
@@ -1053,11 +1074,11 @@ def _write_inputs(gen_type: str, generator_params: dict, variants: dict) -> dict
             np.stack([allm.mean(0), allm.std(0)]).astype(np.float32))
 
     paths = {"ckpt": ckpt, "dump": dump, "root": root}
-    for name, overrides in variants.items():
+    for variant, overrides in variants.items():
         cfg = dict(V1_FEATURES, format="npy", generator_type=gen_type,
                    generator_params=dict(generator_params, **overrides))
-        paths[name] = os.path.join(exp, f"config_{name}.json")
-        with open(paths[name], "w") as f:
+        paths[variant] = os.path.join(exp, f"config_{variant}.json")
+        with open(paths[variant], "w") as f:
             json.dump(cfg, f)
     return paths
 
@@ -5539,13 +5560,15 @@ def _decode_floats(args: list) -> tuple:
     return res, wavs
 
 
-def _floats_agree(label: str, got: dict, want: dict, lengths: dict,
-                  relative: bool = True) -> float:
-    """max|got - want| over the utterances; fails on a wrong set or length,
-    a non-finite or silent output, or a difference above 2e-4 or (with
-    ``relative``) 1e-4 of max|want|."""
+def _floats_agree(label: str, got: dict, want: dict, lengths: dict | None = None,
+                  relative: bool = True, versus: str = "kernel vs plain") -> float:
+    """max|got - want| over the utterances (of ``lengths`` samples, by
+    default want's); fails on a wrong set or length, a non-finite or silent
+    output, or a difference above 2e-4 or (with ``relative``) 1e-4 of
+    max|want|."""
     import numpy as np
 
+    lengths = lengths or {k: len(v) for k, v in want.items()}
     if sorted(got) != sorted(want) or sorted(want) != sorted(lengths):
         _fail(f"{label}: waveforms {sorted(got)} / {sorted(want)}")
     err = ratio = 0.0
@@ -5556,11 +5579,11 @@ def _floats_agree(label: str, got: dict, want: dict, lengths: dict,
             _fail(f"{label}: {k} shapes {a.shape} / {b.shape}, expected {n}")
         e = float(np.abs(a - b).max())
         err, ratio = max(err, e), max(ratio, e / float(np.abs(b).max()))
-    print(f"{label}, kernel vs plain (float, before the 16-bit rounding): max|diff| = "
-          f"{err:.3e} (tol {TOL}), {ratio:.2e} of max|plain|"
+    print(f"{label}, {versus} (float, before the 16-bit rounding): max|diff| = "
+          f"{err:.3e} (tol {TOL}), {ratio:.2e} of max|{'plain' if versus.endswith('plain') else 'reference'}|"
           + (" (tol 1e-4)" if relative else ""))
     if not (err <= TOL and (ratio <= 1e-4 or not relative)):
-        _fail(f"{label}: the kernel decode disagrees with the plain one")
+        _fail(f"{label}: {versus} disagree")
     return err
 
 
@@ -6360,6 +6383,390 @@ def phase_vq_uhifigan(card: str) -> dict:
     return out
 
 
+# phase 37: a 95 s utterance at hop 256 and 22.05 kHz and a short one that
+# falls back to one-shot; PWG v1's and MB-MelGAN v2's streamed utterance;
+# two utterances of about 2 s, multiples of the 32-frame bucket (so that
+# one-shot is the exact-length forward), for evaluate_mcd; the causal one
+SURFACE_FRAMES = (8183, 200)
+SURFACE_STREAM_FRAMES = 2500
+MCD_FRAMES = (160, 192)
+CAUSAL_FRAMES = 200
+SHORT_CHUNK = ["--chunk-frames", "64", "--context-frames", "48"]
+
+
+def _dump_mels(p: dict, frames) -> dict:
+    """{wav name decode writes: the dump's mel} of ``_write_inputs``' dump."""
+    import numpy as np
+
+    return {f"utt{i}-feats_gen.wav": np.load(os.path.join(p["dump"], f"utt{i}-feats.npy"))
+            for i in range(len(frames))}
+
+
+def _exact_forward(model, c, z=None):
+    """``forward_padded`` of the whole normalised mel c at its exact length,
+    on the model's device, as (T * upsample_factor,)."""
+    import torch
+
+    with torch.inference_mode():
+        x = torch.from_numpy(c).to(model.device)
+        return model.forward_padded(x, z)[:, 0].cpu().numpy()
+
+
+def _streamed_pair(card: str, label: str, p: dict, runs: dict, counter, expect: dict,
+                   extra=()) -> dict:
+    """``bin/decode.main --streaming`` of p's dump once per run (name: (config,
+    flags)), the launches of ``counter`` reset just before and read just
+    after each; fails unless they are ``expect``. Returns {name: waveforms}."""
+    import numpy as np
+
+    wavs, got = {}, {}
+    for name, (config, flags) in runs.items():
+        _reset_launch_counts()
+        np.random.seed(SEED)  # the same noise in every run
+        res, wavs[name] = _decode_floats(
+            ["--dumpdir", p["dump"], "--checkpoint", p["ckpt"], "--normalize-before",
+             "--device", "cuda", "--streaming", "--config", p[config], "--outdir",
+             os.path.join(p["root"], f"wav_{name}"), *flags, *extra])
+        got[name] = counter.launches
+        print(f"main path [{label} streamed, {name}]: launches = {got[name]}; RTF "
+              f"{_rtfs(res)} on {card}")
+    if got != expect:
+        _fail(f"{label} streaming: launches {got}, expected {expect}")
+    return wavs
+
+
+def _past_int32(card: str) -> dict:
+    """K3, K6 and K1 on a batch whose last row starts past 2**31 elements of
+    its largest tensor (the kernels' offsets are 64-bit; what streaming with
+    --chunk-frames 2048 gives K3 at a full batch of 64 windows), the first
+    and last rows against their plain versions on B = 1 slices; one kernel
+    call each, random weights of gain about one. Returns the max|diff| of
+    each kernel."""
+    import numpy as np
+    import torch
+
+    from parallelwavegan_tpu_torch.ops.kernels.hifigan_tail import (
+        fused_hifigan_tail,
+        hifigan_tail_reference,
+        with_fragments,
+    )
+    from parallelwavegan_tpu_torch.ops.kernels.melgan_stack import (
+        fused_melgan_stacks,
+        melgan_stacks_reference,
+    )
+    from parallelwavegan_tpu_torch.ops.kernels.wavenet import (
+        fused_wavenet_stack,
+        wavenet_stack_reference,
+    )
+
+    rs = np.random.RandomState(SEED + 37)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy((rs.randn(*shape) * scale).astype(np.float32)).to("cuda")
+
+    def big(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def held(label, rows, run, plain):
+        """run() on the whole batch; its rows 0 and rows - 1 against
+        plain(b) on row b alone."""
+        with torch.inference_mode():
+            got = run()
+            got = [g[[0, -1]] for g in (got if isinstance(got, tuple) else (got,))]
+            err = 0.0
+            for i, b in enumerate((0, rows - 1)):
+                want = plain(b)
+                for g, w in zip(got, want if isinstance(want, tuple) else (want,)):
+                    e, _, ok = _within(g[i: i + 1], w)
+                    err = max(err, e)
+                    if not ok:
+                        _fail(f"{label}: row {b} disagrees with its plain version ({e:.3e})")
+        print(f"{label}: rows 0 and {rows - 1} against the plain version on B = 1: "
+              f"max|diff| = {err:.3e} (tol {TOL}) on {card}")
+        return err
+
+    errs = {}
+    # K3: (64, 557056, 64) with c of 80 channels, one v1 layer (d = 512)
+    b, t, ch, ca = 64, (2048 + 2 * 64) * 256, 64, 80
+    x, c = big(b, t, ch), big(b, t, ca)
+    w = {"wconv": randn(1, 3, ch, 2 * ch, scale=(3 * ch) ** -0.5),
+         "bconv": randn(1, 2 * ch, scale=0.1), "waux": randn(1, ca, 2 * ch, scale=ca ** -0.5),
+         "wskip": randn(1, ch, ch, scale=ch ** -0.5), "bskip": randn(1, ch, scale=0.1),
+         "wres": randn(1, ch, ch, scale=ch ** -0.5), "bres": randn(1, ch, scale=0.1)}
+    errs["k3"] = held(f"K3 past 2**31 elements {(b, t, ch)} (aux {ca})", b,
+                      lambda: fused_wavenet_stack(x, c, w, (512,)),
+                      lambda r: wavenet_stack_reference(x[r: r + 1], c[r: r + 1], w, (512,)))
+    del x, c
+    torch.cuda.empty_cache()
+    # K6: (64, 700000, 48), one stack (d = 27) and the final conv to 4
+    b, t, ch = 64, 700000, 48
+    x = big(b, t, ch)
+    stacks = [{"wd": randn(3, ch, ch, scale=(3 * ch) ** -0.5), "bd": randn(ch, scale=0.1),
+               "w1": randn(1, ch, ch, scale=ch ** -0.5), "b1": randn(ch, scale=0.1),
+               "ws": randn(1, ch, ch, scale=ch ** -0.5), "bs": randn(ch, scale=0.1),
+               "dilation": 27}]
+    fin = (randn(7, ch, 4, scale=0.3 * (7 * ch) ** -0.5), randn(4, scale=0.1))
+    errs["k6"] = held(f"K6 past 2**31 elements {(b, t, ch)}", b,
+                      lambda: fused_melgan_stacks(x, stacks, final=fin),
+                      lambda r: melgan_stacks_reference(x[r: r + 1], stacks, final=fin))
+    del x
+    torch.cuda.empty_cache()
+    # K1: (64, 262656, 128) -> one stride-2 stage to 64 channels with one
+    # residual unit -> the output conv; each stage's tensors past 2**31
+    b, t0 = 64, 2 ** 18 + 512
+    x = big(b, t0, 128)
+    blocks = with_fragments([{"w1": randn(1, 3, 64, 64, scale=(3 * 64) ** -0.5),
+                              "b1": randn(1, 64, scale=0.1),
+                              "w2": randn(1, 3, 64, 64, scale=(3 * 64) ** -0.5),
+                              "b2": randn(1, 64, scale=0.1), "dilations": (1,)}])
+    stages = [{"deconv_w": randn(4, 128, 64, scale=256 ** -0.5), "deconv_b": randn(64, scale=0.1),
+               "stride": 2, "padding": 1, "blocks": blocks}]
+    fw, fb = randn(7, 64, 1, scale=0.3 * (7 * 64) ** -0.5), randn(1, scale=0.1)
+    errs["k1"] = held(f"K1 past 2**31 elements {(b, t0, 128)} -> {(b, 2 * t0, 64)}", b,
+                      lambda: fused_hifigan_tail(x, stages, fw, fb),
+                      lambda r: hifigan_tail_reference(x[r: r + 1], stages, fw, fb))
+    del x
+    torch.cuda.empty_cache()
+    return errs
+
+
+def phase_decode_surfaces(card: str) -> dict:
+    """Streaming, sharded and mesh-batched decode, the causal HiFi-GAN and
+    evaluate_mcd on the card (module docstring, phase 37)."""
+    import numpy as np
+    import torch
+
+    import parallelwavegan_tpu_torch.models.hifigan as hifigan_mod
+    from parallelwavegan_tpu_torch.bin import evaluate_mcd
+    from parallelwavegan_tpu_torch.ops.kernels.hifigan_mrf import fused_hifigan_mrf
+    from parallelwavegan_tpu_torch.ops.kernels.hifigan_tail import (
+        fused_hifigan_tail,
+        hifigan_tail_reference,
+    )
+    from parallelwavegan_tpu_torch.ops.kernels.melgan_stack import fused_melgan_stacks
+    from parallelwavegan_tpu_torch.ops.kernels.wavenet import fused_wavenet_stack
+    from parallelwavegan_tpu_torch.parallel.mesh import make_mesh
+    from parallelwavegan_tpu_torch.utils.model import load_model
+
+    t_phase = time.perf_counter()
+    past = _past_int32(card)
+    out = {"k1_launches": 0, "k1_errs": [past["k1"]], "k3_errs": [past["k3"]],
+           "k6_errs": [past["k6"]]}
+
+    def loaded(p, config, **overrides):
+        with open(p[config]) as f:
+            cfg = json.load(f)
+        cfg["generator_params"].update(overrides)
+        return load_model(p["ckpt"], cfg, device="cuda")
+
+    # 1. HiFi-GAN v1 streamed through bin/decode.main with and without K1
+    p = _write_inputs("HiFiGANGenerator", V1_GENERATOR, {"tail": {"use_pallas_tail": True},
+                                                          "plain": {}},
+                      frames=SURFACE_FRAMES, name="surfaces_hifigan")
+    lengths = {f"utt{i}-feats_gen.wav": n * V1_FEATURES["hop_size"]
+               for i, n in enumerate(SURFACE_FRAMES)}
+    wavs = _streamed_pair(card, "HiFi-GAN v1", p, {
+        "tail": ("tail", ["--use-pallas-tail"]), "plain": ("plain", [])},
+        fused_hifigan_tail, {"tail": 4, "plain": 0})
+    out["k1_launches"] += 4
+    out["k1_errs"].append(_floats_agree("HiFi-GAN v1 streamed decode", wavs["tail"],
+                                        wavs["plain"], lengths))
+    model, plain = loaded(p, "tail"), loaded(p, "plain")
+    mels = {k: model._normalized(m, True) for k, m in _dump_mels(p, SURFACE_FRAMES).items()}
+    # the long utterance against the forward of its exact-length mel; the
+    # short one fell back to one-shot, which pads to the 32-frame bucket
+    _floats_agree("HiFi-GAN v1 streamed decode (K1)", wavs["tail"],
+                  {k: _exact_forward(model, c) if len(c) > 256 + 64 else
+                   model.inference(c)[:, 0] for k, c in mels.items()},
+                  versus="vs the exact-length forward (K1; one-shot for the short one)")
+    long = mels["utt0-feats_gen.wav"]
+    stats = {}
+    for label, fn in (("one-shot", lambda: model.inference(long)),
+                      ("streaming", lambda: model.inference_streaming(long))):
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        stats[label] = (time.perf_counter() - t0, torch.cuda.max_memory_allocated(), held)
+    for label, (sec, peak, held) in stats.items():
+        print(f"time [HiFi-GAN v1 {label} decode of {SURFACE_FRAMES[0]} frames "
+              f"({SURFACE_FRAMES[0] * V1_FEATURES['hop_size'] / V1_FEATURES['sampling_rate']:.1f}"
+              f" s of audio) with K1, second call, host clock]: {sec * 1e3:.1f} ms; peak "
+              f"device memory {peak / 2**30:.3f} GiB ({held / 2**30:.3f} GiB held before "
+              f"the call) on {card}")
+    # K1 at the interior windows' shape, from the streamed decode's own input
+    captured, real = [], hifigan_mod.fused_hifigan_tail
+
+    def keep(x, *args, **kwargs):
+        if x.shape[0] > 1:
+            captured.append(x.clone())
+        return real(x, *args, **kwargs)
+
+    hifigan_mod.fused_hifigan_tail = keep
+    try:
+        model.inference_streaming(long)
+    finally:
+        hifigan_mod.fused_hifigan_tail = real
+    if [tuple(x.shape) for x in captured] != [(32, 24576, 128)]:
+        _fail(f"streamed K1 inputs {[tuple(x.shape) for x in captured]}, expected "
+              "[(32, 24576, 128)]")
+    x, gen = captured[0], model.generator
+    w, plain_w = gen._tail_cache, gen.tail_weights()
+
+    def k1():
+        return fused_hifigan_tail(x, w["stages"], w["final_w"], w["final_b"],
+                                  slope=gen.slope, pre_blocks=w["pre_blocks"])
+
+    def k1_plain():
+        return hifigan_tail_reference(x, plain_w["stages"], plain_w["final_w"],
+                                      plain_w["final_b"], slope=gen.slope,
+                                      pre_blocks=plain_w["pre_blocks"])
+
+    with torch.inference_mode():
+        e, r, ok = _within(k1(), k1_plain())
+        print(f"K1 vs plain [streamed interior windows (32, 24576, 128), decode's weights]: "
+              f"max|diff| = {e:.3e} (tol {TOL}), {r:.2e} of max|plain| (tol 1e-4)")
+        if not ok:
+            _fail("K1 at the streamed interior windows disagrees with its plain version")
+        out["k1_errs"].append(e)
+        ms, plain_ms = _median_ms(k1, reps=5), _median_ms(k1_plain, reps=5)
+    rec = _tail_work(x, plain_w)
+    fp32_ms = _split_tf32_bound(rec)
+    out["k1_stream"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": rec["bound_ms"]}
+    print(f"time [K1, streamed interior windows (32, 24576, 128), split kept, median of 5, "
+          f"CUDA events]: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{rec['bound_ms']:.3f} ms at the split-TF32 rate (3 x {rec['flops'] / 1e9:.1f} "
+          f"GFLOP / 495 TFLOP/s; {rec['bound_ms'] / ms:.1%} of it), {fp32_ms:.3f} ms at the "
+          f"float32 rate on {card}")
+    del captured, x
+
+    # 2. inference_sharded over [cuda:0] x 4 and inference_batch over
+    # [cuda:0] x 2, each with K1 and plain
+    c = long[:2000]
+    batch = [long[:300], long[300:500], long[500:577]]
+    for label, mesh, run, ref in (
+            ("inference_sharded over [cuda:0] x 4", make_mesh(["cuda:0"] * 4),
+             lambda m, mesh: {"u": m.inference_sharded(c, mesh)[:, 0]},
+             lambda m: {"u": m.inference(c)[:, 0]}),
+            ("inference_batch over [cuda:0] x 2", make_mesh(["cuda:0"] * 2),
+             lambda m, mesh: {i: y[:, 0] for i, y in enumerate(m.inference_batch(batch, mesh=mesh))},
+             lambda m: {i: y[:, 0] for i, y in enumerate(m.inference_batch(batch))})):
+        _reset_launch_counts()
+        got = run(model, mesh)
+        launches = fused_hifigan_tail.launches
+        print(f"main path [HiFi-GAN v1 {label}]: K1 calls = {launches} on {card}")
+        if launches != 1:
+            _fail(f"HiFi-GAN v1 {label}: K1 calls {launches}, expected 1 (one batch)")
+        out["k1_launches"] += launches
+        out["k1_errs"].append(_floats_agree(f"HiFi-GAN v1 {label}", got, run(plain, mesh)))
+        _floats_agree(f"HiFi-GAN v1 {label} (K1)", got, ref(model),
+                      versus="vs " + ("inference" if "sharded" in label else "no mesh"))
+    del model, plain
+    shutil.rmtree(p["root"])
+
+    # 3. PWG v1 as it ships (K3) and MB-MelGAN v2 with --use-pallas-stacks
+    # (K6), streamed on one 2500-frame utterance each
+    frames = (SURFACE_STREAM_FRAMES,)
+    lengths = {"utt0-feats_gen.wav": SURFACE_STREAM_FRAMES * V1_FEATURES["hop_size"]}
+    p = _write_inputs("ParallelWaveGANGenerator", V1_PWG_GENERATOR,
+                      {"stack": {}, "plain": {"use_pallas_stack_train": False}},
+                      frames=frames, name="surfaces_pwg")
+    wavs = _streamed_pair(card, "PWG v1", p, {"stack": ("stack", []), "plain": ("plain", [])},
+                          fused_wavenet_stack, {"stack": 90, "plain": 0})
+    out["k3_launches"] = 90  # 3 forwards (first window, a batch of 8, last) x 30 layers
+    out["k3_errs"].append(_floats_agree("PWG v1 streamed decode", wavs["stack"], wavs["plain"],
+                                        lengths))
+    model = loaded(p, "stack")
+    c = model._normalized(_dump_mels(p, frames)["utt0-feats_gen.wav"], True)
+    np.random.seed(SEED)  # the noise decode drew
+    z = model._noise((c.shape[0] * model.upsample_factor,), None)
+    _floats_agree("PWG v1 streamed decode (K3)", wavs["stack"],
+                  {"utt0-feats_gen.wav": _exact_forward(model, c, z)},
+                  versus="vs the exact-length forward (K3)")
+    del model
+    shutil.rmtree(p["root"])
+    p = _write_inputs("MelGANGenerator", V2_MB_GENERATOR, {"config": {}}, frames=frames,
+                      name="surfaces_mb")
+    wavs = _streamed_pair(card, "MB-MelGAN v2", p, {
+        "stacks": ("config", ["--use-pallas-stacks"]), "plain": ("config", [])},
+        fused_melgan_stacks, {"stacks": 27, "plain": 0})
+    out["k6_launches"] = 27  # 3 forwards x 9 launches (stages of 96 and 48 channels)
+    out["k6_errs"].append(_floats_agree("MB-MelGAN v2 streamed decode", wavs["stacks"],
+                                        wavs["plain"], lengths))
+    model = loaded(p, "config", use_pallas_stacks=True)
+    c = model._normalized(_dump_mels(p, frames)["utt0-feats_gen.wav"], True)
+    _floats_agree("MB-MelGAN v2 streamed decode (K6)", wavs["stacks"],
+                  {"utt0-feats_gen.wav": _exact_forward(model, c)},
+                  versus="vs the exact-length forward (K6)")
+    del model
+    shutil.rmtree(p["root"])
+
+    # 4. the causal HiFi-GAN v1, use_pallas_tail set (its gate ignores it),
+    # one-shot and streamed on the card against the CPU
+    p = _write_inputs("HiFiGANGenerator", dict(V1_GENERATOR, use_causal_conv=True),
+                      {"causal": {"use_pallas_tail": True}}, frames=(CAUSAL_FRAMES,),
+                      name="surfaces_causal")
+    card_wavs = {}
+    for mode, flags in (("one-shot", []), ("streamed", ["--streaming", *SHORT_CHUNK])):
+        _reset_launch_counts()
+        _, card_wavs[mode] = _decode_floats(
+            ["--dumpdir", p["dump"], "--checkpoint", p["ckpt"], "--normalize-before",
+             "--device", "cuda", "--config", p["causal"], "--use-pallas-tail", "--outdir",
+             os.path.join(p["root"], mode), *flags])
+        if fused_hifigan_tail.launches or fused_hifigan_mrf.launches:
+            _fail(f"causal HiFi-GAN v1 {mode}: a kernel ran")
+    with open(p["causal"]) as f:
+        cpu = load_model(p["ckpt"], json.load(f), device="cpu")
+    name = "utt0-feats_gen.wav"
+    c = cpu._normalized(_dump_mels(p, (CAUSAL_FRAMES,))[name], True)
+    t0 = time.perf_counter()
+    want = {"one-shot": {name: cpu.inference(c)[:, 0]},
+            "streamed": {name: _exact_forward(cpu, c)}}
+    print(f"causal HiFi-GAN v1 on the CPU ({torch.get_num_threads()} threads): one-shot and "
+          f"exact-length forwards of {CAUSAL_FRAMES} frames in {time.perf_counter() - t0:.1f} s")
+    for mode in ("one-shot", "streamed"):
+        _floats_agree(f"causal HiFi-GAN v1 {mode} decode (no kernel)", card_wavs[mode],
+                      want[mode], versus="the card vs the CPU" + (
+                          "'s exact-length forward" if mode == "streamed" else ""))
+    del cpu
+    shutil.rmtree(p["root"])
+
+    # 5. evaluate_mcd between streamed and one-shot decodes (K1)
+    p = _write_inputs("HiFiGANGenerator", V1_GENERATOR, {"tail": {"use_pallas_tail": True}},
+                      frames=MCD_FRAMES, name="surfaces_mcd")
+    wavs, dirs = {}, {}
+    for mode, flags in (("one-shot", []), ("streamed", ["--streaming", *SHORT_CHUNK])):
+        dirs[mode] = os.path.join(p["root"], mode)
+        _reset_launch_counts()
+        _, wavs[mode] = _decode_floats(
+            ["--dumpdir", p["dump"], "--checkpoint", p["ckpt"], "--normalize-before",
+             "--device", "cuda", "--config", p["tail"], "--use-pallas-tail", "--outdir",
+             dirs[mode], *flags])
+        expect = len(MCD_FRAMES) * (3 if flags else 1)
+        if fused_hifigan_tail.launches != expect:
+            _fail(f"HiFi-GAN v1 {mode} decode for MCD: K1 calls {fused_hifigan_tail.launches}"
+                  f", expected {expect}")
+        out["k1_launches"] += expect
+    _floats_agree("HiFi-GAN v1 decode for MCD (K1)", wavs["streamed"], wavs["one-shot"],
+                  versus="streamed (chunk 64, context 48) vs one-shot")
+    res = evaluate_mcd.main(["--wavdir", dirs["streamed"], "--gt-wavdir", dirs["one-shot"],
+                             "--n_jobs", "2", "--verbose", "0"])
+    mcds = res["utt2mcd"]
+    print(f"evaluate_mcd, streamed vs one-shot decodes of {MCD_FRAMES} frames: "
+          + ", ".join(f"{u} {v:.6f} dB" for u, v in sorted(mcds.items()))
+          + f"; mean {res['mean']:.6f} dB (limit 0.01)")
+    if len(mcds) != len(MCD_FRAMES) or not max(mcds.values()) < 0.01:
+        _fail(f"evaluate_mcd: {mcds}")
+    shutil.rmtree(p["root"])
+    torch.cuda.empty_cache()
+    print(f"phase 37 (decode surfaces) took {time.perf_counter() - t_phase:.1f} s on {card}")
+    return out
+
+
 def main() -> None:
     pkg = os.path.join(ROOT, "parallelwavegan_tpu_torch")
     if not os.path.isdir(pkg):
@@ -6474,6 +6881,11 @@ def main() -> None:
     torch.cuda.synchronize()
     k6["errs"] += vq["k6"]["errs"]  # K6 on the VQ-VAE decoder's stages
     k7["errs"] += vq["k7_errs"]  # K7 at the VQ-VAE decoder's training stages
+    surf = phase_decode_surfaces(card)
+    torch.cuda.synchronize()
+    kern["errs"] += surf["k1_errs"]  # K1 in the streamed, sharded and mesh-batched decodes
+    wn["stack"]["errs"] += surf["k3_errs"]  # K3 in PWG v1's streamed decode
+    k6["errs"] += surf["k6_errs"]  # K6 in MB-MelGAN v2's streamed decode
     shutil.rmtree(WORK, ignore_errors=True)
 
     def entry(name, source, replaces, launches, rec):
@@ -6488,14 +6900,16 @@ def main() -> None:
 
     record = {"kernels": [
         entry("fused_hifigan_tail", "hifigan_tail.cu", "hifigan_tail.py:256",
-              dec["launches"] + recipe["k1_launches"] + hubert["k1_launches"], kern),
+              dec["launches"] + recipe["k1_launches"] + hubert["k1_launches"]
+              + surf["k1_launches"], kern),
         entry("fused_wavenet_stack", "wavenet.cu", "wavenet_stack.py:199",
-              pwg["stack_launches"] + recipe["k3_launches"], wn["stack"]),
+              pwg["stack_launches"] + recipe["k3_launches"] + surf["k3_launches"],
+              wn["stack"]),
         entry("fused_gated_resblock", "wavenet.cu", "wavenet.py:280",
               pwg["block_launches"], wn["block"]),
         entry("fused_melgan_stacks", "melgan_stack.cu", "melgan_stack.py:285",
               mb["launches"] + mb_train["k6_launches"] + recipe["k6_launches"]
-              + vq["k6_launches"], k6),
+              + vq["k6_launches"] + surf["k6_launches"], k6),
         entry("fused_hifigan_mrf", "hifigan_tail.cu",
               "hifigan_mrf.py:178 and :399", dec["mrf_launches"], k2),
         entry("fused_tade_blocks (K8a)", "tade.cu", "tade_decode.py:366",

@@ -38,17 +38,24 @@ decoded, its wave trimmed to the input's length; the indices of each
 utterance, ceil(T / (downsample x in_channels)) of them, go to the
 symbol file ``text`` in the output directory. Its decoder reaches K6
 through ``decoder_conf.use_pallas_stacks`` in the config.
-RTF is measured per utterance (per batch with
-``--batch-size``) with the device synchronised before each clock read.
-Streaming and sharded decode are not ported yet and are refused by name
-(ROADMAP.md). float32 convolutions run without TF32, as the JAX package
-computes in full float32.
+``--streaming`` decodes each utterance in windows of ``--chunk-frames``
+with ``--context-frames`` of context (``InferenceModel.inference_streaming``);
+``--sharded`` splits each utterance's time axis over every visible card
+(``inference_sharded`` over ``parallel/mesh.py make_mesh()``; with
+``--device cpu``, or one card, the mesh has one device and the decode
+falls back to the one-shot path), or with ``--batch-size`` > 1 each
+batch's rows. The dispatch is JAX's (:178-212): ``--batch-size`` > 1
+first, then ``--streaming``, then ``--sharded``, then one-shot. RTF is
+measured per utterance (per batch with ``--batch-size``) with the device
+synchronised before each clock read. float32 convolutions run without
+TF32, as the JAX package computes in full float32.
 
     python -m parallelwavegan_tpu_torch.bin.decode \
         (--dumpdir DUMP | --feats-scp feats.scp [--segments S]) \
         [--batch-size N] --outdir OUT --checkpoint CKPT.pkl [--config CONFIG] \
         [--normalize-before] [--use-pallas-tail] [--use-pallas-stack] \
-        [--use-pallas-stacks] [--use-f0-and-excitation] [--device cuda]
+        [--use-pallas-stacks] [--use-f0-and-excitation] [--streaming]
+        [--sharded] [--chunk-frames 256] [--context-frames 64] [--device cuda]
 """
 
 from __future__ import annotations
@@ -69,6 +76,7 @@ from parallelwavegan_tpu_torch.data.datasets import (
     MelSCPDataset,
 )
 from parallelwavegan_tpu_torch.ops.pqmf import PQMF
+from parallelwavegan_tpu_torch.parallel.mesh import make_mesh
 from parallelwavegan_tpu_torch.utils.config import load_config, validate_local_condition
 from parallelwavegan_tpu_torch.utils.io import read_hdf5, write_wav
 from parallelwavegan_tpu_torch.utils.model import load_model
@@ -77,11 +85,6 @@ from parallelwavegan_tpu_torch.utils.model import load_model
 def _synchronize(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to parallelwavegan_tpu_torch yet; see ROADMAP.md")
 
 
 def main(argv=None) -> dict:
@@ -116,16 +119,19 @@ def main(argv=None) -> dict:
     parser.add_argument("--use-f0-and-excitation", default=None, action="store_true",
                         help="read f0 and excitation beside the mel (on by default "
                              "for UHiFiGANGenerator)")
-    refused = {"streaming": "streaming decode", "sharded": "sharded decode"}
-    for dest, what in refused.items():
-        parser.add_argument(f"--{dest}", default=None, action="store_true",
-                            help=f"{what}: not ported yet")
+    parser.add_argument("--streaming", default=False, action="store_true",
+                        help="chunked decode: fixed window shapes and O(chunk) "
+                             "device memory for unbounded lengths (HiFiGAN/MelGAN/"
+                             "PWG families)")
+    parser.add_argument("--sharded", default=False, action="store_true",
+                        help="split each utterance's time axis over every visible "
+                             "card (equal to one-shot decode); with --batch-size "
+                             ">1 the batch's rows instead")
+    parser.add_argument("--chunk-frames", type=int, default=256)
+    parser.add_argument("--context-frames", type=int, default=64)
     parser.add_argument("--device", default="cuda", type=str)
     parser.add_argument("--verbose", type=int, default=1)
     args = parser.parse_args(argv)
-    for dest, what in refused.items():
-        if getattr(args, dest) is not None:
-            raise _not_ported(f"{what} (--{dest})")
     if (args.feats_scp is not None) == (args.dumpdir is not None):
         raise ValueError("Please specify either --dumpdir or --feats-scp.")
 
@@ -188,17 +194,32 @@ def main(argv=None) -> dict:
 
     os.makedirs(args.outdir, exist_ok=True)
     fs = config["sampling_rate"]
+    mesh = None
+    if args.sharded:
+        # every visible card; on the CPU the one device asked for
+        mesh = make_mesh() if device.type == "cuda" else make_mesh([device])
+        logging.info("Sharded decode over %d devices.", len(mesh))
     if args.batch_size > 1 and not args.use_f0_and_excitation:
-        return _decode_batched(args, model, dataset, fs, device)
+        return _decode_batched(args, model, dataset, fs, device, mesh)
     rtfs = []
     for i in range(len(dataset)):
         item = dataset[i]
         utt_id, c = item[0], item[1]
-        excitation = item[3] if args.use_f0_and_excitation else None
         _synchronize(device)
         start = time.perf_counter()
-        y = model.inference(c, normalize_before=args.normalize_before,
-                            excitation=excitation)[:, 0]
+        if args.use_f0_and_excitation:
+            y = model.inference(c, normalize_before=args.normalize_before,
+                                excitation=item[3])
+        elif args.streaming:
+            y = model.inference_streaming(
+                c, chunk_frames=args.chunk_frames, context_frames=args.context_frames,
+                normalize_before=args.normalize_before)
+        elif mesh is not None:
+            y = model.inference_sharded(c, mesh, context_frames=args.context_frames,
+                                        normalize_before=args.normalize_before)
+        else:
+            y = model.inference(c, normalize_before=args.normalize_before)
+        y = y[:, 0]
         _synchronize(device)
         rtf = (time.perf_counter() - start) / (len(y) / fs)
         if not np.all(np.isfinite(y)):
@@ -213,9 +234,11 @@ def main(argv=None) -> dict:
     return {"rtf": mean_rtf, "rtfs": rtfs}
 
 
-def _decode_batched(args, model, dataset, fs: int, device: torch.device) -> dict:
+def _decode_batched(args, model, dataset, fs: int, device: torch.device,
+                    mesh=None) -> dict:
     """The utterances sorted by length (stable), ``--batch-size`` of them per
-    ``inference_batch`` call; RTF per batch (its time over its audio)."""
+    ``inference_batch`` call, its rows split over ``mesh`` where given; RTF
+    per batch (its time over its audio)."""
     items = [dataset[i] for i in range(len(dataset))]
     items.sort(key=lambda kv: kv[1].shape[0])
     total_time = total_audio = 0.0
@@ -225,7 +248,7 @@ def _decode_batched(args, model, dataset, fs: int, device: torch.device) -> dict
         _synchronize(device)
         start = time.perf_counter()
         ys = model.inference_batch([c for _, c in group],
-                                   normalize_before=args.normalize_before)
+                                   normalize_before=args.normalize_before, mesh=mesh)
         _synchronize(device)
         elapsed = time.perf_counter() - start
         audio = sum(len(y) for y in ys) / fs

@@ -2,7 +2,10 @@
 
 The inverse of parallelwavegan_tpu/convert/torch_checkpoint.py:510
 ``_convert_tree`` for the models the port has: module paths go through
-the same name maps as ``_t_hifigan_g`` (:131), ``_make_t_melgan_g``
+the same name maps as ``_t_hifigan_g`` (:131; the causal generator's
+``input_conv/conv``, ``upsamples_{i}/deconv`` and ``output_conv/conv`` as
+upstream's ``input_conv.conv``, ``upsamples.{i}.1.deconv`` and
+``output_conv.1.conv``), ``_make_t_melgan_g``
 (:153-207, causal or not), ``_make_t_pwg_g`` (:210-264, its MelGAN
 upsample net under ``upsample_net.melgan.*``), ``_t_style_melgan_g``
 (:267-286), ``_make_t_pwg_d`` (:388-399), ``_t_residual_pwg_d``
@@ -65,6 +68,8 @@ def _hifigan_prefix(path) -> str:
             out.append(f"convs2.{_idx(p)}.1")
         elif p == "output_conv":
             out.append("output_conv.1")
+        elif p in ("conv", "deconv"):  # the causal generator's wrapped convs
+            out.append(p)
         else:
             raise KeyError(f"hifigan path segment {p!r}")
     return ".".join(out)
@@ -376,6 +381,8 @@ def jax_params_to_state_dict(model_type: str, model_params: dict, params,
             raise ValueError(f"params hold {found} upsample stages, "
                              f"model_params {n_up}")
         prefix_of = _hifigan_prefix
+        if model_params.get("use_causal_conv", False):
+            deconvs = {(f"upsamples_{i}", "deconv") for i in range(n_up)}
     elif model_type == "MelGANGenerator":
         prefix_of, deconvs = _melgan_map(model_params)
     elif model_type == "ResidualStack":

@@ -1,6 +1,6 @@
 """Model registry of the port: the YAML-facing class names.
 
-``HiFiGANGenerator``, ``ParallelWaveGANGenerator`` (causal or not, with
+``HiFiGANGenerator`` (causal or not), ``ParallelWaveGANGenerator`` (causal or not, with
 any of its three upsample nets), ``MelGANGenerator`` (MelGAN and
 Multi-band MelGAN, causal or not), ``StyleMelGANGenerator``,
 the discrete-symbol generators ``DiscreteSymbolHiFiGANGenerator``,
@@ -11,9 +11,8 @@ the discrete-symbol generators ``DiscreteSymbolHiFiGANGenerator``,
 ``StyleMelGANDiscriminator``, HiFi-GAN's period, multi-period, scale,
 multi-scale and multi-scale multi-period discriminators, the U-Net
 HiFi-GAN generator ``UHiFiGANGenerator`` (causal or not) and the VQ-VAE
-codec ``VQVAE`` are ported. A name the JAX package has and the port does
-not, such as the causal HiFi-GAN generator's, raises
-``NotImplementedError`` (ROADMAP.md).
+codec ``VQVAE`` are ported: every name of the JAX package's registry.
+Any other name raises ``NotImplementedError`` (ROADMAP.md).
 """
 
 from parallelwavegan_tpu_torch.models.discrete import (

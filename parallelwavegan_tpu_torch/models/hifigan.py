@@ -21,7 +21,15 @@ Kernel flags keep the JAX names so that configs are shared:
 Either runs the hand-written CUDA kernel on a GPU and its plain PyTorch
 version on the CPU. ``pallas_mrf_tile`` and ``pallas_tail_tile`` are the
 TPU kernels' tile sizes: they are accepted for config compatibility and
-have no effect here. The causal variant is not ported yet.
+have no effect here.
+
+``use_causal_conv`` (JAX :152, :179-186, :252-261, :284, :322-330) builds
+upstream's causal generator: ``CausalConv1d`` input and output convs
+(``input_conv.conv.*``, ``output_conv.1.conv.*``),
+``CausalConvTranspose1d`` upsamples (``upsamples.{i}.1.deconv.*``) and
+causal resblocks. JAX sends it through neither kernel (:205, :292), so
+with ``use_pallas_tail`` or ``use_pallas_mrf`` set it takes the plain
+path, as there.
 
 The five discriminators (JAX :367-631) keep upstream's state-dict keys
 (``convs.{j}.0.*`` and ``output_conv.*`` of a period discriminator,
@@ -42,6 +50,8 @@ from torch import nn
 import torch.nn.functional as F
 
 from parallelwavegan_tpu_torch.layers.convs import (
+    CausalConv1d,
+    CausalConvTranspose1d,
     Conv1d,
     Conv2d,
     ConvTranspose1d,
@@ -89,10 +99,6 @@ class HiFiGANGenerator(nn.Module):
         generator: torch.Generator | None = None,
     ):
         super().__init__()
-        if use_causal_conv:
-            raise NotImplementedError(
-                "the causal HiFi-GAN generator is not ported yet; see ROADMAP.md"
-            )
         assert kernel_size % 2 == 1, "Kernel size must be odd number."
         assert len(upsample_scales) == len(upsample_kernel_sizes)
         assert len(resblock_dilations) == len(resblock_kernel_sizes)
@@ -104,30 +110,34 @@ class HiFiGANGenerator(nn.Module):
         conv_kw = dict(bias=bias, use_weight_norm=use_weight_norm,
                        normal_std=normal_std, generator=generator)
 
-        self.input_conv = Conv1d(in_channels, channels, kernel_size, **conv_kw)
+        conv = CausalConv1d if use_causal_conv else Conv1d
+        self.input_conv = conv(in_channels, channels, kernel_size, **conv_kw)
         self.upsamples = nn.ModuleList()
         self.blocks = nn.ModuleList()
         for i, (s, k) in enumerate(zip(upsample_scales, upsample_kernel_sizes)):
             ch = channels // (2 ** (i + 1))
             pad, out_pad = self.deconv_padding(k, s)
+            if use_causal_conv:
+                deconv = CausalConvTranspose1d(channels // (2 ** i), ch, k, s, **conv_kw)
+            else:
+                deconv = ConvTranspose1d(channels // (2 ** i), ch, k, s, padding=pad,
+                                         output_padding=out_pad, **conv_kw)
             self.upsamples.append(nn.Sequential(
-                get_activation(nonlinear_activation, act_params),
-                ConvTranspose1d(channels // (2 ** i), ch, k, s, padding=pad,
-                                output_padding=out_pad, **conv_kw),
-            ))
+                get_activation(nonlinear_activation, act_params), deconv))
             for rk, rd in zip(resblock_kernel_sizes, resblock_dilations):
                 self.blocks.append(HiFiGANResidualBlock(
                     kernel_size=rk, channels=ch, dilations=rd, bias=bias,
                     use_additional_convs=use_additional_convs,
                     nonlinear_activation=nonlinear_activation,
                     nonlinear_activation_params=act_params,
-                    use_weight_norm=use_weight_norm, generator=generator,
+                    use_weight_norm=use_weight_norm, use_causal_conv=use_causal_conv,
+                    generator=generator,
                 ))
         # official impl uses the default LeakyReLU slope (0.01) here
         self.output_conv = nn.Sequential(
             LeakyReLU(),
-            Conv1d(channels // (2 ** len(upsample_scales)), out_channels,
-                   kernel_size, **conv_kw),
+            conv(channels // (2 ** len(upsample_scales)), out_channels,
+                 kernel_size, **conv_kw),
             nn.Tanh(),
         )
 
@@ -135,6 +145,7 @@ class HiFiGANGenerator(nn.Module):
         self.tail_from = None
         if (
             use_pallas_tail
+            and not use_causal_conv
             and use_additional_convs
             and bias
             and out_channels == 1
@@ -155,7 +166,7 @@ class HiFiGANGenerator(nn.Module):
         # stages whose MRF runs through fused_hifigan_mrf
         self.mrf_stages = tuple(
             i for i in range(n_up)
-            if use_pallas_mrf and use_additional_convs and bias
+            if use_pallas_mrf and not use_causal_conv and use_additional_convs and bias
             and nonlinear_activation == "LeakyReLU"
             and channels // (2 ** (i + 1)) <= pallas_mrf_max_channels)
         self._tail_cache = None

@@ -153,6 +153,28 @@ def check_tensor(name: str, t, device, shape, align: int = 0,
         raise ValueError(f"{name} must be {align}-byte aligned")
 
 
+# The decode kernels (K1/K2 in hifigan_tail.cu, K3/K5 in wavenet.cu, K6 in
+# melgan_stack.cu) put the batch on blockIdx.y and take the time length as
+# an int; every offset into a tensor is 64-bit (size_t). A length of at
+# most 2**30 rows keeps their int row arithmetic (a tile's rounding, 2 T - 2
+# - p of the reflect padding) in range.
+MAX_GRID_Y = 65535
+MAX_ROWS = 2 ** 30
+
+
+def check_grid(name: str, batch: int, rows: int) -> None:
+    """Raise a ValueError naming the limit, before any launch (and on any
+    device, so that a CPU test sees it), where a decode kernel's grid or its
+    32-bit row index cannot take a call of ``batch`` items of ``rows`` rows
+    (its longest time axis)."""
+    if not 1 <= batch <= MAX_GRID_Y:
+        raise ValueError(f"{name}: a batch of {batch} is outside the kernel's grid "
+                         f"(blockIdx.y takes 1 to {MAX_GRID_Y})")
+    if not 1 <= rows <= MAX_ROWS:
+        raise ValueError(f"{name}: {rows} rows are outside the kernel's 32-bit row "
+                         f"index (1 to 2**30 = {MAX_ROWS})")
+
+
 BF16 = (torch.bfloat16,)
 EITHER = (torch.float32, torch.bfloat16)  # weights that a bf16 mode rounds
 

@@ -62,10 +62,13 @@ def fused_hifigan_mrf(x, blocks, *, slope: float = 0.1):
     tensor goes through ``hifigan_mrf_reference``.
     ``fused_hifigan_mrf.calls`` counts the calls that ran the kernel,
     ``.launches`` its launches (``run_mrf``'s counters split the
-    residual-unit launches by route).
+    residual-unit launches by route). ``build.check_grid`` refuses, on any
+    device, a batch or a length that the kernel's grid cannot take.
     """
     build.refuse_training("the fused MRF kernel (K2)", [x] + [
         blk[k] for blk in blocks for k in ("w1", "b1", "w2", "b2") if k in blk])
+    if x.dim() == 3:
+        build.check_grid("fused_hifigan_mrf", x.shape[0], x.shape[1])
     if x.device.type == "cpu":
         return hifigan_mrf_reference(x, blocks, slope=slope)
     if x.device.type != "cuda":

@@ -234,8 +234,15 @@ def fused_hifigan_tail(x, stages, final_w, final_b, *, slope: float = 0.1,
     <= 128, each stage halving the width; float32, contiguous) and raises
     on anything it does not take; a CPU tensor goes through
     ``hifigan_tail_reference``. ``fused_hifigan_tail.launches`` counts the
-    calls that ran the kernel.
+    calls that ran the kernel. ``build.check_grid`` refuses, on any device,
+    a batch or an output length that the kernel's grid cannot take.
     """
+    if x.dim() == 3:
+        rows = x.shape[1]
+        for st in stages:
+            k, s, pad = st["deconv_w"].shape[0], int(st["stride"]), int(st["padding"])
+            rows = max(rows, (rows - 1) * s - 2 * pad + k)
+        build.check_grid("fused_hifigan_tail", x.shape[0], rows)
     if x.device.type == "cpu":
         return hifigan_tail_reference(x, stages, final_w, final_b,
                                       slope=slope, pre_blocks=pre_blocks)

@@ -408,6 +408,8 @@ def fused_melgan_stacks(x, stacks, *, final=None, slope: float = 0.2,
     ``fused_melgan_stacks.calls`` counts the calls that ran the kernel,
     ``.launches`` its launches, ``.bf16_launches`` those in the bf16 mode,
     ``.launches_by_width`` the launches at each stage width C.
+    ``build.check_grid`` refuses, on any device, a batch or a length that
+    the kernel's grid cannot take.
     """
     if torch.is_grad_enabled():  # decode runs without: skip gathering the tensors
         build.refuse_training(
@@ -415,6 +417,8 @@ def fused_melgan_stacks(x, stacks, *, final=None, slope: float = 0.2,
             [x] + [st[k] for st in stacks for k in ("wd", "bd", "w1", "b1", "ws", "bs")]
             + (list(final) if final is not None else []))
     _pad_mode(pad_mode)
+    if x.dim() == 3:
+        build.check_grid("fused_melgan_stacks", x.shape[0], x.shape[1])
     bf16 = x.dtype == torch.bfloat16
     if x.device.type == "cpu":
         fn = melgan_stacks_reference_bf16 if bf16 else melgan_stacks_reference

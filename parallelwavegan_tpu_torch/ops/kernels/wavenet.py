@@ -265,13 +265,17 @@ def fused_wavenet_stack(x, c, weights, dilations, compute_dtype=torch.float32):
     weights ``frag_bf16`` of ``with_fragments_bf16`` used where the dict
     has them; on a CPU tensor ``wavenet_stack_reference_bf16``.
     ``fused_wavenet_stack.launches`` counts the kernel launches,
-    ``.bf16_launches`` those of the bf16 mode.
+    ``.bf16_launches`` those of the bf16 mode. ``build.check_grid``
+    refuses, on any device, a batch or a length that the kernel's grid
+    cannot take.
     """
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
     bf16 = compute_dtype == torch.bfloat16
     build.refuse_training("the fused WaveNet stack (K3, backward K4)",
                           [x, c, *weights.values()])
+    if x.dim() == 3:
+        build.check_grid("fused_wavenet_stack", x.shape[0], x.shape[1])
     if _device_of(x, "fused_wavenet_stack") == "cpu":
         if bf16:
             return wavenet_stack_reference_bf16(x, c, weights, dilations)
@@ -354,8 +358,12 @@ def fused_gated_resblock(x, c, conv_kernel, conv_bias, aux_kernel,
     through ``gated_resblock_reference``. Differentiable in every input
     but ``fragments``: the backward is autograd of the plain block, as in
     JAX. ``fused_gated_resblock.launches`` counts the kernel launches.
+    ``build.check_grid`` refuses, on any device, a batch or a length that
+    the kernel's grid cannot take.
     """
     _device_of(x, "fused_gated_resblock")
+    if x.dim() == 3:
+        build.check_grid("fused_gated_resblock", x.shape[0], x.shape[1])
     return _GatedResblock.apply(x, c, int(dilation), bool(causal), fragments,
                                 conv_kernel, conv_bias, aux_kernel, skip_kernel,
                                 skip_bias, res_kernel, res_bias)

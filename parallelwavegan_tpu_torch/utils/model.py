@@ -40,11 +40,19 @@ bucket, the excitation cut or zero-padded to the padded length times
 prod(upsample_scales), the output trimmed. A VQ-VAE loads without stats
 (:653) and decodes through ``bin/decode.py``'s own loop (its ``encode`` and
 ``decode``). ``load_model`` runs on the GPU unless the caller asks for
-the CPU. Streaming and sharded decode are not ported yet (ROADMAP.md).
+the CPU. The decode surfaces of JAX :167-462 are ported for the
+time-local generators (``STREAMABLE``): ``inference_streaming`` (windows
+of ``chunk_frames`` with ``context_frames`` of context, interior windows
+stacked in power-of-two batches of at most 64), ``inference_sharded``
+(one utterance split in time over a ``make_mesh`` list of devices) and
+``inference_batch(mesh=...)`` (the rows split over the devices); each
+device runs its share as one batched forward on its own replica of the
+generator, and every device's share is queued before any is read back.
 """
 
 from __future__ import annotations
 
+import copy
 import logging
 import os
 
@@ -54,6 +62,7 @@ import torch.nn.functional as F
 
 from parallelwavegan_tpu_torch.layers.duration import repeat_by_durations_np
 from parallelwavegan_tpu_torch.ops.pqmf import PQMF
+from parallelwavegan_tpu_torch.parallel.mesh import canonical_device
 from parallelwavegan_tpu_torch.utils.checkpoint import load_generator_state_dict
 from parallelwavegan_tpu_torch.utils.config import load_config
 from parallelwavegan_tpu_torch.utils.io import read_hdf5
@@ -77,7 +86,8 @@ class InferenceModel:
 
     def __init__(self, generator, device, mean=None, scale=None, pqmf=None):
         self.generator = generator
-        self.device = torch.device(device)
+        self.device = canonical_device(device)
+        self._replicas = {}  # device -> this model there (``_on``)
         self.mean = mean
         self.scale = scale
         self.pqmf = pqmf
@@ -90,6 +100,9 @@ class InferenceModel:
 
     def _style(self) -> bool:
         return hasattr(self.generator, "noise_upsample_factor")
+
+    def _takes_noise(self) -> bool:
+        return getattr(self.generator, "requires_noise_input", False)
 
     def forward_padded(self, c: torch.Tensor,
                        z: torch.Tensor | None = None) -> torch.Tensor:
@@ -111,7 +124,7 @@ class InferenceModel:
             pad = z.shape[1] * self.generator.noise_upsample_factor - c.shape[1]
             x = F.pad(x, (0, pad), mode="replicate")
             return self.generator(x, z.transpose(1, 2)).transpose(1, 2)
-        if not getattr(self.generator, "requires_noise_input", False):
+        if not self._takes_noise():
             y = self.generator(x).transpose(1, 2)
             if self.pqmf is not None:
                 y = self.pqmf.synthesis(y)
@@ -168,7 +181,7 @@ class InferenceModel:
         c_p = np.pad(c, ((0, pad_t - t), (0, 0)), mode="edge")
         c_p = torch.from_numpy(np.ascontiguousarray(c_p)).to(self.device)
         z = None
-        if style or getattr(self.generator, "requires_noise_input", False):
+        if style or self._takes_noise():
             shape = ((noise_len, self.generator.in_channels) if style
                      else (pad_t * up,))
             z = self._noise(shape, rng)
@@ -226,19 +239,61 @@ class InferenceModel:
         return y[0].T.cpu().numpy()[: t * (y.shape[-1] // pad_t)]
 
     # the generators whose output at a frame does not depend on the padded
-    # length (JAX ``_STREAMABLE``)
-    BATCHABLE = ("ParallelWaveGANGenerator", "MelGANGenerator", "HiFiGANGenerator")
+    # length or on frames beyond its receptive field (JAX ``_STREAMABLE``)
+    STREAMABLE = ("ParallelWaveGANGenerator", "MelGANGenerator", "HiFiGANGenerator")
+    MAX_STREAM_BATCH = 64  # interior windows per forward, bounding device memory
+
+    def _on(self, device: torch.device) -> "InferenceModel":
+        """This model on ``device``: itself, or a replica of its generator
+        (weights copied, kernel weights prepared there), made on first use
+        and kept."""
+        if device == self.device:
+            return self
+        if device not in self._replicas:
+            with torch.inference_mode(False):
+                gen = copy.deepcopy(self.generator).to(device)
+                gen.prepare_kernels()
+            self._replicas[device] = InferenceModel(gen, device, mean=self.mean,
+                                                    scale=self.scale, pqmf=self.pqmf)
+        return self._replicas[device]
+
+    def _forward_split(self, devices: list, c: np.ndarray,
+                       z: torch.Tensor | None) -> np.ndarray:
+        """``forward_padded_batch`` of rows c (n, frames, num_mels) and z (n,
+        ...) with row i on ``devices[i]``: the rows of one device go
+        through its replica as one batched forward, every device's forward
+        is queued before any result is read back, so that distinct cards
+        overlap. Returns the (n, frames * upsample_factor, out) outputs."""
+        groups = {}
+        for i, dev in enumerate(devices):
+            groups.setdefault(dev, []).append(i)
+        queued = []
+        for dev, rows in groups.items():
+            model = self._on(dev)
+            cw = torch.from_numpy(np.ascontiguousarray(c[rows])).to(dev)
+            zw = None if z is None else z[rows].to(dev)
+            queued.append((rows, model.forward_padded_batch(cw, zw)))
+        out = None
+        for rows, y in queued:
+            y = y.cpu().numpy()
+            if out is None:
+                out = np.empty((len(devices),) + y.shape[1:], np.float32)
+            out[rows] = y
+        return out
 
     @torch.inference_mode()
     def inference_batch(self, mels: list, normalize_before: bool = False,
-                        rng: torch.Generator | None = None) -> list:
+                        rng: torch.Generator | None = None, mesh=None) -> list:
         """A list of mels (T'_i, num_mels) -> their waveforms (T'_i *
         upsample_factor, out), decoded as one (B, pad_t, num_mels) forward:
         each mel edge-padded to pad_t, the 32-frame bucket of the longest.
         Parallel WaveGAN's noise (B, pad_t * upsample_factor) comes from
-        ``rng`` as in ``inference``."""
+        ``rng`` as in ``inference``. With ``mesh`` (``make_mesh``), B is
+        padded to a multiple of its length by repeating the last row, as
+        JAX does (:194-201), and the rows are split over its entries in
+        contiguous blocks; only the real rows are returned."""
         name = type(self.generator).__name__
-        if name not in self.BATCHABLE:
+        if name not in self.STREAMABLE:
             raise ValueError(f"{name} does not support batched decode")
         mels = [self._normalized(np.asarray(c, np.float32), normalize_before)
                 for c in mels]
@@ -246,13 +301,140 @@ class InferenceModel:
         pad_t = -(-max(lens) // self.BUCKET) * self.BUCKET
         batch = np.stack([np.pad(c, ((0, pad_t - c.shape[0]), (0, 0)), mode="edge")
                           for c in mels])
+        mesh = mesh or [self.device]
+        n_pad = (-len(mels)) % len(mesh)
+        if n_pad:
+            batch = np.concatenate([batch, np.repeat(batch[-1:], n_pad, axis=0)])
         up = self.upsample_factor
-        z = None
-        if getattr(self.generator, "requires_noise_input", False):
-            z = self._noise((len(mels), pad_t * up), rng)
-        y = self.forward_padded_batch(torch.from_numpy(batch).to(self.device), z)
-        y = y.cpu().numpy()
+        z = self._noise((batch.shape[0], pad_t * up), rng) if self._takes_noise() else None
+        per = batch.shape[0] // len(mesh)
+        y = self._forward_split([d for d in mesh for _ in range(per)], batch, z)
         return [y[i, : n * up] for i, n in enumerate(lens)]
+
+    @torch.inference_mode()
+    def inference_streaming(self, c, chunk_frames: int = 256, context_frames: int = 64,
+                            normalize_before: bool = False,
+                            rng: torch.Generator | None = None) -> np.ndarray:
+        """Chunked mel -> wave decode for unbounded lengths (JAX
+        ``inference_streaming``, :238-357): windows of ``chunk_frames``
+        frames with ``context_frames`` of true neighbouring frames on each
+        side. The first window (chunk + ctx frames) starts at the true
+        start and the last one ends at the true end, so the model's own
+        edge padding applies there as in one forward of the whole mel; the
+        interior windows (chunk + 2 ctx frames) are stacked into batches of
+        at most 64, each zero-padded to a power-of-two number of windows,
+        and the last window is written after them (it overwrites the
+        interior's weak-context tail). Every window is queued before any
+        result is read back. With the context covering the receptive
+        field, the result equals ``forward_padded`` of the exact-length
+        mel (not the bucketed ``inference``). A mel of at most chunk + ctx
+        frames goes through ``inference``. Parallel WaveGAN's noise is
+        drawn once, (T' * upsample_factor,) from ``rng``, and sliced per
+        window. StyleMelGAN (instance norms over the whole length) and the
+        discrete-symbol, U-Net and VQ-VAE generators are refused."""
+        name = type(self.generator).__name__
+        if name not in self.STREAMABLE:
+            raise ValueError(f"{name} is not streamable "
+                             "(global-in-time ops or input-length expansion)")
+        c = self._normalized(np.asarray(c, dtype=np.float32), normalize_before)
+        t = c.shape[0]
+        chunk, ctx = chunk_frames, context_frames
+        if t <= chunk + ctx:  # too short to stream
+            return self.inference(c, rng=rng)
+        if ctx > chunk:
+            raise ValueError(f"context_frames ({ctx}) must not exceed chunk_frames "
+                             f"({chunk})")
+        up = self.upsample_factor
+        z_all = self._noise((t * up,), rng) if self._takes_noise() else None
+        # (lo, hi, valid_lo, valid_hi) of each window
+        first = (0, chunk + ctx, 0, chunk)
+        interior = []
+        s = chunk
+        while s + chunk < t:
+            hi = min(s + chunk + ctx, t)
+            interior.append((hi - (chunk + 2 * ctx), hi, s, s + chunk))
+            s += chunk
+        last = (t - (chunk + ctx), t, t - chunk, t)
+
+        def dispatch(lo, hi):
+            cw = torch.from_numpy(np.ascontiguousarray(c[lo:hi])).to(self.device)
+            return self.forward_padded(cw, None if z_all is None else z_all[lo * up: hi * up])
+
+        queued = [([first], dispatch(*first[:2])[None])]
+        win = chunk + 2 * ctx
+        for s0 in range(0, len(interior), self.MAX_STREAM_BATCH):
+            part = interior[s0: s0 + self.MAX_STREAM_BATCH]
+            bucket = 1 << (len(part) - 1).bit_length()
+            cw = np.zeros((bucket, win, c.shape[1]), np.float32)
+            zw = None if z_all is None else torch.zeros((bucket, win * up),
+                                                        device=self.device)
+            for j, (lo, hi, _, _) in enumerate(part):
+                cw[j] = c[lo:hi]
+                if zw is not None:
+                    zw[j] = z_all[lo * up: hi * up]
+            queued.append((part, self.forward_padded_batch(
+                torch.from_numpy(cw).to(self.device), zw)))
+        queued.append(([last], dispatch(*last[:2])[None]))
+
+        y = None
+        for part, out in queued:
+            out = out.cpu().numpy()
+            if y is None:
+                y = np.empty((t * up, out.shape[2]), np.float32)
+            for j, (lo, _, vlo, vhi) in enumerate(part):
+                off = (vlo - lo) * up
+                y[vlo * up: vhi * up] = out[j, off: off + (vhi - vlo) * up]
+        return y
+
+    @torch.inference_mode()
+    def inference_sharded(self, c, mesh, context_frames: int = 64,
+                          normalize_before: bool = False,
+                          rng: torch.Generator | None = None) -> np.ndarray:
+        """One utterance with its time axis split over ``mesh``
+        (``make_mesh``; JAX ``inference_sharded``, :360-449): the mel is
+        edge-padded to the 32-frame bucket as ``inference`` pads it, cut
+        into one window per mesh entry, each a bucket-aligned chunk of
+        ceil(T / n) frames with ``context_frames`` of true context on each
+        side and clamped into [0, T - window] (a clamped window reaches
+        the true edge, so its chunk still sees complete context even when
+        the chunk is shorter than the context), and the output trimmed.
+        The windows of one device run as one batched forward on its
+        replica of the generator (``_forward_split``). With the context
+        covering the receptive field the result equals ``inference``: the
+        noise is drawn as there, (T_padded * upsample_factor,) from
+        ``rng``. One mesh entry, or a mel shorter than a window and a
+        chunk, goes through ``inference``."""
+        name = type(self.generator).__name__
+        if name not in self.STREAMABLE:
+            raise ValueError(f"{name} is not shardable in time "
+                             "(global-in-time ops or input-length expansion)")
+        c = self._normalized(np.asarray(c, dtype=np.float32), normalize_before)
+        t_orig = c.shape[0]
+        t = -(-t_orig // self.BUCKET) * self.BUCKET
+        c = np.pad(c, ((0, t - t_orig), (0, 0)), mode="edge")
+        n_dev, ctx = len(mesh), context_frames
+        chunk = -(-t // n_dev)
+        chunk = -(-chunk // self.BUCKET) * self.BUCKET
+        win = chunk + 2 * ctx
+        if n_dev == 1 or t < win + chunk:  # too short to profit
+            return self.inference(c[:t_orig], rng=rng)
+        up = self.upsample_factor
+        z_all = self._noise((t * up,), rng) if self._takes_noise() else None
+        windows = []  # (lo, valid_lo, valid_hi) of each device's window
+        for i in range(n_dev):
+            vlo = min(i * chunk, t)
+            vhi = min(vlo + chunk, t)
+            windows.append((max(0, min(vlo - ctx, t - win)), vlo, vhi))
+        batch = np.stack([c[lo: lo + win] for lo, _, _ in windows])
+        z = None if z_all is None else torch.stack(
+            [z_all[lo * up: (lo + win) * up] for lo, _, _ in windows])
+        y = self._forward_split(list(mesh), batch, z)
+        out = np.empty((t * up, y.shape[2]), np.float32)
+        for i, (lo, vlo, vhi) in enumerate(windows):
+            if vhi > vlo:
+                off = (vlo - lo) * up
+                out[vlo * up: vhi * up] = y[i, off: off + (vhi - vlo) * up]
+        return out[: t_orig * up]
 
 
 def load_model(checkpoint: str, config: dict | None = None,

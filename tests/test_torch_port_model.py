@@ -142,8 +142,11 @@ def test_tail_refuses_a_training_forward():
 def test_registry_names_unported_models():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         get_model_class("CausalHiFiGANGenerator")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_model_class("HiFiGANGenerator")(use_causal_conv=True)
+    # the causal HiFi-GAN is ported, as the JAX package has it: a flag of
+    # HiFiGANGenerator, under upstream's causal keys
+    keys = get_model_class("HiFiGANGenerator")(**SMALL, use_causal_conv=True).state_dict()
+    assert {"input_conv.conv.weight_v", "upsamples.0.1.deconv.weight_v",
+            "output_conv.1.conv.weight_v"} <= set(keys)
 
 
 def test_random_init_is_seeded():

@@ -489,8 +489,7 @@ def test_train_main_needs_a_card_unless_cpu_is_asked_for(train_args):
     ({"distributed": True}, [], "distributed"),
     ({"generator_optimizer_type": "SGD"}, [], "optimizer SGD"),
     ({"generator_scheduler_type": "CosineAnnealingLR"}, [], "scheduler CosineAnnealingLR"),
-    ({"generator_type": "HiFiGANGenerator", "generator_params": {"use_causal_conv": True}},
-     [], "causal HiFi-GAN"),
+    ({"discriminator_scheduler_type": "LinearLR"}, [], "scheduler LinearLR"),
     ({"discriminator_optimizer_type": "Lion"}, [], "optimizer Lion"),
 ])
 def test_unported_training_options_raise(tmp_path, train_args, override, argv, what):
