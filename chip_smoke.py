@@ -256,11 +256,17 @@ Phases (any failure exits non-zero; nothing is caught):
    rms|plain| and max|diff| <= 1e-2 max|plain| on every output and
    gradient, where the float32 kernels on the same values, the float32
    weights cut to bf16 by truncation and each zeroed output must be
-   rejected; registers, spills and SASS of every instantiation of
-   ``csrc/tade.cu`` and ``csrc/tade_bwd.cu`` (the bf16 ones must multiply
-   as HMMA.16816.F32.BF16, without TF32 and without a spill); CUDA-event
-   times of one G step's K8a, K8b, K9a and K9b (blocks 4-8) beside their
-   bf16 plain versions and the float32 kernels, and their bf16 bounds.
+   rejected; two runs of K9b and K9a on the same inputs give the same
+   bits; registers, spills and SASS of every instantiation of
+   ``csrc/tade.cu``, ``csrc/tade_bwd.cu`` and ``csrc/tade_bwd_bf16.cu``
+   (K8's bf16 ones must multiply as HMMA.16816.F32.BF16, K9's bf16
+   chain and weight-gradient kernels as HGMMA ... F32.BF16 warpgroup
+   products, each without TF32 and without a spill); CUDA-event times of
+   one G step's K8a, K8b, K9a and K9b (blocks 4-8) beside their bf16 plain
+   versions and the float32 kernels, and their bf16 bounds; K9a's and
+   K9b's bf16 time by part (``time_tade.k9_parts``: re-run, chain, weight
+   gradients, reduce, glue) and the chain and weight gradients' share of
+   their own bf16 bound.
 29. StyleMelGAN v1 with ``mixed_precision`` and ``use_pallas_tade_train``
    through ``bin/train.main`` at full width and the shipped batch of 32 x
    22528 (TRAIN_OVERRIDES, on a dump of STYLE_TRAIN_UTTS utterances):
@@ -4425,18 +4431,27 @@ def phase_k89_bf16(card: str) -> dict:
 
     from parallelwavegan_tpu_torch.ops.kernels import tade_decode as td
     from parallelwavegan_tpu_torch.ops.kernels import tade_train as tt
+    from parallelwavegan_tpu_torch.ops.kernels.time_tade import K9_PARTS, k9_parts
 
-    for kernel, use in _built_resources(("tade1_kernel", "tade2_kernel", "stage_bwd_kernel",
-                                         "stage_wgrad_kernel")).items():
+    for kernel, use in _built_resources(
+            ("tade1_kernel", "tade2_kernel", "stage_bwd_kernel", "stage_wgrad_kernel",
+             "chain_bf16_kernel", "wgrad_bf16"),
+            ("tade.cu", "tade_bwd.cu", "tade_bwd_bf16.cu")).items():
         print(f"K8/K9 {kernel}: {use.get('registers')} registers, spill stores "
               f"{use.get('spill_stores')} B, loads {use.get('spill_loads')} B; SASS "
               f"{use.get('sass')} on {card}")
         counts = use.get("sass", "")
+        spilled = use.get("spill_stores") or use.get("spill_loads")
         if kernel.endswith("true>") and ("HMMA.16816.F32.BF16" not in counts
-                                         or "TF32" in counts or use.get("spill_stores")
-                                         or use.get("spill_loads")):
+                                         or "TF32" in counts or spilled):
             _fail(f"{kernel}: expected bf16 products (HMMA.16816.F32.BF16) and no "
                   f"spill, got {use}")
+        # K9's bf16 mode (csrc/tade_bwd_bf16.cu): its products on wgmma
+        if (kernel.startswith(("chain_bf16_kernel<", "wgrad_bf16_kernel"))
+                and (not re.search(r"HGMMA\.\S*\.F32\.BF16", counts) or "TF32" in counts
+                     or spilled)):
+            _fail(f"{kernel}: expected bf16 warpgroup products (HGMMA ... F32.BF16) and "
+                  f"no spill, got {use}")
 
     blocks = _style_train_blocks()
     b = V1_STYLE_CONFIG["batch_size"]
@@ -4475,9 +4490,17 @@ def phase_k89_bf16(card: str) -> dict:
         if all(_bf16_close(g, w) for _, g, w in pairs(names, wrong, want)):
             _fail(f"{label}: the check accepts {control}")
 
+    def same_bits(one, two) -> bool:
+        """Whether two results (tensors, then a dict of gradients) are
+        equal bit for bit."""
+        def flat(r):
+            return [t for v in r for t in (v.values() if isinstance(v, dict) else [v])]
+        return all(torch.equal(a, b) for a, b in zip(flat(one), flat(two), strict=True))
+
     n8a, n8b, n9a, n9b = ("x2", "a"), ("out", "a2"), ("dx", "dc"), ("dx", "dx2", "da")
     recs = {k: {"errs": []} for k in ("k8a", "k8b", "k9a", "k9b")}
     f32_ms = dict.fromkeys(recs, 0.0)
+    parts = {k: dict.fromkeys([*K9_PARTS, "glue"], 0.0) for k in ("k9a", "k9b")}
     for i, t, sc in blocks:
         blk32 = {"scale": sc, "dilation": 2}
         for key in td.WEIGHT_KEYS:
@@ -4512,6 +4535,10 @@ def phase_k89_bf16(card: str) -> dict:
         got9b = tt.tade2_backward_cuda(x, x2, a, blk, "softmax", dout, da2)
         dx2, da = got9b[1], got9b[2]
         got9a = tt.tade1_backward_cuda(x, c, blk, "softmax", dx2, da)
+        # two runs give the same bits (fixed-order sums, no atomics)
+        if not (same_bits(got9b, tt.tade2_backward_cuda(x, x2, a, blk, "softmax", dout, da2))
+                and same_bits(got9a, tt.tade1_backward_cuda(x, c, blk, "softmax", dx2, da))):
+            _fail(f"K9 bf16 {name}: two runs of the same inputs differ")
         with torch.no_grad():
             m2, r2 = td._stats(x2.float())
             m1, r1 = td._stats(x.float())
@@ -4555,6 +4582,11 @@ def phase_k89_bf16(card: str) -> dict:
                lambda: tt.tade2_backward_cuda(x, x2, a, blk, "softmax", dout, da2),
                lambda: tt.tade2_backward_reference(x, x2, a, blk, "softmax", dout, da2),
                _tade_bf16_work(x, blk, 2, True))
+        for key, fn in (("k9a", lambda: tt.tade1_backward_cuda(x, c, blk, "softmax", dx2, da)),
+                        ("k9b", lambda: tt.tade2_backward_cuda(x, x2, a, blk, "softmax", dout,
+                                                               da2))):
+            for part, ms in k9_parts(fn).items():
+                parts[key][part] += ms
         dx2f, daf, doutf, da2f = dx2.float(), da.float(), dout.float(), da2.float()
         f32_ms["k9a"] += _median_ms(
             lambda: tt.tade1_backward_cuda(xf, cf, blk32, "softmax", dx2f, daf))
@@ -4571,6 +4603,18 @@ def phase_k89_bf16(card: str) -> dict:
               f"{rec['bound_ms']:.3f} ms ({rec['flops'] / 1e9:.1f} GFLOP / 989 TFLOP/s, "
               f"{rec['bytes'] / 1e6:.1f} MB / 3.35 TB/s; {rec['bound_by']}; "
               f"{rec['bound_ms'] / rec['ms']:.1%} of it) on {card}")
+    for label, split in parts.items():
+        # the transposed convs and weight gradients are two thirds of K9's
+        # products (the re-run the third)
+        own_ms = 2 / 3 * recs[label]["flops"] / PEAK_BF16 * 1e3
+        work_ms = split["chain"] + split["weight gradients"]
+        print(f"{label.upper()} bf16 by part per StyleMelGAN v1 G step (torch.profiler device "
+              f"time): " + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+              + f"; sum {sum(split.values()):.3f} ms against {recs[label]['ms']:.3f} ms by "
+              f"CUDA events; chain + weight gradients {work_ms:.3f} ms, "
+              + (f"{own_ms / work_ms:.1%}" if work_ms else "share not measured")
+              + f" of their bf16 bound {own_ms:.3f} ms on {card}")
+        recs[label]["parts"] = split
     return recs
 
 
@@ -6935,9 +6979,9 @@ def main() -> None:
               "tade_decode.py:366", style_bf16["k8a_launches"], k89["k8a"]),
         entry("fused_tade_blocks_train (K8b bf16-resident mode)", "tade.cu",
               "tade_decode.py:437", style_bf16["k8b_launches"], k89["k8b"]),
-        entry("tade_block_backward (K9a bf16-resident mode)", "tade_bwd.cu",
+        entry("tade_block_backward (K9a bf16-resident mode)", "tade_bwd_bf16.cu",
               "tade_train.py:438", style_bf16["k9a_launches"], k89["k9a"]),
-        entry("tade_block_backward (K9b bf16-resident mode)", "tade_bwd.cu",
+        entry("tade_block_backward (K9b bf16-resident mode)", "tade_bwd_bf16.cu",
               "tade_train.py:523", style_bf16["k9b_launches"], k89["k9b"]),
         entry("fused_wavenet_stack (K3 bf16-resident mode)", "wavenet.cu",
               "wavenet_stack.py:199", pwg_family["k3_bf16_launches"], k3_bf16),

@@ -101,7 +101,11 @@ _SIGNATURES = {
     # activations bf16, the weights in bf16 fragments)
     "tade1_bf16": [_P] * 13 + [_I] * 4 + [_P],
     "tade2_bf16": [_P] * 15 + [_I] * 6 + [_P],
+    # csrc/tade_bwd_bf16.cu: tade_stage_bwd's arguments (dT, dG, da bf16
+    # too, the weights in mma_bf16.tade_conv_wgmma's tiles)
     "tade_stage_bwd_bf16": [_P] * 25 + [ctypes.c_longlong] + [_I] * 6 + [_P],
+    # B, L -> floats of tade_stage_bwd_bf16's partial buffer
+    "tade_stage_bwd_bf16_part_floats": [_I] * 2,
 }
 
 

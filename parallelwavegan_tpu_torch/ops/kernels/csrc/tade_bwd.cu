@@ -115,22 +115,10 @@
 // Every element of the stage's outputs is a sum in a fixed order: two runs
 // give the same bits.
 //
-// The bf16-resident mode (tade_stage_bwd_bf16: stage_bwd_kernel<D, true>,
-// stage_wgrad_kernel<true>) is the JAX reverse kernels' mxu_bf16
-// (tade_train.py _kernel_tade1_bwd / _kernel_tade2_bwd, :173-208): the
-// cotangents dout and dext, xr and the outputs dxn and dsrc bf16 in
-// memory (io_dtype, :488-490, :586-587); the re-run's y, a' and src bf16
-// (JAX rounds them to bf16 as operands); t and s float32 (JAX recomputes
-// them in float32). Each transposed conv rounds its cotangent rows and the
-// weights to bf16 (_apply_conv_t): tadek::conv9_bf16, the weights rounded
-// once by the wrapper (ops/kernels/mma_bf16.py tade_conv_fragments). The
-// weight gradients round both operands to bf16 and sum in float32
-// (_conv_wgrads): the operand rows are copied as bf16, the cotangent
-// rounded once as it is staged, one mma.sync.m16n8k16 per 16 rows, the
-// tile sums into float32 totals every 32 rows, float32 slabs and the same
-// fixed-order reduce (no atomics, no bf16 accumulation); each bias the
-// float32 column sum of the unrounded cotangent, as JAX's db sums dz. So
-// dT, dG and da' stay float32 in device memory, the bias sums' input.
+// The bf16-resident mode (tade_stage_bwd_bf16) is csrc/tade_bwd_bf16.cu:
+// the same function with JAX's bf16 roundings, on Hopper's warpgroup
+// products; its note says how it is built, tested on the CPU and run on
+// the card.
 
 #include "mma_tf32x3.cuh"
 #include "tade.cuh"
@@ -156,44 +144,37 @@ constexpr int kWStages = tk::kWStages;
 
 __host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
 
-template <int D, bool kBF16>
+template <int D>
 struct GeoB {
   static constexpr int kRowsT = kMG + 2 * kHalf * D;  // dT
   static constexpr int kRowsG = kMG + 2 * kHalf;      // dG (the last 8 read by padding)
   static constexpr int kActF = imax(imax(kRowsT, kRowsG) * kLd2, kMG * kLd1);
-  // the weight ring: float32 (hi, lo) chunks, or bf16 ones
-  static constexpr int kRingF = kBF16 ? kWStages * tk::kChunkH / 2 : kWStages * kChunkF;
+  static constexpr int kRingF = kWStages * kChunkF;  // the weight ring: (hi, lo) chunks
   static constexpr size_t kSmem = sizeof(float) * ((size_t)kActF + kRingF);
 };
 
-// dout, xr, dext, dxn, dsrc and the weights' fragments are bf16 in the bf16
-// mode (IO), the rest float32
-template <bool kBF16>
 struct StageBwd {
-  using IO = tk::io_t<kBF16>;
   const float* t;       // (B, L, 128) the gated conv's pre-activations [ta | tb]
-  const IO* dout;       // (B, L, 64) cotangent of the gate's output
+  const float* dout;    // (B, L, 64) cotangent of the gate's output
   const float* s;       // (B, L, 64) the modulation's scale
-  const IO* xr;         // (B, L / sc, 64) the normalised input's source, x or x2
+  const float* xr;      // (B, L / sc, 64) the normalised input's source, x or x2
   const float* mean;    // (B, 64) its statistics
   const float* rstd;    // (B, 64)
-  const IO* dext;       // (B, L, 64) cotangent of a' from outside
-  const IO* wf_gc;      // gc's transposed conv in fragment order (ops/kernels/tf32x3.py
-  const IO* wf_g;       //   or, bf16, ops/kernels/mma_bf16.py)
-  const IO* wf_aux;
+  const float* dext;    // (B, L, 64) cotangent of a' from outside
+  const float* wf_gc;   // gc's transposed conv in fragment order (ops/kernels/tf32x3.py)
+  const float* wf_g;
+  const float* wf_aux;
   float* dT;            // (B, L, 128)
   float* dG;            // (B, L, 128)
-  IO* dxn;              // (B, L, 64) cotangent of up(xn)
+  float* dxn;           // (B, L, 64) cotangent of up(xn)
   float* da;            // (B, L, 64) cotangent of a'
-  IO* dsrc;             // (B, L, 64) cotangent of src
+  float* dsrc;          // (B, L, 64) cotangent of src
   int L, sc, softmax;
 };
 
 using tk::conv9;
 using tk::ld2;
-using tk::ldio2;
 using tk::st2;
-using tk::stio2;
 
 // The VJP of one row of gate(t) = softmax(ta) (or sigmoid(ta)) * tanh(tb),
 // whose channels (2l, 2l+1) of each half lane l holds (the JAX _gate_vjp,
@@ -221,9 +202,9 @@ __device__ __forceinline__ void gate_vjp(float2 ta, float2 tb, float2 g, int sof
 
 // Local rows: dT at t0 - 8 - 4D + q, dy and dG at t0 - 8 + m, da' at
 // t0 - 4 + m, dsrc at t0 + m.
-template <int D, bool kBF16>
-__global__ void __launch_bounds__(kCThreads, 2) stage_bwd_kernel(StageBwd<kBF16> p) {
-  using G = GeoB<D, kBF16>;
+template <int D>
+__global__ void __launch_bounds__(kCThreads, 2) stage_bwd_kernel(StageBwd p) {
+  using G = GeoB<D>;
   extern __shared__ float4 smem4[];
   float* act = reinterpret_cast<float*>(smem4);  // dT, then dG, then da'
   float* w_s = act + G::kActF;
@@ -243,7 +224,7 @@ __global__ void __launch_bounds__(kCThreads, 2) stage_bwd_kernel(StageBwd<kBF16>
         const float* tr = p.t + (row0 + pos) * kC2 + 2 * lane;
         ta = ld2(tr);
         tb = ld2(tr + kC);
-        g = ldio2(p.dout + (row0 + pos) * kC + 2 * lane);
+        g = ld2(p.dout + (row0 + pos) * kC + 2 * lane);
       }
     };
     load(warp);
@@ -282,12 +263,12 @@ __global__ void __launch_bounds__(kCThreads, 2) stage_bwd_kernel(StageBwd<kBF16>
           float2 ga = make_float2(0.f, 0.f), gb = ga;
           if (pos >= 0 && pos < L) {
             gb = make_float2(tot[mi][ni][2 * h], tot[mi][ni][2 * h + 1]);
-            const float2 xv = ldio2(xr + (size_t)(pos / p.sc) * kC + ch);
+            const float2 xv = ld2(xr + (size_t)(pos / p.sc) * kC + ch);
             ga = make_float2(gb.x * ((xv.x - mu.x) * rs.x), gb.y * ((xv.y - mu.y) * rs.y));
             if (m >= 2 * kHalf && m < 2 * kHalf + kTO) {
               const size_t o = (row0 + pos) * kC + ch;
               const float2 sv = ld2(p.s + o);
-              stio2(p.dxn + o, make_float2(gb.x * sv.x, gb.y * sv.y));
+              st2(p.dxn + o, make_float2(gb.x * sv.x, gb.y * sv.y));
               st2(p.dG + (row0 + pos) * kC2 + ch, ga);
               st2(p.dG + (row0 + pos) * kC2 + kC + ch, gb);
             }
@@ -310,7 +291,7 @@ __global__ void __launch_bounds__(kCThreads, 2) stage_bwd_kernel(StageBwd<kBF16>
         float2 v = make_float2(0.f, 0.f);
         if (pos >= 0 && pos < L) {
           const size_t o = (row0 + pos) * kC + ch;
-          const float2 e = ldio2(p.dext + o);
+          const float2 e = ld2(p.dext + o);
           v = make_float2(tot[mi][ni][2 * h] + e.x, tot[mi][ni][2 * h + 1] + e.y);
           if (m >= kHalf && m < kHalf + kTO) st2(p.da + o, v);
         }
@@ -328,18 +309,18 @@ __global__ void __launch_bounds__(kCThreads, 2) stage_bwd_kernel(StageBwd<kBF16>
         const int m = 32 * wm + 16 * mi + gid + 8 * h, ch = 32 * wn + 8 * ni + 2 * tig;
         const int pos = t0 + m;
         if (pos < L)
-          stio2(p.dsrc + (row0 + pos) * kC + ch,
+          st2(p.dsrc + (row0 + pos) * kC + ch,
                 make_float2(tot[mi][ni][2 * h], tot[mi][ni][2 * h + 1]));
       }
   }
 }
 
-template <int D, bool kBF16>
-cudaError_t launch_chain(const StageBwd<kBF16>& p, int B, cudaStream_t s) {
-  using G = GeoB<D, kBF16>;
-  cudaError_t e = tk::set_smem(stage_bwd_kernel<D, kBF16>, G::kSmem);
+template <int D>
+cudaError_t launch_chain(const StageBwd& p, int B, cudaStream_t s) {
+  using G = GeoB<D>;
+  cudaError_t e = tk::set_smem(stage_bwd_kernel<D>, G::kSmem);
   if (e != cudaSuccess) return e;
-  stage_bwd_kernel<D, kBF16><<<dim3((p.L + kTO - 1) / kTO, B), kCThreads, G::kSmem, s>>>(p);
+  stage_bwd_kernel<D><<<dim3((p.L + kTO - 1) / kTO, B), kCThreads, G::kSmem, s>>>(p);
   return cudaGetLastError();
 }
 
@@ -355,7 +336,6 @@ constexpr int kGMaxD = 4;
 constexpr int kGMaxA = kGS + 2 * kHalf * kGMaxD;  // operand rows of a step
 constexpr int kGRawLd = kGN + 4;               // staged cotangent rows, 16-byte aligned
 constexpr int kGRawLdA = kC + 4;  // 4 mod 16: B fragments read straight from the ring
-constexpr int kGLdAH = kC + 8;    // bf16 operand rows, in bf16: 36 words, 4 mod 32
 constexpr int kGRawA = kGMaxA * kGRawLdA;
 constexpr int kGRaw = kGRawA + kGS * kGRawLd;  // floats of one raw stage
 constexpr int kGStages = 3;
@@ -369,10 +349,9 @@ constexpr size_t kGSmem =
     sizeof(float) * ((size_t)kGStages * kGRaw + 2 * kGN * kGLdT + 2 * kGN);
 
 // dW[k][ci][c0 + n] = sum_t a[t + (k-4) dil][ci] b[t][c0 + n] (n < 32),
-// db[c0 + n] = sum_t b[t][c0 + n]; b's rows nb floats apart; a float32, or
-// bf16 in the bf16 mode.
+// db[c0 + n] = sum_t b[t][c0 + n]; b's rows nb floats apart.
 struct GJob {
-  const void* a;
+  const float* a;
   const float* b;
   float* dw;
   float* db;
@@ -389,12 +368,6 @@ struct GArgs {
 // slab cot^T A: its row m (cotangent column c0 + m) and column n = 64 k +
 // ci (tap k, channel ci) at slab[n * 32 + m], the column sums after them.
 // Warp w owns m-tiles 0, 1 and the 8-column tiles w + 16 jj (jj < 5).
-// kBF16: the bf16 operand rows land kGLdAH bf16 apart, the cotangent is
-// rounded to bf16 (its column sums float32) into one transposed plane
-// (th, kGLdT bf16 a row), and each 16 rows are one bf16 mma.sync.m16n8k16
-// (A[m][k] = cot[row 16 ks + k][col m], B[k][n] = a[row 16 ks + k + tap
-// d][channel], logical k as csrc/mma_bf16.cuh lays it out).
-template <bool kBF16>
 __global__ void __launch_bounds__(kGThreads, 1) stage_wgrad_kernel(GArgs w) {
   extern __shared__ float4 smem4[];
   float* raw = reinterpret_cast<float*>(smem4);  // the cp.async ring
@@ -405,8 +378,7 @@ __global__ void __launch_bounds__(kGThreads, 1) stage_wgrad_kernel(GArgs w) {
   const int L = w.L, item = blockIdx.y, tb = blockIdx.x * kGRows;
   const int te = min(L, tb + kGRows), d = jb.dil, arows = kGS + 2 * kHalf * d;
   const size_t bo = (size_t)item * L;
-  const float* a = static_cast<const float*>(jb.a) + bo * kC;
-  const uint16_t* ah = static_cast<const uint16_t*>(jb.a) + bo * kC;
+  const float* a = jb.a + bo * kC;
   const float* bsrc = jb.b + bo * jb.nb + jb.c0;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
@@ -425,79 +397,15 @@ __global__ void __launch_bounds__(kGThreads, 1) stage_wgrad_kernel(GArgs w) {
     float* ra = raw + buf * kGRaw;
     float* rb = ra + kGRawA;
     const int r0 = tb + i * kGS;
-    if constexpr (kBF16) {
-      uint16_t* rh = reinterpret_cast<uint16_t*>(ra);
-      for (int e = threadIdx.x; e < arows * (kC / 8); e += kGThreads) {
-        const int q = e >> 3, c8 = (e & 7) * 8, t = r0 - kHalf * d + q;
-        const bool ok = t >= 0 && t < L;
-        cp_async<16>(reinterpret_cast<float*>(rh + q * kGLdAH + c8),
-                     reinterpret_cast<const float*>(ok ? ah + (size_t)t * kC + c8 : ah), ok);
-      }
-    } else {
-      for (int e = threadIdx.x; e < arows * (kC / 4); e += kGThreads) {
-        const int q = e >> 4, c4 = (e & 15) * 4, t = r0 - kHalf * d + q;
-        const bool ok = t >= 0 && t < L;
-        cp_async<16>(ra + q * kGRawLdA + c4, ok ? a + (size_t)t * kC + c4 : a, ok);
-      }
+    for (int e = threadIdx.x; e < arows * (kC / 4); e += kGThreads) {
+      const int q = e >> 4, c4 = (e & 15) * 4, t = r0 - kHalf * d + q;
+      const bool ok = t >= 0 && t < L;
+      cp_async<16>(ra + q * kGRawLdA + c4, ok ? a + (size_t)t * kC + c4 : a, ok);
     }
     for (int e = threadIdx.x; e < kGS * (kGN / 4); e += kGThreads) {
       const int r = e >> 3, c4 = (e & 7) * 4, t = r0 + r;
       const bool ok = t < te;  // rows past the slab's read as zero
       cp_async<16>(rb + r * kGRawLd + c4, ok ? bsrc + (size_t)t * jb.nb + c4 : bsrc, ok);
-    }
-  };
-
-  auto compute_bf16 = [&](int, int buf) {
-    const uint16_t* rh = reinterpret_cast<const uint16_t*>(raw + buf * kGRaw);
-    const float* rb = raw + buf * kGRaw + kGRawA;
-    uint16_t* tp = reinterpret_cast<uint16_t*>(th);
-#pragma unroll
-    for (int u = 0; u < kGS / 16; ++u) {
-      const int r = crow + 16 * u;
-      const float v = rb[r * kGRawLd + ccol];
-      colsum += v;
-      tp[ccol * kGLdT + r] = (uint16_t)(bf16mma::pack(v, 0.f) & 0xFFFFu);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < kGS / 16; ++ks) {
-      if (ks % 2 == 0) {
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int jj = 0; jj < kGNT; ++jj)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[mi][jj][e] = 0.f;
-      }
-      // cot^T's 16-row tiles: A[m][k] = cot[row 16 ks + k][col m]
-      uint32_t fa[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const uint16_t* o = tp + (mi * 16 + gid) * kGLdT + ks * 16 + 2 * tig;
-        fa[mi][0] = *reinterpret_cast<const uint32_t*>(o);
-        fa[mi][1] = *reinterpret_cast<const uint32_t*>(o + 8 * kGLdT);
-        fa[mi][2] = *reinterpret_cast<const uint32_t*>(o + 8);
-        fa[mi][3] = *reinterpret_cast<const uint32_t*>(o + 8 * kGLdT + 8);
-      }
-#pragma unroll
-      for (int jj = 0; jj < kGNT; ++jj) {
-        const int nt = warp + kGWarps * jj;
-        if (nt >= kGTiles) break;
-        // B[k][n] = a[row 16 ks + k + tap d][channel 8 g + gid], k = 2 tig (+1, +8, +9)
-        const uint16_t* pb = rh + (ks * 16 + 2 * tig + (nt >> 3) * d) * kGLdAH + (nt & 7) * 8 + gid;
-        const uint32_t fb[2] = {(uint32_t)pb[0] | ((uint32_t)pb[kGLdAH] << 16),
-                                (uint32_t)pb[8 * kGLdAH] | ((uint32_t)pb[9 * kGLdAH] << 16)};
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) bf16mma::mma(acc[mi][jj], fa[mi], fb);
-      }
-      if (ks % 2 == 1) {
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int jj = 0; jj < kGNT; ++jj)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) tot[mi][jj][e] += acc[mi][jj][e];
-      }
     }
   };
 
@@ -564,10 +472,7 @@ __global__ void __launch_bounds__(kGThreads, 1) stage_wgrad_kernel(GArgs w) {
     }
   };
 
-  if constexpr (kBF16)
-    pipeline<kGStages>((te - tb + kGS - 1) / kGS, stage, compute_bf16);
-  else
-    pipeline<kGStages>((te - tb + kGS - 1) / kGS, stage, compute);
+  pipeline<kGStages>((te - tb + kGS - 1) / kGS, stage, compute);
 
   const int cta = item * w.ctas_per_item + blockIdx.x;
   float* slab = w.part + ((size_t)blockIdx.z * w.ctas + cta) * kGSlab;
@@ -610,57 +515,6 @@ long long part_floats_of(int B, int L) {
   return (long long)kGJobs * B * ((L + kGRows - 1) / kGRows) * kGSlab;
 }
 
-template <bool kBF16, typename IO = tk::io_t<kBF16>>
-int run_stage_bwd(const float* t, const IO* dout, const float* s, const IO* xr,
-                  const float* mean, const float* rstd, const IO* dext, const IO* wf_gc,
-                  const IO* wf_g, const IO* wf_aux, const IO* y, const IO* ain,
-                  const IO* src, float* dT, float* dG, IO* dxn, float* da, IO* dsrc,
-                  float* dw_gc, float* db_gc, float* dw_g, float* db_g, float* dw_aux,
-                  float* db_aux, float* part, long long part_floats, int B, int L, int scale,
-                  int dilation, int gate, int device, void* stream) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
-  if (B < 1 || B > 65535 || L < 1 || L > (1 << 24) || scale < 1 || scale > 2 ||
-      L % scale != 0 || gate < 0 || gate > 1 || dilation < 1 || dilation > kGMaxD ||
-      part_floats < part_floats_of(B, L))
-    return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const StageBwd<kBF16> p{t,  dout, s,  xr,  mean, rstd, dext, wf_gc, wf_g, wf_aux,
-                          dT, dG,   dxn, da, dsrc, L,    scale, gate == 0};
-  switch (dilation) {
-    case 1:
-      e = launch_chain<1, kBF16>(p, B, st);
-      break;
-    case 2:
-      e = launch_chain<2, kBF16>(p, B, st);
-      break;
-    case 3:
-      e = launch_chain<3, kBF16>(p, B, st);
-      break;
-    default:
-      e = launch_chain<4, kBF16>(p, B, st);
-      break;
-  }
-  if (e != cudaSuccess) return e;
-
-  GArgs w{};
-  w.part = part;
-  w.L = L;
-  w.ctas_per_item = (L + kGRows - 1) / kGRows;
-  w.ctas = B * w.ctas_per_item;
-  int j = 0;
-  for (int c0 = 0; c0 < kC2; c0 += kGN) w.job[j++] = GJob{y, dT, dw_gc, db_gc, dilation, kC2, c0};
-  for (int c0 = 0; c0 < kC2; c0 += kGN) w.job[j++] = GJob{ain, dG, dw_g, db_g, 1, kC2, c0};
-  for (int c0 = 0; c0 < kC; c0 += kGN) w.job[j++] = GJob{src, da, dw_aux, db_aux, 1, kC, c0};
-  e = tk::set_smem(stage_wgrad_kernel<kBF16>, kGSmem);
-  if (e != cudaSuccess) return e;
-  stage_wgrad_kernel<kBF16><<<dim3(w.ctas_per_item, B, kGJobs), kGThreads, kGSmem, st>>>(w);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  stage_wgrad_reduce_kernel<<<dim3((kGSlab + 255) / 256, kGJobs), 256, 0, st>>>(w);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -690,29 +544,47 @@ int tade_stage_bwd(const float* t, const float* dout, const float* s, const floa
                    float* db_gc, float* dw_g, float* db_g, float* dw_aux,
                    float* db_aux, float* part, long long part_floats, int B, int L,
                    int scale, int dilation, int gate, int device, void* stream) {
-  return run_stage_bwd<false>(t, dout, s, xr, mean, rstd, dext, wf_gc, wf_g, wf_aux, y, ain,
-                              src, dT, dG, dxn, da, dsrc, dw_gc, db_gc, dw_g, db_g, dw_aux,
-                              db_aux, part, part_floats, B, L, scale, dilation, gate, device,
-                              stream);
-}
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  if (B < 1 || B > 65535 || L < 1 || L > (1 << 24) || scale < 1 || scale > 2 ||
+      L % scale != 0 || gate < 0 || gate > 1 || dilation < 1 || dilation > kGMaxD ||
+      part_floats < part_floats_of(B, L))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const StageBwd p{t,  dout, s,  xr,  mean, rstd, dext, wf_gc, wf_g, wf_aux,
+                   dT, dG,   dxn, da, dsrc, L,    scale, gate == 0};
+  switch (dilation) {
+    case 1:
+      e = launch_chain<1>(p, B, st);
+      break;
+    case 2:
+      e = launch_chain<2>(p, B, st);
+      break;
+    case 3:
+      e = launch_chain<3>(p, B, st);
+      break;
+    default:
+      e = launch_chain<4>(p, B, st);
+      break;
+  }
+  if (e != cudaSuccess) return e;
 
-// tade_stage_bwd in the bf16-resident mode, the same arguments: dout, xr,
-// dext, y, ain, src, dxn and dsrc bf16 (t, s, dT, dG, da, the statistics,
-// the weight gradients and part float32), the weights rounded to bf16 in
-// the bf16 fragments' order (ops/kernels/mma_bf16.py tade_conv_fragments).
-int tade_stage_bwd_bf16(const float* t, const uint16_t* dout, const float* s,
-                        const uint16_t* xr, const float* mean, const float* rstd,
-                        const uint16_t* dext, const uint16_t* wf_gc, const uint16_t* wf_g,
-                        const uint16_t* wf_aux, const uint16_t* y, const uint16_t* ain,
-                        const uint16_t* src, float* dT, float* dG, uint16_t* dxn, float* da,
-                        uint16_t* dsrc, float* dw_gc,
-                        float* db_gc, float* dw_g, float* db_g, float* dw_aux,
-                        float* db_aux, float* part, long long part_floats, int B, int L,
-                        int scale, int dilation, int gate, int device, void* stream) {
-  return run_stage_bwd<true>(t, dout, s, xr, mean, rstd, dext, wf_gc, wf_g, wf_aux, y, ain,
-                             src, dT, dG, dxn, da, dsrc, dw_gc, db_gc, dw_g, db_g, dw_aux,
-                             db_aux, part, part_floats, B, L, scale, dilation, gate, device,
-                             stream);
+  GArgs w{};
+  w.part = part;
+  w.L = L;
+  w.ctas_per_item = (L + kGRows - 1) / kGRows;
+  w.ctas = B * w.ctas_per_item;
+  int j = 0;
+  for (int c0 = 0; c0 < kC2; c0 += kGN) w.job[j++] = GJob{y, dT, dw_gc, db_gc, dilation, kC2, c0};
+  for (int c0 = 0; c0 < kC2; c0 += kGN) w.job[j++] = GJob{ain, dG, dw_g, db_g, 1, kC2, c0};
+  for (int c0 = 0; c0 < kC; c0 += kGN) w.job[j++] = GJob{src, da, dw_aux, db_aux, 1, kC, c0};
+  e = tk::set_smem(stage_wgrad_kernel, kGSmem);
+  if (e != cudaSuccess) return e;
+  stage_wgrad_kernel<<<dim3(w.ctas_per_item, B, kGJobs), kGThreads, kGSmem, st>>>(w);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  stage_wgrad_reduce_kernel<<<dim3((kGSlab + 255) / 256, kGJobs), 256, 0, st>>>(w);
+  return cudaGetLastError();
 }
 
 }  // extern "C"

@@ -1,9 +1,11 @@
 """bf16 tensor-core products on the host side: the weight layouts that the
 bf16-resident modes of the WaveNet layer kernel (K3 in csrc/wavenet.cu),
 the MelGAN stack kernels (K6 in csrc/melgan_stack.cu, K7 in
-csrc/melgan_stack_bwd.cu) and the TADE kernels (K8a/K8b in csrc/tade.cu,
-K9a/K9b in csrc/tade_bwd.cu, through csrc/tade.cuh's conv9_bf16) read,
-all through csrc/mma_bf16.cuh.
+csrc/melgan_stack_bwd.cu) and the forward TADE kernels (K8a/K8b in
+csrc/tade.cu, through csrc/tade.cuh's conv9_bf16) read through
+csrc/mma_bf16.cuh, and the tiles that the TADE stage backward (K9a/K9b,
+csrc/tade_bwd_bf16.cu) feeds to Hopper's warpgroup products
+(``tade_conv_wgmma``).
 
 The JAX kernels' bf16 mode (``mxu_bf16``) casts every dot operand to
 bf16 and accumulates in float32. Here the weights are rounded to bf16 once
@@ -14,6 +16,8 @@ kernel forms a fragment.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -111,17 +115,37 @@ def tade_forward_fragments(aux_w, g_w, gc_w):
     return f.reshape(f.shape[0], 5, 8, 32, 4).transpose(0, 1).contiguous()
 
 
-def tade_conv_fragments(w):
-    """A 9-tap conv's gather-form weights w (9, Cin, Cout), Cin a multiple of
-    8 and Cout of 16, as those of its transposed conv (Wt[j] = w[8 - j]^T,
-    depth 9 Cout, tap major; ``tf32x3.conv_fragments``' matrix) rounded to
-    bf16 in ``fragments``' layout: (9 Cout / 16, Cin / 8, 32, 4) bf16. What
-    csrc/tade_bwd.cu's bf16 entry point takes."""
-    n = w.shape[1]
-    if w.dim() != 3 or w.shape[0] != 9 or n % 8 or w.shape[2] % 16:
-        raise ValueError(f"tade_conv_fragments needs (9, Cin, Cout), Cin a multiple of 8 "
-                         f"and Cout of 16, got {tuple(w.shape)}")
-    return fragments(w.detach().flip(0).transpose(1, 2).reshape(-1, n))
+@functools.lru_cache(maxsize=None)
+def _wgmma_index(cout: int, device: torch.device) -> torch.Tensor:
+    """The flat index into w (9, 64, Cout) of each element of
+    ``tade_conv_wgmma``'s tiles (9, Cout / 64, 64 n, 64 stored k), made once
+    per width and device: a copy from the host waits for the card."""
+    j, kb, n, p = torch.meshgrid(torch.arange(9), torch.arange(cout // 64), torch.arange(64),
+                                 torch.arange(64), indexing="ij")
+    # the 128-byte swizzle: stored chunk p // 8 of row n holds chunk
+    # (p // 8) ^ (n % 8) of B's column n
+    k = 64 * kb + 8 * ((p // 8) ^ (n % 8)) + p % 8
+    return (((8 - j) * 64 + n) * cout + k).reshape(-1).to(device)
+
+
+def tade_conv_wgmma(w):
+    """A 9-tap conv's gather-form weights w (9, 64, Cout), Cout a multiple
+    of 64, as the B tiles of its transposed conv (Wt[j] = w[8 - j]^T:
+    depth Cout, 64 columns) for csrc/tade_bwd_bf16.cu's wgmma products:
+    rounded to bf16, one tile per tap j and 64 input channels kb of the
+    transposed conv, (9, Cout / 64, 64, 64) bf16, tile [j, kb] holding in
+    row n the 64 values Wt[j][64 kb .. 64 kb + 63][n] (K-major: B's column
+    n is a 128-byte row of its k values) in Hopper's 128-byte swizzle (the
+    16-byte chunk c of row n stored as chunk c ^ (n % 8)). Each tile is 8
+    KB, one bulk copy; the kernel's descriptor steps 32 bytes a k16 step
+    (tests/test_torch_port_tade_bwd_bf16_layout.py reads the tiles back as
+    the card does). One gather a call."""
+    if w.dim() != 3 or w.shape[0] != 9 or w.shape[1] != 64 or w.shape[2] % 64:
+        raise ValueError(f"tade_conv_wgmma needs (9, 64, Cout), Cout a multiple of 64, "
+                         f"got {tuple(w.shape)}")
+    cout = w.shape[2]
+    tiles = w.detach().reshape(-1)[_wgmma_index(cout, w.device)]
+    return tiles.to(torch.bfloat16).reshape(9, cout // 64, 64, 64)
 
 
 def wavenet_depth(c: int, ca: int, k: int) -> int:

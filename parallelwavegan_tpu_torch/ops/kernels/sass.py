@@ -1,5 +1,6 @@
 """What the kernel sources compile to: per kernel, its SASS instruction
-count and its tensor-core (HMMA) and fused multiply-add (FFMA) counts, and,
+count and its tensor-core (HMMA for mma.sync, HGMMA for wgmma) and fused
+multiply-add (FFMA) counts, and,
 against a second source tree, which kernels' SASS is identical;
 ``resource_usage`` gives one source's registers and spills (``ptxas
 -v``) beside those counts.
@@ -13,7 +14,8 @@ the anonymous namespace carry a per-file hash, which is cut before two
 trees are compared; so are addresses and encodings. A kernel that gained
 a last ``bool`` template argument for a bf16 mode (``tade1_kernel<kSave,
 kBF16>``) is compared, at ``false``, with the other tree's kernel without
-it (``tade1_kernel<kSave>``).
+it (``tade1_kernel<kSave>``), and one that lost it (``stage_bwd_kernel<D>``)
+with the other tree's at ``false``.
 """
 
 from __future__ import annotations
@@ -76,10 +78,13 @@ def kernels_of(cubin: str) -> dict:
 
 def counts(instrs: list) -> str:
     ops = [i.split()[1] if i.startswith("@") else i.split()[0] for i in instrs]
-    hmma = sorted({op for op in ops if op.startswith("HMMA")})
-    n = {k: sum(op.startswith(k) for op in ops) for k in ("HMMA", "FFMA")}
-    return (f"{len(instrs)} instructions, HMMA {n['HMMA']}"
-            f"{' (' + ', '.join(hmma) + ')' if hmma else ''}, FFMA {n['FFMA']}")
+    n = {k: sum(op.startswith(k) for op in ops) for k in ("HMMA", "HGMMA", "FFMA")}
+    out = f"{len(instrs)} instructions"
+    for k in ("HMMA", "HGMMA"):
+        kinds = sorted({op for op in ops if op.startswith(k)})
+        if k == "HMMA" or kinds:
+            out += f", {k} {n[k]}{' (' + ', '.join(kinds) + ')' if kinds else ''}"
+    return out + f", FFMA {n['FFMA']}"
 
 
 def short_name(mangled: str) -> str:
@@ -155,11 +160,17 @@ def main(argv=None) -> None:
         for src, cubin in mine.items():
             ks = kernels_of(cubin)
             theirs = kernels_of(other[src]) if src in other else None
-            by_short = {short_name(k): v for k, v in (theirs or {}).items()}
+            by_short = {}
+            for k, v in (theirs or {}).items():
+                by_short[short_name(k)] = v
+                if without_bf16_flag(short_name(k)):
+                    by_short.setdefault(without_bf16_flag(short_name(k)), v)
             for name in sorted(ks):
                 note = ""
                 if theirs is not None:
                     old = theirs.get(name)
+                    if old is None:
+                        old = by_short.get(short_name(name))
                     if old is None:
                         old = by_short.get(without_bf16_flag(short_name(name)))
                     note = ("; not in the other tree" if old is None else

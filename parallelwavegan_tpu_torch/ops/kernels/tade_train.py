@@ -17,7 +17,10 @@ each of K9a and K9b is one re-run of its K8 kernel from the residuals
 pre-activations, csrc/tade.cu's Save) and one call of csrc/tade_bwd.cu
 (the transposed convs in one kernel, the weight gradients in a kernel and
 its reduce, every product split TF32 on the tensor cores, the weights
-split once per call by ``tf32x3.conv_fragments``); the instance norms'
+split once per call by ``tf32x3.conv_fragments``; in the bf16 mode
+csrc/tade_bwd_bf16.cu, the same three kernels on Hopper's warpgroup
+products, the weights laid out once per call by
+``mma_bf16.tade_conv_wgmma``); the instance norms'
 backward and the stretch adjoint are torch reductions between the
 launches, as they are XLA glue in JAX (:90-120). For a CPU tensor it is
 ``tade_block_backward_reference``, autograd through the plain block. A
@@ -29,7 +32,7 @@ A bf16 x runs the kernels' bf16-resident mode, as JAX's
 the cotangents are cast to bf16 (:680-684); K8 and K9 keep activations,
 residuals and cotangents bf16 in memory, round every product's operands
 to bf16 and sum in float32 (the weights rounded once per call by
-``mma_bf16.tade_forward_fragments`` / ``tade_conv_fragments``), the
+``mma_bf16.tade_forward_fragments`` / ``tade_conv_wgmma``), the
 weight gradients float32 until autograd casts them to the weights' dtype
 (:702). Its plain versions are autograd through ``tade1_reference_bf16``
 and ``tade2_reference_bf16``, which round where JAX's reverse kernels
@@ -224,29 +227,29 @@ def stretch_adjoint(z, scale: int):
 
 def _stage_cuda(t, dout, sv, xr, mean, rstd, dext, blk, keys, y, ain, src,
                 scale: int, dilation: int, gated_function: str):
-    """One call of csrc/tade_stage_bwd (``_bf16`` for a bf16 dout): (dxn,
-    da', dsrc, weight grads); dxn and dsrc in dout's dtype, da' and the
-    weight grads float32."""
+    """One call of csrc/tade_bwd.cu's tade_stage_bwd or, for a bf16 dout,
+    of csrc/tade_bwd_bf16.cu's tade_stage_bwd_bf16: (dxn, da', dsrc, weight
+    grads); dxn, da' and dsrc in dout's dtype, the weight grads float32."""
     b, rows, _ = dout.shape
     bf16 = dout.dtype == torch.bfloat16
     lib = build.load()
     dev, stream = build.launch_target(dout)
-    n_part = lib.query("tade_stage_bwd_part_floats", b, rows)
+    entry = _entry("tade_stage_bwd", dout)
+    n_part = lib.query(f"{entry}_part_floats", b, rows)
     if n_part < 0:
         raise ValueError(f"(B, L) = ({b}, {rows}) needs too large a partial buffer")
     part = torch.empty(n_part, device=dout.device)
-    wide = [torch.empty(b, rows, 2 * C, device=dout.device) for _ in range(2)]
-    dxn, dsrc = torch.empty_like(dout), torch.empty_like(dout)
-    da = torch.empty(dout.shape, device=dout.device)
+    wide = [torch.empty(b, rows, 2 * C, device=dout.device, dtype=dout.dtype) for _ in range(2)]
+    dxn, da, dsrc = (torch.empty_like(dout) for _ in range(3))
     aux, g, gc = keys
     grads = {f"{k}{s}": torch.empty(blk[f"{k}{s}"].shape, device=dout.device)
              for k in keys for s in ("_w", "_b")}
-    # the transposed convs' weights split into TF32 hi and lo (or rounded to
-    # bf16) in fragment order, held until the launch is queued: a freed one
-    # could be reused
-    layout = mma_bf16.tade_conv_fragments if bf16 else conv_fragments
+    # the transposed convs' weights split into TF32 hi and lo in fragment
+    # order (or rounded to bf16 in wgmma's tiles), held until the launch is
+    # queued: a freed one could be reused
+    layout = mma_bf16.tade_conv_wgmma if bf16 else conv_fragments
     wts = [layout(blk[f"{k}_w"]) for k in (gc, g, aux)]
-    lib.call(_entry("tade_stage_bwd", dout), t.data_ptr(), dout.data_ptr(), sv.data_ptr(),
+    lib.call(entry, t.data_ptr(), dout.data_ptr(), sv.data_ptr(),
              xr.data_ptr(), mean.data_ptr(), rstd.data_ptr(), dext.data_ptr(),
              *(w.data_ptr() for w in wts), y.data_ptr(), ain.data_ptr(), src.data_ptr(),
              wide[0].data_ptr(), wide[1].data_ptr(), dxn.data_ptr(), da.data_ptr(),

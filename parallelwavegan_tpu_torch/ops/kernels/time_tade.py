@@ -24,7 +24,10 @@ take them:
   values and the bf16 plain versions (``tade1_reference_bf16``,
   ``tade2_reference_bf16``, ``tade1_backward_reference``,
   ``tade2_backward_reference`` on bf16); medians of 10 (CUDA events), the
-  weights split per call as training splits them.
+  weights split per call as training splits them; and K9a and K9b bf16
+  by part (``k9_parts``: the re-run, the chain, the weight gradients, their
+  reduce and the glue between them, device time under torch.profiler),
+  whichever tree's kernel names they run.
 
 Prints the card (``nvidia-smi``) and one JSON line of the times in ms.
 """
@@ -55,14 +58,50 @@ def _median_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
+# K9's parts in one bf16 call, by the kernels' names in this tree
+# (csrc/tade_bwd_bf16.cu) and in a tree before it (csrc/tade_bwd.cu's
+# bf16 instantiations); a kernel of none of them is glue
+K9_PARTS = {"re-run": ("tade1_kernel", "tade2_kernel"),
+            "chain": ("chain_bf16_kernel", "stage_bwd_kernel"),
+            "weight gradients": ("wgrad_bf16_kernel", "stage_wgrad_kernel"),
+            "reduce": ("wgrad_bf16_reduce_kernel", "stage_wgrad_reduce_kernel")}
+
+
+def k9_parts(fn, tries: int = 5) -> dict:
+    """{part: device ms} of one call of fn (K9a or K9b in the bf16 mode)
+    under torch.profiler (``time_melgan.profile_by_kernel``): the parts of
+    ``K9_PARTS``, then "glue", every other kernel (the statistics, the
+    casts, the weights' layout, the instance norm's backward, the stretch
+    adjoint). A trace that holds fewer than one launch of each part's
+    kernel (a call's first kernels are sometimes missing from it) is taken
+    again, up to ``tries`` times; the last one is returned."""
+    from parallelwavegan_tpu_torch.ops.kernels.time_melgan import profile_by_kernel
+
+    for _ in range(tries):
+        out = dict.fromkeys([*K9_PARTS, "glue"], 0.0)
+        launches = dict.fromkeys(K9_PARTS, 0)
+        for name, (ms, n) in profile_by_kernel(fn).items():
+            part = next((part for part, names in K9_PARTS.items()
+                         if name.split("<")[0] in names), "glue")
+            out[part] += ms
+            if part in launches:
+                launches[part] += n
+        if all(launches[part] == 1 for part in K9_PARTS):
+            break
+    return out
+
+
 def _bf16_step(td, tt, step) -> dict:
     """{kernel: {"bf16", "float32", "bf16_plain"}}: one G step's K8a, K8b,
-    K9a and K9b over the blocks of ``step`` (x, c, x2, a, blk, dxo, dco)."""
+    K9a and K9b over the blocks of ``step`` (x, c, x2, a, blk, dxo, dco),
+    K9a and K9b with "bf16_parts" (``k9_parts``) too."""
     import torch
 
     bf = torch.bfloat16
     out = {k: {"bf16": 0.0, "float32": 0.0, "bf16_plain": 0.0}
            for k in ("k8a", "k8b", "k9a", "k9b")}
+    for k in ("k9a", "k9b"):
+        out[k]["bf16_parts"] = dict.fromkeys([*K9_PARTS, "glue"], 0.0)
     for x, c, _, _, blk, dxo, dco in step:
         b32 = {k: v for k, v in blk.items() if not k.startswith("frag")}
         b16 = {k: v.to(bf) if torch.is_tensor(v) else v for k, v in b32.items()}
@@ -88,6 +127,9 @@ def _bf16_step(td, tt, step) -> dict:
                     out[k][mode] += _median_ms(fn)
                     if mode == "bf16":
                         out[k]["bf16_plain"] += _median_ms(plain[k])
+                if mode == "bf16" and k in ("k9a", "k9b"):
+                    for part, ms in k9_parts(fn).items():
+                        out[k]["bf16_parts"][part] += ms
             del x2, a, dx2, da
         torch.cuda.empty_cache()
     return out

@@ -1809,7 +1809,13 @@ def test_tade_bf16_kernels_match_plain_version(cuda, b, t, scale, dilation, gate
     (2, 1002, 2, 2, "sigmoid", True, torch.float32),
     (1, 334, 2, 1, "softmax", False, torch.bfloat16),
     (2, 6, 2, 2, "softmax", True, torch.bfloat16),
-    (1, 513, 2, 4, "sigmoid", True, torch.float32)])
+    (1, 513, 2, 4, "sigmoid", True, torch.float32),
+    # lengths of no whole 112-row chain tile or 448-row weight-gradient
+    # chunk of csrc/tade_bwd_bf16.cu, at each dilation
+    (2, 507, 1, 1, "softmax", True, torch.bfloat16),
+    (1, 285, 2, 2, "sigmoid", False, torch.bfloat16),
+    (2, 999, 1, 3, "softmax", True, torch.float32),
+    (1, 777, 2, 4, "sigmoid", True, torch.bfloat16)])
 def test_tade_bf16_backward_matches_plain_version(cuda, b, t, scale, dilation, gated, bias,
                                                   wdtype):
     """K9b and K9a in the bf16 mode, stage by stage, against their plain
