@@ -256,22 +256,25 @@ Phases (any failure exits non-zero; nothing is caught):
    rms|plain| and max|diff| <= 1e-2 max|plain| on every output and
    gradient, where the float32 kernels on the same values, the float32
    weights cut to bf16 by truncation and each zeroed output must be
-   rejected; two runs of K9b and K9a on the same inputs give the same
-   bits; registers, spills and SASS of every instantiation of
-   ``csrc/tade.cu``, ``csrc/tade_bwd.cu`` and ``csrc/tade_bwd_bf16.cu``
-   (K8's bf16 ones must multiply as HMMA.16816.F32.BF16, K9's bf16
-   chain and weight-gradient kernels as HGMMA ... F32.BF16 warpgroup
-   products, each without TF32 and without a spill); CUDA-event times of
-   one G step's K8a, K8b, K9a and K9b (blocks 4-8) beside their bf16 plain
-   versions and the float32 kernels, and their bf16 bounds; K9a's and
-   K9b's bf16 time by part (``time_tade.k9_parts``: re-run, chain, weight
-   gradients, reduce, glue) and the chain and weight gradients' share of
-   their own bf16 bound.
+   rejected; two runs of K8a, K8b, K9b and K9a on the same inputs give the
+   same bits; registers, spills and SASS of every instantiation of
+   ``csrc/tade.cu``, ``csrc/tade_bf16.cu``, ``csrc/tade_bwd.cu`` and
+   ``csrc/tade_bwd_bf16.cu`` (K8's bf16 kernels, forward and Save, and
+   K9's bf16 chain and weight-gradient kernels must multiply as HGMMA ...
+   F32.BF16 warpgroup products, K8's bf16 ones without any HMMA, each
+   without TF32 and without a spill); CUDA-event times of one G step's
+   K8a, K8b, K9a and K9b (blocks 4-8) beside their bf16 plain versions and
+   the float32 kernels, and their bf16 bounds; K8a's and K8b's bf16 time by
+   part, forward and Save re-run (``time_tade.k8_parts``: kernel,
+   statistics, weight layout, glue), K9a's and K9b's
+   (``time_tade.k9_parts``: re-run, chain, weight gradients, reduce, glue)
+   and the chain and weight gradients' share of their own bf16 bound.
 29. StyleMelGAN v1 with ``mixed_precision`` and ``use_pallas_tade_train``
    through ``bin/train.main`` at full width and the shipped batch of 32 x
    22528 (TRAIN_OVERRIDES, on a dump of STYLE_TRAIN_UTTS utterances):
-   K8a/K8b's bf16 modes 5 launches per G step and per D phase re-run,
-   K9a/K9b's 5 per G step (the eval's forwards run in float32); the same
+   K8a/K8b's bf16 modes 5 launches per G step and per D phase re-run and
+   5 Save re-runs per G step inside K9a/K9b, K9a/K9b's 5 per G step (the
+   eval's forwards run in float32); the same
    run with their bf16 plain versions on the card logs the same losses
    within 1e-2 relative; a resume from step 2 logs steps 3-4 within 1e-2;
    the checkpoints hold float32 alone; one G+D step at B=2 on the card
@@ -778,6 +781,7 @@ def _reset_launch_counts() -> None:
     fused_tade_blocks.launches_k8a = fused_tade_blocks.launches_k8b = 0
     tade_block_backward.launches_k9a = tade_block_backward.launches_k9b = 0
     fused_tade_blocks.bf16_launches_k8a = fused_tade_blocks.bf16_launches_k8b = 0
+    fused_tade_blocks.bf16_rerun_launches_k8a = fused_tade_blocks.bf16_rerun_launches_k8b = 0
     tade_block_backward.bf16_launches_k9a = tade_block_backward.bf16_launches_k9b = 0
 
 
@@ -4431,27 +4435,35 @@ def phase_k89_bf16(card: str) -> dict:
 
     from parallelwavegan_tpu_torch.ops.kernels import tade_decode as td
     from parallelwavegan_tpu_torch.ops.kernels import tade_train as tt
-    from parallelwavegan_tpu_torch.ops.kernels.time_tade import K9_PARTS, k9_parts
+    from parallelwavegan_tpu_torch.ops.kernels.time_tade import (
+        K8_PARTS,
+        K9_PARTS,
+        k8_parts,
+        k8_pieces,
+        k9_parts,
+    )
 
+    k8_bf16 = ("tade1_bf16_kernel", "tade2_bf16_kernel")
+    seen = set()
     for kernel, use in _built_resources(
-            ("tade1_kernel", "tade2_kernel", "stage_bwd_kernel", "stage_wgrad_kernel",
-             "chain_bf16_kernel", "wgrad_bf16"),
-            ("tade.cu", "tade_bwd.cu", "tade_bwd_bf16.cu")).items():
+            ("tade1_kernel", "tade2_kernel", *k8_bf16, "stage_bwd_kernel",
+             "stage_wgrad_kernel", "chain_bf16_kernel", "wgrad_bf16"),
+            ("tade.cu", "tade_bf16.cu", "tade_bwd.cu", "tade_bwd_bf16.cu")).items():
         print(f"K8/K9 {kernel}: {use.get('registers')} registers, spill stores "
               f"{use.get('spill_stores')} B, loads {use.get('spill_loads')} B; SASS "
               f"{use.get('sass')} on {card}")
         counts = use.get("sass", "")
         spilled = use.get("spill_stores") or use.get("spill_loads")
-        if kernel.endswith("true>") and ("HMMA.16816.F32.BF16" not in counts
-                                         or "TF32" in counts or spilled):
-            _fail(f"{kernel}: expected bf16 products (HMMA.16816.F32.BF16) and no "
-                  f"spill, got {use}")
-        # K9's bf16 mode (csrc/tade_bwd_bf16.cu): its products on wgmma
-        if (kernel.startswith(("chain_bf16_kernel<", "wgrad_bf16_kernel"))
+        # K8's and K9's bf16 modes (csrc/tade_bf16.cu, csrc/tade_bwd_bf16.cu):
+        # their products on wgmma, K8's with no mma.sync left
+        if (kernel.startswith((*k8_bf16, "chain_bf16_kernel<", "wgrad_bf16_kernel"))
                 and (not re.search(r"HGMMA\.\S*\.F32\.BF16", counts) or "TF32" in counts
-                     or spilled)):
+                     or spilled or (kernel.startswith(k8_bf16) and ", HMMA 0," not in counts))):
             _fail(f"{kernel}: expected bf16 warpgroup products (HGMMA ... F32.BF16) and "
                   f"no spill, got {use}")
+        seen.add(kernel.split("<")[0])
+    if not seen.issuperset(k8_bf16):
+        _fail(f"K8 bf16: no {k8_bf16} among the built kernels {sorted(seen)}")
 
     blocks = _style_train_blocks()
     b = V1_STYLE_CONFIG["batch_size"]
@@ -4501,6 +4513,8 @@ def phase_k89_bf16(card: str) -> dict:
     recs = {k: {"errs": []} for k in ("k8a", "k8b", "k9a", "k9b")}
     f32_ms = dict.fromkeys(recs, 0.0)
     parts = {k: dict.fromkeys([*K9_PARTS, "glue"], 0.0) for k in ("k9a", "k9b")}
+    k8parts = {k: dict.fromkeys(K8_PARTS, 0.0) for k in ("k8a", "k8b", "k8a_rerun", "k8b_rerun")}
+    rerun_ms = {"k8a_rerun": 0.0, "k8b_rerun": 0.0}
     for i, t, sc in blocks:
         blk32 = {"scale": sc, "dilation": 2}
         for key in td.WEIGHT_KEYS:
@@ -4521,6 +4535,10 @@ def phase_k89_bf16(card: str) -> dict:
             want8b = td.tade2_reference_bf16(x, x2, a, blk)
         w8a = check(f"K8a bf16 {name}", n8a, (x2, a), want8a, recs["k8a"])
         w8b = check(f"K8b bf16 {name}", n8b, got8b, want8b, recs["k8b"])
+        with torch.no_grad():
+            if not (same_bits((x2, a), td.tade1_cuda(x, c, blk))
+                    and same_bits(got8b, td.tade2_cuda(x, x2, a, blk))):
+                _fail(f"K8 bf16 {name}: two runs of the same inputs differ")
         with torch.no_grad():
             xf, cf, x2f, af = x.float(), c.float(), x2.float(), a.float()
             for control, w8, w8b_ in (
@@ -4544,6 +4562,20 @@ def phase_k89_bf16(card: str) -> dict:
             m1, r1 = td._stats(x.float())
             rerun2 = tt.tade2_rerun_cuda(x, x2, a, blk, "softmax", m2, r2)
             rerun1 = tt.tade1_rerun_cuda(x, c, blk, "softmax", m1, r1)
+            # the Save re-runs against their plain versions, and twice
+            want1 = tt.tade1_rerun_reference_bf16(x, c, blk, "softmax", m1, r1)
+            want2 = [v for v in tt.tade2_rerun_reference_bf16(x, x2, a, blk, "softmax", m2, r2)
+                     if v is not None]
+            w8r = max(check(f"K8a bf16 re-run {name}", ("a", "y", "s", "t"), rerun1, want1,
+                            recs["k8a"]),
+                      check(f"K8b bf16 re-run {name}", ("a2", "y", "s", "t", "ua"),
+                            [v for v in rerun2 if v is not None], want2, recs["k8b"]))
+            if not (same_bits(rerun1, tt.tade1_rerun_cuda(x, c, blk, "softmax", m1, r1))
+                    and same_bits([v for v in rerun2 if v is not None],
+                                  [v for v in tt.tade2_rerun_cuda(x, x2, a, blk, "softmax",
+                                                                  m2, r2) if v is not None])):
+                _fail(f"K8 bf16 re-run {name}: two runs of the same inputs differ")
+            del want1, want2
         want9b = tt.tade2_backward_reference_bf16(x, x2, a, blk, "softmax", dout, da2, rerun2)
         want9a = tt.tade1_backward_reference_bf16(x, c, blk, "softmax", dx2, da, rerun1)
         del rerun1, rerun2
@@ -4561,9 +4593,9 @@ def phase_k89_bf16(card: str) -> dict:
             rejected(f"K9a bf16 {name}", control, n9a, g9a, want9a)
         del got9a, got9b, want9a, want9b, g9a, g9b
         print(f"K8/K9 bf16 vs plain [{name}]: worst rms|diff| / rms|plain| K8a {w8a:.3e}, "
-              f"K8b {w8b:.3e}, K9a {w9a:.3e}, K9b {w9b:.3e} (bound 1e-3, max 1e-2 of "
-              "max|plain|; K9 fed the kernels' re-run); the float32 kernels' and the "
-              "truncated weights' results rejected")
+              f"K8b {w8b:.3e}, their Save re-runs {w8r:.3e}, K9a {w9a:.3e}, K9b {w9b:.3e} "
+              "(bound 1e-3, max 1e-2 of max|plain|; K9 fed the kernels' re-run); the float32 "
+              "kernels' and the truncated weights' results rejected; two runs bit-equal")
         with torch.no_grad():
             _timed(recs["k8a"], f"K8a bf16 {name}", card, lambda: td.tade1_cuda(x, c, blk),
                    lambda: td.tade1_reference_bf16(x, c, blk),
@@ -4574,6 +4606,17 @@ def phase_k89_bf16(card: str) -> dict:
                    _tade_bf16_work(x, blk, 2, False))
             f32_ms["k8a"] += _median_ms(lambda: td.tade1_cuda(xf, cf, blk32))
             f32_ms["k8b"] += _median_ms(lambda: td.tade2_cuda(xf, x2f, af, blk32))
+            k8 = {"k8a": (lambda: td.tade1_cuda(x, c, blk), 1, x, False),
+                  "k8b": (lambda: td.tade2_cuda(x, x2, a, blk), 2, x2, False),
+                  "k8a_rerun": (lambda: tt.tade1_rerun_cuda(x, c, blk, "softmax", m1, r1), 1,
+                                x, True),
+                  "k8b_rerun": (lambda: tt.tade2_rerun_cuda(x, x2, a, blk, "softmax", m2, r2),
+                                2, x2, True)}
+            for key, (fn, half, v, rerun) in k8.items():
+                if rerun:
+                    rerun_ms[key] += _median_ms(fn)
+                for part, ms in k8_parts(fn, k8_pieces(td, half, v, blk, rerun)).items():
+                    k8parts[key][part] += ms
         _timed(recs["k9a"], f"K9a bf16 {name}", card,
                lambda: tt.tade1_backward_cuda(x, c, blk, "softmax", dx2, da),
                lambda: tt.tade1_backward_reference(x, c, blk, "softmax", dx2, da),
@@ -4603,6 +4646,20 @@ def phase_k89_bf16(card: str) -> dict:
               f"{rec['bound_ms']:.3f} ms ({rec['flops'] / 1e9:.1f} GFLOP / 989 TFLOP/s, "
               f"{rec['bytes'] / 1e6:.1f} MB / 3.35 TB/s; {rec['bound_by']}; "
               f"{rec['bound_ms'] / rec['ms']:.1%} of it) on {card}")
+    for label, split in k8parts.items():
+        rerun = label.endswith("rerun")
+        base = recs[label[:3]]
+        ms = rerun_ms[label] if rerun else base["ms"]
+        print(f"{label[:3].upper()} bf16, "
+              + ("the Save re-run inside K9" if rerun else "the forward")
+              + ", by part per StyleMelGAN v1 G step (torch.profiler device time): "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+              + f"; {ms:.3f} ms by CUDA events; the kernel at "
+              + (f"{base['bound_ms'] / split['kernel']:.1%}" if split["kernel"] else
+                 "(not in the trace)") + f" of the bf16 bound {base['bound_ms']:.3f} ms on {card}")
+        base["rerun_parts" if rerun else "parts"] = split
+        if rerun:
+            base["rerun_ms"] = ms
     for label, split in parts.items():
         # the transposed convs and weight gradients are two thirds of K9's
         # products (the re-run the third)
@@ -4681,14 +4738,15 @@ def phase_style_bf16_train(card: str) -> dict:
         json.dump(_style_v1_config(True, mixed_precision=True, **TRAIN_OVERRIDES), f)
     steps = TRAIN_OVERRIDES["train_max_steps"]
     n = len(_style_train_blocks())
-    # bf16: the G phases' forwards and the D phases' re-runs; the eval's two
+    # bf16: the G phases' forwards and the D phases' re-runs, and one Save
+    # re-run of K8a and of K8b inside each K9a and K9b; the eval's two
     # forwards run in float32 (K8's float32 mode), as the trainer's eval does
     d_reruns = steps - TRAIN_OVERRIDES["discriminator_train_start_steps"] - 1
     expect = {}
     for name, k in (("kernel", steps), ("plain", 0), ("resume", steps - 2)):
         fwd = (k + d_reruns) * n if k else 0
         expect[name] = (fwd, fwd, k * n, k * n,
-                        (k + _eval_and_d_forwards()) * n if k else 2 * n)
+                        (k + _eval_and_d_forwards()) * n if k else 2 * n, k * n, k * n)
 
     saved = (tt.tade1_cuda, tt.tade2_cuda, tt.tade1_backward_cuda, tt.tade2_backward_cuda)
 
@@ -4722,7 +4780,9 @@ def phase_style_bf16_train(card: str) -> dict:
                             td.fused_tade_blocks.bf16_launches_k8b,
                             tt.tade_block_backward.bf16_launches_k9a,
                             tt.tade_block_backward.bf16_launches_k9b,
-                            td.fused_tade_blocks.launches_k8a)
+                            td.fused_tade_blocks.launches_k8a,
+                            td.fused_tade_blocks.bf16_rerun_launches_k8a,
+                            td.fused_tade_blocks.bf16_rerun_launches_k8b)
         finally:
             (tt.tade1_cuda, tt.tade2_cuda, tt.tade1_backward_cuda,
              tt.tade2_backward_cuda) = saved
@@ -4730,7 +4790,8 @@ def phase_style_bf16_train(card: str) -> dict:
               f"steps in {seconds:.1f} s (set-up, eval and saves included) on {card}; bf16 "
               "launches " + ", ".join(f"{k} {v}" for k, v in zip(
                   ("K8a", "K8b", "K9a", "K9b"), counts[name]))
-              + f"; K8a launches in all {counts[name][4]} (the eval's float32)")
+              + f"; K8a launches in all {counts[name][4]} (the eval's float32); bf16 Save "
+              f"re-runs inside K9 K8a {counts[name][5]}, K8b {counts[name][6]}")
         if res[name]["steps"] != steps or counts[name] != expect[name]:
             _fail(f"StyleMelGAN v1 bf16 training {name}: {res[name]['steps']} steps, "
                   f"launches {counts[name]}, expected {expect[name]}")
@@ -4776,6 +4837,7 @@ def phase_style_bf16_train(card: str) -> dict:
         _fail(f"StyleMelGAN v1 bf16 cross-check: {cross:.3e} vs the CPU, {vs_f32} vs float32")
     return {"k8a_launches": counts["kernel"][0], "k8b_launches": counts["kernel"][1],
             "k9a_launches": counts["kernel"][2], "k9b_launches": counts["kernel"][3],
+            "k8a_reruns": counts["kernel"][5], "k8b_reruns": counts["kernel"][6],
             "err": worst, "err_resume": err_resume, "cross": cross}
 
 
@@ -6975,10 +7037,13 @@ def main() -> None:
         entry("melgan_stacks_backward (K7 bf16-resident mode)", "melgan_stack_bwd.cu",
               "melgan_stack_train.py:247",
               melgan_bf16["k7_launches"] + mb_train["k7_bf16_launches"], k67["k7"]),
-        entry("fused_tade_blocks_train (K8a bf16-resident mode)", "tade.cu",
-              "tade_decode.py:366", style_bf16["k8a_launches"], k89["k8a"]),
-        entry("fused_tade_blocks_train (K8b bf16-resident mode)", "tade.cu",
-              "tade_decode.py:437", style_bf16["k8b_launches"], k89["k8b"]),
+        # forwards and the Save re-runs inside K9
+        entry("fused_tade_blocks_train (K8a bf16-resident mode)", "tade_bf16.cu",
+              "tade_decode.py:366", style_bf16["k8a_launches"] + style_bf16["k8a_reruns"],
+              k89["k8a"]),
+        entry("fused_tade_blocks_train (K8b bf16-resident mode)", "tade_bf16.cu",
+              "tade_decode.py:437", style_bf16["k8b_launches"] + style_bf16["k8b_reruns"],
+              k89["k8b"]),
         entry("tade_block_backward (K9a bf16-resident mode)", "tade_bwd_bf16.cu",
               "tade_train.py:438", style_bf16["k9a_launches"], k89["k9a"]),
         entry("tade_block_backward (K9b bf16-resident mode)", "tade_bwd_bf16.cu",

@@ -97,10 +97,14 @@ _SIGNATURES = {
     "tade_stage_bwd": [_P] * 25 + [ctypes.c_longlong] + [_I] * 6 + [_P],
     # B, L -> floats of tade_stage_bwd's partial buffer
     "tade_stage_bwd_part_floats": [_I] * 2,
-    # the bf16-resident modes, the float32 entry points' arguments (the
-    # activations bf16, the weights in bf16 fragments)
+    # the bf16-resident modes (csrc/tade_bf16.cu), the float32 entry points'
+    # arguments (the activations bf16, the weights in wgmma's tiles)
     "tade1_bf16": [_P] * 13 + [_I] * 4 + [_P],
     "tade2_bf16": [_P] * 15 + [_I] * 6 + [_P],
+    # csrc/tade_bf16.cu: x, part, mean, rstd, B, T, device, stream
+    "tade_stats_bf16": [_P] * 4 + [_I] * 3 + [_P],
+    # B, T -> floats of tade_stats_bf16's partial buffer
+    "tade_stats_bf16_part_floats": [_I] * 2,
     # csrc/tade_bwd_bf16.cu: tade_stage_bwd's arguments (dT, dG, da bf16
     # too, the weights in mma_bf16.tade_conv_wgmma's tiles)
     "tade_stage_bwd_bf16": [_P] * 25 + [ctypes.c_longlong] + [_I] * 6 + [_P],

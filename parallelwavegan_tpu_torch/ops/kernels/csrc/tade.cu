@@ -1,7 +1,6 @@
 // Fused StyleMelGAN TADEResBlock forward for Hopper (sm_90a), float32 in and
-// out, every conv product on the tensor cores in split TF32; or, in the
-// bf16-resident mode of mixed precision (below), bf16 in and out, one bf16
-// product per multiply.
+// out, every conv product on the tensor cores in split TF32. The
+// bf16-resident mode of mixed precision is csrc/tade_bf16.cu.
 //
 // Replaces the two Pallas TPU kernels of
 // parallelwavegan_tpu/ops/pallas_kernels/tade_decode.py, reached through
@@ -75,25 +74,6 @@
 // csrc/tade_bwd.cu): it keeps the gated conv's input, the modulation's
 // scale and the gate's pre-activations instead of applying the gate (a
 // compile-time variant; decode runs the kernels without it).
-//
-// The bf16-resident mode (tade1_bf16, tade2_bf16: tade1_kernel<kSave,
-// true>, tade2_kernel<D, kSave, true>) is the JAX kernels' mxu_bf16
-// (tade_decode.py _kernel_tade1 / _kernel_tade2, turned on by a bf16 input
-// in tade_train.py:776 and :680), which mixed-precision training runs: x,
-// c, x2, a, the residual and the outputs x2, a, out and a2 are bf16 in
-// memory; the statistics float32 (computed from the bf16 values); every
-// conv's source rows and weights rounded to bf16 to nearest even where
-// its fragment is formed (tade_decode.py:185-187; the weights once, by
-// the wrapper, ops/kernels/mma_bf16.py tade_forward_fragments) and one
-// mma.sync.m16n8k16 bf16 product per 16-deep k-step into float32
-// (tadek::conv9_bf16); the biases, the modulation y = s * xn + h, the
-// gate and the residual sum in float32, rounded to bf16 only on store.
-// The bf16 inputs are widened to float32 as they are staged, so the
-// chain's buffers, tiles and epilogues are the float32 kernels'; only the
-// product and the weight ring (two 8 KB chunks, 92.5 KB a block: two
-// blocks per SM) differ. The Save variant keeps y and up(a) in bf16 (y is
-// read only as a rounded operand, a is bf16 already) and s and the
-// pre-activations t in float32, as JAX's backward recomputes them.
 
 #include "tade.cuh"
 
@@ -106,14 +86,11 @@ constexpr int kM1 = 128;                  // rows of the first conv (aux)
 constexpr int kM2 = kM1 - 2 * kHalf;      // 120: rows of the second (g)
 constexpr int kRows = kM1 + 2 * kHalf;    // 136: rows of each buffer
 constexpr int kPassF = kK * kC * kC * 2;  // floats of one 64-column weight pass
-constexpr int kPassH = kK * kC * kC;      // bf16 of one 64-column weight pass
 
-// floats of the weight ring (float32 hi/lo chunks, or bf16 ones), then the
-// bytes of shared memory: the ring and two buffers
-template <bool kBF16>
-constexpr int kRingF = kBF16 ? kWStages * kChunkH / 2 : kWStages * kChunkF;
-template <bool kBF16>
-constexpr size_t kSmem = sizeof(float) * ((size_t)kRingF<kBF16> + 2 * kRows * kLd);
+// floats of the weight ring (float32 hi/lo chunks), then the bytes of
+// shared memory: the ring and two buffers
+constexpr int kRingF = kWStages * kChunkF;
+constexpr size_t kSmem = sizeof(float) * ((size_t)kRingF + 2 * kRows * kLd);
 
 // output rows of a block whose gated conv has dilation D
 template <int D>
@@ -132,45 +109,21 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__
   cp_async_commit();
 }
 
-// The same rows of bf16 src, widened to float32 by plain loads and stores
-// (an empty cp.async group is committed).
-__device__ __forceinline__ void stage_rows(float* dst, const uint16_t* __restrict__ src,
-                                           int p0, int t_out, int s) {
-  for (int idx = threadIdx.x; idx < kRows * (kC / 8); idx += kThreads) {
-    const int q = idx >> 3, c8 = (idx & 7) * 8, p = p0 + q;
-    uint4 u = make_uint4(0u, 0u, 0u, 0u);
-    if (p >= 0 && p < t_out) u = *reinterpret_cast<const uint4*>(src + (size_t)(p / s) * kC + c8);
-    float4* d = reinterpret_cast<float4*>(dst + q * kLd + c8);
-    d[0] = make_float4(bf16mma::widen(u.x & 0xFFFFu), bf16mma::widen(u.x >> 16),
-                       bf16mma::widen(u.y & 0xFFFFu), bf16mma::widen(u.y >> 16));
-    d[1] = make_float4(bf16mma::widen(u.z & 0xFFFFu), bf16mma::widen(u.z >> 16),
-                       bf16mma::widen(u.w & 0xFFFFu), bf16mma::widen(u.w >> 16));
-  }
-  cp_async_commit();
-}
-
-// Pass `pass` of a conv over the rows in in_s (see conv9_tf32x3 and
-// conv9_bf16): weight passes 0 (aux), 1-2 (g), 3-4 (gc) of the wrapper's
-// fragments.
+// Pass `pass` of a conv over the rows in in_s (see conv9_tf32x3): weight
+// passes 0 (aux), 1-2 (g), 3-4 (gc) of the wrapper's fragments.
 template <int D, int M>
 __device__ __forceinline__ void conv(const float* in_s, const float* __restrict__ wf,
                                      int pass, float* w_s, float (&tot)[2][4][4]) {
   conv9<kC, D, M>(in_s, kLd, wf + (size_t)pass * kPassF, w_s, tot);
 }
 
-template <int D, int M>
-__device__ __forceinline__ void conv(const float* in_s, const uint16_t* __restrict__ wf,
-                                     int pass, float* w_s, float (&tot)[2][4][4]) {
-  conv9<kC, D, M>(in_s, kLd, wf + (size_t)pass * kPassH, w_s, tot);
-}
-
 // The first conv's tile + bias, zero outside [0, L), into dst (row m at
 // position pos0 + m); rows m in [lo, lo + TO) inside [0, L) also to out
-// (device; float32 or bf16).
-template <int TO, typename IO>
+// (device).
+template <int TO>
 __device__ __forceinline__ void store_aux(const float (&tot)[2][4][4],
                                           const float* __restrict__ bias, int pos0, int L,
-                                          float* dst, int lo, IO* __restrict__ out) {
+                                          float* dst, int lo, float* __restrict__ out) {
   const int warp = threadIdx.x >> 5, wm = warp & 3, wn = warp >> 2;
   const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
 #pragma unroll
@@ -185,7 +138,7 @@ __device__ __forceinline__ void store_aux(const float (&tot)[2][4][4],
         float2 v = make_float2(0.f, 0.f);
         if (pos >= 0 && pos < L) {
           v = make_float2(tot[mi][ni][2 * h] + bv.x, tot[mi][ni][2 * h + 1] + bv.y);
-          if (m >= lo && m < lo + TO) stio2(out + (size_t)pos * kC + ch, v);
+          if (m >= lo && m < lo + TO) st2(out + (size_t)pos * kC + ch, v);
         }
         st2(dst + m * kLd + ch, v);
       }
@@ -202,14 +155,14 @@ __device__ __forceinline__ int pair_channel(int p, int q) {
 
 // Pass p of the second conv, [s | h] = g(a') + bias: y = s * (xr[pos / sc]
 // - mean) * rstd + h over rows m < kM2 at positions pos0 + m, zero outside
-// [0, L), into dst (xr float32 or bf16). With kSave, rows m in [lo, lo +
+// [0, L), into dst. With kSave, rows m in [lo, lo +
 // TO) inside [0, L) also send their s to s_out (device, float32); their y
 // goes from dst (save_rows).
-template <int TO, bool kSave, typename IO>
+template <int TO, bool kSave>
 __device__ __forceinline__ void store_modulated(
     const float (&tot)[2][4][4], int p, const float* __restrict__ bias,
     const float* __restrict__ mean, const float* __restrict__ rstd, int pos0, int L,
-    int sc, const IO* __restrict__ xr, float* dst, int lo, float* __restrict__ s_out) {
+    int sc, const float* __restrict__ xr, float* dst, int lo, float* __restrict__ s_out) {
   const int wm = (threadIdx.x >> 5) & 3, gid = (threadIdx.x & 31) >> 2;
 #pragma unroll
   for (int q = 0; q < 2; ++q) {
@@ -226,7 +179,7 @@ __device__ __forceinline__ void store_modulated(
         if (pos >= 0 && pos < L) {
           const float2 s = make_float2(tot[mi][2 * q][2 * h] + bs.x,
                                        tot[mi][2 * q + 1][2 * h] + bs.y);
-          const float2 xv = ldio2(xr + (size_t)(pos / sc) * kC + ch);
+          const float2 xv = ld2(xr + (size_t)(pos / sc) * kC + ch);
           y.x = fmaf(s.x, (xv.x - mu.x) * rs.x, tot[mi][2 * q][2 * h + 1] + bh.x);
           y.y = fmaf(s.y, (xv.y - mu.y) * rs.y, tot[mi][2 * q + 1][2 * h + 1] + bh.y);
           if (kSave && m >= lo && m < lo + TO) st2(s_out + (size_t)pos * kC + ch, s);
@@ -238,7 +191,7 @@ __device__ __forceinline__ void store_modulated(
 
 // The block's own rows of the gated conv's input, local rows lo .. lo + TO
 // of y_s at positions t0 .. t0 + TO, inside [0, L), to y_out (device), in
-// 16-byte pieces of float32 (or 8-byte pieces of bf16). Copying them here
+// 16-byte pieces. Copying them here
 // rather than from the epilogue's registers kept the Save variant of K8a
 // at 128 registers without a spill.
 template <int TO>
@@ -249,19 +202,6 @@ __device__ __forceinline__ void save_rows(const float* y_s, int lo, int t0, int 
     if (t < L)
       *reinterpret_cast<float4*>(y_out + (size_t)t * kC + c4) =
           *reinterpret_cast<const float4*>(y_s + (m + lo) * kLd + c4);
-  }
-}
-
-template <int TO>
-__device__ __forceinline__ void save_rows(const float* y_s, int lo, int t0, int L,
-                                          uint16_t* __restrict__ y_out) {
-  for (int idx = threadIdx.x; idx < TO * (kC / 4); idx += kThreads) {
-    const int m = idx >> 4, c4 = (idx & 15) * 4, t = t0 + m;
-    if (t < L) {
-      const float4 v = *reinterpret_cast<const float4*>(y_s + (m + lo) * kLd + c4);
-      *reinterpret_cast<uint2*>(y_out + (size_t)t * kC + c4) =
-          make_uint2(bf16mma::pack(v.x, v.y), bf16mma::pack(v.z, v.w));
-    }
   }
 }
 
@@ -294,13 +234,13 @@ __device__ __forceinline__ void stage_gate_inputs(const float (&tot)[2][4][4], i
 // The gated conv's row t (of t_out) from lane g's channels (2g, 2g+1) of
 // each half in a: with kSave its pre-activations [ta | tb] to tp (rows of
 // 128, float32); else gate(a), plus the residual row xr[t / s] with
-// kResidual, to out (xr and out float32 or bf16, the sum rounded once).
+// kResidual, to out.
 // Every lane of the warp must call it. The residual is a compile-time
 // choice: a runtime null test of xr costs registers.
-template <bool kSave, bool kResidual, typename IO>
+template <bool kSave, bool kResidual>
 __device__ __forceinline__ void store_gated(const float (&a)[4], int t, int t_out,
-                                            int softmax, IO* __restrict__ out,
-                                            const IO* __restrict__ xr, int s,
+                                            int softmax, float* __restrict__ out,
+                                            const float* __restrict__ xr, int s,
                                             float* __restrict__ tp) {
   const int g = threadIdx.x % 32;
   if (kSave) {
@@ -314,18 +254,18 @@ __device__ __forceinline__ void store_gated(const float (&a)[4], int t, int t_ou
   float2 v = gate2(a, softmax);
   if (t >= t_out) return;
   if (kResidual) {
-    const float2 x = ldio2(xr + (size_t)(t / s) * kC + 2 * g);
+    const float2 x = ld2(xr + (size_t)(t / s) * kC + 2 * g);
     v = make_float2(x.x + v.x, x.y + v.y);
   }
-  stio2(out + (size_t)t * kC + 2 * g, v);
+  st2(out + (size_t)t * kC + 2 * g, v);
 }
 
 // Rows t0 + m, m < TO, of the gated conv's output, staged in S0 (channels
 // 0-31) and S1 (32-63), through store_gated, one warp per row.
-template <int TO, bool kSave, bool kResidual, typename IO>
+template <int TO, bool kSave, bool kResidual>
 __device__ __forceinline__ void gate_rows(const float* S0, const float* S1, int t0,
-                                          int t_out, int softmax, IO* __restrict__ out,
-                                          const IO* __restrict__ xr, int s,
+                                          int t_out, int softmax, float* __restrict__ out,
+                                          const float* __restrict__ xr, int s,
                                           float* __restrict__ tp) {
   const int lane = threadIdx.x & 31;
   const float* S = (lane < 16 ? S0 : S1) + 2 * (lane & 15);
@@ -339,67 +279,58 @@ __device__ __forceinline__ void gate_rows(const float* S0, const float* S1, int 
 }
 
 // One kernel's three convs: aux, g, gc in fragment order, (5, 72, 8, 32, 4)
-// float32 (TF32 hi, lo) or, kBF16, (5, 36, 8, 32, 4) bf16
-template <bool kBF16>
+// float32 (TF32 hi, lo)
 struct Weights {
-  const io_t<kBF16>* wf;
+  const float* wf;
   const float* aux_b;  // (64)
   const float* g_b;    // (128)
   const float* gc_b;   // (128)
 };
 
 // What the backward's re-run keeps (K9, csrc/tade_bwd.cu), at the kernel's
-// output rate L: the gated conv's input y (the activations' type) and the
-// modulation's scale s (float32) (B, L, 64), the gated conv's
-// pre-activations t = [ta | tb] (B, L, 128, float32), and for K8b at scale
-// 2 the stretched conditioning up(a) (B, L, 64, the activations' type).
-template <bool kBF16>
+// output rate L: the gated conv's input y and the modulation's scale s (B,
+// L, 64), the gated conv's pre-activations t = [ta | tb] (B, L, 128), and
+// for K8b at scale 2 the stretched conditioning up(a) (B, L, 64).
 struct Save {
-  io_t<kBF16>* y;
+  float* y;
   float* s;
   float* t;
-  io_t<kBF16>* ua;
+  float* ua;
 };
 
-// the activations float32, or bf16 in the bf16 mode
-template <bool kBF16>
 struct Tade1 {
-  using IO = io_t<kBF16>;
-  const IO* x;        // (B, T, 64)
-  const IO* c;        // (B, T, 64)
+  const float* x;     // (B, T, 64)
+  const float* c;     // (B, T, 64)
   const float* mean;  // (B, 64) of x
   const float* rstd;  // (B, 64)
-  IO* x2;             // (B, T, 64), not written with Save
-  IO* a;              // (B, T, 64)
-  Weights<kBF16> w;
-  Save<kBF16> sv;
+  float* x2;          // (B, T, 64), not written with Save
+  float* a;           // (B, T, 64)
+  Weights w;
+  Save sv;
   int T, softmax;
 };
 
-template <bool kBF16>
 struct Tade2 {
-  using IO = io_t<kBF16>;
-  const IO* x;        // (B, T, 64), the block's input (residual)
-  const IO* x2;       // (B, T, 64)
-  const IO* a;        // (B, T, 64)
+  const float* x;     // (B, T, 64), the block's input (residual)
+  const float* x2;    // (B, T, 64)
+  const float* a;     // (B, T, 64)
   const float* mean;  // (B, 64) of x2
   const float* rstd;  // (B, 64)
-  IO* out;            // (B, sT, 64), not written with Save
-  IO* a2;             // (B, sT, 64)
-  Weights<kBF16> w;
-  Save<kBF16> sv;
+  float* out;         // (B, sT, 64), not written with Save
+  float* a2;          // (B, sT, 64)
+  Weights w;
+  Save sv;
   int T, scale, softmax;
 };
 
 // K8a. Local rows: c at t0 - 12 + q, a at t0 - 8 + m, y at t0 - 4 + m,
-// x2 at t0 + m. kSave: the backward's re-run (struct Save). kBF16: the
-// bf16-resident mode.
-template <bool kSave, bool kBF16>
-__global__ void __launch_bounds__(kThreads, 2) tade1_kernel(Tade1<kBF16> p) {
+// x2 at t0 + m. kSave: the backward's re-run (struct Save).
+template <bool kSave>
+__global__ void __launch_bounds__(kThreads, 2) tade1_kernel(Tade1 p) {
   constexpr int TO = kTO<1>;
   extern __shared__ float4 smem4[];
   float* w_s = reinterpret_cast<float*>(smem4);
-  float* buf0 = w_s + kRingF<kBF16>;  // c, then y, then the gate's second half
+  float* buf0 = w_s + kRingF;  // c, then y, then the gate's second half
   float* buf1 = buf0 + kRows * kLd;   // a, then the gate's first half
   const int b = blockIdx.y, t0 = blockIdx.x * TO, T = p.T;
   const size_t base = (size_t)b * T * kC;
@@ -421,18 +352,18 @@ __global__ void __launch_bounds__(kThreads, 2) tade1_kernel(Tade1<kBF16> p) {
   }
   __syncthreads();
   gate_rows<TO, kSave, false>(buf1, buf0, t0, T, p.softmax, p.x2 + base,
-                              static_cast<const io_t<kBF16>*>(nullptr), 1,
+                              static_cast<const float*>(nullptr), 1,
                               p.sv.t + 2 * base);
 }
 
 // K8b at dilation D. Local rows at the output rate: up(a) at p0 + q with
 // p0 = t0 - 4D - 8, a2 at p0 + 4 + m, y2 at t0 - 4D + m, out at t0 + m.
-template <int D, bool kSave, bool kBF16>
-__global__ void __launch_bounds__(kThreads, 2) tade2_kernel(Tade2<kBF16> p) {
+template <int D, bool kSave>
+__global__ void __launch_bounds__(kThreads, 2) tade2_kernel(Tade2 p) {
   constexpr int TO = kTO<D>;
   extern __shared__ float4 smem4[];
   float* w_s = reinterpret_cast<float*>(smem4);
-  float* buf0 = w_s + kRingF<kBF16>;  // up(a), then y2, then the gate's second half
+  float* buf0 = w_s + kRingF;  // up(a), then y2, then the gate's second half
   float* buf1 = buf0 + kRows * kLd;   // a2, then the gate's first half
   const int b = blockIdx.y, t0 = blockIdx.x * TO, s = p.scale;
   const int t_out = s * p.T;
@@ -441,12 +372,11 @@ __global__ void __launch_bounds__(kThreads, 2) tade2_kernel(Tade2<kBF16> p) {
   float tot[2][4][4];
 
   if (kSave && p.sv.ua != nullptr) {  // up(a) over this block's rows, 4 channels a piece
-    using Piece = typename std::conditional<kBF16, uint2, float4>::type;
     for (int idx = threadIdx.x; idx < TO * (kC / 4); idx += kThreads) {
       const int t = t0 + idx / (kC / 4), cc = (idx % (kC / 4)) * 4;
       if (t < t_out)
-        *reinterpret_cast<Piece*>(p.sv.ua + out_base + (size_t)t * kC + cc) =
-            *reinterpret_cast<const Piece*>(p.a + in_base + (size_t)(t / s) * kC + cc);
+        *reinterpret_cast<float4*>(p.sv.ua + out_base + (size_t)t * kC + cc) =
+            *reinterpret_cast<const float4*>(p.a + in_base + (size_t)(t / s) * kC + cc);
     }
   }
   stage_rows(buf0, p.a + in_base, p0, t_out, s);
@@ -469,35 +399,35 @@ __global__ void __launch_bounds__(kThreads, 2) tade2_kernel(Tade2<kBF16> p) {
                              p.x + in_base, s, p.sv.t + 2 * out_base);
 }
 
-template <bool kSave, bool kBF16>
-cudaError_t launch_tade1(const Tade1<kBF16>& p, int B, cudaStream_t stream) {
-  cudaError_t e = set_smem(tade1_kernel<kSave, kBF16>, kSmem<kBF16>);
+template <bool kSave>
+cudaError_t launch_tade1(const Tade1& p, int B, cudaStream_t stream) {
+  cudaError_t e = set_smem(tade1_kernel<kSave>, kSmem);
   if (e != cudaSuccess) return e;
   const dim3 grid((p.T + kTO<1> - 1) / kTO<1>, B);
-  tade1_kernel<kSave, kBF16><<<grid, kThreads, kSmem<kBF16>, stream>>>(p);
+  tade1_kernel<kSave><<<grid, kThreads, kSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int D, bool kSave, bool kBF16>
-cudaError_t launch_tade2(const Tade2<kBF16>& p, int B, cudaStream_t stream) {
-  cudaError_t e = set_smem(tade2_kernel<D, kSave, kBF16>, kSmem<kBF16>);
+template <int D, bool kSave>
+cudaError_t launch_tade2(const Tade2& p, int B, cudaStream_t stream) {
+  cudaError_t e = set_smem(tade2_kernel<D, kSave>, kSmem);
   if (e != cudaSuccess) return e;
   const dim3 grid((p.scale * p.T + kTO<D> - 1) / kTO<D>, B);
-  tade2_kernel<D, kSave, kBF16><<<grid, kThreads, kSmem<kBF16>, stream>>>(p);
+  tade2_kernel<D, kSave><<<grid, kThreads, kSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <bool kSave, bool kBF16>
-cudaError_t launch_tade2_dil(const Tade2<kBF16>& p, int B, int dilation, cudaStream_t s) {
+template <bool kSave>
+cudaError_t launch_tade2_dil(const Tade2& p, int B, int dilation, cudaStream_t s) {
   switch (dilation) {
     case 1:
-      return launch_tade2<1, kSave, kBF16>(p, B, s);
+      return launch_tade2<1, kSave>(p, B, s);
     case 2:
-      return launch_tade2<2, kSave, kBF16>(p, B, s);
+      return launch_tade2<2, kSave>(p, B, s);
     case 3:
-      return launch_tade2<3, kSave, kBF16>(p, B, s);
+      return launch_tade2<3, kSave>(p, B, s);
     case 4:
-      return launch_tade2<4, kSave, kBF16>(p, B, s);
+      return launch_tade2<4, kSave>(p, B, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -505,40 +435,6 @@ cudaError_t launch_tade2_dil(const Tade2<kBF16>& p, int B, int dilation, cudaStr
 
 bool bad_args(int B, int T, int gate) {
   return B < 1 || B > 65535 || T < 1 || T > (1 << 24) || gate < 0 || gate > 1;
-}
-
-template <bool kBF16, typename IO = io_t<kBF16>>
-int run_tade1(const IO* x, const IO* c, const float* mean, const float* rstd, IO* x2,
-              IO* a, const IO* wf, const float* aux_b, const float* g_b, const float* gc_b,
-              IO* y, float* s, float* t, int B, int T, int gate, int device, void* stream) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
-  const bool save = y != nullptr;
-  if (bad_args(B, T, gate) || a == nullptr ||
-      (save ? s == nullptr || t == nullptr : x2 == nullptr))
-    return cudaErrorInvalidValue;
-  const Tade1<kBF16> p{x, c, mean, rstd, x2, a, {wf, aux_b, g_b, gc_b}, {y, s, t, nullptr},
-                       T, gate == 0};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return save ? launch_tade1<true, kBF16>(p, B, st) : launch_tade1<false, kBF16>(p, B, st);
-}
-
-template <bool kBF16, typename IO = io_t<kBF16>>
-int run_tade2(const IO* x, const IO* x2, const IO* a, const float* mean, const float* rstd,
-              IO* out, IO* a2, const IO* wf, const float* aux_b, const float* g_b,
-              const float* gc_b, IO* y, float* s, float* t, IO* ua, int B, int T, int scale,
-              int dilation, int gate, int device, void* stream) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
-  const bool save = y != nullptr;
-  if (bad_args(B, T, gate) || scale < 1 || scale > 2 || a2 == nullptr ||
-      (save ? s == nullptr || t == nullptr : out == nullptr))
-    return cudaErrorInvalidValue;
-  const Tade2<kBF16> p{x,  x2, a, mean, rstd, out, a2, {wf, aux_b, g_b, gc_b}, {y, s, t, ua},
-                       T, scale, gate == 0};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return save ? launch_tade2_dil<true, kBF16>(p, B, dilation, st)
-              : launch_tade2_dil<false, kBF16>(p, B, dilation, st);
 }
 
 }  // namespace
@@ -551,11 +447,7 @@ int run_tade2(const IO* x, const IO* x2, const IO* a, const float* mean, const f
 // (ops/kernels/tf32x3.py forward_fragments); biases float32, given (zeros
 // where a conv has none); every pointer 16-byte aligned. y, s and t (and
 // ua) are null for decode; given, they make the launch the backward's
-// re-run (struct Save), which writes them instead of x2 or out. The _bf16
-// entry points take the same arguments in the bf16-resident mode: the
-// activations x, c, x2, a, out, a2 (and y, ua) bf16, wf the three convs
-// rounded to bf16 in the bf16 fragments' order
-// (ops/kernels/mma_bf16.py tade_forward_fragments, (5, 36, 8, 32, 4)).
+// re-run (struct Save), which writes them instead of x2 or out.
 extern "C" {
 
 // K8a: x2 = gate(gc1(g1(aux1(c)) modulating norm(x))), and a = aux1(c).
@@ -563,8 +455,16 @@ int tade1(const float* x, const float* c, const float* mean, const float* rstd,
           float* x2, float* a, const float* wf, const float* aux_b, const float* g_b,
           const float* gc_b, float* y, float* s, float* t, int B, int T, int gate,
           int device, void* stream) {
-  return run_tade1<false>(x, c, mean, rstd, x2, a, wf, aux_b, g_b, gc_b, y, s, t, B, T,
-                          gate, device, stream);
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  const bool save = y != nullptr;
+  if (bad_args(B, T, gate) || a == nullptr ||
+      (save ? s == nullptr || t == nullptr : x2 == nullptr))
+    return cudaErrorInvalidValue;
+  const Tade1 p{x, c, mean, rstd, x2, a, {wf, aux_b, g_b, gc_b}, {y, s, t, nullptr},
+                T, gate == 0};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return save ? launch_tade1<true>(p, B, st) : launch_tade1<false>(p, B, st);
 }
 
 // K8b: out = up(x) + gate(gc2_dil(g2(aux2(up(a))) modulating up(norm(x2)))),
@@ -574,27 +474,17 @@ int tade2(const float* x, const float* x2, const float* a, const float* mean,
           const float* rstd, float* out, float* a2, const float* wf, const float* aux_b,
           const float* g_b, const float* gc_b, float* y, float* s, float* t, float* ua,
           int B, int T, int scale, int dilation, int gate, int device, void* stream) {
-  return run_tade2<false>(x, x2, a, mean, rstd, out, a2, wf, aux_b, g_b, gc_b, y, s, t, ua,
-                          B, T, scale, dilation, gate, device, stream);
-}
-
-// K8a in the bf16-resident mode.
-int tade1_bf16(const uint16_t* x, const uint16_t* c, const float* mean, const float* rstd,
-               uint16_t* x2, uint16_t* a, const uint16_t* wf, const float* aux_b,
-               const float* g_b, const float* gc_b, uint16_t* y, float* s, float* t, int B,
-               int T, int gate, int device, void* stream) {
-  return run_tade1<true>(x, c, mean, rstd, x2, a, wf, aux_b, g_b, gc_b, y, s, t, B, T,
-                         gate, device, stream);
-}
-
-// K8b in the bf16-resident mode.
-int tade2_bf16(const uint16_t* x, const uint16_t* x2, const uint16_t* a, const float* mean,
-               const float* rstd, uint16_t* out, uint16_t* a2, const uint16_t* wf,
-               const float* aux_b, const float* g_b, const float* gc_b, uint16_t* y,
-               float* s, float* t, uint16_t* ua, int B, int T, int scale, int dilation,
-               int gate, int device, void* stream) {
-  return run_tade2<true>(x, x2, a, mean, rstd, out, a2, wf, aux_b, g_b, gc_b, y, s, t, ua,
-                         B, T, scale, dilation, gate, device, stream);
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  const bool save = y != nullptr;
+  if (bad_args(B, T, gate) || scale < 1 || scale > 2 || a2 == nullptr ||
+      (save ? s == nullptr || t == nullptr : out == nullptr))
+    return cudaErrorInvalidValue;
+  const Tade2 p{x,  x2, a, mean, rstd, out, a2, {wf, aux_b, g_b, gc_b}, {y, s, t, ua},
+                T, scale, gate == 0};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return save ? launch_tade2_dil<true>(p, B, dilation, st)
+              : launch_tade2_dil<false>(p, B, dilation, st);
 }
 
 }  // extern "C"

@@ -1,16 +1,13 @@
 // The pieces that the fused StyleMelGAN TADE kernels share (csrc/tade.cu:
-// K8a, K8b; csrc/tade_bwd.cu: K9a, K9b), in the channel-last (B, T, 64)
-// layout: the widths, the 9-tap conv of rows staged in shared memory
+// K8a, K8b; csrc/tade_bwd.cu: K9a, K9b; their bf16-resident modes
+// csrc/tade_bf16.cu and csrc/tade_bwd_bf16.cu), in the channel-last (B, T,
+// 64) layout: the widths, the 9-tap conv of rows staged in shared memory
 // against weights split into TF32 hi and lo in the mma B fragments' order
 // and streamed through a cp.async ring (conv9_tf32x3, every product split
-// TF32 on the tensor cores, csrc/mma_tf32x3.cuh), the warp reductions, and
-// the gate of a row whose channels one warp holds (gate2). conv9_bf16 is
-// the same conv in the JAX kernels' bf16-resident mode (mxu_bf16): one bf16
-// mma.sync.m16n8k16 per 16-deep k-step (csrc/mma_bf16.cuh), the staged
-// float32 rows rounded to bf16 where a fragment is formed, the weights
-// rounded once by the wrapper (ops/kernels/mma_bf16.py), and the bf16
-// loads and stores of activations that the bf16 instantiations keep in
-// memory (io_t, ldio2, stio2).
+// TF32 on the tensor cores, csrc/mma_tf32x3.cuh), the warp reductions, the
+// gate of a row whose channels one warp holds (gate2), and the bf16 loads
+// and stores of activations that the bf16-resident modes keep in memory
+// (ldio2, stio2).
 //
 // Everything lives in namespace tadek inside an anonymous namespace: each
 // source that includes it gets its own copy.
@@ -19,8 +16,6 @@
 
 #include <cuda_runtime.h>
 #include <stddef.h>
-
-#include <type_traits>
 
 #include "mma_bf16.cuh"
 #include "mma_tf32x3.cuh"
@@ -38,9 +33,6 @@ constexpr int kKC = 32;        // input channels of one weight chunk
 constexpr int kChunkF = kKC * kC * 2;  // its floats: 4 k-steps x 8 tiles x 32 x 4
 constexpr int kWStages = 2;
 constexpr size_t kMaxSmem = 227 * 1024;
-// bf16 weights of one chunk: 64 input channels (one tap at 64 channels),
-// 4 k16-steps x 8 column tiles x 32 lanes x 4 bf16, 8 KB
-constexpr int kChunkH = 4 * 8 * 32 * 4;
 
 __device__ __forceinline__ float2 ld2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
@@ -134,123 +126,24 @@ __device__ __forceinline__ void conv9_tf32x3(const float* in_s, int ld,
       compute);
 }
 
-// The activations' element type: float32, or bf16 (its bits) in the
-// bf16-resident mode; and that of the weights' fragments.
-template <bool kBF16>
-using io_t = typename std::conditional<kBF16, uint16_t, float>::type;
-
-// Two channels at p (an even element of an activation) as float32.
-__device__ __forceinline__ float2 ldio2(const float* __restrict__ p) { return ld2(p); }
-
+// Two channels at p (an even element of a bf16 activation) as float32.
 __device__ __forceinline__ float2 ldio2(const uint16_t* __restrict__ p) {
   const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
   return make_float2(bf16mma::widen(u & 0xFFFFu), bf16mma::widen(u >> 16));
 }
 
-// v to the two channels at p: float32, or rounded to bf16 to nearest even
-// (as JAX's astype(bfloat16) on a store).
-__device__ __forceinline__ void stio2(float* __restrict__ p, float2 v) { st2(p, v); }
-
+// v to the two channels at p, rounded to bf16 to nearest even (as JAX's
+// astype(bfloat16) on a store).
 __device__ __forceinline__ void stio2(uint16_t* __restrict__ p, float2 v) {
   *reinterpret_cast<uint32_t*>(p) = bf16mma::pack(v.x, v.y);
 }
 
-// conv9_tf32x3 in bf16: the same tile and totals, A formed from the staged
-// float32 rows rounded to bf16 (a0 = row gid, channels 2 tig, 2 tig + 1 of
-// the k-step, a2 the same 8 channels on; csrc/mma_bf16.cuh), B from wf in
-// ops/kernels/mma_bf16.py's fragment order (9 CIN / 16 k-steps of 8 column
-// tiles x 32 lanes x {B[2 tig][gid], B[2 tig + 1][gid], B[2 tig + 8][gid],
-// B[2 tig + 9][gid]}), streamed 64 input channels (8 KB) at a time
-// through w_s, two chunks; one mma.sync.m16n8k16 per k-step, each tap's
-// tile sums into the float32 totals. Starts and ends on a barrier; the
-// rows in in_s must be written before the call.
-template <int CIN, int D, int M>
-__device__ __forceinline__ void conv9_bf16(const float* in_s, int ld,
-                                           const uint16_t* __restrict__ wf, uint16_t* w_s,
-                                           float (&tot)[2][4][4]) {
-  constexpr int kPerTap = CIN / 64;
-  static_assert(CIN % 64 == 0, "a bf16 chunk is 64 input channels");
-  const int warp = threadIdx.x >> 5, wm = warp & 3, wn = warp >> 2;
-  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
-  const bool on[2] = {32 * wm < M, 32 * wm + 16 < M};
-  float acc[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) tot[mi][ni][e] = 0.f;
-  auto compute = [&](int c, int buf) {
-    const int j = c / kPerTap, part = c % kPerTap;
-    if (part == 0) {
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-    }
-    const float* xa = in_s + (32 * wm + gid + j * D) * ld + part * 64 + 2 * tig;
-    const uint16_t* ws = w_s + buf * kChunkH + wn * 4 * 128 + lane * 4;
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        if (!on[mi]) continue;
-        const float* r0 = xa + mi * 16 * ld + ks * 16;
-        const float2 u0 = ld2(r0), u1 = ld2(r0 + 8 * ld);
-        const float2 v0 = ld2(r0 + 8), v1 = ld2(r0 + 8 * ld + 8);
-        a[mi][0] = bf16mma::pack(u0.x, u0.y);
-        a[mi][1] = bf16mma::pack(u1.x, u1.y);
-        a[mi][2] = bf16mma::pack(v0.x, v0.y);
-        a[mi][3] = bf16mma::pack(v1.x, v1.y);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const uint2 w = *reinterpret_cast<const uint2*>(ws + (ks * 8 + ni) * 128);
-        const uint32_t b[2] = {w.x, w.y};
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-          if (on[mi]) bf16mma::mma(acc[mi][ni], a[mi], b);
-      }
-    }
-    if (part == kPerTap - 1) {
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) tot[mi][ni][e] += acc[mi][ni][e];
-    }
-  };
-  pipeline<kWStages>(
-      kK * kPerTap,
-      [&](int c, int buf) {
-        const uint16_t* src = wf + (size_t)c * kChunkH;
-        uint16_t* dst = w_s + buf * kChunkH;
-#pragma unroll
-        for (int e = threadIdx.x * 8; e < kChunkH; e += kThreads * 8)
-          cp_async<16>(reinterpret_cast<float*>(dst + e),
-                       reinterpret_cast<const float*>(src + e), true);
-      },
-      compute);
-}
-
-// conv9_tf32x3 on float32 fragments, conv9_bf16 on bf16 ones (the ring
-// w_s then holds bf16).
+// The conv of the float32 kernels.
 template <int CIN, int D, int M>
 __device__ __forceinline__ void conv9(const float* in_s, int ld,
                                       const float* __restrict__ wf, float* w_s,
                                       float (&tot)[2][4][4]) {
   conv9_tf32x3<CIN, D, M>(in_s, ld, wf, w_s, tot);
-}
-
-template <int CIN, int D, int M>
-__device__ __forceinline__ void conv9(const float* in_s, int ld,
-                                      const uint16_t* __restrict__ wf, float* w_s,
-                                      float (&tot)[2][4][4]) {
-  conv9_bf16<CIN, D, M>(in_s, ld, wf, reinterpret_cast<uint16_t*>(w_s), tot);
 }
 
 __device__ __forceinline__ float warp_max(float v) {

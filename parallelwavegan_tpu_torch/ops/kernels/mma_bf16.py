@@ -1,11 +1,11 @@
 """bf16 tensor-core products on the host side: the weight layouts that the
-bf16-resident modes of the WaveNet layer kernel (K3 in csrc/wavenet.cu),
+bf16-resident modes of the WaveNet layer kernel (K3 in csrc/wavenet.cu) and
 the MelGAN stack kernels (K6 in csrc/melgan_stack.cu, K7 in
-csrc/melgan_stack_bwd.cu) and the forward TADE kernels (K8a/K8b in
-csrc/tade.cu, through csrc/tade.cuh's conv9_bf16) read through
-csrc/mma_bf16.cuh, and the tiles that the TADE stage backward (K9a/K9b,
-csrc/tade_bwd_bf16.cu) feeds to Hopper's warpgroup products
-(``tade_conv_wgmma``).
+csrc/melgan_stack_bwd.cu) read through csrc/mma_bf16.cuh, and the tiles
+that the forward TADE kernels (K8a/K8b, csrc/tade_bf16.cu:
+``tade_forward_wgmma``) and the TADE stage backward (K9a/K9b,
+csrc/tade_bwd_bf16.cu: ``tade_conv_wgmma``) feed to Hopper's warpgroup
+products.
 
 The JAX kernels' bf16 mode (``mxu_bf16``) casts every dot operand to
 bf16 and accumulates in float32. Here the weights are rounded to bf16 once
@@ -96,25 +96,6 @@ def slope_of(slope: float) -> float:
     return float(torch.tensor(slope, dtype=torch.float64).to(torch.bfloat16))
 
 
-def tade_forward_fragments(aux_w, g_w, gc_w):
-    """The three convs of a forward TADE kernel in its bf16 mode (K8a:
-    aux1, g1, gc1; K8b: aux2, g2, gc2), gather-form (9, 64, 64), (9, 64,
-    128), (9, 64, 128), float32 or bf16: the matrix of
-    ``tf32x3.forward_fragments`` (each conv flattened to depth 9 x 64, tap
-    major, the 128-column convs' columns paired) rounded to bf16 in
-    ``fragments``' layout and cut into passes of 64 columns: (5, 36, 8,
-    32, 4) bf16, pass 0 aux, 1-2 g, 3-4 gc. What csrc/tade.cu's bf16 entry
-    points take."""
-    shapes = [tuple(w.shape) for w in (aux_w, g_w, gc_w)]
-    if shapes != [(9, 64, 64), (9, 64, 128), (9, 64, 128)]:
-        raise ValueError(f"tade_forward_fragments takes (9, 64, 64), (9, 64, 128), "
-                         f"(9, 64, 128), got {shapes}")
-    wk = torch.cat([aux_w.detach().reshape(-1, 64), _pair_columns(g_w.detach()),
-                    _pair_columns(gc_w.detach())], dim=1)
-    f = fragments(wk)  # (36, 40, 32, 4)
-    return f.reshape(f.shape[0], 5, 8, 32, 4).transpose(0, 1).contiguous()
-
-
 @functools.lru_cache(maxsize=None)
 def _wgmma_index(cout: int, device: torch.device) -> torch.Tensor:
     """The flat index into w (9, 64, Cout) of each element of
@@ -146,6 +127,57 @@ def tade_conv_wgmma(w):
     cout = w.shape[2]
     tiles = w.detach().reshape(-1)[_wgmma_index(cout, w.device)]
     return tiles.to(torch.bfloat16).reshape(9, cout // 64, 64, 64)
+
+
+@functools.lru_cache(maxsize=None)
+def _forward_wgmma_index(device: torch.device) -> torch.Tensor:
+    """The flat index into the concatenation of a forward TADE kernel's
+    three flattened convs (aux (9, 64, 64), g, gc (9, 64, 128)) of each
+    element of ``tade_forward_wgmma``'s tiles (45 tiles, 64 n, 64 stored
+    k), made once per device: a copy from the host waits for the card."""
+    u, n, p = torch.meshgrid(torch.arange(45), torch.arange(64), torch.arange(64),
+                             indexing="ij")
+    # tile u: aux tap u, then g's and gc's tap j columns 64 h .. 64 h + 63
+    conv = (u >= 9).long() + (u >= 27).long()
+    j = torch.where(conv == 0, u, (u - 9 - 18 * (conv - 1)) // 2)
+    half = torch.where(conv == 0, 0, (u - 9) % 2)
+    # the 128-byte swizzle: stored chunk p // 8 of row n holds chunk
+    # (p // 8) ^ (n % 8) of B's column n
+    k = 8 * ((p // 8) ^ (n % 8)) + p % 8
+    # the 128-column convs' paired column 64 half + n is their column 64 e +
+    # 8 (nt // 2) + 2 tig + nt % 2 (tf32x3._pair_columns)
+    col = 64 * half + n
+    nt, tig, e = col // 8, (col % 8) // 2, col % 2
+    orig = 64 * e + 8 * (nt // 2) + 2 * tig + nt % 2
+    aux = (j * 64 + k) * 64 + n
+    g = 9 * 64 * 64 + (j * 64 + k) * 128 + orig
+    gc = g + 9 * 64 * 128
+    idx = torch.where(conv == 0, aux, torch.where(conv == 1, g, gc))
+    return idx.reshape(-1).to(device)
+
+
+def tade_forward_wgmma(aux_w, g_w, gc_w):
+    """The three convs of a forward TADE kernel in its bf16 mode (K8a:
+    aux1, g1, gc1; K8b: aux2, g2, gc2), gather-form (9, 64, 64), (9, 64,
+    128), (9, 64, 128), float32 or bf16, as the B tiles of
+    csrc/tade_bf16.cu's wgmma products: rounded to bf16, (45, 64, 64) bf16
+    in the order the kernel uses them, aux's 9 taps, then g's and gc's taps
+    j as two tiles each (columns 0-63, then 64-127: together one 16 KB tile
+    of 128 columns). Tile row n holds the 64 values W[j][0 .. 63][n'] (K-major:
+    B's column n is a 128-byte row of its k values) in Hopper's 128-byte
+    swizzle (the 16-byte chunk c of row n stored as chunk c ^ (n % 8)); n'
+    is n for aux and, for g and gc, their column paired as
+    ``tf32x3.forward_fragments`` pairs it (``_pair_columns``: column 8 i +
+    2 tig of the 128 holds channel 8 (i // 2) + 2 tig + i % 2 of the first
+    half, the next column the same channel of the second). One bulk copy
+    per tap; tests/test_torch_port_tade_fwd_bf16_layout.py reads the tiles
+    back as the card does. One concatenation and one gather a call."""
+    shapes = [tuple(w.shape) for w in (aux_w, g_w, gc_w)]
+    if shapes != [(9, 64, 64), (9, 64, 128), (9, 64, 128)]:
+        raise ValueError(f"tade_forward_wgmma takes (9, 64, 64), (9, 64, 128), "
+                         f"(9, 64, 128), got {shapes}")
+    flat = torch.cat([w.detach().reshape(-1).to(torch.bfloat16) for w in (aux_w, g_w, gc_w)])
+    return flat[_forward_wgmma_index(flat.device)].reshape(45, 64, 64)
 
 
 def wavenet_depth(c: int, ca: int, k: int) -> int:

@@ -40,10 +40,11 @@ K9a/K9b, is ``ops/kernels/tade_train.py``.
 The kernels' bf16-resident mode (JAX's ``mxu_bf16``, which
 ``fused_tade_blocks_train`` turns on for a bf16 x, tade_train.py:776;
 JAX's decode wrapper has none) is ``tade1_cuda``/``tade2_cuda`` on a bf16
-x and c: x, c, x2, a, out and a2 bf16 in memory, the statistics float32,
-each conv's operands rounded to bf16 (the weights once, by
-``mma_bf16.tade_forward_fragments``), the products summed in float32, the
-biases, modulation and gate in float32. Its plain versions are
+x and c, the hand-written kernels of csrc/tade_bf16.cu on Hopper's
+warpgroup products: x, c, x2, a, out and a2 bf16 in memory, the
+statistics float32, each conv's operands rounded to bf16 (the weights
+once per call, by ``mma_bf16.tade_forward_wgmma``), the products summed in
+float32, the biases, modulation and gate in float32. Its plain versions are
 ``tade1_reference_bf16`` and ``tade2_reference_bf16``, differentiable,
 their backward rounding where JAX's reverse kernels round (``_ConvBF16``,
 ``_NormBF16``, ``_StretchBF16``).
@@ -249,6 +250,27 @@ def _stats(x):
     return mean.contiguous(), torch.rsqrt(var.clamp_min(0.0) + EPS).contiguous()
 
 
+def stats_cuda(x):
+    """The kernels' statistics of x on the card: for a bf16 x (B, T, 64)
+    csrc/tade_bf16.cu's tade_stats_bf16, the float32 mean and 1/std over
+    time from the bf16 rows without a float32 copy (chunks of rows by two
+    passes, merged in order; ``_stats`` of the float32 values within
+    float32 rounding); else ``_stats``."""
+    if x.dtype != torch.bfloat16:
+        return _stats(x.float())
+    lib = build.load()
+    dev, stream = build.launch_target(x)
+    b, t, _ = x.shape
+    n_part = lib.query("tade_stats_bf16_part_floats", b, t)
+    if n_part < 0:
+        raise ValueError(f"(B, T) = ({b}, {t}) needs too large a partial buffer")
+    part = torch.empty(n_part, device=x.device)
+    mean, rstd = (torch.empty(b, C, device=x.device) for _ in range(2))
+    lib.call("tade_stats_bf16", x.data_ptr(), part.data_ptr(), mean.data_ptr(),
+             rstd.data_ptr(), b, t, dev, stream)
+    return mean, rstd
+
+
 def _check_cuda_inputs(x, c, blk) -> None:
     """Raise unless the kernels take x, c and the block: float32 x and c
     (or, for the bf16 mode, both bf16, the weights then float32 or bf16)."""
@@ -298,9 +320,9 @@ def _split(blk, half: int):
 def _fragments(blk, half: int, bf16: bool = False):
     """The block's ``frag1``/``frag2`` where ``with_fragments`` made them,
     else the split made now; with ``bf16`` the half's convs rounded to
-    bf16 now (``mma_bf16.tade_forward_fragments``)."""
+    bf16 now in csrc/tade_bf16.cu's tiles (``mma_bf16.tade_forward_wgmma``)."""
     if bf16:
-        return mma_bf16.tade_forward_fragments(*(blk[f"{k}_w"] for k in _keys(half)))
+        return mma_bf16.tade_forward_wgmma(*(blk[f"{k}_w"] for k in _keys(half)))
     cached = blk.get(f"frag{half}")
     return cached if cached is not None else _split(blk, half)
 
@@ -331,14 +353,14 @@ def _entry(name: str, x) -> str:
 
 
 def tade1_cuda(x, c, blk, gated_function: str = "softmax"):
-    """K8a on the card: the stats of x, then one launch. (x2, a), in x's
-    dtype (a bf16 x runs the bf16-resident mode)."""
+    """K8a on the card: the stats of x (``stats_cuda``), then one launch.
+    (x2, a), in x's dtype (a bf16 x runs the bf16-resident mode)."""
     _check_cuda_inputs(x, c, blk)
     bf16 = x.dtype == torch.bfloat16
     lib = build.load()
     dev, stream = build.launch_target(x)
     b, t, _ = x.shape
-    mean, rstd = _stats(x.float())
+    mean, rstd = stats_cuda(x)
     x2, a = torch.empty_like(x), torch.empty_like(x)
     wf, bias = _fragments(blk, 1, bf16), _biases(blk, 1)  # held until the launch is queued
     lib.call(_entry("tade1", x), x.data_ptr(), c.data_ptr(), mean.data_ptr(),
@@ -350,8 +372,8 @@ def tade1_cuda(x, c, blk, gated_function: str = "softmax"):
 
 
 def tade2_cuda(x, x2, a, blk, gated_function: str = "softmax"):
-    """K8b on the card: the stats of x2, then one launch. (out, a2), in x's
-    dtype (a bf16 x runs the bf16-resident mode)."""
+    """K8b on the card: the stats of x2 (``stats_cuda``), then one launch.
+    (out, a2), in x's dtype (a bf16 x runs the bf16-resident mode)."""
     _check_cuda_inputs(x, a, blk)
     bf16 = x.dtype == torch.bfloat16
     build.check_tensor("x2", x2, x.device, x.shape, align=16, dtypes=(x.dtype,))
@@ -359,7 +381,7 @@ def tade2_cuda(x, x2, a, blk, gated_function: str = "softmax"):
     dev, stream = build.launch_target(x)
     b, t, _ = x.shape
     sc = int(blk["scale"])
-    mean, rstd = _stats(x2.float())
+    mean, rstd = stats_cuda(x2)
     out = torch.empty((b, sc * t, C), device=x.device, dtype=x.dtype)
     a2 = torch.empty_like(out)
     wf, bias = _fragments(blk, 2, bf16), _biases(blk, 2)
@@ -413,7 +435,9 @@ def fused_tade_blocks(x, c, blocks, *, gated_function: str = "softmax",
     counts the calls that launched a kernel, ``.launches_k8a`` and
     ``.launches_k8b`` the launches of each kernel (``.bf16_launches_k8a``
     and ``.bf16_launches_k8b`` those in the bf16 mode, which the training
-    wrapper's bf16 x runs).
+    wrapper's bf16 x runs; ``.bf16_rerun_launches_k8a`` and
+    ``.bf16_rerun_launches_k8b`` the bf16 mode's Save re-runs inside K9,
+    ``tade_train.tade1_rerun_cuda`` / ``tade2_rerun_cuda``).
     """
     if gated_function not in GATES:
         raise ValueError(f"{gated_function} is not supported.")
@@ -447,3 +471,5 @@ fused_tade_blocks.launches_k8a = 0
 fused_tade_blocks.launches_k8b = 0
 fused_tade_blocks.bf16_launches_k8a = 0
 fused_tade_blocks.bf16_launches_k8b = 0
+fused_tade_blocks.bf16_rerun_launches_k8a = 0
+fused_tade_blocks.bf16_rerun_launches_k8b = 0

@@ -14,7 +14,8 @@ norm's backward on x2, K9a (stage 1), the instance norm's backward on x
 plus the stretch adjoint of dx_out for the residual. For a CUDA tensor
 each of K9a and K9b is one re-run of its K8 kernel from the residuals
 (keeping the gated conv's input, the modulation's scale and the gate's
-pre-activations, csrc/tade.cu's Save) and one call of csrc/tade_bwd.cu
+pre-activations, csrc/tade.cu's Save; in the bf16 mode csrc/tade_bf16.cu's)
+and one call of csrc/tade_bwd.cu
 (the transposed convs in one kernel, the weight gradients in a kernel and
 its reduce, every product split TF32 on the tensor cores, the weights
 split once per call by ``tf32x3.conv_fragments``; in the bf16 mode
@@ -32,7 +33,7 @@ A bf16 x runs the kernels' bf16-resident mode, as JAX's
 the cotangents are cast to bf16 (:680-684); K8 and K9 keep activations,
 residuals and cotangents bf16 in memory, round every product's operands
 to bf16 and sum in float32 (the weights rounded once per call by
-``mma_bf16.tade_forward_fragments`` / ``tade_conv_wgmma``), the
+``mma_bf16.tade_forward_wgmma`` / ``tade_conv_wgmma``), the
 weight gradients float32 until autograd casts them to the weights' dtype
 (:702). Its plain versions are autograd through ``tade1_reference_bf16``
 and ``tade2_reference_bf16``, which round where JAX's reverse kernels
@@ -59,6 +60,7 @@ from parallelwavegan_tpu_torch.ops.kernels.tade_decode import (
     _stats,
     _stretch,
     conv_vjp_bf16,
+    fused_tade_blocks,
     gated,
     instance_norm_backward,
     run_module,
@@ -266,10 +268,12 @@ def _check_cotangent(name, v, x, rows):
 
 
 def tade1_rerun_cuda(x, c, blk, gated_function, mean, rstd):
-    """K8a's re-run for K9a (csrc/tade.cu's Save variant), from x's
-    statistics mean and rstd: (a, y, s, t), the aux conv's output, the
-    gated conv's input (both in x's dtype), the modulation's scale (B, T,
-    64) and the gated conv's pre-activations (B, T, 128) (both float32)."""
+    """K8a's re-run for K9a (the Save variant of csrc/tade.cu or, for a bf16
+    x, of csrc/tade_bf16.cu), from x's statistics mean and rstd: (a, y, s,
+    t), the aux conv's output, the gated conv's input (both in x's dtype),
+    the modulation's scale (B, T, 64) and the gated conv's pre-activations
+    (B, T, 128) (both float32). A bf16 re-run counts in
+    ``fused_tade_blocks.bf16_rerun_launches_k8a``."""
     bf16 = x.dtype == torch.bfloat16
     lib = build.load()
     dev, stream = build.launch_target(x)
@@ -281,13 +285,15 @@ def tade1_rerun_cuda(x, c, blk, gated_function, mean, rstd):
              rstd.data_ptr(), None, a.data_ptr(), wf.data_ptr(), *_ptrs(bias), y.data_ptr(),
              s.data_ptr(), t.data_ptr(), x.shape[0], x.shape[1],
              GATES.index(gated_function), dev, stream)
+    fused_tade_blocks.bf16_rerun_launches_k8a += int(bf16)
     return a, y, s, t
 
 
 def tade2_rerun_cuda(x, x2, a, blk, gated_function, mean, rstd):
     """K8b's re-run for K9b, from x2's statistics: (a2, y, s, t, ua) at the
     output rate, ua the stretched a at scale 2 (None at scale 1); a2, y and
-    ua in x's dtype, s and t float32."""
+    ua in x's dtype, s and t float32. A bf16 re-run counts in
+    ``fused_tade_blocks.bf16_rerun_launches_k8b``."""
     bf16 = x.dtype == torch.bfloat16
     lib = build.load()
     dev, stream = build.launch_target(x)
@@ -304,6 +310,7 @@ def tade2_rerun_cuda(x, x2, a, blk, gated_function, mean, rstd):
              y.data_ptr(), s.data_ptr(), t.data_ptr(),
              None if ua is None else ua.data_ptr(), b, t_len, sc, int(blk["dilation"]),
              GATES.index(gated_function), dev, stream)
+    fused_tade_blocks.bf16_rerun_launches_k8b += int(bf16)
     return a2, y, s, t, ua
 
 

@@ -24,10 +24,13 @@ take them:
   values and the bf16 plain versions (``tade1_reference_bf16``,
   ``tade2_reference_bf16``, ``tade1_backward_reference``,
   ``tade2_backward_reference`` on bf16); medians of 10 (CUDA events), the
-  weights split per call as training splits them; and K9a and K9b bf16
-  by part (``k9_parts``: the re-run, the chain, the weight gradients, their
+  weights split per call as training splits them; K9a and K9b bf16 by
+  part (``k9_parts``: the re-run, the chain, the weight gradients, their
   reduce and the glue between them, device time under torch.profiler),
-  whichever tree's kernel names they run.
+  whichever tree's kernel names they run; and K8a and K8b bf16, forward
+  and the Save re-run inside K9 (``tade1_rerun_cuda``, ``tade2_rerun_cuda``
+  on the statistics K9 computes), by part (``k8_parts``: the kernel, the
+  statistics, the weights' layout, the glue).
 
 Prints the card (``nvidia-smi``) and one JSON line of the times in ms.
 """
@@ -58,10 +61,46 @@ def _median_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
+# K8's bf16 kernels, by their names in this tree (csrc/tade_bf16.cu) and in
+# a tree before it (csrc/tade.cu's bf16 instantiations)
+K8_KERNELS = ("tade1_bf16_kernel", "tade2_bf16_kernel", "tade1_kernel", "tade2_kernel")
+K8_PARTS = ("kernel", "statistics", "weight layout", "glue")
+
+
+def k8_parts(fn, pieces: dict, tries: int = 5, reps: int = 5) -> dict:
+    """{part: device ms} of one call of fn (K8a or K8b in the bf16 mode, or
+    its Save re-run) under torch.profiler (``time_melgan.profile_by_kernel``):
+    "kernel" the K8 kernel (``K8_KERNELS``), then each of ``pieces``
+    ({part: a function that does only that part of fn's work, on the same
+    inputs}: "statistics", the statistics of x; "weight layout",
+    ``_fragments``) by its own device time, traced alone over ``reps``
+    calls and divided, and "glue" the rest of fn's device time (the biases
+    widened). A trace without the kernel, or a piece's without any kernel
+    (a call's first kernels are sometimes missing from a trace), is taken
+    again, up to ``tries`` times."""
+    from parallelwavegan_tpu_torch.ops.kernels.time_melgan import profile_by_kernel
+
+    for _ in range(tries):
+        prof = profile_by_kernel(fn)
+        kernel = [(ms, n) for name, (ms, n) in prof.items() if name.split("<")[0] in K8_KERNELS]
+        if sum(n for _, n in kernel) == 1:
+            break
+    out = {"kernel": sum(ms for ms, _ in kernel)}
+    for part, piece in pieces.items():
+        for _ in range(tries):
+            traced = profile_by_kernel(lambda: [piece() for _ in range(reps)])
+            out[part] = sum(ms for ms, _ in traced.values()) / reps
+            if out[part] > 0:
+                break
+    out["glue"] = max(0.0, sum(ms for ms, _ in prof.values()) - sum(out.values()))
+    return {part: out.get(part, 0.0) for part in K8_PARTS}
+
+
 # K9's parts in one bf16 call, by the kernels' names in this tree
 # (csrc/tade_bwd_bf16.cu) and in a tree before it (csrc/tade_bwd.cu's
 # bf16 instantiations); a kernel of none of them is glue
-K9_PARTS = {"re-run": ("tade1_kernel", "tade2_kernel"),
+K9_PARTS = {"re-run": ("tade1_bf16_kernel", "tade2_bf16_kernel", "tade1_kernel",
+                       "tade2_kernel"),
             "chain": ("chain_bf16_kernel", "stage_bwd_kernel"),
             "weight gradients": ("wgrad_bf16_kernel", "stage_wgrad_kernel"),
             "reduce": ("wgrad_bf16_reduce_kernel", "stage_wgrad_reduce_kernel")}
@@ -91,10 +130,23 @@ def k9_parts(fn, tries: int = 5) -> dict:
     return out
 
 
+def k8_pieces(td, half: int, x, blk, rerun: bool) -> dict:
+    """``k8_parts``' pieces of K8a (``half`` 1, x its input) or K8b (2, x
+    its x2), forward or (``rerun``) the Save re-run inside K9, whose
+    statistics K9 computes."""
+    pieces = {"weight layout": lambda: td._fragments(blk, half, True)}
+    if not rerun:  # the wrapper's statistics, in a tree before stats_cuda torch's
+        stats = getattr(td, "stats_cuda", lambda v: td._stats(v.float()))
+        pieces["statistics"] = lambda: stats(x)
+    return pieces
+
+
 def _bf16_step(td, tt, step) -> dict:
     """{kernel: {"bf16", "float32", "bf16_plain"}}: one G step's K8a, K8b,
     K9a and K9b over the blocks of ``step`` (x, c, x2, a, blk, dxo, dco),
-    K9a and K9b with "bf16_parts" (``k9_parts``) too."""
+    K9a and K9b with "bf16_parts" (``k9_parts``) too, K8a and K8b with
+    "bf16_parts" (``k8_parts``), and "k8a_rerun", "k8b_rerun": K8's Save
+    re-runs inside K9 ("bf16" by CUDA events, "bf16_parts")."""
     import torch
 
     bf = torch.bfloat16
@@ -102,6 +154,8 @@ def _bf16_step(td, tt, step) -> dict:
            for k in ("k8a", "k8b", "k9a", "k9b")}
     for k in ("k9a", "k9b"):
         out[k]["bf16_parts"] = dict.fromkeys([*K9_PARTS, "glue"], 0.0)
+    for k in ("k8a", "k8b", "k8a_rerun", "k8b_rerun"):
+        out.setdefault(k, {"bf16": 0.0})["bf16_parts"] = dict.fromkeys(K8_PARTS, 0.0)
     for x, c, _, _, blk, dxo, dco in step:
         b32 = {k: v for k, v in blk.items() if not k.startswith("frag")}
         b16 = {k: v.to(bf) if torch.is_tensor(v) else v for k, v in b32.items()}
@@ -130,6 +184,21 @@ def _bf16_step(td, tt, step) -> dict:
                 if mode == "bf16" and k in ("k9a", "k9b"):
                     for part, ms in k9_parts(fn).items():
                         out[k]["bf16_parts"][part] += ms
+            if mode == "bf16":
+                with torch.no_grad():
+                    m1, r1 = td._stats(xx.float())
+                    m2, r2 = td._stats(x2.float())
+                    k8 = {"k8a": (fns["k8a"], 1, xx, False),
+                          "k8b": (fns["k8b"], 2, x2, False),
+                          "k8a_rerun": (lambda: tt.tade1_rerun_cuda(xx, cc, bl, "softmax", m1,
+                                                                    r1), 1, xx, True),
+                          "k8b_rerun": (lambda: tt.tade2_rerun_cuda(xx, x2, a, bl, "softmax",
+                                                                    m2, r2), 2, x2, True)}
+                    for k, (fn, half, v, rerun) in k8.items():
+                        if rerun:
+                            out[k]["bf16"] += _median_ms(fn)
+                        for part, ms in k8_parts(fn, k8_pieces(td, half, v, bl, rerun)).items():
+                            out[k]["bf16_parts"][part] += ms
             del x2, a, dx2, da
         torch.cuda.empty_cache()
     return out

@@ -1767,14 +1767,24 @@ def _tade_bf16_case(cuda, b, t, scale, dilation, bias, wdtype, seed=21):
 
 # StyleMelGAN v1's block shapes cut in T (blocks 4-8 are scale 2 or 1,
 # dilation 2, softmax), a ragged T of no whole tile, the sigmoid gate, no
-# biases, dilations 1, 3 and 4, bf16 and float32 weights
-@pytest.mark.parametrize("b,t,scale,dilation,gated,bias,wdtype", [
+# biases, dilations 1, 3 and 4, bf16 and float32 weights; then, for
+# csrc/tade_bf16.cu's tiles (176 rows for K8a, 184 - 8D for K8b), lengths
+# of no whole tile at B > 1 at each dilation and lengths below one tile
+TADE_BF16_FORWARD_CASES = [
     (4, 1408, 2, 2, "softmax", True, torch.bfloat16),
     (4, 2816, 1, 2, "softmax", True, torch.bfloat16),
     (2, 1001, 2, 2, "sigmoid", True, torch.float32),
     (1, 333, 2, 1, "softmax", False, torch.bfloat16),
     (2, 130, 1, 3, "sigmoid", True, torch.float32),
-    (1, 200, 2, 4, "softmax", True, torch.bfloat16)])
+    (1, 200, 2, 4, "softmax", True, torch.bfloat16),
+    (3, 261, 1, 1, "sigmoid", True, torch.bfloat16),
+    (2, 395, 2, 3, "softmax", True, torch.bfloat16),
+    (3, 227, 2, 4, "sigmoid", False, torch.float32),
+    (2, 50, 2, 2, "softmax", True, torch.bfloat16),
+    (3, 80, 1, 3, "softmax", True, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("b,t,scale,dilation,gated,bias,wdtype", TADE_BF16_FORWARD_CASES)
 def test_tade_bf16_kernels_match_plain_version(cuda, b, t, scale, dilation, gated, bias,
                                                wdtype):
     """K8a and K8b in the bf16 mode against ``tade1_reference_bf16`` /
@@ -1801,6 +1811,46 @@ def test_tade_bf16_kernels_match_plain_version(cuda, b, t, scale, dilation, gate
         assert _bf16_close(g, w), (name, float((g.float() - w.float()).abs().max()))
     assert not all(_bf16_close(g, w) for g, w in zip(f32, want))
     assert not all(_bf16_close(g, w) for g, w in zip(trunc, want))
+
+
+@pytest.mark.parametrize("b,t,scale,dilation,gated,bias,wdtype", TADE_BF16_FORWARD_CASES)
+def test_tade_bf16_reruns_match_plain_version(cuda, b, t, scale, dilation, gated, bias,
+                                              wdtype):
+    """K8a's and K8b's bf16 Save re-runs (``tade1_rerun_cuda``,
+    ``tade2_rerun_cuda``: a, y, s, t and up(a)) against
+    ``tade1_rerun_reference_bf16`` / ``tade2_rerun_reference_bf16`` on the
+    same statistics, to ``_bf16_close``, counted as re-runs; two runs give
+    the same bits; truncated weights are rejected."""
+    from parallelwavegan_tpu_torch.ops.kernels import tade_train as k9
+
+    blk, x, c, _, _, tb = _tade_bf16_case(cuda, b, t, scale, dilation, bias, wdtype)
+    f = tade_mod.fused_tade_blocks
+    with torch.no_grad():
+        x2, a = tade_mod.tade1_cuda(x, c, blk, gated)
+        m1, r1 = tade_mod._stats(x.float())
+        m2, r2 = tade_mod._stats(x2.float())
+        before = (f.bf16_rerun_launches_k8a, f.bf16_rerun_launches_k8b)
+        got1 = k9.tade1_rerun_cuda(x, c, blk, gated, m1, r1)
+        got2 = k9.tade2_rerun_cuda(x, x2, a, blk, gated, m2, r2)
+        assert (f.bf16_rerun_launches_k8a, f.bf16_rerun_launches_k8b) == (before[0] + 1,
+                                                                          before[1] + 1)
+        want1 = k9.tade1_rerun_reference_bf16(x, c, blk, gated, m1, r1)
+        want2 = k9.tade2_rerun_reference_bf16(x, x2, a, blk, gated, m2, r2)
+        again = (*k9.tade1_rerun_cuda(x, c, blk, gated, m1, r1),
+                 *k9.tade2_rerun_cuda(x, x2, a, blk, gated, m2, r2))
+        trunc = (*k9.tade1_rerun_cuda(x, c, tb, gated, m1, r1),
+                 *k9.tade2_rerun_cuda(x, x2, a, tb, gated, m2, r2))
+    torch.cuda.synchronize()
+    assert (got2[4] is None) == (scale == 1)
+    names = ("a", "y", "s", "t", "a2", "y2", "s2", "t2", "ua")
+    for name, g, w, g2, tr in zip(names, (*got1, *got2), (*want1, *want2), again, trunc):
+        if w is None:
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert _bf16_close(g, w), (name, float((g.float() - w.float()).abs().max()))
+        assert torch.equal(g, g2), name
+    wrong = [(tr, w) for tr, w in zip(trunc, (*want1, *want2)) if w is not None]
+    assert not all(_bf16_close(tr, w) for tr, w in wrong)
 
 
 @pytest.mark.parametrize("b,t,scale,dilation,gated,bias,wdtype", [
@@ -1864,6 +1914,23 @@ def test_tade_bf16_backward_matches_plain_version(cuda, b, t, scale, dilation, g
     g2 = k9.tade2_backward_cuda(x, x2, a, tb, gated, dxo, dco)
     g1 = k9.tade1_backward_cuda(x, c, tb, gated, got2[1], got2[2])
     assert not all(_bf16_close(g, w) for _, g, w in pairs(g1, g2, want1, want2))
+
+
+@pytest.mark.parametrize("b,t", [(32, 22528), (3, 1001), (2, 50), (5, 1537)])
+def test_tade_bf16_statistics_match_torch(cuda, b, t):
+    """``stats_cuda`` of a bf16 x (csrc/tade_bf16.cu's statistics, no float32
+    copy) against ``_stats`` in float64, within float32 rounding, on rows
+    far from zero mean; two runs bit-equal."""
+    g = torch.Generator().manual_seed(t)
+    x = (torch.randn(b, t, 64, generator=g) * 0.3 + 4.0).to(torch.bfloat16).to(cuda)
+    mean, rstd = tade_mod.stats_cuda(x)
+    again = tade_mod.stats_cuda(x)
+    want_mean, want_rstd = tade_mod._stats(x.double())
+    torch.cuda.synchronize()
+    assert mean.dtype == rstd.dtype == torch.float32 and mean.shape == (b, 64)
+    assert torch.allclose(mean.double(), want_mean, rtol=2e-6, atol=0)
+    assert torch.allclose(rstd.double(), want_rstd, rtol=2e-5, atol=0)
+    assert torch.equal(mean, again[0]) and torch.equal(rstd, again[1])
 
 
 def test_tade_bf16_kernels_are_deterministic(cuda):
