@@ -141,8 +141,9 @@ Phases (any failure exits non-zero; nothing is caught):
    final conv's and K6's re-run apart), and each K7 kernel's registers,
    spills and SASS counts (``ops/kernels/sass.py``).
 18. The split of one MelGAN v1 train step (B=8, T=25600) with
-   ``use_pallas_stacks_train`` and without, as phase 15, and K6's device
-   time over the three fused stages of one G forward (torch.profiler).
+   ``use_pallas_stacks_train`` and without, as phase 15, and with it in
+   bf16 (``mixed_precision``: K6/K7's bf16 modes), and K6's device time
+   over the three fused stages of one G forward (torch.profiler).
 19. MelGAN v1 training through ``bin/train.main``: melgan.v1.yaml
    (V1_MELGAN_CONFIG) plus ``use_pallas_stacks_train: true`` at full width
    with TRAIN_OVERRIDES on phase 16's dump (K7: 10 launches per G step, 40
@@ -217,7 +218,13 @@ Phases (any failure exits non-zero; nothing is caught):
    of max|plain|, and their times per v2 G step. At each stage the plain
    versions with other float32 sums (``_reordered_conv_cl``) are held
    against the plain versions and printed beside, a witness of how far
-   two faithful versions part.
+   two faithful versions part. K6 and K7 run twice at each stage for the
+   same bits; their kernels (csrc/melgan_stack_bf16.cu,
+   csrc/melgan_stack_bwd_bf16.cu) must multiply as HGMMA ... F32.BF16
+   with no HMMA and no spill, and must be among the built kernels; K7 is
+   timed on the forward's weight layout, as training runs it, and both
+   are split by part (``time_melgan.bf16_parts``: K6's kernels, K7's
+   kernels, reduce, weight layout, glue) at v1 and v2.
 26. HiFi-GAN v1 with ``mixed_precision`` (the main path in bf16):
    hifigan.v1.fullscale.bf16.yaml (V1_HIFIGAN_BF16_CONFIG) through
    ``bin/train.main`` at full width and batch with
@@ -314,7 +321,7 @@ Phases (any failure exits non-zero; nothing is caught):
 
 32. The split of one MB-MelGAN v2 train step (multi_band_melgan.v2.yaml
    verbatim, B=64, T=16384) with ``use_pallas_stacks_train`` and without,
-   as phase 15 (G losses: the full band synthesised by PQMF, its STFT
+   and with it in bf16 (``mixed_precision``), as phase 15 (G losses: the full band synthesised by PQMF, its STFT
    loss halved, half the sub-band STFT loss, D's adversarial loss), K6's
    device time in one G forward and K6's and K7's, by kernel, in one G
    forward and backward of the auxiliary losses (torch.profiler).
@@ -773,9 +780,12 @@ def _reset_launch_counts() -> None:
     fused_melgan_stacks.bf16_launches = melgan_stacks_backward.bf16_launches = 0
     fused_melgan_stacks.launches_by_width = {}
     melgan_stacks_backward.launches_by_width = {}
-    from parallelwavegan_tpu_torch.ops.kernels.melgan_stack import kernel_weights
+    from parallelwavegan_tpu_torch.ops.kernels.melgan_stack import (
+        kernel_weights,
+        kernel_weights_bf16,
+    )
 
-    kernel_weights.launches = 0
+    kernel_weights.launches = kernel_weights_bf16.launches = 0
     run_mrf.tensor_core_launches = run_mrf.cuda_core_launches = 0
     fused_tade_blocks.calls = 0
     fused_tade_blocks.launches_k8a = fused_tade_blocks.launches_k8b = 0
@@ -1524,10 +1534,8 @@ def _unit_gain_stacks(rs, c: int, dilations) -> list:
 
 def _k6_resources(card: str) -> None:
     """K6's registers, spills and SASS counts; fails unless the stack
-    kernel's products are HMMA.1688.F32.TF32 with no FFMA and no spill, and
-    in its bf16 mode (``stack_tc_kernel<C, true>``) HMMA.16816.F32.BF16
-    with no FFMA (its spills are printed: 4 bytes at C = 128, where it needs
-    one register past the 128 of two blocks an SM)."""
+    kernel's products are HMMA.1688.F32.TF32 with no FFMA and no spill
+    (its bf16 mode, csrc/melgan_stack_bf16.cu, is phase 25's)."""
     from parallelwavegan_tpu_torch.ops.kernels import build, sass
 
     usage = sass.resource_usage(os.path.join(build.CSRC, "melgan_stack.cu"))
@@ -1538,12 +1546,10 @@ def _k6_resources(card: str) -> None:
         if kernel.startswith("stack_tc_kernel"):
             counts = use.get("sass", "")
             ffma = re.search(r"FFMA (\d+)", counts)
-            bf16 = kernel.endswith("true>")
-            hmma = "HMMA.16816.F32.BF16" if bf16 else "HMMA.1688.F32.TF32"
-            spills = not bf16 and (use.get("spill_stores") or use.get("spill_loads"))
-            if hmma not in counts or ffma is None or ffma.group(1) != "0" or spills:
-                _fail(f"K6 {kernel}: expected {hmma} products, no FFMA"
-                      + ("" if bf16 else " and no spill") + f", got {use}")
+            if ("HMMA.1688.F32.TF32" not in counts or ffma is None or ffma.group(1) != "0"
+                    or use.get("spill_stores") or use.get("spill_loads")):
+                _fail(f"K6 {kernel}: expected HMMA.1688.F32.TF32 products, no FFMA and no "
+                      f"spill, got {use}")
 
 
 def phase_melgan_kernel(card: str) -> dict:
@@ -2758,20 +2764,21 @@ def _train_split(card: str, label: str, config_of, batch: dict,
         staged()
         runs = [staged() for _ in range(5)]
         split = {p: statistics.median(r[i] for r in runs) for i, p in enumerate(parts)}
-        if kernel and forward_kernels:
+        # a variant's config argument: the kernel flag, or (it, mixed_precision)
+        kernel_on = kernel[0] if isinstance(kernel, tuple) else kernel
+        if kernel_on and forward_kernels:
             from parallelwavegan_tpu_torch.ops.kernels.time_melgan import (
                 profile_by_kernel,
             )
 
-            mine = {k: v for k, v in profile_by_kernel(
-                lambda: generator_forward(cfg, gen, batch)).items()
-                if k.startswith(forward_kernels)}
-            print(f"{label} G forward [kernel], B={b} T={t}, device time of "
+            mine = {k: v for k, v in profile_by_kernel(G).items()
+                    if k.startswith(forward_kernels)}
+            print(f"{label} G forward [{name}], B={b} T={t}, device time of "
                   f"{', '.join(forward_kernels)} (torch.profiler, one forward): "
                   f"{sum(ms for ms, _ in mine.values()):.3f} ms on {card}: "
                   + "; ".join(f"{k} {ms:.3f} ms ({n} launches)"
                               for k, (ms, n) in mine.items()))
-        if kernel and step_kernels:
+        if kernel_on and step_kernels:
             from parallelwavegan_tpu_torch.ops.kernels.time_melgan import (
                 profile_by_kernel,
             )
@@ -2782,7 +2789,7 @@ def _train_split(card: str, label: str, config_of, batch: dict,
             split_k = profile_by_kernel(g_step)
             mine = {k: v for k, v in split_k.items() if k.startswith(step_kernels)}
             total = sum(ms for ms, _ in split_k.values())
-            print(f"{label} G forward + backward of the auxiliary losses [kernel], B={b} "
+            print(f"{label} G forward + backward of the auxiliary losses [{name}], B={b} "
                   f"T={t}, device time by kernel (torch.profiler, one call) on {card}: "
                   f"all kernels {total:.3f} ms, of them "
                   + "; ".join(f"{k} {ms:.3f} ms ({n} launches)"
@@ -2825,8 +2832,9 @@ def phase_train_split(card: str) -> None:
 
 def phase_melgan_train_split(card: str) -> None:
     """Where one MelGAN v1 train step (B=8, T=25600) spends its time, with
-    stages 1-3 through K6/K7 and through the plain path, and K6's time in
-    the G forward."""
+    stages 1-3 through K6/K7 and through the plain path, and in bf16
+    (``mixed_precision``) through K6/K7's bf16 modes, and K6's time in the
+    G forward."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -2834,8 +2842,21 @@ def phase_melgan_train_split(card: str) -> None:
     frames = t // V1_MELGAN_CONFIG["hop_size"]
     batch = {"y": 0.3 * torch.randn(b, 1, t, generator=g, device="cuda"),
              "c": torch.randn(b, 80, frames, generator=g, device="cuda")}
-    _train_split(card, "MelGAN v1", _melgan_v1_config, batch,
-                 forward_kernels=("split_kernel", "stack_tc_kernel", "outconv_kernel"))
+    _train_split(card, "MelGAN v1", lambda v: _melgan_v1_config(v[0], mixed_precision=v[1]),
+                 batch, forward_kernels=K6_KERNELS, variants=BF16_SPLIT_VARIANTS)
+
+
+# K6's and K7's kernels (name prefixes), float32 and bf16, for the splits'
+# profiles
+K6_KERNELS = ("split_kernel", "stack_tc_kernel", "outconv_kernel", "stack_bf16_kernel",
+              "outconv_bf16_kernel")
+K7_KERNELS = ("dz_kernel", "dx_kernel", "wgrad_kernel", "wgrad_reduce_kernel",
+              "outconv_bwd_kernel", "slab_sum_kernel", "dz_bf16_kernel", "dx_bf16_kernel",
+              "wgrad_bf16_kernel", "wgrad_reduce_bf16_kernel", "colsum_kernel",
+              "outconv_bwd_bf16_kernel")
+# (name, (kernel, mixed_precision)) of phases 18 and 32, as phase 21's
+BF16_SPLIT_VARIANTS = (("kernel", (True, False)), ("plain", (False, False)),
+                       ("bf16, mixed_precision, kernel", (True, True)))
 
 
 def _write_train_dump(root: str, utts: int = TRAIN_UTTS, span=(150, 300)) -> str:
@@ -3058,8 +3079,9 @@ def _mb_v2_config(kernel: bool, **overrides) -> dict:
 
 def phase_mb_melgan_train_split(card: str) -> None:
     """Where one MB-MelGAN v2 train step (B=64, T=16384) spends its time,
-    with stages 1-2 through K6/K7 and through the plain path, and K6's and
-    K7's device time in one G forward and backward."""
+    with stages 1-2 through K6/K7 and through the plain path, and in bf16
+    (``mixed_precision``) through K6/K7's bf16 modes, and K6's and K7's
+    device time in one G forward and backward."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -3067,13 +3089,10 @@ def phase_mb_melgan_train_split(card: str) -> None:
     frames = t // V2_MB_CONFIG["hop_size"]
     batch = {"y": 0.3 * torch.randn(b, 1, t, generator=g, device="cuda"),
              "c": torch.randn(b, 80, frames, generator=g, device="cuda")}
-    _train_split(card, "MB-MelGAN v2", _mb_v2_config, batch,
-                 forward_kernels=("split_kernel", "stack_tc_kernel", "outconv_kernel"),
+    _train_split(card, "MB-MelGAN v2", lambda v: _mb_v2_config(v[0], mixed_precision=v[1]),
+                 batch, forward_kernels=K6_KERNELS,
                  losses="full-band and sub-band STFT + D adversarial",
-                 step_kernels=("split_kernel", "stack_tc_kernel", "outconv_kernel",
-                               "dz_kernel", "dx_kernel", "wgrad_kernel",
-                               "wgrad_reduce_kernel", "outconv_bwd_kernel",
-                               "slab_sum_kernel"))
+                 step_kernels=K6_KERNELS + K7_KERNELS, variants=BF16_SPLIT_VARIANTS)
     from parallelwavegan_tpu_torch.models import get_model_class
 
     gen = get_model_class("MelGANGenerator")(**_mb_v2_config(True)["generator_params"])
@@ -3827,16 +3846,21 @@ def _off_the_kinks_bf16(x, stacks, fin, mode: str, slope: float, seed: int):
 def phase_k67_bf16(card: str) -> dict:
     """K6's and K7's bf16-resident modes against their bf16 plain versions
     at MelGAN v1's three fused training stages and MB-MelGAN v2's two, with
-    the controls that the check must reject, and their times beside the
-    plain versions, the float32 kernels (v1) and their bf16 bounds (module
-    docstring, phase 25)."""
+    the controls that the check must reject, two runs of each for the same
+    bits, their kernels' SASS, and their times beside the plain versions,
+    the float32 kernels and their bf16 bounds, by part (module docstring,
+    phase 25)."""
     import numpy as np
     import torch
 
+    from parallelwavegan_tpu_torch.ops.kernels.time_melgan import bf16_parts
+
     from parallelwavegan_tpu_torch.ops.kernels import melgan_stack as m6
+    from parallelwavegan_tpu_torch.ops.kernels import mma_bf16
     from parallelwavegan_tpu_torch.ops.kernels.melgan_stack import (
         _run_cuda_bf16,
         fused_melgan_stacks,
+        kernel_weights_bf16,
         melgan_stacks_reference_bf16,
         stacks_forward_bf16,
     )
@@ -3845,6 +3869,30 @@ def phase_k67_bf16(card: str) -> dict:
         melgan_stacks_backward,
         melgan_stacks_backward_reference_bf16,
     )
+
+    # K6's and K7's bf16 modes (csrc/melgan_stack_bf16.cu,
+    # csrc/melgan_stack_bwd_bf16.cu): their products on wgmma, no mma.sync
+    bf16_kernels = ("stack_bf16_kernel", "dz_bf16_kernel", "dx_bf16_kernel",
+                    "wgrad_bf16_kernel")
+    seen = set()
+    # (templated on C: K9's wgrad_bf16_kernel, csrc/tade_bwd_bf16.cu, is not)
+    for kernel, use in _built_resources(
+            (*(k + "<" for k in bf16_kernels), "outconv_bf16_kernel", "outconv_bwd_bf16_kernel",
+             "layout_kernel"), ("melgan_stack_bf16.cu", "melgan_stack_bwd_bf16.cu")).items():
+        print(f"K6/K7 bf16 {kernel}: {use.get('registers')} registers, spill stores "
+              f"{use.get('spill_stores')} B, loads {use.get('spill_loads')} B; SASS "
+              f"{use.get('sass')} on {card}")
+        counts = use.get("sass", "")
+        if kernel.startswith(bf16_kernels) and (
+                not re.search(r"HGMMA\.\S*\.F32\.BF16", counts) or "TF32" in counts
+                or ", HMMA 0," not in counts or use.get("spill_stores")
+                or use.get("spill_loads")):
+            _fail(f"{kernel}: expected bf16 warpgroup products (HGMMA ... F32.BF16), no "
+                  f"HMMA and no spill, got {use}")
+        seen.add(kernel.split("<")[0])
+    if not seen.issuperset(bf16_kernels):
+        _fail(f"K6/K7 bf16: not every one of {bf16_kernels} among the built kernels "
+              f"{sorted(seen)}")
 
     gp = V1_MELGAN_CONFIG["generator_params"]
     b, t = V1_MELGAN_CONFIG["batch_size"], V1_MELGAN_CONFIG["batch_max_steps"]
@@ -3889,6 +3937,18 @@ def phase_k67_bf16(card: str) -> dict:
                    "dilation": d} for d in dl]
         fin = ((randn(7, c, n_out, scale=(7 * c) ** -0.5), randn(n_out, scale=0.1))
                if n_out else None)
+        # the weights' layout kernel, bit for bit its plain version, for
+        # float32 and bf16 weights
+        for kind in (torch.float32, torch.bfloat16):
+            sts = [{k: v.to(kind) if torch.is_tensor(v) else v for k, v in st.items()}
+                   for st in stacks]
+            tiles, biases = kernel_weights_bf16(sts)
+            want_t, want_b = mma_bf16.stack_wgmma(sts), m6._packed_biases(sts)
+            torch.cuda.synchronize()
+            if not (all(torch.equal(a, w) for a, w in zip(tiles, want_t))
+                    and all(torch.equal(a, w) for a, w in zip(biases, want_b))):
+                _fail(f"K6/K7 bf16 {stage}: the layout kernel differs from its plain version "
+                      f"({kind} weights)")
         x, moved = _off_the_kinks_bf16(randn(bi, ti, c).to(torch.bfloat16), stacks, fin, mode,
                                        slope, SEED + 1 + j)
         dy = randn(bi, ti, n_out or c, scale=(bi * ti) ** -0.5).to(torch.bfloat16)
@@ -3909,6 +3969,10 @@ def phase_k67_bf16(card: str) -> dict:
                   f"(max|diff| {float((chain - want).abs().max()):.3e})")
         if _bf16_close(f32, want, k6_max) or _bf16_close(trunc, want, k6_max):
             _fail(f"K6 bf16 {name}: the check accepts the float32 kernel or truncated weights")
+        with torch.no_grad():  # two runs give the same bits
+            again = _run_cuda_bf16(x, stacks, fin, slope, mode, keep_f32=True)
+        if not torch.equal(again, chain):
+            _fail(f"K6 bf16 {name}: two runs differ")
         m6._conv_cl = _reordered_conv_cl
         try:
             wit6 = _ratios(stacks_forward_bf16(x, stacks, fin, slope, mode)["y"], want)
@@ -3952,6 +4016,9 @@ def phase_k67_bf16(card: str) -> dict:
             dd = (g.float() - r.float())
             k7["errs"].append(float(dd.abs().max()))
             worst = max(worst, float(dd.pow(2).mean().sqrt() / r.float().pow(2).mean().sqrt()))
+        again = grads(*melgan_stacks_backward(x, stacks, fin, slope, mode, dy))
+        if not all(torch.equal(a, g) for (_, a), (_, g) in zip(again, got)):
+            _fail(f"K7 bf16 {name}: two runs differ")
         for label, wrong in (("the float32 kernel", melgan_stacks_backward(
                 x.float(), stacks, fin, slope, mode, dy.float())), ("truncated weights",
                 melgan_stacks_backward(x, truncated(stacks), fin, slope, mode, dy))):
@@ -3959,49 +4026,68 @@ def phase_k67_bf16(card: str) -> dict:
                 _fail(f"K7 bf16 {name}: the check accepts {label}")
         print(f"K7 bf16 vs plain [{name}]: {len(ref)} gradients, worst rms|diff| / "
               f"rms|plain| = {worst:.3e} (bound 1e-3, max 1e-2 of max|plain|); the float32 "
-              "kernel's, the truncated weights' and each zeroed gradient rejected")
-        del got, ref
+              "kernel's, the truncated weights' and each zeroed gradient rejected; two runs "
+              "of K6 and of K7 bit-equal")
+        del got, ref, again
 
-    f32_ms = {"K6": 0.0, "K7": 0.0}
+    f32_ms = {"K6": {"v1": 0.0, "v2": 0.0}, "K7": {"v1": 0.0, "v2": 0.0}}
+    parts = {"K6": {"v1": {}, "v2": {}}, "K7": {"v1": {}, "v2": {}}}
     v2 = {"K6": {}, "K7": {}}  # timed beside, not in the record's v1 step
+
+    def add_parts(into, got):
+        for part, ms in got.items():
+            into[part] = into.get(part, 0.0) + ms
+
     for name, x, stacks, fin, dy in stages:
-        r6, r7 = (v2["K6"], v2["K7"]) if name.startswith("v2") else (k6, k7)
+        cell = "v2" if name.startswith("v2") else "v1"
+        r6, r7 = (v2["K6"], v2["K7"]) if cell == "v2" else (k6, k7)
         w6 = _bf16_work(_stacks_work(x, stacks, fin)["flops"],
                         _bf16_stage_bytes(x, stacks, fin, False))
         w7 = _bf16_work(_k7_work(x, stacks, fin)["flops"],
                         _bf16_stage_bytes(x, stacks, fin, True))
+        # K7 reads the weights' layout that the forward made, as training does
+        split = kernel_weights_bf16(stacks)
+        xf, dyf = x.float(), dy.float()
+
+        def k7_bf16():
+            return melgan_stacks_backward(x, stacks, fin, slope, mode, dy, split)
+
         with torch.inference_mode():
             _timed(r6, f"K6 bf16 {name}", card,
                    lambda: fused_melgan_stacks(x, stacks, final=fin),
                    lambda: melgan_stacks_reference_bf16(x, stacks, final=fin), w6)
-            if r6 is k6:
-                xf = x.float()
-                f32_ms["K6"] += _median_ms(lambda: fused_melgan_stacks(xf, stacks, final=fin))
-        _timed(r7, f"K7 bf16 {name}", card,
-               lambda: melgan_stacks_backward(x, stacks, fin, slope, mode, dy),
+            f32_ms["K6"][cell] += _median_ms(lambda: fused_melgan_stacks(xf, stacks, final=fin))
+            add_parts(parts["K6"][cell], bf16_parts(
+                lambda: fused_melgan_stacks(x, stacks, final=fin),
+                lambda: kernel_weights_bf16(stacks)))
+        _timed(r7, f"K7 bf16 {name}", card, k7_bf16,
                lambda: melgan_stacks_backward_reference_bf16(x, stacks, fin, slope, mode, dy),
                w7)
-        if r7 is k7:
-            xf, dyf = x.float(), dy.float()
-            f32_ms["K7"] += _median_ms(lambda: melgan_stacks_backward(xf, stacks, fin, slope,
-                                                                      mode, dyf))
+        f32_ms["K7"][cell] += _median_ms(lambda: melgan_stacks_backward(xf, stacks, fin, slope,
+                                                                        mode, dyf))
+        add_parts(parts["K7"][cell], bf16_parts(k7_bf16))
     for label, rec in v2.items():
         rec.update(_bf16_work(rec["flops"], rec["bytes"]))
         print(f"{label} bf16 per MB-MelGAN v2 G step (stages 1-2, B={b2} T="
               f"{V2_MB_CONFIG['batch_max_steps']}"
               + (", K6's re-run included" if label == "K7" else ", the training forward")
-              + f"): kernel {rec['ms']:.3f} ms, bf16 plain {rec['plain_ms']:.3f} ms; bf16 "
-              f"bound {rec['bound_ms']:.3f} ms ({rec['flops'] / 1e9:.1f} GFLOP, "
-              f"{rec['bytes'] / 1e6:.1f} MB; {rec['bound_by']}; "
-              f"{rec['bound_ms'] / rec['ms']:.1%} of it) on {card}")
+              + f"): kernel {rec['ms']:.3f} ms, bf16 plain {rec['plain_ms']:.3f} ms, "
+              f"float32 kernel {f32_ms[label]['v2']:.3f} ms; bf16 bound {rec['bound_ms']:.3f} "
+              f"ms ({rec['flops'] / 1e9:.1f} GFLOP, {rec['bytes'] / 1e6:.1f} MB; "
+              f"{rec['bound_by']}; {rec['bound_ms'] / rec['ms']:.1%} of it) on {card}")
     for label, rec in (("K6", k6), ("K7", k7)):
         rec.update(_bf16_work(rec["flops"], rec["bytes"]))
         print(f"{label} bf16 per MelGAN v1 G step (stages 1-3, B={b} T={t}"
               + (", K6's re-run included" if label == "K7" else ", the training forward")
               + f"): kernel {rec['ms']:.3f} ms, bf16 plain {rec['plain_ms']:.3f} ms, "
-              f"float32 kernel {f32_ms[label]:.3f} ms; bf16 bound {rec['bound_ms']:.3f} ms "
+              f"float32 kernel {f32_ms[label]['v1']:.3f} ms; bf16 bound {rec['bound_ms']:.3f} ms "
               f"({rec['flops'] / 1e9:.1f} GFLOP / 989 TFLOP/s, {rec['bytes'] / 1e6:.1f} MB / "
               f"3.35 TB/s; {rec['bound_by']}; {rec['bound_ms'] / rec['ms']:.1%} of it) on {card}")
+    for label in ("K6", "K7"):
+        for cell in ("v1", "v2"):
+            print(f"{label} bf16 device time by part per {cell} G step (torch.profiler): "
+                  + ", ".join(f"{part} {ms:.3f} ms" for part, ms in parts[label][cell].items())
+                  + f" on {card}")
     return {"k6": k6, "k7": k7}
 
 
@@ -7031,10 +7117,10 @@ def main() -> None:
               style_train["k9a_launches"] + hubert["k9_launches"], k9["k9a"]),
         entry("tade_block_backward (K9b)", "tade_bwd.cu", "tade_train.py:523",
               style_train["k9b_launches"] + hubert["k9_launches"], k9["k9b"]),
-        entry("fused_melgan_stacks (K6 bf16-resident mode)", "melgan_stack.cu",
+        entry("fused_melgan_stacks (K6 bf16-resident mode)", "melgan_stack_bf16.cu",
               "melgan_stack.py:285", melgan_bf16["k6_launches"] + mb_train["k6_bf16_launches"],
               k67["k6"]),
-        entry("melgan_stacks_backward (K7 bf16-resident mode)", "melgan_stack_bwd.cu",
+        entry("melgan_stacks_backward (K7 bf16-resident mode)", "melgan_stack_bwd_bf16.cu",
               "melgan_stack_train.py:247",
               melgan_bf16["k7_launches"] + mb_train["k7_bf16_launches"], k67["k7"]),
         # forwards and the Save re-runs inside K9

@@ -74,17 +74,28 @@ _SIGNATURES = {
     "melgan_outconv_bwd": [_P] * 8 + [ctypes.c_longlong] + [_I] * 6 + [_F, _I, _P],
     # B, T, C, Cout, K -> floats of melgan_outconv_bwd's partial buffer
     "melgan_outconv_bwd_part_floats": [_I] * 5,
-    # the bf16-resident modes: x, out, wf, bias, B, T, C, K, dil, mode,
-    # slope, slope_x, x_bf16, out_bf16, device, stream
+    # csrc/melgan_stack_bf16.cu, the bf16-resident modes: x, out, wf, bias,
+    # B, T, C, K, dil, mode, slope, slope_x, x_bf16, out_bf16, device, stream
     "melgan_stack_bf16": [_P] * 4 + [_I] * 6 + [_F, _F, _I, _I, _I, _P],
     # x, y, w, b, B, T, C, Cout, K, mode, slope, y_bf16, device, stream
     "melgan_outconv_bf16": [_P] * 4 + [_I] * 6 + [_F, _I, _I, _P],
-    # melgan_stack_bwd's arguments, then slope_x, x_bf16, g_bf16 before
-    # device and stream
-    "melgan_stack_bwd_bf16": [_P] * 14 + [ctypes.c_longlong] + [_I] * 6
-    + [_F, _F, _I, _I, _I, _P],
-    # melgan_outconv_bwd's arguments (dy bf16)
-    "melgan_outconv_bwd_bf16": [_P] * 8 + [ctypes.c_longlong] + [_I] * 6 + [_F, _I, _P],
+    # n, (wd, w1, ws, bd, b1, bs) per stack, K per stack, tiles, biases, C,
+    # w_bf16, b_bf16, device, stream
+    "melgan_stack_tiles_bf16": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # csrc/melgan_stack_bwd_bf16.cu: x, g, gsum, gsum_rows, dx, dxsum, dz, h,
+    # xl, xb, xs, part, part_floats, wf, bd, dwd, dbd, dw1, db1, dws, dbs, B,
+    # T, C, K, dil, mode, slope, slope_x, x_bf16, device, stream
+    "melgan_stack_bwd_bf16": [_P] * 3 + [_I] + [_P] * 8 + [ctypes.c_longlong] + [_P] * 8
+    + [_I] * 6 + [_F, _F, _I, _I, _P],
+    # B, T, C, K, dil -> floats of melgan_stack_bwd_bf16's partial buffer
+    "melgan_stack_bwd_bf16_part_floats": [_I] * 5,
+    # B, T, C, outconv -> rows of the column sums the bf16 backward writes
+    "melgan_bf16_sum_rows": [_I] * 4,
+    # x, y, dy, g, gsum, part, w, dw, db, part_floats, B, T, C, Cout, K,
+    # mode, slope, device, stream
+    "melgan_outconv_bwd_bf16": [_P] * 9 + [ctypes.c_longlong] + [_I] * 6 + [_F, _I, _P],
+    # B, T, C, Cout, K -> floats of melgan_outconv_bwd_bf16's partial buffer
+    "melgan_outconv_bwd_bf16_part_floats": [_I] * 5,
     # x, c, mean, rstd, x2, a, wf, aux_b, g_b, gc_b, y, s, t, B, T, gate,
     # device, stream
     "tade1": [_P] * 13 + [_I] * 4 + [_P],

@@ -1,7 +1,6 @@
 // Fused MelGAN residual stacks for Hopper (sm_90a), float32 in and out,
-// both products of a stack on the tensor cores in split TF32; or, in the
-// bf16-resident mode of mixed precision (below), bf16 in and out, one
-// bf16 product per multiply.
+// both products of a stack on the tensor cores in split TF32. The
+// bf16-resident mode of mixed precision is csrc/melgan_stack_bf16.cu.
 //
 // Replaces the Pallas TPU kernel
 // parallelwavegan_tpu/ops/pallas_kernels/melgan_stack.py:285
@@ -86,32 +85,7 @@
 //    sums side by side.
 // Blocks share nothing and carry nothing from tile to tile, and every sum
 // is taken in a fixed order: two runs give the same bits.
-//
-// The bf16-resident mode (melgan_stack_bf16, stack_tc_kernel<C, true>,
-// outconv_kernel<true>) is JAX's _kernel_stacks with mxu_bf16
-// (melgan_stack.py:109-160, turned on by a bf16 input at :302-326), which
-// mixed-precision training runs: the stage's input and output bf16 in
-// device memory; every product's A operand (the padded leaky(x), leaky(z +
-// bd), x) rounded to bf16 to nearest even where its fragment is formed,
-// the weights rounded once by the wrapper (ops/kernels/mma_bf16.py, in
-// the m16n8k16 B fragments' order, 8 bytes a lane); one
-// mma.sync.m16n8k16 bf16 product per 16-deep k-step into float32 (a
-// sixth of split TF32's tensor-core work); z, the stack's sum and the
-// chain between a stage's stacks (written between launches) float32, as
-// JAX keeps them in VMEM. On the stage's bf16 input LeakyReLU multiplies
-// by slope_x = bf16(slope), as JAX's _leaky multiplies in x's type. The
-// window of x is widened to float32 as it is staged (plain stores, seen
-// after the ring's first barrier), so the tiles, the ring of chunks (a
-// tap's k-steps, half a tap at C = 128: at most the TF32 chunks' bytes)
-// and the per-tap float32 totals are the TF32 mode's. The final conv stays on
-// the CUDA cores, its operands rounded to bf16. Bound at MelGAN v1's
-// training forward (B = 8, stages 1-3): 44.1 GFLOP over 989 TFLOP/s,
-// 0.045 ms, against 67 MB of bf16 activations and weights (0.020 ms). At
-// C = 128 the bf16 instantiation needs one register more than the 128 that
-// two blocks an SM allow: ptxas spills 4 bytes (a chunk of 2 k-steps in
-// place of 4 spilled the same).
 
-#include "mma_bf16.cuh"
 #include "mma_tf32x3.cuh"
 
 namespace {
@@ -145,10 +119,8 @@ __device__ __forceinline__ int pad_row(int p, int T, int pad, int mode) {
   return p < 0 ? 0 : T - 1;
 }
 
-// The shape of a stack block at width C (a multiple of 16 up to 128)
-// under either operand policy: split TF32 (float32 in and out, float32
-// accuracy) or, with kBF16, bf16 (the JAX kernel's bf16-resident mode).
-template <int C, bool kBF16 = false>
+// The shape of a stack block at width C (a multiple of 16 up to 128).
+template <int C>
 struct Geo {
   static_assert(C % 16 == 0 && C <= 128, "width");
   static constexpr int kNT = C / 8;                 // 8-column tiles of the output
@@ -161,16 +133,13 @@ struct Geo {
   static constexpr int kThreads = 32 * kWR * kWC;
   static constexpr int kMinBlocks = kThreads <= 256 ? 2 : 1;
   static constexpr int kLd = C + 8;        // staged row stride, 8 or 24 mod 32
-  // k-steps of a C-deep product: 8 channels deep (TF32), or 16 (bf16)
-  static constexpr int kPerTap = C / (kBF16 ? 16 : 8);
-  // words of a k-step's weights: (hi, lo) of two TF32 values, or four bf16,
-  // a lane of each column tile
-  static constexpr int kStepF = kNT * (kBF16 ? 64 : 128);
+  static constexpr int kPerTap = C / 8;  // k-steps of a C-deep product
+  // words of a k-step's weights: (hi, lo) of two TF32 values, a lane of
+  // each column tile
+  static constexpr int kStepF = kNT * 128;
   // k-steps of a chunk (divides kPerTap): at MB-MelGAN v2's widths as many
-  // as two ring stages and two blocks an SM leave room for; in bf16 a tap
-  // (half of one at C = 128), the TF32 chunk's bytes or fewer
-  static constexpr int kKS = kBF16 ? (C == 128 ? 4 : kPerTap)
-                                       : C == 96 ? 3 : C == 48 ? 6 : 2;
+  // as two ring stages and two blocks an SM leave room for
+  static constexpr int kKS = C == 96 ? 3 : C == 48 ? 6 : 2;
   static constexpr int kChunks = kPerTap / kKS;  // chunks of a C-deep product
   static constexpr int kChunkF = kKS * kStepF;
   static constexpr int kStages = C == 128 || C == 96 || C == 48 ? 2 : 3;
@@ -206,9 +175,9 @@ __device__ __forceinline__ void add_into(float (&tot)[2][N][4], float (&acc)[2][
 // pair of columns (col, col + 1) at tile row `row` (the warp's rows 32 wm
 // + 16 mi + gid + 8 h, columns 8 (wn kNTW + ni) + 2 tig), whose values
 // are v[mi][ni][2 h] and v[mi][ni][2 h + 1].
-template <int C, bool kBF16, class Fn>
+template <int C, class Fn>
 __device__ __forceinline__ void for_each_pair(Fn&& fn) {
-  using G = Geo<C, kBF16>;
+  using G = Geo<C>;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wm = warp % G::kWR, wn = warp / G::kWR, gid = lane >> 2, tig = lane & 3;
 #pragma unroll
@@ -258,38 +227,6 @@ __device__ __forceinline__ void chunk_mma(const float* a, const float* b, float 
   }
 }
 
-// The bf16 chunk_mma: acc += one chunk's kKS 16-deep k-steps, the A
-// operand rows rounded to bf16 (after LeakyReLU when kAct) where a
-// fragment is formed, b at this thread's lane of the warp's first column
-// tile in the chunk's bf16 weights (kNT tiles x 32 lanes x {B[2 tig][gid],
-// B[2 tig + 1][gid], B[2 tig + 8][gid], B[2 tig + 9][gid]} per k-step,
-// ops/kernels/mma_bf16.py).
-template <int C, bool kAct>
-__device__ __forceinline__ void chunk_mma_bf16(const float* a, const float* b, float slope,
-                                               float (&acc)[2][Geo<C, true>::kNTW][4]) {
-  using G = Geo<C, true>;
-#pragma unroll
-  for (int s = 0; s < G::kKS; ++s) {
-    uint32_t f[2][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {  // rows gid (+8 for odd j), channels (+8 for j >= 2)
-        float2 u = ld2(a + (mi * 16 + (j & 1) * 8) * G::kLd + s * 16 + (j >> 1) * 8);
-        if (kAct) u = make_float2(leaky(u.x, slope), leaky(u.y, slope));
-        f[mi][j] = bf16mma::pack(u.x, u.y);
-      }
-    }
-#pragma unroll
-    for (int ni = 0; ni < G::kNTW; ++ni) {
-      const uint2 w = *reinterpret_cast<const uint2*>(b + (s * G::kNT + ni) * 64);
-      const uint32_t fb[2] = {w.x, w.y};
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) bf16mma::mma(acc[mi][ni], f[mi], fb);
-    }
-  }
-}
-
 struct Stack {
   const float* x;     // (B, T, C)
   float* out;         // (B, T, C)
@@ -297,21 +234,14 @@ struct Stack {
   const float* bias;  // (3, C): bd, b1, bs
   int T, K, dil, pad, mode, whole;  // whole: one window holds every tap's rows
   float slope;
-  // bf16 mode: x and out as bf16 where these are set (else float32, x and
-  // out above); wf then holds (K + 2) C / 16 bf16 k-steps; slope_x is the
-  // slope of x's LeakyReLU (bf16(slope) on a bf16 x, as JAX's _leaky
-  // multiplies in x's type)
-  const uint16_t* xh;
-  uint16_t* outh;
-  float slope_x;
 };
 
 // One ResidualStack over one tile of kM rows of one batch item, its
-// products split TF32 or, with kBF16, bf16.
-template <int C, bool kBF16>
-__global__ void __launch_bounds__(Geo<C, kBF16>::kThreads, Geo<C, kBF16>::kMinBlocks)
+// products split TF32.
+template <int C>
+__global__ void __launch_bounds__(Geo<C>::kThreads, Geo<C>::kMinBlocks)
     stack_tc_kernel(Stack p) {
-  using G = Geo<C, kBF16>;
+  using G = Geo<C>;
   extern __shared__ float4 smem4[];
   float* ring = reinterpret_cast<float*>(smem4);  // kStages x kChunkF
   float* h_s = ring + G::kStages * G::kChunkF;    // kM x kLd: leaky(z + bd)
@@ -321,7 +251,7 @@ __global__ void __launch_bounds__(Geo<C, kBF16>::kThreads, Geo<C, kBF16>::kMinBl
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wm = warp % G::kWR, wn = warp / G::kWR;
   const int a_off = (32 * wm + (lane >> 2)) * G::kLd + 2 * (lane & 3);
-  const int b_off = kBF16 ? wn * G::kNTW * 64 + lane * 2 : wn * G::kNTW * 128 + lane * 4;
+  const int b_off = wn * G::kNTW * 128 + lane * 4;
   const float* wout = p.wf + (size_t)p.K * G::kPerTap * G::kStepF;  // W1, then Ws
   constexpr int kQ = C / 4;  // 16-byte pieces of a row
   const int center = (p.K - 1) / 2;
@@ -339,28 +269,13 @@ __global__ void __launch_bounds__(Geo<C, kBF16>::kThreads, Geo<C, kBF16>::kMinBl
     const int ntaps = p.whole ? p.K : 1;
     const int rows = G::kM + (ntaps - 1) * d;
     const int base = t0 + k0 * d - p.pad;  // padded position of window row 0
-    bool staged = false;
-    if constexpr (kBF16) {
-      if (p.xh != nullptr) {  // bf16 rows widened as they are staged: plain stores
-        const uint16_t* xh = p.xh + (size_t)b * T * C;
-        for (int e = threadIdx.x; e < rows * kQ; e += G::kThreads) {
-          const int r = e / kQ, q = (e % kQ) * 4;
-          const int row = pad_row(base + r, T, p.pad, p.mode);
-          *reinterpret_cast<float4*>(win + r * G::kLd + q) =
-              row >= 0 ? bf16mma::load4(xh + (size_t)row * C + q) : make_float4(0.f, 0.f, 0.f, 0.f);
-        }
-        staged = true;
-      }
+    for (int e = threadIdx.x; e < rows * kQ; e += G::kThreads) {
+      const int r = e / kQ, q = (e % kQ) * 4;
+      const int row = pad_row(base + r, T, p.pad, p.mode);
+      const bool ok = row >= 0;
+      cp_async<16>(win + r * G::kLd + q, ok ? x + (size_t)row * C + q : x, ok);
     }
-    if (!staged) {
-      for (int e = threadIdx.x; e < rows * kQ; e += G::kThreads) {
-        const int r = e / kQ, q = (e % kQ) * 4;
-        const int row = pad_row(base + r, T, p.pad, p.mode);
-        const bool ok = row >= 0;
-        cp_async<16>(win + r * G::kLd + q, ok ? x + (size_t)row * C + q : x, ok);
-      }
-    }
-    cp_async_commit();  // waited for (and the plain stores seen) with the ring's first chunk
+    cp_async_commit();  // waited for with the ring's first chunk
     const int nz = ntaps * G::kChunks;  // chunks of z in this segment
     const float* wz = p.wf + (size_t)k0 * G::kPerTap * G::kStepF;
 
@@ -375,17 +290,14 @@ __global__ void __launch_bounds__(Geo<C, kBF16>::kThreads, Geo<C, kBF16>::kMinBl
     auto compute = [&](int i, int buf) {
       const float* wb = ring + buf * G::kChunkF + b_off;
       if (i < nz) {
-        const int tap = i / G::kChunks, c0 = (i % G::kChunks) * G::kKS * (kBF16 ? 16 : 8);
+        const int tap = i / G::kChunks, c0 = (i % G::kChunks) * G::kKS * 8;
         const float* a = win + tap * d * G::kLd + c0 + a_off;
-        if constexpr (kBF16)
-          chunk_mma_bf16<C, true>(a, wb, p.slope_x, acc);
-        else
-          chunk_mma<C, true>(a, wb, p.slope, acc);
+        chunk_mma<C, true>(a, wb, p.slope, acc);
         if (i % G::kChunks == G::kChunks - 1) add_into(tot, acc);  // a tap's sum
         if (last && i == nz - 1) {
           // z complete: leaky(z + bd) beside the tile's x, visible to every
           // warp after the ring's next barrier
-          for_each_pair<C, kBF16>([&](int mi, int ni, int h, int r, int col) {
+          for_each_pair<C>([&](int mi, int ni, int h, int r, int col) {
             st2(h_s + r * G::kLd + col,
                 make_float2(leaky(tot[mi][ni][2 * h] + p.bias[col], p.slope),
                             leaky(tot[mi][ni][2 * h + 1] + p.bias[col + 1], p.slope)));
@@ -393,13 +305,10 @@ __global__ void __launch_bounds__(Geo<C, kBF16>::kThreads, Geo<C, kBF16>::kMinBl
           zero(tot);
         }
       } else {
-        const int j = i - nz, c0 = (j % G::kChunks) * G::kKS * (kBF16 ? 16 : 8);
+        const int j = i - nz, c0 = (j % G::kChunks) * G::kKS * 8;
         // leaky(z), then the tile's own x rows (the last segment's)
         const float* a = j < G::kChunks ? h_s : win + (p.pad - k0 * d) * G::kLd;
-        if constexpr (kBF16)
-          chunk_mma_bf16<C, false>(a + c0 + a_off, wb, p.slope, acc);
-        else
-          chunk_mma<C, false>(a + c0 + a_off, wb, p.slope, acc);
+        chunk_mma<C, false>(a + c0 + a_off, wb, p.slope, acc);
         if (j % G::kChunks == G::kChunks - 1) add_into(tot, acc);  // W1's, Ws's sum
       }
     };
@@ -408,18 +317,11 @@ __global__ void __launch_bounds__(Geo<C, kBF16>::kThreads, Geo<C, kBF16>::kMinBl
   }
 
   float* ob = p.out + (size_t)b * T * C;
-  for_each_pair<C, kBF16>([&](int mi, int ni, int h, int r, int col) {
+  for_each_pair<C>([&](int mi, int ni, int h, int r, int col) {
     if (t0 + r >= T) return;
     const float* b1 = p.bias + C + col;
     const float2 v = make_float2(tot[mi][ni][2 * h] + (b1[0] + b1[C]),
                                  tot[mi][ni][2 * h + 1] + (b1[1] + b1[C + 1]));
-    if constexpr (kBF16) {
-      if (p.outh != nullptr) {
-        *reinterpret_cast<uint32_t*>(p.outh + ((size_t)b * T + t0 + r) * C + col) =
-            bf16mma::pack(v.x, v.y);
-        return;
-      }
-    }
     st2(ob + (size_t)(t0 + r) * C + col, v);
   });
 }
@@ -429,14 +331,11 @@ __global__ void __launch_bounds__(Geo<C, kBF16>::kThreads, Geo<C, kBF16>::kMinBl
 // side (groups of four in turn); the weights as one float4 per (group,
 // tap, channel), read by every thread at once. The block's rows and halo
 // are staged with leaky applied, C + 1 floats apart (thread i reads row i
-// + k). kBF16: leaky(x) is rounded to bf16 as it is staged (w holds bf16
-// values, rounded by the caller), as the JAX kernel's bf16 mode rounds the
-// final conv's operands; y is written as bf16 where yh is set.
-template <bool kBF16>
+// + k).
 __global__ void __launch_bounds__(kOutRows) outconv_kernel(
     const float* __restrict__ x, float* __restrict__ y,
     const float* __restrict__ w, const float* __restrict__ bias, int T, int C,
-    int cout, int K, int mode, float slope, uint16_t* __restrict__ yh) {
+    int cout, int K, int mode, float slope) {
   extern __shared__ float4 smem4[];
   const int kc = K * C, groups = (cout + 3) / 4;
   float4* w_s = smem4;                                     // groups x K C
@@ -464,10 +363,6 @@ __global__ void __launch_bounds__(kOutRows) outconv_kernel(
     d[1] = leaky(v.y, slope);
     d[2] = leaky(v.z, slope);
     d[3] = leaky(v.w, slope);
-    if constexpr (kBF16) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) d[j] = bf16mma::to_bf16(d[j]);
-    }
   }
   __syncthreads();
 
@@ -494,12 +389,6 @@ __global__ void __launch_bounds__(kOutRows) outconv_kernel(
     for (int o = 0; o < 4; ++o) {
       if (4 * g + o >= cout) continue;
       const size_t i = ((size_t)b * T + t) * cout + 4 * g + o;
-      if constexpr (kBF16) {
-        if (yh != nullptr) {
-          yh[i] = __bfloat16_as_ushort(__float2bfloat16_rn(tanhf(acc[o])));
-          continue;
-        }
-      }
       y[i] = tanhf(acc[o]);
     }
   }
@@ -554,46 +443,42 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-template <int C, bool kBF16>
+template <int C>
 int launch_stack(Stack p, int B, cudaStream_t stream) {
-  using G = Geo<C, kBF16>;
+  using G = Geo<C>;
   // one window of every tap's rows where it fits, else one tap's at a time
   p.whole = sizeof(float) * (G::kFixedF + (size_t)(G::kM + 2 * p.pad) * G::kLd) <= kMaxSmem;
   const size_t rows = p.whole ? G::kM + 2 * p.pad : G::kM;
   const size_t smem = sizeof(float) * (G::kFixedF + rows * G::kLd);
-  cudaError_t e = set_smem(stack_tc_kernel<C, kBF16>, smem);
+  cudaError_t e = set_smem(stack_tc_kernel<C>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((p.T + G::kM - 1) / G::kM, B);
-  stack_tc_kernel<C, kBF16><<<grid, G::kThreads, smem, stream>>>(p);
+  stack_tc_kernel<C><<<grid, G::kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <bool kBF16>
 int launch_width(const Stack& p, int B, int C, cudaStream_t s) {
   switch (C) {
-    case 16: return launch_stack<16, kBF16>(p, B, s);
-    case 32: return launch_stack<32, kBF16>(p, B, s);
-    case 48: return launch_stack<48, kBF16>(p, B, s);
-    case 64: return launch_stack<64, kBF16>(p, B, s);
-    case 80: return launch_stack<80, kBF16>(p, B, s);
-    case 96: return launch_stack<96, kBF16>(p, B, s);
-    case 112: return launch_stack<112, kBF16>(p, B, s);
-    case 128: return launch_stack<128, kBF16>(p, B, s);
+    case 16: return launch_stack<16>(p, B, s);
+    case 32: return launch_stack<32>(p, B, s);
+    case 48: return launch_stack<48>(p, B, s);
+    case 64: return launch_stack<64>(p, B, s);
+    case 80: return launch_stack<80>(p, B, s);
+    case 96: return launch_stack<96>(p, B, s);
+    case 112: return launch_stack<112>(p, B, s);
+    case 128: return launch_stack<128>(p, B, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <bool kBF16>
-int launch_outconv(const float* x, float* y, uint16_t* yh, const float* w,
-                   const float* bias, int B, int T, int C, int Cout, int K, int mode,
-                   float slope, cudaStream_t s) {
+int launch_outconv(const float* x, float* y, const float* w, const float* bias, int B,
+                   int T, int C, int Cout, int K, int mode, float slope, cudaStream_t s) {
   const size_t smem = sizeof(float4) * ((Cout + 3) / 4) * K * C +
                       sizeof(float) * (kOutRows + K - 1) * (C + 1);
-  cudaError_t e = set_smem(outconv_kernel<kBF16>, smem);
+  cudaError_t e = set_smem(outconv_kernel, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((T + kOutRows - 1) / kOutRows, B);
-  outconv_kernel<kBF16><<<grid, kOutRows, smem, s>>>(x, y, w, bias, T, C, Cout, K, mode,
-                                                      slope, yh);
+  outconv_kernel<<<grid, kOutRows, smem, s>>>(x, y, w, bias, T, C, Cout, K, mode, slope);
   return cudaGetLastError();
 }
 
@@ -623,34 +508,8 @@ int melgan_stack(const float* x, float* out, const float* wf, const float* bias,
   if (bad_args(B, T, K, mode) || dil < 1) return cudaErrorInvalidValue;
   const int pad = (K - 1) / 2 * dil;
   if (mode == kReflect && pad >= T) return cudaErrorInvalidValue;
-  const Stack p{x, out, wf, bias, T, K, dil, pad, mode, 1, slope, nullptr, nullptr, slope};
-  return launch_width<false>(p, B, C, static_cast<cudaStream_t>(stream));
-}
-
-// One ResidualStack in the JAX kernel's bf16-resident mode: every product
-// one bf16 mma.sync per 16-deep k-step into float32, its A operands (the
-// padded leaky(x), leaky(z + bd), x) rounded to bf16 where a fragment is
-// formed; z, the sum and the output in float32. x is bf16 where x_bf16 is
-// set (the stage's input; its LeakyReLU then multiplies by slope_x and
-// rounds, as JAX's _leaky does on a bf16 value), else float32 (the chain
-// between stacks); out is bf16 where out_bf16 is set (the stage's output),
-// else float32. wf is the stack's K + 2 matrices in bf16 in the mma
-// fragments' order (ops/kernels/mma_bf16.py stack_forward_fragments, (K +
-// 2, C / 16, C / 8, 32, 4)); bias, C and the alignments as melgan_stack.
-int melgan_stack_bf16(const void* x, void* out, const void* wf, const float* bias,
-                      int B, int T, int C, int K, int dil, int mode, float slope,
-                      float slope_x, int x_bf16, int out_bf16, int device, void* stream) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
-  if (bad_args(B, T, K, mode) || dil < 1) return cudaErrorInvalidValue;
-  const int pad = (K - 1) / 2 * dil;
-  if (mode == kReflect && pad >= T) return cudaErrorInvalidValue;
-  const Stack p{x_bf16 ? nullptr : static_cast<const float*>(x),
-                out_bf16 ? nullptr : static_cast<float*>(out),
-                static_cast<const float*>(wf), bias, T, K, dil, pad, mode, 1, slope,
-                x_bf16 ? static_cast<const uint16_t*>(x) : nullptr,
-                out_bf16 ? static_cast<uint16_t*>(out) : nullptr, slope_x};
-  return launch_width<true>(p, B, C, static_cast<cudaStream_t>(stream));
+  const Stack p{x, out, wf, bias, T, K, dil, pad, mode, 1, slope};
+  return launch_width(p, B, C, static_cast<cudaStream_t>(stream));
 }
 
 // The generator's trailing leaky -> K-tap conv (C -> Cout) -> tanh: C a
@@ -663,25 +522,8 @@ int melgan_outconv(const float* x, float* y, const float* w, const float* bias,
   if (bad_args(B, T, K, mode) || C < 4 || C % 4 != 0 || Cout < 1)
     return cudaErrorInvalidValue;
   if (mode == kReflect && (K - 1) / 2 >= T) return cudaErrorInvalidValue;
-  return launch_outconv<false>(x, y, nullptr, w, bias, B, T, C, Cout, K, mode, slope,
-                               static_cast<cudaStream_t>(stream));
-}
-
-// melgan_outconv in the bf16-resident mode: leaky(x) rounded to bf16 (x is
-// the float32 chain), w holding bf16 values (rounded by the caller),
-// float32 sums; y bf16 where y_bf16 is set, else float32 (what K7's re-run
-// reads: 1 - y^2 on the unrounded tanh, as the JAX backward recomputes it).
-int melgan_outconv_bf16(const float* x, void* y, const float* w, const float* bias,
-                        int B, int T, int C, int Cout, int K, int mode, float slope,
-                        int y_bf16, int device, void* stream) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
-  if (bad_args(B, T, K, mode) || C < 4 || C % 4 != 0 || Cout < 1)
-    return cudaErrorInvalidValue;
-  if (mode == kReflect && (K - 1) / 2 >= T) return cudaErrorInvalidValue;
-  return launch_outconv<true>(x, y_bf16 ? nullptr : static_cast<float*>(y),
-                              y_bf16 ? static_cast<uint16_t*>(y) : nullptr, w, bias, B, T,
-                              C, Cout, K, mode, slope, static_cast<cudaStream_t>(stream));
+  return launch_outconv(x, y, w, bias, B, T, C, Cout, K, mode, slope,
+                        static_cast<cudaStream_t>(stream));
 }
 
 // What stack_tc_kernel reads of n ResidualStacks of width C (a multiple

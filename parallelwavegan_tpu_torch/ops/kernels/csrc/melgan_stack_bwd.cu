@@ -1,7 +1,7 @@
 // Backward of the fused MelGAN residual stacks (K7) for Hopper (sm_90a),
 // float32 in and out, every product of a stack on the tensor cores in split
-// TF32; or, in the bf16-resident mode of mixed precision (at the end of
-// this note), bf16 in and out, one bf16 product per multiply.
+// TF32. The bf16-resident mode of mixed precision is
+// csrc/melgan_stack_bwd_bf16.cu.
 //
 // Replaces the Pallas TPU kernel of the JAX package
 //   parallelwavegan_tpu/ops/pallas_kernels/melgan_stack_train.py:247
@@ -90,29 +90,7 @@
 //    leaky'(x) before the skip product is added into them.
 // Every element of the outputs is a sum in a fixed order: two runs give
 // the same bits.
-//
-// The bf16-resident mode (melgan_stack_bwd_bf16, melgan_outconv_bwd_bf16;
-// the kernels' <C, true> and <K, true> instantiations) is JAX's
-// _kernel_stacks_bwd with mxu_bf16 (melgan_stack_train.py:103-240, turned
-// on at :253-289, with tade_train.py:173-210's _apply_conv_t and
-// _conv_wgrads): every product's operands rounded to bf16 where JAX casts
-// them (the padded leaky(x) and dz of dWd and of the transposed conv;
-// leaky(z), x and g of dW1, dWs, dh and g . Ws^T; dpre and leaky(x) of
-// the final conv's), one mma.sync.m16n8k16 per 16-deep k-step into
-// float32 totals (every 32 rows in the weight gradients, as in TF32),
-// the weights rounded once by the wrapper (ops/kernels/mma_bf16.py).
-// z, dz, h, dx between stacks and the bias gradients (sums of the
-// unrounded cotangents) stay float32; the stage's input x and its
-// gradient dx, and the cotangent dy of its output, are bf16 in device
-// memory (widened as they are staged, rounded as dx is stored). The
-// padding's adjoint, which JAX leaves to its XLA twin's autodiff on the
-// edge windows, sums the cotangent rows of the positions folded onto a
-// row in float32 and rounds that sum once per tap. The weight gradients
-// go through the same float32 slabs and fixed-order reduce. Bound per
-// MelGAN v1 G step (stages 1-3, K6's re-run included): 126.5 GFLOP over
-// 989 TFLOP/s, 0.128 ms, against 134 MB (0.040 ms).
 
-#include "mma_bf16.cuh"
 #include "mma_tf32x3.cuh"
 
 namespace {
@@ -161,9 +139,8 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
 // Row products (dz_kernel, dx_kernel)
 // ---------------------------------------------------------------------------
 
-// The shape of a row-product block at width C, its products split TF32 or,
-// with kBF16, bf16 (the weights' chunk then a quarter of the bytes).
-template <int C, bool kBF16 = false>
+// The shape of a row-product block at width C, its products split TF32.
+template <int C>
 struct Geo {
   static constexpr int kNT = C / 8;                 // 8-column tiles of the output
   static constexpr int kNTW = C % 32 == 0 ? 4 : 2;  // tiles of one warp
@@ -177,8 +154,7 @@ struct Geo {
   static constexpr int kChunks = C / kKC;            // chunks of one C-deep product
   static constexpr int kLdA = kKC + 8;  // staged row stride, 8 or 24 mod 32
   static constexpr int kAF = kM * kLdA;              // floats of a staged operand chunk
-  // words of a weight chunk: (hi, lo) of each TF32 value, or bf16 pairs
-  static constexpr int kBF = kBF16 ? kKC * C / 2 : kKC * C * 2;
+  static constexpr int kBF = kKC * C * 2;  // words of a weight chunk: (hi, lo) of each value
   static constexpr int kStageF = kAF + kBF;
   static constexpr int kStages = 2;
   static constexpr size_t kSmem = sizeof(float) * kStages * kStageF;
@@ -208,9 +184,9 @@ __device__ __forceinline__ void add_into(float (&tot)[2][N][4], const float (&ac
 // pair of columns (col, col + 1) at tile row `row` (the warp's rows 32 wm
 // + 16 mi + gid + 8 h, columns 8 (wn kNTW + ni) + 2 tig), whose values
 // are v[mi][ni][2 h] and v[mi][ni][2 h + 1].
-template <int C, bool kBF16, class Fn>
+template <int C, class Fn>
 __device__ __forceinline__ void for_each_pair(Fn&& fn) {
-  using G = Geo<C, kBF16>;
+  using G = Geo<C>;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wm = warp % G::kWR, wn = warp / G::kWR, gid = lane >> 2, tig = lane & 3;
 #pragma unroll
@@ -262,72 +238,10 @@ __device__ __forceinline__ void chunk_mma(const float* a_s, const float* b_s, fl
   }
 }
 
-// The bf16 chunk_mma: acc += the staged chunk's rows (kLdA apart;
-// LeakyReLU applied when kAct), rounded to bf16 where a fragment is
-// formed, times the chunk's bf16 weights in fragment order (kKC / 16
-// k-steps of kNT column tiles x 32 lanes x {B[2 tig][gid], B[2 tig +
-// 1][gid], B[2 tig + 8][gid], B[2 tig + 9][gid]}, ops/kernels/mma_bf16.py).
-template <int C, bool kAct>
-__device__ __forceinline__ void chunk_mma_bf16(const float* a_s, const float* b_s, float slope,
-                                               float (&acc)[2][Geo<C, true>::kNTW][4]) {
-  using G = Geo<C, true>;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp % G::kWR, wn = warp / G::kWR, gid = lane >> 2, tig = lane & 3;
-  const float* xa = a_s + (32 * wm + gid) * G::kLdA + 2 * tig;
-  const float* wb = b_s + wn * G::kNTW * 64 + lane * 2;
-#pragma unroll
-  for (int ks = 0; ks < G::kKC / 16; ++ks) {
-    uint32_t a[2][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const float* r0 = xa + mi * 16 * G::kLdA + ks * 16;
-      float2 u[4] = {ld2(r0), ld2(r0 + 8 * G::kLdA), ld2(r0 + 8), ld2(r0 + 8 * G::kLdA + 8)};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (kAct) u[j] = make_float2(leaky(u[j].x, slope), leaky(u[j].y, slope));
-        a[mi][j] = bf16mma::pack(u[j].x, u[j].y);
-      }
-    }
-#pragma unroll
-    for (int ni = 0; ni < G::kNTW; ++ni) {
-      const uint2 w = *reinterpret_cast<const uint2*>(wb + (ks * G::kNT + ni) * 64);
-      const uint32_t b[2] = {w.x, w.y};
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) bf16mma::mma(acc[mi][ni], a[mi], b);
-    }
-  }
-}
-
-// acc += a chunk's product under either policy
-template <int C, bool kBF16, bool kAct>
-__device__ __forceinline__ void chunk_product(const float* a_s, const float* b_s, float slope,
-                                              float (&acc)[2][Geo<C>::kNTW][4]) {
-  if constexpr (kBF16)
-    chunk_mma_bf16<C, kAct>(a_s, b_s, slope, acc);
-  else
-    chunk_mma<C, kAct>(a_s, b_s, slope, acc);
-}
-
-// Stage 16 bytes of an operand row at dst from row `row` (or zeros at row
-// < 0), channel c0 of a (rows, C) source: float32 by cp.async, or, where
-// the bf16 source is set, four bf16 widened by a plain store (seen after
-// the ring's next barrier).
-template <int C>
-__device__ __forceinline__ void stage_piece(float* dst, const float* src, const uint16_t* srch,
-                                            int row, int c0) {
-  if (srch != nullptr) {
-    *reinterpret_cast<float4*>(dst) = row >= 0 ? bf16mma::load4(srch + (size_t)row * C + c0)
-                                               : make_float4(0.f, 0.f, 0.f, 0.f);
-    return;
-  }
-  const bool ok = row >= 0;
-  cp_async<16>(dst, ok ? src + (size_t)row * C + c0 : src, ok);
-}
-
 // Copy weight chunk `chunk` of a fragment tensor into b_s.
-template <int C, bool kBF16>
+template <int C>
 __device__ __forceinline__ void stage_weights(float* b_s, const float* wf, int chunk) {
-  using G = Geo<C, kBF16>;
+  using G = Geo<C>;
   const float* src = wf + (size_t)chunk * G::kBF;
   for (int e = threadIdx.x * 4; e < G::kBF; e += G::kThreads * 4)
     cp_async<16>(b_s + e, src + e, true);
@@ -343,21 +257,14 @@ struct StackArgs {
   float* dx;        // (B, T, C)
   int T, K, dil, pad, mode;
   float slope;
-  // bf16 mode: x and dx (the stage's input and its gradient), g (the
-  // stage's output cotangent) as bf16 where these are set, else float32
-  // above; slope_x the slope of x's LeakyReLU (bf16(slope) on a bf16 x)
-  const uint16_t* xh;
-  const uint16_t* gh;
-  uint16_t* dxh;
-  float slope_x;
 };
 
 // z over the K taps, then dh = g . W1^T, in one ring of K kChunks + kChunks
 // chunks; h = leaky(z) is written when z is complete, dz = dh * leaky'(z)
 // at the end.
-template <int C, bool kBF16>
-__global__ void __launch_bounds__(Geo<C, kBF16>::kThreads, 1) dz_kernel(StackArgs p) {
-  using G = Geo<C, kBF16>;
+template <int C>
+__global__ void __launch_bounds__(Geo<C>::kThreads, 1) dz_kernel(StackArgs p) {
+  using G = Geo<C>;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int b = blockIdx.y, t0 = blockIdx.x * G::kM, T = p.T;
@@ -371,24 +278,17 @@ __global__ void __launch_bounds__(Geo<C, kBF16>::kThreads, 1) dz_kernel(StackArg
   zero(acc);
   zero(tot);
 
-  const uint16_t* xh = kBF16 && p.xh != nullptr ? p.xh + (size_t)b * T * C : nullptr;
-  const uint16_t* gh = kBF16 && p.gh != nullptr ? p.gh + (size_t)b * T * C : nullptr;
-
   auto stage = [&](int c, int buf) {
     float* a_s = smem + buf * G::kStageF;
-    stage_weights<C, kBF16>(a_s + G::kAF, p.wf, c);  // Wd's taps, then W1^T: contiguous
+    stage_weights<C>(a_s + G::kAF, p.wf, c);  // Wd's taps, then W1^T: contiguous
     const int tap = c / G::kChunks, c0 = (c % G::kChunks) * G::kKC;
     for (int e = threadIdx.x; e < G::kM * kPieces; e += G::kThreads) {
       const int r = e / kPieces, q = (e % kPieces) * 4;
       const int row = c < nz ? pad_row(t0 + r + tap * p.dil - p.pad, T, p.pad, p.mode)
                              : (t0 + r < T ? t0 + r : -1);
-      if constexpr (kBF16) {
-        stage_piece<C>(a_s + r * G::kLdA + q, c < nz ? x : g, c < nz ? xh : gh, row, c0 + q);
-      } else {
-        const float* src = c < nz ? x : g;
-        const bool ok = row >= 0;
-        cp_async<16>(a_s + r * G::kLdA + q, ok ? src + (size_t)row * C + c0 + q : src, ok);
-      }
+      const float* src = c < nz ? x : g;
+      const bool ok = row >= 0;
+      cp_async<16>(a_s + r * G::kLdA + q, ok ? src + (size_t)row * C + c0 + q : src, ok);
     }
   };
 
@@ -396,7 +296,7 @@ __global__ void __launch_bounds__(Geo<C, kBF16>::kThreads, 1) dz_kernel(StackArg
     const float* a_s = smem + buf * G::kStageF;
     const int part = c % G::kChunks;
     if (c == nz) {  // z complete: h out, z's sign kept
-      for_each_pair<C, kBF16>([&](int mi, int ni, int h, int r, int col) {
+      for_each_pair<C>([&](int mi, int ni, int h, int r, int col) {
         const float z0 = tot[mi][ni][2 * h] + p.bd[col];
         const float z1 = tot[mi][ni][2 * h + 1] + p.bd[col + 1];
         const int bit = ((mi * G::kNTW + ni) * 2 + h) * 2;
@@ -409,16 +309,16 @@ __global__ void __launch_bounds__(Geo<C, kBF16>::kThreads, 1) dz_kernel(StackArg
     }
     if (part == 0) zero(acc);
     if (c < nz) {
-      chunk_product<C, kBF16, true>(a_s, a_s + G::kAF, kBF16 ? p.slope_x : p.slope, acc);
+      chunk_mma<C, true>(a_s, a_s + G::kAF, p.slope, acc);
       if (part == G::kChunks - 1) add_into(tot, acc);
     } else {
-      chunk_product<C, kBF16, false>(a_s, a_s + G::kAF, p.slope, acc);
+      chunk_mma<C, false>(a_s, a_s + G::kAF, p.slope, acc);
     }
   };
 
   tf32x3::pipeline<G::kStages>(nz + G::kChunks, stage, compute);
 
-  for_each_pair<C, kBF16>([&](int mi, int ni, int h, int r, int col) {
+  for_each_pair<C>([&](int mi, int ni, int h, int r, int col) {
     if (t0 + r >= T) return;
     const int bit = ((mi * G::kNTW + ni) * 2 + h) * 2;
     const float d0 = (neg >> bit) & 1u ? p.slope : 1.f;
@@ -460,9 +360,9 @@ __device__ __forceinline__ float4 fold_row(const float* dz, int t, int ch, int o
 // dx = leaky'(x) * (sum_k dz[t + P - k d] . Wd[k]^T + fold) + g . Ws^T:
 // the K taps' chunks, the fold's (the same weights; only in a tile that
 // holds a row the padding folds onto), then the skip's, in one ring.
-template <int C, bool kBF16>
-__global__ void __launch_bounds__(Geo<C, kBF16>::kThreads, 1) dx_kernel(StackArgs p) {
-  using G = Geo<C, kBF16>;
+template <int C>
+__global__ void __launch_bounds__(Geo<C>::kThreads, 1) dx_kernel(StackArgs p) {
+  using G = Geo<C>;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int b = blockIdx.y, t0 = blockIdx.x * G::kM, T = p.T, P = p.pad;
@@ -481,11 +381,9 @@ __global__ void __launch_bounds__(Geo<C, kBF16>::kThreads, 1) dx_kernel(StackArg
   zero(acc);
   zero(tot);
 
-  const uint16_t* gh = kBF16 && p.gh != nullptr ? p.gh + row0 * C : nullptr;
-
   auto stage = [&](int c, int buf) {
     float* a_s = smem + buf * G::kStageF;
-    stage_weights<C, kBF16>(a_s + G::kAF, wf, c < nc ? c : c - nf);
+    stage_weights<C>(a_s + G::kAF, wf, c < nc ? c : c - nf);
     const int cc = c < nc ? c : c < nc + nf ? c - nc : c - nc - nf;
     const int tap = cc / G::kChunks, c0 = (cc % G::kChunks) * G::kKC;
     const int off = P - tap * p.dil;
@@ -497,12 +395,8 @@ __global__ void __launch_bounds__(Geo<C, kBF16>::kThreads, 1) dx_kernel(StackArg
       } else {
         const int row = c < nc ? t + off : t;
         const bool ok = row >= 0 && row < T;
-        if constexpr (kBF16) {
-          stage_piece<C>(dst, c < nc ? dz : g, c < nc ? nullptr : gh, ok ? row : -1, c0 + q);
-        } else {
-          const float* src = c < nc ? dz : g;
-          cp_async<16>(dst, ok ? src + (size_t)row * C + c0 + q : src, ok);
-        }
+        const float* src = c < nc ? dz : g;
+        cp_async<16>(dst, ok ? src + (size_t)row * C + c0 + q : src, ok);
       }
     }
   };
@@ -510,34 +404,24 @@ __global__ void __launch_bounds__(Geo<C, kBF16>::kThreads, 1) dx_kernel(StackArg
   auto compute = [&](int c, int buf) {
     const float* a_s = smem + buf * G::kStageF;
     if (c == nc + nf) {  // the conv complete: times leaky'(x)
-      for_each_pair<C, kBF16>([&](int mi, int ni, int h, int r, int col) {
+      for_each_pair<C>([&](int mi, int ni, int h, int r, int col) {
         if (t0 + r >= T) return;
-        float2 xv;
-        if (kBF16 && p.xh != nullptr) {
-          const uint32_t u = *reinterpret_cast<const uint32_t*>(p.xh + (row0 + t0 + r) * C + col);
-          xv = make_float2(bf16mma::widen(u & 0xFFFFu), bf16mma::widen(u >> 16));
-        } else {
-          xv = ld2(p.x + (row0 + t0 + r) * C + col);
-        }
+        const float2 xv = ld2(p.x + (row0 + t0 + r) * C + col);
         tot[mi][ni][2 * h] *= dleaky(xv.x, p.slope);
         tot[mi][ni][2 * h + 1] *= dleaky(xv.y, p.slope);
       });
     }
     const int part = c % G::kChunks;
     if (part == 0) zero(acc);
-    chunk_product<C, kBF16, false>(a_s, a_s + G::kAF, p.slope, acc);
+    chunk_mma<C, false>(a_s, a_s + G::kAF, p.slope, acc);
     if (part == G::kChunks - 1) add_into(tot, acc);
   };
 
   tf32x3::pipeline<G::kStages>(nc + nf + G::kChunks, stage, compute);
 
-  for_each_pair<C, kBF16>([&](int mi, int ni, int h, int r, int col) {
+  for_each_pair<C>([&](int mi, int ni, int h, int r, int col) {
     if (t0 + r >= T) return;
-    if (kBF16 && p.dxh != nullptr)
-      *reinterpret_cast<uint32_t*>(p.dxh + (row0 + t0 + r) * C + col) =
-          bf16mma::pack(tot[mi][ni][2 * h], tot[mi][ni][2 * h + 1]);
-    else
-      st2(p.dx + (row0 + t0 + r) * C + col,
+    st2(p.dx + (row0 + t0 + r) * C + col,
           make_float2(tot[mi][ni][2 * h], tot[mi][ni][2 * h + 1]));
   });
 }
@@ -584,9 +468,7 @@ struct WJob {
   float* dw[kWMaxSeg];
   float* db[2];
   int c0, nseg, act, shift0;
-  // bf16 mode: the cotangent and the sources as bf16 where these are set
-  const uint16_t* coth;
-  const uint16_t* srch[2];
+  const void* reserved[3];  // keeps a job's size, and so the kernels' parameter offsets
 };
 
 struct WArgs {
@@ -594,18 +476,14 @@ struct WArgs {
   float* part;  // (jobs, ctas, slab)
   int njobs, T, C, dil, pad, mode, ctas_per_item, ctas, slab;
   float slope;
-  float slope_x;  // the slope of the sources' LeakyReLU (act jobs)
 };
 
 // One block: kWRows rows of batch item blockIdx.y for job blockIdx.z, the
 // slab cot^T A: its row m (cotangent column c0 + m) and column n = s C +
 // ci (segment s, channel ci) at slab[n * 32 + m], the column sums at row
 // kWMaxSeg C. Warp w owns both 16-row tiles and the 8-column tiles w +
-// kWarps jj. kBF16: both operands rounded to bf16 (the cotangent as it is
-// transposed, A_s where its fragment is formed), one m16n8k16 product per
-// 16 rows, float32 totals every 32 rows; the column sums stay those of
-// the unrounded cotangent, as the JAX kernel's bias gradients.
-template <int C, bool kBF16>
+// kWarps jj.
+template <int C>
 __global__ void __launch_bounds__(WGeo<C>::kThreads, 1) wgrad_kernel(WArgs w) {
   using G = WGeo<C>;
   extern __shared__ float4 smem4[];
@@ -619,9 +497,6 @@ __global__ void __launch_bounds__(WGeo<C>::kThreads, 1) wgrad_kernel(WArgs w) {
   const int ntiles = nseg * (C / 8);
   const size_t bo = (size_t)item * T * C;
   const float* cot = jb.cot + bo + jb.c0;
-  const uint16_t* coth = kBF16 && jb.coth != nullptr ? jb.coth + bo + jb.c0 : nullptr;
-  uint16_t* cth = reinterpret_cast<uint16_t*>(th);  // bf16 mode: the cotangent, transposed
-  constexpr int kLdT16 = G::kS + 8;                 // its rows, bf16 (4 mod 32 words)
   // act: one window of kS + (nseg - 1) d rows; else nseg windows of kS rows
   const int arows = act ? G::kS + (nseg - 1) * d : G::kS, nwin = act ? 1 : nseg;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -640,67 +515,19 @@ __global__ void __launch_bounds__(WGeo<C>::kThreads, 1) wgrad_kernel(WArgs w) {
     constexpr int kP = C / 4;  // 16-byte pieces of an operand row
     for (int win = 0; win < nwin; ++win) {
       const float* src = jb.src[win] + bo;
-      const uint16_t* srch =
-          kBF16 && jb.srch[win] != nullptr ? jb.srch[win] + bo : nullptr;
       for (int e = threadIdx.x; e < arows * kP; e += G::kThreads) {
         const int q = e / kP, c4 = (e % kP) * 4;
         const int row = act ? pad_row(r0 + jb.shift0 + q, T, w.pad, w.mode)
                             : (r0 + q < T ? r0 + q : -1);
-        if constexpr (kBF16) {
-          stage_piece<C>(ra + (win * G::kS + q) * G::kLdOp + c4, src, srch, row, c4);
-        } else {
-          const bool ok = row >= 0;
-          cp_async<16>(ra + (win * G::kS + q) * G::kLdOp + c4,
-                       ok ? src + (size_t)row * C + c4 : src, ok);
-        }
+        const bool ok = row >= 0;
+        cp_async<16>(ra + (win * G::kS + q) * G::kLdOp + c4,
+                     ok ? src + (size_t)row * C + c4 : src, ok);
       }
     }
     for (int e = threadIdx.x; e < G::kS * (kWN / 4); e += G::kThreads) {
       const int r = e >> 3, c4 = (e & 7) * 4, t = r0 + r;
       const bool ok = t < te && jb.c0 + c4 < C;  // rows past the slab read as zero
-      if (kBF16 && coth != nullptr) {
-        *reinterpret_cast<float4*>(rb + r * G::kLdCot + c4) =
-            ok ? bf16mma::load4(coth + (size_t)t * C + c4) : make_float4(0.f, 0.f, 0.f, 0.f);
-      } else {
-        cp_async<16>(rb + r * G::kLdCot + c4, ok ? cot + (size_t)t * C + c4 : cot, ok);
-      }
-    }
-  };
-
-  auto compute_bf16 = [&](const float* ra) {
-#pragma unroll
-    for (int ks = 0; ks < G::kS / 16; ++ks) {
-      if (ks % 2 == 0) zero(acc);
-      // cot^T's 16-row tiles: A[m][k] = cot[row 16 ks + k][col m], k pairs
-      // in the transposed rows' words
-      uint32_t fa[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const uint32_t* pa = reinterpret_cast<const uint32_t*>(cth) +
-                             (mi * 16 + gid) * (kLdT16 / 2) + ks * 8 + tig;
-        fa[mi][0] = pa[0];
-        fa[mi][1] = pa[8 * (kLdT16 / 2)];
-        fa[mi][2] = pa[4];
-        fa[mi][3] = pa[8 * (kLdT16 / 2) + 4];
-      }
-#pragma unroll
-      for (int jj = 0; jj < G::kNTW; ++jj) {
-        const int nt = warp + G::kWarps * jj;
-        if (nt >= ntiles) break;
-        const int s = nt / (C / 8), ct = nt % (C / 8);
-        // B[k][n] = A_s[row 16 ks + k][channel 8 ct + gid], k = 2 tig (+1, +8, +9)
-        const float* pb = ra + (ks * 16 + 2 * tig + (act ? s * d : s * G::kS)) * G::kLdOp +
-                          ct * 8 + gid;
-        float v[4] = {pb[0], pb[G::kLdOp], pb[8 * G::kLdOp], pb[9 * G::kLdOp]};
-        if (act) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) v[j] = leaky(v[j], w.slope_x);
-        }
-        const uint32_t fb[2] = {bf16mma::pack(v[0], v[1]), bf16mma::pack(v[2], v[3])};
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) bf16mma::mma(acc[mi][jj], fa[mi], fb);
-      }
-      if (ks % 2 == 1) add_into(tot, acc);
+      cp_async<16>(rb + r * G::kLdCot + c4, ok ? cot + (size_t)t * C + c4 : cot, ok);
     }
   };
 
@@ -712,20 +539,12 @@ __global__ void __launch_bounds__(WGeo<C>::kThreads, 1) wgrad_kernel(WArgs w) {
       const int r = crow + G::kWarps * u;
       const float v = rb[r * G::kLdCot + ccol];
       colsum += v;
-      if constexpr (kBF16) {
-        cth[ccol * kLdT16 + r] = __bfloat16_as_ushort(__float2bfloat16_rn(v));
-      } else {
-        uint32_t hv, lv;
-        split(v, hv, lv);
-        th[ccol * G::kLdT + r] = __uint_as_float(hv);
-        tl[ccol * G::kLdT + r] = __uint_as_float(lv);
-      }
+      uint32_t hv, lv;
+      split(v, hv, lv);
+      th[ccol * G::kLdT + r] = __uint_as_float(hv);
+      tl[ccol * G::kLdT + r] = __uint_as_float(lv);
     }
     __syncthreads();
-    if constexpr (kBF16) {
-      compute_bf16(ra);
-      return;
-    }
 #pragma unroll
     for (int ks = 0; ks < G::kS / 8; ++ks) {
       if (ks % 4 == 0) zero(acc);
@@ -844,17 +663,14 @@ struct OutArgs {
   float* part;      // (ctas, slab): dW (K, C, Cout) then db (Cout) per block
   int T, C, Cout, mode, ctas_per_item, slab;
   float slope;
-  const uint16_t* dyh;  // bf16 mode: dy as bf16
 };
 
 // dpre = dy (1 - y^2) at row u of batch item b (0 outside [0, T)).
-template <bool kBF16>
 __device__ __forceinline__ float dpre_at(const OutArgs& p, size_t row0, int u, int o) {
   if (u < 0 || u >= p.T) return 0.f;
   const size_t i = (row0 + u) * p.Cout + o;
   const float yv = p.y[i];
-  const float dy = kBF16 ? bf16mma::widen(p.dyh[i]) : p.dy[i];
-  return dy * (1.f - yv * yv);
+  return p.dy[i] * (1.f - yv * yv);
 }
 
 // One block: o_rows(C) rows of one batch item. Thread (c, rg) = (tid % C,
@@ -863,13 +679,8 @@ __device__ __forceinline__ float dpre_at(const OutArgs& p, size_t row0, int u, i
 // formed once into shared memory; dx of each row from it (K x Cout
 // multiply-adds), the weight gradient from a sliding window of the
 // padded input in registers; then the row groups' gradients are summed in
-// shared memory, in a fixed order, into the block's slab. kBF16: dy is
-// bf16, and the operands of every product are rounded to bf16 (dpre,
-// leaky(x); w holds bf16 values, rounded by the caller), as the JAX
-// kernel's bf16 mode rounds them; the padding's adjoint sums the dpre rows
-// that the padded positions read before rounding (csrc/melgan_stack_bwd.cu
-// dx_kernel's fold); the bias gradient sums the unrounded dpre.
-template <int K, bool kBF16>
+// shared memory, in a fixed order, into the block's slab.
+template <int K>
 __global__ void __launch_bounds__(kOThreads) outconv_bwd_kernel(OutArgs p) {
   constexpr int P = (K - 1) / 2;
   extern __shared__ float4 smem4[];
@@ -882,7 +693,7 @@ __global__ void __launch_bounds__(kOThreads) outconv_bwd_kernel(OutArgs p) {
     float v[kOMaxCout];
 #pragma unroll
     for (int o = 0; o < kOMaxCout; ++o)
-      v[o] = o < Cout ? dpre_at<kBF16>(p, row0, t0 - P + i, o) : 0.f;
+      v[o] = o < Cout ? dpre_at(p, row0, t0 - P + i, o) : 0.f;
     dp[i] = make_float4(v[0], v[1], v[2], v[3]);
   }
   const int ngroups = kOThreads / C, c = threadIdx.x % C, rg = threadIdx.x / C;
@@ -921,72 +732,34 @@ __global__ void __launch_bounds__(kOThreads) outconv_bwd_kernel(OutArgs p) {
       float s = 0.f;
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        float4 dv = dp[t - t0 + 2 * P - k];
-        if constexpr (kBF16)
-          dv = make_float4(bf16mma::to_bf16(dv.x), bf16mma::to_bf16(dv.y),
-                           bf16mma::to_bf16(dv.z), bf16mma::to_bf16(dv.w));
+        const float4 dv = dp[t - t0 + 2 * P - k];
         s += dv.x * wr[k][0] + dv.y * wr[k][1] + dv.z * wr[k][2] + dv.w * wr[k][3];
       }
       // the padding's adjoint: the padded positions folded onto row t
-      if constexpr (kBF16) {
-        // per tap, the sum of the dpre rows that the positions folded onto
-        // t read, rounded once
-        auto fold = [&](int k, int o) {
-          float v = 0.f;
-          if (P > 0 && p.mode == kReflect) {
-            if (t >= 1 && t <= P) v += dpre_at<true>(p, row0, -t + P - k, o);
-            if (t >= T - 1 - P && t <= T - 2) v += dpre_at<true>(p, row0, 2 * T - 2 - t + P - k, o);
-          } else if (P > 0 && p.mode == kEdge) {
-            if (t == 0)
-              for (int j = 1; j <= P; ++j) v += dpre_at<true>(p, row0, -j + P - k, o);
-            if (t == T - 1)
-              for (int j = 0; j < P; ++j) v += dpre_at<true>(p, row0, T + j + P - k, o);
-          }
-          return bf16mma::to_bf16(v);
-        };
-        const bool folds = P > 0 && ((p.mode == kReflect && ((t >= 1 && t <= P) ||
-                                                             (t >= T - 1 - P && t <= T - 2))) ||
-                                     (p.mode == kEdge && (t == 0 || t == T - 1)));
-        if (folds) {
-          float v = 0.f;
+      auto tconv = [&](int q) {
+        float v = 0.f;
 #pragma unroll
-          for (int k = 0; k < K; ++k)
+        for (int k = 0; k < K; ++k)
 #pragma unroll
-            for (int o = 0; o < kOMaxCout; ++o)
-              if (o < Cout) v += fold(k, o) * wr[k][o];
-          s += v;
-        }
-      } else {
-        auto tconv = [&](int q) {
-          float v = 0.f;
-#pragma unroll
-          for (int k = 0; k < K; ++k)
-#pragma unroll
-            for (int o = 0; o < kOMaxCout; ++o)
-              if (o < Cout) v += dpre_at<false>(p, row0, q + P - k, o) * wr[k][o];
-          return v;
-        };
-        if (P > 0 && p.mode == kReflect) {
-          if (t >= 1 && t <= P) s += tconv(-t);
-          if (t >= T - 1 - P && t <= T - 2) s += tconv(2 * T - 2 - t);
-        } else if (P > 0 && p.mode == kEdge) {
-          if (t == 0)
-            for (int j = 1; j <= P; ++j) s += tconv(-j);
-          if (t == T - 1)
-            for (int j = 0; j < P; ++j) s += tconv(T + j);
-        }
+          for (int o = 0; o < kOMaxCout; ++o)
+            if (o < Cout) v += dpre_at(p, row0, q + P - k, o) * wr[k][o];
+        return v;
+      };
+      if (P > 0 && p.mode == kReflect) {
+        if (t >= 1 && t <= P) s += tconv(-t);
+        if (t >= T - 1 - P && t <= T - 2) s += tconv(2 * T - 2 - t);
+      } else if (P > 0 && p.mode == kEdge) {
+        if (t == 0)
+          for (int j = 1; j <= P; ++j) s += tconv(-j);
+        if (t == T - 1)
+          for (int j = 0; j < P; ++j) s += tconv(T + j);
       }
       p.dx[(row0 + t) * C + c] = dleaky(win[P], p.slope) * s;
       const float4 dv = dp[t - t0 + P];
-      float dvo[kOMaxCout] = {dv.x, dv.y, dv.z, dv.w};
-      if constexpr (kBF16) {
-#pragma unroll
-        for (int o = 0; o < kOMaxCout; ++o) dvo[o] = bf16mma::to_bf16(dvo[o]);
-      }
+      const float dvo[kOMaxCout] = {dv.x, dv.y, dv.z, dv.w};
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        float a = leaky(win[k], p.slope);
-        if constexpr (kBF16) a = bf16mma::to_bf16(a);
+        const float a = leaky(win[k], p.slope);
 #pragma unroll
         for (int o = 0; o < kOMaxCout; ++o) gw[k][o] += a * dvo[o];
       }
@@ -1055,35 +828,35 @@ long long stack_part_floats(int B, int T, int C, int K, int dil) {
   return (long long)count_jobs(C, K, dil) * ctas * w_slab(C);
 }
 
-template <int C, bool kBF16>
+template <int C>
 cudaError_t launch_stack(const StackArgs& p, WArgs& w, int B, cudaStream_t s) {
-  using G = Geo<C, kBF16>;
+  using G = Geo<C>;
   using WG = WGeo<C>;
-  cudaError_t e = set_smem(dz_kernel<C, kBF16>, G::kSmem);
-  if (e == cudaSuccess) e = set_smem(dx_kernel<C, kBF16>, G::kSmem);
-  if (e == cudaSuccess) e = set_smem(wgrad_kernel<C, kBF16>, WG::kSmem);
+  cudaError_t e = set_smem(dz_kernel<C>, G::kSmem);
+  if (e == cudaSuccess) e = set_smem(dx_kernel<C>, G::kSmem);
+  if (e == cudaSuccess) e = set_smem(wgrad_kernel<C>, WG::kSmem);
   if (e != cudaSuccess) return e;
   const dim3 grid((p.T + G::kM - 1) / G::kM, B);
-  dz_kernel<C, kBF16><<<grid, G::kThreads, G::kSmem, s>>>(p);
+  dz_kernel<C><<<grid, G::kThreads, G::kSmem, s>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  wgrad_kernel<C, kBF16><<<dim3(w.ctas_per_item, B, w.njobs), WG::kThreads, WG::kSmem, s>>>(w);
+  wgrad_kernel<C><<<dim3(w.ctas_per_item, B, w.njobs), WG::kThreads, WG::kSmem, s>>>(w);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   wgrad_reduce_kernel<<<dim3((w.slab + kRThreads - 1) / kRThreads, w.njobs),
                         kRThreads, 0, s>>>(w);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  dx_kernel<C, kBF16><<<grid, G::kThreads, G::kSmem, s>>>(p);
+  dx_kernel<C><<<grid, G::kThreads, G::kSmem, s>>>(p);
   return cudaGetLastError();
 }
 
-template <int K, bool kBF16>
+template <int K>
 cudaError_t launch_outconv(const OutArgs& p, int B, float* dw, float* db, cudaStream_t s) {
   const size_t smem = out_smem(p.C, K);
-  cudaError_t e = set_smem(outconv_bwd_kernel<K, kBF16>, smem);
+  cudaError_t e = set_smem(outconv_bwd_kernel<K>, smem);
   if (e != cudaSuccess) return e;
-  outconv_bwd_kernel<K, kBF16><<<dim3(p.ctas_per_item, B), kOThreads, smem, s>>>(p);
+  outconv_bwd_kernel<K><<<dim3(p.ctas_per_item, B), kOThreads, smem, s>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int nw = K * p.C * p.Cout;
@@ -1097,7 +870,6 @@ long long melgan_outconv_bwd_part_floats_(int B, int T, int C, int Cout, int K) 
   return (long long)B * ((T + o_rows(C) - 1) / o_rows(C)) * (K * C * Cout + Cout);
 }
 
-template <bool kBF16>
 int stack_bwd(const StackArgs& p, float* part, float* dwd, float* dbd, float* dw1, float* db1,
               float* dws, float* dbs, long long part_floats, int B, int C, int device,
               void* stream) {
@@ -1117,7 +889,6 @@ int stack_bwd(const StackArgs& p, float* part, float* dwd, float* dbd, float* dw
   w.pad = p.pad;
   w.mode = p.mode;
   w.slope = p.slope;
-  w.slope_x = p.slope_x;
   w.ctas_per_item = (T + kWRows - 1) / kWRows;
   w.ctas = B * w.ctas_per_item;
   w.slab = w_slab(C);
@@ -1127,28 +898,25 @@ int stack_bwd(const StackArgs& p, float* part, float* dwd, float* dbd, float* dw
       n = tap_group(k, K, dil, C);
       WJob& jb = w.job[j++];
       jb = WJob{p.dz, {p.x, nullptr}, {nullptr, nullptr, nullptr},
-                {k == 0 ? dbd : nullptr, nullptr}, c0, n, 1, k * dil - p.pad,
-                nullptr, {p.xh, nullptr}};
+                {k == 0 ? dbd : nullptr, nullptr}, c0, n, 1, k * dil - p.pad};
       for (int i = 0; i < n; ++i) jb.dw[i] = dwd + (size_t)(k + i) * C * C;
     }
-    w.job[j++] = WJob{p.g, {p.h, p.x}, {dw1, dws, nullptr}, {db1, dbs}, c0, 2, 0, 0,
-                      p.gh, {nullptr, p.xh}};
+    w.job[j++] = WJob{p.g, {p.h, p.x}, {dw1, dws, nullptr}, {db1, dbs}, c0, 2, 0, 0};
   }
   w.njobs = j;
 
   switch (C) {
-    case 16: return launch_stack<16, kBF16>(p, w, B, s);
-    case 32: return launch_stack<32, kBF16>(p, w, B, s);
-    case 48: return launch_stack<48, kBF16>(p, w, B, s);
-    case 64: return launch_stack<64, kBF16>(p, w, B, s);
-    case 80: return launch_stack<80, kBF16>(p, w, B, s);
-    case 96: return launch_stack<96, kBF16>(p, w, B, s);
-    case 112: return launch_stack<112, kBF16>(p, w, B, s);
-    default: return launch_stack<128, kBF16>(p, w, B, s);
+    case 16: return launch_stack<16>(p, w, B, s);
+    case 32: return launch_stack<32>(p, w, B, s);
+    case 48: return launch_stack<48>(p, w, B, s);
+    case 64: return launch_stack<64>(p, w, B, s);
+    case 80: return launch_stack<80>(p, w, B, s);
+    case 96: return launch_stack<96>(p, w, B, s);
+    case 112: return launch_stack<112>(p, w, B, s);
+    default: return launch_stack<128>(p, w, B, s);
   }
 }
 
-template <bool kBF16>
 int outconv_bwd(const OutArgs& p, float* dw, float* db, long long part_floats, int B, int K,
                 int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
@@ -1158,10 +926,10 @@ int outconv_bwd(const OutArgs& p, float* dw, float* db, long long part_floats, i
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (K) {
-    case 1: return launch_outconv<1, kBF16>(p, B, dw, db, s);
-    case 3: return launch_outconv<3, kBF16>(p, B, dw, db, s);
-    case 5: return launch_outconv<5, kBF16>(p, B, dw, db, s);
-    default: return launch_outconv<7, kBF16>(p, B, dw, db, s);
+    case 1: return launch_outconv<1>(p, B, dw, db, s);
+    case 3: return launch_outconv<3>(p, B, dw, db, s);
+    case 5: return launch_outconv<5>(p, B, dw, db, s);
+    default: return launch_outconv<7>(p, B, dw, db, s);
   }
 }
 
@@ -1198,39 +966,9 @@ int melgan_stack_bwd(const float* x, const float* g, float* dx, float* dz, float
                      float* dbd, float* dw1, float* db1, float* dws, float* dbs,
                      long long part_floats, int B, int T, int C, int K, int dil,
                      int mode, float slope, int device, void* stream) {
-  const StackArgs p{x, g, wf, bd, dz, h, dx, T, K, dil, (K - 1) / 2 * dil, mode, slope,
-                    nullptr, nullptr, nullptr, slope};
-  return stack_bwd<false>(p, part, dwd, dbd, dw1, db1, dws, dbs, part_floats, B, C,
+  const StackArgs p{x, g, wf, bd, dz, h, dx, T, K, dil, (K - 1) / 2 * dil, mode, slope};
+  return stack_bwd(p, part, dwd, dbd, dw1, db1, dws, dbs, part_floats, B, C,
                           device, stream);
-}
-
-// melgan_stack_bwd in the JAX kernel's bf16-resident mode: every product
-// one bf16 mma.sync per 16-deep k-step into float32, its operands rounded
-// to bf16 where JAX casts them (the padded leaky(x) and dz of dWd and of
-// the transposed conv, with the padding's adjoint summed first; leaky(z),
-// x and g of dW1, dWs, dh and g . Ws^T); z, dz, h, the sums and the bias
-// gradients in float32. x and dx are bf16 where x_bf16 is set (the stage's
-// input and its gradient; x's LeakyReLU then multiplies by slope_x), else
-// float32; g is bf16 where g_bf16 is set (the stage's output cotangent),
-// else float32. wf holds the 2K + 2 matrices in bf16 in the mma fragments'
-// order (ops/kernels/mma_bf16.py stack_fragments, (2K + 2, C / 16, C / 8,
-// 32, 4)). Everything else as melgan_stack_bwd.
-int melgan_stack_bwd_bf16(const void* x, const void* g, void* dx, float* dz, float* h,
-                          float* part, const void* wf, const float* bd, float* dwd,
-                          float* dbd, float* dw1, float* db1, float* dws, float* dbs,
-                          long long part_floats, int B, int T, int C, int K, int dil,
-                          int mode, float slope, float slope_x, int x_bf16, int g_bf16,
-                          int device, void* stream) {
-  const StackArgs p{x_bf16 ? nullptr : static_cast<const float*>(x),
-                    g_bf16 ? nullptr : static_cast<const float*>(g),
-                    static_cast<const float*>(wf), bd, dz, h,
-                    x_bf16 ? nullptr : static_cast<float*>(dx), T, K, dil,
-                    (K - 1) / 2 * dil, mode, slope,
-                    x_bf16 ? static_cast<const uint16_t*>(x) : nullptr,
-                    g_bf16 ? static_cast<const uint16_t*>(g) : nullptr,
-                    x_bf16 ? static_cast<uint16_t*>(dx) : nullptr, slope_x};
-  return stack_bwd<true>(p, part, dwd, dbd, dw1, db1, dws, dbs, part_floats, B, C, device,
-                         stream);
 }
 
 // The backward of the trailing leaky -> K-tap conv (C -> Cout) -> tanh: x
@@ -1244,22 +982,8 @@ int melgan_outconv_bwd(const float* x, const float* y, const float* dy, float* d
                        int mode, float slope, int device, void* stream) {
   const int rows = o_rows(C);
   const OutArgs p{x, y, dy, w, dx, part, T, C, Cout, mode, (T + rows - 1) / rows,
-                  K * C * Cout + Cout, slope, nullptr};
-  return outconv_bwd<false>(p, dw, db, part_floats, B, K, device, stream);
-}
-
-// melgan_outconv_bwd in the bf16-resident mode: dy bf16 (the stage's output
-// cotangent), x and y float32 (K6's re-run writes the unrounded tanh), w
-// holding bf16 values (rounded by the caller); the products' operands
-// rounded to bf16 (outconv_bwd_kernel), dx float32 (the chain).
-int melgan_outconv_bwd_bf16(const float* x, const float* y, const void* dy, float* dx,
-                            float* part, const float* w, float* dw, float* db,
-                            long long part_floats, int B, int T, int C, int Cout, int K,
-                            int mode, float slope, int device, void* stream) {
-  const int rows = o_rows(C);
-  const OutArgs p{x, y, nullptr, w, dx, part, T, C, Cout, mode, (T + rows - 1) / rows,
-                  K * C * Cout + Cout, slope, static_cast<const uint16_t*>(dy)};
-  return outconv_bwd<true>(p, dw, db, part_floats, B, K, device, stream);
+                  K * C * Cout + Cout, slope};
+  return outconv_bwd(p, dw, db, part_floats, B, K, device, stream);
 }
 
 }  // extern "C"

@@ -31,6 +31,14 @@
 //    of 64 n values (128 bytes each) form a 1024-byte atom, the chunk c of
 //    row r at c ^ r; the leading byte offset steps to the next 64 n, the
 //    stride byte offset to the next 8 k.
+//  - No swizzle (desc_inter, layout 0), either major: B is cut into core
+//    matrices of 8 x 8 values, each 128 contiguous bytes of 8 rows of 16
+//    bytes (K-major: a row is one n's 8 k values; MN-major: one k's 8 n
+//    values), placed anywhere 16-byte aligned; the two byte offsets give
+//    the step to the next core matrix along K and along N. Which offset
+//    field takes which step in each major is what
+//    ops/kernels/probe_melgan_bf16.py measures on the card; the kernels
+//    that use it (csrc/melgan_bf16.cuh) take the answer from there.
 //
 // Everything here has internal linkage: each source that includes it gets
 // its own copy.
@@ -152,6 +160,12 @@ __device__ __forceinline__ uint64_t desc_mn_sw128(uint32_t addr, uint32_t lbo, u
          ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
 }
 
+// no swizzle: lbo and sbo in bytes (multiples of 16)
+__device__ __forceinline__ uint64_t desc_inter(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
 __device__ __forceinline__ void fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -193,6 +207,43 @@ __device__ __forceinline__ void m64n64k16(float (&d)[32], const uint32_t (&a)[4]
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate),
+        "n"(kTransB));
+}
+
+// d (+)= a . B as m64n64k16 does, B 16 x 16 (d: 8 floats)
+template <int kTransB>
+__device__ __forceinline__ void m64n16k16(float (&d)[8], const uint32_t (&a)[4], uint64_t desc_b,
+                                          int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate),
+        "n"(kTransB));
+}
+
+// d (+)= a . B as m64n64k16 does, B 16 x 32 (d: 16 floats)
+template <int kTransB>
+__device__ __forceinline__ void m64n32k16(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b,
+                                          int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate),
         "n"(kTransB));
 }

@@ -32,8 +32,9 @@ A bf16 x runs the JAX kernel's bf16-resident mode (``mxu_bf16``,
 melgan_stack.py:302-326): every product's operands rounded to bf16 (the
 padded leaky(x), leaky(z), x; the weights), float32 sums, z and the chain
 between stacks in float32, the stage's output bf16. Its plain version is
-``melgan_stacks_reference_bf16``; on the card the kernel's bf16 mode
-(weights rounded once into bf16 fragments, ``mma_bf16``). A bf16 x on the
+``melgan_stacks_reference_bf16``; on the card the hand-written bf16 kernel
+(csrc/melgan_stack_bf16.cu, on Hopper's warpgroup products, the weights
+rounded once into its tiles by ``mma_bf16.stack_wgmma``). A bf16 x on the
 card never reaches the float32 kernel or a plain version. The weights may
 be float32 or bf16 (rounded either way); the biases are added in float32.
 """
@@ -301,26 +302,71 @@ def with_fragments(stacks):
     return [dict(st, frag=f, biases=bb) for st, f, bb in zip(stacks, frags, biases)]
 
 
+def _tiles_cuda(stacks) -> tuple:
+    """``kernel_weights_bf16`` on the card: one ``melgan_stack_tiles_bf16``
+    call (a launch per 16 stacks) writes every stack's tiles into one
+    tensor and its biases into another; the stacks' views of them. The
+    weights are checked by the caller; all of them are read in the first
+    one's type, the biases in the first bias's (a value of another type is
+    cast first, which rounds it as the tiles would). A training forward
+    calls this once per stage: its host time is kept to a few tensor ops."""
+    wd0 = stacks[0]["wd"]
+    c, n, device = wd0.shape[-1], len(stacks), wd0.device
+    mats = [st[k] for st in stacks for k in ("wd", "w1", "ws")]
+    if not all(m.dtype == wd0.dtype and m.is_contiguous() for m in mats):
+        mats = [m.detach().to(wd0.dtype).contiguous() for m in mats]
+    vecs = [st[k] for st in stacks for k in ("bd", "b1", "bs")]
+    given = [v for v in vecs if v is not None]
+    b_dtype = given[0].dtype if given else torch.float32
+    if not all(v.dtype == b_dtype and v.is_contiguous() for v in given):
+        vecs = [None if v is None else v.detach().to(b_dtype).contiguous() for v in vecs]
+    ptrs = [t.data_ptr() if t is not None else 0
+            for i in range(n) for t in (*mats[3 * i:3 * i + 3], *vecs[3 * i:3 * i + 3])]
+    ks = [st["wd"].shape[0] for st in stacks]
+    if len(set(ks)) == 1:
+        tiles = torch.empty((n, ks[0] + 2, c * c), dtype=torch.bfloat16, device=device)
+        views = tiles.unbind()
+    else:
+        tiles = torch.empty(sum(k + 2 for k in ks) * c * c, dtype=torch.bfloat16, device=device)
+        views = [v.view(k + 2, c * c) for v, k in zip(tiles.split([(k + 2) * c * c for k in ks]),
+                                                      ks)]
+    biases = torch.empty((n, 3, c), device=device)
+    lib = build.load()
+    dev, stream = build.launch_target(wd0)
+    lib.call("melgan_stack_tiles_bf16", n, (ctypes.c_void_p * len(ptrs))(*ptrs),
+             (ctypes.c_int * n)(*ks), tiles.data_ptr(), biases.data_ptr(), c,
+             int(wd0.dtype == torch.bfloat16), int(b_dtype == torch.bfloat16), dev, stream)
+    kernel_weights_bf16.launches += (n + 15) // 16
+    return list(views), list(biases.unbind())
+
+
 def kernel_weights_bf16(stacks) -> tuple:
-    """(fragments, biases): what the bf16 mode reads of each stack, its
-    weights rounded to bf16 in the mma fragments' order
-    (``mma_bf16.stack_forward_fragments``, (K + 2, C / 16, C / 8, 32, 4))
-    and its biases as one float32 (3, C) tensor; made once for all the
-    stacks, in PyTorch on either device."""
-    return mma_bf16.stack_forward_fragments(stacks), _packed_biases(stacks)
+    """(tiles, biases): what the bf16 mode reads of each stack, its weights
+    rounded to bf16 in the kernels' tiles ((K + 2, C * C), which K7 reads
+    too) and its biases as one float32 (3, C) tensor, zeros for a missing
+    one; made once for all the stacks: on the card by the layout kernel
+    (``.launches`` counts its launches), on the CPU by its plain version
+    (``mma_bf16.stack_wgmma`` and a stack of the biases)."""
+    if not stacks or stacks[0]["wd"].device.type == "cpu":
+        return mma_bf16.stack_wgmma(stacks), _packed_biases(stacks)
+    return _tiles_cuda(stacks)
+
+
+kernel_weights_bf16.launches = 0
 
 
 def _run_cuda_bf16(x, stacks, final, slope: float, pad_mode: str, outs=None,
                    split=None, keep_f32: bool = False):
-    """``_run_cuda``'s bf16-resident mode: x bf16; the chain between the
-    launches float32 (as the JAX kernel keeps it); the stage's output bf16,
-    or float32 with ``keep_f32`` (K7's re-run, whose backward reads the
-    unrounded values). ``split`` is ``kernel_weights_bf16(stacks)``."""
+    """``_run_cuda``'s bf16-resident mode (csrc/melgan_stack_bf16.cu): x
+    bf16; the chain between the launches float32 (as the JAX kernel keeps
+    it); the stage's output bf16, or float32 with ``keep_f32`` (K7's
+    re-run, whose backward reads the unrounded values). ``split`` is
+    ``kernel_weights_bf16(stacks)``, made here when not given."""
     lib = build.load()
     dev, stream = build.launch_target(x)
     mode = _MODES[pad_mode][1]
     b, t, c = x.shape
-    frags, biases = kernel_weights_bf16(stacks) if split is None else split
+    tiles, biases = kernel_weights_bf16(stacks) if split is None else split
     last = len(stacks) - 1
     n_bufs = len(stacks) if outs is not None else min(2, len(stacks))
     bufs = [torch.empty(x.shape, device=x.device) for _ in range(n_bufs)]
@@ -328,7 +374,7 @@ def _run_cuda_bf16(x, stacks, final, slope: float, pad_mode: str, outs=None,
     for i, st in enumerate(stacks):
         out_bf16 = i == last and final is None and not keep_f32
         dst = torch.empty_like(x) if out_bf16 else bufs[i % n_bufs]
-        lib.call("melgan_stack_bf16", src.data_ptr(), dst.data_ptr(), frags[i].data_ptr(),
+        lib.call("melgan_stack_bf16", src.data_ptr(), dst.data_ptr(), tiles[i].data_ptr(),
                  biases[i].data_ptr(), b, t, c, st["wd"].shape[0], int(st["dilation"]),
                  mode, slope, slope_x if i == 0 else slope, int(i == 0), int(out_bf16),
                  dev, stream)

@@ -38,15 +38,18 @@ comes back bf16 and every weight gradient in its weight's type, as
 JAX's ``_core_bwd`` casts them (:363-371). Its plain version is
 ``melgan_stacks_backward_reference_bf16``, written with its own roundings
 (JAX's backward rounds dz and the weights again, which autograd of the
-bf16 forward would not); on the card K7's bf16 mode. The padding's
-adjoint, which JAX leaves to its XLA twin on the edge windows, sums the
-cotangent rows that the padded positions read in float32 and rounds the
-sum once, per tap, as one more operand row of the transposed conv.
+bf16 forward would not); on the card the hand-written bf16 kernels
+(csrc/melgan_stack_bwd_bf16.cu, on Hopper's warpgroup products, reading
+the tiles that the forward laid out for K6, ``ctx.split``). Every reader
+of h, dz and the cotangent between stacks rounds it to bf16 first, so the
+kernels store them as bf16, each with the float32 column sums of its
+unrounded rows (the bias gradients). The padding's adjoint, which JAX
+leaves to its XLA twin on the edge windows, sums the cotangent rows that
+the padded positions read in float32 and rounds the sum once, per tap, as
+one more operand row of the transposed conv.
 """
 
 from __future__ import annotations
-
-import functools
 
 import torch
 import torch.nn.functional as F
@@ -241,25 +244,19 @@ def melgan_stacks_backward(x, stacks, final, slope, pad_mode, dy, fwd_split=None
 def _backward_cuda(x, stacks, final, slope, pad_mode, dy, fwd_split):
     """K7 on the card (``melgan_stacks_backward``'s inputs, checked): K6
     re-runs the stage from x, keeping every stack's input and, with the
-    final conv, its output y (float32 in the bf16 mode: its backward reads
-    the unrounded values); then one ``melgan_outconv_bwd`` call and one
-    ``melgan_stack_bwd`` call per stack in reverse, or their ``_bf16``
-    forms for a bf16 x (the weights rounded once into bf16 fragments,
-    the stage's dx bf16)."""
-    bf16 = x.dtype == torch.bfloat16
+    final conv, its output y; then one ``melgan_outconv_bwd`` call and one
+    ``melgan_stack_bwd`` call per stack in reverse. A bf16 x goes to
+    ``_backward_bf16``."""
+    if x.dtype == torch.bfloat16:
+        return _backward_bf16(x, stacks, final, slope, pad_mode, dy, fwd_split)
     b, t, c = x.shape
     out_ch = c if final is None else final[0].shape[-1]
     xs = [x]
-    if bf16:
-        split = kernel_weights_bf16(stacks) if fwd_split is None else fwd_split
-        rerun = functools.partial(_run_cuda_bf16, keep_f32=True)
-    else:
-        split = kernel_weights(stacks) if fwd_split is None else fwd_split
-        rerun = _run_cuda
+    split = kernel_weights(stacks) if fwd_split is None else fwd_split
     if final is None:
-        rerun(x, stacks[:-1], None, slope, pad_mode, xs, (split[0][:-1], split[1][:-1]))
+        _run_cuda(x, stacks[:-1], None, slope, pad_mode, xs, (split[0][:-1], split[1][:-1]))
     else:
-        y = rerun(x, stacks, final, slope, pad_mode, xs, split)
+        y = _run_cuda(x, stacks, final, slope, pad_mode, xs, split)
     lib = build.load()
     dev, stream = build.launch_target(x)
     mode = _MODES[pad_mode][1]
@@ -273,44 +270,145 @@ def _backward_cuda(x, stacks, final, slope, pad_mode, dy, fwd_split):
         raise ValueError(f"(B, T, C) = ({b}, {t}, {c}) needs too large a partial buffer")
     n_part = max(queries)
     part = torch.empty(n_part, device=x.device)
-    bufs = [torch.empty(x.shape, device=x.device) for _ in range(2)]
-    suffix = "_bf16" if bf16 else ""
+    bufs = [torch.empty_like(x) for _ in range(2)]
     g, n_out = dy, 0
     dfinal = None
     if final is not None:
         fw, fb = final
         dw, db = torch.empty(fw.shape, device=x.device), torch.empty(out_ch, device=x.device)
-        w = _bf(fw.detach()).contiguous() if bf16 else fw  # held until the launch is queued
-        lib.call("melgan_outconv_bwd" + suffix, xs[-1].data_ptr(), y.data_ptr(),
-                 dy.data_ptr(), bufs[0].data_ptr(), part.data_ptr(), w.data_ptr(),
+        lib.call("melgan_outconv_bwd", xs[-1].data_ptr(), y.data_ptr(),
+                 dy.data_ptr(), bufs[0].data_ptr(), part.data_ptr(), fw.data_ptr(),
                  dw.data_ptr(), db.data_ptr(), n_part, b, t, c, out_ch, kf, mode,
                  slope, dev, stream)
-        _count(c, bf16)
+        _count(c, False)
         g, n_out = bufs[0], 1
         dfinal = (dw, None if fb is None else db)
-    dz, h = torch.empty(x.shape, device=x.device), torch.empty(x.shape, device=x.device)
-    frags = (mma_bf16.stack_fragments if bf16 else stack_fragments)(stacks) if stacks else []
+    dz, h = torch.empty_like(x), torch.empty_like(x)
+    frags = stack_fragments(stacks) if stacks else []
     dstacks = [None] * len(stacks)
     for i in reversed(range(len(stacks))):
         st = stacks[i]
-        # the stage's dx in x's type; the stacks' between in float32
-        dst = torch.empty_like(x) if bf16 and i == 0 else bufs[n_out % 2]
-        d = {k: torch.empty(st[k].shape, device=x.device) for k in ("wd", "w1", "ws")}
-        d.update({k: torch.empty(c, device=x.device) for k in ("bd", "b1", "bs")})
+        dst = bufs[n_out % 2]
+        d = _grad_buffers(st, c, x.device)
         bd = _bias(_f32(st["bd"]), c, dz).detach().contiguous()
-        # the bf16 mode: x's LeakyReLU slope and whether x and g are bf16
-        extra = ((mma_bf16.slope_of(slope) if i == 0 else slope, int(i == 0),
-                  int(g is dy)) if bf16 else ())
-        lib.call("melgan_stack_bwd" + suffix, xs[i].data_ptr(), g.data_ptr(),
+        lib.call("melgan_stack_bwd", xs[i].data_ptr(), g.data_ptr(),
                  dst.data_ptr(), dz.data_ptr(), h.data_ptr(), part.data_ptr(),
                  frags[i].data_ptr(), bd.data_ptr(),
                  *(d[k].data_ptr() for k in STACK_KEYS), n_part, b, t, c,
-                 st["wd"].shape[0], int(st["dilation"]), mode, slope, *extra, dev, stream)
-        _count(c, bf16)
-        dstacks[i] = {k: None if k[0] == "b" and st[k] is None else d[k]
-                      for k in STACK_KEYS}
+                 st["wd"].shape[0], int(st["dilation"]), mode, slope, dev, stream)
+        _count(c, False)
+        dstacks[i] = _stack_grads(st, d)
         g, n_out = dst, n_out + 1
     return g, dstacks, dfinal
+
+
+def _grad_buffers(st, c: int, device) -> dict:
+    d = {k: torch.empty(st[k].shape, device=device) for k in ("wd", "w1", "ws")}
+    d.update({k: torch.empty(c, device=device) for k in ("bd", "b1", "bs")})
+    return d
+
+
+def _stack_grads(st, d) -> dict:
+    return {k: None if k[0] == "b" and st[k] is None else d[k] for k in STACK_KEYS}
+
+
+def _backward_bf16(x, stacks, final, slope, pad_mode, dy, fwd_split):
+    """K7's bf16-resident mode on the card (csrc/melgan_stack_bwd_bf16.cu):
+    K6's bf16 mode re-runs the stage from x on the forward's tiles
+    (``fwd_split``, ``melgan_stack.kernel_weights_bf16``; made here when not
+    given), keeping every stack's input and the final conv's output in
+    float32; then one ``melgan_outconv_bwd_bf16`` call and one
+    ``melgan_stack_bwd_bf16`` call per stack in reverse, on the same tiles.
+    The cotangent between them is bf16 with the float32 column sums of its
+    unrounded rows per tile (``gsum``; the stage's dy has none: the first
+    stack's call sums it); the stage's dx is bf16."""
+    b, t, c = x.shape
+    out_ch = c if final is None else final[0].shape[-1]
+    tiles, biases = kernel_weights_bf16(stacks) if fwd_split is None else fwd_split
+    xs = [x]
+    if final is None:
+        _run_cuda_bf16(x, stacks[:-1], None, slope, pad_mode, xs, (tiles[:-1], biases[:-1]),
+                       keep_f32=True)
+    else:
+        y = _run_cuda_bf16(x, stacks, final, slope, pad_mode, xs, (tiles, biases),
+                           keep_f32=True)
+    lib = build.load()
+    dev, stream = build.launch_target(x)
+    mode = _MODES[pad_mode][1]
+    queries = [lib.query("melgan_stack_bwd_bf16_part_floats", b, t, c, st["wd"].shape[0],
+                         int(st["dilation"])) for st in stacks]
+    if final is not None:
+        kf = final[0].shape[0]
+        queries.append(lib.query("melgan_outconv_bwd_bf16_part_floats", b, t, c, out_ch, kf))
+    if min(queries) < 0:
+        raise ValueError(f"(B, T, C) = ({b}, {t}, {c}) needs too large a partial buffer")
+    n_part = max(queries)
+    rows = lib.query("melgan_bf16_sum_rows", b, t, c, 0)
+    rows_f = lib.query("melgan_bf16_sum_rows", b, t, c, 1) if final is not None else 0
+    # float32 scratch in one piece: the kernels' partial buffer, two sets of
+    # the stacks' column sums (in turn) and the final conv's
+    part, *sums = torch.empty(n_part + (2 * rows + rows_f) * c, device=x.device).split(
+        [n_part, rows * c, rows * c, rows_f * c])
+    sums = [v.view(-1, c) for v in sums]
+    cot = [torch.empty_like(x) for _ in range(2)]  # bf16 cotangents, in turn
+    grads = _grad_views(stacks, final, x.device)
+    g, gsum, gsum_rows = dy, None, 0
+    dfinal = None
+    if final is not None:
+        fw, fb = final
+        dw, db = grads[-1]
+        w = _bf(fw.detach()).contiguous()  # held until the launch is queued
+        g, gsum, gsum_rows = cot[0], sums[2], rows_f
+        lib.call("melgan_outconv_bwd_bf16", xs[-1].data_ptr(), y.data_ptr(), dy.data_ptr(),
+                 g.data_ptr(), gsum.data_ptr(), part.data_ptr(), w.data_ptr(), dw.data_ptr(),
+                 db.data_ptr(), n_part, b, t, c, out_ch, kf, mode, slope, dev, stream)
+        _count(c, True)
+        dfinal = (dw, None if fb is None else db)
+    # bf16 scratch in one piece: dz, h = leaky(z), and the weight gradients'
+    # operands bf16(leaky(x)) and bf16(x)
+    dz, h, xl, xb = torch.empty((4, b, t, c), device=x.device, dtype=x.dtype).unbind()
+    # x's signs for dx, a byte per 8 channels, the rows rounded up to the
+    # kernels' 128-row tiles
+    xsign = torch.empty(b * -(-t // 128) * 128 * c // 8, device=x.device, dtype=torch.uint8)
+    slope_x = mma_bf16.slope_of(slope)
+    dstacks = [None] * len(stacks)
+    for i in reversed(range(len(stacks))):
+        st = stacks[i]
+        dst = cot[1] if g is cot[0] else cot[0]
+        dxsum = None if i == 0 else sums[1] if gsum is sums[0] else sums[0]
+        d = grads[i]
+        lib.call("melgan_stack_bwd_bf16", xs[i].data_ptr(), g.data_ptr(),
+                 None if gsum is None else gsum.data_ptr(), gsum_rows, dst.data_ptr(),
+                 None if dxsum is None else dxsum.data_ptr(), dz.data_ptr(), h.data_ptr(),
+                 xl.data_ptr(), xb.data_ptr(), xsign.data_ptr(), part.data_ptr(), n_part,
+                 tiles[i].data_ptr(),
+                 biases[i][0].data_ptr(), *(d[k].data_ptr() for k in STACK_KEYS), b, t, c,
+                 st["wd"].shape[0], int(st["dilation"]), mode, slope,
+                 slope_x if i == 0 else slope, int(i == 0), dev, stream)
+        _count(c, True)
+        dstacks[i] = _stack_grads(st, d)
+        g, gsum, gsum_rows = dst, dxsum, rows
+    return g, dstacks, dfinal
+
+
+def _grad_views(stacks, final, device) -> list:
+    """Every stack's gradient buffers ({key: tensor}, as ``_grad_buffers``)
+    and then, with ``final``, the final conv's (dw, db), in a few
+    allocations: one per kind of weight where the stacks' kernel sizes
+    agree (the views by ``unbind``, one op each)."""
+    if len({st["wd"].shape for st in stacks}) > 1:
+        out = [_grad_buffers(st, st["wd"].shape[-1], device) for st in stacks]
+    else:
+        n = len(stacks)
+        k, c = stacks[0]["wd"].shape[0], stacks[0]["wd"].shape[-1]
+        wd = torch.empty((n, k, c, c), device=device).unbind()
+        w1, ws = torch.empty((2, n, 1, c, c), device=device).unbind()
+        bd, b1, bs = torch.empty((3, n, c), device=device).unbind()
+        out = [dict(zip(STACK_KEYS, v)) for v in zip(wd, bd, w1.unbind(), b1, ws.unbind(), bs)]
+    if final is not None:
+        out.append((torch.empty(final[0].shape, device=device),
+                    torch.empty(final[0].shape[-1], device=device)))
+    return out
 
 
 def _count(c: int, bf16: bool) -> None:

@@ -1,18 +1,16 @@
 """bf16 tensor-core products on the host side: the weight layouts that the
-bf16-resident modes of the WaveNet layer kernel (K3 in csrc/wavenet.cu) and
-the MelGAN stack kernels (K6 in csrc/melgan_stack.cu, K7 in
-csrc/melgan_stack_bwd.cu) read through csrc/mma_bf16.cuh, and the tiles
-that the forward TADE kernels (K8a/K8b, csrc/tade_bf16.cu:
-``tade_forward_wgmma``) and the TADE stage backward (K9a/K9b,
-csrc/tade_bwd_bf16.cu: ``tade_conv_wgmma``) feed to Hopper's warpgroup
-products.
+bf16-resident mode of the WaveNet layer kernel (K3 in csrc/wavenet.cu)
+reads through csrc/mma_bf16.cuh, and the tiles that Hopper's warpgroup
+products read in the MelGAN stack kernels (K6 in csrc/melgan_stack_bf16.cu,
+K7 in csrc/melgan_stack_bwd_bf16.cu: ``stack_wgmma``), the forward TADE
+kernels (K8a/K8b, csrc/tade_bf16.cu: ``tade_forward_wgmma``) and the TADE
+stage backward (K9a/K9b, csrc/tade_bwd_bf16.cu: ``tade_conv_wgmma``).
 
 The JAX kernels' bf16 mode (``mxu_bf16``) casts every dot operand to
 bf16 and accumulates in float32. Here the weights are rounded to bf16 once
 (to nearest even, as ``astype(bfloat16)``) and stored in the order in
-which ``mma.sync.m16n8k16`` takes its B operand, so that a lane loads its
-two B registers with one 8-byte load; the activations are rounded where a
-kernel forms a fragment.
+which the kernel's product takes its B operand; the activations are
+rounded where a kernel forms its operand rows.
 """
 
 from __future__ import annotations
@@ -54,41 +52,35 @@ def _check(stacks):
         c = wd.shape[-1]
         if (c % 16 or wd.dim() != 3 or wd.shape[1] != c
                 or tuple(w1.shape) != (1, c, c) or tuple(ws.shape) != (1, c, c)):
-            raise ValueError(f"bf16 stack fragments need wd (K, C, C), w1 and ws (1, C, "
+            raise ValueError(f"bf16 stack tiles need wd (K, C, C), w1 and ws (1, C, "
                              f"C), C a multiple of 16, got {tuple(wd.shape)}, "
                              f"{tuple(w1.shape)}, {tuple(ws.shape)}")
 
 
-def stack_forward_fragments(stacks):
-    """K6's bf16 weights of MelGAN ResidualStacks of one width C, one tensor
-    per stack: its K + 2 matrices Wd[k], W1 and Ws (the order of
-    ``tf32x3.stack_forward_fragments``) in ``fragments``' layout, (K + 2, C
-    / 16, C / 8, 32, 4) bf16; all stacks in one pass, views of one
-    tensor."""
+def stack_wgmma(stacks):
+    """The bf16 weights of MelGAN ResidualStacks of one width C as K6 and K7
+    read them (csrc/melgan_bf16.cuh), one tensor per stack: its K + 2
+    matrices Wd[0], .., Wd[K-1], W1, Ws, each rounded to bf16 and cut into
+    8 x 8 core matrices of 128 contiguous bytes, (K + 2, C * C) bf16: W[ci][co]
+    at (ci // 8) 8 C + (co // 8) 64 + (ci % 8) 8 + co % 8, so that a core's
+    row is 8 co values of one ci. The kernels read a tile as B = W through an
+    MN-major descriptor and as B = W^T (K7's transposed products) through a
+    K-major one; each tile is one bulk copy of 2 C^2 bytes. A permutation of
+    8 x 8 blocks, so no index is kept; all stacks in one copy, views of one
+    tensor (tests/test_torch_port_melgan_bf16_layout.py reads the tiles
+    back as the card does)."""
     if not stacks:
         return []
     _check(stacks)
-    mats = [m for st in stacks for m in (st["wd"], st["w1"], st["ws"])]
-    f = fragments(torch.cat([m.detach() for m in mats]))
-    return list(f.split([st["wd"].shape[0] + 2 for st in stacks]))
+    c = stacks[0]["wd"].shape[-1]
+    mats = torch.cat([st[k].detach().reshape(-1, c, c) for st in stacks
+                      for k in ("wd", "w1", "ws")])
+    tiles = (mats.to(torch.bfloat16).reshape(-1, c // 8, 8, c // 8, 8)
+             .permute(0, 1, 3, 2, 4).reshape(-1, c * c))
+    return list(tiles.split([st["wd"].shape[0] + 2 for st in stacks]))
 
 
-def stack_fragments(stacks):
-    """K7's bf16 weights of MelGAN ResidualStacks of one width C, one tensor
-    per stack: its 2K + 2 matrices Wd[k], W1^T, Wd[k]^T and Ws^T (the order
-    of ``tf32x3.stack_fragments``) in ``fragments``' layout, (2K + 2, C /
-    16, C / 8, 32, 4) bf16."""
-    if not stacks:
-        return []
-    _check(stacks)
-    mats = []
-    for st in stacks:
-        wd, w1, ws = (st[k].detach() for k in ("wd", "w1", "ws"))
-        mats += [wd, w1.transpose(1, 2), wd.transpose(1, 2), ws.transpose(1, 2)]
-    f = fragments(torch.cat(mats))
-    return list(f.split([2 * st["wd"].shape[0] + 2 for st in stacks]))
-
-
+@functools.lru_cache(maxsize=None)
 def slope_of(slope: float) -> float:
     """The slope with which LeakyReLU multiplies a bf16 value in the JAX
     package (``_leaky``: ``x * jnp.asarray(slope, x.dtype)``): slope

@@ -24,16 +24,20 @@ and its kernel sources are the ones timed (a parent commit unpacked with
   = 6400, 12800, 25600 at C = 128, 64, 32, the last with the final conv
   to 1; 3 stacks at d = 1, 3, 9, reflect; the random weights of
   ``chip_smoke.py`` phase 17), splitting per call as the training forward
-  does, beside its plain version;
+  does, beside its plain version, and MB-MelGAN v2's two (B=64; T = 2048,
+  4096 at C = 96, 48, the last with the final conv to 4; d = 1, 3, 9, 27);
 - K7 (``melgan_stacks_backward``, K6's re-run included) at the same
-  stages and weights, beside ``melgan_stacks_backward_reference``, per
-  stage and summed over the three (one G step's backward), with the
-  device time by kernel of one call per stage;
-- where the tree has them, K6's and K7's bf16-resident modes (mixed
-  precision: a bf16 input, the same weights) at the same stages, beside
-  their bf16 plain versions (``melgan_stacks_reference_bf16``,
-  ``melgan_stacks_backward_reference_bf16``), per stage and summed; the
-  float32 times above are the float32 kernels' on the same shapes.
+  stages and weights, beside ``melgan_stacks_backward_reference`` at v1's,
+  per stage and summed (one G step's backward), with the device time by
+  kernel of one call per stage;
+- K6's and K7's bf16-resident modes (mixed precision: a bf16 input, the
+  same weights) at the same stages, beside their bf16 plain versions
+  (``melgan_stacks_reference_bf16``, ``melgan_stacks_backward_reference_bf16``),
+  per stage and summed, K7 reading the forward's weight layout as
+  training does, their device time by part (``bf16_parts``: K6's
+  kernels, K7's kernels, the reduce kernels, the weight layout, glue) and
+  their host time a call (enqueue, ``_host_us``; the weight layout's
+  apart).
 
 Prints the card (``nvidia-smi``) and one JSON line of the times in ms.
 """
@@ -42,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import re
 import statistics
@@ -208,83 +213,138 @@ def _decode(out: dict, smoke, randn) -> None:
         out[f"k6_decode_{key}"] = sum(s[key] for s in res.values())
 
 
+# K6's and K7's bf16 parts by the kernels' names in this tree and in a
+# tree before it (csrc/melgan_stack.cu's and csrc/melgan_stack_bwd.cu's
+# bf16 instantiations); any other kernel is glue
+BF16_PARTS = {
+    "K6 kernels": ("stack_bf16_kernel", "outconv_bf16_kernel", "stack_tc_kernel",
+                   "outconv_kernel"),
+    "K7 kernels": ("dz_bf16_kernel", "dx_bf16_kernel", "wgrad_bf16_kernel",
+                   "outconv_bwd_bf16_kernel", "dz_kernel", "dx_kernel", "wgrad_kernel",
+                   "outconv_bwd_kernel"),
+    "reduce": ("wgrad_reduce_bf16_kernel", "colsum_kernel", "slab_sum_kernel",
+               "wgrad_reduce_kernel")}
+
+
+def bf16_parts(fn, layout=None, reps: int = 5) -> dict:
+    """{part: device ms} of one call of fn (K6 or K7 in the bf16 mode) under
+    torch.profiler: the parts of ``BF16_PARTS`` (in K7 "K6 kernels" is its
+    re-run), "weight layout" (``layout``, the weights' bf16 layout that a
+    training forward makes, traced alone over ``reps`` calls and divided;
+    0 without it) and "glue", the rest of fn's device time (in a tree
+    before this one K7 laid out its own weights in every call: glue)."""
+    out = dict.fromkeys([*BF16_PARTS, "weight layout", "glue"], 0.0)
+    prof = profile_by_kernel(fn)
+    for name, (ms, _) in prof.items():
+        part = next((part for part, names in BF16_PARTS.items()
+                     if name.split("<")[0] in names), "glue")
+        out[part] += ms
+    if layout is not None:
+        traced = profile_by_kernel(lambda: [layout() for _ in range(reps)])
+        out["weight layout"] = sum(ms for ms, _ in traced.values()) / reps
+        out["glue"] = max(0.0, out["glue"] - out["weight layout"])
+    return out
+
+
+def _stages(smoke, randn) -> dict:
+    """{name: (x, stacks, final, dy)} of MelGAN v1's three fused training
+    stages (B=8; T = 6400, 12800, 25600 at C = 128, 64, 32, the last with
+    the final conv to 1; d = 1, 3, 9) and MB-MelGAN v2's two (B=64; T =
+    2048, 4096 at C = 96, 48, the last with the final conv to 4; d = 1, 3,
+    9, 27), random weights as in ``chip_smoke.py`` phase 17, float32."""
+    out = {}
+    for cfg, label in ((smoke.V1_MELGAN_CONFIG, "v1"), (smoke.V2_MB_CONFIG, "v2")):
+        gp = cfg["generator_params"]
+        b, frames = cfg["batch_size"], cfg["batch_max_steps"] // cfg["hop_size"]
+        dils = [gp["stack_kernel_size"] ** j for j in range(gp["stacks"])]
+        n = len(gp["upsample_scales"])
+        for i in range(1, n) if label == "v1" else range(n - 2, n):
+            c = gp["channels"] >> (i + 1)
+            t = frames * math.prod(gp["upsample_scales"][:i + 1])
+            stacks = [{"wd": randn(3, c, c, scale=(3 * c) ** -0.5), "bd": randn(c, scale=0.1),
+                       "w1": randn(1, c, c, scale=c ** -0.5), "b1": randn(c, scale=0.1),
+                       "ws": randn(1, c, c, scale=c ** -0.5), "bs": randn(c, scale=0.1),
+                       "dilation": d} for d in dils]
+            last = i == n - 1
+            out_ch = gp["out_channels"]
+            fin = ((randn(7, c, out_ch, scale=(7 * c) ** -0.5), randn(out_ch, scale=0.1))
+                   if last else None)
+            x = randn(b, t, c)
+            dy = randn(b, t, out_ch if last else c, scale=1e-3)
+            name = f"{label} stage {i} B={b} T={t} C={c}" + (" + final" if last else "")
+            out[name] = (x, stacks, fin, dy)
+    return out
+
+
 def _training(out: dict, smoke, randn) -> None:
-    """K6 over one MelGAN v1 training forward's stages, and K7 per G step."""
+    """K6 over one MelGAN v1 training forward's stages and K7 per G step, in
+    float32 and in the bf16 mode; both modes at MB-MelGAN v2's stages too."""
     import torch
 
     from parallelwavegan_tpu_torch.ops.kernels.melgan_stack import (
         fused_melgan_stacks,
+        kernel_weights_bf16,
         melgan_stacks_reference,
+        melgan_stacks_reference_bf16,
     )
     from parallelwavegan_tpu_torch.ops.kernels.melgan_stack_train import (
         melgan_stacks_backward,
         melgan_stacks_backward_reference,
+        melgan_stacks_backward_reference_bf16,
     )
 
-    try:  # the bf16 modes, where the tree has them
-        from parallelwavegan_tpu_torch.ops.kernels.melgan_stack import (
-            melgan_stacks_reference_bf16,
-        )
-        from parallelwavegan_tpu_torch.ops.kernels.melgan_stack_train import (
-            melgan_stacks_backward_reference_bf16,
-        )
-    except ImportError:
-        melgan_stacks_reference_bf16 = None
-    fwd16, bwd16 = {}, {}
-
-    gp = smoke.V1_MELGAN_CONFIG["generator_params"]
-    b, t = smoke.V1_MELGAN_CONFIG["batch_size"], smoke.V1_MELGAN_CONFIG["batch_max_steps"]
-    dils = [gp["stack_kernel_size"] ** j for j in range(gp["stacks"])]
-    fwd, bwd = {}, {}
-    for i in (1, 2, 3):
-        c, ti = 512 >> (i + 1), t >> (3 - i)
-        stacks = [{"wd": randn(3, c, c, scale=(3 * c) ** -0.5), "bd": randn(c, scale=0.1),
-                   "w1": randn(1, c, c, scale=c ** -0.5), "b1": randn(c, scale=0.1),
-                   "ws": randn(1, c, c, scale=c ** -0.5), "bs": randn(c, scale=0.1),
-                   "dilation": d} for d in dils]
-        fin = (randn(7, c, 1, scale=(7 * c) ** -0.5), randn(1, scale=0.1)) if i == 3 else None
-        x = randn(b, ti, c)
-        dy = randn(b, ti, 1 if fin else c, scale=1e-3)
-        name = f"stage {i} B={b} T={ti} C={c}" + (" + final" if fin else "")
+    fwd, bwd, fwd16, bwd16 = {}, {}, {}, {}
+    for name, (x, stacks, fin, dy) in _stages(smoke, randn).items():
         with torch.inference_mode():
             fwd[name] = {
                 "ms": _median_ms(lambda: fused_melgan_stacks(x, stacks, final=fin)),
-                "plain_ms": _median_ms(lambda: melgan_stacks_reference(x, stacks,
-                                                                       final=fin)),
                 "by_kernel": profile_by_kernel(lambda: fused_melgan_stacks(x, stacks, final=fin))}
+            if name.startswith("v1"):
+                fwd[name]["plain_ms"] = _median_ms(
+                    lambda: melgan_stacks_reference(x, stacks, final=fin))
         bwd[name] = {
             "ms": _median_ms(lambda: melgan_stacks_backward(x, stacks, fin, 0.2,
                                                             "reflect", dy)),
-            "plain_ms": _median_ms(lambda: melgan_stacks_backward_reference(
-                x, stacks, fin, 0.2, "reflect", dy)),
             "by_kernel": profile_by_kernel(lambda: melgan_stacks_backward(x, stacks, fin, 0.2,
                                                                  "reflect", dy))}
-        if melgan_stacks_reference_bf16 is None:
-            continue
+        if name.startswith("v1"):
+            bwd[name]["plain_ms"] = _median_ms(lambda: melgan_stacks_backward_reference(
+                x, stacks, fin, 0.2, "reflect", dy))
+        # the bf16 mode: the forward lays the weights out (as a training
+        # forward does) and K7 reads the forward's layout
         xb, dyb = x.to(torch.bfloat16), dy.to(torch.bfloat16)
+        split = kernel_weights_bf16(stacks)
         with torch.inference_mode():
             fwd16[name] = {
                 "ms": _median_ms(lambda: fused_melgan_stacks(xb, stacks, final=fin)),
                 "plain_ms": _median_ms(lambda: melgan_stacks_reference_bf16(
-                    xb, stacks, final=fin))}
+                    xb, stacks, final=fin)),
+                "parts": bf16_parts(lambda: fused_melgan_stacks(xb, stacks, final=fin),
+                                    lambda: kernel_weights_bf16(stacks)),
+                "host_us": _host_us(lambda: fused_melgan_stacks(xb, stacks, final=fin)),
+                "layout_host_us": _host_us(lambda: kernel_weights_bf16(stacks))}
+
+        def k7_bf16():
+            return melgan_stacks_backward(xb, stacks, fin, 0.2, "reflect", dyb, split)
+
         bwd16[name] = {
-            "ms": _median_ms(lambda: melgan_stacks_backward(xb, stacks, fin, 0.2,
-                                                            "reflect", dyb)),
+            "ms": _median_ms(k7_bf16),
             "plain_ms": _median_ms(lambda: melgan_stacks_backward_reference_bf16(
-                xb, stacks, fin, 0.2, "reflect", dyb))}
-    if fwd16:
-        out["bf16"] = {
-            "k6_train_forward": fwd16, "stages": bwd16,
-            "k6_train_forward_ms": sum(v["ms"] for v in fwd16.values()),
-            "k6_train_forward_plain_ms": sum(v["plain_ms"] for v in fwd16.values()),
-            "g_step_ms": sum(v["ms"] for v in bwd16.values()),
-            "g_step_plain_ms": sum(v["plain_ms"] for v in bwd16.values())}
-    out["k6_train_forward"] = fwd
-    out["k6_train_forward_ms"] = sum(s["ms"] for s in fwd.values())
-    out["k6_train_forward_plain_ms"] = sum(s["plain_ms"] for s in fwd.values())
-    out["stages"] = bwd
-    out["g_step_ms"] = sum(s["ms"] for s in bwd.values())
-    out["g_step_plain_ms"] = sum(s["plain_ms"] for s in bwd.values())
+                xb, stacks, fin, 0.2, "reflect", dyb)),
+            "parts": bf16_parts(k7_bf16),
+            "host_us": _host_us(k7_bf16, reps=20)}
+    for label in ("v1", "v2"):
+        for key, res in (("k6_train_forward", fwd), ("k7_g_step", bwd),
+                         ("bf16_k6_train_forward", fwd16), ("bf16_k7_g_step", bwd16)):
+            rows = {k: v for k, v in res.items() if k.startswith(label)}
+            out[f"{label}_{key}"] = rows
+            out[f"{label}_{key}_ms"] = sum(v["ms"] for v in rows.values())
+            if all("plain_ms" in v for v in rows.values()):
+                out[f"{label}_{key}_plain_ms"] = sum(v["plain_ms"] for v in rows.values())
+            if key.startswith("bf16"):
+                out[f"{label}_{key}_parts"] = {
+                    part: sum(v["parts"][part] for v in rows.values())
+                    for part in next(iter(rows.values()))["parts"]}
 
 
 def main(argv=None) -> None:

@@ -1359,6 +1359,117 @@ def test_melgan_stage_bf16_trains_through_the_kernels(cuda, monkeypatch):
     assert all(g.dtype == torch.bfloat16 for g in grads)
 
 
+def _stacks_k(c, dils, k, seed, bias=True):
+    """``_melgan_stacks`` of kernel size k, the weights of gain one."""
+    rs = np.random.RandomState(seed)
+
+    def t(*shape, scale):
+        return torch.from_numpy((rs.randn(*shape) * scale).astype(np.float32))
+
+    return [{"wd": t(k, c, c, scale=(k * c) ** -0.5), "bd": t(c, scale=0.1) if bias else None,
+             "w1": t(1, c, c, scale=c ** -0.5), "b1": t(c, scale=0.1) if bias else None,
+             "ws": t(1, c, c, scale=c ** -0.5), "bs": t(c, scale=0.1) if bias else None,
+             "dilation": d} for d in dils]
+
+
+# csrc/melgan_stack_bf16.cu and csrc/melgan_stack_bwd_bf16.cu on shapes
+# the cases above leave out: MB-MelGAN v2's C = 96 at d = 27 with the final
+# conv to 4 and T not a multiple of the 128-row tile at B > 1, C = 112 in
+# both directions, K = 7 at d = 9, and a pad past what a window holds at C
+# = 128 (K = 7, d = 81: P = 243, the taps one at a time in every kernel)
+BF16_NEW_CASES = [
+    (96, 2, 1000, "reflect", 4, (1, 3, 9, 27), 3),
+    (112, 2, 555, "edge", None, (1, 3), 3),
+    (64, 2, 700, "reflect", 1, (9,), 7),
+    (48, 3, 333, "constant", 4, (3, 27), 7),
+    (128, 1, 600, "edge", None, (81,), 7),
+]
+
+
+def _bf16_new_case(cuda, c, b, t, mode, out_ch, dils, k):
+    stacks = _on(_stacks_k(c, dils, k, seed=c + k), cuda)
+    rs = np.random.RandomState(c + k + 1)
+
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy((rs.randn(*shape) * scale).astype(np.float32)).to(cuda)
+
+    final = None
+    if out_ch is not None:
+        final = (randn(7, c, out_ch, scale=(7 * c) ** -0.5), randn(out_ch, scale=0.1))
+    x = _off_the_kinks_bf16(randn(b, t, c).to(torch.bfloat16), stacks, final, mode, c + k)
+    dy = randn(b, t, out_ch or c, scale=(b * t) ** -0.5).to(torch.bfloat16)
+    return stacks, final, x, dy
+
+
+@pytest.mark.parametrize("c,b,t,mode,out_ch,dils,k", BF16_NEW_CASES)
+def test_melgan_stacks_bf16_more_shapes_match_plain_version(cuda, c, b, t, mode, out_ch, dils,
+                                                           k):
+    stacks, final, x, _ = _bf16_new_case(cuda, c, b, t, mode, out_ch, dils, k)
+    with torch.no_grad():
+        got = stack_mod.fused_melgan_stacks(x, stacks, final=final, pad_mode=mode)
+        chain = stack_mod._run_cuda_bf16(x, stacks, final, 0.2, mode, keep_f32=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, chain.to(torch.bfloat16))
+    want = stack_mod.stacks_forward_bf16(x, stacks, final, 0.2, mode)["y"]
+    assert _bf16_close(chain, want), float((chain - want).abs().max())
+    with torch.no_grad():
+        trunc = stack_mod._run_cuda_bf16(x, _truncated(stacks), final, 0.2, mode, keep_f32=True)
+    assert not _bf16_close(trunc, want)
+
+
+@pytest.mark.parametrize("c,b,t,mode,out_ch,dils,k", BF16_NEW_CASES)
+def test_melgan_stacks_backward_bf16_more_shapes_match_plain_version(cuda, c, b, t, mode,
+                                                                    out_ch, dils, k):
+    from parallelwavegan_tpu_torch.ops.kernels import melgan_stack_train as k7
+
+    stacks, final, x, dy = _bf16_new_case(cuda, c, b, t, mode, out_ch, dils, k)
+    got = _k7_grads(*k7.melgan_stacks_backward(x, stacks, final, 0.2, mode, dy))
+    torch.cuda.synchronize()
+    want = _k7_grads(*k7.melgan_stacks_backward_reference_bf16(
+        x, stacks, final, 0.2, mode, dy, _kernel_chain(x, stacks, final, mode)))
+    assert [n for n, _ in got] == [n for n, _ in want]
+    for (name, g), (_, r) in zip(got, want):
+        assert g.dtype == r.dtype and g.shape == r.shape, name
+        assert _bf16_close(g, r), (name, float((g.float() - r.float()).abs().max()),
+                                   float(r.float().abs().max()))
+        assert not _bf16_close(torch.zeros_like(g), r), name
+    wrong = k7.melgan_stacks_backward(x, _truncated(stacks), final, 0.2, mode, dy)
+    assert not all(_bf16_close(g, r) for (_, g), (_, r) in zip(_k7_grads(*wrong), want))
+
+
+@pytest.mark.parametrize("c,ks,wdtype,bias", [
+    (128, (3, 3, 3), torch.float32, True), (48, (3, 7), torch.bfloat16, False),
+    (16, (5,), torch.bfloat16, True)])
+def test_melgan_bf16_layout_kernel_matches_plain_version(cuda, c, ks, wdtype, bias):
+    """``kernel_weights_bf16`` on the card (csrc/melgan_stack_bf16.cu's
+    layout kernel) gives ``mma_bf16.stack_wgmma``'s tiles and the packed
+    biases bit for bit."""
+    from parallelwavegan_tpu_torch.ops.kernels import mma_bf16
+
+    stacks = []
+    for i, k in enumerate(ks):
+        st = _stacks_k(c, (1,), k, seed=i, bias=bias)[0]
+        stacks.append({key: v.to(cuda).to(wdtype) if torch.is_tensor(v) else v
+                       for key, v in st.items()})
+    before = stack_mod.kernel_weights_bf16.launches
+    tiles, biases = stack_mod.kernel_weights_bf16(stacks)
+    torch.cuda.synchronize()
+    assert stack_mod.kernel_weights_bf16.launches == before + 1
+    for got, want in zip(tiles, mma_bf16.stack_wgmma(stacks)):
+        assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    for got, want in zip(biases, stack_mod._packed_biases(stacks)):
+        assert torch.equal(got, want.float())
+
+
+def test_melgan_stacks_bf16_is_deterministic(cuda):
+    stacks, final, x, _ = _bf16_new_case(cuda, 96, 2, 1000, "reflect", 4, (1, 3, 9, 27), 3)
+    with torch.no_grad():
+        first = stack_mod._run_cuda_bf16(x, stacks, final, 0.2, "reflect", keep_f32=True)
+        second = stack_mod._run_cuda_bf16(x, stacks, final, 0.2, "reflect", keep_f32=True)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 def test_gated_resblock_trains_on_the_card(cuda):
     """K5 forward, backward by autograd of the plain block (as JAX)."""
     w = _wavenet_weights(1, 64, 80, seed=2)
