@@ -290,25 +290,28 @@ Phases (any failure exits non-zero; nothing is caught):
    in some loss.
 30. K3's bf16-resident mode (``pallas_stack_bf16``) against its bf16 plain
    version at a PWG v1 cycle (B=1, T=131072, 10 layers at d=1..512, C=64,
-   aux 80, the generator's weights from SEED with decode's bf16 fragments)
+   aux 80, the generator's weights from SEED with decode's bf16 tiles)
    and a ragged one (B=3, T=777, C=16, aux 10, random weights of gain
-   one): each layer fed the plain version's input, within rms|diff| <=
+   one), through ``csrc/wavenet_bf16.cu`` (one host call a cycle, one
+   launch a layer): each layer fed the plain version's input, within rms|diff| <=
    1e-3 rms|plain| and max|diff| <= 1e-2 max|plain| and with at least 99 %
    of the residual bit-equal, where the float32 kernel, the weights cut to
    bf16 by truncation and the plain version with g unrounded must be
    rejected at every layer; the whole cycle within the chain's noise (at
    least 25 % of the residual bit-equal, the skip within 2.5e-3 rms and
    1e-2 max), where the float32 kernel must be rejected; two runs and a
-   run that rounds its weights per call bit for bit; the bf16
-   instantiations' registers, spills and SASS (HMMA.16816.F32.BF16, no
-   TF32, no spill, at most 128 registers); CUDA-event times of the v1
-   cycle beside the float32 K3 and the bf16 plain version, its bound and
-   the per-layer design's bytes.
+   run that rounds its weights per call bit for bit; one layer (d=512) on
+   (64, 557056, 64) with aux 80, past 2**31 elements, its rows 0 and 63
+   against the plain version on B = 1 slices by the layer rule; the host
+   calls and launches of each; the kernels' registers, spills and SASS
+   (HGMMA .F32.BF16, no HMMA, no spill, at most K3_BF16_MAX_REGISTERS
+   registers); CUDA-event times of the v1 cycle beside the float32 K3 and
+   the bf16 plain version, its bound and the per-layer design's bytes.
 31. The rest of the Parallel WaveGAN family on the main path: PWG v1
    decode of the three utterances through ``bin/decode.main
    --use-pallas-stack`` with ``pallas_stack_bf16`` (V1_PWG_GENERATOR
-   without ``use_pallas_stack_train``; 90 launches of K3's bf16 mode, no
-   float32 K3), held to the same decode with the bf16 plain version
+   without ``use_pallas_stack_train``; 90 launches of K3's bf16 mode in 3
+   host calls, no float32 K3), held to the same decode with the bf16 plain version
    patched in within 5e-3 rms (its distance from the float32 stack decode
    printed); the causal PWG v1 decode with ``use_pallas_kernels`` (90
    launches of K5's causal call) against its plain decode within 2e-4;
@@ -768,7 +771,7 @@ def _reset_launch_counts() -> None:
     for fn in (fused_hifigan_tail, fused_wavenet_stack, fused_gated_resblock,
                wavenet_stack_backward, melgan_stacks_backward):
         fn.launches = 0
-    fused_wavenet_stack.bf16_launches = 0
+    fused_wavenet_stack.bf16_launches = fused_wavenet_stack.bf16_calls = 0
     from parallelwavegan_tpu_torch.ops.kernels.tade_decode import (
         fused_tade_blocks,
     )
@@ -4938,6 +4941,9 @@ K3_BF16_LAYER_EQUAL = 0.99
 K3_BF16_CYCLE_EQUAL = 0.25
 K3_BF16_CYCLE_SKIP_RMS = 2.5e-3
 K3_BF16_DECODE_RMS = 5e-3
+# csrc/wavenet_bf16.cu runs one block of 256 threads an SM (its stages and
+# resident weights take 225 KB at v1), so a thread may hold 255 registers
+K3_BF16_MAX_REGISTERS = 255
 
 
 def _rms_max_equal(got, want) -> tuple:
@@ -4979,17 +4985,18 @@ def phase_k3_bf16(card: str) -> dict:
 
     from parallelwavegan_tpu_torch.ops.kernels import wavenet as wn
 
-    for kernel, use in _built_resources(("wavenet_layer_kernel",), ("wavenet.cu",)).items():
+    for kernel, use in _built_resources(("wavenet_layer_kernel", "wavenet_bf16_kernel"),
+                                        ("wavenet.cu", "wavenet_bf16.cu")).items():
         print(f"K3/K5 {kernel}: {use.get('registers')} registers, spill stores "
               f"{use.get('spill_stores')} B, loads {use.get('spill_loads')} B; SASS "
               f"{use.get('sass')}")
-        if kernel.endswith("true>") and (
+        sass = use.get("sass", "")
+        if kernel.startswith("wavenet_bf16_kernel") and (
                 use.get("spill_stores") or use.get("spill_loads")
-                or use.get("registers", 999) > 128
-                or "HMMA.16816.F32.BF16" not in use.get("sass", "")
-                or "TF32" in use.get("sass", "")):
-            _fail(f"K3's bf16 instantiation {kernel}: spills, more than 128 registers "
-                  "or not bf16 HMMA")
+                or use.get("registers", 999) > K3_BF16_MAX_REGISTERS
+                or not re.search(r"HGMMA\.\S*F32\.BF16", sass) or "HMMA 0," not in sass):
+            _fail(f"K3's bf16 kernel {kernel}: spills, more than {K3_BF16_MAX_REGISTERS} "
+                  "registers, no bf16 HGMMA or an HMMA")
 
     def trunc(v):  # float32 weights cut to bf16 by truncation (a control)
         return (v.contiguous().view(torch.int32) & ~0xFFFF).view(torch.float32)
@@ -5006,7 +5013,7 @@ def phase_k3_bf16(card: str) -> dict:
         ("wskip", (n, 16, 16), 16), ("bskip", (n, 16), 4), ("wres", (n, 16, 16), 16),
         ("bres", (n, 16), 4))}
     cases = (("v1 cycle", 1, 131072, 80, v1[0], v1[1]),
-             ("ragged C=16", 3, 777, 10, wn.with_fragments_bf16(ragged),
+             ("ragged C=16", 3, 777, 10, wn.with_tiles_bf16(ragged),
               tuple(2 ** i for i in range(n))))
     rec, bf16 = {"errs": []}, torch.bfloat16
     with torch.inference_mode():
@@ -5016,6 +5023,7 @@ def phase_k3_bf16(card: str) -> dict:
             c = torch.from_numpy(rs.randn(b, t, ca).astype(np.float32)).to("cuda")
             plain_w = {k: w[k] for k in wn.WEIGHT_KEYS}
             worst = {"kernel": [0.0, 0.0, 1.0, 0.0]}
+            counts0 = (wn.fused_wavenet_stack.bf16_calls, wn.fused_wavenet_stack.bf16_launches)
             rejected = {"float32 kernel": 0, "weights truncated to bf16": 0,
                         "g unrounded (plain version)": 0}
             xl = x
@@ -5068,6 +5076,13 @@ def phase_k3_bf16(card: str) -> dict:
                   f"weights per call, bitwise equal = {same}")
             if not same:
                 _fail(f"K3 bf16 gives different outputs in two runs ({name})")
+            # each layer above: the kernel and the truncated control, a host
+            # call and a launch each; each cycle: one host call of len(dil)
+            counts = (wn.fused_wavenet_stack.bf16_calls - counts0[0],
+                      wn.fused_wavenet_stack.bf16_launches - counts0[1])
+            print(f"K3 bf16 [{name}]: {counts[0]} host calls, {counts[1]} launches")
+            if counts != (2 * len(dil) + 3, 2 * len(dil) + 3 * len(dil)):
+                _fail(f"K3 bf16 {name}: host calls and launches {counts}")
             print(f"K3 bf16 whole cycle vs plain [{name}]: x {_rms_max_equal(got[0], want[0])}, "
                   f"skip {_rms_max_equal(got[1], want[1])} (rms, max, share bit-equal, "
                   f"max|diff|; bounds: x bit-equal >= {K3_BF16_CYCLE_EQUAL}, skip rms <= "
@@ -5100,7 +5115,53 @@ def phase_k3_bf16(card: str) -> dict:
                   f"{rec['bound_ms'] / rec['ms']:.1%} of it), the per-layer design's "
                   f"{design / 1e9:.2f} GB at 3.35 TB/s {design / PEAK_BYTES * 1e3:.3f} ms "
                   f"({design / PEAK_BYTES * 1e3 / rec['ms']:.1%}) on {card}")
+        rec["errs"].append(_k3_bf16_past_int32(card))
     return rec
+
+
+def _k3_bf16_past_int32(card: str) -> float:
+    """One layer of K3's bf16 mode (d = 512) on (64, 557056, 64) with aux
+    80, past 2**31 elements of x and c (``_past_int32``'s float32 case),
+    bf16 inputs of gain one and random weights; rows 0 and 63 against the
+    bf16 plain version on B = 1 slices by the layer rule. Returns the
+    max|diff|."""
+    import numpy as np
+    import torch
+
+    from parallelwavegan_tpu_torch.ops.kernels import wavenet as wn
+
+    rs = np.random.RandomState(SEED + 38)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    b, t, ch, ca = 64, (2048 + 2 * 64) * 256, 64, 80
+
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy((rs.randn(*shape) * scale).astype(np.float32)).to("cuda")
+
+    x = torch.randn((b, t, ch), generator=gen, device="cuda", dtype=torch.bfloat16)
+    c = torch.randn((b, t, ca), generator=gen, device="cuda", dtype=torch.bfloat16)
+    w = {"wconv": randn(1, 3, ch, 2 * ch, scale=(3 * ch) ** -0.5),
+         "bconv": randn(1, 2 * ch, scale=0.1), "waux": randn(1, ca, 2 * ch, scale=ca ** -0.5),
+         "wskip": randn(1, ch, ch, scale=ch ** -0.5), "bskip": randn(1, ch, scale=0.1),
+         "wres": randn(1, ch, ch, scale=ch ** -0.5), "bres": randn(1, ch, scale=0.1)}
+    with torch.inference_mode():
+        got = wn.fused_wavenet_stack(x, c, w, (512,), torch.bfloat16)
+        rows = [(g[0:1], g[b - 1:b]) for g in got]
+        del got
+        torch.cuda.synchronize()
+        err = 0.0
+        for i, r in enumerate((0, b - 1)):
+            want = wn.wavenet_stack_reference_bf16(x[r:r + 1], c[r:r + 1], w, (512,))
+            mine = (rows[0][i], rows[1][i])
+            sx, ss = _rms_max_equal(mine[0], want[0]), _rms_max_equal(mine[1], want[1])
+            err = max(err, sx[3], ss[3])
+            if not _k3_bf16_layer_ok(mine, want):
+                _fail(f"K3 bf16 past 2**31 elements: row {r} x {sx}, skip {ss}")
+    print(f"K3 bf16 past 2**31 elements {(b, t, ch)} (aux {ca}), one layer at d=512: rows 0 "
+          f"and {b - 1} against the plain version on B = 1 by the layer rule, max|diff| "
+          f"{err:.3e} on {card}")
+    del x, c
+    torch.cuda.empty_cache()
+    return err
 
 
 def _k3_bf16_generator() -> dict:
@@ -5204,13 +5265,15 @@ def phase_pwg_family(card: str) -> dict:
         return wn.wavenet_stack_reference_bf16(x, c, {k: weights[k] for k in wn.WEIGHT_KEYS},
                                                dilations)
 
-    # run: (config, launches expected (K3, K3's bf16 mode, K5), the stack
-    # patched to its bf16 plain version); the same noise in every run
-    runs = {"bf16": ("bf16", (per_run, per_run, 0), False),
-            "bf16_plain": ("bf16", (0, 0, 0), True),
-            "float32": ("float32", (per_run, 0, 0), False),
-            "causal_k5": ("causal_k5", (0, 0, per_run), False),
-            "causal_plain": ("causal_plain", (0, 0, 0), False)}
+    # run: (config, launches expected (K3, K3's bf16 mode, its host calls,
+    # K5), the stack patched to its bf16 plain version); the same noise in
+    # every run
+    utts = len(UTT_FRAMES)
+    runs = {"bf16": ("bf16", (per_run, per_run, utts, 0), False),
+            "bf16_plain": ("bf16", (0, 0, 0, 0), True),
+            "float32": ("float32", (per_run, 0, 0, 0), False),
+            "causal_k5": ("causal_k5", (0, 0, 0, per_run), False),
+            "causal_plain": ("causal_plain", (0, 0, 0, 0), False)}
     res = {}
     for name, (cfg, expect, patched) in runs.items():
         if name == "bf16":
@@ -5236,9 +5299,10 @@ def phase_pwg_family(card: str) -> dict:
         finally:
             pwg_mod.fused_wavenet_stack = real
         got = (wn.fused_wavenet_stack.launches, wn.fused_wavenet_stack.bf16_launches,
-               wn.fused_gated_resblock.launches)
+               wn.fused_wavenet_stack.bf16_calls, wn.fused_gated_resblock.launches)
         print(f"main path [PWG v1 {name} decode]: K3 launches = {got[0]} (bf16 mode "
-              f"{got[1]}), K5 launches = {got[2]} for {len(UTT_FRAMES)} utterances")
+              f"{got[1]} in {got[2]} host calls), K5 launches = {got[3]} for "
+              f"{len(UTT_FRAMES)} utterances")
         if got != expect:
             _fail(f"PWG {name} decode: launches {got}, expected {expect}")
         if name == "bf16":
@@ -7134,7 +7198,7 @@ def main() -> None:
               "tade_train.py:438", style_bf16["k9a_launches"], k89["k9a"]),
         entry("tade_block_backward (K9b bf16-resident mode)", "tade_bwd_bf16.cu",
               "tade_train.py:523", style_bf16["k9b_launches"], k89["k9b"]),
-        entry("fused_wavenet_stack (K3 bf16-resident mode)", "wavenet.cu",
+        entry("fused_wavenet_stack (K3 bf16-resident mode)", "wavenet_bf16.cu",
               "wavenet_stack.py:199", pwg_family["k3_bf16_launches"], k3_bf16),
     ]}
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_main:.1f} s "

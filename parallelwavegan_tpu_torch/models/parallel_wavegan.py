@@ -79,7 +79,7 @@ from parallelwavegan_tpu_torch.ops.kernels.wavenet import (
     WEIGHT_KEYS,
     fused_wavenet_stack,
     with_fragments,
-    with_fragments_bf16,
+    with_tiles_bf16,
 )
 from parallelwavegan_tpu_torch.ops.kernels.wavenet_train import (
     fused_wavenet_cycle_train,
@@ -246,8 +246,8 @@ class ParallelWaveGANGenerator(nn.Module):
     def prepare_kernels(self) -> None:
         """Gather the kernel weights once, for decode, and on the card split
         them once for K3/K5 (``wavenet.with_fragments``), or round them once
-        into bf16 fragments for K3's bf16 mode
-        (``wavenet.with_fragments_bf16``); a MelGAN upsample net prepares
+        into wgmma's bf16 tiles for K3's bf16 mode
+        (``wavenet.with_tiles_bf16``); a MelGAN upsample net prepares
         its own. Call it after the weights are loaded, folded and on their
         device; loading weights or moving the module afterwards drops them
         again."""
@@ -255,7 +255,7 @@ class ParallelWaveGANGenerator(nn.Module):
         def split(w):
             if not w["wconv"].is_cuda:
                 return w
-            return with_fragments_bf16(w) if self.stack_bf16 else with_fragments(w)
+            return with_tiles_bf16(w) if self.stack_bf16 else with_fragments(w)
 
         self._kernel_cache = None
         if hasattr(self.upsample_net, "prepare_kernels"):

@@ -49,8 +49,10 @@ _SIGNATURES = {
     # x, c, x_out, skip, wf, bconv, bskip, bres, B, T, C, Ca, K, dil, causal,
     # accumulate, device, stream
     "wavenet_layer": [_P] * 8 + [_I] * 9 + [_P],
-    # the same in the bf16-resident mode (x, c, x_out and wf bf16)
-    "wavenet_layer_bf16": [_P] * 8 + [_I] * 9 + [_P],
+    # csrc/wavenet_bf16.cu, K3's bf16-resident mode, every layer of a stack
+    # in one call: x, c, xa, xb, skip, tiles, bconv, bskip, bres, dils (L
+    # ints), L, B, T, C, Ca, K, device, stream
+    "wavenet_stack_bf16": [_P] * 10 + [_I] * 7 + [_P],
     # x, c, dxo, dsk, dx, dc, dz, g, part, wconv, bconv, waux, wskip, wres,
     # dwconv, dbconv, dwaux, dwskip, dbskip, dwres, dbres, part_floats, B, T,
     # C, Ca, K, dil, accumulate_dc, device, stream

@@ -18,7 +18,8 @@
 // (K-1)*dil/2 (floor), or (K-1)*dil when causal. Python
 // (ops/kernels/wavenet.py) runs a cycle as one launch per layer on the
 // current stream and ping-pongs x between two buffers; this file
-// allocates nothing.
+// allocates nothing. K3's bf16-resident mode (compute_dtype=bfloat16) is
+// csrc/wavenet_bf16.cu.
 //
 // What bounds it on the card. At Parallel WaveGAN v1 widths (residual 64,
 // gate 128, skip 64, aux 80, K = 3) one layer takes 3*64*128 + 80*128 +
@@ -87,44 +88,9 @@
 //    thread.
 // Blocks share nothing and carry nothing from tile to tile, and every sum
 // is taken in a fixed order: two runs give the same bits.
-//
-// The bf16-resident mode (wavenet_layer_bf16, wavenet_layer_kernel<CH, kV4,
-// true>) replaces K3 with compute_dtype=bfloat16
-// (parallelwavegan_tpu/ops/pallas_kernels/wavenet_stack.py:199, casts at
-// :240-253, bf16 scratch at :291-292), which the JAX generator runs for
-// pallas_stack_bf16 (models/parallel_wavegan.py:184-187). JAX rounds x
-// (when a cycle starts), c and the weights to bf16, keeps the biases and
-// every sum in float32, rounds g = tanh(z_t) sigmoid(z_s) to bf16 before
-// [Wskip | Wres], sums the skip in float32 and rounds the new residual to
-// bf16 at every layer. Here x (both ping-pong buffers) and c are bf16 in
-// memory, the weights are bf16 in the m16n8k16 B fragments' order
-// (ops/kernels/mma_bf16.py wavenet_fragments: depth K C + Ca16 + C, Ca
-// zero-padded to a multiple of 16, the columns paired as above), and each
-// 16-deep k-step is one mma.sync.m16n8k16 bf16 product into the float32
-// accumulators (csrc/mma_bf16.cuh). The operands are staged as bf16, half
-// the float32 ring's bytes, by the same cp.async ring (16-byte pieces of
-// 8 channels; c in 2-byte loads where Ca is not a multiple of 8 or c's
-// address not of 16 bytes), rows (kKC + 8) bf16 apart, an odd multiple of
-// four words, so the 4-byte fragment loads are free of bank conflicts. g
-// is rounded to bf16 (to nearest even) as it is written to shared memory;
-// the skip is read-modified-written in float32; the new residual is
-// rounded to nearest even (cvt.rn) where it is stored. What bounds it: at
-// PWG v1 widths one 10-layer cycle at T = 131,072 is the same 112.7 GFLOP,
-// 0.114 ms at the tensor cores' bf16 rate (989 TFLOP/s), against 89 MB
-// for the cycle's own inputs and outputs (x, c and x_out in bf16, the skip
-// in float32; 0.027 ms at 3.35 TB/s): the function is bound by its
-// operations. This design moves more: per row and layer bf16 x in and out
-// (256 B), bf16 c (160 B) and the skip's float32 read and write (512 B),
-// about 1.2 GB a cycle, 0.36 ms at 3.35 TB/s, three times its operations'
-// time. The skip's round trip is the most of it: the one launch per layer
-// puts the skip in HBM, where the TPU kernel keeps it in VMEM for the
-// whole cycle.
 
 #include <stdint.h>
 
-#include <type_traits>
-
-#include "mma_bf16.cuh"
 #include "mma_tf32x3.cuh"
 
 namespace {
@@ -137,14 +103,8 @@ constexpr int kStages = 2;
 constexpr float kSqrtHalf = 0.70710678118654752f;
 constexpr size_t kMaxSmem = 227 * 1024;
 
-// The element type of x, c and the weights' fragments: float32, or bf16 in
-// the bf16-resident mode.
-template <bool kBF16>
-using io_t = typename std::conditional<kBF16, uint16_t, float>::type;
-
-// The block's shape at residual width CH (gate 2 CH, skip = residual = CH),
-// its products split TF32 or, with kBF16, bf16.
-template <int CH, bool kBF16 = false>
+// The block's shape at residual width CH (gate 2 CH, skip = residual = CH).
+template <int CH>
 struct Geo {
   static constexpr int kN = 2 * CH;                  // columns of both products
   static constexpr int kNT = kN / 8;                 // their 8-column tiles
@@ -153,34 +113,24 @@ struct Geo {
   static constexpr int kWR = kWarps / kWC;           // warps down the rows
   static constexpr int kTT = 32 * kWR;               // rows of a tile
   static constexpr int kKC = CH < 32 ? CH : 32;      // depth of a chunk
-  static constexpr int kKD = kBF16 ? 16 : 8;         // depth of a k-step
-  static constexpr int kKS = kKC / kKD;              // a chunk's k-steps
+  static constexpr int kKS = kKC / 8;                // its k-steps
   static constexpr int kPerTap = CH / kKC;           // chunks of one tap
-  // staged row stride in elements: 8 or 24 mod 32 floats, or an odd
-  // multiple of four words of bf16
-  static constexpr int kLdA = kKC + 8;
-  static constexpr int kLdG = CH + 8;                // g's row stride, likewise
-  static constexpr int kAF = kTT * kLdA / (kBF16 ? 2 : 1);  // floats of an operand chunk
-  // floats of one k-step's weights: (hi, lo) of two TF32 values, or four
-  // bf16, a lane of each column tile
-  static constexpr int kStepF = kNT * (kBF16 ? 64 : 128);
+  static constexpr int kLdA = kKC + 8;               // staged row stride, 8 or 24 mod 32
+  static constexpr int kLdG = CH + 8;                // g's row stride, 8 or 24 mod 32
+  static constexpr int kAF = kTT * kLdA;             // floats of an operand chunk
+  static constexpr int kStepF = kNT * 128;           // floats of one k-step's weights
   static constexpr int kBF = kKS * kStepF;           // of a weight chunk
   static constexpr size_t kSmem = sizeof(float) * kStages * (kAF + kBF);
   static_assert(kWN % 2 == 0 && kNT % kWN == 0 && kWarps % kWC == 0, "warp map");
-  static_assert(kTT * kLdG / (kBF16 ? 2 : 1) <= kStages * kAF,
-                "g must fit the operand buffers");
+  static_assert(kTT * kLdG <= kStages * kAF, "g must fit the operand buffers");
 };
 
-template <bool kBF16>
 struct Layer {
-  using IO = io_t<kBF16>;
-  const IO* x;         // (B, T, CH)
-  const IO* c;         // (B, T, Ca)
-  IO* x_out;           // (B, T, CH)
+  const float* x;      // (B, T, CH)
+  const float* c;      // (B, T, Ca)
+  float* x_out;        // (B, T, CH)
   float* skip;         // (B, T, CH)
-  // float32: ((K CH + Ca8 + CH) / 8, CH / 4, 32, 4), TF32 (hi, lo) in
-  // fragment order; bf16: ((K CH + Ca16 + CH) / 16, CH / 4, 32, 4)
-  const IO* wf;
+  const float* wf;     // ((K CH + Ca8 + CH) / 8, CH / 4, 32, 4), fragment order
   const float* bconv;  // (2CH)
   const float* bskip;  // (CH)
   const float* bres;   // (CH)
@@ -251,39 +201,6 @@ __device__ __forceinline__ void product(const float* a_s, const float* b_s, int 
   }
 }
 
-// The bf16 product: acc += the first nks 16-deep k-steps of a staged bf16
-// operand (rows kLd bf16 apart, the warp's rows from 32 wm) times a bf16
-// weight chunk in fragment order (k-steps of kNT column tiles x 32 lanes x
-// {B[2 tig][gid], B[2 tig + 1][gid], B[2 tig + 8][gid], B[2 tig + 9][gid]},
-// ops/kernels/mma_bf16.py), one m16n8k16 product per k-step and tile into
-// acc. A lane's A registers are the channel pairs (2 tig, 2 tig + 1) and
-// (2 tig + 8, 2 tig + 9) of rows gid and gid + 8: 4-byte loads.
-template <int CH, int kLd>
-__device__ __forceinline__ void product_bf16(const uint16_t* a_s, const float* b_s, int nks,
-                                             Acc<CH>& acc) {
-  using G = Geo<CH, true>;
-  constexpr int kLdW = kLd / 2;  // the row stride in words
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp % G::kWR, wn = warp / G::kWR, gid = lane >> 2, tig = lane & 3;
-  const uint32_t* xa = reinterpret_cast<const uint32_t*>(a_s) + (32 * wm + gid) * kLdW + tig;
-  const float* wb = b_s + wn * G::kWN * 64 + lane * 2;
-#pragma unroll
-  for (int ks = 0; ks < G::kKS; ++ks) {
-    if (ks >= nks) break;
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const uint32_t* r = xa + mi * 16 * kLdW + ks * 8;
-      const uint32_t a[4] = {r[0], r[8 * kLdW], r[4], r[8 * kLdW + 4]};
-#pragma unroll
-      for (int ni = 0; ni < G::kWN; ++ni) {
-        const uint2 w = *reinterpret_cast<const uint2*>(wb + (ks * G::kNT + ni) * 64);
-        const uint32_t b[2] = {w.x, w.y};
-        bf16mma::mma(acc[mi][ni], a, b);
-      }
-    }
-  }
-}
-
 // Visit a thread's column pairs: fn(mi, q, h, row, ch) for the warp's tile
 // row `row` (32 wm + 16 mi + gid + 8 h) and the channels ch, ch + 1 that
 // its tiles 2q and 2q + 1 hold (wavenet_fragments pairs the columns so
@@ -332,51 +249,22 @@ __device__ __forceinline__ void stage_aux(float* a_s, const float* c, int c0, in
   }
 }
 
-// stage_aux in bf16: channels c0 .. c0 + kKC - 1 of the tile's rows of a
-// bf16 c (zero past Ca and T) into a_s (rows kLdA bf16 apart), eight
-// channels a thread and step: one 16-byte copy (kV8) or eight 2-byte loads
-// and stores, seen by every thread after the ring's next barrier.
-template <int CH, bool kV8>
-__device__ __forceinline__ void stage_aux_bf16(uint16_t* a_s, const uint16_t* c, int c0, int t0,
-                                               int T, int ca) {
-  using G = Geo<CH, true>;
-  constexpr int kPieces = G::kKC / 8;
-#pragma unroll 1
-  for (int e = threadIdx.x; e < G::kTT * kPieces; e += kThreads) {
-    const int r = e / kPieces, q = (e % kPieces) * 8, t = t0 + r, ch = c0 + q;
-    const uint16_t* src = c + (size_t)t * ca + ch;
-    uint16_t* dst = a_s + r * G::kLdA + q;
-    if constexpr (kV8) {
-      const bool ok = t < T && ch < ca;
-      cp_async<16>(reinterpret_cast<float*>(dst),
-                   reinterpret_cast<const float*>(ok ? src : c), ok);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) dst[j] = t < T && ch + j < ca ? src[j] : uint16_t(0);
-    }
-  }
-}
-
 // One layer for one tile of kTT rows of batch item blockIdx.y. The ring's
 // chunks: the K taps of x (kPerTap each), c's channels (the last chunk
 // ragged), then [Wskip | Wres] against g. kV4: c is copied in 16-byte
 // pieces. At most 128 registers a thread, so that two blocks share an SM.
-// kBF16: the bf16-resident mode (x, c and the weights bf16; see the top of
-// this file).
-template <int CH, bool kV4, bool kBF16 = false>
-__global__ void __launch_bounds__(kThreads, 2) wavenet_layer_kernel(Layer<kBF16> p) {
-  using G = Geo<CH, kBF16>;
-  using IO = io_t<kBF16>;
+template <int CH, bool kV4>
+__global__ void __launch_bounds__(kThreads, 2) wavenet_layer_kernel(Layer p) {
+  using G = Geo<CH>;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);  // kStages operand chunks, then
   float* w_ring = smem + kStages * G::kAF;        // kStages weight chunks
-  IO* g_s = reinterpret_cast<IO*>(smem);          // g, over the operand chunks
+  float* g_s = smem;                              // g, over the operand chunks
   const int b = blockIdx.y, t0 = blockIdx.x * G::kTT, T = p.T;
-  const IO* x = p.x + (size_t)b * T * CH;
-  const IO* c = p.c + (size_t)b * T * p.Ca;
+  const float* x = p.x + (size_t)b * T * CH;
+  const float* c = p.c + (size_t)b * T * p.Ca;
   const int nx = p.K * G::kPerTap;
-  // [skip | res]'s first k-step: Ca is padded to a whole k-step
-  const int ks_out = (p.K * CH + ((p.Ca + G::kKD - 1) & ~(G::kKD - 1))) / G::kKD;
+  const int ks_out = (p.K * CH + ((p.Ca + 7) & ~7)) / 8;  // [skip | res]'s first k-step
   const int ng = nx + (ks_out - nx * G::kKS + G::kKS - 1) / G::kKS;  // chunks of z
   // chunk i's first k-step and k-step count
   auto ks_first = [&](int i) { return i < ng ? i * G::kKS : ks_out + (i - ng) * G::kKS; };
@@ -386,26 +274,22 @@ __global__ void __launch_bounds__(kThreads, 2) wavenet_layer_kernel(Layer<kBF16>
   zero<CH>(acc);
 
   auto stage = [&](int i, int buf) {
-    const float* src = reinterpret_cast<const float*>(p.wf) + (size_t)ks_first(i) * G::kStepF;
+    const float* src = p.wf + (size_t)ks_first(i) * G::kStepF;
     float* dst = w_ring + buf * G::kBF;
     const int nf = ks_count(i) * G::kStepF;
     for (int e = threadIdx.x * 4; e < nf; e += kThreads * 4) cp_async<16>(dst + e, src + e, true);
     if (i >= ng) return;  // g is the operand
-    IO* a_s = reinterpret_cast<IO*>(smem + buf * G::kAF);
+    float* a_s = smem + buf * G::kAF;
     if (i < nx) {
       const int tap = i / G::kPerTap, c0 = (i % G::kPerTap) * G::kKC;
       const int r0 = t0 + tap * p.dil - p.left;
-      constexpr int kPer = 16 / sizeof(IO);  // elements of a 16-byte piece
-      constexpr int kPieces = G::kKC / kPer;
+      constexpr int kPieces = G::kKC / 4;
 #pragma unroll 1
       for (int e = threadIdx.x; e < G::kTT * kPieces; e += kThreads) {
-        const int r = e / kPieces, q = (e % kPieces) * kPer, t = r0 + r;
+        const int r = e / kPieces, q = (e % kPieces) * 4, t = r0 + r;
         const bool ok = t >= 0 && t < T;
-        cp_async<16>(reinterpret_cast<float*>(a_s + r * G::kLdA + q),
-                     reinterpret_cast<const float*>(ok ? x + (size_t)t * CH + c0 + q : x), ok);
+        cp_async<16>(a_s + r * G::kLdA + q, ok ? x + (size_t)t * CH + c0 + q : x, ok);
       }
-    } else if constexpr (kBF16) {
-      stage_aux_bf16<CH, kV4>(a_s, c, (i - nx) * G::kKC, t0, T, p.Ca);
     } else {
       stage_aux<CH, kV4>(a_s, c, (i - nx) * G::kKC, t0, T, p.Ca);
     }
@@ -414,11 +298,7 @@ __global__ void __launch_bounds__(kThreads, 2) wavenet_layer_kernel(Layer<kBF16>
   auto compute = [&](int i, int buf) {
     const float* b_s = w_ring + buf * G::kBF;
     if (i < ng) {
-      if constexpr (kBF16)
-        product_bf16<CH, G::kLdA>(reinterpret_cast<const uint16_t*>(smem + buf * G::kAF), b_s,
-                                  ks_count(i), acc);
-      else
-        product<CH, G::kLdA>(smem + buf * G::kAF, b_s, ks_count(i), acc);
+      product<CH, G::kLdA>(smem + buf * G::kAF, b_s, ks_count(i), acc);
       return;
     }
     if (i == ng) {  // z complete: the gate on the accumulators, g into g_s
@@ -428,18 +308,12 @@ __global__ void __launch_bounds__(kThreads, 2) wavenet_layer_kernel(Layer<kBF16>
                          sigmoid(acc[mi][2 * q][2 * h + 1] + bs.x);
         const float g1 = tanhf(acc[mi][2 * q + 1][2 * h] + bt.y) *
                          sigmoid(acc[mi][2 * q + 1][2 * h + 1] + bs.y);
-        if constexpr (kBF16)  // g rounded to bf16, as JAX's g.astype(bf16)
-          *reinterpret_cast<uint32_t*>(g_s + row * G::kLdG + ch) = bf16mma::pack(g0, g1);
-        else
-          st2(g_s + row * G::kLdG + ch, make_float2(g0, g1));
+        st2(g_s + row * G::kLdG + ch, make_float2(g0, g1));
       });
       zero<CH>(acc);
       __syncthreads();  // every warp's channels of g visible
     }
-    if constexpr (kBF16)
-      product_bf16<CH, G::kLdG>(g_s + (i - ng) * G::kKC, b_s, G::kKS, acc);
-    else
-      product<CH, G::kLdG>(g_s + (i - ng) * G::kKC, b_s, G::kKS, acc);
+    product<CH, G::kLdG>(g_s + (i - ng) * G::kKC, b_s, G::kKS, acc);
   };
 
   pipeline<kStages>(ng + G::kPerTap, stage, compute);
@@ -456,64 +330,30 @@ __global__ void __launch_bounds__(kThreads, 2) wavenet_layer_kernel(Layer<kBF16>
       s = make_float2(prev.x + s.x, prev.y + s.y);
     }
     st2(p.skip + o, s);
-    if constexpr (kBF16) {  // the new residual rounded to bf16 (cvt.rn) as stored
-      const uint32_t u = *reinterpret_cast<const uint32_t*>(p.x + o);
-      *reinterpret_cast<uint32_t*>(p.x_out + o) = bf16mma::pack(
-          (acc[mi][2 * q][2 * h + 1] + br.x + bf16mma::widen(u & 0xFFFFu)) * kSqrtHalf,
-          (acc[mi][2 * q + 1][2 * h + 1] + br.y + bf16mma::widen(u >> 16)) * kSqrtHalf);
-    } else {
-      const float2 xr = ld2(p.x + o);
-      st2(p.x_out + o,
-          make_float2((acc[mi][2 * q][2 * h + 1] + br.x + xr.x) * kSqrtHalf,
-                      (acc[mi][2 * q + 1][2 * h + 1] + br.y + xr.y) * kSqrtHalf));
-    }
+    const float2 xr = ld2(p.x + o);
+    st2(p.x_out + o,
+        make_float2((acc[mi][2 * q][2 * h + 1] + br.x + xr.x) * kSqrtHalf,
+                    (acc[mi][2 * q + 1][2 * h + 1] + br.y + xr.y) * kSqrtHalf));
   });
 }
 
-template <int CH, bool kV4, bool kBF16>
-int launch_layer(const Layer<kBF16>& p, int B, cudaStream_t stream) {
-  using G = Geo<CH, kBF16>;
+template <int CH, bool kV4>
+int launch_layer(const Layer& p, int B, cudaStream_t stream) {
+  using G = Geo<CH>;
   if (G::kSmem > kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(wavenet_layer_kernel<CH, kV4, kBF16>,
+  cudaError_t e = cudaFuncSetAttribute(wavenet_layer_kernel<CH, kV4>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)G::kSmem);
   if (e != cudaSuccess) return e;
   const dim3 grid((p.T + G::kTT - 1) / G::kTT, B);
-  wavenet_layer_kernel<CH, kV4, kBF16><<<grid, kThreads, G::kSmem, stream>>>(p);
+  wavenet_layer_kernel<CH, kV4><<<grid, kThreads, G::kSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
-// c in 16-byte pieces where its rows and its address allow them: 4 floats
-// or 8 bf16
-template <int CH, bool kBF16>
-int launch_width(const Layer<kBF16>& p, int B, cudaStream_t stream) {
-  const bool v4 = p.Ca % (16 / sizeof(io_t<kBF16>)) == 0 &&
-                  reinterpret_cast<uintptr_t>(p.c) % 16 == 0;
-  return v4 ? launch_layer<CH, true, kBF16>(p, B, stream)
-            : launch_layer<CH, false, kBF16>(p, B, stream);
-}
-
-template <bool kBF16>
-int run_layer(const io_t<kBF16>* x, const io_t<kBF16>* c, io_t<kBF16>* x_out, float* skip,
-              const io_t<kBF16>* wf, const float* bconv, const float* bskip, const float* bres,
-              int B, int T, int C, int Ca, int K, int dil, int causal, int accumulate,
-              int device, void* stream) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
-  if (B < 1 || B > 65535 || T < 1 || Ca < 1 || K < 1 || dil < 1)
-    return cudaErrorInvalidValue;
-  const int pad = (K - 1) * dil;
-  const Layer<kBF16> p{x,     c, x_out, skip, wf, bconv, bskip, bres, T, Ca, K, dil,
-                       causal ? pad : pad / 2, accumulate ? 1 : 0};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 16:
-      return launch_width<16>(p, B, s);
-    case 64:
-      return launch_width<64>(p, B, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+template <int CH>
+int launch_width(const Layer& p, int B, cudaStream_t stream) {
+  const bool v4 = p.Ca % 4 == 0 && reinterpret_cast<uintptr_t>(p.c) % 16 == 0;
+  return v4 ? launch_layer<CH, true>(p, B, stream) : launch_layer<CH, false>(p, B, stream);
 }
 
 }  // namespace
@@ -531,20 +371,22 @@ int wavenet_layer(const float* x, const float* c, float* x_out, float* skip,
                   const float* wf, const float* bconv, const float* bskip,
                   const float* bres, int B, int T, int C, int Ca, int K, int dil,
                   int causal, int accumulate, int device, void* stream) {
-  return run_layer<false>(x, c, x_out, skip, wf, bconv, bskip, bres, B, T, C, Ca, K, dil,
-                          causal, accumulate, device, stream);
-}
-
-// wavenet_layer in the bf16-resident mode: x, c and x_out bf16, wf the
-// layer's weights as ops/kernels/mma_bf16.py wavenet_fragments lays them
-// out (bf16), skip and the biases float32; the same alignments (c 4-byte
-// aligned).
-int wavenet_layer_bf16(const uint16_t* x, const uint16_t* c, uint16_t* x_out, float* skip,
-                       const uint16_t* wf, const float* bconv, const float* bskip,
-                       const float* bres, int B, int T, int C, int Ca, int K, int dil,
-                       int causal, int accumulate, int device, void* stream) {
-  return run_layer<true>(x, c, x_out, skip, wf, bconv, bskip, bres, B, T, C, Ca, K, dil,
-                         causal, accumulate, device, stream);
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return e;
+  if (B < 1 || B > 65535 || T < 1 || Ca < 1 || K < 1 || dil < 1)
+    return cudaErrorInvalidValue;
+  const int pad = (K - 1) * dil;
+  const Layer p{x,     c, x_out, skip, wf, bconv, bskip, bres, T, Ca, K, dil,
+                causal ? pad : pad / 2, accumulate ? 1 : 0};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 16:
+      return launch_width<16>(p, B, s);
+    case 64:
+      return launch_width<64>(p, B, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

@@ -1,10 +1,10 @@
-"""bf16 tensor-core products on the host side: the weight layouts that the
-bf16-resident mode of the WaveNet layer kernel (K3 in csrc/wavenet.cu)
-reads through csrc/mma_bf16.cuh, and the tiles that Hopper's warpgroup
-products read in the MelGAN stack kernels (K6 in csrc/melgan_stack_bf16.cu,
-K7 in csrc/melgan_stack_bwd_bf16.cu: ``stack_wgmma``), the forward TADE
-kernels (K8a/K8b, csrc/tade_bf16.cu: ``tade_forward_wgmma``) and the TADE
-stage backward (K9a/K9b, csrc/tade_bwd_bf16.cu: ``tade_conv_wgmma``).
+"""bf16 tensor-core products on the host side: the weight tiles that
+Hopper's warpgroup products read in the bf16-resident modes of the WaveNet
+stack (K3 in csrc/wavenet_bf16.cu: ``wavenet_wgmma``), the MelGAN stack
+kernels (K6 in csrc/melgan_stack_bf16.cu, K7 in
+csrc/melgan_stack_bwd_bf16.cu: ``stack_wgmma``), the forward TADE kernels
+(K8a/K8b, csrc/tade_bf16.cu: ``tade_forward_wgmma``) and the TADE stage
+backward (K9a/K9b, csrc/tade_bwd_bf16.cu: ``tade_conv_wgmma``).
 
 The JAX kernels' bf16 mode (``mxu_bf16``) casts every dot operand to
 bf16 and accumulates in float32. Here the weights are rounded to bf16 once
@@ -27,23 +27,6 @@ def rounded(v):
     float32: what the bf16 plain versions take for an operand that JAX
     casts."""
     return v.to(torch.bfloat16).float()
-
-
-def fragments(wk):
-    """A (..., K, N) product operand (a stack of them), K a multiple of 16
-    and N of 8, rounded to bf16 and laid out as the B operands of m16n8k16
-    bf16 products: (..., K / 16, N / 8, 32, 4) bf16, entry [ks, nt, lane]
-    = (wk[16 ks + 2 tig, 8 nt + gid], wk[.. + 1, ..], wk[.. + 8, ..],
-    wk[.. + 9, ..]) with lane = 4 gid + tig."""
-    *lead, k, n = wk.shape
-    d = len(lead)
-    if k % 16 or n % 8:
-        raise ValueError(f"bf16 fragments need a depth of a multiple of 16 and a "
-                         f"width of a multiple of 8, got {tuple(wk.shape)}")
-    # (ks, half, tig, pair, nt, gid) -> (ks, nt, gid, tig, half, pair)
-    x = wk.detach().to(torch.bfloat16).reshape(*lead, k // 16, 2, 4, 2, n // 8, 8)
-    x = x.permute(*range(d), d, d + 4, d + 5, d + 2, d + 1, d + 3)
-    return x.reshape(*lead, k // 16, n // 8, 32, 4).contiguous()
 
 
 def _check(stacks):
@@ -173,25 +156,33 @@ def tade_forward_wgmma(aux_w, g_w, gc_w):
 
 
 def wavenet_depth(c: int, ca: int, k: int) -> int:
-    """Depth of a WaveNet layer's bf16 fragment tensor: K taps of C
-    channels, Ca zero-padded to a multiple of 16, then C for [Wskip |
-    Wres]."""
+    """Depth of a WaveNet layer's bf16 tile: K taps of C channels, Ca
+    zero-padded to a multiple of 16, then C for [Wskip | Wres]."""
     return k * c + (ca + 15) // 16 * 16 + c
 
 
-def wavenet_fragments(weights):
-    """The bf16 counterpart of ``tf32x3.wavenet_fragments``: the two products
-    of L WaveNet layers (``wavenet_matrix``: the gate's [Wconv[0]; ..;
-    Wconv[K-1]; Waux] and [Wskip | Wres] below it, Waux zero-padded to a
-    multiple of 16 rows here), the columns paired as K3 pairs them
+def wavenet_wgmma(weights):
+    """The two products of L WaveNet layers as K3's bf16 mode reads them
+    (csrc/wavenet_bf16.cu): ``wavenet_matrix``'s gate [Wconv[0]; ..;
+    Wconv[K-1]; Waux] with Waux zero-padded to a multiple of 16 rows and
+    [Wskip | Wres] below it, the columns paired as K3 pairs them
     (``_pair_columns``: tanh_j beside sigmoid_j, skip_j beside res_j),
-    rounded to bf16 in ``fragments``' layout: (L, ``wavenet_depth`` / 16,
-    C / 4, 32, 4) bf16. What csrc/wavenet.cu's bf16 mode takes."""
+    rounded to bf16 and cut into 8 x 8 core matrices of 128 contiguous
+    bytes, (L, ``wavenet_depth`` * 2C) bf16: M[k][n] at (k // 8) 16 C + (n
+    // 8) 64 + (k % 8) 8 + n % 8, so that a core's row is 8 columns of one
+    k. The kernel reads its k16 step s through an MN-major no-swizzle
+    descriptor at 64 C s bytes, cores 32 C bytes apart along K and 128
+    along N; each layer's tile is one bulk copy
+    (tests/test_torch_port_wavenet_bf16_layout.py reads the tiles back as
+    the card does). A permutation of 8 x 8 blocks: no index is kept."""
     m = wavenet_matrix(weights)
     n_layers, _, n = m.shape
     k, c = weights["wconv"].shape[1:3]
     ca = weights["waux"].shape[1]
     head = k * c + (ca + 7) // 8 * 8  # the gate's rows, Ca padded to 8
-    pad = wavenet_depth(c, ca, k) - m.shape[1]
-    m = torch.cat([m[:, :head], m.new_zeros(n_layers, pad, n), m[:, head:]], dim=1)
-    return fragments(_pair_columns(m).reshape(m.shape))
+    depth = wavenet_depth(c, ca, k)
+    m = torch.cat([m[:, :head], m.new_zeros(n_layers, depth - m.shape[1], n), m[:, head:]],
+                  dim=1)
+    m = _pair_columns(m).reshape(m.shape).to(torch.bfloat16)
+    return (m.reshape(n_layers, depth // 8, 8, n // 8, 8).permute(0, 1, 3, 2, 4)
+            .reshape(n_layers, depth * n).contiguous())

@@ -14,10 +14,14 @@ seed 0 (the first cycle: 10 layers, d = 1 .. 512) and random inputs:
   and at B=6, T=25600 (a training batch; a training forward splits its
   weights once per call);
 - K3's bf16-resident mode per v1 cycle at B=1, T=131072 (``compute_dtype=
-  torch.bfloat16`` on the bf16 fragments of ``with_fragments_bf16``, what
-  decode keeps for ``pallas_stack_bf16``) beside its bf16 plain version,
-  where the tree has the mode (null otherwise), to hold beside the float32
-  K3 above;
+  torch.bfloat16`` on the bf16 weights that decode keeps for
+  ``pallas_stack_bf16``: ``with_tiles_bf16``, or the older trees'
+  ``with_fragments_bf16``) beside its bf16 plain version, where the tree
+  has the mode (null otherwise), to hold beside the float32 K3 above; with
+  its device time by part (torch.profiler, ``bf16_parts``: each layer's
+  kernel, and the casts and copies around them) and its host time a call
+  (the enqueue, without waiting for the card: ``time_melgan._host_us``);
+  with ``--k3-bf16`` this alone is timed;
 - K5, one layer at d=1, B=1, T=131072 (``fused_gated_resblock`` on the
   block weights of ``prepare_kernels`` with ``use_pallas_kernels``);
 - ``wavenet_stack_backward`` per v1 cycle at B=6, T=25600 as two 5-layer
@@ -103,12 +107,60 @@ def _k4_margins(root: str) -> None:
                           "layer_input_max_err": errs}))
 
 
+def kernel_trace(fn, tries: int = 3) -> list:
+    """[(short kernel name, device µs)] of one call of fn in launch order,
+    from torch.profiler's trace, after a traced warm-up call that is
+    discarded (as ``time_melgan.profile_by_kernel``); a call whose trace
+    holds no kernel is run again, up to ``tries`` times."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from parallelwavegan_tpu_torch.ops.kernels.time_melgan import short_name
+
+    for _ in range(tries):
+        events = []
+
+        def keep(prof):
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "trace.json")
+                prof.export_chrome_trace(path)
+                with open(path) as f:
+                    events.extend(e for e in json.load(f)["traceEvents"]
+                                  if e.get("cat") == "kernel")
+
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=keep) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        if events:
+            break
+    return [(short_name(e["name"]), float(e["dur"]))
+            for e in sorted(events, key=lambda e: e["ts"])]
+
+
+def bf16_parts(trace: list) -> dict:
+    """A bf16 cycle's device time by part from ``kernel_trace``: each
+    layer's kernel in launch order (``wavenet_bf16_kernel``, or the older
+    trees' ``wavenet_layer_kernel``), their sum, and the rest (x's and c's
+    casts to bf16, the outputs' casts back), in ms."""
+    layers = [us for name, us in trace if name.startswith("wavenet_")]
+    return {"layer_us": layers, "layers_ms": sum(layers) / 1e3,
+            "other_ms": sum(us for name, us in trace if not name.startswith("wavenet_")) / 1e3}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=os.path.abspath(
         os.path.join(os.path.dirname(__file__), "..", "..", "..")))
     ap.add_argument("--k4-margins", action="store_true",
                     help="print K4's GPU-test margins instead of timing")
+    ap.add_argument("--k3-bf16", action="store_true",
+                    help="time K3's bf16-resident mode alone")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -123,7 +175,7 @@ def main(argv=None) -> None:
     from chip_smoke import SEED, V1_PWG_GENERATOR
     from parallelwavegan_tpu_torch.models import get_model_class
     from parallelwavegan_tpu_torch.ops.kernels import wavenet as wn
-    from parallelwavegan_tpu_torch.ops.kernels.time_melgan import by_kernel
+    from parallelwavegan_tpu_torch.ops.kernels.time_melgan import _host_us, by_kernel
     from parallelwavegan_tpu_torch.ops.kernels.wavenet_train import (
         wavenet_stack_backward,
         wavenet_stack_backward_reference,
@@ -171,17 +223,29 @@ def main(argv=None) -> None:
     out = {"root": root}
     with torch.inference_mode():
         x, c = randn(1, 131072, 64), randn(1, 131072, 80)
-        out["k3_decode"] = timed(lambda: wn.fused_wavenet_stack(x, c, kept, dils),
-                                 lambda: wn.wavenet_stack_reference(x, c, plain_w, dils))
-        out["k3_decode_split_per_call"] = timed(
-            lambda: wn.fused_wavenet_stack(x, c, plain_w, dils),
-            lambda: wn.wavenet_stack_reference(x, c, plain_w, dils))
         out["k3_bf16_decode"] = None
+        if not args.k3_bf16:
+            out["k3_decode"] = timed(lambda: wn.fused_wavenet_stack(x, c, kept, dils),
+                                     lambda: wn.wavenet_stack_reference(x, c, plain_w, dils))
+            out["k3_decode_split_per_call"] = timed(
+                lambda: wn.fused_wavenet_stack(x, c, plain_w, dils),
+                lambda: wn.wavenet_stack_reference(x, c, plain_w, dils))
         if hasattr(wn, "wavenet_stack_reference_bf16"):
-            kept_bf16 = wn.with_fragments_bf16(plain_w)
-            out["k3_bf16_decode"] = timed(
-                lambda: wn.fused_wavenet_stack(x, c, kept_bf16, dils, torch.bfloat16),
-                lambda: wn.wavenet_stack_reference_bf16(x, c, plain_w, dils))
+            keep = getattr(wn, "with_tiles_bf16", None) or wn.with_fragments_bf16
+            kept_bf16 = keep(plain_w)
+
+            def bf16_cycle():
+                return wn.fused_wavenet_stack(x, c, kept_bf16, dils, torch.bfloat16)
+
+            rec = timed(bf16_cycle,
+                        lambda: wn.wavenet_stack_reference_bf16(x, c, plain_w, dils))
+            rec["bf16_parts"] = bf16_parts(kernel_trace(bf16_cycle))
+            rec["host_us"] = _host_us(bf16_cycle)
+            out["k3_bf16_decode"] = rec
+        if args.k3_bf16:
+            print(card)
+            print(json.dumps(out))
+            return
         args = [bw[k] for k in wn.WEIGHT_KEYS]
         out["k5_layer_d1"] = timed(
             lambda: wn.fused_gated_resblock(x, c, *args, dilation=1, **bkw),

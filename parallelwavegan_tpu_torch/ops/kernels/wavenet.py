@@ -36,20 +36,21 @@ rounded to bf16 before [Wskip | Wres], the skip summed in float32 and the
 residual rounded to bf16 at every layer; both outputs come back in x's
 type. Its plain version is ``wavenet_stack_reference_bf16`` (float32
 products of the operands rounded where JAX rounds them). On the card it
-is the kernel's bf16 instantiation (csrc/wavenet.cu): x stays bf16 through
-all the layers of a call and c is cast once, the weights are rounded once
-into bf16 fragments (``mma_bf16.wavenet_fragments``, kept as
-``frag_bf16`` by ``with_fragments_bf16``), one m16n8k16 bf16 product per
-16-deep k-step. Bound at PWG v1 (one 10-layer cycle, T = 131,072): 0.114
-ms of bf16 products at 989 TFLOP/s against 89 MB of the cycle's own
-inputs and outputs (0.027 ms at 3.35 TB/s), so bound by operations; the
-one launch per layer moves about 1.2 GB (0.36 ms), most of it the float32
-skip's read and write, which the TPU kernel keeps in VMEM for the whole
-cycle. Inference-only, as in JAX.
+is csrc/wavenet_bf16.cu on Hopper's warpgroup products: x stays bf16
+through all the layers of a call and c is cast once, the weights are
+rounded once into wgmma's tiles (``mma_bf16.wavenet_wgmma``, kept as
+``tiles_bf16`` by ``with_tiles_bf16``), and one host call
+(``wavenet_stack_bf16``) queues every layer's launch. Bound at PWG v1 (one
+10-layer cycle, T = 131,072): 0.114 ms of bf16 products at 989 TFLOP/s
+against 89 MB of the cycle's own inputs and outputs (0.027 ms at 3.35
+TB/s), so bound by operations; the launch per layer moves about 1.2 GB
+(0.36 ms), most of it the float32 skip's read and write, which the TPU
+kernel keeps in VMEM for the whole cycle. Inference-only, as in JAX.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -148,8 +149,8 @@ _WIDTHS = (16, 64)  # residual = skip = gate / 2, instantiated in wavenet.cu
 
 def _check_cuda_inputs(x, c, weights, n_layers, bf16: bool = False) -> None:
     """bf16: the bf16 mode's operands, x and c bf16, the weights float32 or
-    bf16 (rounded either way) beside float32 biases and a bf16
-    ``frag_bf16``."""
+    bf16 (rounded either way) beside float32 biases and bf16
+    ``tiles_bf16``."""
     if x.dim() != 3 or c is None or c.dim() != 3:
         raise ValueError("x and c must be (B, T, C) tensors")
     b, t, ch = x.shape
@@ -177,11 +178,11 @@ def _check_cuda_inputs(x, c, weights, n_layers, bf16: bool = False) -> None:
         build.check_tensor(key, weights[key], x.device, shapes[key], align=8,
                            dtypes=kinds)
     if bf16:
-        if weights.get("frag_bf16") is not None:
+        if weights.get("tiles_bf16") is not None:
             build.check_tensor(
-                "frag_bf16", weights["frag_bf16"], x.device,
-                (n_layers, mma_bf16.wavenet_depth(ch, ca, k) // 16, ch // 4, 32, 4),
-                align=16, dtypes=build.BF16)
+                "tiles_bf16", weights["tiles_bf16"], x.device,
+                (n_layers, mma_bf16.wavenet_depth(ch, ca, k) * 2 * ch), align=16,
+                dtypes=build.BF16)
     elif weights.get("frag") is not None:
         build.check_tensor("frag", weights["frag"], x.device,
                            (n_layers, wavenet_depth(ch, ca, k) // 8, ch // 4, 32, 4),
@@ -199,50 +200,73 @@ def with_fragments(weights):
     return dict(weights, frag=wavenet_fragments(one)[0])
 
 
-def with_fragments_bf16(weights):
+def with_tiles_bf16(weights):
     """``weights`` (a stack's) with the bf16 mode's weights rounded to bf16
-    in the kernel's fragment order (``frag_bf16``,
-    ``mma_bf16.wavenet_fragments``), for a decode that runs the same
-    weights many times; as stale as the weights it was made from."""
-    return dict(weights, frag_bf16=mma_bf16.wavenet_fragments(weights))
+    in the kernel's tiles (``tiles_bf16``, ``mma_bf16.wavenet_wgmma``), for
+    a decode that runs the same weights many times; as stale as the weights
+    it was made from."""
+    return dict(weights, tiles_bf16=mma_bf16.wavenet_wgmma(weights))
 
 
-def _run_layers(x, c, weights, dilations, causal: bool, counter, outs=None,
-                bf16: bool = False):
+def _run_layers(x, c, weights, dilations, causal: bool, counter, outs=None):
     """One kernel launch per layer on the current stream; x ping-pongs
     between two buffers, skip is written by the first layer and added to
     by the others. The weights' split is ``weights["frag"]`` where given,
     else made here, once for all the layers. Given a list ``outs``, each
     layer writes a buffer of its own and appends it to ``outs``.
-    ``counter.launches`` counts the launches. ``bf16``: the bf16 mode (x
-    and c bf16, the skip float32) on ``weights["frag_bf16"]`` or the bf16
-    fragments made here; ``counter.bf16_launches`` counts these too."""
+    ``counter.launches`` counts the launches."""
     lib = build.load()
     dev, stream = build.launch_target(x)
     b, t, ch = x.shape
     ca, k = c.shape[2], weights["wconv"].shape[1]
-    frag = weights.get("frag_bf16" if bf16 else "frag")
+    frag = weights.get("frag")
     if frag is None:  # held until the launches are queued
-        frag = mma_bf16.wavenet_fragments(weights) if bf16 else wavenet_fragments(weights)
+        frag = wavenet_fragments(weights)
     skip = torch.empty_like(x, dtype=torch.float32)
     n_bufs = len(dilations) if outs is not None else min(2, len(dilations))
     bufs = [torch.empty_like(x) for _ in range(n_bufs)]
     src = x
     for layer, d in enumerate(dilations):
         dst = bufs[layer % n_bufs]
-        lib.call("wavenet_layer_bf16" if bf16 else "wavenet_layer", src.data_ptr(),
-                 c.data_ptr(), dst.data_ptr(), skip.data_ptr(), frag[layer].data_ptr(),
+        lib.call("wavenet_layer", src.data_ptr(), c.data_ptr(), dst.data_ptr(),
+                 skip.data_ptr(), frag[layer].data_ptr(),
                  *(weights[key][layer].data_ptr()
                    for key in ("bconv", "bskip", "bres")),
                  b, t, ch, ca, k, int(d), int(causal), int(layer > 0), dev,
                  stream)
         counter.launches += 1
-        if bf16:
-            counter.bf16_launches += 1
         src = dst
     if outs is not None:
         outs.extend(bufs)
     return src, skip
+
+
+def _run_stack_bf16(x, c, weights, dilations, counter):
+    """The bf16 mode's layers (x and c bf16, the skip float32) as one host
+    call, ``wavenet_stack_bf16``, which queues one launch per layer on the
+    current stream, x ping-ponging between two buffers; on
+    ``weights["tiles_bf16"]`` or the tiles made here. ``counter.bf16_calls``
+    counts the host calls; ``counter.launches`` and
+    ``counter.bf16_launches`` the launches."""
+    lib = build.load()
+    dev, stream = build.launch_target(x)
+    b, t, ch = x.shape
+    ca, k = c.shape[2], weights["wconv"].shape[1]
+    tiles = weights.get("tiles_bf16")
+    if tiles is None:  # held until the launches are queued
+        tiles = mma_bf16.wavenet_wgmma(weights)
+    n = len(dilations)
+    skip = torch.empty_like(x, dtype=torch.float32)
+    bufs = [torch.empty_like(x) for _ in range(min(2, n))]
+    dils = (ctypes.c_int * n)(*(int(d) for d in dilations))
+    lib.call("wavenet_stack_bf16", x.data_ptr(), c.data_ptr(), bufs[0].data_ptr(),
+             bufs[-1].data_ptr(), skip.data_ptr(), tiles.data_ptr(),
+             *(weights[key].data_ptr() for key in ("bconv", "bskip", "bres")),
+             dils, n, b, t, ch, ca, k, dev, stream)
+    counter.bf16_calls += 1
+    counter.launches += n
+    counter.bf16_launches += n
+    return bufs[(n - 1) % 2], skip
 
 
 def _device_of(x, name: str) -> str:
@@ -261,11 +285,12 @@ def fused_wavenet_stack(x, c, weights, dilations, compute_dtype=torch.float32):
     where the dict has it) and raises on anything it does not take; a CPU
     tensor goes through ``wavenet_stack_reference``.
     ``compute_dtype=torch.bfloat16`` is the bf16-resident mode (module
-    docstring): x float32 or bf16, the outputs in x's type, the rounded
-    weights ``frag_bf16`` of ``with_fragments_bf16`` used where the dict
-    has them; on a CPU tensor ``wavenet_stack_reference_bf16``.
-    ``fused_wavenet_stack.launches`` counts the kernel launches,
-    ``.bf16_launches`` those of the bf16 mode. ``build.check_grid``
+    docstring), one host call for all the layers: x float32 or bf16, the
+    outputs in x's type, the rounded weights ``tiles_bf16`` of
+    ``with_tiles_bf16`` used where the dict has them; on a CPU tensor
+    ``wavenet_stack_reference_bf16``. ``fused_wavenet_stack.launches``
+    counts the kernel launches, ``.bf16_launches`` those of the bf16 mode
+    and ``.bf16_calls`` its host calls. ``build.check_grid``
     refuses, on any device, a batch or a length that the kernel's grid
     cannot take.
     """
@@ -285,13 +310,13 @@ def fused_wavenet_stack(x, c, weights, dilations, compute_dtype=torch.float32):
         return _run_layers(x, c, weights, dilations, False, fused_wavenet_stack)
     xb, cb = x.to(torch.bfloat16).contiguous(), c.to(torch.bfloat16).contiguous()
     _check_cuda_inputs(xb, cb, weights, len(dilations), bf16=True)
-    xo, skip = _run_layers(xb, cb, weights, dilations, False, fused_wavenet_stack,
-                           bf16=True)
+    xo, skip = _run_stack_bf16(xb, cb, weights, dilations, fused_wavenet_stack)
     return xo.to(x.dtype), skip.to(x.dtype)
 
 
 fused_wavenet_stack.launches = 0
 fused_wavenet_stack.bf16_launches = 0
+fused_wavenet_stack.bf16_calls = 0
 
 
 def fused_wavenet_cycle(x, c, weights, dilations, *,

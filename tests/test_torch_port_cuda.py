@@ -335,12 +335,12 @@ def test_wavenet_stack_bf16_matches_plain_version(cuda, ch, ca, b, t):
     on weights rounded per call, bit for bit."""
     from parallelwavegan_tpu_torch.ops.kernels.wavenet import (
         wavenet_stack_reference_bf16,
-        with_fragments_bf16,
+        with_tiles_bf16,
     )
 
     dil = tuple(2 ** i for i in range(10))
     w = {k: v.to(cuda) for k, v in _wavenet_weights(len(dil), ch, ca, seed=ch + ca).items()}
-    kept = with_fragments_bf16(w)
+    kept = with_tiles_bf16(w)
     rs = np.random.RandomState(t)
     x = torch.from_numpy(rs.randn(b, t, ch).astype(np.float32)).to(cuda)
     c = torch.from_numpy(rs.randn(b, t, ca).astype(np.float32)).to(cuda)
@@ -349,7 +349,8 @@ def test_wavenet_stack_bf16_matches_plain_version(cuda, ch, ca, b, t):
     def trunc(v):
         return (v.contiguous().view(torch.int32) & ~0xFFFF).view(torch.float32)
 
-    before = (fused_wavenet_stack.launches, fused_wavenet_stack.bf16_launches)
+    before = (fused_wavenet_stack.launches, fused_wavenet_stack.bf16_launches,
+              fused_wavenet_stack.bf16_calls)
     xl = x
     with torch.inference_mode():
         for li, d in enumerate(dil):
@@ -374,21 +375,23 @@ def test_wavenet_stack_bf16_matches_plain_version(cuda, ch, ca, b, t):
     assert xb[0].dtype == bf16 and torch.equal(xb[0].float(), got[0])
     assert got[0].dtype == got[1].dtype == torch.float32
     # one layer of the loop above is two bf16 launches (the kernel and the
-    # truncated control) and one float32 launch
+    # truncated control), each a host call, and one float32 launch; each
+    # cycle is one host call of n launches
     n = len(dil)
     assert (fused_wavenet_stack.launches - before[0],
-            fused_wavenet_stack.bf16_launches - before[1]) == (3 * n + 3 * n, 2 * n + 3 * n)
+            fused_wavenet_stack.bf16_launches - before[1],
+            fused_wavenet_stack.bf16_calls - before[2]) == (3 * n + 3 * n, 2 * n + 3 * n, 2 * n + 3)
 
 
 def test_wavenet_stack_bf16_refuses_what_it_does_not_take(cuda):
-    from parallelwavegan_tpu_torch.ops.kernels.wavenet import with_fragments_bf16
+    from parallelwavegan_tpu_torch.ops.kernels.wavenet import with_tiles_bf16
 
     w = {k: v.to(cuda) for k, v in _wavenet_weights(1, 64, 80).items()}
     x = torch.zeros(1, 16, 64, device=cuda)
     c = torch.zeros(1, 16, 80, device=cuda)
-    stale = dict(w, frag_bf16=with_fragments_bf16(w)["frag_bf16"][:, :-1])
+    stale = dict(w, tiles_bf16=with_tiles_bf16(w)["tiles_bf16"][:, :-8])
     with torch.inference_mode():
-        with pytest.raises(ValueError, match="frag_bf16 has shape"):
+        with pytest.raises(ValueError, match="tiles_bf16 has shape"):
             fused_wavenet_stack(x, c, stale, (1,), torch.bfloat16)
         narrow = {k: v.to(cuda) for k, v in _wavenet_weights(1, 8, 80).items()}
         with pytest.raises(ValueError, match="residual width 8"):
@@ -410,15 +413,17 @@ def test_pwg_generator_bf16_stack_on_the_card(cuda):
     gen.remove_weight_norm()
     gen.eval().to(cuda)
     gen.prepare_kernels()
-    assert "frag_bf16" in gen._kernel_cache["stack"][0]
+    assert "tiles_bf16" in gen._kernel_cache["stack"][0]
     z = torch.randn(2, 1, 40 * 16, generator=torch.Generator().manual_seed(5)).to(cuda)
     c = torch.randn(2, 80, 44, generator=torch.Generator().manual_seed(6)).to(cuda)
-    before = (fused_wavenet_stack.launches, fused_wavenet_stack.bf16_launches)
+    before = (fused_wavenet_stack.launches, fused_wavenet_stack.bf16_launches,
+              fused_wavenet_stack.bf16_calls)
     with torch.inference_mode():
         got = gen(z, c)
         torch.cuda.synchronize()
         assert (fused_wavenet_stack.launches - before[0],
-                fused_wavenet_stack.bf16_launches - before[1]) == (6, 6)
+                fused_wavenet_stack.bf16_launches - before[1],
+                fused_wavenet_stack.bf16_calls - before[2]) == (6, 6, 1)
         real = pwg_mod.fused_wavenet_stack
         pwg_mod.fused_wavenet_stack = lambda x, cc, w, d, dt: wavenet_stack_reference_bf16(
             x, cc, {k: w[k] for k in WEIGHT_KEYS}, d)

@@ -5,7 +5,8 @@ tensor) held against the JAX package's ``fused_wavenet_stack(...,
 compute_dtype=jnp.bfloat16)`` in interpret mode, and the Parallel WaveGAN
 generator with ``use_pallas_stack`` and ``pallas_stack_bf16`` against
 JAX's (``PALLAS_INTERPRET_OK=1``, set by tests/conftest.py, sends JAX
-through its fused path), with the weights' bf16 fragments read back.
+through its fused path). The card kernel's weight tiles and arithmetic are
+held on the CPU by tests/test_torch_port_wavenet_bf16_layout.py.
 
 Both sides round the same operands to bf16 (x when a call starts, c, the
 weights, g and every layer's new residual) and sum exact products in
@@ -49,7 +50,6 @@ from parallelwavegan_tpu_torch.convert.jax_params import (  # noqa: E402
     jax_params_to_state_dict,
 )
 from parallelwavegan_tpu_torch.models import get_model_class  # noqa: E402
-from parallelwavegan_tpu_torch.ops.kernels import mma_bf16, tf32x3  # noqa: E402
 from parallelwavegan_tpu_torch.ops.kernels import wavenet as wn  # noqa: E402
 
 PWG = "ParallelWaveGANGenerator"
@@ -143,36 +143,6 @@ def test_stack_wrapper_routes_the_cpu_to_the_bf16_plain_version():
     leaf = {k: v.clone().requires_grad_() for k, v in w.items()}
     with pytest.raises(RuntimeError, match="inference-only"):
         wn.fused_wavenet_stack(x, c, leaf, DILATIONS, torch.bfloat16)
-
-
-@pytest.mark.parametrize("c,ca", [(16, 8), (16, 10), (64, 80)])
-def test_bf16_fragments_read_back_as_the_rounded_weights(c, ca):
-    """``mma_bf16.wavenet_fragments`` read back in the order that
-    csrc/mma_bf16.cuh documents (entry [ks, nt, lane] = B[16 ks + 2 tig,
-    8 nt + gid], B[.. + 1], B[.. + 8], B[.. + 9]) and unpaired: the gate's
-    [Wconv[0..K-1]; Waux; 0] and [Wskip | Wres], rounded to bf16."""
-    w = _t(_weights(3, c, ca))
-    frag = mma_bf16.wavenet_fragments(w)
-    depth = mma_bf16.wavenet_depth(c, ca, K)
-    assert depth % 16 == 0
-    assert frag.dtype == torch.bfloat16
-    assert tuple(frag.shape) == (L, depth // 16, c // 4, 32, 4)
-    # (ks, nt, gid, tig, half, pair) -> rows 16 ks + 8 half + 2 tig + pair,
-    # columns 8 nt + gid
-    f = frag.float().reshape(L, depth // 16, 2 * c // 8, 8, 4, 2, 2)
-    paired = f.permute(0, 1, 5, 4, 6, 2, 3).reshape(L, depth, 2 * c)
-    # undo _pair_columns: column 8 nt + 2 tig + e <- C e + 8 (nt // 2) + 2 tig + nt % 2
-    natural = paired.reshape(L, depth, c // 8, 2, 4, 2).permute(0, 1, 5, 2, 4, 3)
-    natural = natural.reshape(L, depth, 2 * c)
-    gate = torch.cat([w["wconv"].reshape(L, K * c, 2 * c), w["waux"],
-                      torch.zeros(L, depth - K * c - ca - c, 2 * c)], dim=1)
-    want = torch.cat([gate, torch.cat([w["wskip"], w["wres"]], dim=2)], dim=1)
-    assert torch.equal(natural, want.to(torch.bfloat16).float())
-    # paired as the float32 split pairs them
-    pair = tf32x3._pair_columns(want.reshape(-1, 2 * c)).reshape(want.shape)
-    assert torch.equal(paired, pair.to(torch.bfloat16).float())
-    kept = wn.with_fragments_bf16(w)
-    assert torch.equal(kept["frag_bf16"], frag) and kept["wconv"] is w["wconv"]
 
 
 @pytest.fixture(scope="module")
